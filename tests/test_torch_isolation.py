@@ -1,0 +1,52 @@
+"""The port stands alone: no module of it, nor ``chip_smoke.py``, loads JAX or
+the JAX package; and ``chip_smoke.py`` fails without a GPU."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import pytorch_asr_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pytorch_asr_tpu") or m.startswith(("jax.", "pytorch_asr_tpu.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _run(code_or_args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *code_or_args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    proc = _run(["-c", _PROBE], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "pytorch_asr_tpu_torch.ops.stft_cuda" in report["modules"]
+    assert "pytorch_asr_tpu_torch.decode" in report["modules"]
+    assert report["bad"] == []
+
+
+def test_chip_smoke_fails_without_a_gpu_or_the_port(tmp_path):
+    """Alone in a directory it has no port to import, and without a GPU it
+    refuses to run: both exit non-zero and print no result line."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    runs = [tmp_path] + ([] if torch.cuda.is_available() else [ROOT])
+    for cwd in runs:
+        proc = _run(["chip_smoke.py"], cwd)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

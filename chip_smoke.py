@@ -3,40 +3,62 @@
 Phases, each of which must pass (any failure exits non-zero before the
 result line):
   1. print the card (``nvidia-smi`` name and power limit) and the versions;
-     build both CUDA kernels from ``pytorch_asr_tpu_torch/csrc`` (set-up);
-  2. hold each kernel against its plain PyTorch version at the serving
-     path's full shapes, and time kernel, plain version and a PyTorch
-     library yardstick with CUDA events (median of 20 runs of 10 queued
-     calls each, after warm-up);
+     build the CUDA kernels from ``pytorch_asr_tpu_torch/csrc`` (set-up);
+  2. hold each kernel against its plain PyTorch version at the full shapes
+     of the serving and training paths: the STFT log-mel (K1), the LSTM
+     inference forward (K2), the LSTM training forward and backward (K3)
+     and the CTC alpha and beta recursions (K4); time kernel, plain version
+     and a PyTorch library yardstick with CUDA events (median of repeated
+     runs of queued calls, after warm-up);
   3. run the model at float32 on one synthetic batch on the CPU and on the
      card with the same seeded weights; compare logits and greedy tokens;
-  4. drive the main path, ``pytorch_asr_tpu_torch.decode.main`` with
-     ``ctc_bilstm_dev1h`` at full width in bf16 on 10-16 s utterances, with
-     the launch counters set to 0 just before and read just after;
-  5. profile one decode batch and print where its device time goes;
-  6. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+     then one float32 train step, card vs CPU: loss, gradients, and the
+     parameters after one AdamW step;
+  4. drive the serving path, ``pytorch_asr_tpu_torch.decode.main``, and the
+     training path, ``pytorch_asr_tpu_torch.train.main``, with
+     ``ctc_bilstm_dev1h`` at full width in bf16 on 10-16 s utterances, each
+     with the launch counters set to 0 just before and read just after;
+  5. train the tiny config of the JAX package's end-to-end test to a low
+     WER on the card;
+  6. profile one decode batch and one train step: device time by kernel;
+  7. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from pytorch_asr_tpu_torch import decode
+from pytorch_asr_tpu_torch import decode, train
 from pytorch_asr_tpu_torch.configs import get_config
-from pytorch_asr_tpu_torch.configs.base import FrontendConfig
-from pytorch_asr_tpu_torch.data import build_dataset
+from pytorch_asr_tpu_torch.configs.base import (
+    BiLSTMEncoderConfig,
+    DataConfig,
+    FrontendConfig,
+    ModelConfig,
+    OptimConfig,
+    TrainConfig,
+)
+from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.evaluate import build_model, eval_step
 from pytorch_asr_tpu_torch.frontend import features
-from pytorch_asr_tpu_torch.ops import build, lstm_cuda, stft_cuda
+from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len, set_residual_dtype
+from pytorch_asr_tpu_torch.ops import build, ctc, ctc_cuda, lstm_cuda, stft_cuda
+from pytorch_asr_tpu_torch.runtime import set_fp32_math
+from pytorch_asr_tpu_torch.training import state as train_state
+from pytorch_asr_tpu_torch.training.trainer import Trainer
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
 PEAK_BYTES_S = 3.35e12
@@ -54,6 +76,35 @@ LSTM_TOL = 1e-2              # bf16 output: one bf16 step below 1 (2^-8) + fp32 
 SLICE_TOL = 1e-3             # float32 slice, card vs CPU: FFT, conv and dot orders
 DECODE_BATCHES = 4
 LAYERS = 3
+LSTM_LENGTHS = [T_LSTM, 371, 352, 330, 310, 290, 260, 250]
+# K3, relative to each tensor's largest entry.  float32 residuals and
+# gradients: 400-step fp32 recurrences and sums over B*T rows taken in other
+# orders.  bf16 outputs, residuals and dx / dwih: one bf16 step (2^-8
+# relative) where the two sides' fp32 values straddle a rounding boundary.
+K3_F32_TOL = 1e-3
+K3_BF16_TOL = 1e-2
+# K4: float32 log-space recursions, as the JAX package holds its Pallas CTC
+# kernels to its scan; alphas are log values of up to ~T' log V.
+CTC_RTOL, CTC_ALPHA_ATOL = 1e-5, 1e-4
+CTC_GRAD_RTOL, CTC_GRAD_ATOL = 1e-4, 1e-5
+V = 31                       # char vocabulary
+# One float32 train step at full width, card vs CPU: the slice's FFT, conv
+# and dot orders again, through the backward.  Gradients are held relative
+# to each tensor's largest entry; after one AdamW step a coordinate moves by
+# about lr * sign(g), and where |g| is at float32 noise the two devices may
+# move it in opposite directions, so the parameters are held to 2 lr.
+# The conv weights see the log-mel directly, and the card's K1 and the CPU's
+# fp32 rfft differ by up to STFT_TOL in bands near log_floor: on the CPU a
+# one-ulp change of the audio already moves the conv gradients by ~7e-4 of
+# their largest entry (H 128, 3 layers), the LSTM ones by ~2e-6.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 1e-4
+STEP_CONV_GRAD_TOL = 5e-3
+TRAIN_STEPS = 20             # the training main path: steps of full batches of 8
+TRAIN_UTTS = 64              # 8 full batches an epoch, and 8 full eval batches
+EVAL_BATCHES = 8             # train.main evaluates 8 batches after each chunk
+LEARN_STEPS = (10, 290)      # the JAX package's end-to-end test: 300 steps
+CARD = torch.device("cuda")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -137,8 +188,8 @@ def stft_phase() -> dict:
     # right and the audio padded by n_fft - win, which frames exactly as
     # center=False over win samples; then the same mel product and log.
     n_freq = cfg.n_fft // 2 + 1
-    window = torch.zeros(cfg.n_fft, device="cuda")
-    window[: cfg.win_length] = torch.hann_window(cfg.win_length, device="cuda")
+    window = torch.zeros(cfg.n_fft, device=audio.device)
+    window[: cfg.win_length] = torch.hann_window(cfg.win_length, device=audio.device)
     mel = torch.from_numpy(features.mel_filterbank(cfg)).cuda()
     padded = torch.nn.functional.pad(audio, (0, cfg.n_fft - cfg.win_length))
 
@@ -174,7 +225,7 @@ def stft_phase() -> dict:
 
 def lstm_phase() -> dict:
     g = torch.Generator().manual_seed(2)
-    lengths = torch.tensor([T_LSTM, 371, 352, 330, 310, 290, 260, 250], dtype=torch.int32)
+    lengths = torch.tensor(LSTM_LENGTHS, dtype=torch.int32)
     cases = []
     for D in (2 * H, 640):        # layers 1-2, then layer 0 (20 freq x 32 channels)
         x = (torch.randn(B, T_LSTM, D, generator=g) * 0.5).bfloat16().cuda()
@@ -224,6 +275,206 @@ def lstm_phase() -> dict:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "cases": cases}
 
 
+def cudnn_lstm(D: int, wih, whh, bias) -> torch.nn.LSTM:
+    """cuDNN's fp32 LSTM with the same weights (the library yardstick)."""
+    ref = torch.nn.LSTM(D, H, batch_first=True).cuda()
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(wih.float().T)
+        ref.weight_hh_l0.copy_(whh.T)
+        ref.bias_ih_l0.copy_(bias)
+        ref.bias_hh_l0.zero_()
+    return ref
+
+
+def lstm_train_phase() -> list[dict]:
+    """K3 at the training path's shapes: the training forward's output and
+    residuals, then the backward over those residuals for a fixed upstream
+    gradient, each against its plain version; with float32 residuals and with
+    bf16 residuals as on the path (the bf16 cases are also timed)."""
+    g = torch.Generator().manual_seed(3)
+    lengths = torch.tensor(LSTM_LENGTHS, dtype=torch.int32)
+    valid = int(lengths.sum())
+    G = 4 * H
+    cases = []
+    for D in (2 * H, 640):
+        x = (torch.randn(B, T_LSTM, D, generator=g) * 0.5).bfloat16().cuda()
+        wih = (torch.randn(D, G, generator=g) / D ** 0.5).bfloat16().cuda()
+        whh = (torch.randn(H, G, generator=g) / H ** 0.5).cuda()
+        bias = (torch.randn(G, generator=g) * 0.1).cuda()
+        gy = torch.randn(B, T_LSTM, H, generator=g).cuda()
+        lens = lengths.cuda()
+        for reverse in (False, True):
+            for res in (torch.float32, torch.bfloat16):
+                args = (x, wih, whh, bias, lens, reverse, torch.bfloat16, res)
+                got = lstm_cuda.lstm_seq_train_fwd(*args)
+                torch.cuda.synchronize()
+                want = lstm_cuda.lstm_seq_train_plain(*args)
+                case = {"D": D, "reverse": reverse, "residuals": str(res).split(".")[1]}
+                bargs = (gy, x, wih, whh, lens, got[1], got[2], reverse)
+                dgot = lstm_cuda.lstm_seq_bwd(*bargs)
+                torch.cuda.synchronize()
+                dwant = lstm_cuda.lstm_seq_bwd_plain(*bargs)
+                for name, a, b in zip(("out", "acts", "ct", "dx", "dwih", "dwhh", "db"),
+                                      (*got, *dgot), (*want, *dwant)):
+                    check(a.dtype == b.dtype and bool(torch.isfinite(a.float()).all()),
+                          f"K3 {name}: non-finite or of type {a.dtype}, not {b.dtype}")
+                    err, rel = errors(a, b)
+                    tol = K3_BF16_TOL if a.dtype == torch.bfloat16 else K3_F32_TOL
+                    check(rel <= tol, f"K3 {name} D={D} reverse={reverse} {res}: "
+                                      f"{rel} > {tol} of its largest entry")
+                    case[name] = {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
+                if res == torch.bfloat16:
+                    ref = cudnn_lstm(D, wih, whh, bias)
+                    xf = x.float().requires_grad_(True)
+                    ref_out, _ = ref(xf)
+                    ref_in = [xf, *ref.parameters()]
+                    case.update(
+                        fwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_train_fwd(*args), 5, 4, 1),
+                        bwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_bwd(*bargs), 5, 4, 1),
+                        plain_fwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_train_plain(*args),
+                                             3, 1, 1),
+                        plain_bwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_bwd_plain(*bargs),
+                                             3, 1, 1),
+                        library_fwd_ms=time_ms(lambda: ref(xf), 5, 4, 1),
+                        library_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                            ref_out, ref_in, gy, retain_graph=True), 5, 4, 1))
+                    rb = 2
+                    fwd_bytes = (2 * B * T_LSTM * D + 2 * D * G + 4 * H * G + 4 * G + 4 * B
+                                 + 2 * B * T_LSTM * H + rb * T_LSTM * B * (G + H))
+                    # The residuals hold the gates of every step, so the
+                    # projection covers all B*T rows; the recurrent product
+                    # runs at the valid steps and once more for the held state.
+                    case["fwd_bound_ms"], case["fwd_bound_by"] = bound(
+                        fwd_bytes, 2 * D * G * B * T_LSTM / PEAK_BF16_S
+                        + 2 * H * G * (valid + B) / PEAK_FP32_S)
+                    bwd_bytes = (4 * B * T_LSTM * H + 2 * B * T_LSTM * D + 2 * D * G + 4 * H * G
+                                 + 4 * B + rb * T_LSTM * B * (G + H) + 2 * B * T_LSTM * D
+                                 + 2 * D * G + 4 * H * G + 4 * G)
+                    # dgates is 0 off the valid steps: the dh recurrence and
+                    # the dx, dwih, dwhh, db products over the valid rows, in
+                    # float32 as the JAX package computes them.
+                    bwd_ops = valid * (2 * G * H + 2 * G * D + 2 * G * D + 2 * G * H + G)
+                    case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
+                        bwd_bytes, bwd_ops / PEAK_FP32_S)
+                cases.append(case)
+    head = next(c for c in cases if "fwd_ms" in c)
+    shape = (f"x ({B}, {T_LSTM}, {2 * H}) bf16, H {H}, lengths {LSTM_LENGTHS}, "
+             f"bf16 residuals")
+    out = []
+    for name, outs, stem, line, what in (
+            ("lstm_seq_train_fwd", ("out", "acts", "ct"), "fwd", 395, "forward"),
+            ("lstm_seq_bwd", ("dx", "dwih", "dwhh", "db"), "bwd", 403,
+             "backward (autograd.grad, graph kept)")):
+        out.append({
+            "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/lstm_seq.cu",
+            "replaces": f"pytorch_asr_tpu/ops/lstm_pallas.py:{line}", "shape": shape,
+            "max_abs_err": max(c[o]["max_abs_err"] for c in cases for o in outs),
+            "max_rel_err": max(c[o]["max_rel_err"] for c in cases for o in outs),
+            "tol": {"float32": K3_F32_TOL, "bfloat16": K3_BF16_TOL},
+            "ms": head[f"{stem}_ms"], "plain_ms": head[f"plain_{stem}_ms"],
+            "library_ms": head[f"library_{stem}_ms"],
+            "library": f"torch.nn.LSTM (cuDNN, fp32, all lengths = T) {what}",
+            "bound_ms": head[f"{stem}_bound_ms"], "bound_by": head[f"{stem}_bound_by"],
+            "cases": [{k: v for k, v in c.items() if k in ("D", "reverse", "residuals")
+                       or k.startswith(stem) or k.startswith(f"plain_{stem}")
+                       or k.startswith(f"library_{stem}") or k in outs} for c in cases]})
+    return out
+
+
+def ctc_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
+              atol: float) -> float:
+    """Check ``got`` against ``want``; returns the largest absolute error over
+    the entries above the NEG_INF sentinel."""
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"K4 {name}: {m}")
+    live = want > ctc.NEG_INF / 2
+    return float((got - want).detach().abs()[live].max()) if bool(live.any()) else 0.0
+
+
+def ctc_phase() -> list[dict]:
+    """K4 at the training path's shapes: labels of a batch of 10-16 s
+    synthetic utterances over T' = 400 frames, with one row of
+    ``logit_len == 0`` and one infeasible row."""
+    cfg = get_config("ctc_bilstm_dev1h", **{"data.synthetic_min_sec": "10",
+                                            "data.synthetic_max_sec": "16",
+                                            "data.synthetic_num_utts": str(B),
+                                            "data.auto_buckets": "1"})
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    enc = cfg.model.encoder
+    logit_len = features.num_frames(torch.from_numpy(batch["audio_len"]), cfg.frontend)
+    for _ in enc.conv_channels:
+        logit_len = conv_out_len(logit_len, enc.conv_kernel[0], enc.conv_stride[0])
+    label_len = torch.from_numpy(batch["token_len"]).to(torch.int32)
+    logit_len = logit_len.to(torch.int32)
+    logit_len[B - 2] = 0                                     # a row with no frames
+    logit_len[B - 1] = label_len[B - 1] // 2                 # infeasible
+    T = int(logit_len.max())
+    g = torch.Generator().manual_seed(4)
+    logits = (torch.randn(B, T, V, generator=g) * 2).cuda()
+    labels = torch.from_numpy(batch["tokens"]).cuda()
+    logit_len, label_len = logit_len.cuda(), label_len.cuda()
+
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    S = logp_tbs.shape[2]
+    alphas, final = ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)
+    torch.cuda.synchronize()
+    ref_alphas, ref_final = ctc.alphas_plain(logp_tbs, skip, logit_len)
+    alpha_err = max(ctc_close("alphas", alphas, ref_alphas, CTC_RTOL, CTC_ALPHA_ATOL),
+                    ctc_close("final alpha", final, ref_final, CTC_RTOL, CTC_ALPHA_ATOL))
+    logz = ctc.terminal_logz(ref_final, label_len)
+    feasible = (logz > ctc.NEG_INF / 2) & (logit_len > 0)
+    check(feasible.tolist() == [True] * (B - 2) + [False, False],
+          f"K4: feasible rows {feasible.tolist()}")
+    bargs = (logp_tbs, ref_alphas, ctc.shift_left(skip, 2, fill=False).contiguous(),
+             ctc.terminal_betas(label_len, S), torch.where(feasible, logit_len, 0).to(torch.int32),
+             torch.where(feasible, logz, 0.0))
+    w = ctc_cuda.ctc_beta(*bargs)
+    torch.cuda.synchronize()
+    beta_err = ctc_close("posteriors", w, ctc.posteriors_plain(*bargs), CTC_GRAD_RTOL,
+                         CTC_GRAD_ATOL)
+
+    a, b = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
+    loss, ref = ctc_cuda.ctc_loss(a, logit_len, labels, label_len), ctc.ctc_loss(
+        b, logit_len, labels, label_len)
+    loss.sum().backward()
+    ref.sum().backward()
+    loss_err = ctc_close("loss", loss, ref, CTC_RTOL, CTC_RTOL)
+    grad_err = ctc_close("gradient", a.grad, b.grad, CTC_GRAD_RTOL, CTC_GRAD_ATOL)
+    check(not loss[B - 2:].any() and not a.grad[B - 2:].any(),
+          "K4: empty and infeasible rows must give loss 0 and gradient 0")
+
+    # Yardstick: torch's CTC with zero_infinity, forward; its backward with
+    # the graph kept (log-probabilities in, as F.ctc_loss takes them).
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).detach().requires_grad_(True)
+    lib = lambda: F.ctc_loss(lp, labels.long(), logit_len.long(), label_len.long(),  # noqa: E731
+                             reduction="none", zero_infinity=True)
+    lib_loss = lib()
+    frames = int(logit_len.sum())
+    # log-sum-exp of three terms: 3 exp, 1 log and ~8 adds and maxima a state
+    # and frame (the beta adds the posterior's add, subtract and exp).
+    alpha_bytes = 4 * T * B * S + B * S + 4 * B + 4 * T * B * S + 4 * B * S
+    beta_bytes = 2 * 4 * T * B * S + B * S + 4 * B * S + 8 * B + 4 * T * B * S
+    common = {"route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/ctc_alpha_beta.cu",
+              "shape": f"logp_tbs ({T}, {B}, {S}) f32, V {V}, "
+                       f"label_len {label_len.tolist()}, logit_len {logit_len.tolist()}",
+              "loss_max_abs_err": loss_err, "grad_max_abs_err": grad_err}
+    alpha = {"name": "ctc_alpha", **common, "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:279",
+             "max_abs_err": alpha_err, "tol": {"rtol": CTC_RTOL, "atol": CTC_ALPHA_ATOL},
+             "ms": time_ms(lambda: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)),
+             "plain_ms": time_ms(lambda: ctc.alphas_plain(logp_tbs, skip, logit_len), 3, 1, 1),
+             "library_ms": time_ms(lib), "library": "F.ctc_loss forward (zero_infinity)"}
+    alpha["bound_ms"], alpha["bound_by"] = bound(alpha_bytes, 12 * S * frames / PEAK_FP32_S)
+    beta = {"name": "ctc_beta", **common, "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:312",
+            "max_abs_err": beta_err, "tol": {"rtol": CTC_GRAD_RTOL, "atol": CTC_GRAD_ATOL},
+            "ms": time_ms(lambda: ctc_cuda.ctc_beta(*bargs)),
+            "plain_ms": time_ms(lambda: ctc.posteriors_plain(*bargs), 3, 1, 1),
+            "library_ms": time_ms(lambda: torch.autograd.grad(lib_loss.sum(), lp,
+                                                              retain_graph=True)),
+            "library": "F.ctc_loss backward (autograd.grad, graph kept)"}
+    beta["bound_ms"], beta["bound_by"] = bound(beta_bytes, 15 * S * frames / PEAK_FP32_S)
+    return [alpha, beta]
+
+
 def slice_phase() -> dict:
     """Full width, float32 compute, one short synthetic batch: card vs CPU."""
     cfg = get_config("ctc_bilstm_dev1h", **{"model.compute_dtype": "float32",
@@ -231,13 +482,13 @@ def slice_phase() -> dict:
                                             "data.auto_buckets": "1"})
     batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
     outs = {}
-    for device in ("cpu", "cuda"):
+    for name, device in (("cpu", torch.device("cpu")), ("card", CARD)):
         model = build_model(cfg, device)
         with torch.inference_mode():
             out = model(torch.from_numpy(batch["audio"]).to(device),
                         torch.from_numpy(batch["audio_len"]).to(device))
-        outs[device] = {k: v.cpu() for k, v in out.items()}
-    cpu, gpu = outs["cpu"], outs["cuda"]
+        outs[name] = {k: v.cpu() for k, v in out.items()}
+    cpu, gpu = outs["cpu"], outs["card"]
     check(torch.equal(cpu["enc_len"], gpu["enc_len"]), "slice: enc_len differs")
     check(bool(torch.isfinite(gpu["ctc_logits"]).all()), "slice: non-finite logits")
     err, _ = errors(gpu["ctc_logits"], cpu["ctc_logits"])
@@ -252,6 +503,116 @@ def slice_phase() -> dict:
             "clear_frames": float(clear.float().mean()),
             "tokens_equal": bool(torch.equal(ids_c, ids_g) and torch.equal(n_c, n_g)),
             "shape": list(gpu["ctc_logits"].shape)}
+
+
+def train_step_phase() -> dict:
+    """One float32 train step at full width, card vs CPU, from the same seeded
+    weights and batch, dropout 0 and SpecAugment off.  Both save float32
+    residuals: bf16 residuals would round differently on the two devices."""
+    cfg = get_config("ctc_bilstm_dev1h", **{
+        "model.compute_dtype": "float32", "model.encoder.dropout": "0.0",
+        "frontend.specaugment": "false", "data.synthetic_num_utts": str(B),
+        "data.auto_buckets": "1", "train.optim.peak_lr": "1e-3",
+        "train.optim.warmup_steps": "1"})
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    runs = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", CARD)):
+        model = set_residual_dtype(train_state.build_model(cfg, dev), torch.float32)
+        st = train_state.init_train_state(cfg, model)
+        before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        aux = train_state.train_step(cfg, st, train_state.batch_to_device(batch, dev))
+        runs[name] = {"aux": aux, "before": before,
+                      "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+                      "after": {k: v.cpu() for k, v in model.state_dict().items()}}
+    cpu, gpu = runs["cpu"], runs["card"]
+    loss_c, loss_g = float(cpu["aux"]["loss"]), float(gpu["aux"]["loss"])
+    check(math.isfinite(loss_g) and abs(loss_g - loss_c) <= STEP_LOSS_RTOL * abs(loss_c),
+          f"train step loss card {loss_g} vs CPU {loss_c}")
+    lr = gpu["aux"]["lr"]
+    check(lr == cpu["aux"]["lr"], "train step: lr differs")
+    grad_rel = {}
+    for k, gc in cpu["grads"].items():
+        _, grad_rel[k] = errors(gpu["grads"][k], gc)
+        tol = STEP_CONV_GRAD_TOL if k.startswith("encoder.conv.") else STEP_GRAD_TOL
+        check(grad_rel[k] <= tol, f"train step gradient {k}: {grad_rel[k]} of its largest entry")
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])
+    conv_rel = max(v for k, v in worst if k.startswith("encoder.conv."))
+    rest_rel = max(v for k, v in worst if not k.startswith("encoder.conv."))
+    param_err = max(errors(gpu["after"][k], v)[0] for k, v in cpu["after"].items())
+    check(param_err <= 2 * lr, f"params after one AdamW step differ by {param_err} > 2 lr")
+    moved = max(errors(v, cpu["before"][k])[0] for k, v in cpu["after"].items())
+    return {"loss_cpu": loss_c, "loss_card": loss_g, "loss_rtol": STEP_LOSS_RTOL,
+            "grad_norm_cpu": float(cpu["aux"]["grad_norm"]),
+            "grad_norm_card": float(gpu["aux"]["grad_norm"]),
+            "conv_grad_max_rel_err": conv_rel, "conv_grad_tol": STEP_CONV_GRAD_TOL,
+            "grad_max_rel_err": rest_rel, "grad_tol": STEP_GRAD_TOL, "worst_grads": worst[:4],
+            "param_max_abs_err": param_err, "param_tol": 2 * lr, "param_max_move": moved,
+            "audio_len": batch["audio_len"].tolist()}
+
+
+def train_main_phase() -> dict:
+    """The training main path: ``train.main`` at full width in bf16, full
+    batches of 8 utterances of 10-16 s, then one greedy eval of 8 batches."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["ctc_bilstm_dev1h", "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                f"data.synthetic_num_utts={TRAIN_UTTS}", "data.auto_buckets=1",
+                f"steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS}",
+                f"train.log_every={TRAIN_STEPS}", f"train.checkpoint_dir={ckpt}"]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    last, ev = result["train"], result["eval"]
+    want = {"stft_log_mel": TRAIN_STEPS + EVAL_BATCHES, "lstm_seq": 2 * LAYERS * EVAL_BATCHES,
+            "lstm_seq_train_fwd": 2 * LAYERS * TRAIN_STEPS,
+            "lstm_seq_bwd": 2 * LAYERS * TRAIN_STEPS,
+            "ctc_alpha": TRAIN_STEPS, "ctc_beta": TRAIN_STEPS}
+    check(launches == want, f"train launches {launches} != {want}")
+    check(last.get("step") == TRAIN_STEPS and math.isfinite(last["ctc_loss"])
+          and math.isfinite(last["grad_norm"]), f"train: bad record {last}")
+    check(ev.get("num_utts") == EVAL_BATCHES * B, f"train eval: {ev}")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()
+                if k not in ("lstm_seq", "stft_log_mel")}
+    per_step["stft_log_mel"] = (launches["stft_log_mel"] - EVAL_BATCHES) / TRAIN_STEPS
+    return {"record": last, "eval": ev, "wall_s": wall,
+            "step_s": 1.0 / last["steps_per_sec"], "launches": launches,
+            "launches_per_step": per_step,
+            "lstm_seq_per_eval_batch": launches["lstm_seq"] / EVAL_BATCHES}
+
+
+def learn_phase() -> dict:
+    """The tiny config of the JAX package's end-to-end test, on the card: its
+    loss must fall below half the first logged value and its greedy WER below
+    0.3 after 300 steps."""
+    cfg = dataclasses.replace(
+        get_config("ctc_bilstm_dev1h"),
+        frontend=FrontendConfig(specaugment=False),
+        data=DataConfig(batch_size=4, bucket_audio_lens=(40000,), bucket_label_lens=(48,),
+                        synthetic_num_utts=24),
+        model=ModelConfig(encoder=BiLSTMEncoderConfig(conv_channels=(8, 8), hidden_dim=96,
+                                                      num_layers=2, dropout=0.0),
+                          compute_dtype="float32"),
+        train=TrainConfig(optim=OptimConfig(peak_lr=3e-3, warmup_steps=30, total_steps=400,
+                                            grad_clip_norm=5.0), log_every=50))
+    corpus = synthetic_corpus(cfg.data.synthetic_num_utts, cfg.frontend.sample_rate, seed=0,
+                              min_words=1, max_words=3)
+    dataset = BucketedDataset(corpus, batch_size=cfg.data.batch_size,
+                              bucket_audio_lens=cfg.data.bucket_audio_lens,
+                              bucket_label_lens=cfg.data.bucket_label_lens)
+    t0 = time.perf_counter()
+    with Trainer(cfg, dataset=dataset, enable_checkpoints=False, device=CARD) as trainer:
+        first = trainer.train(num_steps=LEARN_STEPS[0])
+        rest = trainer.train(num_steps=LEARN_STEPS[1])
+        result = trainer.evaluate()
+    wall = time.perf_counter() - t0
+    check(rest["ctc_loss"] < 0.5 * first["ctc_loss"],
+          f"learn: ctc_loss {rest['ctc_loss']} not below half of {first['ctc_loss']}")
+    check(result["wer"] < 0.3 and result["num_utts"] == 24, f"learn: {result}")
+    return {"first_ctc_loss": first["ctc_loss"], "last_ctc_loss": rest["ctc_loss"],
+            "wer": result["wer"], "cer": result["cer"], "steps": sum(LEARN_STEPS),
+            "wall_s": wall}
 
 
 def decode_phase() -> dict:
@@ -282,7 +643,7 @@ def profile_phase() -> list:
                                             "data.synthetic_num_utts": "8",
                                             "data.auto_buckets": "1"})
     batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
-    model = build_model(cfg, "cuda")
+    model = build_model(cfg, CARD)
     with torch.inference_mode():
         eval_step(model, batch)
         torch.cuda.synchronize()
@@ -290,13 +651,43 @@ def profile_phase() -> list:
         with torch.profiler.profile(activities=acts) as prof:
             ids, _ = eval_step(model, batch)
             ids.cpu()
+    return device_rows(prof)[:8]
+
+
+def device_rows(prof) -> list:
+    """Device time by kernel name, largest first."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append({"name": ev.key[:60], "device_ms": dev_us / 1e3, "calls": ev.count})
     rows.sort(key=lambda r: -r["device_ms"])
-    return rows[:8]
+    return rows
+
+
+def train_profile_phase() -> dict:
+    """Device time by kernel name over one full-width bf16 train step on a
+    full batch of 10-16 s utterances, beside the step's host-clock time."""
+    cfg = get_config("ctc_bilstm_dev1h", **{"data.synthetic_min_sec": "10",
+                                            "data.synthetic_max_sec": "16",
+                                            "data.synthetic_num_utts": str(B),
+                                            "data.auto_buckets": "1"})
+    host_batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    st = train_state.init_train_state(cfg, train_state.build_model(cfg, CARD))
+    batch = train_state.batch_to_device(host_batch, CARD)
+    train_state.train_step(cfg, st, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        train_state.train_step(cfg, st, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    total = sum(r["device_ms"] for r in rows)
+    check(total > 0, "train profile: no device time recorded")
+    return {"step_wall_ms": wall_ms, "device_ms": total, "device_busy": total / wall_ms,
+            "top": rows[:12]}
 
 
 def main() -> int:
@@ -308,26 +699,41 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    # Library yardsticks (cuDNN's LSTM and convolutions) in full fp32 too.
+    set_fp32_math()
     t0 = time.perf_counter()
-    logs = build.build(["stft_log_mel", "lstm_seq"])
+    logs = build.build(["stft_log_mel", "lstm_seq", "ctc_alpha_beta"])
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up)")
     for name, log in logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = [stft_phase(), lstm_phase()]
+    kernels = [stft_phase(), lstm_phase(), *lstm_train_phase(), *ctc_phase()]
     for k in kernels:
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
               f"(tol {k['tol']}) ms {k['ms']:.4f} plain {k['plain_ms']:.4f} "
               f"library {k['library_ms']:.4f} bound {k['bound_ms']:.4f} ({k['bound_by']})")
     print("slice:", json.dumps(slice_phase()))
+    print("train_step:", json.dumps(train_step_phase()))
     dec = decode_phase()
     print("decode:", json.dumps(dec))
+    trn = train_main_phase()
+    print("train:", json.dumps(trn))
+    print(f"train: audio_seconds_per_sec_per_chip "
+          f"{trn['record']['audio_seconds_per_sec_per_chip']:.2f} step {trn['step_s']:.4f} s "
+          f"ctc_loss {trn['record']['ctc_loss']:.4f}")
+    print("learn:", json.dumps(learn_phase()))
     for k in kernels:
-        k["launches"] = dec["launches"][k["name"]]
+        # The training path runs every kernel (K2 in its eval); the serving
+        # path runs K1 and K2.  Each count is nonzero where the path runs it.
+        by_path = {"train": trn["launches"][k["name"]],
+                   "decode": dec["launches"].get(k["name"], 0)}
+        check(by_path["train"] > 0, f"{k['name']} never launched on the training path")
+        k["launches"], k["launches_by_path"] = by_path["train"], by_path
         k["kernel_ms"] = k["ms"]
     print("profile:", json.dumps(profile_phase()))
+    print("train_profile:", json.dumps(train_profile_phase()))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

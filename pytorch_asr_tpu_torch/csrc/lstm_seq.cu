@@ -1,9 +1,13 @@
-// One LSTM direction over a padded batch, inference forward, for Hopper
-// (sm_90a), CUDA C++.
+// One LSTM direction over a padded batch, for Hopper (sm_90a), CUDA C++:
+// the inference forward (K2), and the training forward and backward (K3).
 //
-// Replaces: pytorch_asr_tpu/ops/lstm_pallas.py::lstm_seq, inference forward
-// (_fwd_impl with save_residuals=False, kernel body _fwd_kernel).  Python
-// side: ops/lstm_cuda.py.
+// Replaces: pytorch_asr_tpu/ops/lstm_pallas.py::lstm_seq.
+//   lstm_seq_fwd        inference forward (_fwd_impl with save_residuals=False,
+//                       kernel body _fwd_kernel);
+//   lstm_seq_train_fwd  training forward (_fwd_impl(save_residuals=True),
+//                       the residual writes of _fwd_kernel);
+//   lstm_seq_bwd        backward (_vjp_bwd -> _bwd_kernel).
+// Python side: ops/lstm_cuda.py.
 //
 // Computes, for x (B, T, D) in fp32 or bf16, wih (D, 4H) in x's type, whh
 // (H, 4H) fp32, bias (4H) fp32 and lengths (B) int32:
@@ -14,70 +18,98 @@
 // direction walks t = len-1 .. 0 inside the kernel; both directions share
 // the [0, len) window, as in the Pallas kernel.
 //
-// Bound on this card: operations.  At the serving shapes (B 8, T' up to
-// about 400, D 640 or 768, H 384) the projection is 2 * D * 4H operations a
-// valid step and the recurrence 2 * H * 4H in fp32, against about 12 MB of
-// inputs and outputs.  In practice the recurrence is bound by latency: its
-// len steps are serial, and each step needs all of whh (2.4 MB fp32).
+// Training forward residuals, time-major as in the Pallas kernel, in fp32 or
+// bf16 (the residual type):
+//   acts (T, B, 4H): the candidate gate activations (i, f, g, o) at every
+//     step, valid or not.  At the steps outside the window the held state
+//     enters: zeros for the reverse direction (those steps come first), the
+//     last valid h for the forward one, so one extra h @ whh serves them all.
+//   ct (T, B, H): the masked carry, the c that enters the next step.
+// The Pallas kernel also wrote h/c snapshots at each time-chunk boundary,
+// because its grid is chunked.  Here the whole time loop is in one block, so
+// the backward enters from zeros and needs no snapshots.
 //
-// Design, first and simple, in two launches on one stream:
-//  1. input_projection_kernel: xproj = x @ wih + bias for all B*T rows, a
-//     shared-memory tiled product (64x64 tile, 4x4 outputs a thread) with
-//     fp32 FMA accumulation into fp32 scratch.
-//  2. lstm_recurrence_kernel: one block per utterance carries h and c in
-//     shared memory across all steps inside the block (GPU blocks run in no
-//     order, so the TPU grid's carry across sequential grid steps becomes a
-//     loop inside the block).  Each step, thread j computes gate columns
-//     j, j + blockDim, ... as fp32 dot products of h with whh columns read
-//     from L2 (coalesced across threads), then H threads apply the cell.
-//     Only the len valid steps are computed; the rest of the output is
-//     written as zeros once.
-// This keeps only B of the card's SMs busy and reads whh from L2 every
-// step.  Later work: spread whh over a cluster's shared memory so each step
-// reads it from shared memory, and run the projection on tensor cores.
+// Backward, given gy (B, T, H) fp32 (the output's gradient):
+//  1. lstm_bwd_recurrence_kernel: one block per utterance walks the valid
+//     window against the forward's processing order, with dh and dc in
+//     shared memory.  Like _bwd_kernel it rebuilds c_prev from ct and
+//     h_prev = o_prev * tanh(c_prev) from the stored residuals (so bf16
+//     residuals give the gradients of bf16 residuals), and the first
+//     processed step enters from zeros.  dgates is 0 outside [0, len), and the
+//     upstream gradient there never enters the chain (the output there is a
+//     constant 0).  It writes dgates (B, T, 4H) and h_prev (B, T, H) in fp32
+//     to device memory; the TPU kept dgates in VMEM.  About 20 MB a direction
+//     at the training shapes (B 8, T' 400, H 384): a round trip for later work
+//     to remove.  Each step reads all of whh (2.4 MB fp32) from L2, as K2's
+//     forward does.
+//  2. products, each a tiled shared-memory GEMM (gemm_kernel, the style of
+//     K2's projection) with fp32 FMA accumulation: dx = dgates @ wih^T in x's
+//     type; dwih = x^T @ dgates in wih's type; dwhh = h_prev^T @ dgates fp32;
+//     db = column sums of dgates (column_sum_kernel).  The weight gradients
+//     reduce over B*T rows inside one block per output tile, with no atomics,
+//     so they are the same from run to run.
+//
+// Bound on this card: operations.  At the training shapes the projection and
+// the three backward products are each about 2 * B*T * 4H * D operations,
+// against tens of MB of inputs and outputs.  In practice the recurrences are
+// bound by latency: their len steps are serial, and each step needs all of
+// whh from L2.  This keeps only B of the card's SMs busy.  Later work: spread
+// whh over a cluster's shared memory so each step reads it from shared
+// memory, and run the products on tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as a JAX astype
 }
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-constexpr int BM = 64, BN = 64, BK = 16, PROJ_THREADS = 256;
+// Activation of gate column col of 4H: sigmoid for i, f, o; tanh for g.
+__device__ __forceinline__ float gate_act(float v, int col, int H) {
+  return (col >= 2 * H && col < 3 * H) ? tanhf(v) : sigmoid(v);
+}
 
-// y (M, N) fp32 = x (M, K) @ w (K, N) + bias (N); each thread owns rows
-// ty + 16 i and columns tx + 16 j of the block's 64x64 tile.
-template <typename InT>
-__global__ void __launch_bounds__(PROJ_THREADS) input_projection_kernel(
-    const InT* __restrict__ x, const InT* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ y, int M, int N, int K) {
+constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
+
+// C (M, N) = sum_k A(m, k) B(k, n) (+ bias[n]), with A(m, k) = A[m*sam + k*sak]
+// and B(k, n) = B[k*sbk + n*sbn], accumulated in fp32 in k order.  Each
+// thread owns rows ty + 16 i and columns tx + 16 j of the block's 64x64
+// tile.  The loaders walk the unit-stride axis across threads.
+template <typename AT, typename BT, typename OutT>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(
+    const AT* __restrict__ A, long sam, long sak, const BT* __restrict__ Bm, long sbk,
+    long sbn, const float* __restrict__ bias, OutT* __restrict__ C, int M, int N, int K) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const bool a_rows = sak != 1;  // A's unit stride runs along m
+  const bool b_rows = sbn == 1;  // B's unit stride runs along n
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += PROJ_THREADS) {
-      const int r = e / BK, kk = e % BK;
+    for (int e = threadIdx.x; e < BM * BK; e += GEMM_THREADS) {
+      const int r = a_rows ? e % BM : e / BK, kk = a_rows ? e / BM : e % BK;
       const int m = m0 + r, k = k0 + kk;
-      As[kk][r] = (m < M && k < K) ? to_f32(x[(size_t)m * K + k]) : 0.f;
+      As[kk][r] = (m < M && k < K) ? to_f32(A[(size_t)m * sam + (size_t)k * sak]) : 0.f;
     }
-    for (int e = threadIdx.x; e < BK * BN; e += PROJ_THREADS) {
-      const int kk = e / BN, c = e % BN;
+    for (int e = threadIdx.x; e < BK * BN; e += GEMM_THREADS) {
+      const int c = b_rows ? e % BN : e / BK, kk = b_rows ? e / BN : e % BK;
       const int k = k0 + kk, n = n0 + c;
-      Bs[kk][c] = (k < K && n < N) ? to_f32(w[(size_t)k * N + n]) : 0.f;
+      Bs[kk][c] = (k < K && n < N) ? to_f32(Bm[(size_t)k * sbk + (size_t)n * sbn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -101,23 +133,59 @@ __global__ void __launch_bounds__(PROJ_THREADS) input_projection_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) y[(size_t)m * N + n] = acc[i][j] + bias[n];
+      if (n < N) C[(size_t)m * N + n] = from_f32<OutT>(acc[i][j] + (bias ? bias[n] : 0.f));
     }
   }
 }
 
-template <typename OutT>
+// pre[col] = xp[col] + h @ whh[:, col] for every gate column (thread j takes
+// columns j, j + blockDim, ...; whh columns are read from L2, coalesced).
+__device__ __forceinline__ void recurrent_product(const float* h, const float* whh,
+                                                  const float* xp, float* pre, int H) {
+  const int G = 4 * H;
+  for (int col = threadIdx.x; col < G; col += blockDim.x) {
+    float acc = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < H; ++r) acc = fmaf(h[r], whh[(size_t)r * G + col], acc);
+    pre[col] = (xp ? xp[col] : 0.f) + acc;
+  }
+}
+
+// Training residuals at the steps outside [0, len), from the held state h, c.
+template <typename ResT>
+__device__ void fill_invalid_residuals(const float* xproj_b, const float* whh, const float* h,
+                                       const float* c, float* pre, ResT* acts, ResT* ct,
+                                       int b, int B, int T, int H, int len) {
+  const int G = 4 * H;
+  recurrent_product(h, whh, nullptr, pre, H);  // the held h's part, the same at each step
+  __syncthreads();
+  for (int t = len; t < T; ++t) {
+    const float* xp = xproj_b + (size_t)t * G;
+    ResT* a = acts + ((size_t)t * B + b) * G;
+    for (int col = threadIdx.x; col < G; col += blockDim.x)
+      a[col] = from_f32<ResT>(gate_act(xp[col] + pre[col], col, H));
+    for (int k = threadIdx.x; k < H; k += blockDim.x)
+      ct[((size_t)t * B + b) * H + k] = from_f32<ResT>(c[k]);
+  }
+  __syncthreads();
+}
+
+// One block per utterance carries h and c in shared memory across all steps
+// (GPU blocks run in no order, so the TPU grid's carry across sequential grid
+// steps becomes a loop inside the block).  kSave adds the training residuals.
+template <typename OutT, typename ResT, bool kSave>
 __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
     const float* __restrict__ xproj, const float* __restrict__ whh,
-    const int* __restrict__ lengths, OutT* __restrict__ out, int T, int H,
-    int reverse) {
+    const int* __restrict__ lengths, OutT* __restrict__ out, ResT* __restrict__ acts,
+    ResT* __restrict__ ct, int T, int B, int H, int reverse) {
   extern __shared__ float smem[];
-  float* h = smem;          // (H) hidden carry
-  float* c = smem + H;      // (H) cell carry
+  float* h = smem;            // (H) hidden carry
+  float* c = smem + H;        // (H) cell carry
   float* pre = smem + 2 * H;  // (4H) gate pre-activations of this step
   const int b = blockIdx.x;
   const int G = 4 * H;
   const int len = max(0, min(lengths[b], T));
+  const float* xproj_b = xproj + (size_t)b * T * G;
   OutT* ob = out + (size_t)b * T * H;
 
   for (int k = threadIdx.x; k < H; k += blockDim.x) {
@@ -127,16 +195,14 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
   for (size_t i = (size_t)len * H + threadIdx.x; i < (size_t)T * H; i += blockDim.x)
     ob[i] = from_f32<OutT>(0.f);
   __syncthreads();
+  // The reverse direction meets its invalid steps first, from zeros.
+  if constexpr (kSave) {
+    if (reverse) fill_invalid_residuals(xproj_b, whh, h, c, pre, acts, ct, b, B, T, H, len);
+  }
 
   for (int s = 0; s < len; ++s) {
     const int t = reverse ? len - 1 - s : s;
-    const float* xp = xproj + ((size_t)b * T + t) * G;
-    for (int col = threadIdx.x; col < G; col += blockDim.x) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < H; ++r) acc = fmaf(h[r], whh[(size_t)r * G + col], acc);
-      pre[col] = xp[col] + acc;
-    }
+    recurrent_product(h, whh, xproj_b + (size_t)t * G, pre, H);
     __syncthreads();
     for (int k = threadIdx.x; k < H; k += blockDim.x) {
       const float ig = sigmoid(pre[k]);
@@ -148,51 +214,222 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
       c[k] = cn;
       h[k] = hn;
       ob[(size_t)t * H + k] = from_f32<OutT>(hn);
+      if constexpr (kSave) {
+        ResT* a = acts + ((size_t)t * B + b) * G;
+        a[k] = from_f32<ResT>(ig);
+        a[H + k] = from_f32<ResT>(fg);
+        a[2 * H + k] = from_f32<ResT>(gg);
+        a[3 * H + k] = from_f32<ResT>(og);
+        ct[((size_t)t * B + b) * H + k] = from_f32<ResT>(cn);
+      }
+    }
+    __syncthreads();
+  }
+  if constexpr (kSave) {
+    if (!reverse) fill_invalid_residuals(xproj_b, whh, h, c, pre, acts, ct, b, B, T, H, len);
+  }
+}
+
+template <typename ResT>
+__global__ void __launch_bounds__(1024) lstm_bwd_recurrence_kernel(
+    const float* __restrict__ gy, const ResT* __restrict__ acts, const ResT* __restrict__ ct,
+    const float* __restrict__ whh, const int* __restrict__ lengths,
+    float* __restrict__ dgates, float* __restrict__ hprev, int T, int B, int H, int reverse) {
+  extern __shared__ float smem[];
+  float* dh = smem;           // (H) gradient carried into h_prev
+  float* dc = smem + H;       // (H) gradient carried into c_prev
+  float* dg = smem + 2 * H;   // (4H) this step's gate gradients
+  const int b = blockIdx.x;
+  const int G = 4 * H;
+  const int len = max(0, min(lengths[b], T));
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+
+  for (int k = threadIdx.x; k < H; k += blockDim.x) {
+    dh[k] = 0.f;
+    dc[k] = 0.f;
+  }
+  for (size_t i = (size_t)len * G + threadIdx.x; i < (size_t)T * G; i += blockDim.x)
+    dgates[(size_t)b * T * G + i] = 0.f;
+  for (size_t i = (size_t)len * H + threadIdx.x; i < (size_t)T * H; i += blockDim.x)
+    hprev[(size_t)b * T * H + i] = 0.f;
+  __syncthreads();
+
+  for (int s = 0; s < len; ++s) {
+    // Against the forward's processing order: reverse walked len-1 .. 0.
+    const int t = reverse ? s : len - 1 - s;
+    const int tp = reverse ? t + 1 : t - 1;  // the step processed just before t
+    const bool has_prev = reverse ? tp < len : tp >= 0;
+    const ResT* a = acts + ((size_t)t * B + b) * G;
+    const ResT* ap = has_prev ? acts + ((size_t)tp * B + b) * G : a;
+    for (int k = threadIdx.x; k < H; k += blockDim.x) {
+      const float ig = to_f32(a[k]), fg = to_f32(a[H + k]);
+      const float gg = to_f32(a[2 * H + k]), og = to_f32(a[3 * H + k]);
+      const float tanh_c = tanhf(to_f32(ct[((size_t)t * B + b) * H + k]));
+      const float c_prev = has_prev ? to_f32(ct[((size_t)tp * B + b) * H + k]) : 0.f;
+      const float h_prev = has_prev ? to_f32(ap[3 * H + k]) * tanhf(c_prev) : 0.f;
+      const float dh_tot = dh[k] + gy[((size_t)b * T + t) * H + k];
+      const float d_o = dh_tot * tanh_c;
+      const float dc_tot = dc[k] + dh_tot * og * (1.f - tanh_c * tanh_c);
+      dg[k] = dc_tot * gg * ig * (1.f - ig);
+      dg[H + k] = dc_tot * c_prev * fg * (1.f - fg);
+      dg[2 * H + k] = dc_tot * ig * (1.f - gg * gg);
+      dg[3 * H + k] = d_o * og * (1.f - og);
+      dc[k] = dc_tot * fg;
+      hprev[((size_t)b * T + t) * H + k] = h_prev;
+    }
+    __syncthreads();
+    float* dgb = dgates + ((size_t)b * T + t) * G;
+    for (int col = threadIdx.x; col < G; col += blockDim.x) dgb[col] = dg[col];
+    // dh = dgates @ whh^T: a warp per row of whh, lanes across its 4H columns.
+    for (int r = warp; r < H; r += nwarps) {
+      float acc = 0.f;
+      for (int col = lane; col < G; col += 32) acc = fmaf(dg[col], whh[(size_t)r * G + col], acc);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) dh[r] = acc;
     }
     __syncthreads();
   }
 }
 
-template <typename InT>
-cudaError_t launch_projection(const void* x, const void* wih, const float* bias,
-                              float* xproj, int M, int N, int K, cudaStream_t st) {
+// out[n] = sum_m a[m, n], rows in order: one thread a column.
+__global__ void column_sum_kernel(const float* __restrict__ a, float* __restrict__ out, int M,
+                                  int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float acc = 0.f;
+  for (int m = 0; m < M; ++m) acc += a[(size_t)m * N + n];
+  out[n] = acc;
+}
+
+template <typename AT, typename BT, typename OutT>
+cudaError_t gemm(const void* A, long sam, long sak, const void* Bm, long sbk, long sbn,
+                 const float* bias, void* C, int M, int N, int K, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  input_projection_kernel<InT><<<grid, PROJ_THREADS, 0, st>>>(
-      static_cast<const InT*>(x), static_cast<const InT*>(wih), bias, xproj, M, N, K);
+  gemm_kernel<AT, BT, OutT><<<grid, GEMM_THREADS, 0, st>>>(
+      static_cast<const AT*>(A), sam, sak, static_cast<const BT*>(Bm), sbk, sbn, bias,
+      static_cast<OutT*>(C), M, N, K);
+  return cudaGetLastError();
+}
+
+// xproj (B*T, 4H) fp32 = x (B*T, D) @ wih (D, 4H) + bias.
+cudaError_t projection(const void* x, const void* wih, const float* bias, float* xproj, int M,
+                       int D, int G, int in_bf16, cudaStream_t st) {
+  return in_bf16 ? gemm<bf16, bf16, float>(x, D, 1, wih, G, 1, bias, xproj, M, G, D, st)
+                 : gemm<float, float, float>(x, D, 1, wih, G, 1, bias, xproj, M, G, D, st);
+}
+
+template <typename OutT, typename ResT, bool kSave>
+cudaError_t recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
+                       void* acts, void* ct, int B, int T, int H, int reverse, cudaStream_t st) {
+  const size_t smem = (size_t)6 * H * sizeof(float);
+  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = 2 * H >= 1024 ? 1024 : (2 * H + 31) / 32 * 32;
+  kernel<<<B, threads, smem, st>>>(xproj, whh, lengths, static_cast<OutT*>(out),
+                                   static_cast<ResT*>(acts), static_cast<ResT*>(ct), T, B, H,
+                                   reverse);
   return cudaGetLastError();
 }
 
 template <typename OutT>
-cudaError_t launch_recurrence(const float* xproj, const float* whh,
-                              const int* lengths, void* out, int B, int T, int H,
-                              int reverse, cudaStream_t st) {
+cudaError_t train_recurrence(const float* xproj, const float* whh, const int* lengths,
+                             void* out, void* acts, void* ct, int B, int T, int H, int reverse,
+                             int res_bf16, cudaStream_t st) {
+  return res_bf16 ? recurrence<OutT, bf16, true>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                                 reverse, st)
+                  : recurrence<OutT, float, true>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                                  reverse, st);
+}
+
+template <typename ResT>
+cudaError_t bwd_recurrence(const float* gy, const void* acts, const void* ct,
+                           const float* whh, const int* lengths, float* dgates, float* hprev,
+                           int B, int T, int H, int reverse, cudaStream_t st) {
   const size_t smem = (size_t)6 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lstm_recurrence_kernel<OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  auto kernel = lstm_bwd_recurrence_kernel<ResT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int threads = 2 * H >= 1024 ? 1024 : (2 * H + 31) / 32 * 32;
-  lstm_recurrence_kernel<OutT><<<B, threads, smem, st>>>(
-      xproj, whh, lengths, static_cast<OutT*>(out), T, H, reverse);
+  int threads = (4 * H + 31) / 32 * 32;
+  threads = threads > 1024 ? 1024 : threads;
+  kernel<<<B, threads, smem, st>>>(gy, static_cast<const ResT*>(acts),
+                                   static_cast<const ResT*>(ct), whh, lengths, dgates, hprev,
+                                   T, B, H, reverse);
+  return cudaGetLastError();
+}
+
+template <typename InT>
+cudaError_t bwd_products(const float* dgates, const float* hprev, const void* x,
+                         const void* wih, void* dx, void* dwih, float* dwhh, float* db, int M,
+                         int D, int H, cudaStream_t st) {
+  const int G = 4 * H;
+  // dx (M, D) = dgates (M, G) @ wih^T: B(k=g, n=d) = wih[d*G + g].
+  cudaError_t err = gemm<float, InT, InT>(dgates, G, 1, wih, 1, G, nullptr, dx, M, D, G, st);
+  if (err != cudaSuccess) return err;
+  // dwih (D, G) = x^T @ dgates: A(m=d, k=row) = x[row*D + d].
+  err = gemm<InT, float, InT>(x, 1, D, dgates, G, 1, nullptr, dwih, D, G, M, st);
+  if (err != cudaSuccess) return err;
+  // dwhh (H, G) = h_prev^T @ dgates.
+  err = gemm<float, float, float>(hprev, 1, H, dgates, G, 1, nullptr, dwhh, H, G, M, st);
+  if (err != cudaSuccess) return err;
+  column_sum_kernel<<<(G + 255) / 256, 256, 0, st>>>(dgates, db, M, G);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// xproj: (B, T, 4H) fp32 scratch; in_bf16 / out_bf16 pick the types of
-// x and wih / of out (else fp32).  Returns the first failing launch's
-// cudaError_t, or 0.
+// Inference forward.  xproj: (B, T, 4H) fp32 scratch; in_bf16 / out_bf16
+// pick the types of x and wih / of out (else fp32).  Returns the first
+// failing launch's cudaError_t, or 0.
 extern "C" int lstm_seq_fwd(const void* x, const void* wih, const float* whh,
                             const float* bias, const int* lengths, float* xproj,
                             void* out, int B, int T, int D, int H, int reverse,
                             int in_bf16, int out_bf16, void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = in_bf16
-      ? launch_projection<__nv_bfloat16>(x, wih, bias, xproj, B * T, 4 * H, D, st)
-      : launch_projection<float>(x, wih, bias, xproj, B * T, 4 * H, D, st);
+  cudaError_t err = projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
   if (err != cudaSuccess) return err;
-  return out_bf16
-      ? launch_recurrence<__nv_bfloat16>(xproj, whh, lengths, out, B, T, H, reverse, st)
-      : launch_recurrence<float>(xproj, whh, lengths, out, B, T, H, reverse, st);
+  return out_bf16 ? recurrence<bf16, float, false>(xproj, whh, lengths, out, nullptr, nullptr,
+                                                   B, T, H, reverse, st)
+                  : recurrence<float, float, false>(xproj, whh, lengths, out, nullptr,
+                                                    nullptr, B, T, H, reverse, st);
+}
+
+// Training forward: as lstm_seq_fwd, plus the residuals acts (T, B, 4H) and
+// ct (T, B, H) in bf16 when res_bf16, else fp32.
+extern "C" int lstm_seq_train_fwd(const void* x, const void* wih, const float* whh,
+                                  const float* bias, const int* lengths, float* xproj,
+                                  void* out, void* acts, void* ct, int B, int T, int D, int H,
+                                  int reverse, int in_bf16, int out_bf16, int res_bf16,
+                                  void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
+  if (err != cudaSuccess) return err;
+  return out_bf16 ? train_recurrence<bf16>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                           reverse, res_bf16, st)
+                  : train_recurrence<float>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                            reverse, res_bf16, st);
+}
+
+// Backward.  gy: (B, T, H) fp32; dgates (B, T, 4H) and hprev (B, T, H): fp32
+// scratch; dx (B, T, D) in x's type, dwih (D, 4H) in wih's (= x's) type,
+// dwhh (H, 4H) and db (4H) fp32.
+extern "C" int lstm_seq_bwd(const float* gy, const void* x, const void* wih, const float* whh,
+                            const int* lengths, const void* acts, const void* ct,
+                            float* dgates, float* hprev, void* dx, void* dwih, float* dwhh,
+                            float* db, int B, int T, int D, int H, int reverse, int in_bf16,
+                            int res_bf16, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = res_bf16
+      ? bwd_recurrence<bf16>(gy, acts, ct, whh, lengths, dgates, hprev, B, T, H, reverse, st)
+      : bwd_recurrence<float>(gy, acts, ct, whh, lengths, dgates, hprev, B, T, H, reverse, st);
+  if (err != cudaSuccess) return err;
+  return in_bf16 ? bwd_products<bf16>(dgates, hprev, x, wih, dx, dwih, dwhh, db, B * T, D, H, st)
+                 : bwd_products<float>(dgates, hprev, x, wih, dx, dwih, dwhh, db, B * T, D, H,
+                                       st);
 }

@@ -37,8 +37,9 @@ def resolve_buckets(cfg: DataConfig, corpus, tokenizer):
 def build_dataset(cfg: DataConfig, sample_rate: int) -> BucketedDataset:
     """The bucketed synthetic dataset named by ``cfg``."""
     if cfg.librispeech_root:
-        raise ValueError("the port reads only the synthetic corpus so far; "
-                         "leave data.librispeech_root empty")
+        raise NotImplementedError("the LibriSpeech reader is not ported yet: the port "
+                                  "reads only the synthetic corpus; leave "
+                                  "data.librispeech_root empty")
     corpus = synthetic_corpus(
         cfg.synthetic_num_utts, sample_rate, seed=cfg.shuffle_seed,
         min_sec=cfg.synthetic_min_sec or None,

@@ -95,17 +95,37 @@ class BucketedDataset:
                 f"(audio samples x label chars); raise bucket_audio_lens / "
                 f"bucket_label_lens")
 
-    def epoch_batches(self, seed: int = 0) -> Iterator[dict[str, np.ndarray]]:
-        """One shuffled epoch of batches."""
+    def epoch_batches(self, seed: int = 0,
+                      sort_by_length: bool = False) -> Iterator[dict[str, np.ndarray]]:
+        """One epoch of batches.  ``sort_by_length`` yields the SortaGrad
+        ordering (ascending audio length, no shuffle: Deep Speech 2's
+        first-epoch curriculum)."""
         rng = np.random.default_rng(seed)
         pending: list[tuple[int, list[tuple[int, int, np.ndarray]]]] = []
         for bi, examples in enumerate(self.per_bucket):
-            order = rng.permutation(len(examples))
+            if sort_by_length:
+                order = np.argsort([alen for _, alen, _ in examples], kind="stable")
+            else:
+                order = rng.permutation(len(examples))
             for start in range(0, len(examples), self.batch_size):
                 chunk = [examples[j] for j in order[start : start + self.batch_size]]
                 pending.append((bi, chunk))
-        rng.shuffle(pending)  # interleave buckets
+        if sort_by_length:
+            # ascending by the longest utterance actually in the batch
+            pending.sort(key=lambda bc: max(alen for _, alen, _ in bc[1]))
+        else:
+            rng.shuffle(pending)  # interleave buckets
         for bi, chunk in pending:
             examples = [(np.asarray(self._corpus[i][0], np.float32), toks)
                         for i, _alen, toks in chunk]
             yield _emit(examples, self.buckets[bi], self.batch_size)
+
+    def repeat_batches(self, seed: int = 0, sortagrad: bool = False
+                       ) -> Iterator[dict[str, np.ndarray]]:
+        """Epoch after epoch, epoch e shuffled with ``seed + e``; with
+        ``sortagrad`` the first epoch is length-sorted."""
+        epoch = 0
+        while True:
+            yield from self.epoch_batches(seed + epoch,
+                                          sort_by_length=sortagrad and epoch == 0)
+            epoch += 1

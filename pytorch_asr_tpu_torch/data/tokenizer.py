@@ -20,7 +20,8 @@ def get_tokenizer(vocab: str = "char") -> "CharTokenizer":
     BPE vocabularies wait for the slice that ports ``data/bpe.py``."""
     if vocab == "char":
         return CharTokenizer()
-    raise ValueError(f"unsupported vocab {vocab!r}: the port reads only 'char'")
+    raise NotImplementedError(f"vocab {vocab!r}: BPE is not ported yet; the port "
+                              "reads only 'char'")
 
 
 class CharTokenizer:

@@ -9,7 +9,7 @@ from typing import Mapping
 import torch
 
 from pytorch_asr_tpu_torch.configs.base import ExperimentConfig
-from pytorch_asr_tpu_torch.data import build_dataset, get_tokenizer
+from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_tokenizer
 from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
@@ -39,9 +39,11 @@ def eval_step(model: ASRModel, batch: dict) -> tuple[torch.Tensor, torch.Tensor]
     return greedy_ctc(out["ctc_logits"], out["enc_len"])
 
 
-def evaluate(cfg: ExperimentConfig, model: ASRModel, max_batches: int | None = None) -> dict:
-    """Greedy-decode WER/CER and decode RTF over the synthetic corpus of ``cfg.data``."""
-    dataset = build_dataset(cfg.data, cfg.frontend.sample_rate)
+def evaluate(cfg: ExperimentConfig, model: ASRModel, max_batches: int | None = None,
+             dataset: BucketedDataset | None = None) -> dict:
+    """Greedy-decode WER/CER and decode RTF over ``dataset`` (by default the
+    synthetic corpus of ``cfg.data``)."""
+    dataset = dataset or build_dataset(cfg.data, cfg.frontend.sample_rate)
     refs: list[str] = []
     hyps: list[str] = []
     audio_sec = 0.0

@@ -1,6 +1,7 @@
 """Frontend + encoder + CTC head (counterpart of ``pytorch_asr_tpu.models.asr_model``).
 
-Eval only: no waveform augmentation, no SpecAugment, no LAS decoder.  The
+No waveform augmentation (config 5) and no LAS decoder yet; SpecAugment and
+dropout run in train mode, drawn from an explicit ``torch.Generator``.  The
 compute dtype is applied by explicit casts where the JAX modules cast
 (flax ``dtype=``): the convs, the LSTM inputs and the CTC head run in it,
 while the frontend, CMVN and the LSTM recurrence stay float32.
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig, ModelConfig
+from pytorch_asr_tpu_torch.frontend.specaugment import SpecAugmentConfig, spec_augment
 from pytorch_asr_tpu_torch.models.encoder_bilstm import BiLSTMEncoder
 from pytorch_asr_tpu_torch.ops import stft_cuda
 
@@ -22,8 +24,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class ASRModel(nn.Module):
-    """``forward(audio, audio_len)`` returns a dict:
-    ctc_logits (B, T', V) float32, enc (B, T', 2H), enc_len (B,)."""
+    """``forward(audio, audio_len, train=False, generator=None)`` returns a
+    dict: ctc_logits (B, T', V) float32, enc (B, T', 2H), enc_len (B,)."""
 
     def __init__(self, frontend_cfg: FrontendConfig, model_cfg: ModelConfig,
                  vocab_size: int, seed: int = 0):
@@ -68,12 +70,24 @@ class ASRModel(nn.Module):
     def compute_features(self, audio: torch.Tensor, audio_len: torch.Tensor):
         return stft_cuda.log_mel(audio, audio_len, self.frontend_cfg)
 
-    def encode(self, audio: torch.Tensor, audio_len: torch.Tensor):
+    def encode(self, audio: torch.Tensor, audio_len: torch.Tensor, train: bool = False,
+               generator: torch.Generator | None = None):
+        fc = self.frontend_cfg
+        if train and fc.waveform_augment:
+            raise NotImplementedError("frontend.waveform_augment (config 5) is not "
+                                      "ported yet")
         feats, feat_len = self.compute_features(audio, audio_len)
-        return self.encoder(feats, feat_len)
+        if train and fc.specaugment:
+            sa_cfg = SpecAugmentConfig(
+                num_freq_masks=fc.sa_freq_masks, freq_mask_width=fc.sa_freq_width,
+                num_time_masks=fc.sa_time_masks, time_mask_fraction=fc.sa_time_fraction,
+                time_warp=fc.sa_time_warp)
+            feats = spec_augment(feats, feat_len, sa_cfg, generator)
+        return self.encoder(feats, feat_len, train, generator)
 
-    def forward(self, audio: torch.Tensor, audio_len: torch.Tensor) -> dict:
-        enc, enc_len = self.encode(audio, audio_len)
+    def forward(self, audio: torch.Tensor, audio_len: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+        enc, enc_len = self.encode(audio, audio_len, train, generator)
         dt = self.compute_dtype
         logits = F.linear(enc.to(dt), self.ctc_head.weight.to(dt), self.ctc_head.bias.to(dt))
         return {"enc": enc, "enc_len": enc_len, "ctc_logits": logits.float()}

@@ -1,6 +1,6 @@
 """conv + BiLSTM encoder (counterpart of ``pytorch_asr_tpu.models.encoder_bilstm``).
 
-Eval only.  Layout follows the JAX package so its weights load as they are:
+Layout follows the JAX package so its weights load as they are:
 the conv output is ordered ``f*C + c`` into the first LSTM layer, the convs
 pad a fixed ``(k-1)//2`` on both sides, and the LSTM weights keep the JAX
 layout ``wih (D, 4H)``, ``whh (H, 4H)``, ``bias (4H,)`` that the kernel takes.
@@ -23,6 +23,15 @@ def conv_out_len(length: torch.Tensor, kernel: int, stride: int) -> torch.Tensor
     ``(kernel-1)//2``, so valid positions do not depend on batch padding."""
     p = (kernel - 1) // 2
     return torch.clamp((length + 2 * p - kernel) // stride + 1, min=0)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each entry with probability 1 - rate, drawn
+    from ``generator``, and scale the kept ones by 1 / (1 - rate) in x's type.
+    (``F.dropout`` takes no generator.)"""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 def _conv_out_size(size: int, kernel: int, stride: int) -> int:
@@ -69,11 +78,16 @@ class ConvSubsampler(nn.Module):
 
 
 class LSTMDirection(nn.Module):
-    """One direction of a BiLSTM layer, through ``ops.lstm_cuda.lstm_seq``."""
+    """One direction of a BiLSTM layer, through ``ops.lstm_cuda.lstm_seq``.
+
+    ``residual_dtype`` is the type of the residuals that training saves:
+    bfloat16, the JAX package's default; a test may set float32 for exact
+    gradients."""
 
     def __init__(self, input_dim: int, hidden_dim: int, reverse: bool, dtype: torch.dtype):
         super().__init__()
         self.reverse, self.dtype = reverse, dtype
+        self.residual_dtype = torch.bfloat16
         self.wih = nn.Parameter(torch.empty(input_dim, 4 * hidden_dim))
         self.whh = nn.Parameter(torch.empty(hidden_dim, 4 * hidden_dim))
         self.bias = nn.Parameter(torch.empty(4 * hidden_dim))
@@ -85,7 +99,16 @@ class LSTMDirection(nn.Module):
         return lstm_cuda.lstm_seq(
             x.to(self.dtype).contiguous(), self.wih.to(self.dtype).contiguous(),
             self.whh.contiguous(), self.bias.contiguous(),
-            lengths.to(torch.int32).contiguous(), self.reverse, self.dtype)
+            lengths.to(torch.int32).contiguous(), self.reverse, self.dtype,
+            self.residual_dtype)
+
+
+def set_residual_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set the training residual type of every LSTM direction in ``model``."""
+    for m in model.modules():
+        if isinstance(m, LSTMDirection):
+            m.residual_dtype = dtype
+    return model
 
 
 class BiLSTMEncoder(nn.Module):
@@ -96,6 +119,7 @@ class BiLSTMEncoder(nn.Module):
         if cfg.causal_conv or not cfg.bidirectional:
             raise NotImplementedError(
                 "the port has the bidirectional, symmetric-padding encoder only")
+        self.cfg = cfg
         self.conv = ConvSubsampler(cfg, n_mels, dtype)
         H = cfg.hidden_dim
         dims = [self.conv.out_dim] + [2 * H] * (cfg.num_layers - 1)
@@ -104,8 +128,11 @@ class BiLSTMEncoder(nn.Module):
                            "bwd": LSTMDirection(d, H, True, dtype)})
             for d in dims)
 
-    def forward(self, feats: torch.Tensor, feat_len: torch.Tensor):
+    def forward(self, feats: torch.Tensor, feat_len: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None):
         x, lengths = self.conv(feats, feat_len)
         for layer in self.layers:
             x = torch.cat([layer["fwd"](x, lengths), layer["bwd"](x, lengths)], dim=-1)
+            if train and self.cfg.dropout > 0:
+                x = dropout(x, self.cfg.dropout, generator)
         return x, lengths

@@ -25,7 +25,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0}
+LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fwd": 0,
+                            "lstm_seq_bwd": 0, "ctc_alpha": 0, "ctc_beta": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

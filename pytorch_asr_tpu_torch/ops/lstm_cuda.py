@@ -1,8 +1,10 @@
-"""One LSTM direction: the CUDA kernel ``csrc/lstm_seq.cu`` and its plain version.
+"""One LSTM direction: the CUDA kernels of ``csrc/lstm_seq.cu`` and their plain versions.
 
-Counterpart of ``pytorch_asr_tpu/ops/lstm_pallas.py::lstm_seq`` (inference
-forward).  ``lstm_seq`` takes the plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors; there is no other switch and no fallback.
+Counterpart of ``pytorch_asr_tpu/ops/lstm_pallas.py::lstm_seq``: the
+inference forward (K2) and, under autograd, the training forward that saves
+residuals plus its backward (K3).  Each wrapper takes its plain PyTorch
+version for CPU tensors and launches its kernel for CUDA tensors; there is no
+other switch and no fallback.
 """
 
 from __future__ import annotations
@@ -14,13 +16,20 @@ import torch
 from pytorch_asr_tpu_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"lstm_seq_fwd": [_P] * 7 + [_I] * 7 + [_P]}
+_SIGNATURES = {"lstm_seq_fwd": [_P] * 7 + [_I] * 7 + [_P],
+               "lstm_seq_train_fwd": [_P] * 9 + [_I] * 8 + [_P],
+               "lstm_seq_bwd": [_P] * 13 + [_I] * 7 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _projection(x, wih, bias):
+    """(B, T, 4H) float32 ``x @ wih + bias``, ``x``'s type accumulated in float32."""
+    return x.float() @ wih.to(x.dtype).float() + bias.float()
 
 
 def lstm_seq_plain(x, wih, whh, bias, lengths, reverse: bool = False,
                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Masked per-step loop, the plain version of the kernel.
+    """Masked per-step loop, the plain version of the inference kernel.
 
     Matches ``pytorch_asr_tpu.models.encoder_bilstm._lstm_scan`` with the
     window mask: the projection ``x @ wih`` of ``x``'s type accumulates in
@@ -30,7 +39,7 @@ def lstm_seq_plain(x, wih, whh, bias, lengths, reverse: bool = False,
     """
     B, T, _ = x.shape
     H = whh.shape[0]
-    xproj = x.float() @ wih.to(x.dtype).float() + bias.float()     # (B, T, 4H)
+    xproj = _projection(x, wih, bias)                                # (B, T, 4H)
     whh = whh.float()
     lengths = lengths.to(x.device)
     h = x.new_zeros((B, H), dtype=torch.float32)
@@ -47,18 +56,93 @@ def lstm_seq_plain(x, wih, whh, bias, lengths, reverse: bool = False,
     return out.to(out_dtype or torch.float32)
 
 
-def lstm_seq(x, wih, whh, bias, lengths, reverse: bool = False,
-             out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Masked LSTM over a batch-major padded sequence.
+def lstm_seq_train_plain(x, wih, whh, bias, lengths, reverse: bool = False,
+                         out_dtype: torch.dtype | None = None,
+                         residual_dtype: torch.dtype = torch.bfloat16):
+    """Plain training forward -> (out (B, T, H), acts (T, B, 4H), ct (T, B, H)).
 
-    Args:
-      x: (B, T, D) float32 or bfloat16, natural time order.
-      wih: (D, 4H) of x's type; whh: (H, 4H) float32; bias: (4H,) float32.
-      lengths: (B,) int32 valid lengths; the window is [0, len) for BOTH
-        directions, and ``reverse`` walks it backwards.
-      out_dtype: float32 (the default) or bfloat16.
-    Returns: (B, T, H) hidden states, zero outside the window.
+    ``out`` as ``lstm_seq_plain``.  ``acts`` holds the candidate gate
+    activations (i, f, g, o) at every step, valid or not; ``ct`` the masked
+    carry (the c entering the next step); both in ``residual_dtype``, as the
+    Pallas training forward stores them.
     """
+    B, T, _ = x.shape
+    H = whh.shape[0]
+    xproj = _projection(x, wih, bias)
+    whh = whh.float()
+    lengths = lengths.to(x.device)
+    h = x.new_zeros((B, H), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    out = x.new_zeros((B, T, H), dtype=torch.float32)
+    acts = x.new_empty((T, B, 4 * H), dtype=residual_dtype)
+    ct = x.new_empty((T, B, H), dtype=residual_dtype)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        i, f, g, o = (xproj[:, t] + h @ whh).chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        acts[t] = torch.cat([i, f, g, o], dim=-1)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        m = (t < lengths)[:, None]
+        h = torch.where(m, h_new, h)
+        c = torch.where(m, c_new, c)
+        out[:, t] = torch.where(m, h_new, 0.0)
+        ct[t] = c
+    return out.to(out_dtype or torch.float32), acts, ct
+
+
+def lstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct, reverse: bool = False):
+    """Plain backward of one direction -> (dx, dwih, dwhh, db).
+
+    The Pallas ``_bwd_kernel`` as one reverse walk over the stored residuals,
+    with no recompute: c_prev is the stored carry of the step processed just
+    before (zeros before the first), h_prev = o_prev * tanh(c_prev); dgates
+    is 0 outside [0, len), where dh and dc pass through unchanged and the
+    upstream gradient never enters.  dx comes back in x's type, dwih in wih's
+    type, dwhh and db in float32.
+    """
+    B, T, D = x.shape
+    H = whh.shape[0]
+    a, c = acts.float(), ct.float()                                  # (T, B, 4H), (T, B, H)
+    tanh_c = torch.tanh(c)
+    h_all = a[..., 3 * H:] * tanh_c
+    zeros = c.new_zeros((1, B, H))
+    if reverse:        # processing order walked t descending
+        c_prev, h_prev = torch.cat([c[1:], zeros]), torch.cat([h_all[1:], zeros])
+    else:
+        c_prev, h_prev = torch.cat([zeros, c[:-1]]), torch.cat([zeros, h_all[:-1]])
+    valid = torch.arange(T, device=x.device)[:, None] < lengths.to(x.device)[None, :]
+    gy = gy.float().transpose(0, 1)                                  # (T, B, H)
+    whh_t = whh.float().t()
+    dh = x.new_zeros((B, H), dtype=torch.float32)
+    dc = torch.zeros_like(dh)
+    dgates = x.new_empty((T, B, 4 * H), dtype=torch.float32)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        i, f, g, o = a[t].chunk(4, dim=-1)
+        dh_tot = dh + gy[t]
+        d_o = dh_tot * tanh_c[t]
+        dc_tot = dc + dh_tot * o * (1.0 - tanh_c[t] * tanh_c[t])
+        dg = torch.cat([dc_tot * g * i * (1.0 - i), dc_tot * c_prev[t] * f * (1.0 - f),
+                        dc_tot * i * (1.0 - g * g), d_o * o * (1.0 - o)], dim=-1)
+        m = valid[t][:, None]
+        dg = torch.where(m, dg, 0.0)
+        dgates[t] = dg
+        dh = torch.where(m, dg @ whh_t, dh)
+        dc = torch.where(m, dc_tot * f, dc)
+    dgs = dgates.reshape(T * B, 4 * H)
+    x_tb = x.float().transpose(0, 1).reshape(T * B, D)
+    dx = (dgs @ wih.float().t()).reshape(T, B, D).transpose(0, 1).to(x.dtype)
+    dwih = (x_tb.t() @ dgs).to(wih.dtype)
+    dwhh = h_prev.reshape(T * B, H).t() @ dgs
+    return dx, dwih, dwhh, dgs.sum(0)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def lstm_seq_infer(x, wih, whh, bias, lengths, reverse: bool = False,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Inference forward (K2): the kernel for CUDA tensors, ``lstm_seq_plain`` for CPU."""
     if x.device.type == "cpu":
         return lstm_seq_plain(x, wih, whh, bias, lengths, reverse, out_dtype)
     out_dtype = out_dtype or torch.float32
@@ -74,11 +158,120 @@ def lstm_seq(x, wih, whh, bias, lengths, reverse: bool = False,
         x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(),
         lengths.data_ptr(), xproj.data_ptr(), out.data_ptr(),
         B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(out_dtype == torch.bfloat16), _stream(x))
     build.check(err, "lstm_seq")
     build.LAUNCHES["lstm_seq"] += 1
     return out
+
+
+def lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse: bool = False,
+                       out_dtype: torch.dtype | None = None,
+                       residual_dtype: torch.dtype = torch.bfloat16):
+    """Training forward (K3) -> (out, acts, ct); see ``lstm_seq_train_plain``."""
+    if x.device.type == "cpu":
+        return lstm_seq_train_plain(x, wih, whh, bias, lengths, reverse, out_dtype,
+                                    residual_dtype)
+    out_dtype = out_dtype or torch.float32
+    _check_cuda_args(x, wih, whh, bias, lengths, out_dtype)
+    if residual_dtype not in _DTYPES:
+        raise ValueError(f"lstm_seq: residual_dtype must be float32 or bfloat16, "
+                         f"got {residual_dtype}")
+    B, T, D = x.shape
+    H = whh.shape[0]
+    out = torch.empty((B, T, H), dtype=out_dtype, device=x.device)
+    acts = torch.empty((T, B, 4 * H), dtype=residual_dtype, device=x.device)
+    ct = torch.empty((T, B, H), dtype=residual_dtype, device=x.device)
+    if B == 0 or T == 0:
+        return out, acts, ct
+    xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
+    lib = build.load("lstm_seq", _SIGNATURES)
+    err = lib.lstm_seq_train_fwd(
+        x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(),
+        lengths.data_ptr(), xproj.data_ptr(), out.data_ptr(), acts.data_ptr(),
+        ct.data_ptr(), B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), int(residual_dtype == torch.bfloat16),
+        _stream(x))
+    build.check(err, "lstm_seq_train_fwd")
+    build.LAUNCHES["lstm_seq_train_fwd"] += 1
+    return out, acts, ct
+
+
+def lstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct, reverse: bool = False):
+    """Backward (K3) -> (dx, dwih, dwhh, db); see ``lstm_seq_bwd_plain``."""
+    if x.device.type == "cpu":
+        return lstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct, reverse)
+    B, T, D = x.shape
+    H = whh.shape[0]
+    gy = gy.float().contiguous()
+    _check_cuda_args(x, wih, whh, whh.new_empty(4 * H), lengths, torch.float32)
+    for name, t, shape in (("gy", gy, (B, T, H)), ("acts", acts, (T, B, 4 * H)),
+                           ("ct", ct, (T, B, H))):
+        if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"lstm_seq_bwd: {name} must be contiguous {shape} on "
+                             f"{x.device}, got {tuple(t.shape)}")
+    if acts.dtype != ct.dtype or acts.dtype not in _DTYPES:
+        raise ValueError(f"lstm_seq_bwd: residuals must share a type of {_DTYPES}")
+    dx = torch.empty_like(x)
+    dwih = torch.empty_like(wih)
+    dwhh = torch.empty_like(whh)
+    db = torch.empty(4 * H, dtype=torch.float32, device=x.device)
+    if B == 0 or T == 0:
+        return dx.zero_(), dwih.zero_(), dwhh.zero_(), db.zero_()
+    dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
+    hprev = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
+    lib = build.load("lstm_seq", _SIGNATURES)
+    err = lib.lstm_seq_bwd(
+        gy.data_ptr(), x.data_ptr(), wih.data_ptr(), whh.data_ptr(), lengths.data_ptr(),
+        acts.data_ptr(), ct.data_ptr(), dgates.data_ptr(), hprev.data_ptr(),
+        dx.data_ptr(), dwih.data_ptr(), dwhh.data_ptr(), db.data_ptr(),
+        B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
+        int(acts.dtype == torch.bfloat16), _stream(x))
+    build.check(err, "lstm_seq_bwd")
+    build.LAUNCHES["lstm_seq_bwd"] += 1
+    return dx, dwih, dwhh, db
+
+
+class LSTMSeq(torch.autograd.Function):
+    """The training pair: K3's forward saves residuals, its backward walks them."""
+
+    @staticmethod
+    def forward(ctx, x, wih, whh, bias, lengths, reverse, out_dtype, residual_dtype):
+        out, acts, ct = lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse, out_dtype,
+                                           residual_dtype)
+        ctx.save_for_backward(x, wih, whh, lengths, acts, ct)
+        ctx.reverse = reverse
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, wih, whh, lengths, acts, ct = ctx.saved_tensors
+        dx, dwih, dwhh, db = lstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct, ctx.reverse)
+        return dx, dwih, dwhh, db, None, None, None, None
+
+
+def lstm_seq(x, wih, whh, bias, lengths, reverse: bool = False,
+             out_dtype: torch.dtype | None = None,
+             residual_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Masked LSTM over a batch-major padded sequence.
+
+    Args:
+      x: (B, T, D) float32 or bfloat16, natural time order.
+      wih: (D, 4H) of x's type; whh: (H, 4H) float32; bias: (4H,) float32.
+      lengths: (B,) int32 valid lengths; the window is [0, len) for BOTH
+        directions, and ``reverse`` walks it backwards.
+      out_dtype: float32 (the default) or bfloat16.
+      residual_dtype: type of the residuals the training forward saves
+        (bfloat16, as the JAX package's default, or float32).
+    Returns: (B, T, H) hidden states, zero outside the window.
+
+    With grad mode off or no input needing a gradient this is the inference
+    forward (K2); otherwise the training pair (K3), as the JAX package runs
+    its primal outside ``jax.grad`` and its VJP pair inside.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wih, whh, bias)):
+        return LSTMSeq.apply(x, wih, whh, bias, lengths, reverse,
+                             out_dtype or torch.float32, residual_dtype)
+    return lstm_seq_infer(x, wih, whh, bias, lengths, reverse, out_dtype)
 
 
 def _check_cuda_args(x, wih, whh, bias, lengths, out_dtype) -> None:

@@ -38,7 +38,7 @@ def test_tokenizer_matches_jax():
     np.testing.assert_array_equal(ours.encode(text), ref.encode(text))
     assert ours.decode(ours.encode(text)) == ref.decode(ref.encode(text))
     assert ours.vocab_size == ref.vocab_size == 31
-    with pytest.raises(ValueError, match="char"):
+    with pytest.raises(NotImplementedError, match="char"):
         get_tokenizer("bpe:vocab.json")
 
 
@@ -59,5 +59,5 @@ def test_synthetic_batches_match_jax(auto_buckets):
 
 def test_librispeech_root_is_refused():
     cfg = configs.get_config("ctc_bilstm_dev1h", **{"data.librispeech_root": "/data"}).data
-    with pytest.raises(ValueError, match="synthetic"):
+    with pytest.raises(NotImplementedError, match="synthetic"):
         build_dataset(cfg, 16000)

@@ -164,12 +164,13 @@ def test_layout_conv_padding_and_remask(models):
 
 def test_layout_lstm_dtypes(monkeypatch):
     """x and wih reach the kernel in the compute dtype, whh and bias in fp32,
-    lengths in int32; the output comes back in the compute dtype."""
+    lengths in int32, training residuals in bf16 (the JAX default); the
+    output comes back in the compute dtype."""
     seen = {}
 
-    def spy(x, wih, whh, bias, lengths, reverse, out_dtype):
+    def spy(x, wih, whh, bias, lengths, reverse, out_dtype, residual_dtype):
         seen.update(x=x.dtype, wih=wih.dtype, whh=whh.dtype, bias=bias.dtype,
-                    lengths=lengths.dtype, out=out_dtype)
+                    lengths=lengths.dtype, out=out_dtype, residuals=residual_dtype)
         return lstm_cuda.lstm_seq_plain(x, wih, whh, bias, lengths, reverse, out_dtype)
 
     monkeypatch.setattr(lstm_cuda, "lstm_seq", spy)
@@ -179,7 +180,8 @@ def test_layout_lstm_dtypes(monkeypatch):
     out = d(torch.randn(2, 5, 6, generator=torch.Generator().manual_seed(1)),
             torch.tensor([5, 3]))
     assert seen == dict(x=torch.bfloat16, wih=torch.bfloat16, whh=torch.float32,
-                        bias=torch.float32, lengths=torch.int32, out=torch.bfloat16)
+                        bias=torch.float32, lengths=torch.int32, out=torch.bfloat16,
+                        residuals=torch.bfloat16)
     assert out.dtype == torch.bfloat16 and not out[1, 3:].any()
 
 

@@ -19,9 +19,16 @@ result line):
      ``ctc_bilstm_dev1h`` at full width in bf16 on 10-16 s utterances, each
      with the launch counters set to 0 just before and read just after;
   5. train the tiny config of the JAX package's end-to-end test to a low
-     WER on the card;
+     WER on the card, then beam-decode it with the LM: no worse than greedy;
   6. profile one decode batch and one train step: device time by kernel;
-  7. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+  7. config 2's serving path, ``ctc_bilstm_beam_lm``: build a 4-gram LM with
+     the port's ``train_ngram`` (set-up); hold the prefix beam search kernels
+     K7 and K8 against the plain search on the card at the path's shapes
+     (planted and model log-probs, with and without the LM) and time them;
+     drive ``decode.main`` with ``decode.lm_path`` at full width, once over
+     all chars (K7) and once with ``decode.ext_top_a=8`` (K8), counting
+     launches; profile one of its batches;
+  8. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -39,11 +46,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_asr_tpu_torch import decode, train
+from pytorch_asr_tpu_torch import decode, train, train_ngram
 from pytorch_asr_tpu_torch.configs import get_config
 from pytorch_asr_tpu_torch.configs.base import (
     BiLSTMEncoderConfig,
     DataConfig,
+    DecodeConfig,
     FrontendConfig,
     ModelConfig,
     OptimConfig,
@@ -51,11 +59,12 @@ from pytorch_asr_tpu_torch.configs.base import (
 )
 from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
+from pytorch_asr_tpu_torch.decoding import driver, prefix_beam
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
-from pytorch_asr_tpu_torch.evaluate import build_model, eval_step
+from pytorch_asr_tpu_torch.evaluate import build_model, eval_step, model_outputs
 from pytorch_asr_tpu_torch.frontend import features
 from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len, set_residual_dtype
-from pytorch_asr_tpu_torch.ops import build, ctc, ctc_cuda, lstm_cuda, stft_cuda
+from pytorch_asr_tpu_torch.ops import beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda
 from pytorch_asr_tpu_torch.runtime import set_fp32_math
 from pytorch_asr_tpu_torch.training import state as train_state
 from pytorch_asr_tpu_torch.training.trainer import Trainer
@@ -105,6 +114,12 @@ TRAIN_UTTS = 64              # 8 full batches an epoch, and 8 full eval batches
 EVAL_BATCHES = 8             # train.main evaluates 8 batches after each chunk
 LEARN_STEPS = (10, 290)      # the JAX package's end-to-end test: 300 steps
 CARD = torch.device("cuda")
+# Config 2's serving path: ctc_bilstm_beam_lm, BiLSTM H 512 x 4 layers,
+# batch 16, beam 16, max_len 256, LM alpha 0.5 / beta 1.0; K8 with A = 8.
+CFG2, CFG2_LAYERS, BEAM_B, BEAM_K, BEAM_L, BEAM_A = "ctc_bilstm_beam_lm", 4, 16, 16, 256, 8
+# The kernel repeats the plain search's float32 operations in their order
+# (no FMA on the fusion line): tokens and lengths equal, scores to rounding.
+BEAM_RTOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -569,7 +584,8 @@ def train_main_phase() -> dict:
             "lstm_seq_train_fwd": 2 * LAYERS * TRAIN_STEPS,
             "lstm_seq_bwd": 2 * LAYERS * TRAIN_STEPS,
             "ctc_alpha": TRAIN_STEPS, "ctc_beta": TRAIN_STEPS}
-    check(launches == want, f"train launches {launches} != {want}")
+    check({k: v for k, v in launches.items() if v} == want,
+          f"train launches {launches} != {want}")
     check(last.get("step") == TRAIN_STEPS and math.isfinite(last["ctc_loss"])
           and math.isfinite(last["grad_norm"]), f"train: bad record {last}")
     check(ev.get("num_utts") == EVAL_BATCHES * B, f"train eval: {ev}")
@@ -582,10 +598,12 @@ def train_main_phase() -> dict:
             "lstm_seq_per_eval_batch": launches["lstm_seq"] / EVAL_BATCHES}
 
 
-def learn_phase() -> dict:
+def learn_phase(arpa: str) -> dict:
     """The tiny config of the JAX package's end-to-end test, on the card: its
     loss must fall below half the first logged value and its greedy WER below
-    0.3 after 300 steps."""
+    0.3 after 300 steps.  Then ``Trainer.decode_eval`` decodes the learned
+    model with config 2's prefix beam search and 4-gram LM: its WER must not
+    exceed the greedy WER."""
     cfg = dataclasses.replace(
         get_config("ctc_bilstm_dev1h"),
         frontend=FrontendConfig(specaugment=False),
@@ -606,13 +624,181 @@ def learn_phase() -> dict:
         first = trainer.train(num_steps=LEARN_STEPS[0])
         rest = trainer.train(num_steps=LEARN_STEPS[1])
         result = trainer.evaluate()
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        c2 = get_config(CFG2).decode
+        trainer.cfg = dataclasses.replace(cfg, decode=DecodeConfig(
+            method="prefix_beam", beam_size=c2.beam_size, lm_path=arpa,
+            lm_alpha=c2.lm_alpha, lm_beta=c2.lm_beta))
+        build.reset_launches()
+        beam = trainer.decode_eval()
+        beam_launches = build.LAUNCHES["prefix_beam"]
     check(rest["ctc_loss"] < 0.5 * first["ctc_loss"],
           f"learn: ctc_loss {rest['ctc_loss']} not below half of {first['ctc_loss']}")
     check(result["wer"] < 0.3 and result["num_utts"] == 24, f"learn: {result}")
+    check(beam["num_utts"] == 24 and beam_launches > 0 and beam["wer"] <= result["wer"],
+          f"learn: beam + LM {beam} ({beam_launches} K7 launches) vs greedy {result}")
     return {"first_ctc_loss": first["ctc_loss"], "last_ctc_loss": rest["ctc_loss"],
             "wer": result["wer"], "cer": result["cer"], "steps": sum(LEARN_STEPS),
-            "wall_s": wall}
+            "wall_s": wall, "beam_lm_wer": beam["wer"], "beam_lm_cer": beam["cer"],
+            "beam_lm_k7_launches": beam_launches}
+
+
+def build_lm() -> str:
+    """Config 2's LM, made at run time by the port's ``train_ngram``: an
+    order-4 Kneser-Ney char LM of ``synthetic_texts(512)``, into the build
+    directory (gitignored)."""
+    path = build.BUILD_DIR / "syn4.arpa"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    train_ngram.main([str(path), "num_synthetic=512", "order=4"])
+    return str(path)
+
+
+def cfg2_batch_logits(cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Config 2's random-weight model on one full synthetic batch of 16
+    utterances of 10-16 s: (ctc_logits (16, T', 31) f32, enc_len)."""
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    with torch.inference_mode():
+        out = model_outputs(build_model(cfg, CARD), batch)
+    return out["ctc_logits"], out["enc_len"]
+
+
+def beam_phase(arpa: str) -> list[dict]:
+    """K7 and K8 against the plain search, both on the card, at config 2's
+    serving shapes: B 16, T' ~ 400, V 31, K 16, L 256, A 8; on planted-path
+    logits (random plus a planted path, as tests/test_tpu_parity.py plants
+    one) and on the random-weight model's logits, each with no LM and with
+    the 4-gram table.  The kernels are timed on the model logits with the
+    table, the serving path's case."""
+    cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1"})
+    logits, lens = cfg2_batch_logits(cfg)
+    B, T, V = logits.shape
+    rng = np.random.default_rng(19)
+    planted = rng.standard_normal((B, T, V)).astype(np.float32)
+    path = rng.integers(0, V, size=(B, T))
+    for b in range(B):
+        planted[b, np.arange(T), path[b]] += 4.0
+    table = driver.load_lm(get_config(CFG2, **{"decode.lm_path": arpa}), CARD)
+    dec = cfg.decode
+    inputs = {"planted": (torch.from_numpy(planted).to(CARD), lens), "model": (logits, lens)}
+    out = []
+    for name, A, line in (("prefix_beam", 0, 756), ("prefix_beam_topa", BEAM_A, 1566)):
+        cases = []
+        for which, (lg, ln) in inputs.items():
+            for lm in (None, table):
+                kw = dict(beam_size=BEAM_K, max_len=BEAM_L, ext_top_a=A, lm_table=lm,
+                          lm_alpha=dec.lm_alpha if lm is not None else 0.0,
+                          lm_beta=dec.lm_beta if lm is not None else 0.0)
+                build.reset_launches()
+                got = prefix_beam.prefix_beam_search(lg, ln, **kw)
+                torch.cuda.synchronize()
+                check(build.LAUNCHES[name] == 1, f"{name}: {dict(build.LAUNCHES)}")
+                want = prefix_beam.prefix_beam_search_plain(lg, ln, **kw)
+                tag = f"{name} {which} {'4-gram' if lm is not None else 'no LM'}"
+                check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+                      f"{tag}: tokens or lengths differ from the plain search")
+                torch.testing.assert_close(got[2], want[2], rtol=BEAM_RTOL, atol=0,
+                                           msg=lambda m, tag=tag: f"{tag} scores: {m}")
+                cases.append({"logits": which, "lm": lm is not None,
+                              "max_abs_err": (got[2] - want[2]).abs().max().item(),
+                              "mean_len": got[1].float().mean().item()})
+        logp, (tv, ti) = prefix_beam._prepare(logits, A)
+        args = (logp, lens.to(torch.int32).contiguous(), BEAM_K, BEAM_L, table, dec.lm_alpha,
+                dec.lm_beta, tv, ti)
+        frames = int(lens.sum())
+        C = A or V
+        # Bytes: logp of the valid frames, the top-A values and ids (K8),
+        # the table, the backpointers written, the lengths and outputs.
+        nbytes = (4 * V * frames + 8 * A * frames + table.numel() * 4 + 8 * BEAM_K * frames
+                  + 4 * B + 4 * B * BEAM_L + 8 * B)
+        # Operations a valid frame: ~12 a candidate lane (log-sum-exp, the
+        # extension and the fusion), 3 per (beam, beam) absorb test, and a
+        # top-K over K + K*C candidates at log2(K) compares each.
+        ops = frames * (12 * BEAM_K * C + 3 * BEAM_K ** 2
+                        + (BEAM_K + BEAM_K * C) * math.log2(BEAM_K))
+        b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
+        out.append({
+            "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+            "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
+            "shape": f"logp ({B}, {T}, {V}) f32, lengths {lens.tolist()}, K {BEAM_K}, "
+                     f"L {BEAM_L}, C {C}, table {tuple(table.shape)}",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tol": {"tokens": "equal", "scores_rtol": BEAM_RTOL},
+            "ms": time_ms(lambda: beam_cuda.prefix_beam(*args)),
+            "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(*args), 3, 1, 1),
+            "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
+            "bound_ms": b_ms, "bound_by": b_by, "cases": cases})
+    return out
+
+
+def beam_decode_phase(arpa: str, top_a: int) -> dict:
+    """Config 2's serving path through ``decode.main`` at full width with the
+    4-gram LM and its own decode ladder (14 buckets over 64 utterances of
+    10-16 s, so batches may be partly filled), 4 batches: exactly 1 K1, 8 K2
+    and 1 K7 (or, with ``decode.ext_top_a``, 1 K8) launch a batch, and no
+    call of the plain search on the card."""
+    plain_calls = []
+    search = prefix_beam.beam_scan_plain
+
+    def counted(logp, *args, **kwargs):
+        plain_calls.append(logp.device.type)
+        return search(logp, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = [CFG2, f"decode.lm_path={arpa}", "data.synthetic_min_sec=10",
+                "data.synthetic_max_sec=16", "data.synthetic_num_utts=64",
+                f"max_batches={DECODE_BATCHES}", f"train.checkpoint_dir={ckpt}"]
+        if top_a:
+            argv.append(f"decode.ext_top_a={top_a}")
+        prefix_beam.beam_scan_plain = counted
+        try:
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            result = decode.main(argv)
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+        finally:
+            prefix_beam.beam_scan_plain = search
+    beam, other = ("prefix_beam_topa", "prefix_beam") if top_a else ("prefix_beam",
+                                                                     "prefix_beam_topa")
+    want = {"stft_log_mel": DECODE_BATCHES, "lstm_seq": DECODE_BATCHES * CFG2_LAYERS * 2,
+            beam: DECODE_BATCHES}
+    check({k: v for k, v in launches.items() if v} == want and launches[other] == 0,
+          f"beam decode launches {launches} != {want}")
+    check(not plain_calls, f"the plain search ran on the serving path: {plain_calls}")
+    check(set(result) == {"method", "wer", "cer", "num_utts", "decode_rtf",
+                          "padding_efficiency_decode"} and result["num_utts"] > 0
+          and result["decode_rtf"] > 0, f"beam decode: bad result {result}")
+    return {**result, "wall_s": wall, "batches": DECODE_BATCHES, "ext_top_a": top_a,
+            "launches": launches}
+
+
+def beam_profile_phase(arpa: str) -> dict:
+    """Device time by kernel over one config-2 decode batch (16 utterances of
+    10-16 s, bf16, 4-gram LM): the shares of K2 and K7."""
+    cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1",
+                              "decode.lm_path": arpa})
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    model = build_model(cfg, CARD)
+    decode_fn = driver.make_decode_fn(cfg, model, driver.load_lm(cfg, CARD))
+    with torch.inference_mode():
+        decode_fn(batch)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            ids, _ = decode_fn(batch)
+            ids.cpu()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    total = sum(r["device_ms"] for r in rows)
+    check(total > 0, "beam profile: no device time recorded")
+    share = lambda key: sum(r["device_ms"] for r in rows if key in r["name"]) / total  # noqa: E731
+    return {"batch_wall_ms": wall_ms, "device_ms": total, "device_busy": total / wall_ms,
+            "lstm_share": share("lstm"), "prefix_beam_share": share("prefix_beam"),
+            "top": rows[:8]}
 
 
 def decode_phase() -> dict:
@@ -633,6 +819,8 @@ def decode_phase() -> dict:
           f"stft launches {launches['stft_log_mel']} != {DECODE_BATCHES} batches")
     check(launches["lstm_seq"] == DECODE_BATCHES * LAYERS * 2,
           f"lstm launches {launches['lstm_seq']} != {DECODE_BATCHES} x {LAYERS} x 2")
+    check(launches["prefix_beam"] == launches["prefix_beam_topa"] == 0,
+          f"greedy decode launched a beam kernel: {launches}")
     return {**result, "wall_s": wall, "batches": DECODE_BATCHES, "launches": launches}
 
 
@@ -702,18 +890,23 @@ def main() -> int:
     # Library yardsticks (cuDNN's LSTM and convolutions) in full fp32 too.
     set_fp32_math()
     t0 = time.perf_counter()
-    logs = build.build(["stft_log_mel", "lstm_seq", "ctc_alpha_beta"])
+    logs = build.build(["stft_log_mel", "lstm_seq", "ctc_alpha_beta", "prefix_beam"])
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up)")
     for name, log in logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    arpa = build_lm()
+    print(f"lm: {time.perf_counter() - t0:.1f} s (set-up)")
 
-    kernels = [stft_phase(), lstm_phase(), *lstm_train_phase(), *ctc_phase()]
+    kernels = [stft_phase(), lstm_phase(), *lstm_train_phase(), *ctc_phase(),
+               *beam_phase(arpa)]
     for k in kernels:
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
               f"(tol {k['tol']}) ms {k['ms']:.4f} plain {k['plain_ms']:.4f} "
-              f"library {k['library_ms']:.4f} bound {k['bound_ms']:.4f} ({k['bound_by']})")
+              f"library {lib} bound {k['bound_ms']:.4f} ({k['bound_by']})")
     print("slice:", json.dumps(slice_phase()))
     print("train_step:", json.dumps(train_step_phase()))
     dec = decode_phase()
@@ -723,17 +916,28 @@ def main() -> int:
     print(f"train: audio_seconds_per_sec_per_chip "
           f"{trn['record']['audio_seconds_per_sec_per_chip']:.2f} step {trn['step_s']:.4f} s "
           f"ctc_loss {trn['record']['ctc_loss']:.4f}")
-    print("learn:", json.dumps(learn_phase()))
+    print("learn:", json.dumps(learn_phase(arpa)))
+    beam_dec = {"beam_decode": beam_decode_phase(arpa, 0),
+                "beam_decode_topa": beam_decode_phase(arpa, BEAM_A)}
+    for path, res in beam_dec.items():
+        print(f"{path}:", json.dumps(res))
+        print(f"{path}: decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "
+              f"padding_efficiency_decode {res['padding_efficiency_decode']:.4f}")
+    # Each kernel is held to the main path that runs it: K7 and K8 to the
+    # config-2 serving paths, the rest to the training path (which runs K2
+    # in its eval); every path's count is printed.
+    paths = {"train": trn["launches"], "decode": dec["launches"],
+             **{p: r["launches"] for p, r in beam_dec.items()}}
+    own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa"}
     for k in kernels:
-        # The training path runs every kernel (K2 in its eval); the serving
-        # path runs K1 and K2.  Each count is nonzero where the path runs it.
-        by_path = {"train": trn["launches"][k["name"]],
-                   "decode": dec["launches"].get(k["name"], 0)}
-        check(by_path["train"] > 0, f"{k['name']} never launched on the training path")
-        k["launches"], k["launches_by_path"] = by_path["train"], by_path
+        by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
+        own = own_path.get(k["name"], "train")
+        check(by_path[own] > 0, f"{k['name']} never launched on its main path ({own})")
+        k["launches"], k["launches_by_path"], k["main_path"] = by_path[own], by_path, own
         k["kernel_ms"] = k["ms"]
     print("profile:", json.dumps(profile_phase()))
     print("train_profile:", json.dumps(train_profile_phase()))
+    print("beam_profile:", json.dumps(beam_profile_phase(arpa)))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

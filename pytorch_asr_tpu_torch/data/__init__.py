@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from pytorch_asr_tpu_torch.configs.base import DataConfig
 from pytorch_asr_tpu_torch.data.batching import Bucket, BucketedDataset
-from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
+from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus, synthetic_texts
 from pytorch_asr_tpu_torch.data.tokenizer import CharTokenizer, get_tokenizer
 
 __all__ = [
@@ -16,10 +16,23 @@ __all__ = [
     "BucketedDataset",
     "CharTokenizer",
     "build_dataset",
+    "corpus_audio_lengths",
+    "corpus_transcripts",
     "get_tokenizer",
     "resolve_buckets",
     "synthetic_corpus",
+    "synthetic_texts",
 ]
+
+
+def corpus_audio_lengths(corpus) -> list[int]:
+    """Per-utterance sample counts of an in-memory (audio, transcript) corpus."""
+    return [len(a) for a, _ in corpus]
+
+
+def corpus_transcripts(corpus) -> list[str]:
+    """Per-utterance transcripts of an in-memory (audio, transcript) corpus."""
+    return [t for _, t in corpus]
 
 
 def resolve_buckets(cfg: DataConfig, corpus, tokenizer):
@@ -29,8 +42,8 @@ def resolve_buckets(cfg: DataConfig, corpus, tokenizer):
         return cfg.bucket_audio_lens, cfg.bucket_label_lens
     from pytorch_asr_tpu_torch.data.bucket_opt import optimize_buckets
 
-    audio_lens = [len(a) for a, _ in corpus]
-    label_lens = [len(tokenizer.encode(t)) for _, t in corpus]
+    audio_lens = corpus_audio_lengths(corpus)
+    label_lens = [len(tokenizer.encode(t)) for t in corpus_transcripts(corpus)]
     return optimize_buckets(audio_lens, label_lens, cfg.auto_buckets)
 
 

@@ -85,3 +85,14 @@ def optimize_buckets(
         prev_b = b
     return bounds, tuple(lab)
 
+
+def padding_efficiency(audio_lens, bucket_audio_lens) -> float:
+    """valid audio / padded bucket capacity for a ladder (dropping misfits)."""
+    audio_lens = np.asarray(audio_lens, np.int64)
+    bounds = np.asarray(sorted(bucket_audio_lens), np.int64)
+    idx = np.searchsorted(bounds, audio_lens, side="left")
+    fits = idx < len(bounds)
+    if not fits.any():
+        return 0.0
+    padded = bounds[idx[fits]].sum()
+    return float(audio_lens[fits].sum()) / float(padded)

@@ -63,3 +63,13 @@ def synthetic_corpus(
         text = " ".join(rng.choice(_WORDS) for _ in range(n))
         out.append((render_text(text, sample_rate, rng), text))
     return out
+
+
+def synthetic_texts(num: int, seed: int = 0, min_words: int = 2,
+                    max_words: int = 8) -> list[str]:
+    """Transcripts only (no audio rendering), e.g. for LM training; the same
+    texts as the JAX package's ``synthetic_texts`` for the same seed."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(_WORDS)
+                     for _ in range(int(rng.integers(min_words, max_words + 1))))
+            for _ in range(num)]

@@ -1,0 +1,139 @@
+"""Decoding driver: the port's counterpart of ``pytorch_asr_tpu.decoding.driver``.
+
+Batch loop over the eval set with the configured decoder (``greedy`` or
+``prefix_beam``), corpus WER/CER and decode RTF, on a decode-side bucket
+ladder; optional dump of ``<prefix>.ref.tsv`` / ``<prefix>.hyp.tsv``,
+scoreable with ``python -m pytorch_asr_tpu_torch.eval_wer``.  One process,
+no mesh.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from pytorch_asr_tpu_torch.configs.base import ExperimentConfig
+from pytorch_asr_tpu_torch.data import (
+    BucketedDataset,
+    build_dataset,
+    corpus_audio_lengths,
+    corpus_transcripts,
+    get_tokenizer,
+)
+from pytorch_asr_tpu_torch.data.bucket_opt import optimize_buckets, padding_efficiency
+from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
+from pytorch_asr_tpu_torch.decoding.lm import read_arpa, tensorize
+from pytorch_asr_tpu_torch.decoding.prefix_beam import prefix_beam_search
+from pytorch_asr_tpu_torch.evaluate import eval_step, model_outputs
+from pytorch_asr_tpu_torch.models.asr_model import ASRModel
+
+DENSE_LM_FLOATS = 64_000_000   # lm_backend "auto": dense while V**order fits
+
+
+def load_lm(cfg: ExperimentConfig, device: str | torch.device,
+            tokenizer=None) -> torch.Tensor | None:
+    """The fusion LM named by ``cfg.decode.lm_path`` as a dense (V^(n-1), V)
+    float32 table on ``device``, or None without a path.  An ARPA file is
+    read and tensorized; the RNN LM (``.npz``) and the hashed backend are
+    not ported yet and raise."""
+    path = cfg.decode.lm_path
+    if not path:
+        return None
+    if path.endswith(".npz"):
+        raise NotImplementedError("RNN-LM fusion (decode.lm_path=<file.npz>, the K9 kernel) "
+                                  "is not ported yet: it waits for the LM-extras slice")
+    tok = tokenizer or get_tokenizer(cfg.data.vocab)
+    lm = read_arpa(path, tok)
+    backend = cfg.decode.lm_backend
+    if not (backend == "dense" or (backend == "auto"
+                                   and tok.vocab_size ** lm.order <= DENSE_LM_FLOATS)):
+        raise NotImplementedError(f"decode.lm_backend={backend!r} (hashed n-gram tables, "
+                                  "decoding/lm_hashed.py) is not ported yet: it waits for "
+                                  "the LM-extras slice")
+    return torch.from_numpy(tensorize(lm, tok)).to(device)
+
+
+def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm_table=None):
+    """(host batch) -> (ids (B, L), lengths (B,)) on the model's device."""
+    method = cfg.decode.method
+    if method == "greedy":
+        return lambda batch: eval_step(model, batch)
+    if method == "prefix_beam":
+        if cfg.decode.shard_beams:
+            raise NotImplementedError("decode.shard_beams (the beam-sharded search and its "
+                                      "K10 merge kernel) is not ported yet: it waits for "
+                                      "the multi-GPU slice")
+        dec = cfg.decode
+        has_lm = lm_table is not None
+
+        def decode_fn(batch):
+            out = model_outputs(model, batch)
+            toks, lens, _ = prefix_beam_search(
+                out["ctc_logits"], out["enc_len"], beam_size=dec.beam_size,
+                lm_table=lm_table, lm_alpha=dec.lm_alpha if has_lm else 0.0,
+                lm_beta=dec.lm_beta if has_lm else 0.0, max_len=dec.max_decode_len,
+                ext_top_a=dec.ext_top_a, lm_top_k=dec.lm_top_k)
+            return toks, lens
+
+        return decode_fn
+    if method in ("attention_beam", "joint_beam"):
+        raise NotImplementedError(f"decode.method={method!r} needs the LAS decoder, which "
+                                  "is not ported yet")
+    raise ValueError(f"unknown decode method {method!r}")
+
+
+def decode_ladder(cfg: ExperimentConfig, dataset: BucketedDataset):
+    """Decode-side bucket ladder: with ``cfg.decode.auto_buckets`` > 0 the
+    corpus is re-bucketed with that many DP-optimal buckets for decoding
+    only.  Returns (dataset, padding efficiency or None)."""
+    n = cfg.decode.auto_buckets
+    if n <= 0:
+        return dataset, None
+    corpus, tok = dataset._corpus, dataset.tokenizer
+    audio_lens = corpus_audio_lengths(corpus)
+    label_lens = [len(tok.encode(t)) for t in corpus_transcripts(corpus)]
+    audio_b, label_b = optimize_buckets(audio_lens, label_lens, n)
+    ds = BucketedDataset(corpus, batch_size=dataset.batch_size, bucket_audio_lens=audio_b,
+                         bucket_label_lens=label_b, tokenizer=tok)
+    return ds, padding_efficiency(audio_lens, audio_b)
+
+
+def decode_dataset(cfg: ExperimentConfig, model: ASRModel,
+                   dataset: BucketedDataset | None = None, max_batches: int | None = None,
+                   dump_path: str | None = None, step: int | None = None) -> dict:
+    """Decode ``dataset`` (by default the synthetic corpus of ``cfg.data``)
+    with ``cfg.decode.method`` on the decode ladder; returns method, wer,
+    cer, num_utts, decode_rtf, ``step`` when given, and
+    padding_efficiency_decode when the ladder is on.  ``dump_path`` writes
+    ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` (``id<TAB>text`` lines)."""
+    device = model.ctc_head.weight.device
+    dataset = dataset or build_dataset(cfg.data, cfg.frontend.sample_rate)
+    decode_fn = make_decode_fn(cfg, model, load_lm(cfg, device, dataset.tokenizer))
+    eval_ds, pad_eff = decode_ladder(cfg, dataset)
+    refs: list[str] = []
+    hyps: list[str] = []
+    audio_sec = 0.0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i, batch in enumerate(eval_ds.epoch_batches(seed=0)):
+            if max_batches is not None and i >= max_batches:
+                break
+            ids, lens = decode_fn(batch)
+            r, h, a_sec = local_hyps_refs(eval_ds.tokenizer, batch, ids.cpu().numpy(),
+                                          lens.cpu().numpy(), cfg.frontend.sample_rate)
+            refs.extend(r)
+            hyps.extend(h)
+            audio_sec += a_sec
+    dt = time.perf_counter() - t0
+    if dump_path:
+        for suffix, lines in ((".ref.tsv", refs), (".hyp.tsv", hyps)):
+            with open(dump_path + suffix, "w") as fh:
+                for i, text in enumerate(lines):
+                    fh.write(f"utt{i:06d}\t{text}\n")
+    result = {"method": cfg.decode.method, **reduce_decode_metrics(refs, hyps, audio_sec, dt)}
+    if step is not None:
+        result["step"] = step
+    if pad_eff is not None:
+        result["padding_efficiency_decode"] = pad_eff
+    return result

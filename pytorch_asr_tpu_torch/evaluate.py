@@ -30,12 +30,18 @@ def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda",
     return model.to(dev).eval()
 
 
-def eval_step(model: ASRModel, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """One host batch -> (packed greedy ids (B, T'), lengths (B,)) on the model's device."""
+def model_outputs(model: ASRModel, batch: dict) -> dict:
+    """The model's outputs (ctc_logits, enc, enc_len) for one host batch,
+    on the model's device."""
     device = model.ctc_head.weight.device
     audio = torch.from_numpy(batch["audio"]).to(device)
     audio_len = torch.from_numpy(batch["audio_len"]).to(device)
-    out = model(audio, audio_len)
+    return model(audio, audio_len)
+
+
+def eval_step(model: ASRModel, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """One host batch -> (packed greedy ids (B, T'), lengths (B,)) on the model's device."""
+    out = model_outputs(model, batch)
     return greedy_ctc(out["ctc_logits"], out["enc_len"])
 
 

@@ -105,3 +105,20 @@ class CheckpointManager:
             return None
         with open(path) as fh:
             return json.load(fh)
+
+
+def restore_eval_weights(cfg: ExperimentConfig, model: torch.nn.Module,
+                         directory: str | None = None) -> int | None:
+    """Load the newest checkpoint's eval weights (the EMA copy when one is
+    kept) into ``model`` and return its step; None, with nothing read or
+    created, when ``directory`` (default ``cfg.train.checkpoint_dir``) holds
+    no checkpoint."""
+    directory = os.path.abspath(directory or cfg.train.checkpoint_dir)
+    if not os.path.isdir(directory) or not any(_CKPT.fullmatch(f)
+                                               for f in os.listdir(directory)):
+        return None
+    manager = CheckpointManager(cfg, directory)   # raises for another experiment's dir
+    step = manager.latest_step()
+    blob = torch.load(manager._path(step), map_location="cpu", weights_only=True)
+    model.load_state_dict(blob["ema"] if blob["ema"] is not None else blob["model"])
+    return int(blob["step"])

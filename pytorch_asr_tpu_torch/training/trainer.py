@@ -4,7 +4,8 @@
 Host loop: take a bucketed batch, copy it to the device, run one
 ``train_step`` (frontend -> encoder -> CTC loss -> gradients -> update), log
 JSONL metrics every ``train.log_every`` steps, checkpoint, and greedy-eval
-WER with the eval weights (the EMA copy when kept).  No mesh, no grain
+WER with the eval weights (the EMA copy when kept); ``decode_eval`` runs the
+configured decode method (greedy, or the prefix beam search).  No mesh, no grain
 iterator and no ``init_from_torch`` yet.
 """
 
@@ -17,6 +18,7 @@ import torch
 
 from pytorch_asr_tpu_torch.configs.base import ExperimentConfig
 from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset
+from pytorch_asr_tpu_torch.decoding.driver import decode_dataset
 from pytorch_asr_tpu_torch.evaluate import evaluate
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
 from pytorch_asr_tpu_torch.training.checkpoint import CheckpointManager
@@ -130,6 +132,17 @@ class Trainer:
         return last
 
     # ------------------------------------------------------------------- eval
+    def decode_eval(self, max_batches: int | None = None, dump_path: str | None = None) -> dict:
+        """Decode with ``cfg.decode.method``: greedy is ``evaluate``; any other
+        method goes through ``decoding.driver.decode_dataset``."""
+        if self.cfg.decode.method == "greedy":
+            return self.evaluate(max_batches=max_batches)
+        result = decode_dataset(self.cfg, eval_params(self.state), self.dataset,
+                                max_batches=max_batches, dump_path=dump_path,
+                                step=self.state.step)
+        self.metrics.log("decode", **result)
+        return result
+
     def evaluate(self, max_batches: int | None = None) -> dict:
         """Greedy-decode WER/CER and decode RTF over the training dataset
         (the port reads no separate eval split yet)."""

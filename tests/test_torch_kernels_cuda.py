@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig
-from pytorch_asr_tpu_torch.ops import build, ctc, ctc_cuda, lstm_cuda, stft_cuda
+from pytorch_asr_tpu_torch.decoding import prefix_beam
+from pytorch_asr_tpu_torch.ops import beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda
 
 # The kernel's fp64 FFT vs the plain version's fp32 cuFFT, whose error on
 # log-mel near log_floor reaches ~1e-3: 2e-3, as the JAX package holds its
@@ -31,6 +32,10 @@ BF16_TOL = 1e-2
 # Pallas kernels to the scan; alphas are log values of up to ~T log V.
 CTC_RTOL, CTC_ALPHA_ATOL = 1e-5, 1e-4
 CTC_GRAD_RTOL, CTC_GRAD_ATOL = 1e-4, 1e-5
+# Prefix beam search: the kernel repeats the plain search's float32
+# operations in the same order (no FMA on the fusion line), so tokens and
+# lengths are equal and scores agree to rounding (bit-equal in practice).
+BEAM_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -234,3 +239,63 @@ def test_ctc_loss_and_grad_match_plain(cuda):
     torch.testing.assert_close(loss, ref, rtol=CTC_RTOL, atol=CTC_RTOL)
     torch.testing.assert_close(a.grad, b.grad, rtol=CTC_GRAD_RTOL, atol=CTC_GRAD_ATOL)
     assert loss[1] == 0 and loss[2] == 0 and not a.grad[1].any() and not a.grad[2].any()
+
+
+def _beam_case(device, seed, B=4, T=60, V=31, planted=True):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, V)).astype(np.float32) * 2
+    if planted:
+        path = rng.integers(0, V, size=(B, T))
+        for b in range(B):
+            logits[b, np.arange(T), path[b]] += 4.0
+    lens = np.array([T, T - 13, 0, T // 3][:B], np.int32)
+    table = rng.standard_normal((V * V, V)).astype(np.float32)
+    table -= np.log(np.exp(table).sum(1, keepdims=True))
+    return (torch.from_numpy(logits).to(device), torch.from_numpy(lens).to(device),
+            torch.from_numpy(table).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [0, 8])
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("planted", [True, False])
+def test_prefix_beam_kernel_matches_plain(cuda, A, lm, planted):
+    """K7 (A = 0) and K8 (A = 8) against the plain search on the card, with
+    and without a dense table; one row is empty."""
+    logits, lens, table = _beam_case(cuda, 3, planted=planted)
+    kw = dict(beam_size=8, max_len=32, ext_top_a=A, lm_table=table if lm else None,
+              lm_alpha=0.5 if lm else 0.0, lm_beta=1.0 if lm else 0.0)
+    build.reset_launches()
+    toks, n, score = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    assert build.LAUNCHES["prefix_beam_topa" if A else "prefix_beam"] == 1
+    assert build.LAUNCHES["prefix_beam" if A else "prefix_beam_topa"] == 0
+    torch.testing.assert_close(n, want[1], rtol=0, atol=0)
+    torch.testing.assert_close(toks, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(score, want[2], rtol=BEAM_RTOL, atol=0)
+    assert n[2] == 0 and score[2] == 0
+
+
+@pytest.mark.cuda
+def test_prefix_beam_kernel_takes_more_lanes_than_threads(cuda):
+    """K*V = 16 * 96 = 1536 lanes: threads loop over lanes."""
+    logits, lens, _ = _beam_case(cuda, 5, V=96)
+    kw = dict(beam_size=16, max_len=24)
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+    torch.testing.assert_close(got[2], want[2], rtol=BEAM_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_prefix_beam_kernel_rejects_what_it_does_not_take(cuda):
+    logp = torch.zeros(1, 2, 4096, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        beam_cuda.prefix_beam(logp, lens, 64, 8)              # 64 x 4096 lanes
+    with pytest.raises(ValueError, match="int32"):
+        beam_cuda.prefix_beam(logp, lens.long(), 4, 8)
+    with pytest.raises(ValueError, match="top_val"):
+        beam_cuda.prefix_beam(logp, lens, 4, 8, top_idx=torch.zeros(
+            1, 2, 3, dtype=torch.int32, device=cuda))

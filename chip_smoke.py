@@ -28,11 +28,20 @@ result line):
      drive ``decode.main`` with ``decode.lm_path`` at full width, once over
      all chars (K7) and once with ``decode.ext_top_a=8`` (K8), counting
      launches; profile one of its batches;
-  8. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+  8. config 3, ``tcn_ctc_devclean``: hold the TCN block kernels, K5 and the
+     K6 forward and backward, against their plain versions at B 16, T' 400
+     and a ragged 397, C 384, K 5, every dilation of the cycle, and K5 on
+     bf16 input, and time them beside a composite of torch calls; run the
+     model and one train step at float32 on the CPU and on the card; drive
+     ``decode.main`` (prefix beam K 16, no LM, its 14-bucket decode ladder)
+     and ``train.main`` (batch 16, one bucket) at full width in bf16 with
+     launch counts; profile one decode batch and one train step;
+  9. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -64,7 +73,8 @@ from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.evaluate import build_model, eval_step, model_outputs
 from pytorch_asr_tpu_torch.frontend import features
 from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len, set_residual_dtype
-from pytorch_asr_tpu_torch.ops import beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda
+from pytorch_asr_tpu_torch.ops import (
+    beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
 from pytorch_asr_tpu_torch.runtime import set_fp32_math
 from pytorch_asr_tpu_torch.training import state as train_state
 from pytorch_asr_tpu_torch.training.trainer import Trainer
@@ -120,6 +130,18 @@ CFG2, CFG2_LAYERS, BEAM_B, BEAM_K, BEAM_L, BEAM_A = "ctc_bilstm_beam_lm", 4, 16,
 # The kernel repeats the plain search's float32 operations in their order
 # (no FMA on the fusion line): tokens and lengths equal, scores to rounding.
 BEAM_RTOL = 1e-5
+# Config 3's paths: tcn_ctc_devclean, TCN C 384 x 10 blocks, K 5, dilations
+# 1-16, batch 16, prefix beam K 16 without an LM.
+CFG3, TCN_B, TCN_T, TCN_RAGGED_T, TCN_C, TCN_K = "tcn_ctc_devclean", 16, 400, 397, 384, 5
+TCN_BLOCKS, TCN_DILATIONS = 10, (1, 2, 4, 8, 16)
+# K5 and K6 against their plain versions, relative to each tensor's largest
+# entry: fp32 FMA sums in k order against cuBLAS's blocked sums (a few 1e-6
+# at these shapes), held to the JAX package's 2e-4 for its own kernel.  K5's
+# bf16 output: one bf16 step (2^-8) where the fp32 sums straddle a rounding
+# boundary.
+TCN_TOL = 2e-4
+TCN_BF16_TOL = 1e-2
+TCN_TRAIN_UTTS = 64          # 4 full batches of 16 an epoch, and 4 eval batches
 
 
 def check(cond: bool, msg: str) -> None:
@@ -490,11 +512,10 @@ def ctc_phase() -> list[dict]:
     return [alpha, beta]
 
 
-def slice_phase() -> dict:
-    """Full width, float32 compute, one short synthetic batch: card vs CPU."""
-    cfg = get_config("ctc_bilstm_dev1h", **{"model.compute_dtype": "float32",
-                                            "data.synthetic_num_utts": "8",
-                                            "data.auto_buckets": "1"})
+def slice_phase(config: str = "ctc_bilstm_dev1h") -> dict:
+    """Full width, float32 compute, one short synthetic batch of 8: card vs CPU."""
+    cfg = get_config(config, **{"model.compute_dtype": "float32", "data.synthetic_num_utts": "8",
+                                "data.batch_size": "8", "data.auto_buckets": "1"})
     batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
     outs = {}
     for name, device in (("cpu", torch.device("cpu")), ("card", CARD)):
@@ -520,14 +541,15 @@ def slice_phase() -> dict:
             "shape": list(gpu["ctc_logits"].shape)}
 
 
-def train_step_phase() -> dict:
+def train_step_phase(config: str = "ctc_bilstm_dev1h", front: str = "encoder.conv.") -> dict:
     """One float32 train step at full width, card vs CPU, from the same seeded
     weights and batch, dropout 0 and SpecAugment off.  Both save float32
-    residuals: bf16 residuals would round differently on the two devices."""
-    cfg = get_config("ctc_bilstm_dev1h", **{
+    LSTM residuals: bf16 residuals would round differently on the two
+    devices.  ``front`` names the convs that see the log-mel directly."""
+    cfg = get_config(config, **{
         "model.compute_dtype": "float32", "model.encoder.dropout": "0.0",
         "frontend.specaugment": "false", "data.synthetic_num_utts": str(B),
-        "data.auto_buckets": "1", "train.optim.peak_lr": "1e-3",
+        "data.batch_size": str(B), "data.auto_buckets": "1", "train.optim.peak_lr": "1e-3",
         "train.optim.warmup_steps": "1"})
     batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
     runs = {}
@@ -548,11 +570,11 @@ def train_step_phase() -> dict:
     grad_rel = {}
     for k, gc in cpu["grads"].items():
         _, grad_rel[k] = errors(gpu["grads"][k], gc)
-        tol = STEP_CONV_GRAD_TOL if k.startswith("encoder.conv.") else STEP_GRAD_TOL
+        tol = STEP_CONV_GRAD_TOL if k.startswith(front) else STEP_GRAD_TOL
         check(grad_rel[k] <= tol, f"train step gradient {k}: {grad_rel[k]} of its largest entry")
     worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])
-    conv_rel = max(v for k, v in worst if k.startswith("encoder.conv."))
-    rest_rel = max(v for k, v in worst if not k.startswith("encoder.conv."))
+    conv_rel = max(v for k, v in worst if k.startswith(front))
+    rest_rel = max(v for k, v in worst if not k.startswith(front))
     param_err = max(errors(gpu["after"][k], v)[0] for k, v in cpu["after"].items())
     check(param_err <= 2 * lr, f"params after one AdamW step differ by {param_err} > 2 lr")
     moved = max(errors(v, cpu["before"][k])[0] for k, v in cpu["after"].items())
@@ -731,35 +753,46 @@ def beam_phase(arpa: str) -> list[dict]:
     return out
 
 
+@contextlib.contextmanager
+def plain_calls_of(*targets):
+    """Wrap each (module, name) plain version so that its calls record the
+    device of their first argument; yields that list, and restores them."""
+    calls, saved = [], [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counted(fn):
+        def run(x, *args, **kwargs):
+            calls.append(x.device.type)
+            return fn(x, *args, **kwargs)
+        return run
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def beam_decode_phase(arpa: str, top_a: int) -> dict:
     """Config 2's serving path through ``decode.main`` at full width with the
     4-gram LM and its own decode ladder (14 buckets over 64 utterances of
     10-16 s, so batches may be partly filled), 4 batches: exactly 1 K1, 8 K2
     and 1 K7 (or, with ``decode.ext_top_a``, 1 K8) launch a batch, and no
     call of the plain search on the card."""
-    plain_calls = []
-    search = prefix_beam.beam_scan_plain
-
-    def counted(logp, *args, **kwargs):
-        plain_calls.append(logp.device.type)
-        return search(logp, *args, **kwargs)
-
-    with tempfile.TemporaryDirectory() as ckpt:
+    with tempfile.TemporaryDirectory() as ckpt, plain_calls_of(
+            (prefix_beam, "beam_scan_plain")) as plain_calls:
         argv = [CFG2, f"decode.lm_path={arpa}", "data.synthetic_min_sec=10",
                 "data.synthetic_max_sec=16", "data.synthetic_num_utts=64",
                 f"max_batches={DECODE_BATCHES}", f"train.checkpoint_dir={ckpt}"]
         if top_a:
             argv.append(f"decode.ext_top_a={top_a}")
-        prefix_beam.beam_scan_plain = counted
-        try:
-            torch.cuda.synchronize()
-            build.reset_launches()
-            t0 = time.perf_counter()
-            result = decode.main(argv)
-            wall = time.perf_counter() - t0
-            launches = dict(build.LAUNCHES)
-        finally:
-            prefix_beam.beam_scan_plain = search
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = decode.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
     beam, other = ("prefix_beam_topa", "prefix_beam") if top_a else ("prefix_beam",
                                                                      "prefix_beam_topa")
     want = {"stft_log_mel": DECODE_BATCHES, "lstm_seq": DECODE_BATCHES * CFG2_LAYERS * 2,
@@ -878,6 +911,245 @@ def train_profile_phase() -> dict:
             "top": rows[:12]}
 
 
+def tcn_weights(g: torch.Generator) -> list[torch.Tensor]:
+    """Block weights at lecun-normal scales, as the model draws them, with
+    LayerNorm scales near 1 and nonzero biases."""
+    C, K = TCN_C, TCN_K
+    return [t.cuda() for t in (1 + 0.1 * torch.randn(C, generator=g),
+                               0.1 * torch.randn(C, generator=g),
+                               torch.randn(K, C, 2 * C, generator=g) / (K * C) ** 0.5,
+                               0.1 * torch.randn(2 * C, generator=g),
+                               torch.randn(C, C, generator=g) / C ** 0.5,
+                               0.1 * torch.randn(C, generator=g))]
+
+
+def tcn_composite(p: list[torch.Tensor], d: int):
+    """The yardstick, a composite of torch calls in fp32 that the port never
+    makes: body(xn) = F.conv1d (dilation d, padding 2d) -> F.glu -> F.linear,
+    and block(x) = body(F.layer_norm(x)) (+ x).  Weights in the layouts the
+    calls take, made once."""
+    w_conv = p[2].permute(2, 1, 0).contiguous()              # (2C, C, K)
+    w_point = p[4].T.contiguous()                            # (out, in)
+
+    def body(xn, wc=w_conv, bc=p[3], wp=w_point, bp=p[5]):
+        acc = F.conv1d(xn.transpose(1, 2), wc, bc, dilation=d, padding=(TCN_K // 2) * d)
+        return F.linear(F.glu(acc.transpose(1, 2), dim=-1), wp, bp)
+
+    def block(x, residual):
+        y = body(F.layer_norm(x, (TCN_C,), p[0], p[1], eps=tcn_cuda.EPS))
+        return x + y if residual else y
+
+    return body, block, (w_conv, w_point)
+
+
+def tcn_phase() -> list[dict]:
+    """K5, the K6 forward and the K6 backward against their plain versions
+    at config 3's block shapes, B 16 x T' 400 and a ragged T' 397, C 384,
+    K 5, every dilation of the cycle; rows of 10-16 s with zero padding past
+    their lengths; K5 also on bf16 input, as the model feeds it.  Kernels
+    are timed at every dilation, the plain versions and the composite
+    yardstick at d = 1."""
+    g = torch.Generator().manual_seed(11)
+    p = tcn_weights(g)
+    names = {"tcn_block": ("out",), "tcn_block_train_fwd": ("y", "xn"),
+             "tcn_block_bwd": ("dxn", "dwc", "dbc", "dwp", "dbp")}
+    errs = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0} for n in names}
+    timed, cases = {}, []
+    B, C, K = TCN_B, TCN_C, TCN_K
+    for T in (TCN_T, TCN_RAGGED_T):
+        lengths = torch.linspace(T, 0.625 * T, B).int()
+        x = torch.randn(B, T, C, generator=g)
+        x = torch.where(torch.arange(T)[None, :, None] < lengths[:, None, None], x, 0.0).cuda()
+        dy = torch.randn(B, T, C, generator=g).cuda()
+        for d in TCN_DILATIONS:
+            out = tcn_cuda.tcn_block(x, *p, d)
+            y, xn = tcn_cuda.tcn_block_train_fwd(x, *p, d)
+            grads = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], d)
+            torch.cuda.synchronize()
+            want_y, want_xn = tcn_cuda.tcn_block_train_fwd_plain(x, *p, d)
+            want = {"out": tcn_cuda.tcn_block_plain(x, *p, d), "y": want_y, "xn": want_xn,
+                    **dict(zip(names["tcn_block_bwd"], tcn_cuda.tcn_block_bwd_plain(
+                        want_xn, dy, p[2], p[3], p[4], d)))}
+            got = {"out": out, "y": y, "xn": xn, **dict(zip(names["tcn_block_bwd"], grads))}
+            case = {"T": T, "dilation": d}
+            for kernel, outs in names.items():
+                for o in outs:
+                    check(got[o].dtype == want[o].dtype and got[o].shape == want[o].shape
+                          and bool(torch.isfinite(got[o]).all()), f"{kernel} {o}: bad output")
+                    err, rel = errors(got[o], want[o])
+                    check(rel <= TCN_TOL, f"{kernel} {o} T={T} d={d}: {rel} > {TCN_TOL} "
+                                          "of its largest entry")
+                    e = errs[kernel]
+                    e["max_abs_err"], e["max_rel_err"] = (max(e["max_abs_err"], err),
+                                                          max(e["max_rel_err"], rel))
+                    case[o] = rel
+            if T == TCN_T:
+                case["ms"] = {"tcn_block": time_ms(lambda: tcn_cuda.tcn_block(x, *p, d)),
+                              "tcn_block_train_fwd": time_ms(
+                                  lambda: tcn_cuda.tcn_block_train_fwd(x, *p, d)),
+                              "tcn_block_bwd": time_ms(lambda: tcn_cuda.tcn_block_bwd(
+                                  xn, dy, p[2], p[3], p[4], d))}
+            if T == TCN_T and d == 1:
+                timed = {"x": x, "dy": dy, "xn": xn}
+            cases.append(case)
+        xb = x.bfloat16()
+        outb, wantb = tcn_cuda.tcn_block(xb, *p, 4), tcn_cuda.tcn_block_plain(xb, *p, 4)
+        check(outb.dtype == torch.bfloat16, "tcn_block: bf16 input must give bf16 output")
+        bf16_err, bf16_rel = errors(outb, wantb)
+        check(bf16_rel <= TCN_BF16_TOL, f"tcn_block bf16 T={T}: {bf16_rel}")
+        cases.append({"T": T, "dilation": 4, "x": "bf16", "out": bf16_rel})
+
+    # Timed at d = 1, B 16, T' 400: the plain versions and the yardstick.
+    x, dy, xn = timed["x"], timed["dy"], timed["xn"]
+    body, block, (wc_l, wp_l) = tcn_composite(p, 1)
+    lib_err, _ = errors(block(x, True), tcn_cuda.tcn_block_plain(x, *p, 1))
+    check(lib_err <= 1e-3, f"tcn yardstick computes another function: {lib_err}")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xn, wc_l, p[3], wp_l, p[5])]
+    lib_out = body(*leaves)
+    plain = {"tcn_block": lambda: tcn_cuda.tcn_block_plain(x, *p, 1),
+             "tcn_block_train_fwd": lambda: tcn_cuda.tcn_block_train_fwd_plain(x, *p, 1),
+             "tcn_block_bwd": lambda: tcn_cuda.tcn_block_bwd_plain(xn, dy, p[2], p[3], p[4], 1)}
+    library = {"tcn_block": lambda: block(x, True), "tcn_block_train_fwd": lambda: block(x, False),
+               "tcn_block_bwd": lambda: torch.autograd.grad(lib_out, leaves, dy,
+                                                            retain_graph=True)}
+    what = {"tcn_block": "4-call composite F.layer_norm -> F.conv1d -> F.glu -> F.linear, + x "
+                         "(fp32, cuDNN and cuBLAS, no TF32)",
+            "tcn_block_train_fwd": "4-call composite F.layer_norm -> F.conv1d -> F.glu -> "
+                                   "F.linear (fp32)",
+            "tcn_block_bwd": "3-call composite F.conv1d -> F.glu -> F.linear from xn, its "
+                             "autograd backward (autograd.grad, graph kept)"}
+    # Operations: the conv 2 B T C K 2C and the pointwise 2 B T C C; the
+    # backward recomputes the conv, then dglu, dw_point, dw_conv and dxn.
+    BT, P = B * TCN_T, 4 * (2 * C + K * C * 2 * C + 2 * C + C * C + C)
+    fwd_ops = 2 * BT * C * (K * 2 * C + C)
+    bwd_ops = 2 * BT * C * C * (6 * K + 2)
+    bounds = {"tcn_block": bound(4 * BT * C * 2 + P, fwd_ops / PEAK_FP32_S),
+              "tcn_block_train_fwd": bound(4 * BT * C * 3 + P, fwd_ops / PEAK_FP32_S),
+              "tcn_block_bwd": bound(4 * BT * C * 3 + 2 * P, bwd_ops / PEAK_FP32_S)}
+    lines = {"tcn_block": 83, "tcn_block_train_fwd": 302, "tcn_block_bwd": 321}
+    head = next(c for c in cases if c["T"] == TCN_T and c["dilation"] == 1)
+    out = []
+    for name in names:
+        b_ms, b_by = bounds[name]
+        out.append({
+            "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/tcn_block.cu",
+            "replaces": f"pytorch_asr_tpu/ops/dilated_conv_pallas.py:{lines[name]}",
+            "shape": f"x ({B}, {TCN_T}, {C}) f32 (also T' {TCN_RAGGED_T}, bf16 x for K5), "
+                     f"w_conv ({K}, {C}, {2 * C}), d {list(TCN_DILATIONS)}",
+            **errs[name], "tol": {"max_rel_err": TCN_TOL} if name != "tcn_block" else
+            {"max_rel_err": TCN_TOL, "bf16 x max_rel_err": TCN_BF16_TOL},
+            "ms": head["ms"][name], "plain_ms": time_ms(plain[name], 5, 4, 1),
+            "library_ms": time_ms(library[name], 5, 4, 1), "library": what[name],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "ms_by_dilation": {c["dilation"]: c["ms"][name] for c in cases if "ms" in c}})
+    out[0]["cases"] = cases
+    return out
+
+
+def tcn_decode_phase() -> dict:
+    """Config 3's serving path through ``decode.main`` at full width in bf16
+    on its own 14-bucket decode ladder over 64 utterances of 10-16 s, 4
+    batches: exactly 1 K1, 10 K5 and 1 K7 a batch, no other kernel, and no
+    call of the plain block or the plain search on the card."""
+    with tempfile.TemporaryDirectory() as ckpt, plain_calls_of(
+            (tcn_cuda, "tcn_block_plain"), (prefix_beam, "beam_scan_plain")) as plain_calls:
+        argv = [CFG3, "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                "data.synthetic_num_utts=64", f"max_batches={DECODE_BATCHES}",
+                f"train.checkpoint_dir={ckpt}"]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = decode.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    want = {"stft_log_mel": DECODE_BATCHES, "tcn_block": DECODE_BATCHES * TCN_BLOCKS,
+            "prefix_beam": DECODE_BATCHES}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"tcn decode launches {launches} != {want}")
+    check(not plain_calls, f"a plain version ran on the serving path: {plain_calls}")
+    check(set(result) == {"method", "wer", "cer", "num_utts", "decode_rtf",
+                          "padding_efficiency_decode"} and result["num_utts"] > 0
+          and result["decode_rtf"] > 0, f"tcn decode: bad result {result}")
+    return {**result, "wall_s": wall, "batches": DECODE_BATCHES, "launches": launches}
+
+
+def tcn_train_phase() -> dict:
+    """Config 3's training path: ``train.main`` at full width in bf16, full
+    batches of 16 utterances of 10-16 s in one bucket, dropout 0.1 and
+    SpecAugment from the trainer's generator, then the greedy eval: per step
+    1 K1, 10 K6 forwards, 10 K6 backwards, 1 K4 alpha and 1 beta; per eval
+    batch 1 K1 and 10 K5; and no call of a plain block version on the card."""
+    plain = [(tcn_cuda, name) for name in ("tcn_block_plain", "tcn_block_train_fwd_plain",
+                                           "tcn_block_bwd_plain")]
+    with tempfile.TemporaryDirectory() as ckpt, plain_calls_of(*plain) as plain_calls:
+        argv = [CFG3, "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                f"data.synthetic_num_utts={TCN_TRAIN_UTTS}", "data.auto_buckets=1",
+                f"steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS}",
+                f"train.log_every={TRAIN_STEPS}", f"train.checkpoint_dir={ckpt}"]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    last, ev = result["train"], result["eval"]
+    evals = TCN_TRAIN_UTTS // TCN_B
+    want = {"stft_log_mel": TRAIN_STEPS + evals, "tcn_block": TCN_BLOCKS * evals,
+            "tcn_block_train_fwd": TCN_BLOCKS * TRAIN_STEPS,
+            "tcn_block_bwd": TCN_BLOCKS * TRAIN_STEPS, "ctc_alpha": TRAIN_STEPS,
+            "ctc_beta": TRAIN_STEPS}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"tcn train launches {launches} != {want}")
+    check(not plain_calls, f"a plain version ran on the training path: {plain_calls}")
+    check(last.get("step") == TRAIN_STEPS and math.isfinite(last["ctc_loss"])
+          and math.isfinite(last["grad_norm"]), f"tcn train: bad record {last}")
+    check(ev.get("num_utts") == TCN_TRAIN_UTTS, f"tcn train eval: {ev}")
+    return {"record": last, "eval": ev, "wall_s": wall, "step_s": 1.0 / last["steps_per_sec"],
+            "launches": launches,
+            "launches_per_step": {k: (v - (want["tcn_block"] if k == "tcn_block" else 0)
+                                      - (evals if k == "stft_log_mel" else 0)) / TRAIN_STEPS
+                                  for k, v in launches.items() if v},
+            "launches_per_eval_batch": {"stft_log_mel": 1, "tcn_block": TCN_BLOCKS}}
+
+
+def tcn_profile_phase() -> dict:
+    """Device time by kernel over one config-3 decode batch (16 utterances of
+    10-16 s, bf16, beam 16, no LM) and one full-width bf16 train step on the
+    same batch, each beside its host-clock time."""
+    cfg = get_config(CFG3, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(TCN_B), "data.auto_buckets": "1"})
+    host_batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    decode_fn = driver.make_decode_fn(cfg, build_model(cfg, CARD))
+    with torch.inference_mode():
+        decode_fn(host_batch)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            ids, _ = decode_fn(host_batch)
+            ids.cpu()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+    st = train_state.init_train_state(cfg, train_state.build_model(cfg, CARD))
+    batch = train_state.batch_to_device(host_batch, CARD)
+    train_state.train_step(cfg, st, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as tprof:
+        t0 = time.perf_counter()
+        train_state.train_step(cfg, st, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    out = {}
+    for name, p, wall in (("decode", prof, dec_ms), ("train", tprof, step_ms)):
+        rows = device_rows(p)
+        total = sum(r["device_ms"] for r in rows)
+        check(total > 0, f"tcn {name} profile: no device time recorded")
+        share = lambda key: sum(r["device_ms"] for r in rows if key in r["name"]) / total  # noqa
+        out[name] = {"wall_ms": wall, "device_ms": total, "device_busy": total / wall,
+                     "gemm_share": share("gemm_kernel"), "prefix_beam_share": share("prefix_beam"),
+                     "top": rows[:12]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -890,7 +1162,8 @@ def main() -> int:
     # Library yardsticks (cuDNN's LSTM and convolutions) in full fp32 too.
     set_fp32_math()
     t0 = time.perf_counter()
-    logs = build.build(["stft_log_mel", "lstm_seq", "ctc_alpha_beta", "prefix_beam"])
+    logs = build.build(["stft_log_mel", "lstm_seq", "ctc_alpha_beta", "prefix_beam",
+                       "tcn_block"])
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -901,7 +1174,7 @@ def main() -> int:
     print(f"lm: {time.perf_counter() - t0:.1f} s (set-up)")
 
     kernels = [stft_phase(), lstm_phase(), *lstm_train_phase(), *ctc_phase(),
-               *beam_phase(arpa)]
+               *beam_phase(arpa), *tcn_phase()]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
@@ -923,12 +1196,27 @@ def main() -> int:
         print(f"{path}:", json.dumps(res))
         print(f"{path}: decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "
               f"padding_efficiency_decode {res['padding_efficiency_decode']:.4f}")
+    print("tcn_slice:", json.dumps(slice_phase(CFG3)))
+    print("tcn_train_step:", json.dumps(train_step_phase(CFG3, "encoder.stem.")))
+    tcn_dec = tcn_decode_phase()
+    print("tcn_decode:", json.dumps(tcn_dec))
+    print(f"tcn_decode: decode_rtf {tcn_dec['decode_rtf']:.5f} wer {tcn_dec['wer']:.4f} "
+          f"padding_efficiency_decode {tcn_dec['padding_efficiency_decode']:.4f}")
+    tcn_trn = tcn_train_phase()
+    print("tcn_train:", json.dumps(tcn_trn))
+    print(f"tcn_train: audio_seconds_per_sec_per_chip "
+          f"{tcn_trn['record']['audio_seconds_per_sec_per_chip']:.2f} "
+          f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
     # Each kernel is held to the main path that runs it: K7 and K8 to the
-    # config-2 serving paths, the rest to the training path (which runs K2
-    # in its eval); every path's count is printed.
+    # config-2 serving paths, K5 to config 3's serving path, K6 to config
+    # 3's training path, the rest to config 1's training path (which runs
+    # K2 in its eval); every path's count is printed.
     paths = {"train": trn["launches"], "decode": dec["launches"],
-             **{p: r["launches"] for p, r in beam_dec.items()}}
-    own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa"}
+             **{p: r["launches"] for p, r in beam_dec.items()},
+             "tcn_decode": tcn_dec["launches"], "tcn_train": tcn_trn["launches"]}
+    own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
+                "tcn_block": "tcn_decode", "tcn_block_train_fwd": "tcn_train",
+                "tcn_block_bwd": "tcn_train"}
     for k in kernels:
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         own = own_path.get(k["name"], "train")
@@ -938,6 +1226,7 @@ def main() -> int:
     print("profile:", json.dumps(profile_phase()))
     print("train_profile:", json.dumps(train_profile_phase()))
     print("beam_profile:", json.dumps(beam_profile_phase(arpa)))
+    print("tcn_profile:", json.dumps(tcn_profile_phase()))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,8 @@
 Frozen dataclasses with the same fields and defaults as the JAX package, so a
 ``key=value`` override (see ``apply_overrides``) reads the same in both CLIs.
 Fields that select a JAX-only code path (``use_pallas``, ``tp_directions``,
-``rng_impl``, the mesh) are kept for override compatibility; the port's
-greedy-CTC serving path does not read them.
+``rng_impl``, the mesh) are kept for override compatibility; the port does
+not read them: its kernels run wherever a tensor lies on the card.
 """
 
 from __future__ import annotations

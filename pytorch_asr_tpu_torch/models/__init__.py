@@ -1,1 +1,1 @@
-"""conv + BiLSTM CTC model."""
+"""CTC models: conv + BiLSTM (configs 1 and 2) and TCN (config 3)."""

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fwd": 0,
                             "lstm_seq_bwd": 0, "ctc_alpha": 0, "ctc_beta": 0,
-                            "prefix_beam": 0, "prefix_beam_topa": 0}
+                            "prefix_beam": 0, "prefix_beam_topa": 0, "tcn_block": 0,
+                            "tcn_block_train_fwd": 0, "tcn_block_bwd": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -2,7 +2,8 @@
 ``pytorch_asr_tpu.training.trainer``.
 
 Host loop: take a bucketed batch, copy it to the device, run one
-``train_step`` (frontend -> encoder -> CTC loss -> gradients -> update), log
+``train_step`` (frontend -> encoder, BiLSTM or TCN, with dropout from the
+train state's generator -> CTC loss -> gradients -> update), log
 JSONL metrics every ``train.log_every`` steps, checkpoint, and greedy-eval
 WER with the eval weights (the EMA copy when kept); ``decode_eval`` runs the
 configured decode method (greedy, or the prefix beam search).  No mesh, no grain

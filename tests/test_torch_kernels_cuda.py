@@ -14,7 +14,8 @@ import torch
 
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig
 from pytorch_asr_tpu_torch.decoding import prefix_beam
-from pytorch_asr_tpu_torch.ops import beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda
+from pytorch_asr_tpu_torch.ops import (
+    beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
 
 # The kernel's fp64 FFT vs the plain version's fp32 cuFFT, whose error on
 # log-mel near log_floor reaches ~1e-3: 2e-3, as the JAX package holds its
@@ -36,6 +37,11 @@ CTC_GRAD_RTOL, CTC_GRAD_ATOL = 1e-4, 1e-5
 # operations in the same order (no FMA on the fusion line), so tokens and
 # lengths are equal and scores agree to rounding (bit-equal in practice).
 BEAM_RTOL = 1e-5
+# TCN block: fp32 FMA products summed in k order against cuBLAS's blocked
+# sums, the JAX package's 2e-4 (relative to each tensor's largest entry);
+# a bf16 output one bf16 step apart where the fp32 sums straddle a rounding
+# boundary.
+TCN_TOL = 2e-4
 
 
 @pytest.fixture
@@ -299,3 +305,87 @@ def test_prefix_beam_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="top_val"):
         beam_cuda.prefix_beam(logp, lens, 4, 8, top_idx=torch.zeros(
             1, 2, 3, dtype=torch.int32, device=cuda))
+
+
+def _tcn_case(device, dtype=torch.float32, B=3, T=133, C=96, K=5, seed=9):
+    """Rows of different lengths with zero padding; LayerNorm scales near 1
+    and nonzero biases.  T = 133 and C = 96 leave ragged tiles (128 rows,
+    32 channel pairs)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, C)).astype(np.float32) * 0.5
+    for b, n in enumerate([T, T - 40, 7][:B]):
+        x[b, max(n, 0):] = 0.0
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    p = [t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)),
+         t(rng.standard_normal((K, C, 2 * C)) * 0.05), t(0.1 * rng.standard_normal(2 * C)),
+         t(rng.standard_normal((C, C)) * 0.05), t(0.1 * rng.standard_normal(C))]
+    return t(x).to(dtype), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [133, 9])
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8, 16])
+def test_tcn_kernels_match_plain(cuda, dilation, T):
+    """K5, the K6 forward and the K6 backward against their plain versions;
+    T = 9 is shorter than the conv's reach 2 d (K // 2) for d >= 4."""
+    x, p = _tcn_case(cuda, T=T)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(dilation)).to(cuda)
+    build.reset_launches()
+    out = tcn_cuda.tcn_block(x, *p, dilation)
+    y, xn = tcn_cuda.tcn_block_train_fwd(x, *p, dilation)
+    grads = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], dilation)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["tcn_block"], build.LAUNCHES["tcn_block_train_fwd"],
+            build.LAUNCHES["tcn_block_bwd"]) == (1, 1, 1)
+    want_y, want_xn = tcn_cuda.tcn_block_train_fwd_plain(x, *p, dilation)
+    want = (tcn_cuda.tcn_block_plain(x, *p, dilation), want_y, want_xn,
+            *tcn_cuda.tcn_block_bwd_plain(want_xn, dy, p[2], p[3], p[4], dilation))
+    for name, g, w in zip(("out", "y", "xn", "dxn", "dwc", "dbc", "dwp", "dbp"),
+                          (out, y, xn, *grads), want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= TCN_TOL, name
+
+
+@pytest.mark.cuda
+def test_tcn_kernel_takes_bf16_input(cuda):
+    """K5 on bf16 x, as the model feeds it: the residual added in fp32, the
+    output in bf16; the K6 forward reads bf16 x too."""
+    x, p = _tcn_case(cuda, dtype=torch.bfloat16)
+    out = tcn_cuda.tcn_block(x, *p, 4)
+    want = tcn_cuda.tcn_block_plain(x, *p, 4)
+    assert out.dtype == torch.bfloat16
+    assert _rel_err(out, want) <= BF16_TOL
+    assert ((out.float() - want.float()).abs() > 0).float().mean() < 0.01
+    y, _ = tcn_cuda.tcn_block_train_fwd(x, *p, 4)
+    assert _rel_err(y, tcn_cuda.tcn_block_train_fwd_plain(x, *p, 4)[0]) <= TCN_TOL
+
+
+@pytest.mark.cuda
+def test_tcn_autograd_launches_the_training_pair(cuda):
+    x, p = _tcn_case(cuda)
+    ts = [t.clone().requires_grad_(True) for t in (x, *p)]
+    build.reset_launches()
+    tcn_cuda.tcn_block_train(*ts, 2).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["tcn_block_train_fwd"], build.LAUNCHES["tcn_block_bwd"],
+            build.LAUNCHES["tcn_block"]) == (1, 1, 0)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in ts]
+    tcn_cuda.tcn_block_train(*cpu, 2).square().sum().backward()
+    for name, g, w in zip(("x", "ln_scale", "ln_bias", "w_conv", "b_conv", "w_point",
+                           "b_point"), ts, cpu):
+        assert _rel_err(g.grad.cpu(), w.grad) <= 1e-3, name
+
+
+@pytest.mark.cuda
+def test_tcn_kernels_reject_what_they_do_not_take(cuda):
+    x, p = _tcn_case(cuda)
+    with pytest.raises(ValueError, match="halo"):
+        tcn_cuda.tcn_block(x, *p, 32)                          # 32 x 2 > 32
+    with pytest.raises(ValueError, match="halo"):
+        tcn_cuda.tcn_block_bwd(x, x, p[2], p[3], p[4], 17)
+    with pytest.raises(ValueError, match="w_point"):
+        tcn_cuda.tcn_block(x, *p[:4], p[4].T.contiguous()[:-1], p[5], 1)
+    with pytest.raises(ValueError, match="float32"):
+        tcn_cuda.tcn_block(x.double(), *p, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcn_cuda.tcn_block(x.transpose(0, 1), *p, 1)

@@ -28,7 +28,16 @@ result line):
      drive ``decode.main`` with ``decode.lm_path`` at full width, once over
      all chars (K7) and once with ``decode.ext_top_a=8`` (K8), counting
      launches; profile one of its batches;
-  8. config 3, ``tcn_ctc_devclean``: hold the TCN block kernels, K5 and the
+  8. config 2 with the char RNN LM: train the LM at its default widths
+     (E 128, H 256, 2 layers) with the port's ``train_lm`` on the card
+     (set-up); hold K9, the search fused with the LM, against the plain
+     search on the card over all chars and the top 8 (config 2's model
+     logits for 16 utterances of 10-16 s with each row's transcript
+     planted, one row of no frames) and time it; drive ``decode.main`` with
+     ``decode.lm_path=<lm.npz>`` at full width, once over all chars and once
+     with ``decode.ext_top_a=8``, counting launches; beam-decode the
+     learned tiny model with the RNN LM; profile one of its batches;
+  9. config 3, ``tcn_ctc_devclean``: hold the TCN block kernels, K5 and the
      K6 forward and backward, against their plain versions at B 16, T' 400
      and a ragged 397, C 384, K 5, every dilation of the cycle, and K5 on
      bf16 input, and time them beside a composite of torch calls; run the
@@ -36,7 +45,7 @@ result line):
      ``decode.main`` (prefix beam K 16, no LM, its 14-bucket decode ladder)
      and ``train.main`` (batch 16, one bucket) at full width in bf16 with
      launch counts; profile one decode batch and one train step;
-  9. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+  10. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_asr_tpu_torch import decode, train, train_ngram
+from pytorch_asr_tpu_torch import decode, train, train_lm, train_ngram
 from pytorch_asr_tpu_torch.configs import get_config
 from pytorch_asr_tpu_torch.configs.base import (
     BiLSTMEncoderConfig,
@@ -66,7 +75,7 @@ from pytorch_asr_tpu_torch.configs.base import (
     OptimConfig,
     TrainConfig,
 )
-from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset
+from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_tokenizer
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
 from pytorch_asr_tpu_torch.decoding import driver, prefix_beam
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
@@ -130,6 +139,15 @@ CFG2, CFG2_LAYERS, BEAM_B, BEAM_K, BEAM_L, BEAM_A = "ctc_bilstm_beam_lm", 4, 16,
 # The kernel repeats the plain search's float32 operations in their order
 # (no FMA on the fusion line): tokens and lengths equal, scores to rounding.
 BEAM_RTOL = 1e-5
+# Config 2 with the char LSTM LM at RNNLMConfig's default widths (E 128,
+# H 256, 2 layers), trained by train_lm on the synthetic texts: 300 steps
+# (the CLI's default is 500) keep the run short.
+LM_STEPS = 300
+# K9's LM products are fp32 sums in another order than torch.matmul's, so
+# its scores drift from the plain search's by a few ulps a frame: tokens and
+# lengths exact on planted-path logits, scores held as the JAX package holds
+# its own K9 on hardware (tests/test_tpu_parity.py).
+RNN_RTOL, RNN_ATOL = 2e-3, 1e-3
 # Config 3's paths: tcn_ctc_devclean, TCN C 384 x 10 blocks, K 5, dilations
 # 1-16, batch 16, prefix beam K 16 without an LM.
 CFG3, TCN_B, TCN_T, TCN_RAGGED_T, TCN_C, TCN_K = "tcn_ctc_devclean", 16, 400, 397, 384, 5
@@ -620,12 +638,12 @@ def train_main_phase() -> dict:
             "lstm_seq_per_eval_batch": launches["lstm_seq"] / EVAL_BATCHES}
 
 
-def learn_phase(arpa: str) -> dict:
+def learn_phase(arpa: str, rnn_lm: str) -> dict:
     """The tiny config of the JAX package's end-to-end test, on the card: its
     loss must fall below half the first logged value and its greedy WER below
     0.3 after 300 steps.  Then ``Trainer.decode_eval`` decodes the learned
-    model with config 2's prefix beam search and 4-gram LM: its WER must not
-    exceed the greedy WER."""
+    model with config 2's prefix beam search, with the 4-gram LM and with the
+    RNN LM: neither WER may exceed the greedy WER."""
     cfg = dataclasses.replace(
         get_config("ctc_bilstm_dev1h"),
         frontend=FrontendConfig(specaugment=False),
@@ -654,15 +672,23 @@ def learn_phase(arpa: str) -> dict:
         build.reset_launches()
         beam = trainer.decode_eval()
         beam_launches = build.LAUNCHES["prefix_beam"]
+        trainer.cfg = dataclasses.replace(trainer.cfg, decode=dataclasses.replace(
+            trainer.cfg.decode, lm_path=rnn_lm))
+        build.reset_launches()
+        rnn = trainer.decode_eval()
+        rnn_launches = build.LAUNCHES["prefix_beam_rnn"]
     check(rest["ctc_loss"] < 0.5 * first["ctc_loss"],
           f"learn: ctc_loss {rest['ctc_loss']} not below half of {first['ctc_loss']}")
     check(result["wer"] < 0.3 and result["num_utts"] == 24, f"learn: {result}")
     check(beam["num_utts"] == 24 and beam_launches > 0 and beam["wer"] <= result["wer"],
           f"learn: beam + LM {beam} ({beam_launches} K7 launches) vs greedy {result}")
+    check(rnn["num_utts"] == 24 and rnn_launches > 0 and rnn["wer"] <= result["wer"],
+          f"learn: beam + RNN LM {rnn} ({rnn_launches} K9 launches) vs greedy {result}")
     return {"first_ctc_loss": first["ctc_loss"], "last_ctc_loss": rest["ctc_loss"],
             "wer": result["wer"], "cer": result["cer"], "steps": sum(LEARN_STEPS),
             "wall_s": wall, "beam_lm_wer": beam["wer"], "beam_lm_cer": beam["cer"],
-            "beam_lm_k7_launches": beam_launches}
+            "beam_lm_k7_launches": beam_launches, "beam_rnn_lm_wer": rnn["wer"],
+            "beam_rnn_lm_cer": rnn["cer"], "beam_rnn_lm_k9_launches": rnn_launches}
 
 
 def build_lm() -> str:
@@ -673,6 +699,21 @@ def build_lm() -> str:
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     train_ngram.main([str(path), "num_synthetic=512", "order=4"])
     return str(path)
+
+
+def build_rnn_lm() -> tuple[str, dict]:
+    """Config 2's RNN LM, trained on the card at run time by the port's
+    ``train_lm`` at its default widths on ``synthetic_texts(256)``, into the
+    build directory (gitignored).  Returns its path and the CLI's record."""
+    path = build.BUILD_DIR / "rnn_lm.npz"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    record = train_lm.main([str(path), f"steps={LM_STEPS}", "log_every=100"])
+    torch.cuda.synchronize()
+    record["wall_s"] = time.perf_counter() - t0
+    # uniform over the 31 chars is log(31) ~ 3.43 nats
+    check(math.isfinite(record["nll"]) and record["nll"] < 3.0, f"train_lm: {record}")
+    return str(path), record
 
 
 def cfg2_batch_logits(cfg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -754,6 +795,124 @@ def beam_phase(arpa: str) -> list[dict]:
 
 
 @contextlib.contextmanager
+def lm_steps_counted():
+    """Counts the LM steps the plain search's frames need: beams that append
+    a char at a frame inside their row's length, the steps K9 computes."""
+    count, fn = [0], prefix_beam._advance_lm
+
+    def counted(rnn_lm, carry, parent, append, active):
+        count[0] += int(((append >= 0) & active[:, None]).sum())
+        return fn(rnn_lm, carry, parent, append, active)
+
+    prefix_beam._advance_lm = counted
+    try:
+        yield count
+    finally:
+        prefix_beam._advance_lm = fn
+
+
+def transcript_path(batch: dict, lens: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, T) int64 CTC path of each row's transcript: its n chars on the
+    first frames of n equal spans of the row's frames, blanks elsewhere."""
+    path = torch.zeros((len(lens), T), dtype=torch.long)
+    for b, n_t in enumerate(lens.tolist()):
+        ids = torch.from_numpy(batch["tokens"][b, : batch["token_len"][b]]).long()[:n_t]
+        n = len(ids)
+        if n:
+            path[b, (torch.arange(n) * n_t + n - 1) // n] = ids
+    return path
+
+
+def rnn_beam_phase(rnn_lm_path: str) -> list[dict]:
+    """K9 against the plain search, both on the card, at config 2's serving
+    shapes (B 16, T' ~ 400, V 31, K 16, L 256) with the trained LM (E 128,
+    H 256, 2 layers), over all chars and each frame's top 8: on the
+    random-weight model's logits plus a planted path, the last row cut to no
+    frames, tokens and lengths exact and scores within RNN_RTOL / RNN_ATOL;
+    on the model's logits alone, the share of rows with equal tokens
+    (information only).  Timed on the model's logits, the serving path's case.
+
+    The planted path is each row's transcript (~200 chars, below L), not
+    a random char a frame: a random path of ~380 chars fills the beams to L,
+    and full beams only stay, so their candidates tie to the last ulps and
+    the LM's rounding decides (on the card the kernel then agreed with a
+    float64 plain search where the float32 one did not)."""
+    cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1",
+                              "decode.lm_path": rnn_lm_path})
+    logits, lens = cfg2_batch_logits(cfg)
+    B, T, V = logits.shape
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    path = transcript_path(batch, lens.cpu(), T).to(CARD)
+    planted = logits.clone()
+    planted.scatter_add_(2, path[..., None], torch.full((B, T, 1), 4.0, device=CARD))
+    ragged = lens.clone()
+    ragged[B - 1] = 0
+    rnn = driver.load_lm(cfg, CARD)
+    lmc, dec, sos = rnn.cfg, cfg.decode, get_tokenizer(cfg.data.vocab).sos_id
+    h0, c0, lmp0 = prefix_beam.primed_lm_state(rnn, sos)
+    n_weights = sum(p.numel() for p in rnn.parameters())
+    out = []
+    for name, A in (("prefix_beam_rnn", 0), ("prefix_beam_rnn_topa", BEAM_A)):
+        kw = dict(beam_size=BEAM_K, max_len=BEAM_L, ext_top_a=A, rnn_lm=rnn, sos_id=sos,
+                  lm_alpha=dec.lm_alpha, lm_beta=dec.lm_beta)
+        build.reset_launches()
+        got = prefix_beam.prefix_beam_search(planted, ragged, **kw)
+        torch.cuda.synchronize()
+        check({k: v for k, v in build.LAUNCHES.items() if v} == {name: 1},
+              f"{name}: {dict(build.LAUNCHES)}")
+        want = prefix_beam.prefix_beam_search_plain(planted, ragged, **kw)
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"{name} planted: tokens or lengths differ from the plain search")
+        torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL,
+                                   msg=lambda m, name=name: f"{name} planted scores: {m}")
+        check(got[1][B - 1] == 0 and got[2][B - 1] == 0, f"{name}: the empty row")
+        model_got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+        with lm_steps_counted() as lm_steps:
+            model_want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+        same = (got_rows := (model_got[0] == model_want[0]).all(1)
+                & (model_got[1] == model_want[1])).float().mean().item()
+        logp, (tv, ti) = prefix_beam._prepare(logits, A)
+        args = (logp, lens.to(torch.int32).contiguous(), BEAM_K, BEAM_L, rnn, h0, c0, lmp0,
+                dec.lm_alpha, dec.lm_beta, tv, ti)
+        frames, C = int(lens.sum()), A or V
+        # Bytes: logp of the valid frames, the top-A values and ids, the
+        # LM's weights and primed state once, the backpointers written, the
+        # lengths and outputs.
+        nbytes = (4 * V * frames + 8 * A * frames + 4 * (n_weights + 2 * lmc.num_layers
+                                                         * lmc.hidden_dim + V)
+                  + 8 * BEAM_K * frames + 4 * B + 4 * B * BEAM_L + 8 * B)
+        # Operations: the search's, as for K7 and K8, plus each LM step the
+        # data needs: the gate products 2 * 4H * (in + H) a layer, ~10 a
+        # gate unit for the cell, the output product 2 H V and ~5 V for the
+        # log-softmax.
+        Hd, G4 = lmc.hidden_dim, 4 * lmc.hidden_dim
+        step_ops = (sum(2 * G4 * ((lmc.embed_dim if l == 0 else Hd) + Hd)
+                        for l in range(lmc.num_layers))
+                    + 10 * G4 * lmc.num_layers + 2 * Hd * V + 5 * V)
+        ops = (frames * (12 * BEAM_K * C + 3 * BEAM_K ** 2
+                         + (BEAM_K + BEAM_K * C) * math.log2(BEAM_K)) + lm_steps[0] * step_ops)
+        b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
+        out.append({
+            "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+            "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:1452",
+            "shape": f"logp ({B}, {T}, {V}) f32, lengths {lens.tolist()}, K {BEAM_K}, "
+                     f"L {BEAM_L}, C {C}, LM E {lmc.embed_dim} H {Hd} x {lmc.num_layers}",
+            "max_abs_err": (got[2] - want[2]).abs().max().item(),
+            "tol": {"tokens": "equal", "scores_rtol": RNN_RTOL, "scores_atol": RNN_ATOL},
+            "model_logits_rows_equal": same,
+            "model_logits_max_abs_err": (model_got[2] - model_want[2])[got_rows].abs().max()
+            .item() if bool(got_rows.any()) else None,
+            "lm_steps": lm_steps[0], "lm_steps_per_frame": lm_steps[0] / frames,
+            "ms": time_ms(lambda: beam_cuda.prefix_beam_rnn(*args), 5, 2, 1),
+            "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(
+                *args[:4], None, *args[8:], rnn_lm=rnn, lm_state=(h0, c0, lmp0)), 3, 1, 1),
+            "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
+            "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+@contextlib.contextmanager
 def plain_calls_of(*targets):
     """Wrap each (module, name) plain version so that its calls record the
     device of their first argument; yields that list, and restores them."""
@@ -774,15 +933,17 @@ def plain_calls_of(*targets):
             setattr(mod, name, fn)
 
 
-def beam_decode_phase(arpa: str, top_a: int) -> dict:
+def beam_decode_phase(lm_path: str, top_a: int) -> dict:
     """Config 2's serving path through ``decode.main`` at full width with the
-    4-gram LM and its own decode ladder (14 buckets over 64 utterances of
-    10-16 s, so batches may be partly filled), 4 batches: exactly 1 K1, 8 K2
-    and 1 K7 (or, with ``decode.ext_top_a``, 1 K8) launch a batch, and no
-    call of the plain search on the card."""
+    LM at ``lm_path`` (the 4-gram ARPA or the RNN LM's ``.npz``) and its own
+    decode ladder (14 buckets over 64 utterances of 10-16 s, so batches may
+    be partly filled), 4 batches: exactly 1 K1, 8 K2 and 1 beam kernel a
+    batch (K7, K8 with ``decode.ext_top_a``; K9 over all chars or the top-A
+    with the RNN LM), no other kernel, and no call of the plain search on
+    the card."""
     with tempfile.TemporaryDirectory() as ckpt, plain_calls_of(
             (prefix_beam, "beam_scan_plain")) as plain_calls:
-        argv = [CFG2, f"decode.lm_path={arpa}", "data.synthetic_min_sec=10",
+        argv = [CFG2, f"decode.lm_path={lm_path}", "data.synthetic_min_sec=10",
                 "data.synthetic_max_sec=16", "data.synthetic_num_utts=64",
                 f"max_batches={DECODE_BATCHES}", f"train.checkpoint_dir={ckpt}"]
         if top_a:
@@ -793,11 +954,11 @@ def beam_decode_phase(arpa: str, top_a: int) -> dict:
         result = decode.main(argv)
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
-    beam, other = ("prefix_beam_topa", "prefix_beam") if top_a else ("prefix_beam",
-                                                                     "prefix_beam_topa")
+    beam = ("prefix_beam_rnn" if lm_path.endswith(".npz") else "prefix_beam") + (
+        "_topa" if top_a else "")
     want = {"stft_log_mel": DECODE_BATCHES, "lstm_seq": DECODE_BATCHES * CFG2_LAYERS * 2,
             beam: DECODE_BATCHES}
-    check({k: v for k, v in launches.items() if v} == want and launches[other] == 0,
+    check({k: v for k, v in launches.items() if v} == want,
           f"beam decode launches {launches} != {want}")
     check(not plain_calls, f"the plain search ran on the serving path: {plain_calls}")
     check(set(result) == {"method", "wer", "cer", "num_utts", "decode_rtf",
@@ -807,12 +968,13 @@ def beam_decode_phase(arpa: str, top_a: int) -> dict:
             "launches": launches}
 
 
-def beam_profile_phase(arpa: str) -> dict:
+def beam_profile_phase(lm_path: str) -> dict:
     """Device time by kernel over one config-2 decode batch (16 utterances of
-    10-16 s, bf16, 4-gram LM): the shares of K2 and K7."""
+    10-16 s, bf16, the LM at ``lm_path``): the shares of K2 and of the beam
+    kernel (K7 with the 4-gram, K9 with the RNN LM)."""
     cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
                               "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1",
-                              "decode.lm_path": arpa})
+                              "decode.lm_path": lm_path})
     batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
     model = build_model(cfg, CARD)
     decode_fn = driver.make_decode_fn(cfg, model, driver.load_lm(cfg, CARD))
@@ -1172,9 +1334,13 @@ def main() -> int:
     t0 = time.perf_counter()
     arpa = build_lm()
     print(f"lm: {time.perf_counter() - t0:.1f} s (set-up)")
+    rnn_lm, lm_record = build_rnn_lm()
+    print("rnn_lm:", json.dumps(lm_record))
+    print(f"rnn_lm: {lm_record['wall_s']:.1f} s (set-up), {LM_STEPS} steps, "
+          f"nll {lm_record['nll']:.4f}")
 
     kernels = [stft_phase(), lstm_phase(), *lstm_train_phase(), *ctc_phase(),
-               *beam_phase(arpa), *tcn_phase()]
+               *beam_phase(arpa), *rnn_beam_phase(rnn_lm), *tcn_phase()]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
@@ -1189,9 +1355,11 @@ def main() -> int:
     print(f"train: audio_seconds_per_sec_per_chip "
           f"{trn['record']['audio_seconds_per_sec_per_chip']:.2f} step {trn['step_s']:.4f} s "
           f"ctc_loss {trn['record']['ctc_loss']:.4f}")
-    print("learn:", json.dumps(learn_phase(arpa)))
+    print("learn:", json.dumps(learn_phase(arpa, rnn_lm)))
     beam_dec = {"beam_decode": beam_decode_phase(arpa, 0),
-                "beam_decode_topa": beam_decode_phase(arpa, BEAM_A)}
+                "beam_decode_topa": beam_decode_phase(arpa, BEAM_A),
+                "rnn_decode": beam_decode_phase(rnn_lm, 0),
+                "rnn_decode_topa": beam_decode_phase(rnn_lm, BEAM_A)}
     for path, res in beam_dec.items():
         print(f"{path}:", json.dumps(res))
         print(f"{path}: decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "
@@ -1207,14 +1375,15 @@ def main() -> int:
     print(f"tcn_train: audio_seconds_per_sec_per_chip "
           f"{tcn_trn['record']['audio_seconds_per_sec_per_chip']:.2f} "
           f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
-    # Each kernel is held to the main path that runs it: K7 and K8 to the
-    # config-2 serving paths, K5 to config 3's serving path, K6 to config
+    # Each kernel is held to the main path that runs it: K7, K8 and K9 to
+    # the config-2 serving paths, K5 to config 3's serving path, K6 to config
     # 3's training path, the rest to config 1's training path (which runs
     # K2 in its eval); every path's count is printed.
     paths = {"train": trn["launches"], "decode": dec["launches"],
              **{p: r["launches"] for p, r in beam_dec.items()},
              "tcn_decode": tcn_dec["launches"], "tcn_train": tcn_trn["launches"]}
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
+                "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
                 "tcn_block": "tcn_decode", "tcn_block_train_fwd": "tcn_train",
                 "tcn_block_bwd": "tcn_train"}
     for k in kernels:
@@ -1226,6 +1395,7 @@ def main() -> int:
     print("profile:", json.dumps(profile_phase()))
     print("train_profile:", json.dumps(train_profile_phase()))
     print("beam_profile:", json.dumps(beam_profile_phase(arpa)))
+    print("rnn_beam_profile:", json.dumps(beam_profile_phase(rnn_lm)))
     print("tcn_profile:", json.dumps(tcn_profile_phase()))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

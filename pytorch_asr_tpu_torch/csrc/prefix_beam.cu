@@ -1,34 +1,47 @@
-// CTC prefix beam search with dense n-gram shallow fusion, the whole
-// utterance in one launch, for Hopper (sm_90a), CUDA C++.
+// CTC prefix beam search with shallow fusion of a dense n-gram table or a
+// char LSTM LM, the whole utterance in one launch, for Hopper (sm_90a),
+// CUDA C++.
 //
-// Replaces (one template, two instantiations):
+// Replaces (one template; the search over all chars or each frame's top-A):
 //   K7  pytorch_asr_tpu/ops/beam_pallas.py:756 prefix_beam_fused_lanes
 //       (_beam_kernel_lanes :601): extensions over all V chars;
 //   K8  pytorch_asr_tpu/ops/beam_pallas.py:1566 prefix_beam_fused_lanes_topa
 //       (_beam_kernel_lanes_topa :1153): extensions over each frame's top-A
-//       chars, given by the caller.
+//       chars, given by the caller;
+//   K9  pytorch_asr_tpu/ops/beam_pallas.py:1452 prefix_beam_fused_lanes_topa_rnn
+//       (_beam_kernel_lanes_topa_rnn :1286): either search, fused with a char
+//       LSTM LM whose state every beam carries and the kernel advances.
 // Python side: ops/beam_cuda.py; plain version:
-// decoding/prefix_beam.py::beam_scan_plain, which it matches token for token.
+// decoding/prefix_beam.py::beam_scan_plain.  K7 and K8 match it token for
+// token and bit for bit; K9 token for token (its LM products sum in another
+// order than torch.matmul, so its scores agree to a few ulps a frame).
 //
-// Inputs: logp (B, T, V) fp32, already log-softmaxed; for K8 the frame's
-// top-A values and ids (B, T, A); lens (B) int32; the LM table (n_ctx, V)
-// fp32 or null.  Outputs: the best beam's tokens (B, L) int32 left-packed
+// Inputs: logp (B, T, V) fp32, already log-softmaxed; for the top-A search
+// the frame's top-A values and ids (B, T, A); lens (B) int32; the LM table
+// (n_ctx, V) fp32 or null (K7, K8), or the LM's weights and its state after
+// <sos> (K9).  Outputs: the best beam's tokens (B, L) int32 left-packed
 // with zeros after, its length (B) and fused score (B), plus the per-frame
 // backpointers (B, T, K) parent and append as scratch.
 //
-// Per frame t < lens[b], with C = V (K7) or A (K8) candidate lanes a beam:
+// Per frame t < lens[b], with C = V or A candidate lanes a beam:
 //   stays       stay_pb = lse(pb, pnb) + lp[blank];
 //               stay_pnb = last >= 0 ? pnb + lp[last] : NEG_INF;
 //   extensions  lane (k, a) appends c: (c == last ? pb : lse(pb, pnb)) + lp[c],
 //               NEG_INF for the blank and for beams at length >= L;
-//               ext_lm = lm_s + (alpha * table[ctx * V + c] + beta);
-//               ctx' = (ctx * V + c) floor-mod n_ctx;
+//               ext_lm = lm_s + (alpha * row[c] + beta), row the beam's
+//               table row table[ctx] or, for K9, its LM log-prob row;
+//               ctx' = (ctx * V + c) floor-mod n_ctx (with a table);
 //   absorb      an extension of beam k whose hash equals an alive stay k'
 //               adds its pnb into that stay by log-sum-exp and drops out;
 //   top-K       the K best of the stays then the lanes in flat order k*C + a,
 //               by fused score; stays win ties, else the lowest index;
 //   dead        a pick with score <= NEG_INF / 2 gets pb = pnb = NEG_INF and
 //               hash -(r + 1); lm_s and ctx are kept (as the reference does).
+//   K9's LM     after the picks, each new beam takes its parent's (h, c) of
+//               every layer and its log-prob row; a beam that appended c
+//               steps the LSTM from there with embed[c] (gates i, f, g, o;
+//               c' = sigmoid(f + 1) c + sigmoid(i) tanh(g), h' = sigmoid(o)
+//               tanh(c')) and gets row = log_softmax(h'_top w_out + b_out).
 // At the end: score = lse(pb, pnb) + lm_s, best = the first argmax, and the
 // tokens come from walking the backpointers from the row's last frame to 0.
 //
@@ -45,12 +58,25 @@
 //            score's order-preserving bits above the inverted index;
 //   empty    lens[b] = 0 gives the empty hypothesis with score 0.
 //
-// Bound on this card: bytes.  It reads logp (B*T*V*4), the table once, and
-// writes the backpointers (2*B*T*K*4): about 5.3 MB at the serving shapes
-// (B 16, T 400, V 31, K 16, a 4-gram table of 3.69 MB), 1.6 us at 3.35 TB/s;
-// the operations are far below that.  In practice it is bound by the serial
-// chain of T frames, each an absorb and K rounds of a block-wide argmax with
-// a barrier each, on B = 16 of the 132 SMs.  Making it fast is later work.
+//   sigmoid, tanh, exp and log are the precise expf/tanhf/logf (no fast
+//   math); the LM products are fp32 FMA sums, no TF32, as the JAX kernel
+//   computes them at Precision.HIGHEST.
+//
+// Bound on this card, K7/K8: bytes.  It reads logp (B*T*V*4), the table
+// once, and writes the backpointers (2*B*T*K*4): about 5.3 MB at the
+// serving shapes (B 16, T 400, V 31, K 16, a 4-gram table of 3.69 MB), 1.6
+// us at 3.35 TB/s; the operations are far below that.  In practice it is
+// bound by the serial chain of T frames, each an absorb and K rounds of a
+// block-wide argmax with a barrier each, on B = 16 of the 132 SMs.
+// K9: operations.  The LM step of a beam that appends is 2 * 4H * (E + H)
+// FMA-operations for layer 0 and 2 * 4H * 2H for each further layer, plus
+// 2 * H * V for w_out: up to ~29 MFLOP a frame and utterance at the default
+// LM (E 128, H 256, 2 layers, K 16), ~190 GFLOP for 16 x 400 frames, ~2.8 ms
+// at 67 TFLOP/s fp32 if every beam appended every frame; the data needs a
+// few steps a frame, and the bound counts those.  Here it runs on B of the
+// 132 SMs, one block an utterance, and a block re-reads the 3.6 MB of
+// weights from L2 for each group of four stepping beams in a frame;
+// spreading the step over a cluster or all SMs is later work.
 //
 // Design, first and simple: one block per utterance with the time loop
 // inside (the beam is a serial chain over frames); one thread per candidate
@@ -60,6 +86,15 @@
 // memory; the table stays in device memory (L2-resident: 3.69 MB).  The
 // TPU kernel's one-hot gathers, lane concatenations, masked-sum extractions
 // and time chunks were Mosaic workarounds and have no counterpart here.
+// K9 keeps every beam's LM state in shared memory for the whole utterance:
+// h and c (layers, K, H) fp32, double-buffered for the parent reorder (an
+// index), and the log-prob rows (K, V); about 150 KB at the default LM.
+// The weights (3.6 MB fp32) stay in device memory, L2-resident.  The LM
+// step runs only for the beams that appended, packed in groups of four: a
+// thread takes one hidden unit j of one group, keeps the four gate sums of
+// its four beams in registers, and reads the weight columns j, H+j, 2H+j
+// and 3H+j (coalesced across the warp) once for the four beams; the beams'
+// inputs sit in shared memory as float4 per input index.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,15 +137,236 @@ __device__ __forceinline__ unsigned long long umax(unsigned long long a,
   return a > b ? a : b;
 }
 
-template <bool kTopA>
+constexpr int kMaxLayers = 8;
+
+// K9's LM: the weights in device memory in the JAX layouts, and the state
+// after <sos> that every beam starts from.
+struct RnnLm {
+  const float* embed;            // (V, E)
+  const float* w_out;            // (H, V)
+  const float* b_out;            // (V)
+  const float* h0;               // (nl, H)
+  const float* c0;               // (nl, H)
+  const float* lmp0;             // (V) log-probs after <sos>
+  const float* wx[kMaxLayers];   // (E for layer 0, else H; 4H)
+  const float* wh[kMaxLayers];   // (H, 4H)
+  const float* b[kMaxLayers];    // (4H)
+  int nl, E, H;
+};
+
+// K9's LM state and scratch in shared memory.
+struct LmSmem {
+  float* xin;   // (ceil(K/4), W, 4): inputs of the packed beams, W = max(E, H) + H
+  float* h;     // (2, nl, K, H) double-buffered
+  float* c;     // (2, nl, K, H)
+  float* lmp;   // (2, K, V) each beam's log P(next char | prefix)
+  int* par;     // (K) each pick's parent beam
+  int* app;     // (K) each pick's appended char, -1 for none
+  int* rows;    // (K) the picks that appended, packed
+  int* n_app;   // (1) how many appended
+};
+
+// Dynamic shared memory of one block, as ops/beam_cuda.py computes it: the
+// search's keys 8 (K + K*C), warp maxima 512, 4 (16 K + 2 K*C + 2 V) of
+// fields, candidates and the row, and K*C absorbed flags; then, for K9 from
+// the next 16-byte boundary, the LM's xin, h, c and lmp floats and 3 K + 1
+// ints.
+__host__ __device__ inline size_t search_smem_bytes(int K, int C, int V) {
+  return 72 * (size_t)K + 17 * (size_t)K * C + 8 * (size_t)V + 512;
+}
+
+__host__ __device__ inline size_t lm_smem_offset(int K, int C, int V) {
+  return (search_smem_bytes(K, C, V) + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t lm_xin_width(int E, int H) { return (E > H ? E : H) + H; }
+
+__host__ __device__ inline size_t lm_smem_bytes(int K, int V, int nl, int E, int H) {
+  const size_t groups = (K + 3) / 4;
+  return 4 * (groups * 4 * lm_xin_width(E, H) + 4 * (size_t)nl * K * H + 2 * (size_t)K * V) +
+         4 * (3 * (size_t)K + 1);
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// a[gate][q] += x.q * w[gate] for the four beams q of a packed group.
+__device__ __forceinline__ void fma_group(float (&a)[4][4], float4 x, float w0, float w1,
+                                          float w2, float w3) {
+  const float xs[4] = {x.x, x.y, x.z, x.w};
+  const float ws[4] = {w0, w1, w2, w3};
+#pragma unroll
+  for (int gate = 0; gate < 4; ++gate) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[gate][q] = fmaf(xs[q], ws[gate], a[gate][q]);
+  }
+}
+
+// Packs the inputs of layer l's step, or with l == nl those of the output
+// product: xin[(g * W' + i) * 4 + q] is input i of packed beam p = 4 g + q,
+// where the first In entries are the layer's input (embed[c] for layer 0,
+// else the beam's new h of layer l - 1) and, below the output product, the
+// next H are its parent's h of layer l.  Beams past n_app read zeros.
+__device__ void pack_inputs(const RnnLm& lm, const LmSmem& s, int l, int K, int groups,
+                            const float* h_cur, const float* h_nxt, int tid, int nt) {
+  const int H = lm.H, n = *s.n_app;
+  const int In = l == 0 ? lm.E : H, W = In + (l < lm.nl ? H : 0);
+  for (int idx = tid; idx < groups * W * 4; idx += nt) {
+    const int q = idx & 3, i = (idx >> 2) % W, p = 4 * ((idx >> 2) / W) + q;
+    float v = 0.0f;
+    if (p < n) {
+      const int r = s.rows[p];
+      if (i >= In) {
+        v = h_cur[((size_t)l * K + s.par[r]) * H + (i - In)];
+      } else if (l == 0) {
+        v = lm.embed[(size_t)s.app[r] * In + i];
+      } else {
+        v = h_nxt[((size_t)(l - 1) * K + r) * H + i];
+      }
+    }
+    s.xin[idx] = v;
+  }
+}
+
+// One LSTM layer for the packed beams: a work item is (hidden unit j,
+// group g); its sixteen gate sums stay in registers.
+__device__ void lstm_layer(const RnnLm& lm, const LmSmem& s, int l, int K, int groups,
+                           const float* c_cur, float* h_nxt, float* c_nxt, int tid, int nt) {
+  const int H = lm.H, n = *s.n_app, In = l == 0 ? lm.E : H, W = In + H;
+  const float *wx = lm.wx[l], *wh = lm.wh[l], *bias = lm.b[l];
+  const float4* xin = reinterpret_cast<const float4*>(s.xin);
+  for (int it = tid; it < H * groups; it += nt) {
+    const int j = it % H, g = it / H;
+    const float4* x = xin + (size_t)g * W;
+    float a[4][4] = {};
+#pragma unroll 4
+    for (int i = 0; i < In; ++i) {
+      const float* w = wx + (size_t)i * 4 * H + j;
+      fma_group(a, x[i], __ldg(w), __ldg(w + H), __ldg(w + 2 * H), __ldg(w + 3 * H));
+    }
+#pragma unroll 4
+    for (int i = 0; i < H; ++i) {
+      const float* w = wh + (size_t)i * 4 * H + j;
+      fma_group(a, x[In + i], __ldg(w), __ldg(w + H), __ldg(w + 2 * H), __ldg(w + 3 * H));
+    }
+    const float bi = bias[j], bf = bias[H + j], bg = bias[2 * H + j], bo = bias[3 * H + j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = 4 * g + q;
+      if (p < n) {
+        const int r = s.rows[p];
+        const float cp = c_cur[((size_t)l * K + s.par[r]) * H + j];
+        const float c_new = sigmoid(a[1][q] + bf + 1.0f) * cp +
+                            sigmoid(a[0][q] + bi) * tanhf(a[2][q] + bg);
+        const size_t at = ((size_t)l * K + r) * H + j;
+        c_nxt[at] = c_new;
+        h_nxt[at] = sigmoid(a[3][q] + bo) * tanhf(c_new);
+      }
+    }
+  }
+}
+
+// Logits of the packed beams, h_top w_out + b_out: a work item is (char v,
+// group g).
+__device__ void lm_logits(const RnnLm& lm, const LmSmem& s, int V, int groups, float* lmp_nxt,
+                          int tid, int nt) {
+  const int H = lm.H, n = *s.n_app;
+  const float4* xin = reinterpret_cast<const float4*>(s.xin);
+  for (int it = tid; it < V * groups; it += nt) {
+    const int v = it % V, g = it / V;
+    const float4* x = xin + (size_t)g * H;
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < H; ++i) {
+      const float w = __ldg(lm.w_out + (size_t)i * V + v);
+      const float4 xv = x[i];
+      a0 = fmaf(xv.x, w, a0);
+      a1 = fmaf(xv.y, w, a1);
+      a2 = fmaf(xv.z, w, a2);
+      a3 = fmaf(xv.w, w, a3);
+    }
+    const float acc[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (4 * g + q < n) lmp_nxt[s.rows[4 * g + q] * V + v] = acc[q] + lm.b_out[v];
+    }
+  }
+}
+
+// Log-softmax of each packed beam's logits in place, a warp a row:
+// x - (max + log(sum(exp(x - max)))).
+__device__ void log_softmax_rows(const LmSmem& s, int V, float* lmp_nxt, int tid, int nt) {
+  const int lane = tid & 31, n = *s.n_app;
+  for (int p = tid >> 5; p < n; p += nt >> 5) {
+    float* row = lmp_nxt + s.rows[p] * V;
+    float m = -3.402823466e38f;
+    for (int v = lane; v < V; v += 32) m = fmaxf(m, row[v]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.0f;
+    for (int v = lane; v < V; v += 32) sum += expf(row[v] - m);
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float lse_row = m + logf(sum);
+    for (int v = lane; v < V; v += 32) row[v] -= lse_row;
+  }
+}
+
+// Advances every new beam's LM state after the picks (s.par, s.app): the
+// parent's state as it is for a beam that did not append; for the others
+// nl LSTM layers from the parent's (h, c) with embed[c], then the log-prob
+// row.  The caller synchronises after.
+__device__ void advance_lm(const RnnLm& lm, const LmSmem& s, int cur, int K, int V, int tid,
+                           int nt) {
+  const int H = lm.H, nl = lm.nl, KH = K * H;
+  const float* h_cur = s.h + (size_t)cur * nl * KH;
+  const float* c_cur = s.c + (size_t)cur * nl * KH;
+  const float* lmp_cur = s.lmp + (size_t)cur * K * V;
+  float* h_nxt = s.h + (size_t)(cur ^ 1) * nl * KH;
+  float* c_nxt = s.c + (size_t)(cur ^ 1) * nl * KH;
+  float* lmp_nxt = s.lmp + (size_t)(cur ^ 1) * K * V;
+  if (tid == 0) {
+    int n = 0;
+    for (int r = 0; r < K; ++r) {
+      if (s.app[r] >= 0) s.rows[n++] = r;
+    }
+    *s.n_app = n;
+  }
+  for (int idx = tid; idx < nl * KH; idx += nt) {
+    const int l = idx / KH, r = (idx / H) % K;
+    if (s.app[r] < 0) {
+      const size_t from = ((size_t)l * K + s.par[r]) * H + idx % H;
+      h_nxt[idx] = h_cur[from];
+      c_nxt[idx] = c_cur[from];
+    }
+  }
+  for (int idx = tid; idx < K * V; idx += nt) {
+    const int r = idx / V;
+    if (s.app[r] < 0) lmp_nxt[idx] = lmp_cur[s.par[r] * V + idx % V];
+  }
+  __syncthreads();
+  const int n = *s.n_app;
+  if (n == 0) return;
+  const int groups = (n + 3) / 4;
+  for (int l = 0; l <= nl; ++l) {
+    pack_inputs(lm, s, l, K, groups, h_cur, h_nxt, tid, nt);
+    __syncthreads();
+    if (l < nl) {
+      lstm_layer(lm, s, l, K, groups, c_cur, h_nxt, c_nxt, tid, nt);
+    } else {
+      lm_logits(lm, s, V, groups, lmp_nxt, tid, nt);
+    }
+    __syncthreads();
+  }
+  log_softmax_rows(s, V, lmp_nxt, tid, nt);
+}
+
+template <bool kTopA, bool kRnn>
 __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     const float* __restrict__ logp, const float* __restrict__ top_val,
     const int* __restrict__ top_idx, const int* __restrict__ lens,
     const float* __restrict__ table, int* parents, int* appends,
     int* __restrict__ tokens, int* __restrict__ out_len, float* __restrict__ out_score,
-    int T, int V, int K, int C, int L, int n_ctx, float alpha, float beta) {
+    int T, int V, int K, int C, int L, int n_ctx, float alpha, float beta, RnnLm lm) {
   const int KC = K * C, N = K + KC;
-  extern __shared__ unsigned long long smem[];
+  extern __shared__ __align__(16) unsigned long long smem[];
   unsigned long long* key = smem;                         // (N) selection keys
   unsigned long long* wbest = key + N;                    // (2, 32) warp maxima
   float* pb = reinterpret_cast<float*>(wbest + 64);       // (2, K) beam fields,
@@ -127,6 +383,18 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
   int* ctx = len + 2 * K;
   int* slot = ctx + 2 * K;                                // (V) K8: char -> slot
   unsigned char* absorbed = reinterpret_cast<unsigned char*>(slot + V);  // (KC)
+  LmSmem rnn = {};                                        // K9's LM state
+  if constexpr (kRnn) {
+    char* at = reinterpret_cast<char*>(smem) + lm_smem_offset(K, C, V);
+    rnn.xin = reinterpret_cast<float*>(at);
+    rnn.h = rnn.xin + (size_t)(K + 3) / 4 * 4 * lm_xin_width(lm.E, lm.H);
+    rnn.c = rnn.h + 2 * (size_t)lm.nl * K * lm.H;
+    rnn.lmp = rnn.c + 2 * (size_t)lm.nl * K * lm.H;
+    rnn.par = reinterpret_cast<int*>(rnn.lmp + 2 * (size_t)K * V);
+    rnn.app = rnn.par + K;
+    rnn.rows = rnn.app + K;
+    rnn.n_app = rnn.rows + K;
+  }
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, nwarps = (nt + 31) >> 5;
@@ -140,12 +408,21 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     len[tid] = 0;
     ctx[tid] = 0;
   }
+  if constexpr (kRnn) {  // every beam starts from the state after <sos>
+    for (int idx = tid; idx < lm.nl * K * lm.H; idx += nt) {
+      const int at = (idx / (K * lm.H)) * lm.H + idx % lm.H;
+      rnn.h[idx] = lm.h0[at];
+      rnn.c[idx] = lm.c0[at];
+    }
+    for (int idx = tid; idx < K * V; idx += nt) rnn.lmp[idx] = lm.lmp0[idx % V];
+  }
   int cur = 0;
   for (int t = 0; t < n_t; ++t) {
     const float *pb_c = pb + cur * K, *pnb_c = pnb + cur * K, *lms_c = lms + cur * K;
     const uint32_t* hsh_c = hsh + cur * K;
     const int *last_c = last + cur * K, *len_c = len + cur * K, *ctx_c = ctx + cur * K;
     const size_t row = (size_t)b * T + t;
+    const float* lmp_c = kRnn ? rnn.lmp + (size_t)cur * K * V : nullptr;
 
     // The frame's row; K8 clears its char -> slot map.
     for (int v = tid; v < V; v += nt) {
@@ -176,12 +453,12 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
       float e = (c == last_c[k] ? pb_c[k] : total) + lpc;
       if (len_c[k] >= L || c == 0) e = NEG_INF;  // beam full, or the blank
       epnb[lane] = e;
+      // The beam's LM row: K9's log-probs, else the table's context row.
+      const float* lm_row = kRnn ? lmp_c + k * V
+                                 : (table != nullptr ? table + (size_t)ctx_c[k] * V : nullptr);
       float l = lms_c[k];
-      if (table != nullptr) {
-        const float r = table[(size_t)ctx_c[k] * V + c];
-        l = __fadd_rn(l, __fadd_rn(__fmul_rn(alpha, r), beta));  // no FMA
-      }
-      elm[lane] = l;
+      if (lm_row != nullptr) l = __fadd_rn(l, __fadd_rn(__fmul_rn(alpha, lm_row[c]), beta));
+      elm[lane] = l;  // no FMA on the fusion line
       absorbed[lane] = 0;
     }
     __syncthreads();
@@ -279,10 +556,18 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
         pnb[nx] = NEG_INF;
         hsh[nx] = (uint32_t)(-(r + 1));
       }
+      if constexpr (kRnn) {
+        rnn.par[r] = k;
+        rnn.app[r] = append;
+      }
       parents[row * K + r] = k;
       appends[row * K + r] = append;
     }
     __syncthreads();
+    if constexpr (kRnn) {
+      advance_lm(lm, rnn, cur, K, V, tid, nt);
+      __syncthreads();
+    }
     cur ^= 1;
   }
 
@@ -319,11 +604,22 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
   }
 }
 
-// Dynamic shared memory of one block, as ops/beam_cuda.py::smem_bytes
-// computes it: keys 8 (K + K*C), warp maxima 512, 4 (16 K + 2 K*C + 2 V) of
-// fields, candidates and the row, and K*C absorbed flags.
-size_t smem_bytes(int K, int C, int V) {
-  return 72 * (size_t)K + 17 * (size_t)K * C + 8 * (size_t)V + 512;
+// Launches one block per utterance with the dynamic shared memory set.
+template <bool kTopA, bool kRnn>
+int launch(int B, int threads, size_t smem, void* stream, const float* logp,
+           const float* top_val, const int* top_idx, const int* lens, const float* table,
+           int* parents, int* appends, int* tokens, int* out_len, float* out_score, int T,
+           int V, int K, int C, int L, int n_ctx, float alpha, float beta, const RnnLm& lm) {
+  auto kernel = prefix_beam_kernel<kTopA, kRnn>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      logp, top_val, top_idx, lens, table, parents, appends, tokens, out_len, out_score, T,
+      V, K, C, L, n_ctx, alpha, beta, lm);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -337,17 +633,49 @@ extern "C" int prefix_beam(const float* logp, const float* top_val, const int* t
                            int K, int C, int L, int n_ctx, float alpha, float beta,
                            void* stream) {
   if (B == 0) return 0;
-  const size_t smem = smem_bytes(K, C, V);
+  const size_t smem = search_smem_bytes(K, C, V);
   int threads = (K * C + 31) / 32 * 32;
   threads = threads > 1024 ? 1024 : threads;
-  auto kernel = top_idx != nullptr ? prefix_beam_kernel<true> : prefix_beam_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  const RnnLm none = {};
+  return (top_idx != nullptr ? launch<true, false> : launch<false, false>)(
+      B, threads, smem, stream, logp, top_val, top_idx, lens, table, parents, appends, tokens,
+      out_len, out_score, T, V, K, C, L, n_ctx, alpha, beta, none);
+}
+
+// K9: the search fused with the char LSTM LM.  weights: a host array of
+// device pointers embed, w_out, b_out, h0, c0, lmp0, then wx, wh and b of
+// each of the nl layers.  Same outputs and scratch as prefix_beam.  The
+// wrapper checks nl <= 8 and the shared-memory size.
+extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const int* top_idx,
+                               const int* lens, const float* const* weights, int nl, int E,
+                               int H, int* parents, int* appends, int* tokens, int* out_len,
+                               float* out_score, int B, int T, int V, int K, int C, int L,
+                               float alpha, float beta, void* stream) {
+  if (B == 0) return 0;
+  if (nl < 1 || nl > kMaxLayers) return cudaErrorInvalidValue;
+  RnnLm lm = {};
+  lm.embed = weights[0];
+  lm.w_out = weights[1];
+  lm.b_out = weights[2];
+  lm.h0 = weights[3];
+  lm.c0 = weights[4];
+  lm.lmp0 = weights[5];
+  for (int l = 0; l < nl; ++l) {
+    lm.wx[l] = weights[6 + l];
+    lm.wh[l] = weights[6 + nl + l];
+    lm.b[l] = weights[6 + 2 * nl + l];
   }
-  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      logp, top_val, top_idx, lens, table, parents, appends, tokens, out_len, out_score, T,
-      V, K, C, L, n_ctx, alpha, beta);
-  return cudaGetLastError();
+  lm.nl = nl;
+  lm.E = E;
+  lm.H = H;
+  const size_t smem = lm_smem_offset(K, C, V) + lm_smem_bytes(K, V, nl, E, H);
+  const int groups = (K + 3) / 4;
+  int work = K * C;
+  work = work > H * groups ? work : H * groups;
+  work = work > V * groups ? work : V * groups;
+  int threads = (work + 31) / 32 * 32;
+  threads = threads > 1024 ? 1024 : threads;
+  return (top_idx != nullptr ? launch<true, true> : launch<false, true>)(
+      B, threads, smem, stream, logp, top_val, top_idx, lens, nullptr, parents, appends,
+      tokens, out_len, out_score, T, V, K, C, L, 1, alpha, beta, lm);
 }

@@ -9,7 +9,9 @@ else from the newest checkpoint in ``train.checkpoint_dir`` when there is
 one (its EMA copy when kept), else they are drawn from ``train.seed``.
 ``decode.method`` is ``greedy`` or ``prefix_beam`` (the CTC prefix beam
 search, with dense n-gram shallow fusion when ``decode.lm_path=<file.arpa>``,
-e.g. one written by ``python -m pytorch_asr_tpu_torch.train_ngram``).
+e.g. one written by ``python -m pytorch_asr_tpu_torch.train_ngram``, or char
+RNN-LM fusion when ``decode.lm_path=<file.npz>``, one written by
+``python -m pytorch_asr_tpu_torch.train_lm`` or the JAX package's CLI).
 ``dump_path`` writes ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` for
 ``python -m pytorch_asr_tpu_torch.eval_wer`` (beam methods).  Prints the
 result dict.

@@ -27,23 +27,25 @@ from pytorch_asr_tpu_torch.decoding.lm import read_arpa, tensorize
 from pytorch_asr_tpu_torch.decoding.prefix_beam import prefix_beam_search
 from pytorch_asr_tpu_torch.evaluate import eval_step, model_outputs
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
+from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM
+from pytorch_asr_tpu_torch.training.lm import load_rnn_lm
 
 DENSE_LM_FLOATS = 64_000_000   # lm_backend "auto": dense while V**order fits
 
 
 def load_lm(cfg: ExperimentConfig, device: str | torch.device,
-            tokenizer=None) -> torch.Tensor | None:
-    """The fusion LM named by ``cfg.decode.lm_path`` as a dense (V^(n-1), V)
-    float32 table on ``device``, or None without a path.  An ARPA file is
-    read and tensorized; the RNN LM (``.npz``) and the hashed backend are
-    not ported yet and raise."""
+            tokenizer=None) -> torch.Tensor | CharRNNLM | None:
+    """The fusion LM named by ``cfg.decode.lm_path`` on ``device``, or None
+    without a path: an ``.npz`` is a char RNN LM saved by either package's
+    ``train_lm``; an ARPA file is read and tensorized to a dense
+    (V^(n-1), V) float32 table.  The hashed backend is not ported yet and
+    raises."""
     path = cfg.decode.lm_path
     if not path:
         return None
-    if path.endswith(".npz"):
-        raise NotImplementedError("RNN-LM fusion (decode.lm_path=<file.npz>, the K9 kernel) "
-                                  "is not ported yet: it waits for the LM-extras slice")
     tok = tokenizer or get_tokenizer(cfg.data.vocab)
+    if path.endswith(".npz"):
+        return load_rnn_lm(path, tok, device)
     lm = read_arpa(path, tok)
     backend = cfg.decode.lm_backend
     if not (backend == "dense" or (backend == "auto"
@@ -54,8 +56,9 @@ def load_lm(cfg: ExperimentConfig, device: str | torch.device,
     return torch.from_numpy(tensorize(lm, tok)).to(device)
 
 
-def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm_table=None):
-    """(host batch) -> (ids (B, L), lengths (B,)) on the model's device."""
+def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None):
+    """(host batch) -> (ids (B, L), lengths (B,)) on the model's device.
+    ``lm`` is what ``load_lm`` returns: a dense table, the RNN LM, or None."""
     method = cfg.decode.method
     if method == "greedy":
         return lambda batch: eval_step(model, batch)
@@ -65,7 +68,10 @@ def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm_table=None):
                                       "K10 merge kernel) is not ported yet: it waits for "
                                       "the multi-GPU slice")
         dec = cfg.decode
-        has_lm = lm_table is not None
+        rnn_lm = lm if isinstance(lm, CharRNNLM) else None
+        lm_table = lm if rnn_lm is None else None
+        has_lm = lm is not None
+        sos_id = get_tokenizer(cfg.data.vocab).sos_id
 
         def decode_fn(batch):
             out = model_outputs(model, batch)
@@ -73,7 +79,8 @@ def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm_table=None):
                 out["ctc_logits"], out["enc_len"], beam_size=dec.beam_size,
                 lm_table=lm_table, lm_alpha=dec.lm_alpha if has_lm else 0.0,
                 lm_beta=dec.lm_beta if has_lm else 0.0, max_len=dec.max_decode_len,
-                ext_top_a=dec.ext_top_a, lm_top_k=dec.lm_top_k)
+                ext_top_a=dec.ext_top_a, rnn_lm=rnn_lm, sos_id=sos_id,
+                lm_top_k=dec.lm_top_k)
             return toks, lens
 
         return decode_fn

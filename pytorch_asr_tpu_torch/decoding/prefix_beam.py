@@ -1,21 +1,24 @@
-"""CTC prefix beam search with dense n-gram shallow fusion: the port's
-counterpart of ``pytorch_asr_tpu.decoding.prefix_beam``.
+"""CTC prefix beam search with shallow fusion of a dense n-gram table or a
+char RNN LM: the port's counterpart of ``pytorch_asr_tpu.decoding.prefix_beam``.
 
 ``prefix_beam_search`` is the entry point.  It log-softmaxes the logits (and,
 for ``ext_top_a``, takes each frame's top-A chars) and hands them to
-``ops/beam_cuda.py``, whose kernel (``csrc/prefix_beam.cu``) runs the whole
-search on the card; on CPU tensors the wrapper runs ``beam_scan_plain``
-below instead.  ``prefix_beam_search_plain`` is that plain search from the
-logits, on either device; the tests and ``chip_smoke.py`` hold the kernel
-against it.
+``ops/beam_cuda.py``, whose kernels (``csrc/prefix_beam.cu``: K7/K8, and K9
+with the RNN LM) run the whole search on the card; on CPU tensors the
+wrappers run ``beam_scan_plain`` below instead.  ``prefix_beam_search_plain``
+is that plain search from the logits, on either device; the tests and
+``chip_smoke.py`` hold the kernels against it.
 
 The plain search is a PyTorch port of the JAX package's ``lax.scan`` for the
-fusion sources ported so far (none, or a dense table): every frame forms K
-stay candidates and K x C extension candidates (C = V - 1 non-blank chars,
-or the frame's top-A chars), absorbs an extension whose prefix equals a live
-stay (rolling-hash match), keeps the K best by fused score, and rebuilds the
-token buffers.  Parity traps, each of which decides token equality with the
-JAX package and with the kernel:
+fusion sources ported so far (none, a dense table, or the RNN LM): every
+frame forms K stay candidates and K x C extension candidates (C = V - 1
+non-blank chars, or the frame's top-A chars), absorbs an extension whose
+prefix equals a live stay (rolling-hash match), keeps the K best by fused
+score, and rebuilds the token buffers.  With the RNN LM each beam carries
+the LM's state (``LMCarry``): its log-prob row scores the extensions, and
+after the merge the state follows the parent and steps once where the beam
+appended.  Parity traps, each of which decides token equality with the JAX
+package and with the kernels:
 
 * hashes are int32 and wrap mod 2^32: computed in int64, masked to 32 bits
   and reinterpreted (``_wrap32``), so the cmat test ``1 <= h_k' - M h_k <= nb``
@@ -27,7 +30,9 @@ JAX package and with the kernel:
 * the fusion term is ``lm_s + (alpha * row + beta)``, two roundings inside
   the bracket (the JAX kernels' order; the JAX restricted scan adds
   ``(lm_s + alpha * row) + beta``, one rounding apart);
-* log-sum-exp is ``torch.logaddexp`` with the finite sentinel NEG_INF.
+* log-sum-exp is ``torch.logaddexp`` with the finite sentinel NEG_INF;
+* the RNN LM steps every beam with ``max(append, 0)`` but keeps the stepped
+  state only where the beam appended, and rows past their length keep theirs.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, LMState, lm_step_logp
 
 NEG_INF = -1.0e30
 HASH_MULT = 1000003
@@ -102,7 +109,7 @@ def _ext_ctx(state: BeamState, chars_bc: torch.Tensor, vocab: int, lm_table):
 
 def _ext_fields(state: BeamState, chars, ext_pnb, lm_rows, vocab, lm_table, lm_alpha,
                 lm_beta, K):
-    if lm_table is not None:
+    if lm_rows is not None:
         ext_lm = state.lm_s[..., None] + (lm_alpha * lm_rows + lm_beta)
     else:
         ext_lm = state.lm_s[..., None].expand(ext_pnb.shape)
@@ -116,10 +123,11 @@ def _ext_fields(state: BeamState, chars, ext_pnb, lm_rows, vocab, lm_table, lm_a
     }
 
 
-def _build_candidates(state: BeamState, logp_t, *, blank, vocab, lm_table, lm_alpha,
+def _build_candidates(state: BeamState, logp_t, *, blank, vocab, lm_table, lm_rows, lm_alpha,
                       lm_beta, K, L):
     """Stay (B, K) and extension (B, K, V-1) candidates: each beam extended by
-    each non-blank char 1..V-1."""
+    each non-blank char 1..V-1.  ``lm_rows`` (B, K, V) are the beams' LM
+    log-prob rows (a dense table's rows or the RNN LM's carry), or None."""
     B = logp_t.shape[0]
     total, stay = _stay_candidates(state, logp_t, blank, K)
     chars = torch.arange(1, vocab, dtype=torch.int32, device=logp_t.device).expand(
@@ -128,13 +136,13 @@ def _build_candidates(state: BeamState, logp_t, *, blank, vocab, lm_table, lm_al
     base = torch.where(is_repeat, state.pb[..., None], total[..., None])
     ext_pnb = base + logp_t[:, None, 1:]
     ext_pnb = torch.where((state.length >= L)[..., None], NEG_INF, ext_pnb)
-    rows = lm_table[state.ctx.long()][..., 1:] if lm_table is not None else None
+    rows = lm_rows[..., 1:] if lm_rows is not None else None
     return stay, _ext_fields(state, chars, ext_pnb, rows, vocab, lm_table, lm_alpha, lm_beta,
                              K)
 
 
 def _build_candidates_topa(state: BeamState, logp_t, top_val_t, top_idx_t, *, blank,
-                           vocab, lm_table, lm_alpha, lm_beta, K, L):
+                           vocab, lm_table, lm_rows, lm_alpha, lm_beta, K, L):
     """Extension candidates restricted to the frame's top-A chars (B, K, A);
     merge with ``_merge_topk(..., sparse=True)``."""
     B, A = top_idx_t.shape
@@ -145,9 +153,7 @@ def _build_candidates_topa(state: BeamState, logp_t, top_val_t, top_idx_t, *, bl
     ext_pnb = base + top_val_t[:, None, :]
     ext_pnb = torch.where((state.length >= L)[..., None], NEG_INF, ext_pnb)
     ext_pnb = torch.where(chars == blank, NEG_INF, ext_pnb)
-    rows = None
-    if lm_table is not None:
-        rows = torch.gather(lm_table[state.ctx.long()], 2, chars.long())
+    rows = torch.gather(lm_rows, 2, chars.long()) if lm_rows is not None else None
     return stay, _ext_fields(state, chars, ext_pnb, rows, vocab, lm_table, lm_alpha, lm_beta,
                              K)
 
@@ -231,17 +237,74 @@ def _apply_tokens(tokens, length, parent, append, L: int):
     return new_tokens, parent_len + ext.to(torch.int32)
 
 
+class LMCarry(NamedTuple):
+    """Each beam's char RNN LM state, carried beside ``BeamState``."""
+    h: torch.Tensor      # (layers, B, K, H) f32
+    c: torch.Tensor      # (layers, B, K, H) f32
+    logp: torch.Tensor   # (B, K, V) f32 log P(next char | prefix)
+
+
+@torch.no_grad()
+def primed_lm_state(rnn_lm: CharRNNLM, sos_id: int):
+    """The LM state after ``<sos>`` from zeros, one row for all beams:
+    (h0 (layers, H), c0 (layers, H), lmp0 (V,)) float32."""
+    device = rnn_lm.embed.device
+    logp, st = lm_step_logp(rnn_lm, torch.full((1,), sos_id, device=device),
+                            rnn_lm.init_state(1))
+    return st.h[:, 0].contiguous(), st.c[:, 0].contiguous(), logp[0].contiguous()
+
+
+def rnn_lm_carry_init(rnn_lm: CharRNNLM, B: int, K: int, sos_id: int) -> LMCarry:
+    """Every beam's carry primed with ``<sos>`` (the JAX package's
+    ``rnn_lm_carry_init``)."""
+    return _carry(*primed_lm_state(rnn_lm, sos_id), B, K)
+
+
+def _carry(h0, c0, lmp0, B: int, K: int) -> LMCarry:
+    nl, H = h0.shape
+    return LMCarry(h=h0[:, None, None].expand(nl, B, K, H).contiguous(),
+                   c=c0[:, None, None].expand(nl, B, K, H).contiguous(),
+                   logp=lmp0.expand(B, K, lmp0.shape[0]).contiguous())
+
+
+def _advance_lm(rnn_lm: CharRNNLM, carry: LMCarry, parent, append, active) -> LMCarry:
+    """Reorder each beam's LM state by parent (an index gather: JAX's one-hot
+    einsum is exact, so the two agree bit for bit), step every beam with
+    ``max(append, 0)``, keep the stepped state where the beam appended, and
+    leave rows past their length as they were."""
+    nl, B, K, H = carry.h.shape
+    b, p = torch.arange(B, device=parent.device)[:, None], parent.long()
+    g = LMCarry(h=carry.h[:, b, p], c=carry.c[:, b, p], logp=carry.logp[b, p])
+    logp, st = lm_step_logp(rnn_lm, append.clamp(min=0).reshape(B * K),
+                            LMState(g.h.reshape(nl, B * K, H), g.c.reshape(nl, B * K, H)))
+    ext = append >= 0
+    new = LMCarry(h=torch.where(ext[None, ..., None], st.h.reshape(nl, B, K, H), g.h),
+                  c=torch.where(ext[None, ..., None], st.c.reshape(nl, B, K, H), g.c),
+                  logp=torch.where(ext[..., None], logp.reshape(B, K, -1), g.logp))
+    act = active.reshape(B, 1, 1)
+    return LMCarry(h=torch.where(act[None], new.h, carry.h),
+                   c=torch.where(act[None], new.c, carry.c),
+                   logp=torch.where(act, new.logp, carry.logp))
+
+
 def _step(state: BeamState, logp_t, active, top_val_t=None, top_idx_t=None, *, blank,
-          vocab, lm_table, lm_alpha, lm_beta, K, L) -> BeamState:
-    kw = dict(blank=blank, vocab=vocab, lm_table=lm_table, lm_alpha=lm_alpha,
-              lm_beta=lm_beta, K=K, L=L)
+          vocab, lm_table, lm_alpha, lm_beta, K, L, rnn_lm=None, carry=None):
+    """One frame: (new BeamState, new LMCarry or None)."""
+    if lm_table is not None:
+        lm_rows = lm_table[state.ctx.long()]
+    else:
+        lm_rows = carry.logp if carry is not None else None
+    kw = dict(blank=blank, vocab=vocab, lm_table=lm_table, lm_rows=lm_rows,
+              lm_alpha=lm_alpha, lm_beta=lm_beta, K=K, L=L)
     if top_idx_t is not None:
         stay, ext = _build_candidates_topa(state, logp_t, top_val_t, top_idx_t, **kw)
         _, f = _merge_topk(stay, ext, K, sparse=True)
     else:
         stay, ext = _build_candidates(state, logp_t, **kw)
         _, f = _merge_topk(stay, ext, K)
-    return _finish_step(state, f, active, L)
+    if carry is not None:
+        carry = _advance_lm(rnn_lm, carry, f["parent"], f["append"], active)
+    return _finish_step(state, f, active, L), carry
 
 
 def _finish_step(state: BeamState, f: dict, active, L: int) -> BeamState:
@@ -259,24 +322,28 @@ def top_a(logp: torch.Tensor, A: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :A].contiguous(), ids[..., :A].to(torch.int32).contiguous()
 
 
+@torch.no_grad()
 def beam_scan_plain(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
                     max_len: int, lm_table: torch.Tensor | None = None,
                     lm_alpha: float = 0.0, lm_beta: float = 0.0,
                     top_val: torch.Tensor | None = None, top_idx: torch.Tensor | None = None,
-                    blank: int = 0):
+                    blank: int = 0, rnn_lm: CharRNNLM | None = None, lm_state=None):
     """The plain search over log-probs ``logp`` (B, T, V) float32, frame by
-    frame: the function the kernel computes.  ``top_val``/``top_idx``
-    (B, T, A) restrict the extensions to each frame's top-A chars.  Returns
-    (tokens (B, L) int32, lengths (B,) int32, scores (B,) f32) of the best
-    beam of each row."""
+    frame: the function the kernels compute.  ``top_val``/``top_idx``
+    (B, T, A) restrict the extensions to each frame's top-A chars.  The
+    fusion source is the dense table ``lm_table`` (n_ctx, V), or ``rnn_lm``
+    started from ``lm_state`` = ``primed_lm_state(rnn_lm, sos_id)`` in every
+    beam.  Returns (tokens (B, L) int32, lengths (B,) int32, scores (B,) f32)
+    of the best beam of each row."""
     B, T, V = logp.shape
     K, L = beam_size, max_len
     state = _init_state(B, K, L, logp.device)
+    carry = _carry(*lm_state, B, K) if rnn_lm is not None else None
     kw = dict(blank=blank, vocab=V, lm_table=lm_table, lm_alpha=lm_alpha, lm_beta=lm_beta,
-              K=K, L=L)
+              K=K, L=L, rnn_lm=rnn_lm)
     for t in range(T):
         top = (top_val[:, t], top_idx[:, t]) if top_idx is not None else (None, None)
-        state = _step(state, logp[:, t], t < logit_len, *top, **kw)
+        state, carry = _step(state, logp[:, t], t < logit_len, *top, carry=carry, **kw)
     final = _lse(state.pb, state.pnb) + state.lm_s
     best = torch.argmax(final, dim=1, keepdim=True)                     # first max
     tokens = torch.gather(state.tokens, 1, best[..., None].expand(B, 1, L))[:, 0]
@@ -284,16 +351,15 @@ def beam_scan_plain(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
             torch.gather(final, 1, best)[:, 0])
 
 
-def _check_sources(blank, hash_lm, rnn_lm, lm_top_k):
+def _check_sources(blank, hash_lm, lm_table, rnn_lm, lm_top_k):
     if hash_lm is not None:
         raise NotImplementedError("hashed n-gram fusion (decoding/lm_hashed.py) is not "
                                   "ported yet: it waits for the LM-extras slice")
-    if rnn_lm is not None:
-        raise NotImplementedError("RNN-LM fusion (the K9 kernel) is not ported yet: it "
-                                  "waits for the LM-extras slice")
     if lm_top_k:
         raise NotImplementedError("lm_top_k (acoustic-pruned hashed fusion) is not ported "
                                   "yet: it waits for the LM-extras slice")
+    if lm_table is not None and rnn_lm is not None:
+        raise ValueError("give one fusion source: lm_table or rnn_lm, not both")
     if blank != 0:
         raise ValueError("the search extends with chars 1..V-1 and treats id 0 as "
                          f"blank, as the JAX package's does; got blank={blank}")
@@ -308,28 +374,38 @@ def _prepare(logits, ext_top_a):
 def prefix_beam_search(logits: torch.Tensor, logit_len: torch.Tensor, beam_size: int = 16,
                        blank: int = 0, lm_table: torch.Tensor | None = None,
                        lm_alpha: float = 0.0, lm_beta: float = 0.0, max_len: int = 256,
-                       ext_top_a: int = 0, hash_lm=None, rnn_lm=None, lm_top_k: int = 0):
+                       ext_top_a: int = 0, hash_lm=None, rnn_lm: CharRNNLM | None = None,
+                       sos_id: int = 29, lm_top_k: int = 0):
     """(tokens (B, L), lengths (B,), scores (B,)) of the best beam of each row.
 
-    On CUDA tensors the kernel runs the search: K7 over all chars, K8 over
-    each frame's top-A chars when ``0 < ext_top_a < V`` (``ext_top_a >= V``
-    is the unrestricted search); on CPU tensors the plain search does.
-    ``lm_table`` (n_ctx, V) float32 adds dense n-gram shallow fusion.
+    On CUDA tensors a kernel runs the search, over all chars or, when
+    ``0 < ext_top_a < V``, over each frame's top-A chars (``ext_top_a >= V``
+    is the unrestricted search): K7/K8 without an LM or with the dense
+    n-gram table ``lm_table`` (n_ctx, V) float32; K9 with the char RNN LM
+    ``rnn_lm``, primed with ``sos_id`` once outside the kernel and advanced
+    inside it.  On CPU tensors the plain search runs.
     """
-    _check_sources(blank, hash_lm, rnn_lm, lm_top_k)
+    _check_sources(blank, hash_lm, lm_table, rnn_lm, lm_top_k)
     from pytorch_asr_tpu_torch.ops import beam_cuda
 
     logp, (top_val, top_idx) = _prepare(logits, ext_top_a)
-    return beam_cuda.prefix_beam(logp, logit_len.to(torch.int32).contiguous(), beam_size,
-                                 max_len, lm_table, lm_alpha, lm_beta, top_val, top_idx)
+    lens = logit_len.to(torch.int32).contiguous()
+    if rnn_lm is not None:
+        return beam_cuda.prefix_beam_rnn(logp, lens, beam_size, max_len, rnn_lm,
+                                         *primed_lm_state(rnn_lm, sos_id), lm_alpha, lm_beta,
+                                         top_val, top_idx)
+    return beam_cuda.prefix_beam(logp, lens, beam_size, max_len, lm_table, lm_alpha, lm_beta,
+                                 top_val, top_idx)
 
 
 def prefix_beam_search_plain(logits: torch.Tensor, logit_len: torch.Tensor,
                              beam_size: int = 16, blank: int = 0,
                              lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
-                             lm_beta: float = 0.0, max_len: int = 256, ext_top_a: int = 0):
+                             lm_beta: float = 0.0, max_len: int = 256, ext_top_a: int = 0,
+                             rnn_lm: CharRNNLM | None = None, sos_id: int = 29):
     """``prefix_beam_search`` through the plain search on any device."""
-    _check_sources(blank, None, None, 0)
+    _check_sources(blank, None, lm_table, rnn_lm, 0)
     logp, (top_val, top_idx) = _prepare(logits, ext_top_a)
+    lm_state = primed_lm_state(rnn_lm, sos_id) if rnn_lm is not None else None
     return beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha, lm_beta,
-                           top_val, top_idx)
+                           top_val, top_idx, rnn_lm=rnn_lm, lm_state=lm_state)

@@ -1,10 +1,14 @@
-"""CTC prefix beam search on the card: the K7/K8 kernel ``csrc/prefix_beam.cu``.
+"""CTC prefix beam search on the card: the kernels of ``csrc/prefix_beam.cu``.
 
-Counterpart of ``pytorch_asr_tpu/ops/beam_pallas.py::prefix_beam_fused_lanes``
-(K7, all chars) and ``prefix_beam_fused_lanes_topa`` (K8, each frame's top-A
-chars).  ``prefix_beam`` takes the plain search
-(``decoding/prefix_beam.py::beam_scan_plain``) for CPU tensors and launches
-the kernel for CUDA tensors; there is no other switch and no fallback.
+Counterparts of ``pytorch_asr_tpu/ops/beam_pallas.py``'s
+``prefix_beam_fused_lanes`` (K7, all chars) and
+``prefix_beam_fused_lanes_topa`` (K8, each frame's top-A chars), both with an
+optional dense n-gram table (``prefix_beam``), and of
+``prefix_beam_fused_lanes_topa_rnn`` (K9, either search fused with the char
+LSTM LM, advanced inside the kernel: ``prefix_beam_rnn``).  Each wrapper
+takes the plain search (``decoding/prefix_beam.py::beam_scan_plain``) for CPU
+tensors and launches its kernel for CUDA tensors; there is no other switch
+and no fallback.
 """
 
 from __future__ import annotations
@@ -17,18 +21,31 @@ from pytorch_asr_tpu_torch.decoding import prefix_beam as plain
 from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P]}
+_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
+               "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6 + [_F, _F, _P]}
 MAX_SMEM = 232448    # the dynamic shared memory a Hopper block may use
 MAX_BEAM = 1024      # picks are held one a thread
+MAX_LM_LAYERS = 8    # the kernel's RnnLm holds this many layers' pointers
 
 
 def smem_bytes(K: int, C: int, V: int) -> int:
-    """Shared memory of one block, as ``csrc/prefix_beam.cu`` lays it out."""
+    """Shared memory of one K7/K8 block, as ``csrc/prefix_beam.cu`` lays it out."""
     return 72 * K + 17 * K * C + 8 * V + 512
 
 
-def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int) -> int:
-    """Validates the inputs; returns C, the candidate lanes of a beam."""
+def rnn_smem_bytes(K: int, C: int, V: int, nl: int, E: int, H: int) -> int:
+    """Shared memory of one K9 block: the search's, then from the next
+    16-byte boundary the LM's packed inputs, double-buffered h and c, the
+    double-buffered log-prob rows and 3 K + 1 ints."""
+    groups = (K + 3) // 4
+    lm = 4 * (groups * 4 * (max(E, H) + H) + 4 * nl * K * H + 2 * K * V) + 4 * (3 * K + 1)
+    return (smem_bytes(K, C, V) + 15) // 16 * 16 + lm
+
+
+def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int,
+           lm_tensors: dict | None = None) -> int:
+    """Validates the inputs (``lm_tensors``: K9's LM, name -> (tensor,
+    shape)); returns C, the candidate lanes of a beam."""
     B, T, V = logp.shape
     want = {"logp": (logp, (B, T, V), torch.float32),
             "logit_len": (logit_len, (B,), torch.int32)}
@@ -43,6 +60,8 @@ def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int) -> int:
         C = top_idx.shape[-1]
         want["top_val"] = (top_val, (B, T, C), torch.float32)
         want["top_idx"] = (top_idx, (B, T, C), torch.int32)
+    for name, (t, shape) in (lm_tensors or {}).items():
+        want[name] = (t, shape, torch.float32)
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"prefix_beam: {name} must be {shape} {dtype}, "
@@ -57,6 +76,21 @@ def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int) -> int:
         raise ValueError(f"prefix_beam: K*C = {K}*{C} candidate lanes need {need} bytes of "
                          f"shared memory, more than a block's {MAX_SMEM}")
     return C
+
+
+def _lm_tensors(rnn_lm, h0, c0, lmp0, V: int) -> dict:
+    """K9's LM inputs in the order the kernel takes them, each with the
+    shape it must have."""
+    cfg = rnn_lm.cfg
+    nl, E, H = cfg.num_layers, cfg.embed_dim, cfg.hidden_dim
+    out = {"embed": (rnn_lm.embed, (V, E)), "w_out": (rnn_lm.w_out, (H, V)),
+           "b_out": (rnn_lm.b_out, (V,)), "h0": (h0, (nl, H)), "c0": (c0, (nl, H)),
+           "lmp0": (lmp0, (V,))}
+    for kind in ("wx", "wh", "b"):
+        for l in range(nl):
+            shape = {"wx": (E if l == 0 else H, 4 * H), "wh": (H, 4 * H), "b": (4 * H,)}[kind]
+            out[f"lstm{l}_{kind}"] = (getattr(rnn_lm, f"lstm{l}_{kind}"), shape)
+    return out
 
 
 def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max_len: int,
@@ -89,5 +123,55 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
         scores.data_ptr(), B, T, V, K, C, L, lm_table.shape[0] if lm_table is not None else 1,
         lm_alpha, lm_beta, torch.cuda.current_stream(dev).cuda_stream), name)
+    build.LAUNCHES[name] += 1
+    return tokens, lengths, scores
+
+
+def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max_len: int,
+                    rnn_lm, h0: torch.Tensor, c0: torch.Tensor, lmp0: torch.Tensor,
+                    lm_alpha: float, lm_beta: float, top_val: torch.Tensor | None = None,
+                    top_idx: torch.Tensor | None = None):
+    """Prefix beam search over ``logp`` (B, T, V) float32 with lengths
+    ``logit_len`` (B,) int32, fused with the char LSTM LM ``rnn_lm``
+    (``models.lm_rnn.CharRNNLM``, float32 on logp's device): every beam
+    starts from the state after ``<sos>``, ``h0``/``c0`` (layers, H) and
+    ``lmp0`` (V,) (``decoding.prefix_beam.primed_lm_state``), and an
+    extension by c scores ``lm_alpha * logP(c | prefix) + lm_beta``.  With
+    ``top_val``/``top_idx`` (B, T, A) the extensions are each frame's top-A
+    chars, else all chars.  Returns (tokens (B, max_len) int32, lengths (B,)
+    int32, scores (B,) float32) of the best beam of each row.  Raises
+    ``ValueError`` when the LM's state does not fit a block's shared memory."""
+    if logp.device.type == "cpu":
+        return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, None, lm_alpha,
+                                     lm_beta, top_val, top_idx, rnn_lm=rnn_lm,
+                                     lm_state=(h0, c0, lmp0))
+    B, T, V = logp.shape
+    K, L = beam_size, max_len
+    cfg = rnn_lm.cfg
+    nl, E, H = cfg.num_layers, cfg.embed_dim, cfg.hidden_dim
+    lm = _lm_tensors(rnn_lm, h0, c0, lmp0, V)
+    C = _check(logp, logit_len, None, top_val, top_idx, K, L, lm)
+    if not 1 <= nl <= MAX_LM_LAYERS:
+        raise ValueError(f"prefix_beam_rnn: {nl} LM layers; the kernel takes 1..{MAX_LM_LAYERS}")
+    need = rnn_smem_bytes(K, C, V, nl, E, H)
+    if need > MAX_SMEM:
+        raise ValueError(f"prefix_beam_rnn: beam {K} with an LM of {nl} layers, E {E}, H {H} "
+                         f"needs {need} bytes of shared memory, more than a block's "
+                         f"{MAX_SMEM}")
+    dev = logp.device
+    parents = torch.empty((B, T, K), dtype=torch.int32, device=dev)
+    appends = torch.empty_like(parents)
+    tokens = torch.empty((B, L), dtype=torch.int32, device=dev)
+    lengths = torch.empty((B,), dtype=torch.int32, device=dev)
+    scores = torch.empty((B,), dtype=torch.float32, device=dev)
+    weights = (_P * len(lm))(*(t.data_ptr() for t, _ in lm.values()))
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = build.load("prefix_beam", _SIGNATURES)
+    name = "prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn"
+    build.check(lib.prefix_beam_rnn(
+        logp.data_ptr(), ptr(top_val), ptr(top_idx), logit_len.data_ptr(), weights, nl, E, H,
+        parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
+        scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta,
+        torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores

@@ -10,7 +10,8 @@ Conversions: flax HWIO conv kernels -> OIHW, the stem's WIO -> OIW, the
 Dense kernel ``(in, out)`` -> the Linear weight ``(out, in)``; the LSTM and
 TCN block tensors keep the JAX layout, which the port's kernels take.  An
 ``.npz`` holding the same tree under ``/``-joined keys loads through
-``load_npz``.
+``load_npz``.  The char RNN LM's tree (``embed``, ``lstm{l}_{wx,wh,b}``,
+``w_out``, ``b_out``) keeps its names and layout (``load_jax_rnn_lm``).
 """
 
 from __future__ import annotations
@@ -72,6 +73,21 @@ def load_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             raise KeyError(f"unexpected parameter {path!r} for the CTC BiLSTM or TCN model")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in state.items()}
+
+
+_RNN_LM = re.compile(r"embed|w_out|b_out|lstm\d+_(wx|wh|b)")
+
+
+def load_jax_rnn_lm(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``CharRNNLM`` params tree -> the ``state_dict`` of
+    ``models.lm_rnn.CharRNNLM``: the same names and layouts, as float32.
+    Raises on a key it does not know."""
+    state = {}
+    for path, arr in flatten(params).items():
+        if not _RNN_LM.fullmatch(path):
+            raise KeyError(f"unexpected parameter {path!r} for the char RNN LM")
+        state[path] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    return state
 
 
 def load_npz(path: str) -> dict[str, torch.Tensor]:

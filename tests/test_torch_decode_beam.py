@@ -120,7 +120,7 @@ def test_decode_without_lm(arpa):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("decode.lm_path", "lm.npz", NotImplementedError),
+    ("decode.method", "joint_beam", NotImplementedError),
     ("decode.lm_backend", "hashed", NotImplementedError),
     ("decode.shard_beams", "true", NotImplementedError),
     ("decode.method", "attention_beam", NotImplementedError),

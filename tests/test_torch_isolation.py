@@ -12,15 +12,15 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-# The modules of the four slices (greedy serving, training, beam serving,
-# config 3), each of which the probe must import without JAX.
+# The modules of the five slices (greedy serving, training, beam serving,
+# config 3, RNN-LM fusion), each of which the probe must import without JAX.
 SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "decode", "evaluate", "ops.stft_cuda", "ops.lstm_cuda", "ops.ctc", "ops.ctc_cuda",
     "frontend.specaugment", "models.encoder_bilstm", "models.asr_model", "data.batching",
     "training.state", "training.metrics", "training.checkpoint", "training.trainer", "train",
     "data.synthetic", "data.bucket_opt", "decoding.wer", "decoding.lm", "decoding.prefix_beam",
     "decoding.driver", "ops.beam_cuda", "train_ngram", "eval_wer", "models.encoder_tcn",
-    "ops.tcn_cuda")]
+    "ops.tcn_cuda", "models.lm_rnn", "training.lm", "train_lm")]
 
 _PROBE = """
 import importlib, json, pkgutil, sys

@@ -14,6 +14,7 @@ import torch
 
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig
 from pytorch_asr_tpu_torch.decoding import prefix_beam
+from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
 from pytorch_asr_tpu_torch.ops import (
     beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
 
@@ -37,6 +38,11 @@ CTC_GRAD_RTOL, CTC_GRAD_ATOL = 1e-4, 1e-5
 # operations in the same order (no FMA on the fusion line), so tokens and
 # lengths are equal and scores agree to rounding (bit-equal in practice).
 BEAM_RTOL = 1e-5
+# K9: its LM products are fp32 sums in another order than torch.matmul's, so
+# the fused scores drift by a few ulps a frame; planted-path inputs keep the
+# search decisive (tokens and lengths exact), and the scores are held as the
+# JAX package holds its own K9 on hardware (tests/test_tpu_parity.py).
+RNN_RTOL, RNN_ATOL = 2e-3, 1e-3
 # TCN block: fp32 FMA products summed in k order against cuBLAS's blocked
 # sums, the JAX package's 2e-4 (relative to each tensor's largest entry);
 # a bf16 output one bf16 step apart where the fp32 sums straddle a rounding
@@ -305,6 +311,71 @@ def test_prefix_beam_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="top_val"):
         beam_cuda.prefix_beam(logp, lens, 4, 8, top_idx=torch.zeros(
             1, 2, 3, dtype=torch.int32, device=cuda))
+
+
+def _rnn_lm(device, nl: int, E: int = 16, H: int = 32, seed: int = 11) -> CharRNNLM:
+    """An LM whose rows are far from uniform: the drawn weights scaled up
+    and random biases."""
+    lm = CharRNNLM(RNNLMConfig(embed_dim=E, hidden_dim=H, num_layers=nl), 31, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in lm.parameters():
+            p.mul_(3.0).add_(0.3 * torch.randn(p.shape, generator=g))
+    return lm.to(device).requires_grad_(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl", [1, 2])
+@pytest.mark.parametrize("A", [0, 8])
+def test_prefix_beam_rnn_kernel_matches_plain(cuda, A, nl):
+    """K9 over all chars (A = 0) and each frame's top-8, with 1 and 2 LM
+    layers, against the plain search on the card: planted-path logits,
+    ragged rows and an empty one."""
+    logits, lens, _ = _beam_case(cuda, 3)
+    kw = dict(beam_size=8, max_len=32, ext_top_a=A, rnn_lm=_rnn_lm(cuda, nl), sos_id=29,
+              lm_alpha=0.5, lm_beta=1.0)
+    build.reset_launches()
+    toks, n, score = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["prefix_beam_rnn_topa" if A else "prefix_beam_rnn"] == 1
+    assert sum(build.LAUNCHES.values()) == 1
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    torch.testing.assert_close(n, want[1], rtol=0, atol=0)
+    torch.testing.assert_close(toks, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(score, want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+    assert n[2] == 0 and score[2] == 0 and n[0] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,H,nl,K", [(128, 256, 2, 16), (64, 384, 1, 16)])
+def test_prefix_beam_rnn_kernel_at_full_lm_width(cuda, E, H, nl, K):
+    """The default LM (E 128, H 256, 2 layers) at beam 16, whose LM step
+    takes the block's 1024 threads, and H 384, whose step loops over 1536
+    (unit, beam group) items."""
+    logits, lens, _ = _beam_case(cuda, 4, B=3, T=40)
+    kw = dict(beam_size=K, max_len=24, rnn_lm=_rnn_lm(cuda, nl, E, H), sos_id=29,
+              lm_alpha=0.5, lm_beta=1.0)
+    for A in (0, 8):
+        got = prefix_beam.prefix_beam_search(logits, lens, ext_top_a=A, **kw)
+        want = prefix_beam.prefix_beam_search_plain(logits, lens, ext_top_a=A, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+        torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+@pytest.mark.cuda
+def test_prefix_beam_rnn_kernel_rejects_what_it_does_not_take(cuda):
+    logits, lens, _ = _beam_case(cuda, 5, B=2, T=20)
+    logp = torch.log_softmax(logits, -1)
+    big = _rnn_lm(cuda, 2, 128, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        beam_cuda.prefix_beam_rnn(logp, lens, 16, 8, big, *prefix_beam.primed_lm_state(big, 29),
+                                  0.5, 1.0)
+    lm = _rnn_lm(cuda, 1)
+    h0, c0, lmp0 = prefix_beam.primed_lm_state(lm, 29)
+    with pytest.raises(ValueError, match="h0"):
+        beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, lm, h0.double(), c0, lmp0, 0.5, 1.0)
+    with pytest.raises(ValueError, match="lmp0"):
+        beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, lm, h0, c0, lmp0[:-1], 0.5, 1.0)
 
 
 def _tcn_case(device, dtype=torch.float32, B=3, T=133, C=96, K=5, seed=9):

@@ -45,20 +45,38 @@ result line):
      ``decode.main`` (prefix beam K 16, no LM, its 14-bucket decode ladder)
      and ``train.main`` (batch 16, one bucket) at full width in bf16 with
      launch counts; profile one decode batch and one train step;
-  10. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+  10. config 2's beam decode across ranks: hold K10, the beam-sharded
+     search's per-frame merge and top-K, against the plain merge on the card
+     bit for bit (candidates of 2 and 4 beam shards at config 2's shapes,
+     with and without the 4-gram, early and late frames) and time it; K9
+     past a block's shared memory (an LM of H 512 x 2 layers, and beam 32);
+     then ``decode.main ... decode.shard_beams=true`` in ranks spawned on
+     the one card over gloo, each with its launch counters set to 0 just
+     before and read just after: 2 ranks at model axis 2 and 4 ranks at
+     data 2 x model 2 with the 4-gram (hypotheses equal to the one-rank
+     decode's), 4 ranks at model axis 4 with the RNN LM; and the sharded
+     search with the RNN LM in 4 ranks against the plain search;
+  11. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+Whether it passes or fails, the script ends every process it started (the
+ranks, multiprocessing's resource tracker, and anything they left) before it
+exits.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from multiprocessing import resource_tracker
 
 import numpy as np
 import torch
@@ -71,20 +89,25 @@ from pytorch_asr_tpu_torch.configs.base import (
     DataConfig,
     DecodeConfig,
     FrontendConfig,
+    MeshConfig,
     ModelConfig,
     OptimConfig,
     TrainConfig,
 )
 from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_tokenizer
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
-from pytorch_asr_tpu_torch.decoding import driver, prefix_beam
+from pytorch_asr_tpu_torch.decoding import driver, prefix_beam, prefix_beam_sharded
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.evaluate import build_model, eval_step, model_outputs
 from pytorch_asr_tpu_torch.frontend import features
+from pytorch_asr_tpu_torch.models import encoder_bilstm
 from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len, set_residual_dtype
+from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
 from pytorch_asr_tpu_torch.ops import (
     beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
-from pytorch_asr_tpu_torch.runtime import set_fp32_math
+from pytorch_asr_tpu_torch.parallel import distributed, launch
+from pytorch_asr_tpu_torch.parallel.mesh import make_mesh
+from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
 from pytorch_asr_tpu_torch.training import state as train_state
 from pytorch_asr_tpu_torch.training.trainer import Trainer
 
@@ -160,6 +183,13 @@ TCN_BLOCKS, TCN_DILATIONS = 10, (1, 2, 4, 8, 16)
 TCN_TOL = 2e-4
 TCN_BF16_TOL = 1e-2
 TCN_TRAIN_UTTS = 64          # 4 full batches of 16 an epoch, and 4 eval batches
+# Config 2 across ranks: 2 decode batches a run (each rank decodes its rows
+# of both); K10 is checked at frames 0 and 1 (most beams dead) and 150.
+SHARD_BATCHES, MERGE_FRAMES = 2, (0, 1, 150)
+RANK_TIMEOUT = 300.0         # a spawned decode: ~8 s to the card, then its work
+# K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
+# seed) at beam 16, and the trained default LM at beam 32.
+WIDE_LM, WIDE_BEAM = RNNLMConfig(embed_dim=128, hidden_dim=512, num_layers=2), 32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -172,6 +202,68 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants' orphans (Linux
+    ``PR_SET_CHILD_SUBREAPER``), so that ``stop_descendants`` finds every
+    process the run started, even one whose parent has ended."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    check(libc.prctl(36, 1, 0, 0, 0) == 0, f"prctl(PR_SET_CHILD_SUBREAPER): {ctypes.get_errno()}")
+
+
+def descendants() -> dict[int, str]:
+    """{pid: command line} of every live process below this one."""
+    children, cmd = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd[int(entry)] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        fields = stat[stat.rfind(")") + 2:].split()
+        if fields[0] != "Z":
+            children.setdefault(int(fields[1]), []).append(int(entry))
+    out, todo = {}, [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            out[pid] = cmd.get(pid, "?")
+            todo.append(pid)
+    return out
+
+
+def stop_descendants() -> None:
+    """End every process the run started, so that the script ends alone.
+
+    The spawned ranks share multiprocessing's resource tracker, a child of
+    this process that outlives them; it is closed through its own call, so
+    that it releases what it tracks.  Anything else still running here (a
+    rank that outlived its job, or a process one left behind) is named on
+    stderr and sent SIGTERM, then SIGKILL; ended children are reaped."""
+    tracker = resource_tracker._resource_tracker
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        stray = {p: c for p, c in descendants().items() if p != tracker._pid}
+        if not stray:
+            break
+        print(f"chip_smoke: {sig.name} to processes still running: {stray}", file=sys.stderr)
+        for pid in stray:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 5.0
+        while set(descendants()) - {tracker._pid} and time.monotonic() < deadline:
+            time.sleep(0.05)
+            with contextlib.suppress(ChildProcessError):
+                while os.waitpid(-1, os.WNOHANG)[0] > 0:
+                    pass
+    with contextlib.suppress(ChildProcessError):  # it may have been reaped above
+        tracker._stop()
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0] > 0:
+            pass
 
 
 def time_ms(fn, reps: int = 20, inner: int = 10, warmup: int = 3) -> float:
@@ -920,7 +1012,7 @@ def plain_calls_of(*targets):
 
     def counted(fn):
         def run(x, *args, **kwargs):
-            calls.append(x.device.type)
+            calls.append((x["pb"] if isinstance(x, dict) else x).device.type)  # a merge's stays
             return fn(x, *args, **kwargs)
         return run
 
@@ -962,8 +1054,9 @@ def beam_decode_phase(lm_path: str, top_a: int) -> dict:
           f"beam decode launches {launches} != {want}")
     check(not plain_calls, f"the plain search ran on the serving path: {plain_calls}")
     check(set(result) == {"method", "wer", "cer", "num_utts", "decode_rtf",
-                          "padding_efficiency_decode"} and result["num_utts"] > 0
-          and result["decode_rtf"] > 0, f"beam decode: bad result {result}")
+                          "padding_efficiency_decode", "world_size", "dist_backend"}
+          and result["num_utts"] > 0 and result["decode_rtf"] > 0
+          and result["world_size"] == 1, f"beam decode: bad result {result}")
     return {**result, "wall_s": wall, "batches": DECODE_BATCHES, "ext_top_a": top_a,
             "launches": launches}
 
@@ -1007,7 +1100,8 @@ def decode_phase() -> dict:
     result = decode.main(argv)
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
-    check(set(result) == {"wer", "cer", "num_utts", "decode_rtf"}, f"decode: {result}")
+    check(set(result) == {"wer", "cer", "num_utts", "decode_rtf", "world_size",
+                          "dist_backend"}, f"decode: {result}")
     check(result["num_utts"] == DECODE_BATCHES * B and 0.0 <= result["wer"]
           and result["decode_rtf"] > 0, f"decode: bad result {result}")
     check(launches["stft_log_mel"] == DECODE_BATCHES,
@@ -1230,8 +1324,9 @@ def tcn_decode_phase() -> dict:
           f"tcn decode launches {launches} != {want}")
     check(not plain_calls, f"a plain version ran on the serving path: {plain_calls}")
     check(set(result) == {"method", "wer", "cer", "num_utts", "decode_rtf",
-                          "padding_efficiency_decode"} and result["num_utts"] > 0
-          and result["decode_rtf"] > 0, f"tcn decode: bad result {result}")
+                          "padding_efficiency_decode", "world_size", "dist_backend"}
+          and result["num_utts"] > 0 and result["decode_rtf"] > 0,
+          f"tcn decode: bad result {result}")
     return {**result, "wall_s": wall, "batches": DECODE_BATCHES, "launches": launches}
 
 
@@ -1311,18 +1406,346 @@ def tcn_profile_phase() -> dict:
                      "top": rows[:12]}
     return out
 
+def shard_candidates(state, logp_t, P: int, lm, kw: dict) -> tuple[dict, dict]:
+    """One frame's candidates as P beam shards build them (each its K/P
+    beams, with global parent ids) and the all-gather assembles them:
+    shard-major, contiguous."""
+    kl, parts = BEAM_K // P, []
+    for p in range(P):
+        local = prefix_beam_sharded._local_slice(state, p, kl)
+        rows = lm[local.ctx.long()] if lm is not None else None
+        parts.append(prefix_beam._build_candidates(local, logp_t, lm_rows=rows, K=kl,
+                                                   parent_offset=p * kl, **kw))
+    return tuple({k: torch.cat([q[i][k] for q in parts], 1).contiguous() for k in parts[0][i]}
+                  for i in (0, 1))
+
+
+def merge_phase(arpa: str) -> dict:
+    """K10 against the plain merge (``_merge_topk``), both on the card, every
+    output field bit for bit, dead picks included: config 2's model logits
+    for 16 utterances of 10-16 s (the last row cut to no frames), the plain
+    search's state advanced to frames 0 and 1 (most beams dead) and 150,
+    with no LM and with the 4-gram, candidates gathered from 2 and 4 beam
+    shards (B 16, K 16, 30 lanes a beam).  Timed at frame 150 with the
+    4-gram and 2 shards."""
+    cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1"})
+    logits, lens = cfg2_batch_logits(cfg)
+    lens = lens.clone()
+    lens[BEAM_B - 1] = 0
+    B, T, V = logits.shape
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    table = driver.load_lm(get_config(CFG2, **{"decode.lm_path": arpa}), CARD)
+    dec, cases, timed = cfg.decode, [], None
+    for lm in (None, table):
+        kw = dict(blank=0, vocab=V, lm_table=lm, lm_alpha=dec.lm_alpha if lm is not None else 0.0,
+                  lm_beta=dec.lm_beta if lm is not None else 0.0, L=BEAM_L)
+        state = prefix_beam._init_state(B, BEAM_K, BEAM_L, CARD)
+        for t in range(max(MERGE_FRAMES) + 1):
+            for P in ((2, 4) if t in MERGE_FRAMES else ()):
+                stay, ext = shard_candidates(state, logp[:, t], P, lm, kw)
+                build.reset_launches()
+                score, got = beam_cuda.merge_topk(stay, ext, BEAM_K)
+                torch.cuda.synchronize()
+                check(build.LAUNCHES["merge_topk"] == 1, f"merge_topk: {dict(build.LAUNCHES)}")
+                want_score, want = prefix_beam._merge_topk(stay, ext, BEAM_K)
+                tag = f"merge_topk frame {t} P {P} {'4-gram' if lm is not None else 'no LM'}"
+                check(torch.equal(score, want_score), f"{tag}: scores differ")
+                for name, w in want.items():
+                    check(got[name].dtype == w.dtype and torch.equal(got[name], w),
+                          f"{tag}: {name} differs from the plain merge")
+                alive = prefix_beam._lse(stay["pb"], stay["pnb"]) > prefix_beam.NEG_INF / 2
+                cases.append({"frame": t, "P": P, "lm": lm is not None,
+                              "alive_stays": int(alive.sum()),
+                              "dead_picks": int((want_score <= prefix_beam.NEG_INF / 2).sum())})
+                if lm is not None and t == max(MERGE_FRAMES) and P == 2:
+                    timed = (stay, ext)
+            state, _ = prefix_beam._step(state, logp[:, t], t < lens, K=BEAM_K, **kw)
+    stay, ext = timed
+    nb = V - 1
+    N = BEAM_K + BEAM_K * nb
+    # Bytes: the 7 stay and 6 lane fields read once, the 9 outputs written.
+    # Operations a row: ~3 a candidate (its score and key), 3 a (beam, beam)
+    # absorb test, and a top-K over N candidates at log2(K) compares each.
+    nbytes = 4 * (7 * B * BEAM_K + 6 * B * BEAM_K * nb + 9 * B * BEAM_K)
+    ops = B * (3 * N + 3 * BEAM_K ** 2 + N * math.log2(BEAM_K))
+    b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
+    # Back-to-back calls measure the wrapper (its checks, 9 output tensors,
+    # the ctypes call) where that costs more than the kernel; the profiler
+    # gives the kernel's own device time.
+    merge = lambda: beam_cuda.merge_topk(stay, ext, BEAM_K)  # noqa: E731
+    return {"name": "merge_topk", "route": "cuda",
+            "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+            "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:1026",
+            "shape": f"stays ({B}, {BEAM_K}) x 7 fields, lanes ({B}, {BEAM_K * nb}) x 6 fields, "
+                     f"K {BEAM_K}, from 2 and 4 shards, frames {list(MERGE_FRAMES)}",
+            "max_abs_err": 0.0, "tol": "every field bit-equal",
+            "ms": time_ms(merge), "device_ms": device_ms_per_call(merge, "merge_topk_kernel"),
+            "plain_ms": time_ms(lambda: prefix_beam._merge_topk(stay, ext, BEAM_K)),
+            "library_ms": None, "library": "none: no PyTorch call computes this merge",
+            "bound_ms": b_ms, "bound_by": b_by, "cases": cases}
+
+
+def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
+    """K9 where the LM state does not fit a block's shared memory beside the
+    search, so each block keeps it in a device scratch: an LM of H 512 x 2
+    layers (random weights from a seed) at beam 16, and the trained default
+    LM at beam 32; planted transcripts on config 2's model logits, the last
+    row cut to no frames; tokens and lengths exact against the plain search
+    on the card, scores within RNN_RTOL / RNN_ATOL; both timed."""
+    cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1",
+                              "decode.lm_path": rnn_lm_path})
+    logits, lens = cfg2_batch_logits(cfg)
+    B, T, V = logits.shape
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    path = transcript_path(batch, lens.cpu(), T).to(CARD)
+    planted = logits.clone()
+    planted.scatter_add_(2, path[..., None], torch.full((B, T, 1), 4.0, device=CARD))
+    ragged = lens.clone()
+    ragged[B - 1] = 0
+    dec, sos = cfg.decode, get_tokenizer(cfg.data.vocab).sos_id
+    wide = CharRNNLM(WIDE_LM, V, seed=23).to(CARD).eval()
+    out = {}
+    for name, lm, K in (("h512", wide, BEAM_K), ("beam32", driver.load_lm(cfg, CARD), WIDE_BEAM)):
+        lmc = lm.cfg
+        smem = beam_cuda.rnn_smem_bytes(K, V, V, lmc.num_layers, lmc.embed_dim, lmc.hidden_dim)
+        check(smem > beam_cuda.MAX_SMEM, f"{name}: its state fits shared memory ({smem} bytes)")
+        kw = dict(beam_size=K, max_len=BEAM_L, rnn_lm=lm, sos_id=sos, lm_alpha=dec.lm_alpha,
+                  lm_beta=dec.lm_beta)
+        build.reset_launches()
+        got = prefix_beam.prefix_beam_search(planted, ragged, **kw)
+        torch.cuda.synchronize()
+        check({k: v for k, v in build.LAUNCHES.items() if v} == {"prefix_beam_rnn": 1},
+              f"K9 {name}: {dict(build.LAUNCHES)}")
+        want = prefix_beam.prefix_beam_search_plain(planted, ragged, **kw)
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"K9 {name}: tokens or lengths differ from the plain search")
+        torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL,
+                                   msg=lambda m, name=name: f"K9 {name} scores: {m}")
+        logp = prefix_beam._prepare(planted, 0)[0]
+        state0 = prefix_beam.primed_lm_state(lm, sos)
+        args = (logp, ragged.to(torch.int32).contiguous(), K, BEAM_L, lm, *state0, dec.lm_alpha,
+                dec.lm_beta)
+        out[name] = {"K": K, "lm": f"E {lmc.embed_dim} H {lmc.hidden_dim} x {lmc.num_layers}",
+                     "state_in_smem_bytes": smem,
+                     "scratch_bytes": 4 * B * beam_cuda.lm_state_floats(K, V, lmc.num_layers,
+                                                                        lmc.hidden_dim),
+                     "max_abs_err": (got[2] - want[2]).abs().max().item(),
+                     "mean_len": got[1].float().mean().item(),
+                     "ms": time_ms(lambda: beam_cuda.prefix_beam_rnn(*args), 3, 1, 1),
+                     "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(
+                         *args[:4], None, *args[8:], rnn_lm=lm, lm_state=state0), 1, 1, 0)}
+    return out
+
+
+def device_ms_per_call(fn, kernel: str, calls: int = 20) -> float:
+    """The device time of the kernels named ``kernel`` per call of ``fn``,
+    from the profiler over ``calls`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    got = sum(r["device_ms"] for r in device_rows(prof) if kernel in r["name"])
+    check(got > 0, f"no device time recorded for {kernel}")
+    return got / calls
+
+
+@contextlib.contextmanager
+def timed_calls(*targets):
+    """Wrap each (module, name) function so that every call is timed on the
+    host clock between two synchronisations, with its first argument's
+    second dim (a search's frames); yields {name: [(seconds, dim), ...]}."""
+    log = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def timed(name, fn):
+        def run(x, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, *args, **kwargs)
+            torch.cuda.synchronize()
+            dim = x.shape[1] if isinstance(x, torch.Tensor) and x.dim() > 1 else 0
+            log[name].append((time.perf_counter() - t0, dim))
+            return out
+        return run
+
+    for mod, name, fn in saved:
+        setattr(mod, name, timed(name, fn))
+    try:
+        yield log
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def rank_decode(argv: list[str]) -> dict:
+    """One rank of a decode (spawned, or in this process for one rank):
+    ``decode.main(argv)`` with the launch counters set to 0 just before and
+    read just after, the device of every plain merge or plain search call,
+    and each batch's encoder and search times, with the all-gathers inside
+    each (a collective's time includes waiting for the slowest rank)."""
+    torch.cuda.synchronize()
+    with plain_calls_of((prefix_beam, "_merge_topk"), (prefix_beam, "beam_scan_plain")) as plain, \
+            timed_calls((driver, "model_outputs"), (driver, "prefix_beam_search_sharded"),
+                        (driver, "prefix_beam_search")) as steps, \
+            timed_calls((encoder_bilstm, "model_all_gather")) as enc_x, \
+            timed_calls((prefix_beam_sharded, "model_all_gather")) as search_x:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = decode.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    searches = steps["prefix_beam_search_sharded"] + steps["prefix_beam_search"]
+    return {"rank": distributed.topology()["rank"], "result": result, "wall_s": wall,
+            "launches": {k: v for k, v in launches.items() if v}, "plain": plain,
+            "frames": [d for _, d in searches],
+            "encoder_s": sum(t for t, _ in steps["model_outputs"]),
+            "search_s": sum(t for t, _ in searches),
+            "encoder_exchange_s": sum(t for t, _ in enc_x["model_all_gather"]),
+            "search_exchange_s": sum(t for t, _ in search_x["model_all_gather"])}
+
+
+def rank_search(logits: np.ndarray, lens: np.ndarray, lm_path: str, kw: dict) -> dict:
+    """One of 4 ranks: the sharded search with the RNN LM at model axis 4
+    on the same rows as every rank; its result and launch counts."""
+    distributed.initialize("cuda")
+    dev = resolve_device("cuda")
+    mesh = make_mesh(MeshConfig(model_axis=4))
+    rnn = driver.load_lm(get_config(CFG2, **{"decode.lm_path": lm_path}), dev)
+    build.reset_launches()
+    got = prefix_beam_sharded.prefix_beam_search_sharded(
+        torch.from_numpy(logits).to(dev), torch.from_numpy(lens).to(dev), mesh, rnn_lm=rnn, **kw)
+    torch.cuda.synchronize()
+    return {"out": [g.cpu().numpy() for g in got],
+            "launches": {k: v for k, v in build.LAUNCHES.items() if v}}
+
+
+def read_dump(prefix: str) -> list[tuple[str, str]]:
+    """(reference, hypothesis) text pairs of a decode dump, in its order."""
+    with open(prefix + ".ref.tsv") as r, open(prefix + ".hyp.tsv") as h:
+        return [(a.split("\t", 1)[1], b.split("\t", 1)[1]) for a, b in zip(r, h)]
+
+
+def sharded_decode_phase(arpa: str, rnn_lm: str) -> dict:
+    """Config 2's serving path across ranks: ``decode.main ctc_bilstm_beam_lm
+    decode.shard_beams=true`` at full width on its 14-bucket decode ladder
+    over 64 utterances of 10-16 s, 2 batches, in ranks spawned on the one
+    card over gloo.  Each rank and batch runs 1 K1, the K2 launches of its
+    direction (4, or 8 without the split), one K10 a frame, no K7 or K9, and
+    no plain merge or search on the card.
+      one:    the one-rank decode of the same batches (K7), the reference;
+      model2: 2 ranks, model axis 2, the 4-gram: the same hypotheses;
+      data2_model2: 4 ranks, data 2 x model 2, the 4-gram: the same
+              hypotheses, each utterance counted once;
+      rnn_model4: 4 ranks, model axis 4, the RNN LM;
+    then the sharded search with the RNN LM in 4 ranks on config 2's logits
+    with each row's transcript planted, against the plain search on the
+    card: tokens and lengths exact, scores within RNN_RTOL / RNN_ATOL."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [CFG2, "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                "data.synthetic_num_utts=64", f"max_batches={SHARD_BATCHES}",
+                f"train.checkpoint_dir={tmp}/none"]
+        ngram = base + [f"decode.lm_path={arpa}"]
+        one = rank_decode(ngram + [f"dump_path={tmp}/one"])
+        check(one["launches"] == {"stft_log_mel": SHARD_BATCHES,
+                                  "lstm_seq": 2 * CFG2_LAYERS * SHARD_BATCHES,
+                                  "prefix_beam": SHARD_BATCHES} and not one["plain"],
+              f"one-rank decode: {one['launches']} {one['plain']}")
+        want_pairs = read_dump(f"{tmp}/one")
+        # name: (ranks, model axis, argv, K2 directions a layer on each rank)
+        runs = {"model2": (2, 2, ngram + ["mesh.model_axis=2"], 1),
+                "data2_model2": (4, 2, ngram + ["mesh.data_axis=2", "mesh.model_axis=2"], 1),
+                "rnn_model4": (4, 4, base + [f"decode.lm_path={rnn_lm}", "mesh.model_axis=4"],
+                               2)}
+        for name, (world, model, argv, dirs) in runs.items():
+            ranks = launch.spawn(rank_decode, world, argv + [
+                "decode.shard_beams=true", f"dump_path={tmp}/{name}"], timeout=RANK_TIMEOUT)
+            for r in ranks:
+                frames = r["frames"]
+                want = {"stft_log_mel": SHARD_BATCHES,
+                        "lstm_seq": dirs * CFG2_LAYERS * SHARD_BATCHES, "merge_topk": sum(frames)}
+                check(len(frames) == SHARD_BATCHES and r["launches"] == want,
+                      f"{name} rank {r['rank']}: launches {r['launches']} != {want}")
+                check(not r["plain"], f"{name}: a plain merge or search ran: {r['plain']}")
+                res = r["result"]
+                check(res["world_size"] == world and res["dist_backend"] == "gloo"
+                      and res["num_utts"] == one["result"]["num_utts"], f"{name}: {res}")
+            res = ranks[0]["result"]
+            if name != "rnn_model4":
+                check(all(r["result"]["wer"] == one["result"]["wer"]
+                          and r["result"]["cer"] == one["result"]["cer"] for r in ranks),
+                      f"{name}: WER/CER {res} differ from one rank's {one['result']}")
+                pairs = [p for r in ranks if r["rank"] % model == 0
+                         for p in read_dump(f"{tmp}/{name}.p{r['rank']}")]
+                check(sorted(pairs) == sorted(want_pairs) and (name != "model2"
+                                                               or pairs == want_pairs),
+                      f"{name}: hypotheses differ from the one-rank decode")
+            r0 = ranks[0]
+            exchange = r0["encoder_exchange_s"] + r0["search_exchange_s"]
+            out[name] = {"world": world, **{k: res[k] for k in (
+                "wer", "cer", "num_utts", "decode_rtf", "dist_backend")},
+                "launches_rank0": r0["launches"], "frames": r0["frames"],
+                **{k: r0[k] for k in ("wall_s", "encoder_s", "search_s", "encoder_exchange_s",
+                                      "search_exchange_s")},
+                "search_ms_per_frame": 1e3 * r0["search_s"] / sum(r0["frames"]),
+                "exchange_share_of_batches": exchange / (r0["encoder_s"] + r0["search_s"])}
+        out["one"] = {**{k: one["result"][k] for k in ("wer", "cer", "num_utts", "decode_rtf")},
+                      "launches": one["launches"], "encoder_s": one["encoder_s"],
+                      "search_s": one["search_s"]}
+    out["search_rnn_model4"] = sharded_rnn_search(rnn_lm)
+    return out
+
+
+def sharded_rnn_search(rnn_lm: str) -> dict:
+    """The sharded search with the RNN LM in 4 ranks at model axis 4 (one
+    K10 a frame) against the plain search on the card."""
+    cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1",
+                              "decode.lm_path": rnn_lm})
+    logits, lens = cfg2_batch_logits(cfg)
+    B, T, V = logits.shape
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    path = transcript_path(batch, lens.cpu(), T).to(CARD)
+    planted = logits.clone()
+    planted.scatter_add_(2, path[..., None], torch.full((B, T, 1), 4.0, device=CARD))
+    ragged = lens.clone()
+    ragged[B - 1] = 0
+    dec = cfg.decode
+    kw = dict(beam_size=BEAM_K, max_len=BEAM_L, lm_alpha=dec.lm_alpha, lm_beta=dec.lm_beta,
+              sos_id=get_tokenizer(cfg.data.vocab).sos_id)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(rank_search, 4, planted.float().cpu().numpy(),
+                         ragged.int().cpu().numpy(), rnn_lm, kw, timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    want = prefix_beam.prefix_beam_search_plain(planted, ragged, rnn_lm=driver.load_lm(cfg, CARD),
+                                                **kw)
+    for r in ranks:
+        check(r["launches"] == {"merge_topk": T}, f"sharded RNN search: {r['launches']}")
+        toks, n, score = (torch.from_numpy(x).to(CARD) for x in r["out"])
+        check(torch.equal(n, want[1]) and torch.equal(toks, want[0]),
+              "sharded RNN search: tokens or lengths differ from the plain search")
+        torch.testing.assert_close(score, want[2], rtol=RNN_RTOL, atol=RNN_ATOL,
+                                   msg=lambda m: f"sharded RNN search scores: {m}")
+    score = torch.from_numpy(ranks[0]["out"][2]).to(CARD)
+    return {"ranks": 4, "frames": T, "max_abs_err": (score - want[2]).abs().max().item(),
+            "tol": {"tokens": "equal", "scores_rtol": RNN_RTOL, "scores_atol": RNN_ATOL},
+            "spawn_and_search_s": wall, "mean_len": want[1].float().mean().item()}
+
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
-              file=sys.stderr)
-        return 1
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     # Library yardsticks (cuDNN's LSTM and convolutions) in full fp32 too.
     set_fp32_math()
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     logs = build.build(["stft_log_mel", "lstm_seq", "ctc_alpha_beta", "prefix_beam",
                        "tcn_block"])
@@ -1340,7 +1763,7 @@ def main() -> int:
           f"nll {lm_record['nll']:.4f}")
 
     kernels = [stft_phase(), lstm_phase(), *lstm_train_phase(), *ctc_phase(),
-               *beam_phase(arpa), *rnn_beam_phase(rnn_lm), *tcn_phase()]
+               *beam_phase(arpa), *rnn_beam_phase(rnn_lm), *tcn_phase(), merge_phase(arpa)]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
@@ -1375,17 +1798,29 @@ def main() -> int:
     print(f"tcn_train: audio_seconds_per_sec_per_chip "
           f"{tcn_trn['record']['audio_seconds_per_sec_per_chip']:.2f} "
           f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
+    print("rnn_past_smem:", json.dumps(rnn_past_smem_phase(rnn_lm)))
+    t0 = time.perf_counter()
+    sharded = sharded_decode_phase(arpa, rnn_lm)
+    print("sharded_decode:", json.dumps(sharded))
+    for path in ("model2", "data2_model2", "rnn_model4"):
+        res = sharded[path]
+        print(f"sharded_decode {path}: ranks {res['world']} over {res['dist_backend']} "
+              f"decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "
+              f"exchange_share {res['exchange_share_of_batches']:.3f}")
+    print(f"sharded_decode: {time.perf_counter() - t0:.1f} s")
     # Each kernel is held to the main path that runs it: K7, K8 and K9 to
     # the config-2 serving paths, K5 to config 3's serving path, K6 to config
     # 3's training path, the rest to config 1's training path (which runs
     # K2 in its eval); every path's count is printed.
     paths = {"train": trn["launches"], "decode": dec["launches"],
              **{p: r["launches"] for p, r in beam_dec.items()},
-             "tcn_decode": tcn_dec["launches"], "tcn_train": tcn_trn["launches"]}
+             "tcn_decode": tcn_dec["launches"], "tcn_train": tcn_trn["launches"],
+             **{f"sharded_{p}": sharded[p]["launches_rank0"]
+                for p in ("model2", "data2_model2", "rnn_model4")}}
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
                 "tcn_block": "tcn_decode", "tcn_block_train_fwd": "tcn_train",
-                "tcn_block_bwd": "tcn_train"}
+                "tcn_block_bwd": "tcn_train", "merge_topk": "sharded_model2"}
     for k in kernels:
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         own = own_path.get(k["name"], "train")
@@ -1397,6 +1832,7 @@ def main() -> int:
     print("beam_profile:", json.dumps(beam_profile_phase(arpa)))
     print("rnn_beam_profile:", json.dumps(beam_profile_phase(rnn_lm)))
     print("tcn_profile:", json.dumps(tcn_profile_phase()))
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1406,4 +1842,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
+              file=sys.stderr)
+        sys.exit(1)
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_descendants()
+    sys.exit(code)

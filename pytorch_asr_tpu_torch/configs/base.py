@@ -3,8 +3,9 @@
 Frozen dataclasses with the same fields and defaults as the JAX package, so a
 ``key=value`` override (see ``apply_overrides``) reads the same in both CLIs.
 Fields that select a JAX-only code path (``use_pallas``, ``tp_directions``,
-``rng_impl``, the mesh) are kept for override compatibility; the port does
-not read them: its kernels run wherever a tensor lies on the card.
+``rng_impl``) are kept for override compatibility; the port does not read
+them: its kernels run wherever a tensor lies on the card.  The mesh is read
+by the decode and eval loops over ranks (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

@@ -10,11 +10,17 @@
 //       chars, given by the caller;
 //   K9  pytorch_asr_tpu/ops/beam_pallas.py:1452 prefix_beam_fused_lanes_topa_rnn
 //       (_beam_kernel_lanes_topa_rnn :1286): either search, fused with a char
-//       LSTM LM whose state every beam carries and the kernel advances.
-// Python side: ops/beam_cuda.py; plain version:
-// decoding/prefix_beam.py::beam_scan_plain.  K7 and K8 match it token for
-// token and bit for bit; K9 token for token (its LM products sum in another
-// order than torch.matmul, so its scores agree to a few ulps a frame).
+//       LSTM LM whose state every beam carries and the kernel advances;
+//   K10 pytorch_asr_tpu/ops/beam_pallas.py:1026 merge_topk_fused
+//       (_merge_kernel :973): one frame's absorb and top-K over candidates
+//       gathered from the beam shards, for the beam-sharded search (its own
+//       kernel at the end of this file: K7's per-frame merge lifted out; it
+//       shares K7's top-K selection, select_topk, and repeats its absorb).
+// Python side: ops/beam_cuda.py; plain versions:
+// decoding/prefix_beam.py::beam_scan_plain and, for K10, ::_merge_topk.
+// K7, K8 and K10 match them token for token and bit for bit; K9 token for
+// token (its LM products sum in another order than torch.matmul, so its
+// scores agree to a few ulps a frame).
 //
 // Inputs: logp (B, T, V) fp32, already log-softmaxed; for the top-A search
 // the frame's top-A values and ids (B, T, A); lens (B) int32; the LM table
@@ -62,6 +68,9 @@
 //   math); the LM products are fp32 FMA sums, no TF32, as the JAX kernel
 //   computes them at Precision.HIGHEST.
 //
+// K10 reads the gathered fields once (7 stay and 6 lane fields, ~200 KB a
+// frame at config 2) and writes 9 (B, K) outputs: bytes, ~0.06 us; it is
+// bound by one launch and K barrier-separated selection rounds a frame.
 // Bound on this card, K7/K8: bytes.  It reads logp (B*T*V*4), the table
 // once, and writes the backpointers (2*B*T*K*4): about 5.3 MB at the
 // serving shapes (B 16, T 400, V 31, K 16, a 4-gram table of 3.69 MB), 1.6
@@ -89,6 +98,9 @@
 // K9 keeps every beam's LM state in shared memory for the whole utterance:
 // h and c (layers, K, H) fp32, double-buffered for the parent reorder (an
 // index), and the log-prob rows (K, V); about 150 KB at the default LM.
+// Where that does not fit a block (more layers, a wider LM, a larger beam)
+// the wrapper hands a device scratch, and the block keeps its state there
+// (L2-resident) through the same generic pointers: same code, same order.
 // The weights (3.6 MB fp32) stay in device memory, L2-resident.  The LM
 // step runs only for the beams that appended, packed in groups of four: a
 // thread takes one hidden unit j of one group, keeps the four gate sums of
@@ -137,6 +149,29 @@ __device__ __forceinline__ unsigned long long umax(unsigned long long a,
   return a > b ? a : b;
 }
 
+// Top-K: K rounds of a block argmax over the N keys; candidate j belongs to
+// thread j % nt, which alone reads and clears its keys, so no barrier is
+// needed before the first round.  Thread r < K gets pick r's key.
+__device__ __forceinline__ unsigned long long select_topk(unsigned long long* key,
+                                                          unsigned long long* wbest, int N,
+                                                          int K, int tid, int nt) {
+  const int warp = tid >> 5, nwarps = (nt + 31) >> 5;
+  unsigned long long mine = 0;
+  for (int r = 0; r < K; ++r) {
+    unsigned long long best = 0;
+    for (int j = tid; j < N; j += nt) best = umax(best, key[j]);
+    for (int o = 16; o > 0; o >>= 1) best = umax(best, __shfl_xor_sync(0xffffffffu, best, o));
+    if ((tid & 31) == 0) wbest[(r & 1) * 32 + warp] = best;  // double-buffered
+    __syncthreads();
+    best = 0;
+    for (int w = 0; w < nwarps; ++w) best = umax(best, wbest[(r & 1) * 32 + w]);
+    const int j = key_index(best);
+    if (j % nt == tid) key[j] = 0;
+    if (tid == r) mine = best;
+  }
+  return mine;
+}
+
 constexpr int kMaxLayers = 8;
 
 // K9's LM: the weights in device memory in the JAX layouts, and the state
@@ -169,8 +204,8 @@ struct LmSmem {
 // Dynamic shared memory of one block, as ops/beam_cuda.py computes it: the
 // search's keys 8 (K + K*C), warp maxima 512, 4 (16 K + 2 K*C + 2 V) of
 // fields, candidates and the row, and K*C absorbed flags; then, for K9 from
-// the next 16-byte boundary, the LM's xin, h, c and lmp floats and 3 K + 1
-// ints.
+// the next 16-byte boundary, the LM's xin floats, its state (h, c and lmp
+// floats) unless that lives in a global scratch, and 3 K + 1 ints.
 __host__ __device__ inline size_t search_smem_bytes(int K, int C, int V) {
   return 72 * (size_t)K + 17 * (size_t)K * C + 8 * (size_t)V + 512;
 }
@@ -179,11 +214,18 @@ __host__ __device__ inline size_t lm_smem_offset(int K, int C, int V) {
   return (search_smem_bytes(K, C, V) + 15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t lm_xin_width(int E, int H) { return (E > H ? E : H) + H; }
+__host__ __device__ inline size_t lm_xin_floats(int K, int E, int H) {
+  return (size_t)(K + 3) / 4 * 4 * ((E > H ? E : H) + H);
+}
 
-__host__ __device__ inline size_t lm_smem_bytes(int K, int V, int nl, int E, int H) {
-  const size_t groups = (K + 3) / 4;
-  return 4 * (groups * 4 * lm_xin_width(E, H) + 4 * (size_t)nl * K * H + 2 * (size_t)K * V) +
+// One block's LM state: h and c (2, nl, K, H) each, lmp (2, K, V).
+__host__ __device__ inline size_t lm_state_floats(int K, int V, int nl, int H) {
+  return 4 * (size_t)nl * K * H + 2 * (size_t)K * V;
+}
+
+__host__ __device__ inline size_t lm_smem_bytes(int K, int V, int nl, int E, int H,
+                                                bool state_in_smem) {
+  return 4 * (lm_xin_floats(K, E, H) + (state_in_smem ? lm_state_floats(K, V, nl, H) : 0)) +
          4 * (3 * (size_t)K + 1);
 }
 
@@ -358,13 +400,14 @@ __device__ void advance_lm(const RnnLm& lm, const LmSmem& s, int cur, int K, int
   log_softmax_rows(s, V, lmp_nxt, tid, nt);
 }
 
-template <bool kTopA, bool kRnn>
+template <bool kTopA, bool kRnn, bool kGlobalState>
 __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     const float* __restrict__ logp, const float* __restrict__ top_val,
     const int* __restrict__ top_idx, const int* __restrict__ lens,
     const float* __restrict__ table, int* parents, int* appends,
     int* __restrict__ tokens, int* __restrict__ out_len, float* __restrict__ out_score,
-    int T, int V, int K, int C, int L, int n_ctx, float alpha, float beta, RnnLm lm) {
+    int T, int V, int K, int C, int L, int n_ctx, float alpha, float beta, RnnLm lm,
+    float* lm_state) {
   const int KC = K * C, N = K + KC;
   extern __shared__ __align__(16) unsigned long long smem[];
   unsigned long long* key = smem;                         // (N) selection keys
@@ -385,19 +428,27 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
   unsigned char* absorbed = reinterpret_cast<unsigned char*>(slot + V);  // (KC)
   LmSmem rnn = {};                                        // K9's LM state
   if constexpr (kRnn) {
+    // The state follows xin in shared memory, or (kGlobalState: it does not
+    // fit) lies in this block's slice of the wrapper's scratch.  The same LM
+    // code reads it either way; the flag is a template parameter because
+    // with generic pointers in the shared case K9 ran slower on the H100.
     char* at = reinterpret_cast<char*>(smem) + lm_smem_offset(K, C, V);
     rnn.xin = reinterpret_cast<float*>(at);
-    rnn.h = rnn.xin + (size_t)(K + 3) / 4 * 4 * lm_xin_width(lm.E, lm.H);
+    float* after_xin = rnn.xin + lm_xin_floats(K, lm.E, lm.H);
+    if constexpr (kGlobalState) {
+      rnn.h = lm_state + (size_t)blockIdx.x * lm_state_floats(K, V, lm.nl, lm.H);
+    } else {
+      rnn.h = after_xin;
+    }
     rnn.c = rnn.h + 2 * (size_t)lm.nl * K * lm.H;
     rnn.lmp = rnn.c + 2 * (size_t)lm.nl * K * lm.H;
-    rnn.par = reinterpret_cast<int*>(rnn.lmp + 2 * (size_t)K * V);
+    rnn.par = reinterpret_cast<int*>(kGlobalState ? after_xin : rnn.lmp + 2 * (size_t)K * V);
     rnn.app = rnn.par + K;
     rnn.rows = rnn.app + K;
     rnn.n_app = rnn.rows + K;
   }
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid >> 5, nwarps = (nt + 31) >> 5;
   const int n_t = min(max(lens[b], 0), T);
   if (tid < K) {
     pb[tid] = tid == 0 ? 0.0f : NEG_INF;
@@ -505,21 +556,7 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
       key[j] = make_key(s, j);
     }
 
-    // Top-K: K rounds of a block argmax; candidate j belongs to thread
-    // j % nt, which alone reads and clears its keys.  Thread r keeps pick r.
-    unsigned long long mine = 0;
-    for (int r = 0; r < K; ++r) {
-      unsigned long long best = 0;
-      for (int j = tid; j < N; j += nt) best = umax(best, key[j]);
-      for (int o = 16; o > 0; o >>= 1) best = umax(best, __shfl_xor_sync(0xffffffffu, best, o));
-      if ((tid & 31) == 0) wbest[(r & 1) * 32 + warp] = best;
-      __syncthreads();
-      best = 0;
-      for (int w = 0; w < nwarps; ++w) best = umax(best, wbest[(r & 1) * 32 + w]);
-      const int j = key_index(best);
-      if (j % nt == tid) key[j] = 0;
-      if (tid == r) mine = best;
-    }
+    const unsigned long long mine = select_topk(key, wbest, N, K, tid, nt);
 
     // The K picks become the next beams; record the backpointers.
     if (tid < K) {
@@ -605,12 +642,13 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 }
 
 // Launches one block per utterance with the dynamic shared memory set.
-template <bool kTopA, bool kRnn>
+template <bool kTopA, bool kRnn, bool kGlobalState = false>
 int launch(int B, int threads, size_t smem, void* stream, const float* logp,
            const float* top_val, const int* top_idx, const int* lens, const float* table,
            int* parents, int* appends, int* tokens, int* out_len, float* out_score, int T,
-           int V, int K, int C, int L, int n_ctx, float alpha, float beta, const RnnLm& lm) {
-  auto kernel = prefix_beam_kernel<kTopA, kRnn>;
+           int V, int K, int C, int L, int n_ctx, float alpha, float beta, const RnnLm& lm,
+           float* lm_state) {
+  auto kernel = prefix_beam_kernel<kTopA, kRnn, kGlobalState>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -618,8 +656,128 @@ int launch(int B, int threads, size_t smem, void* stream, const float* logp,
   }
   kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       logp, top_val, top_idx, lens, table, parents, appends, tokens, out_len, out_score, T,
-      V, K, C, L, n_ctx, alpha, beta, lm);
+      V, K, C, L, n_ctx, alpha, beta, lm, lm_state);
   return cudaGetLastError();
+}
+
+// K10: one frame's merge and top-K over the candidates gathered from the
+// beam shards (decoding/prefix_beam_sharded.py): K7's per-frame merge,
+// lifted out of its time loop.  Ks stays and Ks*nb extension lanes, lane
+// (k, c-1) beam k's extension by char c = 1..nb; lanes' last char is their
+// appended one.  One block a row, one thread a candidate.  The absorb is
+// K7's written again: as a function shared with the search kernel, inlined
+// or not, it changed how ptxas allocated K9's LM step, and K9 ran several
+// times slower on the H100; so only the selection (select_topk) is shared.
+struct MergeIn {
+  const float *s_pb, *s_pnb, *s_lm;                      // (B, Ks)
+  const int *s_hash, *s_last, *s_parent, *s_ctx;         // (B, Ks)
+  const float *e_pnb, *e_lm;                             // (B, Ks * nb)
+  const int *e_hash, *e_parent, *e_append, *e_ctx;       // (B, Ks * nb)
+};
+
+struct MergeOut {
+  float *score, *pb, *pnb, *lm;                          // (B, K)
+  int *hash, *last, *parent, *append, *ctx;              // (B, K)
+};
+
+__host__ __device__ inline size_t merge_smem_bytes(int Ks, int nb) {
+  const size_t KC = (size_t)Ks * nb, N = Ks + KC;
+  return 8 * N + 512 + 12 * (size_t)Ks + 5 * KC;
+}
+
+__global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut out, int Ks,
+                                                          int nb, int K) {
+  const int KC = Ks * nb, N = Ks + KC;
+  extern __shared__ __align__(16) unsigned long long smem[];
+  unsigned long long* key = smem;                          // (N) selection keys
+  unsigned long long* wbest = key + N;                     // (2, 32) warp maxima
+  float* spb = reinterpret_cast<float*>(wbest + 64);       // (Ks) stays
+  float* spnb = spb + Ks;
+  float* epnb = spnb + Ks;                                 // (KC) lanes
+  uint32_t* hsh = reinterpret_cast<uint32_t*>(epnb + KC);  // (Ks)
+  unsigned char* absorbed = reinterpret_cast<unsigned char*>(hsh + Ks);  // (KC)
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const size_t so = (size_t)b * Ks, eo = (size_t)b * KC;
+  for (int k = tid; k < Ks; k += nt) {
+    spb[k] = in.s_pb[so + k];
+    spnb[k] = in.s_pnb[so + k];
+    hsh[k] = (uint32_t)in.s_hash[so + k];
+  }
+  for (int l = tid; l < KC; l += nt) {
+    epnb[l] = in.e_pnb[eo + l];
+    absorbed[l] = 0;
+  }
+  __syncthreads();
+  // Absorb: K7's, with lane (k, c - 1) for char c = h_k' - M h_k.
+  if (tid < Ks) {
+    const float sn = spnb[tid];
+    float add = NEG_INF;
+    if (lse(spb[tid], sn) > NEG_INF / 2) {
+      const uint32_t h2 = hsh[tid];
+      float m = NEG_INF;
+      for (int k = 0; k < Ks; ++k) {
+        const uint32_t c = h2 - HASH_MULT * hsh[k];
+        if (c >= 1u && c <= (uint32_t)nb) {
+          absorbed[k * nb + c - 1] = 1;
+          m = fmaxf(m, epnb[k * nb + c - 1]);
+        }
+      }
+      if (m > NEG_INF / 2) {
+        float sum = 0.0f;
+        for (int k = 0; k < Ks; ++k) {
+          const uint32_t c = h2 - HASH_MULT * hsh[k];
+          if (c >= 1u && c <= (uint32_t)nb) sum += expf(epnb[k * nb + c - 1] - m);
+        }
+        add = m + logf(sum);
+      }
+    }
+    spnb[tid] = lse(sn, add);
+  }
+  __syncthreads();
+  // Selection keys: stays are candidates 0..Ks-1, lane l is Ks + l.
+  for (int j = tid; j < N; j += nt) {
+    float s;
+    if (j < Ks) {
+      s = lse(spb[j], spnb[j]) + in.s_lm[so + j];
+    } else {
+      const int l = j - Ks;
+      s = absorbed[l] ? NEG_INF : epnb[l] + in.e_lm[eo + l];
+    }
+    key[j] = make_key(s, j);
+  }
+  const unsigned long long mine = select_topk(key, wbest, N, K, tid, nt);
+  if (tid < K) {
+    const int r = tid, j = key_index(mine);
+    const size_t o = (size_t)b * K + r;
+    const float score = key_score(mine);
+    float pb, pnb;
+    int hash;
+    if (j < Ks) {
+      pb = spb[j];
+      pnb = spnb[j];
+      hash = in.s_hash[so + j];
+      out.lm[o] = in.s_lm[so + j];
+      out.last[o] = in.s_last[so + j];
+      out.parent[o] = in.s_parent[so + j];
+      out.append[o] = -1;
+      out.ctx[o] = in.s_ctx[so + j];
+    } else {
+      const size_t l = eo + (j - Ks);
+      pb = NEG_INF;
+      pnb = epnb[j - Ks];
+      hash = in.e_hash[l];
+      out.lm[o] = in.e_lm[l];
+      out.last[o] = in.e_append[l];
+      out.parent[o] = in.e_parent[l];
+      out.append[o] = in.e_append[l];
+      out.ctx[o] = in.e_ctx[l];
+    }
+    const bool dead = score <= NEG_INF / 2;  // a dead filler carries no mass
+    out.score[o] = score;
+    out.pb[o] = dead ? NEG_INF : pb;
+    out.pnb[o] = dead ? NEG_INF : pnb;
+    out.hash[o] = dead ? -(r + 1) : hash;
+  }
 }
 
 }  // namespace
@@ -639,18 +797,21 @@ extern "C" int prefix_beam(const float* logp, const float* top_val, const int* t
   const RnnLm none = {};
   return (top_idx != nullptr ? launch<true, false> : launch<false, false>)(
       B, threads, smem, stream, logp, top_val, top_idx, lens, table, parents, appends, tokens,
-      out_len, out_score, T, V, K, C, L, n_ctx, alpha, beta, none);
+      out_len, out_score, T, V, K, C, L, n_ctx, alpha, beta, none, nullptr);
 }
 
 // K9: the search fused with the char LSTM LM.  weights: a host array of
 // device pointers embed, w_out, b_out, h0, c0, lmp0, then wx, wh and b of
-// each of the nl layers.  Same outputs and scratch as prefix_beam.  The
-// wrapper checks nl <= 8 and the shared-memory size.
+// each of the nl layers.  Same outputs and scratch as prefix_beam.
+// lm_state: null keeps every beam's LM state in shared memory; else a
+// device scratch of B * lm_state_floats(K, V, nl, H) floats holds it (for
+// LMs or beams whose state does not fit).  The wrapper checks nl <= 8 and
+// the shared-memory size.
 extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const int* top_idx,
                                const int* lens, const float* const* weights, int nl, int E,
                                int H, int* parents, int* appends, int* tokens, int* out_len,
                                float* out_score, int B, int T, int V, int K, int C, int L,
-                               float alpha, float beta, void* stream) {
+                               float alpha, float beta, float* lm_state, void* stream) {
   if (B == 0) return 0;
   if (nl < 1 || nl > kMaxLayers) return cudaErrorInvalidValue;
   RnnLm lm = {};
@@ -668,14 +829,44 @@ extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const in
   lm.nl = nl;
   lm.E = E;
   lm.H = H;
-  const size_t smem = lm_smem_offset(K, C, V) + lm_smem_bytes(K, V, nl, E, H);
+  const size_t smem =
+      lm_smem_offset(K, C, V) + lm_smem_bytes(K, V, nl, E, H, lm_state == nullptr);
   const int groups = (K + 3) / 4;
   int work = K * C;
   work = work > H * groups ? work : H * groups;
   work = work > V * groups ? work : V * groups;
   int threads = (work + 31) / 32 * 32;
   threads = threads > 1024 ? 1024 : threads;
-  return (top_idx != nullptr ? launch<true, true> : launch<false, true>)(
+  const bool global = lm_state != nullptr;
+  return (top_idx != nullptr ? (global ? launch<true, true, true> : launch<true, true>)
+                             : (global ? launch<false, true, true> : launch<false, true>))(
       B, threads, smem, stream, logp, top_val, top_idx, lens, nullptr, parents, appends,
-      tokens, out_len, out_score, T, V, K, C, L, 1, alpha, beta, lm);
+      tokens, out_len, out_score, T, V, K, C, L, 1, alpha, beta, lm, lm_state);
+}
+
+// K10: the per-frame merge and top-K of the beam-sharded search.  Inputs
+// (B, Ks) stays and (B, Ks * nb) lanes, outputs (B, K), all contiguous on
+// one device.  The wrapper checks K <= Ks + Ks * nb, Ks <= 1024 and the
+// shared-memory size.
+extern "C" int merge_topk(const float* s_pb, const float* s_pnb, const float* s_lm,
+                          const int* s_hash, const int* s_last, const int* s_parent,
+                          const int* s_ctx, const float* e_pnb, const float* e_lm,
+                          const int* e_hash, const int* e_parent, const int* e_append,
+                          const int* e_ctx, float* score, float* pb, float* pnb, float* lm,
+                          int* hash, int* last, int* parent, int* append, int* ctx, int B,
+                          int Ks, int nb, int K, void* stream) {
+  if (B == 0) return 0;
+  const MergeIn in = {s_pb, s_pnb, s_lm, s_hash, s_last, s_parent, s_ctx,
+                      e_pnb, e_lm, e_hash, e_parent, e_append, e_ctx};
+  const MergeOut out = {score, pb, pnb, lm, hash, last, parent, append, ctx};
+  const size_t smem = merge_smem_bytes(Ks, nb);
+  int threads = (Ks + Ks * nb + 31) / 32 * 32;
+  threads = threads > 1024 ? 1024 : threads;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  merge_topk_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(in, out, Ks, nb, K);
+  return cudaGetLastError();
 }

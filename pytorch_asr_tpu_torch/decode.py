@@ -14,7 +14,22 @@ RNN-LM fusion when ``decode.lm_path=<file.npz>``, one written by
 ``python -m pytorch_asr_tpu_torch.train_lm`` or the JAX package's CLI).
 ``dump_path`` writes ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` for
 ``python -m pytorch_asr_tpu_torch.eval_wer`` (beam methods).  Prints the
-result dict.
+result dict, with the run's ``world_size`` and ``dist_backend``.
+
+Over several ranks, one process each, started by torchrun:
+
+    torchrun --nproc_per_node=2 -m pytorch_asr_tpu_torch.decode ctc_bilstm_beam_lm \
+        decode.lm_path=<lm> decode.shard_beams=true mesh.model_axis=2
+    torchrun --nproc_per_node=4 -m pytorch_asr_tpu_torch.decode ctc_bilstm_beam_lm \
+        decode.lm_path=<lm> decode.shard_beams=true mesh.data_axis=2 mesh.model_axis=2
+
+Utterances shard over the mesh's data axis; with ``decode.shard_beams`` each
+utterance's beams shard over its model axis, and with a model axis of 2 the
+BiLSTM's two directions run on the two model ranks.  Each rank runs on
+``cuda:{LOCAL_RANK % device_count}``; ranks talk over NCCL when each has a
+card of its own, else over gloo (on the CPU, or ranks sharing a card).
+Rank 0 prints; ``dump_path`` is written per rank as
+``<prefix>.p<rank>.{ref,hyp}.tsv``.
 """
 
 from __future__ import annotations
@@ -22,6 +37,7 @@ from __future__ import annotations
 import sys
 
 from pytorch_asr_tpu_torch.configs import CONFIGS, get_config
+from pytorch_asr_tpu_torch.parallel import distributed
 
 METHODS = ("greedy", "prefix_beam")
 
@@ -53,6 +69,7 @@ def main(argv: list[str] | None = None) -> dict:
     from pytorch_asr_tpu_torch.training.checkpoint import restore_eval_weights
 
     cfg, runtime = parse_args(sys.argv[1:] if argv is None else argv)
+    topo = distributed.initialize(runtime["device"])
     model = build_model(cfg, runtime["device"], runtime["params"])
     step = restore_eval_weights(cfg, model) if runtime["params"] is None else None
     if cfg.decode.method == "greedy":
@@ -62,7 +79,9 @@ def main(argv: list[str] | None = None) -> dict:
     else:
         result = decode_dataset(cfg, model, max_batches=runtime["max_batches"],
                                 dump_path=runtime["dump_path"], step=step)
-    print(result)
+    result.update(world_size=topo["world_size"], dist_backend=topo["dist_backend"])
+    if distributed.is_primary():
+        print(result)
     return result
 
 

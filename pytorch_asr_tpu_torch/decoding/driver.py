@@ -3,8 +3,11 @@
 Batch loop over the eval set with the configured decoder (``greedy`` or
 ``prefix_beam``), corpus WER/CER and decode RTF, on a decode-side bucket
 ladder; optional dump of ``<prefix>.ref.tsv`` / ``<prefix>.hyp.tsv``,
-scoreable with ``python -m pytorch_asr_tpu_torch.eval_wer``.  One process,
-no mesh.
+scoreable with ``python -m pytorch_asr_tpu_torch.eval_wer``.  Over several
+ranks (``torchrun``) every rank reads the same batches and decodes its rows
+of the ('data', 'model') mesh; with ``decode.shard_beams`` and a model axis
+above 1 the beams shard over the model ranks
+(``decoding/prefix_beam_sharded.py``); the metrics are a count-sum.
 """
 
 from __future__ import annotations
@@ -25,9 +28,12 @@ from pytorch_asr_tpu_torch.data.bucket_opt import optimize_buckets, padding_effi
 from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
 from pytorch_asr_tpu_torch.decoding.lm import read_arpa, tensorize
 from pytorch_asr_tpu_torch.decoding.prefix_beam import prefix_beam_search
+from pytorch_asr_tpu_torch.decoding.prefix_beam_sharded import prefix_beam_search_sharded
 from pytorch_asr_tpu_torch.evaluate import eval_step, model_outputs
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM
+from pytorch_asr_tpu_torch.parallel.distributed import topology
+from pytorch_asr_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch_global, use_mesh
 from pytorch_asr_tpu_torch.training.lm import load_rnn_lm
 
 DENSE_LM_FLOATS = 64_000_000   # lm_backend "auto": dense while V**order fits
@@ -56,31 +62,39 @@ def load_lm(cfg: ExperimentConfig, device: str | torch.device,
     return torch.from_numpy(tensorize(lm, tok)).to(device)
 
 
-def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None):
+def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None, mesh: Mesh | None = None):
     """(host batch) -> (ids (B, L), lengths (B,)) on the model's device.
-    ``lm`` is what ``load_lm`` returns: a dense table, the RNN LM, or None."""
+    ``lm`` is what ``load_lm`` returns: a dense table, the RNN LM, or None.
+    With ``decode.shard_beams`` and a ``mesh`` whose model axis is above 1
+    the search shards its beams over the model ranks; it then runs over all
+    chars and ignores ``ext_top_a`` and ``lm_top_k``, as the JAX driver
+    passes neither to its sharded search."""
     method = cfg.decode.method
     if method == "greedy":
         return lambda batch: eval_step(model, batch)
     if method == "prefix_beam":
-        if cfg.decode.shard_beams:
-            raise NotImplementedError("decode.shard_beams (the beam-sharded search and its "
-                                      "K10 merge kernel) is not ported yet: it waits for "
-                                      "the multi-GPU slice")
         dec = cfg.decode
         rnn_lm = lm if isinstance(lm, CharRNNLM) else None
         lm_table = lm if rnn_lm is None else None
         has_lm = lm is not None
-        sos_id = get_tokenizer(cfg.data.vocab).sos_id
+        kw = dict(beam_size=dec.beam_size, lm_table=lm_table,
+                  lm_alpha=dec.lm_alpha if has_lm else 0.0,
+                  lm_beta=dec.lm_beta if has_lm else 0.0, max_len=dec.max_decode_len,
+                  rnn_lm=rnn_lm, sos_id=get_tokenizer(cfg.data.vocab).sos_id)
+        if dec.shard_beams and mesh is not None and mesh.model > 1:
+            def decode_fn(batch):
+                out = model_outputs(model, batch)
+                toks, lens, _ = prefix_beam_search_sharded(out["ctc_logits"], out["enc_len"],
+                                                           mesh, **kw)
+                return toks, lens
+
+            return decode_fn
 
         def decode_fn(batch):
             out = model_outputs(model, batch)
-            toks, lens, _ = prefix_beam_search(
-                out["ctc_logits"], out["enc_len"], beam_size=dec.beam_size,
-                lm_table=lm_table, lm_alpha=dec.lm_alpha if has_lm else 0.0,
-                lm_beta=dec.lm_beta if has_lm else 0.0, max_len=dec.max_decode_len,
-                ext_top_a=dec.ext_top_a, rnn_lm=rnn_lm, sos_id=sos_id,
-                lm_top_k=dec.lm_top_k)
+            toks, lens, _ = prefix_beam_search(out["ctc_logits"], out["enc_len"],
+                                               ext_top_a=dec.ext_top_a, lm_top_k=dec.lm_top_k,
+                                               **kw)
             return toks, lens
 
         return decode_fn
@@ -113,26 +127,36 @@ def decode_dataset(cfg: ExperimentConfig, model: ASRModel,
     with ``cfg.decode.method`` on the decode ladder; returns method, wer,
     cer, num_utts, decode_rtf, ``step`` when given, and
     padding_efficiency_decode when the ladder is on.  ``dump_path`` writes
-    ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` (``id<TAB>text`` lines)."""
+    ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` (``id<TAB>text`` lines);
+    over several ranks each model-index-0 rank writes its own rows to
+    ``<prefix>.p<rank>.{ref,hyp}.tsv``."""
     device = model.ctc_head.weight.device
     dataset = dataset or build_dataset(cfg.data, cfg.frontend.sample_rate)
-    decode_fn = make_decode_fn(cfg, model, load_lm(cfg, device, dataset.tokenizer))
     eval_ds, pad_eff = decode_ladder(cfg, dataset)
+    mesh = make_mesh(cfg.mesh, batch_size=eval_ds.batch_size)
+    decode_fn = make_decode_fn(cfg, model, load_lm(cfg, device, dataset.tokenizer), mesh)
     refs: list[str] = []
     hyps: list[str] = []
     audio_sec = 0.0
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with torch.inference_mode(), use_mesh(mesh):
         for i, batch in enumerate(eval_ds.epoch_batches(seed=0)):
             if max_batches is not None and i >= max_batches:
                 break
-            ids, lens = decode_fn(batch)
-            r, h, a_sec = local_hyps_refs(eval_ds.tokenizer, batch, ids.cpu().numpy(),
-                                          lens.cpu().numpy(), cfg.frontend.sample_rate)
-            refs.extend(r)
-            hyps.extend(h)
-            audio_sec += a_sec
+            rows = shard_batch_global(mesh, batch)
+            if not mesh.has_rows:
+                continue
+            ids, lens = decode_fn(rows)
+            if mesh.counts_rows:
+                r, h, a_sec = local_hyps_refs(eval_ds.tokenizer, rows, ids.cpu().numpy(),
+                                              lens.cpu().numpy(), cfg.frontend.sample_rate)
+                refs.extend(r)
+                hyps.extend(h)
+                audio_sec += a_sec
     dt = time.perf_counter() - t0
+    topo = topology()
+    if dump_path and topo["world_size"] > 1:
+        dump_path = f"{dump_path}.p{topo['rank']}" if mesh.counts_rows else None
     if dump_path:
         for suffix, lines in ((".ref.tsv", refs), (".hyp.tsv", hyps)):
             with open(dump_path + suffix, "w") as fh:

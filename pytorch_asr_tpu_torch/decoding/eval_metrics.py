@@ -1,7 +1,7 @@
-"""Hypothesis collection + metric reduction for greedy eval (single process).
-
-Counterpart of ``pytorch_asr_tpu.decoding.eval_metrics`` with the same metric
-names; the cross-process count sum waits for the multi-GPU slice.
+"""Hypothesis collection + metric reduction for eval and decode, over one
+rank or many: the counterpart of ``pytorch_asr_tpu.decoding.eval_metrics``
+with the same metric names.  Each rank scores the rows it decoded and one
+count-sum over the ranks gives the corpus metrics.
 """
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from pytorch_asr_tpu_torch.decoding.wer import corpus_counts
+from pytorch_asr_tpu_torch.parallel.distributed import sum_across_processes
 
 
 def local_hyps_refs(tokenizer, batch: dict, ids, lens, sample_rate: int):
@@ -25,12 +26,18 @@ def local_hyps_refs(tokenizer, batch: dict, ids, lens, sample_rate: int):
 
 
 def reduce_decode_metrics(refs, hyps, audio_sec: float, wall_s: float) -> dict:
-    """Corpus WER/CER, utterance count and decode real-time factor."""
+    """Corpus WER/CER, utterance count and decode real-time factor from every
+    rank's refs and hyps, by one count-sum (every rank calls it once per
+    eval; a rank whose rows another rank scores passes none).  Counts reduce
+    as integers, exactly; audio seconds as float64 and only feed the RTF of
+    this rank's wall time."""
     werr, wtok = corpus_counts(refs, hyps, unit="word")
     cerr, ctok = corpus_counts(refs, hyps, unit="char")
+    g = sum_across_processes(np.asarray([werr, wtok, cerr, ctok, len(refs)], np.int64))
+    a = sum_across_processes(np.asarray([audio_sec], np.float64))
     return {
-        "wer": float(werr / max(wtok, 1)),
-        "cer": float(cerr / max(ctok, 1)),
-        "num_utts": len(refs),
-        "decode_rtf": float(wall_s / max(audio_sec, 1e-9)),
+        "wer": float(g[0] / max(g[1], 1)),
+        "cer": float(g[2] / max(g[3], 1)),
+        "num_utts": int(g[4]),
+        "decode_rtf": float(wall_s / max(a[0], 1e-9)),
     }

@@ -83,8 +83,10 @@ def _init_state(B: int, K: int, L: int, device) -> BeamState:
     )
 
 
-def _stay_candidates(state: BeamState, logp_t: torch.Tensor, blank: int, K: int):
-    """(total, stay dict): each beam continued without appending."""
+def _stay_candidates(state: BeamState, logp_t: torch.Tensor, blank: int, K: int,
+                     parent_offset: int = 0):
+    """(total, stay dict): each beam continued without appending.  Beam k's
+    parent id is ``parent_offset + k``: a beam shard's global ids."""
     B = logp_t.shape[0]
     total = _lse(state.pb, state.pnb)                                  # (B, K)
     lp_last = torch.gather(logp_t, 1, state.last.clamp(min=0).long())  # (B, K)
@@ -92,7 +94,8 @@ def _stay_candidates(state: BeamState, logp_t: torch.Tensor, blank: int, K: int)
         "pb": total + logp_t[:, blank, None],
         "pnb": torch.where(state.last >= 0, state.pnb + lp_last, NEG_INF),
         "lm": state.lm_s, "hash": state.hash, "ctx": state.ctx, "last": state.last,
-        "parent": torch.arange(K, dtype=torch.int32, device=logp_t.device).expand(B, K),
+        "parent": (torch.arange(K, dtype=torch.int32, device=logp_t.device)
+                   + parent_offset).expand(B, K),
         "append": torch.full((B, K), -1, dtype=torch.int32, device=logp_t.device),
     }
     return total, stay
@@ -108,7 +111,7 @@ def _ext_ctx(state: BeamState, chars_bc: torch.Tensor, vocab: int, lm_table):
 
 
 def _ext_fields(state: BeamState, chars, ext_pnb, lm_rows, vocab, lm_table, lm_alpha,
-                lm_beta, K):
+                lm_beta, K, parent_offset: int = 0):
     if lm_rows is not None:
         ext_lm = state.lm_s[..., None] + (lm_alpha * lm_rows + lm_beta)
     else:
@@ -117,19 +120,21 @@ def _ext_fields(state: BeamState, chars, ext_pnb, lm_rows, vocab, lm_table, lm_a
         "pnb": ext_pnb, "lm": ext_lm,
         "hash": _wrap32(state.hash.long()[..., None] * HASH_MULT + chars.long()),
         "ctx": _ext_ctx(state, chars, vocab, lm_table), "last": chars, "chars": chars,
-        "parent": torch.arange(K, dtype=torch.int32, device=chars.device)[None, :, None]
-        .expand(chars.shape),
+        "parent": (torch.arange(K, dtype=torch.int32, device=chars.device)
+                   + parent_offset)[None, :, None].expand(chars.shape),
         "append": chars,
     }
 
 
 def _build_candidates(state: BeamState, logp_t, *, blank, vocab, lm_table, lm_rows, lm_alpha,
-                      lm_beta, K, L):
+                      lm_beta, K, L, parent_offset: int = 0):
     """Stay (B, K) and extension (B, K, V-1) candidates: each beam extended by
     each non-blank char 1..V-1.  ``lm_rows`` (B, K, V) are the beams' LM
-    log-prob rows (a dense table's rows or the RNN LM's carry), or None."""
+    log-prob rows (a dense table's rows or the RNN LM's carry), or None.
+    ``parent_offset`` is the global id of beam 0 when ``state`` holds one
+    beam shard's K beams."""
     B = logp_t.shape[0]
-    total, stay = _stay_candidates(state, logp_t, blank, K)
+    total, stay = _stay_candidates(state, logp_t, blank, K, parent_offset)
     chars = torch.arange(1, vocab, dtype=torch.int32, device=logp_t.device).expand(
         B, K, vocab - 1)
     is_repeat = chars == state.last[..., None]
@@ -138,7 +143,7 @@ def _build_candidates(state: BeamState, logp_t, *, blank, vocab, lm_table, lm_ro
     ext_pnb = torch.where((state.length >= L)[..., None], NEG_INF, ext_pnb)
     rows = lm_rows[..., 1:] if lm_rows is not None else None
     return stay, _ext_fields(state, chars, ext_pnb, rows, vocab, lm_table, lm_alpha, lm_beta,
-                             K)
+                             K, parent_offset)
 
 
 def _build_candidates_topa(state: BeamState, logp_t, top_val_t, top_idx_t, *, blank,
@@ -267,24 +272,36 @@ def _carry(h0, c0, lmp0, B: int, K: int) -> LMCarry:
                    logp=lmp0.expand(B, K, lmp0.shape[0]).contiguous())
 
 
-def _advance_lm(rnn_lm: CharRNNLM, carry: LMCarry, parent, append, active) -> LMCarry:
-    """Reorder each beam's LM state by parent (an index gather: JAX's one-hot
-    einsum is exact, so the two agree bit for bit), step every beam with
-    ``max(append, 0)``, keep the stepped state where the beam appended, and
-    leave rows past their length as they were."""
-    nl, B, K, H = carry.h.shape
+def _step_lm(rnn_lm: CharRNNLM, carry: LMCarry, parent, append) -> LMCarry:
+    """The LM state of the new beams (B, Kn) whose ``parent`` ids index
+    ``carry``'s beams: each takes its parent's state (an index gather: JAX's
+    one-hot einsum is exact, so the two agree bit for bit), every beam steps
+    with ``max(append, 0)``, and the stepped state is kept where the beam
+    appended."""
+    nl, B, _, H = carry.h.shape
+    Kn = parent.shape[1]
     b, p = torch.arange(B, device=parent.device)[:, None], parent.long()
     g = LMCarry(h=carry.h[:, b, p], c=carry.c[:, b, p], logp=carry.logp[b, p])
-    logp, st = lm_step_logp(rnn_lm, append.clamp(min=0).reshape(B * K),
-                            LMState(g.h.reshape(nl, B * K, H), g.c.reshape(nl, B * K, H)))
+    logp, st = lm_step_logp(rnn_lm, append.clamp(min=0).reshape(B * Kn),
+                            LMState(g.h.reshape(nl, B * Kn, H), g.c.reshape(nl, B * Kn, H)))
     ext = append >= 0
-    new = LMCarry(h=torch.where(ext[None, ..., None], st.h.reshape(nl, B, K, H), g.h),
-                  c=torch.where(ext[None, ..., None], st.c.reshape(nl, B, K, H), g.c),
-                  logp=torch.where(ext[..., None], logp.reshape(B, K, -1), g.logp))
-    act = active.reshape(B, 1, 1)
+    return LMCarry(h=torch.where(ext[None, ..., None], st.h.reshape(nl, B, Kn, H), g.h),
+                   c=torch.where(ext[None, ..., None], st.c.reshape(nl, B, Kn, H), g.c),
+                   logp=torch.where(ext[..., None], logp.reshape(B, Kn, -1), g.logp))
+
+
+def _freeze_lm(new: LMCarry, carry: LMCarry, active) -> LMCarry:
+    """``new`` on rows inside their length, ``carry`` on the rest."""
+    act = active.reshape(-1, 1, 1)
     return LMCarry(h=torch.where(act[None], new.h, carry.h),
                    c=torch.where(act[None], new.c, carry.c),
                    logp=torch.where(act, new.logp, carry.logp))
+
+
+def _advance_lm(rnn_lm: CharRNNLM, carry: LMCarry, parent, append, active) -> LMCarry:
+    """Every beam's LM state after a merge (``_step_lm``); rows past their
+    length keep theirs."""
+    return _freeze_lm(_step_lm(rnn_lm, carry, parent, append), carry, active)
 
 
 def _step(state: BeamState, logp_t, active, top_val_t=None, top_idx_t=None, *, blank,
@@ -344,6 +361,13 @@ def beam_scan_plain(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     for t in range(T):
         top = (top_val[:, t], top_idx[:, t]) if top_idx is not None else (None, None)
         state, carry = _step(state, logp[:, t], t < logit_len, *top, carry=carry, **kw)
+    return _best(state)
+
+
+def _best(state: BeamState):
+    """(tokens (B, L), lengths (B,), scores (B,)) of each row's best beam,
+    the first of equal scores."""
+    B, _, L = state.tokens.shape
     final = _lse(state.pb, state.pnb) + state.lm_s
     best = torch.argmax(final, dim=1, keepdim=True)                     # first max
     tokens = torch.gather(state.tokens, 1, best[..., None].expand(B, 1, L))[:, 0]
@@ -351,13 +375,11 @@ def beam_scan_plain(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
             torch.gather(final, 1, best)[:, 0])
 
 
-def _check_sources(blank, hash_lm, lm_table, rnn_lm, lm_top_k):
+def _check_sources(blank, hash_lm, lm_table, rnn_lm):
     if hash_lm is not None:
-        raise NotImplementedError("hashed n-gram fusion (decoding/lm_hashed.py) is not "
-                                  "ported yet: it waits for the LM-extras slice")
-    if lm_top_k:
-        raise NotImplementedError("lm_top_k (acoustic-pruned hashed fusion) is not ported "
-                                  "yet: it waits for the LM-extras slice")
+        raise NotImplementedError("hashed n-gram fusion (decoding/lm_hashed.py, and the "
+                                  "lm_top_k pruning over it) is not ported yet: it waits "
+                                  "for the LM-extras slice")
     if lm_table is not None and rnn_lm is not None:
         raise ValueError("give one fusion source: lm_table or rnn_lm, not both")
     if blank != 0:
@@ -383,9 +405,11 @@ def prefix_beam_search(logits: torch.Tensor, logit_len: torch.Tensor, beam_size:
     is the unrestricted search): K7/K8 without an LM or with the dense
     n-gram table ``lm_table`` (n_ctx, V) float32; K9 with the char RNN LM
     ``rnn_lm``, primed with ``sos_id`` once outside the kernel and advanced
-    inside it.  On CPU tensors the plain search runs.
+    inside it.  On CPU tensors the plain search runs.  ``lm_top_k`` prunes
+    only a hashed LM's lookups, as in the JAX package, so with a dense table,
+    the RNN LM or no LM it changes nothing.
     """
-    _check_sources(blank, hash_lm, lm_table, rnn_lm, lm_top_k)
+    _check_sources(blank, hash_lm, lm_table, rnn_lm)
     from pytorch_asr_tpu_torch.ops import beam_cuda
 
     logp, (top_val, top_idx) = _prepare(logits, ext_top_a)
@@ -404,7 +428,7 @@ def prefix_beam_search_plain(logits: torch.Tensor, logit_len: torch.Tensor,
                              lm_beta: float = 0.0, max_len: int = 256, ext_top_a: int = 0,
                              rnn_lm: CharRNNLM | None = None, sos_id: int = 29):
     """``prefix_beam_search`` through the plain search on any device."""
-    _check_sources(blank, None, lm_table, rnn_lm, 0)
+    _check_sources(blank, None, lm_table, rnn_lm)
     logp, (top_val, top_idx) = _prepare(logits, ext_top_a)
     lm_state = primed_lm_state(rnn_lm, sos_id) if rnn_lm is not None else None
     return beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha, lm_beta,

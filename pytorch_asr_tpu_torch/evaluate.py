@@ -1,5 +1,7 @@
 """Greedy-CTC evaluation: the counterpart of ``Trainer.evaluate`` and
-``make_eval_step`` of the JAX package, without a trainer around it."""
+``make_eval_step`` of the JAX package, without a trainer around it; over
+several ranks each decodes its rows of the mesh and the metrics are a
+count-sum."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_token
 from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
+from pytorch_asr_tpu_torch.parallel.mesh import make_mesh, shard_batch_global, use_mesh
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
 from pytorch_asr_tpu_torch.weights import load_npz
 
@@ -50,18 +53,23 @@ def evaluate(cfg: ExperimentConfig, model: ASRModel, max_batches: int | None = N
     """Greedy-decode WER/CER and decode RTF over ``dataset`` (by default the
     synthetic corpus of ``cfg.data``)."""
     dataset = dataset or build_dataset(cfg.data, cfg.frontend.sample_rate)
+    mesh = make_mesh(cfg.mesh, batch_size=dataset.batch_size)
     refs: list[str] = []
     hyps: list[str] = []
     audio_sec = 0.0
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with torch.inference_mode(), use_mesh(mesh):
         for i, batch in enumerate(dataset.epoch_batches(seed=0)):
             if max_batches is not None and i >= max_batches:
                 break
-            ids, n = eval_step(model, batch)
-            r, h, a_sec = local_hyps_refs(dataset.tokenizer, batch, ids.cpu().numpy(),
-                                          n.cpu().numpy(), cfg.frontend.sample_rate)
-            refs.extend(r)
-            hyps.extend(h)
-            audio_sec += a_sec
+            rows = shard_batch_global(mesh, batch)
+            if not mesh.has_rows:
+                continue
+            ids, n = eval_step(model, rows)
+            if mesh.counts_rows:
+                r, h, a_sec = local_hyps_refs(dataset.tokenizer, rows, ids.cpu().numpy(),
+                                              n.cpu().numpy(), cfg.frontend.sample_rate)
+                refs.extend(r)
+                hyps.extend(h)
+                audio_sec += a_sec
     return reduce_decode_metrics(refs, hyps, audio_sec, time.perf_counter() - t0)

@@ -4,8 +4,10 @@ Layout follows the JAX package so its weights load as they are:
 the conv output is ordered ``f*C + c`` into the first LSTM layer, the convs
 pad a fixed ``(k-1)//2`` on both sides, and the LSTM weights keep the JAX
 layout ``wih (D, 4H)``, ``whh (H, 4H)``, ``bias (4H,)`` that the kernel takes.
-The causal conv, unidirectional stacks and direction-sharded tensor
-parallelism are not ported yet.
+Under a mesh whose model axis is 2 (``parallel/mesh.py``) the encoder
+splits each layer's directions over the two model ranks, as the JAX
+package's ``_bilstm_tp_directions`` does for serving.  The causal conv and
+unidirectional stacks are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch import nn
 
 from pytorch_asr_tpu_torch.configs.base import BiLSTMEncoderConfig
 from pytorch_asr_tpu_torch.ops import lstm_cuda
+from pytorch_asr_tpu_torch.parallel.mesh import active_mesh, model_all_gather
 
 
 def conv_out_len(length: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -131,8 +134,20 @@ class BiLSTMEncoder(nn.Module):
     def forward(self, feats: torch.Tensor, feat_len: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None):
         x, lengths = self.conv(feats, feat_len)
+        mesh = active_mesh()
+        split = mesh is not None and mesh.model == 2
+        if split and (train or torch.is_grad_enabled()):
+            raise NotImplementedError("the BiLSTM direction split serves only: its backward "
+                                      "waits for the training slice")
         for layer in self.layers:
-            x = torch.cat([layer["fwd"](x, lengths), layer["bwd"](x, lengths)], dim=-1)
+            if split:
+                # Model rank 0 runs the forward direction and rank 1 the
+                # reverse; the gather over the hidden dim is [fwd, bwd].  The
+                # weights stay whole on both ranks.
+                own = layer["fwd"] if mesh.model_index == 0 else layer["bwd"]
+                x = model_all_gather(own(x, lengths), -1, mesh)
+            else:
+                x = torch.cat([layer["fwd"](x, lengths), layer["bwd"](x, lengths)], dim=-1)
             if train and self.cfg.dropout > 0:
                 x = dropout(x, self.cfg.dropout, generator)
         return x, lengths

@@ -5,8 +5,10 @@ Counterparts of ``pytorch_asr_tpu/ops/beam_pallas.py``'s
 ``prefix_beam_fused_lanes_topa`` (K8, each frame's top-A chars), both with an
 optional dense n-gram table (``prefix_beam``), and of
 ``prefix_beam_fused_lanes_topa_rnn`` (K9, either search fused with the char
-LSTM LM, advanced inside the kernel: ``prefix_beam_rnn``).  Each wrapper
-takes the plain search (``decoding/prefix_beam.py::beam_scan_plain``) for CPU
+LSTM LM, advanced inside the kernel: ``prefix_beam_rnn``), and of
+``merge_topk_fused`` (K10, one frame's merge and top-K for the beam-sharded
+search: ``merge_topk``).  Each wrapper takes its plain version
+(``decoding/prefix_beam.py::beam_scan_plain``, ``::_merge_topk``) for CPU
 tensors and launches its kernel for CUDA tensors; there is no other switch
 and no fallback.
 """
@@ -22,7 +24,8 @@ from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
-               "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6 + [_F, _F, _P]}
+               "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6 + [_F, _F, _P, _P],
+               "merge_topk": [_P] * 22 + [_I] * 4 + [_P]}
 MAX_SMEM = 232448    # the dynamic shared memory a Hopper block may use
 MAX_BEAM = 1024      # picks are held one a thread
 MAX_LM_LAYERS = 8    # the kernel's RnnLm holds this many layers' pointers
@@ -33,13 +36,27 @@ def smem_bytes(K: int, C: int, V: int) -> int:
     return 72 * K + 17 * K * C + 8 * V + 512
 
 
-def rnn_smem_bytes(K: int, C: int, V: int, nl: int, E: int, H: int) -> int:
+def lm_state_floats(K: int, V: int, nl: int, H: int) -> int:
+    """One K9 block's LM state: double-buffered h and c, (2, nl, K, H) each,
+    and double-buffered log-prob rows (2, K, V)."""
+    return 4 * nl * K * H + 2 * K * V
+
+
+def rnn_smem_bytes(K: int, C: int, V: int, nl: int, E: int, H: int,
+                   state_in_smem: bool = True) -> int:
     """Shared memory of one K9 block: the search's, then from the next
-    16-byte boundary the LM's packed inputs, double-buffered h and c, the
-    double-buffered log-prob rows and 3 K + 1 ints."""
+    16-byte boundary the LM's packed inputs, its state (unless that lives in
+    a global scratch) and 3 K + 1 ints."""
     groups = (K + 3) // 4
-    lm = 4 * (groups * 4 * (max(E, H) + H) + 4 * nl * K * H + 2 * K * V) + 4 * (3 * K + 1)
+    state = lm_state_floats(K, V, nl, H) if state_in_smem else 0
+    lm = 4 * (groups * 4 * (max(E, H) + H) + state) + 4 * (3 * K + 1)
     return (smem_bytes(K, C, V) + 15) // 16 * 16 + lm
+
+
+def merge_smem_bytes(Ks: int, nb: int) -> int:
+    """Shared memory of one K10 block, as ``csrc/prefix_beam.cu`` lays it out."""
+    N = Ks + Ks * nb
+    return 8 * N + 512 + 12 * Ks + 5 * Ks * nb
 
 
 def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int,
@@ -139,8 +156,11 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     extension by c scores ``lm_alpha * logP(c | prefix) + lm_beta``.  With
     ``top_val``/``top_idx`` (B, T, A) the extensions are each frame's top-A
     chars, else all chars.  Returns (tokens (B, max_len) int32, lengths (B,)
-    int32, scores (B,) float32) of the best beam of each row.  Raises
-    ``ValueError`` when the LM's state does not fit a block's shared memory."""
+    int32, scores (B,) float32) of the best beam of each row.  Each block
+    keeps its beams' LM state in shared memory, or, where that does not fit
+    beside the search, in a device scratch this wrapper allocates; it raises
+    ``ValueError`` only when the LM step's packed inputs, K x (max(E, H) + H)
+    floats, do not fit a block's shared memory either."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, None, lm_alpha,
                                      lm_beta, top_val, top_idx, rnn_lm=rnn_lm,
@@ -153,12 +173,16 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     C = _check(logp, logit_len, None, top_val, top_idx, K, L, lm)
     if not 1 <= nl <= MAX_LM_LAYERS:
         raise ValueError(f"prefix_beam_rnn: {nl} LM layers; the kernel takes 1..{MAX_LM_LAYERS}")
-    need = rnn_smem_bytes(K, C, V, nl, E, H)
-    if need > MAX_SMEM:
-        raise ValueError(f"prefix_beam_rnn: beam {K} with an LM of {nl} layers, E {E}, H {H} "
-                         f"needs {need} bytes of shared memory, more than a block's "
-                         f"{MAX_SMEM}")
     dev = logp.device
+    lm_state = None
+    if rnn_smem_bytes(K, C, V, nl, E, H) > MAX_SMEM:
+        need = rnn_smem_bytes(K, C, V, nl, E, H, state_in_smem=False)
+        if need > MAX_SMEM:
+            raise ValueError(f"prefix_beam_rnn: beam {K} with an LM of E {E}, H {H} needs "
+                             f"{need} bytes of shared memory for the search and the LM "
+                             f"step's packed inputs, more than a block's {MAX_SMEM}")
+        lm_state = torch.empty((B, lm_state_floats(K, V, nl, H)), dtype=torch.float32,
+                               device=dev)
     parents = torch.empty((B, T, K), dtype=torch.int32, device=dev)
     appends = torch.empty_like(parents)
     tokens = torch.empty((B, L), dtype=torch.int32, device=dev)
@@ -171,7 +195,63 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     build.check(lib.prefix_beam_rnn(
         logp.data_ptr(), ptr(top_val), ptr(top_idx), logit_len.data_ptr(), weights, nl, E, H,
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
-        scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta,
+        scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta, ptr(lm_state),
         torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores
+
+
+_MERGE_IN = (("stay", "pb", torch.float32), ("stay", "pnb", torch.float32),
+             ("stay", "lm", torch.float32), ("stay", "hash", torch.int32),
+             ("stay", "last", torch.int32), ("stay", "parent", torch.int32),
+             ("stay", "ctx", torch.int32), ("ext", "pnb", torch.float32),
+             ("ext", "lm", torch.float32), ("ext", "hash", torch.int32),
+             ("ext", "parent", torch.int32), ("ext", "append", torch.int32),
+             ("ext", "ctx", torch.int32))
+_MERGE_OUT = (("pb", torch.float32), ("pnb", torch.float32), ("lm", torch.float32),
+              ("hash", torch.int32), ("last", torch.int32), ("parent", torch.int32),
+              ("append", torch.int32), ("ctx", torch.int32))
+
+
+def merge_topk(stay: dict, ext: dict, K: int):
+    """One frame's merge and top-K of the beam-sharded search: absorb each
+    extension into the alive stay of the same prefix, keep the K best of the
+    stays and the extension lanes (stays first on ties, then the lower flat
+    index), and pick every field.  ``stay`` holds (B, Ks) fields pb, pnb, lm
+    (float32), hash, last, parent, ctx (int32); ``ext`` (B, Ks, V-1) fields
+    pnb, lm, hash, parent, append, ctx, lane (k, c-1) beam k's extension by
+    char c (``_build_candidates``' layout), whose last char is ``append``.
+    Returns (score (B, K), fields: pb, pnb, lm, hash, last, parent, append,
+    ctx (B, K)), the contract of ``decoding/prefix_beam.py::_merge_topk``."""
+    if stay["pb"].device.type == "cpu":
+        return plain._merge_topk(stay, ext, K)
+    B, Ks = stay["pb"].shape
+    nb = ext["pnb"].shape[2]
+    if stay["ctx"].dim() != 2:
+        raise ValueError("merge_topk: a ctx window (the hashed LM's) is not taken: ctx must "
+                         "be (B, Ks)")
+    ins = []
+    for part, name, dtype in _MERGE_IN:
+        t = (stay if part == "stay" else ext)[name]
+        shape = (B, Ks) if part == "stay" else (B, Ks, nb)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"merge_topk: {part}[{name!r}] must be {shape} {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.device != stay["pb"].device or not t.is_contiguous():
+            raise ValueError("merge_topk: all inputs must be contiguous on one CUDA device")
+        ins.append(t)
+    if not 1 <= K <= Ks + Ks * nb or Ks > MAX_BEAM:
+        raise ValueError(f"merge_topk: K {K} must be in 1..{Ks + Ks * nb} candidates and "
+                         f"Ks {Ks} at most {MAX_BEAM}")
+    if merge_smem_bytes(Ks, nb) > MAX_SMEM:
+        raise ValueError(f"merge_topk: {Ks} x {nb} lanes need {merge_smem_bytes(Ks, nb)} bytes "
+                         f"of shared memory, more than a block's {MAX_SMEM}")
+    dev = stay["pb"].device
+    score = torch.empty((B, K), dtype=torch.float32, device=dev)
+    out = {name: torch.empty((B, K), dtype=dtype, device=dev) for name, dtype in _MERGE_OUT}
+    lib = build.load("prefix_beam", _SIGNATURES)
+    build.check(lib.merge_topk(
+        *(t.data_ptr() for t in ins), score.data_ptr(), *(t.data_ptr() for t in out.values()),
+        B, Ks, nb, K, torch.cuda.current_stream(dev).cuda_stream), "merge_topk")
+    build.LAUNCHES["merge_topk"] += 1
+    return score, out

@@ -8,11 +8,17 @@ takes the plain PyTorch version, a CUDA tensor launches the kernel.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``device`` as a ``torch.device``; raises when CUDA is asked for and absent."""
+    """``device`` as a ``torch.device``; raises when CUDA is asked for and absent.
+
+    Under torchrun (``LOCAL_RANK`` set) a bare ``cuda`` is the rank's card,
+    ``cuda:{LOCAL_RANK % device_count}``, made the current device so that the
+    kernels launch there; ranks that outnumber the cards share them."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -20,6 +26,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "False; pass device=cpu to run the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     return dev
 
 

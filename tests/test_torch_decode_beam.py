@@ -122,9 +122,7 @@ def test_decode_without_lm(arpa):
 @pytest.mark.parametrize("key,value,err", [
     ("decode.method", "joint_beam", NotImplementedError),
     ("decode.lm_backend", "hashed", NotImplementedError),
-    ("decode.shard_beams", "true", NotImplementedError),
-    ("decode.method", "attention_beam", NotImplementedError),
-    ("decode.lm_top_k", "4", NotImplementedError)])
+    ("decode.method", "attention_beam", NotImplementedError)])
 def test_later_slices_raise(arpa, key, value, err):
     cfg = get_config("ctc_bilstm_beam_lm", **_overrides(arpa, **{key: value}))
     with pytest.raises(err):

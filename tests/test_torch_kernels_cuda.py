@@ -366,9 +366,11 @@ def test_prefix_beam_rnn_kernel_at_full_lm_width(cuda, E, H, nl, K):
 def test_prefix_beam_rnn_kernel_rejects_what_it_does_not_take(cuda):
     logits, lens, _ = _beam_case(cuda, 5, B=2, T=20)
     logp = torch.log_softmax(logits, -1)
-    big = _rnn_lm(cuda, 2, 128, 1024)
+    # Beam 64 at H 512: the LM step's packed inputs alone (64 x 1024 floats)
+    # pass a block's shared memory, wherever the state lives.
+    big = _rnn_lm(cuda, 1, 128, 512)
     with pytest.raises(ValueError, match="shared memory"):
-        beam_cuda.prefix_beam_rnn(logp, lens, 16, 8, big, *prefix_beam.primed_lm_state(big, 29),
+        beam_cuda.prefix_beam_rnn(logp, lens, 64, 8, big, *prefix_beam.primed_lm_state(big, 29),
                                   0.5, 1.0)
     lm = _rnn_lm(cuda, 1)
     h0, c0, lmp0 = prefix_beam.primed_lm_state(lm, 29)
@@ -376,6 +378,89 @@ def test_prefix_beam_rnn_kernel_rejects_what_it_does_not_take(cuda):
         beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, lm, h0.double(), c0, lmp0, 0.5, 1.0)
     with pytest.raises(ValueError, match="lmp0"):
         beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, lm, h0, c0, lmp0[:-1], 0.5, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,H,nl,K", [(128, 512, 2, 16), (128, 256, 3, 16), (128, 256, 2, 32)])
+def test_prefix_beam_rnn_kernel_past_shared_memory(cuda, E, H, nl, K):
+    """LMs whose state does not fit a block's shared memory beside the
+    search (H 512, 3 layers, beam 32 with the default widths): K9 keeps it
+    in a device scratch and matches the plain search on planted paths."""
+    assert beam_cuda.rnn_smem_bytes(K, 31, 31, nl, E, H) > beam_cuda.MAX_SMEM
+    logits, lens, _ = _beam_case(cuda, 6, B=3, T=40)
+    kw = dict(beam_size=K, max_len=24, rnn_lm=_rnn_lm(cuda, nl, E, H), sos_id=29,
+              lm_alpha=0.5, lm_beta=1.0)
+    for A in (0, 8):
+        build.reset_launches()
+        got = prefix_beam.prefix_beam_search(logits, lens, ext_top_a=A, **kw)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["prefix_beam_rnn_topa" if A else "prefix_beam_rnn"] == 1
+        want = prefix_beam.prefix_beam_search_plain(logits, lens, ext_top_a=A, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+        torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+def _merge_case(device, P: int, frames: int, table: bool, seed: int = 7):
+    """One frame's candidates gathered from P beam shards (``parent_offset``)
+    of a state the plain search advanced ``frames`` frames, on logits whose
+    chars 3 and 4 are equal at every frame (exact ties from identical
+    operations, the table's columns too); row 2 has no frames: its V live
+    candidates leave K - V dead picks."""
+    B, T, V, K = 4, frames + 1, 8, 16
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, V)).astype(np.float32) * 2
+    logits[..., 4] = logits[..., 3]
+    lens = torch.tensor([T, T, 0, T - 1], device=device)
+    tab = rng.standard_normal((V * V, V)).astype(np.float32)
+    tab -= np.log(np.exp(tab).sum(1, keepdims=True))
+    tab[..., 4] = tab[..., 3]
+    tab = torch.from_numpy(tab).to(device)
+    lm = tab if table else None
+    logp = torch.log_softmax(torch.from_numpy(logits).to(device), -1)
+    kw = dict(blank=0, vocab=V, lm_table=lm, lm_alpha=0.5 if table else 0.0,
+              lm_beta=1.0 if table else 0.0, L=24)
+    state = prefix_beam._init_state(B, K, 24, device)
+    for t in range(frames):
+        state, _ = prefix_beam._step(state, logp[:, t], t < lens, K=K, **kw)
+    kl, shards = K // P, []
+    for p in range(P):
+        sl = slice(p * kl, (p + 1) * kl)
+        local = prefix_beam.BeamState(state.tokens, *(f[:, sl] for f in state[1:]))
+        rows = lm[local.ctx.long()] if lm is not None else None
+        shards.append(prefix_beam._build_candidates(local, logp[:, frames], lm_rows=rows, K=kl,
+                                                    parent_offset=p * kl, **kw))
+    stay = {k: torch.cat([s[0][k] for s in shards], 1).contiguous() for k in shards[0][0]}
+    ext = {k: torch.cat([s[1][k] for s in shards], 1).contiguous() for k in shards[0][1]}
+    return stay, ext, K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True])
+@pytest.mark.parametrize("frames", [1, 9])
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_merge_topk_kernel_matches_plain(cuda, P, frames, table):
+    """K10 against the plain merge, every field bit for bit, dead picks too."""
+    stay, ext, K = _merge_case(cuda, P, frames, table)
+    build.reset_launches()
+    score, got = beam_cuda.merge_topk(stay, ext, K)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["merge_topk"] == 1
+    want_score, want = prefix_beam._merge_topk(stay, ext, K)
+    assert torch.equal(score, want_score)
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype and torch.equal(got[name], w), name
+    assert (want_score[2] <= prefix_beam.NEG_INF / 2).any()     # dead picks were compared
+
+
+@pytest.mark.cuda
+def test_merge_topk_kernel_rejects_what_it_does_not_take(cuda):
+    stay, ext, K = _merge_case(cuda, 2, 1, False)
+    with pytest.raises(ValueError, match="ctx"):
+        beam_cuda.merge_topk({**stay, "ctx": stay["ctx"][..., None]}, ext, K)
+    with pytest.raises(ValueError, match="contiguous"):
+        beam_cuda.merge_topk({**stay, "pb": stay["pb"].t().contiguous().t()}, ext, K)
+    with pytest.raises(ValueError, match="int32"):
+        beam_cuda.merge_topk(stay, {**ext, "hash": ext["hash"].long()}, K)
 
 
 def _tcn_case(device, dtype=torch.float32, B=3, T=133, C=96, K=5, seed=9):

@@ -221,11 +221,12 @@ def test_cpu_tensors_take_the_plain_search_without_launches():
 
 @pytest.mark.parametrize("kwargs,err", [
     ({"hash_lm": object()}, NotImplementedError),
-    ({"rnn_lm": object(), "lm_top_k": 4}, NotImplementedError),
-    ({"lm_top_k": 4}, NotImplementedError), ({"blank": 3}, ValueError)])
+    ({"rnn_lm": object(), "hash_lm": object(), "lm_top_k": 4}, NotImplementedError),
+    ({"hash_lm": object(), "lm_top_k": 4}, NotImplementedError), ({"blank": 3}, ValueError)])
 def test_sources_of_later_slices_raise(kwargs, err):
-    """The hashed backend and ``lm_top_k`` wait for a later slice, with or
-    without the RNN LM (tests/test_torch_prefix_beam_rnn.py fuses that)."""
+    """The hashed backend, and ``lm_top_k`` over it, wait for a later slice,
+    with or without the RNN LM (``lm_top_k`` alone changes nothing:
+    tests/test_torch_prefix_beam_sharded.py)."""
     logits, lens, _ = _case(0)
     with pytest.raises(err):
         pb.prefix_beam_search(torch.from_numpy(logits), torch.from_numpy(lens), **kwargs)

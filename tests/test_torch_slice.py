@@ -246,7 +246,8 @@ def test_decode_main_with_npz_params(models, tmp_path, capsys):
             f"params={path}", "max_batches=1", "data.synthetic_num_utts=8", "data.auto_buckets=1",
             "data.batch_size=4"]
     result = decode.main(argv)
-    assert set(result) == {"wer", "cer", "num_utts", "decode_rtf"}
+    assert set(result) == {"wer", "cer", "num_utts", "decode_rtf", "world_size", "dist_backend"}
+    assert result["world_size"] == 1 and result["dist_backend"] is None
     assert result["num_utts"] == 4 and 0.0 <= result["cer"]
     assert str(result) in capsys.readouterr().out
 
@@ -258,5 +259,5 @@ def test_decode_cli_on_cpu():
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     result = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
-    assert set(result) == {"wer", "cer", "num_utts", "decode_rtf"}
+    assert set(result) == {"wer", "cer", "num_utts", "decode_rtf", "world_size", "dist_backend"}
     assert result["num_utts"] == 3 and result["decode_rtf"] > 0

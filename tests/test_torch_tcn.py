@@ -370,7 +370,7 @@ def test_decode_main_on_cpu(tmp_path, capsys):
     result = decode.main(argv)
     assert result["method"] == "prefix_beam"
     assert set(result) == {"method", "wer", "cer", "num_utts", "decode_rtf",
-                           "padding_efficiency_decode"}
+                           "padding_efficiency_decode", "world_size", "dist_backend"}
     assert 0 < result["num_utts"] <= 3 and result["decode_rtf"] > 0
     assert str(result) in capsys.readouterr().out
 

@@ -56,7 +56,21 @@ result line):
      data 2 x model 2 with the 4-gram (hypotheses equal to the one-rank
      decode's), 4 ranks at model axis 4 with the RNN LM; and the sharded
      search with the RNN LM in 4 ranks against the plain search;
-  11. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+  11. the last four kernels, none of which a model path runs: K11, both
+     directions of a BiLSTM layer in one launch, at config 1's layer shape
+     (inference, and training forward and backward) and config 2's
+     (inference), bit-equal to two K2 (K3) launches, its gradients within
+     K3's tolerances, timed beside them and cuDNN's bidirectional LSTM, then
+     driven through ``lstm_cuda.bilstm_seq`` with counts; the paired CTC
+     alpha at K4's shape against its plain version and K4, then
+     ``train.main`` with ``ops.ctc_cuda.PAIRED_FWD`` set, with counts; K13
+     and K12, the search with its tokens in the block and the search as a
+     launch a frame, bit for bit against the plain search at K7's shape and
+     at the scripts' (K12's pointers and state too), timed beside K7; then
+     the ported benchmark scripts
+     ``bench_prefix_beam fused=1`` and ``bench_beam_compile stepwise=1`` at
+     their default widths, with counts;
+  12. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
 Whether it passes or fails, the script ends every process it started (the
 ranks, multiprocessing's resource tracker, and anything they left) before it
 exits.
@@ -108,6 +122,7 @@ from pytorch_asr_tpu_torch.ops import (
 from pytorch_asr_tpu_torch.parallel import distributed, launch
 from pytorch_asr_tpu_torch.parallel.mesh import make_mesh
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
+from pytorch_asr_tpu_torch.scripts import _timing, bench_beam_compile, bench_prefix_beam
 from pytorch_asr_tpu_torch.training import state as train_state
 from pytorch_asr_tpu_torch.training.trainer import Trainer
 
@@ -183,6 +198,11 @@ TCN_BLOCKS, TCN_DILATIONS = 10, (1, 2, 4, 8, 16)
 TCN_TOL = 2e-4
 TCN_BF16_TOL = 1e-2
 TCN_TRAIN_UTTS = 64          # 4 full batches of 16 an epoch, and 4 eval batches
+# The paired CTC alpha against K4: the JAX study's tolerances for its paired
+# kernel (tests/test_ctc_pallas.py), the composed step summing in another
+# order; its main path, train.main with PAIRED_FWD set: a few full steps.
+PAIRED_LOSS_TOL, PAIRED_GRAD_TOL = 1e-4, 2e-3
+PAIRED_STEPS, PAIRED_UTTS = 4, 32
 # Config 2 across ranks: 2 decode batches a run (each rank decodes its rows
 # of both); K10 is checked at frames 0 and 1 (most beams dead) and 150.
 SHARD_BATCHES, MERGE_FRAMES = 2, (0, 1, 150)
@@ -423,13 +443,17 @@ def lstm_phase() -> dict:
 
 
 def cudnn_lstm(D: int, wih, whh, bias) -> torch.nn.LSTM:
-    """cuDNN's fp32 LSTM with the same weights (the library yardstick)."""
-    ref = torch.nn.LSTM(D, H, batch_first=True).cuda()
+    """cuDNN's fp32 LSTM with the same weights (the library yardstick); with
+    weights stacked (2, ...) as [forward, reverse], the bidirectional one."""
+    dual = wih.dim() == 3
+    ref = torch.nn.LSTM(D, whh.shape[-2], batch_first=True, bidirectional=dual).cuda()
     with torch.no_grad():
-        ref.weight_ih_l0.copy_(wih.float().T)
-        ref.weight_hh_l0.copy_(whh.T)
-        ref.bias_ih_l0.copy_(bias)
-        ref.bias_hh_l0.zero_()
+        for d, sfx in enumerate(("", "_reverse") if dual else ("",)):
+            w_ih, w_hh, b = (wih[d], whh[d], bias[d]) if dual else (wih, whh, bias)
+            getattr(ref, f"weight_ih_l0{sfx}").copy_(w_ih.float().T)
+            getattr(ref, f"weight_hh_l0{sfx}").copy_(w_hh.T)
+            getattr(ref, f"bias_ih_l0{sfx}").copy_(b)
+            getattr(ref, f"bias_hh_l0{sfx}").zero_()
     return ref
 
 
@@ -529,19 +553,20 @@ def lstm_train_phase() -> list[dict]:
 
 
 def ctc_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
-              atol: float) -> float:
+              atol: float, kernel: str = "K4") -> float:
     """Check ``got`` against ``want``; returns the largest absolute error over
     the entries above the NEG_INF sentinel."""
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
-                               msg=lambda m: f"K4 {name}: {m}")
+                               msg=lambda m: f"{kernel} {name}: {m}")
     live = want > ctc.NEG_INF / 2
     return float((got - want).detach().abs()[live].max()) if bool(live.any()) else 0.0
 
 
-def ctc_phase() -> list[dict]:
-    """K4 at the training path's shapes: labels of a batch of 10-16 s
-    synthetic utterances over T' = 400 frames, with one row of
-    ``logit_len == 0`` and one infeasible row."""
+def ctc_case():
+    """K4's inputs at the training path's shapes: labels of a batch of 10-16
+    s synthetic utterances over T' = 400 frames, with one row of
+    ``logit_len == 0`` and one infeasible row: (logits, labels, logit_len,
+    label_len, T), on the card."""
     cfg = get_config("ctc_bilstm_dev1h", **{"data.synthetic_min_sec": "10",
                                             "data.synthetic_max_sec": "16",
                                             "data.synthetic_num_utts": str(B),
@@ -559,8 +584,12 @@ def ctc_phase() -> list[dict]:
     g = torch.Generator().manual_seed(4)
     logits = (torch.randn(B, T, V, generator=g) * 2).cuda()
     labels = torch.from_numpy(batch["tokens"]).cuda()
-    logit_len, label_len = logit_len.cuda(), label_len.cuda()
+    return logits, labels, logit_len.cuda(), label_len.cuda(), T
 
+
+def ctc_phase() -> list[dict]:
+    """K4 at the training path's shapes (``ctc_case``)."""
+    logits, labels, logit_len, label_len, T = ctc_case()
     _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
     S = logp_tbs.shape[2]
     alphas, final = ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)
@@ -620,6 +649,379 @@ def ctc_phase() -> list[dict]:
             "library": "F.ctc_loss backward (autograd.grad, graph kept)"}
     beta["bound_ms"], beta["bound_by"] = bound(beta_bytes, 15 * S * frames / PEAK_FP32_S)
     return [alpha, beta]
+
+
+def bilstm_phase() -> tuple[list[dict], dict]:
+    """K11, both directions of a BiLSTM layer in one launch, at config 1's
+    layer shape (x (8, 400, 768) bf16, H 384, lengths 400 down to 250) and
+    config 2's (x (16, 400, 1024) bf16, H 512), forward; at config 1's also
+    the training forward and backward with bf16 and float32 residuals.  The
+    forwards (and the residuals) must equal two K2 (K3) launches bit for
+    bit, the gradients K3's pair within K3's tolerances (bit-equality is
+    reported); everything is also held to the plain versions.  Timed beside
+    two K2 (K3) launches back to back and cuDNN's bidirectional LSTM.  Then
+    the op's own path: ``lstm_cuda.bilstm_seq`` without gradients and under
+    autograd, with the counters set to 0 before and read after."""
+    g = torch.Generator().manual_seed(5)
+    out, cases, path_launches = [], [], None
+    shapes = (("config 1", B, T_LSTM, 2 * H, H, LSTM_LENGTHS),
+              ("config 2", BEAM_B, T_LSTM, 1024, 512,
+               np.linspace(T_LSTM, 250, BEAM_B).astype(int).tolist()))
+    for tag, b, T, D, Hd, lengths in shapes:
+        G = 4 * Hd
+        x = (torch.randn(b, T, D, generator=g) * 0.5).bfloat16().cuda()
+        wih = (torch.randn(2, D, G, generator=g) / D ** 0.5).bfloat16().cuda()
+        whh = (torch.randn(2, Hd, G, generator=g) / Hd ** 0.5).cuda()
+        bias = (torch.randn(2, G, generator=g) * 0.1).cuda()
+        lens = torch.tensor(lengths, dtype=torch.int32).cuda()
+        args = (x, wih, whh, bias, lens, torch.bfloat16)
+        got = lstm_cuda.bilstm_seq_infer(*args)
+        torch.cuda.synchronize()
+        pair = [(x, wih[d], whh[d], bias[d], lens, bool(d), torch.bfloat16) for d in (0, 1)]
+        two_k2 = torch.cat([lstm_cuda.lstm_seq_infer(*p) for p in pair], dim=-1)
+        check(torch.equal(got, two_k2), f"K11 {tag}: forward differs from two K2 launches")
+        err, rel = errors(got, lstm_cuda.bilstm_seq_plain(*args))
+        check(err <= LSTM_TOL, f"K11 {tag}: forward disagrees with its plain version: {err}")
+        valid = int(sum(lengths))
+        nbytes = (2 * b * T * D + 2 * (2 * D * G + 4 * Hd * G + 4 * G) + 4 * b
+                  + 2 * b * T * 2 * Hd)
+        ops_s = 2 * (2 * D * G * valid / PEAK_BF16_S + 2 * Hd * G * valid / PEAK_FP32_S)
+        case = {"layer": tag, "x": [b, T, D], "H": Hd, "bit_equal_two_k2": True,
+                "max_abs_err": err, "max_rel_err": rel,
+                "ms": time_ms(lambda: lstm_cuda.bilstm_seq_infer(*args), 5, 4, 1),
+                "two_k2_ms": time_ms(lambda: [lstm_cuda.lstm_seq_infer(*p) for p in pair],
+                                     5, 4, 1),
+                "one_k2_ms": time_ms(lambda: lstm_cuda.lstm_seq_infer(*pair[0]), 5, 4, 1),
+                "plain_ms": time_ms(lambda: lstm_cuda.bilstm_seq_plain(*args), 3, 1, 1)}
+        ref = cudnn_lstm(D, wih, whh, bias)
+        xf = x.float()
+        with torch.no_grad():
+            case["library_ms"] = time_ms(lambda: ref(xf), 5, 4, 1)
+        case["bound_ms"], case["bound_by"] = bound(nbytes, ops_s)
+        cases.append(case)
+        if tag != "config 1":
+            continue
+        train = {}
+        gy = torch.randn(b, T, 2 * Hd, generator=g).cuda()
+        for res in (torch.float32, torch.bfloat16):
+            targs = (*args, res)
+            fwd = lstm_cuda.bilstm_seq_train_fwd(*targs)
+            torch.cuda.synchronize()
+            k3 = [lstm_cuda.lstm_seq_train_fwd(*p, res) for p in pair]
+            check(torch.equal(fwd[0], torch.cat([k3[0][0], k3[1][0]], -1))
+                  and torch.equal(fwd[1], torch.stack([k3[0][1], k3[1][1]]))
+                  and torch.equal(fwd[2], torch.stack([k3[0][2], k3[1][2]])),
+                  f"K11 training forward ({res}): differs from two K3 launches")
+            bargs = (gy, x, wih, whh, lens, fwd[1], fwd[2])
+            grads = lstm_cuda.bilstm_seq_bwd(*bargs)
+            torch.cuda.synchronize()
+            k3b = [lstm_cuda.lstm_seq_bwd(gy[..., d * Hd:(d + 1) * Hd].contiguous(), x, wih[d],
+                                          whh[d], lens, fwd[1][d], fwd[2][d], bool(d))
+                   for d in (0, 1)]
+            k3g = (k3b[0][0] + k3b[1][0], *(torch.stack([k3b[0][i], k3b[1][i]])
+                                            for i in (1, 2, 3)))
+            want = (*lstm_cuda.bilstm_seq_train_plain(*targs),
+                    *lstm_cuda.bilstm_seq_bwd_plain(*bargs))
+            rec = {"grads_bit_equal_k3": all(torch.equal(a, c) for a, c in zip(grads, k3g))}
+            for name, a, w, c in zip(("out", "acts", "ct", "dx", "dwih", "dwhh", "db"),
+                                     (*fwd, *grads), want, (None, None, None, *k3g)):
+                tol = K3_BF16_TOL if a.dtype == torch.bfloat16 else K3_F32_TOL
+                check(a.dtype == w.dtype and bool(torch.isfinite(a.float()).all()),
+                      f"K11 {name} ({res}): non-finite or of type {a.dtype}")
+                err, rel = errors(a, w)
+                check(rel <= tol, f"K11 {name} ({res}): {rel} > {tol} of the plain version's")
+                if c is not None:
+                    k3_rel = errors(a, c)[1]
+                    check(k3_rel <= tol, f"K11 {name} ({res}): {k3_rel} > {tol} of K3's pair")
+                rec[name] = {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
+            train[str(res).split(".")[1]] = rec
+        res = torch.bfloat16
+        targs = (*args, res)
+        fwd = lstm_cuda.bilstm_seq_train_fwd(*targs)
+        bargs = (gy, x, wih, whh, lens, fwd[1], fwd[2])
+        k3_fwd = [(*p, res) for p in pair]
+        k3_bwd = [(gy[..., d * Hd:(d + 1) * Hd].contiguous(), x, wih[d], whh[d], lens,
+                   fwd[1][d], fwd[2][d], bool(d)) for d in (0, 1)]
+        xg = xf.clone().requires_grad_(True)
+        ref_out, _ = ref(xg)
+        ref_in = [xg, *ref.parameters()]
+        rb = 2
+        fwd_bytes = (2 * b * T * D + 2 * (2 * D * G + 4 * Hd * G + 4 * G) + 4 * b
+                     + 2 * b * T * 2 * Hd + 2 * rb * T * b * (G + Hd))
+        bwd_bytes = (4 * b * T * 2 * Hd + 2 * b * T * D + 2 * (2 * D * G + 4 * Hd * G) + 4 * b
+                     + 2 * rb * T * b * (G + Hd) + 2 * b * T * D
+                     + 2 * (2 * D * G + 4 * Hd * G + 4 * G))
+        timed = {
+            "fwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_train_fwd(*targs), 5, 4, 1),
+            "fwd_two_k3_ms": time_ms(lambda: [lstm_cuda.lstm_seq_train_fwd(*p)
+                                              for p in k3_fwd], 5, 4, 1),
+            "bwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd(*bargs), 5, 4, 1),
+            "bwd_two_k3_ms": time_ms(lambda: [lstm_cuda.lstm_seq_bwd(*p) for p in k3_bwd],
+                                     5, 4, 1),
+            "plain_fwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_train_plain(*targs), 3, 1, 1),
+            "plain_bwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd_plain(*bargs), 3, 1, 1),
+            "library_fwd_ms": time_ms(lambda: ref(xg), 5, 4, 1),
+            "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                ref_out, ref_in, gy, retain_graph=True), 5, 4, 1)}
+        timed["fwd_bound_ms"], timed["fwd_bound_by"] = bound(
+            fwd_bytes, 2 * (2 * D * G * b * T / PEAK_BF16_S + 2 * Hd * G * (valid + b)
+                            / PEAK_FP32_S))
+        timed["bwd_bound_ms"], timed["bwd_bound_by"] = bound(
+            bwd_bytes, 2 * valid * (2 * G * Hd + 2 * G * D + 2 * G * D + 2 * G * Hd + G)
+            / PEAK_FP32_S)
+        # The op's own path: without gradients, then under autograd.
+        params = [t.clone().requires_grad_(True) for t in (x, wih, whh, bias)]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with torch.no_grad():
+            lstm_cuda.bilstm_seq(*args)
+        y = lstm_cuda.bilstm_seq(*params, lens, torch.bfloat16)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        path_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        check(path_launches == {"bilstm_seq": 1, "bilstm_seq_train_fwd": 1, "bilstm_seq_bwd": 1},
+              f"bilstm_seq path launches {path_launches}")
+        check(all(p.grad is not None and bool(torch.isfinite(p.grad.float()).all())
+                  for p in params), "bilstm_seq path: non-finite gradients")
+    head, shape = cases[0], (f"x ({B}, {T_LSTM}, {2 * H}) bf16, H {H}, lengths {LSTM_LENGTHS}; "
+                             f"also x ({BEAM_B}, {T_LSTM}, 1024), H 512, forward")
+    common = {"route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/lstm_seq.cu",
+              "shape": shape}
+    out.append({"name": "bilstm_seq", **common,
+                "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:703",
+                "max_abs_err": max(c["max_abs_err"] for c in cases), "tol": LSTM_TOL,
+                "ms": head["ms"], "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
+                "library": "torch.nn.LSTM(bidirectional=True) (cuDNN, fp32, all lengths = T)",
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "cases": cases})
+    for name, outs, stem, line, what in (
+            ("bilstm_seq_train_fwd", ("out", "acts", "ct"), "fwd", 722, "forward"),
+            ("bilstm_seq_bwd", ("dx", "dwih", "dwhh", "db"), "bwd", 822,
+             "backward (autograd.grad, graph kept)")):
+        out.append({
+            "name": name, **common, "replaces": f"pytorch_asr_tpu/ops/lstm_pallas.py:{line}",
+            "max_abs_err": max(r[o]["max_abs_err"] for r in train.values() for o in outs),
+            "tol": {"float32": K3_F32_TOL, "bfloat16": K3_BF16_TOL},
+            "ms": timed[f"{stem}_ms"], "two_k3_ms": timed[f"{stem}_two_k3_ms"],
+            "plain_ms": timed[f"plain_{stem}_ms"], "library_ms": timed[f"library_{stem}_ms"],
+            "library": f"torch.nn.LSTM(bidirectional=True) (cuDNN, fp32) {what}",
+            "bound_ms": timed[f"{stem}_bound_ms"], "bound_by": timed[f"{stem}_bound_by"],
+            "residuals": {r: {o: v[o] for o in outs} | {"grads_bit_equal_k3":
+                                                        v["grads_bit_equal_k3"]}
+                          for r, v in train.items()}})
+    return out, path_launches
+
+
+def ctc_paired_phase() -> dict:
+    """The paired alpha recursion at K4's shape (``ctc_case``: a row of no
+    frames and an infeasible row), against its plain version and K4's
+    alphas; the loss and gradient through it against K4's; timed beside
+    K4's forward and ``F.ctc_loss``."""
+    logits, labels, logit_len, label_len, T = ctc_case()
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    S = logp_tbs.shape[2]
+    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, logit_len)
+    torch.cuda.synchronize()
+    ref_alphas, ref_final = ctc.alphas_paired_plain(logp_tbs, skip, logit_len)
+    err = max(ctc_close("alphas", alphas, ref_alphas, CTC_RTOL, CTC_ALPHA_ATOL, "paired"),
+              ctc_close("final alpha", final, ref_final, CTC_RTOL, CTC_ALPHA_ATOL, "paired"))
+    k4, _ = ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)
+    live = k4 > ctc.NEG_INF / 2
+    check(torch.equal(live, alphas > ctc.NEG_INF / 2), "paired: live states differ from K4's")
+    k4_err = ctc_close("alphas vs K4", alphas[live], k4[live], CTC_RTOL, CTC_ALPHA_ATOL,
+                       "paired")
+    a, b = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
+    ref = ctc_cuda.ctc_loss(b, logit_len, labels, label_len)
+    ref.sum().backward()
+    ctc_cuda.PAIRED_FWD = True
+    try:
+        loss = ctc_cuda.ctc_loss(a, logit_len, labels, label_len)
+        loss.sum().backward()
+    finally:
+        ctc_cuda.PAIRED_FWD = False
+    loss_err = ctc_close("loss vs K4", loss, ref, PAIRED_LOSS_TOL, PAIRED_LOSS_TOL, "paired")
+    grad_err = ctc_close("gradient vs K4", a.grad, b.grad, PAIRED_GRAD_TOL, PAIRED_GRAD_TOL,
+                         "paired")
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
+    frames = int(logit_len.sum())
+    nbytes = 4 * T * B * S + B * S + 4 * B + 4 * T * B * S + 4 * B * S
+    # A pair of frames a state: the single step (~12 operations), the five
+    # emission weights (~20) and the 5-term log-sum-exp (~14).
+    return {"name": "ctc_alpha_paired", "route": "cuda",
+            "source": "pytorch_asr_tpu_torch/csrc/ctc_alpha_beta.cu",
+            "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:139",
+            "shape": f"logp_tbs ({T}, {B}, {S}) f32, label_len {label_len.tolist()}, "
+                     f"logit_len {logit_len.tolist()}",
+            "max_abs_err": err, "max_abs_err_vs_k4": k4_err, "loss_max_abs_err_vs_k4": loss_err,
+            "grad_max_abs_err_vs_k4": grad_err,
+            "tol": {"rtol": CTC_RTOL, "atol": CTC_ALPHA_ATOL, "loss_vs_k4": PAIRED_LOSS_TOL,
+                    "grad_vs_k4": PAIRED_GRAD_TOL},
+            "ms": time_ms(lambda: ctc_cuda.ctc_alpha_paired(logp_tbs, skip, logit_len)),
+            "k4_ms": time_ms(lambda: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)),
+            "plain_ms": time_ms(lambda: ctc.alphas_paired_plain(logp_tbs, skip, logit_len),
+                                3, 1, 1),
+            "library_ms": time_ms(lambda: F.ctc_loss(lp, labels.long(), logit_len.long(),
+                                                     label_len.long(), reduction="none",
+                                                     zero_infinity=True)),
+            "library": "F.ctc_loss forward (zero_infinity)",
+            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 23 * S * frames / PEAK_FP32_S)))}
+
+
+def train_paired_phase() -> dict:
+    """The paired alpha's main path: ``train.main ctc_bilstm_dev1h`` at full
+    width for a few steps with ``ops.ctc_cuda.PAIRED_FWD`` set in this
+    process (restored after), as the JAX package's switch is set; every step
+    launches the paired alpha and K4's beta, and no unpaired alpha."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["ctc_bilstm_dev1h", "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                f"data.synthetic_num_utts={PAIRED_UTTS}", "data.auto_buckets=1",
+                f"steps={PAIRED_STEPS}", f"train.eval_every={PAIRED_STEPS}",
+                f"train.log_every={PAIRED_STEPS}", f"train.checkpoint_dir={ckpt}"]
+        torch.cuda.synchronize()
+        ctc_cuda.PAIRED_FWD = True
+        try:
+            build.reset_launches()
+            t0 = time.perf_counter()
+            result = train.main(argv)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        finally:
+            ctc_cuda.PAIRED_FWD = False
+    last = result["train"]
+    check(launches.get("ctc_alpha_paired") == PAIRED_STEPS
+          and launches.get("ctc_beta") == PAIRED_STEPS and "ctc_alpha" not in launches,
+          f"paired train launches {launches}")
+    check(last.get("step") == PAIRED_STEPS and math.isfinite(last["ctc_loss"])
+          and math.isfinite(last["grad_norm"]), f"paired train: bad record {last}")
+    return {"record": last, "wall_s": wall, "launches": launches}
+
+
+def study_beam_phase() -> list[dict]:
+    """K13 (tokens carried) and K12 (a launch a frame), K 16, L 256, at two
+    shapes: K7's row shape, config 2's random-weight model logits for 16
+    utterances of 10-16 s, with each row's transcript planted and as they
+    are, the last row cut to no frames; and the benchmark scripts' shape,
+    their seed's (16, 1000, 32) logits, where the best beams fill L (the
+    full-buffer path: appends dropped, dead fillers from full beams, the
+    backtrace capped at L).  Tokens, lengths and scores bit for bit against
+    the plain search, and K12's pointers of every frame and its last state
+    against the plain frames.  Timed beside K7 on the model's logits; K12
+    also by the profiler's device time of its frame kernel."""
+    cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                              "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1"})
+    logits, lens = cfg2_batch_logits(cfg)
+    B2, T, V2 = logits.shape
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    path = transcript_path(batch, lens.cpu(), T).to(CARD)
+    planted = logits.clone()
+    planted.scatter_add_(2, path[..., None], torch.full((B2, T, 1), 4.0, device=CARD))
+    ragged = lens.clone().to(torch.int32)
+    ragged[B2 - 1] = 0
+    bench = bench_beam_compile.DEFAULTS
+    _, bench_logits, bench_lens = _timing.random_logits(
+        int(bench["batches"].split(",")[0]), int(bench["T"]), int(bench["V"]), CARD)
+    kw = dict(beam_size=BEAM_K, max_len=BEAM_L)
+    fns = {"prefix_beam_fused": beam_cuda.prefix_beam_fused,
+           "prefix_beam_stepwise": beam_cuda.prefix_beam_lanes_stepwise}
+    cases = {name: [] for name in fns}
+    for which, lg, ln in (("planted", planted, ragged), ("model", logits, ragged),
+                          ("bench_scripts", bench_logits, bench_lens)):
+        want = prefix_beam.prefix_beam_search_plain(lg, ln, **kw)
+        k7 = prefix_beam.prefix_beam_search(lg, ln, **kw)
+        check(all(torch.equal(a, w) for a, w in zip(k7, want)), f"K7 {which}: differs")
+        full = int((want[1] == BEAM_L).sum())
+        check(which != "bench_scripts" or full > 0, "bench_scripts: no best beam fills L")
+        scratch = {}
+        for name, fn in fns.items():
+            build.reset_launches()
+            got = fn(lg, ln, **kw, **({"scratch": scratch} if name == "prefix_beam_stepwise"
+                                      else {}))
+            torch.cuda.synchronize()
+            n = {k: v for k, v in build.LAUNCHES.items() if v}
+            check(n == {name: 1 if name == "prefix_beam_fused" else lg.shape[1]},
+                  f"{name}: launches {n}")
+            for part, a, w in zip(("tokens", "lengths", "scores"), got, want):
+                check(a.dtype == w.dtype and torch.equal(a, w),
+                      f"{name} {which}: {part} differ from the plain search")
+            if which != "bench_scripts":
+                check(got[1][B2 - 1] == 0 and got[2][B2 - 1] == 0, f"{name}: the empty row")
+            cases[name].append({"logits": which, "shape": list(lg.shape),
+                                "mean_len": got[1].float().mean().item(), "rows_full": full,
+                                "bit_equal": True})
+        steps = prefix_beam.prefix_beam_stepwise_plain(
+            torch.log_softmax(lg.float(), -1), ln, BEAM_K, BEAM_L)
+        for f, w in steps.items():
+            g = scratch[f]
+            if not torch.equal(g, w):
+                bad = (g != w).reshape(g.shape[0], -1, BEAM_K).any(2).any(0).nonzero()
+                check(False, f"K12 {which}: {f} differs from the plain frames"
+                             + (f" from frame {int(bad[0])}" if f in ("parent", "append")
+                                else " after the last frame"))
+        cases["prefix_beam_stepwise"][-1]["pointers_and_state_bit_equal"] = True
+    logp = torch.log_softmax(logits.float(), -1).contiguous()
+    frames, C = int(ragged.sum()), V2 - 1
+    lens32 = ragged.contiguous()
+    search_ops = frames * (12 * BEAM_K * C + 3 * BEAM_K ** 2
+                           + (BEAM_K + BEAM_K * C) * math.log2(BEAM_K))
+    outputs = 4 * B2 * BEAM_L + 8 * B2
+    k7_ms = time_ms(lambda: prefix_beam.prefix_beam_search(logits, ragged, **kw), 5, 4, 1)
+    plain_ms = time_ms(lambda: prefix_beam.beam_scan_plain(logp, lens32, BEAM_K, BEAM_L),
+                       3, 1, 1)
+    out = []
+    for name, line, nbytes, ops in (
+            # K13 reads logp once; its K x L token copy a frame moves shared
+            # memory and is no operation.
+            ("prefix_beam_fused", 313, 4 * V2 * frames + outputs, search_ops),
+            # K12 also reads and writes its 5 state fields a frame and writes
+            # the (B, T, K) pointers.
+            ("prefix_beam_stepwise", 905, 4 * V2 * frames + 40 * BEAM_K * frames
+             + 8 * B2 * T * BEAM_K + outputs, search_ops)):
+        fn = fns[name]
+        ms = time_ms(lambda fn=fn: fn(logits, ragged, **kw), 5, 4, 1)
+        entry = {"name": name, "route": "cuda",
+                 "source": "pytorch_asr_tpu_torch/csrc/prefix_beam_study.cu",
+                 "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
+                 "shape": f"logp ({B2}, {T}, {V2}) f32, lengths {ragged.tolist()}, K {BEAM_K}, "
+                          f"L {BEAM_L}, no LM",
+                 "max_abs_err": 0.0, "tol": "tokens, lengths and scores bit-equal",
+                 "ms": ms, "k7_ms": k7_ms, "plain_ms": plain_ms, "library_ms": None,
+                 "library": "none: no PyTorch call computes a prefix beam search",
+                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops / PEAK_FP32_S))),
+                 "cases": cases[name]}
+        if name == "prefix_beam_stepwise":
+            entry["ms_per_frame"] = ms / T
+            entry["frame_kernel_device_ms"] = device_ms_per_call(
+                lambda: fn(logits, ragged, **kw), "beam_step_kernel", calls=3) / T
+        out.append(entry)
+    return out
+
+
+def bench_scripts_phase() -> dict:
+    """K13's and K12's main paths: the ported benchmark scripts in this
+    process at their default widths (B 16, T 1000, K 16, V 32) with one
+    timed call an arm, ``bench_prefix_beam fused=1 hashed=0`` and
+    ``bench_beam_compile stepwise=1 batches=16``, each with the counters set
+    to 0 just before and read just after: K13 once a call, K12 T a call.
+    ``study_beam_phase`` holds both kernels to the plain search on the
+    scripts' own logits."""
+    out = {}
+    for name, main, argv, kernel, per_frame in (
+            ("bench_prefix_beam", bench_prefix_beam.main, ["fused=1", "iters=1", "hashed=0"],
+             "prefix_beam_fused", False),
+            ("bench_beam_compile", bench_beam_compile.main,
+             ["stepwise=1", "batches=16", "iters=1"], "prefix_beam_stepwise", True)):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = main(argv)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        want = res["calls_per_arm"] * (res["T"] if per_frame else 1)
+        check(launches.get(kernel) == want,
+              f"{name}: {kernel} launched {launches.get(kernel)} times, not {want}")
+        check(all(math.isfinite(a["ms"]) and a["ms"] > 0 for a in res["arms"].values()),
+              f"{name}: bad timings {res['arms']}")
+        out[name] = {**res, "argv": argv, "wall_s": wall, "launches": launches}
+    return out
 
 
 def slice_phase(config: str = "ctc_bilstm_dev1h") -> dict:
@@ -1748,7 +2150,7 @@ def main() -> int:
     t_start = time.perf_counter()
     t0 = time.perf_counter()
     logs = build.build(["stft_log_mel", "lstm_seq", "ctc_alpha_beta", "prefix_beam",
-                       "tcn_block"])
+                       "tcn_block", "prefix_beam_study"])
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1762,8 +2164,10 @@ def main() -> int:
     print(f"rnn_lm: {lm_record['wall_s']:.1f} s (set-up), {LM_STEPS} steps, "
           f"nll {lm_record['nll']:.4f}")
 
+    bilstm, bilstm_launches = bilstm_phase()
     kernels = [stft_phase(), lstm_phase(), *lstm_train_phase(), *ctc_phase(),
-               *beam_phase(arpa), *rnn_beam_phase(rnn_lm), *tcn_phase(), merge_phase(arpa)]
+               *beam_phase(arpa), *rnn_beam_phase(rnn_lm), *tcn_phase(), merge_phase(arpa),
+               *bilstm, ctc_paired_phase(), *study_beam_phase()]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
@@ -1808,19 +2212,34 @@ def main() -> int:
               f"decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "
               f"exchange_share {res['exchange_share_of_batches']:.3f}")
     print(f"sharded_decode: {time.perf_counter() - t0:.1f} s")
+    trn_paired = train_paired_phase()
+    print("train_paired:", json.dumps(trn_paired))
+    t0 = time.perf_counter()
+    scripts = bench_scripts_phase()
+    print("bench_scripts:", json.dumps(scripts))
+    print(f"bench_scripts: {time.perf_counter() - t0:.1f} s")
     # Each kernel is held to the main path that runs it: K7, K8 and K9 to
     # the config-2 serving paths, K5 to config 3's serving path, K6 to config
-    # 3's training path, the rest to config 1's training path (which runs
-    # K2 in its eval); every path's count is printed.
+    # 3's training path, K10 to the sharded decode; K11 to its op's own path
+    # (no model calls it, as in the JAX package), the paired alpha to config
+    # 1's training with PAIRED_FWD set, K13 and K12 to the benchmark scripts
+    # that reach them; the rest to config 1's training path (which runs K2
+    # in its eval); every path's count is printed.
     paths = {"train": trn["launches"], "decode": dec["launches"],
              **{p: r["launches"] for p, r in beam_dec.items()},
              "tcn_decode": tcn_dec["launches"], "tcn_train": tcn_trn["launches"],
              **{f"sharded_{p}": sharded[p]["launches_rank0"]
-                for p in ("model2", "data2_model2", "rnn_model4")}}
+                for p in ("model2", "data2_model2", "rnn_model4")},
+             "bilstm": bilstm_launches, "train_paired": trn_paired["launches"],
+             **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")}}
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
                 "tcn_block": "tcn_decode", "tcn_block_train_fwd": "tcn_train",
-                "tcn_block_bwd": "tcn_train", "merge_topk": "sharded_model2"}
+                "tcn_block_bwd": "tcn_train", "merge_topk": "sharded_model2",
+                "bilstm_seq": "bilstm", "bilstm_seq_train_fwd": "bilstm",
+                "bilstm_seq_bwd": "bilstm", "ctc_alpha_paired": "train_paired",
+                "prefix_beam_fused": "bench_prefix_beam",
+                "prefix_beam_stepwise": "bench_beam_compile"}
     for k in kernels:
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         own = own_path.get(k["name"], "train")

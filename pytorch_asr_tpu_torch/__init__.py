@@ -11,5 +11,10 @@ with hand-written CUDA kernels in ``csrc/``: the STFT log-mel frontend, the
 LSTM sequence (inference, and training forward and backward), the CTC alpha
 and beta recursions, the whole prefix beam search of an utterance (with the
 RNN LM advanced inside it), and the fused TCN block (inference, and training
-forward and backward).
+forward and backward).  Also ported, with the entry points that reach them in
+the JAX package: its measured design studies, a BiLSTM layer's two directions
+in one launch (``ops.lstm_cuda.bilstm_seq``), the CTC alpha two frames an
+iteration (``ops.ctc_cuda.PAIRED_FWD``), and two more designs of the beam
+search (``ops.beam_cuda.prefix_beam_fused``, ``prefix_beam_lanes_stepwise``)
+with the benchmark scripts that run them (``scripts/``).
 """

@@ -1,5 +1,6 @@
 // One LSTM direction over a padded batch, for Hopper (sm_90a), CUDA C++:
-// the inference forward (K2), and the training forward and backward (K3).
+// the inference forward (K2), and the training forward and backward (K3);
+// and both directions of a BiLSTM layer in one launch (K11).
 //
 // Replaces: pytorch_asr_tpu/ops/lstm_pallas.py::lstm_seq.
 //   lstm_seq_fwd        inference forward (_fwd_impl with save_residuals=False,
@@ -7,6 +8,10 @@
 //   lstm_seq_train_fwd  training forward (_fwd_impl(save_residuals=True),
 //                       the residual writes of _fwd_kernel);
 //   lstm_seq_bwd        backward (_vjp_bwd -> _bwd_kernel).
+// And pytorch_asr_tpu/ops/lstm_pallas.py:703 bilstm_seq (K11):
+//   bilstm_seq_fwd, bilstm_seq_train_fwd  _dual_fwd_impl :722 (_fwd_kernel_dual
+//                       :495), without and with residuals;
+//   bilstm_seq_bwd      _dual_vjp_bwd :822 (_bwd_kernel_dual :571).
 // Python side: ops/lstm_cuda.py.
 //
 // Computes, for x (B, T, D) in fp32 or bf16, wih (D, 4H) in x's type, whh
@@ -56,6 +61,20 @@
 // whh from L2.  This keeps only B of the card's SMs busy.  Later work: spread
 // whh over a cluster's shared memory so each step reads it from shared
 // memory, and run the products on tensor cores.
+//
+// K11 runs the two directions of a layer (weights stacked (2, ...): forward,
+// then reverse) as the two rows of one grid, (B, 2): the recurrence kernels
+// gain a direction, blockIdx.y, under a template flag (kDual), so K2's and
+// K3's own instances keep their code.  Direction d reads its projection, its
+// whh and its residuals, and writes columns [d H, (d + 1) H) of the (B, T, 2H)
+// output.  The input projections are K2's GEMM, once a direction.  The
+// backward runs both directions' recurrences in one launch, then K3's
+// products for each direction, and dx = dx_f + dx_b, each half in x's type
+// (as the JAX kernel writes dxf and dxb in x's type and sums them).  Every
+// value is computed by the same instructions as two K2 (K3) launches, so
+// K11 equals them bit for bit; what it changes is that the two directions'
+// B blocks run side by side on the card's 132 SMs instead of one launch
+// after the other.  Bound as K2/K3: twice their operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,7 +192,9 @@ __device__ void fill_invalid_residuals(const float* xproj_b, const float* whh, c
 // One block per utterance carries h and c in shared memory across all steps
 // (GPU blocks run in no order, so the TPU grid's carry across sequential grid
 // steps becomes a loop inside the block).  kSave adds the training residuals.
-template <typename OutT, typename ResT, bool kSave>
+// kDual (K11): direction blockIdx.y of a BiLSTM layer; xproj (2, B, T, 4H),
+// whh (2, H, 4H), out (B, T, 2H), acts (2, T, B, 4H), ct (2, T, B, H).
+template <typename OutT, typename ResT, bool kSave, bool kDual = false>
 __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
     const float* __restrict__ xproj, const float* __restrict__ whh,
     const int* __restrict__ lengths, OutT* __restrict__ out, ResT* __restrict__ acts,
@@ -185,15 +206,32 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
   const int b = blockIdx.x;
   const int G = 4 * H;
   const int len = max(0, min(lengths[b], T));
+  if constexpr (kDual) {
+    const int dir = blockIdx.y;
+    reverse = dir;
+    xproj += (size_t)dir * B * T * G;
+    whh += (size_t)dir * H * G;
+    out += (size_t)dir * H;
+    if constexpr (kSave) {
+      acts += (size_t)dir * T * B * G;
+      ct += (size_t)dir * T * B * H;
+    }
+  }
+  constexpr int kRows = kDual ? 2 : 1;  // output row stride, in H
   const float* xproj_b = xproj + (size_t)b * T * G;
-  OutT* ob = out + (size_t)b * T * H;
+  OutT* ob = out + (size_t)b * T * H * kRows;
 
   for (int k = threadIdx.x; k < H; k += blockDim.x) {
     h[k] = 0.f;
     c[k] = 0.f;
   }
-  for (size_t i = (size_t)len * H + threadIdx.x; i < (size_t)T * H; i += blockDim.x)
-    ob[i] = from_f32<OutT>(0.f);
+  if constexpr (kDual) {
+    for (size_t i = (size_t)len * H + threadIdx.x; i < (size_t)T * H; i += blockDim.x)
+      ob[i / H * 2 * H + i % H] = from_f32<OutT>(0.f);
+  } else {
+    for (size_t i = (size_t)len * H + threadIdx.x; i < (size_t)T * H; i += blockDim.x)
+      ob[i] = from_f32<OutT>(0.f);
+  }
   __syncthreads();
   // The reverse direction meets its invalid steps first, from zeros.
   if constexpr (kSave) {
@@ -213,7 +251,7 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
       const float hn = og * tanhf(cn);
       c[k] = cn;
       h[k] = hn;
-      ob[(size_t)t * H + k] = from_f32<OutT>(hn);
+      ob[(size_t)t * H * kRows + k] = from_f32<OutT>(hn);
       if constexpr (kSave) {
         ResT* a = acts + ((size_t)t * B + b) * G;
         a[k] = from_f32<ResT>(ig);
@@ -230,7 +268,9 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
   }
 }
 
-template <typename ResT>
+// kDual (K11): direction blockIdx.y; gy (B, T, 2H), acts (2, T, B, 4H), ct
+// (2, T, B, H), whh (2, H, 4H), dgates (2, B, T, 4H), hprev (2, B, T, H).
+template <typename ResT, bool kDual = false>
 __global__ void __launch_bounds__(1024) lstm_bwd_recurrence_kernel(
     const float* __restrict__ gy, const ResT* __restrict__ acts, const ResT* __restrict__ ct,
     const float* __restrict__ whh, const int* __restrict__ lengths,
@@ -242,6 +282,17 @@ __global__ void __launch_bounds__(1024) lstm_bwd_recurrence_kernel(
   const int b = blockIdx.x;
   const int G = 4 * H;
   const int len = max(0, min(lengths[b], T));
+  if constexpr (kDual) {
+    const int dir = blockIdx.y;
+    reverse = dir;
+    gy += (size_t)dir * H;
+    acts += (size_t)dir * T * B * G;
+    ct += (size_t)dir * T * B * H;
+    whh += (size_t)dir * H * G;
+    dgates += (size_t)dir * B * T * G;
+    hprev += (size_t)dir * B * T * H;
+  }
+  constexpr int kRows = kDual ? 2 : 1;  // gy's row stride, in H
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
 
   for (int k = threadIdx.x; k < H; k += blockDim.x) {
@@ -267,7 +318,7 @@ __global__ void __launch_bounds__(1024) lstm_bwd_recurrence_kernel(
       const float tanh_c = tanhf(to_f32(ct[((size_t)t * B + b) * H + k]));
       const float c_prev = has_prev ? to_f32(ct[((size_t)tp * B + b) * H + k]) : 0.f;
       const float h_prev = has_prev ? to_f32(ap[3 * H + k]) * tanhf(c_prev) : 0.f;
-      const float dh_tot = dh[k] + gy[((size_t)b * T + t) * H + k];
+      const float dh_tot = dh[k] + gy[((size_t)b * T + t) * H * kRows + k];
       const float d_o = dh_tot * tanh_c;
       const float dc_tot = dc[k] + dh_tot * og * (1.f - tanh_c * tanh_c);
       dg[k] = dc_tot * gg * ig * (1.f - ig);
@@ -319,45 +370,45 @@ cudaError_t projection(const void* x, const void* wih, const float* bias, float*
                  : gemm<float, float, float>(x, D, 1, wih, G, 1, bias, xproj, M, G, D, st);
 }
 
-template <typename OutT, typename ResT, bool kSave>
+template <typename OutT, typename ResT, bool kSave, bool kDual = false>
 cudaError_t recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
                        void* acts, void* ct, int B, int T, int H, int reverse, cudaStream_t st) {
   const size_t smem = (size_t)6 * H * sizeof(float);
-  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave>;
+  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave, kDual>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = 2 * H >= 1024 ? 1024 : (2 * H + 31) / 32 * 32;
-  kernel<<<B, threads, smem, st>>>(xproj, whh, lengths, static_cast<OutT*>(out),
-                                   static_cast<ResT*>(acts), static_cast<ResT*>(ct), T, B, H,
-                                   reverse);
+  kernel<<<dim3(B, kDual ? 2 : 1), threads, smem, st>>>(
+      xproj, whh, lengths, static_cast<OutT*>(out), static_cast<ResT*>(acts),
+      static_cast<ResT*>(ct), T, B, H, reverse);
   return cudaGetLastError();
 }
 
-template <typename OutT>
+template <typename OutT, bool kDual = false>
 cudaError_t train_recurrence(const float* xproj, const float* whh, const int* lengths,
                              void* out, void* acts, void* ct, int B, int T, int H, int reverse,
                              int res_bf16, cudaStream_t st) {
-  return res_bf16 ? recurrence<OutT, bf16, true>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                                 reverse, st)
-                  : recurrence<OutT, float, true>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                                  reverse, st);
+  return res_bf16 ? recurrence<OutT, bf16, true, kDual>(xproj, whh, lengths, out, acts, ct, B,
+                                                        T, H, reverse, st)
+                  : recurrence<OutT, float, true, kDual>(xproj, whh, lengths, out, acts, ct, B,
+                                                         T, H, reverse, st);
 }
 
-template <typename ResT>
+template <typename ResT, bool kDual = false>
 cudaError_t bwd_recurrence(const float* gy, const void* acts, const void* ct,
                            const float* whh, const int* lengths, float* dgates, float* hprev,
                            int B, int T, int H, int reverse, cudaStream_t st) {
   const size_t smem = (size_t)6 * H * sizeof(float);
-  auto kernel = lstm_bwd_recurrence_kernel<ResT>;
+  auto kernel = lstm_bwd_recurrence_kernel<ResT, kDual>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int threads = (4 * H + 31) / 32 * 32;
   threads = threads > 1024 ? 1024 : threads;
-  kernel<<<B, threads, smem, st>>>(gy, static_cast<const ResT*>(acts),
-                                   static_cast<const ResT*>(ct), whh, lengths, dgates, hprev,
-                                   T, B, H, reverse);
+  kernel<<<dim3(B, kDual ? 2 : 1), threads, smem, st>>>(
+      gy, static_cast<const ResT*>(acts), static_cast<const ResT*>(ct), whh, lengths, dgates,
+      hprev, T, B, H, reverse);
   return cudaGetLastError();
 }
 
@@ -376,6 +427,48 @@ cudaError_t bwd_products(const float* dgates, const float* hprev, const void* x,
   err = gemm<float, float, float>(hprev, 1, H, dgates, G, 1, nullptr, dwhh, H, G, M, st);
   if (err != cudaSuccess) return err;
   column_sum_kernel<<<(G + 255) / 256, 256, 0, st>>>(dgates, db, M, G);
+  return cudaGetLastError();
+}
+
+// K11: out[i] = half[i] + half[n + i], in the type of x (dx = dx_f + dx_b).
+template <typename T>
+__global__ void add_halves_kernel(const T* __restrict__ halves, T* __restrict__ out, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = from_f32<T>(to_f32(halves[i]) + to_f32(halves[n + i]));
+}
+
+// K11's input projections: K2's GEMM once a direction, into xproj (2, B*T, 4H).
+cudaError_t dual_projection(const void* x, const void* wih, const float* bias, float* xproj,
+                            int M, int D, int G, int in_bf16, cudaStream_t st) {
+  const size_t w_bytes = (size_t)D * G * (in_bf16 ? sizeof(bf16) : sizeof(float));
+  for (int d = 0; d < 2; ++d) {
+    const cudaError_t err =
+        projection(x, static_cast<const char*>(wih) + d * w_bytes, bias + (size_t)d * G,
+                   xproj + (size_t)d * M * G, M, D, G, in_bf16, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// K11's products: K3's for each direction, dx of each into its half of
+// dx2 (2, M, D), then dx = dx2[0] + dx2[1].
+template <typename InT>
+cudaError_t dual_bwd_products(const float* dgates, const float* hprev, const void* x,
+                              const void* wih, void* dx2, void* dx, void* dwih, float* dwhh,
+                              float* db, int M, int D, int H, cudaStream_t st) {
+  const int G = 4 * H;
+  for (int d = 0; d < 2; ++d) {
+    const cudaError_t err = bwd_products<InT>(
+        dgates + (size_t)d * M * G, hprev + (size_t)d * M * H, x,
+        static_cast<const InT*>(wih) + (size_t)d * D * G,
+        static_cast<InT*>(dx2) + (size_t)d * M * D,
+        static_cast<InT*>(dwih) + (size_t)d * D * G, dwhh + (size_t)d * H * G,
+        db + (size_t)d * G, M, D, H, st);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t n = (size_t)M * D;
+  add_halves_kernel<InT><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const InT*>(dx2), static_cast<InT*>(dx), n);
   return cudaGetLastError();
 }
 
@@ -432,4 +525,59 @@ extern "C" int lstm_seq_bwd(const float* gy, const void* x, const void* wih, con
   return in_bf16 ? bwd_products<bf16>(dgates, hprev, x, wih, dx, dwih, dwhh, db, B * T, D, H, st)
                  : bwd_products<float>(dgates, hprev, x, wih, dx, dwih, dwhh, db, B * T, D, H,
                                        st);
+}
+
+// K11, inference forward: both directions of a BiLSTM layer.  wih (2, D, 4H)
+// in x's type, whh (2, H, 4H) and bias (2, 4H) fp32 ([forward, reverse]);
+// xproj (2, B, T, 4H) fp32 scratch; out (B, T, 2H) = [forward | reverse].
+extern "C" int bilstm_seq_fwd(const void* x, const void* wih, const float* whh,
+                              const float* bias, const int* lengths, float* xproj, void* out,
+                              int B, int T, int D, int H, int in_bf16, int out_bf16,
+                              void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
+  if (err != cudaSuccess) return err;
+  return out_bf16 ? recurrence<bf16, float, false, true>(xproj, whh, lengths, out, nullptr,
+                                                         nullptr, B, T, H, 0, st)
+                  : recurrence<float, float, false, true>(xproj, whh, lengths, out, nullptr,
+                                                          nullptr, B, T, H, 0, st);
+}
+
+// K11, training forward: as bilstm_seq_fwd, plus each direction's residuals,
+// acts (2, T, B, 4H) and ct (2, T, B, H), in bf16 when res_bf16, else fp32.
+extern "C" int bilstm_seq_train_fwd(const void* x, const void* wih, const float* whh,
+                                    const float* bias, const int* lengths, float* xproj,
+                                    void* out, void* acts, void* ct, int B, int T, int D, int H,
+                                    int in_bf16, int out_bf16, int res_bf16, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
+  if (err != cudaSuccess) return err;
+  return out_bf16 ? train_recurrence<bf16, true>(xproj, whh, lengths, out, acts, ct, B, T, H, 0,
+                                                 res_bf16, st)
+                  : train_recurrence<float, true>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                                  0, res_bf16, st);
+}
+
+// K11, backward.  gy (B, T, 2H) fp32; dgates (2, B, T, 4H), hprev (2, B, T,
+// H) fp32 and dx2 (2, B, T, D) in x's type: scratch; dx (B, T, D) in x's
+// type, dwih (2, D, 4H) in wih's type, dwhh (2, H, 4H) and db (2, 4H) fp32.
+extern "C" int bilstm_seq_bwd(const float* gy, const void* x, const void* wih,
+                              const float* whh, const int* lengths, const void* acts,
+                              const void* ct, float* dgates, float* hprev, void* dx2, void* dx,
+                              void* dwih, float* dwhh, float* db, int B, int T, int D, int H,
+                              int in_bf16, int res_bf16, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      res_bf16 ? bwd_recurrence<bf16, true>(gy, acts, ct, whh, lengths, dgates, hprev, B, T, H,
+                                            0, st)
+               : bwd_recurrence<float, true>(gy, acts, ct, whh, lengths, dgates, hprev, B, T, H,
+                                             0, st);
+  if (err != cudaSuccess) return err;
+  return in_bf16 ? dual_bwd_products<bf16>(dgates, hprev, x, wih, dx2, dx, dwih, dwhh, db,
+                                           B * T, D, H, st)
+                 : dual_bwd_products<float>(dgates, hprev, x, wih, dx2, dx, dwih, dwhh, db,
+                                            B * T, D, H, st);
 }

@@ -333,6 +333,55 @@ def _finish_step(state: BeamState, f: dict, active, L: int) -> BeamState:
                        for n, o in zip(new, state)))
 
 
+def stepwise_frame_plain(fields: dict, logp_t: torch.Tensor, active: torch.Tensor,
+                         max_len: int) -> dict:
+    """One frame of the search with no LM on the state ``fields``, (B, K)
+    pb, pnb, hash, last and length: ``_step``'s candidates and merge and
+    ``_finish_step``'s freeze, plus the frame's pointers parent and append
+    (the identity and -1 on rows past their length).  One frame of K12
+    (``ops/beam_cuda.py::prefix_beam_lanes_stepwise``)."""
+    B, K = fields["pb"].shape
+    zeros = torch.zeros((B, K), dtype=torch.int32, device=logp_t.device)
+    state = BeamState(tokens=torch.zeros((B, K, max_len), dtype=torch.int32,
+                                         device=logp_t.device),
+                      length=fields["length"], pb=fields["pb"], pnb=fields["pnb"],
+                      lm_s=torch.zeros_like(fields["pb"]), hash=fields["hash"], ctx=zeros,
+                      last=fields["last"])
+    stay, ext = _build_candidates(state, logp_t, blank=0, vocab=logp_t.shape[1], lm_table=None,
+                                  lm_rows=None, lm_alpha=0.0, lm_beta=0.0, K=K, L=max_len)
+    _, f = _merge_topk(stay, ext, K)
+    new = _finish_step(state, f, active, max_len)
+    keep = active[:, None]
+    return {"pb": new.pb, "pnb": new.pnb, "hash": new.hash, "last": new.last,
+            "length": new.length,
+            "parent": torch.where(keep, f["parent"], torch.arange(K, dtype=torch.int32,
+                                                                  device=logp_t.device)),
+            "append": torch.where(keep, f["append"], -1)}
+
+
+def prefix_beam_stepwise_plain(logp: torch.Tensor, lens: torch.Tensor, K: int,
+                               L: int) -> dict:
+    """``stepwise_frame_plain`` over every frame of ``logp`` (B, T, V) from
+    the initial beams: the state after the last frame ((B, K) pb, pnb, hash,
+    last, length) and each frame's pointers ((B, T, K) parent, append), what
+    K12 leaves in its scratch."""
+    B, T, _ = logp.shape
+    k = torch.arange(K, device=logp.device)
+    fields = {"pb": torch.where(k == 0, 0.0, NEG_INF).expand(B, K).contiguous(),
+              "pnb": torch.full((B, K), NEG_INF, device=logp.device),
+              "hash": (-(k + 1)).to(torch.int32).expand(B, K).contiguous(),
+              "last": torch.full((B, K), -1, dtype=torch.int32, device=logp.device),
+              "length": torch.zeros((B, K), dtype=torch.int32, device=logp.device)}
+    parents, appends = [], []
+    for t in range(T):
+        fields = stepwise_frame_plain(fields, logp[:, t], t < lens, L)
+        parents.append(fields.pop("parent"))
+        appends.append(fields.pop("append"))
+    empty = torch.empty((B, 0, K), dtype=torch.int32, device=logp.device)
+    return {**fields, "parent": torch.stack(parents, 1) if T else empty,
+            "append": torch.stack(appends, 1) if T else empty}
+
+
 def top_a(logp: torch.Tensor, A: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Each frame's A best chars (values f32, ids int32), ties to the lower id."""
     vals, ids = torch.sort(logp, dim=-1, descending=True, stable=True)

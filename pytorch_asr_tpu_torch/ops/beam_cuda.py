@@ -7,10 +7,15 @@ optional dense n-gram table (``prefix_beam``), and of
 ``prefix_beam_fused_lanes_topa_rnn`` (K9, either search fused with the char
 LSTM LM, advanced inside the kernel: ``prefix_beam_rnn``), and of
 ``merge_topk_fused`` (K10, one frame's merge and top-K for the beam-sharded
-search: ``merge_topk``).  Each wrapper takes its plain version
-(``decoding/prefix_beam.py::beam_scan_plain``, ``::_merge_topk``) for CPU
-tensors and launches its kernel for CUDA tensors; there is no other switch
-and no fallback.
+search: ``merge_topk``).  And, from ``csrc/prefix_beam_study.cu``, two more
+designs of the search without an LM, kept in the JAX package as measured
+studies and reached only by its benchmark scripts: ``prefix_beam_fused``
+(K13, the tokens carried in the block) and ``prefix_beam_lanes_stepwise``
+(K12, one launch a frame), with the JAX names and arguments, logits in.
+Each wrapper takes its plain version (``decoding/prefix_beam.py::
+beam_scan_plain``, ``::_merge_topk``, ``::prefix_beam_stepwise_plain``) for
+CPU tensors and launches its kernel for CUDA tensors; there is no other
+switch and no fallback.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
                "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6 + [_F, _F, _P, _P],
                "merge_topk": [_P] * 22 + [_I] * 4 + [_P]}
+_STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P],
+                     "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P]}
 MAX_SMEM = 232448    # the dynamic shared memory a Hopper block may use
 MAX_BEAM = 1024      # picks are held one a thread
 MAX_LM_LAYERS = 8    # the kernel's RnnLm holds this many layers' pointers
@@ -255,3 +262,117 @@ def merge_topk(stay: dict, ext: dict, K: int):
         B, Ks, nb, K, torch.cuda.current_stream(dev).cuda_stream), "merge_topk")
     build.LAUNCHES["merge_topk"] += 1
     return score, out
+
+
+# ------------------------------------------------- K12, K13: csrc/prefix_beam_study.cu
+
+
+def _frame_smem_bytes(K: int, V: int) -> int:
+    """One frame's scratch in ``csrc/prefix_beam_study.cu``: keys, warp
+    maxima, candidates and the row, absorbed flags."""
+    KC = K * (V - 1)
+    return 8 * (K + KC) + 512 + 4 * (2 * K + KC + V) + KC
+
+
+def fused_smem_bytes(K: int, V: int, L: int) -> int:
+    """Shared memory of one K13 block: the frame's, the double-buffered beam
+    fields and token buffers (2, K, L) int32, and each pick's parent,
+    append and parent length."""
+    return _frame_smem_bytes(K, V) + 4 * (13 * K + 2 * K * L)
+
+
+def step_smem_bytes(K: int, V: int) -> int:
+    """Shared memory of one K12 block: the frame's and its row's state."""
+    return _frame_smem_bytes(K, V) + 4 * 5 * K
+
+
+def _study_inputs(name: str, logits, logit_len, blank: int, K: int, L: int):
+    """(logp, lens) for K12/K13: log-softmax first, as the JAX functions do;
+    on the card, checked as ``_check_study`` checks them."""
+    plain._check_sources(blank, None, None, None)
+    logp = torch.log_softmax(logits.float(), dim=-1).contiguous()
+    lens = logit_len.to(torch.int32).contiguous()
+    if logp.device.type != "cpu":
+        _check_study(name, logp, lens, K, L)
+    return logp, lens
+
+
+def _check_study(name: str, logp, lens, K: int, L: int) -> None:
+    B, T, V = logp.shape
+    if tuple(lens.shape) != (B,) or lens.device != logp.device:
+        raise ValueError(f"{name}: logit_len must be ({B},) on {logp.device}")
+    if V < 2 or not 1 <= K <= MAX_BEAM or L < 0:
+        raise ValueError(f"{name}: vocabulary {V} >= 2, beam_size {K} in 1..{MAX_BEAM} and "
+                         f"max_len {L} >= 0 are needed")
+    need = fused_smem_bytes(K, V, L) if name == "prefix_beam_fused" else step_smem_bytes(K, V)
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: beam {K} x vocabulary {V} (max_len {L}) needs {need} bytes "
+                         f"of shared memory, more than a block's {MAX_SMEM}")
+
+
+def _outputs(B: int, L: int, dev):
+    return (torch.empty((B, L), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.float32, device=dev))
+
+
+def prefix_beam_fused(logits: torch.Tensor, logit_len: torch.Tensor, beam_size: int = 16,
+                      blank: int = 0, max_len: int = 256):
+    """CTC prefix beam search without an LM in one launch, each beam's
+    tokens carried in the block (K13).  ``logits`` (B, T, V) are
+    log-softmaxed first.  Returns (tokens (B, max_len) int32, lengths (B,)
+    int32, scores (B,) float32) of the best beam of each row, those of
+    ``decoding.prefix_beam.beam_scan_plain``."""
+    K, L = beam_size, max_len
+    logp, lens = _study_inputs("prefix_beam_fused", logits, logit_len, blank, K, L)
+    if logp.device.type == "cpu":
+        return plain.beam_scan_plain(logp, lens, K, L)
+    B, T, V = logp.shape
+    tokens, lengths, scores = _outputs(B, L, logp.device)
+    lib = build.load("prefix_beam_study", _STUDY_SIGNATURES)
+    build.check(lib.prefix_beam_fused(
+        logp.data_ptr(), lens.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
+        scores.data_ptr(), B, T, V, K, L, torch.cuda.current_stream(logp.device).cuda_stream),
+        "prefix_beam_fused")
+    build.LAUNCHES["prefix_beam_fused"] += 1
+    return tokens, lengths, scores
+
+
+_FIELDS = ("pb", "pnb", "hash", "last", "length")
+
+
+def prefix_beam_lanes_stepwise(logits: torch.Tensor, logit_len: torch.Tensor,
+                               beam_size: int = 16, blank: int = 0, max_len: int = 256,
+                               scratch: dict | None = None):
+    """CTC prefix beam search without an LM as one launch a frame (K12): the
+    (B, K) state lives in device memory between the T launches, which one
+    call queues on one stream, and each frame writes its (parent, append)
+    pointers; a backtrace kernel then reads the best beam's tokens.
+    ``logits`` (B, T, V) are log-softmaxed first.  Returns what
+    ``prefix_beam_fused`` returns.  A ``scratch`` dict receives the state
+    after the last frame ((B, K) pb, pnb, hash, last, length) and every
+    frame's pointers ((B, T, K) parent, append), those of
+    ``decoding.prefix_beam.prefix_beam_stepwise_plain``."""
+    K, L = beam_size, max_len
+    logp, lens = _study_inputs("prefix_beam_stepwise", logits, logit_len, blank, K, L)
+    if logp.device.type == "cpu":
+        if scratch is not None:
+            scratch.update(plain.prefix_beam_stepwise_plain(logp, lens, K, L))
+        return plain.beam_scan_plain(logp, lens, K, L)
+    B, T, V = logp.shape
+    dev = logp.device
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    state = {f: torch.empty((B, K), **(f32 if f in ("pb", "pnb") else i32)) for f in _FIELDS}
+    parents = torch.empty((B, T, K), **i32)
+    appends = torch.empty_like(parents)
+    tokens, lengths, scores = _outputs(B, L, dev)
+    lib = build.load("prefix_beam_study", _STUDY_SIGNATURES)
+    build.check(lib.prefix_beam_stepwise(
+        logp.data_ptr(), lens.data_ptr(), *(state[f].data_ptr() for f in _FIELDS),
+        parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
+        scores.data_ptr(), B, T, V, K, L, torch.cuda.current_stream(dev).cuda_stream),
+        "prefix_beam_stepwise")
+    build.LAUNCHES["prefix_beam_stepwise"] += T
+    if scratch is not None:
+        scratch.update(state, parent=parents, append=appends)
+    return tokens, lengths, scores

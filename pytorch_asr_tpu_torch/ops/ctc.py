@@ -116,6 +116,63 @@ def alphas_plain(logp_tbs: torch.Tensor, skip: torch.Tensor,
     return torch.stack(alphas), alpha
 
 
+def logsumexp5(a, b, c, d, e) -> torch.Tensor:
+    """log(e^a + ... + e^e) with the reference's sentinel clamps."""
+    m = torch.clamp(torch.maximum(torch.maximum(torch.maximum(a, b), torch.maximum(c, d)), e),
+                    min=NEG_INF)
+    tot = m + torch.log(torch.exp(a - m) + torch.exp(b - m) + torch.exp(c - m)
+                        + torch.exp(d - m) + torch.exp(e - m))
+    return torch.clamp(tot, min=NEG_INF)
+
+
+def alphas_paired_plain(logp_tbs: torch.Tensor, skip: torch.Tensor,
+                        logit_len: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The alpha recursion two frames an iteration, the plain version of the
+    paired kernel (``pytorch_asr_tpu/ops/ctc_pallas.py::_fwd_kernel_paired``).
+
+    One step is A_t(x)[s] = lse(x[s], x[s-1], x[s-2] + K[s]) + P_t[s], K the
+    additive skip mask (0 or NEG_INF).  Two composed,
+    A_{t+1}(A_t(x))[s] = P_{t+1}[s] + lse_{m=0..4}(x[s-m] + W_m[s]) with the
+    emission-only weights W_0 = P_t[s], W_1 = lse(P_t[s], P_t[s-1]),
+    W_2 = lse(P_t[s] + K[s], P_t[s-1], P_t[s-2] + K[s]),
+    W_3 = lse(P_t[s-1] + K[s-1], P_t[s-2] + K[s]), W_4 = P_t[s-2] + K[s] + K[s-2].
+    Each pair also computes the single step a1 (stored at t; the output of
+    rows whose length ends mid-pair), and the t = 0 pair applies the second
+    step to alpha_0.  Every step is floored at NEG_INF, as in the JAX kernel.
+    Same returns as ``alphas_plain``; the values agree with it to float32
+    rounding (the composed sum rounds in another order).  An odd T is padded
+    with one NEG_INF frame, as the JAX kernel pads T to its time chunk.
+    """
+    T, B, S = logp_tbs.shape
+    lp = logp_tbs if T % 2 == 0 else torch.cat([logp_tbs, torch.full_like(logp_tbs[:1],
+                                                                          NEG_INF)])
+    lens = logit_len.to(lp.device)[:, None]
+    k0 = torch.where(skip, 0.0, NEG_INF).to(torch.float32)
+    k1, k2 = shift_right(k0, 1), shift_right(k0, 2)
+    first = torch.arange(S, device=lp.device)[None, :] < 2
+    alpha = torch.full((B, S), NEG_INF, dtype=torch.float32, device=lp.device)
+    alphas = []
+    for t in range(0, lp.shape[0], 2):
+        p0, p1 = lp[t], lp[t + 1]
+        p0s1, p0s2 = shift_right(p0, 1), shift_right(p0, 2)
+        w0 = p0
+        w1 = torch.logaddexp(p0, p0s1)
+        w2 = logsumexp3(p0 + k0, p0s1, p0s2 + k0)
+        w3 = torch.logaddexp(p0s1 + k1, p0s2 + k0)
+        w4 = p0s2 + k0 + k2
+        x1, x2 = shift_right(alpha, 1), shift_right(alpha, 2)
+        a1n = torch.clamp(logsumexp3(alpha, x1, x2 + k0) + p0, min=NEG_INF)
+        alpha0 = torch.where(first, p0, NEG_INF)
+        a1 = alpha0 if t == 0 else torch.where(t < lens, a1n, alpha)
+        a2 = torch.clamp(logsumexp5(alpha + w0, x1 + w1, x2 + w2, shift_right(alpha, 3) + w3,
+                                    shift_right(alpha, 4) + w4) + p1, min=NEG_INF)
+        t0_out = torch.clamp(logsumexp3(alpha0, shift_right(alpha0, 1),
+                                        shift_right(alpha0, 2) + k0) + p1, min=NEG_INF)
+        alpha = torch.where(t + 1 < lens, t0_out if t == 0 else a2, a1)
+        alphas += [a1, alpha]
+    return torch.stack(alphas[:T]), alphas[T - 1]
+
+
 def posteriors_plain(logp_tbs, alphas, skip_from, beta_T, lens, logz) -> torch.Tensor:
     """The beta recursion -> state posteriors w (T, B, S) = exp(max(gamma, NEG_INF)).
 
@@ -148,6 +205,7 @@ class Recursions(NamedTuple):
 
 
 PLAIN = Recursions(alphas_plain, posteriors_plain)
+PAIRED_PLAIN = Recursions(alphas_paired_plain, posteriors_plain)
 
 
 def terminal_betas(label_len: torch.Tensor, S: int) -> torch.Tensor:

@@ -4,7 +4,9 @@
 Counterpart of ``pytorch_asr_tpu/ops/ctc_pallas.py::ctc_loss_auto``.  Each
 wrapper takes its plain PyTorch version (``ops/ctc.py``) for CPU tensors and
 launches its kernel for CUDA tensors; there is no other switch and no
-fallback.
+fallback.  ``PAIRED_FWD``, as the JAX module's switch of the same name, makes
+the alpha recursion take two frames an iteration (``ctc_alpha_paired``); no
+path sets it, it is the measured alternative.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ from pytorch_asr_tpu_torch.ops import build, ctc
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ctc_alpha": [_P] * 5 + [_I] * 3 + [_P],
+               "ctc_alpha_paired": [_P] * 5 + [_I] * 3 + [_P],
                "ctc_beta": [_P] * 7 + [_I] * 3 + [_P]}
 MAX_STATES = 4096   # lattice states a block holds: 1024 threads x 4 in registers
+PAIRED_FWD = False  # the alpha recursion two frames an iteration (read at each call)
 
 
 def _check(name: str, tensors: dict, T: int, B: int, S: int) -> None:
@@ -41,19 +45,32 @@ def _check(name: str, tensors: dict, T: int, B: int, S: int) -> None:
 
 def ctc_alpha(logp_tbs: torch.Tensor, skip: torch.Tensor,
               logit_len: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Alpha recursion: (T, B, S) lattice log-probs -> (alphas (T, B, S), final (B, S))."""
+    """Alpha recursion: (T, B, S) lattice log-probs -> (alphas (T, B, S), final (B, S)).
+    With ``PAIRED_FWD`` set, ``ctc_alpha_paired``."""
+    if PAIRED_FWD:
+        return ctc_alpha_paired(logp_tbs, skip, logit_len)
+    return _alpha("ctc_alpha", ctc.alphas_plain, logp_tbs, skip, logit_len)
+
+
+def ctc_alpha_paired(logp_tbs: torch.Tensor, skip: torch.Tensor,
+                     logit_len: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The alpha recursion two frames an iteration; see ``ctc.alphas_paired_plain``."""
+    return _alpha("ctc_alpha_paired", ctc.alphas_paired_plain, logp_tbs, skip, logit_len)
+
+
+def _alpha(name: str, plain, logp_tbs, skip, logit_len):
     if logp_tbs.device.type == "cpu":
-        return ctc.alphas_plain(logp_tbs, skip, logit_len)
+        return plain(logp_tbs, skip, logit_len)
     T, B, S = logp_tbs.shape
-    _check("ctc_alpha", {"logp_tbs": logp_tbs, "skip": skip, "lens": logit_len}, T, B, S)
+    _check(name, {"logp_tbs": logp_tbs, "skip": skip, "lens": logit_len}, T, B, S)
     alphas = torch.empty_like(logp_tbs)
     final = torch.empty((B, S), dtype=torch.float32, device=logp_tbs.device)
     lib = build.load("ctc_alpha_beta", _SIGNATURES)
-    build.check(lib.ctc_alpha(logp_tbs.data_ptr(), skip.data_ptr(), logit_len.data_ptr(),
-                              alphas.data_ptr(), final.data_ptr(), T, B, S,
-                              torch.cuda.current_stream(logp_tbs.device).cuda_stream),
-                "ctc_alpha")
-    build.LAUNCHES["ctc_alpha"] += 1
+    build.check(getattr(lib, name)(logp_tbs.data_ptr(), skip.data_ptr(), logit_len.data_ptr(),
+                                   alphas.data_ptr(), final.data_ptr(), T, B, S,
+                                   torch.cuda.current_stream(logp_tbs.device).cuda_stream),
+                name)
+    build.LAUNCHES[name] += 1
     return alphas, final
 
 

@@ -1,10 +1,13 @@
-"""One LSTM direction: the CUDA kernels of ``csrc/lstm_seq.cu`` and their plain versions.
+"""The LSTM kernels of ``csrc/lstm_seq.cu`` and their plain versions.
 
-Counterpart of ``pytorch_asr_tpu/ops/lstm_pallas.py::lstm_seq``: the
-inference forward (K2) and, under autograd, the training forward that saves
-residuals plus its backward (K3).  Each wrapper takes its plain PyTorch
-version for CPU tensors and launches its kernel for CUDA tensors; there is no
-other switch and no fallback.
+Counterpart of ``pytorch_asr_tpu/ops/lstm_pallas.py::lstm_seq``, one
+direction: the inference forward (K2) and, under autograd, the training
+forward that saves residuals plus its backward (K3).  And of its
+``bilstm_seq`` (K11): both directions of a BiLSTM layer in one launch, with
+its own training pair; no encoder calls it, as in the JAX package, where it
+is kept beside ``lstm_seq`` as a measured design.  Each wrapper takes its
+plain PyTorch version for CPU tensors and launches its kernel for CUDA
+tensors; there is no other switch and no fallback.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from pytorch_asr_tpu_torch.ops import build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"lstm_seq_fwd": [_P] * 7 + [_I] * 7 + [_P],
                "lstm_seq_train_fwd": [_P] * 9 + [_I] * 8 + [_P],
-               "lstm_seq_bwd": [_P] * 13 + [_I] * 7 + [_P]}
+               "lstm_seq_bwd": [_P] * 13 + [_I] * 7 + [_P],
+               "bilstm_seq_fwd": [_P] * 7 + [_I] * 6 + [_P],
+               "bilstm_seq_train_fwd": [_P] * 9 + [_I] * 7 + [_P],
+               "bilstm_seq_bwd": [_P] * 14 + [_I] * 6 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -293,3 +299,174 @@ def _check_cuda_args(x, wih, whh, bias, lengths, out_dtype) -> None:
             raise ValueError("lstm_seq: all inputs must be contiguous on one CUDA device")
     if out_dtype not in _DTYPES:
         raise ValueError(f"lstm_seq: out_dtype must be float32 or bfloat16, got {out_dtype}")
+
+
+# ---------------------------------------------------------------- K11: both directions
+
+
+def bilstm_seq_plain(x, wih, whh, bias, lengths,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version of K11's inference forward: ``lstm_seq_plain`` once a
+    direction with ``wih[d]``, ``whh[d]``, ``bias[d]`` (d = 0 forward, 1
+    reverse), the outputs concatenated -> (B, T, 2H)."""
+    return torch.cat([lstm_seq_plain(x, wih[d], whh[d], bias[d], lengths, bool(d), out_dtype)
+                      for d in (0, 1)], dim=-1)
+
+
+def bilstm_seq_train_plain(x, wih, whh, bias, lengths, out_dtype: torch.dtype | None = None,
+                           residual_dtype: torch.dtype = torch.bfloat16):
+    """Plain training forward of K11 -> (out (B, T, 2H), acts (2, T, B, 4H),
+    ct (2, T, B, H)): ``lstm_seq_train_plain`` once a direction."""
+    outs = [lstm_seq_train_plain(x, wih[d], whh[d], bias[d], lengths, bool(d), out_dtype,
+                                 residual_dtype) for d in (0, 1)]
+    return (torch.cat([o[0] for o in outs], dim=-1), torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+def bilstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct):
+    """Plain backward of K11 -> (dx, dwih (2, D, 4H), dwhh (2, H, 4H), db (2, 4H)):
+    ``lstm_seq_bwd_plain`` once a direction on its half of ``gy``; dx is
+    the sum of the two directions' dx, each in x's type."""
+    H = whh.shape[1]
+    grads = [lstm_seq_bwd_plain(gy[..., d * H:(d + 1) * H], x, wih[d], whh[d], lengths,
+                                acts[d], ct[d], bool(d)) for d in (0, 1)]
+    return (grads[0][0] + grads[1][0], *(torch.stack([g[i] for g in grads]) for i in (1, 2, 3)))
+
+
+def bilstm_seq_infer(x, wih, whh, bias, lengths,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """K11's inference forward: the kernel for CUDA tensors, ``bilstm_seq_plain`` for CPU."""
+    if x.device.type == "cpu":
+        return bilstm_seq_plain(x, wih, whh, bias, lengths, out_dtype)
+    out_dtype = out_dtype or torch.float32
+    _check_dual_args(x, wih, whh, bias, lengths, out_dtype)
+    B, T, D = x.shape
+    H = whh.shape[1]
+    out = torch.empty((B, T, 2 * H), dtype=out_dtype, device=x.device)
+    if B == 0 or T == 0:
+        return out
+    xproj = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
+    lib = build.load("lstm_seq", _SIGNATURES)
+    err = lib.bilstm_seq_fwd(
+        x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
+        xproj.data_ptr(), out.data_ptr(), B, T, D, H, int(x.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), _stream(x))
+    build.check(err, "bilstm_seq")
+    build.LAUNCHES["bilstm_seq"] += 1
+    return out
+
+
+def bilstm_seq_train_fwd(x, wih, whh, bias, lengths, out_dtype: torch.dtype | None = None,
+                         residual_dtype: torch.dtype = torch.bfloat16):
+    """K11's training forward -> (out, acts, ct); see ``bilstm_seq_train_plain``."""
+    if x.device.type == "cpu":
+        return bilstm_seq_train_plain(x, wih, whh, bias, lengths, out_dtype, residual_dtype)
+    out_dtype = out_dtype or torch.float32
+    _check_dual_args(x, wih, whh, bias, lengths, out_dtype)
+    if residual_dtype not in _DTYPES:
+        raise ValueError(f"bilstm_seq: residual_dtype must be float32 or bfloat16, "
+                         f"got {residual_dtype}")
+    B, T, D = x.shape
+    H = whh.shape[1]
+    out = torch.empty((B, T, 2 * H), dtype=out_dtype, device=x.device)
+    acts = torch.empty((2, T, B, 4 * H), dtype=residual_dtype, device=x.device)
+    ct = torch.empty((2, T, B, H), dtype=residual_dtype, device=x.device)
+    if B == 0 or T == 0:
+        return out, acts, ct
+    xproj = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
+    lib = build.load("lstm_seq", _SIGNATURES)
+    err = lib.bilstm_seq_train_fwd(
+        x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
+        xproj.data_ptr(), out.data_ptr(), acts.data_ptr(), ct.data_ptr(), B, T, D, H,
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        int(residual_dtype == torch.bfloat16), _stream(x))
+    build.check(err, "bilstm_seq_train_fwd")
+    build.LAUNCHES["bilstm_seq_train_fwd"] += 1
+    return out, acts, ct
+
+
+def bilstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct):
+    """K11's backward -> (dx, dwih, dwhh, db); see ``bilstm_seq_bwd_plain``."""
+    if x.device.type == "cpu":
+        return bilstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct)
+    B, T, D = x.shape
+    H = whh.shape[1]
+    gy = gy.float().contiguous()
+    _check_dual_args(x, wih, whh, whh.new_empty((2, 4 * H)), lengths, torch.float32)
+    for name, t, shape in (("gy", gy, (B, T, 2 * H)), ("acts", acts, (2, T, B, 4 * H)),
+                           ("ct", ct, (2, T, B, H))):
+        if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"bilstm_seq_bwd: {name} must be contiguous {shape} on "
+                             f"{x.device}, got {tuple(t.shape)}")
+    if acts.dtype != ct.dtype or acts.dtype not in _DTYPES:
+        raise ValueError(f"bilstm_seq_bwd: residuals must share a type of {_DTYPES}")
+    dx = torch.empty_like(x)
+    dwih = torch.empty_like(wih)
+    dwhh = torch.empty_like(whh)
+    db = torch.empty((2, 4 * H), dtype=torch.float32, device=x.device)
+    if B == 0 or T == 0:
+        return dx.zero_(), dwih.zero_(), dwhh.zero_(), db.zero_()
+    dgates = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
+    hprev = torch.empty((2, B, T, H), dtype=torch.float32, device=x.device)
+    dx2 = torch.empty((2, B, T, D), dtype=x.dtype, device=x.device)
+    lib = build.load("lstm_seq", _SIGNATURES)
+    err = lib.bilstm_seq_bwd(
+        gy.data_ptr(), x.data_ptr(), wih.data_ptr(), whh.data_ptr(), lengths.data_ptr(),
+        acts.data_ptr(), ct.data_ptr(), dgates.data_ptr(), hprev.data_ptr(), dx2.data_ptr(),
+        dx.data_ptr(), dwih.data_ptr(), dwhh.data_ptr(), db.data_ptr(), B, T, D, H,
+        int(x.dtype == torch.bfloat16), int(acts.dtype == torch.bfloat16), _stream(x))
+    build.check(err, "bilstm_seq_bwd")
+    build.LAUNCHES["bilstm_seq_bwd"] += 1
+    return dx, dwih, dwhh, db
+
+
+class BiLSTMSeq(torch.autograd.Function):
+    """K11's training pair: the forward saves both directions' residuals,
+    the backward walks them."""
+
+    @staticmethod
+    def forward(ctx, x, wih, whh, bias, lengths, out_dtype, residual_dtype):
+        out, acts, ct = bilstm_seq_train_fwd(x, wih, whh, bias, lengths, out_dtype,
+                                             residual_dtype)
+        ctx.save_for_backward(x, wih, whh, lengths, acts, ct)
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, wih, whh, lengths, acts, ct = ctx.saved_tensors
+        dx, dwih, dwhh, db = bilstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct)
+        return dx, dwih, dwhh, db, None, None, None
+
+
+def bilstm_seq(x, wih, whh, bias, lengths, out_dtype: torch.dtype | None = None,
+               residual_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Masked BiLSTM layer: both directions in one launch (K11).
+
+    Args:
+      x: (B, T, D) float32 or bfloat16, natural time order.
+      wih: (2, D, 4H) of x's type, stacked [forward, reverse]; whh: (2, H, 4H)
+        float32; bias: (2, 4H) float32.
+      lengths: (B,) int32; the window is [0, len) for both directions.
+      out_dtype: float32 (the default) or bfloat16.
+      residual_dtype: type of the residuals the training forward saves.
+    Returns: (B, T, 2H) = [forward | reverse] hidden states, zero outside the
+    window; equal per direction to ``lstm_seq`` (the same operations in the
+    same order).  Under autograd the training pair, else the inference
+    forward, as ``lstm_seq`` picks.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wih, whh, bias)):
+        return BiLSTMSeq.apply(x, wih, whh, bias, lengths, out_dtype or torch.float32,
+                               residual_dtype)
+    return bilstm_seq_infer(x, wih, whh, bias, lengths, out_dtype)
+
+
+def _check_dual_args(x, wih, whh, bias, lengths, out_dtype) -> None:
+    """K11's inputs: each direction as ``lstm_seq`` takes it, stacked."""
+    if wih.dim() != 3 or whh.dim() != 3 or bias.dim() != 2 or not (
+            wih.shape[0] == whh.shape[0] == bias.shape[0] == 2):
+        raise ValueError(f"bilstm_seq: wih, whh, bias must be stacked (2, ...), got "
+                         f"{tuple(wih.shape)}, {tuple(whh.shape)}, {tuple(bias.shape)}")
+    _check_cuda_args(x, wih[0], whh[0], bias[0], lengths, out_dtype)
+    for t in (wih, whh, bias):
+        if not t.is_contiguous():
+            raise ValueError("bilstm_seq: all inputs must be contiguous on one CUDA device")

@@ -12,9 +12,10 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-# The modules of the six slices (greedy serving, training, beam serving,
-# config 3, RNN-LM fusion, the beam decode across ranks), each of which the
-# probe must import without JAX.
+# The modules of the seven slices (greedy serving, training, beam serving,
+# config 3, RNN-LM fusion, the beam decode across ranks, the benchmark
+# scripts of the last four kernels), each of which the probe must import
+# without JAX.
 SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "decode", "evaluate", "ops.stft_cuda", "ops.lstm_cuda", "ops.ctc", "ops.ctc_cuda",
     "frontend.specaugment", "models.encoder_bilstm", "models.asr_model", "data.batching",
@@ -22,7 +23,8 @@ SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "data.synthetic", "data.bucket_opt", "decoding.wer", "decoding.lm", "decoding.prefix_beam",
     "decoding.driver", "ops.beam_cuda", "train_ngram", "eval_wer", "models.encoder_tcn",
     "ops.tcn_cuda", "models.lm_rnn", "training.lm", "train_lm", "parallel.distributed",
-    "parallel.mesh", "parallel.launch", "decoding.prefix_beam_sharded")]
+    "parallel.mesh", "parallel.launch", "decoding.prefix_beam_sharded",
+    "scripts.bench_prefix_beam", "scripts.bench_beam_compile")]
 
 _PROBE = """
 import importlib, json, pkgutil, sys

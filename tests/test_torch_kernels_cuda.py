@@ -545,3 +545,201 @@ def test_tcn_kernels_reject_what_they_do_not_take(cuda):
         tcn_cuda.tcn_block(x.double(), *p, 1)
     with pytest.raises(ValueError, match="contiguous"):
         tcn_cuda.tcn_block(x.transpose(0, 1), *p, 1)
+
+
+# ---------------------------------------------------------------- K11: bilstm_seq
+
+
+def _bilstm_case(device, dtype, B=5, T=70, D=40, H=48):
+    """K11's inputs and the two directions' own: (x, wih (2, D, 4H), whh,
+    bias, lengths), rows as ``_lstm_case``'s."""
+    x, wf, uf, bf, lengths = _lstm_case(device, dtype, B, T, D, H)
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    wb = t(rng.standard_normal((D, 4 * H)) * 0.3).to(dtype)
+    ub = t(rng.standard_normal((H, 4 * H)) * 0.2)
+    bb = t(rng.standard_normal(4 * H) * 0.1)
+    return (x, torch.stack([wf, wb]), torch.stack([uf, ub]), torch.stack([bf, bb]), lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_kernel_equals_two_lstm_launches(cuda, dtype):
+    """K11's inference forward is bit for bit K2 forward | K2 reverse, and
+    agrees with its plain version as K2 does."""
+    x, wih, whh, bias, lengths = _bilstm_case(cuda, dtype)
+    build.reset_launches()
+    got = lstm_cuda.bilstm_seq(x, wih, whh, bias, lengths, dtype)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["bilstm_seq"] == 1 and build.LAUNCHES["lstm_seq"] == 0
+    pair = torch.cat([lstm_cuda.lstm_seq(x, wih[d], whh[d], bias[d], lengths, bool(d), dtype)
+                      for d in (0, 1)], dim=-1)
+    assert got.dtype == dtype and torch.equal(got, pair)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), lstm_cuda.bilstm_seq_plain(
+        x, wih, whh, bias, lengths, dtype).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_training_pair_equals_k3(cuda, dtype, res_dtype):
+    """K11's training forward (output and residuals) and backward against
+    K3 once a direction, bit for bit, and against the plain versions."""
+    x, wih, whh, bias, lengths = _bilstm_case(cuda, dtype)
+    H = whh.shape[1]
+    build.reset_launches()
+    out, acts, ct = lstm_cuda.bilstm_seq_train_fwd(x, wih, whh, bias, lengths, dtype, res_dtype)
+    torch.cuda.synchronize()
+    pair = [lstm_cuda.lstm_seq_train_fwd(x, wih[d], whh[d], bias[d], lengths, bool(d), dtype,
+                                         res_dtype) for d in (0, 1)]
+    assert torch.equal(out, torch.cat([pair[0][0], pair[1][0]], -1))
+    assert torch.equal(acts, torch.stack([pair[0][1], pair[1][1]]))
+    assert torch.equal(ct, torch.stack([pair[0][2], pair[1][2]]))
+    rng = np.random.default_rng(7)
+    gy = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(np.float32)).to(cuda)
+    got = lstm_cuda.bilstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["bilstm_seq_train_fwd"], build.LAUNCHES["bilstm_seq_bwd"]) == (1, 1)
+    k3 = [lstm_cuda.lstm_seq_bwd(gy[..., d * H:(d + 1) * H].contiguous(), x, wih[d], whh[d],
+                                 lengths, acts[d], ct[d], bool(d)) for d in (0, 1)]
+    assert torch.equal(got[0], k3[0][0] + k3[1][0])
+    for i in (1, 2, 3):
+        assert torch.equal(got[i], torch.stack([k3[0][i], k3[1][i]]))
+    want = lstm_cuda.bilstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct)
+    for name, g, w in zip(("dx", "dwih", "dwhh", "db"), got, want):
+        assert g.dtype == w.dtype, name
+        assert _rel_err(g, w) <= (BF16_TOL if g.dtype == torch.bfloat16 else F32_TOL), name
+
+
+@pytest.mark.cuda
+def test_bilstm_autograd_launches_the_training_pair(cuda):
+    x, wih, whh, bias, lengths = _bilstm_case(cuda, torch.bfloat16)
+    params = [t.clone().requires_grad_(True) for t in (x, wih, whh, bias)]
+    build.reset_launches()
+    out = lstm_cuda.bilstm_seq(*params, lengths, torch.bfloat16)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["bilstm_seq_train_fwd"], build.LAUNCHES["bilstm_seq_bwd"],
+            build.LAUNCHES["bilstm_seq"]) == (1, 1, 0)
+    assert all(p.grad is not None and torch.isfinite(p.grad.float()).all() for p in params)
+
+
+@pytest.mark.cuda
+def test_bilstm_kernel_rejects_what_it_does_not_take(cuda):
+    x, wih, whh, bias, lengths = _bilstm_case(cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="stacked"):
+        lstm_cuda.bilstm_seq(x, wih[0], whh[0], bias[0], lengths)
+    with pytest.raises(ValueError, match="lengths"):
+        lstm_cuda.bilstm_seq(x, wih, whh, bias, lengths.long())
+
+
+# ---------------------------------------------------------------- the paired CTC alpha
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 91, 9, 30), (2, 1100, 5, 520)])
+def test_ctc_paired_alpha_matches_plain(cuda, shape):
+    """The paired alpha kernel against its plain version and K4's alphas;
+    an odd T, a row of no frames, an infeasible row, and S past the threads."""
+    B, T, V, L = shape
+    logits, logit_len, labels, label_len = _ctc_case(cuda, B, T, V, L)
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    lens = logit_len.contiguous()
+    build.reset_launches()
+    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ctc_alpha_paired"] == 1 and build.LAUNCHES["ctc_alpha"] == 0
+    ref_alphas, ref_final = ctc.alphas_paired_plain(logp_tbs, skip, lens)
+    torch.testing.assert_close(alphas, ref_alphas, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+    torch.testing.assert_close(final, ref_final, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+    k4, k4_final = ctc_cuda.ctc_alpha(logp_tbs, skip, lens)
+    live = k4 > ctc.NEG_INF / 2
+    assert torch.equal(live, alphas > ctc.NEG_INF / 2)
+    torch.testing.assert_close(alphas[live], k4[live], rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+
+
+@pytest.mark.cuda
+def test_ctc_loss_through_the_paired_alpha(cuda, monkeypatch):
+    """``PAIRED_FWD`` routes the loss's alpha to the paired kernel; loss and
+    gradient as K4's, as the JAX package holds its paired kernel."""
+    logits, logit_len, labels, label_len = _ctc_case(cuda, T=91)
+    a = logits.clone().requires_grad_(True)
+    b = logits.clone().requires_grad_(True)
+    monkeypatch.setattr(ctc_cuda, "PAIRED_FWD", True)
+    build.reset_launches()
+    loss = ctc_cuda.ctc_loss(a, logit_len, labels, label_len)
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["ctc_alpha_paired"], build.LAUNCHES["ctc_alpha"],
+            build.LAUNCHES["ctc_beta"]) == (1, 0, 1)
+    monkeypatch.setattr(ctc_cuda, "PAIRED_FWD", False)
+    ref = ctc_cuda.ctc_loss(b, logit_len, labels, label_len)
+    ref.sum().backward()
+    torch.testing.assert_close(loss, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(a.grad, b.grad, rtol=2e-3, atol=2e-3)
+
+
+# ---------------------------------------------------------------- K12, K13
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["prefix_beam_fused", "prefix_beam_stepwise"])
+@pytest.mark.parametrize("planted", [True, False])
+def test_study_beam_kernels_match_plain(cuda, kernel, planted):
+    """K13 and K12 against the plain search with no LM on the card, bit for
+    bit, the empty row included; K12 launches once a frame."""
+    logits, lens, _ = _beam_case(cuda, 3, planted=planted)
+    fn = (beam_cuda.prefix_beam_fused if kernel == "prefix_beam_fused"
+          else beam_cuda.prefix_beam_lanes_stepwise)
+    build.reset_launches()
+    got = fn(logits, lens, beam_size=8, max_len=32)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[kernel] == (1 if kernel == "prefix_beam_fused" else logits.shape[1])
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, beam_size=8, max_len=32)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[1][2] == 0 and got[2][2] == 0
+
+
+@pytest.mark.cuda
+def test_study_beam_kernels_take_more_lanes_than_threads(cuda):
+    """K (V - 1) = 16 * 95 = 1520 lanes: threads loop over lanes."""
+    logits, lens, _ = _beam_case(cuda, 5, V=96)
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, beam_size=16, max_len=24)
+    for fn in (beam_cuda.prefix_beam_fused, beam_cuda.prefix_beam_lanes_stepwise):
+        got = fn(logits, lens, beam_size=16, max_len=24)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_stepwise_state_equals_the_plain_frames_every_frame(cuda):
+    """K12 against the plain frames with L 12, so beams fill: the pointers of
+    every frame, and the state after every frame (from a run cut after that
+    frame), every field bit for bit, dead beams included."""
+    logits, lens, _ = _beam_case(cuda, 4, planted=False)
+    logp = torch.log_softmax(logits, -1).contiguous()
+    B, T, _ = logp.shape
+    K, L = 8, 12
+    want = prefix_beam.prefix_beam_stepwise_plain(logp, lens, K, L)
+    got = {}
+    beam_cuda.prefix_beam_lanes_stepwise(logits, lens, K, 0, L, scratch=got)
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype and torch.equal(got[name], w), name
+    for t in range(1, T):
+        cut = {}
+        beam_cuda.prefix_beam_lanes_stepwise(logits[:, :t], lens, K, 0, L, scratch=cut)
+        want = prefix_beam.prefix_beam_stepwise_plain(logp[:, :t], lens, K, L)
+        for name in ("pb", "pnb", "hash", "last", "length"):
+            assert torch.equal(cut[name], want[name]), (t, name)
+
+
+@pytest.mark.cuda
+def test_study_beam_kernels_reject_what_they_do_not_take(cuda):
+    logits, lens, _ = _beam_case(cuda, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        beam_cuda.prefix_beam_fused(logits, lens, beam_size=64, max_len=1024)
+    with pytest.raises(ValueError, match="beam_size"):
+        beam_cuda.prefix_beam_lanes_stepwise(logits, lens, beam_size=2048)
+    with pytest.raises(ValueError, match="blank"):
+        beam_cuda.prefix_beam_fused(logits, lens, blank=3)

@@ -9,7 +9,9 @@ result line):
      inference forward (K2), the LSTM training forward and backward (K3)
      and the CTC alpha and beta recursions (K4); time kernel, plain version
      and a PyTorch library yardstick with CUDA events (median of repeated
-     runs of queued calls, after warm-up);
+     runs of queued calls, after warm-up); K2 also at config 2's layer
+     shape; print the co-resident grid of K2's and K3's forward recurrence
+     and its µs a step (profiler), and sweep the grid's CTAs;
   3. run the model at float32 on one synthetic batch on the CPU and on the
      card with the same seeded weights; compare logits and greedy tokens;
      then one float32 train step, card vs CPU: loss, gradients, and the
@@ -390,16 +392,47 @@ def stft_phase() -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def grid_record(args: tuple, b: int, steps: int, residual_dtype=None) -> dict:
+    """K2's (K3's forward, with ``residual_dtype``) grid for ``args``, the
+    device time a step of its recurrence (lstm_grid_kernel alone, from the
+    profiler), and where a step goes: CTA 0's median cycles from staging h,
+    through the dot chains and the cell updates, to the grid barrier
+    (``forward_on_grid``'s trace), in µs at the clock the trace saw."""
+    H = args[2].shape[0]
+    rec = {"grid": lstm_cuda.recurrence_grid(H, b, torch.cuda.get_device_properties(0)
+                                             .multi_processor_count)._asdict(),
+           "recurrence_ms": device_ms_per_call(
+               lambda: lstm_cuda.forward_on_grid(None, *args, residual_dtype=residual_dtype),
+               "lstm_grid_kernel", 5)}
+    rec["us_per_step"] = rec["recurrence_ms"] / steps * 1e3
+    trace = torch.zeros((args[0].shape[1], 5), dtype=torch.int64, device=CARD)
+    lstm_cuda.forward_on_grid(None, *args, residual_dtype=residual_dtype, trace=trace)
+    tr = trace[:steps].cpu().numpy().astype(np.float64)
+    ghz = (tr[-1, 1] - tr[0, 1]) / (tr[-1, 0] - tr[0, 0])
+    cycles = {"stage": tr[:-1, 2] - tr[:-1, 1], "chains": tr[:-1, 3] - tr[:-1, 2],
+              "cells": tr[:-1, 4] - tr[:-1, 3], "barrier": tr[1:, 1] - tr[:-1, 4]}
+    rec["step_us_median"] = {k: float(np.median(v)) / ghz / 1e3 for k, v in cycles.items()}
+    rec["trace_clock_ghz"] = ghz
+    return rec
+
+
 def lstm_phase() -> dict:
+    """K2 at config 1's layer shapes (B 8, H 384; D 768 and 640) and config
+    2's (B 16, D 1024, H 512), both directions, against its plain version and
+    timed beside cuDNN's LSTM; its grid and µs a step of the recurrence are
+    printed; then the sweep of the grid's CTAs."""
     g = torch.Generator().manual_seed(2)
-    lengths = torch.tensor(LSTM_LENGTHS, dtype=torch.int32)
     cases = []
-    for D in (2 * H, 640):        # layers 1-2, then layer 0 (20 freq x 32 channels)
-        x = (torch.randn(B, T_LSTM, D, generator=g) * 0.5).bfloat16().cuda()
-        wih = (torch.randn(D, 4 * H, generator=g) / D ** 0.5).bfloat16().cuda()
-        whh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).cuda()
-        bias = (torch.randn(4 * H, generator=g) * 0.1).cuda()
-        lens = lengths.cuda()
+    cfg2_lengths = np.linspace(T_LSTM, 250, BEAM_B).astype(int).tolist()
+    for tag, b, D, Hd, lengths in (("config 1", B, 2 * H, H, LSTM_LENGTHS),
+                                   ("config 1", B, 640, H, LSTM_LENGTHS),
+                                   ("config 2", BEAM_B, 1024, 512, cfg2_lengths)):
+        G = 4 * Hd
+        x = (torch.randn(b, T_LSTM, D, generator=g) * 0.5).bfloat16().cuda()
+        wih = (torch.randn(D, G, generator=g) / D ** 0.5).bfloat16().cuda()
+        whh = (torch.randn(Hd, G, generator=g) / Hd ** 0.5).cuda()
+        bias = (torch.randn(G, generator=g) * 0.1).cuda()
+        lens = torch.tensor(lengths, dtype=torch.int32).cuda()
         for reverse in (False, True):
             args = (x, wih, whh, bias, lens, reverse, torch.bfloat16)
             got = lstm_cuda.lstm_seq(*args)
@@ -407,39 +440,73 @@ def lstm_phase() -> dict:
             want = lstm_cuda.lstm_seq_plain(*args)
             err, rel = errors(got, want)
             check(bool(torch.isfinite(got.float()).all()), "lstm_seq: non-finite output")
-            check(err <= LSTM_TOL, f"lstm_seq D={D} reverse={reverse} disagrees: {err}")
-            case = {"D": D, "reverse": reverse, "max_abs_err": err, "max_rel_err": rel,
+            check(err <= LSTM_TOL, f"lstm_seq {tag} D={D} reverse={reverse} disagrees: {err}")
+            case = {"layer": tag, "x": [b, T_LSTM, D], "H": Hd, "reverse": reverse,
+                    "max_abs_err": err, "max_rel_err": rel,
                     "ms": time_ms(lambda: lstm_cuda.lstm_seq(*args)),
                     "plain_ms": time_ms(lambda: lstm_cuda.lstm_seq_plain(*args), reps=5, inner=1,
                                         warmup=1)}
             # Yardstick: cuDNN's fp32 LSTM, same weights, every length = T.
-            ref = torch.nn.LSTM(D, H, batch_first=True).cuda()
-            with torch.no_grad():
-                ref.weight_ih_l0.copy_(wih.float().T)
-                ref.weight_hh_l0.copy_(whh.T)
-                ref.bias_ih_l0.copy_(bias)
-                ref.bias_hh_l0.zero_()
+            ref = cudnn_lstm(D, wih, whh, bias)
             xf = x.float()
             with torch.no_grad():
                 case["library_ms"] = time_ms(lambda: ref(xf))
-            valid = int(lengths.sum())
-            ops_bf16 = 2 * D * 4 * H * valid
-            ops_f32 = 2 * H * 4 * H * valid
-            nbytes = (2 * B * T_LSTM * D + 2 * D * 4 * H + 4 * H * 4 * H + 4 * 4 * H
-                      + 4 * B + 2 * B * T_LSTM * H)
+            if not reverse:
+                case.update(grid_record(args, b, max(lengths)))
+                print(f"lstm_seq grid, {tag} D {D}: {json.dumps(case['grid'])}, "
+                      f"recurrence {case['recurrence_ms']:.4f} ms, "
+                      f"{case['us_per_step']:.3f} us a step of {max(lengths)} "
+                      f"{json.dumps(case['step_us_median'])}, "
+                      f"call {case['ms']:.4f} ms, cuDNN {case['library_ms']:.4f} ms")
+            valid = int(sum(lengths))
+            ops_bf16 = 2 * D * G * valid
+            ops_f32 = 2 * Hd * G * valid
+            nbytes = (2 * b * T_LSTM * D + 2 * D * G + 4 * Hd * G + 4 * G
+                      + 4 * b + 2 * b * T_LSTM * Hd)
             case["bound_ms"], case["bound_by"] = bound(
                 nbytes, ops_bf16 / PEAK_BF16_S + ops_f32 / PEAK_FP32_S)
             cases.append(case)
+    sweep = lstm_grid_sweep()
+    print("lstm_grid_sweep:", json.dumps(sweep))
     head = cases[0]
     return {"name": "lstm_seq", "route": "cuda",
             "source": "pytorch_asr_tpu_torch/csrc/lstm_seq.cu",
             "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:280",
-            "shape": f"x ({B}, {T_LSTM}, {2 * H}) bf16, H {H}, lengths {lengths.tolist()}",
+            "shape": f"x ({B}, {T_LSTM}, {2 * H}) bf16, H {H}, lengths {LSTM_LENGTHS}; "
+                     f"also D 640, and x ({BEAM_B}, {T_LSTM}, 1024), H 512",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_rel_err": max(c["max_rel_err"] for c in cases), "tol": LSTM_TOL,
             "ms": head["ms"], "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
             "library": "torch.nn.LSTM (cuDNN, fp32, all lengths = T)",
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "cases": cases}
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "cases": cases,
+            "grid_sweep": sweep}
+
+
+def lstm_grid_sweep() -> dict:
+    """K2 at config 1's (B 8, D 768, H 384) and config 2's (B 16, D 1024,
+    H 512) shapes on grids of fewer CTAs than the rule's (more units a CTA:
+    shorter barriers, more chains a CTA), each held to the rule's output bit
+    for bit and timed: {layer: {CTAs: ms}}, the rule's grid marked."""
+    g = torch.Generator().manual_seed(9)
+    out = {}
+    for tag, b, D, Hd in (("config 1", B, 2 * H, H), ("config 2", BEAM_B, 1024, 512)):
+        x = (torch.randn(b, T_LSTM, D, generator=g) * 0.5).bfloat16().cuda()
+        wih = (torch.randn(D, 4 * Hd, generator=g) / D ** 0.5).bfloat16().cuda()
+        whh = (torch.randn(Hd, 4 * Hd, generator=g) / Hd ** 0.5).cuda()
+        bias = (torch.randn(4 * Hd, generator=g) * 0.1).cuda()
+        lens = torch.full((b,), T_LSTM, dtype=torch.int32).cuda()
+        args = (x, wih, whh, bias, lens, False, torch.bfloat16)
+        rule = lstm_cuda.recurrence_grid(Hd, b)
+        want = lstm_cuda.lstm_seq(*args)
+        times = {}
+        for units in (rule.units, rule.units + 1, 2 * rule.units, 4 * rule.units):
+            grid = lstm_cuda.recurrence_grid(Hd, b, units=units)
+            check(torch.equal(lstm_cuda.forward_on_grid(grid, *args), want),
+                  f"lstm_seq on {grid}: differs from the rule's grid")
+            times[grid.ctas] = time_ms(lambda: lstm_cuda.forward_on_grid(grid, *args), 5, 4, 1)
+        out[tag] = {"rule_ctas": rule.ctas, "ms_by_ctas": times,
+                    "fastest_ctas": min(times, key=times.get)}
+    return out
 
 
 def cudnn_lstm(D: int, wih, whh, bias) -> torch.nn.LSTM:
@@ -509,6 +576,14 @@ def lstm_train_phase() -> list[dict]:
                         library_fwd_ms=time_ms(lambda: ref(xf), 5, 4, 1),
                         library_bwd_ms=time_ms(lambda: torch.autograd.grad(
                             ref_out, ref_in, gy, retain_graph=True), 5, 4, 1))
+                    if not reverse:
+                        rec = grid_record(args[:7], B, T_LSTM, res)
+                        case.update({f"fwd_{k}": v for k, v in rec.items()})
+                        print(f"lstm_seq_train_fwd grid, D {D}: {json.dumps(rec['grid'])}, "
+                              f"recurrence {rec['recurrence_ms']:.4f} ms, "
+                              f"{rec['us_per_step']:.3f} us a step of {T_LSTM} "
+                              f"{json.dumps(rec['step_us_median'])}, call "
+                              f"{case['fwd_ms']:.4f} ms, cuDNN {case['library_fwd_ms']:.4f} ms")
                     rb = 2
                     fwd_bytes = (2 * B * T_LSTM * D + 2 * D * G + 4 * H * G + 4 * G + 4 * B
                                  + 2 * B * T_LSTM * H + rb * T_LSTM * B * (G + H))

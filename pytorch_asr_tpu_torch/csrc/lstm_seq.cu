@@ -31,8 +31,26 @@
 //     last valid h for the forward one, so one extra h @ whh serves them all.
 //   ct (T, B, H): the masked carry, the c that enters the next step.
 // The Pallas kernel also wrote h/c snapshots at each time-chunk boundary,
-// because its grid is chunked.  Here the whole time loop is in one block, so
-// the backward enters from zeros and needs no snapshots.
+// because its grid is chunked.  Here the whole time loop is in one launch,
+// so the backward enters from zeros and needs no snapshots.
+//
+// The forward recurrence of K2 and K3 (lstm_grid_kernel) runs on a
+// co-resident grid: one CTA an SM, launched with cudaLaunchCooperativeKernel
+// so that all of them run at once.  CTA j owns the hidden units [j U, j U +
+// U) and with them the gate columns k, H+k, 2H+k, 3H+k of each unit k, so a
+// unit's cell update needs nothing from another CTA.  At launch each CTA
+// copies its 4U columns of whh (all H rows, fp32) into shared memory, where
+// they stay; ops/lstm_cuda.py::recurrence_grid picks U and checks that a
+// CTA's bytes fit.  Every utterance of the launch then steps together: at
+// step s, utterance b takes t = s forward or len_b - 1 - s reverse; each CTA
+// stages h_{s-1} of all B utterances from a ping-pong buffer in device memory
+// into shared memory; a thread runs one dot chain (b, gate column): r
+// ascending, the order of recurrent_product, so every value equals the
+// per-utterance kernel's bit for bit; the CTA updates its units' cells and
+// writes their h to the other buffer; then the CTAs meet at a grid barrier.  K2 walks max(len) steps; K3's forward walks T, because its
+// residuals cover every t: past its window a forward row computes its acts
+// from the held h and c, a reverse row from zeros, as fill_invalid_residuals
+// does below.
 //
 // Backward, given gy (B, T, H) fp32 (the output's gradient):
 //  1. lstm_bwd_recurrence_kernel: one block per utterance walks the valid
@@ -45,7 +63,7 @@
 //     constant 0).  It writes dgates (B, T, 4H) and h_prev (B, T, H) in fp32
 //     to device memory; the TPU kept dgates in VMEM.  About 20 MB a direction
 //     at the training shapes (B 8, T' 400, H 384): a round trip for later work
-//     to remove.  Each step reads all of whh (2.4 MB fp32) from L2, as K2's
+//     to remove.  Each step reads all of whh (2.4 MB fp32) from L2, as K11's
 //     forward does.
 //  2. products, each a tiled shared-memory GEMM (gemm_kernel, the style of
 //     K2's projection) with fp32 FMA accumulation: dx = dgates @ wih^T in x's
@@ -57,24 +75,28 @@
 // Bound on this card: operations.  At the training shapes the projection and
 // the three backward products are each about 2 * B*T * 4H * D operations,
 // against tens of MB of inputs and outputs.  In practice the recurrences are
-// bound by latency: their len steps are serial, and each step needs all of
-// whh from L2.  This keeps only B of the card's SMs busy.  Later work: spread
-// whh over a cluster's shared memory so each step reads it from shared
-// memory, and run the products on tensor cores.
+// bound by latency: their steps are serial.  The forward's step is one dot
+// chain of H dependent FMAs (the order that keeps it bit-equal admits no
+// split of the sum), the staging of h from L2 and a grid barrier.  The
+// backward's dh recurrence still runs one block an utterance and reads all
+// of whh from L2 each step.  Later work: that recurrence on the grid, and
+// the products on tensor cores.
 //
 // K11 runs the two directions of a layer (weights stacked (2, ...): forward,
-// then reverse) as the two rows of one grid, (B, 2): the recurrence kernels
-// gain a direction, blockIdx.y, under a template flag (kDual), so K2's and
-// K3's own instances keep their code.  Direction d reads its projection, its
+// then reverse) as the two rows of one grid, (B, 2), of the per-utterance
+// kernels lstm_recurrence_kernel and lstm_bwd_recurrence_kernel: one block an
+// utterance walks its len steps and reads all of whh from L2 each step.  They
+// gain a direction, blockIdx.y, under a template flag (kDual); K3's backward
+// runs their one-direction instance.  Direction d reads its projection, its
 // whh and its residuals, and writes columns [d H, (d + 1) H) of the (B, T, 2H)
 // output.  The input projections are K2's GEMM, once a direction.  The
 // backward runs both directions' recurrences in one launch, then K3's
 // products for each direction, and dx = dx_f + dx_b, each half in x's type
 // (as the JAX kernel writes dxf and dxb in x's type and sums them).  Every
-// value is computed by the same instructions as two K2 (K3) launches, so
-// K11 equals them bit for bit; what it changes is that the two directions'
-// B blocks run side by side on the card's 132 SMs instead of one launch
-// after the other.  Bound as K2/K3: twice their operations.
+// value is computed by the same operations in the same order as two K2 (K3)
+// launches, so K11 equals them bit for bit, though its forward walks each
+// utterance in its own block and theirs steps all utterances on the grid.
+// Bound as K2/K3: twice their operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -268,6 +290,269 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
   }
 }
 
+// Row stride, in floats, of the shared-memory rows of whh columns and of h:
+// 4 mod 32, so that the 16-byte loads of 8 neighbouring rows fall in
+// distinct banks.  ops/lstm_cuda.py::recurrence_grid uses the same rule.
+__host__ __device__ __forceinline__ int padded_row(int H) { return (H + 31) / 32 * 32 + 4; }
+
+// Bytes of a CTA's shared memory: whh columns (4 units rows of HP floats),
+// staged h (rows rows), gate pre-activations (B x 4 units), cell carry (B x
+// units), xproj of two steps (2 x B x 4 units), 16 floats that the last
+// row's loads may run into (dot_chain); then the lengths, B ints.
+__host__ __device__ __forceinline__ size_t grid_smem_bytes(int H, int B, int units, int rows) {
+  const size_t hp = padded_row(H);
+  return sizeof(float) * ((4 * (size_t)units + rows) * hp + 13 * (size_t)B * units + 16) +
+         sizeof(int) * (size_t)B;
+}
+
+// A barrier of gridDim.x co-resident CTAs on a counter that only grows: the
+// CTAs' n-th barrier waits until it reaches n gridDim.x.  Thread 0 adds to
+// it with release semantics after the CTA's __syncthreads and spins with
+// acquire loads (gpu scope), so each CTA's writes before the barrier are
+// visible to every CTA after it (readers load with cp.async.cg or __ldcg,
+// from L2).  Under the cooperative launch only; a wait of more than
+// kBarrierTimeoutNs traps, so a fault ends the launch with an error instead
+// of hanging the card.
+constexpr unsigned long long kBarrierTimeoutNs = 20000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The barrier: every thread of the CTA calls it after a __syncthreads.
+__device__ __forceinline__ void grid_wait(unsigned* count, unsigned target) {
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+    const unsigned long long t0 = global_ns();
+    while (load_acquire(count) < target) {
+      if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Closes the thread's group of cp.async copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of the thread's newest groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// dst (n, HP) in shared memory = src (n, H) from L2 (other SMs wrote it), or
+// zeros where src is null.  With H a multiple of 4 every 16 bytes go by one
+// cp.async.cg (L2 only, no registers), all in flight at once, as one group.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int n, int H, int HP) {
+  if (src == nullptr) {
+    for (int e = threadIdx.x; e < n * H; e += blockDim.x) dst[(e / H) * HP + e % H] = 0.f;
+  } else if (H % 4 == 0) {
+    const int q = H / 4;
+    for (int e = threadIdx.x; e < n * q; e += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       smem_addr(dst + (e / q) * HP + 4 * (e % q))),
+                   "l"(src + 4 * e)
+                   : "memory");
+  } else {
+    for (int e = threadIdx.x; e < n * H; e += blockDim.x)
+      dst[(e / H) * HP + e % H] = __ldcg(src + e);
+  }
+  cp_async_commit();
+}
+
+// sum over r ascending of h[r] w[r], one fmaf a term from 0 (the order of
+// recurrent_product).  Four registers of each row hold the terms of four
+// steps of four; each is reloaded right after its FMAs, three steps ahead of
+// its next use, so the chain never waits on shared memory (a rotation of
+// registers would make it wait: ptxas keeps the moves, and a move waits for
+// its load).  h and w: 16-byte aligned rows in shared memory, which the
+// loads may run past by 16 floats (into the next row, or the tail that
+// grid_smem_bytes adds).
+__device__ __forceinline__ float dot_chain(const float* h, const float* w, int H) {
+  const float4* h4 = reinterpret_cast<const float4*>(h);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  const int n4 = H / 4;
+  float4 hv[4], wv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    hv[j] = h4[j];
+    wv[j] = w4[j];
+  }
+  float acc = 0.f;
+  int q = 0;
+  for (; q + 4 <= n4; q += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc = fmaf(hv[j].x, wv[j].x, acc);
+      acc = fmaf(hv[j].y, wv[j].y, acc);
+      acc = fmaf(hv[j].z, wv[j].z, acc);
+      acc = fmaf(hv[j].w, wv[j].w, acc);
+      hv[j] = h4[q + 4 + j];
+      wv[j] = w4[q + 4 + j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (q + j < n4) {
+      acc = fmaf(hv[j].x, wv[j].x, acc);
+      acc = fmaf(hv[j].y, wv[j].y, acc);
+      acc = fmaf(hv[j].z, wv[j].z, acc);
+      acc = fmaf(hv[j].w, wv[j].w, acc);
+    }
+  }
+  for (int r = 4 * n4; r < H; ++r) acc = fmaf(h[r], w[r], acc);
+  return acc;
+}
+
+// K2 (kSave false) and K3's training forward (kSave true) on the co-resident
+// grid: see the note at the top.  CTA j owns units [k0, k0 + nu), k0 = j
+// units; local column jj < 4 nu is gate jj / nu of unit k0 + jj % nu, whh's
+// column of which is row jj of w_s.  A thread takes one chain (b, jj): the
+// threads of a warp take 8 neighbouring b and 4 neighbouring jj, so that the
+// loads of a step of four fall in distinct banks or are broadcast.  hbuf (2,
+// B, H) fp32: h of the step before, ping-pong; sync: the barrier's counter,
+// 0 at launch.  Utterances are staged `rows` at a time; the xproj entries of
+// a step are copied into shared memory a step ahead.  trace, if not null:
+// (steps, 5) int64 where thread 0 of CTA 0 writes, each step, the global
+// timer (ns) as the step starts and its clock (cycles) then, after the
+// staging, after the dot chains and after the cell updates.
+template <typename OutT, typename ResT, bool kSave>
+__global__ void __launch_bounds__(1024) lstm_grid_kernel(
+    const float* __restrict__ xproj, const float* __restrict__ whh,
+    const int* __restrict__ lengths, OutT* __restrict__ out, ResT* __restrict__ acts,
+    ResT* __restrict__ ct, float* hbuf, unsigned* sync, long long* trace, int T, int B, int H,
+    int units, int rows, int reverse) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = 4 * H, HP = padded_row(H);
+  const int k0 = blockIdx.x * units, nu = min(units, H - k0), nc = 4 * nu;
+  float* w_s = smem;                       // (nc, HP): whh[:, col] of each owned column
+  float* h_s = w_s + 4 * units * HP;       // (rows, HP): h of the utterances staged
+  float* pre_s = h_s + rows * HP;          // (B, nc): this step's gates
+  float* c_s = pre_s + 4 * B * units;      // (B, nu): cell carry
+  float* xp_s = c_s + B * units;           // (2, B, nc): xproj of a step, ping-pong
+  int* len_s = reinterpret_cast<int*>(xp_s + 8 * B * units);
+  // Copies the xproj entries of step s that this CTA's chains add into
+  // xp_s[s % 2] (4-byte cp.async, one group).
+  auto fetch_xproj = [&](int s) {
+    float* dst = xp_s + (s & 1) * 4 * B * units;
+    for (int i = threadIdx.x; i < B * nc; i += blockDim.x) {
+      const int b = i / nc, jj = i % nc, len = len_s[b];
+      if (!kSave && s >= len) continue;
+      const int t = s < len && reverse ? len - 1 - s : s;
+      const float* src = xproj + ((size_t)b * T + t) * G + (jj / nu) * H + k0 + jj % nu;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst + i)),
+                   "l"(src)
+                   : "memory");
+    }
+    cp_async_commit();
+  };
+
+  for (int e = threadIdx.x; e < H * nc; e += blockDim.x) {
+    const int r = e / nc, jj = e % nc;
+    w_s[jj * HP + r] = whh[(size_t)r * G + (jj / nu) * H + k0 + jj % nu];
+  }
+  int steps = kSave ? T : 0;
+  for (int b = 0; b < B; ++b) {
+    const int len = max(0, min(lengths[b], T));
+    if (!kSave) steps = max(steps, len);
+    if (threadIdx.x == 0) len_s[b] = len;
+    for (int e = threadIdx.x; e < (T - len) * nu; e += blockDim.x)
+      out[((size_t)b * T + len + e / nu) * H + k0 + e % nu] = from_f32<OutT>(0.f);
+  }
+  for (int e = threadIdx.x; e < B * nu; e += blockDim.x) c_s[e] = 0.f;
+  __syncthreads();
+  fetch_xproj(0);
+
+  long long* tr = blockIdx.x == 0 && threadIdx.x == 0 ? trace : nullptr;
+  for (int s = 0; s < steps; ++s) {
+    if (tr) {
+      tr[5 * s] = (long long)global_ns();
+      tr[5 * s + 1] = clock64();
+    }
+    const float* hcur = hbuf + (size_t)(s & 1) * B * H;
+    float* hnext = hbuf + (size_t)((s + 1) & 1) * B * H;
+    const float* xp = xp_s + (s & 1) * 4 * B * units;
+    for (int b0 = 0; b0 < B; b0 += rows) {
+      const int nb = min(rows, B - b0);
+      if (b0 > 0) __syncthreads();  // the last group's chains have read h_s
+      stage_rows(h_s, s > 0 ? hcur + (size_t)b0 * H : nullptr, nb, H, HP);
+      if (b0 == 0 && s + 1 < steps) {
+        fetch_xproj(s + 1);  // lands during this step; all older groups done
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (tr && b0 == 0) tr[5 * s + 2] = clock64();
+      const int nb8 = (nb + 7) / 8;
+      for (int i = threadIdx.x; i < nb8 * 8 * nc; i += blockDim.x) {
+        const int g = i / 8;  // 8 utterances x 4 columns a warp
+        const int bl = 8 * (g / 4 % nb8) + i % 8, jj = 4 * (g / (4 * nb8)) + g % 4;
+        if (bl >= nb) continue;
+        const int b = b0 + bl, len = len_s[b];
+        const bool valid = s < len;
+        if (!kSave && !valid) continue;
+        const float xv = xp[b * nc + jj];
+        // A reverse row past its window enters from zeros.
+        const float acc = valid || !reverse ? dot_chain(h_s + bl * HP, w_s + jj * HP, H) : 0.f;
+        if (valid) {
+          pre_s[b * nc + jj] = xv + acc;
+        } else if constexpr (kSave) {  // as fill_invalid_residuals: pre = 0 + acc
+          const int col = (jj / nu) * H + k0 + jj % nu;
+          acts[((size_t)s * B + b) * G + col] = from_f32<ResT>(gate_act(xv + (0.f + acc), col, H));
+        }
+      }
+    }
+    __syncthreads();
+    if (tr) tr[5 * s + 3] = clock64();
+    for (int i = threadIdx.x; i < B * nu; i += blockDim.x) {
+      const int b = i % B, u = i / B, k = k0 + u, len = len_s[b];
+      float* c = c_s + b * nu + u;
+      if (s < len) {
+        const int t = reverse ? len - 1 - s : s;
+        const float* p = pre_s + b * nc;
+        const float ig = sigmoid(p[u]);
+        const float fg = sigmoid(p[nu + u]);
+        const float gg = tanhf(p[2 * nu + u]);
+        const float og = sigmoid(p[3 * nu + u]);
+        const float cn = fg * c[0] + ig * gg;
+        const float hn = og * tanhf(cn);
+        c[0] = cn;
+        hnext[(size_t)b * H + k] = hn;
+        out[((size_t)b * T + t) * H + k] = from_f32<OutT>(hn);
+        if constexpr (kSave) {
+          ResT* a = acts + ((size_t)t * B + b) * G;
+          a[k] = from_f32<ResT>(ig);
+          a[H + k] = from_f32<ResT>(fg);
+          a[2 * H + k] = from_f32<ResT>(gg);
+          a[3 * H + k] = from_f32<ResT>(og);
+          ct[((size_t)t * B + b) * H + k] = from_f32<ResT>(cn);
+        }
+      } else if constexpr (kSave) {  // past the window, t = s: the held state
+        ct[((size_t)s * B + b) * H + k] = from_f32<ResT>(reverse ? 0.f : c[0]);
+        if (!reverse) hnext[(size_t)b * H + k] = s > 0 ? __ldcg(hcur + (size_t)b * H + k) : 0.f;
+      }
+    }
+    __syncthreads();
+    if (tr) tr[5 * s + 4] = clock64();
+    if (s + 1 < steps) grid_wait(sync, (unsigned)(s + 1) * gridDim.x);
+  }
+}
+
 // kDual (K11): direction blockIdx.y; gy (B, T, 2H), acts (2, T, B, 4H), ct
 // (2, T, B, H), whh (2, H, 4H), dgates (2, B, T, 4H), hprev (2, B, T, H).
 template <typename ResT, bool kDual = false>
@@ -370,29 +655,73 @@ cudaError_t projection(const void* x, const void* wih, const float* bias, float*
                  : gemm<float, float, float>(x, D, 1, wih, G, 1, bias, xproj, M, G, D, st);
 }
 
-template <typename OutT, typename ResT, bool kSave, bool kDual = false>
-cudaError_t recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
-                       void* acts, void* ct, int B, int T, int H, int reverse, cudaStream_t st) {
+// K11's forward recurrence: the per-utterance kernel, both directions.
+template <typename OutT, typename ResT, bool kSave>
+cudaError_t dual_recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
+                            void* acts, void* ct, int B, int T, int H, cudaStream_t st) {
   const size_t smem = (size_t)6 * H * sizeof(float);
-  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave, kDual>;
+  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave, true>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = 2 * H >= 1024 ? 1024 : (2 * H + 31) / 32 * 32;
-  kernel<<<dim3(B, kDual ? 2 : 1), threads, smem, st>>>(
-      xproj, whh, lengths, static_cast<OutT*>(out), static_cast<ResT*>(acts),
-      static_cast<ResT*>(ct), T, B, H, reverse);
+  kernel<<<dim3(B, 2), threads, smem, st>>>(xproj, whh, lengths, static_cast<OutT*>(out),
+                                            static_cast<ResT*>(acts), static_cast<ResT*>(ct), T,
+                                            B, H, 0);
   return cudaGetLastError();
 }
 
-template <typename OutT, bool kDual = false>
-cudaError_t train_recurrence(const float* xproj, const float* whh, const int* lengths,
-                             void* out, void* acts, void* ct, int B, int T, int H, int reverse,
-                             int res_bf16, cudaStream_t st) {
-  return res_bf16 ? recurrence<OutT, bf16, true, kDual>(xproj, whh, lengths, out, acts, ct, B,
-                                                        T, H, reverse, st)
-                  : recurrence<OutT, float, true, kDual>(xproj, whh, lengths, out, acts, ct, B,
-                                                         T, H, reverse, st);
+template <typename OutT>
+cudaError_t dual_train_recurrence(const float* xproj, const float* whh, const int* lengths,
+                                  void* out, void* acts, void* ct, int B, int T, int H,
+                                  int res_bf16, cudaStream_t st) {
+  return res_bf16 ? dual_recurrence<OutT, bf16, true>(xproj, whh, lengths, out, acts, ct, B, T,
+                                                      H, st)
+                  : dual_recurrence<OutT, float, true>(xproj, whh, lengths, out, acts, ct, B, T,
+                                                       H, st);
+}
+
+// K2's and K3's forward recurrence on the co-resident grid: ctas CTAs of
+// `units` hidden units each, `rows` utterances staged at once, smem bytes of
+// shared memory each (ops/lstm_cuda.py::recurrence_grid).  Returns the
+// cooperative launch's error where the grid cannot be resident at once.
+template <typename OutT, typename ResT, bool kSave>
+cudaError_t grid_recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
+                            void* acts, void* ct, float* hbuf, unsigned* sync, long long* trace,
+                            int B, int T, int H, int reverse, int ctas, int units, int rows,
+                            int smem, cudaStream_t st) {
+  if (units < 1 || rows < 1 || rows > B || (long)ctas * units < H ||
+      (long)(ctas - 1) * units >= H || (size_t)smem < grid_smem_bytes(H, B, units, rows))
+    return cudaErrorInvalidValue;
+  auto kernel = lstm_grid_kernel<OutT, ResT, kSave>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // A thread a chain of a staged group (its utterances rounded up to 8), and
+  // at least 256 for the staging.
+  int threads = (rows + 7) / 8 * 8 * 4 * units;
+  threads = threads < 256 ? 256 : threads > 1024 ? 1024 : (threads + 31) / 32 * 32;
+  OutT* o = static_cast<OutT*>(out);
+  ResT* a = static_cast<ResT*>(acts);
+  ResT* c = static_cast<ResT*>(ct);
+  void* args[] = {&xproj, &whh, &lengths, &o, &a, &c, &hbuf, &sync, &trace,
+                  &T, &B, &H, &units, &rows, &reverse};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(ctas),
+                                     dim3(threads), args, (size_t)smem, st);
+}
+
+template <typename OutT>
+cudaError_t train_grid_recurrence(const float* xproj, const float* whh, const int* lengths,
+                                  void* out, void* acts, void* ct, float* hbuf, unsigned* sync,
+                                  long long* trace, int B, int T, int H, int reverse,
+                                  int res_bf16, int ctas, int units, int rows, int smem,
+                                  cudaStream_t st) {
+  return res_bf16 ? grid_recurrence<OutT, bf16, true>(xproj, whh, lengths, out, acts, ct, hbuf,
+                                                      sync, trace, B, T, H, reverse, ctas, units,
+                                                      rows, smem, st)
+                  : grid_recurrence<OutT, float, true>(xproj, whh, lengths, out, acts, ct, hbuf,
+                                                       sync, trace, B, T, H, reverse, ctas, units,
+                                                       rows, smem, st);
 }
 
 template <typename ResT, bool kDual = false>
@@ -474,38 +803,47 @@ cudaError_t dual_bwd_products(const float* dgates, const float* hprev, const voi
 
 }  // namespace
 
-// Inference forward.  xproj: (B, T, 4H) fp32 scratch; in_bf16 / out_bf16
-// pick the types of x and wih / of out (else fp32).  Returns the first
-// failing launch's cudaError_t, or 0.
+// Inference forward.  xproj: (B, T, 4H) fp32 scratch; hbuf (2, B, H) fp32
+// scratch, sync (one unsigned, 0) and trace (null, or (max len, 5) int64:
+// see lstm_grid_kernel) for the grid; in_bf16 / out_bf16 pick the types of x
+// and wih / of out (else fp32); ctas, units, rows, smem: the grid
+// (ops/lstm_cuda.py::recurrence_grid).  Returns the first failing launch's
+// cudaError_t, or 0.
 extern "C" int lstm_seq_fwd(const void* x, const void* wih, const float* whh,
-                            const float* bias, const int* lengths, float* xproj,
-                            void* out, int B, int T, int D, int H, int reverse,
-                            int in_bf16, int out_bf16, void* stream) {
+                            const float* bias, const int* lengths, float* xproj, float* hbuf,
+                            unsigned* sync, long long* trace, void* out, int B, int T, int D,
+                            int H, int reverse, int in_bf16, int out_bf16, int ctas, int units,
+                            int rows, int smem, void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
   if (err != cudaSuccess) return err;
-  return out_bf16 ? recurrence<bf16, float, false>(xproj, whh, lengths, out, nullptr, nullptr,
-                                                   B, T, H, reverse, st)
-                  : recurrence<float, float, false>(xproj, whh, lengths, out, nullptr,
-                                                    nullptr, B, T, H, reverse, st);
+  return out_bf16 ? grid_recurrence<bf16, float, false>(xproj, whh, lengths, out, nullptr,
+                                                        nullptr, hbuf, sync, trace, B, T, H,
+                                                        reverse, ctas, units, rows, smem, st)
+                  : grid_recurrence<float, float, false>(xproj, whh, lengths, out, nullptr,
+                                                         nullptr, hbuf, sync, trace, B, T, H,
+                                                         reverse, ctas, units, rows, smem, st);
 }
 
-// Training forward: as lstm_seq_fwd, plus the residuals acts (T, B, 4H) and
-// ct (T, B, H) in bf16 when res_bf16, else fp32.
+// Training forward: as lstm_seq_fwd (trace (T, 5)), plus the residuals acts
+// (T, B, 4H) and ct (T, B, H) in bf16 when res_bf16, else fp32.
 extern "C" int lstm_seq_train_fwd(const void* x, const void* wih, const float* whh,
                                   const float* bias, const int* lengths, float* xproj,
-                                  void* out, void* acts, void* ct, int B, int T, int D, int H,
-                                  int reverse, int in_bf16, int out_bf16, int res_bf16,
-                                  void* stream) {
+                                  float* hbuf, unsigned* sync, long long* trace, void* out,
+                                  void* acts, void* ct, int B, int T, int D, int H, int reverse,
+                                  int in_bf16, int out_bf16, int res_bf16, int ctas, int units,
+                                  int rows, int smem, void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
   if (err != cudaSuccess) return err;
-  return out_bf16 ? train_recurrence<bf16>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                           reverse, res_bf16, st)
-                  : train_recurrence<float>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                            reverse, res_bf16, st);
+  return out_bf16 ? train_grid_recurrence<bf16>(xproj, whh, lengths, out, acts, ct, hbuf, sync,
+                                                trace, B, T, H, reverse, res_bf16, ctas, units,
+                                                rows, smem, st)
+                  : train_grid_recurrence<float>(xproj, whh, lengths, out, acts, ct, hbuf, sync,
+                                                 trace, B, T, H, reverse, res_bf16, ctas, units,
+                                                 rows, smem, st);
 }
 
 // Backward.  gy: (B, T, H) fp32; dgates (B, T, 4H) and hprev (B, T, H): fp32
@@ -538,10 +876,10 @@ extern "C" int bilstm_seq_fwd(const void* x, const void* wih, const float* whh,
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
   if (err != cudaSuccess) return err;
-  return out_bf16 ? recurrence<bf16, float, false, true>(xproj, whh, lengths, out, nullptr,
-                                                         nullptr, B, T, H, 0, st)
-                  : recurrence<float, float, false, true>(xproj, whh, lengths, out, nullptr,
-                                                          nullptr, B, T, H, 0, st);
+  return out_bf16 ? dual_recurrence<bf16, float, false>(xproj, whh, lengths, out, nullptr,
+                                                        nullptr, B, T, H, st)
+                  : dual_recurrence<float, float, false>(xproj, whh, lengths, out, nullptr,
+                                                         nullptr, B, T, H, st);
 }
 
 // K11, training forward: as bilstm_seq_fwd, plus each direction's residuals,
@@ -554,10 +892,10 @@ extern "C" int bilstm_seq_train_fwd(const void* x, const void* wih, const float*
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
   if (err != cudaSuccess) return err;
-  return out_bf16 ? train_recurrence<bf16, true>(xproj, whh, lengths, out, acts, ct, B, T, H, 0,
-                                                 res_bf16, st)
-                  : train_recurrence<float, true>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                                  0, res_bf16, st);
+  return out_bf16 ? dual_train_recurrence<bf16>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                                res_bf16, st)
+                  : dual_train_recurrence<float>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                                 res_bf16, st);
 }
 
 // K11, backward.  gy (B, T, 2H) fp32; dgates (2, B, T, 4H), hprev (2, B, T,

@@ -8,24 +8,81 @@ its own training pair; no encoder calls it, as in the JAX package, where it
 is kept beside ``lstm_seq`` as a measured design.  Each wrapper takes its
 plain PyTorch version for CPU tensors and launches its kernel for CUDA
 tensors; there is no other switch and no fallback.
+
+K2's and K3's forward recurrence run on a co-resident grid, one CTA an SM,
+each holding its hidden units' columns of ``whh`` in shared memory;
+``recurrence_grid`` picks the grid, and a launch that cannot be resident
+raises.  K11 and K3's backward walk an utterance a block.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from pytorch_asr_tpu_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"lstm_seq_fwd": [_P] * 7 + [_I] * 7 + [_P],
-               "lstm_seq_train_fwd": [_P] * 9 + [_I] * 8 + [_P],
+_SIGNATURES = {"lstm_seq_fwd": [_P] * 10 + [_I] * 11 + [_P],
+               "lstm_seq_train_fwd": [_P] * 12 + [_I] * 12 + [_P],
                "lstm_seq_bwd": [_P] * 13 + [_I] * 7 + [_P],
                "bilstm_seq_fwd": [_P] * 7 + [_I] * 6 + [_P],
                "bilstm_seq_train_fwd": [_P] * 9 + [_I] * 7 + [_P],
                "bilstm_seq_bwd": [_P] * 14 + [_I] * 6 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
+SMS = 132                      # the H100 SXM's SMs
+SMEM_PER_BLOCK = 232448        # shared memory a Hopper block can opt in to, bytes
+
+
+class Grid(NamedTuple):
+    """The co-resident grid of K2's and K3's forward recurrence.  CTA j owns
+    the hidden units [j units, min((j + 1) units, H)) and their gate columns
+    k, H+k, 2H+k, 3H+k."""
+    hidden: int    # H
+    ctas: int      # CTAs, one an SM
+    units: int     # hidden units a CTA owns (the last may own fewer)
+    rows: int      # utterances whose h a CTA stages at once
+    smem: int      # bytes of shared memory a CTA
+
+
+def _padded_row(H: int) -> int:
+    """csrc/lstm_seq.cu::padded_row: a shared-memory row of H floats, 4 mod 32."""
+    return -(-H // 32) * 32 + 4
+
+
+def recurrence_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK,
+                    units: int | None = None) -> Grid:
+    """The grid of the forward recurrence for hidden width H and B utterances.
+
+    Each CTA holds 4 ``units`` columns of whh (all H rows, fp32) in shared
+    memory, the h of ``rows`` utterances, B x 13 ``units`` floats of gates,
+    cell carry and two steps' xproj, and 16 floats of tail
+    (csrc/lstm_seq.cu::grid_smem_bytes).  ``units`` defaults to
+    the fewest that spread H over at most ``sms`` CTAs, ceil(H / sms): the
+    most CTAs and the shortest chains a CTA (``chip_smoke.py``'s sweep chose
+    it at configs 1 and 2).  ``rows`` is B where it fits, else as many as fit.
+    Raises ValueError where the grid cannot hold whh on ``sms`` SMs.
+    """
+    units = units or -(-H // sms)
+    ctas = -(-H // units)
+    hp = _padded_row(H)
+    fixed = 4 * (4 * units * hp + 13 * B * units + 16) + 4 * B
+    rows = min(B, (smem - fixed) // (4 * hp))
+    if ctas > sms or rows < 1:
+        raise ValueError(
+            f"lstm_seq: H {H} at B {B} does not fit the co-resident grid: {ctas} CTAs of "
+            f"{units} units need {fixed + 4 * hp} bytes of shared memory each ({4 * units} "
+            f"columns of whh, one staged row of h, the state of {B} rows), on {sms} SMs of "
+            f"{smem} bytes")
+    return Grid(H, ctas, units, rows, fixed + 4 * rows * hp)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _projection(x, wih, bias):
@@ -151,23 +208,7 @@ def lstm_seq_infer(x, wih, whh, bias, lengths, reverse: bool = False,
     """Inference forward (K2): the kernel for CUDA tensors, ``lstm_seq_plain`` for CPU."""
     if x.device.type == "cpu":
         return lstm_seq_plain(x, wih, whh, bias, lengths, reverse, out_dtype)
-    out_dtype = out_dtype or torch.float32
-    _check_cuda_args(x, wih, whh, bias, lengths, out_dtype)
-    B, T, D = x.shape
-    H = whh.shape[0]
-    out = torch.empty((B, T, H), dtype=out_dtype, device=x.device)
-    if B == 0 or T == 0:
-        return out
-    xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
-    lib = build.load("lstm_seq", _SIGNATURES)
-    err = lib.lstm_seq_fwd(
-        x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(),
-        lengths.data_ptr(), xproj.data_ptr(), out.data_ptr(),
-        B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), _stream(x))
-    build.check(err, "lstm_seq")
-    build.LAUNCHES["lstm_seq"] += 1
-    return out
+    return forward_on_grid(None, x, wih, whh, bias, lengths, reverse, out_dtype)
 
 
 def lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse: bool = False,
@@ -177,29 +218,58 @@ def lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse: bool = False,
     if x.device.type == "cpu":
         return lstm_seq_train_plain(x, wih, whh, bias, lengths, reverse, out_dtype,
                                     residual_dtype)
-    out_dtype = out_dtype or torch.float32
-    _check_cuda_args(x, wih, whh, bias, lengths, out_dtype)
     if residual_dtype not in _DTYPES:
         raise ValueError(f"lstm_seq: residual_dtype must be float32 or bfloat16, "
                          f"got {residual_dtype}")
+    return forward_on_grid(None, x, wih, whh, bias, lengths, reverse, out_dtype, residual_dtype)
+
+
+def forward_on_grid(grid: Grid | None, x, wih, whh, bias, lengths, reverse: bool = False,
+                    out_dtype: torch.dtype | None = None,
+                    residual_dtype: torch.dtype | None = None,
+                    trace: torch.Tensor | None = None):
+    """K2 (``residual_dtype`` None) -> out, or K3's training forward -> (out,
+    acts, ct), launched on ``grid``; None takes ``recurrence_grid``'s rule for
+    the tensors' card (``chip_smoke.py`` sweeps other grids through here).
+    ``trace``, a contiguous int64 (T, 5) tensor on the card, receives in row
+    s the timestamps of step s from CTA 0 (K2 walks max(len) steps, K3 T):
+    the global timer in ns as the step starts, and the SM clock in cycles
+    then, after staging h, after the dot chains and after the cell updates."""
+    out_dtype = out_dtype or torch.float32
+    _check_cuda_args(x, wih, whh, bias, lengths, out_dtype)
     B, T, D = x.shape
+    if trace is not None and (tuple(trace.shape) != (T, 5) or trace.dtype != torch.int64
+                              or trace.device != x.device or not trace.is_contiguous()):
+        raise ValueError(f"lstm_seq: trace must be contiguous ({T}, 5) int64 on {x.device}")
     H = whh.shape[0]
+    train = residual_dtype is not None
     out = torch.empty((B, T, H), dtype=out_dtype, device=x.device)
-    acts = torch.empty((T, B, 4 * H), dtype=residual_dtype, device=x.device)
-    ct = torch.empty((T, B, H), dtype=residual_dtype, device=x.device)
+    if train:
+        acts = torch.empty((T, B, 4 * H), dtype=residual_dtype, device=x.device)
+        ct = torch.empty((T, B, H), dtype=residual_dtype, device=x.device)
     if B == 0 or T == 0:
-        return out, acts, ct
+        return (out, acts, ct) if train else out
+    grid = grid or recurrence_grid(H, B, _sm_count(x.device.index))
+    if grid.hidden != H:
+        raise ValueError(f"lstm_seq: a grid for H {grid.hidden}, not {H}")
     xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
+    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=x.device)
+    sync = torch.zeros(1, dtype=torch.int32, device=x.device)
     lib = build.load("lstm_seq", _SIGNATURES)
-    err = lib.lstm_seq_train_fwd(
-        x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(),
-        lengths.data_ptr(), xproj.data_ptr(), out.data_ptr(), acts.data_ptr(),
-        ct.data_ptr(), B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), int(residual_dtype == torch.bfloat16),
-        _stream(x))
-    build.check(err, "lstm_seq_train_fwd")
-    build.LAUNCHES["lstm_seq_train_fwd"] += 1
-    return out, acts, ct
+    ptrs = [t.data_ptr() for t in (x, wih, whh, bias, lengths, xproj, hbuf, sync)]
+    ptrs += [0 if trace is None else trace.data_ptr(), out.data_ptr()]
+    flags = [B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
+             int(out_dtype == torch.bfloat16)]
+    if train:
+        name = "lstm_seq_train_fwd"
+        err = lib.lstm_seq_train_fwd(*ptrs, acts.data_ptr(), ct.data_ptr(), *flags,
+                                     int(residual_dtype == torch.bfloat16), *grid[1:], _stream(x))
+    else:
+        name = "lstm_seq"
+        err = lib.lstm_seq_fwd(*ptrs, *flags, *grid[1:], _stream(x))
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return (out, acts, ct) if train else out
 
 
 def lstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct, reverse: bool = False):

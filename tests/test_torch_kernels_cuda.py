@@ -634,6 +634,38 @@ def test_bilstm_kernel_rejects_what_it_does_not_take(cuda):
         lstm_cuda.bilstm_seq(x, wih, whh, bias, lengths.long())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,B", [(384, 8), (512, 16), (640, 4)])
+def test_lstm_grid_kernels_equal_the_per_utterance_kernel(cuda, H, B):
+    """K2 and K3's forward on the co-resident grid, at config 1's, config 2's
+    and config 5's widths, equal K11's directions (the per-utterance kernel)
+    bit for bit: the same dot order and cell update.  Short T; rows of
+    length T, 0, past T and in between; both directions."""
+    T, D = 24, 64
+    x, wih, whh, bias, _ = _bilstm_case(cuda, torch.bfloat16, B, T, D, H)
+    lengths = torch.tensor(([T, 0, T + 5, 1] + [2 + 7 * i % (T - 2) for i in range(B)])[:B],
+                           dtype=torch.int32, device=cuda)
+    k11 = lstm_cuda.bilstm_seq_infer(x, wih, whh, bias, lengths, torch.bfloat16)
+    for d in (0, 1):
+        args = (x, wih[d], whh[d], bias[d], lengths, bool(d), torch.bfloat16)
+        build.reset_launches()
+        got = lstm_cuda.lstm_seq_infer(*args)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["lstm_seq"] == 1
+        assert torch.equal(got, k11[..., d * H:(d + 1) * H])
+    for res in (torch.float32, torch.bfloat16):
+        out, acts, ct = lstm_cuda.bilstm_seq_train_fwd(x, wih, whh, bias, lengths,
+                                                       torch.bfloat16, res)
+        for d in (0, 1):
+            build.reset_launches()
+            got = lstm_cuda.lstm_seq_train_fwd(x, wih[d], whh[d], bias[d], lengths, bool(d),
+                                               torch.bfloat16, res)
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["lstm_seq_train_fwd"] == 1
+            assert torch.equal(got[0], out[..., d * H:(d + 1) * H])
+            assert torch.equal(got[1], acts[d]) and torch.equal(got[2], ct[d])
+
+
 # ---------------------------------------------------------------- the paired CTC alpha
 
 

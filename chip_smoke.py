@@ -40,9 +40,11 @@ result line):
      with ``decode.ext_top_a=8``, counting launches; beam-decode the
      learned tiny model with the RNN LM; profile one of its batches;
   9. config 3, ``tcn_ctc_devclean``: hold the TCN block kernels, K5 and the
-     K6 forward and backward, against their plain versions at B 16, T' 400
-     and a ragged 397, C 384, K 5, every dilation of the cycle, and K5 on
-     bf16 input, and time them beside a composite of torch calls; run the
+     K6 forward and backward (3xTF32 on the tensor cores; two calls
+     bit-equal), against their plain versions at B 16, T' 400 and a ragged
+     397, C 384, K 5, every dilation of the cycle, and K5 on bf16 input, and
+     time them beside a composite of torch calls (the backward with its
+     3xTF32 and fp32 bounds); run the
      model and one train step at float32 on the CPU and on the card; drive
      ``decode.main`` (prefix beam K 16, no LM, its 14-bucket decode ladder)
      and ``train.main`` (batch 16, one bucket) at full width in bf16 with
@@ -59,11 +61,14 @@ result line):
      decode's), 4 ranks at model axis 4 with the RNN LM; and the sharded
      search with the RNN LM in 4 ranks against the plain search;
   11. the last four kernels, none of which a model path runs: K11, both
-     directions of a BiLSTM layer in one launch, at config 1's layer shape
-     (inference, and training forward and backward) and config 2's
-     (inference), bit-equal to two K2 (K3) launches, its gradients within
-     K3's tolerances, timed beside them and cuDNN's bidirectional LSTM, then
-     driven through ``lstm_cuda.bilstm_seq`` with counts; the paired CTC
+     directions of a BiLSTM layer in one launch (its forward on the dual
+     grid), at config 1's layer shape (inference, and training forward and
+     backward) and config 2's (inference), bit-equal to two K2 (K3)
+     launches and to the per-utterance oracle, its gradients within K3's
+     tolerances, timed beside them, the oracle and cuDNN's bidirectional
+     LSTM, with the dual grid's step split and a sweep of 32, 48 and 64 CTAs
+     a direction, then driven through ``lstm_cuda.bilstm_seq`` with counts
+     (no oracle launch, no plain version); the paired CTC
      alpha at K4's shape against its plain version and K4, then
      ``train.main`` with ``ops.ctc_cuda.PAIRED_FWD`` set, with counts; K13
      and K12, the search with its tokens in the block and the search as a
@@ -72,7 +77,8 @@ result line):
      the ported benchmark scripts
      ``bench_prefix_beam fused=1`` and ``bench_beam_compile stepwise=1`` at
      their default widths, with counts;
-  12. print the kernels line, the card line, and ``{"ok": true, ...}`` last.
+  12. check that no path launched the per-utterance oracle; print the
+     kernels line, the card line, and ``{"ok": true, ...}`` last.
 Whether it passes or fails, the script ends every process it started (the
 ranks, multiprocessing's resource tracker, and anything they left) before it
 exits.
@@ -132,6 +138,7 @@ from pytorch_asr_tpu_torch.training.trainer import Trainer
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12          # CUDA cores
 PEAK_BF16_S = 989e12         # tensor cores
+PEAK_TF32_S = 495e12         # tensor cores
 B, AUDIO = 8, 256000         # 8 utterances of 16 s: the serving batch at its longest
 T_LSTM, H = 400, 384         # conv output frames of 16 s; ctc_bilstm_dev1h width
 # log-mel: the kernel's fp64 FFT against the plain version's fp32 cuFFT,
@@ -392,21 +399,24 @@ def stft_phase() -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def grid_record(args: tuple, b: int, steps: int, residual_dtype=None) -> dict:
-    """K2's (K3's forward, with ``residual_dtype``) grid for ``args``, the
-    device time a step of its recurrence (lstm_grid_kernel alone, from the
-    profiler), and where a step goes: CTA 0's median cycles from staging h,
-    through the dot chains and the cell updates, to the grid barrier
-    (``forward_on_grid``'s trace), in µs at the clock the trace saw."""
-    H = args[2].shape[0]
+def grid_record(args: tuple, b: int, steps: int, residual_dtype=None, dual: bool = False) -> dict:
+    """K2's (K3's forward, with ``residual_dtype``) grid for ``args``, or with
+    ``dual`` K11's grid of both directions, the device time a step of its
+    recurrence (lstm_grid_kernel alone, from the profiler), and where a step
+    goes: CTA 0's median cycles from staging h, through the dot chains and
+    the cell updates, to the grid barrier (the trace of ``forward_on_grid``
+    or ``bilstm_on_grid``), in µs at the clock the trace saw."""
+    H = args[2].shape[-2]
+    launch = lstm_cuda.bilstm_on_grid if dual else lstm_cuda.forward_on_grid
     rec = {"grid": lstm_cuda.recurrence_grid(H, b, torch.cuda.get_device_properties(0)
-                                             .multi_processor_count)._asdict(),
+                                             .multi_processor_count,
+                                             directions=2 if dual else 1)._asdict(),
            "recurrence_ms": device_ms_per_call(
-               lambda: lstm_cuda.forward_on_grid(None, *args, residual_dtype=residual_dtype),
+               lambda: launch(None, *args, residual_dtype=residual_dtype),
                "lstm_grid_kernel", 5)}
     rec["us_per_step"] = rec["recurrence_ms"] / steps * 1e3
     trace = torch.zeros((args[0].shape[1], 5), dtype=torch.int64, device=CARD)
-    lstm_cuda.forward_on_grid(None, *args, residual_dtype=residual_dtype, trace=trace)
+    launch(None, *args, residual_dtype=residual_dtype, trace=trace)
     tr = trace[:steps].cpu().numpy().astype(np.float64)
     ghz = (tr[-1, 1] - tr[0, 1]) / (tr[-1, 0] - tr[0, 0])
     cycles = {"stage": tr[:-1, 2] - tr[:-1, 1], "chains": tr[:-1, 3] - tr[:-1, 2],
@@ -507,6 +517,20 @@ def lstm_grid_sweep() -> dict:
         out[tag] = {"rule_ctas": rule.ctas, "ms_by_ctas": times,
                     "fastest_ctas": min(times, key=times.get)}
     return out
+
+
+def dual_grid_sweep(args: tuple, b: int, want: torch.Tensor) -> dict:
+    """K11's forward on dual grids of 32, 48 and 64 CTAs a direction (the
+    rule's is 64 at H 384 and 512), each held to ``want`` bit for bit and
+    timed: {"ms_by_ctas": {CTAs a direction: ms}, "fastest_ctas": ...}."""
+    H = args[2].shape[-2]
+    times = {}
+    for ctas in (32, 48, 64):
+        grid = lstm_cuda.recurrence_grid(H, b, units=-(-H // ctas), directions=2)
+        check(torch.equal(lstm_cuda.bilstm_on_grid(grid, *args), want),
+              f"bilstm_seq on {grid}: differs from the rule's grid")
+        times[grid.ctas] = time_ms(lambda: lstm_cuda.bilstm_on_grid(grid, *args), 5, 4, 1)
+    return {"ms_by_ctas": times, "fastest_ctas": min(times, key=times.get)}
 
 
 def cudnn_lstm(D: int, wih, whh, bias) -> torch.nn.LSTM:
@@ -731,12 +755,16 @@ def bilstm_phase() -> tuple[list[dict], dict]:
     layer shape (x (8, 400, 768) bf16, H 384, lengths 400 down to 250) and
     config 2's (x (16, 400, 1024) bf16, H 512), forward; at config 1's also
     the training forward and backward with bf16 and float32 residuals.  The
-    forwards (and the residuals) must equal two K2 (K3) launches bit for
-    bit, the gradients K3's pair within K3's tolerances (bit-equality is
-    reported); everything is also held to the plain versions.  Timed beside
-    two K2 (K3) launches back to back and cuDNN's bidirectional LSTM.  Then
-    the op's own path: ``lstm_cuda.bilstm_seq`` without gradients and under
-    autograd, with the counters set to 0 before and read after."""
+    forwards (and the residuals) run on the dual grid and must equal two K2
+    (K3) launches and the per-utterance oracle bit for bit, the gradients
+    K3's pair within K3's tolerances (bit-equality is reported); everything
+    is also held to the plain versions.  Timed beside two K2 (K3) launches
+    back to back, the oracle and cuDNN's bidirectional LSTM; the dual
+    grid's µs a step and its split (``grid_record``), and a sweep of 32, 48
+    and 64 CTAs a direction.  Then the op's own path:
+    ``lstm_cuda.bilstm_seq`` without gradients and under autograd, with the
+    counters set to 0 before and read after: no oracle launch, no plain
+    version."""
     g = torch.Generator().manual_seed(5)
     out, cases, path_launches = [], [], None
     shapes = (("config 1", B, T_LSTM, 2 * H, H, LSTM_LENGTHS),
@@ -755,6 +783,8 @@ def bilstm_phase() -> tuple[list[dict], dict]:
         pair = [(x, wih[d], whh[d], bias[d], lens, bool(d), torch.bfloat16) for d in (0, 1)]
         two_k2 = torch.cat([lstm_cuda.lstm_seq_infer(*p) for p in pair], dim=-1)
         check(torch.equal(got, two_k2), f"K11 {tag}: forward differs from two K2 launches")
+        check(torch.equal(got, lstm_cuda._bilstm_seq_per_utterance(*args)),
+              f"K11 {tag}: forward differs from the per-utterance oracle")
         err, rel = errors(got, lstm_cuda.bilstm_seq_plain(*args))
         check(err <= LSTM_TOL, f"K11 {tag}: forward disagrees with its plain version: {err}")
         valid = int(sum(lengths))
@@ -762,17 +792,27 @@ def bilstm_phase() -> tuple[list[dict], dict]:
                   + 2 * b * T * 2 * Hd)
         ops_s = 2 * (2 * D * G * valid / PEAK_BF16_S + 2 * Hd * G * valid / PEAK_FP32_S)
         case = {"layer": tag, "x": [b, T, D], "H": Hd, "bit_equal_two_k2": True,
-                "max_abs_err": err, "max_rel_err": rel,
+                "bit_equal_oracle": True, "max_abs_err": err, "max_rel_err": rel,
                 "ms": time_ms(lambda: lstm_cuda.bilstm_seq_infer(*args), 5, 4, 1),
                 "two_k2_ms": time_ms(lambda: [lstm_cuda.lstm_seq_infer(*p) for p in pair],
                                      5, 4, 1),
                 "one_k2_ms": time_ms(lambda: lstm_cuda.lstm_seq_infer(*pair[0]), 5, 4, 1),
+                "oracle_ms": time_ms(lambda: lstm_cuda._bilstm_seq_per_utterance(*args),
+                                     5, 4, 1),
                 "plain_ms": time_ms(lambda: lstm_cuda.bilstm_seq_plain(*args), 3, 1, 1)}
         ref = cudnn_lstm(D, wih, whh, bias)
         xf = x.float()
         with torch.no_grad():
             case["library_ms"] = time_ms(lambda: ref(xf), 5, 4, 1)
         case["bound_ms"], case["bound_by"] = bound(nbytes, ops_s)
+        case.update(grid_record(args, b, max(lengths), dual=True))
+        case["grid_sweep"] = dual_grid_sweep(args, b, got)
+        print(f"bilstm_seq dual grid, {tag}: {json.dumps(case['grid'])}, "
+              f"recurrence {case['recurrence_ms']:.4f} ms, {case['us_per_step']:.3f} us a "
+              f"step of {max(lengths)} {json.dumps(case['step_us_median'])}, call "
+              f"{case['ms']:.4f} ms, two K2 {case['two_k2_ms']:.4f} ms, oracle "
+              f"{case['oracle_ms']:.4f} ms, cuDNN {case['library_ms']:.4f} ms, sweep "
+              f"{json.dumps(case['grid_sweep'])}")
         cases.append(case)
         if tag != "config 1":
             continue
@@ -787,6 +827,9 @@ def bilstm_phase() -> tuple[list[dict], dict]:
                   and torch.equal(fwd[1], torch.stack([k3[0][1], k3[1][1]]))
                   and torch.equal(fwd[2], torch.stack([k3[0][2], k3[1][2]])),
                   f"K11 training forward ({res}): differs from two K3 launches")
+            oracle = lstm_cuda._bilstm_seq_per_utterance(*targs)
+            check(all(torch.equal(a, o) for a, o in zip(fwd, oracle)),
+                  f"K11 training forward ({res}): differs from the per-utterance oracle")
             bargs = (gy, x, wih, whh, lens, fwd[1], fwd[2])
             grads = lstm_cuda.bilstm_seq_bwd(*bargs)
             torch.cuda.synchronize()
@@ -830,6 +873,8 @@ def bilstm_phase() -> tuple[list[dict], dict]:
             "fwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_train_fwd(*targs), 5, 4, 1),
             "fwd_two_k3_ms": time_ms(lambda: [lstm_cuda.lstm_seq_train_fwd(*p)
                                               for p in k3_fwd], 5, 4, 1),
+            "fwd_oracle_ms": time_ms(lambda: lstm_cuda._bilstm_seq_per_utterance(*targs),
+                                     5, 4, 1),
             "bwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd(*bargs), 5, 4, 1),
             "bwd_two_k3_ms": time_ms(lambda: [lstm_cuda.lstm_seq_bwd(*p) for p in k3_bwd],
                                      5, 4, 1),
@@ -844,18 +889,24 @@ def bilstm_phase() -> tuple[list[dict], dict]:
         timed["bwd_bound_ms"], timed["bwd_bound_by"] = bound(
             bwd_bytes, 2 * valid * (2 * G * Hd + 2 * G * D + 2 * G * D + 2 * G * Hd + G)
             / PEAK_FP32_S)
+        timed["fwd_grid"] = grid_record(args, b, T, res, dual=True)
+        print(f"bilstm_seq_train_fwd dual grid, {tag}: {json.dumps(timed['fwd_grid'])}")
         # The op's own path: without gradients, then under autograd.
         params = [t.clone().requires_grad_(True) for t in (x, wih, whh, bias)]
+        plain = [(lstm_cuda, n) for n in ("bilstm_seq_plain", "bilstm_seq_train_plain",
+                                          "bilstm_seq_bwd_plain")]
         torch.cuda.synchronize()
         build.reset_launches()
-        with torch.no_grad():
-            lstm_cuda.bilstm_seq(*args)
-        y = lstm_cuda.bilstm_seq(*params, lens, torch.bfloat16)
-        y.float().square().sum().backward()
-        torch.cuda.synchronize()
+        with plain_calls_of(*plain) as plain_calls:
+            with torch.no_grad():
+                lstm_cuda.bilstm_seq(*args)
+            y = lstm_cuda.bilstm_seq(*params, lens, torch.bfloat16)
+            y.float().square().sum().backward()
+            torch.cuda.synchronize()
         path_launches = {k: v for k, v in build.LAUNCHES.items() if v}
         check(path_launches == {"bilstm_seq": 1, "bilstm_seq_train_fwd": 1, "bilstm_seq_bwd": 1},
               f"bilstm_seq path launches {path_launches}")
+        check(not plain_calls, f"a plain version ran on the bilstm_seq path: {plain_calls}")
         check(all(p.grad is not None and bool(torch.isfinite(p.grad.float()).all())
                   for p in params), "bilstm_seq path: non-finite gradients")
     head, shape = cases[0], (f"x ({B}, {T_LSTM}, {2 * H}) bf16, H {H}, lengths {LSTM_LENGTHS}; "
@@ -877,6 +928,8 @@ def bilstm_phase() -> tuple[list[dict], dict]:
             "max_abs_err": max(r[o]["max_abs_err"] for r in train.values() for o in outs),
             "tol": {"float32": K3_F32_TOL, "bfloat16": K3_BF16_TOL},
             "ms": timed[f"{stem}_ms"], "two_k3_ms": timed[f"{stem}_two_k3_ms"],
+            **({"oracle_ms": timed["fwd_oracle_ms"], "grid": timed["fwd_grid"]}
+               if stem == "fwd" else {}),
             "plain_ms": timed[f"plain_{stem}_ms"], "library_ms": timed[f"library_{stem}_ms"],
             "library": f"torch.nn.LSTM(bidirectional=True) (cuDNN, fp32) {what}",
             "bound_ms": timed[f"{stem}_bound_ms"], "bound_by": timed[f"{stem}_bound_by"],
@@ -1724,6 +1777,9 @@ def tcn_phase() -> list[dict]:
                                   xn, dy, p[2], p[3], p[4], d))}
             if T == TCN_T and d == 1:
                 timed = {"x": x, "dy": dy, "xn": xn}
+                again = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], d)
+                check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                      "tcn_block_bwd: two calls differ")
             cases.append(case)
         xb = x.bfloat16()
         outb, wantb = tcn_cuda.tcn_block(xb, *p, 4), tcn_cuda.tcn_block_plain(xb, *p, 4)
@@ -1756,9 +1812,12 @@ def tcn_phase() -> list[dict]:
     BT, P = B * TCN_T, 4 * (2 * C + K * C * 2 * C + 2 * C + C * C + C)
     fwd_ops = 2 * BT * C * (K * 2 * C + C)
     bwd_ops = 2 * BT * C * C * (6 * K + 2)
+    # The backward's products run as 3xTF32 on the tensor cores: three
+    # TF32 products for each one; its fp32 bound is reported beside.
     bounds = {"tcn_block": bound(4 * BT * C * 2 + P, fwd_ops / PEAK_FP32_S),
               "tcn_block_train_fwd": bound(4 * BT * C * 3 + P, fwd_ops / PEAK_FP32_S),
-              "tcn_block_bwd": bound(4 * BT * C * 3 + 2 * P, bwd_ops / PEAK_FP32_S)}
+              "tcn_block_bwd": bound(4 * BT * C * 3 + 2 * P, 3 * bwd_ops / PEAK_TF32_S)}
+    bwd_fp32_bound = bound(4 * BT * C * 3 + 2 * P, bwd_ops / PEAK_FP32_S)
     lines = {"tcn_block": 83, "tcn_block_train_fwd": 302, "tcn_block_bwd": 321}
     head = next(c for c in cases if c["T"] == TCN_T and c["dilation"] == 1)
     out = []
@@ -1774,6 +1833,9 @@ def tcn_phase() -> list[dict]:
             "ms": head["ms"][name], "plain_ms": time_ms(plain[name], 5, 4, 1),
             "library_ms": time_ms(library[name], 5, 4, 1), "library": what[name],
             "bound_ms": b_ms, "bound_by": b_by,
+            **({"bound_fp32_ms": bwd_fp32_bound[0], "bound_note": "bound_ms: 3xTF32 on "
+                "tensor cores (3 x ops / 495 TFLOP/s); bound_fp32_ms: ops / 67 TFLOP/s",
+                "bit_equal_run_to_run": True} if name == "tcn_block_bwd" else {}),
             "ms_by_dilation": {c["dilation"]: c["ms"][name] for c in cases if "ms" in c}})
     out[0]["cases"] = cases
     return out
@@ -1879,7 +1941,8 @@ def tcn_profile_phase() -> dict:
         check(total > 0, f"tcn {name} profile: no device time recorded")
         share = lambda key: sum(r["device_ms"] for r in rows if key in r["name"]) / total  # noqa
         out[name] = {"wall_ms": wall, "device_ms": total, "device_busy": total / wall,
-                     "gemm_share": share("gemm_kernel"), "prefix_beam_share": share("prefix_beam"),
+                     "gemm_share": share("gemm_kernel"), "tc_gemm_share": share("tc_gemm_kernel"),
+                     "prefix_beam_share": share("prefix_beam"),
                      "top": rows[:12]}
     return out
 
@@ -2315,6 +2378,10 @@ def main() -> int:
                 "bilstm_seq_bwd": "bilstm", "ctc_alpha_paired": "train_paired",
                 "prefix_beam_fused": "bench_prefix_beam",
                 "prefix_beam_stepwise": "bench_beam_compile"}
+    # The per-utterance oracle of the grid kernel is no path's kernel.
+    oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0) for p, counts in paths.items()}
+    print("bilstm_seq_per_utterance launches by path:", json.dumps(oracle_runs))
+    check(not any(oracle_runs.values()), f"the per-utterance oracle ran on a path: {oracle_runs}")
     for k in kernels:
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         own = own_path.get(k["name"], "train")

@@ -12,6 +12,8 @@
 //   bilstm_seq_fwd, bilstm_seq_train_fwd  _dual_fwd_impl :722 (_fwd_kernel_dual
 //                       :495), without and with residuals;
 //   bilstm_seq_bwd      _dual_vjp_bwd :822 (_bwd_kernel_dual :571).
+// bilstm_seq_per_utterance is no port of a TPU kernel: it is the oracle
+// below, which only tests and chip_smoke.py reach.
 // Python side: ops/lstm_cuda.py.
 //
 // Computes, for x (B, T, D) in fp32 or bf16, wih (D, 4H) in x's type, whh
@@ -47,10 +49,12 @@
 // into shared memory; a thread runs one dot chain (b, gate column): r
 // ascending, the order of recurrent_product, so every value equals the
 // per-utterance kernel's bit for bit; the CTA updates its units' cells and
-// writes their h to the other buffer; then the CTAs meet at a grid barrier.  K2 walks max(len) steps; K3's forward walks T, because its
+// writes their h to the other buffer; then the CTAs meet at a grid
+// barrier.  K2 walks max(len) steps; K3's forward walks T, because its
 // residuals cover every t: past its window a forward row computes its acts
 // from the held h and c, a reverse row from zeros, as fill_invalid_residuals
-// does below.
+// does below.  K11's forward is the same kernel on a grid of both
+// directions (below).
 //
 // Backward, given gy (B, T, H) fp32 (the output's gradient):
 //  1. lstm_bwd_recurrence_kernel: one block per utterance walks the valid
@@ -63,8 +67,7 @@
 //     constant 0).  It writes dgates (B, T, 4H) and h_prev (B, T, H) in fp32
 //     to device memory; the TPU kept dgates in VMEM.  About 20 MB a direction
 //     at the training shapes (B 8, T' 400, H 384): a round trip for later work
-//     to remove.  Each step reads all of whh (2.4 MB fp32) from L2, as K11's
-//     forward does.
+//     to remove.  Each step reads all of whh (2.4 MB fp32) from L2.
 //  2. products, each a tiled shared-memory GEMM (gemm_kernel, the style of
 //     K2's projection) with fp32 FMA accumulation: dx = dgates @ wih^T in x's
 //     type; dwih = x^T @ dgates in wih's type; dwhh = h_prev^T @ dgates fp32;
@@ -83,20 +86,33 @@
 // the products on tensor cores.
 //
 // K11 runs the two directions of a layer (weights stacked (2, ...): forward,
-// then reverse) as the two rows of one grid, (B, 2), of the per-utterance
-// kernels lstm_recurrence_kernel and lstm_bwd_recurrence_kernel: one block an
-// utterance walks its len steps and reads all of whh from L2 each step.  They
-// gain a direction, blockIdx.y, under a template flag (kDual); K3's backward
-// runs their one-direction instance.  Direction d reads its projection, its
-// whh and its residuals, and writes columns [d H, (d + 1) H) of the (B, T, 2H)
-// output.  The input projections are K2's GEMM, once a direction.  The
-// backward runs both directions' recurrences in one launch, then K3's
-// products for each direction, and dx = dx_f + dx_b, each half in x's type
-// (as the JAX kernel writes dxf and dxb in x's type and sums them).  Every
-// value is computed by the same operations in the same order as two K2 (K3)
-// launches, so K11 equals them bit for bit, though its forward walks each
-// utterance in its own block and theirs steps all utterances on the grid.
-// Bound as K2/K3: twice their operations.
+// then reverse).  Its forward recurrence is lstm_grid_kernel's dual form
+// (kDual): a cooperative grid of (ctas, 2) CTAs, blockIdx.y the direction,
+// each half holding its own direction's whh columns in shared memory
+// (ops/lstm_cuda.py::recurrence_grid with directions 2 gives each direction
+// half the SMs: 64 CTAs at H 384, 512 and 640).  A half reads its own
+// xproj and keeps its own ping-pong h buffer, writes columns [d H, (d + 1)
+// H) of the (B, T, 2H) output and its own residuals.  The two halves step
+// in lockstep, max(len) steps without residuals and T with them, and one
+// barrier a step counts the CTAs of both.  Every value is computed by the
+// same operations in the same order as two K2 (K3) launches, so K11 equals
+// them bit for bit.  Bound as K2/K3, twice their operations; in practice a
+// step costs about one K2 step with twice the dot chains a CTA, the staging
+// and barrier shared (PERF.md).  The input projections are K2's GEMM, once
+// a direction.  The backward runs both directions' per-utterance
+// recurrences (lstm_bwd_recurrence_kernel with kDual: the grid (B, 2)),
+// then K3's products for each direction, and dx = dx_f + dx_b, each half
+// in x's type (as the JAX kernel writes dxf and dxb in x's type and sums
+// them).
+//
+// The oracle.  lstm_recurrence_kernel<..., kDual> walks each utterance of
+// each direction in its own block and reads all of whh from L2 every step:
+// K11's forward until the dual grid, and 3-5x slower than it.  It stays
+// compiled as the bit-equality oracle of the grid kernel, reached only
+// through bilstm_seq_per_utterance (ops/lstm_cuda.py::
+// _bilstm_seq_per_utterance, its own launch count); the card tests and
+// chip_smoke.py call it, and chip_smoke.py checks that no op or model path
+// launches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -305,8 +321,9 @@ __host__ __device__ __forceinline__ size_t grid_smem_bytes(int H, int B, int uni
          sizeof(int) * (size_t)B;
 }
 
-// A barrier of gridDim.x co-resident CTAs on a counter that only grows: the
-// CTAs' n-th barrier waits until it reaches n gridDim.x.  Thread 0 adds to
+// A barrier of the grid's co-resident CTAs on a counter that only grows:
+// their n-th barrier waits until it reaches n times the CTAs of the grid
+// (gridDim.x gridDim.y: both directions under kDual).  Thread 0 adds to
 // it with release semantics after the CTA's __syncthreads and spins with
 // acquire loads (gpu scope), so each CTA's writes before the barrier are
 // visible to every CTA after it (readers load with cp.async.cg or __ldcg,
@@ -430,7 +447,12 @@ __device__ __forceinline__ float dot_chain(const float* h, const float* w, int H
 // (steps, 5) int64 where thread 0 of CTA 0 writes, each step, the global
 // timer (ns) as the step starts and its clock (cycles) then, after the
 // staging, after the dot chains and after the cell updates.
-template <typename OutT, typename ResT, bool kSave>
+// kDual (K11): the grid is (ctas, 2) and blockIdx.y the direction, 0
+// forward, 1 reverse; xproj (2, B, T, 4H), whh (2, H, 4H), hbuf (2, 2, B,
+// H), out (B, T, 2H) (direction d writes columns [d H, (d + 1) H)), acts (2,
+// T, B, 4H), ct (2, T, B, H).  Both halves step in lockstep, one barrier a
+// step for all their CTAs; the trace is CTA (0, 0)'s.
+template <typename OutT, typename ResT, bool kSave, bool kDual = false>
 __global__ void __launch_bounds__(1024) lstm_grid_kernel(
     const float* __restrict__ xproj, const float* __restrict__ whh,
     const int* __restrict__ lengths, OutT* __restrict__ out, ResT* __restrict__ acts,
@@ -438,6 +460,19 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
     int units, int rows, int reverse) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H, HP = padded_row(H);
+  if constexpr (kDual) {
+    const int dir = blockIdx.y;
+    reverse = dir;
+    xproj += (size_t)dir * B * T * G;
+    whh += (size_t)dir * H * G;
+    out += (size_t)dir * H;
+    hbuf += (size_t)dir * 2 * B * H;
+    if constexpr (kSave) {
+      acts += (size_t)dir * T * B * G;
+      ct += (size_t)dir * T * B * H;
+    }
+  }
+  constexpr int kRows = kDual ? 2 : 1;  // out's row stride, in H
   const int k0 = blockIdx.x * units, nu = min(units, H - k0), nc = 4 * nu;
   float* w_s = smem;                       // (nc, HP): whh[:, col] of each owned column
   float* h_s = w_s + 4 * units * HP;       // (rows, HP): h of the utterances staged
@@ -471,13 +506,13 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
     if (!kSave) steps = max(steps, len);
     if (threadIdx.x == 0) len_s[b] = len;
     for (int e = threadIdx.x; e < (T - len) * nu; e += blockDim.x)
-      out[((size_t)b * T + len + e / nu) * H + k0 + e % nu] = from_f32<OutT>(0.f);
+      out[((size_t)b * T + len + e / nu) * H * kRows + k0 + e % nu] = from_f32<OutT>(0.f);
   }
   for (int e = threadIdx.x; e < B * nu; e += blockDim.x) c_s[e] = 0.f;
   __syncthreads();
   fetch_xproj(0);
 
-  long long* tr = blockIdx.x == 0 && threadIdx.x == 0 ? trace : nullptr;
+  long long* tr = blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 ? trace : nullptr;
   for (int s = 0; s < steps; ++s) {
     if (tr) {
       tr[5 * s] = (long long)global_ns();
@@ -533,7 +568,7 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
         const float hn = og * tanhf(cn);
         c[0] = cn;
         hnext[(size_t)b * H + k] = hn;
-        out[((size_t)b * T + t) * H + k] = from_f32<OutT>(hn);
+        out[((size_t)b * T + t) * H * kRows + k] = from_f32<OutT>(hn);
         if constexpr (kSave) {
           ResT* a = acts + ((size_t)t * B + b) * G;
           a[k] = from_f32<ResT>(ig);
@@ -549,7 +584,7 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
     }
     __syncthreads();
     if (tr) tr[5 * s + 4] = clock64();
-    if (s + 1 < steps) grid_wait(sync, (unsigned)(s + 1) * gridDim.x);
+    if (s + 1 < steps) grid_wait(sync, (unsigned)(s + 1) * gridDim.x * gridDim.y);
   }
 }
 
@@ -655,7 +690,9 @@ cudaError_t projection(const void* x, const void* wih, const float* bias, float*
                  : gemm<float, float, float>(x, D, 1, wih, G, 1, bias, xproj, M, G, D, st);
 }
 
-// K11's forward recurrence: the per-utterance kernel, both directions.
+// The per-utterance kernel, both directions: K11's forward recurrence
+// before the dual grid, kept as the bit-equality oracle of the grid kernel
+// (bilstm_seq_per_utterance).
 template <typename OutT, typename ResT, bool kSave>
 cudaError_t dual_recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
                             void* acts, void* ct, int B, int T, int H, cudaStream_t st) {
@@ -683,9 +720,10 @@ cudaError_t dual_train_recurrence(const float* xproj, const float* whh, const in
 
 // K2's and K3's forward recurrence on the co-resident grid: ctas CTAs of
 // `units` hidden units each, `rows` utterances staged at once, smem bytes of
-// shared memory each (ops/lstm_cuda.py::recurrence_grid).  Returns the
-// cooperative launch's error where the grid cannot be resident at once.
-template <typename OutT, typename ResT, bool kSave>
+// shared memory each (ops/lstm_cuda.py::recurrence_grid); under kDual (K11)
+// ctas a direction, the grid (ctas, 2).  Returns the cooperative launch's
+// error where the grid cannot be resident at once.
+template <typename OutT, typename ResT, bool kSave, bool kDual = false>
 cudaError_t grid_recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
                             void* acts, void* ct, float* hbuf, unsigned* sync, long long* trace,
                             int B, int T, int H, int reverse, int ctas, int units, int rows,
@@ -693,7 +731,7 @@ cudaError_t grid_recurrence(const float* xproj, const float* whh, const int* len
   if (units < 1 || rows < 1 || rows > B || (long)ctas * units < H ||
       (long)(ctas - 1) * units >= H || (size_t)smem < grid_smem_bytes(H, B, units, rows))
     return cudaErrorInvalidValue;
-  auto kernel = lstm_grid_kernel<OutT, ResT, kSave>;
+  auto kernel = lstm_grid_kernel<OutT, ResT, kSave, kDual>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -706,22 +744,23 @@ cudaError_t grid_recurrence(const float* xproj, const float* whh, const int* len
   ResT* c = static_cast<ResT*>(ct);
   void* args[] = {&xproj, &whh, &lengths, &o, &a, &c, &hbuf, &sync, &trace,
                   &T, &B, &H, &units, &rows, &reverse};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(ctas),
-                                     dim3(threads), args, (size_t)smem, st);
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(ctas, kDual ? 2 : 1), dim3(threads), args,
+                                     (size_t)smem, st);
 }
 
-template <typename OutT>
+template <typename OutT, bool kDual = false>
 cudaError_t train_grid_recurrence(const float* xproj, const float* whh, const int* lengths,
                                   void* out, void* acts, void* ct, float* hbuf, unsigned* sync,
                                   long long* trace, int B, int T, int H, int reverse,
                                   int res_bf16, int ctas, int units, int rows, int smem,
                                   cudaStream_t st) {
-  return res_bf16 ? grid_recurrence<OutT, bf16, true>(xproj, whh, lengths, out, acts, ct, hbuf,
-                                                      sync, trace, B, T, H, reverse, ctas, units,
-                                                      rows, smem, st)
-                  : grid_recurrence<OutT, float, true>(xproj, whh, lengths, out, acts, ct, hbuf,
-                                                       sync, trace, B, T, H, reverse, ctas, units,
-                                                       rows, smem, st);
+  return res_bf16 ? grid_recurrence<OutT, bf16, true, kDual>(xproj, whh, lengths, out, acts, ct,
+                                                             hbuf, sync, trace, B, T, H, reverse,
+                                                             ctas, units, rows, smem, st)
+                  : grid_recurrence<OutT, float, true, kDual>(xproj, whh, lengths, out, acts, ct,
+                                                              hbuf, sync, trace, B, T, H, reverse,
+                                                              ctas, units, rows, smem, st);
 }
 
 template <typename ResT, bool kDual = false>
@@ -865,37 +904,73 @@ extern "C" int lstm_seq_bwd(const float* gy, const void* x, const void* wih, con
                                        st);
 }
 
-// K11, inference forward: both directions of a BiLSTM layer.  wih (2, D, 4H)
-// in x's type, whh (2, H, 4H) and bias (2, 4H) fp32 ([forward, reverse]);
-// xproj (2, B, T, 4H) fp32 scratch; out (B, T, 2H) = [forward | reverse].
+// K11, inference forward: both directions of a BiLSTM layer on the dual
+// grid.  wih (2, D, 4H) in x's type, whh (2, H, 4H) and bias (2, 4H) fp32
+// ([forward, reverse]); xproj (2, B, T, 4H) and hbuf (2, 2, B, H) fp32
+// scratch, sync and trace as lstm_seq_fwd's (the trace CTA (0, 0)'s, the
+// forward direction's); out (B, T, 2H) = [forward | reverse]; ctas, units,
+// rows, smem: a direction's grid (ops/lstm_cuda.py::recurrence_grid with
+// directions 2).
 extern "C" int bilstm_seq_fwd(const void* x, const void* wih, const float* whh,
-                              const float* bias, const int* lengths, float* xproj, void* out,
-                              int B, int T, int D, int H, int in_bf16, int out_bf16,
-                              void* stream) {
+                              const float* bias, const int* lengths, float* xproj, float* hbuf,
+                              unsigned* sync, long long* trace, void* out, int B, int T, int D,
+                              int H, int in_bf16, int out_bf16, int ctas, int units, int rows,
+                              int smem, void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
   if (err != cudaSuccess) return err;
+  return out_bf16 ? grid_recurrence<bf16, float, false, true>(
+                        xproj, whh, lengths, out, nullptr, nullptr, hbuf, sync, trace, B, T, H, 0,
+                        ctas, units, rows, smem, st)
+                  : grid_recurrence<float, float, false, true>(
+                        xproj, whh, lengths, out, nullptr, nullptr, hbuf, sync, trace, B, T, H, 0,
+                        ctas, units, rows, smem, st);
+}
+
+// K11, training forward: as bilstm_seq_fwd (trace (T, 5)), plus each
+// direction's residuals, acts (2, T, B, 4H) and ct (2, T, B, H), in bf16
+// when res_bf16, else fp32.
+extern "C" int bilstm_seq_train_fwd(const void* x, const void* wih, const float* whh,
+                                    const float* bias, const int* lengths, float* xproj,
+                                    float* hbuf, unsigned* sync, long long* trace, void* out,
+                                    void* acts, void* ct, int B, int T, int D, int H, int in_bf16,
+                                    int out_bf16, int res_bf16, int ctas, int units, int rows,
+                                    int smem, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
+  if (err != cudaSuccess) return err;
+  return out_bf16 ? train_grid_recurrence<bf16, true>(xproj, whh, lengths, out, acts, ct, hbuf,
+                                                      sync, trace, B, T, H, 0, res_bf16, ctas,
+                                                      units, rows, smem, st)
+                  : train_grid_recurrence<float, true>(xproj, whh, lengths, out, acts, ct, hbuf,
+                                                       sync, trace, B, T, H, 0, res_bf16, ctas,
+                                                       units, rows, smem, st);
+}
+
+// The oracle: K11's forward (save 0) or training forward (save 1, residuals
+// in bf16 when res_bf16) on the per-utterance kernel, a block an utterance
+// and direction.  Arguments as bilstm_seq_train_fwd's without the grid's;
+// acts and ct are ignored when save is 0.  No op or model path calls it.
+extern "C" int bilstm_seq_per_utterance(const void* x, const void* wih, const float* whh,
+                                        const float* bias, const int* lengths, float* xproj,
+                                        void* out, void* acts, void* ct, int B, int T, int D,
+                                        int H, int in_bf16, int out_bf16, int save, int res_bf16,
+                                        void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
+  if (err != cudaSuccess) return err;
+  if (save)
+    return out_bf16 ? dual_train_recurrence<bf16>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                                  res_bf16, st)
+                    : dual_train_recurrence<float>(xproj, whh, lengths, out, acts, ct, B, T, H,
+                                                   res_bf16, st);
   return out_bf16 ? dual_recurrence<bf16, float, false>(xproj, whh, lengths, out, nullptr,
                                                         nullptr, B, T, H, st)
                   : dual_recurrence<float, float, false>(xproj, whh, lengths, out, nullptr,
                                                          nullptr, B, T, H, st);
-}
-
-// K11, training forward: as bilstm_seq_fwd, plus each direction's residuals,
-// acts (2, T, B, 4H) and ct (2, T, B, H), in bf16 when res_bf16, else fp32.
-extern "C" int bilstm_seq_train_fwd(const void* x, const void* wih, const float* whh,
-                                    const float* bias, const int* lengths, float* xproj,
-                                    void* out, void* acts, void* ct, int B, int T, int D, int H,
-                                    int in_bf16, int out_bf16, int res_bf16, void* stream) {
-  if (B == 0 || T == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
-  if (err != cudaSuccess) return err;
-  return out_bf16 ? dual_train_recurrence<bf16>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                                res_bf16, st)
-                  : dual_train_recurrence<float>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                                 res_bf16, st);
 }
 
 // K11, backward.  gy (B, T, 2H) fp32; dgates (2, B, T, 4H), hprev (2, B, T,

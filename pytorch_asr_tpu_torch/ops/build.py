@@ -31,6 +31,7 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "prefix_beam_rnn_topa": 0, "merge_topk": 0, "tcn_block": 0,
                             "tcn_block_train_fwd": 0, "tcn_block_bwd": 0, "bilstm_seq": 0,
                             "bilstm_seq_train_fwd": 0, "bilstm_seq_bwd": 0,
+                            "bilstm_seq_per_utterance": 0,
                             "ctc_alpha_paired": 0, "prefix_beam_fused": 0,
                             "prefix_beam_stepwise": 0}
 

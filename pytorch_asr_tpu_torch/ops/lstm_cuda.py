@@ -12,7 +12,10 @@ tensors; there is no other switch and no fallback.
 K2's and K3's forward recurrence run on a co-resident grid, one CTA an SM,
 each holding its hidden units' columns of ``whh`` in shared memory;
 ``recurrence_grid`` picks the grid, and a launch that cannot be resident
-raises.  K11 and K3's backward walk an utterance a block.
+raises.  K11's forward runs the same kernel on a grid of both directions,
+half the SMs each.  K3's and K11's backward walk an utterance a block.
+``_bilstm_seq_per_utterance`` keeps K11's old forward, a block an
+utterance, as the grid kernel's bit-equality oracle; no op calls it.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"lstm_seq_fwd": [_P] * 10 + [_I] * 11 + [_P],
                "lstm_seq_train_fwd": [_P] * 12 + [_I] * 12 + [_P],
                "lstm_seq_bwd": [_P] * 13 + [_I] * 7 + [_P],
-               "bilstm_seq_fwd": [_P] * 7 + [_I] * 6 + [_P],
-               "bilstm_seq_train_fwd": [_P] * 9 + [_I] * 7 + [_P],
+               "bilstm_seq_fwd": [_P] * 10 + [_I] * 10 + [_P],
+               "bilstm_seq_train_fwd": [_P] * 12 + [_I] * 11 + [_P],
+               "bilstm_seq_per_utterance": [_P] * 9 + [_I] * 8 + [_P],
                "bilstm_seq_bwd": [_P] * 14 + [_I] * 6 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 SMS = 132                      # the H100 SXM's SMs
@@ -38,14 +42,15 @@ SMEM_PER_BLOCK = 232448        # shared memory a Hopper block can opt in to, byt
 
 
 class Grid(NamedTuple):
-    """The co-resident grid of K2's and K3's forward recurrence.  CTA j owns
-    the hidden units [j units, min((j + 1) units, H)) and their gate columns
-    k, H+k, 2H+k, 3H+k."""
+    """The co-resident grid of K2's and K3's forward recurrence (K11's with
+    ``directions`` 2).  CTA j of a direction owns the hidden units [j units,
+    min((j + 1) units, H)) and their gate columns k, H+k, 2H+k, 3H+k."""
     hidden: int    # H
-    ctas: int      # CTAs, one an SM
+    ctas: int      # CTAs a direction, one an SM
     units: int     # hidden units a CTA owns (the last may own fewer)
     rows: int      # utterances whose h a CTA stages at once
     smem: int      # bytes of shared memory a CTA
+    directions: int = 1  # 2: K11's grid (ctas, 2), a direction a row
 
 
 def _padded_row(H: int) -> int:
@@ -54,7 +59,7 @@ def _padded_row(H: int) -> int:
 
 
 def recurrence_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK,
-                    units: int | None = None) -> Grid:
+                    units: int | None = None, directions: int = 1) -> Grid:
     """The grid of the forward recurrence for hidden width H and B utterances.
 
     Each CTA holds 4 ``units`` columns of whh (all H rows, fp32) in shared
@@ -64,8 +69,13 @@ def recurrence_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK,
     the fewest that spread H over at most ``sms`` CTAs, ceil(H / sms): the
     most CTAs and the shortest chains a CTA (``chip_smoke.py``'s sweep chose
     it at configs 1 and 2).  ``rows`` is B where it fits, else as many as fit.
-    Raises ValueError where the grid cannot hold whh on ``sms`` SMs.
+    ``directions`` 2 is K11's grid: each direction gets ``sms // 2`` SMs
+    and its own CTAs, the same rule on each half.  Raises ValueError where
+    the grid cannot hold whh on its SMs.
     """
+    if directions not in (1, 2):
+        raise ValueError(f"lstm_seq: directions must be 1 or 2, got {directions}")
+    sms //= directions
     units = units or -(-H // sms)
     ctas = -(-H // units)
     hp = _padded_row(H)
@@ -76,8 +86,8 @@ def recurrence_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK,
             f"lstm_seq: H {H} at B {B} does not fit the co-resident grid: {ctas} CTAs of "
             f"{units} units need {fixed + 4 * hp} bytes of shared memory each ({4 * units} "
             f"columns of whh, one staged row of h, the state of {B} rows), on {sms} SMs of "
-            f"{smem} bytes")
-    return Grid(H, ctas, units, rows, fixed + 4 * rows * hp)
+            f"{smem} bytes a direction")
+    return Grid(H, ctas, units, rows, fixed + 4 * rows * hp, directions)
 
 
 @functools.cache
@@ -218,9 +228,6 @@ def lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse: bool = False,
     if x.device.type == "cpu":
         return lstm_seq_train_plain(x, wih, whh, bias, lengths, reverse, out_dtype,
                                     residual_dtype)
-    if residual_dtype not in _DTYPES:
-        raise ValueError(f"lstm_seq: residual_dtype must be float32 or bfloat16, "
-                         f"got {residual_dtype}")
     return forward_on_grid(None, x, wih, whh, bias, lengths, reverse, out_dtype, residual_dtype)
 
 
@@ -237,37 +244,64 @@ def forward_on_grid(grid: Grid | None, x, wih, whh, bias, lengths, reverse: bool
     then, after staging h, after the dot chains and after the cell updates."""
     out_dtype = out_dtype or torch.float32
     _check_cuda_args(x, wih, whh, bias, lengths, out_dtype)
+    return _launch_grid(grid, 1, x, wih, whh, bias, lengths, reverse, out_dtype,
+                        residual_dtype, trace)
+
+
+def bilstm_on_grid(grid: Grid | None, x, wih, whh, bias, lengths,
+                   out_dtype: torch.dtype | None = None,
+                   residual_dtype: torch.dtype | None = None,
+                   trace: torch.Tensor | None = None):
+    """K11's forward (``residual_dtype`` None) -> out (B, T, 2H), or its
+    training forward -> (out, acts (2, T, B, 4H), ct (2, T, B, H)), on a
+    grid of both directions (``directions`` 2); None takes
+    ``recurrence_grid``'s rule.  ``trace`` as ``forward_on_grid``'s, from
+    CTA 0 of the forward direction."""
+    out_dtype = out_dtype or torch.float32
+    _check_dual_args(x, wih, whh, bias, lengths, out_dtype)
+    return _launch_grid(grid, 2, x, wih, whh, bias, lengths, False, out_dtype,
+                        residual_dtype, trace)
+
+
+def _launch_grid(grid, dirs: int, x, wih, whh, bias, lengths, reverse, out_dtype,
+                 residual_dtype, trace):
+    """Launch the grid kernel for one direction (K2, K3) or both (K11)."""
     B, T, D = x.shape
     if trace is not None and (tuple(trace.shape) != (T, 5) or trace.dtype != torch.int64
                               or trace.device != x.device or not trace.is_contiguous()):
         raise ValueError(f"lstm_seq: trace must be contiguous ({T}, 5) int64 on {x.device}")
-    H = whh.shape[0]
+    H = whh.shape[-2]
     train = residual_dtype is not None
-    out = torch.empty((B, T, H), dtype=out_dtype, device=x.device)
+    if train and residual_dtype not in _DTYPES:
+        raise ValueError(f"lstm_seq: residual_dtype must be float32 or bfloat16, "
+                         f"got {residual_dtype}")
+    lead = (dirs,) if dirs == 2 else ()
+    out = torch.empty((B, T, dirs * H), dtype=out_dtype, device=x.device)
     if train:
-        acts = torch.empty((T, B, 4 * H), dtype=residual_dtype, device=x.device)
-        ct = torch.empty((T, B, H), dtype=residual_dtype, device=x.device)
+        acts = torch.empty((*lead, T, B, 4 * H), dtype=residual_dtype, device=x.device)
+        ct = torch.empty((*lead, T, B, H), dtype=residual_dtype, device=x.device)
     if B == 0 or T == 0:
         return (out, acts, ct) if train else out
-    grid = grid or recurrence_grid(H, B, _sm_count(x.device.index))
-    if grid.hidden != H:
-        raise ValueError(f"lstm_seq: a grid for H {grid.hidden}, not {H}")
-    xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
-    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=x.device)
+    grid = grid or recurrence_grid(H, B, _sm_count(x.device.index), directions=dirs)
+    if grid.hidden != H or grid.directions != dirs:
+        raise ValueError(f"lstm_seq: a grid for H {grid.hidden} and {grid.directions} "
+                         f"direction(s), not H {H} and {dirs}")
+    xproj = torch.empty((*lead, B, T, 4 * H), dtype=torch.float32, device=x.device)
+    hbuf = torch.empty((*lead, 2, B, H), dtype=torch.float32, device=x.device)
     sync = torch.zeros(1, dtype=torch.int32, device=x.device)
     lib = build.load("lstm_seq", _SIGNATURES)
     ptrs = [t.data_ptr() for t in (x, wih, whh, bias, lengths, xproj, hbuf, sync)]
     ptrs += [0 if trace is None else trace.data_ptr(), out.data_ptr()]
-    flags = [B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
-             int(out_dtype == torch.bfloat16)]
     if train:
-        name = "lstm_seq_train_fwd"
-        err = lib.lstm_seq_train_fwd(*ptrs, acts.data_ptr(), ct.data_ptr(), *flags,
-                                     int(residual_dtype == torch.bfloat16), *grid[1:], _stream(x))
-    else:
-        name = "lstm_seq"
-        err = lib.lstm_seq_fwd(*ptrs, *flags, *grid[1:], _stream(x))
-    build.check(err, name)
+        ptrs += [acts.data_ptr(), ct.data_ptr()]
+    flags = [B, T, D, H] + ([int(reverse)] if dirs == 1 else [])
+    flags += [int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)]
+    if train:
+        flags.append(int(residual_dtype == torch.bfloat16))
+    flags += [grid.ctas, grid.units, grid.rows, grid.smem]
+    stem = "lstm_seq" if dirs == 1 else "bilstm_seq"
+    entry, name = (f"{stem}_train_fwd",) * 2 if train else (f"{stem}_fwd", stem)
+    build.check(getattr(lib, entry)(*ptrs, *flags, _stream(x)), name)
     build.LAUNCHES[name] += 1
     return (out, acts, ct) if train else out
 
@@ -405,25 +439,11 @@ def bilstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct):
 
 def bilstm_seq_infer(x, wih, whh, bias, lengths,
                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """K11's inference forward: the kernel for CUDA tensors, ``bilstm_seq_plain`` for CPU."""
+    """K11's inference forward: the dual grid for CUDA tensors,
+    ``bilstm_seq_plain`` for CPU."""
     if x.device.type == "cpu":
         return bilstm_seq_plain(x, wih, whh, bias, lengths, out_dtype)
-    out_dtype = out_dtype or torch.float32
-    _check_dual_args(x, wih, whh, bias, lengths, out_dtype)
-    B, T, D = x.shape
-    H = whh.shape[1]
-    out = torch.empty((B, T, 2 * H), dtype=out_dtype, device=x.device)
-    if B == 0 or T == 0:
-        return out
-    xproj = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
-    lib = build.load("lstm_seq", _SIGNATURES)
-    err = lib.bilstm_seq_fwd(
-        x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
-        xproj.data_ptr(), out.data_ptr(), B, T, D, H, int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), _stream(x))
-    build.check(err, "bilstm_seq")
-    build.LAUNCHES["bilstm_seq"] += 1
-    return out
+    return bilstm_on_grid(None, x, wih, whh, bias, lengths, out_dtype)
 
 
 def bilstm_seq_train_fwd(x, wih, whh, bias, lengths, out_dtype: torch.dtype | None = None,
@@ -431,28 +451,40 @@ def bilstm_seq_train_fwd(x, wih, whh, bias, lengths, out_dtype: torch.dtype | No
     """K11's training forward -> (out, acts, ct); see ``bilstm_seq_train_plain``."""
     if x.device.type == "cpu":
         return bilstm_seq_train_plain(x, wih, whh, bias, lengths, out_dtype, residual_dtype)
+    return bilstm_on_grid(None, x, wih, whh, bias, lengths, out_dtype, residual_dtype)
+
+
+def _bilstm_seq_per_utterance(x, wih, whh, bias, lengths,
+                              out_dtype: torch.dtype | None = None,
+                              residual_dtype: torch.dtype | None = None):
+    """The oracle: K11's forward (-> out) or, with ``residual_dtype``, its
+    training forward (-> (out, acts, ct)) on the per-utterance kernel, a
+    block an utterance and direction, CUDA tensors only.  The grid kernel
+    must equal it bit for bit; only the card tests and ``chip_smoke.py``
+    call it, under its own launch count."""
     out_dtype = out_dtype or torch.float32
     _check_dual_args(x, wih, whh, bias, lengths, out_dtype)
-    if residual_dtype not in _DTYPES:
+    train = residual_dtype is not None
+    if train and residual_dtype not in _DTYPES:
         raise ValueError(f"bilstm_seq: residual_dtype must be float32 or bfloat16, "
                          f"got {residual_dtype}")
     B, T, D = x.shape
     H = whh.shape[1]
     out = torch.empty((B, T, 2 * H), dtype=out_dtype, device=x.device)
-    acts = torch.empty((2, T, B, 4 * H), dtype=residual_dtype, device=x.device)
-    ct = torch.empty((2, T, B, H), dtype=residual_dtype, device=x.device)
-    if B == 0 or T == 0:
-        return out, acts, ct
-    xproj = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
-    lib = build.load("lstm_seq", _SIGNATURES)
-    err = lib.bilstm_seq_train_fwd(
-        x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
-        xproj.data_ptr(), out.data_ptr(), acts.data_ptr(), ct.data_ptr(), B, T, D, H,
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        int(residual_dtype == torch.bfloat16), _stream(x))
-    build.check(err, "bilstm_seq_train_fwd")
-    build.LAUNCHES["bilstm_seq_train_fwd"] += 1
-    return out, acts, ct
+    res = residual_dtype or torch.float32
+    acts = torch.empty((2, T, B, 4 * H) if train else (0,), dtype=res, device=x.device)
+    ct = torch.empty((2, T, B, H) if train else (0,), dtype=res, device=x.device)
+    if B and T:
+        xproj = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
+        lib = build.load("lstm_seq", _SIGNATURES)
+        err = lib.bilstm_seq_per_utterance(
+            x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
+            xproj.data_ptr(), out.data_ptr(), acts.data_ptr(), ct.data_ptr(), B, T, D, H,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), int(train),
+            int(res == torch.bfloat16), _stream(x))
+        build.check(err, "bilstm_seq_per_utterance")
+        build.LAUNCHES["bilstm_seq_per_utterance"] += 1
+    return (out, acts, ct) if train else out
 
 
 def bilstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct):

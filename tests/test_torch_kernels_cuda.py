@@ -43,8 +43,9 @@ BEAM_RTOL = 1e-5
 # search decisive (tokens and lengths exact), and the scores are held as the
 # JAX package holds its own K9 on hardware (tests/test_tpu_parity.py).
 RNN_RTOL, RNN_ATOL = 2e-3, 1e-3
-# TCN block: fp32 FMA products summed in k order against cuBLAS's blocked
-# sums, the JAX package's 2e-4 (relative to each tensor's largest entry);
+# TCN block: fp32 products (FMA in k order in the forward, 3xTF32 on tensor
+# cores in the backward) against cuBLAS's blocked sums, the JAX package's
+# 2e-4 (relative to each tensor's largest entry);
 # a bf16 output one bf16 step apart where the fp32 sums straddle a rounding
 # boundary.
 TCN_TOL = 2e-4
@@ -483,7 +484,9 @@ def _tcn_case(device, dtype=torch.float32, B=3, T=133, C=96, K=5, seed=9):
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8, 16])
 def test_tcn_kernels_match_plain(cuda, dilation, T):
     """K5, the K6 forward and the K6 backward against their plain versions;
-    T = 9 is shorter than the conv's reach 2 d (K // 2) for d >= 4."""
+    T = 9 is shorter than the conv's reach 2 d (K // 2) for d >= 4.  The
+    backward (3xTF32 on tensor cores, split-K summed in a fixed order, no
+    atomics) gives the same bits on a second call."""
     x, p = _tcn_case(cuda, T=T)
     dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(dilation)).to(cuda)
     build.reset_launches()
@@ -493,12 +496,29 @@ def test_tcn_kernels_match_plain(cuda, dilation, T):
     torch.cuda.synchronize()
     assert (build.LAUNCHES["tcn_block"], build.LAUNCHES["tcn_block_train_fwd"],
             build.LAUNCHES["tcn_block_bwd"]) == (1, 1, 1)
+    again = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], dilation)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
     want_y, want_xn = tcn_cuda.tcn_block_train_fwd_plain(x, *p, dilation)
     want = (tcn_cuda.tcn_block_plain(x, *p, dilation), want_y, want_xn,
             *tcn_cuda.tcn_block_bwd_plain(want_xn, dy, p[2], p[3], p[4], dilation))
     for name, g, w in zip(("out", "y", "xn", "dxn", "dwc", "dbc", "dwp", "dbp"),
                           (out, y, xn, *grads), want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= TCN_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [30, 384])
+def test_tcn_backward_at_other_widths(cuda, C):
+    """The backward at C 30 (4-byte copies: rows are not 16-byte aligned)
+    and at config 3's C 384 (tiles that do not cross a tap), against the
+    plain version."""
+    x, p = _tcn_case(cuda, B=2, T=61, C=C)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(C)).to(cuda)
+    xn = tcn_cuda.layer_norm(x, p[0], p[1]).contiguous()
+    got = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], 2)
+    want = tcn_cuda.tcn_block_bwd_plain(xn, dy, p[2], p[3], p[4], 2)
+    for name, g, w in zip(("dxn", "dwc", "dbc", "dwp", "dbp"), got, want):
         assert _rel_err(g, w) <= TCN_TOL, name
 
 
@@ -565,16 +585,20 @@ def _bilstm_case(device, dtype, B=5, T=70, D=40, H=48):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bilstm_kernel_equals_two_lstm_launches(cuda, dtype):
-    """K11's inference forward is bit for bit K2 forward | K2 reverse, and
-    agrees with its plain version as K2 does."""
+    """K11's inference forward (the dual grid) is bit for bit K2 forward |
+    K2 reverse and the per-utterance oracle, and agrees with its plain
+    version as K2 does; the op never launches the oracle."""
     x, wih, whh, bias, lengths = _bilstm_case(cuda, dtype)
     build.reset_launches()
     got = lstm_cuda.bilstm_seq(x, wih, whh, bias, lengths, dtype)
     torch.cuda.synchronize()
     assert build.LAUNCHES["bilstm_seq"] == 1 and build.LAUNCHES["lstm_seq"] == 0
+    assert build.LAUNCHES["bilstm_seq_per_utterance"] == 0
     pair = torch.cat([lstm_cuda.lstm_seq(x, wih[d], whh[d], bias[d], lengths, bool(d), dtype)
                       for d in (0, 1)], dim=-1)
     assert got.dtype == dtype and torch.equal(got, pair)
+    assert torch.equal(got, lstm_cuda._bilstm_seq_per_utterance(x, wih, whh, bias, lengths,
+                                                                dtype))
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), lstm_cuda.bilstm_seq_plain(
         x, wih, whh, bias, lengths, dtype).float(), rtol=tol, atol=tol)
@@ -591,11 +615,14 @@ def test_bilstm_training_pair_equals_k3(cuda, dtype, res_dtype):
     build.reset_launches()
     out, acts, ct = lstm_cuda.bilstm_seq_train_fwd(x, wih, whh, bias, lengths, dtype, res_dtype)
     torch.cuda.synchronize()
+    assert build.LAUNCHES["bilstm_seq_per_utterance"] == 0
     pair = [lstm_cuda.lstm_seq_train_fwd(x, wih[d], whh[d], bias[d], lengths, bool(d), dtype,
                                          res_dtype) for d in (0, 1)]
     assert torch.equal(out, torch.cat([pair[0][0], pair[1][0]], -1))
     assert torch.equal(acts, torch.stack([pair[0][1], pair[1][1]]))
     assert torch.equal(ct, torch.stack([pair[0][2], pair[1][2]]))
+    oracle = lstm_cuda._bilstm_seq_per_utterance(x, wih, whh, bias, lengths, dtype, res_dtype)
+    assert all(torch.equal(a, b) for a, b in zip((out, acts, ct), oracle))
     rng = np.random.default_rng(7)
     gy = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(np.float32)).to(cuda)
     got = lstm_cuda.bilstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct)
@@ -637,25 +664,40 @@ def test_bilstm_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,B", [(384, 8), (512, 16), (640, 4)])
 def test_lstm_grid_kernels_equal_the_per_utterance_kernel(cuda, H, B):
-    """K2 and K3's forward on the co-resident grid, at config 1's, config 2's
-    and config 5's widths, equal K11's directions (the per-utterance kernel)
-    bit for bit: the same dot order and cell update.  Short T; rows of
-    length T, 0, past T and in between; both directions."""
+    """K2 and K3's forward on the co-resident grid, and K11's forward and
+    training forward on its dual grid, at config 1's, config 2's and config
+    5's widths, equal the per-utterance oracle (K11's old forward) bit for
+    bit: the same dot order and cell update.  Short T; rows of length T, 0,
+    past T and in between; both directions."""
     T, D = 24, 64
     x, wih, whh, bias, _ = _bilstm_case(cuda, torch.bfloat16, B, T, D, H)
     lengths = torch.tensor(([T, 0, T + 5, 1] + [2 + 7 * i % (T - 2) for i in range(B)])[:B],
                            dtype=torch.int32, device=cuda)
+    build.reset_launches()
+    oracle = lstm_cuda._bilstm_seq_per_utterance(x, wih, whh, bias, lengths, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["bilstm_seq_per_utterance"] == 1
+    build.reset_launches()
     k11 = lstm_cuda.bilstm_seq_infer(x, wih, whh, bias, lengths, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["bilstm_seq"] == 1 and build.LAUNCHES["bilstm_seq_per_utterance"] == 0
+    assert torch.equal(k11, oracle)
     for d in (0, 1):
         args = (x, wih[d], whh[d], bias[d], lengths, bool(d), torch.bfloat16)
         build.reset_launches()
         got = lstm_cuda.lstm_seq_infer(*args)
         torch.cuda.synchronize()
         assert build.LAUNCHES["lstm_seq"] == 1
-        assert torch.equal(got, k11[..., d * H:(d + 1) * H])
+        assert torch.equal(got, oracle[..., d * H:(d + 1) * H])
     for res in (torch.float32, torch.bfloat16):
-        out, acts, ct = lstm_cuda.bilstm_seq_train_fwd(x, wih, whh, bias, lengths,
-                                                       torch.bfloat16, res)
+        want = lstm_cuda._bilstm_seq_per_utterance(x, wih, whh, bias, lengths, torch.bfloat16,
+                                                   res)
+        build.reset_launches()
+        dual = lstm_cuda.bilstm_seq_train_fwd(x, wih, whh, bias, lengths, torch.bfloat16, res)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["bilstm_seq_train_fwd"] == 1
+        assert all(torch.equal(a, b) for a, b in zip(dual, want))
+        out, acts, ct = want
         for d in (0, 1):
             build.reset_launches()
             got = lstm_cuda.lstm_seq_train_fwd(x, wih[d], whh[d], bias[d], lengths, bool(d),
@@ -664,6 +706,25 @@ def test_lstm_grid_kernels_equal_the_per_utterance_kernel(cuda, H, B):
             assert build.LAUNCHES["lstm_seq_train_fwd"] == 1
             assert torch.equal(got[0], out[..., d * H:(d + 1) * H])
             assert torch.equal(got[1], acts[d]) and torch.equal(got[2], ct[d])
+
+
+@pytest.mark.cuda
+def test_dual_grid_trace_and_other_grids(cuda):
+    """K11 on grids of fewer CTAs a direction than the rule's equals the
+    rule's bit for bit; a trace records CTA (0, 0)'s steps in order."""
+    B, T, D, H = 4, 20, 32, 384
+    x, wih, whh, bias, _ = _bilstm_case(cuda, torch.float32, B, T, D, H)
+    lengths = torch.tensor([T, 11, 0, 3], dtype=torch.int32, device=cuda)
+    want = lstm_cuda.bilstm_seq_infer(x, wih, whh, bias, lengths)
+    for units in (8, 12):
+        grid = lstm_cuda.recurrence_grid(H, B, units=units, directions=2)
+        assert torch.equal(lstm_cuda.bilstm_on_grid(grid, x, wih, whh, bias, lengths), want)
+    trace = torch.zeros((T, 5), dtype=torch.int64, device=cuda)
+    lstm_cuda.bilstm_on_grid(None, x, wih, whh, bias, lengths, trace=trace)
+    tr = trace[:T].cpu()
+    assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:] >= tr[:, 1:4]).all())
+    with pytest.raises(ValueError, match="direction"):
+        lstm_cuda.bilstm_on_grid(lstm_cuda.recurrence_grid(H, B), x, wih, whh, bias, lengths)
 
 
 # ---------------------------------------------------------------- the paired CTC alpha

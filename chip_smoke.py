@@ -11,7 +11,8 @@ result line):
      and a PyTorch library yardstick with CUDA events (median of repeated
      runs of queued calls, after warm-up); K2 also at config 2's layer
      shape; print the co-resident grid of K2's and K3's forward recurrence
-     and its µs a step (profiler), and sweep the grid's CTAs;
+     and its µs a step (profiler), and sweep the grid's CTAs; K1 and its
+     library call are timed in turns;
   3. run the model at float32 on one synthetic batch on the CPU and on the
      card with the same seeded weights; compare logits and greedy tokens;
      then one float32 train step, card vs CPU: loss, gradients, and the
@@ -40,20 +41,26 @@ result line):
      with ``decode.ext_top_a=8``, counting launches; beam-decode the
      learned tiny model with the RNN LM; profile one of its batches;
   9. config 3, ``tcn_ctc_devclean``: hold the TCN block kernels, K5 and the
-     K6 forward and backward (3xTF32 on the tensor cores; two calls
-     bit-equal), against their plain versions at B 16, T' 400 and a ragged
-     397, C 384, K 5, every dilation of the cycle, and K5 on bf16 input, and
-     time them beside a composite of torch calls (the backward with its
+     K6 forward and backward (every product 3xTF32 on the tensor cores; two
+     calls bit-equal), against their plain versions at B 16, T' 400 and a
+     ragged 397, C 384, K 5, every dilation of the cycle, and K5 on bf16
+     input, and time them beside a composite of torch calls (each with its
      3xTF32 and fp32 bounds); run the
      model and one train step at float32 on the CPU and on the card; drive
      ``decode.main`` (prefix beam K 16, no LM, its 14-bucket decode ladder)
      and ``train.main`` (batch 16, one bucket) at full width in bf16 with
-     launch counts; profile one decode batch and one train step;
+     launch counts; profile one decode batch and one train step (no SIMT
+     ``gemm_kernel`` in either);
   10. config 2's beam decode across ranks: hold K10, the beam-sharded
      search's per-frame merge and top-K, against the plain merge on the card
      bit for bit (candidates of 2 and 4 beam shards at config 2's shapes,
      with and without the 4-gram, early and late frames) and time it; K9
      past a block's shared memory (an LM of H 512 x 2 layers, and beam 32);
+     the wide routes, which no configuration reaches: config 1 at
+     ``model.encoder.hidden_dim=1536`` (past the co-resident grid) through
+     ``decode.main`` and one step of ``train.main`` on the per-utterance
+     LSTM kernel, and a beam-400 search (past a block) as the plain search
+     on the card, each with its own counts;
      then ``decode.main ... decode.shard_beams=true`` in ranks spawned on
      the one card over gloo, each with its launch counters set to 0 just
      before and read just after: 2 ranks at model axis 2 and 4 ranks at
@@ -77,8 +84,9 @@ result line):
      the ported benchmark scripts
      ``bench_prefix_beam fused=1`` and ``bench_beam_compile stepwise=1`` at
      their default widths, with counts;
-  12. check that no path launched the per-utterance oracle; print the
-     kernels line, the card line, and ``{"ok": true, ...}`` last.
+  12. check that no path launched the per-utterance oracle or took a wide
+     route; print the kernels line, the card line, and ``{"ok": true, ...}``
+     last.
 Whether it passes or fails, the script ends every process it started (the
 ranks, multiprocessing's resource tracker, and anything they left) before it
 exits.
@@ -92,6 +100,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -200,8 +209,9 @@ RNN_RTOL, RNN_ATOL = 2e-3, 1e-3
 CFG3, TCN_B, TCN_T, TCN_RAGGED_T, TCN_C, TCN_K = "tcn_ctc_devclean", 16, 400, 397, 384, 5
 TCN_BLOCKS, TCN_DILATIONS = 10, (1, 2, 4, 8, 16)
 # K5 and K6 against their plain versions, relative to each tensor's largest
-# entry: fp32 FMA sums in k order against cuBLAS's blocked sums (a few 1e-6
-# at these shapes), held to the JAX package's 2e-4 for its own kernel.  K5's
+# entry: 3xTF32 sums on the tensor cores against cuBLAS's fp32 blocked sums
+# (1e-5-2e-5 at these shapes), held to the JAX package's 2e-4 for its own
+# kernel.  K5's
 # bf16 output: one bf16 step (2^-8) where the fp32 sums straddle a rounding
 # boundary.
 TCN_TOL = 2e-4
@@ -216,6 +226,18 @@ PAIRED_STEPS, PAIRED_UTTS = 4, 32
 # of both); K10 is checked at frames 0 and 1 (most beams dead) and 150.
 SHARD_BATCHES, MERGE_FRAMES = 2, (0, 1, 150)
 RANK_TIMEOUT = 300.0         # a spawned decode: ~8 s to the card, then its work
+# A SIMT GEMM's kernel by its exact name (``lstm_seq.cu``'s projection
+# GEMM, or the TCN forward's before it moved onto ``tc_gemm_kernel``), in
+# the profiler's demangled names; ``tc_gemm_kernel`` does not match.
+SIMT_GEMM = re.compile(r"(^|[^\w])gemm_kernel<")
+# The wide routes: config 1 at H 1536, past the co-resident grid (the
+# per-utterance LSTM kernel), and searches past a block's shared memory (the
+# beam kernels' in-scratch form): K7 at beam 400, K9 at beam 64 with an LM
+# of H 512 (WIDE_LM).
+WIDE_H, WIDE_SEARCH_BEAM, WIDE_RNN_BEAM = 1536, 400, 64
+WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "bilstm_seq_wide",
+               "bilstm_seq_train_wide", "prefix_beam_wide", "prefix_beam_topa_wide",
+               "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide")
 # K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
 # seed) at beam 16, and the trained default LM at beam 32.
 WIDE_LM, WIDE_BEAM = RNNLMConfig(embed_dim=128, hidden_dim=512, num_layers=2), 32
@@ -321,6 +343,57 @@ def bound(nbytes: float, ops_s: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def lstm_bounds(b: int, T: int, D: int, Hd: int, valid: int, dirs: int = 1,
+                rb: int = 2) -> dict[str, tuple[float, str]]:
+    """``bound`` of K2 ("fwd"), K3's training forward ("train_fwd") and its
+    backward ("bwd"), once a direction (``dirs`` 2: K11's), for x (b, T, D)
+    bf16, hidden width Hd, ``valid`` valid steps in all and residuals of
+    ``rb`` bytes.  Bytes: x, wih (bf16), whh, bias, lengths, out (bf16) and
+    the residuals once.  The inference forward's products run at the valid
+    steps; the training forward's projection over all b*T rows (the
+    residuals hold every step's gates) and its recurrent product at the
+    valid steps and once more for the held state; the backward's dh
+    recurrence and dx, dwih, dwhh, db products at the valid rows, in
+    float32 as the JAX package computes them."""
+    G = 4 * Hd
+    weights = dirs * (2 * D * G + 4 * Hd * G + 4 * G)
+    res = dirs * rb * T * b * (G + Hd)
+    fwd_bytes = 2 * b * T * D + weights + 4 * b + 2 * b * T * dirs * Hd
+    bwd_bytes = (4 * b * T * dirs * Hd + 2 * b * T * D + dirs * (2 * D * G + 4 * Hd * G) + 4 * b
+                 + res + 2 * b * T * D + weights)
+    return {"fwd": bound(fwd_bytes, dirs * (2 * D * G * valid / PEAK_BF16_S
+                                            + 2 * Hd * G * valid / PEAK_FP32_S)),
+            "train_fwd": bound(fwd_bytes + res, dirs * (2 * D * G * b * T / PEAK_BF16_S
+                                                        + 2 * Hd * G * (valid + b) / PEAK_FP32_S)),
+            "bwd": bound(bwd_bytes, dirs * valid * (2 * G * Hd + 2 * G * D + 2 * G * D
+                                                    + 2 * G * Hd + G) / PEAK_FP32_S)}
+
+
+def search_bound(frames: int, K: int, C: int, V: int, A: int, B: int, L: int,
+                 extra_bytes: int = 0, lm_ops: float = 0.0) -> tuple[float, str]:
+    """``bound`` of a prefix beam search (K7/K8/K9) over ``frames`` valid
+    frames at beam K over C lanes.  Bytes: logp of the valid frames, the
+    top-A values and ids (K8), ``extra_bytes`` (the table, or the LM's
+    weights and primed state), the backpointers written, the lengths and
+    outputs.  Operations a valid frame: ~12 a candidate lane (log-sum-exp,
+    the extension and the fusion), 3 per (beam, beam) absorb test, and a
+    top-K over K + K*C candidates at log2(K) compares each; plus ``lm_ops``,
+    the LM steps the data needs."""
+    nbytes = (4 * V * frames + 8 * A * frames + extra_bytes + 8 * K * frames + 4 * B
+              + 4 * B * L + 8 * B)
+    ops = frames * (12 * K * C + 3 * K ** 2 + (K + K * C) * math.log2(max(K, 2))) + lm_ops
+    return bound(nbytes, ops / PEAK_FP32_S)
+
+
+def lm_step_ops(lmc: RNNLMConfig, V: int) -> int:
+    """One LM step: the gate products 2 * 4H * (in + H) a layer, ~10 a gate
+    unit for the cell, the output product 2 H V and ~5 V for the
+    log-softmax."""
+    Hd, G4 = lmc.hidden_dim, 4 * lmc.hidden_dim
+    return (sum(2 * G4 * ((lmc.embed_dim if l == 0 else Hd) + Hd) for l in range(lmc.num_layers))
+            + 10 * G4 * lmc.num_layers + 2 * Hd * V + 5 * V)
+
+
 def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max |got - want|, that over max |want|)."""
     d = (got.float() - want.float()).abs().max().item()
@@ -386,6 +459,11 @@ def stft_phase() -> dict:
                    + cfg.n_mels) + B * T * 2 * nnz
     nbytes = 4 * (B * AUDIO + B * T * cfg.n_mels + cfg.win_length + n_freq * cfg.n_mels)
     b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
+    # K1 and its library call in turns (kernel, library, library, kernel),
+    # so that one run ranks them.
+    kernel = lambda: stft_cuda.stft_log_mel(audio, cfg)  # noqa: E731
+    turns = [time_ms(fn) for fn in (kernel, library, library, kernel)]
+    ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     return {"name": "stft_log_mel", "route": "cuda",
             "source": "pytorch_asr_tpu_torch/csrc/stft_log_mel.cu",
             "replaces": "pytorch_asr_tpu/ops/stft_pallas.py:189",
@@ -393,9 +471,10 @@ def stft_phase() -> dict:
             "max_abs_err": err, "max_rel_err": rel, "tol": STFT_TOL,
             "max_abs_err_vs_fp64": exact_err, "tol_vs_fp64": STFT_EXACT_TOL,
             "plain_max_abs_err_vs_fp64": plain_exact_err,
-            "ms": time_ms(lambda: stft_cuda.stft_log_mel(audio, cfg)),
-            "plain_ms": time_ms(lambda: stft_cuda.stft_log_mel_plain(audio, cfg)),
-            "library_ms": time_ms(library), "library": "torch.stft + mel matmul + log",
+            "ms": ms, "plain_ms": time_ms(lambda: stft_cuda.stft_log_mel_plain(audio, cfg)),
+            "library_ms": library_ms, "library": "torch.stft + mel matmul + log",
+            "turns_ms": {"kernel, library, library, kernel": turns},
+            "library_ratio": ms / library_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -468,13 +547,8 @@ def lstm_phase() -> dict:
                       f"{case['us_per_step']:.3f} us a step of {max(lengths)} "
                       f"{json.dumps(case['step_us_median'])}, "
                       f"call {case['ms']:.4f} ms, cuDNN {case['library_ms']:.4f} ms")
-            valid = int(sum(lengths))
-            ops_bf16 = 2 * D * G * valid
-            ops_f32 = 2 * Hd * G * valid
-            nbytes = (2 * b * T_LSTM * D + 2 * D * G + 4 * Hd * G + 4 * G
-                      + 4 * b + 2 * b * T_LSTM * Hd)
-            case["bound_ms"], case["bound_by"] = bound(
-                nbytes, ops_bf16 / PEAK_BF16_S + ops_f32 / PEAK_FP32_S)
+            case["bound_ms"], case["bound_by"] = lstm_bounds(
+                b, T_LSTM, D, Hd, int(sum(lengths)))["fwd"]
             cases.append(case)
     sweep = lstm_grid_sweep()
     print("lstm_grid_sweep:", json.dumps(sweep))
@@ -608,24 +682,9 @@ def lstm_train_phase() -> list[dict]:
                               f"{rec['us_per_step']:.3f} us a step of {T_LSTM} "
                               f"{json.dumps(rec['step_us_median'])}, call "
                               f"{case['fwd_ms']:.4f} ms, cuDNN {case['library_fwd_ms']:.4f} ms")
-                    rb = 2
-                    fwd_bytes = (2 * B * T_LSTM * D + 2 * D * G + 4 * H * G + 4 * G + 4 * B
-                                 + 2 * B * T_LSTM * H + rb * T_LSTM * B * (G + H))
-                    # The residuals hold the gates of every step, so the
-                    # projection covers all B*T rows; the recurrent product
-                    # runs at the valid steps and once more for the held state.
-                    case["fwd_bound_ms"], case["fwd_bound_by"] = bound(
-                        fwd_bytes, 2 * D * G * B * T_LSTM / PEAK_BF16_S
-                        + 2 * H * G * (valid + B) / PEAK_FP32_S)
-                    bwd_bytes = (4 * B * T_LSTM * H + 2 * B * T_LSTM * D + 2 * D * G + 4 * H * G
-                                 + 4 * B + rb * T_LSTM * B * (G + H) + 2 * B * T_LSTM * D
-                                 + 2 * D * G + 4 * H * G + 4 * G)
-                    # dgates is 0 off the valid steps: the dh recurrence and
-                    # the dx, dwih, dwhh, db products over the valid rows, in
-                    # float32 as the JAX package computes them.
-                    bwd_ops = valid * (2 * G * H + 2 * G * D + 2 * G * D + 2 * G * H + G)
-                    case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
-                        bwd_bytes, bwd_ops / PEAK_FP32_S)
+                    bounds = lstm_bounds(B, T_LSTM, D, H, valid)
+                    case["fwd_bound_ms"], case["fwd_bound_by"] = bounds["train_fwd"]
+                    case["bwd_bound_ms"], case["bwd_bound_by"] = bounds["bwd"]
                 cases.append(case)
     head = next(c for c in cases if "fwd_ms" in c)
     shape = (f"x ({B}, {T_LSTM}, {2 * H}) bf16, H {H}, lengths {LSTM_LENGTHS}, "
@@ -788,9 +847,7 @@ def bilstm_phase() -> tuple[list[dict], dict]:
         err, rel = errors(got, lstm_cuda.bilstm_seq_plain(*args))
         check(err <= LSTM_TOL, f"K11 {tag}: forward disagrees with its plain version: {err}")
         valid = int(sum(lengths))
-        nbytes = (2 * b * T * D + 2 * (2 * D * G + 4 * Hd * G + 4 * G) + 4 * b
-                  + 2 * b * T * 2 * Hd)
-        ops_s = 2 * (2 * D * G * valid / PEAK_BF16_S + 2 * Hd * G * valid / PEAK_FP32_S)
+        bounds = lstm_bounds(b, T, D, Hd, valid, dirs=2)
         case = {"layer": tag, "x": [b, T, D], "H": Hd, "bit_equal_two_k2": True,
                 "bit_equal_oracle": True, "max_abs_err": err, "max_rel_err": rel,
                 "ms": time_ms(lambda: lstm_cuda.bilstm_seq_infer(*args), 5, 4, 1),
@@ -804,7 +861,7 @@ def bilstm_phase() -> tuple[list[dict], dict]:
         xf = x.float()
         with torch.no_grad():
             case["library_ms"] = time_ms(lambda: ref(xf), 5, 4, 1)
-        case["bound_ms"], case["bound_by"] = bound(nbytes, ops_s)
+        case["bound_ms"], case["bound_by"] = bounds["fwd"]
         case.update(grid_record(args, b, max(lengths), dual=True))
         case["grid_sweep"] = dual_grid_sweep(args, b, got)
         print(f"bilstm_seq dual grid, {tag}: {json.dumps(case['grid'])}, "
@@ -863,12 +920,6 @@ def bilstm_phase() -> tuple[list[dict], dict]:
         xg = xf.clone().requires_grad_(True)
         ref_out, _ = ref(xg)
         ref_in = [xg, *ref.parameters()]
-        rb = 2
-        fwd_bytes = (2 * b * T * D + 2 * (2 * D * G + 4 * Hd * G + 4 * G) + 4 * b
-                     + 2 * b * T * 2 * Hd + 2 * rb * T * b * (G + Hd))
-        bwd_bytes = (4 * b * T * 2 * Hd + 2 * b * T * D + 2 * (2 * D * G + 4 * Hd * G) + 4 * b
-                     + 2 * rb * T * b * (G + Hd) + 2 * b * T * D
-                     + 2 * (2 * D * G + 4 * Hd * G + 4 * G))
         timed = {
             "fwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_train_fwd(*targs), 5, 4, 1),
             "fwd_two_k3_ms": time_ms(lambda: [lstm_cuda.lstm_seq_train_fwd(*p)
@@ -883,12 +934,8 @@ def bilstm_phase() -> tuple[list[dict], dict]:
             "library_fwd_ms": time_ms(lambda: ref(xg), 5, 4, 1),
             "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
                 ref_out, ref_in, gy, retain_graph=True), 5, 4, 1)}
-        timed["fwd_bound_ms"], timed["fwd_bound_by"] = bound(
-            fwd_bytes, 2 * (2 * D * G * b * T / PEAK_BF16_S + 2 * Hd * G * (valid + b)
-                            / PEAK_FP32_S))
-        timed["bwd_bound_ms"], timed["bwd_bound_by"] = bound(
-            bwd_bytes, 2 * valid * (2 * G * Hd + 2 * G * D + 2 * G * D + 2 * G * Hd + G)
-            / PEAK_FP32_S)
+        timed["fwd_bound_ms"], timed["fwd_bound_by"] = bounds["train_fwd"]
+        timed["bwd_bound_ms"], timed["bwd_bound_by"] = bounds["bwd"]
         timed["fwd_grid"] = grid_record(args, b, T, res, dual=True)
         print(f"bilstm_seq_train_fwd dual grid, {tag}: {json.dumps(timed['fwd_grid'])}")
         # The op's own path: without gradients, then under autograd.
@@ -1390,18 +1437,9 @@ def beam_phase(arpa: str) -> list[dict]:
         logp, (tv, ti) = prefix_beam._prepare(logits, A)
         args = (logp, lens.to(torch.int32).contiguous(), BEAM_K, BEAM_L, table, dec.lm_alpha,
                 dec.lm_beta, tv, ti)
-        frames = int(lens.sum())
         C = A or V
-        # Bytes: logp of the valid frames, the top-A values and ids (K8),
-        # the table, the backpointers written, the lengths and outputs.
-        nbytes = (4 * V * frames + 8 * A * frames + table.numel() * 4 + 8 * BEAM_K * frames
-                  + 4 * B + 4 * B * BEAM_L + 8 * B)
-        # Operations a valid frame: ~12 a candidate lane (log-sum-exp, the
-        # extension and the fusion), 3 per (beam, beam) absorb test, and a
-        # top-K over K + K*C candidates at log2(K) compares each.
-        ops = frames * (12 * BEAM_K * C + 3 * BEAM_K ** 2
-                        + (BEAM_K + BEAM_K * C) * math.log2(BEAM_K))
-        b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
+        b_ms, b_by = search_bound(int(lens.sum()), BEAM_K, C, V, A, B, BEAM_L,
+                                  table.numel() * 4)
         out.append({
             "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
             "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
@@ -1497,24 +1535,10 @@ def rnn_beam_phase(rnn_lm_path: str) -> list[dict]:
         logp, (tv, ti) = prefix_beam._prepare(logits, A)
         args = (logp, lens.to(torch.int32).contiguous(), BEAM_K, BEAM_L, rnn, h0, c0, lmp0,
                 dec.lm_alpha, dec.lm_beta, tv, ti)
-        frames, C = int(lens.sum()), A or V
-        # Bytes: logp of the valid frames, the top-A values and ids, the
-        # LM's weights and primed state once, the backpointers written, the
-        # lengths and outputs.
-        nbytes = (4 * V * frames + 8 * A * frames + 4 * (n_weights + 2 * lmc.num_layers
-                                                         * lmc.hidden_dim + V)
-                  + 8 * BEAM_K * frames + 4 * B + 4 * B * BEAM_L + 8 * B)
-        # Operations: the search's, as for K7 and K8, plus each LM step the
-        # data needs: the gate products 2 * 4H * (in + H) a layer, ~10 a
-        # gate unit for the cell, the output product 2 H V and ~5 V for the
-        # log-softmax.
-        Hd, G4 = lmc.hidden_dim, 4 * lmc.hidden_dim
-        step_ops = (sum(2 * G4 * ((lmc.embed_dim if l == 0 else Hd) + Hd)
-                        for l in range(lmc.num_layers))
-                    + 10 * G4 * lmc.num_layers + 2 * Hd * V + 5 * V)
-        ops = (frames * (12 * BEAM_K * C + 3 * BEAM_K ** 2
-                         + (BEAM_K + BEAM_K * C) * math.log2(BEAM_K)) + lm_steps[0] * step_ops)
-        b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
+        frames, C, Hd = int(lens.sum()), A or V, lmc.hidden_dim
+        b_ms, b_by = search_bound(
+            frames, BEAM_K, C, V, A, B, BEAM_L, 4 * (n_weights + 2 * lmc.num_layers * Hd + V),
+            lm_steps[0] * lm_step_ops(lmc, V))
         out.append({
             "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
             "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:1452",
@@ -1732,9 +1756,9 @@ def tcn_phase() -> list[dict]:
     """K5, the K6 forward and the K6 backward against their plain versions
     at config 3's block shapes, B 16 x T' 400 and a ragged T' 397, C 384,
     K 5, every dilation of the cycle; rows of 10-16 s with zero padding past
-    their lengths; K5 also on bf16 input, as the model feeds it.  Kernels
-    are timed at every dilation, the plain versions and the composite
-    yardstick at d = 1."""
+    their lengths; K5 also on bf16 input, as the model feeds it; each of the
+    three gives the same bits on a second call.  Kernels are timed at every
+    dilation, the plain versions and the composite yardstick at d = 1."""
     g = torch.Generator().manual_seed(11)
     p = tcn_weights(g)
     names = {"tcn_block": ("out",), "tcn_block_train_fwd": ("y", "xn"),
@@ -1780,6 +1804,11 @@ def tcn_phase() -> list[dict]:
                 again = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], d)
                 check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                       "tcn_block_bwd: two calls differ")
+                check(torch.equal(out, tcn_cuda.tcn_block(x, *p, d)),
+                      "tcn_block: two calls differ")
+                check(all(torch.equal(a, b) for a, b in zip(
+                    (y, xn), tcn_cuda.tcn_block_train_fwd(x, *p, d))),
+                      "tcn_block_train_fwd: two calls differ")
             cases.append(case)
         xb = x.bfloat16()
         outb, wantb = tcn_cuda.tcn_block(xb, *p, 4), tcn_cuda.tcn_block_plain(xb, *p, 4)
@@ -1812,12 +1841,13 @@ def tcn_phase() -> list[dict]:
     BT, P = B * TCN_T, 4 * (2 * C + K * C * 2 * C + 2 * C + C * C + C)
     fwd_ops = 2 * BT * C * (K * 2 * C + C)
     bwd_ops = 2 * BT * C * C * (6 * K + 2)
-    # The backward's products run as 3xTF32 on the tensor cores: three
-    # TF32 products for each one; its fp32 bound is reported beside.
-    bounds = {"tcn_block": bound(4 * BT * C * 2 + P, fwd_ops / PEAK_FP32_S),
-              "tcn_block_train_fwd": bound(4 * BT * C * 3 + P, fwd_ops / PEAK_FP32_S),
-              "tcn_block_bwd": bound(4 * BT * C * 3 + 2 * P, 3 * bwd_ops / PEAK_TF32_S)}
-    bwd_fp32_bound = bound(4 * BT * C * 3 + 2 * P, bwd_ops / PEAK_FP32_S)
+    # Every product runs as 3xTF32 on the tensor cores: three TF32 products
+    # for each one; the fp32 bound is reported beside.
+    nbytes = {"tcn_block": 4 * BT * C * 2 + P, "tcn_block_train_fwd": 4 * BT * C * 3 + P,
+              "tcn_block_bwd": 4 * BT * C * 3 + 2 * P}
+    ops = {"tcn_block": fwd_ops, "tcn_block_train_fwd": fwd_ops, "tcn_block_bwd": bwd_ops}
+    bounds = {n: bound(nbytes[n], 3 * ops[n] / PEAK_TF32_S) for n in names}
+    fp32_bounds = {n: bound(nbytes[n], ops[n] / PEAK_FP32_S)[0] for n in names}
     lines = {"tcn_block": 83, "tcn_block_train_fwd": 302, "tcn_block_bwd": 321}
     head = next(c for c in cases if c["T"] == TCN_T and c["dilation"] == 1)
     out = []
@@ -1832,10 +1862,10 @@ def tcn_phase() -> list[dict]:
             {"max_rel_err": TCN_TOL, "bf16 x max_rel_err": TCN_BF16_TOL},
             "ms": head["ms"][name], "plain_ms": time_ms(plain[name], 5, 4, 1),
             "library_ms": time_ms(library[name], 5, 4, 1), "library": what[name],
-            "bound_ms": b_ms, "bound_by": b_by,
-            **({"bound_fp32_ms": bwd_fp32_bound[0], "bound_note": "bound_ms: 3xTF32 on "
-                "tensor cores (3 x ops / 495 TFLOP/s); bound_fp32_ms: ops / 67 TFLOP/s",
-                "bit_equal_run_to_run": True} if name == "tcn_block_bwd" else {}),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": fp32_bounds[name],
+            "bound_note": "bound_ms: 3xTF32 on tensor cores (3 x ops / 495 TFLOP/s); "
+                          "bound_fp32_ms: ops / 67 TFLOP/s",
+            "bit_equal_run_to_run": True,
             "ms_by_dilation": {c["dilation"]: c["ms"][name] for c in cases if "ms" in c}})
     out[0]["cases"] = cases
     return out
@@ -1911,7 +1941,9 @@ def tcn_train_phase() -> dict:
 def tcn_profile_phase() -> dict:
     """Device time by kernel over one config-3 decode batch (16 utterances of
     10-16 s, bf16, beam 16, no LM) and one full-width bf16 train step on the
-    same batch, each beside its host-clock time."""
+    same batch, each beside its host-clock time.  Every product of K5 and
+    K6 is ``tc_gemm_kernel``'s: no SIMT ``gemm_kernel`` (that name exactly)
+    runs in either."""
     cfg = get_config(CFG3, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
                               "data.synthetic_num_utts": str(TCN_B), "data.auto_buckets": "1"})
     host_batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
@@ -1939,12 +1971,336 @@ def tcn_profile_phase() -> dict:
         rows = device_rows(p)
         total = sum(r["device_ms"] for r in rows)
         check(total > 0, f"tcn {name} profile: no device time recorded")
-        share = lambda key: sum(r["device_ms"] for r in rows if key in r["name"]) / total  # noqa
+        share = lambda hit: sum(r["device_ms"] for r in rows if hit(r["name"])) / total  # noqa
         out[name] = {"wall_ms": wall, "device_ms": total, "device_busy": total / wall,
-                     "gemm_share": share("gemm_kernel"), "tc_gemm_share": share("tc_gemm_kernel"),
-                     "prefix_beam_share": share("prefix_beam"),
+                     "simt_gemm_share": share(lambda n: SIMT_GEMM.search(n) is not None),
+                     "tc_gemm_share": share(lambda n: "tc_gemm_kernel" in n),
+                     "prefix_beam_share": share(lambda n: "prefix_beam" in n),
                      "top": rows[:12]}
+        check(out[name]["simt_gemm_share"] == 0,
+              f"tcn {name} profile: a SIMT gemm_kernel ran: {out[name]['top']}")
     return out
+
+def wide_layer(g: torch.Generator, D: int, dirs: int):
+    """x (B, T_LSTM, D) and wih bf16, whh and bias fp32 at H WIDE_H, scaled
+    as the other LSTM phases scale them; stacked (2, ...) for ``dirs`` 2."""
+    G, lead = 4 * WIDE_H, (2,) if dirs == 2 else ()
+    x = (torch.randn(B, T_LSTM, D, generator=g) * 0.5).bfloat16().cuda()
+    wih = (torch.randn(*lead, D, G, generator=g) / D ** 0.5).bfloat16().cuda()
+    whh = (torch.randn(*lead, WIDE_H, G, generator=g) / WIDE_H ** 0.5).cuda()
+    bias = (torch.randn(*lead, G, generator=g) * 0.1).cuda()
+    return x, wih, whh, bias
+
+
+def held(tag: str, got, want, names) -> dict:
+    """Each output within K3's tolerance of its largest entry (bf16 or
+    float32 by its type), finite and of the plain version's type."""
+    rec = {}
+    for name, a, w in zip(names, got, want):
+        tol = K3_BF16_TOL if a.dtype == torch.bfloat16 else K3_F32_TOL
+        check(a.dtype == w.dtype and bool(torch.isfinite(a.float()).all()),
+              f"{tag} {name}: non-finite or of type {a.dtype}, not {w.dtype}")
+        err, rel = errors(a, w)
+        check(rel <= tol, f"{tag} {name}: {rel} > {tol} of its largest entry")
+        rec[name] = {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
+    return rec
+
+
+def wide_lstm_rows(g: torch.Generator) -> list[dict]:
+    """K2, K3's training pair and K11's three kernels on their wide route
+    (the per-utterance kernel) at the shapes the wide paths give them: K2 at
+    config 1's layer inputs at H 1536, x (8, 400, 640) and (8, 400, 3072)
+    bf16, both directions; K3's training forward and backward and K11's
+    forward, training forward and backward at x (8, 400, 640); lengths 400
+    down to 250, bf16 residuals.  Each against its plain version on the
+    same inputs (the forwards' bf16 output to LSTM_TOL, the residuals and
+    gradients to K3's tolerances of their largest entry), timed beside it
+    and cuDNN's fp32 LSTM."""
+    lens = torch.tensor(LSTM_LENGTHS, dtype=torch.int32).cuda()
+    valid, bf16 = int(sum(LSTM_LENGTHS)), torch.bfloat16
+    shape = (f"x ({B}, {T_LSTM}, 640) bf16, H {WIDE_H}, lengths {LSTM_LENGTHS}, "
+             f"bf16 residuals")
+    common = {"route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/lstm_seq.cu",
+              "shape": shape, "library_ms": None}
+    rows = {}
+    # K2, both directions at both layer inputs; the first case is timed.
+    cases = []
+    for D in (640, 2 * WIDE_H):
+        x, wih, whh, bias = wide_layer(g, D, 1)
+        for reverse in (False, True):
+            args = (x, wih, whh, bias, lens, reverse, bf16)
+            got = lstm_cuda.lstm_seq_infer(*args)
+            torch.cuda.synchronize()
+            err, rel = errors(got, lstm_cuda.lstm_seq_plain(*args))
+            check(bool(torch.isfinite(got.float()).all()) and err <= LSTM_TOL,
+                  f"lstm_seq wide D={D} reverse={reverse} disagrees: {err}")
+            cases.append({"x": [B, T_LSTM, D], "reverse": reverse, "max_abs_err": err,
+                          "max_rel_err": rel})
+            if not rows:
+                ref = cudnn_lstm(D, wih, whh, bias)
+                xf = x.float()
+                with torch.no_grad():
+                    library = time_ms(lambda: ref(xf), 3, 2, 1)
+                rows["lstm_seq_wide"] = {
+                    "ms": time_ms(lambda: lstm_cuda.lstm_seq_infer(*args), 3, 1, 1),
+                    "plain_ms": time_ms(lambda: lstm_cuda.lstm_seq_plain(*args), 2, 1, 1),
+                    "library_ms": library,
+                    "library": "torch.nn.LSTM (cuDNN, fp32, all lengths = T)",
+                    **dict(zip(("bound_ms", "bound_by"),
+                               lstm_bounds(B, T_LSTM, D, WIDE_H, valid)["fwd"]))}
+    rows["lstm_seq_wide"].update(
+        replaces="pytorch_asr_tpu/ops/lstm_pallas.py:280", tol=LSTM_TOL, cases=cases,
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        shape=f"{shape}; also x ({B}, {T_LSTM}, {2 * WIDE_H})")
+    # K3's training pair at layer 0's input, both directions.
+    x, wih, whh, bias = wide_layer(g, 640, 1)
+    gy = torch.randn(B, T_LSTM, WIDE_H, generator=g).cuda()
+    bounds = lstm_bounds(B, T_LSTM, 640, WIDE_H, valid)
+    fwd_cases, bwd_cases = [], []
+    for reverse in (False, True):
+        args = (x, wih, whh, bias, lens, reverse, bf16, bf16)
+        got = lstm_cuda.lstm_seq_train_fwd(*args)
+        torch.cuda.synchronize()
+        fwd_cases.append({"reverse": reverse, **held(
+            "K3 wide", got, lstm_cuda.lstm_seq_train_plain(*args), ("out", "acts", "ct"))})
+        bargs = (gy, x, wih, whh, lens, got[1], got[2], reverse)
+        grads = lstm_cuda.lstm_seq_bwd(*bargs)
+        torch.cuda.synchronize()
+        bwd_cases.append({"reverse": reverse, **held(
+            "K3 wide", grads, lstm_cuda.lstm_seq_bwd_plain(*bargs),
+            ("dx", "dwih", "dwhh", "db"))})
+        if reverse:
+            continue
+        ref = cudnn_lstm(640, wih, whh, bias)
+        xg = x.float().requires_grad_(True)
+        ref_out, _ = ref(xg)
+        ref_in = [xg, *ref.parameters()]
+        rows["lstm_seq_train_wide"] = {
+            "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:395",
+            "ms": time_ms(lambda: lstm_cuda.lstm_seq_train_fwd(*args), 3, 1, 1),
+            "plain_ms": time_ms(lambda: lstm_cuda.lstm_seq_train_plain(*args), 2, 1, 1),
+            "library_ms": time_ms(lambda: ref(xg), 3, 2, 1),
+            "library": "torch.nn.LSTM (cuDNN, fp32, all lengths = T) forward",
+            **dict(zip(("bound_ms", "bound_by"), bounds["train_fwd"]))}
+        rows["lstm_seq_bwd_wide"] = {
+            "counted_as": "lstm_seq_bwd", "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:403",
+            "ms": time_ms(lambda: lstm_cuda.lstm_seq_bwd(*bargs), 3, 1, 1),
+            "plain_ms": time_ms(lambda: lstm_cuda.lstm_seq_bwd_plain(*bargs), 2, 1, 1),
+            "library_ms": time_ms(lambda: torch.autograd.grad(ref_out, ref_in, gy,
+                                                              retain_graph=True), 3, 2, 1),
+            "library": "torch.nn.LSTM (cuDNN, fp32) backward (autograd.grad, graph kept)",
+            **dict(zip(("bound_ms", "bound_by"), bounds["bwd"]))}
+    for name, cs in (("lstm_seq_train_wide", fwd_cases), ("lstm_seq_bwd_wide", bwd_cases)):
+        rows[name].update(cases=cs, tol={"float32": K3_F32_TOL, "bfloat16": K3_BF16_TOL},
+                          max_abs_err=max(v["max_abs_err"] for c in cs for k, v in c.items()
+                                          if k != "reverse"))
+    # K11: its forward, training forward and backward, both directions a launch.
+    x, wih, whh, bias = wide_layer(g, 640, 2)
+    gy2 = torch.randn(B, T_LSTM, 2 * WIDE_H, generator=g).cuda()
+    bounds = lstm_bounds(B, T_LSTM, 640, WIDE_H, valid, dirs=2)
+    args = (x, wih, whh, bias, lens, bf16)
+    got = lstm_cuda.bilstm_seq_infer(*args)
+    torch.cuda.synchronize()
+    err, rel = errors(got, lstm_cuda.bilstm_seq_plain(*args))
+    check(bool(torch.isfinite(got.float()).all()) and err <= LSTM_TOL,
+          f"bilstm_seq wide disagrees: {err}")
+    fwd = lstm_cuda.bilstm_seq_train_fwd(*args, bf16)
+    torch.cuda.synchronize()
+    fwd_rec = held("K11 wide", fwd, lstm_cuda.bilstm_seq_train_plain(*args, bf16),
+                   ("out", "acts", "ct"))
+    bargs = (gy2, x, wih, whh, lens, fwd[1], fwd[2])
+    grads = lstm_cuda.bilstm_seq_bwd(*bargs)
+    torch.cuda.synchronize()
+    bwd_rec = held("K11 wide", grads, lstm_cuda.bilstm_seq_bwd_plain(*bargs),
+                   ("dx", "dwih", "dwhh", "db"))
+    ref = cudnn_lstm(640, wih, whh, bias)
+    xg = x.float().requires_grad_(True)
+    ref_out, _ = ref(xg)
+    ref_in = [xg, *ref.parameters()]
+    with torch.no_grad():
+        library = time_ms(lambda: ref(xg), 3, 2, 1)
+    k11 = "torch.nn.LSTM(bidirectional=True) (cuDNN, fp32"
+    rows["bilstm_seq_wide"] = {
+        "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:703", "tol": LSTM_TOL,
+        "max_abs_err": err, "max_rel_err": rel,
+        "ms": time_ms(lambda: lstm_cuda.bilstm_seq_infer(*args), 3, 1, 1),
+        "plain_ms": time_ms(lambda: lstm_cuda.bilstm_seq_plain(*args), 2, 1, 1),
+        "library_ms": library, "library": f"{k11}, all lengths = T)",
+        **dict(zip(("bound_ms", "bound_by"), bounds["fwd"]))}
+    rows["bilstm_seq_train_wide"] = {
+        "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:722", "outputs": fwd_rec,
+        "ms": time_ms(lambda: lstm_cuda.bilstm_seq_train_fwd(*args, bf16), 3, 1, 1),
+        "plain_ms": time_ms(lambda: lstm_cuda.bilstm_seq_train_plain(*args, bf16), 2, 1, 1),
+        "library_ms": time_ms(lambda: ref(xg), 3, 2, 1), "library": f"{k11}) forward",
+        **dict(zip(("bound_ms", "bound_by"), bounds["train_fwd"]))}
+    rows["bilstm_seq_bwd_wide"] = {
+        "counted_as": "bilstm_seq_bwd", "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:822",
+        "outputs": bwd_rec,
+        "ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd(*bargs), 3, 1, 1),
+        "plain_ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd_plain(*bargs), 2, 1, 1),
+        "library_ms": time_ms(lambda: torch.autograd.grad(ref_out, ref_in, gy2,
+                                                          retain_graph=True), 3, 2, 1),
+        "library": f"{k11}) backward (autograd.grad, graph kept)",
+        **dict(zip(("bound_ms", "bound_by"), bounds["bwd"]))}
+    for name in ("bilstm_seq_train_wide", "bilstm_seq_bwd_wide"):
+        outs = rows[name]["outputs"]
+        rows[name].update(tol={"float32": K3_F32_TOL, "bfloat16": K3_BF16_TOL},
+                          max_abs_err=max(v["max_abs_err"] for v in outs.values()))
+    return [{"name": name, **common, **row} for name, row in rows.items()]
+
+
+def wide_beam_rows(logits: torch.Tensor, lens: torch.Tensor, kw7: dict, kw9: dict,
+                   got7, got9) -> list[dict]:
+    """K7 at beam 400 and K9 at beam 64 with an LM of H 512, each with its
+    working set in a device scratch, on the wide path's inputs: its results
+    there (``got7``, ``got9``) against the plain search on the card (K7 bit
+    for bit; K9 tokens and lengths exact, scores to RNN_RTOL / RNN_ATOL),
+    then each wrapper timed beside the plain search."""
+    Bw, T, V = logits.shape
+    want7 = prefix_beam.prefix_beam_search_plain(logits, lens, **kw7)
+    check(all(torch.equal(a, b) for a, b in zip(got7, want7)),
+          f"K7 at beam {kw7['beam_size']}: differs from the plain search")
+    with lm_steps_counted() as lm_steps:
+        want9 = prefix_beam.prefix_beam_search_plain(logits, lens, **kw9)
+    check(torch.equal(got9[0], want9[0]) and torch.equal(got9[1], want9[1]),
+          f"K9 at beam {kw9['beam_size']}: tokens or lengths differ from the plain search")
+    torch.testing.assert_close(got9[2], want9[2], rtol=RNN_RTOL, atol=RNN_ATOL,
+                               msg=lambda m: f"K9 wide scores: {m}")
+    logp = prefix_beam._prepare(logits, 0)[0]
+    frames, lens32 = int(lens.sum()), lens.to(torch.int32).contiguous()
+    K7, K9, L = kw7["beam_size"], kw9["beam_size"], kw7["max_len"]
+    args7 = (logp, lens32, K7, L)
+    lm, dec = kw9["rnn_lm"], (kw9["lm_alpha"], kw9["lm_beta"])
+    state0 = prefix_beam.primed_lm_state(lm, kw9["sos_id"])
+    args9 = (logp, lens32, K9, L, lm, *state0, *dec)
+    lmc = lm.cfg
+    lm_shape = (lmc.num_layers, lmc.embed_dim, lmc.hidden_dim)
+    n_weights = sum(p.numel() for p in lm.parameters())
+    common = {"route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+              "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search"}
+    return [
+        {"name": "prefix_beam_wide", **common, "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:756",
+         "shape": f"logp ({Bw}, {T}, {V}) f32, lengths {lens.tolist()}, K {K7}, L {L}, C {V}, "
+                  f"no LM; scratch {beam_cuda.scratch_bytes(K7, V, V)} bytes a block",
+         "max_abs_err": (got7[2] - want7[2]).abs().max().item(),
+         "tol": "tokens, lengths and scores bit-equal",
+         "ms": time_ms(lambda: beam_cuda.prefix_beam(*args7), 3, 1, 1),
+         "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(*args7), 1, 1, 0),
+         **dict(zip(("bound_ms", "bound_by"), search_bound(frames, K7, V, V, 0, Bw, L)))},
+        {"name": "prefix_beam_rnn_wide", **common,
+         "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:1452",
+         "shape": f"logp ({Bw}, {T}, {V}) f32, lengths {lens.tolist()}, K {K9}, L {L}, C {V}, "
+                  f"LM E {lmc.embed_dim} H {lmc.hidden_dim} x {lmc.num_layers}; scratch "
+                  f"{beam_cuda.scratch_bytes(K9, V, V, lm_shape)} bytes a block",
+         "max_abs_err": (got9[2] - want9[2]).abs().max().item(),
+         "tol": {"tokens": "equal", "scores_rtol": RNN_RTOL, "scores_atol": RNN_ATOL},
+         "lm_steps": lm_steps[0], "lm_steps_per_frame": lm_steps[0] / frames,
+         "ms": time_ms(lambda: beam_cuda.prefix_beam_rnn(*args9), 3, 1, 1),
+         "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(
+             *args7, None, *dec, rnn_lm=lm, lm_state=state0), 1, 1, 0),
+         **dict(zip(("bound_ms", "bound_by"), search_bound(
+             frames, K9, V, V, 0, Bw, L, 4 * (n_weights + 2 * lmc.num_layers * lmc.hidden_dim + V),
+             lm_steps[0] * lm_step_ops(lmc, V))))}]
+
+
+def wide_phase() -> tuple[dict, list[dict], dict]:
+    """The routes past the kernels' capacity, which no model configuration
+    of the repo reaches, each driven as a path of its own with the counts
+    set to 0 just before and read just after: config 1 at
+    ``model.encoder.hidden_dim`` 1536, past the co-resident grid, through
+    ``decode.main`` (one batch of 8: "wide_decode") and ``train.main`` (one
+    step, then its eval: "wide_train"), every LSTM forward on the
+    per-utterance kernel under its wide count and none on the grid; K11's
+    op at that width without gradients and under autograd ("wide_bilstm");
+    and, through ``prefix_beam_search``, a beam-400 search over config 2's
+    char vocab and K9 at beam 64 with an LM of H 512 ("wide_beam"), each
+    past a block's shared memory, so on the kernels' in-scratch form.  Then
+    every kernel of those paths against its plain version at the shapes the
+    paths give it (``wide_lstm_rows``, ``wide_beam_rows``).  Returns (the
+    record, the kernel rows, each path's launches)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(lstm_cuda.forward_route(WIDE_H, B, sms) is None
+          and lstm_cuda.forward_route(WIDE_H, B, sms, 2) is None,
+          f"H {WIDE_H} fits the grid: the wide phase would not leave it")
+    common = ["ctc_bilstm_dev1h", f"model.encoder.hidden_dim={WIDE_H}",
+              "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+              f"data.synthetic_num_utts={B}", "data.auto_buckets=1"]
+    out, paths = {}, {}
+    for path, extra in (("decode", ["max_batches=1"]),
+                        ("train", ["steps=1", "train.eval_every=1", "train.log_every=1"])):
+        with tempfile.TemporaryDirectory() as ckpt:
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            result = (decode.main if path == "decode" else train.main)(
+                [*common, *extra, f"train.checkpoint_dir={ckpt}"])
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        evals = launches.get("stft_log_mel", 0) - (path == "train")
+        want = {"stft_log_mel": evals + (path == "train"), "lstm_seq_wide": 2 * LAYERS * evals}
+        if path == "train":
+            want.update({"lstm_seq_train_wide": 2 * LAYERS, "lstm_seq_bwd": 2 * LAYERS,
+                         "ctc_alpha": 1, "ctc_beta": 1})
+            rec = result["train"]
+            check(rec.get("step") == 1 and math.isfinite(rec["ctc_loss"])
+                  and math.isfinite(rec["grad_norm"]), f"wide train: bad record {rec}")
+        else:
+            check(result["num_utts"] == B and result["decode_rtf"] > 0,
+                  f"wide decode: bad result {result}")
+        check(evals >= 1 and launches == want, f"wide {path} launches {launches} != {want}")
+        out[path] = {"result": result, "wall_s": wall, "launches": launches}
+        paths[f"wide_{path}"] = launches
+
+    # K11's op at H 1536: without gradients, then under autograd.
+    g = torch.Generator().manual_seed(42)
+    x, wih, whh, bias = wide_layer(g, 640, 2)
+    lens = torch.tensor(LSTM_LENGTHS, dtype=torch.int32).cuda()
+    params = [t.clone().requires_grad_(True) for t in (x, wih, whh, bias)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with torch.no_grad():
+        y0 = lstm_cuda.bilstm_seq(x, wih, whh, bias, lens, torch.bfloat16)
+    y = lstm_cuda.bilstm_seq(*params, lens, torch.bfloat16)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    paths["wide_bilstm"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    want = {"bilstm_seq_wide": 1, "bilstm_seq_train_wide": 1, "bilstm_seq_bwd": 1}
+    check(paths["wide_bilstm"] == want, f"wide bilstm launches {paths['wide_bilstm']}")
+    check(torch.equal(y0, y.detach()) and all(
+        bool(torch.isfinite(p.grad.float()).all()) for p in params),
+        "wide bilstm: the two forwards differ, or a gradient is not finite")
+    out["bilstm"] = {"launches": paths["wide_bilstm"]}
+
+    # The searches past a block: K7 at beam 400, K9 at beam 64 with an LM of H 512.
+    cfg = get_config(CFG2)
+    logits = torch.randn(2, T_LSTM, V, generator=torch.Generator().manual_seed(40)).mul(2)
+    logits[0, torch.arange(T_LSTM), torch.randint(0, V, (T_LSTM,),
+                                                  generator=torch.Generator().manual_seed(41))] += 4
+    logits, blens = logits.to(CARD), torch.tensor([T_LSTM, 250], dtype=torch.int32, device=CARD)
+    wide_lm = CharRNNLM(WIDE_LM, V, seed=23).to(CARD).eval()
+    lm_shape = (WIDE_LM.num_layers, WIDE_LM.embed_dim, WIDE_LM.hidden_dim)
+    kw7 = dict(beam_size=WIDE_SEARCH_BEAM, max_len=BEAM_L)
+    kw9 = dict(beam_size=WIDE_RNN_BEAM, max_len=BEAM_L, rnn_lm=wide_lm,
+               sos_id=get_tokenizer(cfg.data.vocab).sos_id, lm_alpha=cfg.decode.lm_alpha,
+               lm_beta=cfg.decode.lm_beta)
+    check(not beam_cuda.fits(WIDE_SEARCH_BEAM, V, V)
+          and not beam_cuda.fits(WIDE_RNN_BEAM, V, V, lm_shape), "a wide search fits a block")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got7 = prefix_beam.prefix_beam_search(logits, blens, **kw7)
+    got9 = prefix_beam.prefix_beam_search(logits, blens, **kw9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["wide_beam"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(paths["wide_beam"] == {"prefix_beam_wide": 1, "prefix_beam_rnn_wide": 1},
+          f"wide beam launches {paths['wide_beam']}")
+    out["beam"] = {"shape": [2, T_LSTM, V], "beams": [WIDE_SEARCH_BEAM, WIDE_RNN_BEAM],
+                   "wall_s": wall, "launches": paths["wide_beam"],
+                   "lengths": [got7[1].tolist(), got9[1].tolist()]}
+    rows = [*wide_lstm_rows(g), *wide_beam_rows(logits, blens, kw7, kw9, got7, got9)]
+    return out, rows, paths
+
 
 def shard_candidates(state, logp_t, P: int, lm, kw: dict) -> tuple[dict, dict]:
     """One frame's candidates as P beam shards build them (each its K/P
@@ -2342,6 +2698,15 @@ def main() -> int:
           f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
     print("rnn_past_smem:", json.dumps(rnn_past_smem_phase(rnn_lm)))
     t0 = time.perf_counter()
+    wide, wide_rows, wide_paths = wide_phase()
+    print("wide:", json.dumps(wide))
+    for k in wide_rows:
+        print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} (tol {k['tol']}) "
+              f"ms {k['ms']:.4f} plain {k['plain_ms']:.4f} library {k['library_ms']} "
+              f"bound {k['bound_ms']:.4f} ({k['bound_by']})")
+    kernels += wide_rows
+    print(f"wide: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     sharded = sharded_decode_phase(arpa, rnn_lm)
     print("sharded_decode:", json.dumps(sharded))
     for path in ("model2", "data2_model2", "rnn_model4"):
@@ -2361,15 +2726,17 @@ def main() -> int:
     # 3's training path, K10 to the sharded decode; K11 to its op's own path
     # (no model calls it, as in the JAX package), the paired alpha to config
     # 1's training with PAIRED_FWD set, K13 and K12 to the benchmark scripts
-    # that reach them; the rest to config 1's training path (which runs K2
-    # in its eval); every path's count is printed.
+    # that reach them, the wide routes to the wide phase's paths; the rest
+    # to config 1's training path (which runs K2 in its eval); every path's
+    # count is printed.
     paths = {"train": trn["launches"], "decode": dec["launches"],
              **{p: r["launches"] for p, r in beam_dec.items()},
              "tcn_decode": tcn_dec["launches"], "tcn_train": tcn_trn["launches"],
              **{f"sharded_{p}": sharded[p]["launches_rank0"]
                 for p in ("model2", "data2_model2", "rnn_model4")},
              "bilstm": bilstm_launches, "train_paired": trn_paired["launches"],
-             **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")}}
+             **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")},
+             **wide_paths}
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
                 "tcn_block": "tcn_decode", "tcn_block_train_fwd": "tcn_train",
@@ -2377,13 +2744,24 @@ def main() -> int:
                 "bilstm_seq": "bilstm", "bilstm_seq_train_fwd": "bilstm",
                 "bilstm_seq_bwd": "bilstm", "ctc_alpha_paired": "train_paired",
                 "prefix_beam_fused": "bench_prefix_beam",
-                "prefix_beam_stepwise": "bench_beam_compile"}
+                "prefix_beam_stepwise": "bench_beam_compile",
+                "lstm_seq_wide": "wide_decode", "lstm_seq_train_wide": "wide_train",
+                "lstm_seq_bwd_wide": "wide_train", "bilstm_seq_wide": "wide_bilstm",
+                "bilstm_seq_train_wide": "wide_bilstm", "bilstm_seq_bwd_wide": "wide_bilstm",
+                "prefix_beam_wide": "wide_beam", "prefix_beam_rnn_wide": "wide_beam"}
     # The per-utterance oracle of the grid kernel is no path's kernel.
     oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0) for p, counts in paths.items()}
     print("bilstm_seq_per_utterance launches by path:", json.dumps(oracle_runs))
     check(not any(oracle_runs.values()), f"the per-utterance oracle ran on a path: {oracle_runs}")
+    # Nor does any main path take a route past the kernels' capacity.
+    wide_runs = {p: {r: counts.get(r, 0) for r in WIDE_ROUTES} for p, counts in paths.items()
+                 if p not in wide_paths}
+    print("wide route launches by path:", json.dumps(wide_runs))
+    check(not any(any(c.values()) for c in wide_runs.values()),
+          f"a main path took a wide route: {wide_runs}")
+    # A wide backward row is its kernel at H 1536, counted under the kernel's name.
     for k in kernels:
-        by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
+        by_path = {p: counts.get(k.get("counted_as", k["name"]), 0) for p, counts in paths.items()}
         own = own_path.get(k["name"], "train")
         check(by_path[own] > 0, f"{k['name']} never launched on its main path ({own})")
         k["launches"], k["launches_by_path"], k["main_path"] = by_path[own], by_path, own

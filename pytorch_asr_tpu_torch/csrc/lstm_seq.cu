@@ -12,8 +12,8 @@
 //   bilstm_seq_fwd, bilstm_seq_train_fwd  _dual_fwd_impl :722 (_fwd_kernel_dual
 //                       :495), without and with residuals;
 //   bilstm_seq_bwd      _dual_vjp_bwd :822 (_bwd_kernel_dual :571).
-// bilstm_seq_per_utterance is no port of a TPU kernel: it is the oracle
-// below, which only tests and chip_smoke.py reach.
+// lstm_seq_per_utterance and bilstm_seq_per_utterance run the same forwards
+// on the per-utterance kernel: the wide route below, and the oracle.
 // Python side: ops/lstm_cuda.py.
 //
 // Computes, for x (B, T, D) in fp32 or bf16, wih (D, 4H) in x's type, whh
@@ -108,11 +108,26 @@
 // The oracle.  lstm_recurrence_kernel<..., kDual> walks each utterance of
 // each direction in its own block and reads all of whh from L2 every step:
 // K11's forward until the dual grid, and 3-5x slower than it.  It stays
-// compiled as the bit-equality oracle of the grid kernel, reached only
-// through bilstm_seq_per_utterance (ops/lstm_cuda.py::
-// _bilstm_seq_per_utterance, its own launch count); the card tests and
+// compiled as the bit-equality oracle of the grid kernel, reached as such
+// only through bilstm_seq_per_utterance under the oracle's own launch count
+// (ops/lstm_cuda.py::_bilstm_seq_per_utterance); the card tests and
 // chip_smoke.py call it, and chip_smoke.py checks that no op or model path
-// launches it.
+// launches the oracle.
+//
+// The wide route.  The grid must hold a CTA's 4 units columns of whh (all H
+// rows) in one SM's shared memory, with units = ceil(H / SMs): one direction
+// fits up to H ~1300 at B 8-16, K11's dual grid (66 SMs a direction) up to
+// H ~920, and a batch past a few hundred utterances at H 512-640 fits
+// neither.  The JAX package runs those widths (its TPU kernel keeps whh in
+// VMEM; its CPU path scans).  There the ops launch the per-utterance kernel
+// instead, one direction (lstm_seq_per_utterance: grid (B, 1), the reverse
+// flag passed) or both (bilstm_seq_per_utterance): the same dot order and
+// cell update as the grid kernel, so the same bits, at 3-5x its time.  Its
+// 6 H floats of shared memory a block run to H 9,685.  The route is chosen
+// from the shapes before the launch (ops/lstm_cuda.py::forward_route) and
+// counted under its own names (lstm_seq_wide, lstm_seq_train_wide,
+// bilstm_seq_wide, bilstm_seq_train_wide).  No model configuration of the
+// repo reaches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -690,32 +705,48 @@ cudaError_t projection(const void* x, const void* wih, const float* bias, float*
                  : gemm<float, float, float>(x, D, 1, wih, G, 1, bias, xproj, M, G, D, st);
 }
 
-// The per-utterance kernel, both directions: K11's forward recurrence
-// before the dual grid, kept as the bit-equality oracle of the grid kernel
-// (bilstm_seq_per_utterance).
-template <typename OutT, typename ResT, bool kSave>
-cudaError_t dual_recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
-                            void* acts, void* ct, int B, int T, int H, cudaStream_t st) {
+// The per-utterance kernel, a block an utterance (and direction, under
+// kDual): the wide route of K2, K3's forward and K11 where the co-resident
+// grid cannot hold whh (ops/lstm_cuda.py::forward_route), and, both
+// directions, the bit-equality oracle of the grid kernel
+// (bilstm_seq_per_utterance).  6 H floats of shared memory a block.
+template <typename OutT, typename ResT, bool kSave, bool kDual>
+cudaError_t utterance_recurrence(const float* xproj, const float* whh, const int* lengths,
+                                 void* out, void* acts, void* ct, int B, int T, int H,
+                                 int reverse, cudaStream_t st) {
   const size_t smem = (size_t)6 * H * sizeof(float);
-  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave, true>;
+  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave, kDual>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = 2 * H >= 1024 ? 1024 : (2 * H + 31) / 32 * 32;
-  kernel<<<dim3(B, 2), threads, smem, st>>>(xproj, whh, lengths, static_cast<OutT*>(out),
-                                            static_cast<ResT*>(acts), static_cast<ResT*>(ct), T,
-                                            B, H, 0);
+  kernel<<<dim3(B, kDual ? 2 : 1), threads, smem, st>>>(
+      xproj, whh, lengths, static_cast<OutT*>(out), static_cast<ResT*>(acts),
+      static_cast<ResT*>(ct), T, B, H, reverse);
   return cudaGetLastError();
 }
 
-template <typename OutT>
-cudaError_t dual_train_recurrence(const float* xproj, const float* whh, const int* lengths,
-                                  void* out, void* acts, void* ct, int B, int T, int H,
-                                  int res_bf16, cudaStream_t st) {
-  return res_bf16 ? dual_recurrence<OutT, bf16, true>(xproj, whh, lengths, out, acts, ct, B, T,
-                                                      H, st)
-                  : dual_recurrence<OutT, float, true>(xproj, whh, lengths, out, acts, ct, B, T,
-                                                       H, st);
+// The per-utterance recurrence in any of its forms: save selects the
+// training form, its residuals in bf16 when res_bf16.
+template <bool kDual>
+cudaError_t utterance_forward(const float* xproj, const float* whh, const int* lengths,
+                              void* out, void* acts, void* ct, int B, int T, int H, int reverse,
+                              int out_bf16, int save, int res_bf16, cudaStream_t st) {
+  if (save) {
+    if (res_bf16)
+      return out_bf16 ? utterance_recurrence<bf16, bf16, true, kDual>(
+                            xproj, whh, lengths, out, acts, ct, B, T, H, reverse, st)
+                      : utterance_recurrence<float, bf16, true, kDual>(
+                            xproj, whh, lengths, out, acts, ct, B, T, H, reverse, st);
+    return out_bf16 ? utterance_recurrence<bf16, float, true, kDual>(
+                          xproj, whh, lengths, out, acts, ct, B, T, H, reverse, st)
+                    : utterance_recurrence<float, float, true, kDual>(
+                          xproj, whh, lengths, out, acts, ct, B, T, H, reverse, st);
+  }
+  return out_bf16 ? utterance_recurrence<bf16, float, false, kDual>(
+                        xproj, whh, lengths, out, nullptr, nullptr, B, T, H, reverse, st)
+                  : utterance_recurrence<float, float, false, kDual>(
+                        xproj, whh, lengths, out, nullptr, nullptr, B, T, H, reverse, st);
 }
 
 // K2's and K3's forward recurrence on the co-resident grid: ctas CTAs of
@@ -949,10 +980,28 @@ extern "C" int bilstm_seq_train_fwd(const void* x, const void* wih, const float*
                                                        units, rows, smem, st);
 }
 
-// The oracle: K11's forward (save 0) or training forward (save 1, residuals
-// in bf16 when res_bf16) on the per-utterance kernel, a block an utterance
-// and direction.  Arguments as bilstm_seq_train_fwd's without the grid's;
-// acts and ct are ignored when save is 0.  No op or model path calls it.
+// K2 (save 0) or K3's training forward (save 1, residuals in bf16 when
+// res_bf16) on the per-utterance kernel, a block an utterance: the wide
+// route, where the co-resident grid cannot hold whh.  Arguments as
+// lstm_seq_train_fwd's without the grid's; acts and ct are ignored when
+// save is 0.
+extern "C" int lstm_seq_per_utterance(const void* x, const void* wih, const float* whh,
+                                      const float* bias, const int* lengths, float* xproj,
+                                      void* out, void* acts, void* ct, int B, int T, int D, int H,
+                                      int reverse, int in_bf16, int out_bf16, int save,
+                                      int res_bf16, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
+  if (err != cudaSuccess) return err;
+  return utterance_forward<false>(xproj, whh, lengths, out, acts, ct, B, T, H, reverse, out_bf16,
+                                  save, res_bf16, st);
+}
+
+// K11's forward (save 0) or training forward (save 1) on the per-utterance
+// kernel, a block an utterance and direction: K11's wide route, and the
+// oracle of the dual grid.  Arguments as bilstm_seq_train_fwd's without the
+// grid's; acts and ct are ignored when save is 0.
 extern "C" int bilstm_seq_per_utterance(const void* x, const void* wih, const float* whh,
                                         const float* bias, const int* lengths, float* xproj,
                                         void* out, void* acts, void* ct, int B, int T, int D,
@@ -962,15 +1011,8 @@ extern "C" int bilstm_seq_per_utterance(const void* x, const void* wih, const fl
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = dual_projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
   if (err != cudaSuccess) return err;
-  if (save)
-    return out_bf16 ? dual_train_recurrence<bf16>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                                  res_bf16, st)
-                    : dual_train_recurrence<float>(xproj, whh, lengths, out, acts, ct, B, T, H,
-                                                   res_bf16, st);
-  return out_bf16 ? dual_recurrence<bf16, float, false>(xproj, whh, lengths, out, nullptr,
-                                                        nullptr, B, T, H, st)
-                  : dual_recurrence<float, float, false>(xproj, whh, lengths, out, nullptr,
-                                                         nullptr, B, T, H, st);
+  return utterance_forward<true>(xproj, whh, lengths, out, acts, ct, B, T, H, 0, out_bf16, save,
+                                 res_bf16, st);
 }
 
 // K11, backward.  gy (B, T, 2H) fp32; dgates (2, B, T, 4H), hprev (2, B, T,

@@ -107,6 +107,20 @@
 // its four beams in registers, and reads the weight columns j, H+j, 2H+j
 // and 3H+j (coalesced across the warp) once for the four beams; the beams'
 // inputs sit in shared memory as float4 per input index.
+//
+// Past a block's shared memory.  A block of K7/K8 needs 72 K + 17 K C +
+// 8 V + 512 bytes (beam 387 and up over the 31 chars passes the 232,448 a
+// Hopper block may have), K9 also the LM step's packed inputs (beam 64 with
+// an LM of H 512 passes it with the state in a scratch), and a thread holds
+// one pick (K <= 1024).  Where a block does not fit (ops/beam_cuda.py::fits,
+// from the shapes before the launch) the same kernel runs in its kInScratch
+// form: the working set, laid out as in shared memory, lies in the block's
+// slice of a device scratch (L1/L2-resident), the beams loop over the
+// threads, and each frame's picks pass through the scratch.  Same code, same
+// order of operations, so the same result as the shared form; slower, as
+// every access of the working set goes through L1.  It counts under its own
+// names (prefix_beam_wide, ..._topa_wide, prefix_beam_rnn_wide,
+// ..._rnn_topa_wide).  No model configuration of the repo reaches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,10 +165,14 @@ __device__ __forceinline__ unsigned long long umax(unsigned long long a,
 
 // Top-K: K rounds of a block argmax over the N keys; candidate j belongs to
 // thread j % nt, which alone reads and clears its keys, so no barrier is
-// needed before the first round.  Thread r < K gets pick r's key.
+// needed before the first round.  Thread r < K gets pick r's key; with
+// kPicks (more beams than threads) thread 0 also writes it to picks[r], and
+// the caller synchronises before reading them.
+template <bool kPicks = false>
 __device__ __forceinline__ unsigned long long select_topk(unsigned long long* key,
                                                           unsigned long long* wbest, int N,
-                                                          int K, int tid, int nt) {
+                                                          int K, int tid, int nt,
+                                                          unsigned long long* picks = nullptr) {
   const int warp = tid >> 5, nwarps = (nt + 31) >> 5;
   unsigned long long mine = 0;
   for (int r = 0; r < K; ++r) {
@@ -168,6 +186,7 @@ __device__ __forceinline__ unsigned long long select_topk(unsigned long long* ke
     const int j = key_index(best);
     if (j % nt == tid) key[j] = 0;
     if (tid == r) mine = best;
+    if (kPicks && tid == 0) picks[r] = best;
   }
   return mine;
 }
@@ -227,6 +246,31 @@ __host__ __device__ inline size_t lm_smem_bytes(int K, int V, int nl, int E, int
                                                 bool state_in_smem) {
   return 4 * (lm_xin_floats(K, E, H) + (state_in_smem ? lm_state_floats(K, V, nl, H) : 0)) +
          4 * (3 * (size_t)K + 1);
+}
+
+// Where a block keeps its working set.  kShared: all of it in shared
+// memory.  kLmStateInScratch (K9): the LM state in the block's slice of a
+// device scratch of lm_state_floats, the rest in shared memory.  kInScratch:
+// all of it, laid out as kShared lays it out, in the block's slice of a
+// device scratch of scratch_block_bytes, then the K picks of a frame; no
+// shared memory, and any beam, more beams than threads included.
+enum Place { kShared = 0, kLmStateInScratch = 1, kInScratch = 2 };
+
+// One block's slice of the kInScratch scratch: the working set as kShared
+// lays it out (K9's with its LM state), then from the next 16 bytes the K
+// picks (8 bytes each), to a 16-byte boundary.  ops/beam_cuda.py::
+// scratch_bytes computes the same.
+__host__ __device__ inline size_t picks_offset(int K, int C, int V, bool rnn, int nl, int E,
+                                               int H) {
+  const size_t work =
+      rnn ? lm_smem_offset(K, C, V) + lm_smem_bytes(K, V, nl, E, H, true)
+          : search_smem_bytes(K, C, V);
+  return (work + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t scratch_block_bytes(int K, int C, int V, bool rnn, int nl,
+                                                      int E, int H) {
+  return (picks_offset(K, C, V, rnn, nl, E, H) + 8 * (size_t)K + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -400,17 +444,28 @@ __device__ void advance_lm(const RnnLm& lm, const LmSmem& s, int cur, int K, int
   log_softmax_rows(s, V, lmp_nxt, tid, nt);
 }
 
-template <bool kTopA, bool kRnn, bool kGlobalState>
+template <bool kTopA, bool kRnn, int kPlace>
 __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     const float* __restrict__ logp, const float* __restrict__ top_val,
     const int* __restrict__ top_idx, const int* __restrict__ lens,
     const float* __restrict__ table, int* parents, int* appends,
     int* __restrict__ tokens, int* __restrict__ out_len, float* __restrict__ out_score,
     int T, int V, int K, int C, int L, int n_ctx, float alpha, float beta, RnnLm lm,
-    float* lm_state) {
+    float* scratch) {
   const int KC = K * C, N = K + KC;
   extern __shared__ __align__(16) unsigned long long smem[];
-  unsigned long long* key = smem;                         // (N) selection keys
+  // The working set's base: shared memory, or (kInScratch) this block's
+  // slice of the scratch, followed there by the frame's picks.
+  unsigned long long* base = smem;
+  unsigned long long* picks = nullptr;                    // (K) kInScratch
+  if constexpr (kPlace == kInScratch) {
+    const size_t off = picks_offset(K, C, V, kRnn, lm.nl, lm.E, lm.H);
+    char* slice = reinterpret_cast<char*>(scratch) +
+                  (size_t)blockIdx.x * scratch_block_bytes(K, C, V, kRnn, lm.nl, lm.E, lm.H);
+    base = reinterpret_cast<unsigned long long*>(slice);
+    picks = reinterpret_cast<unsigned long long*>(slice + off);
+  }
+  unsigned long long* key = base;                         // (N) selection keys
   unsigned long long* wbest = key + N;                    // (2, 32) warp maxima
   float* pb = reinterpret_cast<float*>(wbest + 64);       // (2, K) beam fields,
   float* pnb = pb + 2 * K;                                //   double-buffered
@@ -428,21 +483,23 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
   unsigned char* absorbed = reinterpret_cast<unsigned char*>(slot + V);  // (KC)
   LmSmem rnn = {};                                        // K9's LM state
   if constexpr (kRnn) {
-    // The state follows xin in shared memory, or (kGlobalState: it does not
-    // fit) lies in this block's slice of the wrapper's scratch.  The same LM
-    // code reads it either way; the flag is a template parameter because
-    // with generic pointers in the shared case K9 ran slower on the H100.
-    char* at = reinterpret_cast<char*>(smem) + lm_smem_offset(K, C, V);
+    // The state follows xin in the working set, or (kLmStateInScratch: it
+    // does not fit beside the search) lies in this block's slice of the
+    // wrapper's scratch.  The same LM code reads it either way; the place is
+    // a template parameter because with generic pointers in the shared case
+    // K9 ran slower on the H100.
+    constexpr bool kStateApart = kPlace == kLmStateInScratch;
+    char* at = reinterpret_cast<char*>(base) + lm_smem_offset(K, C, V);
     rnn.xin = reinterpret_cast<float*>(at);
     float* after_xin = rnn.xin + lm_xin_floats(K, lm.E, lm.H);
-    if constexpr (kGlobalState) {
-      rnn.h = lm_state + (size_t)blockIdx.x * lm_state_floats(K, V, lm.nl, lm.H);
+    if constexpr (kStateApart) {
+      rnn.h = scratch + (size_t)blockIdx.x * lm_state_floats(K, V, lm.nl, lm.H);
     } else {
       rnn.h = after_xin;
     }
     rnn.c = rnn.h + 2 * (size_t)lm.nl * K * lm.H;
     rnn.lmp = rnn.c + 2 * (size_t)lm.nl * K * lm.H;
-    rnn.par = reinterpret_cast<int*>(kGlobalState ? after_xin : rnn.lmp + 2 * (size_t)K * V);
+    rnn.par = reinterpret_cast<int*>(kStateApart ? after_xin : rnn.lmp + 2 * (size_t)K * V);
     rnn.app = rnn.par + K;
     rnn.rows = rnn.app + K;
     rnn.n_app = rnn.rows + K;
@@ -450,14 +507,15 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int n_t = min(max(lens[b], 0), T);
-  if (tid < K) {
-    pb[tid] = tid == 0 ? 0.0f : NEG_INF;
-    pnb[tid] = NEG_INF;
-    lms[tid] = 0.0f;
-    hsh[tid] = (uint32_t)(-(tid + 1));
-    last[tid] = -1;
-    len[tid] = 0;
-    ctx[tid] = 0;
+  // A thread a beam; beams past the block's threads (kInScratch) loop.
+  for (int r = tid; r < K; r += nt) {
+    pb[r] = r == 0 ? 0.0f : NEG_INF;
+    pnb[r] = NEG_INF;
+    lms[r] = 0.0f;
+    hsh[r] = (uint32_t)(-(r + 1));
+    last[r] = -1;
+    len[r] = 0;
+    ctx[r] = 0;
   }
   if constexpr (kRnn) {  // every beam starts from the state after <sos>
     for (int idx = tid; idx < lm.nl * K * lm.H; idx += nt) {
@@ -483,10 +541,10 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     __syncthreads();
 
     // Stays (a thread a beam) and extensions (a thread a lane).
-    if (tid < K) {
-      const float total = lse(pb_c[tid], pnb_c[tid]);
-      spb[tid] = total + lp[0];
-      spnb[tid] = last_c[tid] >= 0 ? pnb_c[tid] + lp[last_c[tid]] : NEG_INF;
+    for (int r = tid; r < K; r += nt) {
+      const float total = lse(pb_c[r], pnb_c[r]);
+      spb[r] = total + lp[0];
+      spnb[r] = last_c[r] >= 0 ? pnb_c[r] + lp[last_c[r]] : NEG_INF;
     }
     for (int lane = tid; lane < KC; lane += nt) {
       const int k = lane / C, a = lane - k * C;
@@ -516,11 +574,11 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 
     // Absorb: the char that would turn beam k into alive stay k' is
     // c = h_k' - M h_k (mod 2^32); at most one lane of each beam k matches.
-    if (tid < K) {
-      const float sn = spnb[tid];
+    for (int r = tid; r < K; r += nt) {
+      const float sn = spnb[r];
       float add = NEG_INF;
-      if (lse(spb[tid], sn) > NEG_INF / 2) {
-        const uint32_t h2 = hsh_c[tid];
+      if (lse(spb[r], sn) > NEG_INF / 2) {
+        const uint32_t h2 = hsh_c[r];
         float m = NEG_INF;
         for (int k = 0; k < K; ++k) {
           const uint32_t c = h2 - HASH_MULT * hsh_c[k];
@@ -540,7 +598,7 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
           add = m + logf(sum);
         }
       }
-      spnb[tid] = lse(sn, add);
+      spnb[r] = lse(sn, add);
     }
     __syncthreads();
 
@@ -556,11 +614,14 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
       key[j] = make_key(s, j);
     }
 
-    const unsigned long long mine = select_topk(key, wbest, N, K, tid, nt);
+    constexpr bool kPicks = kPlace == kInScratch;
+    const unsigned long long mine = select_topk<kPicks>(key, wbest, N, K, tid, nt, picks);
+    if constexpr (kPicks) __syncthreads();  // thread 0 wrote the last pick
 
     // The K picks become the next beams; record the backpointers.
-    if (tid < K) {
-      const int r = tid, j = key_index(mine), nx = (cur ^ 1) * K + r;
+    for (int r = tid; r < K; r += nt) {
+      const unsigned long long pick = kPicks ? picks[r] : mine;
+      const int j = key_index(pick), nx = (cur ^ 1) * K + r;
       int k, append;
       if (j < K) {
         k = j;
@@ -588,7 +649,7 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
         last[nx] = c;
         len[nx] = len_c[k] + 1;
       }
-      if (key_score(mine) <= NEG_INF / 2) {  // a dead filler
+      if (key_score(pick) <= NEG_INF / 2) {  // a dead filler
         pb[nx] = NEG_INF;
         pnb[nx] = NEG_INF;
         hsh[nx] = (uint32_t)(-(r + 1));
@@ -642,13 +703,13 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 }
 
 // Launches one block per utterance with the dynamic shared memory set.
-template <bool kTopA, bool kRnn, bool kGlobalState = false>
+template <bool kTopA, bool kRnn, int kPlace = kShared>
 int launch(int B, int threads, size_t smem, void* stream, const float* logp,
            const float* top_val, const int* top_idx, const int* lens, const float* table,
            int* parents, int* appends, int* tokens, int* out_len, float* out_score, int T,
            int V, int K, int C, int L, int n_ctx, float alpha, float beta, const RnnLm& lm,
-           float* lm_state) {
-  auto kernel = prefix_beam_kernel<kTopA, kRnn, kGlobalState>;
+           float* scratch) {
+  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -656,7 +717,7 @@ int launch(int B, int threads, size_t smem, void* stream, const float* logp,
   }
   kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       logp, top_val, top_idx, lens, table, parents, appends, tokens, out_len, out_score, T,
-      V, K, C, L, n_ctx, alpha, beta, lm, lm_state);
+      V, K, C, L, n_ctx, alpha, beta, lm, scratch);
   return cudaGetLastError();
 }
 
@@ -784,34 +845,45 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
 
 // top_val/top_idx null: K7 over all V chars (C = V); else K8 over C = A.
 // parents/appends: (B, T, K) int32 scratch; tokens (B, L); out_len,
-// out_score (B).  The wrapper checks K <= 1024 and the shared-memory size.
+// out_score (B).  scratch: null keeps each block's working set in shared
+// memory (the wrapper checks K <= 1024 and its size); else a device scratch
+// of B * scratch_block_bytes(K, C, V, false, 0, 0, 0) bytes, 16-byte
+// aligned, holds it (kInScratch: any K and C).
 extern "C" int prefix_beam(const float* logp, const float* top_val, const int* top_idx,
                            const int* lens, const float* table, int* parents, int* appends,
                            int* tokens, int* out_len, float* out_score, int B, int T, int V,
                            int K, int C, int L, int n_ctx, float alpha, float beta,
-                           void* stream) {
+                           float* scratch, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = search_smem_bytes(K, C, V);
-  int threads = (K * C + 31) / 32 * 32;
-  threads = threads > 1024 ? 1024 : threads;
+  const bool apart = scratch != nullptr;
+  const size_t smem = apart ? 0 : search_smem_bytes(K, C, V);
+  const long long lanes = (long long)K * C;
+  const int threads = lanes >= 1024 ? 1024 : (int)(lanes + 31) / 32 * 32;
   const RnnLm none = {};
-  return (top_idx != nullptr ? launch<true, false> : launch<false, false>)(
+  return (top_idx != nullptr
+              ? (apart ? launch<true, false, kInScratch> : launch<true, false>)
+              : (apart ? launch<false, false, kInScratch> : launch<false, false>))(
       B, threads, smem, stream, logp, top_val, top_idx, lens, table, parents, appends, tokens,
-      out_len, out_score, T, V, K, C, L, n_ctx, alpha, beta, none, nullptr);
+      out_len, out_score, T, V, K, C, L, n_ctx, alpha, beta, none, scratch);
 }
 
 // K9: the search fused with the char LSTM LM.  weights: a host array of
 // device pointers embed, w_out, b_out, h0, c0, lmp0, then wx, wh and b of
 // each of the nl layers.  Same outputs and scratch as prefix_beam.
-// lm_state: null keeps every beam's LM state in shared memory; else a
-// device scratch of B * lm_state_floats(K, V, nl, H) floats holds it (for
-// LMs or beams whose state does not fit).  The wrapper checks nl <= 8 and
-// the shared-memory size.
+// place (a Place) and scratch: kShared (scratch null) keeps every block's
+// working set in shared memory; kLmStateInScratch keeps the LM state in a
+// device scratch of B * lm_state_floats(K, V, nl, H) floats (for LMs or
+// beams whose state does not fit beside the search); kInScratch keeps all
+// of it in a device scratch of B * scratch_block_bytes(K, C, V, true, nl,
+// E, H) bytes (where even the LM step's packed inputs do not fit, or K >
+// 1024).  The wrapper checks nl <= 8 and, for the first two, the
+// shared-memory size.
 extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const int* top_idx,
                                const int* lens, const float* const* weights, int nl, int E,
                                int H, int* parents, int* appends, int* tokens, int* out_len,
                                float* out_score, int B, int T, int V, int K, int C, int L,
-                               float alpha, float beta, float* lm_state, void* stream) {
+                               float alpha, float beta, float* scratch, int place,
+                               void* stream) {
   if (B == 0) return 0;
   if (nl < 1 || nl > kMaxLayers) return cudaErrorInvalidValue;
   RnnLm lm = {};
@@ -829,19 +901,25 @@ extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const in
   lm.nl = nl;
   lm.E = E;
   lm.H = H;
-  const size_t smem =
-      lm_smem_offset(K, C, V) + lm_smem_bytes(K, V, nl, E, H, lm_state == nullptr);
-  const int groups = (K + 3) / 4;
-  int work = K * C;
+  if (place < kShared || place > kInScratch || (place == kShared) != (scratch == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = place == kInScratch
+                          ? 0
+                          : lm_smem_offset(K, C, V) +
+                                lm_smem_bytes(K, V, nl, E, H, place == kShared);
+  const long long groups = (K + 3) / 4;
+  long long work = (long long)K * C;
   work = work > H * groups ? work : H * groups;
   work = work > V * groups ? work : V * groups;
-  int threads = (work + 31) / 32 * 32;
-  threads = threads > 1024 ? 1024 : threads;
-  const bool global = lm_state != nullptr;
-  return (top_idx != nullptr ? (global ? launch<true, true, true> : launch<true, true>)
-                             : (global ? launch<false, true, true> : launch<false, true>))(
-      B, threads, smem, stream, logp, top_val, top_idx, lens, nullptr, parents, appends,
-      tokens, out_len, out_score, T, V, K, C, L, 1, alpha, beta, lm, lm_state);
+  const int threads = work >= 1024 ? 1024 : (int)(work + 31) / 32 * 32;
+  const bool topa = top_idx != nullptr;
+  auto run = place == kShared            ? (topa ? launch<true, true> : launch<false, true>)
+             : place == kLmStateInScratch ? (topa ? launch<true, true, kLmStateInScratch>
+                                                  : launch<false, true, kLmStateInScratch>)
+                                          : (topa ? launch<true, true, kInScratch>
+                                                  : launch<false, true, kInScratch>);
+  return run(B, threads, smem, stream, logp, top_val, top_idx, lens, nullptr, parents, appends,
+             tokens, out_len, out_score, T, V, K, C, L, 1, alpha, beta, lm, scratch);
 }
 
 // K10: the per-frame merge and top-K of the beam-sharded search.  Inputs

@@ -17,10 +17,9 @@
 // K5 writes x + y in x's type, the sum taken in fp32; the K6 forward writes y
 // and keeps xn, both fp32.  The JAX package holds its kernel to a
 // Precision.HIGHEST reference at 2e-4, so no product here runs in plain TF32
-// (about three decimal digits): the forward's are fp32 FMA on the CUDA
-// cores, the backward's 3xTF32 on the tensor cores (below).  Rows past an
-// utterance's length are not special: their xn is ln_bias, and the last
-// valid frames' taps read it, as in both JAX paths.
+// (about three decimal digits): every product is 3xTF32 on the tensor cores
+// (below).  Rows past an utterance's length are not special: their xn is
+// ln_bias, and the last valid frames' taps read it, as in both JAX paths.
 //
 // Why the TPU design does not carry over: the Pallas kernel keeps a halo'd
 // (256 + 64, C) fp32 slab of x plus a (256, 2C) accumulator in VMEM, about
@@ -29,16 +28,17 @@
 // shared memory and blocks run in no order.  So each wrapper call here is a
 // few launches.
 //
-// Forward (K5, the K6 forward):
+// Forward (K5, the K6 forward): three launches.
 //   1. layer_norm_kernel: one warp a row writes xn (B*T, C) fp32 (9.8 MB at
 //      B 16, T' 400, C 384: it stays in L2 for the next launch).
-//   2. gemm_kernel<CONV>: the dilated conv as an implicit GEMM, rows (b, t)
-//      by 32 output-channel pairs: lin columns n0..n0+32 together with the
-//      gate columns C + n0.., so the GLU runs in the epilogue; the reduction
-//      walks the K*C (tap, channel) pairs, reading xn rows at t + (k - K/2) d.
-//   3. gemm_kernel<POINT>: glu @ w_point with a + b_point (+ x) epilogue.
-//   A register-tiled SIMT fp32 GEMM: 128 x 64 tiles, 8 x 4 outputs a
-//   thread, 16-deep slices of A and B in shared memory, not double-buffered.
+//   2. tc_gemm_kernel<GLU>: the dilated conv as an implicit GEMM, rows (b, t)
+//      by 32 output-channel pairs a tile: lin columns together with their
+//      gate columns C + p, so the GLU runs in the epilogue, which writes
+//      glu (B*T, C) fp32 and nothing else; the reduction walks the K*C
+//      (tap, channel) pairs, reading xn rows at t + (k - K/2) d.  The GLU is
+//      not linear, so the reduction is never split.
+//   3. tc_gemm_kernel<POINT>: glu @ w_point, one slice, with a + b_point
+//      epilogue (K5: + x read in x's type, the sum in fp32, cast to x's type).
 //
 // Backward (K6): five implicit GEMMs on tc_gemm_kernel, then column sums.
 //   1. <DGLU>  dglu = dy @ w_point^T.
@@ -59,17 +59,19 @@
 //
 // Bound on this card: operations.  A block's forward is 2 B T C (K 2C + C)
 // = 20.8 GFLOP at B 16, T' 400, C 384, K 5 against ~40 MB of inputs and
-// outputs: 0.31 ms at 67 TFLOP/s fp32.  The backward's products are ~60
-// GFLOP: 0.90 ms in fp32 on the CUDA cores, and it was 3.7x that as five
-// SIMT GEMMs (2.7 FMAs a shared-memory load).  tc_gemm_kernel runs them on
-// the tensor cores instead, with the 3xTF32 split that keeps fp32 accuracy:
+// outputs: 0.31 ms at 67 TFLOP/s fp32, and 0.126 ms as 3xTF32 work (three
+// TF32 products for each, 62 GFLOP at 495 TFLOP/s).  The backward's
+// products are ~60 GFLOP: 0.90 ms in fp32 on the CUDA cores, 0.37 ms as
+// 3xTF32.  Both once ran as SIMT fp32 GEMMs (the forward at ~3.4x its fp32
+// bound, the backward at 3.7x: 2.7 FMAs a shared-memory load), so
+// tc_gemm_kernel runs every product on the tensor cores instead, with the
+// 3xTF32 split that keeps fp32 accuracy:
 // each fp32 operand a becomes big = tf32(a) and small = tf32(a - big), both
 // rounded to nearest as cvt.rna.tf32.f32 rounds (done on the bits, two
 // integer operations, where the conversion unit's cvt made the split the
 // slowest part of the loop), and each product is small*big + big*small +
 // big*big, accumulated in fp32 in that order (CUTLASS's 3xTF32), losing
-// only small*small (~2^-22 relative).  That is three TF32 products for each
-// one: 0.37 ms of the card's 495 TFLOP/s.  mma.sync.m16n8k8 takes its
+// only small*small (~2^-22 relative).  mma.sync.m16n8k8 takes its
 // fragments from shared memory in any layout, which the reductions over
 // rows (DWP, DWC, whose A is not K-major) need; wgmma's TF32 form takes only
 // K-major operands.  Tiles of 128 x 64 by 32, eight warps of 32 x 32, two
@@ -78,15 +80,17 @@
 // implicit-GEMM address logic: rows shifted by a tap, the gather of DXN,
 // and a row outside [0, T) copied as zeros (cp.async with a source size of
 // 0).  16-byte copies where C is a multiple of 4, else 4-byte ones.  Where
-// a product's tiles leave the last wave of blocks mostly empty, its
-// reduction is split into slices (split_k).  On the H100 the three large
-// products run at about 155 TFLOP/s of TF32 work each, a third of the
-// peak.  What holds them there is not measured (it needs a profiler of
-// the SM's pipes).  In tuning, neither leaving the small part
-// unrounded (half the split's integer operations) nor issuing each
-// accumulator's three products apart paid much, and 64 x 32 warp tiles at
-// one block an SM were slower; mma.sync's rate below wgmma's and ~0.9 GB
-// of L2 reads a product remain (PERF.md).  wgmma with TMA is later work.
+// a backward product's tiles leave the last wave of blocks mostly empty,
+// its reduction is split into slices (split_k).  On the H100 the three
+// large backward products run at about 155 TFLOP/s of TF32 work each, a
+// third of the peak, and so bound the forward's conv too (its 600 tiles
+// at config 3 fill 2.3 waves).  What holds them there is not measured (it
+// needs a profiler of the SM's pipes).  In tuning, neither leaving the
+// small part unrounded (half the split's integer operations) nor issuing
+// each accumulator's three products apart paid much, and 64 x 32 warp
+// tiles at one block an SM were slower; mma.sync's rate below wgmma's and
+// ~0.9 GB of L2 reads a product remain (PERF.md).  wgmma with TMA is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -140,23 +144,21 @@ __global__ void layer_norm_kernel(const InT* __restrict__ x, const float* __rest
   for (int c = lane; c < C; c += 32) out[c] = (to_f32(xr[c]) - mu) * rstd * scale[c] + bias[c];
 }
 
-constexpr int BM = 128, BN = 64, BK = 16, THREADS = 256, TM = 8, TN = 4;
-constexpr int HALF_BN = BN / 2;        // output-channel pairs a CONV tile covers
-constexpr int AQ = BM * BK / THREADS;  // A elements each thread loads a step
-constexpr int BQ = BK * BN / THREADS;  // B elements each thread loads a step
-constexpr int SM_COUNT = 132;          // H100 SXM: split-K aims at ~2 blocks an SM
+constexpr int LN_THREADS = 256;   // layer_norm_kernel: a warp a row
+constexpr int SM_COUNT = 132;     // H100 SXM: split-K aims at ~2 blocks an SM
 
 // The products of the block.  Output rows i, columns n, reduction index k
 // (A is M x Kred, B is Kred x N):
 //   CONV   (B*T) x C pairs,  k = (tap, c):   A = xn shifted by the tap, B = w_conv
+//   GLU    as CONV, with the forward's epilogue (glu only)
 //   POINT  (B*T) x C,        k = c:          A = glu,   B = w_point
 //   DGLU   (B*T) x C,        k = c:          A = dy,    B = w_point^T
 //   DWP    C x C,            k = (b, t):     A = glu^T, B = dy
 //   DWC    (K*C) x 2C,       k = (b, t):     A = xs^T (xn shifted), B = dacc
 //   DXN    (B*T) x C,        k = (tap, j):   A = dacc shifted back, B = w_conv[tap]^T
-// The forward runs CONV and POINT on gemm_kernel; the backward runs CONV,
-// DGLU, DWP, DWC and DXN on tc_gemm_kernel.
-enum Mode { CONV = 0, POINT = 1, DGLU = 2, DWP = 3, DWC = 4, DXN = 5 };
+// All run on tc_gemm_kernel: the forward GLU and POINT, the backward CONV,
+// DGLU, DWP, DWC and DXN.
+enum Mode { CONV = 0, POINT = 1, DGLU = 2, DWP = 3, DWC = 4, DXN = 5, GLU = 6 };
 
 struct Args {
   int T, C, K, dil;
@@ -182,131 +184,11 @@ template <int MODE>
 __host__ __device__ constexpr bool a_k_contig() { return MODE != DWP && MODE != DWC; }
 template <int MODE>
 __host__ __device__ constexpr bool b_n_contig() { return MODE != DGLU && MODE != DXN; }
-
-// Global column of the forward tile's local column c, or -1 past the edge.
-// A CONV tile pairs lin columns n0 .. n0+32 with gate columns C + n0 .. so
-// each thread holds both halves of its GLU outputs.
+// The conv products, which pair each tile's lin columns with their gate columns.
 template <int MODE>
-__device__ __forceinline__ int tile_col(const Args& a, int c) {
-  if constexpr (MODE == CONV) {
-    const int p = blockIdx.x * HALF_BN + (c % HALF_BN);
-    return p < a.C ? (c < HALF_BN ? p : a.C + p) : -1;
-  } else {
-    const int n = blockIdx.x * BN + c;
-    return n < a.N ? n : -1;
-  }
-}
+__host__ __device__ constexpr bool is_conv() { return MODE == CONV || MODE == GLU; }
 
-// The forward's products (CONV, POINT): one 128 x 64 output tile,
-// accumulated in fp32 FMA in k order.  Thread (tx, ty) owns rows ty + 16 i
-// and columns tx + 16 j.  A shifted row (b, t + s) of a (B, T, width)
-// tensor is flat row m + s; it reads 0 outside [0, T), the zero padding of
-// the conv at the edges of the padded batch.
-template <int MODE, typename InT, bool RES>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(Args a) {
-  static_assert(MODE == CONV || MODE == POINT, "the forward's products only");
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int kend = a.Kred;
-  const int half = a.K / 2;
-  const size_t C = a.C, C2 = 2 * C;
-
-  int a_t[AQ] = {};  // CONV: the time index of each row this thread loads
-  if constexpr (MODE == CONV) {
-#pragma unroll
-    for (int q = 0; q < AQ; ++q) a_t[q] = (m0 + tid / BK + 16 * q) % a.T;
-  }
-
-  float acc[TM][TN] = {};
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    {
-      const int kk = tid % BK, k = k0 + kk;
-      int col = k, shift = 0;
-      if constexpr (MODE == CONV) {
-        const int tap = k / a.C;
-        col = k - tap * a.C;
-        shift = (tap - half) * a.dil;
-      }
-#pragma unroll
-      for (int q = 0; q < AQ; ++q) {
-        const int r = tid / BK + 16 * q, i = m0 + r;
-        float v = 0.f;
-        if (i < a.M && k < kend) {
-          if constexpr (MODE == CONV) {
-            const int ts = a_t[q] + shift;
-            if (ts >= 0 && ts < a.T) v = a.xn[(size_t)(i + shift) * C + col];
-          } else {  // POINT
-            v = a.glu[(size_t)i * C + k];
-          }
-        }
-        As[kk][r] = v;
-      }
-    }
-    {
-      const int c = tid % BN, n = tile_col<MODE>(a, c);
-#pragma unroll
-      for (int q = 0; q < BQ; ++q) {
-        const int kk = tid / BN + (THREADS / BN) * q, k = k0 + kk;
-        float v = 0.f;
-        if (n >= 0 && k < kend) {
-          if constexpr (MODE == CONV) v = a.wc[k * C2 + n];
-          else v = a.wp[k * C + n];  // POINT
-        }
-        Bs[kk][c] = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const size_t m = m0 + ty + 16 * i;
-    if (m >= (size_t)a.M) continue;
-    if constexpr (MODE == CONV) {
-      // acc[i][j] and acc[i][j + 2] are lin and gate of pair n0 + tx + 16 j.
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int p = blockIdx.x * HALF_BN + tx + 16 * j;
-        if (p >= a.C) continue;
-        const float lin = acc[i][j] + a.bc[p];
-        const float gate = acc[i][j + 2] + a.bc[C + p];
-        a.out[m * C + p] = lin * sigmoid(gate);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = blockIdx.x * BN + tx + 16 * j;
-        if (n >= a.N) continue;
-        const float y = acc[i][j] + a.bp[n];
-        if constexpr (RES) {
-          const size_t idx = m * C + n;
-          static_cast<InT*>(a.out_typed)[idx] =
-              from_f32<InT>(to_f32(static_cast<const InT*>(a.x_res)[idx]) + y);
-        } else {
-          a.out[m * C + n] = y;
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- the backward on tensor cores
+// ---------------------------------------------------------------- the products on tensor cores
 
 constexpr int TBM = 128, TBN = 64, TBK = 32, TSTAGES = 3;
 // Eight warps, WARPS_M along the tile's rows, each a warp tile of WTM rows
@@ -378,7 +260,7 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One TBM x TBN output tile of a backward product (blockIdx.z's split-K
+// One TBM x TBN output tile of a product of the block (blockIdx.z's split-K
 // slice of the reduction, [kbeg, kend)), 3xTF32 on mma.sync.m16n8k8.  Warp
 // w computes rows WTM (w % WARPS_M) .. + WTM and columns 32 (w / WARPS_M) ..
 // + 32 of the tile: MI x 4 fragments of 16 x 8.  The fragments' k index j
@@ -392,14 +274,15 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsi
 // position along the copied rows and a fixed set of rows, so it keeps what
 // does not change over the reduction (a row's time index, a column's tap)
 // and steps what does (the (tap, channel) of its k, a reduction row's
-// time) a tile at a time, in order.  A CONV tile's local column c is, for w = c / 32 and r =
-// c % 32, pair p = TBN / 2 blockIdx.x + 16 w + r % 16, the lin column p
-// where r < 16, else the gate column C + p: each warp holds both halves of
-// its 16 pairs, so the GLU runs in the epilogue.
-template <int MODE, int V>
+// time) a tile at a time, in order.  A conv tile's (CONV, GLU) local column
+// c is, for w = c / 32 and r = c % 32, pair p = TBN / 2 blockIdx.x + 16 w +
+// r % 16, the lin column p where r < 16, else the gate column C + p: each
+// warp holds both halves of its 16 pairs, so the GLU runs in the epilogue.
+// POINT with RES adds x (InT) in its epilogue and writes x + y in InT.
+template <int MODE, int V, typename InT = float, bool RES = false>
 __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
   extern __shared__ __align__(16) float tsm[];
-  constexpr bool AK = a_k_contig<MODE>(), BNC = b_n_contig<MODE>();
+  constexpr bool AK = a_k_contig<MODE>(), BNC = b_n_contig<MODE>(), CV = is_conv<MODE>();
   // Pieces: V floats along each copied row; a thread's row step and count.
   constexpr int A_LEN = AK ? TBK : TBM, A_PER = A_LEN / V, A_Q = TBM * TBK / V / 256;
   constexpr int B_LEN = BNC ? TBN : TBK, B_PER = B_LEN / V, B_Q = TBN * TBK / V / 256;
@@ -413,13 +296,13 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
   const int b_pos = tid % B_PER * V, b_line = tid / B_PER;  // + (256 / B_PER) q
 
   // What stays over the reduction, and the trackers stepped a tile at a time.
-  int a_t[A_Q];  // CONV, DXN: each A row's time index; DWC: each k row's time
-  int ktap = 0, kcol = 0;  // CONV, DXN: the (tap, column) of this thread's k
+  int a_t[A_Q];  // conv, DXN: each A row's time index; DWC: each k row's time
+  int ktap = 0, kcol = 0;  // conv, DXN: the (tap, column) of this thread's k
   int w_tap = 0, w_col = 0;  // DWC: the tap and channel of this thread's row
-  if constexpr (MODE == CONV || MODE == DXN) {
+  if constexpr (CV || MODE == DXN) {
 #pragma unroll
     for (int q = 0; q < A_Q; ++q) a_t[q] = (m0 + a_line + (256 / A_PER) * q) % a.T;
-    const int width = MODE == CONV ? C : C2, k = kbeg + a_pos;
+    const int width = CV ? C : C2, k = kbeg + a_pos;
     ktap = k / width;
     kcol = k - ktap * width;
   } else if constexpr (MODE == DWC) {
@@ -430,12 +313,12 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
   }
   const int w_shift = (w_tap - half) * a.dil;
   // The operands; a copy of zeros names the operand's first element.
-  const float* a_src = MODE == CONV || MODE == DWC ? a.xn
+  const float* a_src = CV || MODE == DWC         ? a.xn
                        : MODE == DGLU              ? a.dy
-                       : MODE == DWP               ? a.glu
+                       : MODE == DWP || MODE == POINT ? a.glu
                                                    : a.dacc;
-  const float* b_src = MODE == CONV || MODE == DXN ? a.wc
-                       : MODE == DGLU              ? a.wp
+  const float* b_src = CV || MODE == DXN           ? a.wc
+                       : MODE == DGLU || MODE == POINT ? a.wp
                        : MODE == DWP               ? a.dy
                                                    : a.dacc;
 
@@ -446,18 +329,18 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
     if constexpr (AK) {  // lines are the tile's rows i, a piece runs along k
       const int k = k0 + a_pos;
       int shift = 0;
-      if constexpr (MODE == CONV) shift = (ktap - half) * a.dil;
+      if constexpr (CV) shift = (ktap - half) * a.dil;
       if constexpr (MODE == DXN) shift = -(ktap - half) * a.dil;  // the gather: t - s
 #pragma unroll
       for (int q = 0; q < A_Q; ++q) {
         const int r = a_line + (256 / A_PER) * q, i = m0 + r;
         bool ok = i < a.M && k < kend;
         const float* src = a_src;
-        if constexpr (MODE == CONV || MODE == DXN) {
+        if constexpr (CV || MODE == DXN) {
           const int ts = a_t[q] + shift;
           ok = ok && ts >= 0 && ts < a.T;
-          if (ok) src += (size_t)(i + shift) * (MODE == CONV ? C : C2) + kcol;
-        } else if (ok) {  // DGLU
+          if (ok) src += (size_t)(i + shift) * (CV ? C : C2) + kcol;
+        } else if (ok) {  // DGLU, POINT
           src += (size_t)i * C + k;
         }
         cp_async<V>(As + r * TSK + a_pos, src, ok);
@@ -481,7 +364,7 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
     }
     if constexpr (BNC) {  // lines are reduction rows k, a piece runs along n
       int n;
-      if constexpr (MODE == CONV) {
+      if constexpr (CV) {
         const int w = b_pos / 32, r = b_pos % 32;
         const int p = blockIdx.x * (TBN / 2) + 16 * w + r % 16;
         n = p < C ? (r < 16 ? p : C + p) : -1;
@@ -493,7 +376,7 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
         const int kk = b_line + (256 / B_PER) * q, k = k0 + kk;
         const bool ok = n >= 0 && k < kend;
         const float* src = b_src;
-        if (ok) src += (size_t)k * (MODE == DWP ? C : C2) + n;
+        if (ok) src += (size_t)k * (MODE == DWP || MODE == POINT ? C : C2) + n;
         cp_async<V>(Bs + kk * TSN + b_pos, src, ok);
       }
     } else {  // DGLU, DXN: lines are columns n, a piece runs along k
@@ -511,8 +394,8 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
       }
     }
     // Step the trackers to the next tile.
-    if constexpr (MODE == CONV || MODE == DXN) {
-      const int width = MODE == CONV ? C : C2;
+    if constexpr (CV || MODE == DXN) {
+      const int width = CV ? C : C2;
       kcol += TBK;
       while (kcol >= width) {
         kcol -= width;
@@ -589,17 +472,32 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
       const int row = m0 + wm * WTM + mi * 16 + g + 8 * (e >> 1);
       if (row >= a.M) continue;
       const size_t m = row;
-      if constexpr (MODE == CONV) {
+      if constexpr (CV) {
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni) {  // lin in fragments 0, 1, its gate in 2, 3
           const int p = blockIdx.x * (TBN / 2) + wn * 16 + ni * 8 + 2 * tg + (e & 1);
           if (p >= C) continue;
           const float lin = acc[mi][ni][e] + a.bc[p];
           const float sg = sigmoid(acc[mi][ni + 2][e] + a.bc[C + p]);
-          const float dg = a.dglu[m * C + p];
           a.out[m * C + p] = lin * sg;
-          a.out2[m * C2 + p] = dg * sg;
-          a.out2[m * C2 + C + p] = dg * lin * sg * (1.f - sg);
+          if constexpr (MODE == CONV) {  // the backward's: dacc from dglu
+            const float dg = a.dglu[m * C + p];
+            a.out2[m * C2 + p] = dg * sg;
+            a.out2[m * C2 + C + p] = dg * lin * sg * (1.f - sg);
+          }
+        }
+      } else if constexpr (MODE == POINT) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int n = n0 + wn * 32 + ni * 8 + 2 * tg + (e & 1);
+          if (n >= a.N) continue;
+          const float y = acc[mi][ni][e] + a.bp[n];
+          const size_t idx = m * C + n;
+          if constexpr (RES)
+            static_cast<InT*>(a.out_typed)[idx] =
+                from_f32<InT>(to_f32(static_cast<const InT*>(a.x_res)[idx]) + y);
+          else
+            a.out[idx] = y;
         }
       } else {
 #pragma unroll
@@ -676,19 +574,9 @@ Args geometry(int T, int C, int K, int dil) {
   return a;
 }
 
-template <int MODE, typename InT = float, bool RES = false>
-cudaError_t gemm(Args a, int M, int N, int Kred, cudaStream_t st) {
-  a.M = M;
-  a.N = N;
-  a.Kred = Kred;
-  const dim3 grid(MODE == CONV ? cdiv(N, HALF_BN) : cdiv(N, BN), cdiv(M, BM));
-  gemm_kernel<MODE, InT, RES><<<grid, THREADS, 0, st>>>(a);
-  return cudaGetLastError();
-}
-
-template <int MODE, int V>
+template <int MODE, int V, typename InT, bool RES>
 cudaError_t tc_launch(const Args& a, dim3 grid, cudaStream_t st) {
-  auto kernel = tc_gemm_kernel<MODE, V>;
+  auto kernel = tc_gemm_kernel<MODE, V, InT, RES>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
   if (err != cudaSuccess) return err;
@@ -696,18 +584,22 @@ cudaError_t tc_launch(const Args& a, dim3 grid, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// A backward product on tc_gemm_kernel, in `split` slices (CONV: N is C,
-// the pairs, and one slice).  16-byte copies where every row of every
-// operand starts and steps on a 16-byte boundary (C a multiple of 4).
-template <int MODE>
+// A product on tc_gemm_kernel, in `split` slices (CONV, GLU: N is C, the
+// pairs, and one slice; POINT one slice).  16-byte copies where every row
+// of every operand starts and steps on a 16-byte boundary (C a multiple of 4).
+template <int MODE, typename InT = float, bool RES = false>
 cudaError_t tc_gemm(Args a, int M, int N, int Kred, Split split, cudaStream_t st) {
   a.M = M;
   a.N = N;
   a.Kred = Kred;
   a.k_per_split = split.k_per_split;
-  const dim3 grid(MODE == CONV ? cdiv(N, TBN / 2) : cdiv(N, TBN), cdiv(M, TBM), split.slices);
-  return a.C % 4 == 0 ? tc_launch<MODE, 4>(a, grid, st) : tc_launch<MODE, 1>(a, grid, st);
+  const dim3 grid(is_conv<MODE>() ? cdiv(N, TBN / 2) : cdiv(N, TBN), cdiv(M, TBM),
+                  split.slices);
+  return a.C % 4 == 0 ? tc_launch<MODE, 4, InT, RES>(a, grid, st)
+                      : tc_launch<MODE, 1, InT, RES>(a, grid, st);
 }
+
+constexpr Split WHOLE = {1, 1 << 30};  // one slice: the whole reduction
 
 cudaError_t sum_slices(const float* part, float* out, size_t n, int S, cudaStream_t st) {
   const int blocks = std::min(cdiv((long)n, 256), 4 * SM_COUNT);
@@ -727,7 +619,7 @@ cudaError_t column_sum(const float* a, float* part, float* out, int M, int N, cu
 // the split-K slices of each product that has more than one.
 struct BwdLayout {
   size_t dglu, glu, dacc, dglu_part, dwp_part, dwc_part, dxn_part, col_part, total;
-  Split sdglu, sdwp, sdwc, sdxn, whole;
+  Split sdglu, sdwp, sdwc, sdxn;
 };
 
 BwdLayout bwd_layout(int B, int T, int C, int K) {
@@ -737,7 +629,6 @@ BwdLayout bwd_layout(int B, int T, int C, int K) {
   l.sdwp = split_k(C, C, (int)M);
   l.sdwc = split_k(K * C, 2 * C, (int)M);
   l.sdxn = split_k((int)M, C, K * 2 * C);
-  l.whole = {1, 1 << 30};
   auto part = [](const Split& sp, size_t n) { return sp.slices > 1 ? sp.slices * n : 0; };
   l.dglu = 0;
   l.glu = l.dglu + M * C;
@@ -775,13 +666,13 @@ extern "C" int tcn_block_fwd(const void* x, const float* ln_scale, const float* 
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const int M = B * T;
-  const int ln_blocks = cdiv(M, THREADS / 32);
+  const int ln_blocks = cdiv(M, LN_THREADS / 32);
   if (in_bf16)
-    layer_norm_kernel<bf16><<<ln_blocks, THREADS, 0, st>>>(static_cast<const bf16*>(x), ln_scale,
-                                                           ln_bias, xn, M, C, eps);
+    layer_norm_kernel<bf16><<<ln_blocks, LN_THREADS, 0, st>>>(static_cast<const bf16*>(x),
+                                                              ln_scale, ln_bias, xn, M, C, eps);
   else
-    layer_norm_kernel<float><<<ln_blocks, THREADS, 0, st>>>(static_cast<const float*>(x),
-                                                            ln_scale, ln_bias, xn, M, C, eps);
+    layer_norm_kernel<float><<<ln_blocks, LN_THREADS, 0, st>>>(static_cast<const float*>(x),
+                                                               ln_scale, ln_bias, xn, M, C, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -790,7 +681,7 @@ extern "C" int tcn_block_fwd(const void* x, const float* ln_scale, const float* 
   a.wc = wc;
   a.bc = bc;
   a.out = glu;
-  if ((err = gemm<CONV>(a, M, C, K * C, st)) != cudaSuccess) return err;
+  if ((err = tc_gemm<GLU>(a, M, C, K * C, WHOLE, st)) != cudaSuccess) return err;
 
   Args p = geometry(T, C, K, dil);
   p.glu = glu;
@@ -798,12 +689,12 @@ extern "C" int tcn_block_fwd(const void* x, const float* ln_scale, const float* 
   p.bp = bp;
   if (!residual) {
     p.out = static_cast<float*>(out);
-    return gemm<POINT>(p, M, C, C, st);
+    return tc_gemm<POINT>(p, M, C, C, WHOLE, st);
   }
   p.x_res = x;
   p.out_typed = out;
-  return in_bf16 ? gemm<POINT, bf16, true>(p, M, C, C, st)
-                 : gemm<POINT, float, true>(p, M, C, C, st);
+  return in_bf16 ? tc_gemm<POINT, bf16, true>(p, M, C, C, WHOLE, st)
+                 : tc_gemm<POINT, float, true>(p, M, C, C, WHOLE, st);
 }
 
 // Floats of fp32 scratch that tcn_block_bwd needs at these shapes.
@@ -839,7 +730,7 @@ extern "C" int tcn_block_bwd(const float* xn, const float* dy, const float* wc, 
   a.dglu = dglu;
   a.out = glu;
   a.out2 = dacc;
-  if ((err = tc_gemm<CONV>(a, M, C, K * C, l.whole, st)) != cudaSuccess) return err;
+  if ((err = tc_gemm<CONV>(a, M, C, K * C, WHOLE, st)) != cudaSuccess) return err;
 
   Args w = geometry(T, C, K, dil);
   w.glu = glu;

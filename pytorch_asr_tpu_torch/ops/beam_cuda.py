@@ -16,6 +16,12 @@ Each wrapper takes its plain version (``decoding/prefix_beam.py::
 beam_scan_plain``, ``::_merge_topk``, ``::prefix_beam_stepwise_plain``) for
 CPU tensors and launches its kernel for CUDA tensors; there is no other
 switch and no fallback.
+
+K7, K8 and K9 keep a block's working set in shared memory where it fits
+(``fits``), and otherwise launch the same kernel with it in a device
+scratch (the kernel's ``kInScratch`` form: any beam, any lane count),
+counted under ``<name>_wide``; the form is chosen from the shapes before
+the launch.
 """
 
 from __future__ import annotations
@@ -28,14 +34,17 @@ from pytorch_asr_tpu_torch.decoding import prefix_beam as plain
 from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
-               "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6 + [_F, _F, _P, _P],
+_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _P],
+               "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6
+               + [_F, _F, _P, _I, _P],
                "merge_topk": [_P] * 22 + [_I] * 4 + [_P]}
 _STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P],
                      "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P]}
 MAX_SMEM = 232448    # the dynamic shared memory a Hopper block may use
-MAX_BEAM = 1024      # picks are held one a thread
+MAX_BEAM = 1024      # picks are held one a thread (in shared memory)
 MAX_LM_LAYERS = 8    # the kernel's RnnLm holds this many layers' pointers
+# csrc/prefix_beam.cu::Place: where K9's block keeps its working set.
+SHARED, LM_STATE_IN_SCRATCH, IN_SCRATCH = 0, 1, 2
 
 
 def smem_bytes(K: int, C: int, V: int) -> int:
@@ -58,6 +67,42 @@ def rnn_smem_bytes(K: int, C: int, V: int, nl: int, E: int, H: int,
     state = lm_state_floats(K, V, nl, H) if state_in_smem else 0
     lm = 4 * (groups * 4 * (max(E, H) + H) + state) + 4 * (3 * K + 1)
     return (smem_bytes(K, C, V) + 15) // 16 * 16 + lm
+
+
+def fits(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> bool:
+    """Whether one K7/K8 block (``lm`` None) or one K9 block (``lm`` = the
+    char LM's (layers, E, H), its state in a device scratch where need be)
+    takes beam K over C candidate lanes of a vocabulary V in shared memory:
+    K at most MAX_BEAM, the block's shared memory at most MAX_SMEM, and for
+    K9 at most MAX_LM_LAYERS layers.  A pure function of the shapes, as the
+    JAX package's lane-kernel gate is (``lanes <= 2048``); where it is
+    False, ``prefix_beam`` and ``prefix_beam_rnn`` launch the kernel with the
+    working set in a device scratch (``scratch_bytes``), which K9 does only
+    up to MAX_LM_LAYERS layers.  (A beam below 1 "fits": the wrappers refuse
+    it.)"""
+    if K > MAX_BEAM:
+        return False
+    if lm is None:
+        return smem_bytes(K, C, V) <= MAX_SMEM
+    nl, E, H = lm
+    return (nl <= MAX_LM_LAYERS
+            and rnn_smem_bytes(K, C, V, nl, E, H, state_in_smem=False) <= MAX_SMEM)
+
+
+def scratch_bytes(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> int:
+    """One block's slice of the device scratch where the working set does
+    not fit (``csrc/prefix_beam.cu::scratch_block_bytes``): the block's
+    working set as shared memory lays it out (K9's with its LM state), then
+    from the next 16-byte boundary the K picks of a frame, 8 bytes each, to
+    a 16-byte boundary."""
+    work = smem_bytes(K, C, V) if lm is None else rnn_smem_bytes(K, C, V, *lm)
+    return ((work + 15) // 16 * 16 + 8 * K + 15) // 16 * 16
+
+
+def _scratch(B: int, nbytes: int, dev) -> torch.Tensor:
+    """B slices of ``nbytes`` (a multiple of 16) as float32, 16-byte aligned
+    as the caching allocator aligns every block."""
+    return torch.empty((B * nbytes // 4,), dtype=torch.float32, device=dev)
 
 
 def merge_smem_bytes(Ks: int, nb: int) -> int:
@@ -92,13 +137,9 @@ def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int,
                              f"got {tuple(t.shape)} {t.dtype}")
         if t.device != logp.device or not t.is_contiguous():
             raise ValueError("prefix_beam: all inputs must be contiguous on one CUDA device")
-    if not 1 <= K <= MAX_BEAM or L < 0 or C < 1:
-        raise ValueError(f"prefix_beam: beam_size {K} must be in 1..{MAX_BEAM}, "
-                         f"max_len {L} >= 0, lanes {C} >= 1")
-    need = smem_bytes(K, C, V)
-    if need > MAX_SMEM:
-        raise ValueError(f"prefix_beam: K*C = {K}*{C} candidate lanes need {need} bytes of "
-                         f"shared memory, more than a block's {MAX_SMEM}")
+    if K < 1 or L < 0 or C < 1:
+        raise ValueError(f"prefix_beam: beam_size {K} >= 1, max_len {L} >= 0 and lanes "
+                         f"{C} >= 1 are needed")
     return C
 
 
@@ -126,7 +167,10 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
     (n_ctx, V) float32 fused as ``lm_alpha * row + lm_beta`` a char.  With
     ``top_val``/``top_idx`` (B, T, A) the extensions are each frame's top-A
     chars (K8), else all chars (K7).  Returns (tokens (B, max_len) int32,
-    lengths (B,) int32, scores (B,) float32) of the best beam of each row."""
+    lengths (B,) int32, scores (B,) float32) of the best beam of each row.
+    Where a block's working set does not fit its shared memory (``fits``)
+    it lies in a device scratch this wrapper allocates, counted under
+    ``<name>_wide``."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha,
                                      lm_beta, top_val, top_idx)
@@ -134,6 +178,7 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
     K, L = beam_size, max_len
     C = _check(logp, logit_len, lm_table, top_val, top_idx, K, L)
     dev = logp.device
+    scratch = None if fits(K, C, V) else _scratch(B, scratch_bytes(K, C, V), dev)
     parents = torch.empty((B, T, K), dtype=torch.int32, device=dev)
     appends = torch.empty_like(parents)
     tokens = torch.empty((B, L), dtype=torch.int32, device=dev)
@@ -141,12 +186,13 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = build.load("prefix_beam", _SIGNATURES)
-    name = "prefix_beam_topa" if top_idx is not None else "prefix_beam"
+    name = ("prefix_beam_topa" if top_idx is not None else "prefix_beam") + (
+        "_wide" if scratch is not None else "")
     build.check(lib.prefix_beam(
         logp.data_ptr(), ptr(top_val), ptr(top_idx), logit_len.data_ptr(), ptr(lm_table),
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
         scores.data_ptr(), B, T, V, K, C, L, lm_table.shape[0] if lm_table is not None else 1,
-        lm_alpha, lm_beta, torch.cuda.current_stream(dev).cuda_stream), name)
+        lm_alpha, lm_beta, ptr(scratch), torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores
 
@@ -164,10 +210,12 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     ``top_val``/``top_idx`` (B, T, A) the extensions are each frame's top-A
     chars, else all chars.  Returns (tokens (B, max_len) int32, lengths (B,)
     int32, scores (B,) float32) of the best beam of each row.  Each block
-    keeps its beams' LM state in shared memory, or, where that does not fit
-    beside the search, in a device scratch this wrapper allocates; it raises
-    ``ValueError`` only when the LM step's packed inputs, K x (max(E, H) + H)
-    floats, do not fit a block's shared memory either."""
+    keeps its working set in shared memory; where the beams' LM state does
+    not fit beside the search, that state lies in a device scratch this
+    wrapper allocates; and where the rest does not fit either (the LM
+    step's packed inputs, K x (max(E, H) + H) floats, past the block's
+    shared memory, or K > MAX_BEAM: ``fits``), all of it does, counted under
+    ``<name>_wide``.  It raises ``ValueError`` past MAX_LM_LAYERS layers."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, None, lm_alpha,
                                      lm_beta, top_val, top_idx, rnn_lm=rnn_lm,
@@ -181,15 +229,13 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     if not 1 <= nl <= MAX_LM_LAYERS:
         raise ValueError(f"prefix_beam_rnn: {nl} LM layers; the kernel takes 1..{MAX_LM_LAYERS}")
     dev = logp.device
-    lm_state = None
-    if rnn_smem_bytes(K, C, V, nl, E, H) > MAX_SMEM:
-        need = rnn_smem_bytes(K, C, V, nl, E, H, state_in_smem=False)
-        if need > MAX_SMEM:
-            raise ValueError(f"prefix_beam_rnn: beam {K} with an LM of E {E}, H {H} needs "
-                             f"{need} bytes of shared memory for the search and the LM "
-                             f"step's packed inputs, more than a block's {MAX_SMEM}")
-        lm_state = torch.empty((B, lm_state_floats(K, V, nl, H)), dtype=torch.float32,
-                               device=dev)
+    place, scratch = SHARED, None
+    if not fits(K, C, V, (nl, E, H)):
+        place, scratch = IN_SCRATCH, _scratch(B, scratch_bytes(K, C, V, (nl, E, H)), dev)
+    elif rnn_smem_bytes(K, C, V, nl, E, H) > MAX_SMEM:
+        place = LM_STATE_IN_SCRATCH
+        scratch = torch.empty((B, lm_state_floats(K, V, nl, H)), dtype=torch.float32,
+                              device=dev)
     parents = torch.empty((B, T, K), dtype=torch.int32, device=dev)
     appends = torch.empty_like(parents)
     tokens = torch.empty((B, L), dtype=torch.int32, device=dev)
@@ -198,11 +244,12 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     weights = (_P * len(lm))(*(t.data_ptr() for t, _ in lm.values()))
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = build.load("prefix_beam", _SIGNATURES)
-    name = "prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn"
+    name = ("prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn") + (
+        "_wide" if place == IN_SCRATCH else "")
     build.check(lib.prefix_beam_rnn(
         logp.data_ptr(), ptr(top_val), ptr(top_idx), logit_len.data_ptr(), weights, nl, E, H,
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
-        scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta, ptr(lm_state),
+        scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta, ptr(scratch), place,
         torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores

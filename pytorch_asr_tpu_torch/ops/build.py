@@ -7,7 +7,11 @@ shared library with a plain C interface, on first use, and loaded with
 an edited source is rebuilt and never mixed up with an old build.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the CUDA
-kernel (a CPU tensor takes the plain version and is not counted).
+kernel (a CPU tensor takes the plain version and is not counted).  A route
+chosen from the shapes for CUDA tensors counts under its own name: the
+LSTM's wide route (``lstm_seq_wide`` and the rest, the per-utterance
+kernel) and the beam kernels past a block's shared memory
+(``prefix_beam_wide`` and the rest, their working set in a device scratch).
 """
 
 from __future__ import annotations
@@ -31,7 +35,11 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "prefix_beam_rnn_topa": 0, "merge_topk": 0, "tcn_block": 0,
                             "tcn_block_train_fwd": 0, "tcn_block_bwd": 0, "bilstm_seq": 0,
                             "bilstm_seq_train_fwd": 0, "bilstm_seq_bwd": 0,
-                            "bilstm_seq_per_utterance": 0,
+                            "bilstm_seq_per_utterance": 0, "lstm_seq_wide": 0,
+                            "lstm_seq_train_wide": 0, "bilstm_seq_wide": 0,
+                            "bilstm_seq_train_wide": 0, "prefix_beam_wide": 0,
+                            "prefix_beam_topa_wide": 0, "prefix_beam_rnn_wide": 0,
+                            "prefix_beam_rnn_topa_wide": 0,
                             "ctc_alpha_paired": 0, "prefix_beam_fused": 0,
                             "prefix_beam_stepwise": 0}
 

@@ -11,11 +11,17 @@ tensors; there is no other switch and no fallback.
 
 K2's and K3's forward recurrence run on a co-resident grid, one CTA an SM,
 each holding its hidden units' columns of ``whh`` in shared memory;
-``recurrence_grid`` picks the grid, and a launch that cannot be resident
-raises.  K11's forward runs the same kernel on a grid of both directions,
-half the SMs each.  K3's and K11's backward walk an utterance a block.
-``_bilstm_seq_per_utterance`` keeps K11's old forward, a block an
-utterance, as the grid kernel's bit-equality oracle; no op calls it.
+``recurrence_grid`` picks the grid.  K11's forward runs the same kernel on a
+grid of both directions, half the SMs each.  Where the grid cannot hold
+``whh`` (one direction from H ~1300 at B 8-16, K11 from H ~920, or a batch of
+hundreds), the ops take the wide route: the per-utterance kernel, a block an
+utterance (and direction), which gives the grid's bits and runs to H 9,685.
+``forward_route`` chooses from the shapes before the launch, and the wide
+route counts under its own names (``lstm_seq_wide``, ``lstm_seq_train_wide``,
+``bilstm_seq_wide``, ``bilstm_seq_train_wide``).  K3's and K11's backward
+walk an utterance a block at any of these widths.
+``_bilstm_seq_per_utterance`` runs K11's wide route as the grid kernel's
+bit-equality oracle, under a count of its own; no op calls it.
 """
 
 from __future__ import annotations
@@ -35,10 +41,14 @@ _SIGNATURES = {"lstm_seq_fwd": [_P] * 10 + [_I] * 11 + [_P],
                "bilstm_seq_fwd": [_P] * 10 + [_I] * 10 + [_P],
                "bilstm_seq_train_fwd": [_P] * 12 + [_I] * 11 + [_P],
                "bilstm_seq_per_utterance": [_P] * 9 + [_I] * 8 + [_P],
+               "lstm_seq_per_utterance": [_P] * 9 + [_I] * 9 + [_P],
                "bilstm_seq_bwd": [_P] * 14 + [_I] * 6 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 SMS = 132                      # the H100 SXM's SMs
 SMEM_PER_BLOCK = 232448        # shared memory a Hopper block can opt in to, bytes
+# The wide route's launch counts: (inference, training forward) by directions.
+WIDE = {1: ("lstm_seq_wide", "lstm_seq_train_wide"),
+        2: ("bilstm_seq_wide", "bilstm_seq_train_wide")}
 
 
 class Grid(NamedTuple):
@@ -73,21 +83,47 @@ def recurrence_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK,
     and its own CTAs, the same rule on each half.  Raises ValueError where
     the grid cannot hold whh on its SMs.
     """
+    grid, fits, need, sms = _grid_shape(H, B, sms, smem, units, directions)
+    if not fits:
+        raise ValueError(
+            f"lstm_seq: H {H} at B {B} does not fit the co-resident grid: {grid.ctas} CTAs of "
+            f"{grid.units} units need {need} bytes of shared memory each ({4 * grid.units} "
+            f"columns of whh, one staged row of h, the state of {B} rows), on {sms} SMs of "
+            f"{smem} bytes a direction")
+    return grid
+
+
+def _grid_shape(H: int, B: int, sms: int, smem: int, units: int | None,
+                directions: int) -> tuple[Grid, bool, int, int]:
+    """``recurrence_grid``'s rule -> (the grid, whether it fits: its CTAs on
+    the SMs of a direction and at least one staged row, the bytes a CTA
+    needs with one staged row, the SMs a direction)."""
     if directions not in (1, 2):
         raise ValueError(f"lstm_seq: directions must be 1 or 2, got {directions}")
     sms //= directions
     units = units or -(-H // sms)
-    ctas = -(-H // units)
     hp = _padded_row(H)
     fixed = 4 * (4 * units * hp + 13 * B * units + 16) + 4 * B
     rows = min(B, (smem - fixed) // (4 * hp))
-    if ctas > sms or rows < 1:
-        raise ValueError(
-            f"lstm_seq: H {H} at B {B} does not fit the co-resident grid: {ctas} CTAs of "
-            f"{units} units need {fixed + 4 * hp} bytes of shared memory each ({4 * units} "
-            f"columns of whh, one staged row of h, the state of {B} rows), on {sms} SMs of "
-            f"{smem} bytes a direction")
-    return Grid(H, ctas, units, rows, fixed + 4 * rows * hp, directions)
+    grid = Grid(H, -(-H // units), units, rows, fixed + 4 * rows * hp, directions)
+    return grid, grid.ctas <= sms and rows >= 1, fixed + 4 * hp, sms
+
+
+def forward_route(H: int, B: int, sms: int = SMS, directions: int = 1,
+                  smem: int = SMEM_PER_BLOCK) -> Grid | None:
+    """The route of the forward recurrence for hidden width H and B >= 1
+    utterances: ``recurrence_grid``'s grid wherever it fits, else None, the
+    wide route (the per-utterance kernel, 6 H floats of shared memory a
+    block).  Decided from the shapes alone.  Raises ValueError only where
+    neither fits: H > 9,685 at the card's 232,448 bytes."""
+    grid, fits, _, _ = _grid_shape(H, B, sms, smem, None, directions)
+    if fits:
+        return grid
+    if 6 * H * 4 > smem:
+        raise ValueError(f"lstm_seq: H {H} fits neither the co-resident grid nor the "
+                         f"per-utterance kernel's {6 * H * 4} bytes of shared memory a "
+                         f"block ({smem})")
+    return None
 
 
 @functools.cache
@@ -215,10 +251,11 @@ def _stream(t: torch.Tensor) -> int:
 
 def lstm_seq_infer(x, wih, whh, bias, lengths, reverse: bool = False,
                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Inference forward (K2): the kernel for CUDA tensors, ``lstm_seq_plain`` for CPU."""
+    """Inference forward (K2): the kernel for CUDA tensors (the grid, or the
+    wide route: ``forward_route``), ``lstm_seq_plain`` for CPU."""
     if x.device.type == "cpu":
         return lstm_seq_plain(x, wih, whh, bias, lengths, reverse, out_dtype)
-    return forward_on_grid(None, x, wih, whh, bias, lengths, reverse, out_dtype)
+    return _forward(1, x, wih, whh, bias, lengths, reverse, out_dtype, None)
 
 
 def lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse: bool = False,
@@ -228,7 +265,35 @@ def lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse: bool = False,
     if x.device.type == "cpu":
         return lstm_seq_train_plain(x, wih, whh, bias, lengths, reverse, out_dtype,
                                     residual_dtype)
-    return forward_on_grid(None, x, wih, whh, bias, lengths, reverse, out_dtype, residual_dtype)
+    return _forward(1, x, wih, whh, bias, lengths, reverse, out_dtype, residual_dtype)
+
+
+def _outputs(dirs: int, x, H: int, out_dtype, residual_dtype):
+    """(out, acts, ct) of a forward launch on one direction or both, acts
+    and ct None for the inference forward."""
+    if residual_dtype is not None and residual_dtype not in _DTYPES:
+        raise ValueError(f"lstm_seq: residual_dtype must be float32 or bfloat16, "
+                         f"got {residual_dtype}")
+    B, T, _ = x.shape
+    lead = (dirs,) if dirs == 2 else ()
+    out = torch.empty((B, T, dirs * H), dtype=out_dtype, device=x.device)
+    if residual_dtype is None:
+        return out, None, None
+    return (out, torch.empty((*lead, T, B, 4 * H), dtype=residual_dtype, device=x.device),
+            torch.empty((*lead, T, B, H), dtype=residual_dtype, device=x.device))
+
+
+def _forward(dirs: int, x, wih, whh, bias, lengths, reverse, out_dtype, residual_dtype):
+    """The ops' forward on CUDA tensors, one direction or both (K11): the
+    grid where ``forward_route`` gives one, else the wide route."""
+    out_dtype = out_dtype or torch.float32
+    (_check_dual_args if dirs == 2 else _check_cuda_args)(x, wih, whh, bias, lengths, out_dtype)
+    grid = forward_route(whh.shape[-2], max(x.shape[0], 1), _sm_count(x.device.index), dirs)
+    if grid is None:
+        return _per_utterance(dirs, WIDE[dirs][residual_dtype is not None], x, wih, whh, bias,
+                              lengths, reverse, out_dtype, residual_dtype)
+    return _launch_grid(grid, dirs, x, wih, whh, bias, lengths, reverse, out_dtype,
+                        residual_dtype, None)
 
 
 def forward_on_grid(grid: Grid | None, x, wih, whh, bias, lengths, reverse: bool = False,
@@ -272,20 +337,14 @@ def _launch_grid(grid, dirs: int, x, wih, whh, bias, lengths, reverse, out_dtype
         raise ValueError(f"lstm_seq: trace must be contiguous ({T}, 5) int64 on {x.device}")
     H = whh.shape[-2]
     train = residual_dtype is not None
-    if train and residual_dtype not in _DTYPES:
-        raise ValueError(f"lstm_seq: residual_dtype must be float32 or bfloat16, "
-                         f"got {residual_dtype}")
-    lead = (dirs,) if dirs == 2 else ()
-    out = torch.empty((B, T, dirs * H), dtype=out_dtype, device=x.device)
-    if train:
-        acts = torch.empty((*lead, T, B, 4 * H), dtype=residual_dtype, device=x.device)
-        ct = torch.empty((*lead, T, B, H), dtype=residual_dtype, device=x.device)
+    out, acts, ct = _outputs(dirs, x, H, out_dtype, residual_dtype)
     if B == 0 or T == 0:
         return (out, acts, ct) if train else out
     grid = grid or recurrence_grid(H, B, _sm_count(x.device.index), directions=dirs)
     if grid.hidden != H or grid.directions != dirs:
         raise ValueError(f"lstm_seq: a grid for H {grid.hidden} and {grid.directions} "
                          f"direction(s), not H {H} and {dirs}")
+    lead = (dirs,) if dirs == 2 else ()
     xproj = torch.empty((*lead, B, T, 4 * H), dtype=torch.float32, device=x.device)
     hbuf = torch.empty((*lead, 2, B, H), dtype=torch.float32, device=x.device)
     sync = torch.zeros(1, dtype=torch.int32, device=x.device)
@@ -439,11 +498,11 @@ def bilstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct):
 
 def bilstm_seq_infer(x, wih, whh, bias, lengths,
                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """K11's inference forward: the dual grid for CUDA tensors,
-    ``bilstm_seq_plain`` for CPU."""
+    """K11's inference forward: the dual grid (or the wide route:
+    ``forward_route``) for CUDA tensors, ``bilstm_seq_plain`` for CPU."""
     if x.device.type == "cpu":
         return bilstm_seq_plain(x, wih, whh, bias, lengths, out_dtype)
-    return bilstm_on_grid(None, x, wih, whh, bias, lengths, out_dtype)
+    return _forward(2, x, wih, whh, bias, lengths, False, out_dtype, None)
 
 
 def bilstm_seq_train_fwd(x, wih, whh, bias, lengths, out_dtype: torch.dtype | None = None,
@@ -451,7 +510,7 @@ def bilstm_seq_train_fwd(x, wih, whh, bias, lengths, out_dtype: torch.dtype | No
     """K11's training forward -> (out, acts, ct); see ``bilstm_seq_train_plain``."""
     if x.device.type == "cpu":
         return bilstm_seq_train_plain(x, wih, whh, bias, lengths, out_dtype, residual_dtype)
-    return bilstm_on_grid(None, x, wih, whh, bias, lengths, out_dtype, residual_dtype)
+    return _forward(2, x, wih, whh, bias, lengths, False, out_dtype, residual_dtype)
 
 
 def _bilstm_seq_per_utterance(x, wih, whh, bias, lengths,
@@ -464,26 +523,30 @@ def _bilstm_seq_per_utterance(x, wih, whh, bias, lengths,
     call it, under its own launch count."""
     out_dtype = out_dtype or torch.float32
     _check_dual_args(x, wih, whh, bias, lengths, out_dtype)
+    return _per_utterance(2, "bilstm_seq_per_utterance", x, wih, whh, bias, lengths, False,
+                          out_dtype, residual_dtype)
+
+
+def _per_utterance(dirs: int, name: str, x, wih, whh, bias, lengths, reverse, out_dtype,
+                   residual_dtype):
+    """Launch the per-utterance kernel, one direction (``lstm_seq_per_utterance``)
+    or both, on checked CUDA inputs, counted under ``name``."""
     train = residual_dtype is not None
-    if train and residual_dtype not in _DTYPES:
-        raise ValueError(f"bilstm_seq: residual_dtype must be float32 or bfloat16, "
-                         f"got {residual_dtype}")
     B, T, D = x.shape
-    H = whh.shape[1]
-    out = torch.empty((B, T, 2 * H), dtype=out_dtype, device=x.device)
-    res = residual_dtype or torch.float32
-    acts = torch.empty((2, T, B, 4 * H) if train else (0,), dtype=res, device=x.device)
-    ct = torch.empty((2, T, B, H) if train else (0,), dtype=res, device=x.device)
+    H = whh.shape[-2]
+    out, acts, ct = _outputs(dirs, x, H, out_dtype, residual_dtype)
     if B and T:
-        xproj = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
+        lead = (dirs,) if dirs == 2 else ()
+        xproj = torch.empty((*lead, B, T, 4 * H), dtype=torch.float32, device=x.device)
         lib = build.load("lstm_seq", _SIGNATURES)
-        err = lib.bilstm_seq_per_utterance(
-            x.data_ptr(), wih.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
-            xproj.data_ptr(), out.data_ptr(), acts.data_ptr(), ct.data_ptr(), B, T, D, H,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), int(train),
-            int(res == torch.bfloat16), _stream(x))
-        build.check(err, "bilstm_seq_per_utterance")
-        build.LAUNCHES["bilstm_seq_per_utterance"] += 1
+        ptrs = [t.data_ptr() if t is not None else 0
+                for t in (x, wih, whh, bias, lengths, xproj, out, acts, ct)]
+        flags = [B, T, D, H] + ([int(reverse)] if dirs == 1 else [])
+        flags += [int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), int(train),
+                  int(residual_dtype == torch.bfloat16)]
+        entry = "lstm_seq_per_utterance" if dirs == 1 else "bilstm_seq_per_utterance"
+        build.check(getattr(lib, entry)(*ptrs, *flags, _stream(x)), name)
+        build.LAUNCHES[name] += 1
     return (out, acts, ct) if train else out
 
 

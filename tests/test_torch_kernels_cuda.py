@@ -43,9 +43,8 @@ BEAM_RTOL = 1e-5
 # search decisive (tokens and lengths exact), and the scores are held as the
 # JAX package holds its own K9 on hardware (tests/test_tpu_parity.py).
 RNN_RTOL, RNN_ATOL = 2e-3, 1e-3
-# TCN block: fp32 products (FMA in k order in the forward, 3xTF32 on tensor
-# cores in the backward) against cuBLAS's blocked sums, the JAX package's
-# 2e-4 (relative to each tensor's largest entry);
+# TCN block: fp32-grade products (3xTF32 on tensor cores) against cuBLAS's
+# blocked sums, the JAX package's 2e-4 (relative to each tensor's largest entry);
 # a bf16 output one bf16 step apart where the fp32 sums straddle a rounding
 # boundary.
 TCN_TOL = 2e-4
@@ -302,11 +301,54 @@ def test_prefix_beam_kernel_takes_more_lanes_than_threads(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K,A", [(400, 0), (1100, 0), (1100, 4)])
+def test_prefix_beam_search_past_a_block_runs_in_scratch(cuda, K, A):
+    """Beam 400 over the char vocab needs more shared memory than a block
+    has, and beam 1100 (K7, or K8 over each frame's top 4) more picks than
+    a block has threads: the kernel runs with its working set in a device
+    scratch, counted under its wide name, and equals the plain search bit
+    for bit."""
+    logits, lens, _ = _beam_case(cuda, 12, B=2, T=30)
+    kw = dict(beam_size=K, max_len=24, ext_top_a=A)
+    assert not beam_cuda.fits(K, A or 31, 31)
+    build.reset_launches()
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    name = "prefix_beam_topa_wide" if A else "prefix_beam_wide"
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {name: 1}
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [0, 8])
+@pytest.mark.parametrize("rnn", [False, True])
+def test_prefix_beam_scratch_form_gives_the_shared_forms_bits(cuda, monkeypatch, A, rnn):
+    """At beam 8, where both run, K7/K8 (with a dense table) and K9 with
+    their working set in a device scratch (forced) equal the shared form
+    bit for bit, scores included: the same code in the same order."""
+    logits, lens, table = _beam_case(cuda, 3)
+    kw = dict(beam_size=8, max_len=32, ext_top_a=A, lm_alpha=0.5, lm_beta=1.0)
+    kw.update(dict(rnn_lm=_rnn_lm(cuda, 2), sos_id=29) if rnn else dict(lm_table=table))
+    name = ("prefix_beam_rnn" if rnn else "prefix_beam") + ("_topa" if A else "")
+    build.reset_launches()
+    shared = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {name: 1}
+    monkeypatch.setattr(beam_cuda, "fits", lambda *args, **kwargs: False)
+    build.reset_launches()
+    scratch = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {f"{name}_wide": 1}
+    assert all(torch.equal(a, b) for a, b in zip(scratch, shared))
+
+
+@pytest.mark.cuda
 def test_prefix_beam_kernel_rejects_what_it_does_not_take(cuda):
     logp = torch.zeros(1, 2, 4096, device=cuda)
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        beam_cuda.prefix_beam(logp, lens, 64, 8)              # 64 x 4096 lanes
+    with pytest.raises(ValueError, match="beam_size"):
+        beam_cuda.prefix_beam(logp, lens, 0, 8)
     with pytest.raises(ValueError, match="int32"):
         beam_cuda.prefix_beam(logp, lens.long(), 4, 8)
     with pytest.raises(ValueError, match="top_val"):
@@ -367,12 +409,11 @@ def test_prefix_beam_rnn_kernel_at_full_lm_width(cuda, E, H, nl, K):
 def test_prefix_beam_rnn_kernel_rejects_what_it_does_not_take(cuda):
     logits, lens, _ = _beam_case(cuda, 5, B=2, T=20)
     logp = torch.log_softmax(logits, -1)
-    # Beam 64 at H 512: the LM step's packed inputs alone (64 x 1024 floats)
-    # pass a block's shared memory, wherever the state lives.
-    big = _rnn_lm(cuda, 1, 128, 512)
-    with pytest.raises(ValueError, match="shared memory"):
-        beam_cuda.prefix_beam_rnn(logp, lens, 64, 8, big, *prefix_beam.primed_lm_state(big, 29),
-                                  0.5, 1.0)
+    # The kernel's RnnLm holds the pointers of 8 layers.
+    deep = _rnn_lm(cuda, 9)
+    with pytest.raises(ValueError, match="LM layers"):
+        beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, deep,
+                                  *prefix_beam.primed_lm_state(deep, 29), 0.5, 1.0)
     lm = _rnn_lm(cuda, 1)
     h0, c0, lmp0 = prefix_beam.primed_lm_state(lm, 29)
     with pytest.raises(ValueError, match="h0"):
@@ -399,6 +440,27 @@ def test_prefix_beam_rnn_kernel_past_shared_memory(cuda, E, H, nl, K):
         want = prefix_beam.prefix_beam_search_plain(logits, lens, ext_top_a=A, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
         torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [0, 8])
+def test_prefix_beam_rnn_search_past_a_block_runs_in_scratch(cuda, A):
+    """K9 at beam 64 with an LM of H 512: the LM step's packed inputs alone
+    pass a block's shared memory, so the kernel runs with its whole working
+    set in a device scratch, counted under its wide name, and matches the
+    plain search: tokens and lengths exact, scores to RNN_RTOL."""
+    logits, lens, _ = _beam_case(cuda, 13, B=2, T=20)
+    kw = dict(beam_size=64, max_len=16, ext_top_a=A, rnn_lm=_rnn_lm(cuda, 2, 128, 512),
+              sos_id=29, lm_alpha=0.5, lm_beta=1.0)
+    assert not beam_cuda.fits(64, A or 31, 31, (2, 128, 512))
+    build.reset_launches()
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    name = "prefix_beam_rnn_topa_wide" if A else "prefix_beam_rnn_wide"
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {name: 1}
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+    torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
 
 
 def _merge_case(device, P: int, frames: int, table: bool, seed: int = 7):
@@ -484,8 +546,8 @@ def _tcn_case(device, dtype=torch.float32, B=3, T=133, C=96, K=5, seed=9):
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8, 16])
 def test_tcn_kernels_match_plain(cuda, dilation, T):
     """K5, the K6 forward and the K6 backward against their plain versions;
-    T = 9 is shorter than the conv's reach 2 d (K // 2) for d >= 4.  The
-    backward (3xTF32 on tensor cores, split-K summed in a fixed order, no
+    T = 9 is shorter than the conv's reach 2 d (K // 2) for d >= 4.  Each
+    (3xTF32 on tensor cores, any split-K summed in a fixed order, no
     atomics) gives the same bits on a second call."""
     x, p = _tcn_case(cuda, T=T)
     dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(dilation)).to(cuda)
@@ -498,6 +560,9 @@ def test_tcn_kernels_match_plain(cuda, dilation, T):
             build.LAUNCHES["tcn_block_bwd"]) == (1, 1, 1)
     again = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], dilation)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert torch.equal(out, tcn_cuda.tcn_block(x, *p, dilation))
+    assert all(torch.equal(a, b) for a, b in zip((y, xn),
+                                                  tcn_cuda.tcn_block_train_fwd(x, *p, dilation)))
     want_y, want_xn = tcn_cuda.tcn_block_train_fwd_plain(x, *p, dilation)
     want = (tcn_cuda.tcn_block_plain(x, *p, dilation), want_y, want_xn,
             *tcn_cuda.tcn_block_bwd_plain(want_xn, dy, p[2], p[3], p[4], dilation))
@@ -508,17 +573,23 @@ def test_tcn_kernels_match_plain(cuda, dilation, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [30, 384])
+@pytest.mark.parametrize("C", [30, 32, 384])
 def test_tcn_backward_at_other_widths(cuda, C):
-    """The backward at C 30 (4-byte copies: rows are not 16-byte aligned)
-    and at config 3's C 384 (tiles that do not cross a tap), against the
-    plain version."""
+    """The backward and both forwards at C 30 (4-byte copies: rows are not
+    16-byte aligned), C 32 (16-byte copies, one tile of channel pairs) and
+    config 3's C 384 (tiles that do not cross a tap), against the plain
+    versions."""
     x, p = _tcn_case(cuda, B=2, T=61, C=C)
     dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(C)).to(cuda)
     xn = tcn_cuda.layer_norm(x, p[0], p[1]).contiguous()
     got = tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], 2)
     want = tcn_cuda.tcn_block_bwd_plain(xn, dy, p[2], p[3], p[4], 2)
     for name, g, w in zip(("dxn", "dwc", "dbc", "dwp", "dbp"), got, want):
+        assert _rel_err(g, w) <= TCN_TOL, name
+    got = (tcn_cuda.tcn_block(x, *p, 2), *tcn_cuda.tcn_block_train_fwd(x, *p, 2))
+    want = (tcn_cuda.tcn_block_plain(x, *p, 2), *tcn_cuda.tcn_block_train_fwd_plain(x, *p, 2))
+    for name, g, w in zip(("out", "y", "xn"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
         assert _rel_err(g, w) <= TCN_TOL, name
 
 
@@ -706,6 +777,108 @@ def test_lstm_grid_kernels_equal_the_per_utterance_kernel(cuda, H, B):
             assert build.LAUNCHES["lstm_seq_train_fwd"] == 1
             assert torch.equal(got[0], out[..., d * H:(d + 1) * H])
             assert torch.equal(got[1], acts[d]) and torch.equal(got[2], ct[d])
+
+
+def _wide_case(device, B, T, D, H, seed=21):
+    """bf16 x and wih (2, D, 4H), fp32 whh and bias at a scale that keeps the
+    gates off saturation at any H; lengths T, 0 and in between."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    x = t(rng.standard_normal((B, T, D)) * 0.5).bfloat16()
+    wih = t(rng.standard_normal((2, D, 4 * H)) / np.sqrt(D)).bfloat16()
+    whh = t(rng.standard_normal((2, H, 4 * H)) / np.sqrt(H))
+    bias = t(rng.standard_normal((2, 4 * H)) * 0.1)
+    lengths = torch.tensor(([T, 0, 1, T - 3] + [2 + 5 * i % (T - 2) for i in range(B)])[:B],
+                           dtype=torch.int32, device=device)
+    return x, wih, whh, bias, lengths
+
+
+def _forced_wide(monkeypatch):
+    """Route every forward of the ops to the per-utterance kernel."""
+    monkeypatch.setattr(lstm_cuda, "forward_route", lambda *args, **kwargs: None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(4, 24), (8, 400)])
+def test_wide_route_gives_the_grids_bits(cuda, monkeypatch, B, T):
+    """At H 640, where both routes run, the per-utterance route of K2, K3's
+    forward and K11 (forced) equals the grid's, bit for bit, counted under
+    the wide names; the grid's own calls count none of them.  A short T,
+    and a config's T 400 at B 8, where rows end long before T (lengths 0,
+    1, 397 and in between) and the reverse direction fills their residuals
+    past the window."""
+    H = 640
+    x, wih, whh, bias, lengths = _wide_case(cuda, B, T, 64, H)
+    res = torch.bfloat16
+    calls = {
+        "lstm_seq": lambda d: lstm_cuda.lstm_seq_infer(x, wih[d], whh[d], bias[d], lengths,
+                                                       bool(d), torch.bfloat16),
+        "lstm_seq_train_fwd": lambda d: lstm_cuda.lstm_seq_train_fwd(
+            x, wih[d], whh[d], bias[d], lengths, bool(d), torch.bfloat16, res),
+        "bilstm_seq": lambda d: lstm_cuda.bilstm_seq_infer(x, wih, whh, bias, lengths,
+                                                           torch.bfloat16),
+        "bilstm_seq_train_fwd": lambda d: lstm_cuda.bilstm_seq_train_fwd(
+            x, wih, whh, bias, lengths, torch.bfloat16, res)}
+    wide = {"lstm_seq": "lstm_seq_wide", "lstm_seq_train_fwd": "lstm_seq_train_wide",
+            "bilstm_seq": "bilstm_seq_wide", "bilstm_seq_train_fwd": "bilstm_seq_train_wide"}
+    grid = {}
+    for name, call in calls.items():
+        for d in ((0, 1) if name.startswith("lstm") else (0,)):
+            build.reset_launches()
+            grid[name, d] = call(d)
+            torch.cuda.synchronize()
+            assert {k: v for k, v in build.LAUNCHES.items() if v} == {name: 1}, name
+    _forced_wide(monkeypatch)
+    for (name, d), want in grid.items():
+        build.reset_launches()
+        got = calls[name](d)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in build.LAUNCHES.items() if v} == {wide[name]: 1}, name
+        want, got = (want, got) if isinstance(got, tuple) else ((want,), (got,))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (name, d)
+
+
+@pytest.mark.cuda
+def test_wide_route_past_the_grid(cuda):
+    """H 1536 at B 8 fits neither grid: K2, K3's training pair and K11's
+    forwards run the per-utterance kernel under their wide counts, and hold
+    to the plain versions (K3's gradients too)."""
+    H, B, T, D = 1536, 8, 16, 48
+    assert lstm_cuda.forward_route(H, B) is None
+    assert lstm_cuda.forward_route(H, B, directions=2) is None
+    x, wih, whh, bias, lengths = _wide_case(cuda, B, T, D, H)
+    build.reset_launches()
+    k2 = lstm_cuda.lstm_seq_infer(x, wih[1], whh[1], bias[1], lengths, True, torch.bfloat16)
+    k11 = lstm_cuda.bilstm_seq_infer(x, wih, whh, bias, lengths, torch.bfloat16)
+    k11t = lstm_cuda.bilstm_seq_train_fwd(x, wih, whh, bias, lengths, torch.bfloat16,
+                                          torch.float32)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        "lstm_seq_wide": 1, "bilstm_seq_wide": 1, "bilstm_seq_train_wide": 1}
+    torch.testing.assert_close(k2.float(), lstm_cuda.lstm_seq_plain(
+        x, wih[1], whh[1], bias[1], lengths, True, torch.bfloat16).float(),
+        rtol=BF16_TOL, atol=BF16_TOL)
+    want = lstm_cuda.bilstm_seq_plain(x, wih, whh, bias, lengths, torch.bfloat16)
+    torch.testing.assert_close(k11.float(), want.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(k11t[0], k11)
+    plain_t = lstm_cuda.bilstm_seq_train_plain(x, wih, whh, bias, lengths, torch.bfloat16,
+                                               torch.float32)
+    for name, g, w in zip(("acts", "ct"), k11t[1:], plain_t[1:]):
+        assert _rel_err(g, w) <= F32_TOL * 10, name
+    # K3's training pair under autograd: the wide forward, then the backward.
+    params = [t.clone().requires_grad_(True) for t in (x, wih[0], whh[0], bias[0])]
+    build.reset_launches()
+    out = lstm_cuda.lstm_seq(*params, lengths, False, torch.bfloat16, torch.float32)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        "lstm_seq_train_wide": 1, "lstm_seq_bwd": 1}
+    _, acts, ct = lstm_cuda.lstm_seq_train_plain(x, wih[0], whh[0], bias[0], lengths, False,
+                                                 torch.bfloat16, torch.float32)
+    want = lstm_cuda.lstm_seq_bwd_plain(2 * out.detach().float(), x, wih[0], whh[0], lengths,
+                                        acts, ct)
+    for name, p, w in zip(("dx", "dwih", "dwhh", "db"), params, want):
+        assert _rel_err(p.grad, w) <= BF16_TOL, name
 
 
 @pytest.mark.cuda

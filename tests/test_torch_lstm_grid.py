@@ -72,3 +72,44 @@ def test_a_width_past_the_card_raises_for_the_dual_grid():
         lstm_cuda.recurrence_grid(1024, 8, directions=2)
     with pytest.raises(ValueError, match="directions"):
         lstm_cuda.recurrence_grid(384, 8, directions=3)
+
+
+# ---------------------------------------------------------------- the route of the ops' forward
+
+
+@pytest.mark.parametrize("directions", [1, 2])
+@pytest.mark.parametrize("B", [1, 5, 8, 16, 32])
+@pytest.mark.parametrize("H", [384, 512, 640])
+def test_route_takes_the_grid_at_the_configs_widths(H, B, directions):
+    assert lstm_cuda.forward_route(H, B, directions=directions) == lstm_cuda.recurrence_grid(
+        H, B, directions=directions)
+
+
+# One direction past the grid at H 1536 and at B 931 (H 512); K11's dual
+# grid past it at H 1024.
+@pytest.mark.parametrize("H,B,directions", [(1536, 8, 1), (1024, 8, 2), (512, 931, 1),
+                                            (9685, 8, 1), (9685, 1, 2)])
+def test_route_takes_the_per_utterance_kernel_past_the_grid(H, B, directions):
+    with pytest.raises(ValueError):
+        lstm_cuda.recurrence_grid(H, B, directions=directions)
+    assert lstm_cuda.forward_route(H, B, directions=directions) is None
+
+
+@pytest.mark.parametrize("directions", [1, 2])
+def test_route_raises_past_the_per_utterance_kernel(directions):
+    # 6 H floats a block: 232,440 bytes at H 9,685 fit, 232,464 at 9,686 do not.
+    with pytest.raises(ValueError, match="H 9686"):
+        lstm_cuda.forward_route(9686, 8, directions=directions)
+
+
+@pytest.mark.parametrize("directions", [1, 2])
+@pytest.mark.parametrize("B", [1, 8, 16, 256])
+def test_route_is_the_grid_exactly_where_the_grid_fits(B, directions):
+    """Across widths, the per-utterance route is taken where, and only where,
+    ``recurrence_grid`` refuses: the route is read off the same rule."""
+    for H in range(32, 2049, 37):
+        try:
+            want = lstm_cuda.recurrence_grid(H, B, directions=directions)
+        except ValueError:
+            want = None
+        assert lstm_cuda.forward_route(H, B, directions=directions) == want, H

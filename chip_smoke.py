@@ -235,7 +235,7 @@ SIMT_GEMM = re.compile(r"(^|[^\w])gemm_kernel<")
 # beam kernels' in-scratch form): K7 at beam 400, K9 at beam 64 with an LM
 # of H 512 (WIDE_LM).
 WIDE_H, WIDE_SEARCH_BEAM, WIDE_RNN_BEAM = 1536, 400, 64
-WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "bilstm_seq_wide",
+WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "lstm_seq_bwd_wide", "bilstm_seq_wide",
                "bilstm_seq_train_wide", "prefix_beam_wide", "prefix_beam_topa_wide",
                "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide")
 # K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
@@ -450,6 +450,7 @@ def stft_phase() -> dict:
 
     lib_err, _ = errors(library(), want)
     check(lib_err <= STFT_TOL, f"stft yardstick computes another function: {lib_err}")
+    split = stft_split(audio, cfg)
     # What the function needs a frame: the window product, a real FFT of
     # n_fft points (2.5 n log2 n), the power, the mel product over the bank's
     # nonzeros (it is sparse: triangles), and the log.
@@ -464,18 +465,73 @@ def stft_phase() -> dict:
     kernel = lambda: stft_cuda.stft_log_mel(audio, cfg)  # noqa: E731
     turns = [time_ms(fn) for fn in (kernel, library, library, kernel)]
     ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    return {"name": "stft_log_mel", "route": "cuda",
-            "source": "pytorch_asr_tpu_torch/csrc/stft_log_mel.cu",
-            "replaces": "pytorch_asr_tpu/ops/stft_pallas.py:189",
-            "shape": f"audio ({B}, {AUDIO}) f32 -> ({B}, {T}, {cfg.n_mels}) f32",
-            "max_abs_err": err, "max_rel_err": rel, "tol": STFT_TOL,
-            "max_abs_err_vs_fp64": exact_err, "tol_vs_fp64": STFT_EXACT_TOL,
-            "plain_max_abs_err_vs_fp64": plain_exact_err,
-            "ms": ms, "plain_ms": time_ms(lambda: stft_cuda.stft_log_mel_plain(audio, cfg)),
-            "library_ms": library_ms, "library": "torch.stft + mel matmul + log",
-            "turns_ms": {"kernel, library, library, kernel": turns},
-            "library_ratio": ms / library_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+    # Calls queued back to back can wait on the host's launches: the device
+    # time of K1's kernel and of all the library call's kernels, per call.
+    device_ms = device_ms_per_call(kernel, "stft_log_mel_kernel")
+    library_device_ms = device_ms_per_call(library, "")
+    rec = {"name": "stft_log_mel", "route": "cuda",
+           "source": "pytorch_asr_tpu_torch/csrc/stft_log_mel.cu",
+           "replaces": "pytorch_asr_tpu/ops/stft_pallas.py:189",
+           "shape": f"audio ({B}, {AUDIO}) f32 -> ({B}, {T}, {cfg.n_mels}) f32",
+           "max_abs_err": err, "max_rel_err": rel, "tol": STFT_TOL,
+           "max_abs_err_vs_fp64": exact_err, "tol_vs_fp64": STFT_EXACT_TOL,
+           "plain_max_abs_err_vs_fp64": plain_exact_err,
+           "ms": ms, "plain_ms": time_ms(lambda: stft_cuda.stft_log_mel_plain(audio, cfg)),
+           "library_ms": library_ms, "library": "torch.stft + mel matmul + log",
+           "turns_ms": {"kernel, library, library, kernel": turns}, "phase_split": split,
+           "device_ms": device_ms, "library_device_ms": library_device_ms,
+           "library_ratio": ms / library_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"stft_log_mel: {json.dumps(rec)}")
+    return rec
+
+
+def stft_split(audio: torch.Tensor, cfg: FrontendConfig) -> dict:
+    """Where K1's time goes: the phase clocks of its traced rows
+    (``stft_log_mel``'s trace), the median µs a row spends loading audio,
+    packing, in the FFT, the split into power bins and the mel product and
+    log, at the clock the trace saw."""
+    trace = torch.zeros((features.max_frames(audio.shape[1], cfg), 8), dtype=torch.int64,
+                        device=CARD)
+    stft_cuda.stft_log_mel(audio, cfg, trace)
+    tr = trace.cpu().numpy().astype(np.float64)
+    tr = tr[tr[:, 0] != 0]
+    check(len(tr) > 0 and (tr[:, 7] - tr[:, 0]).sum() > 0, "stft trace: no row written")
+    ghz = (tr[:, 6] - tr[:, 1]).sum() / (tr[:, 7] - tr[:, 0]).sum()
+    names = ("load", "pack", "fft", "split", "mel_log")
+    return {"rows": len(tr), "trace_clock_ghz": ghz,
+            "us_median": {n: float(np.median(tr[:, i + 2] - tr[:, i + 1])) / ghz / 1e3
+                          for i, n in enumerate(names)},
+            "us_total_median": float(np.median(tr[:, 6] - tr[:, 1])) / ghz / 1e3}
+
+
+def step_split(trace: torch.Tensor, steps: int) -> dict:
+    """CTA 0's median µs a step from a grid kernel's (T, 5) trace: staging,
+    chains, cells and the grid barrier, at the clock the trace saw."""
+    tr = trace[:steps].cpu().numpy().astype(np.float64)
+    ghz = (tr[-1, 1] - tr[0, 1]) / (tr[-1, 0] - tr[0, 0])
+    cycles = {"stage": tr[:-1, 2] - tr[:-1, 1], "chains": tr[:-1, 3] - tr[:-1, 2],
+              "cells": tr[:-1, 4] - tr[:-1, 3], "barrier": tr[1:, 1] - tr[:-1, 4]}
+    return {"step_us_median": {k: float(np.median(v)) / ghz / 1e3 for k, v in cycles.items()},
+            "trace_clock_ghz": ghz}
+
+
+def bwd_grid_record(bargs: tuple, steps: int) -> dict:
+    """K3's backward grid for ``bargs``, the device time of its recurrence
+    (lstm_bwd_grid_kernel alone, from the profiler) and where a step goes
+    (``backward_on_route``'s trace): staging dgates and the cell inputs, the
+    dh chains, the cells and the grid barrier."""
+    x, whh = bargs[1], bargs[3]
+    grid = lstm_cuda.backward_grid(whh.shape[0], x.shape[0],
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    rec = {"grid": grid._asdict(),
+           "recurrence_ms": device_ms_per_call(lambda: lstm_cuda.lstm_seq_bwd(*bargs),
+                                               "lstm_bwd_grid_kernel", 5)}
+    rec["us_per_step"] = rec["recurrence_ms"] / steps * 1e3
+    trace = torch.zeros((x.shape[1], 5), dtype=torch.int64, device=CARD)
+    lstm_cuda.backward_on_route(grid, *bargs, trace=trace)
+    rec.update(step_split(trace, steps))
+    return rec
 
 
 def grid_record(args: tuple, b: int, steps: int, residual_dtype=None, dual: bool = False) -> dict:
@@ -496,12 +552,7 @@ def grid_record(args: tuple, b: int, steps: int, residual_dtype=None, dual: bool
     rec["us_per_step"] = rec["recurrence_ms"] / steps * 1e3
     trace = torch.zeros((args[0].shape[1], 5), dtype=torch.int64, device=CARD)
     launch(None, *args, residual_dtype=residual_dtype, trace=trace)
-    tr = trace[:steps].cpu().numpy().astype(np.float64)
-    ghz = (tr[-1, 1] - tr[0, 1]) / (tr[-1, 0] - tr[0, 0])
-    cycles = {"stage": tr[:-1, 2] - tr[:-1, 1], "chains": tr[:-1, 3] - tr[:-1, 2],
-              "cells": tr[:-1, 4] - tr[:-1, 3], "barrier": tr[1:, 1] - tr[:-1, 4]}
-    rec["step_us_median"] = {k: float(np.median(v)) / ghz / 1e3 for k, v in cycles.items()}
-    rec["trace_clock_ghz"] = ghz
+    rec.update(step_split(trace, steps))
     return rec
 
 
@@ -664,16 +715,22 @@ def lstm_train_phase() -> list[dict]:
                     xf = x.float().requires_grad_(True)
                     ref_out, _ = ref(xf)
                     ref_in = [xf, *ref.parameters()]
+                    # K3's backward and cuDNN's in turns (kernel, library,
+                    # library, kernel), so that one run ranks them.
+                    kernel_bwd = lambda: lstm_cuda.lstm_seq_bwd(*bargs)  # noqa: E731
+                    library_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                        ref_out, ref_in, gy, retain_graph=True)
+                    turns = [time_ms(fn, 5, 4, 1)
+                             for fn in (kernel_bwd, library_bwd, library_bwd, kernel_bwd)]
                     case.update(
                         fwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_train_fwd(*args), 5, 4, 1),
-                        bwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_bwd(*bargs), 5, 4, 1),
+                        bwd_ms=(turns[0] + turns[3]) / 2, bwd_turns_ms=turns,
                         plain_fwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_train_plain(*args),
                                              3, 1, 1),
                         plain_bwd_ms=time_ms(lambda: lstm_cuda.lstm_seq_bwd_plain(*bargs),
                                              3, 1, 1),
                         library_fwd_ms=time_ms(lambda: ref(xf), 5, 4, 1),
-                        library_bwd_ms=time_ms(lambda: torch.autograd.grad(
-                            ref_out, ref_in, gy, retain_graph=True), 5, 4, 1))
+                        library_bwd_ms=(turns[1] + turns[2]) / 2)
                     if not reverse:
                         rec = grid_record(args[:7], B, T_LSTM, res)
                         case.update({f"fwd_{k}": v for k, v in rec.items()})
@@ -682,6 +739,19 @@ def lstm_train_phase() -> list[dict]:
                               f"{rec['us_per_step']:.3f} us a step of {T_LSTM} "
                               f"{json.dumps(rec['step_us_median'])}, call "
                               f"{case['fwd_ms']:.4f} ms, cuDNN {case['library_fwd_ms']:.4f} ms")
+                        rec = bwd_grid_record(bargs, int(lengths.max()))
+                        # The per-utterance kernel (the wide route, K3's
+                        # backward before the grid) on the same inputs.
+                        rec["per_utterance_ms"] = time_ms(
+                            lambda: lstm_cuda.backward_on_route(None, *bargs), 5, 4, 1)
+                        case.update({f"bwd_{k}": v for k, v in rec.items()})
+                        print(f"lstm_seq_bwd grid, D {D}: {json.dumps(rec['grid'])}, "
+                              f"recurrence {rec['recurrence_ms']:.4f} ms, "
+                              f"{rec['us_per_step']:.3f} us a step of {int(lengths.max())} "
+                              f"{json.dumps(rec['step_us_median'])}, call {case['bwd_ms']:.4f} "
+                              f"ms, cuDNN {case['library_bwd_ms']:.4f} ms (turns "
+                              f"{json.dumps(turns)}), per-utterance kernel "
+                              f"{rec['per_utterance_ms']:.4f} ms")
                     bounds = lstm_bounds(B, T_LSTM, D, H, valid)
                     case["fwd_bound_ms"], case["fwd_bound_by"] = bounds["train_fwd"]
                     case["bwd_bound_ms"], case["bwd_bound_by"] = bounds["bwd"]
@@ -2083,7 +2153,7 @@ def wide_lstm_rows(g: torch.Generator) -> list[dict]:
             "library": "torch.nn.LSTM (cuDNN, fp32, all lengths = T) forward",
             **dict(zip(("bound_ms", "bound_by"), bounds["train_fwd"]))}
         rows["lstm_seq_bwd_wide"] = {
-            "counted_as": "lstm_seq_bwd", "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:403",
+            "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:403",
             "ms": time_ms(lambda: lstm_cuda.lstm_seq_bwd(*bargs), 3, 1, 1),
             "plain_ms": time_ms(lambda: lstm_cuda.lstm_seq_bwd_plain(*bargs), 2, 1, 1),
             "library_ms": time_ms(lambda: torch.autograd.grad(ref_out, ref_in, gy,
@@ -2239,7 +2309,7 @@ def wide_phase() -> tuple[dict, list[dict], dict]:
         evals = launches.get("stft_log_mel", 0) - (path == "train")
         want = {"stft_log_mel": evals + (path == "train"), "lstm_seq_wide": 2 * LAYERS * evals}
         if path == "train":
-            want.update({"lstm_seq_train_wide": 2 * LAYERS, "lstm_seq_bwd": 2 * LAYERS,
+            want.update({"lstm_seq_train_wide": 2 * LAYERS, "lstm_seq_bwd_wide": 2 * LAYERS,
                          "ctc_alpha": 1, "ctc_beta": 1})
             rec = result["train"]
             check(rec.get("step") == 1 and math.isfinite(rec["ctc_loss"])
@@ -2437,15 +2507,22 @@ def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
 
 def device_ms_per_call(fn, kernel: str, calls: int = 20) -> float:
     """The device time of the kernels named ``kernel`` per call of ``fn``,
-    from the profiler over ``calls`` calls after one warm-up."""
+    from the profiler over ``calls`` calls after one warm-up.  A profile
+    that comes back with no device time (seen once on the H100, in a
+    process's first profile) is taken again, once."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    got = sum(r["device_ms"] for r in device_rows(prof) if kernel in r["name"])
+    for attempt in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        got = sum(r["device_ms"] for r in device_rows(prof) if kernel in r["name"])
+        if got > 0:
+            break
+        print(f"no device time recorded for {kernel} in profile {attempt + 1}",
+              file=sys.stderr)
     check(got > 0, f"no device time recorded for {kernel}")
     return got / calls
 
@@ -2759,7 +2836,7 @@ def main() -> int:
     print("wide route launches by path:", json.dumps(wide_runs))
     check(not any(any(c.values()) for c in wide_runs.values()),
           f"a main path took a wide route: {wide_runs}")
-    # A wide backward row is its kernel at H 1536, counted under the kernel's name.
+    # K11's wide backward row is its kernel at H 1536, counted under the kernel's name.
     for k in kernels:
         by_path = {p: counts.get(k.get("counted_as", k["name"]), 0) for p, counts in paths.items()}
         own = own_path.get(k["name"], "train")

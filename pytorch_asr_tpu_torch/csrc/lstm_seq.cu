@@ -57,17 +57,29 @@
 // directions (below).
 //
 // Backward, given gy (B, T, H) fp32 (the output's gradient):
-//  1. lstm_bwd_recurrence_kernel: one block per utterance walks the valid
-//     window against the forward's processing order, with dh and dc in
-//     shared memory.  Like _bwd_kernel it rebuilds c_prev from ct and
-//     h_prev = o_prev * tanh(c_prev) from the stored residuals (so bf16
-//     residuals give the gradients of bf16 residuals), and the first
-//     processed step enters from zeros.  dgates is 0 outside [0, len), and the
-//     upstream gradient there never enters the chain (the output there is a
-//     constant 0).  It writes dgates (B, T, 4H) and h_prev (B, T, H) in fp32
-//     to device memory; the TPU kept dgates in VMEM.  About 20 MB a direction
-//     at the training shapes (B 8, T' 400, H 384): a round trip for later work
-//     to remove.  Each step reads all of whh (2.4 MB fp32) from L2.
+//  1. the dh recurrence walks each utterance's valid window against the
+//     forward's processing order.  Like _bwd_kernel it rebuilds c_prev from
+//     ct and h_prev = o_prev * tanh(c_prev) from the stored residuals (so
+//     bf16 residuals give the gradients of bf16 residuals), and the first
+//     processed step enters from zeros.  dgates is 0 outside [0, len), and
+//     the upstream gradient there never enters the chain (the output there
+//     is a constant 0).  It writes dgates (B, T, 4H) and h_prev (B, T, H) in
+//     fp32 to device memory; the TPU kept dgates in VMEM.  About 20 MB a
+//     direction at the training shapes (B 8, T' 400, H 384).
+//     lstm_bwd_grid_kernel runs it on a co-resident grid, as the forward:
+//     CTA j owns the hidden units [j U, j U + U) and holds their rows of whh
+//     (U x 4H fp32) in shared memory.  All utterances step together; a step
+//     stages the dgates rows of the step before (B x 4H, written by every
+//     CTA) from L2, computes dh of its units (dh[k] = dgates @ whh[k, :]^T),
+//     runs their cell backward, writes their 4 dgates columns and h_prev,
+//     and meets the other CTAs at the grid barrier.  Each dh chain sums in
+//     lstm_bwd_recurrence_kernel's order (lane l takes columns l, l + 32,
+//     ... with fmaf from 0, then the xor butterfly 16 .. 1) and both kernels
+//     share the cell's arithmetic (cell_backward), so the two give the same
+//     bits.  Where the grid cannot hold whh's rows and one staged row
+//     (ops/lstm_cuda.py::backward_route: from H 1305 at B 8) the op takes
+//     lstm_bwd_recurrence_kernel, a block an utterance that reads all of whh
+//     (2.4 MB fp32 at H 384) from L2 every step: the backward's wide route.
 //  2. products, each a tiled shared-memory GEMM (gemm_kernel, the style of
 //     K2's projection) with fp32 FMA accumulation: dx = dgates @ wih^T in x's
 //     type; dwih = x^T @ dgates in wih's type; dwhh = h_prev^T @ dgates fp32;
@@ -81,9 +93,9 @@
 // bound by latency: their steps are serial.  The forward's step is one dot
 // chain of H dependent FMAs (the order that keeps it bit-equal admits no
 // split of the sum), the staging of h from L2 and a grid barrier.  The
-// backward's dh recurrence still runs one block an utterance and reads all
-// of whh from L2 each step.  Later work: that recurrence on the grid, and
-// the products on tensor cores.
+// backward's step is the same kind: the staging of B x 4H floats of dgates
+// from L2, a dh chain of 4H / 32 dependent FMAs a lane, the cells and the
+// barrier.  Later work: the products on tensor cores.
 //
 // K11 runs the two directions of a layer (weights stacked (2, ...): forward,
 // then reverse).  Its forward recurrence is lstm_grid_kernel's dual form
@@ -100,10 +112,10 @@
 // step costs about one K2 step with twice the dot chains a CTA, the staging
 // and barrier shared (PERF.md).  The input projections are K2's GEMM, once
 // a direction.  The backward runs both directions' per-utterance
-// recurrences (lstm_bwd_recurrence_kernel with kDual: the grid (B, 2)),
-// then K3's products for each direction, and dx = dx_f + dx_b, each half
-// in x's type (as the JAX kernel writes dxf and dxb in x's type and sums
-// them).
+// recurrences (lstm_bwd_recurrence_kernel with kDual: the grid (B, 2); the
+// same bits as two K3 backward launches), then K3's products for each
+// direction, and dx = dx_f + dx_b, each half in x's type (as the JAX
+// kernel writes dxf and dxb in x's type and sums them).
 //
 // The oracle.  lstm_recurrence_kernel<..., kDual> walks each utterance of
 // each direction in its own block and reads all of whh from L2 every step:
@@ -126,8 +138,8 @@
 // 6 H floats of shared memory a block run to H 9,685.  The route is chosen
 // from the shapes before the launch (ops/lstm_cuda.py::forward_route) and
 // counted under its own names (lstm_seq_wide, lstm_seq_train_wide,
-// bilstm_seq_wide, bilstm_seq_train_wide).  No model configuration of the
-// repo reaches it.
+// bilstm_seq_wide, bilstm_seq_train_wide; K3's backward past its grid,
+// lstm_seq_bwd_wide).  No model configuration of the repo reaches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -603,6 +615,24 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
   }
 }
 
+// The backward of one unit's cell at one step: the gate gradients (i, f,
+// g, o) and the cell gradient carried to the step before, from dh and dc
+// carried in, the upstream gy, the gate activations, tanh(c_t) and c_prev.
+// Both backward kernels call it, so they compute every value alike.
+struct CellGrad {
+  float di, df, dg, d_o, dc;
+};
+
+__device__ __forceinline__ CellGrad cell_backward(float dh, float dc, float gyv, float ig,
+                                                  float fg, float gg, float og, float tanh_c,
+                                                  float c_prev) {
+  const float dh_tot = dh + gyv;
+  const float d_o = dh_tot * tanh_c;
+  const float dc_tot = dc + dh_tot * og * (1.f - tanh_c * tanh_c);
+  return {dc_tot * gg * ig * (1.f - ig), dc_tot * c_prev * fg * (1.f - fg),
+          dc_tot * ig * (1.f - gg * gg), d_o * og * (1.f - og), dc_tot * fg};
+}
+
 // kDual (K11): direction blockIdx.y; gy (B, T, 2H), acts (2, T, B, 4H), ct
 // (2, T, B, H), whh (2, H, 4H), dgates (2, B, T, 4H), hprev (2, B, T, H).
 template <typename ResT, bool kDual = false>
@@ -653,14 +683,13 @@ __global__ void __launch_bounds__(1024) lstm_bwd_recurrence_kernel(
       const float tanh_c = tanhf(to_f32(ct[((size_t)t * B + b) * H + k]));
       const float c_prev = has_prev ? to_f32(ct[((size_t)tp * B + b) * H + k]) : 0.f;
       const float h_prev = has_prev ? to_f32(ap[3 * H + k]) * tanhf(c_prev) : 0.f;
-      const float dh_tot = dh[k] + gy[((size_t)b * T + t) * H * kRows + k];
-      const float d_o = dh_tot * tanh_c;
-      const float dc_tot = dc[k] + dh_tot * og * (1.f - tanh_c * tanh_c);
-      dg[k] = dc_tot * gg * ig * (1.f - ig);
-      dg[H + k] = dc_tot * c_prev * fg * (1.f - fg);
-      dg[2 * H + k] = dc_tot * ig * (1.f - gg * gg);
-      dg[3 * H + k] = d_o * og * (1.f - og);
-      dc[k] = dc_tot * fg;
+      const CellGrad g = cell_backward(dh[k], dc[k], gy[((size_t)b * T + t) * H * kRows + k],
+                                       ig, fg, gg, og, tanh_c, c_prev);
+      dg[k] = g.di;
+      dg[H + k] = g.df;
+      dg[2 * H + k] = g.dg;
+      dg[3 * H + k] = g.d_o;
+      dc[k] = g.dc;
       hprev[((size_t)b * T + t) * H + k] = h_prev;
     }
     __syncthreads();
@@ -675,6 +704,164 @@ __global__ void __launch_bounds__(1024) lstm_bwd_recurrence_kernel(
       if (lane == 0) dh[r] = acc;
     }
     __syncthreads();
+  }
+}
+
+// Bytes of a backward CTA's shared memory: the rows of whh of its units
+// (units x 4H), the staged dgates rows (rows x 4H), and for each (utterance,
+// unit) dh, dc and the 7 inputs of its cell; then the lengths, B ints.
+__host__ __device__ __forceinline__ size_t bwd_grid_smem_bytes(int H, int B, int units,
+                                                               int rows) {
+  const size_t G = 4 * (size_t)H;
+  return sizeof(float) * (((size_t)units + rows) * G + 9 * (size_t)B * units) +
+         sizeof(int) * (size_t)B;
+}
+
+// Units of one warp's dh chains.
+constexpr int kChainU = 4;
+
+// K3's backward recurrence on the co-resident grid: see the note at the top.
+// CTA j owns units [k0, k0 + nu), k0 = j units; w_s holds their rows of whh.
+// Utterances are staged `rows` at a time.  The cell inputs of a step (gate
+// activations, tanh(c_t), c_prev and gy) are loaded while the staging is in
+// flight.  dgates (B, T, 4H) is both this kernel's output and, one step
+// later, its input (read through L2 after the barrier).  sync: the barrier's
+// counter, 0 at launch; trace, if not null: (steps, 5) int64 as
+// lstm_grid_kernel's: the global timer as a step starts, then its clock
+// then, after the staging (and the cell inputs), after the dh chains and
+// after the cells.
+template <typename ResT>
+__global__ void __launch_bounds__(1024) lstm_bwd_grid_kernel(
+    const float* __restrict__ gy, const ResT* __restrict__ acts, const ResT* __restrict__ ct,
+    const float* __restrict__ whh, const int* __restrict__ lengths, float* dgates,
+    float* __restrict__ hprev, unsigned* sync, long long* trace, int T, int B, int H, int units,
+    int rows, int reverse) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = 4 * H, S = B * units;
+  const int k0 = blockIdx.x * units, nu = min(units, H - k0);
+  float* w_s = smem;              // (units, G): whh[k0 + u, :]
+  float* dg_s = w_s + units * G;  // (rows, G): the staged dgates rows
+  float* dh_s = dg_s + rows * G;  // (B, units): dh of this step
+  float* dc_s = dh_s + S;         // (B, units): the cell gradient carried
+  float* in_s = dc_s + S;         // (7, B, units): ig, fg, gg, og, tanh c, c_prev, gy
+  int* len_s = reinterpret_cast<int*>(in_s + 7 * S);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+
+  for (int e = threadIdx.x; e < nu * G; e += blockDim.x) w_s[e] = whh[(size_t)k0 * G + e];
+  // Zeros outside the windows, spread over the whole grid.
+  const size_t gtid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t gstride = (size_t)gridDim.x * blockDim.x;
+  int steps = 0;
+  for (int b = 0; b < B; ++b) {
+    const int len = max(0, min(lengths[b], T));
+    steps = max(steps, len);
+    if (threadIdx.x == 0) len_s[b] = len;
+    for (size_t i = gtid; i < (size_t)(T - len) * G; i += gstride)
+      dgates[((size_t)b * T + len) * G + i] = 0.f;
+    for (size_t i = gtid; i < (size_t)(T - len) * H; i += gstride)
+      hprev[((size_t)b * T + len) * H + i] = 0.f;
+  }
+  for (int e = threadIdx.x; e < S; e += blockDim.x) dc_s[e] = 0.f;
+  __syncthreads();
+
+  long long* tr = blockIdx.x == 0 && threadIdx.x == 0 ? trace : nullptr;
+  for (int s = 0; s < steps; ++s) {
+    if (tr) {
+      tr[5 * s] = (long long)global_ns();
+      tr[5 * s + 1] = clock64();
+    }
+    for (int b0 = 0; b0 < B; b0 += rows) {
+      const int nb = min(rows, B - b0);
+      if (b0 > 0) __syncthreads();  // the last group's chains have read dg_s
+      // dg_s row bl = dgates of utterance b0 + bl at the step before, for
+      // the utterances still in their window: 16 bytes a cp.async.cg.
+      if (s > 0) {
+        const int q = G / 4;
+        for (int e = threadIdx.x; e < nb * q; e += blockDim.x) {
+          const int bl = e / q, len = len_s[b0 + bl];
+          if (s >= len) continue;
+          const int tp = reverse ? s - 1 : len - s;
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                           smem_addr(dg_s + bl * G + 4 * (e % q))),
+                       "l"(dgates + ((size_t)(b0 + bl) * T + tp) * G + 4 * (e % q))
+                       : "memory");
+        }
+        cp_async_commit();
+      }
+      if (b0 == 0) {
+        // This step's cell inputs, from device memory, while the copies fly.
+        for (int i = threadIdx.x; i < B * nu; i += blockDim.x) {
+          const int b = i / nu, u = i % nu, k = k0 + u, len = len_s[b];
+          if (s >= len) continue;
+          const int t = reverse ? s : len - 1 - s;
+          const int tp = reverse ? t + 1 : t - 1;  // the step processed just before t
+          const bool has_prev = reverse ? tp < len : tp >= 0;
+          const ResT* a = acts + ((size_t)t * B + b) * G;
+          const float c_prev = has_prev ? to_f32(ct[((size_t)tp * B + b) * H + k]) : 0.f;
+          const float h_prev =
+              has_prev ? to_f32(acts[((size_t)tp * B + b) * G + 3 * H + k]) * tanhf(c_prev) : 0.f;
+          hprev[((size_t)b * T + t) * H + k] = h_prev;
+          float* in = in_s + b * units + u;
+          in[0] = to_f32(a[k]);
+          in[S] = to_f32(a[H + k]);
+          in[2 * S] = to_f32(a[2 * H + k]);
+          in[3 * S] = to_f32(a[3 * H + k]);
+          in[4 * S] = tanhf(to_f32(ct[((size_t)t * B + b) * H + k]));
+          in[5 * S] = c_prev;
+          in[6 * S] = gy[((size_t)b * T + t) * H + k];
+        }
+      }
+      if (s == 0) break;  // dh enters the first step as 0: nothing to stage
+      cp_async_wait<0>();
+      __syncthreads();
+      if (tr && b0 == 0) tr[5 * s + 2] = clock64();
+      // dh[b, k] = sum over columns of dgates[b, col] whh[k, col]: lane l
+      // sums columns l, l + 32, ... with fmaf from 0, then the butterfly.
+      // A warp takes one utterance and up to kChainU units, so a column's
+      // dgates entry is loaded once for them all.
+      const int nuc = (nu + kChainU - 1) / kChainU;
+      for (int task = warp; task < nb * nuc; task += nwarps) {
+        const int bl = task % nb, u0 = kChainU * (task / nb);
+        if (s >= len_s[b0 + bl]) continue;
+        float acc[kChainU] = {};
+        for (int col = lane; col < G; col += 32) {
+          const float d = dg_s[bl * G + col];
+#pragma unroll
+          for (int j = 0; j < kChainU; ++j)
+            if (u0 + j < nu) acc[j] = fmaf(d, w_s[(u0 + j) * G + col], acc[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kChainU; ++j) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+          if (lane == 0 && u0 + j < nu) dh_s[(b0 + bl) * units + u0 + j] = acc[j];
+        }
+      }
+    }
+    __syncthreads();
+    if (tr) {
+      if (s == 0) tr[2] = clock64();
+      tr[5 * s + 3] = clock64();
+    }
+    for (int i = threadIdx.x; i < B * nu; i += blockDim.x) {
+      const int b = i / nu, u = i % nu, k = k0 + u, len = len_s[b];
+      if (s >= len) continue;
+      const int t = reverse ? s : len - 1 - s;
+      const int p = b * units + u;
+      const float* in = in_s + p;
+      const CellGrad g = cell_backward(s > 0 ? dh_s[p] : 0.f, dc_s[p], in[6 * S], in[0], in[S],
+                                       in[2 * S], in[3 * S], in[4 * S], in[5 * S]);
+      dc_s[p] = g.dc;
+      float* dgb = dgates + ((size_t)b * T + t) * G;
+      dgb[k] = g.di;
+      dgb[H + k] = g.df;
+      dgb[2 * H + k] = g.dg;
+      dgb[3 * H + k] = g.d_o;
+    }
+    __syncthreads();
+    if (tr) tr[5 * s + 4] = clock64();
+    if (s + 1 < steps) grid_wait(sync, (unsigned)(s + 1) * gridDim.x);
   }
 }
 
@@ -749,6 +936,16 @@ cudaError_t utterance_forward(const float* xproj, const float* whh, const int* l
                         xproj, whh, lengths, out, nullptr, nullptr, B, T, H, reverse, st);
 }
 
+// A cooperative launch; one whose grid cannot be resident at once fails
+// before it runs, and its error is cleared from the runtime's last-error
+// state, so that only the op that made the launch reports it.
+cudaError_t launch_cooperative(const void* kernel, dim3 grid, dim3 block, void** args,
+                               size_t smem, cudaStream_t st) {
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, grid, block, args, smem, st);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 // K2's and K3's forward recurrence on the co-resident grid: ctas CTAs of
 // `units` hidden units each, `rows` utterances staged at once, smem bytes of
 // shared memory each (ops/lstm_cuda.py::recurrence_grid); under kDual (K11)
@@ -775,9 +972,8 @@ cudaError_t grid_recurrence(const float* xproj, const float* whh, const int* len
   ResT* c = static_cast<ResT*>(ct);
   void* args[] = {&xproj, &whh, &lengths, &o, &a, &c, &hbuf, &sync, &trace,
                   &T, &B, &H, &units, &rows, &reverse};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3(ctas, kDual ? 2 : 1), dim3(threads), args,
-                                     (size_t)smem, st);
+  return launch_cooperative(reinterpret_cast<const void*>(kernel), dim3(ctas, kDual ? 2 : 1),
+                            dim3(threads), args, (size_t)smem, st);
 }
 
 template <typename OutT, bool kDual = false>
@@ -809,6 +1005,36 @@ cudaError_t bwd_recurrence(const float* gy, const void* acts, const void* ct,
       gy, static_cast<const ResT*>(acts), static_cast<const ResT*>(ct), whh, lengths, dgates,
       hprev, T, B, H, reverse);
   return cudaGetLastError();
+}
+
+// K3's backward recurrence on the co-resident grid: ctas CTAs of `units`
+// hidden units each, `rows` utterances staged at once, smem bytes of shared
+// memory each (ops/lstm_cuda.py::backward_grid).  Returns the cooperative
+// launch's error where the grid cannot be resident at once.
+template <typename ResT>
+cudaError_t bwd_grid_recurrence(const float* gy, const void* acts, const void* ct,
+                                const float* whh, const int* lengths, float* dgates,
+                                float* hprev, unsigned* sync, long long* trace, int B, int T,
+                                int H, int reverse, int ctas, int units, int rows, int smem,
+                                cudaStream_t st) {
+  if (units < 1 || rows < 1 || rows > B || (long)ctas * units < H ||
+      (long)(ctas - 1) * units >= H || (size_t)smem < bwd_grid_smem_bytes(H, B, units, rows))
+    return cudaErrorInvalidValue;
+  auto kernel = lstm_bwd_grid_kernel<ResT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // A thread a cell where they fit, a warp a group of chains, and at least
+  // 512 for the staging.
+  const int tasks = rows * ((units + kChainU - 1) / kChainU);
+  int threads = B * units > 32 * tasks ? B * units : 32 * tasks;
+  threads = threads < 512 ? 512 : threads > 1024 ? 1024 : (threads + 31) / 32 * 32;
+  const ResT* a = static_cast<const ResT*>(acts);
+  const ResT* c = static_cast<const ResT*>(ct);
+  void* args[] = {&gy, &a, &c, &whh, &lengths, &dgates, &hprev, &sync, &trace,
+                  &T, &B, &H, &units, &rows, &reverse};
+  return launch_cooperative(reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(threads),
+                            args, (size_t)smem, st);
 }
 
 template <typename InT>
@@ -916,14 +1142,39 @@ extern "C" int lstm_seq_train_fwd(const void* x, const void* wih, const float* w
                                                  rows, smem, st);
 }
 
-// Backward.  gy: (B, T, H) fp32; dgates (B, T, 4H) and hprev (B, T, H): fp32
-// scratch; dx (B, T, D) in x's type, dwih (D, 4H) in wih's (= x's) type,
-// dwhh (H, 4H) and db (4H) fp32.
+// Backward on the co-resident grid.  gy: (B, T, H) fp32; dgates (B, T, 4H)
+// and hprev (B, T, H): fp32 scratch; dx (B, T, D) in x's type, dwih (D, 4H)
+// in wih's (= x's) type, dwhh (H, 4H) and db (4H) fp32; sync (one unsigned,
+// 0) and trace (null, or (max len, 5) int64: see lstm_bwd_grid_kernel);
+// ctas, units, rows, smem: the grid (ops/lstm_cuda.py::backward_grid).
 extern "C" int lstm_seq_bwd(const float* gy, const void* x, const void* wih, const float* whh,
                             const int* lengths, const void* acts, const void* ct,
                             float* dgates, float* hprev, void* dx, void* dwih, float* dwhh,
-                            float* db, int B, int T, int D, int H, int reverse, int in_bf16,
-                            int res_bf16, void* stream) {
+                            float* db, unsigned* sync, long long* trace, int B, int T, int D,
+                            int H, int reverse, int in_bf16, int res_bf16, int ctas, int units,
+                            int rows, int smem, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      res_bf16 ? bwd_grid_recurrence<bf16>(gy, acts, ct, whh, lengths, dgates, hprev, sync, trace,
+                                           B, T, H, reverse, ctas, units, rows, smem, st)
+               : bwd_grid_recurrence<float>(gy, acts, ct, whh, lengths, dgates, hprev, sync,
+                                            trace, B, T, H, reverse, ctas, units, rows, smem, st);
+  if (err != cudaSuccess) return err;
+  return in_bf16 ? bwd_products<bf16>(dgates, hprev, x, wih, dx, dwih, dwhh, db, B * T, D, H, st)
+                 : bwd_products<float>(dgates, hprev, x, wih, dx, dwih, dwhh, db, B * T, D, H,
+                                       st);
+}
+
+// Backward on the per-utterance kernel, a block an utterance: the wide
+// route, where the grid cannot hold whh's rows.  Arguments as lstm_seq_bwd's
+// without the grid's.
+extern "C" int lstm_seq_bwd_per_utterance(const float* gy, const void* x, const void* wih,
+                                          const float* whh, const int* lengths, const void* acts,
+                                          const void* ct, float* dgates, float* hprev, void* dx,
+                                          void* dwih, float* dwhh, float* db, int B, int T, int D,
+                                          int H, int reverse, int in_bf16, int res_bf16,
+                                          void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = res_bf16

@@ -16,148 +16,304 @@
 // frame against 4 * hop bytes of audio read and 4 * n_mels bytes written,
 // so the 3.35 TB/s of memory bounds it, not the fp32 or fp64 rate.
 //
-// Design, first and simple: one block per (utterance, tile of TF frames).
-// The block copies the tile's audio span once into shared memory and forms
-// the overlapping frames there (no frame tensor in device memory).  Each
-// frame's n_fft real samples are packed as n_fft/2 complex points (even
-// samples real, odd imaginary), put in bit-reversed order, and transformed
-// by an in-place radix-2 FFT in shared memory, one butterfly per thread per
-// step, all TF frames at once; a last pass splits the even and odd spectra
-// into the n_fft/2 + 1 bins of the real frame.  The FFT runs in fp64: the
-// log of a band whose power is near log_floor is ill-conditioned (its power
-// is a small remainder of large terms), and fp32 spectra lose 5e-4 (cuFFT)
-// to 3e-3 (a direct DFT) there; fp64 keeps the output within fp32 rounding
-// of the exact value, and the card's fp64 rate is ample for a kernel bound
-// by bytes.  The
-// power tile is kept in fp32 for the mel product, which sums only each
-// band's nonzero bins (exact zeros elsewhere), then the log.
+// Design: a warp a frame, no block-wide barrier after the set-up.  Each
+// frame's n_fft real samples are packed as half = n_fft / 2 complex points
+// (even samples real, odd imaginary); lane l holds the points n = l + 32 j,
+// j < half / 32, in registers (8 at n_fft 512; below 32 points, as many
+// lanes as points hold one each).  With half = lanes x P, n = l + lanes j
+// and the bin k = k1 + P k2, the FFT is a pass of radix P inside each lane
+// (radix 8 at n_fft 512: an 8-point DFT over the lane's registers j, whose
+// inner twiddles W_P^e are constants: 1, -i and (+-1 - i) / sqrt 2), one
+// twiddle W_half^{l k1} a register from the table, then the lanes-point
+// DFT over l for each k1 as five radix-2 stages of decimation in frequency
+// across lanes (fewer below 32 points): a lane takes its partner's value by
+// __shfl_xor_sync (the lower lane keeps a + b, the upper (a - b) w: one fma
+// with a sign, and a multiply by a twiddle that is 1 on the lower lane).
+// Each lane's twiddles sit in shared memory as a row of 32, one per lane,
+// so a warp reads them without bank conflicts.  The spectrum, bit-reversed
+// in the registers, goes to the warp's buffer at its natural bins (a slot
+// of padding every 16, so that the scattered writes hit distinct banks);
+// the lanes then split it into the half + 1 bins of the real frame and
+// their power, and each lane sums whole mel bands over the bank's nonzeros,
+// staged once a block in shared memory as compressed rows.  A block of 4
+// warps uses ~36 KB of shared memory at n_fft 512; the grid is sized so
+// that every warp takes the same number of frames.  The FFT runs in fp64:
+// the log of a band whose power is near log_floor is ill-conditioned (its
+// power is a small remainder of large terms), and fp32 spectra lose 5e-4
+// (cuFFT) to 3e-3 (a direct DFT) there; fp64 keeps the output within fp32
+// rounding of the exact value.  The power is kept in fp32 for the mel
+// product, which sums each band's bins in order with fmaf, then the log.
+//
+// trace, if not null: (trace_rows, 8) int64 where lane 0 of warp 0 of block
+// 0 writes, for each of its frames, the global timer (ns) as it starts, the
+// SM clock (cycles) then, after issuing the audio loads, after the pack
+// (the loads' wait included), after the FFT, after the split and power,
+// after the mel product and log, and the global timer at the end.
 //
 // TPU workarounds of the Pallas kernel dropped here: the bf16x3 split of
 // the matrix products (the card has full-precision FMA), the phase-major
-// frame order and its undo-permutation (shared memory takes any offset),
-// the flattened 1024-aligned audio (a block reads its own span with bounds
-// checks) and the semaphore double-buffering (other resident blocks hide
-// the load latency).  The Pallas kernel's DFT as a product against a
-// cos/sin basis, which suits the MXU, becomes an FFT.
+// frame order and its undo-permutation, the flattened 1024-aligned audio
+// and the semaphore double-buffering (other resident warps hide the load
+// latency).  The Pallas kernel's DFT as a product against a cos/sin basis,
+// which suits the MXU, becomes an FFT.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TF = 16;        // frames per block
-constexpr int THREADS = 512;
+constexpr int WARPS = 4;  // frames in flight a block, one a warp
+constexpr int THREADS = 32 * WARPS;
 
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+// Slot of bin k in a warp's spectrum buffer: one slot of padding every 16.
+__device__ __forceinline__ int zslot(int k) { return k + (k >> 4); }
+
+// The FFT's shape for half = 2^LOG2_HALF complex points: lanes holding
+// points, points a lane, rows of per-lane stage twiddles, buffer slots.
+template <int LOG2_HALF>
+struct Plan {
+  static constexpr int HALF = 1 << LOG2_HALF;
+  static constexpr int LOG2_LANES = LOG2_HALF < 5 ? LOG2_HALF : 5;
+  static constexpr int LANES = 1 << LOG2_LANES;
+  static constexpr int P = HALF / LANES;
+  static constexpr int ROWS = P - 1 + LOG2_LANES;  // a row a register past the first, a lane stage
+  static constexpr int TW = ROWS * 32 + HALF;      // and the split's HALF twiddles
+  static constexpr int ZN = HALF + HALF / 16;
+};
+
+template <int LOG2_HALF>
+size_t smem_bytes(int win, int n_mels, int nnz) {
+  using Q = Plan<LOG2_HALF>;
+  return sizeof(double) * (2 * (size_t)Q::TW + 2 * (size_t)WARPS * Q::ZN) +
+         sizeof(float) * ((size_t)WARPS * (Q::HALF + 1) + win + nnz) +
+         sizeof(int) * 2 * ((size_t)n_mels + 1);
+}
+
+// cos(2 pi m / 16) and sin(2 pi m / 16), m < 8: the inner twiddles of an
+// in-lane pass of up to 16 points, W_P^e = cos16(m) - i sin16(m) with
+// m = 16 e / P.  Called with constant m, they fold into the code.
+__device__ __forceinline__ constexpr double cos16(int m) {
+  return m == 0 ? 1.0 : m == 1 ? 0.92387953251128675613 : m == 2 ? 0.70710678118654752440
+       : m == 3 ? 0.38268343236508977173 : m == 4 ? 0.0 : m == 5 ? -0.38268343236508977173
+       : m == 6 ? -0.70710678118654752440 : -0.92387953251128675613;
+}
+__device__ __forceinline__ constexpr double sin16(int m) { return cos16(m < 4 ? 4 - m : m - 4); }
+
+// twiddle (2, TW) fp64, real then imaginary parts: row r < ROWS of 32 at
+// [32 r, 32 r + 32) gives lane l a twiddle (ops/stft_cuda.py::twiddles):
+// rows j - 1 < P - 1 the W_half^{l bitrev(j)} of register j, then one a
+// lane stage; then W_{n_fft}^k for k < half.  mel_w (nnz) fp32: each band's
+// weights over its bins; band (n_mels + 1, 2) int32: a band's first bin and
+// its offset into mel_w, and [0, nnz] last.
+template <int LOG2_HALF>
 __global__ void __launch_bounds__(THREADS) stft_log_mel_kernel(
     const float* __restrict__ audio, const float* __restrict__ window,
-    const double* __restrict__ twiddle, const float* __restrict__ mel,
-    const int* __restrict__ band, float* __restrict__ out, int A, int T, int win,
-    int hop, int log2_half, int n_mels, float log_floor) {
-  extern __shared__ double smem[];
-  const int half = 1 << log2_half;  // complex points per frame: n_fft / 2
-  const int n_freq = half + 1;
-  const int span = (TF - 1) * hop + win;
-  double* zr = smem;                 // TF x half, real parts
-  double* zi = zr + TF * half;       // TF x half, imaginary parts
-  double* twr = zi + TF * half;      // half: cos(2 pi k / n_fft)
-  double* twi = twr + half;          // half: -sin(2 pi k / n_fft)
-  float* pw = (float*)(twi + half);  // TF x n_freq power spectrum
-  float* seg = pw + TF * n_freq;     // the tile's audio span
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TF;
-  const long long s0 = (long long)t0 * hop;
-  const float* a = audio + (size_t)b * A;
-
-  for (int i = threadIdx.x; i < span; i += THREADS) {
-    const long long s = s0 + i;
-    seg[i] = s < A ? a[s] : 0.f;
+    const double* __restrict__ twiddle, const float* __restrict__ mel_w,
+    const int* __restrict__ band, float* __restrict__ out, long long* trace, int trace_rows,
+    int B, int A, int T, int win, int hop, int n_mels, int nnz, float log_floor) {
+  using Q = Plan<LOG2_HALF>;
+  constexpr int HALF = Q::HALF, LANES = Q::LANES, P = Q::P, LOG2_LANES = Q::LOG2_LANES;
+  extern __shared__ __align__(16) double smem[];
+  double* tw_re = smem;                                            // (TW)
+  double* tw_im = tw_re + Q::TW;                                   // (TW)
+  double* zr = tw_im + Q::TW + (threadIdx.x / 32) * Q::ZN;         // the warp's spectrum
+  double* zi = tw_im + Q::TW + (WARPS + threadIdx.x / 32) * Q::ZN;
+  float* pw_all = reinterpret_cast<float*>(tw_im + Q::TW + 2 * WARPS * Q::ZN);
+  float* pw = pw_all + (threadIdx.x / 32) * (HALF + 1);            // the warp's power bins
+  float* win_s = pw_all + WARPS * (HALF + 1);                      // (win)
+  float* melw_s = win_s + win;                                     // (nnz)
+  int* band_s = reinterpret_cast<int*>(melw_s + nnz);              // (n_mels + 1, 2)
+  for (int i = threadIdx.x; i < Q::TW; i += THREADS) {
+    tw_re[i] = twiddle[i];
+    tw_im[i] = twiddle[Q::TW + i];
   }
-  for (int i = threadIdx.x; i < 2 * half; i += THREADS) twr[i] = twiddle[i];
+  for (int i = threadIdx.x; i < win; i += THREADS) win_s[i] = window[i];
+  for (int i = threadIdx.x; i < nnz; i += THREADS) melw_s[i] = mel_w[i];
+  for (int i = threadIdx.x; i < 2 * (n_mels + 1); i += THREADS) band_s[i] = band[i];
   __syncthreads();
 
-  // z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1], stored at bit-reversed n.
-  for (int idx = threadIdx.x; idx < TF * half; idx += THREADS) {
-    const int f = idx >> log2_half;
-    const int n = idx & (half - 1);
-    const float* fr = seg + f * hop;
-    const int e = 2 * n, o = 2 * n + 1;
-    const int r = (int)(__brev((unsigned)n) >> (32 - log2_half));
-    zr[f * half + r] = e < win ? (double)window[e] * fr[e] : 0.0;
-    zi[f * half + r] = o < win ? (double)window[o] * fr[o] : 0.0;
-  }
-  __syncthreads();
-
-  // Radix-2 decimation in time: at span m, butterfly (i0, i0 + m) with
-  // twiddle e^{-2 pi i pos / (2m)} = table[pos * half / m].
-  for (int m = 1, step = half; m < half; m <<= 1, step >>= 1) {
-    for (int j = threadIdx.x; j < TF * half / 2; j += THREADS) {
-      const int f = j >> (log2_half - 1);
-      const int q = j & (half / 2 - 1);
-      const int pos = q & (m - 1);
-      const int i0 = f * half + ((q - pos) << 1) + pos;
-      const int i1 = i0 + m;
-      const double wr = twr[pos * step], wi = twi[pos * step];
-      const double br = zr[i1], bi = zi[i1];
-      const double tr = br * wr - bi * wi, ti = br * wi + bi * wr;
-      const double ar = zr[i0], ai = zi[i0];
-      zr[i0] = ar + tr;
-      zi[i0] = ai + ti;
-      zr[i1] = ar - tr;
-      zi[i1] = ai - ti;
+  const int lane = threadIdx.x % 32;
+  const int ll = lane & (LANES - 1);  // below 32 points, lanes past them repeat the first
+  long long* tr = blockIdx.x == 0 && threadIdx.x == 0 ? trace : nullptr;
+  int row = 0;
+  for (int f = blockIdx.x * WARPS + threadIdx.x / 32; f < B * T; f += gridDim.x * WARPS, ++row) {
+    long long* rec = tr && row < trace_rows ? tr + 8 * row : nullptr;
+    if (rec) {
+      rec[0] = global_ns();
+      rec[1] = clock64();
     }
-    __syncthreads();
-  }
+    const float* fr = audio + (size_t)(f / T) * A + (size_t)(f % T) * hop;
+    float se[P], so[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int e = 2 * (ll + LANES * j);
+      se[j] = e < win ? __ldg(fr + e) : 0.f;
+      so[j] = e + 1 < win ? __ldg(fr + e + 1) : 0.f;
+    }
+    if (rec) rec[2] = clock64();
+    // z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1] for n = ll + LANES j.
+    double xr[P], xi[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int e = 2 * (ll + LANES * j);
+      xr[j] = e < win ? (double)win_s[e] * se[j] : 0.0;
+      xi[j] = e + 1 < win ? (double)win_s[e + 1] * so[j] : 0.0;
+    }
+    if (rec) rec[3] = clock64();
 
-  // Split: E[k] = (Z[k] + conj Z[-k]) / 2 (even samples), O[k] =
-  // (Z[k] - conj Z[-k]) / 2i (odd samples), X[k] = E[k] + e^{-2 pi i k / n_fft} O[k].
-  for (int idx = threadIdx.x; idx < TF * n_freq; idx += THREADS) {
-    const int f = idx / n_freq;
-    const int k = idx - f * n_freq;
-    const int k0 = f * half + (k & (half - 1));
-    const int k1 = f * half + ((half - k) & (half - 1));
-    const double ar = zr[k0], ai = zi[k0], br = zr[k1], bi = zi[k1];
-    const double er = 0.5 * (ar + br), ei = 0.5 * (ai - bi);
-    const double orr = 0.5 * (ai + bi), oi = 0.5 * (br - ar);
-    const double cr = k < half ? twr[k] : -1.0, ci = k < half ? twi[k] : 0.0;
-    const double xr = er + cr * orr - ci * oi;
-    const double xi = ei + cr * oi + ci * orr;
-    pw[idx] = (float)(xr * xr + xi * xi);
-  }
-  __syncthreads();
+    // The in-lane pass: a P-point DFT over j by radix-2 decimation in
+    // frequency with the constant twiddles W_{2h}^{j mod h} (register j then
+    // holds k1 = bitrev(j)), and W_half^{l k1} from row j - 1.
+#pragma unroll
+    for (int h = P / 2; h >= 1; h /= 2) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        if (j & h) continue;
+        const int m = 8 * (j & (h - 1)) / h;  // W_{2h}^{j mod h} = W_16^m
+        const double ar = xr[j], ai = xi[j], br = xr[j + h], bi = xi[j + h];
+        xr[j] = ar + br;
+        xi[j] = ai + bi;
+        const double dr = ar - br, di = ai - bi;
+        if (m == 0) {
+          xr[j + h] = dr;
+          xi[j + h] = di;
+        } else if (m == 4) {  // -i
+          xr[j + h] = di;
+          xi[j + h] = -dr;
+        } else {
+          xr[j + h] = dr * cos16(m) + di * sin16(m);
+          xi[j + h] = di * cos16(m) - dr * sin16(m);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 1; j < P; ++j) {
+      const int r = (j - 1) * 32 + lane;
+      const double wr = tw_re[r], wi = tw_im[r], ar = xr[j], ai = xi[j];
+      xr[j] = ar * wr - ai * wi;
+      xi[j] = ar * wi + ai * wr;
+    }
+    // Span h < LANES: the partner is lane l ^ h.  The lower lane keeps
+    // a + b, the upper (a - b) W_{2h}^{l mod h}; its row holds 1 for the
+    // lower lanes.
+#pragma unroll
+    for (int s = LOG2_LANES - 1; s >= 0; --s) {
+      const int h = 1 << s;
+      const double sign = (ll & h) ? -1.0 : 1.0;
+      const int r = (P - 1 + LOG2_LANES - 1 - s) * 32 + lane;
+      const double wr = tw_re[r], wi = tw_im[r];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const double tr_ = fma(sign, xr[j], __shfl_xor_sync(0xffffffffu, xr[j], h));
+        const double ti = fma(sign, xi[j], __shfl_xor_sync(0xffffffffu, xi[j], h));
+        xr[j] = tr_ * wr - ti * wi;
+        xi[j] = tr_ * wi + ti * wr;
+      }
+    }
+    // Point n holds bin bitrev(n): store it at its natural bin.
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int k = zslot((int)(__brev((unsigned)(ll + LANES * j)) >> (32 - LOG2_HALF)));
+      zr[k] = xr[j];
+      zi[k] = xi[j];
+    }
+    __syncwarp();
+    if (rec) rec[4] = clock64();
 
-  for (int idx = threadIdx.x; idx < TF * n_mels; idx += THREADS) {
-    const int f = idx / n_mels;
-    const int m = idx - f * n_mels;
-    const int t = t0 + f;
-    if (t >= T) continue;
-    const float* p = pw + f * n_freq;
-    float acc = 0.f;
-    for (int k = band[2 * m]; k < band[2 * m + 1]; ++k)
-      acc = fmaf(p[k], mel[(size_t)k * n_mels + m], acc);
-    out[((size_t)b * T + t) * n_mels + m] = logf(fmaxf(acc, log_floor));
+    // Split: E[k] = (Z[k] + conj Z[-k]) / 2 (even samples), O[k] =
+    // (Z[k] - conj Z[-k]) / 2i (odd samples), X[k] = E[k] + e^{-2 pi i k / n_fft} O[k].
+    for (int k = lane; k <= HALF; k += 32) {
+      const int k0 = zslot(k & (HALF - 1)), k1 = zslot((HALF - k) & (HALF - 1));
+      const double ar = zr[k0], ai = zi[k0], br = zr[k1], bi = zi[k1];
+      const double er = 0.5 * (ar + br), ei = 0.5 * (ai - bi);
+      const double orr = 0.5 * (ai + bi), oi = 0.5 * (br - ar);
+      const double cr = k < HALF ? tw_re[Q::ROWS * 32 + k] : -1.0;
+      const double ci = k < HALF ? tw_im[Q::ROWS * 32 + k] : 0.0;
+      const double yr = er + cr * orr - ci * oi;
+      const double yi = ei + cr * oi + ci * orr;
+      pw[k] = (float)(yr * yr + yi * yi);
+    }
+    __syncwarp();
+    if (rec) rec[5] = clock64();
+
+    // A lane a mel band: its bins in order, from its first nonzero.
+    for (int m = lane; m < n_mels; m += 32) {
+      const int lo = band_s[2 * m], off = band_s[2 * m + 1], n = band_s[2 * m + 3] - off;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) acc = fmaf(pw[lo + i], melw_s[off + i], acc);
+      out[(size_t)f * n_mels + m] = logf(fmaxf(acc, log_floor));
+    }
+    __syncwarp();  // the next frame overwrites zr, zi and pw
+    if (rec) {
+      rec[6] = clock64();
+      rec[7] = global_ns();
+    }
   }
+}
+
+template <int LOG2_HALF>
+cudaError_t launch(const float* audio, const float* window, const double* twiddle,
+                   const float* mel_w, const int* band, float* out, long long* trace,
+                   int trace_rows, int B, int A, int T, int win, int hop, int n_mels, int nnz,
+                   float log_floor, cudaStream_t st) {
+  auto kernel = stft_log_mel_kernel<LOG2_HALF>;
+  const size_t smem = smem_bytes<LOG2_HALF>(win, n_mels, nnz);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // As many rounds of frames as the resident warps need, and the frames
+  // spread evenly over the warps of those rounds: no tail wave.
+  const long long frames = (long long)B * T, slots = (long long)sms * per_sm * WARPS;
+  const long long rounds = (frames + slots - 1) / slots;
+  const long long warps = (frames + rounds - 1) / rounds;
+  kernel<<<(unsigned)((warps + WARPS - 1) / WARPS), THREADS, smem, st>>>(
+      audio, window, twiddle, mel_w, band, out, trace, trace_rows, B, A, T, win, hop, n_mels, nnz,
+      log_floor);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// window: (win,) fp32; twiddle: (2, n_fft/2) fp64, cos then -sin of
-// 2 pi k / n_fft; mel: (n_fft/2+1, n_mels) fp32; band: (n_mels, 2) int32,
-// the [first, last + 1) nonzero bins of each mel band; out: (B, T, n_mels).
-// n_fft = 2 << log2_half with log2_half >= 1.  Returns the launch's cudaError_t.
-extern "C" int stft_log_mel_f32(const float* audio, const float* window,
-                                const double* twiddle, const float* mel,
-                                const int* band, float* out, int B, int A, int T,
-                                int win, int hop, int log2_half, int n_mels,
-                                float log_floor, void* stream) {
+// window: (win,) fp32; twiddle, mel_w, band: see stft_log_mel_kernel
+// (ops/stft_cuda.py::constants); out: (B, T, n_mels); trace: null or
+// (trace_rows, 8) int64.  n_fft = 2 << log2_half, 1 <= log2_half <= 9.
+// Returns the launch's cudaError_t.
+extern "C" int stft_log_mel_f32(const float* audio, const float* window, const double* twiddle,
+                                const float* mel_w, const int* band, float* out,
+                                long long* trace, int trace_rows, int B, int A, int T, int win,
+                                int hop, int log2_half, int n_mels, int nnz, float log_floor,
+                                void* stream) {
   if (B == 0 || T == 0) return 0;
-  const int half = 1 << log2_half;
-  const size_t smem = (size_t)(2 * TF * half + 2 * half) * sizeof(double) +
-                      (size_t)(TF * (half + 1) + (TF - 1) * hop + win) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + TF - 1) / TF, B);
-  stft_log_mel_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      audio, window, twiddle, mel, band, out, A, T, win, hop, log2_half, n_mels,
-      log_floor);
-  return cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+#define STFT_CASE(L)                                                                           \
+  case L:                                                                                      \
+    return launch<L>(audio, window, twiddle, mel_w, band, out, trace, trace_rows, B, A, T, win, \
+                     hop, n_mels, nnz, log_floor, st);
+  switch (log2_half) {
+    STFT_CASE(1)
+    STFT_CASE(2)
+    STFT_CASE(3)
+    STFT_CASE(4)
+    STFT_CASE(5)
+    STFT_CASE(6)
+    STFT_CASE(7)
+    STFT_CASE(8)
+    STFT_CASE(9)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef STFT_CASE
 }

@@ -9,8 +9,8 @@ an edited source is rebuilt and never mixed up with an old build.
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the CUDA
 kernel (a CPU tensor takes the plain version and is not counted).  A route
 chosen from the shapes for CUDA tensors counts under its own name: the
-LSTM's wide route (``lstm_seq_wide`` and the rest, the per-utterance
-kernel) and the beam kernels past a block's shared memory
+LSTM's wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide`` and the rest,
+the per-utterance kernel) and the beam kernels past a block's shared memory
 (``prefix_beam_wide`` and the rest, their working set in a device scratch).
 """
 
@@ -36,7 +36,7 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "tcn_block_train_fwd": 0, "tcn_block_bwd": 0, "bilstm_seq": 0,
                             "bilstm_seq_train_fwd": 0, "bilstm_seq_bwd": 0,
                             "bilstm_seq_per_utterance": 0, "lstm_seq_wide": 0,
-                            "lstm_seq_train_wide": 0, "bilstm_seq_wide": 0,
+                            "lstm_seq_train_wide": 0, "lstm_seq_bwd_wide": 0, "bilstm_seq_wide": 0,
                             "bilstm_seq_train_wide": 0, "prefix_beam_wide": 0,
                             "prefix_beam_topa_wide": 0, "prefix_beam_rnn_wide": 0,
                             "prefix_beam_rnn_topa_wide": 0,

@@ -18,8 +18,11 @@ hundreds), the ops take the wide route: the per-utterance kernel, a block an
 utterance (and direction), which gives the grid's bits and runs to H 9,685.
 ``forward_route`` chooses from the shapes before the launch, and the wide
 route counts under its own names (``lstm_seq_wide``, ``lstm_seq_train_wide``,
-``bilstm_seq_wide``, ``bilstm_seq_train_wide``).  K3's and K11's backward
-walk an utterance a block at any of these widths.
+``bilstm_seq_wide``, ``bilstm_seq_train_wide``).  K3's backward runs its dh
+recurrence on a co-resident grid too, each CTA holding its units' rows of
+``whh`` (``backward_grid``); past it (from H 1305 at B 8) it walks an
+utterance a block, counted as ``lstm_seq_bwd_wide`` (``backward_route``).
+K11's backward walks an utterance and direction a block at any width.
 ``_bilstm_seq_per_utterance`` runs K11's wide route as the grid kernel's
 bit-equality oracle, under a count of its own; no op calls it.
 """
@@ -37,7 +40,8 @@ from pytorch_asr_tpu_torch.ops import build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"lstm_seq_fwd": [_P] * 10 + [_I] * 11 + [_P],
                "lstm_seq_train_fwd": [_P] * 12 + [_I] * 12 + [_P],
-               "lstm_seq_bwd": [_P] * 13 + [_I] * 7 + [_P],
+               "lstm_seq_bwd": [_P] * 15 + [_I] * 11 + [_P],
+               "lstm_seq_bwd_per_utterance": [_P] * 13 + [_I] * 7 + [_P],
                "bilstm_seq_fwd": [_P] * 10 + [_I] * 10 + [_P],
                "bilstm_seq_train_fwd": [_P] * 12 + [_I] * 11 + [_P],
                "bilstm_seq_per_utterance": [_P] * 9 + [_I] * 8 + [_P],
@@ -54,7 +58,9 @@ WIDE = {1: ("lstm_seq_wide", "lstm_seq_train_wide"),
 class Grid(NamedTuple):
     """The co-resident grid of K2's and K3's forward recurrence (K11's with
     ``directions`` 2).  CTA j of a direction owns the hidden units [j units,
-    min((j + 1) units, H)) and their gate columns k, H+k, 2H+k, 3H+k."""
+    min((j + 1) units, H)) and their gate columns k, H+k, 2H+k, 3H+k.  K3's
+    backward grid (``backward_grid``) reads it alike: CTA j holds its units'
+    rows of whh, and ``rows`` counts staged rows of dgates."""
     hidden: int    # H
     ctas: int      # CTAs a direction, one an SM
     units: int     # hidden units a CTA owns (the last may own fewer)
@@ -119,10 +125,61 @@ def forward_route(H: int, B: int, sms: int = SMS, directions: int = 1,
     grid, fits, _, _ = _grid_shape(H, B, sms, smem, None, directions)
     if fits:
         return grid
+    _check_per_utterance_fits(H, smem)
+    return None
+
+
+def _check_per_utterance_fits(H: int, smem: int) -> None:
     if 6 * H * 4 > smem:
         raise ValueError(f"lstm_seq: H {H} fits neither the co-resident grid nor the "
                          f"per-utterance kernel's {6 * H * 4} bytes of shared memory a "
                          f"block ({smem})")
+
+
+def backward_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK) -> Grid:
+    """The grid of K3's backward recurrence for hidden width H and B
+    utterances.
+
+    Each CTA holds its ``units`` rows of whh (4H fp32 each) in shared memory,
+    ``rows`` staged dgates rows (4H fp32 each), and for each (utterance,
+    unit) dh, dc and the 7 inputs of its cell; then B lengths
+    (csrc/lstm_seq.cu::bwd_grid_smem_bytes).  ``units`` is ceil(H / sms),
+    as the forward's.  ``rows`` is B where it fits, else as many as fit.
+    Raises ValueError where the grid cannot hold whh's rows and one staged
+    row on its SMs.
+    """
+    grid, fits, need = _bwd_grid_shape(H, B, sms, smem)
+    if not fits:
+        raise ValueError(
+            f"lstm_seq_bwd: H {H} at B {B} does not fit the co-resident grid: {grid.ctas} CTAs "
+            f"of {grid.units} units need {need} bytes of shared memory each ({grid.units} rows "
+            f"of whh, one staged row of dgates, the state of {B} rows), on {sms} SMs of "
+            f"{smem} bytes")
+    return grid
+
+
+def _bwd_grid_shape(H: int, B: int, sms: int, smem: int) -> tuple[Grid, bool, int]:
+    """``backward_grid``'s rule -> (the grid, whether it fits: its CTAs on
+    the SMs and at least one staged row, the bytes a CTA needs with one
+    staged row)."""
+    units = -(-H // sms)
+    fixed = 4 * (units * 4 * H + 9 * B * units) + 4 * B
+    rows = min(B, (smem - fixed) // (16 * H))
+    grid = Grid(H, -(-H // units), units, rows, fixed + 16 * rows * H)
+    return grid, grid.ctas <= sms and rows >= 1, fixed + 16 * H
+
+
+def backward_route(H: int, B: int, sms: int = SMS,
+                   smem: int = SMEM_PER_BLOCK) -> Grid | None:
+    """The route of K3's backward recurrence for hidden width H and B >= 1
+    utterances: ``backward_grid``'s grid wherever it fits, else None, the
+    wide route (the per-utterance kernel, 6 H floats of shared memory a
+    block).  Decided from the shapes alone.  Raises ValueError only where
+    neither fits: H > 9,685 at the card's 232,448 bytes."""
+    grid, fits, _ = _bwd_grid_shape(H, B, sms, smem)
+    if fits:
+        return grid
+    _check_per_utterance_fits(H, smem)
     return None
 
 
@@ -332,9 +389,7 @@ def _launch_grid(grid, dirs: int, x, wih, whh, bias, lengths, reverse, out_dtype
                  residual_dtype, trace):
     """Launch the grid kernel for one direction (K2, K3) or both (K11)."""
     B, T, D = x.shape
-    if trace is not None and (tuple(trace.shape) != (T, 5) or trace.dtype != torch.int64
-                              or trace.device != x.device or not trace.is_contiguous()):
-        raise ValueError(f"lstm_seq: trace must be contiguous ({T}, 5) int64 on {x.device}")
+    _check_trace(trace, T, x.device)
     H = whh.shape[-2]
     train = residual_dtype is not None
     out, acts, ct = _outputs(dirs, x, H, out_dtype, residual_dtype)
@@ -366,9 +421,28 @@ def _launch_grid(grid, dirs: int, x, wih, whh, bias, lengths, reverse, out_dtype
 
 
 def lstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct, reverse: bool = False):
-    """Backward (K3) -> (dx, dwih, dwhh, db); see ``lstm_seq_bwd_plain``."""
+    """Backward (K3) -> (dx, dwih, dwhh, db); see ``lstm_seq_bwd_plain``.
+    For CUDA tensors the dh recurrence takes ``backward_route``'s route:
+    the grid, or past it the per-utterance kernel (``backward_on_route``)."""
     if x.device.type == "cpu":
         return lstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct, reverse)
+    route = backward_route(whh.shape[0], max(x.shape[0], 1), _sm_count(x.device.index))
+    return backward_on_route(route, gy, x, wih, whh, lengths, acts, ct, reverse)
+
+
+def backward_on_route(route: Grid | None, gy, x, wih, whh, lengths, acts, ct,
+                      reverse: bool = False, trace: torch.Tensor | None = None,
+                      scratch: dict | None = None):
+    """K3's backward on CUDA tensors -> (dx, dwih, dwhh, db): the dh
+    recurrence on ``route``, a ``Grid`` (counted as ``lstm_seq_bwd``) or, as
+    ``backward_route`` gives past the grid, None: the per-utterance kernel
+    (``lstm_seq_bwd_wide``); then the products.  ``trace``, on a grid only,
+    a contiguous int64 (T, 5) tensor on the card, receives in row s CTA 0's
+    timestamps of step s (max(len) steps): the global timer in ns as the
+    step starts, and the SM clock in cycles then, after staging dgates and
+    the cell inputs, after the dh chains and after the cells.  ``scratch``,
+    a dict, receives the recurrence's outputs ``dgates`` (B, T, 4H) and
+    ``hprev`` (B, T, H)."""
     B, T, D = x.shape
     H = whh.shape[0]
     gy = gy.float().contiguous()
@@ -380,6 +454,12 @@ def lstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct, reverse: bool = False):
                              f"{x.device}, got {tuple(t.shape)}")
     if acts.dtype != ct.dtype or acts.dtype not in _DTYPES:
         raise ValueError(f"lstm_seq_bwd: residuals must share a type of {_DTYPES}")
+    _check_trace(trace, T, x.device)
+    if route is None and trace is not None:
+        raise ValueError("lstm_seq_bwd: only the grid records a trace")
+    if route is not None and (route.hidden != H or route.directions != 1):
+        raise ValueError(f"lstm_seq_bwd: a grid for H {route.hidden} and {route.directions} "
+                         f"direction(s), not H {H} and 1")
     dx = torch.empty_like(x)
     dwih = torch.empty_like(wih)
     dwhh = torch.empty_like(whh)
@@ -388,16 +468,31 @@ def lstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct, reverse: bool = False):
         return dx.zero_(), dwih.zero_(), dwhh.zero_(), db.zero_()
     dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
     hprev = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
+    if scratch is not None:
+        scratch.update(dgates=dgates, hprev=hprev)
     lib = build.load("lstm_seq", _SIGNATURES)
-    err = lib.lstm_seq_bwd(
-        gy.data_ptr(), x.data_ptr(), wih.data_ptr(), whh.data_ptr(), lengths.data_ptr(),
-        acts.data_ptr(), ct.data_ptr(), dgates.data_ptr(), hprev.data_ptr(),
-        dx.data_ptr(), dwih.data_ptr(), dwhh.data_ptr(), db.data_ptr(),
-        B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
-        int(acts.dtype == torch.bfloat16), _stream(x))
-    build.check(err, "lstm_seq_bwd")
-    build.LAUNCHES["lstm_seq_bwd"] += 1
+    ptrs = [t.data_ptr() for t in (gy, x, wih, whh, lengths, acts, ct, dgates, hprev, dx, dwih,
+                                   dwhh, db)]
+    flags = [B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
+             int(acts.dtype == torch.bfloat16)]
+    if route is None:
+        name = "lstm_seq_bwd_wide"
+        err = lib.lstm_seq_bwd_per_utterance(*ptrs, *flags, _stream(x))
+    else:
+        name = "lstm_seq_bwd"
+        sync = torch.zeros(1, dtype=torch.int32, device=x.device)
+        err = lib.lstm_seq_bwd(*ptrs, sync.data_ptr(), 0 if trace is None else trace.data_ptr(),
+                               *flags, route.ctas, route.units, route.rows, route.smem,
+                               _stream(x))
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
     return dx, dwih, dwhh, db
+
+
+def _check_trace(trace, T: int, device) -> None:
+    if trace is not None and (tuple(trace.shape) != (T, 5) or trace.dtype != torch.int64
+                              or trace.device != device or not trace.is_contiguous()):
+        raise ValueError(f"lstm_seq: trace must be contiguous ({T}, 5) int64 on {device}")
 
 
 class LSTMSeq(torch.autograd.Function):

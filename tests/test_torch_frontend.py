@@ -18,6 +18,7 @@ from pytorch_asr_tpu.ops.stft_pallas import log_mel_pallas
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig
 from pytorch_asr_tpu_torch.frontend import features
 from pytorch_asr_tpu_torch.ops import build, stft_cuda
+from tests.test_torch_stft_fft import kernel_power
 
 # Two float32 FFTs (torch's and XLA's) sum in different orders: about 1e-6
 # relative on the power, so 1e-4 on log-mel and on CMVN'd features.
@@ -79,51 +80,26 @@ def test_stft_wrapper_takes_plain_version_on_cpu():
     assert build.LAUNCHES["stft_log_mel"] == 0
 
 
-def _kernel_fft_power(frames: torch.Tensor, window, twiddle, n_fft: int) -> torch.Tensor:
-    """The CUDA kernel's FFT plan, step for step, in float64 on the CPU: pack
-    even/odd samples as n_fft/2 complex points in bit-reversed order, radix-2
-    butterflies with twiddle[pos * half / m], then split into n_fft/2+1 bins."""
-    half = n_fft // 2
-    bits = half.bit_length() - 1
-    x = torch.zeros(frames.shape[:-1] + (n_fft,), dtype=torch.float64)
-    x[..., : frames.shape[-1]] = frames * window.double()
-    n = torch.arange(half)
-    rev = sum(((n >> i) & 1) << (bits - 1 - i) for i in range(bits))
-    z = torch.empty(x.shape[:-1] + (half,), dtype=torch.complex128)
-    z[..., rev] = torch.complex(x[..., 0::2], x[..., 1::2])
-    tw = torch.complex(twiddle[0], twiddle[1])
-    m = 1
-    while m < half:
-        q = torch.arange(half // 2)
-        pos = q & (m - 1)
-        i0 = ((q - pos) << 1) + pos
-        t = z[..., i0 + m] * tw[pos * (half // m)]
-        a = z[..., i0]
-        z[..., i0], z[..., i0 + m] = a + t, a - t
-        m <<= 1
-    k = torch.arange(half + 1)
-    zk, zn = z[..., k % half], z[..., (half - k) % half].conj()
-    even, odd = (zk + zn) / 2, (zk - zn) / 2j
-    rot = torch.where(k < half, tw[k % half], torch.tensor(-1.0, dtype=torch.complex128))
-    return (even + rot * odd).abs().square()
-
-
 def test_kernel_fft_plan_matches_rfft():
-    """The kernel's constants and FFT plan on the CPU give the rfft power of the
-    zero-padded frame, and its banded mel product gives the dense one."""
+    """The kernel's constants and FFT plan (emulated lane for lane in
+    ``test_torch_stft_fft.py``) on the CPU give the rfft power of the
+    zero-padded frame, and its compressed mel rows give the dense product."""
     cfg = FrontendConfig()
     audio, _ = _audio(3)
-    window, twiddle, mel, band = stft_cuda.constants(cfg, torch.device("cpu"))
+    window, twiddle, mel_w, band = stft_cuda.constants(cfg, torch.device("cpu"))
     assert twiddle.dtype == torch.float64 and band.dtype == torch.int32
     frames = torch.from_numpy(audio).double().unfold(-1, cfg.win_length, cfg.hop_length)
-    power = _kernel_fft_power(frames, window, twiddle, cfg.n_fft)
+    frames = frames.reshape(-1, cfg.win_length)
+    power = torch.from_numpy(kernel_power(frames.numpy(), window.double().numpy(),
+                                          twiddle.numpy(), cfg.n_fft))
     ref = torch.fft.rfft(frames * window.double(), n=cfg.n_fft).abs().square()
     # float64 throughout: the two FFTs differ only in rounding order.
     torch.testing.assert_close(power, ref, rtol=1e-10, atol=1e-9)
+    mel = torch.from_numpy(features.mel_filterbank(cfg)).double()
     banded = torch.zeros(power.shape[:-1] + (cfg.n_mels,), dtype=torch.float64)
-    for m, (lo, hi) in enumerate(band.tolist()):
-        banded[..., m] = power[..., lo:hi] @ mel[lo:hi, m].double()
-        assert not mel[:lo, m].any() and not mel[hi:, m].any()
-    torch.testing.assert_close(banded, power @ mel.double(), rtol=1e-12, atol=0)
-    np.testing.assert_array_equal(mel.numpy(), features.mel_filterbank(cfg))
+    for m in range(cfg.n_mels):
+        lo, off, end = int(band[m, 0]), int(band[m, 1]), int(band[m + 1, 1])
+        banded[..., m] = power[..., lo:lo + end - off] @ mel_w[off:end].double()
+        assert not mel[:lo, m].any() and not mel[lo + end - off:, m].any()
+    torch.testing.assert_close(banded, power @ mel, rtol=1e-12, atol=0)
     np.testing.assert_array_equal(window.numpy(), features.hann_window(cfg.win_length))

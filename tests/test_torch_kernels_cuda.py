@@ -14,6 +14,7 @@ import torch
 
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig
 from pytorch_asr_tpu_torch.decoding import prefix_beam
+from pytorch_asr_tpu_torch.frontend import features
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
 from pytorch_asr_tpu_torch.ops import (
     beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
@@ -80,7 +81,8 @@ def test_stft_kernel_matches_float64(cuda):
     x[:, 16000:] *= 1e-4
     audio = torch.from_numpy(x.astype(np.float32)).to(cuda)
     got = stft_cuda.stft_log_mel(audio, cfg)
-    window, _, mel, _ = stft_cuda.constants(cfg, cuda)
+    window = stft_cuda.constants(cfg, cuda)[0]
+    mel = torch.from_numpy(features.mel_filterbank(cfg)).to(cuda)
     frames = audio.double().unfold(-1, cfg.win_length, cfg.hop_length)
     power = torch.fft.rfft(frames * window.double(), n=cfg.n_fft).abs().square()
     want = torch.log(torch.clamp(power @ mel.double(), min=cfg.log_floor)).float()
@@ -88,10 +90,39 @@ def test_stft_kernel_matches_float64(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,win,hop,n_mels", [(1024, 800, 320, 80), (256, 200, 80, 40),
+                                                  (64, 50, 25, 12), (4, 4, 3, 2)])
+def test_stft_kernel_at_other_sizes(cuda, n_fft, win, hop, n_mels):
+    """The warp-a-frame FFT's other plans (16, 4, 1 points a lane, and 2
+    lanes of 1 point) against the plain version and a float64 FFT; ragged
+    lengths, a frame count no multiple of the warps."""
+    cfg = FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop, n_mels=n_mels)
+    rng = np.random.default_rng(n_fft)
+    audio = torch.from_numpy(rng.standard_normal((3, 41 * hop + win - 1)).astype(np.float32)
+                             ).to(cuda)
+    trace = torch.zeros((9, 8), dtype=torch.int64, device=cuda)
+    got = stft_cuda.stft_log_mel(audio, cfg, trace)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, stft_cuda.stft_log_mel_plain(audio, cfg),
+                               rtol=STFT_TOL, atol=STFT_TOL)
+    mel = torch.from_numpy(features.mel_filterbank(cfg)).to(cuda).double()
+    window = stft_cuda.constants(cfg, cuda)[0].double()
+    frames = audio.double().unfold(-1, win, hop)
+    power = torch.fft.rfft(frames * window, n=n_fft).abs().square()
+    want = torch.log(torch.clamp(power @ mel, min=cfg.log_floor)).float()
+    torch.testing.assert_close(got, want, rtol=0, atol=STFT_EXACT_TOL)
+    rows = trace[trace[:, 0] != 0].cpu()
+    assert len(rows) >= 1 and bool((rows[:, 2:7] >= rows[:, 1:6]).all())
+
+
+@pytest.mark.cuda
 def test_stft_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         stft_cuda.stft_log_mel(torch.zeros(2, 1000, dtype=torch.float64, device=cuda),
                                FrontendConfig())
+    with pytest.raises(ValueError, match="n_fft"):
+        stft_cuda.stft_log_mel(torch.zeros(2, 5000, device=cuda),
+                               FrontendConfig(n_fft=2048, win_length=400))
 
 
 def _lstm_case(device, dtype, B=5, T=70, D=40, H=48):
@@ -190,6 +221,123 @@ def test_lstm_autograd_launches_the_training_pair(cuda):
     assert (build.LAUNCHES["lstm_seq_train_fwd"], build.LAUNCHES["lstm_seq_bwd"],
             build.LAUNCHES["lstm_seq"]) == (1, 1, 0)
     assert all(p.grad is not None and torch.isfinite(p.grad.float()).all() for p in params)
+
+
+def _bwd_case(device, B, T, D, H, dtype, res_dtype, reverse, seed=12):
+    """K3's backward inputs at width H: residuals from the training forward,
+    lengths T, 0, past T, 1 and in between, and a random upstream gradient."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    x = t(rng.standard_normal((B, T, D)) * 0.5).to(dtype)
+    wih = t(rng.standard_normal((D, 4 * H)) / np.sqrt(D)).to(dtype)
+    whh = t(rng.standard_normal((H, 4 * H)) / np.sqrt(H))
+    bias = t(rng.standard_normal(4 * H) * 0.1)
+    lengths = torch.tensor(([T, 0, T + 5, 1] + [2 + 7 * i % (T - 2) for i in range(B)])[:B],
+                           dtype=torch.int32, device=device)
+    _, acts, ct = lstm_cuda.lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse, dtype,
+                                               res_dtype)
+    gy = t(rng.standard_normal((B, T, H)))
+    return gy, x, wih, whh, lengths, acts, ct, reverse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,B", [(384, 8), (512, 16), (640, 32)])
+def test_lstm_backward_grid_equals_the_per_utterance_kernel(cuda, H, B):
+    """K3's backward recurrence on the grid, at config 1's, 2's and 5's
+    widths and batches (config 5 stages its utterances in groups), equals
+    the per-utterance kernel bit for bit in dgates, hprev, dx, dwih, dwhh and
+    db: both directions, float32 and bf16 residuals (bf16 x with them)."""
+    for reverse in (False, True):
+        for dtype, res in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)):
+            bargs = _bwd_case(cuda, B, 24, 64, H, dtype, res, reverse)
+            grid_scratch, wide_scratch = {}, {}
+            build.reset_launches()
+            grid = lstm_cuda.backward_grid(H, B)
+            got = lstm_cuda.backward_on_route(grid, *bargs, scratch=grid_scratch)
+            torch.cuda.synchronize()
+            assert {k: v for k, v in build.LAUNCHES.items() if v} == {"lstm_seq_bwd": 1}
+            build.reset_launches()
+            want = lstm_cuda.backward_on_route(None, *bargs, scratch=wide_scratch)
+            torch.cuda.synchronize()
+            assert {k: v for k, v in build.LAUNCHES.items() if v} == {"lstm_seq_bwd_wide": 1}
+            for name in ("dgates", "hprev"):
+                assert torch.equal(grid_scratch[name], wide_scratch[name]), (name, reverse, res)
+            for name, g, w in zip(("dx", "dwih", "dwhh", "db"), got, want):
+                assert torch.equal(g, w), (name, reverse, res)
+            # Zero outside the windows: row 1 has length 0.
+            assert not grid_scratch["dgates"][1].any() and not got[0][1].any()
+
+
+@pytest.mark.cuda
+def test_lstm_backward_route_forced_wide_gives_the_same_bits(cuda, monkeypatch):
+    """The op takes the per-utterance kernel where ``backward_route`` says
+    None (forced here at config 1's width), with the grid's bits, counted as
+    ``lstm_seq_bwd_wide``; on the grids of cards with fewer SMs (4 and 8
+    units a CTA) the bits hold too."""
+    bargs = _bwd_case(cuda, 8, 40, 96, 384, torch.bfloat16, torch.bfloat16, True)
+    build.reset_launches()
+    want = lstm_cuda.lstm_seq_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"lstm_seq_bwd": 1}
+    for sms in (96, 48):
+        grid = lstm_cuda.backward_grid(384, 8, sms)
+        assert grid.units == 384 // sms
+        assert all(torch.equal(g, w) for g, w in zip(
+            lstm_cuda.backward_on_route(grid, *bargs), want))
+    monkeypatch.setattr(lstm_cuda, "backward_route", lambda *args, **kwargs: None)
+    build.reset_launches()
+    got = lstm_cuda.lstm_seq_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"lstm_seq_bwd_wide": 1}
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_lstm_backward_grid_trace_and_a_grid_that_cannot_launch(cuda):
+    """A trace records CTA 0's steps in order; a grid of more CTAs than the
+    card holds at once (384 CTAs of a whole block's shared memory each, one
+    an SM) fails its cooperative launch and raises."""
+    B, T, H = 4, 20, 384
+    bargs = _bwd_case(cuda, B, T, 32, H, torch.float32, torch.float32, False)
+    trace = torch.zeros((T, 5), dtype=torch.int64, device=cuda)
+    rule = lstm_cuda.backward_grid(H, B)
+    lstm_cuda.backward_on_route(rule, *bargs, trace=trace)
+    steps = int(bargs[4].clamp(max=T).max())
+    tr = trace[:steps].cpu()
+    assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:] >= tr[:, 1:4]).all())
+    too_many = rule._replace(ctas=H, units=1, smem=lstm_cuda.SMEM_PER_BLOCK)
+    with pytest.raises(RuntimeError, match="lstm_seq_bwd"):
+        lstm_cuda.backward_on_route(too_many, *bargs)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lstm_autograd_at_config_1_runs_the_grid_backward(cuda):
+    """Autograd through ``LSTMSeq`` at config 1's layer shape (B 8, D 768,
+    H 384) launches the grid backward, never the wide one, and matches the
+    plain walk over the same residuals."""
+    H, B, T, D = 384, 8, 48, 768
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    params = [t(rng.standard_normal((B, T, D)) * 0.5).bfloat16(),
+              t(rng.standard_normal((D, 4 * H)) / np.sqrt(D)).bfloat16(),
+              t(rng.standard_normal((H, 4 * H)) / np.sqrt(H)),
+              t(rng.standard_normal(4 * H) * 0.1)]
+    params = [p.requires_grad_(True) for p in params]
+    lengths = torch.tensor([T, 44, 40, 37, 30, 29, 20, 10], dtype=torch.int32, device=cuda)
+    build.reset_launches()
+    out = lstm_cuda.lstm_seq(*params, lengths, False, torch.bfloat16)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"lstm_seq_train_fwd": 1,
+                                                              "lstm_seq_bwd": 1}
+    x, wih, whh, bias = (p.detach() for p in params)
+    _, acts, ct = lstm_cuda.lstm_seq_train_fwd(x, wih, whh, bias, lengths, False,
+                                               torch.bfloat16)
+    want = lstm_cuda.lstm_seq_bwd_plain(2 * out.detach().float(), x, wih, whh, lengths,
+                                        acts, ct)
+    for name, p, w in zip(("dx", "dwih", "dwhh", "db"), params, want):
+        assert _rel_err(p.grad, w) <= BF16_TOL, name
 
 
 def _ctc_case(device, B=6, T=90, V=9, Lmax=30, seed=8):
@@ -840,9 +988,9 @@ def test_wide_route_gives_the_grids_bits(cuda, monkeypatch, B, T):
 
 @pytest.mark.cuda
 def test_wide_route_past_the_grid(cuda):
-    """H 1536 at B 8 fits neither grid: K2, K3's training pair and K11's
-    forwards run the per-utterance kernel under their wide counts, and hold
-    to the plain versions (K3's gradients too)."""
+    """H 1536 at B 8 fits neither grid: K2, K3's training pair (its backward
+    too) and K11's forwards run the per-utterance kernel under their wide
+    counts, and hold to the plain versions (K3's gradients too)."""
     H, B, T, D = 1536, 8, 16, 48
     assert lstm_cuda.forward_route(H, B) is None
     assert lstm_cuda.forward_route(H, B, directions=2) is None
@@ -872,7 +1020,7 @@ def test_wide_route_past_the_grid(cuda):
     out.float().square().sum().backward()
     torch.cuda.synchronize()
     assert {k: v for k, v in build.LAUNCHES.items() if v} == {
-        "lstm_seq_train_wide": 1, "lstm_seq_bwd": 1}
+        "lstm_seq_train_wide": 1, "lstm_seq_bwd_wide": 1}
     _, acts, ct = lstm_cuda.lstm_seq_train_plain(x, wih[0], whh[0], bias[0], lengths, False,
                                                  torch.bfloat16, torch.float32)
     want = lstm_cuda.lstm_seq_bwd_plain(2 * out.detach().float(), x, wih[0], whh[0], lengths,

@@ -27,7 +27,9 @@ result line):
   7. config 2's serving path, ``ctc_bilstm_beam_lm``: build a 4-gram LM with
      the port's ``train_ngram`` (set-up); hold the prefix beam search kernels
      K7 and K8 against the plain search on the card at the path's shapes
-     (planted and model log-probs, with and without the LM) and time them;
+     (planted and model log-probs, with and without the LM) and time them in
+     turns with the frame as it was (``rounds``, the same bits), printing
+     block 0's frame split;
      drive ``decode.main`` with ``decode.lm_path`` at full width, once over
      all chars (K7) and once with ``decode.ext_top_a=8`` (K8), counting
      launches; profile one of its batches;
@@ -36,9 +38,12 @@ result line):
      (set-up); hold K9, the search fused with the LM, against the plain
      search on the card over all chars and the top 8 (config 2's model
      logits for 16 utterances of 10-16 s with each row's transcript
-     planted, one row of no frames) and time it; drive ``decode.main`` with
+     planted, one row of no frames) on its co-resident grid and time it in
+     turns with its block kernel, printing CTA 0's frame split and the LM
+     steps a frame; drive ``decode.main`` with
      ``decode.lm_path=<lm.npz>`` at full width, once over all chars and once
-     with ``decode.ext_top_a=8``, counting launches; beam-decode the
+     with ``decode.ext_top_a=8``, counting launches (the grid once a batch,
+     the block kernel never); beam-decode the
      learned tiny model with the RNN LM; profile one of its batches;
   9. config 3, ``tcn_ctc_devclean``: hold the TCN block kernels, K5 and the
      K6 forward and backward (every product 3xTF32 on the tensor cores; two
@@ -233,11 +238,13 @@ SIMT_GEMM = re.compile(r"(^|[^\w])gemm_kernel<")
 # The wide routes: config 1 at H 1536, past the co-resident grid (the
 # per-utterance LSTM kernel), and searches past a block's shared memory (the
 # beam kernels' in-scratch form): K7 at beam 400, K9 at beam 64 with an LM
-# of H 512 (WIDE_LM).
+# of H 512 (WIDE_LM); and K9's block form, past its grid.  No main path
+# takes any of them.
 WIDE_H, WIDE_SEARCH_BEAM, WIDE_RNN_BEAM = 1536, 400, 64
 WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "lstm_seq_bwd_wide", "bilstm_seq_wide",
                "bilstm_seq_train_wide", "prefix_beam_wide", "prefix_beam_topa_wide",
-               "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide")
+               "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide", "prefix_beam_rnn_block",
+               "prefix_beam_rnn_topa_block")
 # K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
 # seed) at beam 16, and the trained default LM at beam 32.
 WIDE_LM, WIDE_BEAM = RNNLMConfig(embed_dim=128, hidden_dim=512, num_layers=2), 32
@@ -505,6 +512,30 @@ def stft_split(audio: torch.Tensor, cfg: FrontendConfig) -> dict:
             "us_total_median": float(np.median(tr[:, 6] - tr[:, 1])) / ghz / 1e3}
 
 
+def frame_split(trace: torch.Tensor, names: tuple[str, ...]) -> dict:
+    """The median µs a frame spends in each phase, from a beam kernel's
+    (T, 2 + len(names)) trace (the global clock, then the clock at the
+    frame's start and after each phase; rows of no frame are 0), at the
+    clock the trace saw, and the median frame."""
+    tr = trace.cpu().numpy().astype(np.float64)
+    tr = tr[tr[:, 0] != 0]
+    check(len(tr) > 1, "beam trace: fewer than two frames written")
+    ghz = (tr[-1, 1] - tr[0, 1]) / (tr[-1, 0] - tr[0, 0])
+    return {"frames": len(tr), "trace_clock_ghz": ghz,
+            "frame_us_median": float(np.median(tr[1:, 1] - tr[:-1, 1])) / ghz / 1e3,
+            "us_median": {n: float(np.median(tr[:, i + 2] - tr[:, i + 1])) / ghz / 1e3
+                          for i, n in enumerate(names)}}
+
+
+K7_PHASES = ("row", "extend", "absorb", "select", "picks")
+
+
+def k9_phases(nl: int) -> tuple[str, ...]:
+    """The phases of a frame of K9's grid: its trace's columns after the start."""
+    layers = [f"{p}{l}" for l in range(nl) for p in ("stage", "cells", "barrier")]
+    return ("search", "barrier", *layers, "logits")
+
+
 def step_split(trace: torch.Tensor, steps: int) -> dict:
     """CTA 0's median µs a step from a grid kernel's (T, 5) trace: staging,
     chains, cells and the grid barrier, at the clock the trace saw."""
@@ -522,8 +553,7 @@ def bwd_grid_record(bargs: tuple, steps: int) -> dict:
     (``backward_on_route``'s trace): staging dgates and the cell inputs, the
     dh chains, the cells and the grid barrier."""
     x, whh = bargs[1], bargs[3]
-    grid = lstm_cuda.backward_grid(whh.shape[0], x.shape[0],
-                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    grid = lstm_cuda.backward_grid(whh.shape[0], x.shape[0], build.sm_count(0))
     rec = {"grid": grid._asdict(),
            "recurrence_ms": device_ms_per_call(lambda: lstm_cuda.lstm_seq_bwd(*bargs),
                                                "lstm_bwd_grid_kernel", 5)}
@@ -543,8 +573,7 @@ def grid_record(args: tuple, b: int, steps: int, residual_dtype=None, dual: bool
     or ``bilstm_on_grid``), in µs at the clock the trace saw."""
     H = args[2].shape[-2]
     launch = lstm_cuda.bilstm_on_grid if dual else lstm_cuda.forward_on_grid
-    rec = {"grid": lstm_cuda.recurrence_grid(H, b, torch.cuda.get_device_properties(0)
-                                             .multi_processor_count,
+    rec = {"grid": lstm_cuda.recurrence_grid(H, b, build.sm_count(0),
                                              directions=2 if dual else 1)._asdict(),
            "recurrence_ms": device_ms_per_call(
                lambda: launch(None, *args, residual_dtype=residual_dtype),
@@ -1470,7 +1499,9 @@ def beam_phase(arpa: str) -> list[dict]:
     logits (random plus a planted path, as tests/test_tpu_parity.py plants
     one) and on the random-weight model's logits, each with no LM and with
     the 4-gram table.  The kernels are timed on the model logits with the
-    table, the serving path's case."""
+    table, the serving path's case, in turns with the frame as it was
+    before the warp-sorted selection (``rounds``, which must give the same
+    bits), and block 0's frame is split into its phases (its trace)."""
     cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
                               "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1"})
     logits, lens = cfg2_batch_logits(cfg)
@@ -1510,6 +1541,19 @@ def beam_phase(arpa: str) -> list[dict]:
         C = A or V
         b_ms, b_by = search_bound(int(lens.sum()), BEAM_K, C, V, A, B, BEAM_L,
                                   table.numel() * 4)
+        # The frame as it was (rounds): the same bits, timed in turns.
+        new, old = beam_cuda.prefix_beam(*args), beam_cuda.prefix_beam(*args, rounds=True)
+        check(all(torch.equal(a, b) for a, b in zip(new, old)),
+              f"{name}: the warp-sorted frame differs from the rounds frame")
+        times = {"ms": [], "rounds_ms": []}
+        for which in ("ms", "rounds_ms", "rounds_ms", "ms"):
+            times[which].append(time_ms(
+                lambda r=which == "rounds_ms": beam_cuda.prefix_beam(*args, rounds=r)))
+        splits = {}
+        for rounds in (False, True):
+            trace = torch.zeros((T, 2 + len(K7_PHASES)), dtype=torch.int64, device=CARD)
+            beam_cuda.prefix_beam(*args, rounds=rounds, trace=trace)
+            splits["rounds" if rounds else "sorted"] = frame_split(trace, K7_PHASES)
         out.append({
             "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
             "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
@@ -1517,7 +1561,8 @@ def beam_phase(arpa: str) -> list[dict]:
                      f"L {BEAM_L}, C {C}, table {tuple(table.shape)}",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tol": {"tokens": "equal", "scores_rtol": BEAM_RTOL},
-            "ms": time_ms(lambda: beam_cuda.prefix_beam(*args)),
+            "ms": statistics.median(times["ms"]), "ms_in_turns": times["ms"],
+            "rounds_ms_in_turns": times["rounds_ms"], "frame_split_us": splits,
             "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(*args), 3, 1, 1),
             "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
             "bound_ms": b_ms, "bound_by": b_by, "cases": cases})
@@ -1560,7 +1605,10 @@ def rnn_beam_phase(rnn_lm_path: str) -> list[dict]:
     random-weight model's logits plus a planted path, the last row cut to no
     frames, tokens and lengths exact and scores within RNN_RTOL / RNN_ATOL;
     on the model's logits alone, the share of rows with equal tokens
-    (information only).  Timed on the model's logits, the serving path's case.
+    (information only).  Timed on the model's logits, the serving path's
+    case: on the co-resident grid (the route config 2 takes), in turns with
+    the block kernel (which must give the grid's tokens on the planted
+    input), and CTA 0's frame split into its phases (the grid's trace).
 
     The planted path is each row's transcript (~200 chars, below L), not
     a random char a frame: a random path of ~380 chars fills the beams to L,
@@ -1606,6 +1654,22 @@ def rnn_beam_phase(rnn_lm_path: str) -> list[dict]:
         args = (logp, lens.to(torch.int32).contiguous(), BEAM_K, BEAM_L, rnn, h0, c0, lmp0,
                 dec.lm_alpha, dec.lm_beta, tv, ti)
         frames, C, Hd = int(lens.sum()), A or V, lmc.hidden_dim
+        route = beam_cuda.rnn_grid_route(B, BEAM_K, C, V, lmc.num_layers, lmc.embed_dim, Hd,
+                                         build.sm_count(0))
+        check(route is not None, f"{name}: config 2 does not fit K9's grid")
+        planted_logp, (ptv, pti) = prefix_beam._prepare(planted, A)
+        block = beam_cuda.rnn_on_route(None, planted_logp, ragged.to(torch.int32).contiguous(),
+                                       *args[2:10], ptv, pti)
+        check(torch.equal(block[0], got[0]) and torch.equal(block[1], got[1]),
+              f"{name} planted: the block kernel's tokens differ from the grid's")
+        times = {"ms": [], "block_ms": []}
+        for which in ("ms", "block_ms", "block_ms", "ms"):
+            times[which].append(time_ms(
+                lambda r=route if which == "ms" else None: beam_cuda.rnn_on_route(r, *args),
+                5, 2, 1))
+        trace = torch.zeros((T, 2 + len(k9_phases(lmc.num_layers))), dtype=torch.int64,
+                            device=CARD)
+        beam_cuda.rnn_on_route(route, *args, trace=trace)
         b_ms, b_by = search_bound(
             frames, BEAM_K, C, V, A, B, BEAM_L, 4 * (n_weights + 2 * lmc.num_layers * Hd + V),
             lm_steps[0] * lm_step_ops(lmc, V))
@@ -1620,7 +1684,9 @@ def rnn_beam_phase(rnn_lm_path: str) -> list[dict]:
             "model_logits_max_abs_err": (model_got[2] - model_want[2])[got_rows].abs().max()
             .item() if bool(got_rows.any()) else None,
             "lm_steps": lm_steps[0], "lm_steps_per_frame": lm_steps[0] / frames,
-            "ms": time_ms(lambda: beam_cuda.prefix_beam_rnn(*args), 5, 2, 1),
+            "grid": route._asdict(), "ms": statistics.median(times["ms"]),
+            "ms_in_turns": times["ms"], "block_ms_in_turns": times["block_ms"],
+            "frame_split_us": frame_split(trace, k9_phases(lmc.num_layers)),
             "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(
                 *args[:4], None, *args[8:], rnn_lm=rnn, lm_state=(h0, c0, lmp0)), 3, 1, 1),
             "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
@@ -2288,7 +2354,7 @@ def wide_phase() -> tuple[dict, list[dict], dict]:
     every kernel of those paths against its plain version at the shapes the
     paths give it (``wide_lstm_rows``, ``wide_beam_rows``).  Returns (the
     record, the kernel rows, each path's launches)."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = build.sm_count(0)
     check(lstm_cuda.forward_route(WIDE_H, B, sms) is None
           and lstm_cuda.forward_route(WIDE_H, B, sms, 2) is None,
           f"H {WIDE_H} fits the grid: the wide phase would not leave it")
@@ -2355,6 +2421,8 @@ def wide_phase() -> tuple[dict, list[dict], dict]:
                lm_beta=cfg.decode.lm_beta)
     check(not beam_cuda.fits(WIDE_SEARCH_BEAM, V, V)
           and not beam_cuda.fits(WIDE_RNN_BEAM, V, V, lm_shape), "a wide search fits a block")
+    check(beam_cuda.rnn_grid_route(2, WIDE_RNN_BEAM, V, V, *lm_shape, sms) is None,
+          "K9 at beam 64 with an LM of H 512 fits the grid: the wide phase would not leave it")
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -2454,11 +2522,12 @@ def merge_phase(arpa: str) -> dict:
 
 def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
     """K9 where the LM state does not fit a block's shared memory beside the
-    search, so each block keeps it in a device scratch: an LM of H 512 x 2
-    layers (random weights from a seed) at beam 16, and the trained default
-    LM at beam 32; planted transcripts on config 2's model logits, the last
-    row cut to no frames; tokens and lengths exact against the plain search
-    on the card, scores within RNN_RTOL / RNN_ATOL; both timed."""
+    search: an LM of H 512 x 2 layers (random weights from a seed) at beam
+    16, past K9's grid too, so its block kernel keeps the state in a device
+    scratch ("prefix_beam_rnn_block"), and the trained default LM at beam 32,
+    which the grid takes; planted transcripts on config 2's model logits,
+    the last row cut to no frames; tokens and lengths exact against the
+    plain search on the card, scores within RNN_RTOL / RNN_ATOL; both timed."""
     cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
                               "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1",
                               "decode.lm_path": rnn_lm_path})
@@ -2479,10 +2548,13 @@ def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
         check(smem > beam_cuda.MAX_SMEM, f"{name}: its state fits shared memory ({smem} bytes)")
         kw = dict(beam_size=K, max_len=BEAM_L, rnn_lm=lm, sos_id=sos, lm_alpha=dec.lm_alpha,
                   lm_beta=dec.lm_beta)
+        route = beam_cuda.rnn_grid_route(B, K, V, V, lmc.num_layers, lmc.embed_dim,
+                                         lmc.hidden_dim, build.sm_count(0))
+        counted = "prefix_beam_rnn" if route is not None else "prefix_beam_rnn_block"
         build.reset_launches()
         got = prefix_beam.prefix_beam_search(planted, ragged, **kw)
         torch.cuda.synchronize()
-        check({k: v for k, v in build.LAUNCHES.items() if v} == {"prefix_beam_rnn": 1},
+        check({k: v for k, v in build.LAUNCHES.items() if v} == {counted: 1},
               f"K9 {name}: {dict(build.LAUNCHES)}")
         want = prefix_beam.prefix_beam_search_plain(planted, ragged, **kw)
         check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
@@ -2494,7 +2566,7 @@ def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
         args = (logp, ragged.to(torch.int32).contiguous(), K, BEAM_L, lm, *state0, dec.lm_alpha,
                 dec.lm_beta)
         out[name] = {"K": K, "lm": f"E {lmc.embed_dim} H {lmc.hidden_dim} x {lmc.num_layers}",
-                     "state_in_smem_bytes": smem,
+                     "counted_as": counted, "state_in_smem_bytes": smem,
                      "scratch_bytes": 4 * B * beam_cuda.lm_state_floats(K, V, lmc.num_layers,
                                                                         lmc.hidden_dim),
                      "max_abs_err": (got[2] - want[2]).abs().max().item(),
@@ -2740,6 +2812,10 @@ def main() -> int:
                *beam_phase(arpa), *rnn_beam_phase(rnn_lm), *tcn_phase(), merge_phase(arpa),
                *bilstm, ctc_paired_phase(), *study_beam_phase()]
     for k in kernels:
+        if "frame_split_us" in k:
+            print(f"frame_split {k['name']}:", json.dumps(k["frame_split_us"]))
+        if "lm_steps_per_frame" in k:
+            print(f"lm_steps_per_frame {k['name']}: {k['lm_steps_per_frame']:.4f}")
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
               f"(tol {k['tol']}) ms {k['ms']:.4f} plain {k['plain_ms']:.4f} "
@@ -2758,6 +2834,16 @@ def main() -> int:
                 "beam_decode_topa": beam_decode_phase(arpa, BEAM_A),
                 "rnn_decode": beam_decode_phase(rnn_lm, 0),
                 "rnn_decode_topa": beam_decode_phase(rnn_lm, BEAM_A)}
+    # Config 2's RNN decode runs K9 on its grid, a launch a batch, and never
+    # its block kernel (beam_decode_phase holds every count exactly).
+    for path in ("rnn_decode", "rnn_decode_topa"):
+        counts = beam_dec[path]["launches"]
+        grid_name = "prefix_beam_rnn" + ("_topa" if path.endswith("topa") else "")
+        check(counts.get(grid_name) == DECODE_BATCHES
+              and not counts.get(grid_name + "_block") and not counts.get(grid_name + "_wide"),
+              f"{path}: K9's grid and block launches {counts}")
+        print(f"{path}: K9 grid launches {counts[grid_name]}, block launches "
+              f"{counts.get(grid_name + '_block', 0)}")
     for path, res in beam_dec.items():
         print(f"{path}:", json.dumps(res))
         print(f"{path}: decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "

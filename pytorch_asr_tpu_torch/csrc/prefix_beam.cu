@@ -2,7 +2,7 @@
 // char LSTM LM, the whole utterance in one launch, for Hopper (sm_90a),
 // CUDA C++.
 //
-// Replaces (one template; the search over all chars or each frame's top-A):
+// Replaces (one frame function, search_frame, in three kernels):
 //   K7  pytorch_asr_tpu/ops/beam_pallas.py:756 prefix_beam_fused_lanes
 //       (_beam_kernel_lanes :601): extensions over all V chars;
 //   K8  pytorch_asr_tpu/ops/beam_pallas.py:1566 prefix_beam_fused_lanes_topa
@@ -10,12 +10,14 @@
 //       chars, given by the caller;
 //   K9  pytorch_asr_tpu/ops/beam_pallas.py:1452 prefix_beam_fused_lanes_topa_rnn
 //       (_beam_kernel_lanes_topa_rnn :1286): either search, fused with a char
-//       LSTM LM whose state every beam carries and the kernel advances;
+//       LSTM LM whose state every beam carries and the kernel advances: on a
+//       co-resident grid (prefix_beam_rnn_grid_kernel) where its shapes fit,
+//       else a block an utterance (prefix_beam_kernel<*, true>);
 //   K10 pytorch_asr_tpu/ops/beam_pallas.py:1026 merge_topk_fused
 //       (_merge_kernel :973): one frame's absorb and top-K over candidates
 //       gathered from the beam shards, for the beam-sharded search (its own
 //       kernel at the end of this file: K7's per-frame merge lifted out; it
-//       shares K7's top-K selection, select_topk, and repeats its absorb).
+//       keeps the K-round selection, select_topk, and repeats the absorb).
 // Python side: ops/beam_cuda.py; plain versions:
 // decoding/prefix_beam.py::beam_scan_plain and, for K10, ::_merge_topk.
 // K7, K8 and K10 match them token for token and bit for bit; K9 token for
@@ -61,7 +63,9 @@
 //   lse      torch.logaddexp's formula, max + log1p(exp(-|a - b|)), with the
 //            finite sentinel NEG_INF = -1e30 (never +-inf);
 //   top-K    ties go to the lower flat index: the selection key is the
-//            score's order-preserving bits above the inverted index;
+//            score's order-preserving bits above the inverted index, so
+//            every key is unique and the K picks are the K largest keys in
+//            descending order, whatever selection finds them;
 //   empty    lens[b] = 0 gives the empty hypothesis with score 0.
 //
 //   sigmoid, tanh, exp and log are the precise expf/tanhf/logf (no fast
@@ -75,55 +79,114 @@
 // once, and writes the backpointers (2*B*T*K*4): about 5.3 MB at the
 // serving shapes (B 16, T 400, V 31, K 16, a 4-gram table of 3.69 MB), 1.6
 // us at 3.35 TB/s; the operations are far below that.  In practice it is
-// bound by the serial chain of T frames, each an absorb and K rounds of a
-// block-wide argmax with a barrier each, on B = 16 of the 132 SMs.
+// bound by the serial chain of T frames on B = 16 of the 132 SMs, each
+// frame a few block barriers and the latency of its phases.
 // K9: operations.  The LM step of a beam that appends is 2 * 4H * (E + H)
 // FMA-operations for layer 0 and 2 * 4H * 2H for each further layer, plus
 // 2 * H * V for w_out: up to ~29 MFLOP a frame and utterance at the default
 // LM (E 128, H 256, 2 layers, K 16), ~190 GFLOP for 16 x 400 frames, ~2.8 ms
 // at 67 TFLOP/s fp32 if every beam appended every frame; the data needs a
-// few steps a frame, and the bound counts those.  Here it runs on B of the
-// 132 SMs, one block an utterance, and a block re-reads the 3.6 MB of
-// weights from L2 for each group of four stepping beams in a frame;
-// spreading the step over a cluster or all SMs is later work.
+// few steps a frame, and the bound counts those.
 //
-// Design, first and simple: one block per utterance with the time loop
-// inside (the beam is a serial chain over frames); one thread per candidate
-// lane (K*C = 496 at V = 31, 128 at A = 8), looping when K*C > 1024.  The
+// The frame (search_frame), a thread per candidate lane (K*C = 496 at V =
+// 31, 128 at A = 8), looping where there are more lanes than threads.  The
 // beam fields (pb, pnb, hash, last, length, lm score, context; double
-// buffered), the candidate arrays and the frame's logp row live in shared
-// memory; the table stays in device memory (L2-resident: 3.69 MB).  The
-// TPU kernel's one-hot gathers, lane concatenations, masked-sum extractions
-// and time chunks were Mosaic workarounds and have no counterpart here.
-// K9 keeps every beam's LM state in shared memory for the whole utterance:
-// h and c (layers, K, H) fp32, double-buffered for the parent reorder (an
-// index), and the log-prob rows (K, V); about 150 KB at the default LM.
-// Where that does not fit a block (more layers, a wider LM, a larger beam)
-// the wrapper hands a device scratch, and the block keeps its state there
-// (L2-resident) through the same generic pointers: same code, same order.
-// The weights (3.6 MB fp32) stay in device memory, L2-resident.  The LM
-// step runs only for the beams that appended, packed in groups of four: a
-// thread takes one hidden unit j of one group, keeps the four gate sums of
-// its four beams in registers, and reads the weight columns j, H+j, 2H+j
-// and 3H+j (coalesced across the warp) once for the four beams; the beams'
-// inputs sit in shared memory as float4 per input index.
+// buffered), the candidate arrays and the frame's logp row (and K8's top-A
+// values and ids) live in shared memory; the table stays in device memory
+// (L2-resident: 3.69 MB).  Its phases, each ended by a block barrier:
+//   1. stays (a thread a beam) and extensions (a thread a lane);
+//   2. absorb, a thread a (stay, beam) test, the at most one match a stay
+//      has found by shuffles (K <= 32; else a thread a stay); meanwhile the
+//      next frame's row (and top-A values and ids) comes in by cp.async
+//      into the same buffers, which no later phase of the frame reads;
+//   3. selection keys and sort: warp w computes the keys of its own
+//      contiguous segment of the N = K + K*C candidates (32 where the warps
+//      suffice) and sorts them descending (a bitonic network in its flip
+//      form: in registers by shuffles for 32 keys, else in place);
+//   4. the merge tree (K <= 32): at each level list i takes list i + h, a
+//      warp's lanes the lane-wise max of one list and the other reversed,
+//      sorted by five half-cleaners, a barrier a level (4 levels at config
+//      2); warp 0's lane r then holds pick r and writes the next beam r
+//      and its backpointers.  Past K 32 each of the first K keys of a
+//      segment counts the keys above it in every segment (binary searches)
+//      and a key of rank r < K is pick r;
+//   5. the row's copies are waited for.
+// Since keys are unique the picks are the K largest in descending order,
+// the same as K rounds of a block argmax.  That older frame (its row loaded
+// at the top behind a barrier of its own, then K rounds of select_topk, a
+// barrier each, and the picks) stays as kRounds, a template form reached
+// only by the wrappers' rounds= argument, to be timed and held against.
+// The TPU kernel's one-hot gathers, lane concatenations, masked-sum
+// extractions and time chunks were Mosaic workarounds and have no
+// counterpart here.
+//
+// K9 on the co-resident grid (prefix_beam_rnn_grid_kernel), where
+// ops/beam_cuda.py::rnn_grid_route finds the shapes fit: one persistent CTA
+// an SM under cudaLaunchCooperativeKernel, with the barrier of
+// grid_sync.cuh.  The CTAs form `reps` runs (2 at config 2); in each run
+// CTA j owns `units` hidden units and holds their gate columns j, H+j,
+// 2H+j, 3H+j of every layer's weights in shared memory for the whole
+// launch (layer 0's input product embed[c] wx0 as a (V, 4 units) table made
+// in the prologue, so a step of layer 0 is h wh0).  Utterance b's search
+// runs on CTA b mod ctas (more than one where B exceeds the grid).  Each
+// utterance has 2K state slots: a beam points at one (a beam that did not
+// append at its parent's, an appending beam at a slot no current beam
+// holds), so no state is copied.  A frame:
+//   search   each CTA runs search_frame for its utterances, each beam's LM
+//            row from its slot's log-prob row in shared memory; it gives
+//            its appending beams their slots and appends them to the
+//            frame's list of rows (an atomic count);
+//   barrier
+//   layers   for each layer, every CTA of run q stages the q-th share of
+//            the listed rows' inputs from L2 (cp.async.cg: the parent's h
+//            of the layer, above layer 0 the row's new h of the layer
+//            below, and the parent's c of its units), computes its units'
+//            gate sums for those rows (a warp takes 8 rows and one unit,
+//            its lanes split the inputs, a recursive halving leaves lane
+//            4 q + g with row q's gate g) and its cells write h and c into
+//            the rows' slots; a barrier after each layer;
+//   logits   each search CTA computes h_top w_out + b_out for its own
+//            appending beams (w_out, H x V, in its shared memory; a warp a
+//            row, 32 chars at a time, the halving again), then the
+//            log-softmax into their slots' rows; no barrier follows.
+// The LM state (h and c of every slot, layer and unit) lies in a device
+// scratch (1 MB at config 2, L2-resident).  Bound: the grid barriers (1 +
+// layers a frame), the search and the logits (on B CTAs), and each CTA
+// reading its run's share of the rows' inputs from L2.
+// Past the grid (a CTA's weight columns, w_out and the staged rows past a
+// block's shared memory: an LM of H 512 at beam 16 or more, thousands of
+// utterances) K9 runs prefix_beam_kernel<*, true>, a block an utterance: it
+// keeps every beam's LM state in shared memory for the whole utterance (h
+// and c (layers, K, H) fp32, double-buffered for the parent reorder, and
+// the log-prob rows (K, V); about 150 KB at the default LM), or where that
+// does not fit beside the search in the block's slice of a device scratch,
+// reads the weights (3.6 MB fp32) from L2 and steps the appending beams in
+// groups of four: a thread takes one hidden unit j of one group, keeps the
+// four gate sums of its four beams in registers, and reads the weight
+// columns j, H+j, 2H+j and 3H+j (coalesced across the warp) once for the
+// four beams; the beams' inputs sit in shared memory as float4 per input
+// index.  Counted apart (prefix_beam_rnn_block); ptxas's allocation of that
+// kernel moves with the code around it (a shared absorb function made it
+// several times slower once), so its LM step stays as it was.
 //
 // Past a block's shared memory.  A block of K7/K8 needs 72 K + 17 K C +
-// 8 V + 512 bytes (beam 387 and up over the 31 chars passes the 232,448 a
-// Hopper block may have), K9 also the LM step's packed inputs (beam 64 with
-// an LM of H 512 passes it with the state in a scratch), and a thread holds
-// one pick (K <= 1024).  Where a block does not fit (ops/beam_cuda.py::fits,
-// from the shapes before the launch) the same kernel runs in its kInScratch
-// form: the working set, laid out as in shared memory, lies in the block's
-// slice of a device scratch (L1/L2-resident), the beams loop over the
-// threads, and each frame's picks pass through the scratch.  Same code, same
-// order of operations, so the same result as the shared form; slower, as
-// every access of the working set goes through L1.  It counts under its own
-// names (prefix_beam_wide, ..._topa_wide, prefix_beam_rnn_wide,
-// ..._rnn_topa_wide).  No model configuration of the repo reaches it.
+// 8 V + 8 C + 512 bytes (beam 387 and up over the 31 chars passes the
+// 232,448 a Hopper block may have), K9's block also the LM step's packed
+// inputs (beam 64 with an LM of H 512 passes it with the state in a
+// scratch).  Where a block does not fit (ops/beam_cuda.py::fits, from the
+// shapes before the launch) the same kernel runs in its kInScratch form: the
+// working set, laid out as in shared memory, lies in the block's slice of a
+// device scratch (L1/L2-resident), and the next row comes in by plain loads.
+// Same code, same order of operations, so the same result as the shared
+// form; slower, as every access of the working set goes through L1.  It
+// counts under its own names (prefix_beam_wide, ..._topa_wide,
+// prefix_beam_rnn_wide, ..._rnn_topa_wide).  No model configuration of the
+// repo reaches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid_sync.cuh"
 
 namespace {
 
@@ -141,7 +204,7 @@ __device__ __forceinline__ int floor_mod(int x, int n) {
 }
 
 // Higher key = better candidate: the score's order-preserving bits, then the
-// inverted flat index, so equal scores rank the lower index first.
+// inverted flat index, so equal scores rank the lower index first.  Never 0.
 __device__ __forceinline__ unsigned long long make_key(float s, int idx) {
   if (s == 0.0f) s = 0.0f;  // -0 ranks as +0, as float comparison has it
   uint32_t u = __float_as_uint(s);
@@ -167,7 +230,8 @@ __device__ __forceinline__ unsigned long long umax(unsigned long long a,
 // thread j % nt, which alone reads and clears its keys, so no barrier is
 // needed before the first round.  Thread r < K gets pick r's key; with
 // kPicks (more beams than threads) thread 0 also writes it to picks[r], and
-// the caller synchronises before reading them.
+// the caller synchronises before reading them.  K10's selection, and the
+// kRounds frame's.
 template <bool kPicks = false>
 __device__ __forceinline__ unsigned long long select_topk(unsigned long long* key,
                                                           unsigned long long* wbest, int N,
@@ -191,6 +255,104 @@ __device__ __forceinline__ unsigned long long select_topk(unsigned long long* ke
   return mine;
 }
 
+// The warp sort of the frame's selection.  Warp w's segment of the N keys
+// is [w seg, min(N, (w + 1) seg)), seg = ceil(N / warps).
+__device__ __forceinline__ int seg_len(int w, int seg, int N) {
+  const int lo = w * seg, hi = min(N, lo + seg);
+  return hi > lo ? hi - lo : 0;
+}
+
+__device__ __forceinline__ void order_desc(unsigned long long* key, int i, int j) {
+  const unsigned long long a = key[i], b = key[j];
+  if (b > a) {
+    key[i] = b;
+    key[j] = a;
+  }
+}
+
+// Sorts key[0, n) descending, by the 32 lanes of one warp (all must call
+// it): the bitonic network over the next power of two P >= n in its flip
+// form, where every exchange (i, j), i < j, puts the larger key at i.  Keys
+// past n count as 0, below every key, so an exchange whose j is past n
+// leaves both in place and is skipped.
+__device__ __forceinline__ void warp_sort_desc(unsigned long long* key, int n, int lane) {
+  int lg = 0;
+  while ((1 << lg) < n) ++lg;
+  const int pairs = (1 << lg) >> 1;
+  for (int s = 1; s <= lg; ++s) {
+    // Flip: in each block of 2^s, i = base + o against base + 2^s - 1 - o.
+    for (int q = lane; q < pairs; q += 32) {
+      const int base = (q >> (s - 1)) << s, o = q & ((1 << (s - 1)) - 1);
+      const int j = base + (1 << s) - 1 - o;
+      if (j < n) order_desc(key, base + o, j);
+    }
+    __syncwarp();
+    // Half-cleaners: i against i + 2^e, e = s - 2 down to 0.
+    for (int e = s - 2; e >= 0; --e) {
+      for (int q = lane; q < pairs; q += 32) {
+        const int i = ((q >> e) << (e + 1)) | (q & ((1 << e) - 1));
+        if (i + (1 << e) < n) order_desc(key, i, i + (1 << e));
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The same network on a segment of at most 32 keys, in registers: lane i
+// holds key i (0 past n) and each exchange is a shuffle.
+__device__ __forceinline__ unsigned long long warp_sort_desc_reg(unsigned long long v, int n,
+                                                                 int lane) {
+  for (int s = 1; (1 << (s - 1)) < n; ++s) {
+    unsigned long long o = __shfl_xor_sync(0xffffffffu, v, (1 << s) - 1);  // the flip
+    v = (lane & ((1 << s) - 1)) < (1 << (s - 1)) ? umax(v, o) : (v < o ? v : o);
+    for (int e = s - 2; e >= 0; --e) {
+      o = __shfl_xor_sync(0xffffffffu, v, 1 << e);
+      v = (lane & (1 << e)) == 0 ? umax(v, o) : (v < o ? v : o);
+    }
+  }
+  return v;
+}
+
+// The selection's merge tree over nw sorted segments `seg` keys apart (K
+// <= 32 and K <= seg; each holds at least K keys, 0s past its end):
+// at each level list i takes list i + h (h = ceil(m / 2) of m lists), warp
+// i reading its list's K keys and the other's reversed, their lane-wise
+// max a bitonic 32 that holds the top 32 of both, sorted by five
+// half-cleaners; a block barrier a level.  All threads call it; lane r of
+// warp 0 gets the r-th largest key.
+__device__ __forceinline__ unsigned long long merge_tree(unsigned long long* key, int nw,
+                                                         int seg, int K, int warp, int lane) {
+  unsigned long long v = lane < K ? key[lane] : 0ull;  // a single list
+  for (int m = nw; m > 1;) {
+    const int h = (m + 1) >> 1;
+    if (warp < m - h) {
+      const unsigned long long a = lane < K ? key[warp * seg + lane] : 0ull;
+      const unsigned long long b = 31 - lane < K ? key[(warp + h) * seg + 31 - lane] : 0ull;
+      v = umax(a, b);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const unsigned long long u = __shfl_xor_sync(0xffffffffu, v, o);
+        v = (lane & o) == 0 ? umax(v, u) : (v < u ? v : u);
+      }
+      if (lane < K) key[warp * seg + lane] = v;
+    }
+    m = h;
+    __syncthreads();
+  }
+  return v;
+}
+
+// How many of the descending keys s[0, n) are above x, n <= P (a power of
+// two): a binary search of log2(P) + 1 fixed steps.
+__device__ __forceinline__ int count_above(const unsigned long long* s, int n, int P,
+                                           unsigned long long x) {
+  int i = 0;
+  for (int step = P; step > 0; step >>= 1) {
+    if (i + step <= n && s[i + step - 1] > x) i += step;
+  }
+  return i;
+}
+
 constexpr int kMaxLayers = 8;
 
 // K9's LM: the weights in device memory in the JAX layouts, and the state
@@ -208,7 +370,7 @@ struct RnnLm {
   int nl, E, H;
 };
 
-// K9's LM state and scratch in shared memory.
+// K9's LM state and scratch in shared memory (the block kernel).
 struct LmSmem {
   float* xin;   // (ceil(K/4), W, 4): inputs of the packed beams, W = max(E, H) + H
   float* h;     // (2, nl, K, H) double-buffered
@@ -221,12 +383,13 @@ struct LmSmem {
 };
 
 // Dynamic shared memory of one block, as ops/beam_cuda.py computes it: the
-// search's keys 8 (K + K*C), warp maxima 512, 4 (16 K + 2 K*C + 2 V) of
-// fields, candidates and the row, and K*C absorbed flags; then, for K9 from
-// the next 16-byte boundary, the LM's xin floats, its state (h, c and lmp
-// floats) unless that lives in a global scratch, and 3 K + 1 ints.
+// search's keys 8 (K + K*C), warp maxima 512, 4 (16 K + 2 K*C + 2 V + 2 C)
+// of fields, candidates, the row and K8's top-A values and ids, and K*C
+// absorbed flags; then, for K9 from the next 16-byte boundary, the LM's xin
+// floats, its state (h, c and lmp floats) unless that lives in a global
+// scratch, and 3 K + 1 ints.
 __host__ __device__ inline size_t search_smem_bytes(int K, int C, int V) {
-  return 72 * (size_t)K + 17 * (size_t)K * C + 8 * (size_t)V + 512;
+  return 72 * (size_t)K + 17 * (size_t)K * C + 8 * (size_t)V + 8 * (size_t)C + 512;
 }
 
 __host__ __device__ inline size_t lm_smem_offset(int K, int C, int V) {
@@ -258,8 +421,8 @@ enum Place { kShared = 0, kLmStateInScratch = 1, kInScratch = 2 };
 
 // One block's slice of the kInScratch scratch: the working set as kShared
 // lays it out (K9's with its LM state), then from the next 16 bytes the K
-// picks (8 bytes each), to a 16-byte boundary.  ops/beam_cuda.py::
-// scratch_bytes computes the same.
+// picks (8 bytes each; the kRounds frame's), to a 16-byte boundary.
+// ops/beam_cuda.py::scratch_bytes computes the same.
 __host__ __device__ inline size_t picks_offset(int K, int C, int V, bool rnn, int nl, int E,
                                                int H) {
   const size_t work =
@@ -271,6 +434,418 @@ __host__ __device__ inline size_t picks_offset(int K, int C, int V, bool rnn, in
 __host__ __device__ inline size_t scratch_block_bytes(int K, int C, int V, bool rnn, int nl,
                                                       int E, int H) {
   return (picks_offset(K, C, V, rnn, nl, E, H) + 8 * (size_t)K + 15) / 16 * 16;
+}
+
+// The search's working set of one utterance, laid out from a 16-byte
+// aligned base as search_smem_bytes counts it.
+struct SearchWs {
+  unsigned long long* key;     // (N) selection keys
+  unsigned long long* wbest;   // (2, 32) warp maxima (kRounds)
+  float *pb, *pnb, *lms;       // (2, K) beam fields, double-buffered
+  float *spb, *spnb;           // (K) stay candidates
+  float *epnb, *elm;           // (KC) extensions
+  float* lp;                   // (V) the frame's logp
+  float* tv;                   // (C) K8: the frame's top-A values
+  int* ti;                     // (C) K8: the frame's top-A ids
+  uint32_t* hsh;               // (2, K)
+  int *last, *len, *ctx;       // (2, K)
+  int* slot;                   // (V) K8: char -> slot
+  unsigned char* absorbed;     // (KC)
+};
+
+__device__ __forceinline__ SearchWs search_ws(void* base, int K, int C, int V) {
+  const int KC = K * C;
+  SearchWs w;
+  w.key = static_cast<unsigned long long*>(base);
+  w.wbest = w.key + K + KC;
+  w.pb = reinterpret_cast<float*>(w.wbest + 64);
+  w.pnb = w.pb + 2 * K;
+  w.lms = w.pnb + 2 * K;
+  w.spb = w.lms + 2 * K;
+  w.spnb = w.spb + K;
+  w.epnb = w.spnb + K;
+  w.elm = w.epnb + KC;
+  w.lp = w.elm + KC;
+  w.tv = w.lp + V;
+  w.ti = reinterpret_cast<int*>(w.tv + C);
+  w.hsh = reinterpret_cast<uint32_t*>(w.ti + C);
+  w.last = reinterpret_cast<int*>(w.hsh + 2 * K);
+  w.len = w.last + 2 * K;
+  w.ctx = w.len + 2 * K;
+  w.slot = w.ctx + 2 * K;
+  w.absorbed = reinterpret_cast<unsigned char*>(w.slot + V);
+  return w;
+}
+
+// What every frame of a search reads besides its working set.
+struct SearchIn {
+  const float* logp;     // (B, T, V)
+  const float* top_val;  // (B, T, C) K8, else null
+  const int* top_idx;    // (B, T, C) K8, else null
+  const float* table;    // (n_ctx, V) or null
+  int* parents;          // (B, T, K) backpointers
+  int* appends;          // (B, T, K)
+  int T, V, K, C, L, n_ctx;
+  float alpha, beta;
+};
+
+// Every beam before the first frame: beam 0 the empty prefix, the rest dead.
+__device__ __forceinline__ void search_init(const SearchWs& w, int K, int tid, int nt) {
+  for (int r = tid; r < K; r += nt) {  // a thread a beam; more beams loop
+    w.pb[r] = r == 0 ? 0.0f : NEG_INF;
+    w.pnb[r] = NEG_INF;
+    w.lms[r] = 0.0f;
+    w.hsh[r] = (uint32_t)(-(r + 1));
+    w.last[r] = -1;
+    w.len[r] = 0;
+    w.ctx[r] = 0;
+  }
+}
+
+// Frame `row`'s logp row (and K8's top-A values and ids) into the working
+// set; K8 clears its char -> slot map.  The caller synchronises.
+template <bool kTopA>
+__device__ __forceinline__ void load_row(const SearchWs& w, const SearchIn& s, size_t row,
+                                         int tid, int nt) {
+  for (int v = tid; v < s.V; v += nt) {
+    w.lp[v] = s.logp[row * s.V + v];
+    if (kTopA) w.slot[v] = -1;
+  }
+  if constexpr (kTopA) {
+    for (int a = tid; a < s.C; a += nt) {
+      w.tv[a] = s.top_val[row * s.C + a];
+      w.ti[a] = s.top_idx[row * s.C + a];
+    }
+  }
+}
+
+// The next frame's row into the same buffers while the frame's later
+// phases run: by cp.async where they are shared memory (waited for before
+// the frame's last barrier), else by plain loads.
+template <bool kTopA, bool kAsync>
+__device__ __forceinline__ void fetch_row(const SearchWs& w, const SearchIn& s, size_t row,
+                                          int tid, int nt) {
+  if constexpr (kAsync) {
+    for (int v = tid; v < s.V; v += nt)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(w.lp + v)),
+                   "l"(s.logp + row * s.V + v)
+                   : "memory");
+    if constexpr (kTopA) {
+      for (int a = tid; a < s.C; a += nt) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(w.tv + a)),
+                     "l"(s.top_val + row * s.C + a)
+                     : "memory");
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(w.ti + a)),
+                     "l"(s.top_idx + row * s.C + a)
+                     : "memory");
+      }
+    }
+    cp_async_commit();
+  } else {
+    for (int v = tid; v < s.V; v += nt) w.lp[v] = s.logp[row * s.V + v];
+    if constexpr (kTopA) {
+      for (int a = tid; a < s.C; a += nt) {
+        w.tv[a] = s.top_val[row * s.C + a];
+        w.ti[a] = s.top_idx[row * s.C + a];
+      }
+    }
+  }
+}
+
+// One frame t < n_t of utterance b's search, from the fields of buffer
+// `cur` to those of cur ^ 1, by all threads of the block (or CTA).
+// lm_rows: K9's log-prob rows, beam k's at row k, or with lm_slot at row
+// lm_slot[k]; else null.  par and app (K9): each pick's parent and appended
+// char (-1 for none).  picks: the kRounds frame's in-scratch picks.  tr:
+// this frame's trace row (block 0's thread 0) or null: the global clock,
+// then the clock at the frame's start and after its row load, extensions,
+// absorb, selection (kRounds: keys and rounds; else keys, sort and the
+// merge tree or ranks) and picks (else: warp 0's picks and the next row's
+// wait).
+// On entry (unless kRounds) the working set holds frame t's row and, for
+// K8, a cleared char -> slot map; on return, frame t + 1's.
+template <bool kTopA, bool kRnn, bool kInScratch, bool kRounds>
+__device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& s, int b, int t,
+                                             int n_t, int cur, const float* lm_rows,
+                                             const int* lm_slot, int* par, int* app,
+                                             unsigned long long* picks, long long* tr, int tid,
+                                             int nt) {
+  const int K = s.K, C = s.C, V = s.V, KC = K * C, N = K + KC;
+  const float *pb_c = w.pb + cur * K, *pnb_c = w.pnb + cur * K, *lms_c = w.lms + cur * K;
+  const uint32_t* hsh_c = w.hsh + cur * K;
+  const int *last_c = w.last + cur * K, *len_c = w.len + cur * K, *ctx_c = w.ctx + cur * K;
+  const size_t row = (size_t)b * s.T + t;
+  if (tr) {
+    tr[0] = (long long)global_ns();
+    tr[1] = clock64();
+  }
+  if constexpr (kRounds) {  // the frame's row, behind a barrier of its own
+    load_row<kTopA>(w, s, row, tid, nt);
+    __syncthreads();
+  }
+  if (tr) tr[2] = clock64();
+
+  // Stays (a thread a beam) and extensions (a thread a lane).
+  for (int r = tid; r < K; r += nt) {
+    const float total = lse(pb_c[r], pnb_c[r]);
+    w.spb[r] = total + w.lp[0];
+    w.spnb[r] = last_c[r] >= 0 ? pnb_c[r] + w.lp[last_c[r]] : NEG_INF;
+  }
+  for (int lane = tid; lane < KC; lane += nt) {
+    const int k = lane / C, a = lane - k * C;
+    int c;
+    float lpc;
+    if (kTopA) {
+      if constexpr (kRounds) {
+        c = s.top_idx[row * C + a];
+        lpc = s.top_val[row * C + a];
+      } else {
+        c = w.ti[a];
+        lpc = w.tv[a];
+      }
+      if (k == 0) w.slot[c] = a;
+    } else {
+      c = a;
+      lpc = w.lp[c];
+    }
+    const float total = lse(pb_c[k], pnb_c[k]);
+    float e = (c == last_c[k] ? pb_c[k] : total) + lpc;
+    if (len_c[k] >= s.L || c == 0) e = NEG_INF;  // beam full, or the blank
+    w.epnb[lane] = e;
+    // The beam's LM row: K9's log-probs, else the table's context row.
+    const float* lm_row =
+        kRnn ? lm_rows + (lm_slot != nullptr ? lm_slot[k] : k) * V
+             : (s.table != nullptr ? s.table + (size_t)ctx_c[k] * V : nullptr);
+    float l = lms_c[k];
+    if (lm_row != nullptr) l = __fadd_rn(l, __fadd_rn(__fmul_rn(s.alpha, lm_row[c]), s.beta));
+    w.elm[lane] = l;  // no FMA on the fusion line
+    w.absorbed[lane] = 0;
+  }
+  __syncthreads();
+  if (tr) tr[3] = clock64();
+  if constexpr (!kRounds) {
+    if (t + 1 < n_t) fetch_row<kTopA, !kInScratch>(w, s, row + 1, tid, nt);
+  }
+
+  // Absorb: the char that would turn beam k into alive stay k' is
+  // c = h_k' - M h_k (mod 2^32); at most one lane of each beam k matches.
+  // Where a stay's K tests fit a warp's aligned kp lanes and all K stays'
+  // fit the block, a thread a test, the max and the sum by shuffles (the
+  // prefixes are distinct, so a stay matches one lane at most and the sum
+  // has one term); else (and in the kRounds frame) a thread a stay.
+  int kp = 1;
+  while (kp < K) kp <<= 1;
+  if (!kRounds && kp <= 32 && K * kp <= nt) {
+    if ((tid >> 5) * 32 < K * kp) {  // warp-uniform: every lane shuffles
+      const int r = min(tid / kp, K - 1), k = tid - (tid / kp) * kp;
+      const bool mine = tid < K * kp && k < K;
+      const float sn = w.spnb[r];
+      float e = NEG_INF;
+      bool hit = false;
+      if (mine && lse(w.spb[r], sn) > NEG_INF / 2) {
+        const uint32_t c = hsh_c[r] - HASH_MULT * hsh_c[k];
+        const int sl = (c >= 1u && c < (uint32_t)V) ? (kTopA ? w.slot[c] : (int)c) : -1;
+        if (sl >= 0) {
+          w.absorbed[k * C + sl] = 1;
+          e = w.epnb[k * C + sl];
+          hit = true;
+        }
+      }
+      float m = e;
+      for (int o = kp >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sum = hit && m > NEG_INF / 2 ? expf(e - m) : 0.0f;
+      for (int o = kp >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (mine && k == 0) w.spnb[r] = lse(sn, m > NEG_INF / 2 ? m + logf(sum) : NEG_INF);
+    }
+  } else {
+    for (int r = tid; r < K; r += nt) {
+      const float sn = w.spnb[r];
+      float add = NEG_INF;
+      if (lse(w.spb[r], sn) > NEG_INF / 2) {
+        const uint32_t h2 = hsh_c[r];
+        float m = NEG_INF;
+        for (int k = 0; k < K; ++k) {
+          const uint32_t c = h2 - HASH_MULT * hsh_c[k];
+          const int sl = (c >= 1u && c < (uint32_t)V) ? (kTopA ? w.slot[c] : (int)c) : -1;
+          if (sl >= 0) {
+            w.absorbed[k * C + sl] = 1;
+            m = fmaxf(m, w.epnb[k * C + sl]);
+          }
+        }
+        if (m > NEG_INF / 2) {
+          float sum = 0.0f;
+          for (int k = 0; k < K; ++k) {
+            const uint32_t c = h2 - HASH_MULT * hsh_c[k];
+            const int sl = (c >= 1u && c < (uint32_t)V) ? (kTopA ? w.slot[c] : (int)c) : -1;
+            if (sl >= 0) sum += expf(w.epnb[k * C + sl] - m);
+          }
+          add = m + logf(sum);
+        }
+      }
+      w.spnb[r] = lse(sn, add);
+    }
+  }
+  __syncthreads();
+  if (tr) tr[4] = clock64();
+
+  // Selection keys: stays are candidates 0..K-1, lane (k, a) is K + k*C + a.
+  auto key_of = [&](int j) {
+    float sc;
+    if (j < K) {
+      sc = lse(w.spb[j], w.spnb[j]) + lms_c[j];
+    } else {
+      const int lane = j - K;
+      sc = w.absorbed[lane] ? NEG_INF : w.epnb[lane] + w.elm[lane];
+    }
+    return make_key(sc, j);
+  };
+  // Pick r (key `pick`) becomes next beam r; its backpointers are recorded.
+  auto take = [&](int r, unsigned long long pick) {
+    const int j = key_index(pick), nx = (cur ^ 1) * K + r;
+    int k, append;
+    if (j < K) {
+      k = j;
+      append = -1;
+      w.pb[nx] = w.spb[k];
+      w.pnb[nx] = w.spnb[k];
+      w.lms[nx] = lms_c[k];
+      w.hsh[nx] = hsh_c[k];
+      w.ctx[nx] = ctx_c[k];
+      w.last[nx] = last_c[k];
+      w.len[nx] = len_c[k];
+    } else {
+      const int lane = j - K;
+      k = lane / C;
+      const int a = lane - k * C;
+      const int c = kTopA ? s.top_idx[row * C + a] : a;
+      append = c;
+      w.pb[nx] = NEG_INF;
+      w.pnb[nx] = w.epnb[lane];
+      w.lms[nx] = w.elm[lane];
+      w.hsh[nx] = hsh_c[k] * HASH_MULT + (uint32_t)c;
+      w.ctx[nx] = s.table != nullptr
+                      ? floor_mod((int)((uint32_t)ctx_c[k] * (uint32_t)V + (uint32_t)c), s.n_ctx)
+                      : ctx_c[k];
+      w.last[nx] = c;
+      w.len[nx] = len_c[k] + 1;
+    }
+    if (key_score(pick) <= NEG_INF / 2) {  // a dead filler
+      w.pb[nx] = NEG_INF;
+      w.pnb[nx] = NEG_INF;
+      w.hsh[nx] = (uint32_t)(-(r + 1));
+    }
+    if constexpr (kRnn) {
+      par[r] = k;
+      app[r] = append;
+    }
+    s.parents[row * K + r] = k;
+    s.appends[row * K + r] = append;
+  };
+
+  if constexpr (kRounds) {
+    for (int j = tid; j < N; j += nt) w.key[j] = key_of(j);
+    constexpr bool kPicks = kInScratch;
+    const unsigned long long mine = select_topk<kPicks>(w.key, w.wbest, N, K, tid, nt, picks);
+    if constexpr (kPicks) __syncthreads();  // thread 0 wrote the last pick
+    if (tr) tr[5] = clock64();
+    for (int r = tid; r < K; r += nt) take(r, kPicks ? picks[r] : mine);
+  } else {
+    // Segments of 32 keys where the warps suffice (the rest idle in the
+    // sort), else one a warp.  With K <= 32 and segments of at least K keys
+    // the sorted segments' tops merge in a tree; else each key is ranked.
+    const int nw = min(nt >> 5, (N + 31) >> 5), warp = tid >> 5, lane = tid & 31;
+    const int seg = (N + nw - 1) / nw;
+    const bool tree = K <= 32 && seg >= K;
+    {
+      const int s0 = warp * seg, sn = seg_len(warp, seg, N);
+      // The tree reads K keys of every segment: a short last one gets 0s
+      // (below every key) up to K, past N into the unused warp maxima.
+      const int keep = tree && warp < nw ? max(sn, K) : sn;
+      if (seg <= 32) {  // a key a lane, sorted in registers (0 past sn)
+        const unsigned long long v = warp_sort_desc_reg(lane < sn ? key_of(s0 + lane) : 0ull,
+                                                        sn, lane);
+        if (lane < keep) w.key[s0 + lane] = v;
+      } else {
+        for (int j = s0 + lane; j < s0 + sn; j += 32) w.key[j] = key_of(j);
+        __syncwarp();
+        warp_sort_desc(w.key + s0, sn, lane);
+        if (lane < keep - sn) w.key[s0 + sn + lane] = 0ull;
+      }
+    }
+    __syncthreads();
+    if (tree) {
+      const unsigned long long v = merge_tree(w.key, nw, seg, K, warp, lane);
+      if (tr) tr[5] = clock64();
+      if (warp == 0 && lane < K) take(lane, v);
+    } else {
+      // Rank: only the first K keys of a segment can be picks, and none
+      // below theta, the largest K-th key of a segment that has K (K keys
+      // are at least it).  A key's rank is the count of keys above it in
+      // every segment, its own included (there: its position).
+      const int top = min(K, seg);
+      int P = 1;
+      while (P < top) P <<= 1;
+      unsigned long long theta = 0;
+      for (int o = 0; o < nw; ++o) {
+        if (seg_len(o, seg, N) >= K) theta = umax(theta, w.key[o * seg + K - 1]);
+      }
+      for (int e = tid; e < nw * top; e += nt) {
+        const int sw = e / top, p = e - sw * top;
+        if (p >= seg_len(sw, seg, N)) continue;
+        const unsigned long long x = w.key[sw * seg + p];
+        if (x < theta) continue;
+        int rank = 0;
+        for (int o = 0; o < nw; ++o)
+          rank += count_above(w.key + o * seg, min(top, seg_len(o, seg, N)), P, x);
+        if (rank < K) take(rank, x);
+      }
+      if (tr) tr[5] = clock64();
+    }
+    if constexpr (kTopA) {  // the next frame's extensions fill it again
+      for (int v = tid; v < V; v += nt) w.slot[v] = -1;
+    }
+    if constexpr (!kInScratch) cp_async_wait<0>();
+  }
+  __syncthreads();
+  if (tr) tr[6] = clock64();
+}
+
+// The best beam of utterance b after its n_t frames (fields in buffer cur):
+// score, length, and its tokens from the backpointers.  All threads call it.
+__device__ __forceinline__ void finish_search(const SearchWs& w, const SearchIn& s, int b, int n_t, int cur,
+                              int* tokens, int* out_len, float* out_score, int tid, int nt) {
+  const int K = s.K, L = s.L, T = s.T;
+  for (int i = tid; i < L; i += nt) tokens[(size_t)b * L + i] = 0;
+  __syncthreads();
+  if (tid == 0) {
+    const float *pb_c = w.pb + cur * K, *pnb_c = w.pnb + cur * K, *lms_c = w.lms + cur * K;
+    int best = 0;
+    float bs = lse(pb_c[0], pnb_c[0]) + lms_c[0];
+    for (int k = 1; k < K; ++k) {
+      const float sc = lse(pb_c[k], pnb_c[k]) + lms_c[k];
+      if (sc > bs) {
+        bs = sc;
+        best = k;
+      }
+    }
+    out_score[b] = bs;
+    out_len[b] = w.len[cur * K + best];
+    // Count the chain's appends, then write them left-packed (at most L).
+    int count = 0;
+    for (int t = n_t - 1, k = best; t >= 0; --t) {
+      const size_t at = ((size_t)b * T + t) * K + k;
+      count += s.appends[at] >= 0;
+      k = s.parents[at];
+    }
+    for (int t = n_t - 1, k = best, pos = count - 1; t >= 0; --t) {
+      const size_t at = ((size_t)b * T + t) * K + k;
+      if (s.appends[at] >= 0) {
+        if (pos < L) tokens[(size_t)b * L + pos] = s.appends[at];
+        --pos;
+      }
+      k = s.parents[at];
+    }
+  }
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -444,20 +1019,33 @@ __device__ void advance_lm(const RnnLm& lm, const LmSmem& s, int cur, int K, int
   log_softmax_rows(s, V, lmp_nxt, tid, nt);
 }
 
-template <bool kTopA, bool kRnn, int kPlace>
+
+// A search's threads: a thread a candidate (K stays and K*C lanes), and
+// at least K kp (kp = K to a power of two, K <= 32) for the absorb's tests,
+// to 32, at most 1024 (past that the phases loop).
+int search_threads(int K, int C) {
+  long long n = (long long)K + (long long)K * C;
+  int kp = 1;
+  while (kp < K) kp <<= 1;
+  if (kp <= 32 && (long long)K * kp > n) n = (long long)K * kp;
+  return n >= 1024 ? 1024 : (int)(n + 31) / 32 * 32;
+}
+
+// K7, K8 and K9's block form: one block per utterance with the time loop
+// inside (the beam is a serial chain over frames).  trace (K7, K8; null
+// for none): block 0's clocks of each frame, (T, 7) as search_frame
+// records them.
+template <bool kTopA, bool kRnn, int kPlace, bool kRounds>
 __global__ void __launch_bounds__(1024) prefix_beam_kernel(
-    const float* __restrict__ logp, const float* __restrict__ top_val,
-    const int* __restrict__ top_idx, const int* __restrict__ lens,
-    const float* __restrict__ table, int* parents, int* appends,
-    int* __restrict__ tokens, int* __restrict__ out_len, float* __restrict__ out_score,
-    int T, int V, int K, int C, int L, int n_ctx, float alpha, float beta, RnnLm lm,
-    float* scratch) {
-  const int KC = K * C, N = K + KC;
+    SearchIn s, const int* __restrict__ lens, int* __restrict__ tokens,
+    int* __restrict__ out_len, float* __restrict__ out_score, RnnLm lm, float* scratch,
+    long long* trace) {
+  const int K = s.K, C = s.C, V = s.V;
   extern __shared__ __align__(16) unsigned long long smem[];
   // The working set's base: shared memory, or (kInScratch) this block's
   // slice of the scratch, followed there by the frame's picks.
   unsigned long long* base = smem;
-  unsigned long long* picks = nullptr;                    // (K) kInScratch
+  unsigned long long* picks = nullptr;                    // (K) kInScratch, kRounds
   if constexpr (kPlace == kInScratch) {
     const size_t off = picks_offset(K, C, V, kRnn, lm.nl, lm.E, lm.H);
     char* slice = reinterpret_cast<char*>(scratch) +
@@ -465,22 +1053,7 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     base = reinterpret_cast<unsigned long long*>(slice);
     picks = reinterpret_cast<unsigned long long*>(slice + off);
   }
-  unsigned long long* key = base;                         // (N) selection keys
-  unsigned long long* wbest = key + N;                    // (2, 32) warp maxima
-  float* pb = reinterpret_cast<float*>(wbest + 64);       // (2, K) beam fields,
-  float* pnb = pb + 2 * K;                                //   double-buffered
-  float* lms = pnb + 2 * K;
-  float* spb = lms + 2 * K;                               // (K) stay candidates
-  float* spnb = spb + K;
-  float* epnb = spnb + K;                                 // (KC) extensions
-  float* elm = epnb + KC;
-  float* lp = elm + KC;                                   // (V) the frame's logp
-  uint32_t* hsh = reinterpret_cast<uint32_t*>(lp + V);    // (2, K)
-  int* last = reinterpret_cast<int*>(hsh + 2 * K);
-  int* len = last + 2 * K;
-  int* ctx = len + 2 * K;
-  int* slot = ctx + 2 * K;                                // (V) K8: char -> slot
-  unsigned char* absorbed = reinterpret_cast<unsigned char*>(slot + V);  // (KC)
+  const SearchWs w = search_ws(base, K, C, V);
   LmSmem rnn = {};                                        // K9's LM state
   if constexpr (kRnn) {
     // The state follows xin in the working set, or (kLmStateInScratch: it
@@ -506,17 +1079,8 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
   }
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int n_t = min(max(lens[b], 0), T);
-  // A thread a beam; beams past the block's threads (kInScratch) loop.
-  for (int r = tid; r < K; r += nt) {
-    pb[r] = r == 0 ? 0.0f : NEG_INF;
-    pnb[r] = NEG_INF;
-    lms[r] = 0.0f;
-    hsh[r] = (uint32_t)(-(r + 1));
-    last[r] = -1;
-    len[r] = 0;
-    ctx[r] = 0;
-  }
+  const int n_t = min(max(lens[b], 0), s.T);
+  search_init(w, K, tid, nt);
   if constexpr (kRnn) {  // every beam starts from the state after <sos>
     for (int idx = tid; idx < lm.nl * K * lm.H; idx += nt) {
       const int at = (idx / (K * lm.H)) * lm.H + idx % lm.H;
@@ -525,200 +1089,493 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     }
     for (int idx = tid; idx < K * V; idx += nt) rnn.lmp[idx] = lm.lmp0[idx % V];
   }
+  if constexpr (!kRounds) {  // the first frame's row; later ones come in ahead
+    if (n_t > 0) load_row<kTopA>(w, s, (size_t)b * s.T, tid, nt);
+    __syncthreads();
+  }
   int cur = 0;
   for (int t = 0; t < n_t; ++t) {
-    const float *pb_c = pb + cur * K, *pnb_c = pnb + cur * K, *lms_c = lms + cur * K;
-    const uint32_t* hsh_c = hsh + cur * K;
-    const int *last_c = last + cur * K, *len_c = len + cur * K, *ctx_c = ctx + cur * K;
-    const size_t row = (size_t)b * T + t;
-    const float* lmp_c = kRnn ? rnn.lmp + (size_t)cur * K * V : nullptr;
-
-    // The frame's row; K8 clears its char -> slot map.
-    for (int v = tid; v < V; v += nt) {
-      lp[v] = logp[row * V + v];
-      if (kTopA) slot[v] = -1;
-    }
-    __syncthreads();
-
-    // Stays (a thread a beam) and extensions (a thread a lane).
-    for (int r = tid; r < K; r += nt) {
-      const float total = lse(pb_c[r], pnb_c[r]);
-      spb[r] = total + lp[0];
-      spnb[r] = last_c[r] >= 0 ? pnb_c[r] + lp[last_c[r]] : NEG_INF;
-    }
-    for (int lane = tid; lane < KC; lane += nt) {
-      const int k = lane / C, a = lane - k * C;
-      int c;
-      float lpc;
-      if (kTopA) {
-        c = top_idx[row * C + a];
-        lpc = top_val[row * C + a];
-        if (k == 0) slot[c] = a;
-      } else {
-        c = a;
-        lpc = lp[c];
-      }
-      const float total = lse(pb_c[k], pnb_c[k]);
-      float e = (c == last_c[k] ? pb_c[k] : total) + lpc;
-      if (len_c[k] >= L || c == 0) e = NEG_INF;  // beam full, or the blank
-      epnb[lane] = e;
-      // The beam's LM row: K9's log-probs, else the table's context row.
-      const float* lm_row = kRnn ? lmp_c + k * V
-                                 : (table != nullptr ? table + (size_t)ctx_c[k] * V : nullptr);
-      float l = lms_c[k];
-      if (lm_row != nullptr) l = __fadd_rn(l, __fadd_rn(__fmul_rn(alpha, lm_row[c]), beta));
-      elm[lane] = l;  // no FMA on the fusion line
-      absorbed[lane] = 0;
-    }
-    __syncthreads();
-
-    // Absorb: the char that would turn beam k into alive stay k' is
-    // c = h_k' - M h_k (mod 2^32); at most one lane of each beam k matches.
-    for (int r = tid; r < K; r += nt) {
-      const float sn = spnb[r];
-      float add = NEG_INF;
-      if (lse(spb[r], sn) > NEG_INF / 2) {
-        const uint32_t h2 = hsh_c[r];
-        float m = NEG_INF;
-        for (int k = 0; k < K; ++k) {
-          const uint32_t c = h2 - HASH_MULT * hsh_c[k];
-          const int s = (c >= 1u && c < (uint32_t)V) ? (kTopA ? slot[c] : (int)c) : -1;
-          if (s >= 0) {
-            absorbed[k * C + s] = 1;
-            m = fmaxf(m, epnb[k * C + s]);
-          }
-        }
-        if (m > NEG_INF / 2) {
-          float sum = 0.0f;
-          for (int k = 0; k < K; ++k) {
-            const uint32_t c = h2 - HASH_MULT * hsh_c[k];
-            const int s = (c >= 1u && c < (uint32_t)V) ? (kTopA ? slot[c] : (int)c) : -1;
-            if (s >= 0) sum += expf(epnb[k * C + s] - m);
-          }
-          add = m + logf(sum);
-        }
-      }
-      spnb[r] = lse(sn, add);
-    }
-    __syncthreads();
-
-    // Selection keys: stays are candidates 0..K-1, lane (k, a) is K + k*C + a.
-    for (int j = tid; j < N; j += nt) {
-      float s;
-      if (j < K) {
-        s = lse(spb[j], spnb[j]) + lms_c[j];
-      } else {
-        const int lane = j - K;
-        s = absorbed[lane] ? NEG_INF : epnb[lane] + elm[lane];
-      }
-      key[j] = make_key(s, j);
-    }
-
-    constexpr bool kPicks = kPlace == kInScratch;
-    const unsigned long long mine = select_topk<kPicks>(key, wbest, N, K, tid, nt, picks);
-    if constexpr (kPicks) __syncthreads();  // thread 0 wrote the last pick
-
-    // The K picks become the next beams; record the backpointers.
-    for (int r = tid; r < K; r += nt) {
-      const unsigned long long pick = kPicks ? picks[r] : mine;
-      const int j = key_index(pick), nx = (cur ^ 1) * K + r;
-      int k, append;
-      if (j < K) {
-        k = j;
-        append = -1;
-        pb[nx] = spb[k];
-        pnb[nx] = spnb[k];
-        lms[nx] = lms_c[k];
-        hsh[nx] = hsh_c[k];
-        ctx[nx] = ctx_c[k];
-        last[nx] = last_c[k];
-        len[nx] = len_c[k];
-      } else {
-        const int lane = j - K;
-        k = lane / C;
-        const int a = lane - k * C;
-        const int c = kTopA ? top_idx[row * C + a] : a;
-        append = c;
-        pb[nx] = NEG_INF;
-        pnb[nx] = epnb[lane];
-        lms[nx] = elm[lane];
-        hsh[nx] = hsh_c[k] * HASH_MULT + (uint32_t)c;
-        ctx[nx] = table != nullptr
-                      ? floor_mod((int)((uint32_t)ctx_c[k] * (uint32_t)V + (uint32_t)c), n_ctx)
-                      : ctx_c[k];
-        last[nx] = c;
-        len[nx] = len_c[k] + 1;
-      }
-      if (key_score(pick) <= NEG_INF / 2) {  // a dead filler
-        pb[nx] = NEG_INF;
-        pnb[nx] = NEG_INF;
-        hsh[nx] = (uint32_t)(-(r + 1));
-      }
-      if constexpr (kRnn) {
-        rnn.par[r] = k;
-        rnn.app[r] = append;
-      }
-      parents[row * K + r] = k;
-      appends[row * K + r] = append;
-    }
-    __syncthreads();
+    long long* tr = trace != nullptr && b == 0 && tid == 0 ? trace + 7 * (size_t)t : nullptr;
+    search_frame<kTopA, kRnn, kPlace == kInScratch, kRounds>(
+        w, s, b, t, n_t, cur, kRnn ? rnn.lmp + (size_t)cur * K * V : nullptr, nullptr, rnn.par,
+        rnn.app, picks, tr, tid, nt);
     if constexpr (kRnn) {
       advance_lm(lm, rnn, cur, K, V, tid, nt);
       __syncthreads();
     }
     cur ^= 1;
   }
-
-  for (int i = tid; i < L; i += nt) tokens[(size_t)b * L + i] = 0;
-  __syncthreads();
-  if (tid == 0) {
-    const float *pb_c = pb + cur * K, *pnb_c = pnb + cur * K, *lms_c = lms + cur * K;
-    int best = 0;
-    float bs = lse(pb_c[0], pnb_c[0]) + lms_c[0];
-    for (int k = 1; k < K; ++k) {
-      const float s = lse(pb_c[k], pnb_c[k]) + lms_c[k];
-      if (s > bs) {
-        bs = s;
-        best = k;
-      }
-    }
-    out_score[b] = bs;
-    out_len[b] = len[cur * K + best];
-    // Count the chain's appends, then write them left-packed (at most L).
-    int count = 0;
-    for (int t = n_t - 1, k = best; t >= 0; --t) {
-      const size_t at = ((size_t)b * T + t) * K + k;
-      count += appends[at] >= 0;
-      k = parents[at];
-    }
-    for (int t = n_t - 1, k = best, pos = count - 1; t >= 0; --t) {
-      const size_t at = ((size_t)b * T + t) * K + k;
-      if (appends[at] >= 0) {
-        if (pos < L) tokens[(size_t)b * L + pos] = appends[at];
-        --pos;
-      }
-      k = parents[at];
-    }
-  }
+  finish_search(w, s, b, n_t, cur, tokens, out_len, out_score, tid, nt);
 }
 
 // Launches one block per utterance with the dynamic shared memory set.
-template <bool kTopA, bool kRnn, int kPlace = kShared>
-int launch(int B, int threads, size_t smem, void* stream, const float* logp,
-           const float* top_val, const int* top_idx, const int* lens, const float* table,
-           int* parents, int* appends, int* tokens, int* out_len, float* out_score, int T,
-           int V, int K, int C, int L, int n_ctx, float alpha, float beta, const RnnLm& lm,
-           float* scratch) {
-  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace>;
+template <bool kTopA, bool kRnn, int kPlace = kShared, bool kRounds = false>
+int launch(int B, int threads, size_t smem, void* stream, const SearchIn& s, const int* lens,
+           int* tokens, int* out_len, float* out_score, const RnnLm& lm, float* scratch,
+           long long* trace) {
+  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace, kRounds>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      logp, top_val, top_idx, lens, table, parents, appends, tokens, out_len, out_score, T,
-      V, K, C, L, n_ctx, alpha, beta, lm, scratch);
+  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(s, lens, tokens, out_len, out_score, lm,
+                                                     scratch, trace);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------- K9 on the co-resident grid
+
+constexpr int kGridThreads = 512;
+constexpr int kRowsPerWarp = 8;   // rows a warp's gate sums cover: 8 rows x 4 gates = 32 lanes
+
+// A CTA's shared memory on the grid, as ops/beam_cuda.py::rnn_grid_smem_bytes
+// computes it (tests/test_torch_beam_rnn_grid.py evaluates these functions'
+// text): `rows` staged rows, each grid_row_floats of inputs and 16 bytes of
+// (utterance, new slot, parent slot, char); the fixed floats: for each
+// layer 4 units columns of its weights (H rows for layer 0, whose input
+// product is the (V, 4 units) table, 2H above), that table, the biases,
+// w_out (H, V) in rows of V | 1 floats (an odd stride: the 32 lanes of a
+// warp reading one char of 32 rows hit 32 banks) and b_out (V), to a
+// multiple of 4; the staged rows' parent cells of the CTA's units; the B
+// lengths, to a multiple of 4; all that to 16 bytes; then per_cta
+// utterances, each its search's working set, the log-prob rows of its 2K
+// state slots (2K, V), and 7 K + 1 ints, to 16 bytes.
+__host__ __device__ inline size_t grid_row_floats(int H) { return ((size_t)2 * H + 3) / 4 * 4; }
+
+__host__ __device__ inline size_t grid_fixed_floats(int V, int nl, int H, int units) {
+  return (4 * (size_t)units * (H + (size_t)(nl - 1) * 2 * H) + (size_t)V * 4 * units +
+          (size_t)nl * 4 * units + (size_t)H * (V | 1) + (size_t)V + 3) / 4 * 4;
+}
+
+__host__ __device__ inline size_t grid_utt_bytes(int K, int C, int V) {
+  return (lm_smem_offset(K, C, V) + 8 * (size_t)K * V + 4 * (7 * (size_t)K + 1) + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t grid_shared_bytes(int B, int K, int V, int nl, int H, int units,
+                                                    int rows) {
+  return ((size_t)rows * (4 * grid_row_floats(H) + 16 + 4 * (size_t)units) +
+          4 * grid_fixed_floats(V, nl, H, units) + 4 * (((size_t)B + 3) / 4 * 4) + 15) /
+         16 * 16;
+}
+
+__host__ __device__ inline size_t rnn_grid_smem_bytes(int B, int K, int C, int V, int nl, int H,
+                                                      int units, int rows, int per_cta) {
+  return grid_shared_bytes(B, K, V, nl, H, units, rows) + (size_t)per_cta * grid_utt_bytes(K, C, V);
+}
+
+// The grid's buffers in device memory.
+struct GridBufs {
+  float* state;     // h then c, each (B, 2K slots, nl, H): the LM states the beams point to
+  int4* rows;       // (B K) a frame's appending beams {utterance, new slot, parent slot, char}
+  unsigned* sync;   // [0] the barrier's count, [1 + t % 2] frame t's rows
+};
+
+// One utterance's part of a search CTA's shared memory.  Beam k of frame
+// parity p holds its LM state in slot sid[p K + k] of the utterance's 2K:
+// a beam that did not append shares its parent's slot, one that appended
+// gets a slot no current beam holds.
+struct GridUtt {
+  SearchWs ws;
+  float* lmp;   // (2K, V) each slot's log-prob row
+  int* par;     // (K) each pick's parent
+  int* app;     // (K) each pick's appended char, -1 for none
+  int* arow;    // (K) the picks that appended, packed
+  int* sid;     // (2, K) each beam's slot, by frame parity
+  int* used;    // (2K) frame t + 1 where a current beam holds the slot
+  int* n_app;   // (1) how many appended
+};
+
+__device__ __forceinline__ GridUtt grid_utt(char* base, int K, int C, int V) {
+  GridUtt z;
+  z.ws = search_ws(base, K, C, V);
+  z.lmp = reinterpret_cast<float*>(base + lm_smem_offset(K, C, V));
+  z.par = reinterpret_cast<int*>(z.lmp + 2 * (size_t)K * V);
+  z.app = z.par + K;
+  z.arow = z.app + K;
+  z.sid = z.arow + K;
+  z.used = z.sid + 2 * K;
+  z.n_app = z.used + 2 * K;
+  return z;
+}
+
+// One step of warp_sums32 at lane offset O: a lane keeps the half of its O
+// pairs of partial sums that its bit O selects and adds its partner's.
+template <int O>
+__device__ __forceinline__ void halve_sums(float (&a)[32], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float keep = upper ? a[k + O] : a[k];
+    const float give = upper ? a[k] : a[k + O];
+    a[k] = keep + __shfl_xor_sync(0xffffffffu, give, O);
+  }
+}
+
+// The 32 sums a[j] (j = 8 rows x 4 gates) of a warp's lanes, each over all
+// 32 lanes, by recursive halving (every index a compile-time constant, so a
+// stays in registers).  Lane j ends with sum j.
+__device__ __forceinline__ float warp_sums32(float (&a)[32], int lane) {
+  halve_sums<16>(a, lane);
+  halve_sums<8>(a, lane);
+  halve_sums<4>(a, lane);
+  halve_sums<2>(a, lane);
+  halve_sums<1>(a, lane);
+  return a[0];
+}
+
+// dst[0, n) in shared memory = src[0, n) from L2 (other SMs wrote it): by
+// 16-byte cp.async.cg where both are 16-byte aligned, else 4-byte ones, as
+// work item `e` of `items` = ceil(n / 4) or n; the caller commits and waits.
+__device__ __forceinline__ void stage_copy(float* dst, const float* src, int e, bool wide) {
+  if (wide) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst + 4 * e)),
+                 "l"(src + 4 * e)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst + e)),
+                 "l"(src + e)
+                 : "memory");
+  }
+}
+
+// K9 on the co-resident grid: see the design note at the top.  trace: CTA
+// 0's clocks of each frame, (T, 5 + 3 nl): the global clock; the clock at
+// the frame's start, after its search, after the barrier; for each layer
+// after the first group's staging, after the products and cells, after the
+// barrier; and after the logits.
+template <bool kTopA>
+__global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
+    SearchIn s, RnnLm lm, const int* __restrict__ lens, int* __restrict__ tokens,
+    int* __restrict__ out_len, float* __restrict__ out_score, GridBufs g, long long* trace,
+    int B, int units, int stage_rows, int per_cta, int reps) {
+  extern __shared__ __align__(16) unsigned long long smem[];
+  const int K = s.K, C = s.C, V = s.V, H = lm.H, nl = lm.nl, U4 = 4 * units, S2 = 2 * K;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  // reps replicas of the units' columns, each a contiguous run of CTAs that
+  // covers H and steps its share of a frame's rows.
+  const int ctas = gridDim.x, cpr = ctas / reps, rep = blockIdx.x / cpr;
+  const int k0 = (blockIdx.x - rep * cpr) * units, nu = min(units, H - k0);
+  const int SW = (int)grid_row_floats(H);
+  const bool wide = H % 4 == 0;  // rows of 16-byte chunks
+  float* stage = reinterpret_cast<float*>(smem);                          // (stage_rows, SW)
+  int4* meta = reinterpret_cast<int4*>(stage + (size_t)stage_rows * SW);  // (stage_rows)
+  float* w_s = reinterpret_cast<float*>(meta + stage_rows);  // the layers' columns, 16-aligned
+  float* ex_s = w_s + (size_t)U4 * (H + (size_t)(nl - 1) * 2 * H);        // (V, U4)
+  float* bias_s = ex_s + (size_t)V * U4;                                  // (nl, U4)
+  const int VP = V | 1;
+  float* wout_s = bias_s + nl * U4;                                       // (H, VP)
+  float* bout_s = wout_s + (size_t)H * VP;                                // (V)
+  float* cstage = w_s + grid_fixed_floats(V, nl, H, units);            // (stage_rows, units)
+  int* lens_s = reinterpret_cast<int*>(cstage + (size_t)stage_rows * units);  // (B)
+  char* utt0 = reinterpret_cast<char*>(smem) + grid_shared_bytes(B, K, V, nl, H, units,
+                                                                   stage_rows);
+  const size_t utt_bytes = grid_utt_bytes(K, C, V);
+  const size_t plane = (size_t)B * S2 * nl * H;  // all of h (or c)
+  // Layer l's row of h in slot `slot` of utterance b; c lies a plane on.
+  auto hrow = [&](int b, int slot, int l) {
+    return g.state + (((size_t)b * S2 + slot) * nl + l) * H;
+  };
+  auto crow = [&](int b, int slot, int l) { return hrow(b, slot, l) + plane; };
+
+  // Prologue: this CTA's columns of every layer (units past H as zeros),
+  // layer 0's input table, the biases, the lengths.
+  for (int e = tid; e < U4 * H; e += nt) {
+    const int cc = e / H, i = e - cc * H, u = cc >> 2, gate = cc & 3;
+    w_s[e] = u < nu ? lm.wh[0][(size_t)i * 4 * H + gate * H + k0 + u] : 0.0f;
+  }
+  for (int l = 1; l < nl; ++l) {
+    float* wl = w_s + (size_t)U4 * H + (size_t)(l - 1) * U4 * 2 * H;
+    for (int e = tid; e < U4 * 2 * H; e += nt) {
+      const int cc = e / (2 * H), i = e - cc * 2 * H, u = cc >> 2, gate = cc & 3;
+      const size_t col = (size_t)gate * H + k0 + u;
+      wl[e] = u >= nu ? 0.0f
+                      : i < H ? lm.wx[l][(size_t)i * 4 * H + col]
+                              : lm.wh[l][(size_t)(i - H) * 4 * H + col];
+    }
+  }
+  for (int e = tid; e < V * U4; e += nt) {  // embed[v] wx0[:, col], fmaf from 0 in order
+    const int v = e / U4, cc = e - v * U4, u = cc >> 2, gate = cc & 3;
+    float acc = 0.0f;
+    if (u < nu) {
+      const float* x = lm.embed + (size_t)v * lm.E;
+      const float* wc = lm.wx[0] + (size_t)gate * H + k0 + u;
+      for (int i = 0; i < lm.E; ++i) acc = fmaf(x[i], wc[(size_t)i * 4 * H], acc);
+    }
+    ex_s[e] = acc;
+  }
+  for (int e = tid; e < nl * U4; e += nt) {
+    const int l = e / U4, cc = e - l * U4, u = cc >> 2, gate = cc & 3;
+    bias_s[e] = u < nu ? lm.b[l][gate * H + k0 + u] : 0.0f;
+  }
+  int steps = 0;
+  for (int b = 0; b < B; ++b) {
+    const int n_t = min(max(lens[b], 0), s.T);
+    steps = max(steps, n_t);
+    if (tid == 0) lens_s[b] = n_t;
+  }
+  // This CTA's utterances: their searches, first rows, and every beam in
+  // slot 0, the LM state after <sos>.
+  const int mine = blockIdx.x < B ? min(per_cta, (B - 1 - (int)blockIdx.x) / ctas + 1) : 0;
+  if (mine > 0) {
+    for (int e = tid; e < H * V; e += nt) wout_s[(e / V) * VP + e % V] = lm.w_out[e];
+    for (int e = tid; e < V; e += nt) bout_s[e] = lm.b_out[e];
+  }
+  for (int u = 0; u < mine; ++u) {
+    const int b = blockIdx.x + u * ctas, n_t = min(max(lens[b], 0), s.T);
+    const GridUtt z = grid_utt(utt0 + u * utt_bytes, K, C, V);
+    search_init(z.ws, K, tid, nt);
+    for (int e = tid; e < V; e += nt) z.lmp[e] = lm.lmp0[e];
+    for (int e = tid; e < K; e += nt) z.sid[e] = 0;
+    for (int e = tid; e < S2; e += nt) z.used[e] = 0;
+    if (n_t > 0) load_row<kTopA>(z.ws, s, (size_t)b * s.T, tid, nt);
+    for (int e = tid; e < nl * H; e += nt) {
+      hrow(b, 0, e / H)[e % H] = lm.h0[e];
+      crow(b, 0, e / H)[e % H] = lm.c0[e];
+    }
+  }
+  __syncthreads();
+
+  unsigned barriers = 0;
+  for (int t = 0; t < steps; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    long long* tr =
+        trace != nullptr && blockIdx.x == 0 && tid == 0 ? trace + (size_t)t * (5 + 3 * nl)
+                                                        : nullptr;
+    if (tr) {
+      tr[0] = (long long)global_ns();
+      tr[1] = clock64();
+    }
+    // Search: each of this CTA's utterances still in its frames.
+    for (int u = 0; u < mine; ++u) {
+      const int b = blockIdx.x + u * ctas, n_t = lens_s[b];
+      if (t >= n_t) continue;
+      const GridUtt z = grid_utt(utt0 + u * utt_bytes, K, C, V);
+      const int* sid_c = z.sid + cur * K;
+      int* sid_n = z.sid + nxt * K;
+      for (int r = tid; r < K; r += nt) z.used[sid_c[r]] = t + 1;  // seen after the search's barriers
+      search_frame<kTopA, true, false, false>(z.ws, s, b, t, n_t, cur, z.lmp, sid_c, z.par,
+                                              z.app, nullptr, nullptr, tid, nt);
+      for (int r = tid; r < K; r += nt) {
+        if (z.app[r] < 0) sid_n[r] = sid_c[z.par[r]];
+      }
+      if (warp == 0) {
+        // Pack the appending beams, give each a slot no current beam
+        // holds (there are at least K), and list them for the grid.
+        int n = 0;
+        for (int r0 = 0; r0 < K; r0 += 32) {
+          const int r = r0 + lane;
+          const bool appended = r < K && z.app[r] >= 0;
+          const unsigned m = __ballot_sync(0xffffffffu, appended);
+          if (appended) z.arow[n + __popc(m & ((1u << lane) - 1u))] = r;
+          n += __popc(m);
+        }
+        __syncwarp();
+        for (int s0 = 0, f = 0; s0 < S2 && f < n; s0 += 32) {
+          const int sl = s0 + lane;
+          const bool free = sl < S2 && z.used[sl] != t + 1;
+          const unsigned m = __ballot_sync(0xffffffffu, free);
+          const int p = f + __popc(m & ((1u << lane) - 1u));
+          if (free && p < n) sid_n[z.arow[p]] = sl;
+          f += __popc(m);
+        }
+        unsigned at = 0;
+        if (lane == 0) {
+          *z.n_app = n;
+          if (n > 0) at = atomicAdd(g.sync + 1 + cur, (unsigned)n);
+        }
+        at = __shfl_sync(0xffffffffu, at, 0);
+        __syncwarp();
+        for (int p = lane; p < n; p += 32) {
+          const int r = z.arow[p];
+          g.rows[at + p] = make_int4(b, sid_n[r], sid_c[z.par[r]], z.app[r]);
+        }
+      }
+    }
+    if (tr) tr[2] = clock64();
+    __syncthreads();
+    grid_wait(g.sync, ++barriers * ctas);
+    if (tr) tr[3] = clock64();
+    if (blockIdx.x == 0 && tid == 0) atomicExch(g.sync + 1 + nxt, 0u);  // the next frame's count
+    const int total = (int)__ldcg(g.sync + 1 + cur);
+    const int lo = (int)((long long)total * rep / reps);       // this replica's rows
+    const int hi = (int)((long long)total * (rep + 1) / reps);
+
+    // The rows' (utterance, slots, char) stay staged across the layers
+    // where they fit at once.
+    const bool meta_kept = hi - lo <= stage_rows;
+    for (int l = 0; l < nl; ++l) {
+      const int W = l == 0 ? H : 2 * H;
+      const float* wl = l == 0 ? w_s : w_s + (size_t)U4 * H + (size_t)(l - 1) * U4 * 2 * H;
+      if (tr) tr[4 + 3 * l] = clock64();  // no rows: no staging
+      for (int g0 = lo; g0 < hi; g0 += stage_rows) {
+        const int ng = min(stage_rows, hi - g0);
+        if (g0 > lo) __syncthreads();  // the last group's products have read stage
+        if (!meta_kept || l == 0) {
+          for (int q = tid; q < ng; q += nt) meta[q] = __ldcg(g.rows + g0 + q);
+          __syncthreads();
+        }
+        // Row q: [0, H) the parent's h of layer l (layer 0), or the row's
+        // new h of layer l - 1 then [H, 2H) the parent's h of layer l; and
+        // the parent's c of layer l at this CTA's units.
+        const int parts = l == 0 ? 1 : 2, per = wide ? H / 4 : H;
+        for (int e = tid; e < ng * parts * per; e += nt) {
+          const int q = e / (parts * per), rem = e - q * parts * per, part = rem / per;
+          const int4 m = meta[q];
+          const float* src = l > 0 && part == 0 ? hrow(m.x, m.y, l - 1) : hrow(m.x, m.z, l);
+          stage_copy(stage + (size_t)q * SW + part * H, src, rem - part * per, wide);
+        }
+        for (int e = tid; e < ng * nu; e += nt) {
+          const int q = e / nu;
+          const int4 m = meta[q];
+          stage_copy(cstage + (size_t)q * units, crow(m.x, m.z, l) + k0, e - q * nu, false);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (tr && g0 == lo) tr[4 + 3 * l] = clock64();
+        // Gate sums: a warp takes kRowsPerWarp rows and one unit; lane i0
+        // sums inputs i0, i0 + 32, ... of each (row, gate), and the halving
+        // leaves lane 4 q + gate with that sum over all inputs.
+        const int ngr = (ng + kRowsPerWarp - 1) / kRowsPerWarp;
+        for (int it = warp; it < ngr * nu; it += nw) {
+          const int u = it / ngr, q0 = (it - u * ngr) * kRowsPerWarp;
+          const int q = lane >> 2, gate = lane & 3;
+          const float* x[kRowsPerWarp];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r) x[r] = stage + (size_t)min(q0 + r, ng - 1) * SW;
+          const float* wc = wl + (size_t)(4 * u) * W;
+          float a[4 * kRowsPerWarp] = {};
+#pragma unroll 2
+          for (int i = lane; i < W; i += 32) {
+            const float w0 = wc[i], w1 = wc[W + i], w2 = wc[2 * W + i], w3 = wc[3 * W + i];
+#pragma unroll
+            for (int r = 0; r < kRowsPerWarp; ++r) {
+              const float xv = x[r][i];
+              a[4 * r] = fmaf(xv, w0, a[4 * r]);
+              a[4 * r + 1] = fmaf(xv, w1, a[4 * r + 1]);
+              a[4 * r + 2] = fmaf(xv, w2, a[4 * r + 2]);
+              a[4 * r + 3] = fmaf(xv, w3, a[4 * r + 3]);
+            }
+          }
+          float sum = warp_sums32(a, lane);
+          const int qr = min(q0 + q, ng - 1);
+          if (l == 0) sum = ex_s[(size_t)meta[qr].w * U4 + 4 * u + gate] + sum;  // embed[c] wx0
+          const float* bias = bias_s + l * U4 + 4 * u;
+          const float gf = __shfl_down_sync(0xffffffffu, sum, 1);
+          const float gg = __shfl_down_sync(0xffffffffu, sum, 2);
+          const float go = __shfl_down_sync(0xffffffffu, sum, 3);
+          if (gate == 0 && q0 + q < ng) {
+            const int4 m = meta[qr];
+            const float c_new = sigmoid(gf + bias[1] + 1.0f) * cstage[(size_t)qr * units + u] +
+                                sigmoid(sum + bias[0]) * tanhf(gg + bias[2]);
+            hrow(m.x, m.y, l)[k0 + u] = sigmoid(go + bias[3]) * tanhf(c_new);
+            crow(m.x, m.y, l)[k0 + u] = c_new;
+          }
+        }
+      }
+      __syncthreads();
+      if (tr) tr[5 + 3 * l] = clock64();
+      grid_wait(g.sync, ++barriers * ctas);
+      if (tr) tr[6 + 3 * l] = clock64();
+    }
+
+    // Logits and log-softmax of this CTA's appending beams into their slots.
+    for (int u = 0; u < mine; ++u) {
+      const int b = blockIdx.x + u * ctas;
+      if (t >= lens_s[b]) continue;
+      const GridUtt z = grid_utt(utt0 + u * utt_bytes, K, C, V);
+      const int n = *z.n_app;
+      if (n == 0) continue;
+      const int* sid_n = z.sid + nxt * K;
+      const int per = wide ? H / 4 : H;
+      for (int e = tid; e < n * per; e += nt) {  // h_top of each, from L2
+        const int p = e / per;
+        stage_copy(stage + (size_t)p * SW, hrow(b, sid_n[z.arow[p]], nl - 1), e - p * per, wide);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int p = warp; p < n; p += nw) {  // a warp a row
+        // Logits 32 chars at a time: lane i0 sums inputs i0, i0 + 32, ...
+        // of each char, and the halving leaves lane j with char c0 + j.
+        const float* x = stage + (size_t)p * SW;
+        float* row = z.lmp + (size_t)sid_n[z.arow[p]] * V;
+        for (int c0 = 0; c0 < V; c0 += 32) {
+          float a[32] = {};
+          for (int i = lane; i < H; i += 32) {
+            const float xv = x[i];
+            const float* w = wout_s + (size_t)i * VP + c0;
+#pragma unroll
+            for (int j = 0; j < 32; ++j) a[j] = fmaf(xv, c0 + j < V ? w[j] : 0.0f, a[j]);
+          }
+          const float logit = warp_sums32(a, lane);
+          if (c0 + lane < V) row[c0 + lane] = logit + bout_s[c0 + lane];
+        }
+        __syncwarp();  // then x - (max + log(sum(exp(x - max))))
+        float m = -3.402823466e38f;
+        for (int v = lane; v < V; v += 32) m = fmaxf(m, row[v]);
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        float sum = 0.0f;
+        for (int v = lane; v < V; v += 32) sum += expf(row[v] - m);
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float lse_row = m + logf(sum);
+        __syncwarp();
+        for (int v = lane; v < V; v += 32) row[v] -= lse_row;
+      }
+      __syncthreads();
+    }
+    if (tr) tr[4 + 3 * nl] = clock64();
+  }
+
+  for (int u = 0; u < mine; ++u) {
+    const int b = blockIdx.x + u * ctas;
+    const GridUtt z = grid_utt(utt0 + u * utt_bytes, K, C, V);
+    finish_search(z.ws, s, b, lens_s[b], lens_s[b] & 1, tokens, out_len, out_score, tid, nt);
+    __syncthreads();
+  }
+}
+
+// K9's LM from the wrapper's host array of device pointers: embed, w_out,
+// b_out, h0, c0, lmp0, then wx, wh and b of each of the nl layers.
+RnnLm rnn_lm(const float* const* weights, int nl, int E, int H) {
+  RnnLm lm = {};
+  lm.embed = weights[0];
+  lm.w_out = weights[1];
+  lm.b_out = weights[2];
+  lm.h0 = weights[3];
+  lm.c0 = weights[4];
+  lm.lmp0 = weights[5];
+  for (int l = 0; l < nl; ++l) {
+    lm.wx[l] = weights[6 + l];
+    lm.wh[l] = weights[6 + nl + l];
+    lm.b[l] = weights[6 + 2 * nl + l];
+  }
+  lm.nl = nl;
+  lm.E = E;
+  lm.H = H;
+  return lm;
+}
+
+SearchIn search_in(const float* logp, const float* top_val, const int* top_idx,
+                   const float* table, int* parents, int* appends, int T, int V, int K, int C,
+                   int L, int n_ctx, float alpha, float beta) {
+  SearchIn s;
+  s.logp = logp;
+  s.top_val = top_val;
+  s.top_idx = top_idx;
+  s.table = table;
+  s.parents = parents;
+  s.appends = appends;
+  s.T = T;
+  s.V = V;
+  s.K = K;
+  s.C = C;
+  s.L = L;
+  s.n_ctx = n_ctx;
+  s.alpha = alpha;
+  s.beta = beta;
+  return s;
 }
 
 // K10: one frame's merge and top-K over the candidates gathered from the
@@ -846,38 +1703,44 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
 // top_val/top_idx null: K7 over all V chars (C = V); else K8 over C = A.
 // parents/appends: (B, T, K) int32 scratch; tokens (B, L); out_len,
 // out_score (B).  scratch: null keeps each block's working set in shared
-// memory (the wrapper checks K <= 1024 and its size); else a device scratch
-// of B * scratch_block_bytes(K, C, V, false, 0, 0, 0) bytes, 16-byte
-// aligned, holds it (kInScratch: any K and C).
+// memory (the wrapper checks its size); else a device scratch of B *
+// scratch_block_bytes(K, C, V, false, 0, 0, 0) bytes, 16-byte aligned,
+// holds it (kInScratch: any K and C).  rounds: nonzero runs the frame as
+// before the warp-sorted selection (kRounds).  trace: null, or (T, 7)
+// int64 for block 0's clocks of each frame (search_frame).
 extern "C" int prefix_beam(const float* logp, const float* top_val, const int* top_idx,
                            const int* lens, const float* table, int* parents, int* appends,
                            int* tokens, int* out_len, float* out_score, int B, int T, int V,
                            int K, int C, int L, int n_ctx, float alpha, float beta,
-                           float* scratch, void* stream) {
+                           float* scratch, int rounds, long long* trace, void* stream) {
   if (B == 0) return 0;
-  const bool apart = scratch != nullptr;
+  const bool apart = scratch != nullptr, topa = top_idx != nullptr;
   const size_t smem = apart ? 0 : search_smem_bytes(K, C, V);
-  const long long lanes = (long long)K * C;
-  const int threads = lanes >= 1024 ? 1024 : (int)(lanes + 31) / 32 * 32;
+  const int threads = search_threads(K, C);
+  const SearchIn s = search_in(logp, top_val, top_idx, table, parents, appends, T, V, K, C, L,
+                               n_ctx, alpha, beta);
   const RnnLm none = {};
-  return (top_idx != nullptr
-              ? (apart ? launch<true, false, kInScratch> : launch<true, false>)
-              : (apart ? launch<false, false, kInScratch> : launch<false, false>))(
-      B, threads, smem, stream, logp, top_val, top_idx, lens, table, parents, appends, tokens,
-      out_len, out_score, T, V, K, C, L, n_ctx, alpha, beta, none, scratch);
+  auto run = rounds ? (topa ? (apart ? launch<true, false, kInScratch, true>
+                                     : launch<true, false, kShared, true>)
+                            : (apart ? launch<false, false, kInScratch, true>
+                                     : launch<false, false, kShared, true>))
+                    : (topa ? (apart ? launch<true, false, kInScratch> : launch<true, false>)
+                            : (apart ? launch<false, false, kInScratch> : launch<false, false>));
+  return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, none, scratch,
+             trace);
 }
 
-// K9: the search fused with the char LSTM LM.  weights: a host array of
-// device pointers embed, w_out, b_out, h0, c0, lmp0, then wx, wh and b of
-// each of the nl layers.  Same outputs and scratch as prefix_beam.
-// place (a Place) and scratch: kShared (scratch null) keeps every block's
-// working set in shared memory; kLmStateInScratch keeps the LM state in a
-// device scratch of B * lm_state_floats(K, V, nl, H) floats (for LMs or
-// beams whose state does not fit beside the search); kInScratch keeps all
-// of it in a device scratch of B * scratch_block_bytes(K, C, V, true, nl,
-// E, H) bytes (where even the LM step's packed inputs do not fit, or K >
-// 1024).  The wrapper checks nl <= 8 and, for the first two, the
-// shared-memory size.
+// K9's block form: the search fused with the char LSTM LM, a block an
+// utterance.  weights: a host array of device pointers embed, w_out, b_out,
+// h0, c0, lmp0, then wx, wh and b of each of the nl layers.  Same outputs
+// and scratch as prefix_beam.  place (a Place) and scratch: kShared
+// (scratch null) keeps every block's working set in shared memory;
+// kLmStateInScratch keeps the LM state in a device scratch of B *
+// lm_state_floats(K, V, nl, H) floats (for LMs or beams whose state does
+// not fit beside the search); kInScratch keeps all of it in a device
+// scratch of B * scratch_block_bytes(K, C, V, true, nl, E, H) bytes (where
+// even the LM step's packed inputs do not fit, or K > 1024).  The wrapper
+// checks nl <= 8 and, for the first two, the shared-memory size.
 extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const int* top_idx,
                                const int* lens, const float* const* weights, int nl, int E,
                                int H, int* parents, int* appends, int* tokens, int* out_len,
@@ -886,21 +1749,7 @@ extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const in
                                void* stream) {
   if (B == 0) return 0;
   if (nl < 1 || nl > kMaxLayers) return cudaErrorInvalidValue;
-  RnnLm lm = {};
-  lm.embed = weights[0];
-  lm.w_out = weights[1];
-  lm.b_out = weights[2];
-  lm.h0 = weights[3];
-  lm.c0 = weights[4];
-  lm.lmp0 = weights[5];
-  for (int l = 0; l < nl; ++l) {
-    lm.wx[l] = weights[6 + l];
-    lm.wh[l] = weights[6 + nl + l];
-    lm.b[l] = weights[6 + 2 * nl + l];
-  }
-  lm.nl = nl;
-  lm.E = E;
-  lm.H = H;
+  const RnnLm lm = rnn_lm(weights, nl, E, H);
   if (place < kShared || place > kInScratch || (place == kShared) != (scratch == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = place == kInScratch
@@ -908,18 +1757,60 @@ extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const in
                           : lm_smem_offset(K, C, V) +
                                 lm_smem_bytes(K, V, nl, E, H, place == kShared);
   const long long groups = (K + 3) / 4;
-  long long work = (long long)K * C;
+  long long work = search_threads(K, C);
   work = work > H * groups ? work : H * groups;
   work = work > V * groups ? work : V * groups;
   const int threads = work >= 1024 ? 1024 : (int)(work + 31) / 32 * 32;
   const bool topa = top_idx != nullptr;
+  const SearchIn s = search_in(logp, top_val, top_idx, nullptr, parents, appends, T, V, K, C, L,
+                               1, alpha, beta);
   auto run = place == kShared            ? (topa ? launch<true, true> : launch<false, true>)
              : place == kLmStateInScratch ? (topa ? launch<true, true, kLmStateInScratch>
                                                   : launch<false, true, kLmStateInScratch>)
                                           : (topa ? launch<true, true, kInScratch>
                                                   : launch<false, true, kInScratch>);
-  return run(B, threads, smem, stream, logp, top_val, top_idx, lens, nullptr, parents, appends,
-             tokens, out_len, out_score, T, V, K, C, L, 1, alpha, beta, lm, scratch);
+  return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, lm, scratch,
+             nullptr);
+}
+
+// K9 on the co-resident grid (ops/beam_cuda.py::rnn_grid_route gives ctas,
+// units, stage_rows, per_cta, reps and smem: reps runs of ctas / reps CTAs,
+// each run covering H with `units` units a CTA).  Inputs and outputs as
+// prefix_beam_rnn; state: 4 B K nl H floats (h and c of 2K slots an
+// utterance); rows: 4 B K ints (a frame's row list); sync: 3 unsigned, zero;
+// trace: null or (T, 5 + 3 nl) int64.  Returns cudaErrorInvalidValue for a
+// grid that does not cover H and B or smem below its need, and the
+// cooperative launch's error where the grid cannot be resident at once.
+extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
+                                    const int* top_idx, const int* lens,
+                                    const float* const* weights, int nl, int E, int H,
+                                    int* parents, int* appends, int* tokens, int* out_len,
+                                    float* out_score, int B, int T, int V, int K, int C, int L,
+                                    float alpha, float beta, float* state, int* rows,
+                                    unsigned* sync, long long* trace, int ctas, int units,
+                                    int stage_rows, int per_cta, int reps, int smem,
+                                    void* stream) {
+  if (B == 0) return 0;
+  if (reps < 1 || ctas % reps != 0) return cudaErrorInvalidValue;
+  const int cpr = ctas / reps;
+  if (nl < 1 || nl > kMaxLayers || units < 1 || (long long)cpr * units < H ||
+      (long long)(cpr - 1) * units >= H || (long long)per_cta * ctas < B || stage_rows < K ||
+      (size_t)smem < rnn_grid_smem_bytes(B, K, C, V, nl, H, units, stage_rows, per_cta))
+    return cudaErrorInvalidValue;
+  RnnLm lm = rnn_lm(weights, nl, E, H);
+  SearchIn s = search_in(logp, top_val, top_idx, nullptr, parents, appends, T, V, K, C, L, 1,
+                         alpha, beta);
+  GridBufs g = {state, reinterpret_cast<int4*>(rows), sync};
+  const void* kernel = top_idx != nullptr
+                           ? reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<true>)
+                           : reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<false>);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&s, &lm, &lens, &tokens, &out_len, &out_score, &g, &trace,
+                  &B, &units, &stage_rows, &per_cta, &reps};
+  return launch_cooperative(kernel, dim3(ctas), dim3(kGridThreads), args, (size_t)smem,
+                            (cudaStream_t)stream);
 }
 
 // K10: the per-frame merge and top-K of the beam-sharded search.  Inputs

@@ -4,9 +4,11 @@ char RNN LM: the port's counterpart of ``pytorch_asr_tpu.decoding.prefix_beam``.
 ``prefix_beam_search`` is the entry point.  It log-softmaxes the logits (and,
 for ``ext_top_a``, takes each frame's top-A chars) and hands them to
 ``ops/beam_cuda.py``, whose kernels (``csrc/prefix_beam.cu``: K7/K8, and K9
-with the RNN LM) run the whole search on the card, a block's working set in
-shared memory where it fits (``beam_cuda.fits``) and in a device scratch
-past it; on CPU tensors the wrappers run ``beam_scan_plain`` below instead.
+with the RNN LM) run the whole search on the card: K9 on a co-resident grid
+where ``beam_cuda.rnn_grid_route`` finds its shapes fit, else a block an
+utterance; a block's working set in shared memory where it fits
+(``beam_cuda.fits``) and in a device scratch past it.  On CPU tensors the
+wrappers run ``beam_scan_plain`` below instead.
 ``prefix_beam_search_plain`` is that plain search from the logits, on either
 device; the tests and ``chip_smoke.py`` hold the kernels against it.
 
@@ -455,11 +457,13 @@ def prefix_beam_search(logits: torch.Tensor, logit_len: torch.Tensor, beam_size:
     is the unrestricted search): K7/K8 without an LM or with the dense
     n-gram table ``lm_table`` (n_ctx, V) float32; K9 with the char RNN LM
     ``rnn_lm``, primed with ``sos_id`` once outside the kernel and advanced
-    inside it.  Where a kernel's block does not fit a block's shared memory
-    (``ops.beam_cuda.fits``: beam 387 and up over the char vocab, K9's LM
-    step at beam 64 with an LM of H 512, or more than 1024 beams), the same
-    kernel runs with its working set in a device scratch, counted under
-    ``<name>_wide``, as the wrappers choose from the shapes.  On CPU
+    inside it, on a co-resident grid where ``ops.beam_cuda.rnn_grid_route``
+    finds the shapes fit, else a block an utterance, counted under
+    ``<name>_block``.  Where a kernel's block does not fit a block's shared
+    memory (``ops.beam_cuda.fits``: beam 387 and up over the char vocab,
+    K9's LM step at beam 64 with an LM of H 512, or more than 1024 beams),
+    the same kernel runs with its working set in a device scratch, counted
+    under ``<name>_wide``, as the wrappers choose from the shapes.  On CPU
     tensors the plain search runs.  ``lm_top_k`` prunes
     only a hashed LM's lookups, as in the JAX package, so with a dense table,
     the RNN LM or no LM it changes nothing.

@@ -17,16 +17,21 @@ beam_scan_plain``, ``::_merge_topk``, ``::prefix_beam_stepwise_plain``) for
 CPU tensors and launches its kernel for CUDA tensors; there is no other
 switch and no fallback.
 
-K7, K8 and K9 keep a block's working set in shared memory where it fits
-(``fits``), and otherwise launch the same kernel with it in a device
-scratch (the kernel's ``kInScratch`` form: any beam, any lane count),
-counted under ``<name>_wide``; the form is chosen from the shapes before
-the launch.
+K7, K8 and K9's block form keep a block's working set in shared memory
+where it fits (``fits``), and otherwise launch the same kernel with it in a
+device scratch (the kernel's ``kInScratch`` form: any beam, any lane
+count), counted under ``<name>_wide``.  K9 runs on a co-resident grid, one
+CTA an SM holding its units' columns of the LM's weights, where
+``rnn_grid_route`` finds its shapes fit (counted as ``prefix_beam_rnn`` and
+``prefix_beam_rnn_topa``), and otherwise in its block form, counted as
+``prefix_beam_rnn_block`` (``..._topa_block``) or, in a scratch, ``_wide``.
+Every form is chosen from the shapes before the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,9 +39,11 @@ from pytorch_asr_tpu_torch.decoding import prefix_beam as plain
 from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _P],
+_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _I, _P, _P],
                "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6
                + [_F, _F, _P, _I, _P],
+               "prefix_beam_rnn_grid": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6
+               + [_F, _F] + [_P] * 4 + [_I] * 6 + [_P],
                "merge_topk": [_P] * 22 + [_I] * 4 + [_P]}
 _STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P],
                      "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P]}
@@ -49,7 +56,7 @@ SHARED, LM_STATE_IN_SCRATCH, IN_SCRATCH = 0, 1, 2
 
 def smem_bytes(K: int, C: int, V: int) -> int:
     """Shared memory of one K7/K8 block, as ``csrc/prefix_beam.cu`` lays it out."""
-    return 72 * K + 17 * K * C + 8 * V + 512
+    return 72 * K + 17 * K * C + 8 * V + 8 * C + 512
 
 
 def lm_state_floats(K: int, V: int, nl: int, H: int) -> int:
@@ -105,6 +112,83 @@ def _scratch(B: int, nbytes: int, dev) -> torch.Tensor:
     return torch.empty((B * nbytes // 4,), dtype=torch.float32, device=dev)
 
 
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def rnn_grid_smem_bytes(B: int, K: int, C: int, V: int, nl: int, H: int, units: int,
+                        rows: int, per_cta: int) -> int:
+    """Shared memory of one CTA of K9's grid (``csrc/prefix_beam.cu::
+    rnn_grid_smem_bytes``): ``rows`` staged rows, each 2H floats (to a
+    multiple of 4), 16 bytes of (utterance, slots, char) and the parent's
+    cells of the CTA's ``units``; each layer's 4 ``units`` weight columns (H
+    rows for layer 0, 2H above), layer 0's (V, 4 units) input table, the
+    biases, w_out (H, V) in rows of V | 1 floats and b_out (V), to a
+    multiple of 4 floats; the B lengths to a multiple of 4; all
+    that to 16 bytes; then ``per_cta`` utterances, each its search's working
+    set, the log-prob rows of its 2K state slots and 7 K + 1 ints, to 16
+    bytes."""
+    u4 = 4 * units
+    fixed = _up(u4 * (H + (nl - 1) * 2 * H) + V * u4 + nl * u4 + H * (V | 1) + V, 4)
+    shared = _up(rows * (4 * _up(2 * H, 4) + 16 + 4 * units) + 4 * fixed + 4 * _up(B, 4), 16)
+    utt = _up(_up(smem_bytes(K, C, V), 16) + 8 * K * V + 4 * (7 * K + 1), 16)
+    return shared + per_cta * utt
+
+
+class RnnGrid(NamedTuple):
+    """K9's co-resident grid: ``ctas`` CTAs (one an SM) in ``reps`` runs,
+    each run covering H with ``units`` hidden units a CTA (the last of a
+    run may own fewer) and stepping 1/reps of a frame's appending beams,
+    ``rows`` of them staged at once; up to ``per_cta`` utterances' searches
+    a CTA (utterance b on CTA b mod ctas); ``smem`` bytes of shared memory
+    a CTA."""
+    ctas: int
+    units: int
+    rows: int
+    per_cta: int
+    smem: int
+    reps: int = 1
+
+
+GRID_REPS = (2, 1)   # the runs rnn_grid_route tries, in turn
+
+
+def rnn_grid_route(B: int, K: int, C: int, V: int, nl: int, E: int, H: int,
+                   sms: int = build.SMS) -> RnnGrid | None:
+    """K9's route for B utterances at beam K over C candidate lanes of a
+    vocabulary V, with an LM of ``nl`` layers, embedding E and width H, on a
+    card of ``sms`` SMs: the co-resident grid where it fits, else None (the
+    block kernel).
+
+    For R in GRID_REPS, in turn: R runs of sms // R SMs each hold every
+    unit's columns, ``units`` = ceil(H / (sms // R)) a CTA, ``ctas`` = R
+    ceil(H / units); ``per_cta`` = ceil(B / ctas); ``rows`` is every beam of
+    the batch (B K) where they fit, else as many as fit; the first R whose
+    CTA (``rnn_grid_smem_bytes`` with at least K rows) is within MAX_SMEM,
+    with an LM of 1..MAX_LM_LAYERS layers, is the grid.  More runs stage
+    fewer rows a CTA from L2 for more columns.  E does not enter: layer 0's
+    input product is a (V, 4 units) table.  A pure function of the shapes
+    and the card, decided before the launch."""
+    if not 1 <= nl <= MAX_LM_LAYERS or B < 1 or K < 1:
+        return None
+    for R in GRID_REPS:
+        if sms // R < 1:
+            continue
+        units = -(-H // (sms // R))
+        ctas = R * -(-H // units)
+        per_cta = -(-B // ctas)
+        base = rnn_grid_smem_bytes(B, K, C, V, nl, H, units, 0, per_cta)
+        per_row = 4 * _up(2 * H, 4) + 16 + 4 * units
+        rows = min(B * K, (MAX_SMEM - base) // per_row)
+        while rows >= K and rnn_grid_smem_bytes(B, K, C, V, nl, H, units, rows,
+                                                per_cta) > MAX_SMEM:
+            rows -= 1     # the 16-byte rounding of the shared part
+        if rows >= K:
+            return RnnGrid(ctas, units, rows, per_cta,
+                           rnn_grid_smem_bytes(B, K, C, V, nl, H, units, rows, per_cta), R)
+    return None
+
+
 def merge_smem_bytes(Ks: int, nb: int) -> int:
     """Shared memory of one K10 block, as ``csrc/prefix_beam.cu`` lays it out."""
     N = Ks + Ks * nb
@@ -158,10 +242,27 @@ def _lm_tensors(rnn_lm, h0, c0, lmp0, V: int) -> dict:
     return out
 
 
+def _trace_check(name: str, trace, rows: int, cols: int, dev) -> None:
+    if trace is not None and (tuple(trace.shape) != (rows, cols) or trace.dtype != torch.int64
+                              or trace.device != dev or not trace.is_contiguous()):
+        raise ValueError(f"{name}: trace must be contiguous ({rows}, {cols}) int64 on {dev}")
+
+
+def _outputs_of(B: int, T: int, K: int, L: int, dev):
+    """(parents, appends (B, T, K) int32 scratch, then ``_outputs``)."""
+    parents = torch.empty((B, T, K), dtype=torch.int32, device=dev)
+    return (parents, torch.empty_like(parents), *_outputs(B, L, dev))
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max_len: int,
                 lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
                 lm_beta: float = 0.0, top_val: torch.Tensor | None = None,
-                top_idx: torch.Tensor | None = None):
+                top_idx: torch.Tensor | None = None, rounds: bool = False,
+                trace: torch.Tensor | None = None):
     """Prefix beam search over log-probs ``logp`` (B, T, V) float32 with
     lengths ``logit_len`` (B,) int32 and, optionally, a dense LM table
     (n_ctx, V) float32 fused as ``lm_alpha * row + lm_beta`` a char.  With
@@ -170,7 +271,12 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
     lengths (B,) int32, scores (B,) float32) of the best beam of each row.
     Where a block's working set does not fit its shared memory (``fits``)
     it lies in a device scratch this wrapper allocates, counted under
-    ``<name>_wide``."""
+    ``<name>_wide``.  ``rounds``, for measurement only (no decode
+    path sets it), runs the frame as it was before the warp-sorted
+    selection (its row loaded behind a barrier, K rounds of a block
+    argmax), the same picks; ``trace``, a
+    (T, 7) int64 tensor on the card, receives block 0's clocks of each
+    frame (``csrc/prefix_beam.cu::search_frame``)."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha,
                                      lm_beta, top_val, top_idx)
@@ -178,21 +284,18 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
     K, L = beam_size, max_len
     C = _check(logp, logit_len, lm_table, top_val, top_idx, K, L)
     dev = logp.device
+    _trace_check("prefix_beam", trace, T, 7, dev)
     scratch = None if fits(K, C, V) else _scratch(B, scratch_bytes(K, C, V), dev)
-    parents = torch.empty((B, T, K), dtype=torch.int32, device=dev)
-    appends = torch.empty_like(parents)
-    tokens = torch.empty((B, L), dtype=torch.int32, device=dev)
-    lengths = torch.empty((B,), dtype=torch.int32, device=dev)
-    scores = torch.empty((B,), dtype=torch.float32, device=dev)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    parents, appends, tokens, lengths, scores = _outputs_of(B, T, K, L, dev)
     lib = build.load("prefix_beam", _SIGNATURES)
     name = ("prefix_beam_topa" if top_idx is not None else "prefix_beam") + (
         "_wide" if scratch is not None else "")
     build.check(lib.prefix_beam(
-        logp.data_ptr(), ptr(top_val), ptr(top_idx), logit_len.data_ptr(), ptr(lm_table),
+        logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(), _ptr(lm_table),
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
         scores.data_ptr(), B, T, V, K, C, L, lm_table.shape[0] if lm_table is not None else 1,
-        lm_alpha, lm_beta, ptr(scratch), torch.cuda.current_stream(dev).cuda_stream), name)
+        lm_alpha, lm_beta, _ptr(scratch), int(rounds), _ptr(trace),
+        torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores
 
@@ -209,17 +312,38 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     extension by c scores ``lm_alpha * logP(c | prefix) + lm_beta``.  With
     ``top_val``/``top_idx`` (B, T, A) the extensions are each frame's top-A
     chars, else all chars.  Returns (tokens (B, max_len) int32, lengths (B,)
-    int32, scores (B,) float32) of the best beam of each row.  Each block
-    keeps its working set in shared memory; where the beams' LM state does
-    not fit beside the search, that state lies in a device scratch this
-    wrapper allocates; and where the rest does not fit either (the LM
-    step's packed inputs, K x (max(E, H) + H) floats, past the block's
-    shared memory, or K > MAX_BEAM: ``fits``), all of it does, counted under
-    ``<name>_wide``.  It raises ``ValueError`` past MAX_LM_LAYERS layers."""
+    int32, scores (B,) float32) of the best beam of each row.  It runs on
+    the co-resident grid where ``rnn_grid_route`` finds the shapes fit, else
+    in the block kernel (``rnn_on_route``).  It raises ``ValueError`` past
+    MAX_LM_LAYERS layers."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, None, lm_alpha,
                                      lm_beta, top_val, top_idx, rnn_lm=rnn_lm,
                                      lm_state=(h0, c0, lmp0))
+    cfg = rnn_lm.cfg
+    C = top_idx.shape[-1] if top_idx is not None else logp.shape[-1]
+    route = rnn_grid_route(logp.shape[0], beam_size, C, logp.shape[-1], cfg.num_layers,
+                           cfg.embed_dim, cfg.hidden_dim, build.sm_count(logp.device.index))
+    return rnn_on_route(route, logp, logit_len, beam_size, max_len, rnn_lm, h0, c0, lmp0,
+                        lm_alpha, lm_beta, top_val, top_idx)
+
+
+def rnn_on_route(route: RnnGrid | None, logp: torch.Tensor, logit_len: torch.Tensor,
+                 beam_size: int, max_len: int, rnn_lm, h0: torch.Tensor, c0: torch.Tensor,
+                 lmp0: torch.Tensor, lm_alpha: float, lm_beta: float,
+                 top_val: torch.Tensor | None = None, top_idx: torch.Tensor | None = None,
+                 trace: torch.Tensor | None = None):
+    """``prefix_beam_rnn`` on CUDA tensors along the route given: K9 on the
+    grid ``route`` (an ``RnnGrid``: one cooperative launch, which raises
+    where the grid cannot be resident at once), counted as
+    ``prefix_beam_rnn`` (``..._topa``), with ``trace`` a (T, 5 + 3 layers)
+    int64 tensor for CTA 0's clocks of each frame; or for None the block
+    kernel: its working set in shared memory, or the beams' LM state in a
+    device scratch where it does not fit beside the search, counted as
+    ``prefix_beam_rnn_block`` (``..._topa_block``); or where the rest does
+    not fit either (the LM step's packed inputs, K x (max(E, H) + H) floats,
+    past the block's shared memory, or K > MAX_BEAM: ``fits``) all of it in
+    a device scratch, counted as ``prefix_beam_rnn_wide`` (``..._topa_wide``)."""
     B, T, V = logp.shape
     K, L = beam_size, max_len
     cfg = rnn_lm.cfg
@@ -229,28 +353,35 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     if not 1 <= nl <= MAX_LM_LAYERS:
         raise ValueError(f"prefix_beam_rnn: {nl} LM layers; the kernel takes 1..{MAX_LM_LAYERS}")
     dev = logp.device
-    place, scratch = SHARED, None
-    if not fits(K, C, V, (nl, E, H)):
-        place, scratch = IN_SCRATCH, _scratch(B, scratch_bytes(K, C, V, (nl, E, H)), dev)
-    elif rnn_smem_bytes(K, C, V, nl, E, H) > MAX_SMEM:
-        place = LM_STATE_IN_SCRATCH
-        scratch = torch.empty((B, lm_state_floats(K, V, nl, H)), dtype=torch.float32,
-                              device=dev)
-    parents = torch.empty((B, T, K), dtype=torch.int32, device=dev)
-    appends = torch.empty_like(parents)
-    tokens = torch.empty((B, L), dtype=torch.int32, device=dev)
-    lengths = torch.empty((B,), dtype=torch.int32, device=dev)
-    scores = torch.empty((B,), dtype=torch.float32, device=dev)
+    if trace is not None and route is None:
+        raise ValueError("prefix_beam_rnn: a trace is taken on the grid route only")
+    _trace_check("prefix_beam_rnn", trace, T, 5 + 3 * nl, dev)
+    parents, appends, tokens, lengths, scores = _outputs_of(B, T, K, L, dev)
     weights = (_P * len(lm))(*(t.data_ptr() for t, _ in lm.values()))
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = build.load("prefix_beam", _SIGNATURES)
-    name = ("prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn") + (
-        "_wide" if place == IN_SCRATCH else "")
-    build.check(lib.prefix_beam_rnn(
-        logp.data_ptr(), ptr(top_val), ptr(top_idx), logit_len.data_ptr(), weights, nl, E, H,
-        parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
-        scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta, ptr(scratch), place,
-        torch.cuda.current_stream(dev).cuda_stream), name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = "prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn"
+    common = (logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(), weights, nl,
+              E, H, parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(),
+              lengths.data_ptr(), scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta)
+    if route is not None:
+        state = torch.empty((4 * B * K * nl * H,), dtype=torch.float32, device=dev)
+        rows = torch.empty((4 * B * K,), dtype=torch.int32, device=dev)
+        sync = torch.zeros((3,), dtype=torch.int32, device=dev)
+        build.check(lib.prefix_beam_rnn_grid(
+            *common, state.data_ptr(), rows.data_ptr(), sync.data_ptr(), _ptr(trace),
+            route.ctas, route.units, route.rows, route.per_cta, route.reps, route.smem, stream),
+            name)
+    else:
+        place, scratch = SHARED, None
+        if not fits(K, C, V, (nl, E, H)):
+            place, scratch = IN_SCRATCH, _scratch(B, scratch_bytes(K, C, V, (nl, E, H)), dev)
+        elif rnn_smem_bytes(K, C, V, nl, E, H) > MAX_SMEM:
+            place = LM_STATE_IN_SCRATCH
+            scratch = torch.empty((B, lm_state_floats(K, V, nl, H)), dtype=torch.float32,
+                                  device=dev)
+        name += "_wide" if place == IN_SCRATCH else "_block"
+        build.check(lib.prefix_beam_rnn(*common, _ptr(scratch), place, stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores
 

@@ -3,20 +3,24 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, on first use, and loaded with
 ``ctypes``.  Libraries go to ``pytorch_asr_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and flags, so
-an edited source is rebuilt and never mixed up with an old build.
+``.gitignore``) under a name that carries a hash of the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and never mixed up with an old build.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the CUDA
 kernel (a CPU tensor takes the plain version and is not counted).  A route
 chosen from the shapes for CUDA tensors counts under its own name: the
 LSTM's wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide`` and the rest,
-the per-utterance kernel) and the beam kernels past a block's shared memory
-(``prefix_beam_wide`` and the rest, their working set in a device scratch).
+the per-utterance kernel), the beam kernels past a block's shared memory
+(``prefix_beam_wide`` and the rest, their working set in a device scratch),
+and K9 past its co-resident grid (``prefix_beam_rnn_block`` and its
+``_topa`` form, a block an utterance).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,11 +43,22 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "lstm_seq_train_wide": 0, "lstm_seq_bwd_wide": 0, "bilstm_seq_wide": 0,
                             "bilstm_seq_train_wide": 0, "prefix_beam_wide": 0,
                             "prefix_beam_topa_wide": 0, "prefix_beam_rnn_wide": 0,
-                            "prefix_beam_rnn_topa_wide": 0,
+                            "prefix_beam_rnn_topa_wide": 0, "prefix_beam_rnn_block": 0,
+                            "prefix_beam_rnn_topa_block": 0,
                             "ctc_alpha_paired": 0, "prefix_beam_fused": 0,
                             "prefix_beam_stepwise": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+SMS = 132    # the H100 SXM's SMs: the grid routes' default card
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of card ``index``: what every co-resident grid's route is
+    sized by before its launch."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -63,8 +78,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -30,7 +30,6 @@ bit-equality oracle, under a count of its own; no op calls it.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -48,7 +47,7 @@ _SIGNATURES = {"lstm_seq_fwd": [_P] * 10 + [_I] * 11 + [_P],
                "lstm_seq_per_utterance": [_P] * 9 + [_I] * 9 + [_P],
                "bilstm_seq_bwd": [_P] * 14 + [_I] * 6 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
-SMS = 132                      # the H100 SXM's SMs
+SMS = build.SMS
 SMEM_PER_BLOCK = 232448        # shared memory a Hopper block can opt in to, bytes
 # The wide route's launch counts: (inference, training forward) by directions.
 WIDE = {1: ("lstm_seq_wide", "lstm_seq_train_wide"),
@@ -181,11 +180,6 @@ def backward_route(H: int, B: int, sms: int = SMS,
         return grid
     _check_per_utterance_fits(H, smem)
     return None
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _projection(x, wih, bias):
@@ -345,7 +339,7 @@ def _forward(dirs: int, x, wih, whh, bias, lengths, reverse, out_dtype, residual
     grid where ``forward_route`` gives one, else the wide route."""
     out_dtype = out_dtype or torch.float32
     (_check_dual_args if dirs == 2 else _check_cuda_args)(x, wih, whh, bias, lengths, out_dtype)
-    grid = forward_route(whh.shape[-2], max(x.shape[0], 1), _sm_count(x.device.index), dirs)
+    grid = forward_route(whh.shape[-2], max(x.shape[0], 1), build.sm_count(x.device.index), dirs)
     if grid is None:
         return _per_utterance(dirs, WIDE[dirs][residual_dtype is not None], x, wih, whh, bias,
                               lengths, reverse, out_dtype, residual_dtype)
@@ -395,7 +389,7 @@ def _launch_grid(grid, dirs: int, x, wih, whh, bias, lengths, reverse, out_dtype
     out, acts, ct = _outputs(dirs, x, H, out_dtype, residual_dtype)
     if B == 0 or T == 0:
         return (out, acts, ct) if train else out
-    grid = grid or recurrence_grid(H, B, _sm_count(x.device.index), directions=dirs)
+    grid = grid or recurrence_grid(H, B, build.sm_count(x.device.index), directions=dirs)
     if grid.hidden != H or grid.directions != dirs:
         raise ValueError(f"lstm_seq: a grid for H {grid.hidden} and {grid.directions} "
                          f"direction(s), not H {H} and {dirs}")
@@ -426,7 +420,7 @@ def lstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct, reverse: bool = False):
     the grid, or past it the per-utterance kernel (``backward_on_route``)."""
     if x.device.type == "cpu":
         return lstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct, reverse)
-    route = backward_route(whh.shape[0], max(x.shape[0], 1), _sm_count(x.device.index))
+    route = backward_route(whh.shape[0], max(x.shape[0], 1), build.sm_count(x.device.index))
     return backward_on_route(route, gy, x, wih, whh, lengths, acts, ct, reverse)
 
 

@@ -401,14 +401,14 @@ def test_ctc_loss_and_grad_match_plain(cuda):
     assert loss[1] == 0 and loss[2] == 0 and not a.grad[1].any() and not a.grad[2].any()
 
 
-def _beam_case(device, seed, B=4, T=60, V=31, planted=True):
+def _beam_case(device, seed, B=4, T=60, V=31, planted=True, gain=4.0):
     rng = np.random.default_rng(seed)
     logits = rng.standard_normal((B, T, V)).astype(np.float32) * 2
     if planted:
         path = rng.integers(0, V, size=(B, T))
         for b in range(B):
-            logits[b, np.arange(T), path[b]] += 4.0
-    lens = np.array([T, T - 13, 0, T // 3][:B], np.int32)
+            logits[b, np.arange(T), path[b]] += gain
+    lens = np.array(([T, T - 13, 0, T // 3] * -(-B // 4))[:B], np.int32)
     table = rng.standard_normal((V * V, V)).astype(np.float32)
     table -= np.log(np.exp(table).sum(1, keepdims=True))
     return (torch.from_numpy(logits).to(device), torch.from_numpy(lens).to(device),
@@ -472,17 +472,20 @@ def test_prefix_beam_search_past_a_block_runs_in_scratch(cuda, K, A):
 @pytest.mark.parametrize("A", [0, 8])
 @pytest.mark.parametrize("rnn", [False, True])
 def test_prefix_beam_scratch_form_gives_the_shared_forms_bits(cuda, monkeypatch, A, rnn):
-    """At beam 8, where both run, K7/K8 (with a dense table) and K9 with
-    their working set in a device scratch (forced) equal the shared form
-    bit for bit, scores included: the same code in the same order."""
+    """At beam 8, where both run, K7/K8 (with a dense table) and K9's block
+    kernel (its grid route forced off) with their working set in a device
+    scratch (forced) equal the shared form bit for bit, scores included:
+    the same code in the same order."""
     logits, lens, table = _beam_case(cuda, 3)
     kw = dict(beam_size=8, max_len=32, ext_top_a=A, lm_alpha=0.5, lm_beta=1.0)
     kw.update(dict(rnn_lm=_rnn_lm(cuda, 2), sos_id=29) if rnn else dict(lm_table=table))
     name = ("prefix_beam_rnn" if rnn else "prefix_beam") + ("_topa" if A else "")
+    monkeypatch.setattr(beam_cuda, "rnn_grid_route", lambda *args, **kwargs: None)
     build.reset_launches()
     shared = prefix_beam.prefix_beam_search(logits, lens, **kw)
     torch.cuda.synchronize()
-    assert {k: v for k, v in build.LAUNCHES.items() if v} == {name: 1}
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        name + ("_block" if rnn else ""): 1}
     monkeypatch.setattr(beam_cuda, "fits", lambda *args, **kwargs: False)
     build.reset_launches()
     scratch = prefix_beam.prefix_beam_search(logits, lens, **kw)
@@ -574,17 +577,23 @@ def test_prefix_beam_rnn_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("E,H,nl,K", [(128, 512, 2, 16), (128, 256, 3, 16), (128, 256, 2, 32)])
 def test_prefix_beam_rnn_kernel_past_shared_memory(cuda, E, H, nl, K):
     """LMs whose state does not fit a block's shared memory beside the
-    search (H 512, 3 layers, beam 32 with the default widths): K9 keeps it
-    in a device scratch and matches the plain search on planted paths."""
+    search (H 512, 3 layers, beam 32 with the default widths): K9 runs on
+    the grid where its route fits (3 layers, beam 32), else its block kernel
+    keeps the state in a device scratch (H 512); both match the plain search
+    on planted paths."""
     assert beam_cuda.rnn_smem_bytes(K, 31, 31, nl, E, H) > beam_cuda.MAX_SMEM
     logits, lens, _ = _beam_case(cuda, 6, B=3, T=40)
     kw = dict(beam_size=K, max_len=24, rnn_lm=_rnn_lm(cuda, nl, E, H), sos_id=29,
               lm_alpha=0.5, lm_beta=1.0)
     for A in (0, 8):
+        grid = beam_cuda.rnn_grid_route(3, K, A or 31, 31, nl, E, H, build.sm_count(0))
+        assert (grid is None) == (H == 512)
         build.reset_launches()
         got = prefix_beam.prefix_beam_search(logits, lens, ext_top_a=A, **kw)
         torch.cuda.synchronize()
-        assert build.LAUNCHES["prefix_beam_rnn_topa" if A else "prefix_beam_rnn"] == 1
+        name = ("prefix_beam_rnn_topa" if A else "prefix_beam_rnn") + (
+            "_block" if grid is None else "")
+        assert {k: v for k, v in build.LAUNCHES.items() if v} == {name: 1}
         want = prefix_beam.prefix_beam_search_plain(logits, lens, ext_top_a=A, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
         torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
@@ -609,6 +618,189 @@ def test_prefix_beam_rnn_search_past_a_block_runs_in_scratch(cuda, A):
     want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
     torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl", [1, 2, 3])
+@pytest.mark.parametrize("A", [0, 8])
+@pytest.mark.parametrize("B", [1, 16, 33])
+def test_prefix_beam_rnn_grid_matches_plain(cuda, B, A, nl):
+    """K9 on the co-resident grid (an LM of H 32: runs of 32 CTAs of one
+    unit) against the plain search: B 1, 16 and 33 (past one run's CTAs),
+    1-3 layers, over all chars and
+    the top 8, planted paths, ragged rows and an empty one: tokens and
+    lengths exact, scores within RNN_RTOL / RNN_ATOL.  The inputs are made
+    decisive, as the exactness needs: max_len is above the frames (beams at
+    max_len only stay, their candidates tie to the last ulps, and the LM's
+    rounding would decide), and the path is planted at +8 (at +4 one of the
+    33 rows over the top 8 is a selection that a float64 search decides by
+    4e-7, below float32's resolution: the next test holds +4 to that)."""
+    logits, lens, _ = _beam_case(cuda, 21, B=B, T=40, gain=8.0)
+    lens[-1] = 0 if B > 1 else lens[-1]
+    lm = _rnn_lm(cuda, nl)
+    grid = beam_cuda.rnn_grid_route(B, 8, A or 31, 31, nl, 16, 32, build.sm_count(0))
+    assert grid is not None and grid.per_cta == (2 if B > grid.ctas else 1)
+    kw = dict(beam_size=8, max_len=48, ext_top_a=A, rnn_lm=lm, sos_id=29, lm_alpha=0.5,
+              lm_beta=1.0)
+    build.reset_launches()
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        "prefix_beam_rnn_topa" if A else "prefix_beam_rnn": 1}
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+    if B > 1:
+        assert got[1][-1] == 0 and got[2][-1] == 0
+    assert got[1][0] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl", [1, 2, 3])
+@pytest.mark.parametrize("A", [0, 8])
+@pytest.mark.parametrize("B,L", [(1, 24), (33, 24), (33, 48)])
+def test_prefix_beam_rnn_grid_parts_from_a_float64_search_only_at_a_near_tie(cuda, B, L, A,
+                                                                            nl):
+    """The inputs of ``test_prefix_beam_rnn_grid_matches_plain`` with the
+    path planted at +4 only: a row where the grid's tokens or lengths differ
+    from the plain search run in float64 (``scripts/rnn_grid_witness.py``)
+    must be one where that search kept a candidate over the first one cut
+    by a margin below float32's resolution at these scores (an ulp of 32 is
+    3.8e-6) at some frame: a near-tie, not a wrong step."""
+    from pytorch_asr_tpu_torch.scripts import rnn_grid_witness as witness
+
+    logits, lens = witness.case_inputs(B, 4.0, cuda)
+    lm = witness.case_lm(nl, cuda)
+    got = prefix_beam.prefix_beam_search(logits, lens, beam_size=witness.K, max_len=L,
+                                         ext_top_a=A, rnn_lm=lm, sos_id=witness.SOS,
+                                         lm_alpha=witness.ALPHA, lm_beta=witness.BETA)
+    want = witness.plain64(logits, lens, A, L, lm)
+    differ = witness.rows_differing(got, want)
+    same = [r for r in range(B) if r not in differ]
+    torch.testing.assert_close(got[2][same].double(), want[2][same], rtol=RNN_RTOL,
+                               atol=RNN_ATOL)
+    for r in differ:
+        with witness.margins_recorded() as margins:
+            witness.plain64(logits[r:r + 1], lens[r:r + 1], A, L, lm)
+        smallest = torch.stack(margins)[: int(lens[r]), 0].min().item()
+        assert smallest < 3.8e-6, (r, smallest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [0, 8])
+def test_prefix_beam_rnn_grid_at_the_default_lm(cuda, A):
+    """The default LM's widths (E 128, H 256, 2 layers: 128 CTAs of 2
+    units) at beam 16 on 16 planted rows."""
+    logits, lens, _ = _beam_case(cuda, 22, B=16, T=48)
+    lm = _rnn_lm(cuda, 2, 128, 256)
+    assert beam_cuda.rnn_grid_route(16, 16, A or 31, 31, 2, 128, 256, build.sm_count(0)) is not None
+    kw = dict(beam_size=16, max_len=64, ext_top_a=A, rnn_lm=lm, sos_id=29, lm_alpha=0.5,
+              lm_beta=1.0)
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+    torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+@pytest.mark.cuda
+def test_prefix_beam_rnn_grid_at_a_width_not_a_multiple_of_4(cuda):
+    """H 30 (E 12, 2 layers): the grid stages its rows by 4-byte copies."""
+    logits, lens, _ = _beam_case(cuda, 27, B=5, T=40, gain=8.0)
+    kw = dict(beam_size=8, max_len=48, rnn_lm=_rnn_lm(cuda, 2, 12, 30), sos_id=29,
+              lm_alpha=0.5, lm_beta=1.0)
+    assert beam_cuda.rnn_grid_route(5, 8, 31, 31, 2, 12, 30, build.sm_count(0)) is not None
+    build.reset_launches()
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"prefix_beam_rnn": 1}
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+    torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [0, 8])
+def test_prefix_beam_rnn_block_kernel_forced_gives_the_grids_tokens(cuda, monkeypatch, A):
+    """With the route forced to None, K9 runs its block kernel, counted as
+    ``prefix_beam_rnn_block``, and gives the grid's tokens and lengths."""
+    logits, lens, _ = _beam_case(cuda, 23, B=8, T=40)
+    kw = dict(beam_size=8, max_len=48, ext_top_a=A, rnn_lm=_rnn_lm(cuda, 2), sos_id=29,
+              lm_alpha=0.5, lm_beta=1.0)
+    grid = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    monkeypatch.setattr(beam_cuda, "rnn_grid_route", lambda *args, **kwargs: None)
+    build.reset_launches()
+    block = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        "prefix_beam_rnn_topa_block" if A else "prefix_beam_rnn_block": 1}
+    assert all(torch.equal(a, b) for a, b in zip(block[:2], grid[:2]))
+    torch.testing.assert_close(block[2], grid[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+def _rnn_args(device, B=4, T=30, K=8, nl=2, E=16, H=32):
+    logits, lens, _ = _beam_case(device, 24, B=B, T=T)
+    lm = _rnn_lm(device, nl, E, H)
+    logp = torch.log_softmax(logits, -1).contiguous()
+    return (logp, lens, K, 48, lm, *prefix_beam.primed_lm_state(lm, 29), 0.5, 1.0)
+
+
+@pytest.mark.cuda
+def test_prefix_beam_rnn_grid_trace_and_a_grid_that_cannot_launch(cuda):
+    """The trace records CTA 0's frames in order; a grid of more CTAs than
+    the card holds at once (256 CTAs of a whole block's shared memory) fails
+    its cooperative launch and raises, and leaves no error behind: the next
+    launch runs and gives the route's result."""
+    args = _rnn_args(cuda, nl=2, E=16, H=256)
+    logp, lens, K, L, lm = args[:5]
+    route = beam_cuda.rnn_grid_route(4, K, 31, 31, 2, 16, 256, build.sm_count(0))
+    trace = torch.zeros((logp.shape[1], 11), dtype=torch.int64, device=cuda)
+    want = beam_cuda.rnn_on_route(route, *args, trace=trace)
+    torch.cuda.synchronize()
+    frames = int(lens.max())
+    tr = trace[:frames].cpu()
+    assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:] >= tr[:, 1:-1]).all())
+    assert not trace[frames:].any()
+    too_many = route._replace(ctas=256, units=1, smem=beam_cuda.MAX_SMEM)
+    with pytest.raises(RuntimeError, match="prefix_beam_rnn"):
+        beam_cuda.rnn_on_route(too_many, *args)
+        torch.cuda.synchronize()
+    got = beam_cuda.prefix_beam_rnn(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,A,T", [(16, 0, 60), (16, 8, 60), (400, 0, 20), (1100, 4, 16)])
+def test_prefix_beam_sorted_selection_equals_the_rounds(cuda, K, A, T):
+    """K7 and K8's frame (the row prefetched, warp-sorted selection) against
+    the frame as it was (``rounds``: K rounds of a block argmax) and the
+    plain search, bit for bit: at beam 16 with the 4-gram-sized table, at
+    400 (in scratch) and over the top 4 at 1100 (more beams than threads)."""
+    logits, lens, table = _beam_case(cuda, 25, B=4 if K == 16 else 2, T=T)
+    logp, (tv, ti) = prefix_beam._prepare(logits, A)
+    lm = table if K == 16 else None
+    args = (logp, lens, K, 24, lm, 0.5 if lm is not None else 0.0,
+            1.0 if lm is not None else 0.0, tv, ti)
+    new = beam_cuda.prefix_beam(*args)
+    old = beam_cuda.prefix_beam(*args, rounds=True)
+    want = prefix_beam.beam_scan_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(new, old))
+    assert all(torch.equal(a, b) for a, b in zip(new[:2], want[:2]))
+    torch.testing.assert_close(new[2], want[2], rtol=BEAM_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [False, True])
+def test_prefix_beam_trace_runs(cuda, rounds):
+    """Block 0's trace of each frame: the global clock rises frame to frame
+    and each frame's phase clocks rise in order."""
+    logits, lens, table = _beam_case(cuda, 26)
+    logp = torch.log_softmax(logits, -1).contiguous()
+    trace = torch.zeros((logp.shape[1], 7), dtype=torch.int64, device=cuda)
+    beam_cuda.prefix_beam(logp, lens, 16, 24, table, 0.5, 1.0, rounds=rounds, trace=trace)
+    torch.cuda.synchronize()
+    tr = trace[: int(lens[0])].cpu()
+    assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:] >= tr[:, 1:-1]).all())
 
 
 def _merge_case(device, P: int, frames: int, table: bool, seed: int = 7):

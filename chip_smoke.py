@@ -27,9 +27,8 @@ result line):
   7. config 2's serving path, ``ctc_bilstm_beam_lm``: build a 4-gram LM with
      the port's ``train_ngram`` (set-up); hold the prefix beam search kernels
      K7 and K8 against the plain search on the card at the path's shapes
-     (planted and model log-probs, with and without the LM) and time them in
-     turns with the frame as it was (``rounds``, the same bits), printing
-     block 0's frame split;
+     (planted and model log-probs, with and without the LM) and time them,
+     printing block 0's frame split;
      drive ``decode.main`` with ``decode.lm_path`` at full width, once over
      all chars (K7) and once with ``decode.ext_top_a=8`` (K8), counting
      launches; profile one of its batches;
@@ -64,8 +63,10 @@ result line):
      the wide routes, which no configuration reaches: config 1 at
      ``model.encoder.hidden_dim=1536`` (past the co-resident grid) through
      ``decode.main`` and one step of ``train.main`` on the per-utterance
-     LSTM kernel, and a beam-400 search (past a block) as the plain search
-     on the card, each with its own counts;
+     LSTM kernel, a beam-400 search and K9 at beam 64 (past a block), and
+     K13 at beam 32 with max_len 1024 and K12 at beam 32 over 1024 chars
+     (past a block: the study kernels' in-scratch form), each with its own
+     counts and held to the plain search on the card;
      then ``decode.main ... decode.shard_beams=true`` in ranks spawned on
      the one card over gloo, each with its launch counters set to 0 just
      before and read just after: 2 ranks at model axis 2 and 4 ranks at
@@ -85,7 +86,9 @@ result line):
      ``train.main`` with ``ops.ctc_cuda.PAIRED_FWD`` set, with counts; K13
      and K12, the search with its tokens in the block and the search as a
      launch a frame, bit for bit against the plain search at K7's shape and
-     at the scripts' (K12's pointers and state too), timed beside K7; then
+     at the scripts' (K12's pointers and state too), timed in turns beside
+     K7 at both shapes, with block 0's frame split (their traces) and K12's
+     launch share of a frame (event time less device time); then
      the ported benchmark scripts
      ``bench_prefix_beam fused=1`` and ``bench_beam_compile stepwise=1`` at
      their default widths, with counts;
@@ -241,10 +244,14 @@ SIMT_GEMM = re.compile(r"(^|[^\w])gemm_kernel<")
 # of H 512 (WIDE_LM); and K9's block form, past its grid.  No main path
 # takes any of them.
 WIDE_H, WIDE_SEARCH_BEAM, WIDE_RNN_BEAM = 1536, 400, 64
+# K13 at beam 32 with max_len 1024 (token buffers of 256 KB a block) and K12
+# at beam 32 over 1024 chars (frame arrays of ~420 KB), on T_WIDE_STUDY
+# frames: past a block's shared memory, so the study kernels' in-scratch form.
+WIDE_STUDY_BEAM, WIDE_STUDY_L, WIDE_STUDY_V, T_WIDE_STUDY = 32, 1024, 1024, 200
 WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "lstm_seq_bwd_wide", "bilstm_seq_wide",
                "bilstm_seq_train_wide", "prefix_beam_wide", "prefix_beam_topa_wide",
                "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide", "prefix_beam_rnn_block",
-               "prefix_beam_rnn_topa_block")
+               "prefix_beam_rnn_topa_block", "prefix_beam_fused_wide", "prefix_beam_stepwise_wide")
 # K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
 # seed) at beam 16, and the trained default LM at beam 32.
 WIDE_LM, WIDE_BEAM = RNNLMConfig(embed_dim=128, hidden_dim=512, num_layers=2), 32
@@ -389,6 +396,21 @@ def search_bound(frames: int, K: int, C: int, V: int, A: int, B: int, L: int,
     nbytes = (4 * V * frames + 8 * A * frames + extra_bytes + 8 * K * frames + 4 * B
               + 4 * B * L + 8 * B)
     ops = frames * (12 * K * C + 3 * K ** 2 + (K + K * C) * math.log2(max(K, 2))) + lm_ops
+    return bound(nbytes, ops / PEAK_FP32_S)
+
+
+def study_bound(frames: int, B: int, T: int, K: int, V: int, L: int,
+                stepwise: bool) -> tuple[float, str]:
+    """``bound`` of K13 or (``stepwise``) K12 over ``frames`` valid frames
+    at beam K over V - 1 lanes.  Bytes: logp of the valid frames, the
+    outputs and, for K12, its 5 state fields read and written a frame and
+    the (B, T, K) pointers written (K13's token copy moves on-chip memory
+    and is no operation).  Operations as ``search_bound``'s."""
+    C = V - 1
+    nbytes = 4 * V * frames + 4 * B * L + 8 * B
+    if stepwise:
+        nbytes += 40 * K * frames + 8 * B * T * K
+    ops = frames * (12 * K * C + 3 * K ** 2 + (K + K * C) * math.log2(max(K, 2)))
     return bound(nbytes, ops / PEAK_FP32_S)
 
 
@@ -1169,6 +1191,40 @@ def train_paired_phase() -> dict:
     return {"record": last, "wall_s": wall, "launches": launches}
 
 
+K13_PHASES = ("row", "extend", "absorb", "select", "picks", "copy")
+K12_PHASES = ("wait", "row", "extend", "absorb", "select", "picks")
+
+
+def launch_split(trace: torch.Tensor) -> dict:
+    """K12's frames from its (T, 9) trace: block 0 of each launch, which may
+    run on another SM each frame, so the clock rate comes from each frame's
+    own span (its clocks over its global-clock span, summed); the median
+    µs of each phase (``K12_PHASES``), the median global-clock time from
+    one frame's start to the next's, and from a frame's end to the next
+    frame's start (negative where the next frame's blocks started while the
+    last frame ran: programmatic dependent launch)."""
+    tr = trace.cpu().numpy().astype(np.float64)
+    tr = tr[tr[:, 0] != 0]
+    check(len(tr) > 1, "K12 trace: fewer than two frames written")
+    ghz = (tr[:, 7] - tr[:, 1]).sum() / (tr[:, 8] - tr[:, 0]).sum()
+    return {"frames": len(tr), "trace_clock_ghz": ghz,
+            "frame_us_median": float(np.median(tr[1:, 0] - tr[:-1, 0])) / 1e3,
+            "next_start_after_end_us_median": float(np.median(tr[1:, 0] - tr[:-1, 8])) / 1e3,
+            "us_median": {n: float(np.median(tr[:, i + 2] - tr[:, i + 1])) / ghz / 1e3
+                          for i, n in enumerate(K12_PHASES)}}
+
+
+def in_turns(fns: dict, reps: int = 5, inner: int = 4) -> dict:
+    """Each of ``fns`` ({name: call}) timed with ``time_ms`` in turns, a b b
+    a: {name: [ms, ms]}."""
+    names = list(fns)
+    order = names + names[::-1]
+    out = {n: [] for n in names}
+    for n in order:
+        out[n].append(time_ms(fns[n], reps, inner, 1))
+    return out
+
+
 def study_beam_phase() -> list[dict]:
     """K13 (tokens carried) and K12 (a launch a frame), K 16, L 256, at two
     shapes: K7's row shape, config 2's random-weight model logits for 16
@@ -1178,8 +1234,10 @@ def study_beam_phase() -> list[dict]:
     full-buffer path: appends dropped, dead fillers from full beams, the
     backtrace capped at L).  Tokens, lengths and scores bit for bit against
     the plain search, and K12's pointers of every frame and its last state
-    against the plain frames.  Timed beside K7 on the model's logits; K12
-    also by the profiler's device time of its frame kernel."""
+    against the plain frames.  Both kernels are timed in turns at each shape
+    beside K7, with block 0's frame split (their traces, at K7's shape);
+    K12 also by the profiler's device time of its frame kernel, whose
+    difference to the event time a frame is the launch's share of a frame."""
     cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
                               "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1"})
     logits, lens = cfg2_batch_logits(cfg)
@@ -1231,40 +1289,53 @@ def study_beam_phase() -> list[dict]:
                              + (f" from frame {int(bad[0])}" if f in ("parent", "append")
                                 else " after the last frame"))
         cases["prefix_beam_stepwise"][-1]["pointers_and_state_bit_equal"] = True
+    # The traces change no bit, and split block 0's frames.
+    splits = {}
+    for name, cols, split in (("prefix_beam_fused", 8, lambda tr: frame_split(tr, K13_PHASES)),
+                              ("prefix_beam_stepwise", 9, launch_split)):
+        trace = torch.zeros((T, cols), dtype=torch.int64, device=CARD)
+        got = fns[name](logits, ragged, **kw, trace=trace)
+        check(all(torch.equal(a, b) for a, b in zip(got, fns[name](logits, ragged, **kw))),
+              f"{name}: the traced run differs")
+        splits[name] = split(trace)
     logp = torch.log_softmax(logits.float(), -1).contiguous()
-    frames, C = int(ragged.sum()), V2 - 1
-    lens32 = ragged.contiguous()
-    search_ops = frames * (12 * BEAM_K * C + 3 * BEAM_K ** 2
-                           + (BEAM_K + BEAM_K * C) * math.log2(BEAM_K))
-    outputs = 4 * B2 * BEAM_L + 8 * B2
-    k7_ms = time_ms(lambda: prefix_beam.prefix_beam_search(logits, ragged, **kw), 5, 4, 1)
+    frames, lens32 = int(ragged.sum()), ragged.contiguous()
+
+    def calls(lg, ln):
+        return {"prefix_beam_search": lambda: prefix_beam.prefix_beam_search(lg, ln, **kw),
+                **{n: lambda fn=fn: fn(lg, ln, **kw) for n, fn in fns.items()}}
+
+    turns = {"k7_shape": in_turns(calls(logits, ragged)),
+             "scripts_shape": in_turns(calls(bench_logits, bench_lens))}
     plain_ms = time_ms(lambda: prefix_beam.beam_scan_plain(logp, lens32, BEAM_K, BEAM_L),
                        3, 1, 1)
     out = []
-    for name, line, nbytes, ops in (
-            # K13 reads logp once; its K x L token copy a frame moves shared
-            # memory and is no operation.
-            ("prefix_beam_fused", 313, 4 * V2 * frames + outputs, search_ops),
-            # K12 also reads and writes its 5 state fields a frame and writes
-            # the (B, T, K) pointers.
-            ("prefix_beam_stepwise", 905, 4 * V2 * frames + 40 * BEAM_K * frames
-             + 8 * B2 * T * BEAM_K + outputs, search_ops)):
+    for name, line in (("prefix_beam_fused", 313), ("prefix_beam_stepwise", 905)):
         fn = fns[name]
-        ms = time_ms(lambda fn=fn: fn(logits, ragged, **kw), 5, 4, 1)
+        ms = statistics.median(turns["k7_shape"][name])
+        b_ms, b_by = study_bound(frames, B2, T, BEAM_K, V2, BEAM_L,
+                                 name == "prefix_beam_stepwise")
         entry = {"name": name, "route": "cuda",
                  "source": "pytorch_asr_tpu_torch/csrc/prefix_beam_study.cu",
                  "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
                  "shape": f"logp ({B2}, {T}, {V2}) f32, lengths {ragged.tolist()}, K {BEAM_K}, "
                           f"L {BEAM_L}, no LM",
                  "max_abs_err": 0.0, "tol": "tokens, lengths and scores bit-equal",
-                 "ms": ms, "k7_ms": k7_ms, "plain_ms": plain_ms, "library_ms": None,
+                 "ms": ms, "ms_in_turns": turns["k7_shape"][name],
+                 "k7_ms_in_turns": turns["k7_shape"]["prefix_beam_search"],
+                 "scripts_shape": {"shape": list(bench_logits.shape),
+                                   "ms_in_turns": turns["scripts_shape"][name],
+                                   "k7_ms_in_turns": turns["scripts_shape"]["prefix_beam_search"]},
+                 "plain_ms": plain_ms, "library_ms": None,
                  "library": "none: no PyTorch call computes a prefix beam search",
-                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops / PEAK_FP32_S))),
+                 "bound_ms": b_ms, "bound_by": b_by, "frame_split_us": splits[name],
                  "cases": cases[name]}
         if name == "prefix_beam_stepwise":
-            entry["ms_per_frame"] = ms / T
-            entry["frame_kernel_device_ms"] = device_ms_per_call(
-                lambda: fn(logits, ragged, **kw), "beam_step_kernel", calls=3) / T
+            device = device_ms_per_call(lambda fn=fn: fn(logits, ragged, **kw),
+                                        "beam_step_kernel", calls=3) / T
+            entry.update({"ms_per_frame": ms / T, "bound_ms_per_frame": b_ms / T,
+                          "frame_kernel_device_ms": device,
+                          "launch_gap_ms": ms / T - device})
         out.append(entry)
     return out
 
@@ -1499,9 +1570,8 @@ def beam_phase(arpa: str) -> list[dict]:
     logits (random plus a planted path, as tests/test_tpu_parity.py plants
     one) and on the random-weight model's logits, each with no LM and with
     the 4-gram table.  The kernels are timed on the model logits with the
-    table, the serving path's case, in turns with the frame as it was
-    before the warp-sorted selection (``rounds``, which must give the same
-    bits), and block 0's frame is split into its phases (its trace)."""
+    table, the serving path's case, and block 0's frame is split into its
+    phases (its trace)."""
     cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
                               "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1"})
     logits, lens = cfg2_batch_logits(cfg)
@@ -1541,19 +1611,8 @@ def beam_phase(arpa: str) -> list[dict]:
         C = A or V
         b_ms, b_by = search_bound(int(lens.sum()), BEAM_K, C, V, A, B, BEAM_L,
                                   table.numel() * 4)
-        # The frame as it was (rounds): the same bits, timed in turns.
-        new, old = beam_cuda.prefix_beam(*args), beam_cuda.prefix_beam(*args, rounds=True)
-        check(all(torch.equal(a, b) for a, b in zip(new, old)),
-              f"{name}: the warp-sorted frame differs from the rounds frame")
-        times = {"ms": [], "rounds_ms": []}
-        for which in ("ms", "rounds_ms", "rounds_ms", "ms"):
-            times[which].append(time_ms(
-                lambda r=which == "rounds_ms": beam_cuda.prefix_beam(*args, rounds=r)))
-        splits = {}
-        for rounds in (False, True):
-            trace = torch.zeros((T, 2 + len(K7_PHASES)), dtype=torch.int64, device=CARD)
-            beam_cuda.prefix_beam(*args, rounds=rounds, trace=trace)
-            splits["rounds" if rounds else "sorted"] = frame_split(trace, K7_PHASES)
+        trace = torch.zeros((T, 2 + len(K7_PHASES)), dtype=torch.int64, device=CARD)
+        beam_cuda.prefix_beam(*args, trace=trace)
         out.append({
             "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
             "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
@@ -1561,8 +1620,8 @@ def beam_phase(arpa: str) -> list[dict]:
                      f"L {BEAM_L}, C {C}, table {tuple(table.shape)}",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tol": {"tokens": "equal", "scores_rtol": BEAM_RTOL},
-            "ms": statistics.median(times["ms"]), "ms_in_turns": times["ms"],
-            "rounds_ms_in_turns": times["rounds_ms"], "frame_split_us": splits,
+            "ms": time_ms(lambda: beam_cuda.prefix_beam(*args)),
+            "frame_split_us": frame_split(trace, K7_PHASES),
             "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(*args), 3, 1, 1),
             "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
             "bound_ms": b_ms, "bound_by": b_by, "cases": cases})
@@ -1821,13 +1880,14 @@ def profile_phase() -> list:
     return device_rows(prof)[:8]
 
 
-def device_rows(prof) -> list:
-    """Device time by kernel name, largest first."""
+def device_rows(prof, width: int | None = 60) -> list:
+    """Device time by kernel name (cut to ``width`` characters), largest
+    first."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append({"name": ev.key[:60], "device_ms": dev_us / 1e3, "calls": ev.count})
+            rows.append({"name": ev.key[:width], "device_ms": dev_us / 1e3, "calls": ev.count})
     rows.sort(key=lambda r: -r["device_ms"])
     return rows
 
@@ -2339,6 +2399,46 @@ def wide_beam_rows(logits: torch.Tensor, lens: torch.Tensor, kw7: dict, kw9: dic
              lm_steps[0] * lm_step_ops(lmc, V))))}]
 
 
+def wide_study_rows(inputs: dict, got: dict) -> list[dict]:
+    """K13 at beam 32 with max_len 1024 and K12 at beam 32 over 1024 chars,
+    each with its working set in a device scratch, on the wide path's
+    inputs (``inputs``: {name: (logits, lengths, max_len)}): its results
+    there (``got``: {name: (outputs, K12's pointers and state or None)})
+    bit for bit against the plain search on the card, K12's every frame's
+    pointers and last state against the plain frames; then each wrapper
+    timed beside the plain search."""
+    fns = {"prefix_beam_fused": beam_cuda.prefix_beam_fused,
+           "prefix_beam_stepwise": beam_cuda.prefix_beam_lanes_stepwise}
+    rows = []
+    for name, line in (("prefix_beam_fused", 313), ("prefix_beam_stepwise", 905)):
+        lg, ln, L = inputs[name]
+        Bw, T, V = lg.shape
+        K = WIDE_STUDY_BEAM
+        outs, steps = got[name]
+        want = prefix_beam.prefix_beam_search_plain(lg, ln, beam_size=K, max_len=L)
+        check(all(a.dtype == w.dtype and torch.equal(a, w) for a, w in zip(outs, want)),
+              f"{name} past a block: differs from the plain search")
+        logp = torch.log_softmax(lg.float(), -1).contiguous()
+        if steps is not None:
+            for f, w in prefix_beam.prefix_beam_stepwise_plain(logp, ln, K, L).items():
+                check(torch.equal(steps[f], w), f"{name} past a block: {f} differs")
+        need = (beam_cuda.fused_bytes(K, V, L) if name == "prefix_beam_fused"
+                else beam_cuda.step_bytes(K, V))
+        rows.append({
+            "name": f"{name}_wide", "route": "cuda",
+            "source": "pytorch_asr_tpu_torch/csrc/prefix_beam_study.cu",
+            "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
+            "shape": f"logp ({Bw}, {T}, {V}) f32, lengths {ln.tolist()}, K {K}, L {L}, no LM; "
+                     f"scratch {need} bytes a block",
+            "max_abs_err": 0.0, "tol": "tokens, lengths and scores bit-equal",
+            "ms": time_ms(lambda fn=fns[name]: fn(lg, ln, K, 0, L), 3, 1, 1),
+            "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(logp, ln, K, L), 1, 1, 0),
+            "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
+            **dict(zip(("bound_ms", "bound_by"), study_bound(
+                int(ln.sum()), Bw, T, K, V, L, name == "prefix_beam_stepwise")))})
+    return rows
+
+
 def wide_phase() -> tuple[dict, list[dict], dict]:
     """The routes past the kernels' capacity, which no model configuration
     of the repo reaches, each driven as a path of its own with the counts
@@ -2436,7 +2536,36 @@ def wide_phase() -> tuple[dict, list[dict], dict]:
     out["beam"] = {"shape": [2, T_LSTM, V], "beams": [WIDE_SEARCH_BEAM, WIDE_RNN_BEAM],
                    "wall_s": wall, "launches": paths["wide_beam"],
                    "lengths": [got7[1].tolist(), got9[1].tolist()]}
-    rows = [*wide_lstm_rows(g), *wide_beam_rows(logits, blens, kw7, kw9, got7, got9)]
+
+    # The study kernels past a block: K13 at beam 32 with max_len 1024 on
+    # the logits above, K12 at beam 32 over 1024 chars.
+    wide_v = torch.randn(2, T_WIDE_STUDY, WIDE_STUDY_V,
+                         generator=torch.Generator().manual_seed(43)).mul(2).to(CARD)
+    wide_lens = torch.tensor([T_WIDE_STUDY, T_WIDE_STUDY // 2 + 3], dtype=torch.int32,
+                             device=CARD)
+    study_in = {"prefix_beam_fused": (logits, blens, WIDE_STUDY_L),
+                "prefix_beam_stepwise": (wide_v, wide_lens, BEAM_L)}
+    check(not beam_cuda.study_fits(WIDE_STUDY_BEAM, V, WIDE_STUDY_L)
+          and not beam_cuda.study_fits(WIDE_STUDY_BEAM, WIDE_STUDY_V),
+          "a wide study search fits a block")
+    steps = {}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got_fused = beam_cuda.prefix_beam_fused(logits, blens, WIDE_STUDY_BEAM, 0, WIDE_STUDY_L)
+    got_step = beam_cuda.prefix_beam_lanes_stepwise(wide_v, wide_lens, WIDE_STUDY_BEAM, 0,
+                                                    BEAM_L, scratch=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["wide_study"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(paths["wide_study"] == {"prefix_beam_fused_wide": 1,
+                                  "prefix_beam_stepwise_wide": T_WIDE_STUDY},
+          f"wide study launches {paths['wide_study']}")
+    out["study"] = {"beam": WIDE_STUDY_BEAM, "wall_s": wall, "launches": paths["wide_study"],
+                    "lengths": [got_fused[1].tolist(), got_step[1].tolist()]}
+    rows = [*wide_lstm_rows(g), *wide_beam_rows(logits, blens, kw7, kw9, got7, got9),
+            *wide_study_rows(study_in, {"prefix_beam_fused": (got_fused, None),
+                                        "prefix_beam_stepwise": (got_step, steps)})]
     return out, rows, paths
 
 
@@ -2577,24 +2706,28 @@ def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
     return out
 
 
-def device_ms_per_call(fn, kernel: str, calls: int = 20) -> float:
+def device_ms_per_call(fn, kernel: str, calls: int = 20, attempts: int = 4) -> float:
     """The device time of the kernels named ``kernel`` per call of ``fn``,
     from the profiler over ``calls`` calls after one warm-up.  A profile
-    that comes back with no device time (seen once on the H100, in a
-    process's first profile) is taken again, once."""
+    that comes back with no device time for it (seen on the H100 in a
+    process's first profile, and twice in a row for K10 in one run) is
+    taken again, up to ``attempts`` profiles, each failure naming the
+    kernels the profile did record; if none records it, the run fails."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(2):
+    for attempt in range(attempts):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        got = sum(r["device_ms"] for r in device_rows(prof) if kernel in r["name"])
+        rows = device_rows(prof, width=None)
+        got = sum(r["device_ms"] for r in rows if kernel in r["name"])
         if got > 0:
             break
-        print(f"no device time recorded for {kernel} in profile {attempt + 1}",
-              file=sys.stderr)
+        print(f"no device time recorded for {kernel} in profile {attempt + 1}; recorded: "
+              f"{[r['name'][:120] for r in rows[:5]]}", file=sys.stderr)
+        time.sleep(1.0)
     check(got > 0, f"no device time recorded for {kernel}")
     return got / calls
 
@@ -2911,7 +3044,8 @@ def main() -> int:
                 "lstm_seq_wide": "wide_decode", "lstm_seq_train_wide": "wide_train",
                 "lstm_seq_bwd_wide": "wide_train", "bilstm_seq_wide": "wide_bilstm",
                 "bilstm_seq_train_wide": "wide_bilstm", "bilstm_seq_bwd_wide": "wide_bilstm",
-                "prefix_beam_wide": "wide_beam", "prefix_beam_rnn_wide": "wide_beam"}
+                "prefix_beam_wide": "wide_beam", "prefix_beam_rnn_wide": "wide_beam",
+                "prefix_beam_fused_wide": "wide_study", "prefix_beam_stepwise_wide": "wide_study"}
     # The per-utterance oracle of the grid kernel is no path's kernel.
     oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0) for p, counts in paths.items()}
     print("bilstm_seq_per_utterance launches by path:", json.dumps(oracle_runs))

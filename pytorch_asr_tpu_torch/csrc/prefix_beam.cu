@@ -112,10 +112,7 @@
 //      and a key of rank r < K is pick r;
 //   5. the row's copies are waited for.
 // Since keys are unique the picks are the K largest in descending order,
-// the same as K rounds of a block argmax.  That older frame (its row loaded
-// at the top behind a barrier of its own, then K rounds of select_topk, a
-// barrier each, and the picks) stays as kRounds, a template form reached
-// only by the wrappers' rounds= argument, to be timed and held against.
+// the same as K rounds of a block argmax.
 // The TPU kernel's one-hot gathers, lane concatenations, masked-sum
 // extractions and time chunks were Mosaic workarounds and have no
 // counterpart here.
@@ -228,15 +225,11 @@ __device__ __forceinline__ unsigned long long umax(unsigned long long a,
 
 // Top-K: K rounds of a block argmax over the N keys; candidate j belongs to
 // thread j % nt, which alone reads and clears its keys, so no barrier is
-// needed before the first round.  Thread r < K gets pick r's key; with
-// kPicks (more beams than threads) thread 0 also writes it to picks[r], and
-// the caller synchronises before reading them.  K10's selection, and the
-// kRounds frame's.
-template <bool kPicks = false>
+// needed before the first round.  Thread r < K gets pick r's key.  K10's
+// selection.
 __device__ __forceinline__ unsigned long long select_topk(unsigned long long* key,
                                                           unsigned long long* wbest, int N,
-                                                          int K, int tid, int nt,
-                                                          unsigned long long* picks = nullptr) {
+                                                          int K, int tid, int nt) {
   const int warp = tid >> 5, nwarps = (nt + 31) >> 5;
   unsigned long long mine = 0;
   for (int r = 0; r < K; ++r) {
@@ -250,7 +243,6 @@ __device__ __forceinline__ unsigned long long select_topk(unsigned long long* ke
     const int j = key_index(best);
     if (j % nt == tid) key[j] = 0;
     if (tid == r) mine = best;
-    if (kPicks && tid == 0) picks[r] = best;
   }
   return mine;
 }
@@ -383,7 +375,7 @@ struct LmSmem {
 };
 
 // Dynamic shared memory of one block, as ops/beam_cuda.py computes it: the
-// search's keys 8 (K + K*C), warp maxima 512, 4 (16 K + 2 K*C + 2 V + 2 C)
+// search's keys 8 (K + K*C), 512 of room past them, 4 (16 K + 2 K*C + 2 V + 2 C)
 // of fields, candidates, the row and K8's top-A values and ids, and K*C
 // absorbed flags; then, for K9 from the next 16-byte boundary, the LM's xin
 // floats, its state (h, c and lmp floats) unless that lives in a global
@@ -415,32 +407,26 @@ __host__ __device__ inline size_t lm_smem_bytes(int K, int V, int nl, int E, int
 // memory.  kLmStateInScratch (K9): the LM state in the block's slice of a
 // device scratch of lm_state_floats, the rest in shared memory.  kInScratch:
 // all of it, laid out as kShared lays it out, in the block's slice of a
-// device scratch of scratch_block_bytes, then the K picks of a frame; no
-// shared memory, and any beam, more beams than threads included.
+// device scratch of scratch_block_bytes; no shared memory, and any beam,
+// more beams than threads included.
 enum Place { kShared = 0, kLmStateInScratch = 1, kInScratch = 2 };
 
 // One block's slice of the kInScratch scratch: the working set as kShared
-// lays it out (K9's with its LM state), then from the next 16 bytes the K
-// picks (8 bytes each; the kRounds frame's), to a 16-byte boundary.
+// lays it out (K9's with its LM state), to a 16-byte boundary.
 // ops/beam_cuda.py::scratch_bytes computes the same.
-__host__ __device__ inline size_t picks_offset(int K, int C, int V, bool rnn, int nl, int E,
-                                               int H) {
+__host__ __device__ inline size_t scratch_block_bytes(int K, int C, int V, bool rnn, int nl,
+                                                      int E, int H) {
   const size_t work =
       rnn ? lm_smem_offset(K, C, V) + lm_smem_bytes(K, V, nl, E, H, true)
           : search_smem_bytes(K, C, V);
   return (work + 15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t scratch_block_bytes(int K, int C, int V, bool rnn, int nl,
-                                                      int E, int H) {
-  return (picks_offset(K, C, V, rnn, nl, E, H) + 8 * (size_t)K + 15) / 16 * 16;
-}
-
 // The search's working set of one utterance, laid out from a 16-byte
 // aligned base as search_smem_bytes counts it.
 struct SearchWs {
   unsigned long long* key;     // (N) selection keys
-  unsigned long long* wbest;   // (2, 32) warp maxima (kRounds)
+  unsigned long long* pad;     // (64) past the keys: room for the merge tree's zeros
   float *pb, *pnb, *lms;       // (2, K) beam fields, double-buffered
   float *spb, *spnb;           // (K) stay candidates
   float *epnb, *elm;           // (KC) extensions
@@ -457,8 +443,8 @@ __device__ __forceinline__ SearchWs search_ws(void* base, int K, int C, int V) {
   const int KC = K * C;
   SearchWs w;
   w.key = static_cast<unsigned long long*>(base);
-  w.wbest = w.key + K + KC;
-  w.pb = reinterpret_cast<float*>(w.wbest + 64);
+  w.pad = w.key + K + KC;
+  w.pb = reinterpret_cast<float*>(w.pad + 64);
   w.pnb = w.pb + 2 * K;
   w.lms = w.pnb + 2 * K;
   w.spb = w.lms + 2 * K;
@@ -556,20 +542,17 @@ __device__ __forceinline__ void fetch_row(const SearchWs& w, const SearchIn& s, 
 // `cur` to those of cur ^ 1, by all threads of the block (or CTA).
 // lm_rows: K9's log-prob rows, beam k's at row k, or with lm_slot at row
 // lm_slot[k]; else null.  par and app (K9): each pick's parent and appended
-// char (-1 for none).  picks: the kRounds frame's in-scratch picks.  tr:
-// this frame's trace row (block 0's thread 0) or null: the global clock,
-// then the clock at the frame's start and after its row load, extensions,
-// absorb, selection (kRounds: keys and rounds; else keys, sort and the
-// merge tree or ranks) and picks (else: warp 0's picks and the next row's
-// wait).
-// On entry (unless kRounds) the working set holds frame t's row and, for
-// K8, a cleared char -> slot map; on return, frame t + 1's.
-template <bool kTopA, bool kRnn, bool kInScratch, bool kRounds>
+// char (-1 for none).  tr: this frame's trace row (block 0's thread 0) or
+// null: the global clock, then the clock at the frame's start and after its
+// row (in by then), extensions, absorb, selection (keys, sort and the merge
+// tree or ranks) and picks (warp 0's picks and the next row's wait).
+// On entry the working set holds frame t's row and, for K8, a cleared char
+// -> slot map; on return, frame t + 1's.
+template <bool kTopA, bool kRnn, bool kInScratch>
 __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& s, int b, int t,
                                              int n_t, int cur, const float* lm_rows,
                                              const int* lm_slot, int* par, int* app,
-                                             unsigned long long* picks, long long* tr, int tid,
-                                             int nt) {
+                                             long long* tr, int tid, int nt) {
   const int K = s.K, C = s.C, V = s.V, KC = K * C, N = K + KC;
   const float *pb_c = w.pb + cur * K, *pnb_c = w.pnb + cur * K, *lms_c = w.lms + cur * K;
   const uint32_t* hsh_c = w.hsh + cur * K;
@@ -578,10 +561,6 @@ __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& 
   if (tr) {
     tr[0] = (long long)global_ns();
     tr[1] = clock64();
-  }
-  if constexpr (kRounds) {  // the frame's row, behind a barrier of its own
-    load_row<kTopA>(w, s, row, tid, nt);
-    __syncthreads();
   }
   if (tr) tr[2] = clock64();
 
@@ -596,13 +575,8 @@ __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& 
     int c;
     float lpc;
     if (kTopA) {
-      if constexpr (kRounds) {
-        c = s.top_idx[row * C + a];
-        lpc = s.top_val[row * C + a];
-      } else {
-        c = w.ti[a];
-        lpc = w.tv[a];
-      }
+      c = w.ti[a];
+      lpc = w.tv[a];
       if (k == 0) w.slot[c] = a;
     } else {
       c = a;
@@ -623,19 +597,17 @@ __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& 
   }
   __syncthreads();
   if (tr) tr[3] = clock64();
-  if constexpr (!kRounds) {
-    if (t + 1 < n_t) fetch_row<kTopA, !kInScratch>(w, s, row + 1, tid, nt);
-  }
+  if (t + 1 < n_t) fetch_row<kTopA, !kInScratch>(w, s, row + 1, tid, nt);
 
   // Absorb: the char that would turn beam k into alive stay k' is
   // c = h_k' - M h_k (mod 2^32); at most one lane of each beam k matches.
   // Where a stay's K tests fit a warp's aligned kp lanes and all K stays'
   // fit the block, a thread a test, the max and the sum by shuffles (the
   // prefixes are distinct, so a stay matches one lane at most and the sum
-  // has one term); else (and in the kRounds frame) a thread a stay.
+  // has one term); else a thread a stay.
   int kp = 1;
   while (kp < K) kp <<= 1;
-  if (!kRounds && kp <= 32 && K * kp <= nt) {
+  if (kp <= 32 && K * kp <= nt) {
     if ((tid >> 5) * 32 < K * kp) {  // warp-uniform: every lane shuffles
       const int r = min(tid / kp, K - 1), k = tid - (tid / kp) * kp;
       const bool mine = tid < K * kp && k < K;
@@ -742,70 +714,61 @@ __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& 
     s.appends[row * K + r] = append;
   };
 
-  if constexpr (kRounds) {
-    for (int j = tid; j < N; j += nt) w.key[j] = key_of(j);
-    constexpr bool kPicks = kInScratch;
-    const unsigned long long mine = select_topk<kPicks>(w.key, w.wbest, N, K, tid, nt, picks);
-    if constexpr (kPicks) __syncthreads();  // thread 0 wrote the last pick
-    if (tr) tr[5] = clock64();
-    for (int r = tid; r < K; r += nt) take(r, kPicks ? picks[r] : mine);
-  } else {
-    // Segments of 32 keys where the warps suffice (the rest idle in the
-    // sort), else one a warp.  With K <= 32 and segments of at least K keys
-    // the sorted segments' tops merge in a tree; else each key is ranked.
-    const int nw = min(nt >> 5, (N + 31) >> 5), warp = tid >> 5, lane = tid & 31;
-    const int seg = (N + nw - 1) / nw;
-    const bool tree = K <= 32 && seg >= K;
-    {
-      const int s0 = warp * seg, sn = seg_len(warp, seg, N);
-      // The tree reads K keys of every segment: a short last one gets 0s
-      // (below every key) up to K, past N into the unused warp maxima.
-      const int keep = tree && warp < nw ? max(sn, K) : sn;
-      if (seg <= 32) {  // a key a lane, sorted in registers (0 past sn)
-        const unsigned long long v = warp_sort_desc_reg(lane < sn ? key_of(s0 + lane) : 0ull,
-                                                        sn, lane);
-        if (lane < keep) w.key[s0 + lane] = v;
-      } else {
-        for (int j = s0 + lane; j < s0 + sn; j += 32) w.key[j] = key_of(j);
-        __syncwarp();
-        warp_sort_desc(w.key + s0, sn, lane);
-        if (lane < keep - sn) w.key[s0 + sn + lane] = 0ull;
-      }
-    }
-    __syncthreads();
-    if (tree) {
-      const unsigned long long v = merge_tree(w.key, nw, seg, K, warp, lane);
-      if (tr) tr[5] = clock64();
-      if (warp == 0 && lane < K) take(lane, v);
+  // Segments of 32 keys where the warps suffice (the rest idle in the
+  // sort), else one a warp.  With K <= 32 and segments of at least K keys
+  // the sorted segments' tops merge in a tree; else each key is ranked.
+  const int nw = min(nt >> 5, (N + 31) >> 5), warp = tid >> 5, lane = tid & 31;
+  const int seg = (N + nw - 1) / nw;
+  const bool tree = K <= 32 && seg >= K;
+  {
+    const int s0 = warp * seg, sn = seg_len(warp, seg, N);
+    // The tree reads K keys of every segment: a short last one gets 0s
+    // (below every key) up to K, past N into the room after the keys.
+    const int keep = tree && warp < nw ? max(sn, K) : sn;
+    if (seg <= 32) {  // a key a lane, sorted in registers (0 past sn)
+      const unsigned long long v = warp_sort_desc_reg(lane < sn ? key_of(s0 + lane) : 0ull,
+                                                      sn, lane);
+      if (lane < keep) w.key[s0 + lane] = v;
     } else {
-      // Rank: only the first K keys of a segment can be picks, and none
-      // below theta, the largest K-th key of a segment that has K (K keys
-      // are at least it).  A key's rank is the count of keys above it in
-      // every segment, its own included (there: its position).
-      const int top = min(K, seg);
-      int P = 1;
-      while (P < top) P <<= 1;
-      unsigned long long theta = 0;
-      for (int o = 0; o < nw; ++o) {
-        if (seg_len(o, seg, N) >= K) theta = umax(theta, w.key[o * seg + K - 1]);
-      }
-      for (int e = tid; e < nw * top; e += nt) {
-        const int sw = e / top, p = e - sw * top;
-        if (p >= seg_len(sw, seg, N)) continue;
-        const unsigned long long x = w.key[sw * seg + p];
-        if (x < theta) continue;
-        int rank = 0;
-        for (int o = 0; o < nw; ++o)
-          rank += count_above(w.key + o * seg, min(top, seg_len(o, seg, N)), P, x);
-        if (rank < K) take(rank, x);
-      }
-      if (tr) tr[5] = clock64();
+      for (int j = s0 + lane; j < s0 + sn; j += 32) w.key[j] = key_of(j);
+      __syncwarp();
+      warp_sort_desc(w.key + s0, sn, lane);
+      if (lane < keep - sn) w.key[s0 + sn + lane] = 0ull;
     }
-    if constexpr (kTopA) {  // the next frame's extensions fill it again
-      for (int v = tid; v < V; v += nt) w.slot[v] = -1;
-    }
-    if constexpr (!kInScratch) cp_async_wait<0>();
   }
+  __syncthreads();
+  if (tree) {
+    const unsigned long long v = merge_tree(w.key, nw, seg, K, warp, lane);
+    if (tr) tr[5] = clock64();
+    if (warp == 0 && lane < K) take(lane, v);
+  } else {
+    // Rank: only the first K keys of a segment can be picks, and none
+    // below theta, the largest K-th key of a segment that has K (K keys
+    // are at least it).  A key's rank is the count of keys above it in
+    // every segment, its own included (there: its position).
+    const int top = min(K, seg);
+    int P = 1;
+    while (P < top) P <<= 1;
+    unsigned long long theta = 0;
+    for (int o = 0; o < nw; ++o) {
+      if (seg_len(o, seg, N) >= K) theta = umax(theta, w.key[o * seg + K - 1]);
+    }
+    for (int e = tid; e < nw * top; e += nt) {
+      const int sw = e / top, p = e - sw * top;
+      if (p >= seg_len(sw, seg, N)) continue;
+      const unsigned long long x = w.key[sw * seg + p];
+      if (x < theta) continue;
+      int rank = 0;
+      for (int o = 0; o < nw; ++o)
+        rank += count_above(w.key + o * seg, min(top, seg_len(o, seg, N)), P, x);
+      if (rank < K) take(rank, x);
+    }
+    if (tr) tr[5] = clock64();
+  }
+  if constexpr (kTopA) {  // the next frame's extensions fill it again
+    for (int v = tid; v < V; v += nt) w.slot[v] = -1;
+  }
+  if constexpr (!kInScratch) cp_async_wait<0>();
   __syncthreads();
   if (tr) tr[6] = clock64();
 }
@@ -1035,7 +998,7 @@ int search_threads(int K, int C) {
 // inside (the beam is a serial chain over frames).  trace (K7, K8; null
 // for none): block 0's clocks of each frame, (T, 7) as search_frame
 // records them.
-template <bool kTopA, bool kRnn, int kPlace, bool kRounds>
+template <bool kTopA, bool kRnn, int kPlace>
 __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     SearchIn s, const int* __restrict__ lens, int* __restrict__ tokens,
     int* __restrict__ out_len, float* __restrict__ out_score, RnnLm lm, float* scratch,
@@ -1043,15 +1006,12 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
   const int K = s.K, C = s.C, V = s.V;
   extern __shared__ __align__(16) unsigned long long smem[];
   // The working set's base: shared memory, or (kInScratch) this block's
-  // slice of the scratch, followed there by the frame's picks.
+  // slice of the scratch.
   unsigned long long* base = smem;
-  unsigned long long* picks = nullptr;                    // (K) kInScratch, kRounds
   if constexpr (kPlace == kInScratch) {
-    const size_t off = picks_offset(K, C, V, kRnn, lm.nl, lm.E, lm.H);
     char* slice = reinterpret_cast<char*>(scratch) +
                   (size_t)blockIdx.x * scratch_block_bytes(K, C, V, kRnn, lm.nl, lm.E, lm.H);
     base = reinterpret_cast<unsigned long long*>(slice);
-    picks = reinterpret_cast<unsigned long long*>(slice + off);
   }
   const SearchWs w = search_ws(base, K, C, V);
   LmSmem rnn = {};                                        // K9's LM state
@@ -1089,16 +1049,15 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     }
     for (int idx = tid; idx < K * V; idx += nt) rnn.lmp[idx] = lm.lmp0[idx % V];
   }
-  if constexpr (!kRounds) {  // the first frame's row; later ones come in ahead
-    if (n_t > 0) load_row<kTopA>(w, s, (size_t)b * s.T, tid, nt);
-    __syncthreads();
-  }
+  // The first frame's row; later ones come in ahead.
+  if (n_t > 0) load_row<kTopA>(w, s, (size_t)b * s.T, tid, nt);
+  __syncthreads();
   int cur = 0;
   for (int t = 0; t < n_t; ++t) {
     long long* tr = trace != nullptr && b == 0 && tid == 0 ? trace + 7 * (size_t)t : nullptr;
-    search_frame<kTopA, kRnn, kPlace == kInScratch, kRounds>(
+    search_frame<kTopA, kRnn, kPlace == kInScratch>(
         w, s, b, t, n_t, cur, kRnn ? rnn.lmp + (size_t)cur * K * V : nullptr, nullptr, rnn.par,
-        rnn.app, picks, tr, tid, nt);
+        rnn.app, tr, tid, nt);
     if constexpr (kRnn) {
       advance_lm(lm, rnn, cur, K, V, tid, nt);
       __syncthreads();
@@ -1109,11 +1068,11 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 }
 
 // Launches one block per utterance with the dynamic shared memory set.
-template <bool kTopA, bool kRnn, int kPlace = kShared, bool kRounds = false>
+template <bool kTopA, bool kRnn, int kPlace = kShared>
 int launch(int B, int threads, size_t smem, void* stream, const SearchIn& s, const int* lens,
            int* tokens, int* out_len, float* out_score, const RnnLm& lm, float* scratch,
            long long* trace) {
-  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace, kRounds>;
+  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1354,8 +1313,8 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
       const int* sid_c = z.sid + cur * K;
       int* sid_n = z.sid + nxt * K;
       for (int r = tid; r < K; r += nt) z.used[sid_c[r]] = t + 1;  // seen after the search's barriers
-      search_frame<kTopA, true, false, false>(z.ws, s, b, t, n_t, cur, z.lmp, sid_c, z.par,
-                                              z.app, nullptr, nullptr, tid, nt);
+      search_frame<kTopA, true, false>(z.ws, s, b, t, n_t, cur, z.lmp, sid_c, z.par,
+                                       z.app, nullptr, tid, nt);
       for (int r = tid; r < K; r += nt) {
         if (z.app[r] < 0) sid_n[r] = sid_c[z.par[r]];
       }
@@ -1705,14 +1664,13 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
 // out_score (B).  scratch: null keeps each block's working set in shared
 // memory (the wrapper checks its size); else a device scratch of B *
 // scratch_block_bytes(K, C, V, false, 0, 0, 0) bytes, 16-byte aligned,
-// holds it (kInScratch: any K and C).  rounds: nonzero runs the frame as
-// before the warp-sorted selection (kRounds).  trace: null, or (T, 7)
-// int64 for block 0's clocks of each frame (search_frame).
+// holds it (kInScratch: any K and C).  trace: null, or (T, 7) int64 for
+// block 0's clocks of each frame (search_frame).
 extern "C" int prefix_beam(const float* logp, const float* top_val, const int* top_idx,
                            const int* lens, const float* table, int* parents, int* appends,
                            int* tokens, int* out_len, float* out_score, int B, int T, int V,
                            int K, int C, int L, int n_ctx, float alpha, float beta,
-                           float* scratch, int rounds, long long* trace, void* stream) {
+                           float* scratch, long long* trace, void* stream) {
   if (B == 0) return 0;
   const bool apart = scratch != nullptr, topa = top_idx != nullptr;
   const size_t smem = apart ? 0 : search_smem_bytes(K, C, V);
@@ -1720,12 +1678,8 @@ extern "C" int prefix_beam(const float* logp, const float* top_val, const int* t
   const SearchIn s = search_in(logp, top_val, top_idx, table, parents, appends, T, V, K, C, L,
                                n_ctx, alpha, beta);
   const RnnLm none = {};
-  auto run = rounds ? (topa ? (apart ? launch<true, false, kInScratch, true>
-                                     : launch<true, false, kShared, true>)
-                            : (apart ? launch<false, false, kInScratch, true>
-                                     : launch<false, false, kShared, true>))
-                    : (topa ? (apart ? launch<true, false, kInScratch> : launch<true, false>)
-                            : (apart ? launch<false, false, kInScratch> : launch<false, false>));
+  auto run = topa ? (apart ? launch<true, false, kInScratch> : launch<true, false>)
+                  : (apart ? launch<false, false, kInScratch> : launch<false, false>);
   return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, none, scratch,
              trace);
 }

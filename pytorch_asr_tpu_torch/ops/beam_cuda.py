@@ -20,7 +20,8 @@ switch and no fallback.
 K7, K8 and K9's block form keep a block's working set in shared memory
 where it fits (``fits``), and otherwise launch the same kernel with it in a
 device scratch (the kernel's ``kInScratch`` form: any beam, any lane
-count), counted under ``<name>_wide``.  K9 runs on a co-resident grid, one
+count), counted under ``<name>_wide``; so do K13 and K12 (``study_fits``:
+``prefix_beam_fused_wide``, ``prefix_beam_stepwise_wide``).  K9 runs on a co-resident grid, one
 CTA an SM holding its units' columns of the LM's weights, where
 ``rnn_grid_route`` finds its shapes fit (counted as ``prefix_beam_rnn`` and
 ``prefix_beam_rnn_topa``), and otherwise in its block form, counted as
@@ -39,16 +40,16 @@ from pytorch_asr_tpu_torch.decoding import prefix_beam as plain
 from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _I, _P, _P],
+_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _P, _P],
                "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6
                + [_F, _F, _P, _I, _P],
                "prefix_beam_rnn_grid": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6
                + [_F, _F] + [_P] * 4 + [_I] * 6 + [_P],
                "merge_topk": [_P] * 22 + [_I] * 4 + [_P]}
-_STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P],
-                     "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P]}
+_STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P] * 3,
+                     "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P] * 3}
 MAX_SMEM = 232448    # the dynamic shared memory a Hopper block may use
-MAX_BEAM = 1024      # picks are held one a thread (in shared memory)
+MAX_BEAM = 1024      # the shared forms' beams; past it the kernels' in-scratch form
 MAX_LM_LAYERS = 8    # the kernel's RnnLm holds this many layers' pointers
 # csrc/prefix_beam.cu::Place: where K9's block keeps its working set.
 SHARED, LM_STATE_IN_SCRATCH, IN_SCRATCH = 0, 1, 2
@@ -99,11 +100,10 @@ def fits(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> bool
 def scratch_bytes(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> int:
     """One block's slice of the device scratch where the working set does
     not fit (``csrc/prefix_beam.cu::scratch_block_bytes``): the block's
-    working set as shared memory lays it out (K9's with its LM state), then
-    from the next 16-byte boundary the K picks of a frame, 8 bytes each, to
-    a 16-byte boundary."""
+    working set as shared memory lays it out (K9's with its LM state), to a
+    16-byte boundary."""
     work = smem_bytes(K, C, V) if lm is None else rnn_smem_bytes(K, C, V, *lm)
-    return ((work + 15) // 16 * 16 + 8 * K + 15) // 16 * 16
+    return (work + 15) // 16 * 16
 
 
 def _scratch(B: int, nbytes: int, dev) -> torch.Tensor:
@@ -261,8 +261,7 @@ def _ptr(t):
 def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max_len: int,
                 lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
                 lm_beta: float = 0.0, top_val: torch.Tensor | None = None,
-                top_idx: torch.Tensor | None = None, rounds: bool = False,
-                trace: torch.Tensor | None = None):
+                top_idx: torch.Tensor | None = None, trace: torch.Tensor | None = None):
     """Prefix beam search over log-probs ``logp`` (B, T, V) float32 with
     lengths ``logit_len`` (B,) int32 and, optionally, a dense LM table
     (n_ctx, V) float32 fused as ``lm_alpha * row + lm_beta`` a char.  With
@@ -271,12 +270,9 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
     lengths (B,) int32, scores (B,) float32) of the best beam of each row.
     Where a block's working set does not fit its shared memory (``fits``)
     it lies in a device scratch this wrapper allocates, counted under
-    ``<name>_wide``.  ``rounds``, for measurement only (no decode
-    path sets it), runs the frame as it was before the warp-sorted
-    selection (its row loaded behind a barrier, K rounds of a block
-    argmax), the same picks; ``trace``, a
-    (T, 7) int64 tensor on the card, receives block 0's clocks of each
-    frame (``csrc/prefix_beam.cu::search_frame``)."""
+    ``<name>_wide``.  ``trace``, a (T, 7) int64 tensor on the card,
+    receives block 0's clocks of each frame
+    (``csrc/prefix_beam.cu::search_frame``)."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha,
                                      lm_beta, top_val, top_idx)
@@ -294,7 +290,7 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
         logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(), _ptr(lm_table),
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
         scores.data_ptr(), B, T, V, K, C, L, lm_table.shape[0] if lm_table is not None else 1,
-        lm_alpha, lm_beta, _ptr(scratch), int(rounds), _ptr(trace),
+        lm_alpha, lm_beta, _ptr(scratch), _ptr(trace),
         torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores
@@ -445,23 +441,36 @@ def merge_topk(stay: dict, ext: dict, K: int):
 # ------------------------------------------------- K12, K13: csrc/prefix_beam_study.cu
 
 
-def _frame_smem_bytes(K: int, V: int) -> int:
-    """One frame's scratch in ``csrc/prefix_beam_study.cu``: keys, warp
-    maxima, candidates and the row, absorbed flags."""
+def frame_bytes(K: int, V: int) -> int:
+    """One frame's working set in ``csrc/prefix_beam_study.cu``: the keys
+    and 32 zeros for the merge tree, the stay and lane candidates and the
+    row, the lanes' absorbed flags."""
     KC = K * (V - 1)
-    return 8 * (K + KC) + 512 + 4 * (2 * K + KC + V) + KC
+    return 8 * (K + KC + 32) + 4 * (2 * K + KC + V) + KC
 
 
-def fused_smem_bytes(K: int, V: int, L: int) -> int:
-    """Shared memory of one K13 block: the frame's, the double-buffered beam
-    fields and token buffers (2, K, L) int32, and each pick's parent,
-    append and parent length."""
-    return _frame_smem_bytes(K, V) + 4 * (13 * K + 2 * K * L)
+def fused_bytes(K: int, V: int, L: int) -> int:
+    """One K13 block's working set: the frame's, two sets of the 5 beam
+    fields and 3 K pick ints, then from the next 16 bytes the token buffers
+    (2, K, L) int32, to 16 bytes: its shared memory, or its slice of the
+    scratch."""
+    return _up(_up(frame_bytes(K, V) + 52 * K, 16) + 8 * K * L, 16)
 
 
-def step_smem_bytes(K: int, V: int) -> int:
-    """Shared memory of one K12 block: the frame's and its row's state."""
-    return _frame_smem_bytes(K, V) + 4 * 5 * K
+def step_bytes(K: int, V: int) -> int:
+    """One K12 block's working set: the frame's and its row's 5 state
+    fields, to 16 bytes."""
+    return _up(frame_bytes(K, V) + 20 * K, 16)
+
+
+def study_fits(K: int, V: int, L: int | None = None) -> bool:
+    """Whether one K13 block (max_len ``L``) or one K12 block (``L`` None)
+    takes beam K over a vocabulary V in shared memory: K at most MAX_BEAM and
+    the working set at most MAX_SMEM.  Where it is False the wrappers launch
+    the same kernel with the working set in a device scratch, counted under
+    ``<name>_wide``.  A pure function of the shapes."""
+    need = step_bytes(K, V) if L is None else fused_bytes(K, V, L)
+    return K <= MAX_BEAM and need <= MAX_SMEM
 
 
 def _study_inputs(name: str, logits, logit_len, blank: int, K: int, L: int):
@@ -475,17 +484,21 @@ def _study_inputs(name: str, logits, logit_len, blank: int, K: int, L: int):
     return logp, lens
 
 
+_INT_MAX = 2 ** 31 - 1
+
+
 def _check_study(name: str, logp, lens, K: int, L: int) -> None:
+    """Refuses what the kernels cannot index: beyond the shapes' own limits,
+    only candidates K + K (V-1) or token ints 2 K L past int32."""
     B, T, V = logp.shape
     if tuple(lens.shape) != (B,) or lens.device != logp.device:
         raise ValueError(f"{name}: logit_len must be ({B},) on {logp.device}")
-    if V < 2 or not 1 <= K <= MAX_BEAM or L < 0:
-        raise ValueError(f"{name}: vocabulary {V} >= 2, beam_size {K} in 1..{MAX_BEAM} and "
-                         f"max_len {L} >= 0 are needed")
-    need = fused_smem_bytes(K, V, L) if name == "prefix_beam_fused" else step_smem_bytes(K, V)
-    if need > MAX_SMEM:
-        raise ValueError(f"{name}: beam {K} x vocabulary {V} (max_len {L}) needs {need} bytes "
-                         f"of shared memory, more than a block's {MAX_SMEM}")
+    if V < 2 or K < 1 or L < 0:
+        raise ValueError(f"{name}: vocabulary {V} >= 2, beam_size {K} >= 1 and max_len {L} "
+                         f">= 0 are needed")
+    if K * V > _INT_MAX or 2 * K * L > _INT_MAX:
+        raise ValueError(f"{name}: beam {K} x vocabulary {V} (max_len {L}) passes the kernel's "
+                         f"int32 indices")
 
 
 def _outputs(B: int, L: int, dev):
@@ -495,24 +508,31 @@ def _outputs(B: int, L: int, dev):
 
 
 def prefix_beam_fused(logits: torch.Tensor, logit_len: torch.Tensor, beam_size: int = 16,
-                      blank: int = 0, max_len: int = 256):
+                      blank: int = 0, max_len: int = 256, trace: torch.Tensor | None = None):
     """CTC prefix beam search without an LM in one launch, each beam's
     tokens carried in the block (K13).  ``logits`` (B, T, V) are
     log-softmaxed first.  Returns (tokens (B, max_len) int32, lengths (B,)
     int32, scores (B,) float32) of the best beam of each row, those of
-    ``decoding.prefix_beam.beam_scan_plain``."""
+    ``decoding.prefix_beam.beam_scan_plain``.  Where a block's working set
+    does not fit its shared memory (``study_fits``) it lies in a device
+    scratch, counted as ``prefix_beam_fused_wide``.  ``trace``, a (T, 8)
+    int64 tensor on the card, receives block 0's clocks of each frame."""
     K, L = beam_size, max_len
     logp, lens = _study_inputs("prefix_beam_fused", logits, logit_len, blank, K, L)
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, lens, K, L)
     B, T, V = logp.shape
-    tokens, lengths, scores = _outputs(B, L, logp.device)
+    dev = logp.device
+    _trace_check("prefix_beam_fused", trace, T, 8, dev)
+    scratch = None if study_fits(K, V, L) else _scratch(B, fused_bytes(K, V, L), dev)
+    name = "prefix_beam_fused" + ("_wide" if scratch is not None else "")
+    tokens, lengths, scores = _outputs(B, L, dev)
     lib = build.load("prefix_beam_study", _STUDY_SIGNATURES)
     build.check(lib.prefix_beam_fused(
         logp.data_ptr(), lens.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
-        scores.data_ptr(), B, T, V, K, L, torch.cuda.current_stream(logp.device).cuda_stream),
-        "prefix_beam_fused")
-    build.LAUNCHES["prefix_beam_fused"] += 1
+        scores.data_ptr(), B, T, V, K, L, _ptr(scratch), _ptr(trace),
+        torch.cuda.current_stream(dev).cuda_stream), name)
+    build.LAUNCHES[name] += 1
     return tokens, lengths, scores
 
 
@@ -521,16 +541,21 @@ _FIELDS = ("pb", "pnb", "hash", "last", "length")
 
 def prefix_beam_lanes_stepwise(logits: torch.Tensor, logit_len: torch.Tensor,
                                beam_size: int = 16, blank: int = 0, max_len: int = 256,
-                               scratch: dict | None = None):
+                               scratch: dict | None = None, trace: torch.Tensor | None = None):
     """CTC prefix beam search without an LM as one launch a frame (K12): the
     (B, K) state lives in device memory between the T launches, which one
-    call queues on one stream, and each frame writes its (parent, append)
-    pointers; a backtrace kernel then reads the best beam's tokens.
-    ``logits`` (B, T, V) are log-softmaxed first.  Returns what
-    ``prefix_beam_fused`` returns.  A ``scratch`` dict receives the state
-    after the last frame ((B, K) pb, pnb, hash, last, length) and every
-    frame's pointers ((B, T, K) parent, append), those of
-    ``decoding.prefix_beam.prefix_beam_stepwise_plain``."""
+    call queues on one stream, each frame's after the last by programmatic
+    dependent launch, and each frame writes its (parent, append) pointers; a
+    backtrace kernel then reads the best beam's tokens.  ``logits`` (B, T,
+    V) are log-softmaxed first.  Returns what ``prefix_beam_fused`` returns.
+    A ``scratch`` dict receives the state after the last frame ((B, K) pb,
+    pnb, hash, last, length) and every frame's pointers ((B, T, K) parent,
+    append), those of ``decoding.prefix_beam.prefix_beam_stepwise_plain``.
+    Where a block's working set does not fit its shared memory
+    (``study_fits``) it lies in a device scratch, counted as
+    ``prefix_beam_stepwise_wide`` (T a call, as the shared form).
+    ``trace``, a (T, 9) int64 tensor on the card, receives block 0's clocks
+    of each frame."""
     K, L = beam_size, max_len
     logp, lens = _study_inputs("prefix_beam_stepwise", logits, logit_len, blank, K, L)
     if logp.device.type == "cpu":
@@ -539,6 +564,9 @@ def prefix_beam_lanes_stepwise(logits: torch.Tensor, logit_len: torch.Tensor,
         return plain.beam_scan_plain(logp, lens, K, L)
     B, T, V = logp.shape
     dev = logp.device
+    _trace_check("prefix_beam_stepwise", trace, T, 9, dev)
+    work = None if study_fits(K, V) else _scratch(B, step_bytes(K, V), dev)
+    name = "prefix_beam_stepwise" + ("_wide" if work is not None else "")
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     state = {f: torch.empty((B, K), **(f32 if f in ("pb", "pnb") else i32)) for f in _FIELDS}
     parents = torch.empty((B, T, K), **i32)
@@ -548,9 +576,9 @@ def prefix_beam_lanes_stepwise(logits: torch.Tensor, logit_len: torch.Tensor,
     build.check(lib.prefix_beam_stepwise(
         logp.data_ptr(), lens.data_ptr(), *(state[f].data_ptr() for f in _FIELDS),
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
-        scores.data_ptr(), B, T, V, K, L, torch.cuda.current_stream(dev).cuda_stream),
-        "prefix_beam_stepwise")
-    build.LAUNCHES["prefix_beam_stepwise"] += T
+        scores.data_ptr(), B, T, V, K, L, _ptr(work), _ptr(trace),
+        torch.cuda.current_stream(dev).cuda_stream), name)
+    build.LAUNCHES[name] += T
     if scratch is not None:
         scratch.update(state, parent=parents, append=appends)
     return tokens, lengths, scores

@@ -1,4 +1,5 @@
-"""The beam kernels' frame selection (``csrc/prefix_beam.cu::search_frame``:
+"""The beam kernels' frame selection (``csrc/prefix_beam.cu::search_frame``,
+and its copy in ``csrc/prefix_beam_study.cu``:
 ``warp_sort_desc`` and its register form, the merge tree, and for larger
 beams theta, ``count_above`` and the rank loop) emulated in numpy, warp for
 warp, against a stable descending sort of the candidates' scores.
@@ -186,6 +187,21 @@ def _scores(rng, K: int, C: int, ties: bool, dead: float) -> np.ndarray:
 def test_selection_is_the_stable_descending_order(K, C, nt, ties, dead):
     rng = np.random.default_rng(K * 1000 + C * 10 + nt + ties)
     scores = _scores(rng, K, C, ties, dead)
+    assert select(make_keys(scores), K, nt, literal=True) == stable_order(scores, K)
+
+
+@pytest.mark.parametrize("K,V,nt", [
+    (16, 31, 512),     # K12/K13 at K7's row shape: 496 candidates, segments of 31
+    (16, 32, 512),     # the benchmark scripts' V 32: 512 candidates, segments of 32
+    (16, 31, 480),     # the thread count before: 15 warps, segments of 34 (in place)
+])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dead", [0.0, 0.5])
+def test_selection_at_the_study_lanes_layout(K, V, nt, ties, dead):
+    """csrc/prefix_beam_study.cu's frame: the plain search's lanes, V - 1 a
+    beam (no blank lane), so N = K + K (V - 1) candidates."""
+    rng = np.random.default_rng(K * 1000 + V * 10 + nt + ties)
+    scores = _scores(rng, K, V - 1, ties, dead)
     assert select(make_keys(scores), K, nt, literal=True) == stable_order(scores, K)
 
 

@@ -24,7 +24,7 @@ from pytorch_asr_tpu.ops.beam_pallas import prefix_beam_fused as jax_fused
 from pytorch_asr_tpu.ops.beam_pallas import prefix_beam_lanes_stepwise as jax_stepwise
 from pytorch_asr_tpu_torch.decoding import prefix_beam as pb
 from pytorch_asr_tpu_torch.ops import beam_cuda, build
-from pytorch_asr_tpu_torch.scripts import bench_beam_compile, bench_prefix_beam
+from pytorch_asr_tpu_torch.scripts import bench_beam_compile, bench_prefix_beam, bench_study_turns
 
 # float32 log-space sums: XLA's and torch's exp/log1p round apart.  A
 # near-certain path (the peaky input) scores a few 1e-6 below 0, a sum of
@@ -159,11 +159,18 @@ def test_bench_beam_compile_has_no_compile_time_arm():
 
 
 @pytest.mark.parametrize("main,argv", [(bench_prefix_beam.main, ["hashed=0"]),
-                                       (bench_beam_compile.main, ["stepwise=1"])])
+                                       (bench_beam_compile.main, ["stepwise=1"]),
+                                       (bench_study_turns.main, [])])
 def test_scripts_run_on_the_card_unless_asked_for_the_cpu(main, argv):
-    """Without ``device=`` both scripts ask for ``cuda`` and, with no card,
+    """Without ``device=`` the scripts ask for ``cuda`` and, with no card,
     refuse before running anything."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device would run the full benchmark")
     with pytest.raises(RuntimeError, match="device=cpu"):
         main(argv)
+
+
+def test_study_turns_times_only_on_the_card():
+    """``bench_study_turns`` times kernels: asked for the CPU, it refuses."""
+    with pytest.raises(SystemExit, match="needs the card"):
+        bench_study_turns.main(["device=cpu", "T=4"])

@@ -770,34 +770,13 @@ def test_prefix_beam_rnn_grid_trace_and_a_grid_that_cannot_launch(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,A,T", [(16, 0, 60), (16, 8, 60), (400, 0, 20), (1100, 4, 16)])
-def test_prefix_beam_sorted_selection_equals_the_rounds(cuda, K, A, T):
-    """K7 and K8's frame (the row prefetched, warp-sorted selection) against
-    the frame as it was (``rounds``: K rounds of a block argmax) and the
-    plain search, bit for bit: at beam 16 with the 4-gram-sized table, at
-    400 (in scratch) and over the top 4 at 1100 (more beams than threads)."""
-    logits, lens, table = _beam_case(cuda, 25, B=4 if K == 16 else 2, T=T)
-    logp, (tv, ti) = prefix_beam._prepare(logits, A)
-    lm = table if K == 16 else None
-    args = (logp, lens, K, 24, lm, 0.5 if lm is not None else 0.0,
-            1.0 if lm is not None else 0.0, tv, ti)
-    new = beam_cuda.prefix_beam(*args)
-    old = beam_cuda.prefix_beam(*args, rounds=True)
-    want = prefix_beam.beam_scan_plain(*args)
-    assert all(torch.equal(a, b) for a, b in zip(new, old))
-    assert all(torch.equal(a, b) for a, b in zip(new[:2], want[:2]))
-    torch.testing.assert_close(new[2], want[2], rtol=BEAM_RTOL, atol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rounds", [False, True])
-def test_prefix_beam_trace_runs(cuda, rounds):
+def test_prefix_beam_trace_runs(cuda):
     """Block 0's trace of each frame: the global clock rises frame to frame
     and each frame's phase clocks rise in order."""
     logits, lens, table = _beam_case(cuda, 26)
     logp = torch.log_softmax(logits, -1).contiguous()
     trace = torch.zeros((logp.shape[1], 7), dtype=torch.int64, device=cuda)
-    beam_cuda.prefix_beam(logp, lens, 16, 24, table, 0.5, 1.0, rounds=rounds, trace=trace)
+    beam_cuda.prefix_beam(logp, lens, 16, 24, table, 0.5, 1.0, trace=trace)
     torch.cuda.synchronize()
     tr = trace[: int(lens[0])].cpu()
     assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:] >= tr[:, 1:-1]).all())
@@ -1342,10 +1321,92 @@ def test_stepwise_state_equals_the_plain_frames_every_frame(cuda):
 
 @pytest.mark.cuda
 def test_study_beam_kernels_reject_what_they_do_not_take(cuda):
+    """Past a block's shared memory both run (in a scratch); they refuse an
+    empty beam, another blank, and shapes past their int32 indices."""
     logits, lens, _ = _beam_case(cuda, 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        beam_cuda.prefix_beam_fused(logits, lens, beam_size=64, max_len=1024)
     with pytest.raises(ValueError, match="beam_size"):
-        beam_cuda.prefix_beam_lanes_stepwise(logits, lens, beam_size=2048)
+        beam_cuda.prefix_beam_lanes_stepwise(logits, lens, beam_size=0)
+    with pytest.raises(ValueError, match="int32"):
+        beam_cuda.prefix_beam_fused(logits, lens, beam_size=2, max_len=2 ** 30)
+    with pytest.raises(ValueError, match="int32"):
+        beam_cuda.prefix_beam_lanes_stepwise(logits, lens, beam_size=2 ** 31 // 31 + 1)
     with pytest.raises(ValueError, match="blank"):
         beam_cuda.prefix_beam_fused(logits, lens, blank=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,V,L", [("prefix_beam_fused", 31, 1024),
+                                        ("prefix_beam_stepwise", 1024, 24)])
+def test_study_beam_kernels_past_a_block_run_in_scratch(cuda, kernel, V, L):
+    """K13 at beam 32 with max_len 1024 (token buffers of 256 KB) and K12 at
+    beam 32 over 1024 chars (frame arrays of ~420 KB) pass a block's shared
+    memory: the kernel runs with its working set in a device scratch,
+    counted under its wide name, and equals the plain search bit for bit
+    (K12's pointers and last state too)."""
+    rng = np.random.default_rng(13)
+    logits = torch.from_numpy(rng.standard_normal((4, 40, V)).astype(np.float32) * 2).to(cuda)
+    lens = torch.tensor([40, 27, 0, 13], dtype=torch.int32, device=cuda)
+    fused = kernel == "prefix_beam_fused"
+    assert not (beam_cuda.study_fits(32, V, L) if fused else beam_cuda.study_fits(32, V))
+    got_steps = {}
+    build.reset_launches()
+    got = (beam_cuda.prefix_beam_fused(logits, lens, 32, 0, L) if fused
+           else beam_cuda.prefix_beam_lanes_stepwise(logits, lens, 32, 0, L, scratch=got_steps))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        f"{kernel}_wide": 1 if fused else logits.shape[1]}
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, beam_size=32, max_len=L)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if not fused:
+        logp = torch.log_softmax(logits, -1).contiguous()
+        for name, w in prefix_beam.prefix_beam_stepwise_plain(logp, lens, 32, L).items():
+            assert torch.equal(got_steps[name], w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["prefix_beam_fused", "prefix_beam_stepwise"])
+def test_study_beam_scratch_form_gives_the_shared_forms_bits(cuda, monkeypatch, kernel):
+    """At K7's row shape (K 16 over 31 chars, L 256), where both run, the
+    in-scratch form (forced) equals the shared form bit for bit: the same
+    code in the same order.  L 24 fills beams (full-beam fillers)."""
+    logits, lens, _ = _beam_case(cuda, 14, B=16, T=120)
+    fn = (beam_cuda.prefix_beam_fused if kernel == "prefix_beam_fused"
+          else beam_cuda.prefix_beam_lanes_stepwise)
+    for L in (256, 24):
+        shared_steps = {}
+        build.reset_launches()
+        shared = fn(logits, lens, 16, 0, L, **({"scratch": shared_steps}
+                                               if kernel == "prefix_beam_stepwise" else {}))
+        torch.cuda.synchronize()
+        assert not build.LAUNCHES[f"{kernel}_wide"] and build.LAUNCHES[kernel]
+        with monkeypatch.context() as m:
+            m.setattr(beam_cuda, "study_fits", lambda *args, **kwargs: False)
+            wide_steps = {}
+            build.reset_launches()
+            wide = fn(logits, lens, 16, 0, L, **({"scratch": wide_steps}
+                                                 if kernel == "prefix_beam_stepwise" else {}))
+            torch.cuda.synchronize()
+            assert not build.LAUNCHES[kernel] and build.LAUNCHES[f"{kernel}_wide"]
+        assert all(torch.equal(a, b) for a, b in zip(wide, shared))
+        assert all(torch.equal(wide_steps[k], shared_steps[k]) for k in shared_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,cols", [("prefix_beam_fused", 8), ("prefix_beam_stepwise", 9)])
+def test_study_beam_trace_runs(cuda, kernel, cols):
+    """Block 0's trace of each frame: the global clock rises frame to frame,
+    each frame's phase clocks rise in order, and tracing changes no bit."""
+    logits, lens, _ = _beam_case(cuda, 27)
+    fn = (beam_cuda.prefix_beam_fused if kernel == "prefix_beam_fused"
+          else beam_cuda.prefix_beam_lanes_stepwise)
+    trace = torch.zeros((logits.shape[1], cols), dtype=torch.int64, device=cuda)
+    got = fn(logits, lens, 16, 0, 24, trace=trace)
+    want = fn(logits, lens, 16, 0, 24)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tr = trace[: int(lens[0])].cpu()
+    assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:8] >= tr[:, 1:7]).all())
+    if kernel == "prefix_beam_stepwise":
+        assert bool((tr[:, 8] >= tr[:, 0]).all())
+    assert not trace[int(lens[0]):].any()

@@ -58,15 +58,17 @@ result line):
   10. config 2's beam decode across ranks: hold K10, the beam-sharded
      search's per-frame merge and top-K, against the plain merge on the card
      bit for bit (candidates of 2 and 4 beam shards at config 2's shapes,
-     with and without the 4-gram, early and late frames) and time it; K9
-     past a block's shared memory (an LM of H 512 x 2 layers, and beam 32);
+     with and without the 4-gram, early and late frames) and time it, with
+     block 0's phase split; K9 past a block's shared memory (an LM of H 512
+     x 2 layers, and beam 32);
      the wide routes, which no configuration reaches: config 1 at
      ``model.encoder.hidden_dim=1536`` (past the co-resident grid) through
      ``decode.main`` and one step of ``train.main`` on the per-utterance
      LSTM kernel, a beam-400 search and K9 at beam 64 (past a block), and
      K13 at beam 32 with max_len 1024 and K12 at beam 32 over 1024 chars
-     (past a block: the study kernels' in-scratch form), each with its own
-     counts and held to the plain search on the card;
+     (past a block: the study kernels' in-scratch form), K10 at beam 640
+     (its in-scratch form) and K9 with an LM of 10 layers, each with its own
+     counts and held to the plain version on the card;
      then ``decode.main ... decode.shard_beams=true`` in ranks spawned on
      the one card over gloo, each with its launch counters set to 0 just
      before and read just after: 2 ranks at model axis 2 and 4 ranks at
@@ -75,13 +77,15 @@ result line):
      search with the RNN LM in 4 ranks against the plain search;
   11. the last four kernels, none of which a model path runs: K11, both
      directions of a BiLSTM layer in one launch (its forward on the dual
-     grid), at config 1's layer shape (inference, and training forward and
-     backward) and config 2's (inference), bit-equal to two K2 (K3)
-     launches and to the per-utterance oracle, its gradients within K3's
-     tolerances, timed beside them, the oracle and cuDNN's bidirectional
-     LSTM, with the dual grid's step split and a sweep of 32, 48 and 64 CTAs
-     a direction, then driven through ``lstm_cuda.bilstm_seq`` with counts
-     (no oracle launch, no plain version); the paired CTC
+     grid, and its backward's dh recurrence on the dual backward grid), at
+     config 1's layer shape (inference, and training forward and backward)
+     and config 2's (inference), bit-equal to two K2 (K3) launches and to
+     the per-utterance oracles, its gradients within K3's tolerances, timed
+     beside them (the backward in turns), the oracles and cuDNN's
+     bidirectional LSTM, with both dual grids' step splits and a sweep of
+     32, 48 and 64 CTAs a direction, then driven through
+     ``lstm_cuda.bilstm_seq`` with counts (no oracle launch, no plain
+     version); the paired CTC
      alpha at K4's shape against its plain version and K4, then
      ``train.main`` with ``ops.ctc_cuda.PAIRED_FWD`` set, with counts; K13
      and K12, the search with its tokens in the block and the search as a
@@ -249,12 +253,18 @@ WIDE_H, WIDE_SEARCH_BEAM, WIDE_RNN_BEAM = 1536, 400, 64
 # frames: past a block's shared memory, so the study kernels' in-scratch form.
 WIDE_STUDY_BEAM, WIDE_STUDY_L, WIDE_STUDY_V, T_WIDE_STUDY = 32, 1024, 1024, 200
 WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "lstm_seq_bwd_wide", "bilstm_seq_wide",
-               "bilstm_seq_train_wide", "prefix_beam_wide", "prefix_beam_topa_wide",
+               "bilstm_seq_train_wide", "bilstm_seq_bwd_wide", "merge_topk_wide",
+               "prefix_beam_wide", "prefix_beam_topa_wide",
                "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide", "prefix_beam_rnn_block",
                "prefix_beam_rnn_topa_block", "prefix_beam_fused_wide", "prefix_beam_stepwise_wide")
 # K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
 # seed) at beam 16, and the trained default LM at beam 32.
 WIDE_LM, WIDE_BEAM = RNNLMConfig(embed_dim=128, hidden_dim=512, num_layers=2), 32
+# K10 past a block's shared memory: beam 640 over the 30 lanes of config 2's
+# chars (N 19,840 candidates, 262,912 bytes a block), from 2 shards at frame
+# 9; and K9 with an LM of 10 layers (E 32, H 64), past the 8 it once held.
+WIDE_MERGE_BEAM, WIDE_MERGE_FRAME = 640, 9
+DEEP_LM = RNNLMConfig(embed_dim=32, hidden_dim=64, num_layers=10)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -569,19 +579,23 @@ def step_split(trace: torch.Tensor, steps: int) -> dict:
             "trace_clock_ghz": ghz}
 
 
-def bwd_grid_record(bargs: tuple, steps: int) -> dict:
-    """K3's backward grid for ``bargs``, the device time of its recurrence
-    (lstm_bwd_grid_kernel alone, from the profiler) and where a step goes
-    (``backward_on_route``'s trace): staging dgates and the cell inputs, the
-    dh chains, the cells and the grid barrier."""
+def bwd_grid_record(bargs: tuple, steps: int, dual: bool = False) -> dict:
+    """K3's backward grid for ``bargs`` (with ``dual``, K11's grid of both
+    directions), the device time of its recurrence (lstm_bwd_grid_kernel
+    alone, from the profiler) and where a step goes (the trace of
+    ``backward_on_route`` or ``bilstm_backward_on_route``, CTA (0, 0)'s):
+    staging dgates and the cell inputs, the dh chains, the cells and the
+    grid barrier."""
     x, whh = bargs[1], bargs[3]
-    grid = lstm_cuda.backward_grid(whh.shape[0], x.shape[0], build.sm_count(0))
+    grid = lstm_cuda.backward_grid(whh.shape[-2], x.shape[0], build.sm_count(0),
+                                   directions=2 if dual else 1)
+    on_route = lstm_cuda.bilstm_backward_on_route if dual else lstm_cuda.backward_on_route
     rec = {"grid": grid._asdict(),
-           "recurrence_ms": device_ms_per_call(lambda: lstm_cuda.lstm_seq_bwd(*bargs),
+           "recurrence_ms": device_ms_per_call(lambda: on_route(grid, *bargs),
                                                "lstm_bwd_grid_kernel", 5)}
     rec["us_per_step"] = rec["recurrence_ms"] / steps * 1e3
     trace = torch.zeros((x.shape[1], 5), dtype=torch.int64, device=CARD)
-    lstm_cuda.backward_on_route(grid, *bargs, trace=trace)
+    on_route(grid, *bargs, trace=trace)
     rec.update(step_split(trace, steps))
     return rec
 
@@ -1009,8 +1023,11 @@ def bilstm_phase() -> tuple[list[dict], dict]:
             check(all(torch.equal(a, o) for a, o in zip(fwd, oracle)),
                   f"K11 training forward ({res}): differs from the per-utterance oracle")
             bargs = (gy, x, wih, whh, lens, fwd[1], fwd[2])
+            build.reset_launches()
             grads = lstm_cuda.bilstm_seq_bwd(*bargs)
             torch.cuda.synchronize()
+            check({k: v for k, v in build.LAUNCHES.items() if v} == {"bilstm_seq_bwd": 1},
+                  f"K11 backward ({res}): not the dual grid: {dict(build.LAUNCHES)}")
             k3b = [lstm_cuda.lstm_seq_bwd(gy[..., d * Hd:(d + 1) * Hd].contiguous(), x, wih[d],
                                           whh[d], lens, fwd[1][d], fwd[2][d], bool(d))
                    for d in (0, 1)]
@@ -1018,7 +1035,11 @@ def bilstm_phase() -> tuple[list[dict], dict]:
                                             for i in (1, 2, 3)))
             want = (*lstm_cuda.bilstm_seq_train_plain(*targs),
                     *lstm_cuda.bilstm_seq_bwd_plain(*bargs))
-            rec = {"grads_bit_equal_k3": all(torch.equal(a, c) for a, c in zip(grads, k3g))}
+            rec = {"grads_bit_equal_k3": all(torch.equal(a, c) for a, c in zip(grads, k3g)),
+                   "grads_bit_equal_oracle": all(torch.equal(a, c) for a, c in zip(
+                       grads, lstm_cuda._bilstm_seq_bwd_per_utterance(*bargs)))}
+            check(rec["grads_bit_equal_k3"] and rec["grads_bit_equal_oracle"],
+                  f"K11 backward ({res}): differs from two K3 backward launches or the oracle")
             for name, a, w, c in zip(("out", "acts", "ct", "dx", "dwih", "dwhh", "db"),
                                      (*fwd, *grads), want, (None, None, None, *k3g)):
                 tol = K3_BF16_TOL if a.dtype == torch.bfloat16 else K3_F32_TOL
@@ -1047,18 +1068,29 @@ def bilstm_phase() -> tuple[list[dict], dict]:
                                               for p in k3_fwd], 5, 4, 1),
             "fwd_oracle_ms": time_ms(lambda: lstm_cuda._bilstm_seq_per_utterance(*targs),
                                      5, 4, 1),
-            "bwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd(*bargs), 5, 4, 1),
-            "bwd_two_k3_ms": time_ms(lambda: [lstm_cuda.lstm_seq_bwd(*p) for p in k3_bwd],
-                                     5, 4, 1),
+
             "plain_fwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_train_plain(*targs), 3, 1, 1),
             "plain_bwd_ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd_plain(*bargs), 3, 1, 1),
-            "library_fwd_ms": time_ms(lambda: ref(xg), 5, 4, 1),
-            "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
-                ref_out, ref_in, gy, retain_graph=True), 5, 4, 1)}
+            "library_fwd_ms": time_ms(lambda: ref(xg), 5, 4, 1)}
+        # The backward in turns: the dual grid, two K3 backward launches,
+        # the per-utterance oracle and cuDNN's backward.
+        bwd_turns = in_turns({
+            "bwd": lambda: lstm_cuda.bilstm_seq_bwd(*bargs),
+            "bwd_two_k3": lambda: [lstm_cuda.lstm_seq_bwd(*p) for p in k3_bwd],
+            "bwd_oracle": lambda: lstm_cuda._bilstm_seq_bwd_per_utterance(*bargs),
+            "library_bwd": lambda: torch.autograd.grad(ref_out, ref_in, gy, retain_graph=True)})
+        timed.update({f"{n}_ms": statistics.median(v) for n, v in bwd_turns.items()})
+        timed["bwd_turns_ms"] = bwd_turns
         timed["fwd_bound_ms"], timed["fwd_bound_by"] = bounds["train_fwd"]
         timed["bwd_bound_ms"], timed["bwd_bound_by"] = bounds["bwd"]
         timed["fwd_grid"] = grid_record(args, b, T, res, dual=True)
         print(f"bilstm_seq_train_fwd dual grid, {tag}: {json.dumps(timed['fwd_grid'])}")
+        timed["bwd_grid"] = bwd_grid_record(bargs, max(lengths), dual=True)
+        timed["bwd_grid"]["products_ms"] = sum(
+            device_ms_per_call(lambda: lstm_cuda.bilstm_seq_bwd(*bargs), kernel, 5)
+            for kernel in ("gemm_kernel", "column_sum_kernel", "add_halves_kernel"))
+        print(f"bilstm_seq_bwd dual grid, {tag}: {json.dumps(timed['bwd_grid'])}, in turns "
+              f"{json.dumps(bwd_turns)}")
         # The op's own path: without gradients, then under autograd.
         params = [t.clone().requires_grad_(True) for t in (x, wih, whh, bias)]
         plain = [(lstm_cuda, n) for n in ("bilstm_seq_plain", "bilstm_seq_train_plain",
@@ -1096,13 +1128,13 @@ def bilstm_phase() -> tuple[list[dict], dict]:
             "max_abs_err": max(r[o]["max_abs_err"] for r in train.values() for o in outs),
             "tol": {"float32": K3_F32_TOL, "bfloat16": K3_BF16_TOL},
             "ms": timed[f"{stem}_ms"], "two_k3_ms": timed[f"{stem}_two_k3_ms"],
-            **({"oracle_ms": timed["fwd_oracle_ms"], "grid": timed["fwd_grid"]}
-               if stem == "fwd" else {}),
+            "oracle_ms": timed[f"{stem}_oracle_ms"], "grid": timed[f"{stem}_grid"],
+            **({"turns_ms": timed["bwd_turns_ms"]} if stem == "bwd" else {}),
             "plain_ms": timed[f"plain_{stem}_ms"], "library_ms": timed[f"library_{stem}_ms"],
             "library": f"torch.nn.LSTM(bidirectional=True) (cuDNN, fp32) {what}",
             "bound_ms": timed[f"{stem}_bound_ms"], "bound_by": timed[f"{stem}_bound_by"],
-            "residuals": {r: {o: v[o] for o in outs} | {"grads_bit_equal_k3":
-                                                        v["grads_bit_equal_k3"]}
+            "residuals": {r: {o: v[o] for o in outs} | {
+                k: v[k] for k in ("grads_bit_equal_k3", "grads_bit_equal_oracle")}
                           for r, v in train.items()}})
     return out, path_launches
 
@@ -2330,7 +2362,7 @@ def wide_lstm_rows(g: torch.Generator) -> list[dict]:
         "library_ms": time_ms(lambda: ref(xg), 3, 2, 1), "library": f"{k11}) forward",
         **dict(zip(("bound_ms", "bound_by"), bounds["train_fwd"]))}
     rows["bilstm_seq_bwd_wide"] = {
-        "counted_as": "bilstm_seq_bwd", "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:822",
+        "replaces": "pytorch_asr_tpu/ops/lstm_pallas.py:822",
         "outputs": bwd_rec,
         "ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd(*bargs), 3, 1, 1),
         "plain_ms": time_ms(lambda: lstm_cuda.bilstm_seq_bwd_plain(*bargs), 2, 1, 1),
@@ -2500,7 +2532,7 @@ def wide_phase() -> tuple[dict, list[dict], dict]:
     y.float().square().sum().backward()
     torch.cuda.synchronize()
     paths["wide_bilstm"] = {k: v for k, v in build.LAUNCHES.items() if v}
-    want = {"bilstm_seq_wide": 1, "bilstm_seq_train_wide": 1, "bilstm_seq_bwd": 1}
+    want = {"bilstm_seq_wide": 1, "bilstm_seq_train_wide": 1, "bilstm_seq_bwd_wide": 1}
     check(paths["wide_bilstm"] == want, f"wide bilstm launches {paths['wide_bilstm']}")
     check(torch.equal(y0, y.detach()) and all(
         bool(torch.isfinite(p.grad.float()).all()) for p in params),
@@ -2563,10 +2595,121 @@ def wide_phase() -> tuple[dict, list[dict], dict]:
           f"wide study launches {paths['wide_study']}")
     out["study"] = {"beam": WIDE_STUDY_BEAM, "wall_s": wall, "launches": paths["wide_study"],
                     "lengths": [got_fused[1].tolist(), got_step[1].tolist()]}
+    merge_row, out["merge"], paths["wide_merge"] = wide_merge(logits, blens)
+    deep_row, out["deep_lm"], paths["wide_deep_lm"] = wide_deep_lm(cfg)
     rows = [*wide_lstm_rows(g), *wide_beam_rows(logits, blens, kw7, kw9, got7, got9),
             *wide_study_rows(study_in, {"prefix_beam_fused": (got_fused, None),
-                                        "prefix_beam_stepwise": (got_step, steps)})]
+                                        "prefix_beam_stepwise": (got_step, steps)}),
+            merge_row, deep_row]
     return out, rows, paths
+
+
+def wide_merge(logits: torch.Tensor, lens: torch.Tensor) -> tuple[dict, dict, dict]:
+    """K10 past a block's shared memory: the candidates that 2 shards of a
+    beam-640 search gather at frame WIDE_MERGE_FRAME of the wide phase's
+    logits, merged to 640 by ``merge_topk`` with the counts set to 0 just
+    before and read just after (its in-scratch form, ``merge_topk_wide``),
+    then held to the plain merge on the card bit for bit, every field, and
+    timed beside it.  Returns (its kernel row, the record, the launches)."""
+    Bw, _, V = logits.shape
+    K, nb = WIDE_MERGE_BEAM, V - 1
+    check(not beam_cuda.merge_fits(K, nb), f"K10 at beam {K} fits a block")
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    kw = dict(blank=0, vocab=V, lm_table=None, lm_alpha=0.0, lm_beta=0.0, L=BEAM_L)
+    state = prefix_beam._init_state(Bw, K, BEAM_L, CARD)
+    for t in range(WIDE_MERGE_FRAME):
+        state, _ = prefix_beam._step(state, logp[:, t], t < lens, K=K, **kw)
+    parts = [prefix_beam._build_candidates(prefix_beam_sharded._local_slice(state, p, K // 2),
+                                           logp[:, WIDE_MERGE_FRAME], lm_rows=None, K=K // 2,
+                                           parent_offset=p * K // 2, **kw) for p in (0, 1)]
+    stay, ext = ({k: torch.cat([q[i][k] for q in parts], 1).contiguous() for k in parts[0][i]}
+                 for i in (0, 1))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    score, got = beam_cuda.merge_topk(stay, ext, K)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(launches == {"merge_topk_wide": 1}, f"wide merge launches {launches}")
+    want_score, want = prefix_beam._merge_topk(stay, ext, K)
+    check(torch.equal(score, want_score) and all(
+        got[n].dtype == w.dtype and torch.equal(got[n], w) for n, w in want.items()),
+        f"K10 at beam {K}: differs from the plain merge")
+    merge = lambda: beam_cuda.merge_topk(stay, ext, K)  # noqa: E731
+    row = {"name": "merge_topk_wide", "route": "cuda",
+           "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+           "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:1026",
+           "shape": f"stays ({Bw}, {K}) x 7 fields, lanes ({Bw}, {K * nb}) x 6 fields, K {K}, "
+                    f"from 2 shards at frame {WIDE_MERGE_FRAME}; scratch "
+                    f"{beam_cuda.merge_slice_bytes(K, nb)} bytes a block",
+           "max_abs_err": 0.0, "tol": "every field bit-equal",
+           "ms": time_ms(merge, 5, 4, 1),
+           "plain_ms": time_ms(lambda: prefix_beam._merge_topk(stay, ext, K), 5, 4, 1),
+           "library_ms": None, "library": "none: no PyTorch call computes this merge",
+           **dict(zip(("bound_ms", "bound_by"), merge_bound(Bw, K, nb, K)))}
+    rec = {"beam": K, "dead_picks": int((want_score <= prefix_beam.NEG_INF / 2).sum()),
+           "launches": launches}
+    return row, rec, launches
+
+
+def wide_deep_lm(cfg) -> tuple[dict, dict, dict]:
+    """K9 with an LM of 10 layers (DEEP_LM, random weights from a seed), past
+    the 8 its kernel once held, through ``prefix_beam_search`` over config
+    2's chars with the counts set to 0 just before and read just after (its
+    grid: ``prefix_beam_rnn``), on 2 rows of random logits with a path
+    planted at +8 and max_len above the frames (decisive inputs); tokens
+    and lengths exact against the plain search on the card, scores within
+    RNN_RTOL / RNN_ATOL; timed beside it.  Returns (its kernel row, the
+    record, the launches)."""
+    g = torch.Generator().manual_seed(44)
+    T = 200
+    logits = torch.randn(2, T, V, generator=g).mul(2)
+    path = torch.randint(0, V, (2, T), generator=g)
+    logits.scatter_add_(2, path[..., None], torch.full((2, T, 1), 8.0))
+    logits, lens = logits.to(CARD), torch.tensor([T, 150], dtype=torch.int32, device=CARD)
+    lm = CharRNNLM(DEEP_LM, V, seed=24).to(CARD).eval()
+    shape = (DEEP_LM.num_layers, DEEP_LM.embed_dim, DEEP_LM.hidden_dim)
+    check(beam_cuda.rnn_grid_route(2, BEAM_K, V, V, *shape, build.sm_count(0)) is not None,
+          "K9 with the deep LM does not fit its grid")
+    kw = dict(beam_size=BEAM_K, max_len=BEAM_L, rnn_lm=lm,
+              sos_id=get_tokenizer(cfg.data.vocab).sos_id, lm_alpha=cfg.decode.lm_alpha,
+              lm_beta=cfg.decode.lm_beta)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(launches == {"prefix_beam_rnn": 1}, f"deep LM launches {launches}")
+    with lm_steps_counted() as lm_steps:
+        want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "K9 with 10 LM layers: tokens or lengths differ from the plain search")
+    torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL,
+                               msg=lambda m: f"K9 deep LM scores: {m}")
+    logp = prefix_beam._prepare(logits, 0)[0]
+    state0 = prefix_beam.primed_lm_state(lm, kw["sos_id"])
+    args = (logp, lens, BEAM_K, BEAM_L, lm, *state0, kw["lm_alpha"], kw["lm_beta"])
+    frames = int(lens.sum())
+    n_weights = sum(p.numel() for p in lm.parameters())
+    row = {"name": "prefix_beam_rnn_deep", "counted_as": "prefix_beam_rnn", "route": "cuda",
+           "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+           "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:1452",
+           "shape": f"logp (2, {T}, {V}) f32, lengths {lens.tolist()}, K {BEAM_K}, L {BEAM_L}, "
+                    f"C {V}, LM E {DEEP_LM.embed_dim} H {DEEP_LM.hidden_dim} x "
+                    f"{DEEP_LM.num_layers} (its grid)",
+           "max_abs_err": (got[2] - want[2]).abs().max().item(),
+           "tol": {"tokens": "equal", "scores_rtol": RNN_RTOL, "scores_atol": RNN_ATOL},
+           "lm_steps_per_frame": lm_steps[0] / frames,
+           "ms": time_ms(lambda: beam_cuda.prefix_beam_rnn(*args), 3, 1, 1),
+           "plain_ms": time_ms(lambda: prefix_beam.beam_scan_plain(
+               *args[:4], None, *args[8:], rnn_lm=lm, lm_state=state0), 1, 1, 0),
+           "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
+           **dict(zip(("bound_ms", "bound_by"), search_bound(
+               frames, BEAM_K, V, V, 0, 2, BEAM_L,
+               4 * (n_weights + 2 * DEEP_LM.num_layers * DEEP_LM.hidden_dim + V),
+               lm_steps[0] * lm_step_ops(DEEP_LM, V))))}
+    rec = {"lm": f"E {DEEP_LM.embed_dim} H {DEEP_LM.hidden_dim} x {DEEP_LM.num_layers}",
+           "lengths": got[1].tolist(), "launches": launches}
+    return row, rec, launches
 
 
 def shard_candidates(state, logp_t, P: int, lm, kw: dict) -> tuple[dict, dict]:
@@ -2626,13 +2769,6 @@ def merge_phase(arpa: str) -> dict:
             state, _ = prefix_beam._step(state, logp[:, t], t < lens, K=BEAM_K, **kw)
     stay, ext = timed
     nb = V - 1
-    N = BEAM_K + BEAM_K * nb
-    # Bytes: the 7 stay and 6 lane fields read once, the 9 outputs written.
-    # Operations a row: ~3 a candidate (its score and key), 3 a (beam, beam)
-    # absorb test, and a top-K over N candidates at log2(K) compares each.
-    nbytes = 4 * (7 * B * BEAM_K + 6 * B * BEAM_K * nb + 9 * B * BEAM_K)
-    ops = B * (3 * N + 3 * BEAM_K ** 2 + N * math.log2(BEAM_K))
-    b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
     # Back-to-back calls measure the wrapper (its checks, 9 output tensors,
     # the ctypes call) where that costs more than the kernel; the profiler
     # gives the kernel's own device time.
@@ -2644,9 +2780,42 @@ def merge_phase(arpa: str) -> dict:
                      f"K {BEAM_K}, from 2 and 4 shards, frames {list(MERGE_FRAMES)}",
             "max_abs_err": 0.0, "tol": "every field bit-equal",
             "ms": time_ms(merge), "device_ms": device_ms_per_call(merge, "merge_topk_kernel"),
+            "split_us": merge_split(stay, ext, BEAM_K),
             "plain_ms": time_ms(lambda: prefix_beam._merge_topk(stay, ext, BEAM_K)),
             "library_ms": None, "library": "none: no PyTorch call computes this merge",
-            "bound_ms": b_ms, "bound_by": b_by, "cases": cases}
+            **dict(zip(("bound_ms", "bound_by"), merge_bound(B, BEAM_K, nb, BEAM_K))),
+            "cases": cases}
+
+
+def merge_bound(B: int, Ks: int, nb: int, K: int) -> tuple[float, str]:
+    """``bound`` of K10 over B rows of Ks stays and Ks nb lanes.  Bytes: the
+    7 stay and 6 lane fields read once, the 9 outputs written.  Operations a
+    row: ~3 a candidate (its score and key), 3 a (beam, beam) absorb test,
+    and a top-K over N candidates at log2(K) compares each."""
+    N = Ks + Ks * nb
+    nbytes = 4 * (7 * B * Ks + 6 * B * Ks * nb + 9 * B * K)
+    ops = B * (3 * N + 3 * Ks ** 2 + N * math.log2(max(K, 2)))
+    return bound(nbytes, ops / PEAK_FP32_S)
+
+
+MERGE_PHASES = ("loads", "absorb", "sort", "picks")
+
+
+def merge_split(stay: dict, ext: dict, K: int, calls: int = 40) -> dict:
+    """K10's block 0 by phase over ``calls`` launches (``merge_topk``'s
+    (7,) trace each): the median µs of the loads, the absorb, the keys and
+    warp sorts, and the merge tree (or ranks) with the picks, at the clock
+    the traces saw (their clocks over their global-clock spans, summed)."""
+    trace = torch.zeros((calls, 7), dtype=torch.int64, device=CARD)
+    for i in range(calls):
+        beam_cuda.merge_topk(stay, ext, K, trace=trace[i])
+    tr = trace.cpu().numpy().astype(np.float64)
+    check(bool((tr[:, 0] > 0).all()), "merge_topk trace: a launch wrote no trace")
+    ghz = (tr[:, 5] - tr[:, 1]).sum() / (tr[:, 6] - tr[:, 0]).sum()
+    return {"launches": calls, "trace_clock_ghz": ghz,
+            "us_median": {n: float(np.median(tr[:, i + 2] - tr[:, i + 1])) / ghz / 1e3
+                          for i, n in enumerate(MERGE_PHASES)},
+            "us_total_median": float(np.median(tr[:, 5] - tr[:, 1])) / ghz / 1e3}
 
 
 def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
@@ -2706,6 +2875,18 @@ def rnn_past_smem_phase(rnn_lm_path: str) -> dict:
     return out
 
 
+def profiled(fn, calls: int):
+    """The profile of ``calls`` calls of ``fn`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
 def device_ms_per_call(fn, kernel: str, calls: int = 20, attempts: int = 4) -> float:
     """The device time of the kernels named ``kernel`` per call of ``fn``,
     from the profiler over ``calls`` calls after one warm-up.  A profile
@@ -2713,15 +2894,8 @@ def device_ms_per_call(fn, kernel: str, calls: int = 20, attempts: int = 4) -> f
     process's first profile, and twice in a row for K10 in one run) is
     taken again, up to ``attempts`` profiles, each failure naming the
     kernels the profile did record; if none records it, the run fails."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(attempts):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = device_rows(prof, width=None)
+        rows = device_rows(profiled(fn, calls), width=None)
         got = sum(r["device_ms"] for r in rows if kernel in r["name"])
         if got > 0:
             break
@@ -3045,10 +3219,13 @@ def main() -> int:
                 "lstm_seq_bwd_wide": "wide_train", "bilstm_seq_wide": "wide_bilstm",
                 "bilstm_seq_train_wide": "wide_bilstm", "bilstm_seq_bwd_wide": "wide_bilstm",
                 "prefix_beam_wide": "wide_beam", "prefix_beam_rnn_wide": "wide_beam",
-                "prefix_beam_fused_wide": "wide_study", "prefix_beam_stepwise_wide": "wide_study"}
-    # The per-utterance oracle of the grid kernel is no path's kernel.
-    oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0) for p, counts in paths.items()}
-    print("bilstm_seq_per_utterance launches by path:", json.dumps(oracle_runs))
+                "prefix_beam_fused_wide": "wide_study", "prefix_beam_stepwise_wide": "wide_study",
+                "merge_topk_wide": "wide_merge", "prefix_beam_rnn_deep": "wide_deep_lm"}
+    # The per-utterance oracles of the grid kernels are no path's kernels.
+    oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0)
+                   + counts.get("bilstm_seq_bwd_per_utterance", 0) for p, counts in paths.items()}
+    print("bilstm_seq_per_utterance and bilstm_seq_bwd_per_utterance launches by path:",
+          json.dumps(oracle_runs))
     check(not any(oracle_runs.values()), f"the per-utterance oracle ran on a path: {oracle_runs}")
     # Nor does any main path take a route past the kernels' capacity.
     wide_runs = {p: {r: counts.get(r, 0) for r in WIDE_ROUTES} for p, counts in paths.items()
@@ -3056,7 +3233,7 @@ def main() -> int:
     print("wide route launches by path:", json.dumps(wide_runs))
     check(not any(any(c.values()) for c in wide_runs.values()),
           f"a main path took a wide route: {wide_runs}")
-    # K11's wide backward row is its kernel at H 1536, counted under the kernel's name.
+    # The deep LM's row is K9's grid at 10 layers, counted under the kernel's name.
     for k in kernels:
         by_path = {p: counts.get(k.get("counted_as", k["name"]), 0) for p, counts in paths.items()}
         own = own_path.get(k["name"], "train")

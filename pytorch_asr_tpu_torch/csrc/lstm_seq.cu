@@ -111,10 +111,19 @@
 // them bit for bit.  Bound as K2/K3, twice their operations; in practice a
 // step costs about one K2 step with twice the dot chains a CTA, the staging
 // and barrier shared (PERF.md).  The input projections are K2's GEMM, once
-// a direction.  The backward runs both directions' per-utterance
-// recurrences (lstm_bwd_recurrence_kernel with kDual: the grid (B, 2); the
-// same bits as two K3 backward launches), then K3's products for each
-// direction, and dx = dx_f + dx_b, each half in x's type (as the JAX
+// a direction.  The backward's dh recurrence is lstm_bwd_grid_kernel's
+// dual form alike: a cooperative (ctas, 2) grid, each half holding its
+// direction's rows of whh (ops/lstm_cuda.py::backward_grid with directions
+// 2: 64 CTAs of 6 units a direction at H 384, of 8 at H 512), reading its
+// own gy columns and residuals and writing its own dgates and hprev, one
+// barrier a step counting the CTAs of both halves; every dh chain and cell
+// is K3's, so the outputs equal two K3 backward launches bit for bit.  A
+// step costs about one K3 backward step with twice the chains a CTA.  Past
+// the dual grid (ops/lstm_cuda.py::backward_route: from H 925 at B 8) it
+// runs both directions' per-utterance recurrences (lstm_bwd_recurrence_kernel
+// with kDual: the grid (B, 2), the same bits), its wide route and the
+// grid's oracle (bilstm_seq_bwd_per_utterance).  Then K3's products for
+// each direction, and dx = dx_f + dx_b, each half in x's type (as the JAX
 // kernel writes dxf and dxb in x's type and sums them).
 //
 // The oracle.  lstm_recurrence_kernel<..., kDual> walks each utterance of
@@ -682,7 +691,14 @@ constexpr int kChainU = 4;
 // lstm_grid_kernel's: the global timer as a step starts, then its clock
 // then, after the staging (and the cell inputs), after the dh chains and
 // after the cells.
-template <typename ResT>
+// kDual (K11): the grid is (ctas, 2) and blockIdx.y the direction, 0
+// forward, 1 reverse; gy (B, T, 2H) (direction d reads columns [d H, (d +
+// 1) H)), acts (2, T, B, 4H), ct (2, T, B, H), whh (2, H, 4H), dgates (2, B,
+// T, 4H), hprev (2, B, T, H): the offsets of lstm_bwd_recurrence_kernel's
+// dual form.  Both halves step in lockstep, one barrier a step for all
+// their CTAs; each half zero-fills its own direction's windows; the trace is
+// CTA (0, 0)'s.
+template <typename ResT, bool kDual = false>
 __global__ void __launch_bounds__(1024) lstm_bwd_grid_kernel(
     const float* __restrict__ gy, const ResT* __restrict__ acts, const ResT* __restrict__ ct,
     const float* __restrict__ whh, const int* __restrict__ lengths, float* dgates,
@@ -690,6 +706,17 @@ __global__ void __launch_bounds__(1024) lstm_bwd_grid_kernel(
     int rows, int reverse) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H, S = B * units;
+  if constexpr (kDual) {
+    const int dir = blockIdx.y;
+    reverse = dir;
+    gy += (size_t)dir * H;
+    acts += (size_t)dir * T * B * G;
+    ct += (size_t)dir * T * B * H;
+    whh += (size_t)dir * H * G;
+    dgates += (size_t)dir * B * T * G;
+    hprev += (size_t)dir * B * T * H;
+  }
+  constexpr int kRows = kDual ? 2 : 1;  // gy's row stride, in H
   const int k0 = blockIdx.x * units, nu = min(units, H - k0);
   float* w_s = smem;              // (units, G): whh[k0 + u, :]
   float* dg_s = w_s + units * G;  // (rows, G): the staged dgates rows
@@ -716,7 +743,7 @@ __global__ void __launch_bounds__(1024) lstm_bwd_grid_kernel(
   for (int e = threadIdx.x; e < S; e += blockDim.x) dc_s[e] = 0.f;
   __syncthreads();
 
-  long long* tr = blockIdx.x == 0 && threadIdx.x == 0 ? trace : nullptr;
+  long long* tr = blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 ? trace : nullptr;
   for (int s = 0; s < steps; ++s) {
     if (tr) {
       tr[5 * s] = (long long)global_ns();
@@ -760,7 +787,7 @@ __global__ void __launch_bounds__(1024) lstm_bwd_grid_kernel(
           in[3 * S] = to_f32(a[3 * H + k]);
           in[4 * S] = tanhf(to_f32(ct[((size_t)t * B + b) * H + k]));
           in[5 * S] = c_prev;
-          in[6 * S] = gy[((size_t)b * T + t) * H + k];
+          in[6 * S] = gy[((size_t)b * T + t) * H * kRows + k];
         }
       }
       if (s == 0) break;  // dh enters the first step as 0: nothing to stage
@@ -813,7 +840,7 @@ __global__ void __launch_bounds__(1024) lstm_bwd_grid_kernel(
     }
     __syncthreads();
     if (tr) tr[5 * s + 4] = clock64();
-    if (s + 1 < steps) grid_wait(sync, (unsigned)(s + 1) * gridDim.x);
+    if (s + 1 < steps) grid_wait(sync, (unsigned)(s + 1) * gridDim.x * gridDim.y);
   }
 }
 
@@ -951,9 +978,10 @@ cudaError_t bwd_recurrence(const float* gy, const void* acts, const void* ct,
 
 // K3's backward recurrence on the co-resident grid: ctas CTAs of `units`
 // hidden units each, `rows` utterances staged at once, smem bytes of shared
-// memory each (ops/lstm_cuda.py::backward_grid).  Returns the cooperative
-// launch's error where the grid cannot be resident at once.
-template <typename ResT>
+// memory each (ops/lstm_cuda.py::backward_grid); under kDual (K11) ctas a
+// direction, the grid (ctas, 2).  Returns the cooperative launch's error
+// where the grid cannot be resident at once.
+template <typename ResT, bool kDual = false>
 cudaError_t bwd_grid_recurrence(const float* gy, const void* acts, const void* ct,
                                 const float* whh, const int* lengths, float* dgates,
                                 float* hprev, unsigned* sync, long long* trace, int B, int T,
@@ -962,7 +990,7 @@ cudaError_t bwd_grid_recurrence(const float* gy, const void* acts, const void* c
   if (units < 1 || rows < 1 || rows > B || (long)ctas * units < H ||
       (long)(ctas - 1) * units >= H || (size_t)smem < bwd_grid_smem_bytes(H, B, units, rows))
     return cudaErrorInvalidValue;
-  auto kernel = lstm_bwd_grid_kernel<ResT>;
+  auto kernel = lstm_bwd_grid_kernel<ResT, kDual>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -975,8 +1003,8 @@ cudaError_t bwd_grid_recurrence(const float* gy, const void* acts, const void* c
   const ResT* c = static_cast<const ResT*>(ct);
   void* args[] = {&gy, &a, &c, &whh, &lengths, &dgates, &hprev, &sync, &trace,
                   &T, &B, &H, &units, &rows, &reverse};
-  return launch_cooperative(reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(threads),
-                            args, (size_t)smem, st);
+  return launch_cooperative(reinterpret_cast<const void*>(kernel), dim3(ctas, kDual ? 2 : 1),
+                            dim3(threads), args, (size_t)smem, st);
 }
 
 template <typename InT>
@@ -1208,14 +1236,45 @@ extern "C" int bilstm_seq_per_utterance(const void* x, const void* wih, const fl
                                  res_bf16, st);
 }
 
-// K11, backward.  gy (B, T, 2H) fp32; dgates (2, B, T, 4H), hprev (2, B, T,
-// H) fp32 and dx2 (2, B, T, D) in x's type: scratch; dx (B, T, D) in x's
-// type, dwih (2, D, 4H) in wih's type, dwhh (2, H, 4H) and db (2, 4H) fp32.
+// K11, backward, its dh recurrence on the dual grid.  gy (B, T, 2H) fp32;
+// dgates (2, B, T, 4H), hprev (2, B, T, H) fp32 and dx2 (2, B, T, D) in x's
+// type: scratch; dx (B, T, D) in x's type, dwih (2, D, 4H) in wih's type,
+// dwhh (2, H, 4H) and db (2, 4H) fp32; sync (one unsigned, 0) and trace
+// (null, or (max len, 5) int64, CTA (0, 0)'s: see lstm_bwd_grid_kernel);
+// ctas, units, rows, smem: a direction's grid (ops/lstm_cuda.py::
+// backward_grid with directions 2).
 extern "C" int bilstm_seq_bwd(const float* gy, const void* x, const void* wih,
                               const float* whh, const int* lengths, const void* acts,
                               const void* ct, float* dgates, float* hprev, void* dx2, void* dx,
-                              void* dwih, float* dwhh, float* db, int B, int T, int D, int H,
-                              int in_bf16, int res_bf16, void* stream) {
+                              void* dwih, float* dwhh, float* db, unsigned* sync,
+                              long long* trace, int B, int T, int D, int H, int in_bf16,
+                              int res_bf16, int ctas, int units, int rows, int smem,
+                              void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      res_bf16 ? bwd_grid_recurrence<bf16, true>(gy, acts, ct, whh, lengths, dgates, hprev, sync,
+                                                 trace, B, T, H, 0, ctas, units, rows, smem, st)
+               : bwd_grid_recurrence<float, true>(gy, acts, ct, whh, lengths, dgates, hprev,
+                                                  sync, trace, B, T, H, 0, ctas, units, rows,
+                                                  smem, st);
+  if (err != cudaSuccess) return err;
+  return in_bf16 ? dual_bwd_products<bf16>(dgates, hprev, x, wih, dx2, dx, dwih, dwhh, db,
+                                           B * T, D, H, st)
+                 : dual_bwd_products<float>(dgates, hprev, x, wih, dx2, dx, dwih, dwhh, db,
+                                            B * T, D, H, st);
+}
+
+// K11's backward on the per-utterance kernel, a block an utterance and
+// direction: its wide route, where the dual grid cannot hold whh's rows,
+// and the grid's bit-equality oracle.  Arguments as bilstm_seq_bwd's
+// without the grid's.
+extern "C" int bilstm_seq_bwd_per_utterance(const float* gy, const void* x, const void* wih,
+                                            const float* whh, const int* lengths,
+                                            const void* acts, const void* ct, float* dgates,
+                                            float* hprev, void* dx2, void* dx, void* dwih,
+                                            float* dwhh, float* db, int B, int T, int D, int H,
+                                            int in_bf16, int res_bf16, void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =

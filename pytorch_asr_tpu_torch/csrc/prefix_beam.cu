@@ -16,8 +16,8 @@
 //   K10 pytorch_asr_tpu/ops/beam_pallas.py:1026 merge_topk_fused
 //       (_merge_kernel :973): one frame's absorb and top-K over candidates
 //       gathered from the beam shards, for the beam-sharded search (its own
-//       kernel at the end of this file: K7's per-frame merge lifted out; it
-//       keeps the K-round selection, select_topk, and repeats the absorb).
+//       kernel at the end of this file: K7's per-frame merge lifted out, on
+//       search_frame's absorb and selection, the absorb written again).
 // Python side: ops/beam_cuda.py; plain versions:
 // decoding/prefix_beam.py::beam_scan_plain and, for K10, ::_merge_topk.
 // K7, K8 and K10 match them token for token and bit for bit; K9 token for
@@ -74,7 +74,7 @@
 //
 // K10 reads the gathered fields once (7 stay and 6 lane fields, ~200 KB a
 // frame at config 2) and writes 9 (B, K) outputs: bytes, ~0.06 us; it is
-// bound by one launch and K barrier-separated selection rounds a frame.
+// bound by one launch and the latency of its few barrier-separated phases.
 // Bound on this card, K7/K8: bytes.  It reads logp (B*T*V*4), the table
 // once, and writes the backpointers (2*B*T*K*4): about 5.3 MB at the
 // serving shapes (B 16, T 400, V 31, K 16, a 4-gram table of 3.69 MB), 1.6
@@ -177,8 +177,8 @@
 // Same code, same order of operations, so the same result as the shared
 // form; slower, as every access of the working set goes through L1.  It
 // counts under its own names (prefix_beam_wide, ..._topa_wide,
-// prefix_beam_rnn_wide, ..._rnn_topa_wide).  No model configuration of the
-// repo reaches it.
+// prefix_beam_rnn_wide, ..._rnn_topa_wide; K10's merge_topk_wide, below).
+// No model configuration of the repo reaches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -221,30 +221,6 @@ __device__ __forceinline__ int key_index(unsigned long long key) {
 __device__ __forceinline__ unsigned long long umax(unsigned long long a,
                                                    unsigned long long b) {
   return a > b ? a : b;
-}
-
-// Top-K: K rounds of a block argmax over the N keys; candidate j belongs to
-// thread j % nt, which alone reads and clears its keys, so no barrier is
-// needed before the first round.  Thread r < K gets pick r's key.  K10's
-// selection.
-__device__ __forceinline__ unsigned long long select_topk(unsigned long long* key,
-                                                          unsigned long long* wbest, int N,
-                                                          int K, int tid, int nt) {
-  const int warp = tid >> 5, nwarps = (nt + 31) >> 5;
-  unsigned long long mine = 0;
-  for (int r = 0; r < K; ++r) {
-    unsigned long long best = 0;
-    for (int j = tid; j < N; j += nt) best = umax(best, key[j]);
-    for (int o = 16; o > 0; o >>= 1) best = umax(best, __shfl_xor_sync(0xffffffffu, best, o));
-    if ((tid & 31) == 0) wbest[(r & 1) * 32 + warp] = best;  // double-buffered
-    __syncthreads();
-    best = 0;
-    for (int w = 0; w < nwarps; ++w) best = umax(best, wbest[(r & 1) * 32 + w]);
-    const int j = key_index(best);
-    if (j % nt == tid) key[j] = 0;
-    if (tid == r) mine = best;
-  }
-  return mine;
 }
 
 // The warp sort of the frame's selection.  Warp w's segment of the N keys
@@ -345,10 +321,11 @@ __device__ __forceinline__ int count_above(const unsigned long long* s, int n, i
   return i;
 }
 
-constexpr int kMaxLayers = 8;
-
 // K9's LM: the weights in device memory in the JAX layouts, and the state
-// after <sos> that every beam starts from.
+// after <sos> that every beam starts from.  The layers' weights come by a
+// table of 3 nl device pointers in device memory (any number of layers):
+// wx of each layer, then wh of each, then b of each
+// (ops/beam_cuda.py::lm_layer_table).
 struct RnnLm {
   const float* embed;            // (V, E)
   const float* w_out;            // (H, V)
@@ -356,10 +333,11 @@ struct RnnLm {
   const float* h0;               // (nl, H)
   const float* c0;               // (nl, H)
   const float* lmp0;             // (V) log-probs after <sos>
-  const float* wx[kMaxLayers];   // (E for layer 0, else H; 4H)
-  const float* wh[kMaxLayers];   // (H, 4H)
-  const float* b[kMaxLayers];    // (4H)
+  const float* const* layer;     // (3 nl) the layers' weights
   int nl, E, H;
+  __device__ __forceinline__ const float* wx(int l) const { return layer[l]; }  // (E or H, 4H)
+  __device__ __forceinline__ const float* wh(int l) const { return layer[nl + l]; }  // (H, 4H)
+  __device__ __forceinline__ const float* b(int l) const { return layer[2 * nl + l]; }  // (4H)
 };
 
 // K9's LM state and scratch in shared memory (the block kernel).
@@ -856,7 +834,7 @@ __device__ void pack_inputs(const RnnLm& lm, const LmSmem& s, int l, int K, int 
 __device__ void lstm_layer(const RnnLm& lm, const LmSmem& s, int l, int K, int groups,
                            const float* c_cur, float* h_nxt, float* c_nxt, int tid, int nt) {
   const int H = lm.H, n = *s.n_app, In = l == 0 ? lm.E : H, W = In + H;
-  const float *wx = lm.wx[l], *wh = lm.wh[l], *bias = lm.b[l];
+  const float *wx = lm.wx(l), *wh = lm.wh(l), *bias = lm.b(l);
   const float4* xin = reinterpret_cast<const float4*>(s.xin);
   for (int it = tid; it < H * groups; it += nt) {
     const int j = it % H, g = it / H;
@@ -1241,7 +1219,7 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
   // layer 0's input table, the biases, the lengths.
   for (int e = tid; e < U4 * H; e += nt) {
     const int cc = e / H, i = e - cc * H, u = cc >> 2, gate = cc & 3;
-    w_s[e] = u < nu ? lm.wh[0][(size_t)i * 4 * H + gate * H + k0 + u] : 0.0f;
+    w_s[e] = u < nu ? lm.wh(0)[(size_t)i * 4 * H + gate * H + k0 + u] : 0.0f;
   }
   for (int l = 1; l < nl; ++l) {
     float* wl = w_s + (size_t)U4 * H + (size_t)(l - 1) * U4 * 2 * H;
@@ -1249,8 +1227,8 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
       const int cc = e / (2 * H), i = e - cc * 2 * H, u = cc >> 2, gate = cc & 3;
       const size_t col = (size_t)gate * H + k0 + u;
       wl[e] = u >= nu ? 0.0f
-                      : i < H ? lm.wx[l][(size_t)i * 4 * H + col]
-                              : lm.wh[l][(size_t)(i - H) * 4 * H + col];
+                      : i < H ? lm.wx(l)[(size_t)i * 4 * H + col]
+                              : lm.wh(l)[(size_t)(i - H) * 4 * H + col];
     }
   }
   for (int e = tid; e < V * U4; e += nt) {  // embed[v] wx0[:, col], fmaf from 0 in order
@@ -1258,14 +1236,14 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
     float acc = 0.0f;
     if (u < nu) {
       const float* x = lm.embed + (size_t)v * lm.E;
-      const float* wc = lm.wx[0] + (size_t)gate * H + k0 + u;
+      const float* wc = lm.wx(0) + (size_t)gate * H + k0 + u;
       for (int i = 0; i < lm.E; ++i) acc = fmaf(x[i], wc[(size_t)i * 4 * H], acc);
     }
     ex_s[e] = acc;
   }
   for (int e = tid; e < nl * U4; e += nt) {
     const int l = e / U4, cc = e - l * U4, u = cc >> 2, gate = cc & 3;
-    bias_s[e] = u < nu ? lm.b[l][gate * H + k0 + u] : 0.0f;
+    bias_s[e] = u < nu ? lm.b(l)[gate * H + k0 + u] : 0.0f;
   }
   int steps = 0;
   for (int b = 0; b < B; ++b) {
@@ -1495,9 +1473,9 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
   }
 }
 
-// K9's LM from the wrapper's host array of device pointers: embed, w_out,
-// b_out, h0, c0, lmp0, then wx, wh and b of each of the nl layers.
-RnnLm rnn_lm(const float* const* weights, int nl, int E, int H) {
+// K9's LM from the wrapper's host array of device pointers embed, w_out,
+// b_out, h0, c0, lmp0, and its device table of the layers' 3 nl pointers.
+RnnLm rnn_lm(const float* const* weights, const float* const* layers, int nl, int E, int H) {
   RnnLm lm = {};
   lm.embed = weights[0];
   lm.w_out = weights[1];
@@ -1505,11 +1483,7 @@ RnnLm rnn_lm(const float* const* weights, int nl, int E, int H) {
   lm.h0 = weights[3];
   lm.c0 = weights[4];
   lm.lmp0 = weights[5];
-  for (int l = 0; l < nl; ++l) {
-    lm.wx[l] = weights[6 + l];
-    lm.wh[l] = weights[6 + nl + l];
-    lm.b[l] = weights[6 + 2 * nl + l];
-  }
+  lm.layer = layers;
   lm.nl = nl;
   lm.E = E;
   lm.H = H;
@@ -1539,12 +1513,39 @@ SearchIn search_in(const float* logp, const float* top_val, const int* top_idx,
 
 // K10: one frame's merge and top-K over the candidates gathered from the
 // beam shards (decoding/prefix_beam_sharded.py): K7's per-frame merge,
-// lifted out of its time loop.  Ks stays and Ks*nb extension lanes, lane
-// (k, c-1) beam k's extension by char c = 1..nb; lanes' last char is their
-// appended one.  One block a row, one thread a candidate.  The absorb is
-// K7's written again: as a function shared with the search kernel, inlined
-// or not, it changed how ptxas allocated K9's LM step, and K9 ran several
-// times slower on the H100; so only the selection (select_topk) is shared.
+// lifted out of its time loop, on search_frame's design.  Ks stays and
+// Ks*nb extension lanes, lane (k, c-1) beam k's extension by char c =
+// 1..nb (the plain _merge_topk's layout); lanes' last char is their
+// appended one.  One block a row, a thread a candidate (at least Ks kp for
+// the absorb's tests, at most 1024; past that the phases loop: 512 threads
+// at Ks 16 over 30 chars).  Its phases, each ended by a block barrier:
+//   1. loads: the stays' pb, pnb and hashes and the lanes' pnb into the
+//      working set, each candidate's LM term (a lane's pnb + lm) into its
+//      key slot, the absorbed flags cleared;
+//   2. absorb, K7's: a thread a (stay, beam) test, the at most one match a
+//      stay has found by shuffles (Ks <= 32 and Ks kp <= threads; the
+//      prefixes are distinct, so the sum has one term and m + logf(1) is
+//      m, as a thread a stay gives it), else a thread a stay;
+//   3. keys and sort: warp w computes the keys of its own contiguous
+//      segment of the N = Ks + Ks*nb candidates (32 where the warps
+//      suffice: 31 at Ks 16 over 30 chars) and sorts them descending in
+//      registers (or in place past 32);
+//   4. K <= 32: the merge tree, warp 0's lane r then holds pick r and
+//      writes output r; else each of the first K keys of a segment is
+//      ranked by counting the keys above it in every segment, and a key of
+//      rank r < K writes output r.
+// The absorb is written here again rather than shared with search_frame:
+// a function shared with the search kernel, inlined or not, once changed
+// how ptxas allocated K9's LM step.  The selection's functions (the warp
+// sorts, merge_tree, count_above) are __forceinline__ and shared.
+// Past a block's shared memory (merge_smem_bytes over 232,448 bytes, or Ks
+// past 1024: ops/beam_cuda.py::merge_fits) the same kernel keeps its
+// working set, laid out as in shared memory, in the block's slice of a
+// device scratch (kInScratch, counted as merge_topk_wide): Ks 640 over 30
+// chars needs 262,912 bytes.  trace (null in normal use): block 0's thread
+// 0 writes the global clock at its start, its clock then and after the
+// loads, the absorb, the keys and sort and its picks, and the global clock
+// at its end ((7) int64).
 struct MergeIn {
   const float *s_pb, *s_pnb, *s_lm;                      // (B, Ks)
   const int *s_hash, *s_last, *s_parent, *s_ctx;         // (B, Ks)
@@ -1557,76 +1558,124 @@ struct MergeOut {
   int *hash, *last, *parent, *append, *ctx;              // (B, K)
 };
 
+// One block's working set: keys 8 N, 512 bytes of room past them (the
+// merge tree's zeros), 12 Ks of stays (pb, pnb, hash), 5 Ks*nb of lanes
+// (pnb, absorbed); ops/beam_cuda.py mirrors it.  Its slice of the scratch
+// is the same to a 16-byte boundary.
 __host__ __device__ inline size_t merge_smem_bytes(int Ks, int nb) {
   const size_t KC = (size_t)Ks * nb, N = Ks + KC;
   return 8 * N + 512 + 12 * (size_t)Ks + 5 * KC;
 }
 
+__host__ __device__ inline size_t merge_slice_bytes(int Ks, int nb) {
+  return (merge_smem_bytes(Ks, nb) + 15) / 16 * 16;
+}
+
+template <bool kInScratch>
 __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut out, int Ks,
-                                                          int nb, int K) {
+                                                          int nb, int K, char* scratch,
+                                                          long long* trace) {
   const int KC = Ks * nb, N = Ks + KC;
   extern __shared__ __align__(16) unsigned long long smem[];
-  unsigned long long* key = smem;                          // (N) selection keys
-  unsigned long long* wbest = key + N;                     // (2, 32) warp maxima
-  float* spb = reinterpret_cast<float*>(wbest + 64);       // (Ks) stays
+  char* base = kInScratch ? scratch + (size_t)blockIdx.x * merge_slice_bytes(Ks, nb)
+                          : reinterpret_cast<char*>(smem);
+  unsigned long long* key = reinterpret_cast<unsigned long long*>(base);  // (N + 64)
+  float* spb = reinterpret_cast<float*>(key + N + 64);     // (Ks) stays
   float* spnb = spb + Ks;
   float* epnb = spnb + Ks;                                 // (KC) lanes
   uint32_t* hsh = reinterpret_cast<uint32_t*>(epnb + KC);  // (Ks)
   unsigned char* absorbed = reinterpret_cast<unsigned char*>(hsh + Ks);  // (KC)
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const size_t so = (size_t)b * Ks, eo = (size_t)b * KC;
+  long long* tr = trace != nullptr && b == 0 && tid == 0 ? trace : nullptr;
+  if (tr) {
+    tr[0] = (long long)global_ns();
+    tr[1] = clock64();
+  }
+  // Candidate j's LM term rides in the first float of its key slot until
+  // its key is made (only its own warp reads and then writes that slot): a
+  // stay's lm, a lane's pnb + lm (its score unless absorbed).
+  float* lm_in_key = reinterpret_cast<float*>(key);
   for (int k = tid; k < Ks; k += nt) {
     spb[k] = in.s_pb[so + k];
     spnb[k] = in.s_pnb[so + k];
     hsh[k] = (uint32_t)in.s_hash[so + k];
+    lm_in_key[2 * k] = in.s_lm[so + k];
   }
   for (int l = tid; l < KC; l += nt) {
-    epnb[l] = in.e_pnb[eo + l];
+    const float e = in.e_pnb[eo + l];
+    epnb[l] = e;
+    lm_in_key[2 * ((size_t)Ks + l)] = e + in.e_lm[eo + l];
     absorbed[l] = 0;
   }
   __syncthreads();
-  // Absorb: K7's, with lane (k, c - 1) for char c = h_k' - M h_k.
-  if (tid < Ks) {
-    const float sn = spnb[tid];
-    float add = NEG_INF;
-    if (lse(spb[tid], sn) > NEG_INF / 2) {
-      const uint32_t h2 = hsh[tid];
-      float m = NEG_INF;
-      for (int k = 0; k < Ks; ++k) {
-        const uint32_t c = h2 - HASH_MULT * hsh[k];
+  if (tr) tr[2] = clock64();
+
+  // Absorb: the char that would turn beam k into alive stay k' is
+  // c = h_k' - M h_k (mod 2^32); lane (k, c - 1) when 1 <= c <= nb.
+  int kp = 1;
+  while (kp < Ks) kp <<= 1;
+  if (kp <= 32 && Ks * kp <= nt) {
+    if ((tid >> 5) * 32 < Ks * kp) {  // warp-uniform: every lane shuffles
+      const int r = min(tid / kp, Ks - 1), k = tid - (tid / kp) * kp;
+      const bool mine = tid < Ks * kp && k < Ks;
+      const float sn = spnb[r];
+      float e = NEG_INF;
+      bool hit = false;
+      if (mine && lse(spb[r], sn) > NEG_INF / 2) {
+        const uint32_t c = hsh[r] - HASH_MULT * hsh[k];
         if (c >= 1u && c <= (uint32_t)nb) {
           absorbed[k * nb + c - 1] = 1;
-          m = fmaxf(m, epnb[k * nb + c - 1]);
+          e = epnb[k * nb + c - 1];
+          hit = true;
         }
       }
-      if (m > NEG_INF / 2) {
-        float sum = 0.0f;
+      float m = e;
+      for (int o = kp >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sum = hit && m > NEG_INF / 2 ? expf(e - m) : 0.0f;
+      for (int o = kp >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (mine && k == 0) spnb[r] = lse(sn, m > NEG_INF / 2 ? m + logf(sum) : NEG_INF);
+    }
+  } else {
+    for (int r = tid; r < Ks; r += nt) {
+      const float sn = spnb[r];
+      float add = NEG_INF;
+      if (lse(spb[r], sn) > NEG_INF / 2) {
+        const uint32_t h2 = hsh[r];
+        float m = NEG_INF;
         for (int k = 0; k < Ks; ++k) {
           const uint32_t c = h2 - HASH_MULT * hsh[k];
-          if (c >= 1u && c <= (uint32_t)nb) sum += expf(epnb[k * nb + c - 1] - m);
+          if (c >= 1u && c <= (uint32_t)nb) {
+            absorbed[k * nb + c - 1] = 1;
+            m = fmaxf(m, epnb[k * nb + c - 1]);
+          }
         }
-        add = m + logf(sum);
+        if (m > NEG_INF / 2) {
+          float sum = 0.0f;
+          for (int k = 0; k < Ks; ++k) {
+            const uint32_t c = h2 - HASH_MULT * hsh[k];
+            if (c >= 1u && c <= (uint32_t)nb) sum += expf(epnb[k * nb + c - 1] - m);
+          }
+          add = m + logf(sum);
+        }
       }
+      spnb[r] = lse(sn, add);
     }
-    spnb[tid] = lse(sn, add);
   }
   __syncthreads();
+  if (tr) tr[3] = clock64();
+
   // Selection keys: stays are candidates 0..Ks-1, lane l is Ks + l.
-  for (int j = tid; j < N; j += nt) {
-    float s;
-    if (j < Ks) {
-      s = lse(spb[j], spnb[j]) + in.s_lm[so + j];
-    } else {
-      const int l = j - Ks;
-      s = absorbed[l] ? NEG_INF : epnb[l] + in.e_lm[eo + l];
-    }
-    key[j] = make_key(s, j);
-  }
-  const unsigned long long mine = select_topk(key, wbest, N, K, tid, nt);
-  if (tid < K) {
-    const int r = tid, j = key_index(mine);
+  auto key_of = [&](int j) {
+    const float lm = lm_in_key[2 * (size_t)j];
+    const float sc = j < Ks ? lse(spb[j], spnb[j]) + lm : (absorbed[j - Ks] ? NEG_INF : lm);
+    return make_key(sc, j);
+  };
+  // Pick r (key `pick`) becomes output r, every field from its candidate.
+  auto take = [&](int r, unsigned long long pick) {
+    const int j = key_index(pick);
     const size_t o = (size_t)b * K + r;
-    const float score = key_score(mine);
+    const float score = key_score(pick);
     float pb, pnb;
     int hash;
     if (j < Ks) {
@@ -1654,6 +1703,61 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
     out.pb[o] = dead ? NEG_INF : pb;
     out.pnb[o] = dead ? NEG_INF : pnb;
     out.hash[o] = dead ? -(r + 1) : hash;
+  };
+
+  // Segments of 32 keys where the warps suffice (the rest idle in the
+  // sort), else one a warp.  With K <= 32 and segments of at least K keys
+  // the sorted segments' tops merge in a tree; else each key is ranked.
+  const int nw = min(nt >> 5, (N + 31) >> 5), warp = tid >> 5, lane = tid & 31;
+  const int seg = (N + nw - 1) / nw;
+  const bool tree = K <= 32 && seg >= K;
+  {
+    const int s0 = warp * seg, sn = seg_len(warp, seg, N);
+    // The tree reads K keys of every segment: a short last one gets 0s
+    // (below every key) up to K, past N into the room after the keys.
+    const int keep = tree && warp < nw ? max(sn, K) : sn;
+    if (seg <= 32) {  // a key a lane, sorted in registers (0 past sn)
+      const unsigned long long v = warp_sort_desc_reg(lane < sn ? key_of(s0 + lane) : 0ull,
+                                                      sn, lane);
+      if (lane < keep) key[s0 + lane] = v;
+    } else {
+      for (int j = s0 + lane; j < s0 + sn; j += 32) key[j] = key_of(j);
+      __syncwarp();
+      warp_sort_desc(key + s0, sn, lane);
+      if (lane < keep - sn) key[s0 + sn + lane] = 0ull;
+    }
+  }
+  __syncthreads();
+  if (tr) tr[4] = clock64();
+  if (tree) {
+    const unsigned long long v = merge_tree(key, nw, seg, K, warp, lane);
+    if (warp == 0 && lane < K) take(lane, v);
+  } else {
+    // Rank: only the first K keys of a segment can be picks, and none
+    // below theta, the largest K-th key of a segment that has K (K keys
+    // are at least it).  A key's rank is the count of keys above it in
+    // every segment, its own included (there: its position).
+    const int top = min(K, seg);
+    int P = 1;
+    while (P < top) P <<= 1;
+    unsigned long long theta = 0;
+    for (int o = 0; o < nw; ++o) {
+      if (seg_len(o, seg, N) >= K) theta = umax(theta, key[o * seg + K - 1]);
+    }
+    for (int e = tid; e < nw * top; e += nt) {
+      const int sw = e / top, p = e - sw * top;
+      if (p >= seg_len(sw, seg, N)) continue;
+      const unsigned long long x = key[sw * seg + p];
+      if (x < theta) continue;
+      int rank = 0;
+      for (int o = 0; o < nw; ++o)
+        rank += count_above(key + o * seg, min(top, seg_len(o, seg, N)), P, x);
+      if (rank < K) take(rank, x);
+    }
+  }
+  if (tr) {
+    tr[5] = clock64();
+    tr[6] = (long long)global_ns();
   }
 }
 
@@ -1686,7 +1790,8 @@ extern "C" int prefix_beam(const float* logp, const float* top_val, const int* t
 
 // K9's block form: the search fused with the char LSTM LM, a block an
 // utterance.  weights: a host array of device pointers embed, w_out, b_out,
-// h0, c0, lmp0, then wx, wh and b of each of the nl layers.  Same outputs
+// h0, c0, lmp0; layers: a device array of 3 nl device pointers, wx of each
+// of the nl layers, then wh of each, then b of each.  Same outputs
 // and scratch as prefix_beam.  place (a Place) and scratch: kShared
 // (scratch null) keeps every block's working set in shared memory;
 // kLmStateInScratch keeps the LM state in a device scratch of B *
@@ -1694,16 +1799,16 @@ extern "C" int prefix_beam(const float* logp, const float* top_val, const int* t
 // not fit beside the search); kInScratch keeps all of it in a device
 // scratch of B * scratch_block_bytes(K, C, V, true, nl, E, H) bytes (where
 // even the LM step's packed inputs do not fit, or K > 1024).  The wrapper
-// checks nl <= 8 and, for the first two, the shared-memory size.
+// checks, for the first two, the shared-memory size.
 extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const int* top_idx,
-                               const int* lens, const float* const* weights, int nl, int E,
-                               int H, int* parents, int* appends, int* tokens, int* out_len,
+                               const int* lens, const float* const* weights,
+                               const float* const* layers, int nl, int E, int H, int* parents, int* appends, int* tokens, int* out_len,
                                float* out_score, int B, int T, int V, int K, int C, int L,
                                float alpha, float beta, float* scratch, int place,
                                void* stream) {
   if (B == 0) return 0;
-  if (nl < 1 || nl > kMaxLayers) return cudaErrorInvalidValue;
-  const RnnLm lm = rnn_lm(weights, nl, E, H);
+  if (nl < 1) return cudaErrorInvalidValue;
+  const RnnLm lm = rnn_lm(weights, layers, nl, E, H);
   if (place < kShared || place > kInScratch || (place == kShared) != (scratch == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = place == kInScratch
@@ -1737,7 +1842,8 @@ extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const in
 // cooperative launch's error where the grid cannot be resident at once.
 extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
                                     const int* top_idx, const int* lens,
-                                    const float* const* weights, int nl, int E, int H,
+                                    const float* const* weights, const float* const* layers,
+                                    int nl, int E, int H,
                                     int* parents, int* appends, int* tokens, int* out_len,
                                     float* out_score, int B, int T, int V, int K, int C, int L,
                                     float alpha, float beta, float* state, int* rows,
@@ -1747,11 +1853,11 @@ extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
   if (B == 0) return 0;
   if (reps < 1 || ctas % reps != 0) return cudaErrorInvalidValue;
   const int cpr = ctas / reps;
-  if (nl < 1 || nl > kMaxLayers || units < 1 || (long long)cpr * units < H ||
+  if (nl < 1 || units < 1 || (long long)cpr * units < H ||
       (long long)(cpr - 1) * units >= H || (long long)per_cta * ctas < B || stage_rows < K ||
       (size_t)smem < rnn_grid_smem_bytes(B, K, C, V, nl, H, units, stage_rows, per_cta))
     return cudaErrorInvalidValue;
-  RnnLm lm = rnn_lm(weights, nl, E, H);
+  RnnLm lm = rnn_lm(weights, layers, nl, E, H);
   SearchIn s = search_in(logp, top_val, top_idx, nullptr, parents, appends, T, V, K, C, L, 1,
                          alpha, beta);
   GridBufs g = {state, reinterpret_cast<int4*>(rows), sync};
@@ -1769,27 +1875,36 @@ extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
 
 // K10: the per-frame merge and top-K of the beam-sharded search.  Inputs
 // (B, Ks) stays and (B, Ks * nb) lanes, outputs (B, K), all contiguous on
-// one device.  The wrapper checks K <= Ks + Ks * nb, Ks <= 1024 and the
-// shared-memory size.
+// one device.  scratch: null keeps each block's working set in shared
+// memory (the wrapper checks its size and Ks <= 1024); else a device
+// scratch of B merge_slice_bytes(Ks, nb) bytes, 16-byte aligned, holds it
+// (kInScratch).  trace: null, or (7) int64 for block 0's clocks.  The
+// wrapper checks K <= Ks + Ks * nb and the candidates' int32 indices.
 extern "C" int merge_topk(const float* s_pb, const float* s_pnb, const float* s_lm,
                           const int* s_hash, const int* s_last, const int* s_parent,
                           const int* s_ctx, const float* e_pnb, const float* e_lm,
                           const int* e_hash, const int* e_parent, const int* e_append,
                           const int* e_ctx, float* score, float* pb, float* pnb, float* lm,
-                          int* hash, int* last, int* parent, int* append, int* ctx, int B,
-                          int Ks, int nb, int K, void* stream) {
+                          int* hash, int* last, int* parent, int* append, int* ctx,
+                          void* scratch, long long* trace, int B, int Ks, int nb, int K,
+                          void* stream) {
   if (B == 0) return 0;
   const MergeIn in = {s_pb, s_pnb, s_lm, s_hash, s_last, s_parent, s_ctx,
                       e_pnb, e_lm, e_hash, e_parent, e_append, e_ctx};
   const MergeOut out = {score, pb, pnb, lm, hash, last, parent, append, ctx};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int threads = search_threads(Ks, nb);
+  char* slices = static_cast<char*>(scratch);
+  if (slices != nullptr) {
+    merge_topk_kernel<true><<<B, threads, 0, st>>>(in, out, Ks, nb, K, slices, trace);
+    return cudaGetLastError();
+  }
   const size_t smem = merge_smem_bytes(Ks, nb);
-  int threads = (Ks + Ks * nb + 31) / 32 * 32;
-  threads = threads > 1024 ? 1024 : threads;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        merge_topk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  merge_topk_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(in, out, Ks, nb, K);
+  merge_topk_kernel<false><<<B, threads, smem, st>>>(in, out, Ks, nb, K, nullptr, trace);
   return cudaGetLastError();
 }

@@ -41,16 +41,16 @@ from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _P, _P],
-               "prefix_beam_rnn": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6
+               "prefix_beam_rnn": [_P] * 6 + [_I] * 3 + [_P] * 5 + [_I] * 6
                + [_F, _F, _P, _I, _P],
-               "prefix_beam_rnn_grid": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 6
+               "prefix_beam_rnn_grid": [_P] * 6 + [_I] * 3 + [_P] * 5 + [_I] * 6
                + [_F, _F] + [_P] * 4 + [_I] * 6 + [_P],
-               "merge_topk": [_P] * 22 + [_I] * 4 + [_P]}
+               "merge_topk": [_P] * 24 + [_I] * 4 + [_P]}
 _STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P] * 3,
                      "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P] * 3}
 MAX_SMEM = 232448    # the dynamic shared memory a Hopper block may use
 MAX_BEAM = 1024      # the shared forms' beams; past it the kernels' in-scratch form
-MAX_LM_LAYERS = 8    # the kernel's RnnLm holds this many layers' pointers
+_INT_MAX = 2 ** 31 - 1
 # csrc/prefix_beam.cu::Place: where K9's block keeps its working set.
 SHARED, LM_STATE_IN_SCRATCH, IN_SCRATCH = 0, 1, 2
 
@@ -81,20 +81,18 @@ def fits(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> bool
     """Whether one K7/K8 block (``lm`` None) or one K9 block (``lm`` = the
     char LM's (layers, E, H), its state in a device scratch where need be)
     takes beam K over C candidate lanes of a vocabulary V in shared memory:
-    K at most MAX_BEAM, the block's shared memory at most MAX_SMEM, and for
-    K9 at most MAX_LM_LAYERS layers.  A pure function of the shapes, as the
-    JAX package's lane-kernel gate is (``lanes <= 2048``); where it is
-    False, ``prefix_beam`` and ``prefix_beam_rnn`` launch the kernel with the
-    working set in a device scratch (``scratch_bytes``), which K9 does only
-    up to MAX_LM_LAYERS layers.  (A beam below 1 "fits": the wrappers refuse
-    it.)"""
+    K at most MAX_BEAM and the block's shared memory at most MAX_SMEM.  A
+    pure function of the shapes, as the JAX package's lane-kernel gate is
+    (``lanes <= 2048``); where it is False, ``prefix_beam`` and
+    ``prefix_beam_rnn`` launch the kernel with the working set in a device
+    scratch (``scratch_bytes``).  (A beam below 1 "fits": the wrappers
+    refuse it.)"""
     if K > MAX_BEAM:
         return False
     if lm is None:
         return smem_bytes(K, C, V) <= MAX_SMEM
     nl, E, H = lm
-    return (nl <= MAX_LM_LAYERS
-            and rnn_smem_bytes(K, C, V, nl, E, H, state_in_smem=False) <= MAX_SMEM)
+    return rnn_smem_bytes(K, C, V, nl, E, H, state_in_smem=False) <= MAX_SMEM
 
 
 def scratch_bytes(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> int:
@@ -164,12 +162,12 @@ def rnn_grid_route(B: int, K: int, C: int, V: int, nl: int, E: int, H: int,
     unit's columns, ``units`` = ceil(H / (sms // R)) a CTA, ``ctas`` = R
     ceil(H / units); ``per_cta`` = ceil(B / ctas); ``rows`` is every beam of
     the batch (B K) where they fit, else as many as fit; the first R whose
-    CTA (``rnn_grid_smem_bytes`` with at least K rows) is within MAX_SMEM,
-    with an LM of 1..MAX_LM_LAYERS layers, is the grid.  More runs stage
+    CTA (``rnn_grid_smem_bytes`` with at least K rows) is within MAX_SMEM
+    is the grid.  More runs stage
     fewer rows a CTA from L2 for more columns.  E does not enter: layer 0's
     input product is a (V, 4 units) table.  A pure function of the shapes
     and the card, decided before the launch."""
-    if not 1 <= nl <= MAX_LM_LAYERS or B < 1 or K < 1:
+    if nl < 1 or B < 1 or K < 1:
         return None
     for R in GRID_REPS:
         if sms // R < 1:
@@ -190,9 +188,25 @@ def rnn_grid_route(B: int, K: int, C: int, V: int, nl: int, E: int, H: int,
 
 
 def merge_smem_bytes(Ks: int, nb: int) -> int:
-    """Shared memory of one K10 block, as ``csrc/prefix_beam.cu`` lays it out."""
+    """One K10 block's working set, as ``csrc/prefix_beam.cu`` lays it out:
+    the N = Ks + Ks nb keys and 512 bytes of room past them, the stays' pb,
+    pnb and hash, the lanes' pnb and absorbed flags."""
     N = Ks + Ks * nb
     return 8 * N + 512 + 12 * Ks + 5 * Ks * nb
+
+
+def merge_slice_bytes(Ks: int, nb: int) -> int:
+    """One K10 block's slice of the device scratch where its working set
+    does not fit: ``merge_smem_bytes`` to a 16-byte boundary."""
+    return _up(merge_smem_bytes(Ks, nb), 16)
+
+
+def merge_fits(Ks: int, nb: int) -> bool:
+    """Whether one K10 block takes Ks stays over nb lanes each in shared
+    memory: Ks at most MAX_BEAM and ``merge_smem_bytes`` at most MAX_SMEM.
+    Where it is False, ``merge_topk`` launches the same kernel with the
+    working set in a device scratch, counted as ``merge_topk_wide``."""
+    return Ks <= MAX_BEAM and merge_smem_bytes(Ks, nb) <= MAX_SMEM
 
 
 def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int,
@@ -227,25 +241,43 @@ def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int,
     return C
 
 
-def _lm_tensors(rnn_lm, h0, c0, lmp0, V: int) -> dict:
-    """K9's LM inputs in the order the kernel takes them, each with the
-    shape it must have."""
+# csrc/prefix_beam.cu::RnnLm's table of the layers' 3 nl pointers, kind-major:
+# wx of every layer, then wh of every layer, then b (RnnLm::wx, wh, b).
+LAYER_KINDS = ("wx", "wh", "b")
+
+
+def _lm_tensors(rnn_lm, h0, c0, lmp0, V: int) -> tuple[dict, dict]:
+    """K9's LM inputs, each with the shape it must have: (the six the
+    kernel takes by a host array, in its order; the layers' weights in the
+    order of its device table, LAYER_KINDS)."""
     cfg = rnn_lm.cfg
     nl, E, H = cfg.num_layers, cfg.embed_dim, cfg.hidden_dim
-    out = {"embed": (rnn_lm.embed, (V, E)), "w_out": (rnn_lm.w_out, (H, V)),
-           "b_out": (rnn_lm.b_out, (V,)), "h0": (h0, (nl, H)), "c0": (c0, (nl, H)),
-           "lmp0": (lmp0, (V,))}
-    for kind in ("wx", "wh", "b"):
+    head = {"embed": (rnn_lm.embed, (V, E)), "w_out": (rnn_lm.w_out, (H, V)),
+            "b_out": (rnn_lm.b_out, (V,)), "h0": (h0, (nl, H)), "c0": (c0, (nl, H)),
+            "lmp0": (lmp0, (V,))}
+    layers = {}
+    for kind in LAYER_KINDS:
         for l in range(nl):
             shape = {"wx": (E if l == 0 else H, 4 * H), "wh": (H, 4 * H), "b": (4 * H,)}[kind]
-            out[f"lstm{l}_{kind}"] = (getattr(rnn_lm, f"lstm{l}_{kind}"), shape)
-    return out
+            layers[f"lstm{l}_{kind}"] = (getattr(rnn_lm, f"lstm{l}_{kind}"), shape)
+    return head, layers
 
 
-def _trace_check(name: str, trace, rows: int, cols: int, dev) -> None:
-    if trace is not None and (tuple(trace.shape) != (rows, cols) or trace.dtype != torch.int64
+def lm_layer_table(layers: dict, dev) -> torch.Tensor:
+    """The kernel's table of the layers' weights: their device pointers as
+    int64 in ``_lm_tensors``' order, on ``dev``, copied from pinned memory
+    without waiting for the stream."""
+    ptrs = torch.tensor([t.data_ptr() for t, _ in layers.values()], dtype=torch.int64)
+    return ptrs.pin_memory().to(dev, non_blocking=True)
+
+
+def _trace_check(name: str, trace, rows: int, cols: int | None, dev) -> None:
+    """A trace must be contiguous int64 on ``dev``, (rows, cols), or (rows,)
+    for ``cols`` None."""
+    shape = (rows,) if cols is None else (rows, cols)
+    if trace is not None and (tuple(trace.shape) != shape or trace.dtype != torch.int64
                               or trace.device != dev or not trace.is_contiguous()):
-        raise ValueError(f"{name}: trace must be contiguous ({rows}, {cols}) int64 on {dev}")
+        raise ValueError(f"{name}: trace must be contiguous {shape} int64 on {dev}")
 
 
 def _outputs_of(B: int, T: int, K: int, L: int, dev):
@@ -310,8 +342,7 @@ def prefix_beam_rnn(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     chars, else all chars.  Returns (tokens (B, max_len) int32, lengths (B,)
     int32, scores (B,) float32) of the best beam of each row.  It runs on
     the co-resident grid where ``rnn_grid_route`` finds the shapes fit, else
-    in the block kernel (``rnn_on_route``).  It raises ``ValueError`` past
-    MAX_LM_LAYERS layers."""
+    in the block kernel (``rnn_on_route``); an LM of any number of layers."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, None, lm_alpha,
                                      lm_beta, top_val, top_idx, rnn_lm=rnn_lm,
@@ -344,21 +375,22 @@ def rnn_on_route(route: RnnGrid | None, logp: torch.Tensor, logit_len: torch.Ten
     K, L = beam_size, max_len
     cfg = rnn_lm.cfg
     nl, E, H = cfg.num_layers, cfg.embed_dim, cfg.hidden_dim
-    lm = _lm_tensors(rnn_lm, h0, c0, lmp0, V)
-    C = _check(logp, logit_len, None, top_val, top_idx, K, L, lm)
-    if not 1 <= nl <= MAX_LM_LAYERS:
-        raise ValueError(f"prefix_beam_rnn: {nl} LM layers; the kernel takes 1..{MAX_LM_LAYERS}")
+    head, layers = _lm_tensors(rnn_lm, h0, c0, lmp0, V)
+    C = _check(logp, logit_len, None, top_val, top_idx, K, L, {**head, **layers})
+    if nl < 1:
+        raise ValueError(f"prefix_beam_rnn: {nl} LM layers; the kernel takes at least 1")
     dev = logp.device
     if trace is not None and route is None:
         raise ValueError("prefix_beam_rnn: a trace is taken on the grid route only")
     _trace_check("prefix_beam_rnn", trace, T, 5 + 3 * nl, dev)
     parents, appends, tokens, lengths, scores = _outputs_of(B, T, K, L, dev)
-    weights = (_P * len(lm))(*(t.data_ptr() for t, _ in lm.values()))
+    weights = (_P * len(head))(*(t.data_ptr() for t, _ in head.values()))
+    table = lm_layer_table(layers, dev)
     lib = build.load("prefix_beam", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = "prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn"
-    common = (logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(), weights, nl,
-              E, H, parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(),
+    common = (logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(), weights,
+              table.data_ptr(), nl, E, H, parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(),
               lengths.data_ptr(), scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta)
     if route is not None:
         state = torch.empty((4 * B * K * nl * H,), dtype=torch.float32, device=dev)
@@ -394,7 +426,7 @@ _MERGE_OUT = (("pb", torch.float32), ("pnb", torch.float32), ("lm", torch.float3
               ("append", torch.int32), ("ctx", torch.int32))
 
 
-def merge_topk(stay: dict, ext: dict, K: int):
+def merge_topk(stay: dict, ext: dict, K: int, trace: torch.Tensor | None = None):
     """One frame's merge and top-K of the beam-sharded search: absorb each
     extension into the alive stay of the same prefix, keep the K best of the
     stays and the extension lanes (stays first on ties, then the lower flat
@@ -403,7 +435,12 @@ def merge_topk(stay: dict, ext: dict, K: int):
     pnb, lm, hash, parent, append, ctx, lane (k, c-1) beam k's extension by
     char c (``_build_candidates``' layout), whose last char is ``append``.
     Returns (score (B, K), fields: pb, pnb, lm, hash, last, parent, append,
-    ctx (B, K)), the contract of ``decoding/prefix_beam.py::_merge_topk``."""
+    ctx (B, K)), the contract of ``decoding/prefix_beam.py::_merge_topk``.
+    Where a block's working set does not fit its shared memory
+    (``merge_fits``) it lies in a device scratch this wrapper allocates,
+    counted as ``merge_topk_wide``.  ``trace``, a (7,) int64 tensor on the
+    card, receives block 0's clocks (``csrc/prefix_beam.cu::
+    merge_topk_kernel``)."""
     if stay["pb"].device.type == "cpu":
         return plain._merge_topk(stay, ext, K)
     B, Ks = stay["pb"].shape
@@ -421,20 +458,23 @@ def merge_topk(stay: dict, ext: dict, K: int):
         if t.device != stay["pb"].device or not t.is_contiguous():
             raise ValueError("merge_topk: all inputs must be contiguous on one CUDA device")
         ins.append(t)
-    if not 1 <= K <= Ks + Ks * nb or Ks > MAX_BEAM:
-        raise ValueError(f"merge_topk: K {K} must be in 1..{Ks + Ks * nb} candidates and "
-                         f"Ks {Ks} at most {MAX_BEAM}")
-    if merge_smem_bytes(Ks, nb) > MAX_SMEM:
-        raise ValueError(f"merge_topk: {Ks} x {nb} lanes need {merge_smem_bytes(Ks, nb)} bytes "
-                         f"of shared memory, more than a block's {MAX_SMEM}")
+    N = Ks + Ks * nb
+    if not 1 <= K <= N:
+        raise ValueError(f"merge_topk: K {K} must be in 1..{N} candidates")
+    if N + 64 > _INT_MAX:
+        raise ValueError(f"merge_topk: {Ks} x {nb} lanes pass the kernel's int32 indices")
     dev = stay["pb"].device
+    _trace_check("merge_topk", trace, 7, None, dev)
+    scratch = None if merge_fits(Ks, nb) else _scratch(B, merge_slice_bytes(Ks, nb), dev)
+    name = "merge_topk" + ("_wide" if scratch is not None else "")
     score = torch.empty((B, K), dtype=torch.float32, device=dev)
-    out = {name: torch.empty((B, K), dtype=dtype, device=dev) for name, dtype in _MERGE_OUT}
+    out = {f: torch.empty((B, K), dtype=dtype, device=dev) for f, dtype in _MERGE_OUT}
     lib = build.load("prefix_beam", _SIGNATURES)
     build.check(lib.merge_topk(
         *(t.data_ptr() for t in ins), score.data_ptr(), *(t.data_ptr() for t in out.values()),
-        B, Ks, nb, K, torch.cuda.current_stream(dev).cuda_stream), "merge_topk")
-    build.LAUNCHES["merge_topk"] += 1
+        _ptr(scratch), _ptr(trace), B, Ks, nb, K, torch.cuda.current_stream(dev).cuda_stream),
+        name)
+    build.LAUNCHES[name] += 1
     return score, out
 
 
@@ -482,9 +522,6 @@ def _study_inputs(name: str, logits, logit_len, blank: int, K: int, L: int):
     if logp.device.type != "cpu":
         _check_study(name, logp, lens, K, L)
     return logp, lens
-
-
-_INT_MAX = 2 ** 31 - 1
 
 
 def _check_study(name: str, logp, lens, K: int, L: int) -> None:

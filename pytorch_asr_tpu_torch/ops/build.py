@@ -13,9 +13,10 @@ chosen from the shapes for CUDA tensors counts under its own name: the
 LSTM's wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide`` and the rest,
 the per-utterance kernel), the beam kernels past a block's shared memory
 (``prefix_beam_wide`` and the rest, and the study kernels'
-``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``: their working
-set in a device scratch), and K9 past its co-resident grid (``prefix_beam_rnn_block`` and its
-``_topa`` form, a block an utterance).
+``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``, and K10's
+``merge_topk_wide``: their working set in a device scratch), and K9 past its
+co-resident grid (``prefix_beam_rnn_block`` and its ``_topa`` form, a block
+an utterance).
 """
 
 from __future__ import annotations
@@ -40,9 +41,11 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "prefix_beam_rnn_topa": 0, "merge_topk": 0, "tcn_block": 0,
                             "tcn_block_train_fwd": 0, "tcn_block_bwd": 0, "bilstm_seq": 0,
                             "bilstm_seq_train_fwd": 0, "bilstm_seq_bwd": 0,
-                            "bilstm_seq_per_utterance": 0, "lstm_seq_wide": 0,
-                            "lstm_seq_train_wide": 0, "lstm_seq_bwd_wide": 0, "bilstm_seq_wide": 0,
-                            "bilstm_seq_train_wide": 0, "prefix_beam_wide": 0,
+                            "bilstm_seq_per_utterance": 0, "bilstm_seq_bwd_per_utterance": 0,
+                            "lstm_seq_wide": 0, "lstm_seq_train_wide": 0,
+                            "lstm_seq_bwd_wide": 0, "bilstm_seq_wide": 0,
+                            "bilstm_seq_train_wide": 0, "bilstm_seq_bwd_wide": 0,
+                            "prefix_beam_wide": 0, "merge_topk_wide": 0,
                             "prefix_beam_topa_wide": 0, "prefix_beam_rnn_wide": 0,
                             "prefix_beam_rnn_topa_wide": 0, "prefix_beam_rnn_block": 0,
                             "prefix_beam_rnn_topa_block": 0,

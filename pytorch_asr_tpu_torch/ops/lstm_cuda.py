@@ -22,9 +22,12 @@ route counts under its own names (``lstm_seq_wide``, ``lstm_seq_train_wide``,
 recurrence on a co-resident grid too, each CTA holding its units' rows of
 ``whh`` (``backward_grid``); past it (from H 1305 at B 8) it walks an
 utterance a block, counted as ``lstm_seq_bwd_wide`` (``backward_route``).
-K11's backward walks an utterance and direction a block at any width.
-``_bilstm_seq_per_utterance`` runs K11's wide route as the grid kernel's
-bit-equality oracle, under a count of its own; no op calls it.
+K11's backward runs the same grid kernel on a grid of both directions, half
+the SMs each (``backward_route(..., directions=2)``), and past it (from H
+925 at B 8) walks an utterance and direction a block, counted as
+``bilstm_seq_bwd_wide``.  ``_bilstm_seq_per_utterance`` and
+``_bilstm_seq_bwd_per_utterance`` run K11's wide routes as the grid
+kernels' bit-equality oracles, under counts of their own; no op calls them.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ _SIGNATURES = {"lstm_seq_fwd": [_P] * 10 + [_I] * 11 + [_P],
                "bilstm_seq_train_fwd": [_P] * 12 + [_I] * 11 + [_P],
                "bilstm_seq_per_utterance": [_P] * 9 + [_I] * 8 + [_P],
                "lstm_seq_per_utterance": [_P] * 9 + [_I] * 9 + [_P],
-               "bilstm_seq_bwd": [_P] * 14 + [_I] * 6 + [_P]}
+               "bilstm_seq_bwd": [_P] * 16 + [_I] * 10 + [_P],
+               "bilstm_seq_bwd_per_utterance": [_P] * 14 + [_I] * 6 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 SMS = build.SMS
 SMEM_PER_BLOCK = 232448        # shared memory a Hopper block can opt in to, bytes
@@ -135,47 +139,54 @@ def _check_per_utterance_fits(H: int, smem: int) -> None:
                          f"block ({smem})")
 
 
-def backward_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK) -> Grid:
+def backward_grid(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK,
+                  directions: int = 1) -> Grid:
     """The grid of K3's backward recurrence for hidden width H and B
-    utterances.
+    utterances (K11's with ``directions`` 2).
 
     Each CTA holds its ``units`` rows of whh (4H fp32 each) in shared memory,
     ``rows`` staged dgates rows (4H fp32 each), and for each (utterance,
     unit) dh, dc and the 7 inputs of its cell; then B lengths
     (csrc/lstm_seq.cu::bwd_grid_smem_bytes).  ``units`` is ceil(H / sms),
     as the forward's.  ``rows`` is B where it fits, else as many as fit.
-    Raises ValueError where the grid cannot hold whh's rows and one staged
-    row on its SMs.
+    ``directions`` 2 is K11's grid (ctas, 2): each direction gets ``sms //
+    2`` SMs and its own CTAs, the same rule on each half.  Raises ValueError
+    where the grid cannot hold whh's rows and one staged row on its SMs.
     """
-    grid, fits, need = _bwd_grid_shape(H, B, sms, smem)
+    grid, fits, need, sms = _bwd_grid_shape(H, B, sms, smem, directions)
     if not fits:
         raise ValueError(
             f"lstm_seq_bwd: H {H} at B {B} does not fit the co-resident grid: {grid.ctas} CTAs "
             f"of {grid.units} units need {need} bytes of shared memory each ({grid.units} rows "
             f"of whh, one staged row of dgates, the state of {B} rows), on {sms} SMs of "
-            f"{smem} bytes")
+            f"{smem} bytes a direction")
     return grid
 
 
-def _bwd_grid_shape(H: int, B: int, sms: int, smem: int) -> tuple[Grid, bool, int]:
+def _bwd_grid_shape(H: int, B: int, sms: int, smem: int,
+                    directions: int) -> tuple[Grid, bool, int, int]:
     """``backward_grid``'s rule -> (the grid, whether it fits: its CTAs on
-    the SMs and at least one staged row, the bytes a CTA needs with one
-    staged row)."""
+    the SMs of a direction and at least one staged row, the bytes a CTA
+    needs with one staged row, the SMs a direction)."""
+    if directions not in (1, 2):
+        raise ValueError(f"lstm_seq_bwd: directions must be 1 or 2, got {directions}")
+    sms //= directions
     units = -(-H // sms)
     fixed = 4 * (units * 4 * H + 9 * B * units) + 4 * B
     rows = min(B, (smem - fixed) // (16 * H))
-    grid = Grid(H, -(-H // units), units, rows, fixed + 16 * rows * H)
-    return grid, grid.ctas <= sms and rows >= 1, fixed + 16 * H
+    grid = Grid(H, -(-H // units), units, rows, fixed + 16 * rows * H, directions)
+    return grid, grid.ctas <= sms and rows >= 1, fixed + 16 * H, sms
 
 
-def backward_route(H: int, B: int, sms: int = SMS,
-                   smem: int = SMEM_PER_BLOCK) -> Grid | None:
-    """The route of K3's backward recurrence for hidden width H and B >= 1
-    utterances: ``backward_grid``'s grid wherever it fits, else None, the
-    wide route (the per-utterance kernel, 6 H floats of shared memory a
-    block).  Decided from the shapes alone.  Raises ValueError only where
-    neither fits: H > 9,685 at the card's 232,448 bytes."""
-    grid, fits, _ = _bwd_grid_shape(H, B, sms, smem)
+def backward_route(H: int, B: int, sms: int = SMS, smem: int = SMEM_PER_BLOCK,
+                   directions: int = 1) -> Grid | None:
+    """The route of K3's backward recurrence (K11's with ``directions`` 2)
+    for hidden width H and B >= 1 utterances: ``backward_grid``'s grid
+    wherever it fits, else None, the wide route (the per-utterance kernel, 6
+    H floats of shared memory a block).  Decided from the shapes alone.
+    Raises ValueError only where neither fits: H > 9,685 at the card's
+    232,448 bytes."""
+    grid, fits, _, _ = _bwd_grid_shape(H, B, sms, smem, directions)
     if fits:
         return grid
     _check_per_utterance_fits(H, smem)
@@ -437,47 +448,60 @@ def backward_on_route(route: Grid | None, gy, x, wih, whh, lengths, acts, ct,
     the cell inputs, after the dh chains and after the cells.  ``scratch``,
     a dict, receives the recurrence's outputs ``dgates`` (B, T, 4H) and
     ``hprev`` (B, T, H)."""
+    return _backward(1, route, None, gy, x, wih, whh, lengths, acts, ct, reverse, trace, scratch)
+
+
+def _backward(dirs: int, route: Grid | None, name: str | None, gy, x, wih, whh, lengths, acts,
+              ct, reverse: bool, trace, scratch):
+    """The backward of one direction (K3) or both (K11) on CUDA tensors:
+    the dh recurrence on ``route`` (a grid, or None: the per-utterance
+    kernel), then the products; counted under ``name``, by default
+    ``lstm_seq_bwd`` / ``bilstm_seq_bwd`` on a grid and ``..._wide`` off it."""
     B, T, D = x.shape
-    H = whh.shape[0]
+    H = whh.shape[-2]
+    stem = "lstm_seq_bwd" if dirs == 1 else "bilstm_seq_bwd"
+    lead = (dirs,) if dirs == 2 else ()
     gy = gy.float().contiguous()
-    _check_cuda_args(x, wih, whh, whh.new_empty(4 * H), lengths, torch.float32)
-    for name, t, shape in (("gy", gy, (B, T, H)), ("acts", acts, (T, B, 4 * H)),
-                           ("ct", ct, (T, B, H))):
+    check = _check_dual_args if dirs == 2 else _check_cuda_args
+    check(x, wih, whh, whh.new_empty((*lead, 4 * H)), lengths, torch.float32)
+    for what, t, shape in (("gy", gy, (B, T, dirs * H)), ("acts", acts, (*lead, T, B, 4 * H)),
+                           ("ct", ct, (*lead, T, B, H))):
         if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"lstm_seq_bwd: {name} must be contiguous {shape} on "
+            raise ValueError(f"{stem}: {what} must be contiguous {shape} on "
                              f"{x.device}, got {tuple(t.shape)}")
     if acts.dtype != ct.dtype or acts.dtype not in _DTYPES:
-        raise ValueError(f"lstm_seq_bwd: residuals must share a type of {_DTYPES}")
+        raise ValueError(f"{stem}: residuals must share a type of {_DTYPES}")
     _check_trace(trace, T, x.device)
     if route is None and trace is not None:
-        raise ValueError("lstm_seq_bwd: only the grid records a trace")
-    if route is not None and (route.hidden != H or route.directions != 1):
-        raise ValueError(f"lstm_seq_bwd: a grid for H {route.hidden} and {route.directions} "
-                         f"direction(s), not H {H} and 1")
+        raise ValueError(f"{stem}: only the grid records a trace")
+    if route is not None and (route.hidden != H or route.directions != dirs):
+        raise ValueError(f"{stem}: a grid for H {route.hidden} and {route.directions} "
+                         f"direction(s), not H {H} and {dirs}")
     dx = torch.empty_like(x)
     dwih = torch.empty_like(wih)
     dwhh = torch.empty_like(whh)
-    db = torch.empty(4 * H, dtype=torch.float32, device=x.device)
+    db = torch.empty((*lead, 4 * H), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return dx.zero_(), dwih.zero_(), dwhh.zero_(), db.zero_()
-    dgates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
-    hprev = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
+    dgates = torch.empty((*lead, B, T, 4 * H), dtype=torch.float32, device=x.device)
+    hprev = torch.empty((*lead, B, T, H), dtype=torch.float32, device=x.device)
     if scratch is not None:
         scratch.update(dgates=dgates, hprev=hprev)
+    halves = [torch.empty((2, B, T, D), dtype=x.dtype, device=x.device)] if dirs == 2 else []
     lib = build.load("lstm_seq", _SIGNATURES)
-    ptrs = [t.data_ptr() for t in (gy, x, wih, whh, lengths, acts, ct, dgates, hprev, dx, dwih,
-                                   dwhh, db)]
-    flags = [B, T, D, H, int(reverse), int(x.dtype == torch.bfloat16),
-             int(acts.dtype == torch.bfloat16)]
+    ptrs = [t.data_ptr() for t in (gy, x, wih, whh, lengths, acts, ct, dgates, hprev, *halves,
+                                   dx, dwih, dwhh, db)]
+    flags = [B, T, D, H] + ([int(reverse)] if dirs == 1 else [])
+    flags += [int(x.dtype == torch.bfloat16), int(acts.dtype == torch.bfloat16)]
     if route is None:
-        name = "lstm_seq_bwd_wide"
-        err = lib.lstm_seq_bwd_per_utterance(*ptrs, *flags, _stream(x))
+        name = name or f"{stem}_wide"
+        err = getattr(lib, f"{stem}_per_utterance")(*ptrs, *flags, _stream(x))
     else:
-        name = "lstm_seq_bwd"
+        name = name or stem
         sync = torch.zeros(1, dtype=torch.int32, device=x.device)
-        err = lib.lstm_seq_bwd(*ptrs, sync.data_ptr(), 0 if trace is None else trace.data_ptr(),
-                               *flags, route.ctas, route.units, route.rows, route.smem,
-                               _stream(x))
+        err = getattr(lib, stem)(*ptrs, sync.data_ptr(), 0 if trace is None else trace.data_ptr(),
+                                 *flags, route.ctas, route.units, route.rows, route.smem,
+                                 _stream(x))
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return dx, dwih, dwhh, db
@@ -640,38 +664,38 @@ def _per_utterance(dirs: int, name: str, x, wih, whh, bias, lengths, reverse, ou
 
 
 def bilstm_seq_bwd(gy, x, wih, whh, lengths, acts, ct):
-    """K11's backward -> (dx, dwih, dwhh, db); see ``bilstm_seq_bwd_plain``."""
+    """K11's backward -> (dx, dwih, dwhh, db); see ``bilstm_seq_bwd_plain``.
+    For CUDA tensors the dh recurrence takes ``backward_route``'s route with
+    directions 2: the dual grid, or past it the per-utterance kernel
+    (``bilstm_backward_on_route``)."""
     if x.device.type == "cpu":
         return bilstm_seq_bwd_plain(gy, x, wih, whh, lengths, acts, ct)
-    B, T, D = x.shape
-    H = whh.shape[1]
-    gy = gy.float().contiguous()
-    _check_dual_args(x, wih, whh, whh.new_empty((2, 4 * H)), lengths, torch.float32)
-    for name, t, shape in (("gy", gy, (B, T, 2 * H)), ("acts", acts, (2, T, B, 4 * H)),
-                           ("ct", ct, (2, T, B, H))):
-        if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"bilstm_seq_bwd: {name} must be contiguous {shape} on "
-                             f"{x.device}, got {tuple(t.shape)}")
-    if acts.dtype != ct.dtype or acts.dtype not in _DTYPES:
-        raise ValueError(f"bilstm_seq_bwd: residuals must share a type of {_DTYPES}")
-    dx = torch.empty_like(x)
-    dwih = torch.empty_like(wih)
-    dwhh = torch.empty_like(whh)
-    db = torch.empty((2, 4 * H), dtype=torch.float32, device=x.device)
-    if B == 0 or T == 0:
-        return dx.zero_(), dwih.zero_(), dwhh.zero_(), db.zero_()
-    dgates = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=x.device)
-    hprev = torch.empty((2, B, T, H), dtype=torch.float32, device=x.device)
-    dx2 = torch.empty((2, B, T, D), dtype=x.dtype, device=x.device)
-    lib = build.load("lstm_seq", _SIGNATURES)
-    err = lib.bilstm_seq_bwd(
-        gy.data_ptr(), x.data_ptr(), wih.data_ptr(), whh.data_ptr(), lengths.data_ptr(),
-        acts.data_ptr(), ct.data_ptr(), dgates.data_ptr(), hprev.data_ptr(), dx2.data_ptr(),
-        dx.data_ptr(), dwih.data_ptr(), dwhh.data_ptr(), db.data_ptr(), B, T, D, H,
-        int(x.dtype == torch.bfloat16), int(acts.dtype == torch.bfloat16), _stream(x))
-    build.check(err, "bilstm_seq_bwd")
-    build.LAUNCHES["bilstm_seq_bwd"] += 1
-    return dx, dwih, dwhh, db
+    route = backward_route(whh.shape[-2], max(x.shape[0], 1), build.sm_count(x.device.index),
+                           directions=2)
+    return bilstm_backward_on_route(route, gy, x, wih, whh, lengths, acts, ct)
+
+
+def bilstm_backward_on_route(route: Grid | None, gy, x, wih, whh, lengths, acts, ct,
+                             trace: torch.Tensor | None = None, scratch: dict | None = None):
+    """K11's backward on CUDA tensors -> (dx, dwih (2, D, 4H), dwhh (2, H,
+    4H), db (2, 4H)): the dh recurrence of both directions on ``route``, a
+    dual ``Grid`` (``backward_grid`` with directions 2; counted as
+    ``bilstm_seq_bwd``) or None, the per-utterance kernel
+    (``bilstm_seq_bwd_wide``); then K3's products once a direction and dx
+    summed.  ``trace`` and ``scratch`` as ``backward_on_route``'s (the trace
+    CTA (0, 0)'s, the forward direction's; dgates (2, B, T, 4H) and hprev
+    (2, B, T, H))."""
+    return _backward(2, route, None, gy, x, wih, whh, lengths, acts, ct, False, trace, scratch)
+
+
+def _bilstm_seq_bwd_per_utterance(gy, x, wih, whh, lengths, acts, ct,
+                                  scratch: dict | None = None):
+    """The oracle of K11's backward grid: the per-utterance kernel, a block
+    an utterance and direction, CUDA tensors only, under its own launch
+    count (``bilstm_seq_bwd_per_utterance``); only the card tests and
+    ``chip_smoke.py`` call it."""
+    return _backward(2, None, "bilstm_seq_bwd_per_utterance", gy, x, wih, whh, lengths, acts,
+                     ct, False, None, scratch)
 
 
 class BiLSTMSeq(torch.autograd.Function):

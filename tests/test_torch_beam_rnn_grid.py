@@ -62,8 +62,11 @@ def test_route_past_the_grid_gives_a_cta_more_searches(B, per_cta):
 def test_route_refuses_what_no_cta_holds():
     # 2000 utterances: 16 searches a CTA pass its shared memory.
     assert beam_cuda.rnn_grid_route(2000, 16, V, V, 2, 128, 256, SMS) is None
-    # More layers than the kernel's RnnLm holds, or none.
-    assert beam_cuda.rnn_grid_route(16, 16, V, V, 9, 128, 256, SMS) is None
+    # Any number of layers by the same fit rule: 9 of H 256 fit one run of
+    # 2 units a CTA, 10 pass a CTA (the block kernel takes them); none is no LM.
+    grid = beam_cuda.rnn_grid_route(16, 16, V, V, 9, 128, 256, SMS)
+    assert (grid.reps, grid.units, grid.ctas) == (1, 2, 128) and grid.smem <= SMEM
+    assert beam_cuda.rnn_grid_route(16, 16, V, V, 10, 128, 256, SMS) is None
     assert beam_cuda.rnn_grid_route(16, 16, V, V, 0, 128, 256, SMS) is None
 
 

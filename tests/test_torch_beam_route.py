@@ -41,7 +41,7 @@ LM_H512 = (2, 128, 512)
     (32, CHARS, LM_DEFAULT, True),  # K9 with its state in a device scratch
     (16, CHARS, LM_H512, True),
     (64, CHARS, LM_H512, False),    # the LM step's packed inputs alone pass a block
-    (16, CHARS, (9, 128, 256), False),  # more layers than the kernel holds
+    (16, CHARS, (9, 128, 256), True),   # any number of layers: the state lies in a scratch
 ])
 def test_fits_rule(K, C, lm, want):
     assert beam_cuda.fits(K, C, CHARS, lm) is want

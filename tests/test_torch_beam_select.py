@@ -248,3 +248,81 @@ def test_selection_past_32_a_segment_literal(K, C, nt):
     rng = np.random.default_rng(K)
     scores = _scores(rng, K, C, ties=True, dead=0.2)
     assert select(make_keys(scores), K, nt, literal=True) == stable_order(scores, K)
+
+
+# ------------------------------------------- K10: csrc/prefix_beam.cu::merge_topk_kernel
+
+
+def merge_threads(Ks: int, nb: int) -> int:
+    """K10's block (csrc/prefix_beam.cu::search_threads(Ks, nb)): a thread a
+    candidate, at least Ks kp for the absorb's tests (Ks <= 32), to 32, at
+    most 1024."""
+    n = Ks + Ks * nb
+    kp = 1
+    while kp < Ks:
+        kp <<= 1
+    if kp <= 32 and Ks * kp > n:
+        n = Ks * kp
+    return 1024 if n >= 1024 else -(-n // 32) * 32
+
+
+def _merge_candidates(rng, Ks: int, nb: int, ties: bool, dead: float):
+    """One row of gathered candidates in the plain merge's layout: Ks stays,
+    lane (k, c - 1) beam k's extension by char c; stays' parents are their
+    indices, lanes' (k, c); hashes drawn until no lane would be absorbed."""
+    import torch
+
+    def draw(shape):
+        if ties:
+            return torch.from_numpy(rng.integers(-4, 2, size=shape).astype(np.float32))
+        return torch.from_numpy((rng.standard_normal(shape) * 5).astype(np.float32))
+
+    stay = {"pb": draw((1, Ks)), "pnb": draw((1, Ks)), "lm": draw((1, Ks))}
+    for f in ("pb", "pnb"):
+        stay[f][torch.from_numpy(rng.random((1, Ks)) < dead)] = float(NEG_INF)
+    while True:
+        h = rng.integers(-2 ** 31, 2 ** 31 - 1, size=(1, Ks)).astype(np.int64)
+        cmat = (h[:, None, :] - 1000003 * h[:, :, None]) % 2 ** 32
+        if not ((cmat >= 1) & (cmat <= nb)).any():
+            break
+    idx = torch.arange(Ks, dtype=torch.int32)[None]
+    stay.update(hash=torch.from_numpy(h.astype(np.int32)), last=idx.clone(), parent=idx.clone(),
+                append=torch.full((1, Ks), -1, dtype=torch.int32), ctx=idx.clone())
+    k = torch.arange(Ks, dtype=torch.int32)[None, :, None].expand(1, Ks, nb).contiguous()
+    c = torch.arange(1, nb + 1, dtype=torch.int32)[None, None, :].expand(1, Ks, nb).contiguous()
+    ext = {"pnb": draw((1, Ks, nb)), "lm": draw((1, Ks, nb)), "hash": k * 1000 + c,
+           "parent": k, "append": c, "last": c, "ctx": k}
+    ext["pnb"][torch.from_numpy(rng.random((1, Ks, nb)) < dead)] = float(NEG_INF)
+    return stay, ext
+
+
+@pytest.mark.parametrize("Ks,nb,nt", [
+    (16, 30, 512),     # the sharded decode at config 2: N 496, segments of 31
+    (16, 31, 512),     # N 512, segments of 32
+    (64, 30, 1024),    # K past 32: 32 segments of 62, the ranks
+    (4, 30, 128),      # N 124 over 4 warps
+])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dead", [0.0, 0.5])
+def test_merge_selection_is_the_plain_merges_order(Ks, nb, nt, ties, dead):
+    """K10's selection at its lane layout, emulated warp for warp on its
+    block's thread count, picks the plain ``_merge_topk``'s candidates in
+    its order (its stable descending sort), dead fillers included."""
+    import torch
+
+    from pytorch_asr_tpu_torch.decoding import prefix_beam as pb
+
+    assert merge_threads(Ks, nb) == nt
+    rng = np.random.default_rng(Ks * 100 + nb + 7 * ties + int(10 * dead))
+    stay, ext = _merge_candidates(rng, Ks, nb, ties, dead)
+    score, fields = pb._merge_topk(stay, ext, Ks)
+    want = [int(p) if int(a) < 0 else Ks + int(p) * nb + int(a) - 1
+            for p, a in zip(fields["parent"][0], fields["append"][0])]
+    # The kernel's candidate scores: the plain merge's operations with no match.
+    stay_pnb = pb._lse(stay["pnb"], torch.full_like(stay["pnb"], float(NEG_INF)))
+    flat = torch.cat([pb._lse(stay["pb"], stay_pnb) + stay["lm"],
+                      (ext["pnb"] + ext["lm"]).reshape(1, -1)], dim=1)[0].numpy()
+    got = select(make_keys(flat), Ks, nt, literal=True)
+    assert got == want
+    assert got == stable_order(flat, Ks)
+    assert np.array_equal(flat[got], score[0].numpy())

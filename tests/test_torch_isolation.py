@@ -24,7 +24,8 @@ SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "decoding.driver", "ops.beam_cuda", "train_ngram", "eval_wer", "models.encoder_tcn",
     "ops.tcn_cuda", "models.lm_rnn", "training.lm", "train_lm", "parallel.distributed",
     "parallel.mesh", "parallel.launch", "decoding.prefix_beam_sharded",
-    "scripts.bench_prefix_beam", "scripts.bench_beam_compile", "scripts.bench_study_turns")]
+    "scripts.bench_prefix_beam", "scripts.bench_beam_compile", "scripts.bench_study_turns",
+    "scripts.bench_kernel_turns")]
 
 _PROBE = """
 import importlib, json, pkgutil, sys

@@ -560,17 +560,40 @@ def test_prefix_beam_rnn_kernel_at_full_lm_width(cuda, E, H, nl, K):
 def test_prefix_beam_rnn_kernel_rejects_what_it_does_not_take(cuda):
     logits, lens, _ = _beam_case(cuda, 5, B=2, T=20)
     logp = torch.log_softmax(logits, -1)
-    # The kernel's RnnLm holds the pointers of 8 layers.
-    deep = _rnn_lm(cuda, 9)
-    with pytest.raises(ValueError, match="LM layers"):
-        beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, deep,
-                                  *prefix_beam.primed_lm_state(deep, 29), 0.5, 1.0)
     lm = _rnn_lm(cuda, 1)
     h0, c0, lmp0 = prefix_beam.primed_lm_state(lm, 29)
     with pytest.raises(ValueError, match="h0"):
         beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, lm, h0.double(), c0, lmp0, 0.5, 1.0)
     with pytest.raises(ValueError, match="lmp0"):
         beam_cuda.prefix_beam_rnn(logp, lens, 4, 8, lm, h0, c0, lmp0[:-1], 0.5, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("A", [0, 8])
+def test_prefix_beam_rnn_kernel_takes_a_deep_lm(cuda, monkeypatch, A, grid):
+    """K9 with a 10-layer char LM (E 32, H 64), its layers' weights by the
+    kernel's device table, over all chars and the top 8, on its grid and
+    (the route forced to None) its block kernel, against the plain search:
+    tokens and lengths exact, scores within RNN_RTOL / RNN_ATOL."""
+    logits, lens, _ = _beam_case(cuda, 25, B=4, T=40, gain=8.0)
+    lm = _rnn_lm(cuda, 10, E=32, H=64)
+    route = beam_cuda.rnn_grid_route(4, 8, A or 31, 31, 10, 32, 64, build.sm_count(0))
+    assert route is not None
+    if not grid:
+        monkeypatch.setattr(beam_cuda, "rnn_grid_route", lambda *args, **kwargs: None)
+    kw = dict(beam_size=8, max_len=48, ext_top_a=A, rnn_lm=lm, sos_id=29, lm_alpha=0.5,
+              lm_beta=1.0)
+    build.reset_launches()
+    got = prefix_beam.prefix_beam_search(logits, lens, **kw)
+    torch.cuda.synchronize()
+    name = ("prefix_beam_rnn_topa" if A else "prefix_beam_rnn") + ("" if grid else "_block")
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {name: 1}
+    want = prefix_beam.prefix_beam_search_plain(logits, lens, **kw)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=RNN_RTOL, atol=RNN_ATOL)
+    assert got[1][0] > 0 and got[1][2] == 0
 
 
 @pytest.mark.cuda
@@ -782,13 +805,14 @@ def test_prefix_beam_trace_runs(cuda):
     assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:] >= tr[:, 1:-1]).all())
 
 
-def _merge_case(device, P: int, frames: int, table: bool, seed: int = 7):
+def _merge_case(device, P: int, frames: int, table: bool, seed: int = 7, K: int = 16,
+                V: int = 8):
     """One frame's candidates gathered from P beam shards (``parent_offset``)
     of a state the plain search advanced ``frames`` frames, on logits whose
     chars 3 and 4 are equal at every frame (exact ties from identical
     operations, the table's columns too); row 2 has no frames: its V live
     candidates leave K - V dead picks."""
-    B, T, V, K = 4, frames + 1, 8, 16
+    B, T = 4, frames + 1
     rng = np.random.default_rng(seed)
     logits = rng.standard_normal((B, T, V)).astype(np.float32) * 2
     logits[..., 4] = logits[..., 3]
@@ -816,27 +840,68 @@ def _merge_case(device, P: int, frames: int, table: bool, seed: int = 7):
     return stay, ext, K
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("table", [False, True])
-@pytest.mark.parametrize("frames", [1, 9])
-@pytest.mark.parametrize("P", [1, 2, 4])
-def test_merge_topk_kernel_matches_plain(cuda, P, frames, table):
-    """K10 against the plain merge, every field bit for bit, dead picks too."""
-    stay, ext, K = _merge_case(cuda, P, frames, table)
-    build.reset_launches()
-    score, got = beam_cuda.merge_topk(stay, ext, K)
-    torch.cuda.synchronize()
-    assert build.LAUNCHES["merge_topk"] == 1
-    want_score, want = prefix_beam._merge_topk(stay, ext, K)
+def _assert_merge_equal(score, got, want_score, want):
     assert torch.equal(score, want_score)
     for name, w in want.items():
         assert got[name].dtype == w.dtype and torch.equal(got[name], w), name
-    assert (want_score[2] <= prefix_beam.NEG_INF / 2).any()     # dead picks were compared
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("table", [False, True])
+@pytest.mark.parametrize("frames", [1, 9])
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_merge_topk_kernel_matches_plain(cuda, P, frames, table, K):
+    """K10 against the plain merge, every field bit for bit, dead picks too:
+    beam 16 (the merge tree) and 64 (past 32: the ranks); with block 0's
+    trace, whose clocks rise phase by phase."""
+    stay, ext, K = _merge_case(cuda, P, frames, table, K=K)
+    trace = torch.zeros(7, dtype=torch.int64, device=cuda)
+    build.reset_launches()
+    score, got = beam_cuda.merge_topk(stay, ext, K, trace=trace)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"merge_topk": 1}
+    _assert_merge_equal(score, got, *prefix_beam._merge_topk(stay, ext, K))
+    assert (score[2] <= prefix_beam.NEG_INF / 2).any()     # dead picks were compared
+    tr = trace.cpu()
+    assert bool((tr[2:6] >= tr[1:5]).all()) and tr[6] >= tr[0] > 0
+
+
+@pytest.mark.cuda
+def test_merge_topk_past_a_block_runs_in_scratch(cuda):
+    """K10 at Ks 640 over 30 chars (262,912 bytes a block: past shared
+    memory) keeps its working set in a device scratch, counted as
+    ``merge_topk_wide``, and equals the plain merge bit for bit."""
+    stay, ext, K = _merge_case(cuda, 2, 9, True, K=640, V=31)
+    assert not beam_cuda.merge_fits(640, 30) and beam_cuda.merge_smem_bytes(640, 30) == 262912
+    build.reset_launches()
+    score, got = beam_cuda.merge_topk(stay, ext, K)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"merge_topk_wide": 1}
+    _assert_merge_equal(score, got, *prefix_beam._merge_topk(stay, ext, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+def test_merge_topk_scratch_form_gives_the_shared_forms_bits(cuda, monkeypatch, P):
+    """The in-scratch form forced at the sharded search's shape (Ks 16 over
+    30 chars) equals the shared form and the plain merge."""
+    stay, ext, K = _merge_case(cuda, P, 9, True, K=16, V=31)
+    shared = beam_cuda.merge_topk(stay, ext, K)
+    monkeypatch.setattr(beam_cuda, "merge_fits", lambda *args: False)
+    build.reset_launches()
+    score, got = beam_cuda.merge_topk(stay, ext, K)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"merge_topk_wide": 1}
+    _assert_merge_equal(score, got, *shared)
+    _assert_merge_equal(score, got, *prefix_beam._merge_topk(stay, ext, K))
 
 
 @pytest.mark.cuda
 def test_merge_topk_kernel_rejects_what_it_does_not_take(cuda):
     stay, ext, K = _merge_case(cuda, 2, 1, False)
+    with pytest.raises(ValueError, match="trace"):
+        beam_cuda.merge_topk(stay, ext, K, trace=torch.zeros(6, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError, match="ctx"):
         beam_cuda.merge_topk({**stay, "ctx": stay["ctx"][..., None]}, ext, K)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1049,6 +1114,101 @@ def test_bilstm_kernel_rejects_what_it_does_not_take(cuda):
         lstm_cuda.bilstm_seq(x, wih[0], whh[0], bias[0], lengths)
     with pytest.raises(ValueError, match="lengths"):
         lstm_cuda.bilstm_seq(x, wih, whh, bias, lengths.long())
+
+
+def _bilstm_bwd_case(device, B, T, D, H, dtype, res_dtype, seed=14):
+    """K11's backward inputs at width H: residuals from its training
+    forward, lengths T, 0, past T, 1 and in between (``_bwd_case``'s), and
+    a random upstream gradient (B, T, 2H)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    x = t(rng.standard_normal((B, T, D)) * 0.5).to(dtype)
+    wih = t(rng.standard_normal((2, D, 4 * H)) / np.sqrt(D)).to(dtype)
+    whh = t(rng.standard_normal((2, H, 4 * H)) / np.sqrt(H))
+    bias = t(rng.standard_normal((2, 4 * H)) * 0.1)
+    lengths = torch.tensor(([T, 0, T + 5, 1] + [2 + 7 * i % (T - 2) for i in range(B)])[:B],
+                           dtype=torch.int32, device=device)
+    _, acts, ct = lstm_cuda.bilstm_seq_train_fwd(x, wih, whh, bias, lengths, dtype, res_dtype)
+    gy = t(rng.standard_normal((B, T, 2 * H)))
+    return gy, x, wih, whh, lengths, acts, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 8, 16])
+@pytest.mark.parametrize("H", [384, 512, 640])
+def test_bilstm_backward_grid_equals_the_oracle_and_two_k3_launches(cuda, H, B):
+    """K11's backward on its dual grid (half the SMs a direction) equals the
+    per-utterance dual oracle and two K3 backward launches bit for bit in
+    all six outputs (dgates, hprev, dx, dwih, dwhh, db), at config 1's,
+    config 2's and config 5's widths, float32 and bf16 residuals (x of
+    their type); row 1, where B > 1, has length 0."""
+    for dtype in (torch.float32, torch.bfloat16):
+        bargs = _bilstm_bwd_case(cuda, B, 24, 64, H, dtype, dtype)
+        gy, x, wih, whh, lengths, acts, ct = bargs
+        grid = lstm_cuda.backward_grid(H, B, build.sm_count(0), directions=2)
+        assert grid.directions == 2 and grid.ctas <= build.sm_count(0) // 2
+        assert grid == lstm_cuda.backward_route(H, B, build.sm_count(0), directions=2)
+        got_s, want_s = {}, {}
+        build.reset_launches()
+        got = lstm_cuda.bilstm_backward_on_route(grid, *bargs, scratch=got_s)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in build.LAUNCHES.items() if v} == {"bilstm_seq_bwd": 1}
+        build.reset_launches()
+        want = lstm_cuda._bilstm_seq_bwd_per_utterance(*bargs, scratch=want_s)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+            "bilstm_seq_bwd_per_utterance": 1}
+        for name in ("dgates", "hprev"):
+            assert torch.equal(got_s[name], want_s[name]), (name, dtype)
+        for name, g, w in zip(("dx", "dwih", "dwhh", "db"), got, want):
+            assert torch.equal(g, w), (name, dtype)
+        k3, k3_s = [], [{}, {}]
+        for d in (0, 1):
+            k3.append(lstm_cuda.backward_on_route(
+                lstm_cuda.backward_route(H, B, build.sm_count(0)),
+                gy[..., d * H:(d + 1) * H].contiguous(), x, wih[d], whh[d], lengths, acts[d],
+                ct[d], bool(d), scratch=k3_s[d]))
+        for name in ("dgates", "hprev"):
+            assert torch.equal(got_s[name], torch.stack([k3_s[0][name], k3_s[1][name]])), name
+        assert torch.equal(got[0], k3[0][0] + k3[1][0])
+        for i in (1, 2, 3):
+            assert torch.equal(got[i], torch.stack([k3[0][i], k3[1][i]])), i
+        if B > 1:
+            assert not got_s["dgates"][:, 1].any() and not got[0][1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [384, 512, 640])
+def test_bilstm_autograd_runs_the_dual_backward_grid(cuda, monkeypatch, H):
+    """Autograd through ``bilstm_seq`` at those widths launches the dual
+    backward grid once and its wide route never; with ``backward_route``
+    forced to None the op takes the per-utterance kernel, counted as
+    ``bilstm_seq_bwd_wide``, with the same bits.  A trace records CTA (0,
+    0)'s steps in order."""
+    B, T, D = 8, 20, 48
+    bargs = _bilstm_bwd_case(cuda, B, T, D, H, torch.bfloat16, torch.bfloat16, seed=15)
+    gy, x, wih, whh, lengths = bargs[:5]
+    bias = torch.zeros((2, 4 * H), device=cuda)
+    params = [t.clone().requires_grad_(True) for t in (x, wih, whh, bias)]
+    build.reset_launches()
+    out = lstm_cuda.bilstm_seq(*params, lengths, torch.bfloat16)
+    out.float().backward(gy)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"bilstm_seq_train_fwd": 1,
+                                                              "bilstm_seq_bwd": 1}
+    grid = lstm_cuda.backward_route(H, B, build.sm_count(0), directions=2)
+    trace = torch.zeros((T, 5), dtype=torch.int64, device=cuda)
+    want = lstm_cuda.bilstm_backward_on_route(grid, *bargs, trace=trace)
+    torch.cuda.synchronize()
+    steps = int(lengths.clamp(max=T).max())
+    tr = trace[:steps].cpu()
+    assert bool((tr[1:, 0] >= tr[:-1, 0]).all()) and bool((tr[:, 2:] >= tr[:, 1:4]).all())
+    monkeypatch.setattr(lstm_cuda, "backward_route", lambda *args, **kwargs: None)
+    build.reset_launches()
+    got = lstm_cuda.bilstm_seq_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"bilstm_seq_bwd_wide": 1}
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

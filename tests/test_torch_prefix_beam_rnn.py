@@ -95,6 +95,22 @@ def test_plain_matches_jax_scan(nl, A):
     assert ours[1][0] > 0 and ours[1][1] == 0 and ours[2][1] == 0.0
 
 
+def test_plain_matches_jax_scan_with_nine_layers():
+    """An LM of 9 layers (E 8, H 16) over 20 frames, past the 8 layers K9's
+    kernel once held: the port's plain search, what the card's K9 is held
+    to, against JAX's scan."""
+    model, jmodel, params = _lm(9, 9)
+    rng = np.random.default_rng(9)
+    logits = rng.standard_normal((B, 20, V)).astype(np.float32) * 2
+    lens = np.array([20, 11], np.int32)
+    ref = jax_search(jnp.asarray(logits), jnp.asarray(lens), beam_size=K, max_len=L,
+                     rnn_lm=jmodel, rnn_lm_params=params, lm_alpha=ALPHA, lm_beta=BETA,
+                     sos_id=SOS, use_fused=False)
+    ours = _port(logits, lens, model)
+    _assert_same(ours, ref)
+    assert ours[1][0] > 0 and ours[1][1] > 0
+
+
 @pytest.fixture
 def interpret():
     jax_runtime.force_interpret(True)

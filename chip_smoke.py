@@ -11,8 +11,9 @@ result line):
      and a PyTorch library yardstick with CUDA events (median of repeated
      runs of queued calls, after warm-up); K2 also at config 2's layer
      shape; print the co-resident grid of K2's and K3's forward recurrence
-     and its µs a step (profiler), and sweep the grid's CTAs; K1 and its
-     library call are timed in turns;
+     and its µs a step (profiler), and sweep the grid's CTAs; K1 and K4 and
+     their library calls are timed in turns, with K1's and K4's phase
+     splits from their traces;
   3. run the model at float32 on one synthetic batch on the CPU and on the
      card with the same seeded weights; compare logits and greedy tokens;
      then one float32 train step, card vs CPU: loss, gradients, and the
@@ -67,8 +68,12 @@ result line):
      LSTM kernel, a beam-400 search and K9 at beam 64 (past a block), and
      K13 at beam 32 with max_len 1024 and K12 at beam 32 over 1024 chars
      (past a block: the study kernels' in-scratch form), K10 at beam 640
-     (its in-scratch form) and K9 with an LM of 10 layers, each with its own
-     counts and held to the plain version on the card;
+     (its in-scratch form), K9 with an LM of 10 layers, K4 past its
+     registers (the CTC loss and its gradient at S 4097 and 20001, and the
+     paired alpha at S 4097 with ``PAIRED_FWD``: the lattice rows in device
+     memory) and K1's DFT form (``decode.main`` at ``frontend.n_fft`` 400
+     and 2048), each with its own counts and held to the plain version on
+     the card;
      then ``decode.main ... decode.shard_beams=true`` in ranks spawned on
      the one card over gloo, each with its launch counters set to 0 just
      before and read just after: 2 ranks at model axis 2 and 4 ranks at
@@ -144,14 +149,15 @@ from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.evaluate import build_model, eval_step, model_outputs
 from pytorch_asr_tpu_torch.frontend import features
 from pytorch_asr_tpu_torch.models import encoder_bilstm
-from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len, set_residual_dtype
+from pytorch_asr_tpu_torch.models.encoder_bilstm import set_residual_dtype
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
 from pytorch_asr_tpu_torch.ops import (
     beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
 from pytorch_asr_tpu_torch.parallel import distributed, launch
 from pytorch_asr_tpu_torch.parallel.mesh import make_mesh
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
-from pytorch_asr_tpu_torch.scripts import _timing, bench_beam_compile, bench_prefix_beam
+from pytorch_asr_tpu_torch.scripts import (_timing, bench_beam_compile, bench_kernel_turns,
+                                           bench_prefix_beam)
 from pytorch_asr_tpu_torch.training import state as train_state
 from pytorch_asr_tpu_torch.training.trainer import Trainer
 
@@ -256,7 +262,8 @@ WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "lstm_seq_bwd_wide", "bil
                "bilstm_seq_train_wide", "bilstm_seq_bwd_wide", "merge_topk_wide",
                "prefix_beam_wide", "prefix_beam_topa_wide",
                "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide", "prefix_beam_rnn_block",
-               "prefix_beam_rnn_topa_block", "prefix_beam_fused_wide", "prefix_beam_stepwise_wide")
+               "prefix_beam_rnn_topa_block", "prefix_beam_fused_wide", "prefix_beam_stepwise_wide",
+               "ctc_alpha_wide", "ctc_beta_wide", "ctc_alpha_paired_wide", "stft_log_mel_dft")
 # K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
 # seed) at beam 16, and the trained default LM at beam 32.
 WIDE_LM, WIDE_BEAM = RNNLMConfig(embed_dim=128, hidden_dim=512, num_layers=2), 32
@@ -265,6 +272,11 @@ WIDE_LM, WIDE_BEAM = RNNLMConfig(embed_dim=128, hidden_dim=512, num_layers=2), 3
 # 9; and K9 with an LM of 10 layers (E 32, H 64), past the 8 it once held.
 WIDE_MERGE_BEAM, WIDE_MERGE_FRAME = 640, 9
 DEEP_LM = RNNLMConfig(embed_dim=32, hidden_dim=64, num_layers=10)
+# K4 past its registers (S > 4096): 3 rows (a row of no frames, an infeasible
+# row) of S 4097 and 20001 over 30 chars, in frames enough for row 0's
+# labels and their repeats; K1's DFT form at two n_fft with no FFT plan.
+WIDE_CTC_CASES = ((3, 2300, 30, 2048), (3, 12000, 30, 10000))
+WIDE_N_FFT = (400, 2048)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -454,13 +466,18 @@ def exact_log_mel(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     return torch.log(torch.clamp(power @ mel, min=cfg.log_floor)).float()
 
 
-def stft_phase() -> dict:
-    cfg = FrontendConfig()
+def serving_audio(cfg: FrontendConfig) -> torch.Tensor:
+    """(B, AUDIO) float32 on the card: 8 synthetic utterances of 16 s."""
     rng_audio = np.zeros((B, AUDIO), np.float32)
     for b, (a, _) in enumerate(synthetic_corpus(B, cfg.sample_rate, seed=1,
                                                 min_sec=16.0, max_sec=17.0)):
         rng_audio[b, : min(len(a), AUDIO)] = a[:AUDIO]
-    audio = torch.from_numpy(rng_audio).cuda()
+    return torch.from_numpy(rng_audio).to(CARD)
+
+
+def stft_phase() -> dict:
+    cfg = FrontendConfig()
+    audio = serving_audio(cfg)
     got = stft_cuda.stft_log_mel(audio, cfg)
     torch.cuda.synchronize()
     want = stft_cuda.stft_log_mel_plain(audio, cfg)
@@ -472,33 +489,13 @@ def stft_phase() -> dict:
     check(exact_err <= STFT_EXACT_TOL, f"stft_log_mel vs a float64 DFT: {exact_err}")
     plain_exact_err, _ = errors(want, exact)
 
-    # Yardstick: torch.stft with the 400-sample window padded to n_fft on the
-    # right and the audio padded by n_fft - win, which frames exactly as
-    # center=False over win samples; then the same mel product and log.
-    n_freq = cfg.n_fft // 2 + 1
-    window = torch.zeros(cfg.n_fft, device=audio.device)
-    window[: cfg.win_length] = torch.hann_window(cfg.win_length, device=audio.device)
-    mel = torch.from_numpy(features.mel_filterbank(cfg)).cuda()
-    padded = torch.nn.functional.pad(audio, (0, cfg.n_fft - cfg.win_length))
-
-    def library():
-        spec = torch.stft(padded, cfg.n_fft, cfg.hop_length, cfg.n_fft, window,
-                          center=False, return_complex=True)
-        return torch.log(torch.clamp(spec.abs().square().transpose(1, 2) @ mel,
-                                     min=cfg.log_floor))
-
+    # Yardstick: torch.stft, then the same mel product and log.
+    library = stft_library(cfg, audio)
     lib_err, _ = errors(library(), want)
     check(lib_err <= STFT_TOL, f"stft yardstick computes another function: {lib_err}")
     split = stft_split(audio, cfg)
-    # What the function needs a frame: the window product, a real FFT of
-    # n_fft points (2.5 n log2 n), the power, the mel product over the bank's
-    # nonzeros (it is sparse: triangles), and the log.
     T = features.max_frames(AUDIO, cfg)
-    nnz = int((mel != 0).sum())
-    ops = B * T * (cfg.win_length + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3 * n_freq
-                   + cfg.n_mels) + B * T * 2 * nnz
-    nbytes = 4 * (B * AUDIO + B * T * cfg.n_mels + cfg.win_length + n_freq * cfg.n_mels)
-    b_ms, b_by = bound(nbytes, ops / PEAK_FP32_S)
+    b_ms, b_by = stft_bound(cfg, B, AUDIO)
     # K1 and its library call in turns (kernel, library, library, kernel),
     # so that one run ranks them.
     kernel = lambda: stft_cuda.stft_log_mel(audio, cfg)  # noqa: E731
@@ -523,6 +520,38 @@ def stft_phase() -> dict:
            "bound_ms": b_ms, "bound_by": b_by}
     print(f"stft_log_mel: {json.dumps(rec)}")
     return rec
+
+
+def stft_bound(cfg: FrontendConfig, b: int, A: int) -> tuple[float, str]:
+    """``bound`` of the log-mel of (b, A) audio.  What the function needs a
+    frame: the window product, a real FFT of n_fft points (2.5 n log2 n),
+    the power, the mel product over the bank's nonzeros (it is sparse:
+    triangles), and the log; bytes: the audio, the output, the window and
+    the bank."""
+    n_freq, T = cfg.n_fft // 2 + 1, features.max_frames(A, cfg)
+    nnz = int((features.mel_filterbank(cfg) != 0).sum())
+    ops = b * T * (cfg.win_length + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3 * n_freq
+                   + cfg.n_mels) + b * T * 2 * nnz
+    nbytes = 4 * (b * A + b * T * cfg.n_mels + cfg.win_length + n_freq * cfg.n_mels)
+    return bound(nbytes, ops / PEAK_FP32_S)
+
+
+def stft_library(cfg: FrontendConfig, audio: torch.Tensor):
+    """The log-mel as ``torch.stft`` (the window padded to n_fft on the
+    right, the audio padded by n_fft - win, which frames exactly as
+    center=False over win samples), then the mel product and log."""
+    window = torch.zeros(cfg.n_fft, device=audio.device)
+    window[: cfg.win_length] = torch.hann_window(cfg.win_length, device=audio.device)
+    mel = torch.from_numpy(features.mel_filterbank(cfg)).to(audio.device)
+    padded = torch.nn.functional.pad(audio, (0, cfg.n_fft - cfg.win_length))
+
+    def library():
+        spec = torch.stft(padded, cfg.n_fft, cfg.hop_length, cfg.n_fft, window,
+                          center=False, return_complex=True)
+        return torch.log(torch.clamp(spec.abs().square().transpose(1, 2) @ mel,
+                                     min=cfg.log_floor))
+
+    return library
 
 
 def stft_split(audio: torch.Tensor, cfg: FrontendConfig) -> dict:
@@ -856,28 +885,13 @@ def ctc_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
 
 
 def ctc_case():
-    """K4's inputs at the training path's shapes: labels of a batch of 10-16
-    s synthetic utterances over T' = 400 frames, with one row of
-    ``logit_len == 0`` and one infeasible row: (logits, labels, logit_len,
-    label_len, T), on the card."""
-    cfg = get_config("ctc_bilstm_dev1h", **{"data.synthetic_min_sec": "10",
-                                            "data.synthetic_max_sec": "16",
-                                            "data.synthetic_num_utts": str(B),
-                                            "data.auto_buckets": "1"})
-    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
-    enc = cfg.model.encoder
-    logit_len = features.num_frames(torch.from_numpy(batch["audio_len"]), cfg.frontend)
-    for _ in enc.conv_channels:
-        logit_len = conv_out_len(logit_len, enc.conv_kernel[0], enc.conv_stride[0])
-    label_len = torch.from_numpy(batch["token_len"]).to(torch.int32)
-    logit_len = logit_len.to(torch.int32)
-    logit_len[B - 2] = 0                                     # a row with no frames
-    logit_len[B - 1] = label_len[B - 1] // 2                 # infeasible
-    T = int(logit_len.max())
-    g = torch.Generator().manual_seed(4)
-    logits = (torch.randn(B, T, V, generator=g) * 2).cuda()
-    labels = torch.from_numpy(batch["tokens"]).cuda()
-    return logits, labels, logit_len.cuda(), label_len.cuda(), T
+    """K4's inputs at the training path's shapes
+    (``bench_kernel_turns.train_ctc_case``): labels of a batch of 10-16 s
+    synthetic utterances over T' = 400 frames, with one row of ``logit_len
+    == 0`` and one infeasible row: (logits, labels, logit_len, label_len,
+    T), on the card."""
+    logits, logit_len, labels, label_len = bench_kernel_turns.train_ctc_case(CARD)
+    return logits, labels, logit_len, label_len, logits.shape[1]
 
 
 def ctc_phase() -> list[dict]:
@@ -914,34 +928,72 @@ def ctc_phase() -> list[dict]:
 
     # Yardstick: torch's CTC with zero_infinity, forward; its backward with
     # the graph kept (log-probabilities in, as F.ctc_loss takes them).
+    lib, lib_backward = ctc_library(logits, labels, logit_len, label_len)
+    frames = int(logit_len.sum())
+    # Each kernel and its library call in turns (kernel, library, library,
+    # kernel); block 0's frame split from each kernel's trace.
+    fwd = in_turns({"kernel": lambda: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len),
+                    "library": lib}, reps=10, inner=10)
+    bwd = in_turns({"kernel": lambda: ctc_cuda.ctc_beta(*bargs), "library": lib_backward},
+                   reps=10, inner=10)
+    common = {"route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/ctc_alpha_beta.cu",
+              "shape": f"logp_tbs ({T}, {B}, {S}) f32, V {V}, "
+                       f"label_len {label_len.tolist()}, logit_len {logit_len.tolist()}",
+              "plan": list(ctc_cuda.lane_plan(S)),
+              "loss_max_abs_err": loss_err, "grad_max_abs_err": grad_err}
+    alpha = {"name": "ctc_alpha", **common, "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:279",
+             "max_abs_err": alpha_err, "tol": {"rtol": CTC_RTOL, "atol": CTC_ALPHA_ATOL},
+             "ms": statistics.mean(fwd["kernel"]),
+             "plain_ms": time_ms(lambda: ctc.alphas_plain(logp_tbs, skip, logit_len), 3, 1, 1),
+             "library_ms": statistics.mean(fwd["library"]),
+             "library": "F.ctc_loss forward (zero_infinity)",
+             "turns_ms": {"kernel, library, library, kernel": fwd},
+             "frame_split_us": ctc_split(
+                 lambda tr: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len, trace=tr), T)}
+    alpha["bound_ms"], alpha["bound_by"] = ctc_bound("alpha", T, B, S, frames)
+    beta = {"name": "ctc_beta", **common, "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:312",
+            "max_abs_err": beta_err, "tol": {"rtol": CTC_GRAD_RTOL, "atol": CTC_GRAD_ATOL},
+            "ms": statistics.mean(bwd["kernel"]),
+            "plain_ms": time_ms(lambda: ctc.posteriors_plain(*bargs), 3, 1, 1),
+            "library_ms": statistics.mean(bwd["library"]),
+            "library": "F.ctc_loss backward (autograd.grad, graph kept)",
+            "turns_ms": {"kernel, library, library, kernel": bwd},
+            "frame_split_us": ctc_split(lambda tr: ctc_cuda.ctc_beta(*bargs, trace=tr), T)}
+    beta["bound_ms"], beta["bound_by"] = ctc_bound("beta", T, B, S, frames)
+    return [alpha, beta]
+
+
+def ctc_bound(kind: str, T: int, b: int, S: int, frames: int) -> tuple[float, str]:
+    """``bound`` of a K4 kernel over (T, b, S) with ``frames`` valid frames.
+    Bytes: logp (and, for the beta, the alphas) read, the outputs written,
+    the masks, lengths, beta_T and logz.  Operations a state and frame: the
+    log-sum-exp of three terms, 3 exp, 1 log and ~8 adds and maxima ("alpha",
+    12); the beta adds the posterior's add, subtract and exp (15); the
+    paired alpha, a pair of frames: the single step, the five emission
+    weights and the 5-term log-sum-exp (23)."""
+    row = 4 * T * b * S
+    if kind == "beta":
+        return bound(3 * row + b * S + 4 * b * S + 8 * b, 15 * S * frames / PEAK_FP32_S)
+    return bound(2 * row + b * S + 4 * b + 4 * b * S,
+                 (12 if kind == "alpha" else 23) * S * frames / PEAK_FP32_S)
+
+
+def ctc_library(logits, labels, logit_len, label_len):
+    """``F.ctc_loss`` (zero_infinity) on the log-probabilities of
+    ``logits``: (its forward, its backward with the graph kept)."""
     lp = torch.log_softmax(logits, -1).transpose(0, 1).detach().requires_grad_(True)
     lib = lambda: F.ctc_loss(lp, labels.long(), logit_len.long(), label_len.long(),  # noqa: E731
                              reduction="none", zero_infinity=True)
     lib_loss = lib()
-    frames = int(logit_len.sum())
-    # log-sum-exp of three terms: 3 exp, 1 log and ~8 adds and maxima a state
-    # and frame (the beta adds the posterior's add, subtract and exp).
-    alpha_bytes = 4 * T * B * S + B * S + 4 * B + 4 * T * B * S + 4 * B * S
-    beta_bytes = 2 * 4 * T * B * S + B * S + 4 * B * S + 8 * B + 4 * T * B * S
-    common = {"route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/ctc_alpha_beta.cu",
-              "shape": f"logp_tbs ({T}, {B}, {S}) f32, V {V}, "
-                       f"label_len {label_len.tolist()}, logit_len {logit_len.tolist()}",
-              "loss_max_abs_err": loss_err, "grad_max_abs_err": grad_err}
-    alpha = {"name": "ctc_alpha", **common, "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:279",
-             "max_abs_err": alpha_err, "tol": {"rtol": CTC_RTOL, "atol": CTC_ALPHA_ATOL},
-             "ms": time_ms(lambda: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)),
-             "plain_ms": time_ms(lambda: ctc.alphas_plain(logp_tbs, skip, logit_len), 3, 1, 1),
-             "library_ms": time_ms(lib), "library": "F.ctc_loss forward (zero_infinity)"}
-    alpha["bound_ms"], alpha["bound_by"] = bound(alpha_bytes, 12 * S * frames / PEAK_FP32_S)
-    beta = {"name": "ctc_beta", **common, "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:312",
-            "max_abs_err": beta_err, "tol": {"rtol": CTC_GRAD_RTOL, "atol": CTC_GRAD_ATOL},
-            "ms": time_ms(lambda: ctc_cuda.ctc_beta(*bargs)),
-            "plain_ms": time_ms(lambda: ctc.posteriors_plain(*bargs), 3, 1, 1),
-            "library_ms": time_ms(lambda: torch.autograd.grad(lib_loss.sum(), lp,
-                                                              retain_graph=True)),
-            "library": "F.ctc_loss backward (autograd.grad, graph kept)"}
-    beta["bound_ms"], beta["bound_by"] = bound(beta_bytes, 15 * S * frames / PEAK_FP32_S)
-    return [alpha, beta]
+    return lib, lambda: torch.autograd.grad(lib_loss.sum(), lp, retain_graph=True)
+
+
+def ctc_split(call, T: int) -> dict:
+    """Where a K4 frame's time goes: ``bench_kernel_turns.ctc_split``, block
+    0's trace of each frame it recursed, written by ``call(trace)``."""
+    split = bench_kernel_turns.ctc_split(call, T, CARD)
+    check(split["frames"] > 1, "ctc trace: fewer than two frames written")
+    return split
 
 
 def bilstm_phase() -> tuple[list[dict], dict]:
@@ -1171,9 +1223,6 @@ def ctc_paired_phase() -> dict:
                          "paired")
     lp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
     frames = int(logit_len.sum())
-    nbytes = 4 * T * B * S + B * S + 4 * B + 4 * T * B * S + 4 * B * S
-    # A pair of frames a state: the single step (~12 operations), the five
-    # emission weights (~20) and the 5-term log-sum-exp (~14).
     return {"name": "ctc_alpha_paired", "route": "cuda",
             "source": "pytorch_asr_tpu_torch/csrc/ctc_alpha_beta.cu",
             "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:139",
@@ -1191,7 +1240,7 @@ def ctc_paired_phase() -> dict:
                                                      label_len.long(), reduction="none",
                                                      zero_infinity=True)),
             "library": "F.ctc_loss forward (zero_infinity)",
-            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 23 * S * frames / PEAK_FP32_S)))}
+            **dict(zip(("bound_ms", "bound_by"), ctc_bound("paired", T, B, S, frames)))}
 
 
 def train_paired_phase() -> dict:
@@ -2597,11 +2646,177 @@ def wide_phase() -> tuple[dict, list[dict], dict]:
                     "lengths": [got_fused[1].tolist(), got_step[1].tolist()]}
     merge_row, out["merge"], paths["wide_merge"] = wide_merge(logits, blens)
     deep_row, out["deep_lm"], paths["wide_deep_lm"] = wide_deep_lm(cfg)
+    ctc_rows, out["ctc"], ctc_paths = wide_ctc()
+    stft_row, out["stft"], paths["wide_stft"] = wide_stft()
     rows = [*wide_lstm_rows(g), *wide_beam_rows(logits, blens, kw7, kw9, got7, got9),
             *wide_study_rows(study_in, {"prefix_beam_fused": (got_fused, None),
                                         "prefix_beam_stepwise": (got_step, steps)}),
-            merge_row, deep_row]
-    return out, rows, paths
+            merge_row, deep_row, *ctc_rows, stft_row]
+    return out, rows, {**paths, **ctc_paths}
+
+
+def wide_ctc() -> tuple[list[dict], dict, dict]:
+    """K4 past its registers, which no configuration reaches (labels past
+    2047 tokens): the CTC loss and its gradient through ``ctc_cuda.ctc_loss``
+    at S 4097 and 20001 ("wide_ctc") and, with ``PAIRED_FWD`` set, at S 4097
+    ("wide_paired"), each path with the counts set to 0 just before and read
+    just after; then each kernel against its plain version at both sizes
+    (the paired alpha at S 4097), timed in turns with ``F.ctc_loss``.
+    Returns (the kernel rows, the record, each path's launches)."""
+    cases = [bench_kernel_turns.ctc_case(CARD, *c) for c in WIDE_CTC_CASES]
+    paths, rec = {}, {}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for logits, logit_len, labels, label_len in cases:
+        a = logits.clone().requires_grad_(True)
+        loss = ctc_cuda.ctc_loss(a, logit_len, labels, label_len)
+        loss.sum().backward()
+        check(bool(torch.isfinite(loss).all()) and loss[0] > 0 and not loss[1:].any()
+              and not a.grad[1:].any() and bool(torch.isfinite(a.grad).all()),
+              f"wide ctc: loss {loss.tolist()} or its gradient is wrong")
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    paths["wide_ctc"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(paths["wide_ctc"] == {"ctc_alpha_wide": 2, "ctc_beta_wide": 2},
+          f"wide ctc launches {paths['wide_ctc']}")
+    logits, logit_len, labels, label_len = cases[0]
+    torch.cuda.synchronize()
+    ctc_cuda.PAIRED_FWD = True
+    try:
+        build.reset_launches()
+        a = logits.clone().requires_grad_(True)
+        loss = ctc_cuda.ctc_loss(a, logit_len, labels, label_len)
+        loss.sum().backward()
+        torch.cuda.synchronize()
+        paths["wide_paired"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        ctc_cuda.PAIRED_FWD = False
+    check(paths["wide_paired"] == {"ctc_alpha_paired_wide": 1, "ctc_beta_wide": 1}
+          and bool(torch.isfinite(a.grad).all()), f"wide paired launches {paths['wide_paired']}")
+
+    replaces = {"ctc_alpha_wide": "279", "ctc_beta_wide": "312", "ctc_alpha_paired_wide": "139"}
+    rows = {n: {"name": n, "route": "cuda",
+                "source": "pytorch_asr_tpu_torch/csrc/ctc_alpha_beta.cu",
+                "replaces": f"pytorch_asr_tpu/ops/ctc_pallas.py:{line}", "cases": []}
+            for n, line in replaces.items()}
+    for i, (logits, logit_len, labels, label_len) in enumerate(cases):
+        _, lp, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+        T, b, S = lp.shape
+        check(ctc_cuda.lane_plan(S).form == "wide", f"S {S} fits the register form")
+        frames = int(logit_len.sum())
+        shape = f"logp_tbs ({T}, {b}, {S}) f32, logit_len {logit_len.tolist()}"
+        alphas, final = ctc_cuda.ctc_alpha(lp, skip, logit_len)
+        ref_alphas, ref_final = ctc.alphas_plain(lp, skip, logit_len)
+        err = max(ctc_close("wide alphas", alphas, ref_alphas, CTC_RTOL, CTC_ALPHA_ATOL),
+                  ctc_close("wide final alpha", final, ref_final, CTC_RTOL, CTC_ALPHA_ATOL))
+        logz = ctc.terminal_logz(ref_final, label_len)
+        feasible = (logz > ctc.NEG_INF / 2) & (logit_len > 0)
+        bargs = (lp, ref_alphas, ctc.shift_left(skip, 2, fill=False).contiguous(),
+                 ctc.terminal_betas(label_len, S),
+                 torch.where(feasible, logit_len, 0).to(torch.int32),
+                 torch.where(feasible, logz, 0.0))
+        w_err = ctc_close("wide posteriors", ctc_cuda.ctc_beta(*bargs),
+                          ctc.posteriors_plain(*bargs), CTC_GRAD_RTOL, CTC_GRAD_ATOL)
+        lib, lib_backward = ctc_library(logits, labels, logit_len, label_len)
+        fwd = in_turns({"kernel": lambda: ctc_cuda.ctc_alpha(lp, skip, logit_len),
+                        "library": lib}, reps=3, inner=2)
+        bwd = in_turns({"kernel": lambda: ctc_cuda.ctc_beta(*bargs),
+                        "library": lib_backward}, reps=3, inner=2)
+        done = [("ctc_alpha_wide", "alpha", err, fwd,
+                 lambda: ctc.alphas_plain(lp, skip, logit_len), "F.ctc_loss forward"),
+                ("ctc_beta_wide", "beta", w_err, bwd, lambda: ctc.posteriors_plain(*bargs),
+                 "F.ctc_loss backward (autograd.grad, graph kept)")]
+        if i == 0:
+            pa, pf = ctc_cuda.ctc_alpha_paired(lp, skip, logit_len)
+            ref_pa, ref_pf = ctc.alphas_paired_plain(lp, skip, logit_len)
+            p_err = max(ctc_close("wide paired alphas", pa, ref_pa, CTC_RTOL, CTC_ALPHA_ATOL),
+                        ctc_close("wide paired final", pf, ref_pf, CTC_RTOL, CTC_ALPHA_ATOL))
+            pfwd = in_turns({"kernel": lambda: ctc_cuda.ctc_alpha_paired(lp, skip, logit_len),
+                             "library": lib}, reps=3, inner=2)
+            done.append(("ctc_alpha_paired_wide", "paired", p_err, pfwd,
+                         lambda: ctc.alphas_paired_plain(lp, skip, logit_len),
+                         "F.ctc_loss forward"))
+        for name, kind, e, turns, plain, library in done:
+            b_ms, b_by = ctc_bound(kind, T, b, S, frames)
+            rows[name]["cases"].append({
+                "shape": shape, "S": S, "max_abs_err": e, "ms": statistics.mean(turns["kernel"]),
+                "plain_ms": time_ms(plain, 1, 1, 1),
+                "library_ms": statistics.mean(turns["library"]), "library": library,
+                "turns_ms": {"kernel, library, library, kernel": turns},
+                "bound_ms": b_ms, "bound_by": b_by})
+    tols = {"ctc_alpha_wide": {"rtol": CTC_RTOL, "atol": CTC_ALPHA_ATOL},
+            "ctc_beta_wide": {"rtol": CTC_GRAD_RTOL, "atol": CTC_GRAD_ATOL},
+            "ctc_alpha_paired_wide": {"rtol": CTC_RTOL, "atol": CTC_ALPHA_ATOL}}
+    out = []
+    for name, row in rows.items():
+        first = row["cases"][0]
+        row.update({k: first[k] for k in ("shape", "ms", "plain_ms", "library_ms", "library",
+                                           "bound_ms", "bound_by")})
+        row["max_abs_err"] = max(c["max_abs_err"] for c in row["cases"])
+        row["tol"] = tols[name]
+        out.append(row)
+    return out, rec, paths
+
+
+def wide_stft() -> tuple[dict, dict, dict]:
+    """K1's DFT form, which no configuration reaches (every config's n_fft
+    is 512): ``decode.main`` at ``frontend.n_fft`` 400 and 2048 (a batch of
+    8 each), with the counts set to 0 before the first and read after the
+    second ("wide_stft"); then the kernel against its plain version and a
+    float64 DFT at the serving audio (8 x 16 s) at both sizes, timed in
+    turns with ``torch.stft`` + mel + log, with its phase split.  Returns
+    (the kernel row, the record, the path's launches)."""
+    rec = {}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for n_fft in WIDE_N_FFT:
+        with tempfile.TemporaryDirectory() as ckpt:
+            result = decode.main(["ctc_bilstm_dev1h", f"frontend.n_fft={n_fft}",
+                                  "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                                  f"data.synthetic_num_utts={B}", "data.auto_buckets=1",
+                                  "max_batches=1", f"train.checkpoint_dir={ckpt}"])
+        check(result["num_utts"] == B and result["decode_rtf"] > 0,
+              f"wide stft decode at n_fft {n_fft}: {result}")
+        rec[f"decode_n_fft_{n_fft}"] = result
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    want = {"stft_log_mel_dft": len(WIDE_N_FFT), "lstm_seq": len(WIDE_N_FFT) * 2 * LAYERS}
+    check(launches == want, f"wide stft launches {launches} != {want}")
+    cases = []
+    for n_fft in WIDE_N_FFT:
+        cfg = FrontendConfig(n_fft=n_fft)
+        check(not stft_cuda.has_fft_plan(n_fft), f"n_fft {n_fft} has an FFT plan")
+        audio = serving_audio(cfg)
+        got = stft_cuda.stft_log_mel(audio, cfg)
+        err, _ = errors(got, stft_cuda.stft_log_mel_plain(audio, cfg))
+        exact_err, _ = errors(got, exact_log_mel(audio, cfg))
+        check(bool(torch.isfinite(got).all()) and err <= STFT_TOL and exact_err <= STFT_EXACT_TOL,
+              f"stft_log_mel_dft at n_fft {n_fft}: {err} vs plain, {exact_err} vs float64")
+        turns = in_turns({"kernel": lambda: stft_cuda.stft_log_mel(audio, cfg),
+                          "library": stft_library(cfg, audio)}, reps=5, inner=4)
+        b_ms, b_by = stft_bound(cfg, B, AUDIO)
+        T = features.max_frames(AUDIO, cfg)
+        cases.append({"shape": f"audio ({B}, {AUDIO}) f32 -> ({B}, {T}, {cfg.n_mels}) f32, "
+                               f"n_fft {n_fft}",
+                      "max_abs_err": err, "max_abs_err_vs_fp64": exact_err,
+                      "ms": statistics.mean(turns["kernel"]),
+                      "plain_ms": time_ms(lambda: stft_cuda.stft_log_mel_plain(audio, cfg), 3, 1),
+                      "library_ms": statistics.mean(turns["library"]),
+                      "turns_ms": {"kernel, library, library, kernel": turns},
+                      "phase_split": stft_split(audio, cfg), "bound_ms": b_ms, "bound_by": b_by})
+    row = {"name": "stft_log_mel_dft", "route": "cuda",
+           "source": "pytorch_asr_tpu_torch/csrc/stft_log_mel.cu",
+           "replaces": "pytorch_asr_tpu/ops/stft_pallas.py:189",
+           **{k: cases[0][k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")},
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "tol": {"vs_plain": STFT_TOL, "vs_fp64": STFT_EXACT_TOL},
+           "library": "torch.stft + mel matmul + log", "cases": cases}
+    return row, rec, launches
+
 
 
 def wide_merge(logits: torch.Tensor, lens: torch.Tensor) -> tuple[dict, dict, dict]:
@@ -3104,7 +3319,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up)")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     t0 = time.perf_counter()
     arpa = build_lm()
@@ -3220,7 +3435,9 @@ def main() -> int:
                 "bilstm_seq_train_wide": "wide_bilstm", "bilstm_seq_bwd_wide": "wide_bilstm",
                 "prefix_beam_wide": "wide_beam", "prefix_beam_rnn_wide": "wide_beam",
                 "prefix_beam_fused_wide": "wide_study", "prefix_beam_stepwise_wide": "wide_study",
-                "merge_topk_wide": "wide_merge", "prefix_beam_rnn_deep": "wide_deep_lm"}
+                "merge_topk_wide": "wide_merge", "prefix_beam_rnn_deep": "wide_deep_lm",
+                "ctc_alpha_wide": "wide_ctc", "ctc_beta_wide": "wide_ctc",
+                "ctc_alpha_paired_wide": "wide_paired", "stft_log_mel_dft": "wide_stft"}
     # The per-utterance oracles of the grid kernels are no path's kernels.
     oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0)
                    + counts.get("bilstm_seq_bwd_per_utterance", 0) for p, counts in paths.items()}

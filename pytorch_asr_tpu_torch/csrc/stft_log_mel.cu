@@ -50,6 +50,21 @@
 // (the loads' wait included), after the FFT, after the split and power,
 // after the mel product and log, and the global timer at the end.
 //
+// The DFT form (stft_log_mel_dft_f32), for an n_fft that has no FFT plan
+// here (not a power of two in [4, 1024], odd ones included): still a warp
+// a frame.  The warp stages its windowed frame in shared memory in fp64;
+// lane l sums the n_fft / 2 + 1 real-frame bins k = l + 32 j directly,
+// DFT_BINS at a time, over the frame's win samples: X[k] = sum_n x[n]
+// (cos, -sin)(2 pi (n k mod n_fft) / n_fft), the index advanced by k and
+// wrapped each sample, the (cos, -sin) pairs read from a table of n_fft
+// (ops/stft_cuda.py::dft_table; in shared memory where it fits, else read
+// from device memory through L1), fp64 as the FFT is (the log near
+// log_floor is ill-conditioned).  Then the same power, mel product and log.
+// About 2 n_freq win fp64 multiply-adds a frame: bound by the table's
+// shared-memory reads, milliseconds at n_fft 2048 (PERF.md); a mixed-radix
+// plan would be faster.  The block has 4 warps where its shared memory
+// fits, else 2 or 1.
+//
 // TPU workarounds of the Pallas kernel dropped here: the bf16x3 split of
 // the matrix products (the card has full-precision FMA), the phase-major
 // frame order and its undo-permutation, the flattened 1024-aligned audio
@@ -285,6 +300,97 @@ cudaError_t launch(const float* audio, const float* window, const double* twiddl
   return cudaGetLastError();
 }
 
+constexpr int DFT_BINS = 4;  // bins a lane of the DFT form sums at once
+
+// The DFT form: dft (n_fft) the (cos, -sin)(2 pi m / n_fft) pairs; window,
+// mel_w, band, out and trace as stft_log_mel_kernel's (the trace's split
+// phase is empty: the power is written as each bin is summed).
+__global__ void __launch_bounds__(THREADS) stft_log_mel_dft_kernel(
+    const float* __restrict__ audio, const float* __restrict__ window,
+    const double2* __restrict__ dft, const float* __restrict__ mel_w,
+    const int* __restrict__ band, float* __restrict__ out, long long* trace, int trace_rows,
+    int B, int A, int T, int win, int hop, int n_fft, int n_mels, int nnz, float log_floor,
+    bool dft_in_smem) {
+  extern __shared__ __align__(16) double smem[];
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32, n_freq = n_fft / 2 + 1;
+  double2* dft_s = reinterpret_cast<double2*>(smem);                       // (n_fft), if held
+  double* frames = smem + (dft_in_smem ? 2 * (size_t)n_fft : 0);           // (warps, win)
+  float* pw_all = reinterpret_cast<float*>(frames + (size_t)warps * win);  // (warps, n_freq)
+  float* win_s = pw_all + (size_t)warps * n_freq;                          // (win)
+  float* melw_s = win_s + win;                                             // (nnz)
+  int* band_s = reinterpret_cast<int*>(melw_s + nnz);                      // (n_mels + 1, 2)
+  if (dft_in_smem)
+    for (int i = threadIdx.x; i < n_fft; i += blockDim.x) dft_s[i] = dft[i];
+  for (int i = threadIdx.x; i < win; i += blockDim.x) win_s[i] = window[i];
+  for (int i = threadIdx.x; i < nnz; i += blockDim.x) melw_s[i] = mel_w[i];
+  for (int i = threadIdx.x; i < 2 * (n_mels + 1); i += blockDim.x) band_s[i] = band[i];
+  __syncthreads();
+
+  const double2* tw = dft_in_smem ? dft_s : dft;
+  double* x = frames + (size_t)(threadIdx.x / 32) * win;
+  float* pw = pw_all + (size_t)(threadIdx.x / 32) * n_freq;
+  long long* tr = blockIdx.x == 0 && threadIdx.x == 0 ? trace : nullptr;
+  int row = 0;
+  for (int f = blockIdx.x * warps + threadIdx.x / 32; f < B * T; f += gridDim.x * warps, ++row) {
+    long long* rec = tr && row < trace_rows ? tr + 8 * row : nullptr;
+    if (rec) {
+      rec[0] = global_ns();
+      rec[1] = clock64();
+    }
+    const float* fr = audio + (size_t)(f / T) * A + (size_t)(f % T) * hop;
+    for (int n = lane; n < win; n += 32) x[n] = (double)win_s[n] * (double)__ldg(fr + n);
+    if (rec) rec[2] = clock64();
+    __syncwarp();
+    if (rec) rec[3] = clock64();
+    for (int k0 = lane; k0 < n_freq; k0 += 32 * DFT_BINS) {
+      double re[DFT_BINS], im[DFT_BINS];
+      int k[DFT_BINS], idx[DFT_BINS];
+#pragma unroll
+      for (int j = 0; j < DFT_BINS; ++j) {
+        k[j] = k0 + 32 * j < n_freq ? k0 + 32 * j : 0;
+        re[j] = im[j] = 0.0;
+        idx[j] = 0;
+      }
+      for (int n = 0; n < win; ++n) {
+        const double xn = x[n];
+#pragma unroll
+        for (int j = 0; j < DFT_BINS; ++j) {
+          const double2 c = tw[idx[j]];
+          re[j] = fma(xn, c.x, re[j]);
+          im[j] = fma(xn, c.y, im[j]);
+          idx[j] += k[j];
+          if (idx[j] >= n_fft) idx[j] -= n_fft;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DFT_BINS; ++j)
+        if (k0 + 32 * j < n_freq) pw[k0 + 32 * j] = (float)(re[j] * re[j] + im[j] * im[j]);
+    }
+    __syncwarp();
+    if (rec) rec[4] = rec[5] = clock64();
+
+    // A lane a mel band: its bins in order, from its first nonzero.
+    for (int m = lane; m < n_mels; m += 32) {
+      const int lo = band_s[2 * m], off = band_s[2 * m + 1], n = band_s[2 * m + 3] - off;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) acc = fmaf(pw[lo + i], melw_s[off + i], acc);
+      out[(size_t)f * n_mels + m] = logf(fmaxf(acc, log_floor));
+    }
+    __syncwarp();  // the next frame overwrites x and pw
+    if (rec) {
+      rec[6] = clock64();
+      rec[7] = global_ns();
+    }
+  }
+}
+
+size_t dft_smem_bytes(int warps, bool dft_in_smem, int n_fft, int win, int n_mels, int nnz) {
+  return sizeof(double) * ((dft_in_smem ? 2 * (size_t)n_fft : 0) + (size_t)warps * win) +
+         sizeof(float) * ((size_t)warps * (n_fft / 2 + 1) + win + nnz) +
+         sizeof(int) * 2 * ((size_t)n_mels + 1);
+}
+
 }  // namespace
 
 // window: (win,) fp32; twiddle, mel_w, band: see stft_log_mel_kernel
@@ -316,4 +422,48 @@ extern "C" int stft_log_mel_f32(const float* audio, const float* window, const d
       return cudaErrorInvalidValue;
   }
 #undef STFT_CASE
+}
+
+// The DFT form, any n_fft >= win: dft (n_fft, 2) fp64 (ops/stft_cuda.py::
+// dft_table); the other arguments as stft_log_mel_f32's.  The block takes 4
+// warps with the table in shared memory where that fits, else 2 or 1, else
+// 4, 2 or 1 with the table read from device memory.
+extern "C" int stft_log_mel_dft_f32(const float* audio, const float* window, const double* dft,
+                                    const float* mel_w, const int* band, float* out,
+                                    long long* trace, int trace_rows, int B, int A, int T,
+                                    int win, int hop, int n_fft, int n_mels, int nnz,
+                                    float log_floor, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  int warps = 0;
+  bool held = false;
+  for (int pass = 0; pass < 2 && warps == 0; ++pass)
+    for (int w = WARPS; w >= 1 && warps == 0; w /= 2)
+      if (dft_smem_bytes(w, pass == 0, n_fft, win, n_mels, nnz) <= (size_t)max_smem) {
+        warps = w;
+        held = pass == 0;
+      }
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = dft_smem_bytes(warps, held, n_fft, win, n_mels, nnz);
+  auto kernel = stft_log_mel_dft_kernel;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long frames = (long long)B * T, slots = (long long)sms * per_sm * warps;
+  const long long rounds = (frames + slots - 1) / slots;
+  const long long busy = (frames + rounds - 1) / rounds;
+  kernel<<<(unsigned)((busy + warps - 1) / warps), 32 * warps, smem, (cudaStream_t)stream>>>(
+      audio, window, reinterpret_cast<const double2*>(dft), mel_w, band, out, trace, trace_rows,
+      B, A, T, win, hop, n_fft, n_mels, nnz, log_floor, held);
+  return cudaGetLastError();
 }

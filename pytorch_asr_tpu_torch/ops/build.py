@@ -14,9 +14,11 @@ LSTM's wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide`` and the rest,
 the per-utterance kernel), the beam kernels past a block's shared memory
 (``prefix_beam_wide`` and the rest, and the study kernels'
 ``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``, and K10's
-``merge_topk_wide``: their working set in a device scratch), and K9 past its
+``merge_topk_wide``: their working set in a device scratch), K9 past its
 co-resident grid (``prefix_beam_rnn_block`` and its ``_topa`` form, a block
-an utterance).
+an utterance), K4 past its registers (``ctc_alpha_wide``, ``ctc_beta_wide``,
+``ctc_alpha_paired_wide``: the lattice rows in device memory) and K1 at an
+``n_fft`` with no FFT plan (``stft_log_mel_dft``, its DFT form).
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "prefix_beam_rnn_topa_block": 0,
                             "ctc_alpha_paired": 0, "prefix_beam_fused": 0,
                             "prefix_beam_stepwise": 0, "prefix_beam_fused_wide": 0,
-                            "prefix_beam_stepwise_wide": 0}
+                            "prefix_beam_stepwise_wide": 0, "ctc_alpha_wide": 0,
+                            "ctc_beta_wide": 0, "ctc_alpha_paired_wide": 0,
+                            "stft_log_mel_dft": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 SMS = 132    # the H100 SXM's SMs: the grid routes' default card

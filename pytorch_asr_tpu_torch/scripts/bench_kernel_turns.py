@@ -1,9 +1,12 @@
 """Times K11's backward (``ops.lstm_cuda.bilstm_seq_bwd``), K10
-(``ops.beam_cuda.merge_topk``) and K9 (``ops.beam_cuda.rnn_on_route``, on
-its grid and its block kernel) on one card:
+(``ops.beam_cuda.merge_topk``), K9 (``ops.beam_cuda.rnn_on_route``, on
+its grid and its block kernel), K4 (``ops.ctc_cuda.ctc_alpha`` and
+``ctc_beta``), K1 and config 3's training on one card:
 
     python -m pytorch_asr_tpu_torch.scripts.bench_kernel_turns [reps=5 inner=4
-        calls=40 frame=150]
+        calls=40 frame=150 only=bilstm,merge,rnn,ctc,stft,train3]
+
+``only`` names the sections to run (all six by default).
 
 K11's backward at config 1's layer shape: x (8, 400, 768) bf16, H 384,
 lengths 400 down to 250, residuals bf16 and float32 from its training
@@ -31,6 +34,27 @@ K9 at config 2's shape: 16 rows of 397 frames of random logits (numpy seed
 (``rnn_grid_route``) and its block kernel (route None), each timed with
 CUDA events as K11's backward, in turns grid, block, block, grid.
 
+K4 at config 1's training shape (``train_ctc_case``: 8 synthetic 10-16 s
+utterances' labels, logits (8, T', 31) from torch seed 4, a row of no
+frames and an infeasible row), at config 3's (its batch of 16, all rows
+feasible) and at the card tests' two cases (``ctc_case``, numpy seed 8;
+``chip_smoke.py`` and the tests build theirs here): a sha256 of each output
+(alphas and final; the posteriors, fed the plain alphas; and at config 1's
+shape the paired alpha's), so that two checkouts' bits can be compared; at
+each configuration's shape the alpha, the beta and ``F.ctc_loss``'s forward
+and backward timed with CUDA events as K11's backward, in turns; and at
+config 1's, where the wrappers take a ``trace``, block 0's median µs a
+frame by phase (``ctc_split``: the row's wait, the neighbour warp's edge,
+the shuffles, the lse3 chain, the stores; for a block-a-row kernel traced
+at the same points, its shared row's stores, then its barrier, in the edge
+and shuffles columns).
+
+K1 at config 1's serving shape (8 synthetic utterances of 16 s, n_fft 512):
+a sha256 of its output and its time with CUDA events as K11's backward.
+
+Config 3's ``train.main`` (``train3``), as ``chip_smoke.py`` runs it: its
+audio seconds a second and steps a second, from the trainer's own record.
+
 It calls only entry points that every checkout of the port has (and the
 traces where there are), so it times any checkout alike: run it by its path
 with that checkout first on ``PYTHONPATH`` to compare two checkouts on one
@@ -39,26 +63,40 @@ card, in turns.  Prints, and returns, one JSON record.
 
 from __future__ import annotations
 
+import hashlib
 import inspect
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from pytorch_asr_tpu_torch import train
+from pytorch_asr_tpu_torch.configs import get_config
+from pytorch_asr_tpu_torch.configs.base import FrontendConfig
+from pytorch_asr_tpu_torch.data import build_dataset
+from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
 from pytorch_asr_tpu_torch.decoding import prefix_beam as pb
 from pytorch_asr_tpu_torch.decoding import prefix_beam_sharded
+from pytorch_asr_tpu_torch.frontend import features
+from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
-from pytorch_asr_tpu_torch.ops import beam_cuda, lstm_cuda
+from pytorch_asr_tpu_torch.ops import beam_cuda, ctc, ctc_cuda, lstm_cuda, stft_cuda
 from pytorch_asr_tpu_torch.scripts import _timing
 
-DEFAULTS = {"reps": "5", "inner": "4", "calls": "40", "frame": "150"}
+DEFAULTS = {"reps": "5", "inner": "4", "calls": "40", "frame": "150",
+            "only": "bilstm,merge,rnn,ctc,stft,train3"}
 LSTM_B, LSTM_T, LSTM_D, LSTM_H = 8, 400, 768, 384
 LSTM_LENGTHS = [400, 371, 352, 330, 310, 290, 260, 250]
 MERGE_B, MERGE_K, MERGE_V, MERGE_L = 16, 16, 31, 256
 PRODUCTS = ("gemm_kernel", "column_sum_kernel", "add_halves_kernel")
+CTC_B, CTC_V = 8, 31
+CTC_TEST_CASES = ((6, 90, 9, 30), (2, 1100, 5, 520))
+CTC_PHASES = ("row", "edge", "shuffles", "chain", "stores")
 
 
 def _events_ms(fn, reps: int, inner: int) -> float:
@@ -206,17 +244,182 @@ def rnn_search(reps: int, inner: int, dev) -> dict:
     return out
 
 
+def _digest(*tensors: torch.Tensor) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def train_ctc_case(dev, config: str = "ctc_bilstm_dev1h", planted: bool = True):
+    """K4's inputs at a configuration's training shape: the labels of its
+    first training batch of 10-16 s synthetic utterances, the encoder's
+    output lengths, logits (B, T', 31) from torch seed 4; with ``planted``,
+    the second-last row has no frames and the last is infeasible.
+    Returns (logits, logit_len, labels, label_len) on ``dev``."""
+    B = get_config(config).data.batch_size
+    cfg = get_config(config, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                                "data.synthetic_num_utts": str(B), "data.auto_buckets": "1"})
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    enc = cfg.model.encoder
+    logit_len = features.num_frames(torch.from_numpy(batch["audio_len"]), cfg.frontend)
+    if enc.kind == "tcn":
+        logit_len = conv_out_len(logit_len, 2 * enc.subsample, enc.subsample)
+    else:
+        for _ in enc.conv_channels:
+            logit_len = conv_out_len(logit_len, enc.conv_kernel[0], enc.conv_stride[0])
+    label_len = torch.from_numpy(batch["token_len"]).to(torch.int32)
+    logit_len = logit_len.to(torch.int32)
+    if planted:
+        logit_len[B - 2] = 0
+        logit_len[B - 1] = label_len[B - 1] // 2
+    g = torch.Generator().manual_seed(4)
+    logits = torch.randn(B, int(logit_len.max()), CTC_V, generator=g) * 2
+    return (logits.to(dev), logit_len.to(dev), torch.from_numpy(batch["tokens"]).to(dev),
+            label_len.to(dev))
+
+
+def ctc_case(dev, B: int = 6, T: int = 90, V: int = 9, Lmax: int = 30, seed: int = 8):
+    """The card tests' K4 case (numpy ``seed``): ragged rows with repeats
+    (they block the skip); row 0 has Lmax labels in T frames; with B > 2,
+    row 1 has no frames and row 2 is infeasible.  Returns (logits,
+    logit_len, labels, label_len) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, V)).astype(np.float32)
+    label_len = rng.integers(1, Lmax + 1, size=B).astype(np.int32)
+    logit_len = np.minimum(2 * label_len + rng.integers(1, T, size=B), T).astype(np.int32)
+    labels = rng.integers(1, V, size=(B, Lmax)).astype(np.int32)
+    labels[0, :4] = [1, 1, 2, 2]
+    label_len[0], logit_len[0] = Lmax, T
+    if B > 2:
+        logit_len[1] = 0
+        label_len[2], logit_len[2] = Lmax, Lmax // 2
+    for b in range(B):
+        labels[b, label_len[b]:] = 0
+    return tuple(torch.from_numpy(a).to(dev) for a in (logits, logit_len, labels, label_len))
+
+
+def _ctc_inputs(case):
+    """(alpha args, beta args) of a case, the beta fed the plain alphas."""
+    logits, logit_len, labels, label_len = case
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    lens = logit_len.contiguous()
+    ref_alphas, ref_final = ctc.alphas_plain(logp_tbs, skip, lens)
+    logz = ctc.terminal_logz(ref_final, label_len)
+    feasible = (logz > ctc.NEG_INF / 2) & (lens > 0)
+    bargs = (logp_tbs, ref_alphas, ctc.shift_left(skip, 2, fill=False).contiguous(),
+             ctc.terminal_betas(label_len, logp_tbs.shape[2]),
+             torch.where(feasible, lens, 0).to(torch.int32), torch.where(feasible, logz, 0.0))
+    return (logp_tbs, skip, lens), bargs
+
+
+def ctc_split(call, T: int, dev) -> dict:
+    """Where a K4 frame's time goes: block 0's trace of each frame it
+    recursed (``ctc_cuda.ctc_alpha``'s ``trace``, written by ``call(trace)``):
+    the median µs of each phase (``CTC_PHASES``: the wait for the row
+    fetched ahead, the neighbour warp's edge (the wait for its slot), the
+    shuffles, the lse3 chain, the edge's publication, the stores and the
+    next loads), of a frame, and from one frame's start to the next's, at
+    the clock the trace saw from its first frame to its last."""
+    trace = torch.zeros((T, 8), dtype=torch.int64, device=dev)
+    call(trace)
+    torch.cuda.synchronize()
+    tr = trace.cpu().numpy().astype(np.float64)
+    tr = tr[tr[:, 0] != 0]
+    if len(tr) < 2:
+        return {"frames": len(tr)}
+    tr = tr[np.argsort(tr[:, 0], kind="stable")]
+    ghz = (tr[-1, 1] - tr[0, 1]) / (tr[-1, 0] - tr[0, 0])
+    return {"frames": len(tr), "trace_clock_ghz": ghz,
+            "us_median": _median_split(tr[:, 1:7], CTC_PHASES, ghz),
+            "frame_us_median": float(np.median(tr[:, 6] - tr[:, 1])) / ghz / 1e3,
+            "start_to_start_us_median": float(np.median(np.diff(tr[:, 1]))) / ghz / 1e3}
+
+
+def ctc_kernels(reps: int, inner: int, dev) -> dict:
+    out = {"bits": {}, "turns": {}, "shape": {}}
+    cases = [("config1", train_ctc_case(dev)),
+             ("config3", train_ctc_case(dev, "tcn_ctc_devclean", planted=False)),
+             *((f"test_{'_'.join(map(str, c))}", ctc_case(dev, *c)) for c in CTC_TEST_CASES)]
+    for tag, case in cases:
+        aargs, bargs = _ctc_inputs(case)
+        alphas, final = ctc_cuda.ctc_alpha(*aargs)
+        w = ctc_cuda.ctc_beta(*bargs)
+        out["bits"][tag] = {"alphas": _digest(alphas, final), "posteriors": _digest(w)}
+        if tag == "config1":
+            out["bits"][tag]["paired"] = _digest(*ctc_cuda.ctc_alpha_paired(*aargs))
+        if not tag.startswith("config"):
+            continue
+        logits, logit_len, labels, label_len = case
+        lp = torch.log_softmax(logits, -1).transpose(0, 1).detach().requires_grad_(True)
+        lib = lambda: F.ctc_loss(lp, labels.long(), logit_len.long(),  # noqa: E731
+                                 label_len.long(), reduction="none", zero_infinity=True)
+        lib_loss = lib()
+        fns = {"alpha_ms": lambda: ctc_cuda.ctc_alpha(*aargs),
+               "beta_ms": lambda: ctc_cuda.ctc_beta(*bargs),
+               "library_forward_ms": lib,
+               "library_backward_ms": lambda: torch.autograd.grad(lib_loss.sum(), lp,
+                                                                  retain_graph=True)}
+        turns = {n: [] for n in fns}
+        for n in [*fns, *reversed(fns)]:
+            turns[n].append(_events_ms(fns[n], reps, inner))
+        out["turns"][tag], out["shape"][tag] = turns, list(aargs[0].shape)
+        if tag == "config1" and "trace" in inspect.signature(ctc_cuda.ctc_alpha).parameters:
+            T = aargs[0].shape[0]
+            out["alpha_split"] = ctc_split(lambda tr: ctc_cuda.ctc_alpha(*aargs, trace=tr), T,
+                                           dev)
+            out["beta_split"] = ctc_split(lambda tr: ctc_cuda.ctc_beta(*bargs, trace=tr), T,
+                                          dev)
+        if hasattr(ctc_cuda, "lane_plan"):
+            out.setdefault("route", {})[tag] = list(ctc_cuda.lane_plan(aargs[0].shape[2]))
+    return out
+
+
+def train3(dev) -> dict:
+    """Config 3's ``train.main`` as ``chip_smoke.py::tcn_train_phase`` runs
+    it (20 steps of 16 utterances of 10-16 s, one bucket, then the eval):
+    its training throughput and steps a second."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        result = train.main(["tcn_ctc_devclean", "data.synthetic_min_sec=10",
+                             "data.synthetic_max_sec=16", "data.synthetic_num_utts=64",
+                             "data.auto_buckets=1", "steps=20", "train.eval_every=20",
+                             "train.log_every=20", f"train.checkpoint_dir={ckpt}"])
+    rec = result["train"]
+    return {k: rec[k] for k in ("audio_seconds_per_sec_per_chip", "steps_per_sec")}
+
+
+def stft(reps: int, inner: int, dev) -> dict:
+    cfg = FrontendConfig()
+    audio = np.zeros((CTC_B, 16 * cfg.sample_rate), np.float32)
+    for b, (a, _) in enumerate(synthetic_corpus(CTC_B, cfg.sample_rate, seed=1, min_sec=16.0,
+                                                max_sec=17.0)):
+        audio[b, : min(len(a), audio.shape[1])] = a[: audio.shape[1]]
+    audio = torch.from_numpy(audio).to(dev)
+    fn = lambda: stft_cuda.stft_log_mel(audio, cfg)  # noqa: E731
+    return {"bits": _digest(fn()), "ms": _events_ms(fn, reps, inner)}
+
+
 def main(argv: list[str] | None = None) -> dict:
     kv, device = _timing.parse(sys.argv[1:] if argv is None else argv, DEFAULTS)
     reps, inner, calls, frame = (int(kv[k]) for k in ("reps", "inner", "calls", "frame"))
+    only = set(kv["only"].split(","))
     if device.type != "cuda":
         raise SystemExit("bench_kernel_turns: times kernels; it needs the card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    out = {"device": _timing.device_name(device), "card": card.strip().splitlines()[0],
-           "bilstm_seq_bwd": bilstm_backward(reps, inner, calls, device),
-           "merge_topk": merge(calls, frame, device),
-           "prefix_beam_rnn": rnn_search(reps, inner, device)}
+    out = {"device": _timing.device_name(device), "card": card.strip().splitlines()[0]}
+    if "bilstm" in only:
+        out["bilstm_seq_bwd"] = bilstm_backward(reps, inner, calls, device)
+    if "merge" in only:
+        out["merge_topk"] = merge(calls, frame, device)
+    if "rnn" in only:
+        out["prefix_beam_rnn"] = rnn_search(reps, inner, device)
+    if "ctc" in only:
+        out["ctc"] = ctc_kernels(reps, inner, device)
+    if "stft" in only:
+        out["stft"] = stft(reps, inner, device)
+    if "train3" in only:
+        out["train3"] = train3(device)
     print(json.dumps(out))
     return out
 

@@ -27,6 +27,17 @@ from pytorch_asr_tpu_torch.scripts import _timing
 CHARS = 31
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _c_formulas() -> dict:
     """The C source's byte counts as Python: each `return <expr>;` with the
     casts dropped and / as floor division (every operand is a size)."""

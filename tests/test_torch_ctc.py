@@ -27,6 +27,17 @@ LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(seed, B=5, T=40, V=7, Lmax=9):
     """Ragged rows plus the edge rows: a padded row (logit_len = label_len =
     0), an infeasible row (more labels than frames), and repeated labels."""

@@ -30,6 +30,17 @@ LOSS_TOL, GRAD_TOL = 1e-4, 2e-3
 ALPHA_RTOL, ALPHA_ATOL = 1e-5, 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(T):
     """The JAX study's case: lengths T, T-1, T-2, 37, 1, 5 over 6 rows."""
     rng = np.random.default_rng(7)

@@ -34,6 +34,17 @@ TINY = {"model.encoder.hidden_dim": "32", "model.encoder.num_layers": "1",
         "data.synthetic_max_sec": "2.5"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def arpa(tmp_path_factory):
     path = tmp_path_factory.mktemp("lm") / "syn4.arpa"

@@ -18,6 +18,7 @@ from pytorch_asr_tpu_torch.frontend import features
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
 from pytorch_asr_tpu_torch.ops import (
     beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
+from pytorch_asr_tpu_torch.scripts.bench_kernel_turns import ctc_case as _ctc_case
 
 # The kernel's fp64 FFT vs the plain version's fp32 cuFFT, whose error on
 # log-mel near log_floor reaches ~1e-3: 2e-3, as the JAX package holds its
@@ -115,14 +116,57 @@ def test_stft_kernel_at_other_sizes(cuda, n_fft, win, hop, n_mels):
     assert len(rows) >= 1 and bool((rows[:, 2:7] >= rows[:, 1:6]).all())
 
 
+def _float64_log_mel(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """The log-mel function in float64 from ``torch.fft.rfft`` of the
+    windowed frames."""
+    mel = torch.from_numpy(features.mel_filterbank(cfg)).to(audio.device).double()
+    window = torch.from_numpy(features.hann_window(cfg.win_length)).to(audio.device).double()
+    frames = audio.double().unfold(-1, cfg.win_length, cfg.hop_length)
+    power = torch.fft.rfft(frames * window, n=cfg.n_fft).abs().square()
+    return torch.log(torch.clamp(power @ mel, min=cfg.log_floor)).float()
+
+
 @pytest.mark.cuda
 def test_stft_kernel_rejects_what_it_does_not_take(cuda):
+    """float64 audio and an n_fft below win_length raise; an n_fft with no
+    FFT plan (2048) gives the right values, on the DFT form."""
     with pytest.raises(ValueError, match="float32"):
         stft_cuda.stft_log_mel(torch.zeros(2, 1000, dtype=torch.float64, device=cuda),
                                FrontendConfig())
-    with pytest.raises(ValueError, match="n_fft"):
+    with pytest.raises(ValueError, match="win_length"):
         stft_cuda.stft_log_mel(torch.zeros(2, 5000, device=cuda),
-                               FrontendConfig(n_fft=2048, win_length=400))
+                               FrontendConfig(n_fft=256, win_length=400))
+    cfg = FrontendConfig(n_fft=2048, win_length=400)
+    audio = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 5000))
+                             .astype(np.float32)).to(cuda)
+    build.reset_launches()
+    got = stft_cuda.stft_log_mel(audio, cfg)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["stft_log_mel_dft"], build.LAUNCHES["stft_log_mel"]) == (1, 0)
+    torch.testing.assert_close(got, _float64_log_mel(audio, cfg), rtol=0, atol=STFT_EXACT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [400, 401, 2048])
+def test_stft_dft_form_matches_float64(cuda, n_fft):
+    """K1's DFT form (an n_fft with no FFT plan; odd included) against a
+    float64 DFT at 2e-5 and the plain version at its tolerance, on
+    speech-band noise that falls silent; its trace's phases in order."""
+    cfg = FrontendConfig(n_fft=n_fft)
+    rng = np.random.default_rng(n_fft)
+    x = rng.standard_normal((3, 24000)) * 0.1
+    x[:, 16000:] *= 1e-4
+    audio = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    trace = torch.zeros((9, 8), dtype=torch.int64, device=cuda)
+    build.reset_launches()
+    got = stft_cuda.stft_log_mel(audio, cfg, trace)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["stft_log_mel_dft"], build.LAUNCHES["stft_log_mel"]) == (1, 0)
+    torch.testing.assert_close(got, _float64_log_mel(audio, cfg), rtol=0, atol=STFT_EXACT_TOL)
+    torch.testing.assert_close(got, stft_cuda.stft_log_mel_plain(audio, cfg),
+                               rtol=STFT_TOL, atol=STFT_TOL)
+    rows = trace[trace[:, 0] != 0].cpu()
+    assert len(rows) >= 1 and bool((rows[:, 2:7] >= rows[:, 1:6]).all())
 
 
 def _lstm_case(device, dtype, B=5, T=70, D=40, H=48):
@@ -340,22 +384,27 @@ def test_lstm_autograd_at_config_1_runs_the_grid_backward(cuda):
         assert _rel_err(p.grad, w) <= BF16_TOL, name
 
 
-def _ctc_case(device, B=6, T=90, V=9, Lmax=30, seed=8):
-    """Ragged rows with repeats; row 0 has Lmax labels in T frames; with
-    B > 2, row 1 has logit_len == 0 and row 2 is infeasible."""
-    rng = np.random.default_rng(seed)
-    logits = torch.from_numpy(rng.standard_normal((B, T, V)).astype(np.float32)).to(device)
-    label_len = rng.integers(1, Lmax + 1, size=B).astype(np.int32)
-    logit_len = np.minimum(2 * label_len + rng.integers(1, T, size=B), T).astype(np.int32)
-    labels = rng.integers(1, V, size=(B, Lmax)).astype(np.int32)
-    labels[0, :4] = [1, 1, 2, 2]                 # repeats block the skip
-    label_len[0], logit_len[0] = Lmax, T
-    if B > 2:
-        logit_len[1] = 0
-        label_len[2], logit_len[2] = Lmax, Lmax // 2
-    for b in range(B):
-        labels[b, label_len[b]:] = 0
-    return logits, *(torch.from_numpy(a).to(device) for a in (logit_len, labels, label_len))
+def _ctc_lattice(device, shape):
+    """A case's (alpha args, plain (alphas, final), beta args, label_len):
+    the beta fed the plain alphas."""
+    B, T, V, L = shape
+    logits, logit_len, labels, label_len = _ctc_case(device, B, T, V, L)
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    lens = logit_len.contiguous()
+    ref_alphas, ref_final = ctc.alphas_plain(logp_tbs, skip, lens)
+    logz = ctc.terminal_logz(ref_final, label_len)
+    feasible = (logz > ctc.NEG_INF / 2) & (lens > 0)
+    bargs = (logp_tbs, ref_alphas, ctc.shift_left(skip, 2, fill=False).contiguous(),
+             ctc.terminal_betas(label_len, logp_tbs.shape[2]),
+             torch.where(feasible, lens, 0).to(torch.int32), torch.where(feasible, logz, 0.0))
+    return (logp_tbs, skip, lens), (ref_alphas, ref_final), bargs
+
+
+def _held_to_plain(alphas, final, w, ref, bargs) -> None:
+    torch.testing.assert_close(alphas, ref[0], rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+    torch.testing.assert_close(final, ref[1], rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+    torch.testing.assert_close(w, ctc.posteriors_plain(*bargs), rtol=CTC_GRAD_RTOL,
+                               atol=CTC_GRAD_ATOL)
 
 
 @pytest.mark.cuda
@@ -364,26 +413,75 @@ def test_ctc_kernels_match_plain(cuda, shape):
     """K4's alpha and beta kernels on the same lattice as the plain
     recursions; the second shape has S = 1041 states, more than a block's
     threads."""
-    B, T, V, L = shape
-    logits, logit_len, labels, label_len = _ctc_case(cuda, B, T, V, L)
-    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
-    lens = logit_len.contiguous()
+    aargs, ref, bargs = _ctc_lattice(cuda, shape)
+    assert ctc_cuda.lane_plan(aargs[0].shape[2]).form == "lanes"
     build.reset_launches()
-    alphas, final = ctc_cuda.ctc_alpha(logp_tbs, skip, lens)
+    alphas, final = ctc_cuda.ctc_alpha(*aargs)
+    w = ctc_cuda.ctc_beta(*bargs)
     torch.cuda.synchronize()
-    ref_alphas, ref_final = ctc.alphas_plain(logp_tbs, skip, lens)
-    torch.testing.assert_close(alphas, ref_alphas, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
-    torch.testing.assert_close(final, ref_final, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
-    logz = ctc.terminal_logz(ref_final, label_len)
-    feasible = (logz > ctc.NEG_INF / 2) & (lens > 0)
-    args = (logp_tbs, ref_alphas, ctc.shift_left(skip, 2, fill=False).contiguous(),
-            ctc.terminal_betas(label_len, logp_tbs.shape[2]),
-            torch.where(feasible, lens, 0).to(torch.int32), torch.where(feasible, logz, 0.0))
-    w = ctc_cuda.ctc_beta(*args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(w, ctc.posteriors_plain(*args), rtol=CTC_GRAD_RTOL,
-                               atol=CTC_GRAD_ATOL)
+    _held_to_plain(alphas, final, w, ref, bargs)
     assert build.LAUNCHES["ctc_alpha"] == build.LAUNCHES["ctc_beta"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 2300, 30, 2048), (3, 12000, 30, 10000)])
+def test_ctc_kernels_past_the_registers_run_the_wide_form(cuda, shape):
+    """S 4097 and 20001, past the register form: the wide form, counted
+    apart, against the plain recursions; a row of no frames and an
+    infeasible row give posteriors 0."""
+    aargs, ref, bargs = _ctc_lattice(cuda, shape)
+    S = aargs[0].shape[2]
+    assert S > ctc_cuda.MAX_LANE_STATES and ctc_cuda.lane_plan(S).form == "wide"
+    build.reset_launches()
+    alphas, final = ctc_cuda.ctc_alpha(*aargs)
+    w = ctc_cuda.ctc_beta(*bargs)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in build.LAUNCHES.items() if v}
+    assert counts == {"ctc_alpha_wide": 1, "ctc_beta_wide": 1}
+    _held_to_plain(alphas, final, w, ref, bargs)
+    assert bargs[4][0] > 0 and not w[:, 1:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, k", [((6, 90, 9, 30), 1), ((2, 1100, 5, 520), 2),
+                                      ((2, 2200, 30, 1500), 4)])
+def test_ctc_every_plan_gives_the_routes_bits(cuda, shape, k):
+    """The register form at each of its states a lane (1, 2 and 4, the
+    route's at S 61, 1041 and 3001) and the wide form forced by ``wide``
+    give the same alphas and posteriors bit for bit: the same operands in
+    the same order, from other places."""
+    aargs, ref, bargs = _ctc_lattice(cuda, shape)
+    plan = ctc_cuda.lane_plan(aargs[0].shape[2])
+    assert plan.form == "lanes" and plan.k == k
+    alphas, final = ctc_cuda.ctc_alpha(*aargs)
+    w = ctc_cuda.ctc_beta(*bargs)
+    _held_to_plain(alphas, final, w, ref, bargs)
+    build.reset_launches()
+    got, got_final = ctc_cuda.ctc_alpha(*aargs, wide=True)
+    assert torch.equal(got, alphas) and torch.equal(got_final, final)
+    assert torch.equal(ctc_cuda.ctc_beta(*bargs, wide=True), w)
+    assert {n: c for n, c in build.LAUNCHES.items() if c} == {"ctc_alpha_wide": 1,
+                                                              "ctc_beta_wide": 1}
+
+
+@pytest.mark.cuda
+def test_ctc_trace_records_each_recursed_frame(cuda):
+    """The register form's trace: a row for each frame block 0 recurses
+    (frames 1 .. len - 1 forward, 0 .. len - 2 backward), its clocks in
+    phase order; the wide form refuses a trace."""
+    aargs, _, bargs = _ctc_lattice(cuda, (6, 90, 9, 30))
+    T = aargs[0].shape[0]
+    for call, rows in ((lambda tr: ctc_cuda.ctc_alpha(*aargs, trace=tr), range(1, T)),
+                       (lambda tr: ctc_cuda.ctc_beta(*bargs, trace=tr), range(0, T - 1))):
+        trace = torch.zeros((T, 8), dtype=torch.int64, device=cuda)
+        call(trace)
+        tr = trace.cpu()
+        assert (tr[:, 0] != 0).nonzero().flatten().tolist() == list(rows)
+        live = tr[tr[:, 0] != 0]
+        assert bool((live[:, 2:7] >= live[:, 1:6]).all()) and bool((live[:, 7] >= live[:, 0]).all())
+    with pytest.raises(ValueError, match="trace"):
+        ctc_cuda.ctc_beta(*bargs, trace=torch.zeros((T, 8), dtype=torch.int64, device=cuda),
+                          wide=True)
 
 
 @pytest.mark.cuda
@@ -1402,6 +1500,41 @@ def test_ctc_paired_alpha_matches_plain(cuda, shape):
     live = k4 > ctc.NEG_INF / 2
     assert torch.equal(live, alphas > ctc.NEG_INF / 2)
     torch.testing.assert_close(alphas[live], k4[live], rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+
+
+@pytest.mark.cuda
+def test_ctc_paired_alpha_past_the_registers(cuda):
+    """S 4097, past the paired kernel's registers: its wide form, counted
+    apart, against the plain paired recursion."""
+    B, T, V, L = 3, 2301, 30, 2048
+    logits, logit_len, labels, label_len = _ctc_case(cuda, B, T, V, L)
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    lens = logit_len.contiguous()
+    assert logp_tbs.shape[2] > ctc_cuda.PAIRED_MAX_STATES
+    build.reset_launches()
+    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"ctc_alpha_paired_wide": 1}
+    ref_alphas, ref_final = ctc.alphas_paired_plain(logp_tbs, skip, lens)
+    torch.testing.assert_close(alphas, ref_alphas, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+    torch.testing.assert_close(final, ref_final, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 91, 9, 30), (2, 1100, 5, 520)])
+def test_ctc_paired_wide_form_gives_the_register_forms_bits(cuda, shape):
+    """The paired alpha's wide form, forced by ``wide``, gives its register
+    kernel's bits: the same arithmetic, the carried row from device memory."""
+    B, T, V, L = shape
+    logits, logit_len, labels, label_len = _ctc_case(cuda, B, T, V, L)
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    lens = logit_len.contiguous()
+    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
+    build.reset_launches()
+    wide, wide_final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens, wide=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ctc_alpha_paired_wide"] == 1
+    assert torch.equal(wide, alphas) and torch.equal(wide_final, final)
 
 
 @pytest.mark.cuda

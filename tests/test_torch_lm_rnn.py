@@ -36,6 +36,17 @@ TEXTS = ["the cat sat on the mat", "the dog ate the bone",
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(nl: int, E: int = 8, H: int = 16, seed: int = 0):
     """(port model, JAX module, JAX params) holding the same weights, drawn by
     the JAX package's init."""

@@ -31,6 +31,17 @@ SCORE_RTOL = 1e-5
 B, T, V, K, L = 3, 14, 7, 4, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(seed, n_ctx=0, scale=2.0):
     rng = np.random.default_rng(seed)
     logits = (rng.standard_normal((B, T, V)) * scale).astype(np.float32)

@@ -39,6 +39,17 @@ MESHES = {"model2": ((1, 2), 2), "model4": ((1, 4), 4), "data2_model2": ((2, 2),
 RANK_TIMEOUT = 120.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs():
     """Planted-path logits, ragged lengths with an empty row, a dense table
     and JAX's init of the tiny LM (numpy)."""

@@ -43,6 +43,17 @@ XLA_TOL = 1e-5
 PALLAS_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _audio(seed=0, B=3, A=16000):
     rng = np.random.default_rng(seed)
     audio = rng.standard_normal((B, A)).astype(np.float32) * 0.3

@@ -13,7 +13,7 @@ import torch
 
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig
 from pytorch_asr_tpu_torch.frontend import features
-from pytorch_asr_tpu_torch.ops import build, stft_cuda
+from pytorch_asr_tpu_torch.ops import beam_cuda, build, stft_cuda
 
 # float64 throughout: the plan and np.fft.rfft differ only in rounding order.
 FFT_TOL = 1e-12
@@ -165,9 +165,56 @@ def test_mel_rows_give_the_dense_product():
 
 
 def test_kernel_takes_the_sizes_it_has_plans_for():
-    """Plans exist for n_fft 4 .. 1024; the wrapper refuses the rest before
-    a launch (on the CPU the plain version takes any)."""
+    """FFT plans exist for the powers of two 4 .. 1024; every other n_fft
+    takes the DFT form (``dft_table``), odd ones included, so no size is
+    refused for want of a plan."""
     for n_fft in (4, 8, 1024):
         log2_half, lanes, points = stft_cuda.fft_plan(n_fft)
         assert lanes * points == n_fft // 2 and 1 <= log2_half <= 9
+        assert stft_cuda.has_fft_plan(n_fft)
     assert stft_cuda.MAX_N_FFT == 1024
+    for n_fft in (1, 2, 3, 400, 401, 2048, 4096):
+        assert not stft_cuda.has_fft_plan(n_fft)
+        cfg = FrontendConfig(n_fft=n_fft, win_length=min(400, n_fft), n_mels=min(80, n_fft))
+        table = stft_cuda.constants(cfg, torch.device("cpu"))[1]
+        assert table.shape == (n_fft, 2) and table.dtype == torch.float64
+        nnz = stft_cuda.constants(cfg, torch.device("cpu"))[2].numel()
+        assert stft_cuda.dft_smem_bytes(cfg, nnz, 1, False) <= beam_cuda.MAX_SMEM
+
+
+def dft_power(frames: np.ndarray, window: np.ndarray, table: np.ndarray,
+              n_fft: int) -> np.ndarray:
+    """(F, win) frames -> (F, n_fft // 2 + 1) power, as the DFT form sums it:
+    lane l takes the bins k = l + 32 j, and for each sample n reads the
+    table's row (n k) mod n_fft, the index advanced by k and wrapped."""
+    win = frames.shape[1]
+    x = frames * window.astype(np.float64)
+    n_freq = n_fft // 2 + 1
+    out = np.zeros((len(frames), n_freq))
+    for lane in range(32):
+        k = np.arange(lane, n_freq, 32)                   # this lane's bins
+        idx = np.zeros(len(k), np.int64)
+        re = np.zeros((len(frames), len(k)))
+        im = np.zeros((len(frames), len(k)))
+        for n in range(win):
+            c = table[idx]
+            re += x[:, n:n + 1] * c[:, 0]
+            im += x[:, n:n + 1] * c[:, 1]
+            idx += k
+            idx = np.where(idx >= n_fft, idx - n_fft, idx)
+            assert idx.max(initial=0) < n_fft
+        out[:, k] = re * re + im * im
+    return out
+
+
+@pytest.mark.parametrize("n_fft", [400, 401, 2048])
+def test_dft_form_indexing_gives_the_rfft(n_fft):
+    """The DFT form's table and index arithmetic, emulated in float64, give
+    ``np.fft.rfft``'s power of the windowed frame (win 400, zero-padded to
+    n_fft; an odd n_fft included)."""
+    win = 400
+    frames = np.random.default_rng(n_fft).standard_normal((3, win))
+    window = features.hann_window(win)
+    got = dft_power(frames, window, stft_cuda.dft_table(n_fft), n_fft)
+    want = np.abs(np.fft.rfft(frames * window.astype(np.float64), n=n_fft)) ** 2
+    np.testing.assert_allclose(got, want, rtol=FFT_TOL, atol=FFT_TOL * want.max())

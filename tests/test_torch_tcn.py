@@ -61,6 +61,17 @@ MODEL_TOL = 1e-4
 BF16_TOL = 1.5e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _block_case(seed, B=2, T=300, C=32, K=5):
     """x with the last frames of row 1 zero (padding), and block weights with
     LayerNorm scales near 1 and nonzero biases."""

@@ -42,6 +42,17 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for this module's tests, then as before:
+    the test runner's workers share the machine's cores, and a thread a core
+    in every worker oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flat(tree):
     return {k: np.asarray(v) for k, v in weights.flatten(tree).items()}
 

@@ -91,7 +91,9 @@ result line):
      32, 48 and 64 CTAs a direction, then driven through
      ``lstm_cuda.bilstm_seq`` with counts (no oracle launch, no plain
      version); the paired CTC
-     alpha at K4's shape against its plain version and K4, then
+     alpha at K4's shape against its plain version and K4 and bit for bit
+     against its wide form, timed in turns with K4's alpha and its library
+     call, with its pair's phase split (its trace), then
      ``train.main`` with ``ops.ctc_cuda.PAIRED_FWD`` set, with counts; K13
      and K12, the search with its tokens in the block and the search as a
      launch a frame, bit for bit against the plain search at K7's shape and
@@ -988,10 +990,11 @@ def ctc_library(logits, labels, logit_len, label_len):
     return lib, lambda: torch.autograd.grad(lib_loss.sum(), lp, retain_graph=True)
 
 
-def ctc_split(call, T: int) -> dict:
-    """Where a K4 frame's time goes: ``bench_kernel_turns.ctc_split``, block
-    0's trace of each frame it recursed, written by ``call(trace)``."""
-    split = bench_kernel_turns.ctc_split(call, T, CARD)
+def ctc_split(call, T: int, phases: tuple[str, ...] = bench_kernel_turns.CTC_PHASES) -> dict:
+    """Where a K4 frame's time goes (or, with ``PAIRED_PHASES``, a paired
+    alpha's pair): ``bench_kernel_turns.ctc_split``, the trace of each frame
+    (pair) recursed, written by ``call(trace)``."""
+    split = bench_kernel_turns.ctc_split(call, T, CARD, phases)
     check(split["frames"] > 1, "ctc trace: fewer than two frames written")
     return split
 
@@ -1194,8 +1197,9 @@ def bilstm_phase() -> tuple[list[dict], dict]:
 def ctc_paired_phase() -> dict:
     """The paired alpha recursion at K4's shape (``ctc_case``: a row of no
     frames and an infeasible row), against its plain version and K4's
-    alphas; the loss and gradient through it against K4's; timed beside
-    K4's forward and ``F.ctc_loss``."""
+    alphas, and bit for bit against its wide form; the loss and gradient
+    through it against K4's; timed in turns with K4's forward and
+    ``F.ctc_loss``, with the pair's phase split from its trace."""
     logits, labels, logit_len, label_len, T = ctc_case()
     _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
     S = logp_tbs.shape[2]
@@ -1204,6 +1208,9 @@ def ctc_paired_phase() -> dict:
     ref_alphas, ref_final = ctc.alphas_paired_plain(logp_tbs, skip, logit_len)
     err = max(ctc_close("alphas", alphas, ref_alphas, CTC_RTOL, CTC_ALPHA_ATOL, "paired"),
               ctc_close("final alpha", final, ref_final, CTC_RTOL, CTC_ALPHA_ATOL, "paired"))
+    wide, wide_final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, logit_len, wide=True)
+    check(torch.equal(wide, alphas) and torch.equal(wide_final, final),
+          "paired: the register form's bits differ from the wide form's")
     k4, _ = ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)
     live = k4 > ctc.NEG_INF / 2
     check(torch.equal(live, alphas > ctc.NEG_INF / 2), "paired: live states differ from K4's")
@@ -1221,25 +1228,31 @@ def ctc_paired_phase() -> dict:
     loss_err = ctc_close("loss vs K4", loss, ref, PAIRED_LOSS_TOL, PAIRED_LOSS_TOL, "paired")
     grad_err = ctc_close("gradient vs K4", a.grad, b.grad, PAIRED_GRAD_TOL, PAIRED_GRAD_TOL,
                          "paired")
-    lp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
+    lib, _ = ctc_library(logits, labels, logit_len, label_len)
     frames = int(logit_len.sum())
+    # The paired alpha, K4's and the library call in turns (a b c c b a).
+    fwd = in_turns({"kernel": lambda: ctc_cuda.ctc_alpha_paired(logp_tbs, skip, logit_len),
+                    "k4": lambda: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len),
+                    "library": lib}, reps=10, inner=10)
     return {"name": "ctc_alpha_paired", "route": "cuda",
             "source": "pytorch_asr_tpu_torch/csrc/ctc_alpha_beta.cu",
             "replaces": "pytorch_asr_tpu/ops/ctc_pallas.py:139",
             "shape": f"logp_tbs ({T}, {B}, {S}) f32, label_len {label_len.tolist()}, "
                      f"logit_len {logit_len.tolist()}",
+            "plan": list(ctc_cuda.lane_plan(S)),
             "max_abs_err": err, "max_abs_err_vs_k4": k4_err, "loss_max_abs_err_vs_k4": loss_err,
             "grad_max_abs_err_vs_k4": grad_err,
             "tol": {"rtol": CTC_RTOL, "atol": CTC_ALPHA_ATOL, "loss_vs_k4": PAIRED_LOSS_TOL,
                     "grad_vs_k4": PAIRED_GRAD_TOL},
-            "ms": time_ms(lambda: ctc_cuda.ctc_alpha_paired(logp_tbs, skip, logit_len)),
-            "k4_ms": time_ms(lambda: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)),
+            "ms": statistics.mean(fwd["kernel"]), "k4_ms": statistics.mean(fwd["k4"]),
             "plain_ms": time_ms(lambda: ctc.alphas_paired_plain(logp_tbs, skip, logit_len),
                                 3, 1, 1),
-            "library_ms": time_ms(lambda: F.ctc_loss(lp, labels.long(), logit_len.long(),
-                                                     label_len.long(), reduction="none",
-                                                     zero_infinity=True)),
+            "library_ms": statistics.mean(fwd["library"]),
             "library": "F.ctc_loss forward (zero_infinity)",
+            "turns_ms": {"kernel, k4, library, library, k4, kernel": fwd},
+            "frame_split_us": ctc_split(
+                lambda tr: ctc_cuda.ctc_alpha_paired(logp_tbs, skip, logit_len, trace=tr), T,
+                bench_kernel_turns.PAIRED_PHASES),
             **dict(zip(("bound_ms", "bound_by"), ctc_bound("paired", T, B, S, frames)))}
 
 

@@ -74,26 +74,47 @@
 // (2, B, S) scratch.  One __syncthreads a frame; the same arithmetic, so the
 // same bits as the register form where both run.
 //
-// ctc_alpha_paired: the same alphas two frames an iteration, so one barrier
-// covers two frames.  Two steps composed are one 5-term log-sum-exp over
-// alpha[s-0..4] with weights W_0..W_4 built from frame t's emissions only
-// (off the alpha chain; ops/ctc.py::alphas_paired_plain writes them out),
-// plus frame t+1's emission.  The single step a1 is still computed: it is
-// stored at t, and it is the output of a row whose length ends mid-pair.
-// The pair at t = 0 applies the second step to alpha_0.  Each thread reads
-// its states' emissions and their s-1, s-2 neighbours from device memory;
-// only the alpha row goes through shared memory.  Twice K4's forward work a
-// frame and half its barriers: the JAX study asked whether the recursion is
-// bound by its chain's latency or by its throughput.  It holds S <= 4096
-// (kMaxPerThread); past that, ctc_alpha_paired_wide runs the same
-// arithmetic with the carried row read back from alphas[t-1].
+// ctc_alpha_paired (ctc_alpha_paired_lanes_kernel): the same alphas two
+// frames an iteration, on the alpha's lanes and warps (the same lane_plan).
+// Two steps composed are one 5-term log-sum-exp over alpha[s-0..4] with
+// weights W_0..W_4 built from frame t's emissions only (ops/ctc.py::
+// alphas_paired_plain writes them out), plus frame t+1's emission.  The
+// single step a1 is still computed: it is stored at t, and it is the output
+// of a row whose length ends mid-pair.  The pair at t = 0 applies the second
+// step to alpha_0 and needs no neighbour.  Each lane loads its emissions at
+// s0-2 .. s0+K-1 of frame t and s0 .. s0+K-1 of frame t+1 a pair ahead into
+// a register slot and builds the weights from them before it waits for its
+// neighbours, so only a1's lse3 and the lse5 follow the wait.  A pair needs
+// alpha at s-1 .. s-4: inside a warp by __shfl_up_sync (by 1-4 lanes at K 1,
+// 1-2 at K 2, 1 at K 4).  The lanes whose window reaches past the warp's
+// edge (lanes 0-3 at K 1, 0-1 at K 2, 0 at K 4) take all four from the
+// warp's block of the step in a ring of stamped words (a state and its step
+// in one 64-bit word, as above): words 0-3 the left warp's last four
+// states, which that warp publishes and lane 0 frees after a __syncwarp of
+// the reading lanes; words 4 .. 7 - K the warp's own first states, which it
+// stores there for its lanes 1-3, so a lane's window is four consecutive
+// words and needs no select.  A reader spins until its four words carry the
+// step.  One exchange and one wait a pair, no block barrier.  A pair is
+// twice the alpha's two frames of log-sum-exp (13 expf, 5 logf/log1pf a
+// state) for half their waits: the JAX study's question, whether the
+// recursion is bound by its chain's latency or by its throughput.  On the
+// H100 it is bound by the issue of that work on the block's SM.  The same
+// operands in the same order as the block-a-row paired kernel it replaced,
+// so the same bits; a row longer than T ends at T, so final_alpha is
+// alphas[T - 1], as in the plain version and the wide form.  Past 4096
+// states, ctc_alpha_paired_wide runs the same arithmetic with the carried
+// row read back from alphas[t-1].  trace, if not null: (T, 8) int64; lane 0
+// of block 0's last warp (the wavefront's tail) writes, at row t of each
+// pair t > 0 it recurses, the global timer (ns) as the pair starts, then the
+// SM clock then, after its rows are in registers, after the weights, after
+// the shuffles, after the left warp's edge, after the lse chains, and after
+// the edge's publication, the next loads and the stores.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float NEG_INF = -1.0e30f;
-constexpr int kMaxPerThread = 4;  // the paired alpha: S <= 4096, 32 KB of shared rows
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
@@ -152,12 +173,18 @@ __device__ __forceinline__ void wait_for(const float (&v)[K], long long* rec) {
 constexpr int kRing = 32;
 constexpr unsigned long long kFree = ~0ull;  // no step's word: a step < 2^32 - 1
 
+constexpr int kPairRing = 16;  // the paired alpha's ring: 16 steps of 8-word blocks, 32 KB
+
+// [step % kSteps][warp]: (state bits << 32) | step; kWords 2 for the alpha
+// and beta, 8 for the paired alpha's blocks.
+template <int kWords, int kSteps = kRing>
 struct Edges {
-  unsigned long long v[kRing][32][2];  // [step % kRing][warp]: (state bits << 32) | step
+  unsigned long long v[kSteps][32][kWords];
 };
 
-__device__ __forceinline__ void init_edges(Edges& e) {
-  for (int i = threadIdx.x; i < kRing * 32 * 2; i += blockDim.x) (&e.v[0][0][0])[i] = kFree;
+template <int kWords, int kSteps>
+__device__ __forceinline__ void init_edges(Edges<kWords, kSteps>& e) {
+  for (int i = threadIdx.x; i < kSteps * 32 * kWords; i += blockDim.x) (&e.v[0][0][0])[i] = kFree;
 }
 
 // A wait past ~2^36 cycles (half a minute) traps: a broken protocol fails
@@ -195,6 +222,46 @@ __device__ __forceinline__ float take(unsigned long long* p, int n) {
   return __uint_as_float((unsigned)(w >> 32));
 }
 
+// The paired alpha's edge words by their shared-memory addresses, computed
+// once; each word is one 64-bit access, as put, peek and take make them.
+using SmemAddr = unsigned;
+
+__device__ __forceinline__ SmemAddr smem_addr(const void* p) {
+  return (SmemAddr)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned long long lds_word(SmemAddr a) {
+  unsigned long long w;
+  asm volatile("ld.volatile.shared.u64 %0, [%1];" : "=l"(w) : "r"(a) : "memory");
+  return w;
+}
+
+__device__ __forceinline__ void sts_word(SmemAddr a, unsigned long long w) {
+  asm volatile("st.volatile.shared.u64 [%0], %1;" ::"r"(a), "l"(w) : "memory");
+}
+
+// The four words at a, one 64-bit load each.
+__device__ __forceinline__ void load_window(SmemAddr a, unsigned long long (&w)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = lds_word(a + 8 * j);
+}
+
+// Frees the four words at a (16-byte aligned).
+__device__ __forceinline__ void free_window(SmemAddr a) {
+  asm volatile("st.volatile.shared.v2.u64 [%0], {%1, %1};" ::"r"(a), "l"(kFree) : "memory");
+  asm volatile("st.volatile.shared.v2.u64 [%0+16], {%1, %1};" ::"r"(a), "l"(kFree) : "memory");
+}
+
+// put, at a shared-memory address.
+__device__ __forceinline__ void put_word(SmemAddr a, unsigned long long seen, float x, int n) {
+  if (seen != kFree && lds_word(a) != kFree) {
+    const long long start = clock64();
+    while (lds_word(a) != kFree)
+      if (clock64() - start > (1LL << 36)) __trap();
+  }
+  sts_word(a, (unsigned long long)__float_as_uint(x) << 32 | (unsigned)n);
+}
+
 // kTrace: the traced launch (thread 0 of block 0 writes the phase clocks);
 // the untraced one carries no trace code.
 template <int K, bool kTrace>
@@ -202,7 +269,7 @@ __global__ void __launch_bounds__(1024) ctc_alpha_lanes_kernel(
     const float* __restrict__ logp, const unsigned char* __restrict__ skip,
     const int* __restrict__ lens, float* __restrict__ alphas, float* __restrict__ final_alpha,
     long long* __restrict__ trace, int T, int B, int S) {
-  __shared__ Edges edges;
+  __shared__ Edges<2> edges;
   const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5, s0 = threadIdx.x * K, n = S - s0;
   const size_t row = (size_t)B * S, off = (size_t)b * S + s0;
@@ -327,7 +394,7 @@ __global__ void __launch_bounds__(1024) ctc_beta_lanes_kernel(
     const unsigned char* __restrict__ skip_from, const float* __restrict__ beta_T,
     const int* __restrict__ lens, const float* __restrict__ logz, float* __restrict__ w,
     long long* __restrict__ trace, int T, int B, int S) {
-  __shared__ Edges edges;
+  __shared__ Edges<2> edges;
   const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5, s0 = threadIdx.x * K, n = S - s0;
   const size_t row = (size_t)B * S, off = (size_t)b * S + s0;
@@ -548,85 +615,228 @@ __device__ __forceinline__ float lse5(float a, float b, float c, float d, float 
   return fmaxf(tot, NEG_INF);
 }
 
-__global__ void __launch_bounds__(1024) ctc_alpha_paired_kernel(
+// The paired alpha on the alpha's lanes (the design note above).  Lane l of
+// warp w holds states s0 = (32 w + l) K .. s0 + K - 1; a step of the edge
+// ring is a pair.  kTrace as the alpha's (the traced lane: the design note).
+template <int K, bool kTrace>
+__global__ void __launch_bounds__(1024) ctc_alpha_paired_lanes_kernel(
     const float* __restrict__ logp, const unsigned char* __restrict__ skip,
-    const int* __restrict__ lens, float* __restrict__ alphas,
-    float* __restrict__ final_alpha, int T, int B, int S) {
-  extern __shared__ float row[];  // (2, S): double-buffered alpha row
-  const int b = blockIdx.x;
-  const int len = lens[b];
-  float a[kMaxPerThread];
-  float k0[kMaxPerThread], k1[kMaxPerThread], k2[kMaxPerThread];  // K[s], K[s-1], K[s-2]
-  const unsigned char* sk = skip + (size_t)b * S;
+    const int* __restrict__ lens, float* __restrict__ alphas, float* __restrict__ final_alpha,
+    long long* __restrict__ trace, int T, int B, int S) {
+  // Warp w's block of a step: its window past its edge, alpha at its states
+  // -4 .. 3 - K (relative to the warp's first), each in one word with the
+  // step: words 0-3 the left warp's last four states, which that warp
+  // publishes and this warp frees; words 4 .. 7 - K this warp's own first
+  // states, which it stores for its own lanes 1-3.
+  constexpr int kSteps = kPairRing, kOwn = 4 - K;
+  __shared__ __align__(16) Edges<8, kSteps> edges;
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5, s0 = threadIdx.x * K, n = S - s0;
+  const size_t row = (size_t)B * S, off = (size_t)b * S + s0;
+  const int t_end = min(lens[b], T);
+  init_edges(edges);
+  // K[s + j - 2] (0 or NEG_INF), j = 0 .. K + 1: state s0 + i's K[s], K[s-1]
+  // and K[s-2] are kk[i + 2], kk[i + 1] and kk[i] (NEG_INF before the
+  // lattice's start).
+  float kk[K + 2];
 #pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    const int s = threadIdx.x + i * blockDim.x;
-    a[i] = NEG_INF;
-    k0[i] = k1[i] = k2[i] = NEG_INF;
-    if (s < S) {
-      k0[i] = sk[s] != 0 ? 0.f : NEG_INF;
-      k1[i] = s >= 1 && sk[s - 1] != 0 ? 0.f : NEG_INF;
-      k2[i] = s >= 2 && sk[s - 2] != 0 ? 0.f : NEG_INF;
+  for (int j = 0; j < K + 2; ++j)
+    kk[j] = s0 + j - 2 >= 0 && j - 2 < n && skip[off + j - 2] != 0 ? 0.f : NEG_INF;
+  __syncthreads();  // the slots are free
+  constexpr unsigned kBlock = 8 * 8, kStepBytes = 32 * kBlock;
+  constexpr unsigned kEdgeLanes = (1u << (4 / K)) - 1;  // lanes with lane K < 4
+  const SmemAddr ring = smem_addr(&edges.v[0][0][0]);
+  // The lanes whose states are the warp's last four publish them into warp
+  // + 1's block (words lane K + i - (32 K - 4)); those whose states are its
+  // first kOwn store them into its own (words 4 + lane K + i); lanes with
+  // lane K < 4 read words lane K .. lane K + 3 of their own block.
+  const bool publishes = warp + 1 < warps && lane * K >= 32 * K - 4;
+  const bool owns = warp > 0 && lane * K < kOwn;
+  const bool reads = warp > 0 && lane * K < 4;
+  SmemAddr pub = ring + (warp + 1) * kBlock + 8 * (lane * K - (32 * K - 4));
+  SmemAddr own = ring + warp * kBlock + 8 * (4 + lane * K);
+  SmemAddr rd = ring + warp * kBlock + 8 * lane * K;
+  // Held in registers: ptxas would otherwise derive them again from the
+  // thread's index every pair.
+  asm volatile("" : "+r"(pub), "+r"(own), "+r"(rd));
+  unsigned long long f[K];  // the next step's words as this lane last loaded them
+#pragma unroll
+  for (int i = 0; i < K; ++i) f[i] = kFree;
+  float a[K];  // alpha at the pair's second row
+  // Step q (alpha at row 2 q + 1), if the pair at 2 q + 2 recurses.
+  auto publish = [&](int q) {
+    if (2 * q + 2 >= t_end) return;
+    const unsigned at = (q & (kSteps - 1)) * kStepBytes;
+    if (publishes) {
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        if (lane * K + i >= 32 * K - 4) put_word(pub + at + 8 * i, f[i], a[i], q);
+      const unsigned nx = ((q + 1) & (kSteps - 1)) * kStepBytes;
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        if (lane * K + i >= 32 * K - 4) f[i] = lds_word(pub + nx + 8 * i);
     }
-  }
-  for (int t = 0; t < T; t += 2) {
-    float* cur = row + ((t >> 1) & 1) * S;
+    if (owns) {
 #pragma unroll
-    for (int i = 0; i < kMaxPerThread; ++i) {
-      const int s = threadIdx.x + i * blockDim.x;
-      if (s < S) cur[s] = a[i];
+      for (int i = 0; i < K; ++i)
+        if (lane * K + i < kOwn)
+          sts_word(own + at + 8 * i, (unsigned long long)__float_as_uint(a[i]) << 32 | (unsigned)q);
     }
-    __syncthreads();
-    const bool second = t + 1 < T;
-    const float* lp0 = logp + ((size_t)t * B + b) * S;
-    const float* lp1 = lp0 + (size_t)B * S;
+  };
+  long long* tr =
+      kTrace && blockIdx.x == 0 && threadIdx.x == 32 * (warps - 1) ? trace : nullptr;
+  // A pair's rows, loaded a pair ahead into one register slot (reloaded once
+  // the pair has used it): e, logp[t] at s0 - 2 .. s0 + K - 1; p1, logp[t +
+  // 1] at s0 .. s0 + K - 1 (NEG_INF where the pair has no second step).
+  // `next` is the row the next load reads.
+  float e[K + 2], p1[K];
+  const float* next = logp + off;
+  auto load = [&](int t) {
 #pragma unroll
-    for (int i = 0; i < kMaxPerThread; ++i) {
-      const int s = threadIdx.x + i * blockDim.x;
-      if (s >= S) continue;
-      const float p0 = lp0[s];
-      const float p0s1 = s >= 1 ? lp0[s - 1] : NEG_INF;
-      const float p0s2 = s >= 2 ? lp0[s - 2] : NEG_INF;
-      const float p1 = second ? lp1[s] : NEG_INF;
-      const float x0 = a[i];
-      const float x1 = s >= 1 ? cur[s - 1] : NEG_INF;
-      const float x2 = s >= 2 ? cur[s - 2] : NEG_INF;
-      const float x3 = s >= 3 ? cur[s - 3] : NEG_INF;
-      const float x4 = s >= 4 ? cur[s - 4] : NEG_INF;
-      // Emission-only pair weights.
-      const float w1 = lse2(p0, p0s1);
-      const float w2 = lse3(p0 + k0[i], p0s1, p0s2 + k0[i]);
-      const float w3 = lse2(p0s1 + k1[i], p0s2 + k0[i]);
-      const float w4 = p0s2 + k0[i] + k2[i];
-      // The single step, stored at t.
-      const float alpha0 = s < 2 ? p0 : NEG_INF;
-      float a1 = fmaxf(lse3(x0, x1, x2 + k0[i]) + p0, NEG_INF);
-      a1 = t == 0 ? alpha0 : (t < len ? a1 : x0);
-      float out = a1;
-      if (t + 1 < len) {
-        if (t == 0) {  // the second step applied to alpha_0
-          const float z1 = s == 1 || s == 2 ? p0s1 : NEG_INF;
-          const float z2 = s == 2 || s == 3 ? p0s2 : NEG_INF;
-          out = fmaxf(lse3(alpha0, z1, z2 + k0[i]) + p1, NEG_INF);
-        } else {
-          out = fmaxf(lse5(x0 + p0, x1 + w1, x2 + w2, x3 + w3, x4 + w4) + p1, NEG_INF);
-        }
+    for (int j = 0; j < K + 2; ++j)
+      e[j] = s0 + j - 2 >= 0 && j - 2 < n ? __ldg(next + j - 2) : NEG_INF;
+#pragma unroll
+    for (int i = 0; i < K; ++i) p1[i] = t + 1 < t_end && i < n ? __ldg(next + row + i) : NEG_INF;
+    next += 2 * row;
+  };
+  float* out = alphas + off;  // the pair's first row
+  auto store_pair = [&](const float(&a1)[K], int t) {
+    store_row(out, a1, n);
+    out += row;
+    if (t + 1 < T) store_row(out, a, n);
+    out += row;
+  };
+
+  // The pair at t = 0: alpha_0, then the second step applied to it.
+  load(0);
+  {
+    float a1[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int s = s0 + i;
+      const float alpha0 = s < 2 ? e[i + 2] : NEG_INF;
+      a1[i] = alpha0;
+      a[i] = alpha0;
+      if (1 < t_end) {
+        const float z1 = s == 1 || s == 2 ? e[i + 1] : NEG_INF;
+        const float z2 = s == 2 || s == 3 ? e[i] : NEG_INF;
+        a[i] = fmaxf(lse3(alpha0, z1, z2 + kk[i + 2]) + p1[i], NEG_INF);
       }
-      alphas[((size_t)t * B + b) * S + s] = a1;
-      if (second) alphas[((size_t)(t + 1) * B + b) * S + s] = out;
-      a[i] = out;
     }
+    publish(0);
+    if (2 < t_end) load(2);
+    store_pair(a1, 0);
   }
+
+  // The pairs at t > 0 that recurse (t < t_end).
+  int t = 2;
+  for (; t < t_end; t += 2) {
+    const int q = t >> 1;
+    long long* rec = kTrace && tr ? tr + 8 * (size_t)t : nullptr;
+    if (kTrace && rec) {
+      rec[0] = global_ns();
+      rec[1] = clock64();
+      wait_for(e, rec);
+      wait_for(p1, rec);
+      rec[2] = clock64();
+    }
+    // The emission-only weights, before the neighbours are awaited.
+    float w1[K], w2[K], w3[K], w4[K];
 #pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    const int s = threadIdx.x + i * blockDim.x;
-    if (s < S) final_alpha[(size_t)b * S + s] = a[i];
+    for (int i = 0; i < K; ++i) {
+      const float p0 = e[i + 2], p0s1 = e[i + 1], p0s2 = e[i];
+      const float k0 = kk[i + 2], k1 = kk[i + 1], k2 = kk[i];
+      w1[i] = lse2(p0, p0s1);
+      w2[i] = lse3(p0 + k0, p0s1, p0s2 + k0);
+      w3[i] = lse2(p0s1 + k1, p0s2 + k0);
+      w4[i] = p0s2 + k0 + k2;
+    }
+    if (kTrace && rec) {
+      wait_for(w1, rec);
+      wait_for(w2, rec);
+      wait_for(w3, rec);
+      rec[3] = clock64();
+    }
+    // x[4 - m]: alpha at s0 - m, from the lane ceil(m / K) to the left
+    // (NEG_INF before the lattice) ...
+    float x[4];
+#pragma unroll
+    for (int m = 1; m <= 4; ++m) {
+      const int c = (m + K - 1) / K;
+      x[4 - m] = __shfl_up_sync(kFull, a[K * c - m], c);
+    }
+    if (warp == 0) {
+#pragma unroll
+      for (int m = 1; m <= 4; ++m)
+        if (lane * K < m) x[4 - m] = NEG_INF;
+    }
+    if (kTrace && rec) {
+      wait_for(x, rec);
+      rec[4] = clock64();
+    }
+    // ... or, for the lanes whose window reaches past the warp's edge, all
+    // four from the warp's block of step q - 1, once each word carries the
+    // step; lane 0 frees the left warp's words once every reading lane has
+    // them.
+    if (reads) {
+      const SmemAddr at = rd + ((q - 1) & (kSteps - 1)) * kStepBytes;
+      unsigned long long w[4];
+      load_window(at, w);
+      const unsigned step = (unsigned)(q - 1);
+      auto carry = [&] {
+        return ((unsigned)w[0] == step) & ((unsigned)w[1] == step) & ((unsigned)w[2] == step) &
+               ((unsigned)w[3] == step);
+      };
+      if (!carry()) {
+        const long long start = clock64();
+        do {
+          if (clock64() - start > (1LL << 36)) __trap();
+          load_window(at, w);
+        } while (!carry());
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = __uint_as_float((unsigned)(w[j] >> 32));
+      __syncwarp(kEdgeLanes);
+      if (lane == 0) free_window(at);
+    }
+    if (kTrace && rec) {
+      wait_for(x, rec);
+      rec[5] = clock64();
+    }
+    float a1[K], nv[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      float xm[5];  // alpha at s - m
+#pragma unroll
+      for (int m = 0; m <= 4; ++m)
+        xm[m] = i >= m ? a[i >= m ? i - m : 0] : x[i >= m ? 0 : 4 + i - m];
+      const float p0 = e[i + 2];
+      a1[i] = fmaxf(lse3(xm[0], xm[1], xm[2] + kk[i + 2]) + p0, NEG_INF);
+      nv[i] = t + 1 < t_end ? fmaxf(lse5(xm[0] + p0, xm[1] + w1[i], xm[2] + w2[i],
+                                         xm[3] + w3[i], xm[4] + w4[i]) + p1[i],
+                                    NEG_INF)
+                            : a1[i];
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) a[i] = nv[i];
+    if (kTrace && rec) {
+      wait_for(a, rec);
+      rec[6] = clock64();
+    }
+    publish(q);
+    if (t + 2 < t_end) load(t + 2);
+    store_pair(a1, t);
+    if (kTrace && rec) rec[7] = clock64();
   }
+  for (; t < T; ++t) {  // carried past the length
+    store_row(out, a, n);
+    out += row;
+  }
+  store_row(final_alpha + off, a, n);
 }
 
-// ctc_alpha_paired_kernel's arithmetic, past its S <= 4096, with the carried
-// row alpha_{t-1} read back from its own alphas output: one __syncthreads a
-// pair of frames.
+// The paired arithmetic at any S, with the carried row alpha_{t-1} read back
+// from its own alphas output: one __syncthreads a pair of frames.
 __global__ void __launch_bounds__(1024) ctc_alpha_paired_wide_kernel(
     const float* __restrict__ logp, const unsigned char* __restrict__ skip,
     const int* __restrict__ lens, float* alphas, float* __restrict__ final_alpha, int T, int B,
@@ -734,14 +944,31 @@ extern "C" int ctc_alpha_wide(const float* logp_tbs, const unsigned char* skip, 
 }
 
 // The paired recursion (PAIRED_FWD): same arguments and outputs as
-// ctc_alpha_wide; S <= 4096 = 1024 * kMaxPerThread (the wrapper checks).
+// ctc_alpha, its trace a record a pair (at the pair's first row).
 extern "C" int ctc_alpha_paired(const float* logp_tbs, const unsigned char* skip,
-                                const int* lens, float* alphas, float* final_alpha, int T,
-                                int B, int S, void* stream) {
+                                const int* lens, float* alphas, float* final_alpha,
+                                long long* trace, int T, int B, int S, int warps, int k,
+                                void* stream) {
   if (T == 0 || B == 0 || S == 0) return 0;
-  const int threads = threads_for(S);
-  ctc_alpha_paired_kernel<<<B, threads, 2 * S * sizeof(float), (cudaStream_t)stream>>>(
-      logp_tbs, skip, lens, alphas, final_alpha, T, B, S);
+  if (!plan_ok(warps, k, S)) return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CTC_PAIRED_CASE(K)                                                             \
+  case K:                                                                              \
+    if (trace)                                                                         \
+      ctc_alpha_paired_lanes_kernel<K, true><<<B, 32 * warps, 0, st>>>(                \
+          logp_tbs, skip, lens, alphas, final_alpha, trace, T, B, S);                  \
+    else                                                                               \
+      ctc_alpha_paired_lanes_kernel<K, false><<<B, 32 * warps, 0, st>>>(               \
+          logp_tbs, skip, lens, alphas, final_alpha, trace, T, B, S);                  \
+    break;
+  switch (k) {
+    CTC_PAIRED_CASE(1)
+    CTC_PAIRED_CASE(2)
+    CTC_PAIRED_CASE(4)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef CTC_PAIRED_CASE
   return cudaGetLastError();
 }
 

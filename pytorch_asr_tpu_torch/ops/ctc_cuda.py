@@ -8,12 +8,12 @@ fallback.  ``PAIRED_FWD``, as the JAX module's switch of the same name, makes
 the alpha recursion take two frames an iteration (``ctc_alpha_paired``); no
 path sets it, it is the measured alternative.
 
-The route is ``lane_plan(S)``, a pure function of the lattice's states: the
-register form (a block of ``warps`` warps an utterance, ``k`` consecutive
-states a lane) up to ``MAX_LANE_STATES``, and past it the wide form (the
-lattice rows in device memory), counted apart as ``ctc_alpha_wide``,
-``ctc_beta_wide`` and ``ctc_alpha_paired_wide``.  Each wrapper's ``wide``
-forces the wide form where the register form would run.
+The route of all three is ``lane_plan(S)``, a pure function of the lattice's
+states: the register form (a block of ``warps`` warps an utterance, ``k``
+consecutive states a lane) up to ``MAX_LANE_STATES``, and past it the wide
+form (the lattice rows in device memory), counted apart as
+``ctc_alpha_wide``, ``ctc_beta_wide`` and ``ctc_alpha_paired_wide``.  Each
+wrapper's ``wide`` forces the wide form where the register form would run.
 """
 
 from __future__ import annotations
@@ -29,12 +29,11 @@ from pytorch_asr_tpu_torch.ops import build, ctc
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ctc_alpha": [_P] * 6 + [_I] * 5 + [_P],
                "ctc_alpha_wide": [_P] * 5 + [_I] * 3 + [_P],
-               "ctc_alpha_paired": [_P] * 5 + [_I] * 3 + [_P],
+               "ctc_alpha_paired": [_P] * 6 + [_I] * 5 + [_P],
                "ctc_alpha_paired_wide": [_P] * 5 + [_I] * 3 + [_P],
                "ctc_beta": [_P] * 8 + [_I] * 5 + [_P],
                "ctc_beta_wide": [_P] * 8 + [_I] * 3 + [_P]}
-MAX_LANE_STATES = 4096    # the register form's route: 32 warps x 32 lanes x 4 states
-PAIRED_MAX_STATES = 4096  # the paired kernel: 1024 threads x 4 states in registers
+MAX_LANE_STATES = 4096  # the register form's route: 32 warps x 32 lanes x 4 states
 PAIRED_FWD = False  # the alpha recursion two frames an iteration (read at each call)
 
 
@@ -111,8 +110,8 @@ def ctc_alpha(logp_tbs: torch.Tensor, skip: torch.Tensor, logit_len: torch.Tenso
               trace: torch.Tensor | None = None,
               wide: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Alpha recursion: (T, B, S) lattice log-probs -> (alphas (T, B, S), final (B, S)).
-    With ``PAIRED_FWD`` set, ``ctc_alpha_paired``.  ``wide`` forces the wide
-    form (``route``).
+    With ``PAIRED_FWD`` set, ``ctc_alpha_paired`` (its trace a record a
+    pair).  ``wide`` forces the wide form (``route``).
 
     ``trace``, a contiguous int64 (T, 8) tensor on the card, receives block
     0's phase clocks of each frame it recurses (the register form only;
@@ -122,7 +121,7 @@ def ctc_alpha(logp_tbs: torch.Tensor, skip: torch.Tensor, logit_len: torch.Tenso
     the shuffles, after the lse3 chain, after the edge's publication, the
     stores and the next row's loads, and the global timer at its end."""
     if PAIRED_FWD:
-        return ctc_alpha_paired(logp_tbs, skip, logit_len, wide)
+        return ctc_alpha_paired(logp_tbs, skip, logit_len, trace, wide)
     if logp_tbs.device.type == "cpu":
         return ctc.alphas_plain(logp_tbs, skip, logit_len)
     T, B, S = logp_tbs.shape
@@ -146,23 +145,38 @@ def ctc_alpha(logp_tbs: torch.Tensor, skip: torch.Tensor, logit_len: torch.Tenso
 
 
 def ctc_alpha_paired(logp_tbs: torch.Tensor, skip: torch.Tensor, logit_len: torch.Tensor,
+                     trace: torch.Tensor | None = None,
                      wide: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The alpha recursion two frames an iteration; see ``ctc.alphas_paired_plain``.
-    Its wide form (``ctc_alpha_paired_wide``) past ``PAIRED_MAX_STATES``, or
-    with ``wide``."""
+    Routed as ``ctc_alpha`` (``route``): its register form on the alpha's
+    lanes, or its wide form (``ctc_alpha_paired_wide``).
+
+    ``trace``, a contiguous int64 (T, 8) tensor on the card, receives, at the
+    first row t of each pair t > 0 it recurses, the phase clocks of lane 0 of
+    block 0's last warp (the register form only; ``bench_kernel_turns.
+    ctc_split`` with ``PAIRED_PHASES`` reads them): the global timer (ns) as
+    the pair starts, the SM clock then, after its rows are in registers,
+    after the emission weights, after the shuffles, after the left warp's
+    edge, after the lse chains, and after the edge's publication, the next
+    rows' loads and the stores."""
     if logp_tbs.device.type == "cpu":
         return ctc.alphas_paired_plain(logp_tbs, skip, logit_len)
     T, B, S = logp_tbs.shape
-    _check("ctc_alpha_paired", {"logp_tbs": logp_tbs, "skip": skip, "lens": logit_len},
-           T, B, S)
-    name = "ctc_alpha_paired_wide" if wide or S > PAIRED_MAX_STATES else "ctc_alpha_paired"
+    _check("ctc_alpha_paired", {"logp_tbs": logp_tbs, "skip": skip, "lens": logit_len,
+                                "trace": trace}, T, B, S)
+    plan = route("ctc_alpha_paired", S, wide, trace)
     alphas = torch.empty_like(logp_tbs)
     final = torch.empty((B, S), dtype=torch.float32, device=logp_tbs.device)
     lib = build.load("ctc_alpha_beta", _SIGNATURES)
-    build.check(getattr(lib, name)(logp_tbs.data_ptr(), skip.data_ptr(), logit_len.data_ptr(),
-                                   alphas.data_ptr(), final.data_ptr(), T, B, S,
-                                   torch.cuda.current_stream(logp_tbs.device).cuda_stream),
-                name)
+    ptrs = (logp_tbs.data_ptr(), skip.data_ptr(), logit_len.data_ptr(), alphas.data_ptr(),
+            final.data_ptr())
+    stream = torch.cuda.current_stream(logp_tbs.device).cuda_stream
+    if plan.form == "wide":
+        name, err = "ctc_alpha_paired_wide", lib.ctc_alpha_paired_wide(*ptrs, T, B, S, stream)
+    else:
+        name, err = "ctc_alpha_paired", lib.ctc_alpha_paired(*ptrs, _ptr(trace), T, B, S,
+                                                             plan.warps, plan.k, stream)
+    build.check(err, name)
     build.LAUNCHES[name] += 1
     return alphas, final
 

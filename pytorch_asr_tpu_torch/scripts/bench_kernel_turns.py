@@ -34,20 +34,21 @@ K9 at config 2's shape: 16 rows of 397 frames of random logits (numpy seed
 (``rnn_grid_route``) and its block kernel (route None), each timed with
 CUDA events as K11's backward, in turns grid, block, block, grid.
 
-K4 at config 1's training shape (``train_ctc_case``: 8 synthetic 10-16 s
-utterances' labels, logits (8, T', 31) from torch seed 4, a row of no
-frames and an infeasible row), at config 3's (its batch of 16, all rows
-feasible) and at the card tests' two cases (``ctc_case``, numpy seed 8;
-``chip_smoke.py`` and the tests build theirs here): a sha256 of each output
-(alphas and final; the posteriors, fed the plain alphas; and at config 1's
-shape the paired alpha's), so that two checkouts' bits can be compared; at
-each configuration's shape the alpha, the beta and ``F.ctc_loss``'s forward
-and backward timed with CUDA events as K11's backward, in turns; and at
-config 1's, where the wrappers take a ``trace``, block 0's median µs a
-frame by phase (``ctc_split``: the row's wait, the neighbour warp's edge,
-the shuffles, the lse3 chain, the stores; for a block-a-row kernel traced
-at the same points, its shared row's stores, then its barrier, in the edge
-and shuffles columns).
+K4 and the paired alpha at config 1's training shape (``train_ctc_case``: 8
+synthetic 10-16 s utterances' labels, logits (8, T', 31) from torch seed 4,
+a row of no frames and an infeasible row), at config 3's (its batch of 16,
+all rows feasible) and at the card tests' three cases (``ctc_case``, numpy
+seed 8; ``chip_smoke.py`` and the tests build theirs here): a sha256 of each
+output (alphas and final; the posteriors, fed the plain alphas; the paired
+alpha's alphas and final), so that two checkouts' bits can be compared; at
+each configuration's shape the alpha, the paired alpha, the beta and
+``F.ctc_loss``'s forward and backward timed with CUDA events as K11's
+backward, in turns; and there, where the wrappers take a ``trace``, the
+median µs a frame (a pair) by phase (``ctc_split``: for the alpha and beta
+``CTC_PHASES``, the row's wait, the neighbour warp's edge, the shuffles,
+the lse3 chain, the stores; for the paired alpha ``PAIRED_PHASES``, the
+rows' wait, the emission weights, the shuffles, the left warp's edge, the
+lse chains, the publication and stores).
 
 K1 at config 1's serving shape (8 synthetic utterances of 16 s, n_fft 512):
 a sha256 of its output and its time with CUDA events as K11's backward.
@@ -95,8 +96,9 @@ LSTM_LENGTHS = [400, 371, 352, 330, 310, 290, 260, 250]
 MERGE_B, MERGE_K, MERGE_V, MERGE_L = 16, 16, 31, 256
 PRODUCTS = ("gemm_kernel", "column_sum_kernel", "add_halves_kernel")
 CTC_B, CTC_V = 8, 31
-CTC_TEST_CASES = ((6, 90, 9, 30), (2, 1100, 5, 520))
+CTC_TEST_CASES = ((6, 90, 9, 30), (2, 1100, 5, 520), (2, 2200, 30, 1500))
 CTC_PHASES = ("row", "edge", "shuffles", "chain", "stores")
+PAIRED_PHASES = ("row", "weights", "shuffles", "edge", "chain", "stores")
 
 
 def _events_ms(fn, reps: int, inner: int) -> float:
@@ -313,14 +315,13 @@ def _ctc_inputs(case):
     return (logp_tbs, skip, lens), bargs
 
 
-def ctc_split(call, T: int, dev) -> dict:
-    """Where a K4 frame's time goes: block 0's trace of each frame it
-    recursed (``ctc_cuda.ctc_alpha``'s ``trace``, written by ``call(trace)``):
-    the median µs of each phase (``CTC_PHASES``: the wait for the row
-    fetched ahead, the neighbour warp's edge (the wait for its slot), the
-    shuffles, the lse3 chain, the edge's publication, the stores and the
-    next loads), of a frame, and from one frame's start to the next's, at
-    the clock the trace saw from its first frame to its last."""
+def ctc_split(call, T: int, dev, phases: tuple[str, ...] = CTC_PHASES) -> dict:
+    """Where a K4 frame's time goes (or a paired alpha's pair, with
+    ``PAIRED_PHASES``): the trace of each frame (pair) recursed, written by
+    ``call(trace)`` (``ctc_cuda.ctc_alpha``'s or ``ctc_alpha_paired``'s
+    ``trace``): the median µs of each phase, of a frame, and from one
+    frame's start to the next's, at the clock the trace saw from its first
+    frame to its last."""
     trace = torch.zeros((T, 8), dtype=torch.int64, device=dev)
     call(trace)
     torch.cuda.synchronize()
@@ -330,9 +331,10 @@ def ctc_split(call, T: int, dev) -> dict:
         return {"frames": len(tr)}
     tr = tr[np.argsort(tr[:, 0], kind="stable")]
     ghz = (tr[-1, 1] - tr[0, 1]) / (tr[-1, 0] - tr[0, 0])
+    last = 1 + len(phases)
     return {"frames": len(tr), "trace_clock_ghz": ghz,
-            "us_median": _median_split(tr[:, 1:7], CTC_PHASES, ghz),
-            "frame_us_median": float(np.median(tr[:, 6] - tr[:, 1])) / ghz / 1e3,
+            "us_median": _median_split(tr[:, 1:last + 1], phases, ghz),
+            "frame_us_median": float(np.median(tr[:, last] - tr[:, 1])) / ghz / 1e3,
             "start_to_start_us_median": float(np.median(np.diff(tr[:, 1]))) / ghz / 1e3}
 
 
@@ -345,9 +347,8 @@ def ctc_kernels(reps: int, inner: int, dev) -> dict:
         aargs, bargs = _ctc_inputs(case)
         alphas, final = ctc_cuda.ctc_alpha(*aargs)
         w = ctc_cuda.ctc_beta(*bargs)
-        out["bits"][tag] = {"alphas": _digest(alphas, final), "posteriors": _digest(w)}
-        if tag == "config1":
-            out["bits"][tag]["paired"] = _digest(*ctc_cuda.ctc_alpha_paired(*aargs))
+        out["bits"][tag] = {"alphas": _digest(alphas, final), "posteriors": _digest(w),
+                            "paired": _digest(*ctc_cuda.ctc_alpha_paired(*aargs))}
         if not tag.startswith("config"):
             continue
         logits, logit_len, labels, label_len = case
@@ -356,6 +357,7 @@ def ctc_kernels(reps: int, inner: int, dev) -> dict:
                                  label_len.long(), reduction="none", zero_infinity=True)
         lib_loss = lib()
         fns = {"alpha_ms": lambda: ctc_cuda.ctc_alpha(*aargs),
+               "paired_ms": lambda: ctc_cuda.ctc_alpha_paired(*aargs),
                "beta_ms": lambda: ctc_cuda.ctc_beta(*bargs),
                "library_forward_ms": lib,
                "library_backward_ms": lambda: torch.autograd.grad(lib_loss.sum(), lp,
@@ -364,12 +366,15 @@ def ctc_kernels(reps: int, inner: int, dev) -> dict:
         for n in [*fns, *reversed(fns)]:
             turns[n].append(_events_ms(fns[n], reps, inner))
         out["turns"][tag], out["shape"][tag] = turns, list(aargs[0].shape)
+        T = aargs[0].shape[0]
         if tag == "config1" and "trace" in inspect.signature(ctc_cuda.ctc_alpha).parameters:
-            T = aargs[0].shape[0]
             out["alpha_split"] = ctc_split(lambda tr: ctc_cuda.ctc_alpha(*aargs, trace=tr), T,
                                            dev)
             out["beta_split"] = ctc_split(lambda tr: ctc_cuda.ctc_beta(*bargs, trace=tr), T,
                                           dev)
+        if "trace" in inspect.signature(ctc_cuda.ctc_alpha_paired).parameters:
+            out.setdefault("paired_split", {})[tag] = ctc_split(
+                lambda tr: ctc_cuda.ctc_alpha_paired(*aargs, trace=tr), T, dev, PAIRED_PHASES)
         if hasattr(ctc_cuda, "lane_plan"):
             out.setdefault("route", {})[tag] = list(ctc_cuda.lane_plan(aargs[0].shape[2]))
     return out

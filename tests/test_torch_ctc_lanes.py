@@ -285,3 +285,216 @@ def test_the_wide_form_past_the_registers_gives_jaxs_loss():
                                 int(bargs[4][0]), float(bargs[5][0]), plan)
     np.testing.assert_allclose(got_w, ctc.posteriors_plain(*bargs)[:, 0].numpy(),
                                rtol=CTC_GRAD_RTOL, atol=CTC_GRAD_ATOL)
+
+
+# ---------------------------------------------------------------- the paired alpha's pair
+
+def _blocks(a: np.ndarray, plan) -> tuple[np.ndarray, np.ndarray]:
+    """Each warp's block of a step as ``ctc_alpha_paired_lanes_kernel``
+    fills it: words 0-3 the left warp's last four states, which the lanes
+    holding them (``lane k >= 32 k - 4``) write as word ``lane k + i - (32 k
+    - 4)``; words 4 .. 7 - k the warp's own first 4 - k states, which the
+    lanes holding them write as word ``4 + lane k + i``.  Returns (blocks
+    (warps, 8), NaN where no lane writes, and how often each word is
+    written)."""
+    k, tid = plan.k, np.arange(32 * plan.warps)
+    lane, warp = tid % 32, tid // 32
+    blocks = np.full((plan.warps, 8), np.nan, a.dtype)
+    writes = np.zeros((plan.warps, 8), int)
+    for i in range(k):
+        pub = (lane * k + i >= 32 * k - 4) & (warp + 1 < plan.warps)
+        j = lane * k + i - (32 * k - 4)
+        np.add.at(writes, (warp[pub] + 1, j[pub]), 1)
+        blocks[warp[pub] + 1, j[pub]] = a[pub, i]
+        own = (lane * k + i < 4 - k) & (warp > 0)
+        np.add.at(writes, (warp[own], 4 + lane[own] * k + i), 1)
+        blocks[warp[own], 4 + lane[own] * k + i] = a[own, i]
+    return blocks, writes
+
+
+def paired_exchange(a: np.ndarray, plan) -> tuple[np.ndarray, list]:
+    """Each lane's alpha at s0 - 4 .. s0 - 1 (column 4 - m: s0 - m) as the
+    paired kernel forms them: by ``__shfl_up_sync`` by ceil(m / k) lanes of
+    register k ceil(m / k) - m, NEG_INF before the lattice at warp 0; in the
+    other warps, the lanes with ``lane k < 4`` take all four from words
+    lane k .. lane k + 3 of their warp's block.  Also returns the (warp,
+    lane, word) reads."""
+    k, tid = plan.k, np.arange(32 * plan.warps)
+    lane, warp = tid % 32, tid // 32
+    blocks, _ = _blocks(a, plan)
+    x, reads = np.empty((len(a), 4), a.dtype), []
+    for m in range(1, 5):
+        c = -(-m // k)
+        got = _shfl(a[:, k * c - m], c)
+        x[:, 4 - m] = np.where((warp == 0) & (lane * k < m), NEG, got)
+    rd = (warp > 0) & (lane * k < 4)
+    for j in range(4):
+        x[rd, j] = blocks[warp[rd], lane[rd] * k + j]
+        reads += [(int(w), int(ln), int(ln) * k + j) for w, ln in zip(warp[rd], lane[rd])]
+    return x, reads
+
+
+@pytest.mark.parametrize("S", [3, 31, 33, 61, 481, 1041, 4095])
+def test_the_paired_exchange_gives_the_shifted_rows(S):
+    """The pair's exchange under every plan gives each state the row's
+    values at s-1 .. s-4, as ``shift_right`` does (NEG_INF before the
+    lattice); every block word a reading lane takes is written once a step
+    (none is read unwritten), the left warp's four words by that warp; the
+    lanes that read (lane k < 4, the kernel's ``__syncwarp`` mask) take
+    words 0 .. 7 - k, lane 0 words 0-3, so lane 0's frees, after the others
+    have read, free each of the left warp's words once."""
+    x = np.random.default_rng(S).standard_normal(S).astype(np.float32)
+    xt = torch.from_numpy(x)[None]
+    for plan in _plans(S):
+        k = plan.k
+        states = ctc_cuda.plan_states(plan, S)
+        regs = _regs(x, plan, S)
+        got, reads = paired_exchange(regs, plan)
+        for i in range(k):  # state s0 + i's s - m: its own register, or the window
+            s = states[:, i]
+            for m in range(1, 5):
+                v = regs[:, i - m] if i >= m else got[:, 4 + i - m]
+                want = ctc.shift_right(xt, m)[0].numpy()
+                assert np.array_equal(v[s >= 0], want[s[s >= 0]]), (plan, i, m)
+        blocks, writes = _blocks(regs, plan)
+        assert (writes[1:, :8 - k] == 1).all() and not writes[1:, 8 - k:].any(), plan
+        assert not writes[0].any()
+        assert {ln for _, ln, _ in reads} <= set(range(4 // k)), plan
+        for w in range(1, plan.warps):
+            assert {j for ww, ln, j in reads if ww == w and ln == 0} == {0, 1, 2, 3}
+            assert {j for ww, _, j in reads if ww == w} == set(range(8 - k))
+
+
+def _lse(*xs):
+    """The kernel's lse3 and lse5: where every term lies below the floor,
+    the sum of exps is 0, its log -inf, and the floor the result."""
+    m = np.maximum(np.maximum.reduce(xs), NEG)
+    with np.errstate(divide="ignore"):
+        tot = m + np.log(sum(np.exp(x - m) for x in xs))
+    return np.maximum(tot, NEG).astype(np.float32)
+
+
+def _lse2(a, b):
+    return (np.maximum(a, b) + np.log1p(np.exp(-np.abs(a - b)))).astype(np.float32)
+
+
+def emulated_paired_alphas(lp: np.ndarray, skip: np.ndarray, length: int, plan) -> np.ndarray:
+    """One row's alphas (T, S) as ``ctc_alpha_paired_lanes_kernel`` forms
+    them in the plan's registers: the emissions at s0 - 2 .. s0 + k - 1 of
+    frame t and s0 .. of frame t + 1, the weights from them, the pair's
+    exchange, the single step a1 at t and the composed step at t + 1."""
+    T, S = lp.shape
+    k = plan.k
+    s = np.arange(32 * plan.warps)[:, None] * k + np.arange(k)[None, :]
+    t_end = min(length, T)
+
+    def at(row, d, fill=NEG):  # row[s + d], fill outside the lattice
+        idx = s + d
+        return np.where((idx >= 0) & (idx < S), row[np.clip(idx, 0, S - 1)], fill)
+
+    k0, k1, k2 = (np.where(at(skip, d, False), np.float32(0), NEG) for d in (0, -1, -2))
+    rows = np.empty((T + 1, S), np.float32)
+    a = np.full(s.shape, NEG)
+    for t in range(0, T, 2):
+        p0, p0s1, p0s2 = at(lp[t], 0), at(lp[t], -1), at(lp[t], -2)
+        p1 = at(lp[t + 1], 0) if t + 1 < t_end else np.full(s.shape, NEG)
+        if t == 0:
+            a1 = np.where(s < 2, p0, NEG).astype(np.float32)
+            z1 = np.where((s == 1) | (s == 2), p0s1, NEG)
+            z2 = np.where((s == 2) | (s == 3), p0s2, NEG)
+            a = np.maximum(_lse(a1, z1, z2 + k0) + p1, NEG) if 1 < t_end else a1
+        elif t < t_end:
+            w1, w2 = _lse2(p0, p0s1), _lse(p0 + k0, p0s1, p0s2 + k0)
+            w3, w4 = _lse2(p0s1 + k1, p0s2 + k0), (p0s2 + k0 + k2).astype(np.float32)
+            x, _ = paired_exchange(a, plan)
+            xm = [np.stack([a[:, i - m] if i >= m else x[:, 4 + i - m] for i in range(k)], 1)
+                  for m in range(5)]
+            a1 = np.maximum(_lse(xm[0], xm[1], xm[2] + k0) + p0, NEG).astype(np.float32)
+            if t + 1 < t_end:
+                a = np.maximum(_lse(xm[0] + p0, xm[1] + w1, xm[2] + w2, xm[3] + w3,
+                                    xm[4] + w4) + p1, NEG).astype(np.float32)
+            else:
+                a = a1
+        else:
+            a1 = a
+        rows[t], rows[t + 1] = _row(a1, plan, S), _row(a, plan, S)
+    return rows[:T]
+
+
+@pytest.mark.parametrize("shape, lens", [((6, 91, 9, 30), [91, 0, 1, 2, 3, 90]),
+                                         ((3, 24, 12, 240), None)])
+def test_emulated_pairs_give_the_plain_paired_recursion(shape, lens):
+    """The paired recursion built from every plan's exchange against
+    ``alphas_paired_plain``: an odd T, rows of 0, 1, 2 and 3 frames (one
+    ending mid-pair), a row ending mid-pair at T - 1, repeats; S 61 and 481
+    over 1-16 warps."""
+    logits, logit_len, labels, label_len = ctc_case("cpu", *shape)
+    if lens is not None:
+        logit_len = torch.tensor(lens, dtype=torch.int32)
+    _, lp, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    want = ctc.alphas_paired_plain(lp, skip, logit_len)[0].numpy()
+    T, B, S = lp.shape
+    lp_n, skip_n = lp.numpy(), skip.numpy()
+    for plan in _plans(S):
+        for b in range(B):
+            got = emulated_paired_alphas(lp_n[:, b], skip_n[b], int(logit_len[b]), plan)
+            np.testing.assert_allclose(got, want[:, b], rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+
+
+def _edge_ring(warps: int, t_end: int, T: int, ring: int, seed: int) -> int:
+    """The paired kernel's edge protocol, its warps interleaved at random:
+    after pair q a warp (but the last) puts step q's four words into warp +
+    1's block, each once it is free, if the pair at 2 q + 2 recurses; the
+    pair at t = 2 q > 0, if t < t_end, waits until those four words of its
+    own block carry step q - 1, reads and frees them (a warp's own words,
+    which only it writes and reads, in program order, are not modelled).
+    Fails on a deadlock or a word read with another step's value; returns
+    the steps read."""
+    rng = np.random.default_rng(seed)
+    slot = {}  # (ring slot, warp, word) -> step, absent when free
+
+    def warp_program(w):
+        def publish(q):
+            if w + 1 < warps and 2 * q + 2 < t_end:
+                for j in range(4):
+                    key = (q % ring, w, j)
+                    yield lambda: key not in slot
+                    slot[key] = q
+
+        yield from publish(0)
+        for t in range(2, T, 2):
+            if t >= t_end:
+                break
+            q = t // 2
+            if w > 0:
+                keys = [((q - 1) % ring, w - 1, j) for j in range(4)]
+                yield lambda: all(key in slot for key in keys)
+                assert all(slot[key] == q - 1 for key in keys)
+                for key in keys:
+                    del slot[key]
+                reads.append(q)
+            yield from publish(q)
+
+    reads = []
+    progs = {w: warp_program(w) for w in range(warps)}
+    waits = {w: next(p, None) for w, p in progs.items()}
+    while any(c is not None for c in waits.values()):
+        ready = [w for w, c in waits.items() if c is not None and c()]
+        assert ready, f"deadlock: warps {warps}, t_end {t_end}, T {T}"
+        w = ready[rng.integers(len(ready))]
+        waits[w] = next(progs[w], None)
+    assert not slot, "a published word was never read"
+    return len(reads)
+
+
+@pytest.mark.parametrize("warps, T", [(1, 9), (2, 91), (16, 90), (32, 7)])
+def test_the_paired_edge_ring_neither_waits_forever_nor_overwrites(warps, T):
+    """Every row length from 0 to T (ending at t = 0, mid-pair, after a
+    whole pair, at an odd T): no warp waits for a step its left warp does
+    not publish, no word is stored again before it is read and freed, and
+    every word published is read, over a ring of 4 steps (the kernel's 16:
+    the shorter ring lets the wavefront wrap it)."""
+    for length in range(T + 1):
+        t_end = min(length, T)
+        reads = _edge_ring(warps, t_end, T, ring=4, seed=length)
+        assert reads == (warps - 1) * len(range(2, t_end, 2))

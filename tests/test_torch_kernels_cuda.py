@@ -1484,7 +1484,8 @@ def test_dual_grid_trace_and_other_grids(cuda):
 @pytest.mark.parametrize("shape", [(6, 91, 9, 30), (2, 1100, 5, 520)])
 def test_ctc_paired_alpha_matches_plain(cuda, shape):
     """The paired alpha kernel against its plain version and K4's alphas;
-    an odd T, a row of no frames, an infeasible row, and S past the threads."""
+    an odd T, a row of no frames, an infeasible row, and S past a warp's
+    lanes (k 2 at S 1041)."""
     B, T, V, L = shape
     logits, logit_len, labels, label_len = _ctc_case(cuda, B, T, V, L)
     _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
@@ -1504,13 +1505,13 @@ def test_ctc_paired_alpha_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 def test_ctc_paired_alpha_past_the_registers(cuda):
-    """S 4097, past the paired kernel's registers: its wide form, counted
+    """S 4097, past the register form: the paired alpha's wide form, counted
     apart, against the plain paired recursion."""
     B, T, V, L = 3, 2301, 30, 2048
     logits, logit_len, labels, label_len = _ctc_case(cuda, B, T, V, L)
     _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
     lens = logit_len.contiguous()
-    assert logp_tbs.shape[2] > ctc_cuda.PAIRED_MAX_STATES
+    assert ctc_cuda.lane_plan(logp_tbs.shape[2]).form == "wide"
     build.reset_launches()
     alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
     torch.cuda.synchronize()
@@ -1521,20 +1522,65 @@ def test_ctc_paired_alpha_past_the_registers(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(6, 91, 9, 30), (2, 1100, 5, 520)])
-def test_ctc_paired_wide_form_gives_the_register_forms_bits(cuda, shape):
-    """The paired alpha's wide form, forced by ``wide``, gives its register
-    kernel's bits: the same arithmetic, the carried row from device memory."""
+@pytest.mark.parametrize("shape, k", [((6, 91, 9, 30), 1), ((2, 1100, 5, 520), 2),
+                                      ((2, 2200, 30, 1500), 4)])
+def test_ctc_paired_wide_form_gives_the_register_forms_bits(cuda, shape, k):
+    """The paired alpha's register form at each of its states a lane (1, 2
+    and 4: S 61, 1041 and 3001) gives the bits of its wide form, forced by
+    ``wide``: the same arithmetic, the carried row from device memory."""
     B, T, V, L = shape
     logits, logit_len, labels, label_len = _ctc_case(cuda, B, T, V, L)
     _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
     lens = logit_len.contiguous()
-    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
+    plan = ctc_cuda.lane_plan(logp_tbs.shape[2])
+    assert plan.form == "lanes" and plan.k == k
     build.reset_launches()
+    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
     wide, wide_final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens, wide=True)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["ctc_alpha_paired_wide"] == 1
+    assert {n: c for n, c in build.LAUNCHES.items() if c} == {"ctc_alpha_paired": 1,
+                                                              "ctc_alpha_paired_wide": 1}
     assert torch.equal(wide, alphas) and torch.equal(wide_final, final)
+
+
+@pytest.mark.cuda
+def test_ctc_paired_alpha_rows_longer_than_t(cuda):
+    """Lengths past an odd T end at T: the last pair's output is its single
+    step, so the final row is alphas[T - 1], as in the plain version and
+    the wide form (bit for bit)."""
+    logits, logit_len, labels, label_len = _ctc_case(cuda, T=91)
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    lens = logit_len.clone()
+    lens[0], lens[3] = 200, 92
+    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
+    ref_alphas, ref_final = ctc.alphas_paired_plain(logp_tbs, skip, lens)
+    torch.testing.assert_close(alphas, ref_alphas, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+    torch.testing.assert_close(final, ref_final, rtol=CTC_RTOL, atol=CTC_ALPHA_ATOL)
+    assert torch.equal(final, alphas[-1])
+    wide, wide_final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens, wide=True)
+    assert torch.equal(wide, alphas) and torch.equal(wide_final, final)
+
+
+@pytest.mark.cuda
+def test_ctc_paired_trace_records_each_recursed_pair(cuda):
+    """The paired alpha's trace: a row at the first frame of each pair t > 0
+    that block 0 recurses (t = 2, 4, .. below its length), its clocks in
+    phase order, and the same alphas as the untraced launch; the wide form
+    refuses a trace."""
+    logits, logit_len, labels, label_len = _ctc_case(cuda, T=91)
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    lens = logit_len.contiguous()
+    T = logp_tbs.shape[0]
+    trace = torch.zeros((T, 8), dtype=torch.int64, device=cuda)
+    alphas, final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens, trace=trace)
+    want, want_final = ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens)
+    assert torch.equal(alphas, want) and torch.equal(final, want_final)
+    tr = trace.cpu()
+    assert (tr[:, 0] != 0).nonzero().flatten().tolist() == list(range(2, int(lens[0]), 2))
+    live = tr[tr[:, 0] != 0]
+    assert bool((live[:, 2:8] >= live[:, 1:7]).all())
+    with pytest.raises(ValueError, match="trace"):
+        ctc_cuda.ctc_alpha_paired(logp_tbs, skip, lens, trace=trace, wide=True)
 
 
 @pytest.mark.cuda

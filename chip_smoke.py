@@ -103,7 +103,23 @@ result line):
      the ported benchmark scripts
      ``bench_prefix_beam fused=1`` and ``bench_beam_compile stepwise=1`` at
      their default widths, with counts;
-  12. check that no path launched the per-utterance oracle or took a wide
+  12. configs 4 and 5, ``las_attention`` and ``joint_ctc_attention_960h``:
+     at full width and float32 on a short batch, card vs CPU: the CTC and
+     teacher-forced decoder logits, the attention search (and config 5's
+     joint search), and one train step (loss, gradients, parameters after
+     AdamW); ``decode.main`` at full width in bf16 (config 4: attention
+     beam 8, 4 batches on its decode ladder; config 5: joint beam 16, 2
+     batches of 32) and ``train.main`` (20 steps of 16 and of 32, config 5
+     with waveform augmentation), each with launch counts (config 4's
+     training launches no K4) and no plain STFT, LSTM or CTC call on the
+     card; the tiny joint model of the JAX package's end-to-end test
+     learning on the card, then decoded by both searches; K2 and K3 at
+     both configs' layer shapes and K4 at config 5's, against their plain
+     versions; at the end, a config-4 decode batch split between the
+     encoder, the decoder steps and the rest (and profiled), the same split
+     of a config-5 batch with its CTC prefix scorer, and a profiled config-5
+     train step;
+  13. check that no path launched the per-utterance oracle or took a wide
      route; print the kernels line, the card line, and ``{"ok": true, ...}``
      last.
 Whether it passes or fails, the script ends every process it started (the
@@ -139,6 +155,7 @@ from pytorch_asr_tpu_torch.configs.base import (
     DataConfig,
     DecodeConfig,
     FrontendConfig,
+    LASDecoderConfig,
     MeshConfig,
     ModelConfig,
     OptimConfig,
@@ -146,15 +163,17 @@ from pytorch_asr_tpu_torch.configs.base import (
 )
 from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_tokenizer
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
-from pytorch_asr_tpu_torch.decoding import driver, prefix_beam, prefix_beam_sharded
+from pytorch_asr_tpu_torch.decoding import (
+    attention_beam, ctc_prefix_scorer, driver, prefix_beam, prefix_beam_sharded)
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.evaluate import build_model, eval_step, model_outputs
 from pytorch_asr_tpu_torch.frontend import features
-from pytorch_asr_tpu_torch.models import encoder_bilstm
+from pytorch_asr_tpu_torch.models import asr_model, encoder_bilstm
 from pytorch_asr_tpu_torch.models.encoder_bilstm import set_residual_dtype
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
 from pytorch_asr_tpu_torch.ops import (
     beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
+from pytorch_asr_tpu_torch.ops.ce import make_decoder_io
 from pytorch_asr_tpu_torch.parallel import distributed, launch
 from pytorch_asr_tpu_torch.parallel.mesh import make_mesh
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
@@ -237,6 +256,31 @@ TCN_BLOCKS, TCN_DILATIONS = 10, (1, 2, 4, 8, 16)
 TCN_TOL = 2e-4
 TCN_BF16_TOL = 1e-2
 TCN_TRAIN_UTTS = 64          # 4 full batches of 16 an epoch, and 4 eval batches
+# Configs 4 and 5: las_attention (BiLSTM H 512 x 4, the LAS decoder E 256 /
+# H 512 / A 256 with 31 x 32 location filters, batch 16, attention beam 8)
+# and joint_ctc_attention_960h (H 640 x 5, the same decoder, batch 32, joint
+# beam 16 at CTC weight 0.3, waveform augmentation); both decode up to 256
+# steps.  Config 4 serves 4 batches on its 14-bucket decode ladder, config 5
+# 2 full batches of 32.
+CFG4, CFG4_B, CFG5, CFG5_B = "las_attention", 16, "joint_ctc_attention_960h", 32
+LAS_DECODE_BATCHES, JOINT_DECODE_BATCHES = 4, 2
+# Card vs CPU at float32: full width, one batch of LAS_UTTS utterances of at
+# most LAS_MAX_SEC s, the cut that keeps the CPU side's searches short.
+LAS_UTTS, LAS_MAX_SEC = 4, "4"
+# A search's rows whose best final score leads the runner-up by more than
+# LAS_MARGIN give the same tokens on both devices; final scores within
+# LAS_SCORE_RTOL (float32 products summed in other orders over 256 steps).
+# The seeded output rows scaled by LAS_SHARPEN before the searches make rows
+# decisive: at the initialiser's scale the attention searches' rows led by
+# 2e-7 to 6e-5 on the H100 machine's CPU; at 96 by 1.2e-4 to 5e-3, with the
+# card's scores within 9e-6 of the CPU's, relative.  Each search must have
+# at least one decisive row.
+LAS_MARGIN, LAS_SCORE_RTOL, LAS_SHARPEN = 1e-4, 1e-4, 96.0
+LAS_TRAIN_UTTS = 64          # 4 full batches of 16 (config 4), 2 of 32 (config 5)
+LEARN_JOINT_STEPS = (10, 240)  # the JAX package's joint end-to-end test: 250 steps
+# The searches' decoder steps and CTC prefix scorer calls, counted and timed
+# on the decode paths (``timed_calls``).
+SEARCH_CALLS = ((asr_model.ASRModel, "decoder_step"), (ctc_prefix_scorer, "score_extensions"))
 # The paired CTC alpha against K4: the JAX study's tolerances for its paired
 # kernel (tests/test_ctc_pallas.py), the composed step summing in another
 # order; its main path, train.main with PAIRED_FWD set: a few full steps.
@@ -1492,16 +1536,20 @@ def slice_phase(config: str = "ctc_bilstm_dev1h") -> dict:
             "shape": list(gpu["ctc_logits"].shape)}
 
 
-def train_step_phase(config: str = "ctc_bilstm_dev1h", front: str = "encoder.conv.") -> dict:
+def train_step_phase(config: str = "ctc_bilstm_dev1h", front: str = "encoder.conv.",
+                     **extra: str) -> dict:
     """One float32 train step at full width, card vs CPU, from the same seeded
-    weights and batch, dropout 0 and SpecAugment off.  Both save float32
-    LSTM residuals: bf16 residuals would round differently on the two
-    devices.  ``front`` names the convs that see the log-mel directly."""
+    weights and batch, dropout 0, SpecAugment and waveform augmentation off
+    (``extra``: more overrides).  Both save float32 LSTM residuals: bf16
+    residuals would round differently on the two devices.  ``front`` names
+    the convs that see the log-mel directly.  A parameter off the loss's
+    graph (config 4's CTC head) has no gradient on either device."""
     cfg = get_config(config, **{
         "model.compute_dtype": "float32", "model.encoder.dropout": "0.0",
-        "frontend.specaugment": "false", "data.synthetic_num_utts": str(B),
-        "data.batch_size": str(B), "data.auto_buckets": "1", "train.optim.peak_lr": "1e-3",
-        "train.optim.warmup_steps": "1"})
+        "frontend.specaugment": "false", "frontend.waveform_augment": "false",
+        "data.synthetic_num_utts": str(B), "data.batch_size": str(B),
+        "data.auto_buckets": "1", "train.optim.peak_lr": "1e-3",
+        "train.optim.warmup_steps": "1", **extra})
     batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
     runs = {}
     for name, dev in (("cpu", torch.device("cpu")), ("card", CARD)):
@@ -1510,9 +1558,11 @@ def train_step_phase(config: str = "ctc_bilstm_dev1h", front: str = "encoder.con
         before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
         aux = train_state.train_step(cfg, st, train_state.batch_to_device(batch, dev))
         runs[name] = {"aux": aux, "before": before,
-                      "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+                      "grads": {k: p.grad.cpu() for k, p in model.named_parameters()
+                                if p.grad is not None},
                       "after": {k: v.cpu() for k, v in model.state_dict().items()}}
     cpu, gpu = runs["cpu"], runs["card"]
+    check(cpu["grads"].keys() == gpu["grads"].keys(), "train step: gradients of other params")
     loss_c, loss_g = float(cpu["aux"]["loss"]), float(gpu["aux"]["loss"])
     check(math.isfinite(loss_g) and abs(loss_g - loss_c) <= STEP_LOSS_RTOL * abs(loss_c),
           f"train step loss card {loss_g} vs CPU {loss_c}")
@@ -1530,6 +1580,9 @@ def train_step_phase(config: str = "ctc_bilstm_dev1h", front: str = "encoder.con
     check(param_err <= 2 * lr, f"params after one AdamW step differ by {param_err} > 2 lr")
     moved = max(errors(v, cpu["before"][k])[0] for k, v in cpu["after"].items())
     return {"loss_cpu": loss_c, "loss_card": loss_g, "loss_rtol": STEP_LOSS_RTOL,
+            "terms": {k: [float(cpu["aux"][k]), float(gpu["aux"][k])]
+                      for k in ("ctc_loss", "ce_loss") if k in cpu["aux"]},
+            "no_grad": sorted(set(cpu["after"]) - set(cpu["grads"])),
             "grad_norm_cpu": float(cpu["aux"]["grad_norm"]),
             "grad_norm_card": float(gpu["aux"]["grad_norm"]),
             "conv_grad_max_rel_err": conv_rel, "conv_grad_tol": STEP_CONV_GRAD_TOL,
@@ -3135,19 +3188,22 @@ def device_ms_per_call(fn, kernel: str, calls: int = 20, attempts: int = 4) -> f
 
 
 @contextlib.contextmanager
-def timed_calls(*targets):
-    """Wrap each (module, name) function so that every call is timed on the
-    host clock between two synchronisations, with its first argument's
-    second dim (a search's frames); yields {name: [(seconds, dim), ...]}."""
+def timed_calls(*targets, sync: bool = True):
+    """Wrap each (module or class, name) function so that every call is
+    timed on the host clock, between two synchronisations with ``sync``,
+    with its first argument's second dim (a search's frames); yields
+    {name: [(seconds, dim), ...]}."""
     log = {name: [] for _, name in targets}
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def timed(name, fn):
         def run(x, *args, **kwargs):
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(x, *args, **kwargs)
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             dim = x.shape[1] if isinstance(x, torch.Tensor) and x.dim() > 1 else 0
             log[name].append((time.perf_counter() - t0, dim))
             return out
@@ -3318,6 +3374,401 @@ def sharded_rnn_search(rnn_lm: str) -> dict:
             "spawn_and_search_s": wall, "mean_len": want[1].float().mean().item()}
 
 
+def las_parity_phase(config: str) -> dict:
+    """Configs 4 and 5 at full width, float32 compute, one short synthetic
+    batch (LAS_UTTS utterances of at most LAS_MAX_SEC s: the cut that keeps
+    the CPU side short), card vs CPU with the same seeded weights: the
+    teacher-forced decoder logits and the CTC logits, then the attention
+    beam search (and for config 5 the joint search at its CTC weight) at
+    the config's beam and ``max_decode_len``, with ``las.w_out`` scaled by
+    LAS_SHARPEN on both devices.  Tokens and lengths equal on every row whose
+    best final score leads the runner-up by more than LAS_MARGIN, at least
+    one such row a search (the rows inside it are counted), final scores
+    within LAS_SCORE_RTOL."""
+    cfg = get_config(config, **{"model.compute_dtype": "float32",
+                                "data.synthetic_num_utts": str(LAS_UTTS),
+                                "data.batch_size": str(LAS_UTTS), "data.auto_buckets": "1",
+                                "data.synthetic_max_sec": LAS_MAX_SEC})
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    tok = get_tokenizer(cfg.data.vocab)
+    dec = cfg.decode
+    searches = {"attention_beam": 0.0}
+    if config == CFG5:
+        searches["joint_beam"] = dec.joint_ctc_weight
+    outs = {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", CARD)):
+        model = build_model(cfg, device)
+        t = {k: torch.from_numpy(batch[k]).to(device)
+             for k in ("audio", "audio_len", "tokens", "token_len")}
+        dec_in = make_decoder_io(t["tokens"], t["token_len"], tok.sos_id, tok.eos_id)[0]
+        with torch.inference_mode():
+            out = model(t["audio"], t["audio_len"], targets=dec_in)
+            res = {k: out[k].cpu() for k in ("enc_len", "ctc_logits", "dec_logits")}
+            model.las.w_out.mul_(LAS_SHARPEN)
+            for method, w in searches.items():
+                t0 = time.perf_counter()
+                toks, lens, final = attention_beam.final_beams(
+                    model, out["enc"], out["enc_len"], tok.sos_id, tok.eos_id,
+                    beam_size=dec.beam_size, max_len=dec.max_decode_len,
+                    length_norm=dec.length_norm,
+                    ctc_logits=out["ctc_logits"] if w > 0 else None, ctc_weight=w)
+                res[method] = (toks.cpu(), lens.cpu(), final.cpu(), time.perf_counter() - t0)
+        outs[name] = res
+    cpu, gpu = outs["cpu"], outs["card"]
+    check(torch.equal(cpu["enc_len"], gpu["enc_len"]), f"{config} slice: enc_len differs")
+    rec = {"shape": list(gpu["dec_logits"].shape), "tol": SLICE_TOL,
+           "audio_len": batch["audio_len"].tolist()}
+    for key in ("ctc_logits", "dec_logits"):
+        check(bool(torch.isfinite(gpu[key]).all()), f"{config} slice: non-finite {key}")
+        rec[f"{key}_max_abs_err"], _ = errors(gpu[key], cpu[key])
+        check(rec[f"{key}_max_abs_err"] <= SLICE_TOL,
+              f"{config} {key} card vs CPU: {rec[f'{key}_max_abs_err']}")
+    for method in searches:
+        (ct, cl, cf, cs), (gt, gl, gf, gs) = cpu[method], gpu[method]
+        check(bool(torch.isfinite(gf).all()), f"{config} {method}: non-finite scores")
+        top2 = cf.topk(2, dim=1).values
+        margin = top2[:, 0] - top2[:, 1]
+        decisive = margin > LAS_MARGIN
+        b_i = torch.arange(cf.shape[0])
+        best_c, best_g = cf.argmax(1), gf.argmax(1)
+        same = [bool(torch.equal(ct[b, best_c[b]], gt[b, best_g[b]])
+                     and cl[b, best_c[b]] == gl[b, best_g[b]]) for b in range(cf.shape[0])]
+        check(bool(decisive.any()), f"{config} {method}: no row leads by {LAS_MARGIN} "
+              f"(margins {margin.tolist()})")
+        check(all(s for s, d in zip(same, decisive.tolist()) if d),
+              f"{config} {method}: tokens differ on a decisive row (margins {margin.tolist()}, "
+              f"same {same})")
+        score_err = float(((gf[b_i, best_g] - cf[b_i, best_c]).abs()
+                           / cf[b_i, best_c].abs()).max())
+        check(score_err <= LAS_SCORE_RTOL, f"{config} {method} scores card vs CPU: {score_err}")
+        rec[method] = {"margins": margin.tolist(), "rows_inside_margin": int((~decisive).sum()),
+                       "rows_equal": sum(same), "score_max_rel_err": score_err,
+                       "score_rtol": LAS_SCORE_RTOL, "lengths": gl[b_i, best_g].tolist(),
+                       "cpu_s": cs, "card_s": gs, "margin": LAS_MARGIN, "sharpen": LAS_SHARPEN}
+    return rec
+
+
+def las_decode_phase(config: str, batches: int, *extra: str) -> dict:
+    """A serving path of configs 4 and 5 through ``decode.main`` at full width
+    in bf16 on 10-16 s synthetic utterances, ``batches`` batches: exactly 1
+    K1 and 2 K2 a layer a batch and no other kernel, no call of a plain
+    STFT or LSTM version, the decoder steps and scorer calls a batch."""
+    plain = [(stft_cuda, "stft_log_mel_plain"), (lstm_cuda, "lstm_seq_plain")]
+    layers = get_config(config).model.encoder.num_layers
+    with tempfile.TemporaryDirectory() as ckpt, plain_calls_of(*plain) as plain_calls, \
+            timed_calls(*SEARCH_CALLS, sync=False) as steps:
+        argv = [config, "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                f"max_batches={batches}", f"train.checkpoint_dir={ckpt}", *extra]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = decode.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    want = {"stft_log_mel": batches, "lstm_seq": batches * layers * 2}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"{config} decode launches {launches} != {want}")
+    check(not plain_calls, f"a plain version ran on the serving path: {plain_calls}")
+    check(set(result) >= {"method", "wer", "cer", "num_utts", "decode_rtf"}
+          and result["num_utts"] > 0 and result["decode_rtf"] > 0
+          and math.isfinite(result["wer"]), f"{config} decode: bad result {result}")
+    return {**result, "wall_s": wall, "batches": batches, "launches": launches,
+            "decoder_steps_per_batch": len(steps["decoder_step"]) / batches,
+            "scorer_calls_per_batch": len(steps["score_extensions"]) / batches}
+
+
+def las_train_phase(config: str, b: int) -> dict:
+    """A training path of configs 4 and 5: ``train.main`` at full width in bf16,
+    full batches of ``b`` utterances of 10-16 s in one bucket (config 5 with
+    its waveform augmentation), then the greedy eval: per step 1 K1, 2 K3
+    forwards and backwards a layer, and K4's alpha and beta only where the
+    config's CTC weight is above 0; per eval batch 1 K1 and 2 K2 a layer;
+    no call of a plain STFT, LSTM or CTC version on the card."""
+    cfg = get_config(config)
+    layers, ctc_on = cfg.model.encoder.num_layers, cfg.model.ctc_weight > 0
+    plain = [(stft_cuda, "stft_log_mel_plain"), (lstm_cuda, "lstm_seq_plain"),
+             (lstm_cuda, "lstm_seq_train_plain"), (lstm_cuda, "lstm_seq_bwd_plain"),
+             (ctc, "alphas_plain"), (ctc, "posteriors_plain")]
+    with tempfile.TemporaryDirectory() as ckpt, plain_calls_of(*plain) as plain_calls:
+        argv = [config, "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                f"data.synthetic_num_utts={LAS_TRAIN_UTTS}", "data.auto_buckets=1",
+                f"steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS}",
+                f"train.log_every={TRAIN_STEPS}", f"train.checkpoint_dir={ckpt}"]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    last, ev = result["train"], result["eval"]
+    evals = LAS_TRAIN_UTTS // b
+    want = {"stft_log_mel": TRAIN_STEPS + evals, "lstm_seq": 2 * layers * evals,
+            "lstm_seq_train_fwd": 2 * layers * TRAIN_STEPS,
+            "lstm_seq_bwd": 2 * layers * TRAIN_STEPS}
+    if ctc_on:
+        want.update(ctc_alpha=TRAIN_STEPS, ctc_beta=TRAIN_STEPS)
+    check({k: v for k, v in launches.items() if v} == want,
+          f"{config} train launches {launches} != {want}")
+    check(not plain_calls, f"a plain version ran on the training path: {plain_calls}")
+    terms = ("ce_loss", "ctc_loss") if ctc_on else ("ce_loss",)
+    check(last.get("step") == TRAIN_STEPS and all(math.isfinite(last[k]) for k in terms)
+          and math.isfinite(last["grad_norm"]) and ("ctc_loss" in last) == ctc_on,
+          f"{config} train: bad record {last}")
+    check(ev.get("num_utts") == LAS_TRAIN_UTTS, f"{config} train eval: {ev}")
+    return {"record": last, "eval": ev, "wall_s": wall, "step_s": 1.0 / last["steps_per_sec"],
+            "launches": launches,
+            "launches_per_step": {k: (v - want["lstm_seq"] * (k == "lstm_seq")
+                                      - evals * (k == "stft_log_mel")) / TRAIN_STEPS
+                                  for k, v in launches.items() if v and k != "lstm_seq"},
+            "launches_per_eval_batch": {"stft_log_mel": 1, "lstm_seq": 2 * layers}}
+
+
+def learn_joint_phase() -> dict:
+    """The tiny joint config of the JAX package's end-to-end test
+    (``tests/test_train_e2e.py``: H 64 x 2, decoder E 24 / H 48 / A 32,
+    location 7 x 4, CTC weight 0.3, 16 utterances of 1-2 words, batch 8) on
+    the card: its loss after 250 steps must be below the first logged one;
+    then ``Trainer.decode_eval`` decodes it with the joint search (beam 4,
+    CTC weight 0.3) and the attention search, WER finite."""
+    base_cfg = get_config(CFG5)
+    cfg = dataclasses.replace(
+        base_cfg,
+        frontend=FrontendConfig(specaugment=False),
+        data=DataConfig(batch_size=8, bucket_audio_lens=(32000,), bucket_label_lens=(32,),
+                        synthetic_num_utts=16),
+        model=ModelConfig(
+            encoder=BiLSTMEncoderConfig(conv_channels=(8, 8), hidden_dim=64, num_layers=2,
+                                        dropout=0.0),
+            decoder=LASDecoderConfig(embed_dim=24, hidden_dim=48, attention_dim=32,
+                                     location_kernel=7, location_filters=4,
+                                     label_smoothing=0.0),
+            ctc_weight=0.3, compute_dtype="float32"),
+        train=TrainConfig(optim=OptimConfig(peak_lr=3e-3, warmup_steps=30, total_steps=300),
+                          log_every=100),
+        decode=dataclasses.replace(base_cfg.decode, method="joint_beam", beam_size=4,
+                                   max_decode_len=40, joint_ctc_weight=0.3))
+    corpus = synthetic_corpus(16, cfg.frontend.sample_rate, seed=1, min_words=1, max_words=2)
+    ds = BucketedDataset(corpus, batch_size=8, bucket_audio_lens=cfg.data.bucket_audio_lens,
+                         bucket_label_lens=cfg.data.bucket_label_lens)
+    t0 = time.perf_counter()
+    with Trainer(cfg, dataset=ds, enable_checkpoints=False, device=CARD) as trainer:
+        first = trainer.train(num_steps=LEARN_JOINT_STEPS[0])
+        rest = trainer.train(num_steps=LEARN_JOINT_STEPS[1])
+        wall = time.perf_counter() - t0
+        joint = trainer.decode_eval(max_batches=2)
+        trainer.cfg = dataclasses.replace(cfg, decode=dataclasses.replace(
+            cfg.decode, method="attention_beam"))
+        att = trainer.decode_eval(max_batches=2)
+    check(rest["loss"] < first["loss"] and "ce_loss" in rest and "ctc_loss" in rest,
+          f"learn joint: loss {rest} not below {first}")
+    for name, res in (("joint_beam", joint), ("attention_beam", att)):
+        check(res["method"] == name and math.isfinite(res["wer"]) and res["num_utts"] > 0,
+              f"learn joint: {name} {res}")
+    return {"first_loss": first["loss"], "last_loss": rest["loss"],
+            "last_ce_loss": rest["ce_loss"], "last_ctc_loss": rest["ctc_loss"],
+            "steps": sum(LEARN_JOINT_STEPS), "wall_s": wall,
+            "joint_beam_wer": joint["wer"], "joint_beam_cer": joint["cer"],
+            "attention_beam_wer": att["wer"], "attention_beam_cer": att["cer"]}
+
+
+def las_split_phase(config: str, profile: bool) -> dict:
+    """One full batch of a config-4 or config-5 decode (10-16 s, bf16, the
+    config's own search), its wall split on the host clock: the encoder
+    (``model_outputs``), the decoder steps and the CTC prefix scorer calls
+    (each timed between two synchronisations), and the rest of the search;
+    with ``profile``, then the same batch under the profiler: device time by
+    kernel and the device's busy share of the batch (config 5's scorer
+    launches over a million kernels a batch, too many to profile)."""
+    cfg = get_config(config, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                                "data.synthetic_num_utts": str(get_config(config).data.batch_size),
+                                "data.auto_buckets": "1"})
+    batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    model = build_model(cfg, CARD)
+    decode_fn = driver.make_decode_fn(cfg, model)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_outputs(model, batch)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        with timed_calls(*SEARCH_CALLS) as log:
+            t0 = time.perf_counter()
+            ids, _ = decode_fn(batch)
+            ids.cpu()
+            total_s = time.perf_counter() - t0
+        dec_s, sc_s = (sum(t for t, _ in log[k]) for k in ("decoder_step", "score_extensions"))
+        out = {"batch_wall_s": total_s, "encoder_s": enc_s,
+               "decoder_steps": len(log["decoder_step"]), "decoder_step_s": dec_s,
+               "scorer_s": sc_s, "encoder_share": enc_s / total_s,
+               "decoder_share": dec_s / total_s, "scorer_share": sc_s / total_s,
+               "rest_of_search_share": (total_s - enc_s - dec_s - sc_s) / total_s}
+        if not profile:
+            return out
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            ids, _ = decode_fn(batch)
+            ids.cpu()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    total = sum(r["device_ms"] for r in rows)
+    check(total > 0, f"{config} decode profile: no device time recorded")
+    return {**out, "profiled_batch_wall_ms": wall_ms, "device_ms": total,
+            "device_busy": total / wall_ms,
+            "lstm_share_of_device": sum(r["device_ms"] for r in rows if "lstm" in r["name"])
+            / total, "top": rows[:12]}
+
+
+def las_train_profile_phase(config: str = CFG5) -> dict:
+    """Device time by kernel over one full-width bf16 train step of config 5
+    (a full batch of 32 utterances of 10-16 s, its waveform augmentation on)
+    beside the step's host-clock time."""
+    cfg = get_config(config, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
+                                "data.synthetic_num_utts": str(get_config(config).data.batch_size),
+                                "data.auto_buckets": "1"})
+    host_batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    st = train_state.init_train_state(cfg, train_state.build_model(cfg, CARD))
+    batch = train_state.batch_to_device(host_batch, CARD)
+    train_state.train_step(cfg, st, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        train_state.train_step(cfg, st, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    total = sum(r["device_ms"] for r in rows)
+    check(total > 0, f"{config} train profile: no device time recorded")
+    share = lambda key: sum(r["device_ms"] for r in rows if key in r["name"]) / total  # noqa
+    return {"step_wall_ms": wall_ms, "device_ms": total, "device_busy": total / wall_ms,
+            "lstm_share": share("lstm"), "ctc_share": share("ctc_"),
+            "stft_share": share("stft"), "top": rows[:16]}
+
+
+def las_phases() -> dict:
+    """Configs 4 and 5: card vs CPU (model, searches, one train step), the
+    serving and training paths with counts, the tiny joint model learning,
+    and K2, K3 and K4 at their shapes.  Returns the paths' results (each
+    with its ``launches``) and {"kernels": las_kernels_phase()}."""
+    out = {}
+    for config in (CFG4, CFG5):
+        print(f"{config} slice:", json.dumps(las_parity_phase(config)))
+        print(f"{config} train_step:", json.dumps(train_step_phase(config, **{
+            "data.synthetic_num_utts": str(LAS_UTTS), "data.batch_size": str(LAS_UTTS),
+            "data.synthetic_max_sec": LAS_MAX_SEC})))
+    out["las_decode"] = las_decode_phase(CFG4, LAS_DECODE_BATCHES, "data.synthetic_num_utts=64")
+    out["joint_decode"] = las_decode_phase(CFG5, JOINT_DECODE_BATCHES,
+                                           "data.synthetic_num_utts=64", "decode.auto_buckets=1")
+    out["las_train"] = las_train_phase(CFG4, CFG4_B)
+    out["joint_train"] = las_train_phase(CFG5, CFG5_B)
+    for path, res in out.items():
+        print(f"{path}:", json.dumps(res))
+        if "decode_rtf" in res:
+            print(f"{path}: decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} wall "
+                  f"{res['wall_s']:.2f} s decoder steps a batch "
+                  f"{res['decoder_steps_per_batch']:.1f}")
+        else:
+            rec = res["record"]
+            print(f"{path}: audio_seconds_per_sec_per_chip "
+                  f"{rec['audio_seconds_per_sec_per_chip']:.2f} step {res['step_s']:.4f} s "
+                  f"ce_loss {rec['ce_loss']:.4f} ctc_loss {rec.get('ctc_loss')}")
+    print("learn_joint:", json.dumps(learn_joint_phase()))
+    out["kernels"] = las_kernels_phase()
+    print("las_kernels:", json.dumps(out["kernels"]))
+    return out
+
+
+def las_kernels_phase() -> dict:
+    """K2, K3's forward and backward at configs 4 and 5's LSTM layer shapes
+    (B 16, H 512, D 1024; B 32, H 640, D 1280; bf16 inputs and residuals,
+    lengths from 400 down to 250 frames) and K4 at config 5's training
+    shape (its first batch's labels over T' 400), each against its plain
+    version on the card, on the co-resident grids; timed beside the plain
+    version.  Returns {kernel name: [case, ...]}."""
+    g = torch.Generator().manual_seed(19)
+    out = {k: [] for k in ("lstm_seq", "lstm_seq_train_fwd", "lstm_seq_bwd", "ctc_alpha",
+                           "ctc_beta")}
+    for tag, b, Hd in (("config 4", CFG4_B, 512), ("config 5", CFG5_B, 640)):
+        D, G = 2 * Hd, 4 * Hd
+        check(lstm_cuda.forward_route(Hd, b) is not None
+              and lstm_cuda.backward_route(Hd, b) is not None,
+              f"{tag}: H {Hd} B {b} is past the co-resident grids")
+        lengths = np.linspace(T_LSTM, 250, b).astype(int).tolist()
+        x = (torch.randn(b, T_LSTM, D, generator=g) * 0.5).bfloat16().cuda()
+        wih = (torch.randn(D, G, generator=g) / D ** 0.5).bfloat16().cuda()
+        whh = (torch.randn(Hd, G, generator=g) / Hd ** 0.5).cuda()
+        bias = (torch.randn(G, generator=g) * 0.1).cuda()
+        gy = torch.randn(b, T_LSTM, Hd, generator=g).cuda()
+        lens = torch.tensor(lengths, dtype=torch.int32).cuda()
+        shape = {"layer": tag, "x": [b, T_LSTM, D], "H": Hd}
+        args = (x, wih, whh, bias, lens, False, torch.bfloat16)
+        got = lstm_cuda.lstm_seq(*args)
+        torch.cuda.synchronize()
+        err, rel = errors(got, lstm_cuda.lstm_seq_plain(*args))
+        check(err <= LSTM_TOL, f"lstm_seq {tag} disagrees: {err}")
+        bnd = lstm_bounds(b, T_LSTM, D, Hd, int(sum(lengths)))
+        out["lstm_seq"].append({**shape, "max_abs_err": err, "max_rel_err": rel,
+                                "ms": time_ms(lambda: lstm_cuda.lstm_seq(*args), 5, 4, 1),
+                                "plain_ms": time_ms(lambda: lstm_cuda.lstm_seq_plain(*args),
+                                                    2, 1, 1), "bound_ms": bnd["fwd"][0]})
+        targs = (*args, torch.bfloat16)
+        fwd = lstm_cuda.lstm_seq_train_fwd(*targs)
+        torch.cuda.synchronize()
+        fwant = lstm_cuda.lstm_seq_train_plain(*targs)
+        bargs = (gy, x, wih, whh, lens, fwd[1], fwd[2], False)
+        bwd = lstm_cuda.lstm_seq_bwd(*bargs)
+        torch.cuda.synchronize()
+        bwant = lstm_cuda.lstm_seq_bwd_plain(*bargs)
+        for name, gots, wants, call, plain_call, bkey in (
+                ("lstm_seq_train_fwd", fwd, fwant, lambda: lstm_cuda.lstm_seq_train_fwd(*targs),
+                 lambda: lstm_cuda.lstm_seq_train_plain(*targs), "train_fwd"),
+                ("lstm_seq_bwd", bwd, bwant, lambda: lstm_cuda.lstm_seq_bwd(*bargs),
+                 lambda: lstm_cuda.lstm_seq_bwd_plain(*bargs), "bwd")):
+            errs = []
+            for a, w in zip(gots, wants):
+                check(a.dtype == w.dtype and bool(torch.isfinite(a.float()).all()),
+                      f"K3 {name} {tag}: non-finite or of type {a.dtype}")
+                tol = K3_BF16_TOL if a.dtype == torch.bfloat16 else K3_F32_TOL
+                e, r = errors(a, w)
+                check(r <= tol, f"K3 {name} {tag}: {r} > {tol} of its largest entry")
+                errs.append((e, r))
+            out[name].append({**shape, "max_abs_err": max(e for e, _ in errs),
+                              "max_rel_err": max(r for _, r in errs),
+                              "ms": time_ms(call, 5, 4, 1),
+                              "plain_ms": time_ms(plain_call, 2, 1, 1),
+                              "bound_ms": bnd[bkey][0]})
+    logits, logit_len, labels, label_len = bench_kernel_turns.train_ctc_case(CARD, CFG5)
+    _, logp_tbs, _, skip = ctc.prep(logits, labels.long(), label_len, 0)
+    T, S = logp_tbs.shape[0], logp_tbs.shape[2]
+    alphas, final = ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len)
+    torch.cuda.synchronize()
+    ref_alphas, ref_final = ctc.alphas_plain(logp_tbs, skip, logit_len)
+    alpha_err = max(ctc_close("alphas", alphas, ref_alphas, CTC_RTOL, CTC_ALPHA_ATOL),
+                    ctc_close("final alpha", final, ref_final, CTC_RTOL, CTC_ALPHA_ATOL))
+    logz = ctc.terminal_logz(ref_final, label_len)
+    feasible = (logz > ctc.NEG_INF / 2) & (logit_len > 0)
+    bargs = (logp_tbs, ref_alphas, ctc.shift_left(skip, 2, fill=False).contiguous(),
+             ctc.terminal_betas(label_len, S), torch.where(feasible, logit_len, 0).to(torch.int32),
+             torch.where(feasible, logz, 0.0))
+    w = ctc_cuda.ctc_beta(*bargs)
+    torch.cuda.synchronize()
+    beta_err = ctc_close("posteriors", w, ctc.posteriors_plain(*bargs), CTC_GRAD_RTOL,
+                         CTC_GRAD_ATOL)
+    frames, shape = int(logit_len.sum()), {"layer": "config 5", "logp_tbs": [T, CFG5_B, S]}
+    out["ctc_alpha"].append({
+        **shape, "max_abs_err": alpha_err,
+        "ms": time_ms(lambda: ctc_cuda.ctc_alpha(logp_tbs, skip, logit_len), 10, 10, 1),
+        "plain_ms": time_ms(lambda: ctc.alphas_plain(logp_tbs, skip, logit_len), 2, 1, 1),
+        "bound_ms": ctc_bound("alpha", T, CFG5_B, S, frames)[0]})
+    out["ctc_beta"].append({
+        **shape, "max_abs_err": beta_err,
+        "ms": time_ms(lambda: ctc_cuda.ctc_beta(*bargs), 10, 10, 1),
+        "plain_ms": time_ms(lambda: ctc.posteriors_plain(*bargs), 2, 1, 1),
+        "bound_ms": ctc_bound("beta", T, CFG5_B, S, frames)[0]})
+    return out
+
+
 def main() -> int:
     card = card_line()
     print(f"card: {card}")
@@ -3394,6 +3845,9 @@ def main() -> int:
     print(f"tcn_train: audio_seconds_per_sec_per_chip "
           f"{tcn_trn['record']['audio_seconds_per_sec_per_chip']:.2f} "
           f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
+    t0 = time.perf_counter()
+    las = las_phases()
+    print(f"las: {time.perf_counter() - t0:.1f} s")
     print("rnn_past_smem:", json.dumps(rnn_past_smem_phase(rnn_lm)))
     t0 = time.perf_counter()
     wide, wide_rows, wide_paths = wide_phase()
@@ -3434,6 +3888,8 @@ def main() -> int:
                 for p in ("model2", "data2_model2", "rnn_model4")},
              "bilstm": bilstm_launches, "train_paired": trn_paired["launches"],
              **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")},
+             **{p: las[p]["launches"] for p in ("las_decode", "joint_decode", "las_train",
+                                                "joint_train")},
              **wide_paths}
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
@@ -3470,11 +3926,18 @@ def main() -> int:
         check(by_path[own] > 0, f"{k['name']} never launched on its main path ({own})")
         k["launches"], k["launches_by_path"], k["main_path"] = by_path[own], by_path, own
         k["kernel_ms"] = k["ms"]
+        # K2, K3 and K4 at configs 4 and 5's shapes, held to their plain versions.
+        if k["name"] in las["kernels"]:
+            k["las_cases"] = las["kernels"][k["name"]]
+            k["max_abs_err"] = max([k["max_abs_err"]] + [c["max_abs_err"] for c in k["las_cases"]])
     print("profile:", json.dumps(profile_phase()))
     print("train_profile:", json.dumps(train_profile_phase()))
     print("beam_profile:", json.dumps(beam_profile_phase(arpa)))
     print("rnn_beam_profile:", json.dumps(beam_profile_phase(rnn_lm)))
     print("tcn_profile:", json.dumps(tcn_profile_phase()))
+    print("las_decode_profile:", json.dumps(las_split_phase(CFG4, profile=True)))
+    print("joint_decode_split:", json.dumps(las_split_phase(CFG5, profile=False)))
+    print("joint_train_profile:", json.dumps(las_train_profile_phase(CFG5)))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

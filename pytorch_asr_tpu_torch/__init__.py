@@ -5,7 +5,10 @@ port imports neither JAX nor anything of that package.  Ported so far: the
 greedy-CTC serving path and the training of ``ctc_bilstm_dev1h``, the
 serving path of ``ctc_bilstm_beam_lm`` (CTC prefix beam search with dense
 n-gram or char RNN-LM shallow fusion, and the RNN LM's trainer), and the
-serving and training of ``tcn_ctc_devclean`` (the TCN encoder), through
+serving and training of ``tcn_ctc_devclean`` (the TCN encoder), and of
+``las_attention`` and ``joint_ctc_attention_960h`` (the LAS decoder, the
+attention and joint CTC/attention beam searches, the CE and joint losses and
+waveform augmentation, all in plain torch), through
 ``python -m pytorch_asr_tpu_torch.decode``, ``.train`` and ``.train_lm``,
 with hand-written CUDA kernels in ``csrc/``: the STFT log-mel frontend, the
 LSTM sequence (inference, and training forward and backward), the CTC alpha

@@ -7,11 +7,14 @@
 the GPU unless ``device=cpu``.  The weights come from ``params`` when given,
 else from the newest checkpoint in ``train.checkpoint_dir`` when there is
 one (its EMA copy when kept), else they are drawn from ``train.seed``.
-``decode.method`` is ``greedy`` or ``prefix_beam`` (the CTC prefix beam
-search, with dense n-gram shallow fusion when ``decode.lm_path=<file.arpa>``,
-e.g. one written by ``python -m pytorch_asr_tpu_torch.train_ngram``, or char
-RNN-LM fusion when ``decode.lm_path=<file.npz>``, one written by
-``python -m pytorch_asr_tpu_torch.train_lm`` or the JAX package's CLI).
+``decode.method`` is ``greedy``, ``prefix_beam`` (the CTC prefix beam
+search), ``attention_beam`` (the LAS decoder's beam search, configs 4 and 5)
+or ``joint_beam`` (the same with the CTC prefix scorer at weight
+``decode.joint_ctc_weight``, config 5); the beam searches take dense n-gram
+shallow fusion when ``decode.lm_path=<file.arpa>``, e.g. one written by
+``python -m pytorch_asr_tpu_torch.train_ngram``, or char RNN-LM fusion when
+``decode.lm_path=<file.npz>``, one written by ``python -m
+pytorch_asr_tpu_torch.train_lm`` or the JAX package's CLI.
 ``dump_path`` writes ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` for
 ``python -m pytorch_asr_tpu_torch.eval_wer`` (beam methods).  Prints the
 result dict, with the run's ``world_size`` and ``dist_backend``.
@@ -39,7 +42,7 @@ import sys
 from pytorch_asr_tpu_torch.configs import CONFIGS, get_config
 from pytorch_asr_tpu_torch.parallel import distributed
 
-METHODS = ("greedy", "prefix_beam")
+METHODS = ("greedy", "prefix_beam", "attention_beam", "joint_beam")
 
 
 def parse_args(argv: list[str]):
@@ -58,8 +61,8 @@ def parse_args(argv: list[str]):
     }
     cfg = get_config(argv[0], **overrides)
     if cfg.decode.method not in METHODS:
-        raise ValueError(f"decode.method={cfg.decode.method!r}: the port decodes "
-                         f"{' and '.join(METHODS)} so far")
+        raise ValueError(f"unknown decode.method={cfg.decode.method!r}: one of "
+                         f"{', '.join(METHODS)}")
     return cfg, runtime
 
 

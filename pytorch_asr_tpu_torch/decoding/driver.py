@@ -1,13 +1,14 @@
 """Decoding driver: the port's counterpart of ``pytorch_asr_tpu.decoding.driver``.
 
-Batch loop over the eval set with the configured decoder (``greedy`` or
-``prefix_beam``), corpus WER/CER and decode RTF, on a decode-side bucket
-ladder; optional dump of ``<prefix>.ref.tsv`` / ``<prefix>.hyp.tsv``,
-scoreable with ``python -m pytorch_asr_tpu_torch.eval_wer``.  Over several
-ranks (``torchrun``) every rank reads the same batches and decodes its rows
-of the ('data', 'model') mesh; with ``decode.shard_beams`` and a model axis
-above 1 the beams shard over the model ranks
-(``decoding/prefix_beam_sharded.py``); the metrics are a count-sum.
+Batch loop over the eval set with the configured decoder (``greedy``,
+``prefix_beam``, ``attention_beam`` or ``joint_beam``), corpus WER/CER and
+decode RTF, on a decode-side bucket ladder; optional dump of
+``<prefix>.ref.tsv`` / ``<prefix>.hyp.tsv``, scoreable with ``python -m
+pytorch_asr_tpu_torch.eval_wer``.  Over several ranks (``torchrun``) every
+rank reads the same batches and decodes its rows of the ('data', 'model')
+mesh; with ``decode.shard_beams`` and a model axis above 1 the beams shard
+over the model ranks (``decoding/prefix_beam_sharded.py``); the metrics are
+a count-sum.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from pytorch_asr_tpu_torch.data import (
     get_tokenizer,
 )
 from pytorch_asr_tpu_torch.data.bucket_opt import optimize_buckets, padding_efficiency
+from pytorch_asr_tpu_torch.decoding.attention_beam import attention_beam_search
 from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
 from pytorch_asr_tpu_torch.decoding.lm import read_arpa, tensorize
 from pytorch_asr_tpu_torch.decoding.prefix_beam import prefix_beam_search
@@ -68,19 +70,22 @@ def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None, mesh: Mesh |
     With ``decode.shard_beams`` and a ``mesh`` whose model axis is above 1
     the search shards its beams over the model ranks; it then runs over all
     chars and ignores ``ext_top_a`` and ``lm_top_k``, as the JAX driver
-    passes neither to its sharded search."""
+    passes neither to its sharded search.  ``attention_beam`` and
+    ``joint_beam`` (the attention search with the CTC prefix scorer at
+    weight ``decode.joint_ctc_weight``) need a model with a decoder."""
     method = cfg.decode.method
     if method == "greedy":
         return lambda batch: eval_step(model, batch)
+    dec = cfg.decode
+    rnn_lm = lm if isinstance(lm, CharRNNLM) else None
+    lm_table = lm if rnn_lm is None else None
+    has_lm = lm is not None
+    tok = get_tokenizer(cfg.data.vocab)
     if method == "prefix_beam":
-        dec = cfg.decode
-        rnn_lm = lm if isinstance(lm, CharRNNLM) else None
-        lm_table = lm if rnn_lm is None else None
-        has_lm = lm is not None
         kw = dict(beam_size=dec.beam_size, lm_table=lm_table,
                   lm_alpha=dec.lm_alpha if has_lm else 0.0,
                   lm_beta=dec.lm_beta if has_lm else 0.0, max_len=dec.max_decode_len,
-                  rnn_lm=rnn_lm, sos_id=get_tokenizer(cfg.data.vocab).sos_id)
+                  rnn_lm=rnn_lm, sos_id=tok.sos_id)
         if dec.shard_beams and mesh is not None and mesh.model > 1:
             def decode_fn(batch):
                 out = model_outputs(model, batch)
@@ -99,8 +104,21 @@ def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None, mesh: Mesh |
 
         return decode_fn
     if method in ("attention_beam", "joint_beam"):
-        raise NotImplementedError(f"decode.method={method!r} needs the LAS decoder, which "
-                                  "is not ported yet")
+        ctc_weight = dec.joint_ctc_weight if method == "joint_beam" else 0.0
+
+        def decode_fn(batch):
+            out = model_outputs(model, batch)
+            toks, lens, _ = attention_beam_search(
+                model, out["enc"], out["enc_len"], tok.sos_id, tok.eos_id,
+                beam_size=dec.beam_size, max_len=dec.max_decode_len,
+                length_norm=dec.length_norm,
+                ctc_logits=out["ctc_logits"] if ctc_weight > 0 else None,
+                ctc_weight=ctc_weight, lm_table=lm_table,
+                lm_alpha=dec.lm_alpha if has_lm else 0.0, rnn_lm=rnn_lm,
+                coverage_beta=dec.coverage_beta, coverage_tau=dec.coverage_tau)
+            return toks, lens
+
+        return decode_fn
     raise ValueError(f"unknown decode method {method!r}")
 
 

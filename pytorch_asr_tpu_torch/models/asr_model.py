@@ -1,13 +1,15 @@
-"""Frontend + encoder + CTC head (counterpart of ``pytorch_asr_tpu.models.asr_model``).
+"""Frontend + encoder + CTC head + LAS decoder when configured (counterpart
+of ``pytorch_asr_tpu.models.asr_model``).
 
-The encoder is the conv + BiLSTM stack (configs 1 and 2) or the TCN
-(config 3), chosen by ``model.encoder.kind``.  No waveform augmentation
-(config 5) and no LAS decoder yet; SpecAugment and dropout run in train
-mode, drawn from an explicit ``torch.Generator``.  The compute dtype is
-applied by explicit casts where the JAX modules cast (flax ``dtype=``): the
-convs, the LSTM inputs, the TCN blocks' inputs and outputs and the CTC head
-run in it, while the frontend, CMVN, the LSTM recurrence and the TCN
-blocks' insides stay float32.
+The encoder is the conv + BiLSTM stack (configs 1, 2, 4 and 5) or the TCN
+(config 3), chosen by ``model.encoder.kind``; with ``model.decoder`` set
+the LAS attention decoder (``models/las_decoder.py``, configs 4 and 5)
+reads the encoder output.  Waveform augmentation (config 5), SpecAugment
+and dropout run in train mode, drawn from an explicit ``torch.Generator``.
+The compute dtype is applied by explicit casts where the JAX modules cast
+(flax ``dtype=``): the convs, the LSTM inputs, the TCN blocks' inputs and
+outputs and the CTC head run in it, while the frontend, CMVN, the LSTM
+recurrence, the TCN blocks' insides and the decoder stay float32.
 """
 
 from __future__ import annotations
@@ -19,25 +21,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_asr_tpu_torch.configs.base import FrontendConfig, ModelConfig
+from pytorch_asr_tpu_torch.frontend.augment import WaveformAugmentConfig, augment_waveform
 from pytorch_asr_tpu_torch.frontend.specaugment import SpecAugmentConfig, spec_augment
 from pytorch_asr_tpu_torch.models.encoder_bilstm import BiLSTMEncoder
 from pytorch_asr_tpu_torch.models.encoder_tcn import TCNEncoder
+from pytorch_asr_tpu_torch.models.las_decoder import DecoderState, LASDecoder
 from pytorch_asr_tpu_torch.ops import stft_cuda
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class ASRModel(nn.Module):
-    """``forward(audio, audio_len, train=False, generator=None)`` returns a
-    dict: ctc_logits (B, T', V) float32, enc (B, T', D), enc_len (B,), with
-    D = 2H for the BiLSTM and D = channels for the TCN."""
+    """``forward(audio, audio_len, targets=None, train=False, generator=None,
+    ss_prob=0.0)`` returns a dict: ctc_logits (B, T', V) float32, enc (B, T',
+    D), enc_len (B,), with D = 2H for the BiLSTM and D = channels for the
+    TCN; and dec_logits (B, U, V) float32 when a decoder is configured and
+    the sos-prefixed decoder inputs ``targets`` (B, U) are given."""
 
     def __init__(self, frontend_cfg: FrontendConfig, model_cfg: ModelConfig,
                  vocab_size: int, seed: int = 0):
         super().__init__()
         enc = model_cfg.encoder
-        if model_cfg.decoder is not None or enc.kind not in ("bilstm", "tcn"):
-            raise NotImplementedError("the port has the CTC-only BiLSTM and TCN models only")
+        if enc.kind not in ("bilstm", "tcn"):
+            raise ValueError(f"unknown encoder kind {enc.kind!r}")
         self.frontend_cfg = frontend_cfg
         self.compute_dtype = DTYPES[model_cfg.compute_dtype]
         if enc.kind == "bilstm":
@@ -47,6 +53,9 @@ class ASRModel(nn.Module):
             self.encoder = TCNEncoder(enc, frontend_cfg.n_mels, self.compute_dtype)
             enc_dim = enc.channels
         self.ctc_head = nn.utils.skip_init(nn.Linear, enc_dim, vocab_size)
+        self.las = None
+        if model_cfg.decoder is not None:
+            self.las = LASDecoder(model_cfg.decoder, vocab_size, enc_dim)
         self.init_weights(seed)
 
     @torch.no_grad()
@@ -57,7 +66,9 @@ class ASRModel(nn.Module):
         kernels with zero biases, xavier-uniform ``wih``, orthogonal ``whh``,
         and an LSTM bias of 1 on the forget gate; for the TCN, lecun-normal
         stem, ``w_conv`` (fan-in over the taps, K*C) and ``w_point``,
-        LayerNorm scales 1 and zero biases."""
+        LayerNorm scales 1 and zero biases; for the decoder, normal(0.02)
+        ``embed``, orthogonal ``wh``, zero biases and xavier-uniform for the
+        rest, with flax's fans (the taps of ``loc_filter`` count in both)."""
         g = torch.Generator().manual_seed(seed)
 
         def lecun(w: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -91,6 +102,25 @@ class ASRModel(nn.Module):
                     d.bias[G // 4: G // 2] = 1.0
         self.ctc_head.weight.copy_(lecun(self.ctc_head.weight, self.ctc_head.in_features))
         self.ctc_head.bias.zero_()
+        if self.las is not None:
+            self._init_decoder(g)
+
+    def _init_decoder(self, g: torch.Generator) -> None:
+        def xavier(shape) -> torch.Tensor:
+            # flax: fan_in = in * taps, fan_out = out * taps for (taps, in, out)
+            taps = math.prod(shape[:-2])
+            limit = math.sqrt(6.0 / (shape[-2] * taps + shape[-1] * taps))
+            return (torch.rand(shape, generator=g) * 2.0 - 1.0) * limit
+
+        for name, p in self.las.named_parameters():
+            if name == "embed":
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+            elif name.endswith("_wh"):
+                p.copy_(nn.init.orthogonal_(torch.empty(p.shape), generator=g))
+            elif name.endswith("_b") or name in ("b_att", "b_out"):
+                p.zero_()
+            else:
+                p.copy_(xavier(p.shape))
 
     def compute_features(self, audio: torch.Tensor, audio_len: torch.Tensor):
         return stft_cuda.log_mel(audio, audio_len, self.frontend_cfg)
@@ -99,8 +129,10 @@ class ASRModel(nn.Module):
                generator: torch.Generator | None = None):
         fc = self.frontend_cfg
         if train and fc.waveform_augment:
-            raise NotImplementedError("frontend.waveform_augment (config 5) is not "
-                                      "ported yet")
+            wa_cfg = WaveformAugmentConfig(speed_range=fc.wa_speed_range,
+                                           gain_db_range=fc.wa_gain_db,
+                                           noise_snr_db_range=fc.wa_noise_snr_db)
+            audio, audio_len = augment_waveform(audio, audio_len, wa_cfg, generator)
         feats, feat_len = self.compute_features(audio, audio_len)
         if train and fc.specaugment:
             sa_cfg = SpecAugmentConfig(
@@ -110,9 +142,24 @@ class ASRModel(nn.Module):
             feats = spec_augment(feats, feat_len, sa_cfg, generator)
         return self.encoder(feats, feat_len, train, generator)
 
-    def forward(self, audio: torch.Tensor, audio_len: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> dict:
+    def forward(self, audio: torch.Tensor, audio_len: torch.Tensor,
+                targets: torch.Tensor | None = None, train: bool = False,
+                generator: torch.Generator | None = None, ss_prob: float = 0.0) -> dict:
         enc, enc_len = self.encode(audio, audio_len, train, generator)
         dt = self.compute_dtype
         logits = F.linear(enc.to(dt), self.ctc_head.weight.to(dt), self.ctc_head.bias.to(dt))
-        return {"enc": enc, "enc_len": enc_len, "ctc_logits": logits.float()}
+        out = {"enc": enc, "enc_len": enc_len, "ctc_logits": logits.float()}
+        if self.las is not None and targets is not None:
+            out["dec_logits"] = self.las(enc, enc_len, targets, train, ss_prob, generator)
+        return out
+
+    def decoder_begin(self, enc: torch.Tensor, enc_len: torch.Tensor):
+        """Per-utterance decoder quantities for the beam searches:
+        (W_e h (B, T, A), frame mask (B, T), initial ``DecoderState``)."""
+        mask = torch.arange(enc.shape[1], device=enc.device)[None, :] < enc_len[:, None]
+        return self.las.project_encoder(enc), mask, self.las.init_state(enc, enc_len)
+
+    def decoder_step(self, enc, enc_projed, enc_mask, y_prev,
+                     state: DecoderState) -> tuple[torch.Tensor, DecoderState]:
+        """One autoregressive decoder step for the beam searches."""
+        return self.las.step(enc, enc_projed, enc_mask, y_prev, state)

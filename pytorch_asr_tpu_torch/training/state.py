@@ -1,9 +1,10 @@
 """Train state, optimizer, loss and train step: the port's counterpart of
 ``pytorch_asr_tpu.training.state``.
 
-One step runs frontend -> encoder -> CTC loss -> gradients -> a global-norm
-clip -> the optimizer -> the EMA blend.  The optimizer follows optax, not
-torch's defaults, where the two differ (``Optimizer``).
+One step runs frontend -> encoder (-> LAS decoder) -> the CTC, CE or joint
+loss -> gradients -> a global-norm clip -> the optimizer -> the EMA blend.
+The optimizer follows optax, not torch's defaults, where the two differ
+(``Optimizer``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from pytorch_asr_tpu_torch.configs.base import ExperimentConfig, OptimConfig
 from pytorch_asr_tpu_torch.data.tokenizer import get_tokenizer
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
 from pytorch_asr_tpu_torch.ops import ctc_cuda
+from pytorch_asr_tpu_torch.ops.ce import make_decoder_io, smoothed_ce_loss
 
 
 def lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
@@ -184,25 +186,49 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def compute_losses(cfg: ExperimentConfig, model: ASRModel, batch: dict,
-                   generator: torch.Generator | None = None, train: bool = False):
-    """Forward + CTC loss -> (scalar loss, aux dict).
+                   generator: torch.Generator | None = None, train: bool = False,
+                   step: int | None = None):
+    """Forward + CTC / CE / joint loss -> (scalar loss, aux dict), as
+    ``lambda * ctc + (1 - lambda) * ce`` with lambda = ``model.ctc_weight``:
+    the CTC term only where lambda > 0, the CE term only where a decoder is
+    configured and lambda < 1.
 
-    Per-utterance CTC over the float32 logits, divided by max(token_len, 1)
+    CTC: per utterance over the float32 logits, divided by max(token_len, 1)
     and averaged over the rows with ``audio_len > 0`` (pad rows have
-    audio_len = token_len = 0)."""
-    if cfg.model.decoder is not None or cfg.model.ctc_weight < 1.0:
-        raise NotImplementedError("the attention decoder's loss (configs 4 and 5) is not "
-                                  "ported yet")
-    out = model(batch["audio"], batch["audio_len"], train=train, generator=generator)
+    audio_len = token_len = 0).  CE: label-smoothed over the decoder's
+    teacher-forced logits (``ops/ce.py``), pad rows given dec_len 0.  In
+    train mode with scheduled sampling its probability ramps over
+    ``ss_ramp_steps`` optimizer steps: ``step`` counts micro-batches."""
+    tok = get_tokenizer(cfg.data.vocab)
+    tokens, token_len = batch["tokens"], batch["token_len"]
+    dec = cfg.model.decoder
+    dec_in = dec_out = dec_len = None
+    if dec is not None:
+        dec_in, dec_out, dec_len = make_decoder_io(tokens, token_len, tok.sos_id, tok.eos_id)
+    ss_prob = 0.0
+    if dec is not None and train and step is not None and dec.scheduled_sampling > 0.0:
+        opt_step = step // max(cfg.train.optim.accum_steps, 1)
+        ramp = min(max(opt_step / max(dec.ss_ramp_steps, 1), 0.0), 1.0)
+        ss_prob = dec.scheduled_sampling * ramp
+    out = model(batch["audio"], batch["audio_len"], targets=dec_in, train=train,
+                generator=generator, ss_prob=ss_prob)
     aux = {"enc_len": out["enc_len"]}
-    valid = (batch["audio_len"] > 0).float()
-    n_valid = torch.clamp(valid.sum(), min=1.0)
-    per_utt = ctc_cuda.ctc_loss(out["ctc_logits"], out["enc_len"], batch["tokens"],
-                                batch["token_len"])
-    denom = torch.clamp(batch["token_len"].float(), min=1.0)
-    ctc = torch.sum(per_utt / denom * valid) / n_valid
-    aux["ctc_loss"] = ctc
-    loss = cfg.model.ctc_weight * ctc
+    lam = cfg.model.ctc_weight
+    valid = batch["audio_len"] > 0
+    loss = torch.zeros((), device=out["enc"].device)
+    if lam > 0.0:
+        n_valid = torch.clamp(valid.float().sum(), min=1.0)
+        per_utt = ctc_cuda.ctc_loss(out["ctc_logits"], out["enc_len"], tokens, token_len)
+        denom = torch.clamp(token_len.float(), min=1.0)
+        ctc = torch.sum(per_utt / denom * valid.float()) / n_valid
+        aux["ctc_loss"] = ctc
+        loss = loss + lam * ctc
+    if dec is not None and lam < 1.0:
+        # Pad rows would score their eos slot against garbage encoder rows.
+        dec_len_m = torch.where(valid, dec_len, 0)
+        ce = smoothed_ce_loss(out["dec_logits"], dec_out, dec_len_m, dec.label_smoothing)
+        aux["ce_loss"] = ce
+        loss = loss + (1.0 - lam) * ce
     aux["loss"] = loss
     return loss, aux
 
@@ -215,9 +241,12 @@ def train_step(cfg: ExperimentConfig, state: TrainState, batch: dict) -> dict:
     model = state.model
     for p in model.parameters():
         p.grad = None
-    loss, aux = compute_losses(cfg, model, batch, state.generator, train=True)
+    loss, aux = compute_losses(cfg, model, batch, state.generator, train=True,
+                               step=state.step)
     loss.backward()
     params = list(model.parameters())
+    # A parameter off the loss's graph (the CTC head at ctc_weight 0) gets a
+    # zero gradient, as under jax.grad, so AdamW still decays it.
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     aux["grad_norm"] = global_norm(grads)
     accum = max(cfg.train.optim.accum_steps, 1)

@@ -2,13 +2,15 @@
 ``pytorch_asr_tpu.training.trainer``.
 
 Host loop: take a bucketed batch, copy it to the device, run one
-``train_step`` (frontend -> encoder, BiLSTM or TCN, with dropout from the
-train state's generator -> CTC loss -> gradients -> update), log
-JSONL metrics every ``train.log_every`` steps, checkpoint, and greedy-eval
-WER with the eval weights (the EMA copy when kept); ``decode_eval`` runs the
-configured decode method (greedy, or the prefix beam search with the LM of
-``decode.lm_path``: none, an ARPA n-gram or an ``.npz`` char RNN LM).  No
-mesh, no grain iterator and no ``init_from_torch`` yet.
+``train_step`` (frontend -> encoder, BiLSTM or TCN, with waveform
+augmentation, SpecAugment and dropout from the train state's generator ->
+CTC, CE or joint loss -> gradients -> update), log JSONL metrics every
+``train.log_every`` steps, checkpoint, and greedy-eval WER with the eval
+weights (the EMA copy when kept); ``decode_eval`` runs the configured decode
+method (greedy, the prefix beam search, or the attention or joint beam
+search, with the LM of ``decode.lm_path``: none, an ARPA n-gram or an
+``.npz`` char RNN LM).  No mesh, no grain iterator and no
+``init_from_torch`` yet.
 """
 
 from __future__ import annotations
@@ -136,8 +138,9 @@ class Trainer:
     # ------------------------------------------------------------------- eval
     def decode_eval(self, max_batches: int | None = None, dump_path: str | None = None) -> dict:
         """Decode with ``cfg.decode.method``: greedy is ``evaluate``; any other
-        method goes through ``decoding.driver.decode_dataset``, which loads
-        the fusion LM of ``cfg.decode.lm_path`` (ARPA table or RNN LM)."""
+        method (prefix, attention or joint beam) goes through
+        ``decoding.driver.decode_dataset``, which loads the fusion LM of
+        ``cfg.decode.lm_path`` (ARPA table or RNN LM)."""
         if self.cfg.decode.method == "greedy":
             return self.evaluate(max_batches=max_batches)
         result = decode_dataset(self.cfg, eval_params(self.state), self.dataset,

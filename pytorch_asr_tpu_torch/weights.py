@@ -5,7 +5,9 @@ BiLSTM model, the keys ``encoder/ConvSubsampler_0/Conv_{i}/{kernel,bias}``
 and ``encoder/lstm{k}_{fwd,bwd}/{wih,whh,bias}``; for the TCN,
 ``encoder/Conv_0/{kernel,bias}`` (the stem),
 ``encoder/block{i}/{ln_scale,ln_bias,w_conv,b_conv,w_point,b_point}`` and
-``encoder/LayerNorm_0/{scale,bias}``; and ``ctc_head/{kernel,bias}``.
+``encoder/LayerNorm_0/{scale,bias}``; ``ctc_head/{kernel,bias}``; and, with
+the LAS decoder, ``las/{embed,lstm{l}_wx,lstm{l}_wh,lstm{l}_b,w_e,w_s,b_att,
+w_f,loc_filter,v_att,w_out,b_out}``, which keep their names and layouts.
 Conversions: flax HWIO conv kernels -> OIHW, the stem's WIO -> OIW, the
 Dense kernel ``(in, out)`` -> the Linear weight ``(out, in)``; the LSTM and
 TCN block tensors keep the JAX layout, which the port's kernels take.  An
@@ -28,6 +30,7 @@ _HEAD = re.compile(r"ctc_head/(kernel|bias)")
 _STEM = re.compile(r"encoder/Conv_0/(kernel|bias)")
 _BLOCK = re.compile(r"encoder/block(\d+)/(ln_scale|ln_bias|w_conv|b_conv|w_point|b_point)")
 _FINAL_LN = re.compile(r"encoder/LayerNorm_0/(scale|bias)")
+_LAS = re.compile(r"las/(embed|w_[esf]|b_att|loc_filter|v_att|w_out|b_out|lstm\d+_(?:wx|wh|b))")
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
@@ -65,12 +68,14 @@ def load_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         elif m := _FINAL_LN.fullmatch(path):
             what = m.group(1)
             state[f"encoder.final_ln.{'weight' if what == 'scale' else 'bias'}"] = arr
+        elif m := _LAS.fullmatch(path):
+            state[f"las.{m.group(1)}"] = arr
         elif m := _HEAD.fullmatch(path):
             what = m.group(1)
             state[f"ctc_head.{'weight' if what == 'kernel' else 'bias'}"] = (
                 arr.T if what == "kernel" else arr)
         else:
-            raise KeyError(f"unexpected parameter {path!r} for the CTC BiLSTM or TCN model")
+            raise KeyError(f"unexpected parameter {path!r} for the BiLSTM or TCN model")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in state.items()}
 

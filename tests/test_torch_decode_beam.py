@@ -131,13 +131,29 @@ def test_decode_without_lm(arpa):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("decode.method", "joint_beam", NotImplementedError),
-    ("decode.lm_backend", "hashed", NotImplementedError),
-    ("decode.method", "attention_beam", NotImplementedError)])
+    ("decode.lm_backend", "hashed", NotImplementedError)])
 def test_later_slices_raise(arpa, key, value, err):
     cfg = get_config("ctc_bilstm_beam_lm", **_overrides(arpa, **{key: value}))
     with pytest.raises(err):
         driver.decode_dataset(cfg, evaluate.build_model(cfg, "cpu"), max_batches=1)
+
+
+@pytest.mark.parametrize("method", ["joint_beam", "attention_beam"])
+def test_attention_methods_decode_through_the_driver(arpa, method, tmp_path):
+    """The LAS model's attention and joint beam searches, with the 4-gram's
+    dense table fused, over every batch of the tiny corpus on its decode
+    ladder."""
+    cfg = get_config("las_attention", **_overrides(arpa, **{
+        "decode.method": method, "decode.auto_buckets": "2", "decode.beam_size": "3",
+        "decode.max_decode_len": "8", "model.decoder.embed_dim": "8",
+        "model.decoder.hidden_dim": "16", "model.decoder.attention_dim": "8",
+        "model.decoder.location_kernel": "5", "model.decoder.location_filters": "2"}))
+    result = driver.decode_dataset(cfg, evaluate.build_model(cfg, "cpu"),
+                                   dump_path=str(tmp_path / "d"))
+    assert result["method"] == method and result["num_utts"] == 8
+    assert np.isfinite(result["wer"]) and result["decode_rtf"] > 0
+    hyps = (tmp_path / "d.hyp.tsv").read_text().splitlines()
+    assert len(hyps) == 8 and all(len(h.split("\t", 1)[1]) <= 8 for h in hyps)
 
 
 def test_decode_cli_beam_dump_and_eval_wer(arpa, tmp_path, capsys):
@@ -168,8 +184,8 @@ def test_decode_cli_restores_the_newest_checkpoint(arpa, tmp_path):
 
 
 def test_decode_cli_rejects_unported_methods():
-    with pytest.raises(ValueError, match="prefix_beam"):
-        decode.parse_args(["ctc_bilstm_beam_lm", "decode.method=joint_beam"])
+    with pytest.raises(ValueError, match="joint_beam"):
+        decode.parse_args(["ctc_bilstm_beam_lm", "decode.method=joint"])
 
 
 def test_cli_subprocesses(arpa, tmp_path):

@@ -119,7 +119,19 @@ result line):
      encoder, the decoder steps and the rest (and profiled), the same split
      of a config-5 batch with its CTC prefix scorer, and a profiled config-5
      train step;
-  13. check that no path launched the per-utterance oracle or took a wide
+  13. slice 20, config 1's widths made streaming-capable (``CAUSAL``: a
+     causal conv and a unidirectional stack of H 384 x 3): K2 from a carried
+     state (``lstm_seq_stream``) at the streaming step's shapes against its
+     plain version, its chunks bit-equal to one K2 launch, its wide form bit
+     for bit, timed beside cuDNN's LSTM with ``hx``; the greedy streaming
+     recognizer at full width, B 8 streams of 16 s in 1600-sample chunks,
+     blocks of 16 and 48 frames, against the offline greedy decode on the
+     card, with exact launches a block (one K1, three ``lstm_seq_stream``),
+     no plain version on the card, and its latency a block and RTF at B 1
+     and 8; ``decode.main`` and ``train.main`` of the causal model with
+     exact counts; ``ctc_forced_align`` card vs CPU and ``align.main`` over
+     config 1; the recognizer at H 1536 (the wide form);
+  14. check that no path launched the per-utterance oracle or took a wide
      route; print the kernels line, the card line, and ``{"ok": true, ...}``
      last.
 Whether it passes or fails, the script ends every process it started (the
@@ -148,7 +160,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_asr_tpu_torch import decode, train, train_lm, train_ngram
+from pytorch_asr_tpu_torch import align, decode, train, train_lm, train_ngram
 from pytorch_asr_tpu_torch.configs import get_config
 from pytorch_asr_tpu_torch.configs.base import (
     BiLSTMEncoderConfig,
@@ -164,7 +176,8 @@ from pytorch_asr_tpu_torch.configs.base import (
 from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_tokenizer
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
 from pytorch_asr_tpu_torch.decoding import (
-    attention_beam, ctc_prefix_scorer, driver, prefix_beam, prefix_beam_sharded)
+    attention_beam, ctc_prefix_scorer, driver, prefix_beam, prefix_beam_sharded, streaming)
+from pytorch_asr_tpu_torch.decoding import align as align_mod
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.evaluate import build_model, eval_step, model_outputs
 from pytorch_asr_tpu_torch.frontend import features
@@ -305,7 +318,8 @@ WIDE_H, WIDE_SEARCH_BEAM, WIDE_RNN_BEAM = 1536, 400, 64
 # frames: past a block's shared memory, so the study kernels' in-scratch form.
 WIDE_STUDY_BEAM, WIDE_STUDY_L, WIDE_STUDY_V, T_WIDE_STUDY = 32, 1024, 1024, 200
 WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "lstm_seq_bwd_wide", "bilstm_seq_wide",
-               "bilstm_seq_train_wide", "bilstm_seq_bwd_wide", "merge_topk_wide",
+               "bilstm_seq_train_wide", "bilstm_seq_bwd_wide", "lstm_seq_stream_wide",
+               "merge_topk_wide",
                "prefix_beam_wide", "prefix_beam_topa_wide",
                "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide", "prefix_beam_rnn_block",
                "prefix_beam_rnn_topa_block", "prefix_beam_fused_wide", "prefix_beam_stepwise_wide",
@@ -323,6 +337,20 @@ DEEP_LM = RNNLMConfig(embed_dim=32, hidden_dim=64, num_layers=10)
 # labels and their repeats; K1's DFT form at two n_fft with no FFT plan.
 WIDE_CTC_CASES = ((3, 2300, 30, 2048), (3, 12000, 30, 10000))
 WIDE_N_FFT = (400, 2048)
+# Slice 20: config 1's widths made streaming-capable, through the CLIs'
+# overrides (JAX's _check_streamable asks for exactly these): a causal conv
+# and a unidirectional stack of H 384 x 3.
+CAUSAL = ("model.encoder.bidirectional=false", "model.encoder.causal_conv=true",
+          "frontend.normalize=false")
+# The greedy streaming recognizer: B 8 streams of 16 s (structured audio for
+# the first 10-16 s, noise after), fed in 1600-sample chunks, in blocks of 16
+# and 48 frames (4 and 12 steps of K2 a layer); also B 1 for the latency.
+STREAM_B, STREAM_SEC, STREAM_CHUNK, STREAM_BLOCKS = 8, 16, 1600, (16, 48)
+# lstm_seq_stream's chunks (of 4 and 12 steps) and its wide form at H 1536.
+STREAM_KERNEL_CHUNKS, STREAM_KERNEL_D = 5, 640
+# Forced alignment on planted logits, card vs CPU: log-softmax and float32
+# adds on both, so the paths are equal and the scores agree to rounding.
+ALIGN_RTOL, ALIGN_BATCHES = 1e-6, 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1591,14 +1619,15 @@ def train_step_phase(config: str = "ctc_bilstm_dev1h", front: str = "encoder.con
             "audio_len": batch["audio_len"].tolist()}
 
 
-def train_main_phase() -> dict:
+def train_main_phase(extra: tuple[str, ...] = (), dirs: int = 2) -> dict:
     """The training main path: ``train.main`` at full width in bf16, full
-    batches of 8 utterances of 10-16 s, then one greedy eval of 8 batches."""
+    batches of 8 utterances of 10-16 s, then one greedy eval of 8 batches;
+    with the overrides ``extra`` (the causal model: ``CAUSAL``, ``dirs`` 1)."""
     with tempfile.TemporaryDirectory() as ckpt:
         argv = ["ctc_bilstm_dev1h", "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
                 f"data.synthetic_num_utts={TRAIN_UTTS}", "data.auto_buckets=1",
                 f"steps={TRAIN_STEPS}", f"train.eval_every={TRAIN_STEPS}",
-                f"train.log_every={TRAIN_STEPS}", f"train.checkpoint_dir={ckpt}"]
+                f"train.log_every={TRAIN_STEPS}", f"train.checkpoint_dir={ckpt}", *extra]
         torch.cuda.synchronize()
         build.reset_launches()
         t0 = time.perf_counter()
@@ -1606,9 +1635,10 @@ def train_main_phase() -> dict:
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
     last, ev = result["train"], result["eval"]
-    want = {"stft_log_mel": TRAIN_STEPS + EVAL_BATCHES, "lstm_seq": 2 * LAYERS * EVAL_BATCHES,
-            "lstm_seq_train_fwd": 2 * LAYERS * TRAIN_STEPS,
-            "lstm_seq_bwd": 2 * LAYERS * TRAIN_STEPS,
+    want = {"stft_log_mel": TRAIN_STEPS + EVAL_BATCHES,
+            "lstm_seq": dirs * LAYERS * EVAL_BATCHES,
+            "lstm_seq_train_fwd": dirs * LAYERS * TRAIN_STEPS,
+            "lstm_seq_bwd": dirs * LAYERS * TRAIN_STEPS,
             "ctc_alpha": TRAIN_STEPS, "ctc_beta": TRAIN_STEPS}
     check({k: v for k, v in launches.items() if v} == want,
           f"train launches {launches} != {want}")
@@ -1985,11 +2015,14 @@ def beam_profile_phase(lm_path: str) -> dict:
             "top": rows[:8]}
 
 
-def decode_phase() -> dict:
+def decode_phase(extra: tuple[str, ...] = (), dirs: int = 2) -> dict:
+    """Config 1's serving path, ``decode.main`` with the overrides ``extra``
+    (the causal model: ``CAUSAL``, ``dirs`` 1): exactly 1 K1 and ``dirs`` K2
+    a layer a batch, no beam kernel."""
     # One bucket and 8 utterances a batch: every batch the path decodes is full.
     argv = ["ctc_bilstm_dev1h", "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
             f"data.synthetic_num_utts={DECODE_BATCHES * B}", "data.auto_buckets=1",
-            f"max_batches={DECODE_BATCHES}"]
+            f"max_batches={DECODE_BATCHES}", *extra]
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -2002,10 +2035,14 @@ def decode_phase() -> dict:
           and result["decode_rtf"] > 0, f"decode: bad result {result}")
     check(launches["stft_log_mel"] == DECODE_BATCHES,
           f"stft launches {launches['stft_log_mel']} != {DECODE_BATCHES} batches")
-    check(launches["lstm_seq"] == DECODE_BATCHES * LAYERS * 2,
-          f"lstm launches {launches['lstm_seq']} != {DECODE_BATCHES} x {LAYERS} x 2")
+    check(launches["lstm_seq"] == DECODE_BATCHES * LAYERS * dirs,
+          f"lstm launches {launches['lstm_seq']} != {DECODE_BATCHES} x {LAYERS} x {dirs}")
     check(launches["prefix_beam"] == launches["prefix_beam_topa"] == 0,
           f"greedy decode launched a beam kernel: {launches}")
+    if extra:    # the causal path: nothing else at all
+        check({k: v for k, v in launches.items() if v}
+              == {"stft_log_mel": DECODE_BATCHES, "lstm_seq": DECODE_BATCHES * LAYERS * dirs},
+              f"decode {extra}: launches {launches}")
     return {**result, "wall_s": wall, "batches": DECODE_BATCHES, "launches": launches}
 
 
@@ -3769,6 +3806,395 @@ def las_kernels_phase() -> dict:
     return out
 
 
+def stream_case(g: torch.Generator, b: int, T: int, Hd: int, D: int = STREAM_KERNEL_D):
+    """``lstm_seq_stream``'s inputs at a streaming shape: x (b, T, D) bf16, the
+    layer's weights, the lengths (all T but the last row's, T // 2, where b
+    > 1) and a carried state (h0, c0) (b, Hd) float32, on the card."""
+    G = 4 * Hd
+    x = (torch.randn(b, T, D, generator=g) * 0.5).bfloat16().cuda()
+    wih = (torch.randn(D, G, generator=g) / D ** 0.5).bfloat16().cuda()
+    whh = (torch.randn(Hd, G, generator=g) / Hd ** 0.5).cuda()
+    bias = (torch.randn(G, generator=g) * 0.1).cuda()
+    lens = torch.tensor([T] * (b - 1) + [T // 2 if b > 1 else T], dtype=torch.int32).cuda()
+    h0, c0 = ((torch.randn(b, Hd, generator=g) * 0.3).cuda() for _ in range(2))
+    return x, wih, whh, bias, lens, h0, c0
+
+
+def stream_bound(b: int, T: int, D: int, Hd: int, valid: int) -> tuple[float, str]:
+    """``bound`` of ``lstm_seq_stream``: K2's bytes (x, wih bf16; whh, bias,
+    lengths; out bf16) plus the state read and handed on (4 b Hd floats); its
+    operations at the valid steps (the projection in bf16, the recurrence
+    in fp32)."""
+    G = 4 * Hd
+    nbytes = 2 * b * T * D + 2 * D * G + 4 * Hd * G + 4 * G + 4 * b + 2 * b * T * Hd + 16 * b * Hd
+    return bound(nbytes, 2 * D * G * valid / PEAK_BF16_S + 2 * Hd * G * valid / PEAK_FP32_S)
+
+
+def stream_kernel_case(g: torch.Generator, b: int, T: int, Hd: int) -> dict:
+    """One shape of ``lstm_seq_stream``: against its plain version (output
+    and state), its wide form (forced) bit for bit, and STREAM_KERNEL_CHUNKS
+    chunks of T steps bit-equal to one K2 launch over their frames (from
+    zeros) and to one carried launch over them (from (h0, c0)); then timed
+    beside its plain version and cuDNN's ``nn.LSTM`` with ``hx``."""
+    args = stream_case(g, b, T, Hd)
+    x, wih, whh, bias, lens, h0, c0 = args
+    out, hT, cT = lstm_cuda.lstm_seq_stream(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    want = lstm_cuda.lstm_seq_plain(x, wih, whh, bias, lens, False, torch.bfloat16, h0, c0)
+    err = max(errors(a, w)[0] for a, w in zip((out, hT, cT), want))
+    check(bool(torch.isfinite(out.float()).all()), "lstm_seq_stream: non-finite output")
+    check(err <= LSTM_TOL, f"lstm_seq_stream b {b} T {T} H {Hd}: {err} from its plain version")
+    grid = lstm_cuda.forward_route(Hd, b, build.sm_count(0))
+    wide = lstm_cuda.stream_on_route(None, *args, torch.bfloat16)
+    on_grid = grid is not None
+    if on_grid:
+        check(all(torch.equal(a, w) for a, w in zip(wide, (out, hT, cT))),
+              f"lstm_seq_stream b {b} T {T}: the wide form differs from the grid's")
+    # Chunks: a sequence of STREAM_KERNEL_CHUNKS x T steps, its rows' lengths
+    # all of it but the last row's (3.5 chunks).
+    n = STREAM_KERNEL_CHUNKS
+    xs = stream_case(g, b, n * T, Hd)[0]
+    seq = torch.tensor([n * T] * (b - 1) + [n * T * 7 // 10 if b > 1 else n * T],
+                       dtype=torch.int32).cuda()
+    one_k2 = lstm_cuda.lstm_seq_infer(xs, wih, whh, bias, seq, False, torch.bfloat16)
+    zeros = torch.zeros_like(h0)
+    one_carried = lstm_cuda.lstm_seq_stream(xs, wih, whh, bias, seq, h0, c0, torch.bfloat16)
+    for start, whole in (((zeros, zeros), (one_k2,)), ((h0, c0), one_carried)):
+        parts, (h, c) = [], start
+        for i in range(n):
+            part_len = torch.clamp(seq - i * T, 0, T).int()
+            o, h, c = lstm_cuda.lstm_seq_stream(xs[:, i * T:(i + 1) * T].contiguous(), wih, whh,
+                                                bias, part_len, h, c, torch.bfloat16)
+            parts.append(o)
+        check(torch.equal(torch.cat(parts, dim=1), whole[0]),
+              f"lstm_seq_stream b {b} T {T}: chunks differ from one launch")
+        if len(whole) == 3:
+            check(torch.equal(h, whole[1]) and torch.equal(c, whole[2]),
+                  f"lstm_seq_stream b {b} T {T}: the chunks' state differs from one launch's")
+    ref = cudnn_lstm(STREAM_KERNEL_D, wih, whh, bias)
+    xf, hx = x.float(), (h0[None], c0[None])
+    with torch.no_grad():
+        library_ms = time_ms(lambda: ref(xf, hx))
+    bound_ms, bound_by = stream_bound(b, T, STREAM_KERNEL_D, Hd, int(lens.sum()))
+    return {"x": [b, T, STREAM_KERNEL_D], "H": Hd, "grid": grid._asdict() if on_grid else None,
+            "max_abs_err": err, "wide_equal": on_grid, "chunks_equal": True,
+            "ms": time_ms(lambda: lstm_cuda.lstm_seq_stream(*args, torch.bfloat16)),
+            "wide_ms": time_ms(lambda: lstm_cuda.stream_on_route(None, *args, torch.bfloat16)),
+            "plain_ms": time_ms(lambda: lstm_cuda.lstm_seq_plain(
+                x, wih, whh, bias, lens, False, torch.bfloat16, h0, c0), reps=5, inner=1,
+                warmup=1),
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def stream_kernels_phase() -> list[dict]:
+    """``lstm_seq_stream`` (K2 from a carried state) at the streaming step's
+    shapes, B 1 and 8, chunks of 4 and 12 steps (blocks of 16 and 48
+    frames), H 384, the first layer's D 640; and its wide form at H 1536
+    (``stream_kernel_case``).  -> the two kernel rows."""
+    g = torch.Generator().manual_seed(20)
+    cases = [stream_kernel_case(g, b, T, H) for b in (1, STREAM_B) for T in (4, 12)]
+    check(all(c["grid"] for c in cases), f"lstm_seq_stream left the grid: {cases}")
+    wide = stream_kernel_case(g, STREAM_B, 4, WIDE_H)
+    check(wide["grid"] is None, "lstm_seq_stream at H 1536 fits the grid")
+    print("stream_kernels:", json.dumps(cases + [wide]))
+    head = cases[2]          # B 8, chunks of 4 steps: the default block of 16 frames
+    row = {"name": "lstm_seq_stream", "route": "cuda",
+           "source": "pytorch_asr_tpu_torch/csrc/lstm_seq.cu",
+           "replaces": "pytorch_asr_tpu/decoding/streaming.py:156",
+           "shape": f"x ({STREAM_B}, 4, {STREAM_KERNEL_D}) bf16, H {H}, a carried (h, c); "
+                    f"also B 1 and chunks of 12",
+           "max_abs_err": max(c["max_abs_err"] for c in cases), "tol": LSTM_TOL,
+           "library": "torch.nn.LSTM with hx (cuDNN, fp32, all lengths = T)", "cases": cases,
+           **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+    wide_row = {**{k: wide[k] for k in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")},
+                "name": "lstm_seq_stream_wide", "route": "cuda",
+                "source": "pytorch_asr_tpu_torch/csrc/lstm_seq.cu",
+                "replaces": "pytorch_asr_tpu/decoding/streaming.py:156",
+                "shape": f"x ({STREAM_B}, 4, {STREAM_KERNEL_D}) bf16, H {WIDE_H}",
+                "tol": LSTM_TOL, "library": row["library"], "ms": wide["wide_ms"]}
+    return [row, wide_row]
+
+
+def stream_audio(b: int, cfg: FrontendConfig) -> np.ndarray:
+    """(b, STREAM_SEC s) float32: stream i is sines at 300 + 70 i Hz under a
+    3 Hz envelope (tests/test_streaming.py's structured audio) for its first
+    10 + 6 i / (b - 1) s, plus 0.1 noise throughout (numpy seed 20)."""
+    n = STREAM_SEC * cfg.sample_rate
+    t = np.arange(n, dtype=np.float32) / cfg.sample_rate
+    rng = np.random.default_rng(20)
+    audio = rng.normal(size=(b, n)).astype(np.float32) * 0.1
+    for i in range(b):
+        sec = 10.0 + 6.0 * i / max(b - 1, 1)
+        on = t < sec
+        audio[i, on] += (np.sin(2 * np.pi * (300 + 70 * i) * t[on])
+                         * (1.0 + 0.5 * np.sin(2 * np.pi * 3.0 * t[on])))
+    return audio
+
+
+def run_stream(model, cfg, audio: np.ndarray, block_frames: int) -> dict:
+    """Feed ``audio`` to a ``StreamingRecognizer`` in STREAM_CHUNK-sample
+    chunks, then ``finish``: {"tokens", "block_s" (host wall a block, the
+    device's work and the ids' copy included), "launches", "plain_calls",
+    "enc", "logits" (each block's LSTM output and logits, concatenated)}."""
+    rec = streaming.StreamingRecognizer(model, cfg, audio.shape[0], block_frames)
+    got = [[] for _ in range(audio.shape[0])]
+    encs, logits, head = [], [], model.ctc_logits
+
+    def recorded(enc):
+        encs.append(enc)
+        logits.append(head(enc))
+        return logits[-1]
+
+    model.ctc_logits = recorded
+    plain = [(stft_cuda, "stft_log_mel_plain"), (lstm_cuda, "lstm_seq_plain")]
+    try:
+        with plain_calls_of(*plain) as plain_calls, timed_calls(
+                (streaming.StreamingRecognizer, "_run_block"), sync=False) as log:
+            torch.cuda.synchronize()
+            build.reset_launches()
+            for off in range(0, audio.shape[1], STREAM_CHUNK):
+                for b, new in enumerate(rec.accept(audio[:, off:off + STREAM_CHUNK])):
+                    got[b].extend(new)
+            for b, new in enumerate(rec.finish()):
+                got[b].extend(new)
+            launches = dict(build.LAUNCHES)
+    finally:
+        del model.ctc_logits
+    return {"tokens": got, "block_s": [s for s, _ in log["_run_block"]], "launches": launches,
+            "plain_calls": list(plain_calls), "enc": torch.cat(encs, dim=1),
+            "logits": torch.cat(logits, dim=1)}
+
+
+def stream_parity(run: dict, out: dict, offline: list, strict: bool) -> dict:
+    """A streaming run's blocks against the offline model on the same audio.
+    The encoder's outputs must be bit-equal: K1's frames, the convs over the
+    carried context (cuDNN picked the same bits for a block as for the
+    utterance in every run so far) and K2's steps do not depend on where a
+    block starts.  The logits may differ (cuBLAS's head GEMM sums in another
+    order for a block's rows than for the utterance's); then every frame
+    whose offline top two differ by more than twice the largest difference
+    keeps its argmax, and every row whose frames all do gives the offline
+    tokens (``strict``: at least one row must)."""
+    T_enc = int(out["enc_len"][0])
+    check(torch.equal(run["enc"][:, :T_enc], out["enc"][:, :T_enc]),
+          "stream: the blocks' encoder outputs differ from the offline encoder's")
+    chunked, whole = run["logits"][:, :T_enc], out["ctc_logits"][:, :T_enc]
+    equal = torch.equal(chunked, whole)
+    diff = float((chunked - whole).abs().max())
+    top2 = whole.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    clear = gap > 2 * diff
+    check(torch.equal(chunked.argmax(-1)[clear], whole.argmax(-1)[clear]),
+          f"stream: an argmax differs where the top two differ by more than {2 * diff}")
+    rows = [b for b in range(len(offline)) if equal or bool(clear[b].all())]
+    check(all(run["tokens"][b] == offline[b] for b in rows),
+          f"stream: tokens differ from offline on rows {rows}")
+    check(bool(rows) or not strict, f"stream: no row leads by more than {2 * diff} on every frame")
+    check(any(run["tokens"]), "stream: nothing decoded")
+    return {"enc_bit_equal": True, "logits_bit_equal": equal, "logits_max_abs_diff": diff, "margin": 2 * diff,
+            "clear_frames": float(clear.float().mean()),
+            "min_top2_gap_by_row": gap.amin(dim=1).tolist(), "rows_checked": rows,
+            "tokens": sum(map(len, run["tokens"])),
+            "tokens_equal_rows": sum(run["tokens"][b] == offline[b] for b in range(len(offline)))}
+
+
+def stream_offline(cfg, audio: np.ndarray):
+    """The causal model of ``cfg`` (seeded) on the card, and its offline
+    outputs and greedy tokens over the whole of ``audio``."""
+    model = build_model(cfg, CARD)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(audio).to(CARD),
+                    torch.full((audio.shape[0],), audio.shape[1], device=CARD))
+        ids, lens = greedy_ctc(out["ctc_logits"], out["enc_len"])
+    return model, out, [ids[b, :lens[b]].tolist() for b in range(audio.shape[0])]
+
+
+def stream_phase() -> dict:
+    """The greedy streaming recognizer at full width on the card: config 1's
+    widths made causal (``CAUSAL``), seeded weights; B 8 streams of
+    ``stream_audio`` in 1600-sample chunks, in blocks of 16 and 48 frames.
+    In bf16, the path: each block launches exactly one K1 and three
+    ``lstm_seq_stream`` (on the grid) and nothing else, no plain STFT or LSTM
+    version runs on the card, and the tokens are held to the offline greedy
+    decode on the card (``stream_parity``); the host-observed latency a
+    block (p50, p99) and the streaming RTF (the blocks' wall over the
+    stream's seconds) at B 1 and 8, and one profiled run's device busy
+    share.  bf16 logits tie often (their top two equal, a block's head one
+    bf16 step off), so the same comparison also runs at float32, where it
+    must find decisive rows."""
+    cfg = get_config("ctc_bilstm_dev1h", **dict(a.split("=", 1) for a in CAUSAL))
+    audio = stream_audio(STREAM_B, cfg.frontend)
+    model, out, offline = stream_offline(cfg, audio)
+    res = {"streams": STREAM_B, "seconds": STREAM_SEC, "chunk": STREAM_CHUNK,
+           "offline_tokens": sum(map(len, offline))}
+    for block in STREAM_BLOCKS:
+        run = run_stream(model, cfg, audio, block)
+        blocks = len(run["block_s"])
+        want = {"stft_log_mel": blocks, "lstm_seq_stream": LAYERS * blocks}
+        check({k: v for k, v in run["launches"].items() if v} == want,
+              f"stream block {block}: launches {run['launches']} != {want}")
+        check(not run["plain_calls"], f"a plain version ran on the card: {run['plain_calls']}")
+        res[f"block{block}"] = {"blocks": blocks, "launches": run["launches"],
+                                **stream_parity(run, out, offline, strict=False)}
+        for b in (1, STREAM_B):
+            times = np.array(run["block_s"] if b == STREAM_B
+                             else run_stream(model, cfg, audio[:1], block)["block_s"]) * 1e3
+            res[f"block{block}"][f"b{b}"] = {
+                "p50_ms": float(np.percentile(times, 50)), "p99_ms": float(np.percentile(times, 99)),
+                "rtf": float(times.sum() / 1e3 / STREAM_SEC)}
+    # Device busy share of one run of blocks of 16 at B 8.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_stream(model, cfg, audio, STREAM_BLOCKS[0])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    device_ms = sum(r["device_ms"] for r in rows)
+    check(device_ms > 0, "stream profile: no device time recorded")
+    res["profile"] = {"wall_ms": wall_ms, "device_ms": device_ms, "busy": device_ms / wall_ms,
+                      "top": rows[:6]}
+    # float32: the same weights and audio, the comparison strict.
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               compute_dtype="float32"))
+    model32, out32, offline32 = stream_offline(cfg32, audio)
+    for block in STREAM_BLOCKS:
+        res[f"float32_block{block}"] = stream_parity(run_stream(model32, cfg32, audio, block),
+                                                     out32, offline32, strict=True)
+    res["launches"] = res[f"block{STREAM_BLOCKS[0]}"]["launches"]
+    return res
+
+
+def wide_stream_phase() -> dict:
+    """The streaming recognizer past the co-resident grid: the causal model
+    at H 1536 (``WIDE_H``), B 8 streams, 2 s, blocks of 16 frames: three
+    ``lstm_seq_stream_wide`` a block and no grid launch."""
+    cfg = get_config("ctc_bilstm_dev1h", **dict(a.split("=", 1) for a in CAUSAL),
+                     **{"model.encoder.hidden_dim": str(WIDE_H)})
+    model = build_model(cfg, CARD)
+    run = run_stream(model, cfg, stream_audio(STREAM_B, cfg.frontend)[:, :2 * 16000],
+                     STREAM_BLOCKS[0])
+    blocks = len(run["block_s"])
+    want = {"stft_log_mel": blocks, "lstm_seq_stream_wide": LAYERS * blocks}
+    check({k: v for k, v in run["launches"].items() if v} == want,
+          f"wide stream: launches {run['launches']} != {want}")
+    return {"blocks": blocks, "launches": run["launches"]}
+
+
+def planted_alignment(g: torch.Generator):
+    """Logits (8, 400, 31) float32 with each row's transcript planted (+4 on
+    each lattice label over an even split of its frames, blank between),
+    over normal(0, 1): rows of 400 down to 100 frames, one of no frames and
+    one infeasible (110 tokens in 100 frames); transcripts of random chars
+    with repeats."""
+    logit_len = [400, 371, 352, 330, 310, 120, 0, 100]
+    token_len = [150, 140, 130, 120, 100, 40, 5, 110]
+    logits = torch.randn(8, 400, V, generator=g)
+    tokens = torch.zeros(8, max(token_len), dtype=torch.int32)
+    for b, (T, L) in enumerate(zip(logit_len, token_len)):
+        tokens[b, :L] = torch.randint(1, V, (L,), generator=g, dtype=torch.int32)
+        tokens[b, 1:L:7] = tokens[b, :L - 1:7]               # repeats
+        ext = [0] + [x for t in tokens[b, :L].tolist() for x in (t, 0)]
+        edges = np.linspace(0, T, len(ext) + 1).astype(int)
+        for s, lab in enumerate(ext):
+            logits[b, edges[s]:edges[s + 1], lab] += 4.0
+    return logits, torch.tensor(logit_len), tokens, torch.tensor(token_len)
+
+
+def align_phase() -> dict:
+    """``ctc_forced_align`` on the card against the CPU on planted logits
+    (integer outputs equal, scores to ALIGN_RTOL), timed on both (host
+    clock, synchronised); then ``align.main`` on the card over config 1
+    (ALIGN_BATCHES batches of 8 utterances of 10-16 s): exactly 1 K1 and 6
+    K2 a batch, a segment per token."""
+    args = planted_alignment(torch.Generator().manual_seed(21))
+    cpu = align_mod.ctc_forced_align(*args)
+    card_args = [a.to(CARD) for a in args]
+    card = align_mod.ctc_forced_align(*card_args)
+    for k in ("frame_state", "frame_label", "starts", "ends"):
+        check(torch.equal(card[k].cpu(), cpu[k]), f"align: {k} differs card vs CPU")
+    score_err = float(((card["score"].cpu() - cpu["score"]).abs()
+                       / cpu["score"].abs().clamp(min=1e-30)).max())
+    check(score_err <= ALIGN_RTOL, f"align: scores differ by {score_err} relative")
+
+    def wall(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    res = {"shape": [8, 400, V], "score_rel_err": score_err, "rtol": ALIGN_RTOL,
+           "card_ms": wall(lambda: align_mod.ctc_forced_align(*card_args)),
+           "cpu_ms": wall(lambda: align_mod.ctc_forced_align(*args), reps=1)}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["ctc_bilstm_dev1h", "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                f"data.synthetic_num_utts={ALIGN_BATCHES * B}", "data.auto_buckets=1",
+                f"max_batches={ALIGN_BATCHES}", f"train.checkpoint_dir={tmp}/ckpt",
+                f"dump_path={tmp}/segs.tsv"]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = align.main(argv)
+        res["main_wall_s"] = time.perf_counter() - t0
+        res["launches"] = dict(build.LAUNCHES)
+        with open(f"{tmp}/segs.tsv") as fh:
+            rows = [line.split("\t") for line in fh.read().splitlines()]
+    want = {"stft_log_mel": ALIGN_BATCHES, "lstm_seq": ALIGN_BATCHES * LAYERS * 2}
+    check({k: v for k, v in res["launches"].items() if v} == want,
+          f"align.main launches {res['launches']} != {want}")
+    check(out["utts"] == ALIGN_BATCHES * B and out["segments"] == len(rows) > 0
+          and all(len(r) == 4 for r in rows),
+          f"align.main: {out}, {rows[:3]}")
+    res.update(out)
+    return res
+
+
+def slice20_phases() -> tuple[list[dict], dict]:
+    """Slice 20's paths: the kernel rows of ``lstm_seq_stream``, the
+    streaming recognizer, the causal model's decode and train CLIs, forced
+    alignment, and the streaming recognizer past the grid.  -> (rows,
+    {path: launches}), the wide path under ``wide_stream``."""
+    t0 = time.perf_counter()
+    rows = stream_kernels_phase()
+    for k in rows:
+        print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} (tol {k['tol']}) "
+              f"ms {k['ms']:.4f} plain {k['plain_ms']:.4f} library {k['library_ms']:.4f} "
+              f"bound {k['bound_ms']:.4f} ({k['bound_by']})")
+    stream = stream_phase()
+    print("stream:", json.dumps(stream))
+    for block in STREAM_BLOCKS:
+        for tag in ("", "float32_"):
+            r = stream[f"{tag}block{block}"]
+            print(f"stream {tag}block {block}: enc bit_equal {r['enc_bit_equal']} logits "
+                  f"bit_equal {r['logits_bit_equal']} max_diff {r['logits_max_abs_diff']:.3g} "
+                  f"rows {r['rows_checked']} tokens {r['tokens']} equal rows "
+                  f"{r['tokens_equal_rows']} "
+                  + " ".join(f"B{b}: p50 {r[f'b{b}']['p50_ms']:.3f} ms p99 "
+                             f"{r[f'b{b}']['p99_ms']:.3f} ms rtf {r[f'b{b}']['rtf']:.5f}"
+                             for b in (1, STREAM_B) if f"b{b}" in r))
+    print(f"stream busy {stream['profile']['busy']:.3f}")
+    dec = decode_phase(CAUSAL, 1)
+    print("causal_decode:", json.dumps(dec))
+    trn = train_main_phase(CAUSAL, 1)
+    print("causal_train:", json.dumps(trn))
+    print(f"causal_train: audio_seconds_per_sec_per_chip "
+          f"{trn['record']['audio_seconds_per_sec_per_chip']:.2f} step {trn['step_s']:.4f} s")
+    aln = align_phase()
+    print("align:", json.dumps(aln))
+    print(f"align: {aln['segments']} segments, align.main {aln['main_wall_s']:.2f} s, "
+          f"ctc_forced_align card {aln['card_ms']:.1f} ms cpu {aln['cpu_ms']:.1f} ms")
+    wide = wide_stream_phase()
+    print("wide_stream:", json.dumps(wide))
+    print(f"slice20: {time.perf_counter() - t0:.1f} s")
+    return rows, {"stream_greedy": stream["launches"], "causal_decode": dec["launches"],
+                  "causal_train": trn["launches"], "align": aln["launches"],
+                  "wide_stream": wide["launches"]}
+
+
 def main() -> int:
     card = card_line()
     print(f"card: {card}")
@@ -3845,6 +4271,8 @@ def main() -> int:
     print(f"tcn_train: audio_seconds_per_sec_per_chip "
           f"{tcn_trn['record']['audio_seconds_per_sec_per_chip']:.2f} "
           f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
+    slice20_rows, slice20_paths = slice20_phases()
+    kernels += slice20_rows
     t0 = time.perf_counter()
     las = las_phases()
     print(f"las: {time.perf_counter() - t0:.1f} s")
@@ -3878,9 +4306,10 @@ def main() -> int:
     # 3's training path, K10 to the sharded decode; K11 to its op's own path
     # (no model calls it, as in the JAX package), the paired alpha to config
     # 1's training with PAIRED_FWD set, K13 and K12 to the benchmark scripts
-    # that reach them, the wide routes to the wide phase's paths; the rest
-    # to config 1's training path (which runs K2 in its eval); every path's
-    # count is printed.
+    # that reach them, the wide routes to the wide phase's paths, K2 from a
+    # carried state to the streaming recognizer (its wide form past the grid
+    # to the recognizer at H 1536); the rest to config 1's training path
+    # (which runs K2 in its eval); every path's count is printed.
     paths = {"train": trn["launches"], "decode": dec["launches"],
              **{p: r["launches"] for p, r in beam_dec.items()},
              "tcn_decode": tcn_dec["launches"], "tcn_train": tcn_trn["launches"],
@@ -3890,7 +4319,8 @@ def main() -> int:
              **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")},
              **{p: las[p]["launches"] for p in ("las_decode", "joint_decode", "las_train",
                                                 "joint_train")},
-             **wide_paths}
+             **wide_paths, **slice20_paths}
+    wide_paths["wide_stream"] = slice20_paths["wide_stream"]
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
                 "tcn_block": "tcn_decode", "tcn_block_train_fwd": "tcn_train",
@@ -3906,7 +4336,8 @@ def main() -> int:
                 "prefix_beam_fused_wide": "wide_study", "prefix_beam_stepwise_wide": "wide_study",
                 "merge_topk_wide": "wide_merge", "prefix_beam_rnn_deep": "wide_deep_lm",
                 "ctc_alpha_wide": "wide_ctc", "ctc_beta_wide": "wide_ctc",
-                "ctc_alpha_paired_wide": "wide_paired", "stft_log_mel_dft": "wide_stft"}
+                "ctc_alpha_paired_wide": "wide_paired", "stft_log_mel_dft": "wide_stft",
+                "lstm_seq_stream": "stream_greedy", "lstm_seq_stream_wide": "wide_stream"}
     # The per-utterance oracles of the grid kernels are no path's kernels.
     oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0)
                    + counts.get("bilstm_seq_bwd_per_utterance", 0) for p, counts in paths.items()}

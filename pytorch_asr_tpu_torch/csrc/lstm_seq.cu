@@ -14,6 +14,10 @@
 //   bilstm_seq_bwd      _dual_vjp_bwd :822 (_bwd_kernel_dual :571).
 // lstm_seq_per_utterance and bilstm_seq_per_utterance run the same forwards
 // on the per-utterance kernel: the wide route below, and the oracle.
+// lstm_seq_stream is K2 started from a carried (h, c) that hands its state
+// on (the kCarry forms of both forward kernels): the chunk of the streaming
+// recognizer, pytorch_asr_tpu/decoding/streaming.py:156 _lstm_chunk, a
+// lax.scan there (no TPU kernel; K2 computes the same function).
 // Python side: ops/lstm_cuda.py.
 //
 // Computes, for x (B, T, D) in fp32 or bf16, wih (D, 4H) in x's type, whh
@@ -270,7 +274,10 @@ __device__ void fill_invalid_residuals(const float* xproj_b, const float* whh, c
 // steps becomes a loop inside the block).  kSave adds the training residuals.
 // kDual (K11): direction blockIdx.y of a BiLSTM layer; xproj (2, B, T, 4H),
 // whh (2, H, 4H), out (B, T, 2H), acts (2, T, B, 4H), ct (2, T, B, H).
-template <typename OutT, typename ResT, bool kSave, bool kDual = false>
+// kCarry (the streaming chunk, forward, no residuals): acts (2, B, H) holds
+// the state carried in, h0 then c0, and ct (2, B, H) receives the state
+// handed on, h then c after the row's last valid step.
+template <typename OutT, typename ResT, bool kSave, bool kDual = false, bool kCarry = false>
 __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
     const float* __restrict__ xproj, const float* __restrict__ whh,
     const int* __restrict__ lengths, OutT* __restrict__ out, ResT* __restrict__ acts,
@@ -279,6 +286,7 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
   float* h = smem;            // (H) hidden carry
   float* c = smem + H;        // (H) cell carry
   float* pre = smem + 2 * H;  // (4H) gate pre-activations of this step
+  static_assert(!(kCarry && (kSave || kDual)), "a carried state: one direction, no residuals");
   const int b = blockIdx.x;
   const int G = 4 * H;
   const int len = max(0, min(lengths[b], T));
@@ -298,8 +306,13 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
   OutT* ob = out + (size_t)b * T * H * kRows;
 
   for (int k = threadIdx.x; k < H; k += blockDim.x) {
-    h[k] = 0.f;
-    c[k] = 0.f;
+    if constexpr (kCarry) {
+      h[k] = acts[(size_t)b * H + k];
+      c[k] = acts[((size_t)B + b) * H + k];
+    } else {
+      h[k] = 0.f;
+      c[k] = 0.f;
+    }
   }
   if constexpr (kDual) {
     for (size_t i = (size_t)len * H + threadIdx.x; i < (size_t)T * H; i += blockDim.x)
@@ -341,6 +354,12 @@ __global__ void __launch_bounds__(1024) lstm_recurrence_kernel(
   }
   if constexpr (kSave) {
     if (!reverse) fill_invalid_residuals(xproj_b, whh, h, c, pre, acts, ct, b, B, T, H, len);
+  }
+  if constexpr (kCarry) {  // the loop's last barrier: h and c are the last valid step's
+    for (int k = threadIdx.x; k < H; k += blockDim.x) {
+      ct[(size_t)b * H + k] = h[k];
+      ct[((size_t)B + b) * H + k] = c[k];
+    }
   }
 }
 
@@ -440,13 +459,19 @@ __device__ __forceinline__ float dot_chain(const float* h, const float* w, int H
 // H), out (B, T, 2H) (direction d writes columns [d H, (d + 1) H)), acts (2,
 // T, B, 4H), ct (2, T, B, H).  Both halves step in lockstep, one barrier a
 // step for all their CTAs; the trace is CTA (0, 0)'s.
-template <typename OutT, typename ResT, bool kSave, bool kDual = false>
+// kCarry (the streaming chunk: K2 forward from a carried state): acts (2, B,
+// H) holds h0 then c0, staged as step 0's h and loaded as the cell carry;
+// ct (2, B, H) receives h then c at each row's last valid step (rows past
+// their length write no hnext, so the state is stored then, not read from
+// hbuf after the loop), and a row of no steps hands on h0 and c0.
+template <typename OutT, typename ResT, bool kSave, bool kDual = false, bool kCarry = false>
 __global__ void __launch_bounds__(1024) lstm_grid_kernel(
     const float* __restrict__ xproj, const float* __restrict__ whh,
     const int* __restrict__ lengths, OutT* __restrict__ out, ResT* __restrict__ acts,
     ResT* __restrict__ ct, float* hbuf, unsigned* sync, long long* trace, int T, int B, int H,
     int units, int rows, int reverse) {
   extern __shared__ __align__(16) float smem[];
+  static_assert(!(kCarry && (kSave || kDual)), "a carried state: one direction, no residuals");
   const int G = 4 * H, HP = padded_row(H);
   if constexpr (kDual) {
     const int dir = blockIdx.y;
@@ -496,7 +521,18 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
     for (int e = threadIdx.x; e < (T - len) * nu; e += blockDim.x)
       out[((size_t)b * T + len + e / nu) * H * kRows + k0 + e % nu] = from_f32<OutT>(0.f);
   }
-  for (int e = threadIdx.x; e < B * nu; e += blockDim.x) c_s[e] = 0.f;
+  for (int e = threadIdx.x; e < B * nu; e += blockDim.x) {
+    if constexpr (kCarry) {
+      const int b = e / nu, k = k0 + e % nu;
+      c_s[e] = acts[((size_t)B + b) * H + k];
+      if (min(lengths[b], T) <= 0) {
+        ct[(size_t)b * H + k] = acts[(size_t)b * H + k];
+        ct[((size_t)B + b) * H + k] = c_s[e];
+      }
+    } else {
+      c_s[e] = 0.f;
+    }
+  }
   __syncthreads();
   fetch_xproj(0);
 
@@ -512,7 +548,9 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
     for (int b0 = 0; b0 < B; b0 += rows) {
       const int nb = min(rows, B - b0);
       if (b0 > 0) __syncthreads();  // the last group's chains have read h_s
-      stage_rows(h_s, s > 0 ? hcur + (size_t)b0 * H : nullptr, nb, H, HP);
+      const float* h_first = nullptr;  // step 0's h: zeros, or the carried h0
+      if constexpr (kCarry) h_first = acts + (size_t)b0 * H;
+      stage_rows(h_s, s > 0 ? hcur + (size_t)b0 * H : h_first, nb, H, HP);
       if (b0 == 0 && s + 1 < steps) {
         fetch_xproj(s + 1);  // lands during this step; all older groups done
         cp_async_wait<1>();
@@ -557,6 +595,12 @@ __global__ void __launch_bounds__(1024) lstm_grid_kernel(
         c[0] = cn;
         hnext[(size_t)b * H + k] = hn;
         out[((size_t)b * T + t) * H * kRows + k] = from_f32<OutT>(hn);
+        if constexpr (kCarry) {
+          if (s == len - 1) {
+            ct[(size_t)b * H + k] = hn;
+            ct[((size_t)B + b) * H + k] = cn;
+          }
+        }
         if constexpr (kSave) {
           ResT* a = acts + ((size_t)t * B + b) * G;
           a[k] = from_f32<ResT>(ig);
@@ -876,12 +920,12 @@ cudaError_t projection(const void* x, const void* wih, const float* bias, float*
 // grid cannot hold whh (ops/lstm_cuda.py::forward_route), and, both
 // directions, the bit-equality oracle of the grid kernel
 // (bilstm_seq_per_utterance).  6 H floats of shared memory a block.
-template <typename OutT, typename ResT, bool kSave, bool kDual>
+template <typename OutT, typename ResT, bool kSave, bool kDual, bool kCarry = false>
 cudaError_t utterance_recurrence(const float* xproj, const float* whh, const int* lengths,
                                  void* out, void* acts, void* ct, int B, int T, int H,
                                  int reverse, cudaStream_t st) {
   const size_t smem = (size_t)6 * H * sizeof(float);
-  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave, kDual>;
+  auto kernel = lstm_recurrence_kernel<OutT, ResT, kSave, kDual, kCarry>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -920,7 +964,7 @@ cudaError_t utterance_forward(const float* xproj, const float* whh, const int* l
 // shared memory each (ops/lstm_cuda.py::recurrence_grid); under kDual (K11)
 // ctas a direction, the grid (ctas, 2).  Returns the cooperative launch's
 // error where the grid cannot be resident at once.
-template <typename OutT, typename ResT, bool kSave, bool kDual = false>
+template <typename OutT, typename ResT, bool kSave, bool kDual = false, bool kCarry = false>
 cudaError_t grid_recurrence(const float* xproj, const float* whh, const int* lengths, void* out,
                             void* acts, void* ct, float* hbuf, unsigned* sync, long long* trace,
                             int B, int T, int H, int reverse, int ctas, int units, int rows,
@@ -928,7 +972,7 @@ cudaError_t grid_recurrence(const float* xproj, const float* whh, const int* len
   if (units < 1 || rows < 1 || rows > B || (long)ctas * units < H ||
       (long)(ctas - 1) * units >= H || (size_t)smem < grid_smem_bytes(H, B, units, rows))
     return cudaErrorInvalidValue;
-  auto kernel = lstm_grid_kernel<OutT, ResT, kSave, kDual>;
+  auto kernel = lstm_grid_kernel<OutT, ResT, kSave, kDual, kCarry>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1090,6 +1134,37 @@ extern "C" int lstm_seq_fwd(const void* x, const void* wih, const float* whh,
                   : grid_recurrence<float, float, false>(xproj, whh, lengths, out, nullptr,
                                                          nullptr, hbuf, sync, trace, B, T, H,
                                                          reverse, ctas, units, rows, smem, st);
+}
+
+// K2 from a carried state, the streaming recognizer's chunk: forward only,
+// no trace.  state_in (2, B, H) fp32 holds h0 then c0; state_out (2, B, H)
+// fp32 receives h then c after each row's last valid step (h0 and c0 for a
+// row of no steps).  ctas > 0: the co-resident grid (ctas, units, rows, smem
+// as lstm_seq_fwd's); ctas 0: the per-utterance kernel, the wide route.
+// Other arguments as lstm_seq_fwd's.  A chunk's values are those of the
+// same steps in one launch over the whole sequence: the projection sums
+// each element in k order whatever the rows, and the steps are K2's.
+extern "C" int lstm_seq_stream(const void* x, const void* wih, const float* whh,
+                               const float* bias, const int* lengths, float* xproj, float* hbuf,
+                               unsigned* sync, const float* state_in, float* state_out, void* out,
+                               int B, int T, int D, int H, int in_bf16, int out_bf16, int ctas,
+                               int units, int rows, int smem, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = projection(x, wih, bias, xproj, B * T, D, 4 * H, in_bf16, st);
+  if (err != cudaSuccess) return err;
+  float* in = const_cast<float*>(state_in);
+  if (ctas == 0)
+    return out_bf16 ? utterance_recurrence<bf16, float, false, false, true>(
+                          xproj, whh, lengths, out, in, state_out, B, T, H, 0, st)
+                    : utterance_recurrence<float, float, false, false, true>(
+                          xproj, whh, lengths, out, in, state_out, B, T, H, 0, st);
+  return out_bf16 ? grid_recurrence<bf16, float, false, false, true>(
+                        xproj, whh, lengths, out, in, state_out, hbuf, sync, nullptr, B, T, H, 0,
+                        ctas, units, rows, smem, st)
+                  : grid_recurrence<float, float, false, false, true>(
+                        xproj, whh, lengths, out, in, state_out, hbuf, sync, nullptr, B, T, H, 0,
+                        ctas, units, rows, smem, st);
 }
 
 // Training forward: as lstm_seq_fwd (trace (T, 5)), plus the residuals acts

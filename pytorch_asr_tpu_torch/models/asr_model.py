@@ -31,27 +31,35 @@ from pytorch_asr_tpu_torch.ops import stft_cuda
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def encoder_output_dim(model_cfg: ModelConfig) -> int:
+    """The encoder's output width: 2H for the BiLSTM, H for its
+    unidirectional (streaming-capable) stack, the channels for the TCN."""
+    enc = model_cfg.encoder
+    if enc.kind == "bilstm":
+        return (2 if enc.bidirectional else 1) * enc.hidden_dim
+    if enc.kind == "tcn":
+        return enc.channels
+    raise ValueError(f"unknown encoder kind {enc.kind!r}")
+
+
 class ASRModel(nn.Module):
     """``forward(audio, audio_len, targets=None, train=False, generator=None,
     ss_prob=0.0)`` returns a dict: ctc_logits (B, T', V) float32, enc (B, T',
-    D), enc_len (B,), with D = 2H for the BiLSTM and D = channels for the
-    TCN; and dec_logits (B, U, V) float32 when a decoder is configured and
-    the sos-prefixed decoder inputs ``targets`` (B, U) are given."""
+    D), enc_len (B,), with D = ``encoder_output_dim``; and dec_logits (B, U,
+    V) float32 when a decoder is configured and the sos-prefixed decoder
+    inputs ``targets`` (B, U) are given."""
 
     def __init__(self, frontend_cfg: FrontendConfig, model_cfg: ModelConfig,
                  vocab_size: int, seed: int = 0):
         super().__init__()
         enc = model_cfg.encoder
-        if enc.kind not in ("bilstm", "tcn"):
-            raise ValueError(f"unknown encoder kind {enc.kind!r}")
+        enc_dim = encoder_output_dim(model_cfg)
         self.frontend_cfg = frontend_cfg
         self.compute_dtype = DTYPES[model_cfg.compute_dtype]
         if enc.kind == "bilstm":
             self.encoder = BiLSTMEncoder(enc, frontend_cfg.n_mels, self.compute_dtype)
-            enc_dim = 2 * enc.hidden_dim
         else:
             self.encoder = TCNEncoder(enc, frontend_cfg.n_mels, self.compute_dtype)
-            enc_dim = enc.channels
         self.ctc_head = nn.utils.skip_init(nn.Linear, enc_dim, vocab_size)
         self.las = None
         if model_cfg.decoder is not None:
@@ -94,7 +102,7 @@ class ASRModel(nn.Module):
                 conv.weight.copy_(lecun(conv.weight, conv.weight[0].numel()))
                 conv.bias.zero_()
             for layer in self.encoder.layers:
-                for d in (layer["fwd"], layer["bwd"]):
+                for d in layer.values():
                     D, G = d.wih.shape
                     d.wih.copy_(nn.init.xavier_uniform_(torch.empty(D, G), generator=g))
                     d.whh.copy_(nn.init.orthogonal_(torch.empty(d.whh.shape), generator=g))
@@ -146,12 +154,16 @@ class ASRModel(nn.Module):
                 targets: torch.Tensor | None = None, train: bool = False,
                 generator: torch.Generator | None = None, ss_prob: float = 0.0) -> dict:
         enc, enc_len = self.encode(audio, audio_len, train, generator)
-        dt = self.compute_dtype
-        logits = F.linear(enc.to(dt), self.ctc_head.weight.to(dt), self.ctc_head.bias.to(dt))
-        out = {"enc": enc, "enc_len": enc_len, "ctc_logits": logits.float()}
+        out = {"enc": enc, "enc_len": enc_len, "ctc_logits": self.ctc_logits(enc)}
         if self.las is not None and targets is not None:
             out["dec_logits"] = self.las(enc, enc_len, targets, train, ss_prob, generator)
         return out
+
+    def ctc_logits(self, enc: torch.Tensor) -> torch.Tensor:
+        """The CTC head in the compute dtype -> (B, T', V) float32 logits."""
+        dt = self.compute_dtype
+        return F.linear(enc.to(dt), self.ctc_head.weight.to(dt),
+                        self.ctc_head.bias.to(dt)).float()
 
     def decoder_begin(self, enc: torch.Tensor, enc_len: torch.Tensor):
         """Per-utterance decoder quantities for the beam searches:

@@ -2,12 +2,17 @@
 
 Layout follows the JAX package so its weights load as they are:
 the conv output is ordered ``f*C + c`` into the first LSTM layer, the convs
-pad a fixed ``(k-1)//2`` on both sides, and the LSTM weights keep the JAX
-layout ``wih (D, 4H)``, ``whh (H, 4H)``, ``bias (4H,)`` that the kernel takes.
-Under a mesh whose model axis is 2 (``parallel/mesh.py``) the encoder
-splits each layer's directions over the two model ranks, as the JAX
-package's ``_bilstm_tp_directions`` does for serving.  The causal conv and
-unidirectional stacks are not ported yet.
+pad a fixed ``(k-1)//2`` on both sides in frequency and, in time, the same
+or (``causal_conv``) ``k-1`` frames on the left only, and the LSTM weights
+keep the JAX layout ``wih (D, 4H)``, ``whh (H, 4H)``, ``bias (4H,)`` that the
+kernel takes.  ``bidirectional=False`` builds the streaming-capable stack:
+one forward direction a layer, named ``fwd``, so that with the causal conv
+an output frame depends only on input frames at or before it
+(``decoding/streaming.py``).  Under a mesh whose model axis is 2
+(``parallel/mesh.py``) the encoder splits each bidirectional layer's
+directions over the two model ranks, as the JAX package's
+``_bilstm_tp_directions`` does for serving; a unidirectional stack runs whole
+on every rank, as JAX's ``tp_dirs`` requires ``bidirectional``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,14 @@ def conv_out_len(length: torch.Tensor, kernel: int, stride: int) -> torch.Tensor
     return torch.clamp((length + 2 * p - kernel) // stride + 1, min=0)
 
 
+def conv_out_len_causal(length: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Output length of a strided conv padded ``kernel-1`` frames on the left
+    only: ceil(length / stride), 0 for an empty input.  Output t reads inputs
+    at or before t*stride, which lets the streaming step carry the conv's
+    left context exactly."""
+    return torch.where(length > 0, (length - 1) // stride + 1, 0)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each entry with probability 1 - rate, drawn
     from ``generator``, and scale the kept ones by 1 / (1 - rate) in x's type.
@@ -46,13 +59,17 @@ class ConvSubsampler(nn.Module):
 
     Convolutions run as ``F.conv2d`` in the compute dtype (the JAX package
     leaves them to XLA's convolution; they have no hand-written kernel).
+    With ``causal_conv`` the time axis is padded ``kt-1`` zero frames on the
+    left before each conv, which then pads frequency only.
     """
 
     def __init__(self, cfg: BiLSTMEncoderConfig, n_mels: int, dtype: torch.dtype):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         kt, kf = cfg.conv_kernel
-        self.padding = ((kt - 1) // 2, (kf - 1) // 2)
+        self.causal = cfg.causal_conv
+        self.padding = (0 if self.causal else (kt - 1) // 2, (kf - 1) // 2)
+        self.out_len = conv_out_len_causal if self.causal else conv_out_len
         chans = (1, *cfg.conv_channels)
         self.convs = nn.ModuleList(
             nn.utils.skip_init(nn.Conv2d, chans[i], chans[i + 1], tuple(cfg.conv_kernel),
@@ -67,10 +84,13 @@ class ConvSubsampler(nn.Module):
         """(B, T, F) features -> ((B, T', F'*C) in ``f*C + c`` order, (B,) lengths)."""
         x = feats[:, None].to(self.dtype)                       # (B, 1, T, F)
         lengths = feat_len
+        kt = self.cfg.conv_kernel[0]
         for conv in self.convs:
+            if self.causal:
+                x = F.pad(x, (0, 0, kt - 1, 0))
             x = F.relu(F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                                 stride=conv.stride, padding=self.padding))
-            lengths = conv_out_len(lengths, self.cfg.conv_kernel[0], self.cfg.conv_stride[0])
+            lengths = self.out_len(lengths, kt, self.cfg.conv_stride[0])
             # Re-mask every layer: bias + relu make padded frames nonzero,
             # and the next strided conv would read them.
             mask = torch.arange(x.shape[2], device=x.device)[None, :] < lengths[:, None]
@@ -105,6 +125,15 @@ class LSTMDirection(nn.Module):
             lengths.to(torch.int32).contiguous(), self.reverse, self.dtype,
             self.residual_dtype)
 
+    def stream(self, x: torch.Tensor, lengths: torch.Tensor, h0: torch.Tensor,
+               c0: torch.Tensor):
+        """The forward direction from a carried state, without gradients:
+        (out, h, c) as ``lstm_cuda.lstm_seq_stream`` (the streaming step)."""
+        return lstm_cuda.lstm_seq_stream(
+            x.to(self.dtype).contiguous(), self.wih.to(self.dtype).contiguous(),
+            self.whh.contiguous(), self.bias.contiguous(), lengths.to(torch.int32).contiguous(),
+            h0, c0, self.dtype)
+
 
 def set_residual_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Set the training residual type of every LSTM direction in ``model``."""
@@ -115,27 +144,27 @@ def set_residual_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 class BiLSTMEncoder(nn.Module):
-    """conv subsampling + stacked BiLSTM; returns (B, T', 2H) states + lengths."""
+    """conv subsampling + stacked (Bi)LSTM; returns (B, T', D) states + lengths,
+    D = 2H bidirectional, H unidirectional (``encoder_dim``)."""
 
     def __init__(self, cfg: BiLSTMEncoderConfig, n_mels: int, dtype: torch.dtype):
         super().__init__()
-        if cfg.causal_conv or not cfg.bidirectional:
-            raise NotImplementedError(
-                "the port has the bidirectional, symmetric-padding encoder only")
         self.cfg = cfg
         self.conv = ConvSubsampler(cfg, n_mels, dtype)
         H = cfg.hidden_dim
-        dims = [self.conv.out_dim] + [2 * H] * (cfg.num_layers - 1)
+        self.encoder_dim = (2 if cfg.bidirectional else 1) * H
+        dims = [self.conv.out_dim] + [self.encoder_dim] * (cfg.num_layers - 1)
+        directions = {"fwd": False, "bwd": True} if cfg.bidirectional else {"fwd": False}
         self.layers = nn.ModuleList(
-            nn.ModuleDict({"fwd": LSTMDirection(d, H, False, dtype),
-                           "bwd": LSTMDirection(d, H, True, dtype)})
+            nn.ModuleDict({name: LSTMDirection(d, H, rev, dtype)
+                           for name, rev in directions.items()})
             for d in dims)
 
     def forward(self, feats: torch.Tensor, feat_len: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None):
         x, lengths = self.conv(feats, feat_len)
         mesh = active_mesh()
-        split = mesh is not None and mesh.model == 2
+        split = self.cfg.bidirectional and mesh is not None and mesh.model == 2
         if split and (train or torch.is_grad_enabled()):
             raise NotImplementedError("the BiLSTM direction split serves only: its backward "
                                       "waits for the training slice")
@@ -146,6 +175,8 @@ class BiLSTMEncoder(nn.Module):
                 # weights stay whole on both ranks.
                 own = layer["fwd"] if mesh.model_index == 0 else layer["bwd"]
                 x = model_all_gather(own(x, lengths), -1, mesh)
+            elif not self.cfg.bidirectional:
+                x = layer["fwd"](x, lengths)
             else:
                 x = torch.cat([layer["fwd"](x, lengths), layer["bwd"](x, lengths)], dim=-1)
             if train and self.cfg.dropout > 0:

@@ -10,10 +10,10 @@ rebuilt and never mixed up with an old build.
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the CUDA
 kernel (a CPU tensor takes the plain version and is not counted).  A route
 chosen from the shapes for CUDA tensors counts under its own name: the
-LSTM's wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide`` and the rest,
-the per-utterance kernel), the beam kernels past a block's shared memory
-(``prefix_beam_wide`` and the rest, and the study kernels'
-``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``, and K10's
+LSTM's wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide``,
+``lstm_seq_stream_wide`` and the rest, the per-utterance kernel), the
+beam kernels past a block's shared memory (``prefix_beam_wide`` and the
+rest, and the study kernels' ``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``, and K10's
 ``merge_topk_wide``: their working set in a device scratch), K9 past its
 co-resident grid (``prefix_beam_rnn_block`` and its ``_topa`` form, a block
 an utterance), K4 past its registers (``ctc_alpha_wide``, ``ctc_beta_wide``,
@@ -55,7 +55,8 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "prefix_beam_stepwise": 0, "prefix_beam_fused_wide": 0,
                             "prefix_beam_stepwise_wide": 0, "ctc_alpha_wide": 0,
                             "ctc_beta_wide": 0, "ctc_alpha_paired_wide": 0,
-                            "stft_log_mel_dft": 0}
+                            "stft_log_mel_dft": 0, "lstm_seq_stream": 0,
+                            "lstm_seq_stream_wide": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 SMS = 132    # the H100 SXM's SMs: the grid routes' default card

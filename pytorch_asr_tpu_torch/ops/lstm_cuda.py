@@ -28,6 +28,10 @@ the SMs each (``backward_route(..., directions=2)``), and past it (from H
 ``bilstm_seq_bwd_wide``.  ``_bilstm_seq_per_utterance`` and
 ``_bilstm_seq_bwd_per_utterance`` run K11's wide routes as the grid
 kernels' bit-equality oracles, under counts of their own; no op calls them.
+``lstm_seq_stream`` is K2 started from a carried (h, c) and handing its
+state on, forward only and without gradients, on either route (counted
+``lstm_seq_stream`` and ``lstm_seq_stream_wide``): the streaming
+recognizer's chunk (``decoding/streaming.py``), JAX's ``_lstm_chunk``.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ _SIGNATURES = {"lstm_seq_fwd": [_P] * 10 + [_I] * 11 + [_P],
                "bilstm_seq_per_utterance": [_P] * 9 + [_I] * 8 + [_P],
                "lstm_seq_per_utterance": [_P] * 9 + [_I] * 9 + [_P],
                "bilstm_seq_bwd": [_P] * 16 + [_I] * 10 + [_P],
-               "bilstm_seq_bwd_per_utterance": [_P] * 14 + [_I] * 6 + [_P]}
+               "bilstm_seq_bwd_per_utterance": [_P] * 14 + [_I] * 6 + [_P],
+               "lstm_seq_stream": [_P] * 11 + [_I] * 10 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 SMS = build.SMS
 SMEM_PER_BLOCK = 232448        # shared memory a Hopper block can opt in to, bytes
@@ -199,7 +204,8 @@ def _projection(x, wih, bias):
 
 
 def lstm_seq_plain(x, wih, whh, bias, lengths, reverse: bool = False,
-                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                   out_dtype: torch.dtype | None = None, h0: torch.Tensor | None = None,
+                   c0: torch.Tensor | None = None):
     """Masked per-step loop, the plain version of the inference kernel.
 
     Matches ``pytorch_asr_tpu.models.encoder_bilstm._lstm_scan`` with the
@@ -207,24 +213,41 @@ def lstm_seq_plain(x, wih, whh, bias, lengths, reverse: bool = False,
     float32 and adds ``bias``; the recurrence runs in float32 with gates
     i, f, g, o; the carry is held where ``t >= len``; ``reverse`` walks
     t = T-1 .. 0; the output is zero outside [0, len).
+
+    Given a carried state ``h0``, ``c0`` (B, H) float32 (forward only), it
+    starts there and returns ``(out, hT, cT)``, the state after each row's
+    last valid step (``h0``, ``c0`` for a row of length 0): JAX's streaming
+    ``_lstm_chunk``, the plain version of ``lstm_seq_stream``.  Then the
+    projection runs a step at a time, B rows each, so that a sequence cut
+    into chunks gives one pass's bits, as the kernel's does (its sum for an
+    element runs in k order whatever the rows).
     """
     B, T, _ = x.shape
     H = whh.shape[0]
-    xproj = _projection(x, wih, bias)                                # (B, T, 4H)
+    carry = h0 is not None
+    if carry and reverse:
+        raise ValueError("lstm_seq_plain: a carried state walks forward only")
     whh = whh.float()
     lengths = lengths.to(x.device)
-    h = x.new_zeros((B, H), dtype=torch.float32)
-    c = torch.zeros_like(h)
+    if carry:
+        h, c = h0.float(), c0.float()
+        step_proj = lambda t: _projection(x[:, t], wih, bias)        # noqa: E731
+    else:
+        h = x.new_zeros((B, H), dtype=torch.float32)
+        c = torch.zeros_like(h)
+        xproj = _projection(x, wih, bias)                            # (B, T, 4H)
+        step_proj = lambda t: xproj[:, t]                            # noqa: E731
     out = x.new_zeros((B, T, H), dtype=torch.float32)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        i, f, g, o = (xproj[:, t] + h @ whh).chunk(4, dim=-1)
+        i, f, g, o = (step_proj(t) + h @ whh).chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
         m = (t < lengths)[:, None]
         h = torch.where(m, h_new, h)
         c = torch.where(m, c_new, c)
         out[:, t] = torch.where(m, h_new, 0.0)
-    return out.to(out_dtype or torch.float32)
+    out = out.to(out_dtype or torch.float32)
+    return (out, h, c) if carry else out
 
 
 def lstm_seq_train_plain(x, wih, whh, bias, lengths, reverse: bool = False,
@@ -318,6 +341,64 @@ def lstm_seq_infer(x, wih, whh, bias, lengths, reverse: bool = False,
     if x.device.type == "cpu":
         return lstm_seq_plain(x, wih, whh, bias, lengths, reverse, out_dtype)
     return _forward(1, x, wih, whh, bias, lengths, reverse, out_dtype, None)
+
+
+def lstm_seq_stream(x, wih, whh, bias, lengths, h0, c0,
+                    out_dtype: torch.dtype | None = None, reverse: bool = False):
+    """K2 from a carried state -> (out (B, T, H), hT, cT): the streaming
+    recognizer's chunk.  ``h0``, ``c0``, ``hT``, ``cT`` are (B, H) float32;
+    the state after each row's last valid step, or ``h0``, ``c0`` for a row
+    of length 0; other arguments as ``lstm_seq``'s.  The kernel for CUDA
+    tensors (``forward_route``'s grid, counted ``lstm_seq_stream``, or past it
+    the per-utterance kernel, ``lstm_seq_stream_wide``: ``stream_on_route``),
+    ``lstm_seq_plain`` with the carry for CPU.  Inference only, forward only:
+    it raises under autograd and for ``reverse``.  Chunks of a sequence give
+    the bits of one launch over it (the same projection sums and steps)."""
+    if reverse:
+        raise ValueError("lstm_seq_stream: a carried state walks forward only")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wih, whh, bias, h0, c0)):
+        raise RuntimeError("lstm_seq_stream: inference only; it has no backward")
+    if x.device.type == "cpu":
+        return lstm_seq_plain(x, wih, whh, bias, lengths, False, out_dtype, h0, c0)
+    route = forward_route(whh.shape[0], max(x.shape[0], 1), build.sm_count(x.device.index))
+    return stream_on_route(route, x, wih, whh, bias, lengths, h0, c0, out_dtype)
+
+
+def stream_on_route(route: Grid | None, x, wih, whh, bias, lengths, h0, c0,
+                    out_dtype: torch.dtype | None = None):
+    """``lstm_seq_stream`` on CUDA tensors on ``route``: a ``Grid`` (the
+    co-resident grid kernel, counted ``lstm_seq_stream``) or None (the
+    per-utterance kernel, ``lstm_seq_stream_wide``); the two give the same
+    bits.  -> (out, hT, cT)."""
+    out_dtype = out_dtype or torch.float32
+    _check_cuda_args(x, wih, whh, bias, lengths, out_dtype)
+    B, T, _ = x.shape
+    H = whh.shape[0]
+    for what, t in (("h0", h0), ("c0", c0)):
+        if (tuple(t.shape) != (B, H) or t.dtype != torch.float32 or t.device != x.device):
+            raise ValueError(f"lstm_seq_stream: {what} must be ({B}, {H}) float32 on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype}")
+    if route is not None and (route.hidden != H or route.directions != 1):
+        raise ValueError(f"lstm_seq_stream: a grid for H {route.hidden} and "
+                         f"{route.directions} direction(s), not H {H} and 1")
+    out = torch.empty((B, T, H), dtype=out_dtype, device=x.device)
+    state_in = torch.stack([h0, c0])
+    if B == 0 or T == 0:
+        return out, state_in[0], state_in[1]
+    state_out = torch.empty_like(state_in)
+    xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
+    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=x.device)
+    sync = torch.zeros(1, dtype=torch.int32, device=x.device)
+    lib = build.load("lstm_seq", _SIGNATURES)
+    ptrs = [t.data_ptr() for t in (x, wih, whh, bias, lengths, xproj, hbuf, sync, state_in,
+                                   state_out, out)]
+    grid = route or Grid(H, 0, 0, 0, 0)
+    name = "lstm_seq_stream" if route is not None else "lstm_seq_stream_wide"
+    build.check(lib.lstm_seq_stream(*ptrs, B, T, x.shape[2], H, int(x.dtype == torch.bfloat16),
+                                    int(out_dtype == torch.bfloat16), grid.ctas, grid.units,
+                                    grid.rows, grid.smem, _stream(x)), name)
+    build.LAUNCHES[name] += 1
+    return out, state_out[0], state_out[1]
 
 
 def lstm_seq_train_fwd(x, wih, whh, bias, lengths, reverse: bool = False,

@@ -4,9 +4,9 @@ its grid and its block kernel), K4 (``ops.ctc_cuda.ctc_alpha`` and
 ``ctc_beta``), K1 and config 3's training on one card:
 
     python -m pytorch_asr_tpu_torch.scripts.bench_kernel_turns [reps=5 inner=4
-        calls=40 frame=150 only=bilstm,merge,rnn,ctc,stft,train3]
+        calls=40 frame=150 only=bilstm,merge,rnn,ctc,stft,train3,lstm]
 
-``only`` names the sections to run (all six by default).
+``only`` names the sections to run (all seven by default).
 
 K11's backward at config 1's layer shape: x (8, 400, 768) bf16, H 384,
 lengths 400 down to 250, residuals bf16 and float32 from its training
@@ -56,6 +56,15 @@ a sha256 of its output and its time with CUDA events as K11's backward.
 Config 3's ``train.main`` (``train3``), as ``chip_smoke.py`` runs it: its
 audio seconds a second and steps a second, from the trainer's own record.
 
+The LSTM kernels' bits (``lstm``) at K11's inputs above (x (8, 400, 768)
+bf16, H 384, the same lengths, upstream gradients from numpy seed 0): a
+sha256 of the outputs of K2 (each direction, bf16 and float32 output), K3's
+training forward (its output and residuals, bf16 and float32) and backward
+(dx, dwih, dwhh, db), K11's forward, training forward and backward, and the
+wide routes (the ops with ``forward_route`` and ``backward_route`` set to
+None, the per-utterance kernels), so that two checkouts' bits can be
+compared.
+
 It calls only entry points that every checkout of the port has (and the
 traces where there are), so it times any checkout alike: run it by its path
 with that checkout first on ``PYTHONPATH`` to compare two checkouts on one
@@ -90,7 +99,7 @@ from pytorch_asr_tpu_torch.ops import beam_cuda, ctc, ctc_cuda, lstm_cuda, stft_
 from pytorch_asr_tpu_torch.scripts import _timing
 
 DEFAULTS = {"reps": "5", "inner": "4", "calls": "40", "frame": "150",
-            "only": "bilstm,merge,rnn,ctc,stft,train3"}
+            "only": "bilstm,merge,rnn,ctc,stft,train3,lstm"}
 LSTM_B, LSTM_T, LSTM_D, LSTM_H = 8, 400, 768, 384
 LSTM_LENGTHS = [400, 371, 352, 330, 310, 290, 260, 250]
 MERGE_B, MERGE_K, MERGE_V, MERGE_L = 16, 16, 31, 256
@@ -249,7 +258,8 @@ def rnn_search(reps: int, inner: int, dev) -> dict:
 def _digest(*tensors: torch.Tensor) -> str:
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().numpy().tobytes())
+        t = t.detach().cpu()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -393,6 +403,42 @@ def train3(dev) -> dict:
     return {k: rec[k] for k in ("audio_seconds_per_sec_per_chip", "steps_per_sec")}
 
 
+def lstm_bits(dev) -> dict:
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    G = 4 * LSTM_H
+    x = t(rng.standard_normal((LSTM_B, LSTM_T, LSTM_D)) * 0.5).bfloat16()
+    wih = t(rng.standard_normal((2, LSTM_D, G)) / LSTM_D ** 0.5).bfloat16()
+    whh = t(rng.standard_normal((2, LSTM_H, G)) / LSTM_H ** 0.5)
+    bias = t(rng.standard_normal((2, G)) * 0.1)
+    lens = torch.tensor(LSTM_LENGTHS, dtype=torch.int32, device=dev)
+    gy = t(rng.standard_normal((LSTM_B, LSTM_T, 2 * LSTM_H)))
+    out = {}
+    routes = (lstm_cuda.forward_route, lstm_cuda.backward_route)
+    for form in ("grid", "wide"):
+        if form == "wide":
+            lstm_cuda.forward_route = lstm_cuda.backward_route = lambda *a, **k: None
+        try:
+            for d in (0, 1):
+                args = (x, wih[d], whh[d], bias[d], lens, bool(d))
+                out[f"{form} k2 dir{d}"] = _digest(*(lstm_cuda.lstm_seq_infer(*args, o)
+                                                     for o in (torch.bfloat16, torch.float32)))
+                for res in (torch.bfloat16, torch.float32):
+                    fwd = lstm_cuda.lstm_seq_train_fwd(*args, torch.bfloat16, res)
+                    out[f"{form} k3 dir{d} {res}"] = _digest(*fwd, *lstm_cuda.lstm_seq_bwd(
+                        gy[..., d * LSTM_H:(d + 1) * LSTM_H].contiguous(), x, wih[d], whh[d],
+                        lens, fwd[1], fwd[2], bool(d)))
+            dual = (x, wih, whh, bias, lens, torch.bfloat16)
+            out[f"{form} k11"] = _digest(lstm_cuda.bilstm_seq_infer(*dual))
+            for res in (torch.bfloat16, torch.float32):
+                fwd = lstm_cuda.bilstm_seq_train_fwd(*dual, res)
+                out[f"{form} k11 train {res}"] = _digest(*fwd, *lstm_cuda.bilstm_seq_bwd(
+                    gy, x, wih, whh, lens, fwd[1], fwd[2]))
+        finally:
+            lstm_cuda.forward_route, lstm_cuda.backward_route = routes
+    return out
+
+
 def stft(reps: int, inner: int, dev) -> dict:
     cfg = FrontendConfig()
     audio = np.zeros((CTC_B, 16 * cfg.sample_rate), np.float32)
@@ -425,6 +471,8 @@ def main(argv: list[str] | None = None) -> dict:
         out["stft"] = stft(reps, inner, device)
     if "train3" in only:
         out["train3"] = train3(device)
+    if "lstm" in only:
+        out["lstm_bits"] = lstm_bits(device)
     print(json.dumps(out))
     return out
 

@@ -12,10 +12,10 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-# The modules of the seven slices (greedy serving, training, beam serving,
+# The modules of the slices (greedy serving, training, beam serving,
 # config 3, RNN-LM fusion, the beam decode across ranks, the benchmark
-# scripts of the last four kernels), each of which the probe must import
-# without JAX.
+# scripts of the last four kernels, streaming and alignment), each of which
+# the probe must import without JAX.
 SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "decode", "evaluate", "ops.stft_cuda", "ops.lstm_cuda", "ops.ctc", "ops.ctc_cuda",
     "frontend.specaugment", "models.encoder_bilstm", "models.asr_model", "data.batching",
@@ -25,7 +25,8 @@ SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "ops.tcn_cuda", "models.lm_rnn", "training.lm", "train_lm", "parallel.distributed",
     "parallel.mesh", "parallel.launch", "decoding.prefix_beam_sharded",
     "scripts.bench_prefix_beam", "scripts.bench_beam_compile", "scripts.bench_study_turns",
-    "scripts.bench_kernel_turns")]
+    "scripts.bench_kernel_turns", "decoding.streaming", "decoding.align", "align",
+    "scripts.ptxas_report")]
 
 _PROBE = """
 import importlib, json, pkgutil, sys

@@ -1749,3 +1749,88 @@ def test_study_beam_trace_runs(cuda, kernel, cols):
     if kernel == "prefix_beam_stepwise":
         assert bool((tr[:, 8] >= tr[:, 0]).all())
     assert not trace[int(lens[0]):].any()
+
+
+def _stream_case(device, dtype, B=5, T=13, D=40, H=48, seed=20):
+    """lstm_seq_stream's inputs: rows of length T, 0, past T, 1 and between,
+    and a carried state (h0, c0) float32."""
+    x, wih, whh, bias, _ = _lstm_case(device, dtype, B, T, D, H)
+    lengths = torch.tensor([T, 0, T + 4, 1, T // 2][:B], dtype=torch.int32, device=device)
+    g = torch.Generator().manual_seed(seed)
+    h0, c0 = ((torch.randn(B, H, generator=g) * 0.3).to(device) for _ in range(2))
+    return x, wih, whh, bias, lengths, h0, c0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [48, 384])
+def test_lstm_stream_matches_plain(cuda, dtype, H):
+    """K2 from a carried state against ``lstm_seq_plain`` with the carry: the
+    output, and the state after each row's last valid step (a row of no
+    steps hands on h0 and c0 as they are)."""
+    args = _stream_case(cuda, dtype, H=H)
+    build.reset_launches()
+    out, hT, cT = lstm_cuda.lstm_seq_stream(*args, dtype)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"lstm_seq_stream": 1}
+    want = lstm_cuda.lstm_seq_plain(*args[:5], False, dtype, *args[5:])
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(out.float(), want[0].float(), rtol=tol, atol=tol)
+    for got, ref in zip((hT, cT), want[1:]):
+        torch.testing.assert_close(got, ref, rtol=F32_TOL, atol=F32_TOL)
+    assert torch.equal(hT[1], args[5][1]) and torch.equal(cT[1], args[6][1])
+    assert not out[1].any() and not out[3, 1:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,B,T", [(48, 5, 6), (384, 8, 4), (384, 1, 12)])
+def test_lstm_stream_chunks_equal_one_launch(cuda, H, B, T):
+    """Chunks of T steps carrying (h, c) give the bits of one K2 launch over
+    their frames (from zeros), and of one carried launch (from (h0, c0)),
+    the final state too."""
+    n = 5
+    x, wih, whh, bias, _, h0, c0 = _stream_case(cuda, torch.bfloat16, B, n * T, 64, H)
+    seq = torch.tensor(([n * T, 0, 2 * T + 1, n * T - 1, 3] + [n * T] * B)[:B],
+                       dtype=torch.int32, device=cuda)
+    one_k2 = lstm_cuda.lstm_seq_infer(x, wih, whh, bias, seq, False, torch.bfloat16)
+    one = lstm_cuda.lstm_seq_stream(x, wih, whh, bias, seq, h0, c0, torch.bfloat16)
+    zeros = torch.zeros_like(h0)
+    for start, whole in (((zeros, zeros), (one_k2,)), ((h0, c0), one)):
+        parts, (h, c) = [], start
+        for i in range(n):
+            part = torch.clamp(seq - i * T, 0, T).int()
+            o, h, c = lstm_cuda.lstm_seq_stream(x[:, i * T:(i + 1) * T].contiguous(), wih, whh,
+                                                bias, part, h, c, torch.bfloat16)
+            parts.append(o)
+        assert torch.equal(torch.cat(parts, dim=1), whole[0])
+        if len(whole) == 3:
+            assert torch.equal(h, whole[1]) and torch.equal(c, whole[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [48, 384])
+def test_lstm_stream_wide_form_equals_the_grid(cuda, H):
+    """The per-utterance form (``stream_on_route(None, ...)``, counted
+    ``lstm_seq_stream_wide``) gives the grid's bits; past the grid the op
+    takes it (forced here by a route of None)."""
+    args = _stream_case(cuda, torch.bfloat16, H=H)
+    grid = lstm_cuda.forward_route(H, 5, build.sm_count(cuda.index or 0))
+    assert grid is not None
+    build.reset_launches()
+    on_grid = lstm_cuda.stream_on_route(grid, *args, torch.bfloat16)
+    wide = lstm_cuda.stream_on_route(None, *args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"lstm_seq_stream": 1,
+                                                               "lstm_seq_stream_wide": 1}
+    assert all(torch.equal(a, b) for a, b in zip(on_grid, wide))
+
+
+@pytest.mark.cuda
+def test_lstm_stream_refuses_what_it_does_not_take(cuda):
+    x, wih, whh, bias, lengths, h0, c0 = _stream_case(cuda, torch.float32)
+    with pytest.raises(ValueError, match="h0"):
+        lstm_cuda.lstm_seq_stream(x, wih, whh, bias, lengths, h0[:2], c0)
+    with pytest.raises(ValueError, match="c0"):
+        lstm_cuda.lstm_seq_stream(x, wih, whh, bias, lengths, h0, c0.double())
+    with pytest.raises(ValueError, match="forward only"):
+        lstm_cuda.lstm_seq_stream(x, wih, whh, bias, lengths, h0, c0, reverse=True)

@@ -108,8 +108,8 @@ result line):
      teacher-forced decoder logits, the attention search (and config 5's
      joint search), and one train step (loss, gradients, parameters after
      AdamW); ``decode.main`` at full width in bf16 (config 4: attention
-     beam 8, 4 batches on its decode ladder; config 5: joint beam 16, 2
-     batches of 32) and ``train.main`` (20 steps of 16 and of 32, config 5
+     beam 8, 4 batches on its decode ladder; config 5: joint beam 16, 1
+     batch of 32) and ``train.main`` (20 steps of 16 and of 32, config 5
      with waveform augmentation), each with launch counts (config 4's
      training launches no K4) and no plain STFT, LSTM or CTC call on the
      card; the tiny joint model of the JAX package's end-to-end test
@@ -131,7 +131,19 @@ result line):
      and 8; ``decode.main`` and ``train.main`` of the causal model with
      exact counts; ``ctc_forced_align`` card vs CPU and ``align.main`` over
      config 1; the recognizer at H 1536 (the wide form);
-  14. check that no path launched the per-utterance oracle or took a wide
+  14. slice 21, streaming beam mode: the carried forms of K7, K8 and K9
+     (a chunk of a stream from a ``BeamState``) at the stream's block shape
+     (logp (8, 4, 31), K 16, L 256) against the plain carried search on
+     planted log-probs over 12 blocks, timed beside it, and K7's
+     in-scratch and K9's block forms once each; the beam recognizer on
+     config 2's settings made causal (H 512 x 4, bf16), B 8 streams of 16
+     s, blocks of 16 and 48 frames, with no LM, the 4-gram (all chars and
+     the top 8) and the RNN LM (both), each block exactly one K1, four
+     ``lstm_seq_stream`` and one carried search, no plain version, its
+     beams and best equal to the same kernel's over the blocks' logits bit
+     for bit, its latency a block and RTF at B 1 and 8, one profiled run;
+     and the ported ``bench_streaming`` script briefly;
+  15. check that no path launched the per-utterance oracle or took a wide
      route; print the kernels line, the card line, and ``{"ok": true, ...}``
      last.
 Whether it passes or fails, the script ends every process it started (the
@@ -191,7 +203,7 @@ from pytorch_asr_tpu_torch.parallel import distributed, launch
 from pytorch_asr_tpu_torch.parallel.mesh import make_mesh
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
 from pytorch_asr_tpu_torch.scripts import (_timing, bench_beam_compile, bench_kernel_turns,
-                                           bench_prefix_beam)
+                                           bench_prefix_beam, bench_streaming)
 from pytorch_asr_tpu_torch.training import state as train_state
 from pytorch_asr_tpu_torch.training.trainer import Trainer
 
@@ -322,7 +334,11 @@ WIDE_ROUTES = ("lstm_seq_wide", "lstm_seq_train_wide", "lstm_seq_bwd_wide", "bil
                "merge_topk_wide",
                "prefix_beam_wide", "prefix_beam_topa_wide",
                "prefix_beam_rnn_wide", "prefix_beam_rnn_topa_wide", "prefix_beam_rnn_block",
-               "prefix_beam_rnn_topa_block", "prefix_beam_fused_wide", "prefix_beam_stepwise_wide",
+               "prefix_beam_rnn_topa_block", "prefix_beam_carry_wide",
+               "prefix_beam_topa_carry_wide", "prefix_beam_rnn_carry_block",
+               "prefix_beam_rnn_topa_carry_block", "prefix_beam_rnn_carry_wide",
+               "prefix_beam_rnn_topa_carry_wide", "prefix_beam_fused_wide",
+               "prefix_beam_stepwise_wide",
                "ctc_alpha_wide", "ctc_beta_wide", "ctc_alpha_paired_wide", "stft_log_mel_dft")
 # K9 past shared memory: an LM of H 512 x 2 layers (random weights from a
 # seed) at beam 16, and the trained default LM at beam 32.
@@ -348,6 +364,19 @@ CAUSAL = ("model.encoder.bidirectional=false", "model.encoder.causal_conv=true",
 STREAM_B, STREAM_SEC, STREAM_CHUNK, STREAM_BLOCKS = 8, 16, 1600, (16, 48)
 # lstm_seq_stream's chunks (of 4 and 12 steps) and its wide form at H 1536.
 STREAM_KERNEL_CHUNKS, STREAM_KERNEL_D = 5, 640
+# Slice 21: streaming beam mode on config 2's settings made streaming-capable
+# (CAUSAL: conv (32, 32), H 512 x 4 in one direction, V 31, bf16; beam 16,
+# max_len 256, alpha 0.5, beta 1.0): five arms {name: (fusion source,
+# ext_top_a)} over the 4-gram table or the RNN LM, B 8 streams in blocks of
+# 16 and 48 frames (4 and 12 search frames), and B 1 in blocks of 16 for
+# the latency.
+STREAM_BEAM_ARMS = {"none": (None, 0), "dense": ("dense", 0), "dense_topa": ("dense", BEAM_A),
+                    "rnn": ("rnn", 0), "rnn_topa": ("rnn", BEAM_A)}
+# The carried forms against the plain carried search: planted logits of 8
+# rows (one of no frames) of CARRY_T frames, in blocks of CARRY_BLOCK (a
+# block of 16 frames after the two stride-2 convs).
+CARRY_T, CARRY_BLOCK = 48, 4
+CARRY_LENS = [48, 48, 45, 40, 33, 48, 21, 0]
 # Forced alignment on planted logits, card vs CPU: log-softmax and float32
 # adds on both, so the paths are equal and the scores agree to rounding.
 ALIGN_RTOL, ALIGN_BATCHES = 1e-6, 2
@@ -1532,6 +1561,17 @@ def bench_scripts_phase() -> dict:
         check(all(math.isfinite(a["ms"]) and a["ms"] > 0 for a in res["arms"].values()),
               f"{name}: bad timings {res['arms']}")
         out[name] = {**res, "argv": argv, "wall_s": wall, "launches": launches}
+    # The streaming script: each arm's calls run one block each, counted by
+    # the script itself (K9's LM, E 64 x 1 layer, on its grid at B 1).
+    t0 = time.perf_counter()
+    res = bench_streaming.main(["B=1", "blocks=16", "chunks=8"])
+    for arm, kernel in (("greedy_16", None), ("beam_16", "prefix_beam_carry"),
+                        ("beam_rnnlm_16", "prefix_beam_rnn_carry")):
+        want = {"stft_log_mel": 8, "lstm_seq_stream": 4 * 8, **({kernel: 8} if kernel else {})}
+        check(res["arms"][arm]["launches"] == want,
+              f"bench_streaming {arm}: launches {res['arms'][arm]['launches']} != {want}")
+        check(math.isfinite(res["arms"][arm]["p50_ms"]), f"bench_streaming {arm}: {res}")
+    out["bench_streaming"] = {**res, "wall_s": time.perf_counter() - t0}
     return out
 
 
@@ -1938,7 +1978,9 @@ def plain_calls_of(*targets):
 
     def counted(fn):
         def run(x, *args, **kwargs):
-            calls.append((x["pb"] if isinstance(x, dict) else x).device.type)  # a merge's stays
+            # A merge's stays, a carried search's BeamState, else a tensor.
+            first = x["pb"] if isinstance(x, dict) else getattr(x, "pb", x)
+            calls.append(first.device.type)
             return fn(x, *args, **kwargs)
         return run
 
@@ -3307,7 +3349,7 @@ def read_dump(prefix: str) -> list[tuple[str, str]]:
 def sharded_decode_phase(arpa: str, rnn_lm: str) -> dict:
     """Config 2's serving path across ranks: ``decode.main ctc_bilstm_beam_lm
     decode.shard_beams=true`` at full width on its 14-bucket decode ladder
-    over 64 utterances of 10-16 s, 2 batches, in ranks spawned on the one
+    over 64 utterances of 10-16 s, SHARD_BATCHES batches, in ranks spawned on the one
     card over gloo.  Each rank and batch runs 1 K1, the K2 launches of its
     direction (4, or 8 without the split), one K10 a frame, no K7 or K9, and
     no plain merge or search on the card.
@@ -3932,22 +3974,36 @@ def stream_audio(b: int, cfg: FrontendConfig) -> np.ndarray:
     return audio
 
 
-def run_stream(model, cfg, audio: np.ndarray, block_frames: int) -> dict:
-    """Feed ``audio`` to a ``StreamingRecognizer`` in STREAM_CHUNK-sample
-    chunks, then ``finish``: {"tokens", "block_s" (host wall a block, the
-    device's work and the ids' copy included), "launches", "plain_calls",
-    "enc", "logits" (each block's LSTM output and logits, concatenated)}."""
-    rec = streaming.StreamingRecognizer(model, cfg, audio.shape[0], block_frames)
+def run_stream(model, cfg, audio: np.ndarray, block_frames: int, **rec_kw) -> dict:
+    """Feed ``audio`` to a ``StreamingRecognizer`` (``rec_kw``: beam mode and
+    its fusion) in STREAM_CHUNK-sample chunks, then ``finish``: {"tokens"
+    (greedy: the ids collected; beam: ``finish``'s best prefixes),
+    "block_s" (host wall a block, the device's work and the ids' copy
+    included), "launches", "plain_calls", "enc", "logits" (each block's LSTM
+    output and logits, concatenated), "blocks" (each block's logits), and in
+    beam mode "searches" (each block's log-probs, valid frames and best beam
+    as the search got and gave them) and "state" (the beams and LM state
+    after the last block)}."""
+    rec = streaming.StreamingRecognizer(model, cfg, audio.shape[0], block_frames, **rec_kw)
     got = [[] for _ in range(audio.shape[0])]
-    encs, logits, head = [], [], model.ctc_logits
+    encs, logits, searches, head = [], [], [], model.ctc_logits
+    search = prefix_beam.prefix_beam_continue_best
 
     def recorded(enc):
         encs.append(enc)
         logits.append(head(enc))
         return logits[-1]
 
+    def searched(state, logp, n_valid, **kw):
+        out = search(state, logp, n_valid, **kw)
+        searches.append((logp, n_valid, out[2]))
+        return out
+
     model.ctc_logits = recorded
-    plain = [(stft_cuda, "stft_log_mel_plain"), (lstm_cuda, "lstm_seq_plain")]
+    prefix_beam.prefix_beam_continue_best = searched
+    plain = [(stft_cuda, "stft_log_mel_plain"), (lstm_cuda, "lstm_seq_plain"),
+             (prefix_beam, "beam_scan_plain"), (prefix_beam, "continue_plain")]
+    beam = rec.mode == "beam"
     try:
         with plain_calls_of(*plain) as plain_calls, timed_calls(
                 (streaming.StreamingRecognizer, "_run_block"), sync=False) as log:
@@ -3956,14 +4012,18 @@ def run_stream(model, cfg, audio: np.ndarray, block_frames: int) -> dict:
             for off in range(0, audio.shape[1], STREAM_CHUNK):
                 for b, new in enumerate(rec.accept(audio[:, off:off + STREAM_CHUNK])):
                     got[b].extend(new)
-            for b, new in enumerate(rec.finish()):
-                got[b].extend(new)
+            final = rec.finish()
+            got = final if beam else [g + new for g, new in zip(got, final)]
             launches = dict(build.LAUNCHES)
     finally:
         del model.ctc_logits
-    return {"tokens": got, "block_s": [s for s, _ in log["_run_block"]], "launches": launches,
-            "plain_calls": list(plain_calls), "enc": torch.cat(encs, dim=1),
-            "logits": torch.cat(logits, dim=1)}
+        prefix_beam.prefix_beam_continue_best = search
+    out = {"tokens": got, "block_s": [s for s, _ in log["_run_block"]], "launches": launches,
+           "plain_calls": list(plain_calls), "enc": torch.cat(encs, dim=1),
+           "logits": torch.cat(logits, dim=1), "blocks": logits}
+    if beam:
+        out.update(searches=searches, state=(rec.state.beam, rec.state.lm_carry))
+    return out
 
 
 def stream_parity(run: dict, out: dict, offline: list, strict: bool) -> dict:
@@ -4195,6 +4255,354 @@ def slice20_phases() -> tuple[list[dict], dict]:
                   "wide_stream": wide["launches"]}
 
 
+def carried_name(src, A: int) -> str:
+    """The carried search's count on its main route (K9 on its grid)."""
+    base = "prefix_beam_rnn" if src == "rnn" else "prefix_beam"
+    return base + ("_topa" if A else "") + "_carry"
+
+
+def stream_beam_sources(cfg, arpa: str, rnn_lm_path: str) -> dict:
+    """The fusion keywords of each source: the 4-gram table through
+    ``driver.load_lm`` (as ``decode.main`` loads it) and the RNN LM with its
+    ``sos_id``, at config 2's alpha and beta."""
+    dec, sos = cfg.decode, get_tokenizer(cfg.data.vocab).sos_id
+    lm = dict(lm_alpha=dec.lm_alpha, lm_beta=dec.lm_beta)
+    return {None: {},
+            "dense": {**lm, "lm_table": driver.load_lm(
+                get_config(CFG2, **{"decode.lm_path": arpa}), CARD)},
+            "rnn": {**lm, "sos_id": sos, "rnn_lm": driver.load_lm(
+                get_config(CFG2, **{"decode.lm_path": rnn_lm_path}), CARD)}}
+
+
+def stream_beam_parity(run: dict, whole: dict, full: tuple, fusion: dict, cfg) -> dict:
+    """A beam-mode run against the same kernel over the blocks' logits,
+    concatenated (each block's valid frames): the log-softmax and top-A of
+    the concatenation must equal the blocks' bit for bit; the run's beams
+    and LM state after its last block must equal the carried form's in one
+    launch over the concatenation on every beam, and its last best beam
+    (tokens, length, score) that launch's and the offline kernel's
+    (``prefix_beam_search``), bit for bit; its tokens that search's, and
+    something decoded.  The agreement with ``full``, the search over the
+    whole utterance's logits (where the head's GEMM sums a block's rows in
+    another order), is reported only."""
+    searches, dec = run["searches"], cfg.decode
+    check(all(bool((nv == nv[0]).all()) for _, nv, _ in searches),
+          "stream beam: rows of one block have different valid frames")
+    n = [int(nv[0]) for _, nv, _ in searches]
+    logp = torch.cat([lp[:, :k] for (lp, _, _), k in zip(searches, n)], dim=1).contiguous()
+    logits = torch.cat([lg[:, :k] for lg, k in zip(run["blocks"], n)], dim=1).contiguous()
+    check(torch.equal(torch.log_softmax(logits, dim=-1), logp),
+          "stream beam: the log-softmax of the blocks differs from the concatenation's")
+    A = fusion["ext_top_a"]
+    if A:
+        parts = [prefix_beam.top_a(lp[:, :k].contiguous(), A) for (lp, _, _), k in zip(searches, n)]
+        whole_top = prefix_beam.top_a(logp, A)
+        check(all(torch.equal(torch.cat([p[i] for p in parts], dim=1), whole_top[i])
+                  for i in (0, 1)), "stream beam: the blocks' top-A differs from the whole's")
+    B, K, L = logp.shape[0], dec.beam_size, dec.max_decode_len
+    lens = torch.full((B,), logp.shape[1], dtype=torch.int32, device=CARD)
+    kw = {k: v for k, v in fusion.items() if k != "sos_id"}
+    carry0 = (prefix_beam.rnn_lm_carry_init(kw["rnn_lm"], B, K, fusion["sos_id"])
+              if "rnn_lm" in kw else None)
+    one = prefix_beam.prefix_beam_continue_best(prefix_beam.prefix_beam_init(B, K, L, CARD),
+                                                logp, lens, lm_carry=carry0, **kw)
+    state, carry = run["state"]
+    for name, a, b in zip(prefix_beam.BeamState._fields, state, one[0]):
+        check(torch.equal(a, b), f"stream beam: state.{name} differs from one launch's")
+    if carry is not None:
+        for name, a, b in zip(prefix_beam.LMCarry._fields, carry, one[1]):
+            check(torch.equal(a, b), f"stream beam: lm_carry.{name} differs from one launch's")
+    offline = prefix_beam.prefix_beam_search(logits, lens, beam_size=K, max_len=L,
+                                             sos_id=fusion.get("sos_id", 29), **kw)
+    best = searches[-1][2]
+    check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(best, one[2], offline)),
+          "stream beam: the best beam differs from the kernel's over the blocks' logits")
+    want = [offline[0][b, :offline[1][b]].tolist() for b in range(B)]
+    check(run["tokens"] == want, "stream beam: tokens differ from the offline kernel's")
+    check(any(run["tokens"]), "stream beam: nothing decoded")
+    return {"frames": logp.shape[1], "tokens": sum(map(len, run["tokens"])),
+            "bit_equal": True,
+            "utterance_rows_equal": sum(run["tokens"][b] == full[0][b, :full[1][b]].tolist()
+                                        for b in range(B)),
+            "utterance_logits_max_abs_diff": float(
+                (logits - whole["ctc_logits"][:, :logits.shape[1]]).abs().max())}
+
+
+def stream_beam_phase(arpa: str, rnn_lm_path: str) -> tuple[dict, dict]:
+    """The beam recognizer at full width on the card: config 2's settings
+    made causal (``CAUSAL``: H 512 x 4 in one direction, bf16, beam 16,
+    max_len 256), seeded weights, B 8 streams of ``stream_audio`` in
+    1600-sample chunks, blocks of 16 and 48 frames, five arms
+    (``STREAM_BEAM_ARMS``).  Each block launches exactly one K1, four
+    ``lstm_seq_stream`` and one carried search (K7, K8, or K9 on its grid)
+    and nothing else, and no plain version runs; each run is held to the
+    kernel over its blocks' logits (``stream_beam_parity``).  The
+    host-observed latency a block (p50, p99) and the RTF at B 8, and at B 1
+    in blocks of 16, and one profiled run's busy share (RNN LM, blocks of
+    16, B 8).  ->
+    (results, the launches of the arms' runs at blocks of 16 and B 8)."""
+    cfg = get_config(CFG2, **dict(a.split("=", 1) for a in CAUSAL))
+    audio = stream_audio(STREAM_B, cfg.frontend)
+    model = build_model(cfg, CARD)
+    with torch.inference_mode():
+        whole = model(torch.from_numpy(audio).to(CARD),
+                      torch.full((STREAM_B,), audio.shape[1], device=CARD))
+    sources = stream_beam_sources(cfg, arpa, rnn_lm_path)
+    res, path = {"streams": STREAM_B, "seconds": STREAM_SEC, "chunk": STREAM_CHUNK}, {}
+    for arm, (src, A) in STREAM_BEAM_ARMS.items():
+        fusion = {**sources[src], "ext_top_a": A}
+        name = carried_name(src, A)
+        kw = {k: v for k, v in fusion.items() if k != "sos_id"}
+        full = prefix_beam.prefix_beam_search(
+            whole["ctc_logits"], whole["enc_len"], beam_size=cfg.decode.beam_size,
+            max_len=cfg.decode.max_decode_len, sos_id=fusion.get("sos_id", 29), **kw)
+        for block in STREAM_BLOCKS:
+            rec = {}
+            for b in (STREAM_B, 1) if block == STREAM_BLOCKS[0] else (STREAM_B,):
+                run = run_stream(model, cfg, audio[:b], block, mode="beam", **fusion)
+                n = len(run["block_s"])
+                want = {"stft_log_mel": n, "lstm_seq_stream": CFG2_LAYERS * n, name: n}
+                check({k: v for k, v in run["launches"].items() if v} == want,
+                      f"stream beam {arm} block {block} B {b}: launches {run['launches']} "
+                      f"!= {want}")
+                check(not run["plain_calls"],
+                      f"a plain version ran on the card: {run['plain_calls']}")
+                times = np.array(run["block_s"]) * 1e3
+                rec[f"b{b}"] = {"p50_ms": float(np.percentile(times, 50)),
+                                "p99_ms": float(np.percentile(times, 99)),
+                                "rtf": float(times.sum() / 1e3 / STREAM_SEC)}
+                if b == STREAM_B:
+                    rec.update(blocks=n, launches=run["launches"],
+                               **stream_beam_parity(run, whole, full, fusion, cfg))
+                    if block == STREAM_BLOCKS[0]:
+                        for k, v in run["launches"].items():
+                            path[k] = path.get(k, 0) + v
+            res[f"{arm}_block{block}"] = rec
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fusion = {**sources["rnn"], "ext_top_a": 0}
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_stream(model, cfg, audio, STREAM_BLOCKS[0], mode="beam", **fusion)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    device_ms = sum(r["device_ms"] for r in rows)
+    check(device_ms > 0, "stream beam profile: no device time recorded")
+    res["profile"] = {"arm": "rnn", "wall_ms": wall_ms, "device_ms": device_ms,
+                      "busy": device_ms / wall_ms, "top": rows[:6]}
+    return res, path
+
+
+def carried_planted(g: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """Log-probs (8, CARRY_T, 31) on the card: normal(0, 2) logits with a
+    random char path planted at +8 (decisive: K9's sums in another order
+    cannot flip a pick), rows of CARRY_LENS frames."""
+    logits = torch.randn(len(CARRY_LENS), CARRY_T, V, generator=g) * 2
+    path = torch.randint(0, V, (len(CARRY_LENS), CARRY_T), generator=g)
+    logits.scatter_add_(2, path[..., None], torch.full(path.shape + (1,), 8.0))
+    return (torch.log_softmax(logits, dim=-1).to(CARD),
+            torch.tensor(CARRY_LENS, dtype=torch.int32, device=CARD))
+
+
+def carry_bound(K: int, C: int, A: int, B: int, L: int, frames: int, extra_bytes: int,
+                lm_ops: float = 0.0, lm_state_floats: int = 0) -> tuple[float, str]:
+    """``search_bound`` of one carried launch at a block: its frames' bytes
+    and operations, plus the beams' state read and written (tokens (B, K, L)
+    and 7 fields each way) and, for K9, each beam's LM state
+    (``lm_state_floats``) each way."""
+    state = 2 * 4 * (B * K * L + 7 * B * K) + 2 * 4 * lm_state_floats
+    return search_bound(frames, K, C, V, A, B, L, extra_bytes + state, lm_ops)
+
+
+def carried_table_bytes(state, blk: torch.Tensor, nv: torch.Tensor, fusion: dict,
+                        A: int) -> int:
+    """The dense table's bytes that one carried block needs: its distinct
+    entries (context, char) that a live beam extends by at a valid frame
+    (chars 1..V-1, or the frame's top-A but the blank), 4 bytes each, from
+    the plain carried search run a frame at a time.  A block reads a few
+    hundred of the table's 29,791 rows, so the whole table is no measure."""
+    table, need = fusion["lm_table"], []
+    for t in range(blk.shape[1]):
+        f, v = blk[:, t:t + 1].contiguous(), (nv > t).to(torch.int32)
+        top = prefix_beam.top_a(f, A) if A else (None, None)
+        chars = top[1][:, 0] if A else torch.arange(1, V, device=CARD).expand(len(v), -1)
+        live = (prefix_beam._lse(state.pb, state.pnb) > prefix_beam.NEG_INF / 2) & (v > 0)[:, None]
+        ent = state.ctx.long()[..., None] * table.shape[1] + chars.long()[:, None, :]
+        need.append(ent[live[..., None] & (chars != 0)[:, None, :]])
+        state, _ = prefix_beam.continue_plain(state, f, v, table, fusion["lm_alpha"],
+                                              fusion["lm_beta"], *top)
+    return 4 * int(torch.unique(torch.cat(need)).numel())
+
+
+def carried_kernels_phase(arpa: str, rnn_lm_path: str) -> list[dict]:
+    """Each carried form at the stream's block shape (logp (8, 4, 31), K 16,
+    L 256; config 2's fusion): over CARRY_T // CARRY_BLOCK blocks of
+    planted log-probs against the plain carried search
+    (``continue_plain``) on the card after every block, on the beams alive
+    in the plain search (K7/K8's dead fillers may differ: their lanes
+    include the blank's): K7 and K8 bit for bit, K9 (grid) with tokens,
+    lengths, hashes, contexts and last chars exact and pb, pnb, lm_s and
+    the LM state within RNN_RTOL / RNN_ATOL; then timed on one mid-stream
+    block (the profiler's device time a launch, and a wrapper call's with
+    CUDA events) beside the plain loop, K9 also on a block of no frames (its
+    grid's prologue and epilogue alone).  K7's in-scratch form (``fits`` forced
+    off, ``prefix_beam_carry_wide``) must give the shared form's bits and
+    K9's block form (``prefix_beam_rnn_carry_block``) the grid's tokens, at
+    that block."""
+    cfg = get_config(CFG2, **dict(a.split("=", 1) for a in CAUSAL))
+    sources = stream_beam_sources(cfg, arpa, rnn_lm_path)
+    logp, lens = carried_planted(torch.Generator().manual_seed(23))
+    Bc, K, L = len(CARRY_LENS), cfg.decode.beam_size, cfg.decode.max_decode_len
+    rows = []
+    for src, A, line in ((None, 0, 756), ("dense", BEAM_A, 1566), ("rnn", 0, 1452),
+                         ("rnn", BEAM_A, 1452)):
+        fusion = {k: v for k, v in sources[src].items() if k != "sos_id"}
+        rnn = fusion.get("rnn_lm")
+        carry = (prefix_beam.rnn_lm_carry_init(rnn, Bc, K, sources["rnn"]["sos_id"])
+                 if rnn is not None else None)
+        state = plain = prefix_beam.prefix_beam_init(Bc, K, L, CARD)
+        plain_carry, err, mid = carry, 0.0, None
+        for t0 in range(0, CARRY_T, CARRY_BLOCK):
+            blk = logp[:, t0:t0 + CARRY_BLOCK].contiguous()
+            nv = torch.clamp(lens - t0, 0, CARRY_BLOCK).to(torch.int32)
+            if t0 == CARRY_T // 2:
+                mid = (state, carry, blk, nv)
+            top = prefix_beam.top_a(blk, A) if A else (None, None)
+            state, carry, _ = prefix_beam.prefix_beam_continue_best(
+                state, blk, nv, lm_carry=carry, ext_top_a=A, **fusion)
+            with lm_steps_counted() as steps:
+                plain, plain_carry = prefix_beam.continue_plain(
+                    plain, blk, nv, fusion.get("lm_table"), fusion.get("lm_alpha", 0.0),
+                    fusion.get("lm_beta", 0.0), *top, rnn_lm=rnn, lm_carry=plain_carry)
+            if t0 == CARRY_T // 2:
+                mid_steps = steps[0]
+            live = prefix_beam._lse(plain.pb, plain.pnb) > prefix_beam.NEG_INF / 2
+            tag = f"{carried_name(src, A)} block {t0 // CARRY_BLOCK}"
+            check(torch.equal(prefix_beam._lse(state.pb, state.pnb) > prefix_beam.NEG_INF / 2,
+                              live), f"{tag}: other beams alive than the plain search's")
+            below = (torch.arange(L, device=CARD) < plain.length[..., None]) & live[..., None]
+            check(torch.equal(torch.where(below, state.tokens, 0),
+                              torch.where(below, plain.tokens, 0)), f"{tag}: tokens differ")
+            for f in ("length", "hash", "ctx", "last"):
+                check(torch.equal(getattr(state, f)[live], getattr(plain, f)[live]),
+                      f"{tag}: {f} differs")
+            pairs = [(getattr(state, f)[live], getattr(plain, f)[live]) for f in ("pb", "pnb",
+                                                                               "lm_s")]
+            if rnn is not None:
+                pairs += [(a[:, live] if a.dim() == 4 else a[live],
+                           b[:, live] if b.dim() == 4 else b[live])
+                          for a, b in zip(carry, plain_carry)]
+            for a, b in pairs:
+                if rnn is not None:
+                    torch.testing.assert_close(a, b, rtol=RNN_RTOL, atol=RNN_ATOL,
+                                               msg=lambda m, tag=tag: f"{tag}: {m}")
+                else:
+                    check(torch.equal(a, b), f"{tag}: a score differs")
+                err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+        st, cy, blk, nv = mid
+        tv, ti = prefix_beam.top_a(blk, A) if A else (None, None)
+        if rnn is None:
+            call = lambda: beam_cuda.prefix_beam_carry(  # noqa: E731
+                st, blk, nv, fusion.get("lm_table"), fusion.get("lm_alpha", 0.0),
+                fusion.get("lm_beta", 0.0), tv, ti)
+        else:
+            call = lambda: beam_cuda.prefix_beam_rnn_carry(  # noqa: E731
+                st, cy, blk, nv, rnn, fusion["lm_alpha"], fusion["lm_beta"], tv, ti)
+        plain_call = lambda: prefix_beam.continue_plain(  # noqa: E731
+            st, blk, nv, fusion.get("lm_table"), fusion.get("lm_alpha", 0.0),
+            fusion.get("lm_beta", 0.0), tv, ti, rnn_lm=rnn, lm_carry=cy)
+        C, frames = A or V, int(nv.sum())
+        if rnn is None:
+            extra = carried_table_bytes(st, blk, nv, fusion, A) if "lm_table" in fusion else 0
+            b_ms, b_by = carry_bound(K, C, A, Bc, L, frames, extra)
+        else:
+            lmc = rnn.cfg
+            b_ms, b_by = carry_bound(
+                K, C, A, Bc, L, frames, 4 * sum(p.numel() for p in rnn.parameters()),
+                mid_steps * lm_step_ops(lmc, V),
+                lmc.num_layers * Bc * K * lmc.hidden_dim * 2 + Bc * K * V)
+        kernel = "prefix_beam_kernel" if rnn is None else "prefix_beam_rnn_grid_kernel"
+        row = {"name": carried_name(src, A), "route": "cuda",
+               "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+               "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
+               "shape": f"logp ({Bc}, {CARRY_BLOCK}, {V}) f32 a block, lengths {CARRY_LENS} over "
+                        f"{CARRY_T // CARRY_BLOCK} blocks, K {K}, L {L}, C {C}"
+                        + (", 4-gram table" if "lm_table" in fusion else "")
+                        + (f", LM E {rnn.cfg.embed_dim} H {rnn.cfg.hidden_dim} x "
+                           f"{rnn.cfg.num_layers}" if rnn is not None else ""),
+               "max_abs_err": err,
+               "tol": ({"ints": "equal", "scores_rtol": RNN_RTOL, "scores_atol": RNN_ATOL}
+                       if rnn is not None else {"live beams": "bit-equal"}),
+               "ms": device_ms_per_call(call, kernel), "call_ms": time_ms(call),
+               "plain_ms": time_ms(plain_call, 3, 1, 1),
+               "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
+               "bound_ms": b_ms, "bound_by": b_by}
+        if rnn is not None:   # the grid's per-block prologue and epilogue: a block of no frames
+            idle = torch.zeros_like(nv)
+            row["no_frame_ms"] = device_ms_per_call(lambda: beam_cuda.prefix_beam_rnn_carry(
+                st, cy, blk, idle, rnn, fusion["lm_alpha"], fusion["lm_beta"], tv, ti), kernel)
+        if rnn is None and A == 0:   # the in-scratch form at the same block
+            shared = call()
+            fits = beam_cuda.fits
+            beam_cuda.fits = lambda *a, **k: False
+            try:
+                build.reset_launches()
+                wide = call()
+                torch.cuda.synchronize()
+                check({k: v for k, v in build.LAUNCHES.items() if v}
+                      == {"prefix_beam_carry_wide": 1}, f"carried wide: {dict(build.LAUNCHES)}")
+                check(all(torch.equal(a, b) for a, b in zip(wide[0], shared[0]))
+                      and all(torch.equal(a, b) for a, b in zip(wide[1], shared[1])),
+                      "prefix_beam_carry_wide: bits differ from the shared form's")
+                row["wide_form"] = {"name": "prefix_beam_carry_wide", "bit_equal": True,
+                                    "ms": device_ms_per_call(call, kernel)}
+            finally:
+                beam_cuda.fits = fits
+        if rnn is not None and A == 0:   # the block form at the same block
+            grid = call()
+            build.reset_launches()
+            block_call = lambda: beam_cuda.rnn_carry_on_route(  # noqa: E731
+                None, st, cy, blk, nv, rnn, fusion["lm_alpha"], fusion["lm_beta"])
+            block = block_call()
+            torch.cuda.synchronize()
+            check({k: v for k, v in build.LAUNCHES.items() if v}
+                  == {"prefix_beam_rnn_carry_block": 1}, f"carried block: {dict(build.LAUNCHES)}")
+            check(torch.equal(block[0].tokens, grid[0].tokens)
+                  and torch.equal(block[0].length, grid[0].length),
+                  "prefix_beam_rnn_carry_block: tokens differ from the grid's")
+            row["block_form"] = {"name": "prefix_beam_rnn_carry_block", "tokens_equal": True,
+                                 "max_abs_err": float((block[2][2] - grid[2][2]).abs().max()),
+                                 "ms": device_ms_per_call(block_call, "prefix_beam_kernel")}
+        rows.append(row)
+    return rows
+
+
+def slice21_phases(arpa: str, rnn_lm_path: str) -> tuple[list[dict], dict]:
+    """Slice 21's paths: the carried search's kernel rows and the beam
+    recognizer.  -> (rows, {path: launches})."""
+    t0 = time.perf_counter()
+    rows = carried_kernels_phase(arpa, rnn_lm_path)
+    for k in rows:
+        print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} (tol {k['tol']}) "
+              f"ms {k['ms']:.4f} (a call {k['call_ms']:.4f}) plain {k['plain_ms']:.4f} "
+              f"library none bound {k['bound_ms']:.5f} ({k['bound_by']})"
+              + (f" no frames {k['no_frame_ms']:.4f}" if "no_frame_ms" in k else "")
+              + "".join(f" {f} {k[f]['name']} {k[f]['ms']:.4f} ms"
+                        for f in ("wide_form", "block_form") if f in k))
+    stream, launches = stream_beam_phase(arpa, rnn_lm_path)
+    print("stream_beam:", json.dumps(stream))
+    for arm in STREAM_BEAM_ARMS:
+        for block in STREAM_BLOCKS:
+            r = stream[f"{arm}_block{block}"]
+            print(f"stream_beam {arm} block {block}: bit_equal {r['bit_equal']} tokens "
+                  f"{r['tokens']} utterance rows equal {r['utterance_rows_equal']} "
+                  + " ".join(f"B{b}: p50 {r[f'b{b}']['p50_ms']:.3f} ms p99 "
+                             f"{r[f'b{b}']['p99_ms']:.3f} ms rtf {r[f'b{b}']['rtf']:.5f}"
+                             for b in (1, STREAM_B) if f"b{b}" in r))
+    print(f"stream_beam busy {stream['profile']['busy']:.3f}")
+    print(f"slice21: {time.perf_counter() - t0:.1f} s")
+    return rows, {"stream_beam": launches}
+
+
 def main() -> int:
     card = card_line()
     print(f"card: {card}")
@@ -4273,6 +4681,8 @@ def main() -> int:
           f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
     slice20_rows, slice20_paths = slice20_phases()
     kernels += slice20_rows
+    slice21_rows, slice21_paths = slice21_phases(arpa, rnn_lm)
+    kernels += slice21_rows
     t0 = time.perf_counter()
     las = las_phases()
     print(f"las: {time.perf_counter() - t0:.1f} s")
@@ -4308,7 +4718,8 @@ def main() -> int:
     # 1's training with PAIRED_FWD set, K13 and K12 to the benchmark scripts
     # that reach them, the wide routes to the wide phase's paths, K2 from a
     # carried state to the streaming recognizer (its wide form past the grid
-    # to the recognizer at H 1536); the rest to config 1's training path
+    # to the recognizer at H 1536), the carried searches to the beam
+    # recognizer; the rest to config 1's training path
     # (which runs K2 in its eval); every path's count is printed.
     paths = {"train": trn["launches"], "decode": dec["launches"],
              **{p: r["launches"] for p, r in beam_dec.items()},
@@ -4319,7 +4730,7 @@ def main() -> int:
              **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")},
              **{p: las[p]["launches"] for p in ("las_decode", "joint_decode", "las_train",
                                                 "joint_train")},
-             **wide_paths, **slice20_paths}
+             **wide_paths, **slice20_paths, **slice21_paths}
     wide_paths["wide_stream"] = slice20_paths["wide_stream"]
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
@@ -4337,7 +4748,10 @@ def main() -> int:
                 "merge_topk_wide": "wide_merge", "prefix_beam_rnn_deep": "wide_deep_lm",
                 "ctc_alpha_wide": "wide_ctc", "ctc_beta_wide": "wide_ctc",
                 "ctc_alpha_paired_wide": "wide_paired", "stft_log_mel_dft": "wide_stft",
-                "lstm_seq_stream": "stream_greedy", "lstm_seq_stream_wide": "wide_stream"}
+                "lstm_seq_stream": "stream_greedy", "lstm_seq_stream_wide": "wide_stream",
+                "prefix_beam_carry": "stream_beam", "prefix_beam_topa_carry": "stream_beam",
+                "prefix_beam_rnn_carry": "stream_beam",
+                "prefix_beam_rnn_topa_carry": "stream_beam"}
     # The per-utterance oracles of the grid kernels are no path's kernels.
     oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0)
                    + counts.get("bilstm_seq_bwd_per_utterance", 0) for p, counts in paths.items()}

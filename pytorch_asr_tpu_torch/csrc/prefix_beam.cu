@@ -179,9 +179,28 @@
 // counts under its own names (prefix_beam_wide, ..._topa_wide,
 // prefix_beam_rnn_wide, ..._rnn_topa_wide; K10's merge_topk_wide, below).
 // No model configuration of the repo reaches it.
+//
+// A chunk of a stream (the kCarry forms of the block kernel and of K9's
+// grid; JAX streams the search as decoding/prefix_beam.py:685
+// prefix_beam_continue, a lax.scan of the offline step): the beams start as
+// a BeamCarry in device memory holds them (pb, pnb, lm score, hash, last,
+// length, context, and for K9 each beam's own (h, c) and log-prob row, in
+// slot k of the grid's 2K) instead of search_init's fresh beams, and the
+// state after the chunk goes back there, into other buffers: each beam's
+// fields, its LM state out of the slot it points at, and its tokens, its
+// ancestor's carried row (the beam at the chunk's start that its
+// backpointers lead to) with the chunk's appends written over it from the
+// ancestor's length on.  The best beam's tokens, length and score come out
+// as finish_search gives them.  Nothing in a frame's arithmetic depends on
+// T or on which slot holds a state, so chunks give the bits of one launch
+// over their frames (ops/beam_cuda.py::prefix_beam_carry,
+// prefix_beam_rnn_carry, counted *_carry).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <type_traits>
 
 #include "grid_sync.cuh"
 
@@ -453,6 +472,41 @@ struct SearchIn {
   float alpha, beta;
 };
 
+// A carried search's state in device memory (the kCarry forms: a chunk of a
+// stream, started from the state the last chunk handed on), passed to the
+// kernel by value.  Its 22 pointers, in the order of the host array the C
+// entries take (ops/beam_cuda.py::carry_table): the beams' fields before
+// the chunk in BeamState's order, tokens (B, K, L), length, pb, pnb, lm_s,
+// hash, ctx, last (B, K); the same after it (tokens into another buffer:
+// new beams read their ancestors' rows); and K9's LM state of each beam
+// before and after, h and c (nl, B, K, H) and logp (B, K, V) (null for K7
+// and K8).
+struct BeamCarry {
+  const int* tokens;
+  const int* len;
+  const float *pb, *pnb, *lms;
+  const int *hsh, *ctx, *last;
+  int* tokens_o;
+  int* len_o;
+  float *pb_o, *pnb_o, *lms_o;
+  int *hsh_o, *ctx_o, *last_o;
+  const float *h, *c, *lmp;
+  float *h_o, *c_o, *lmp_o;
+};
+static_assert(sizeof(BeamCarry) == 22 * sizeof(void*), "BeamCarry: 22 pointers");
+
+// The kernels' last parameter: the trace, or for kCarry (which takes no
+// trace) the BeamCarry.  The forms without the flag keep their parameters.
+template <bool kCarry>
+using TraceOr = std::conditional_t<kCarry, BeamCarry, long long*>;
+
+// A C entry's carry (a host array of 22 pointers) as the struct.
+inline BeamCarry beam_carry(const void* const* carry) {
+  BeamCarry cy;
+  std::memcpy(&cy, carry, sizeof cy);
+  return cy;
+}
+
 // Every beam before the first frame: beam 0 the empty prefix, the rest dead.
 __device__ __forceinline__ void search_init(const SearchWs& w, int K, int tid, int nt) {
   for (int r = tid; r < K; r += nt) {  // a thread a beam; more beams loop
@@ -463,6 +517,22 @@ __device__ __forceinline__ void search_init(const SearchWs& w, int K, int tid, i
     w.last[r] = -1;
     w.len[r] = 0;
     w.ctx[r] = 0;
+  }
+}
+
+// The carried form's start: utterance b's beams as the state holds them,
+// into buffer 0 (dead beams keep their hashes).
+__device__ __forceinline__ void carry_in(const SearchWs& w, const BeamCarry& cy, int b, int K,
+                                         int tid, int nt) {
+  for (int r = tid; r < K; r += nt) {
+    const size_t at = (size_t)b * K + r;
+    w.pb[r] = cy.pb[at];
+    w.pnb[r] = cy.pnb[at];
+    w.lms[r] = cy.lms[at];
+    w.hsh[r] = (uint32_t)cy.hsh[at];
+    w.last[r] = cy.last[at];
+    w.len[r] = cy.len[at];
+    w.ctx[r] = cy.ctx[at];
   }
 }
 
@@ -789,6 +859,69 @@ __device__ __forceinline__ void finish_search(const SearchWs& w, const SearchIn&
   }
 }
 
+// The carried form's end for utterance b after its n_t frames (fields in
+// buffer cur): every beam's fields into the state handed on, and its
+// tokens: its ancestor's carried row (the beam it descends from at the
+// chunk's start, found by walking the backpointers; kept in the key array,
+// free after the last frame) with the chunk's appends written over it from
+// the ancestor's length on, below L, as the plain search writes each at its
+// parent's length; then the best beam (the first of equal scores, as
+// finish_search picks it) and its new row.  All threads call it.
+__device__ __forceinline__ void carry_out(const SearchWs& w, const SearchIn& s,
+                                          const BeamCarry& cy, int b, int n_t, int cur,
+                                          int* tokens, int* out_len, float* out_score, int tid,
+                                          int nt) {
+  const int K = s.K, L = s.L, T = s.T;
+  int* anc = reinterpret_cast<int*>(w.key);
+  const float *pb_c = w.pb + cur * K, *pnb_c = w.pnb + cur * K, *lms_c = w.lms + cur * K;
+  for (int r = tid; r < K; r += nt) {
+    int k = r;
+    for (int t = n_t - 1; t >= 0; --t) k = s.parents[((size_t)b * T + t) * K + k];
+    anc[r] = k;
+    const size_t at = (size_t)b * K + r;
+    cy.pb_o[at] = pb_c[r];
+    cy.pnb_o[at] = pnb_c[r];
+    cy.lms_o[at] = lms_c[r];
+    cy.hsh_o[at] = (int)w.hsh[cur * K + r];
+    cy.last_o[at] = w.last[cur * K + r];
+    cy.len_o[at] = w.len[cur * K + r];
+    cy.ctx_o[at] = w.ctx[cur * K + r];
+  }
+  __syncthreads();
+  const size_t row0 = (size_t)b * K * L;
+  for (int e = tid; e < K * L; e += nt) {
+    const int r = e / L;
+    cy.tokens_o[row0 + e] = cy.tokens[row0 + (size_t)anc[r] * L + (e - r * L)];
+  }
+  __syncthreads();
+  for (int r = tid; r < K; r += nt) {
+    for (int t = n_t - 1, k = r, pos = w.len[cur * K + r] - 1; t >= 0; --t) {
+      const size_t at = ((size_t)b * T + t) * K + k;
+      if (s.appends[at] >= 0) {
+        if (pos >= 0 && pos < L) cy.tokens_o[row0 + (size_t)r * L + pos] = s.appends[at];
+        --pos;
+      }
+      k = s.parents[at];
+    }
+  }
+  __syncthreads();
+  int best = 0;
+  float bs = lse(pb_c[0], pnb_c[0]) + lms_c[0];
+  for (int k = 1; k < K; ++k) {
+    const float sc = lse(pb_c[k], pnb_c[k]) + lms_c[k];
+    if (sc > bs) {
+      bs = sc;
+      best = k;
+    }
+  }
+  if (tid == 0) {
+    out_score[b] = bs;
+    out_len[b] = w.len[cur * K + best];
+  }
+  for (int i = tid; i < L; i += nt)
+    tokens[(size_t)b * L + i] = cy.tokens_o[row0 + (size_t)best * L + i];
+}
+
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // a[gate][q] += x.q * w[gate] for the four beams q of a packed group.
@@ -975,12 +1108,15 @@ int search_threads(int K, int C) {
 // K7, K8 and K9's block form: one block per utterance with the time loop
 // inside (the beam is a serial chain over frames).  trace (K7, K8; null
 // for none): block 0's clocks of each frame, (T, 7) as search_frame
-// records them.
-template <bool kTopA, bool kRnn, int kPlace>
+// records them.  kCarry: a chunk of a stream, which takes its BeamCarry
+// where the others take the trace: every beam starts as the carry's state
+// holds it (K9: its own LM state), and the state after the chunk, every
+// beam's tokens included, goes back there.
+template <bool kTopA, bool kRnn, int kPlace, bool kCarry = false>
 __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     SearchIn s, const int* __restrict__ lens, int* __restrict__ tokens,
     int* __restrict__ out_len, float* __restrict__ out_score, RnnLm lm, float* scratch,
-    long long* trace) {
+    TraceOr<kCarry> trace) {
   const int K = s.K, C = s.C, V = s.V;
   extern __shared__ __align__(16) unsigned long long smem[];
   // The working set's base: shared memory, or (kInScratch) this block's
@@ -1018,21 +1154,38 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int n_t = min(max(lens[b], 0), s.T);
-  search_init(w, K, tid, nt);
-  if constexpr (kRnn) {  // every beam starts from the state after <sos>
-    for (int idx = tid; idx < lm.nl * K * lm.H; idx += nt) {
-      const int at = (idx / (K * lm.H)) * lm.H + idx % lm.H;
-      rnn.h[idx] = lm.h0[at];
-      rnn.c[idx] = lm.c0[at];
+  if constexpr (kCarry) {
+    const BeamCarry& cy = trace;
+    carry_in(w, cy, b, K, tid, nt);
+    if constexpr (kRnn) {  // beam k's LM state, (nl, B, K, H) in the carry
+      const int KH = K * lm.H;
+      for (int idx = tid; idx < lm.nl * KH; idx += nt) {
+        const int l = idx / KH;
+        const size_t at = ((size_t)l * gridDim.x + b) * KH + (idx - l * KH);
+        rnn.h[idx] = cy.h[at];
+        rnn.c[idx] = cy.c[at];
+      }
+      for (int idx = tid; idx < K * V; idx += nt) rnn.lmp[idx] = cy.lmp[(size_t)b * K * V + idx];
     }
-    for (int idx = tid; idx < K * V; idx += nt) rnn.lmp[idx] = lm.lmp0[idx % V];
+  } else {
+    search_init(w, K, tid, nt);
+    if constexpr (kRnn) {  // every beam starts from the state after <sos>
+      for (int idx = tid; idx < lm.nl * K * lm.H; idx += nt) {
+        const int at = (idx / (K * lm.H)) * lm.H + idx % lm.H;
+        rnn.h[idx] = lm.h0[at];
+        rnn.c[idx] = lm.c0[at];
+      }
+      for (int idx = tid; idx < K * V; idx += nt) rnn.lmp[idx] = lm.lmp0[idx % V];
+    }
   }
   // The first frame's row; later ones come in ahead.
   if (n_t > 0) load_row<kTopA>(w, s, (size_t)b * s.T, tid, nt);
   __syncthreads();
   int cur = 0;
   for (int t = 0; t < n_t; ++t) {
-    long long* tr = trace != nullptr && b == 0 && tid == 0 ? trace + 7 * (size_t)t : nullptr;
+    long long* tr = nullptr;
+    if constexpr (!kCarry)
+      tr = trace != nullptr && b == 0 && tid == 0 ? trace + 7 * (size_t)t : nullptr;
     search_frame<kTopA, kRnn, kPlace == kInScratch>(
         w, s, b, t, n_t, cur, kRnn ? rnn.lmp + (size_t)cur * K * V : nullptr, nullptr, rnn.par,
         rnn.app, tr, tid, nt);
@@ -1042,15 +1195,33 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     }
     cur ^= 1;
   }
-  finish_search(w, s, b, n_t, cur, tokens, out_len, out_score, tid, nt);
+  if constexpr (kCarry) {
+    const BeamCarry& cy = trace;
+    carry_out(w, s, cy, b, n_t, cur, tokens, out_len, out_score, tid, nt);
+    if constexpr (kRnn) {  // each beam's LM state out of buffer cur
+      const int KH = K * lm.H;
+      const float *h_c = rnn.h + (size_t)cur * lm.nl * KH, *c_c = rnn.c + (size_t)cur * lm.nl * KH;
+      for (int idx = tid; idx < lm.nl * KH; idx += nt) {
+        const int l = idx / KH;
+        const size_t at = ((size_t)l * gridDim.x + b) * KH + (idx - l * KH);
+        cy.h_o[at] = h_c[idx];
+        cy.c_o[at] = c_c[idx];
+      }
+      for (int idx = tid; idx < K * V; idx += nt)
+        cy.lmp_o[(size_t)b * K * V + idx] = rnn.lmp[(size_t)cur * K * V + idx];
+    }
+  } else {
+    finish_search(w, s, b, n_t, cur, tokens, out_len, out_score, tid, nt);
+  }
 }
 
 // Launches one block per utterance with the dynamic shared memory set.
-template <bool kTopA, bool kRnn, int kPlace = kShared>
+// trace: the trace, or for kCarry the BeamCarry.
+template <bool kTopA, bool kRnn, int kPlace = kShared, bool kCarry = false>
 int launch(int B, int threads, size_t smem, void* stream, const SearchIn& s, const int* lens,
            int* tokens, int* out_len, float* out_score, const RnnLm& lm, float* scratch,
-           long long* trace) {
-  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace>;
+           TraceOr<kCarry> trace) {
+  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace, kCarry>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1180,12 +1351,15 @@ __device__ __forceinline__ void stage_copy(float* dst, const float* src, int e, 
 // 0's clocks of each frame, (T, 5 + 3 nl): the global clock; the clock at
 // the frame's start, after its search, after the barrier; for each layer
 // after the first group's staging, after the products and cells, after the
-// barrier; and after the logits.
-template <bool kTopA>
+// barrier; and after the logits.  kCarry: a chunk of a stream, as the block
+// kernel's (its BeamCarry in the trace's place); beam k's
+// carried LM state starts in slot k of its utterance's 2K, and each beam's
+// state goes back out of the slot it points at after the chunk.
+template <bool kTopA, bool kCarry = false>
 __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
     SearchIn s, RnnLm lm, const int* __restrict__ lens, int* __restrict__ tokens,
-    int* __restrict__ out_len, float* __restrict__ out_score, GridBufs g, long long* trace,
-    int B, int units, int stage_rows, int per_cta, int reps) {
+    int* __restrict__ out_len, float* __restrict__ out_score, GridBufs g,
+    TraceOr<kCarry> trace, int B, int units, int stage_rows, int per_cta, int reps) {
   extern __shared__ __align__(16) unsigned long long smem[];
   const int K = s.K, C = s.C, V = s.V, H = lm.H, nl = lm.nl, U4 = 4 * units, S2 = 2 * K;
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
@@ -1261,14 +1435,29 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
   for (int u = 0; u < mine; ++u) {
     const int b = blockIdx.x + u * ctas, n_t = min(max(lens[b], 0), s.T);
     const GridUtt z = grid_utt(utt0 + u * utt_bytes, K, C, V);
-    search_init(z.ws, K, tid, nt);
-    for (int e = tid; e < V; e += nt) z.lmp[e] = lm.lmp0[e];
-    for (int e = tid; e < K; e += nt) z.sid[e] = 0;
-    for (int e = tid; e < S2; e += nt) z.used[e] = 0;
-    if (n_t > 0) load_row<kTopA>(z.ws, s, (size_t)b * s.T, tid, nt);
-    for (int e = tid; e < nl * H; e += nt) {
-      hrow(b, 0, e / H)[e % H] = lm.h0[e];
-      crow(b, 0, e / H)[e % H] = lm.c0[e];
+    if constexpr (kCarry) {  // beam k in slot k, with its own LM state
+      const BeamCarry& cy = trace;
+      carry_in(z.ws, cy, b, K, tid, nt);
+      for (int e = tid; e < K * V; e += nt) z.lmp[e] = cy.lmp[(size_t)b * K * V + e];
+      for (int e = tid; e < K; e += nt) z.sid[e] = e;
+      for (int e = tid; e < S2; e += nt) z.used[e] = 0;
+      if (n_t > 0) load_row<kTopA>(z.ws, s, (size_t)b * s.T, tid, nt);
+      for (int e = tid; e < nl * K * H; e += nt) {
+        const int l = e / (K * H), k = (e / H) % K, j = e % H;
+        const size_t at = (((size_t)l * B + b) * K + k) * H + j;
+        hrow(b, k, l)[j] = cy.h[at];
+        crow(b, k, l)[j] = cy.c[at];
+      }
+    } else {
+      search_init(z.ws, K, tid, nt);
+      for (int e = tid; e < V; e += nt) z.lmp[e] = lm.lmp0[e];
+      for (int e = tid; e < K; e += nt) z.sid[e] = 0;
+      for (int e = tid; e < S2; e += nt) z.used[e] = 0;
+      if (n_t > 0) load_row<kTopA>(z.ws, s, (size_t)b * s.T, tid, nt);
+      for (int e = tid; e < nl * H; e += nt) {
+        hrow(b, 0, e / H)[e % H] = lm.h0[e];
+        crow(b, 0, e / H)[e % H] = lm.c0[e];
+      }
     }
   }
   __syncthreads();
@@ -1276,9 +1465,10 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
   unsigned barriers = 0;
   for (int t = 0; t < steps; ++t) {
     const int cur = t & 1, nxt = cur ^ 1;
-    long long* tr =
-        trace != nullptr && blockIdx.x == 0 && tid == 0 ? trace + (size_t)t * (5 + 3 * nl)
-                                                        : nullptr;
+    long long* tr = nullptr;
+    if constexpr (!kCarry)
+      tr = trace != nullptr && blockIdx.x == 0 && tid == 0 ? trace + (size_t)t * (5 + 3 * nl)
+                                                           : nullptr;
     if (tr) {
       tr[0] = (long long)global_ns();
       tr[1] = clock64();
@@ -1468,7 +1658,24 @@ __global__ void __launch_bounds__(kGridThreads, 1) prefix_beam_rnn_grid_kernel(
   for (int u = 0; u < mine; ++u) {
     const int b = blockIdx.x + u * ctas;
     const GridUtt z = grid_utt(utt0 + u * utt_bytes, K, C, V);
-    finish_search(z.ws, s, b, lens_s[b], lens_s[b] & 1, tokens, out_len, out_score, tid, nt);
+    if constexpr (kCarry) {
+      // Each beam's LM state out of its slot (h and c from L2: other CTAs
+      // wrote them before a grid barrier), then its fields and tokens.
+      const BeamCarry& cy = trace;
+      const int cur = lens_s[b] & 1;
+      const int* sid = z.sid + cur * K;
+      for (int e = tid; e < nl * K * H; e += nt) {
+        const int l = e / (K * H), k = (e / H) % K, j = e % H;
+        const size_t at = (((size_t)l * B + b) * K + k) * H + j;
+        cy.h_o[at] = __ldcg(hrow(b, sid[k], l) + j);
+        cy.c_o[at] = __ldcg(crow(b, sid[k], l) + j);
+      }
+      for (int e = tid; e < K * V; e += nt)
+        cy.lmp_o[(size_t)b * K * V + e] = z.lmp[(size_t)sid[e / V] * V + e % V];
+      carry_out(z.ws, s, cy, b, lens_s[b], cur, tokens, out_len, out_score, tid, nt);
+    } else {
+      finish_search(z.ws, s, b, lens_s[b], lens_s[b] & 1, tokens, out_len, out_score, tid, nt);
+    }
     __syncthreads();
   }
 }
@@ -1769,19 +1976,32 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
 // memory (the wrapper checks its size); else a device scratch of B *
 // scratch_block_bytes(K, C, V, false, 0, 0, 0) bytes, 16-byte aligned,
 // holds it (kInScratch: any K and C).  trace: null, or (T, 7) int64 for
-// block 0's clocks of each frame (search_frame).
+// block 0's clocks of each frame (search_frame).  carry: null for a search
+// from the initial beams, else a host array of BeamCarry's 22 device
+// pointers: the kCarry form, a chunk of a stream from the state it holds
+// to the state it hands on (no trace).
 extern "C" int prefix_beam(const float* logp, const float* top_val, const int* top_idx,
                            const int* lens, const float* table, int* parents, int* appends,
                            int* tokens, int* out_len, float* out_score, int B, int T, int V,
                            int K, int C, int L, int n_ctx, float alpha, float beta,
-                           float* scratch, long long* trace, void* stream) {
+                           float* scratch, long long* trace, const void* const* carry,
+                           void* stream) {
   if (B == 0) return 0;
+  if (carry != nullptr && trace != nullptr) return cudaErrorInvalidValue;
   const bool apart = scratch != nullptr, topa = top_idx != nullptr;
   const size_t smem = apart ? 0 : search_smem_bytes(K, C, V);
   const int threads = search_threads(K, C);
   const SearchIn s = search_in(logp, top_val, top_idx, table, parents, appends, T, V, K, C, L,
                                n_ctx, alpha, beta);
   const RnnLm none = {};
+  if (carry != nullptr) {
+    auto run = topa ? (apart ? launch<true, false, kInScratch, true>
+                             : launch<true, false, kShared, true>)
+                    : (apart ? launch<false, false, kInScratch, true>
+                             : launch<false, false, kShared, true>);
+    return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, none, scratch,
+               beam_carry(carry));
+  }
   auto run = topa ? (apart ? launch<true, false, kInScratch> : launch<true, false>)
                   : (apart ? launch<false, false, kInScratch> : launch<false, false>);
   return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, none, scratch,
@@ -1799,13 +2019,14 @@ extern "C" int prefix_beam(const float* logp, const float* top_val, const int* t
 // not fit beside the search); kInScratch keeps all of it in a device
 // scratch of B * scratch_block_bytes(K, C, V, true, nl, E, H) bytes (where
 // even the LM step's packed inputs do not fit, or K > 1024).  The wrapper
-// checks, for the first two, the shared-memory size.
+// checks, for the first two, the shared-memory size.  carry: as
+// prefix_beam's (the LM state too; h0, c0 and lmp0 are not read).
 extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const int* top_idx,
                                const int* lens, const float* const* weights,
                                const float* const* layers, int nl, int E, int H, int* parents, int* appends, int* tokens, int* out_len,
                                float* out_score, int B, int T, int V, int K, int C, int L,
                                float alpha, float beta, float* scratch, int place,
-                               void* stream) {
+                               const void* const* carry, void* stream) {
   if (B == 0) return 0;
   if (nl < 1) return cudaErrorInvalidValue;
   const RnnLm lm = rnn_lm(weights, layers, nl, E, H);
@@ -1823,6 +2044,16 @@ extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const in
   const bool topa = top_idx != nullptr;
   const SearchIn s = search_in(logp, top_val, top_idx, nullptr, parents, appends, T, V, K, C, L,
                                1, alpha, beta);
+  if (carry != nullptr) {
+    auto run = place == kShared ? (topa ? launch<true, true, kShared, true>
+                                        : launch<false, true, kShared, true>)
+               : place == kLmStateInScratch ? (topa ? launch<true, true, kLmStateInScratch, true>
+                                                    : launch<false, true, kLmStateInScratch, true>)
+                                            : (topa ? launch<true, true, kInScratch, true>
+                                                    : launch<false, true, kInScratch, true>);
+    return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, lm, scratch,
+               beam_carry(carry));
+  }
   auto run = place == kShared            ? (topa ? launch<true, true> : launch<false, true>)
              : place == kLmStateInScratch ? (topa ? launch<true, true, kLmStateInScratch>
                                                   : launch<false, true, kLmStateInScratch>)
@@ -1837,7 +2068,8 @@ extern "C" int prefix_beam_rnn(const float* logp, const float* top_val, const in
 // each run covering H with `units` units a CTA).  Inputs and outputs as
 // prefix_beam_rnn; state: 4 B K nl H floats (h and c of 2K slots an
 // utterance); rows: 4 B K ints (a frame's row list); sync: 3 unsigned, zero;
-// trace: null or (T, 5 + 3 nl) int64.  Returns cudaErrorInvalidValue for a
+// trace: null or (T, 5 + 3 nl) int64; carry: as prefix_beam_rnn's (the
+// kCarry form; no trace).  Returns cudaErrorInvalidValue for a
 // grid that does not cover H and B or smem below its need, and the
 // cooperative launch's error where the grid cannot be resident at once.
 extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
@@ -1849,9 +2081,10 @@ extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
                                     float alpha, float beta, float* state, int* rows,
                                     unsigned* sync, long long* trace, int ctas, int units,
                                     int stage_rows, int per_cta, int reps, int smem,
-                                    void* stream) {
+                                    const void* const* carry, void* stream) {
   if (B == 0) return 0;
-  if (reps < 1 || ctas % reps != 0) return cudaErrorInvalidValue;
+  if (reps < 1 || ctas % reps != 0 || (carry != nullptr && trace != nullptr))
+    return cudaErrorInvalidValue;
   const int cpr = ctas / reps;
   if (nl < 1 || units < 1 || (long long)cpr * units < H ||
       (long long)(cpr - 1) * units >= H || (long long)per_cta * ctas < B || stage_rows < K ||
@@ -1861,13 +2094,20 @@ extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
   SearchIn s = search_in(logp, top_val, top_idx, nullptr, parents, appends, T, V, K, C, L, 1,
                          alpha, beta);
   GridBufs g = {state, reinterpret_cast<int4*>(rows), sync};
-  const void* kernel = top_idx != nullptr
-                           ? reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<true>)
-                           : reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<false>);
+  const bool topa = top_idx != nullptr;
+  const void* kernel =
+      carry != nullptr
+          ? (topa ? reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<true, true>)
+                  : reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<false, true>))
+          : (topa ? reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<true>)
+                  : reinterpret_cast<const void*>(prefix_beam_rnn_grid_kernel<false>));
+  BeamCarry cy = {};
+  if (carry != nullptr) cy = beam_carry(carry);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {&s, &lm, &lens, &tokens, &out_len, &out_score, &g, &trace,
+  void* args[] = {&s, &lm, &lens, &tokens, &out_len, &out_score, &g,
+                  carry != nullptr ? static_cast<void*>(&cy) : static_cast<void*>(&trace),
                   &B, &units, &stage_rows, &per_cta, &reps};
   return launch_cooperative(kernel, dim3(ctas), dim3(kGridThreads), args, (size_t)smem,
                             (cudaStream_t)stream);

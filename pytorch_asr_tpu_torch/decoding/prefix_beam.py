@@ -404,19 +404,36 @@ def beam_scan_plain(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
     started from ``lm_state`` = ``primed_lm_state(rnn_lm, sos_id)`` in every
     beam.  Returns (tokens (B, L) int32, lengths (B,) int32, scores (B,) f32)
     of the best beam of each row."""
-    B, T, V = logp.shape
-    K, L = beam_size, max_len
-    state = _init_state(B, K, L, logp.device)
-    carry = _carry(*lm_state, B, K) if rnn_lm is not None else None
+    B, _, V = logp.shape
+    carry = _carry(*lm_state, B, beam_size) if rnn_lm is not None else None
+    state, _ = continue_plain(_init_state(B, beam_size, max_len, logp.device), logp, logit_len,
+                              lm_table, lm_alpha, lm_beta, top_val, top_idx, blank, rnn_lm,
+                              carry)
+    return beam_best(state)
+
+
+@torch.no_grad()
+def continue_plain(state: BeamState, logp: torch.Tensor, n_valid: torch.Tensor,
+                   lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
+                   lm_beta: float = 0.0, top_val: torch.Tensor | None = None,
+                   top_idx: torch.Tensor | None = None, blank: int = 0,
+                   rnn_lm: CharRNNLM | None = None, lm_carry: LMCarry | None = None):
+    """The plain search from ``state`` (and, with ``rnn_lm``, each beam's LM
+    state ``lm_carry``) over the frames of ``logp`` (B, T, V), row b's first
+    ``n_valid[b]``: (BeamState, LMCarry or None) after them.  A chunk of a
+    stream (the JAX package's ``prefix_beam_continue`` scan) and the
+    function the kernels' carried forms compute; from ``_init_state`` the
+    offline search."""
+    _, T, V = logp.shape
     kw = dict(blank=blank, vocab=V, lm_table=lm_table, lm_alpha=lm_alpha, lm_beta=lm_beta,
-              K=K, L=L, rnn_lm=rnn_lm)
+              K=state.pb.shape[1], L=state.tokens.shape[2], rnn_lm=rnn_lm)
     for t in range(T):
         top = (top_val[:, t], top_idx[:, t]) if top_idx is not None else (None, None)
-        state, carry = _step(state, logp[:, t], t < logit_len, *top, carry=carry, **kw)
-    return _best(state)
+        state, lm_carry = _step(state, logp[:, t], t < n_valid, *top, carry=lm_carry, **kw)
+    return state, lm_carry
 
 
-def _best(state: BeamState):
+def beam_best(state: BeamState):
     """(tokens (B, L), lengths (B,), scores (B,)) of each row's best beam,
     the first of equal scores."""
     B, _, L = state.tokens.shape
@@ -492,3 +509,62 @@ def prefix_beam_search_plain(logits: torch.Tensor, logit_len: torch.Tensor,
     lm_state = primed_lm_state(rnn_lm, sos_id) if rnn_lm is not None else None
     return beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha, lm_beta,
                            top_val, top_idx, rnn_lm=rnn_lm, lm_state=lm_state)
+
+
+# ------------------------------------------------------------- streaming API
+def prefix_beam_init(B: int, beam_size: int, max_len: int, device="cpu") -> BeamState:
+    """Fresh beams for ``prefix_beam_continue``: beam 0 the empty prefix, the
+    rest dead (the JAX package's ``prefix_beam_init`` without a hashed LM's
+    context window, which is not ported)."""
+    return _init_state(B, beam_size, max_len, device)
+
+
+def prefix_beam_continue_best(state: BeamState, logp: torch.Tensor, n_valid: torch.Tensor, *,
+                              blank: int = 0, lm_table: torch.Tensor | None = None,
+                              lm_alpha: float = 0.0, lm_beta: float = 0.0, hash_lm=None,
+                              rnn_lm: CharRNNLM | None = None, lm_carry: LMCarry | None = None,
+                              lm_top_k: int = 0, ext_top_a: int = 0):
+    """``prefix_beam_continue`` and the best beam after the chunk:
+    (BeamState, LMCarry or None, (tokens (B, L), lengths (B,), scores (B,)),
+    ``beam_best`` of the new state).  On CUDA tensors one launch of a
+    kernel's carried form computes all of it (``ops/beam_cuda.py::
+    prefix_beam_carry``, ``prefix_beam_rnn_carry``: K7, K8 over each
+    frame's top-A chars where ``0 < ext_top_a < V``, K9 with ``rnn_lm``); on
+    CPU tensors ``continue_plain`` and ``beam_best`` run."""
+    _check_sources(blank, hash_lm, lm_table, rnn_lm)
+    if (rnn_lm is None) != (lm_carry is None):
+        raise ValueError("give rnn_lm and its lm_carry (rnn_lm_carry_init) together")
+    from pytorch_asr_tpu_torch.ops import beam_cuda
+
+    logp = logp.float().contiguous()
+    A = ext_top_a if 0 < ext_top_a < logp.shape[-1] else 0
+    top_val, top_idx = top_a(logp, A) if A else (None, None)
+    n_valid = n_valid.to(torch.int32).contiguous()
+    if rnn_lm is not None:
+        return beam_cuda.prefix_beam_rnn_carry(state, lm_carry, logp, n_valid, rnn_lm, lm_alpha,
+                                               lm_beta, top_val, top_idx)
+    state, best = beam_cuda.prefix_beam_carry(state, logp, n_valid, lm_table, lm_alpha, lm_beta,
+                                              top_val, top_idx)
+    return state, None, best
+
+
+def prefix_beam_continue(state: BeamState, logp: torch.Tensor, n_valid: torch.Tensor, *,
+                         blank: int = 0, lm_table: torch.Tensor | None = None,
+                         lm_alpha: float = 0.0, lm_beta: float = 0.0, hash_lm=None,
+                         rnn_lm: CharRNNLM | None = None, lm_carry: LMCarry | None = None,
+                         lm_top_k: int = 0, ext_top_a: int = 0):
+    """Advances the beams over one chunk of (B, Tc, V) log-softmax frames,
+    row b's first ``n_valid[b]`` (later frames are frozen): (new BeamState,
+    new LMCarry or None).  Fed an utterance chunk by chunk it gives the
+    bits of the offline search over the concatenation, with every fusion
+    source ported: the dense table's context rides ``state.ctx``, the RNN
+    LM's (h, c) the ``lm_carry`` (start it with ``rnn_lm_carry_init`` and
+    thread it through every chunk).  ``rnn_lm`` is the ``CharRNNLM`` module,
+    which holds its weights.  ``lm_top_k`` prunes only a hashed LM's
+    lookups, so it changes nothing here; ``hash_lm`` raises
+    ``NotImplementedError``."""
+    state, carry, _ = prefix_beam_continue_best(
+        state, logp, n_valid, blank=blank, lm_table=lm_table, lm_alpha=lm_alpha, lm_beta=lm_beta,
+        hash_lm=hash_lm, rnn_lm=rnn_lm, lm_carry=lm_carry, lm_top_k=lm_top_k,
+        ext_top_a=ext_top_a)
+    return state, carry

@@ -32,7 +32,6 @@ import torch
 
 from pytorch_asr_tpu_torch.decoding.prefix_beam import (
     BeamState,
-    _best,
     _build_candidates,
     _check_sources,
     _finish_step,
@@ -40,6 +39,7 @@ from pytorch_asr_tpu_torch.decoding.prefix_beam import (
     _init_state,
     _step_lm,
     LMCarry,
+    beam_best,
     prefix_beam_search,
     rnn_lm_carry_init,
 )
@@ -140,4 +140,4 @@ def prefix_beam_search_sharded(logits: torch.Tensor, logit_len: torch.Tensor, me
             mine = _step_lm(rnn_lm, carry, f["parent"][:, own], f["append"][:, own])
             carry = _freeze_lm(_exchange_lm(mine, mesh), carry, active)
         state = _finish_step(state, f, active, L)
-    return _best(state)
+    return beam_best(state)

@@ -1,5 +1,6 @@
-"""Streaming (online) greedy recognition with a carried state (counterpart of
-``pytorch_asr_tpu.decoding.streaming``, its greedy mode).
+"""Streaming (online) recognition with a carried state (counterpart of
+``pytorch_asr_tpu.decoding.streaming``): greedy mode, and beam mode with no
+LM, a dense n-gram table or the char RNN LM.
 
 It runs the same weights as the offline model, provided the model was built
 streaming-capable: ``model.encoder.bidirectional=false`` and
@@ -11,25 +12,36 @@ and carries, on the device, in a ``StreamState``:
   * each conv layer's last ``kt-1`` input frames: the frames its causal left
     padding covers, so a block's conv outputs are the offline ones;
   * each LSTM layer's (h, c);
-  * the last valid frame's argmax (blank included), so the greedy collapse
-    runs across blocks.
+  * greedy mode: the last valid frame's argmax (blank included), so the
+    greedy collapse runs across blocks; beam mode: the prefix beam search's
+    ``BeamState`` (every beam's tokens, (p_blank, p_nonblank), LM score,
+    hash, dense-LM context and last char) and, with the RNN LM, each beam's
+    ``LMCarry``.
 
 A step is K1 (``ops/stft_cuda.py``: a block's log-mel is the offline
 frontend's over the same samples), the frame mask, the conv stack with its
 re-mask (cuDNN, as offline), one ``lstm_cuda.lstm_seq_stream`` a layer (K2
-from the carried (h, c), handing its state on), the CTC head and the
-cross-block greedy collapse.  On the CPU the wrappers take their plain
-versions.  Raw samples wait in a numpy buffer on the host; a block makes one
-host-to-device copy of its samples and one device-to-host copy of its new
-token ids, as in JAX.
+from the carried (h, c), handing its state on), the CTC head, then the
+cross-block greedy collapse, or in beam mode the log-softmax, each frame's
+top-A chars where ``ext_top_a`` asks for them, and one launch of a search
+kernel's carried form (``decoding/prefix_beam.py::
+prefix_beam_continue_best``: K7, K8 or K9 from the carried beams over the
+block's valid frames, handing the beams on and giving the best one's
+tokens).  On the CPU the wrappers take their plain versions.  Raw samples
+wait in a numpy buffer on the host; a block makes one host-to-device copy of
+its samples and one device-to-host copy of its token ids, as in JAX.
 
 Parity contract: feeding an utterance chunk by chunk gives the tokens of the
-offline model and ``greedy_ctc`` over the whole waveform.  On the card K1's
-frames and K2's steps do not depend on where blocks start; the convs may
-(cuDNN can pick another algorithm for a block than for the utterance).
+offline model and ``greedy_ctc`` over the whole waveform, or in beam mode
+of the offline ``prefix_beam_search`` over the blocks' logits.  On the card
+K1's frames, K2's steps and the search's frames do not depend on where
+blocks start; the convs may (cuDNN can pick another algorithm for a block
+than for the utterance), and so may the head's GEMM (a block's rows summed
+in another order than the utterance's).  Beam mode emits each block's full
+best prefix, which may revise earlier output.
 
-Beam mode (the carried prefix-beam state, with its dense, RNN-LM and hashed
-LM carries) is not ported: it raises ``NotImplementedError``.
+The hashed n-gram LM (``hash_lm``, with its context window in the state) is
+not ported: it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,12 +53,15 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_asr_tpu_torch.configs.base import BiLSTMEncoderConfig, ExperimentConfig
+from pytorch_asr_tpu_torch.decoding import prefix_beam
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
 from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len_causal
+from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM
 from pytorch_asr_tpu_torch.ops import stft_cuda
 
-BEAM_NOT_PORTED = ("streaming beam mode and LM fusion wait for the next slice of the port "
-                   "(ROADMAP.md queue 1, item 6: K7/K8/K9 from a carried beam state)")
+HASH_LM_NOT_PORTED = ("hashed n-gram fusion in streaming beam mode (decoding/lm_hashed.py and "
+                      "its context window in the beam state) waits for ROADMAP.md queue 1, "
+                      "item 8")
 
 
 @dataclasses.dataclass
@@ -57,6 +72,8 @@ class StreamState:
     lstm_h: tuple[torch.Tensor, ...]     # per LSTM layer: (B, H) float32
     lstm_c: tuple[torch.Tensor, ...]     # per LSTM layer: (B, H) float32
     prev_tok: torch.Tensor               # (B,) int64: the last valid frame's argmax, -1 first
+    beam: prefix_beam.BeamState | None = None     # beam mode's carried search
+    lm_carry: prefix_beam.LMCarry | None = None   # its RNN LM's state, each beam's
 
 
 def _check_streamable(cfg: ExperimentConfig) -> BiLSTMEncoderConfig:
@@ -76,10 +93,26 @@ def _check_streamable(cfg: ExperimentConfig) -> BiLSTMEncoderConfig:
 
 
 def init_stream_state(cfg: ExperimentConfig, batch_size: int,
-                      device: str | torch.device = "cpu") -> StreamState:
+                      device: str | torch.device = "cpu", beam: bool = False,
+                      rnn_lm: CharRNNLM | None = None, sos_id: int | None = None,
+                      hash_lm=None) -> StreamState:
     """Zeros: the causal left padding and the zero initial LSTM state of the
-    offline model."""
+    offline model.  ``beam``: the search's initial beams
+    (``cfg.decode.beam_size`` beams of ``cfg.decode.max_decode_len``
+    tokens) and, with ``rnn_lm``, every beam's LM state primed with
+    ``sos_id``."""
     enc = _check_streamable(cfg)
+    if hash_lm is not None:
+        raise NotImplementedError(HASH_LM_NOT_PORTED)
+    beam_state = lm_carry = None
+    if beam:
+        beam_state = prefix_beam.prefix_beam_init(batch_size, cfg.decode.beam_size,
+                                                  cfg.decode.max_decode_len, device)
+        if rnn_lm is not None:
+            if sos_id is None:
+                raise ValueError("rnn_lm streaming fusion needs sos_id")
+            lm_carry = prefix_beam.rnn_lm_carry_init(rnn_lm, batch_size, cfg.decode.beam_size,
+                                                     sos_id)
     kt, kf = enc.conv_kernel
     sf = enc.conv_stride[1]
     pf = (kf - 1) // 2
@@ -93,7 +126,8 @@ def init_stream_state(cfg: ExperimentConfig, batch_size: int,
     return StreamState(conv_ctx=tuple(conv_ctx),
                        lstm_h=tuple(zeros() for _ in range(enc.num_layers)),
                        lstm_c=tuple(zeros() for _ in range(enc.num_layers)),
-                       prev_tok=torch.full((batch_size,), -1, dtype=torch.long, device=device))
+                       prev_tok=torch.full((batch_size,), -1, dtype=torch.long, device=device),
+                       beam=beam_state, lm_carry=lm_carry)
 
 
 def _conv_chunk(x: torch.Tensor, ctx: torch.Tensor, conv: torch.nn.Conv2d, pf: int):
@@ -112,10 +146,12 @@ def _conv_chunk(x: torch.Tensor, ctx: torch.Tensor, conv: torch.nn.Conv2d, pf: i
 
 
 def _stream_step(model: ASRModel, cfg: ExperimentConfig, state: StreamState,
-                 samples: torch.Tensor, n_frames: int):
+                 samples: torch.Tensor, n_frames: int, fusion: dict | None = None):
     """One block: samples (B, (block_frames-1)*hop + win) float32 -> (new
     state, ids (B, T') left-packed, n_ids (B,)); ``n_frames`` of the block's
-    frames are valid."""
+    frames are valid.  Beam mode (``state.beam`` set): ids are the best
+    beam's tokens (B, L) and n_ids its lengths, ``fusion`` the search's
+    keywords (its LM source, weights and ``ext_top_a``)."""
     enc = cfg.model.encoder
     kt, kf = enc.conv_kernel
     pf = (kf - 1) // 2
@@ -147,6 +183,14 @@ def _stream_step(model: ASRModel, cfg: ExperimentConfig, state: StreamState,
         new_c.append(c)
     logits = model.ctc_logits(x)                                     # (B, T, V) float32
 
+    if state.beam is not None:
+        # The carried prefix beam: one launch of a search's carried form.
+        beam, lm_carry, (toks, n_ids, _) = prefix_beam.prefix_beam_continue_best(
+            state.beam, torch.log_softmax(logits, dim=-1), lengths, lm_carry=state.lm_carry,
+            **(fusion or {}))
+        return (StreamState(tuple(new_ctx), tuple(new_h), tuple(new_c), state.prev_tok, beam,
+                            lm_carry), toks, n_ids)
+
     # The greedy collapse across blocks, left-packed without a host sync.
     best = logits.argmax(dim=-1)
     t = torch.arange(T, device=dev)[None, :]
@@ -166,28 +210,39 @@ def _stream_step(model: ASRModel, cfg: ExperimentConfig, state: StreamState,
 
 
 class StreamingRecognizer:
-    """Batched online greedy recognizer over a streaming-capable CTC model.
+    """Batched online recognizer over a streaming-capable CTC model.
 
     Usage:
         rec = StreamingRecognizer(model, cfg, batch_size=B)
         for chunk in audio_chunks:          # (B, any_samples) float32
-            new = rec.accept(chunk)         # list[B] of new token-id lists
+            new = rec.accept(chunk)         # list[B] of token-id lists
         new = rec.finish()                  # drain buffered frames
 
     It runs on the model's device (the card, unless the model is on the
     CPU).  ``block_frames`` frames of 10 ms make a step; it must be a
     multiple of the conv's time subsampling (default 16 frames = 160 ms).
-    ``mode="beam"`` and the JAX recognizer's LM options raise
-    ``NotImplementedError``: beam mode is not ported.
+    Greedy mode returns each stream's new ids.  ``mode="beam"`` runs the
+    prefix beam search at ``cfg.decode``'s beam and max length across blocks,
+    fused with the dense n-gram table ``lm_table`` (n_ctx, V) or the char
+    RNN LM ``rnn_lm`` (a ``CharRNNLM`` on the model's device, primed with
+    ``sos_id``), over all chars or each frame's top ``ext_top_a``; each block
+    returns every stream's full best prefix so far, which may revise earlier
+    output (``finish`` returns it again once finished).  ``lm_top_k``
+    prunes only a hashed LM's lookups; ``hash_lm`` is not ported.
     """
 
     def __init__(self, model: ASRModel, cfg: ExperimentConfig, batch_size: int,
-                 block_frames: int = 16, mode: str = "greedy", **beam_options):
+                 block_frames: int = 16, mode: str = "greedy",
+                 lm_table: torch.Tensor | None = None, rnn_lm: CharRNNLM | None = None,
+                 lm_alpha: float = 0.0, lm_beta: float = 0.0, sos_id: int | None = None,
+                 lm_top_k: int = 0, ext_top_a: int = 0, hash_lm=None):
         if mode not in ("greedy", "beam"):
             raise ValueError(f"unknown streaming mode {mode!r}")
-        if mode == "beam" or beam_options:
-            raise NotImplementedError(f"{BEAM_NOT_PORTED}; got mode={mode!r} and options "
-                                      f"{sorted(beam_options)}")
+        if mode != "beam" and (lm_table is not None or hash_lm is not None
+                               or rnn_lm is not None):
+            raise ValueError("LM fusion requires mode='beam'")
+        if hash_lm is not None:
+            raise NotImplementedError(HASH_LM_NOT_PORTED)
         enc = _check_streamable(cfg)
         total_stride = enc.conv_stride[0] ** len(enc.conv_channels)
         if block_frames % total_stride:
@@ -195,6 +250,11 @@ class StreamingRecognizer:
                              f"time subsampling ({total_stride})")
         self.model = model.eval()
         self.cfg = cfg
+        self.mode = mode
+        self.sos_id = sos_id
+        self.fusion = dict(lm_table=lm_table, rnn_lm=rnn_lm, lm_alpha=float(lm_alpha),
+                           lm_beta=float(lm_beta), lm_top_k=int(lm_top_k),
+                           ext_top_a=int(ext_top_a))
         self.device = model.ctc_head.weight.device
         self.block_frames = block_frames
         self.batch_size = batch_size
@@ -204,20 +264,29 @@ class StreamingRecognizer:
         self.reset()
 
     def reset(self) -> None:
-        self.state = init_stream_state(self.cfg, self.batch_size, device=self.device)
+        self.state = init_stream_state(self.cfg, self.batch_size, device=self.device,
+                                       beam=self.mode == "beam", rnn_lm=self.fusion["rnn_lm"],
+                                       sos_id=self.sos_id)
         self._buf = np.zeros((self.batch_size, 0), np.float32)
         self._finished = False
+        self._best: list[list[int]] = [[] for _ in range(self.batch_size)]
 
     def _run_block(self, samples: np.ndarray, n_frames: int) -> list[list[int]]:
         with torch.inference_mode():
             self.state, ids, n = _stream_step(
                 self.model, self.cfg, self.state,
-                torch.from_numpy(np.ascontiguousarray(samples)).to(self.device), n_frames)
-            got = torch.cat([ids, n[:, None]], dim=1).cpu().numpy()
+                torch.from_numpy(np.ascontiguousarray(samples)).to(self.device), n_frames,
+                self.fusion)
+            got = torch.cat([ids, n[:, None].to(ids.dtype)], dim=1).cpu().numpy()
         return [got[b, :got[b, -1]].tolist() for b in range(self.batch_size)]
 
+    def _empty(self) -> list[list[int]]:
+        return [[] for _ in range(self.batch_size)] if self.mode == "greedy" else self._best
+
     def accept(self, chunk: np.ndarray) -> list[list[int]]:
-        """Feed (B, S) new samples; returns the newly decoded ids per stream."""
+        """Feed (B, S) new samples; returns the newly decoded ids per stream
+        (beam mode: the full best prefix after the last block this call ran,
+        or empty lists if it ran none)."""
         if self._finished:
             raise RuntimeError("stream finished; call reset()")
         chunk = np.asarray(chunk, np.float32)
@@ -228,22 +297,27 @@ class StreamingRecognizer:
         while self._buf.shape[1] >= self._need:
             got = self._run_block(self._buf[:, :self._need], self.block_frames)
             self._buf = self._buf[:, self._advance:]
-            for b in range(self.batch_size):
-                out[b].extend(got[b])
+            if self.mode == "beam":
+                self._best = out = got
+            else:
+                for b in range(self.batch_size):
+                    out[b].extend(got[b])
         return out
 
     def finish(self) -> list[list[int]]:
         """Drain the whole frames still in the buffer (the offline framing
         drops a tail shorter than one window, so this does too)."""
-        empty = [[] for _ in range(self.batch_size)]
         if self._finished:
-            return empty
+            return self._empty()
         self._finished = True
         fe = self.cfg.frontend
         n_samples = self._buf.shape[1]
         n_frames = max(0, (n_samples - fe.win_length) // fe.hop_length + 1)
         if n_frames == 0:
-            return empty
+            return self._empty()
         samples = np.zeros((self.batch_size, self._need), np.float32)
         samples[:, :n_samples] = self._buf
-        return self._run_block(samples, n_frames)
+        got = self._run_block(samples, n_frames)
+        if self.mode == "beam":
+            self._best = got
+        return got

@@ -40,11 +40,11 @@ from pytorch_asr_tpu_torch.decoding import prefix_beam as plain
 from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _P, _P],
+_SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _P, _P, _P],
                "prefix_beam_rnn": [_P] * 6 + [_I] * 3 + [_P] * 5 + [_I] * 6
-               + [_F, _F, _P, _I, _P],
+               + [_F, _F, _P, _I, _P, _P],
                "prefix_beam_rnn_grid": [_P] * 6 + [_I] * 3 + [_P] * 5 + [_I] * 6
-               + [_F, _F] + [_P] * 4 + [_I] * 6 + [_P],
+               + [_F, _F] + [_P] * 4 + [_I] * 6 + [_P, _P],
                "merge_topk": [_P] * 24 + [_I] * 4 + [_P]}
 _STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P] * 3,
                      "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P] * 3}
@@ -248,8 +248,10 @@ LAYER_KINDS = ("wx", "wh", "b")
 
 def _lm_tensors(rnn_lm, h0, c0, lmp0, V: int) -> tuple[dict, dict]:
     """K9's LM inputs, each with the shape it must have: (the six the
-    kernel takes by a host array, in its order; the layers' weights in the
-    order of its device table, LAYER_KINDS)."""
+    kernel takes by a host array, in its order, with h0, c0 and lmp0 None
+    for a carried search, which reads each beam's state from its carry
+    instead; the layers' weights in the order of its device table,
+    LAYER_KINDS)."""
     cfg = rnn_lm.cfg
     nl, E, H = cfg.num_layers, cfg.embed_dim, cfg.hidden_dim
     head = {"embed": (rnn_lm.embed, (V, E)), "w_out": (rnn_lm.w_out, (H, V)),
@@ -322,7 +324,7 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
         logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(), _ptr(lm_table),
         parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
         scores.data_ptr(), B, T, V, K, C, L, lm_table.shape[0] if lm_table is not None else 1,
-        lm_alpha, lm_beta, _ptr(scratch), _ptr(trace),
+        lm_alpha, lm_beta, _ptr(scratch), _ptr(trace), None,
         torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return tokens, lengths, scores
@@ -371,35 +373,57 @@ def rnn_on_route(route: RnnGrid | None, logp: torch.Tensor, logit_len: torch.Ten
     not fit either (the LM step's packed inputs, K x (max(E, H) + H) floats,
     past the block's shared memory, or K > MAX_BEAM: ``fits``) all of it in
     a device scratch, counted as ``prefix_beam_rnn_wide`` (``..._topa_wide``)."""
+    return _rnn_launch(route, logp, logit_len, beam_size, max_len, rnn_lm, (h0, c0, lmp0),
+                       lm_alpha, lm_beta, top_val, top_idx, trace)[:3]
+
+
+def _rnn_launch(route: RnnGrid | None, logp, logit_len, K: int, L: int, rnn_lm, primed,
+                lm_alpha: float, lm_beta: float, top_val, top_idx, trace=None, carry=None):
+    """K9's launch on ``route``: from every beam primed with ``primed`` =
+    (h0, c0, lmp0), or for ``carry`` = (BeamState, LMCarry) from that state
+    (the kCarry form, counted under its name with ``_carry`` before the
+    route's suffix), handing the state after the frames on.  Returns
+    (tokens, lengths, scores) of each row's best beam, and the BeamState
+    and LMCarry after (None without ``carry``)."""
     B, T, V = logp.shape
-    K, L = beam_size, max_len
     cfg = rnn_lm.cfg
     nl, E, H = cfg.num_layers, cfg.embed_dim, cfg.hidden_dim
-    head, layers = _lm_tensors(rnn_lm, h0, c0, lmp0, V)
-    C = _check(logp, logit_len, None, top_val, top_idx, K, L, {**head, **layers})
+    head, layers = _lm_tensors(rnn_lm, *(primed if carry is None else (None,) * 3), V)
+    C = _check(logp, logit_len, None, top_val, top_idx, K, L,
+               {n: v for n, v in {**head, **layers}.items() if v[0] is not None})
     if nl < 1:
         raise ValueError(f"prefix_beam_rnn: {nl} LM layers; the kernel takes at least 1")
     dev = logp.device
-    if trace is not None and route is None:
-        raise ValueError("prefix_beam_rnn: a trace is taken on the grid route only")
+    if trace is not None and (route is None or carry is not None):
+        raise ValueError("prefix_beam_rnn: a trace is taken on the grid route only, and not "
+                         "by a carried search")
     _trace_check("prefix_beam_rnn", trace, T, 5 + 3 * nl, dev)
+    new = new_carry = table = None
+    if carry is not None:
+        state, lm_carry = carry
+        _state_check(state, B, K, L, dev)
+        _lm_carry_check(lm_carry, nl, B, K, H, V, dev)
+        new, new_carry = _empty_state(B, K, L, dev), _empty_lm_carry(nl, B, K, H, V, dev)
+        table = carry_table([*state, *new, *lm_carry, *new_carry])
     parents, appends, tokens, lengths, scores = _outputs_of(B, T, K, L, dev)
-    weights = (_P * len(head))(*(t.data_ptr() for t, _ in head.values()))
-    table = lm_layer_table(layers, dev)
+    weights = (_P * len(head))(*(_ptr(t) for t, _ in head.values()))
+    layer_table = lm_layer_table(layers, dev)
     lib = build.load("prefix_beam", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    name = "prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn"
+    name = ("prefix_beam_rnn_topa" if top_idx is not None else "prefix_beam_rnn") + (
+        "_carry" if carry is not None else "")
     common = (logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(), weights,
-              table.data_ptr(), nl, E, H, parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(),
-              lengths.data_ptr(), scores.data_ptr(), B, T, V, K, C, L, lm_alpha, lm_beta)
+              layer_table.data_ptr(), nl, E, H, parents.data_ptr(), appends.data_ptr(),
+              tokens.data_ptr(), lengths.data_ptr(), scores.data_ptr(), B, T, V, K, C, L,
+              lm_alpha, lm_beta)
     if route is not None:
-        state = torch.empty((4 * B * K * nl * H,), dtype=torch.float32, device=dev)
+        slots = torch.empty((4 * B * K * nl * H,), dtype=torch.float32, device=dev)
         rows = torch.empty((4 * B * K,), dtype=torch.int32, device=dev)
         sync = torch.zeros((3,), dtype=torch.int32, device=dev)
         build.check(lib.prefix_beam_rnn_grid(
-            *common, state.data_ptr(), rows.data_ptr(), sync.data_ptr(), _ptr(trace),
-            route.ctas, route.units, route.rows, route.per_cta, route.reps, route.smem, stream),
-            name)
+            *common, slots.data_ptr(), rows.data_ptr(), sync.data_ptr(), _ptr(trace),
+            route.ctas, route.units, route.rows, route.per_cta, route.reps, route.smem,
+            table, stream), name)
     else:
         place, scratch = SHARED, None
         if not fits(K, C, V, (nl, E, H)):
@@ -409,9 +433,136 @@ def rnn_on_route(route: RnnGrid | None, logp: torch.Tensor, logit_len: torch.Ten
             scratch = torch.empty((B, lm_state_floats(K, V, nl, H)), dtype=torch.float32,
                                   device=dev)
         name += "_wide" if place == IN_SCRATCH else "_block"
-        build.check(lib.prefix_beam_rnn(*common, _ptr(scratch), place, stream), name)
+        build.check(lib.prefix_beam_rnn(*common, _ptr(scratch), place, table, stream), name)
     build.LAUNCHES[name] += 1
-    return tokens, lengths, scores
+    return tokens, lengths, scores, new, new_carry
+
+
+# ------------------------------------- the carried forms: a chunk of a stream
+
+# csrc/prefix_beam.cu::BeamCarry: the state before the chunk, the state
+# after it, then K9's LM state before and after; 22 device pointers.
+CARRY_POINTERS = 2 * len(plain.BeamState._fields) + 2 * len(plain.LMCarry._fields)
+
+
+def carry_table(tensors: list):
+    """The kernels' BeamCarry as the C entries take it: a host array of the
+    tensors' device pointers (null past them: K7 and K8 carry no LM state),
+    which the entry passes to the kernel by value."""
+    return (_P * CARRY_POINTERS)(*(t.data_ptr() for t in tensors))
+
+
+def _state_check(state, B: int, K: int, L: int, dev) -> None:
+    """A carried BeamState must be B rows of K beams of L tokens, each field
+    contiguous on ``dev`` in its dtype."""
+    for name, t in state._asdict().items():
+        shape = (B, K, L) if name == "tokens" else (B, K)
+        dtype = torch.float32 if name in ("pb", "pnb", "lm_s") else torch.int32
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"prefix_beam: state.{name} must be contiguous {shape} {dtype} on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _lm_carry_check(carry, nl: int, B: int, K: int, H: int, V: int, dev) -> None:
+    for name, t in carry._asdict().items():
+        shape = (B, K, V) if name == "logp" else (nl, B, K, H)
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"prefix_beam_rnn: lm_carry.{name} must be contiguous {shape} "
+                             f"float32 on {dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _empty_state(B: int, K: int, L: int, dev):
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    return plain.BeamState(tokens=torch.empty((B, K, L), **i32),
+                           **{f: torch.empty((B, K), **(f32 if f in ("pb", "pnb", "lm_s")
+                                                        else i32))
+                              for f in plain.BeamState._fields[1:]})
+
+
+def _empty_lm_carry(nl: int, B: int, K: int, H: int, V: int, dev):
+    return plain.LMCarry(*(torch.empty(s, dtype=torch.float32, device=dev)
+                           for s in ((nl, B, K, H), (nl, B, K, H), (B, K, V))))
+
+
+def prefix_beam_carry(state, logp: torch.Tensor, n_valid: torch.Tensor,
+                      lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
+                      lm_beta: float = 0.0, top_val: torch.Tensor | None = None,
+                      top_idx: torch.Tensor | None = None):
+    """One chunk of a stream's search: ``prefix_beam`` (K7, or K8 with
+    ``top_val``/``top_idx``) from the beams of ``state``, a
+    ``decoding.prefix_beam.BeamState`` of B rows of K beams of L tokens,
+    over the chunk's log-probs ``logp`` (B, T, V), row b's first
+    ``n_valid[b]`` frames (int32; later frames leave the row as it is).
+    Returns (the BeamState after the chunk, in new tensors, and the best
+    beam's (tokens (B, L) int32, lengths (B,) int32, scores (B,) float32)),
+    those of ``decoding.prefix_beam.continue_plain`` and ``beam_best``, which
+    it runs on CPU tensors.  Counted as ``prefix_beam_carry``
+    (``prefix_beam_topa_carry``), or ``..._carry_wide`` past ``fits``."""
+    if logp.device.type == "cpu":
+        new, _ = plain.continue_plain(state, logp, n_valid, lm_table, lm_alpha, lm_beta,
+                                      top_val, top_idx)
+        return new, plain.beam_best(new)
+    B, T, V = logp.shape
+    K, L = state.tokens.shape[1:]
+    C = _check(logp, n_valid, lm_table, top_val, top_idx, K, L)
+    dev = logp.device
+    _state_check(state, B, K, L, dev)
+    scratch = None if fits(K, C, V) else _scratch(B, scratch_bytes(K, C, V), dev)
+    parents, appends, tokens, lengths, scores = _outputs_of(B, T, K, L, dev)
+    new = _empty_state(B, K, L, dev)
+    table = carry_table([*state, *new])
+    lib = build.load("prefix_beam", _SIGNATURES)
+    name = ("prefix_beam_topa" if top_idx is not None else "prefix_beam") + "_carry" + (
+        "_wide" if scratch is not None else "")
+    build.check(lib.prefix_beam(
+        logp.data_ptr(), _ptr(top_val), _ptr(top_idx), n_valid.data_ptr(), _ptr(lm_table),
+        parents.data_ptr(), appends.data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
+        scores.data_ptr(), B, T, V, K, C, L, lm_table.shape[0] if lm_table is not None else 1,
+        lm_alpha, lm_beta, _ptr(scratch), None, table,
+        torch.cuda.current_stream(dev).cuda_stream), name)
+    build.LAUNCHES[name] += 1
+    return new, (tokens, lengths, scores)
+
+
+def prefix_beam_rnn_carry(state, lm_carry, logp: torch.Tensor, n_valid: torch.Tensor, rnn_lm,
+                          lm_alpha: float, lm_beta: float, top_val: torch.Tensor | None = None,
+                          top_idx: torch.Tensor | None = None):
+    """One chunk of a stream's search fused with the char LSTM LM
+    ``rnn_lm``: ``prefix_beam_rnn`` from the beams of ``state`` and each
+    beam's LM state in ``lm_carry`` (a ``decoding.prefix_beam.LMCarry``,
+    h and c (layers, B, K, H), logp (B, K, V)), over row b's first
+    ``n_valid[b]`` frames of ``logp``.  Returns (BeamState, LMCarry after
+    the chunk, in new tensors, best (tokens, lengths, scores)), those of
+    ``decoding.prefix_beam.continue_plain`` and ``beam_best``, which it runs on
+    CPU tensors.  On the route ``rnn_grid_route`` gives (the offline
+    search's: the route does not depend on T), counted as
+    ``prefix_beam_rnn_carry`` (``prefix_beam_rnn_topa_carry``), or off the
+    grid ``..._carry_block`` / ``..._carry_wide`` (``rnn_carry_on_route``)."""
+    if logp.device.type == "cpu":
+        new, carry = plain.continue_plain(state, logp, n_valid, None, lm_alpha, lm_beta,
+                                          top_val, top_idx, rnn_lm=rnn_lm, lm_carry=lm_carry)
+        return new, carry, plain.beam_best(new)
+    cfg = rnn_lm.cfg
+    B, K = state.pb.shape
+    C = top_idx.shape[-1] if top_idx is not None else logp.shape[-1]
+    route = rnn_grid_route(B, K, C, logp.shape[-1], cfg.num_layers, cfg.embed_dim,
+                           cfg.hidden_dim, build.sm_count(logp.device.index))
+    return rnn_carry_on_route(route, state, lm_carry, logp, n_valid, rnn_lm, lm_alpha, lm_beta,
+                              top_val, top_idx)
+
+
+def rnn_carry_on_route(route: RnnGrid | None, state, lm_carry, logp: torch.Tensor,
+                       n_valid: torch.Tensor, rnn_lm, lm_alpha: float, lm_beta: float,
+                       top_val: torch.Tensor | None = None,
+                       top_idx: torch.Tensor | None = None):
+    """``prefix_beam_rnn_carry`` on CUDA tensors along the route given, as
+    ``rnn_on_route`` chooses the block kernel's place for None."""
+    K, L = state.tokens.shape[1:]
+    tokens, lengths, scores, new, carry = _rnn_launch(
+        route, logp, n_valid, K, L, rnn_lm, None, lm_alpha, lm_beta, top_val, top_idx,
+        carry=(state, lm_carry))
+    return new, carry, (tokens, lengths, scores)
 
 
 _MERGE_IN = (("stay", "pb", torch.float32), ("stay", "pnb", torch.float32),

@@ -16,7 +16,9 @@ beam kernels past a block's shared memory (``prefix_beam_wide`` and the
 rest, and the study kernels' ``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``, and K10's
 ``merge_topk_wide``: their working set in a device scratch), K9 past its
 co-resident grid (``prefix_beam_rnn_block`` and its ``_topa`` form, a block
-an utterance), K4 past its registers (``ctc_alpha_wide``, ``ctc_beta_wide``,
+an utterance), the searches' carried forms, a chunk of a stream
+(``prefix_beam_carry``, ``prefix_beam_rnn_carry`` and the rest, with the
+same suffixes), K4 past its registers (``ctc_alpha_wide``, ``ctc_beta_wide``,
 ``ctc_alpha_paired_wide``: the lattice rows in device memory) and K1 at an
 ``n_fft`` with no FFT plan (``stft_log_mel_dft``, its DFT form).
 """
@@ -56,7 +58,13 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "prefix_beam_stepwise_wide": 0, "ctc_alpha_wide": 0,
                             "ctc_beta_wide": 0, "ctc_alpha_paired_wide": 0,
                             "stft_log_mel_dft": 0, "lstm_seq_stream": 0,
-                            "lstm_seq_stream_wide": 0}
+                            "lstm_seq_stream_wide": 0, "prefix_beam_carry": 0,
+                            "prefix_beam_topa_carry": 0, "prefix_beam_carry_wide": 0,
+                            "prefix_beam_topa_carry_wide": 0, "prefix_beam_rnn_carry": 0,
+                            "prefix_beam_rnn_topa_carry": 0, "prefix_beam_rnn_carry_block": 0,
+                            "prefix_beam_rnn_topa_carry_block": 0,
+                            "prefix_beam_rnn_carry_wide": 0,
+                            "prefix_beam_rnn_topa_carry_wide": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 SMS = 132    # the H100 SXM's SMs: the grid routes' default card

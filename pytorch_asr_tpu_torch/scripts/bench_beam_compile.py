@@ -51,7 +51,7 @@ def merge_search(logits, lens, K: int, fused: bool):
                                          lm_rows=None, lm_alpha=0.0, lm_beta=0.0, K=K, L=L)
         _, f = merge(stay, ext, K)
         state = pb._finish_step(state, f, t < lens, L)
-    return pb._best(state)[0]
+    return pb.beam_best(state)[0]
 
 
 def main(argv: list[str] | None = None) -> dict:

@@ -4,9 +4,9 @@ its grid and its block kernel), K4 (``ops.ctc_cuda.ctc_alpha`` and
 ``ctc_beta``), K1 and config 3's training on one card:
 
     python -m pytorch_asr_tpu_torch.scripts.bench_kernel_turns [reps=5 inner=4
-        calls=40 frame=150 only=bilstm,merge,rnn,ctc,stft,train3,lstm]
+        calls=40 frame=150 only=bilstm,merge,rnn,ctc,stft,train3,lstm,beam]
 
-``only`` names the sections to run (all seven by default).
+``only`` names the sections to run (all eight by default).
 
 K11's backward at config 1's layer shape: x (8, 400, 768) bf16, H 384,
 lengths 400 down to 250, residuals bf16 and float32 from its training
@@ -65,6 +65,13 @@ wide routes (the ops with ``forward_route`` and ``backward_route`` set to
 None, the per-utterance kernels), so that two checkouts' bits can be
 compared.
 
+The offline searches' bits (``beam``): a sha256 of the outputs of K7 and K8
+(no LM and a random dense table of 31^2 contexts, as K10's), K9 on its grid
+and its block kernel (over all chars and the top 8; the LM above at beam
+16), and the in-scratch forms (``beam_cuda.fits`` set to False: K7, K8 and
+K9's block form) at K9's inputs above (16 rows of 397 frames, max_len
+256), so that two checkouts' bits can be compared.
+
 It calls only entry points that every checkout of the port has (and the
 traces where there are), so it times any checkout alike: run it by its path
 with that checkout first on ``PYTHONPATH`` to compare two checkouts on one
@@ -99,7 +106,7 @@ from pytorch_asr_tpu_torch.ops import beam_cuda, ctc, ctc_cuda, lstm_cuda, stft_
 from pytorch_asr_tpu_torch.scripts import _timing
 
 DEFAULTS = {"reps": "5", "inner": "4", "calls": "40", "frame": "150",
-            "only": "bilstm,merge,rnn,ctc,stft,train3,lstm"}
+            "only": "bilstm,merge,rnn,ctc,stft,train3,lstm,beam"}
 LSTM_B, LSTM_T, LSTM_D, LSTM_H = 8, 400, 768, 384
 LSTM_LENGTHS = [400, 371, 352, 330, 310, 290, 260, 250]
 MERGE_B, MERGE_K, MERGE_V, MERGE_L = 16, 16, 31, 256
@@ -439,6 +446,36 @@ def lstm_bits(dev) -> dict:
     return out
 
 
+def beam_bits(dev) -> dict:
+    rng, logits, lens = _timing.random_logits(MERGE_B, 397, MERGE_V, dev)
+    table = rng.standard_normal((MERGE_V * MERGE_V, MERGE_V)).astype(np.float32)
+    table = torch.from_numpy(table - np.log(np.exp(table).sum(1, keepdims=True))).to(dev)
+    lm = CharRNNLM(RNNLMConfig(embed_dim=128, hidden_dim=256, num_layers=2), MERGE_V,
+                   seed=0).to(dev).eval()
+    state0 = pb.primed_lm_state(lm, 29)
+    route = beam_cuda.rnn_grid_route(MERGE_B, MERGE_K, MERGE_V, MERGE_V, 2, 128, 256,
+                                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    out, fits = {}, beam_cuda.fits
+    for form in ("shared", "wide"):
+        if form == "wide":
+            beam_cuda.fits = lambda *a, **k: False
+        try:
+            for A in (0, 8):
+                logp, (top_val, top_idx) = pb._prepare(logits, A)
+                for name, tab in (("nolm", None), ("dense", table)):
+                    out[f"{form} k7/8 top{A} {name}"] = _digest(*beam_cuda.prefix_beam(
+                        logp, lens, MERGE_K, MERGE_L, tab, 0.5, 1.0, top_val, top_idx))
+                for name, r in (("grid", route), ("block", None)):
+                    if form == "wide" and r is not None:
+                        continue
+                    out[f"{form} k9 {name} top{A}"] = _digest(*beam_cuda.rnn_on_route(
+                        r, logp, lens, MERGE_K, MERGE_L, lm, *state0, 0.5, 1.0, top_val,
+                        top_idx))
+        finally:
+            beam_cuda.fits = fits
+    return out
+
+
 def stft(reps: int, inner: int, dev) -> dict:
     cfg = FrontendConfig()
     audio = np.zeros((CTC_B, 16 * cfg.sample_rate), np.float32)
@@ -473,6 +510,8 @@ def main(argv: list[str] | None = None) -> dict:
         out["train3"] = train3(device)
     if "lstm" in only:
         out["lstm_bits"] = lstm_bits(device)
+    if "beam" in only:
+        out["beam_bits"] = beam_bits(device)
     print(json.dumps(out))
     return out
 

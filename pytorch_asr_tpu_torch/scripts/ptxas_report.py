@@ -10,7 +10,8 @@ or the toolkit's ``cu++filt``), the report is ptxas's "Used ..." line
 (registers, barriers, shared and constant memory) and its stack and spill
 line.  With two sources it also matches b's kernels to a's: by name, or, for
 a kernel that gained a trailing template flag of false, by its name without
-that flag; and prints those whose report differs, those only in b (new) and
+that flag and with each parameter of ``std::conditional_t<false, X, Y>``
+named Y; and prints those whose report differs, those only in b (new) and
 those only in a (gone).  Prints one JSON record.
 """
 
@@ -59,8 +60,11 @@ def report(source: str) -> dict[str, str]:
 
 
 def _old_name(name: str) -> str:
-    """A kernel's name without a trailing template flag of false."""
-    return re.sub(r", false>\(", ">(", name, count=1)
+    """A kernel's name without a trailing template flag of false, and with
+    the parameter types that flag chose (``std::conditional<false, X,
+    Y>::type``) written as Y."""
+    name = re.sub(r", false>\(", ">(", name, count=1)
+    return re.sub(r"std::conditional<false, [^<>]*?, ([^<>]*?)>::type", r"\1", name)
 
 
 def compare(a: dict[str, str], b: dict[str, str]) -> dict:

@@ -1834,3 +1834,161 @@ def test_lstm_stream_refuses_what_it_does_not_take(cuda):
         lstm_cuda.lstm_seq_stream(x, wih, whh, bias, lengths, h0, c0.double())
     with pytest.raises(ValueError, match="forward only"):
         lstm_cuda.lstm_seq_stream(x, wih, whh, bias, lengths, h0, c0, reverse=True)
+
+
+# The carried forms of K7, K8 and K9: a chunk of a stream from a BeamState.
+CARRY_FORMS = {  # form: (ext_top_a, LM, route forced off, working set forced into a scratch)
+    "k7": (0, None, False, False), "k7_dense": (0, "dense", False, False),
+    "k8_dense": (8, "dense", False, False), "k9_grid": (0, "rnn", False, False),
+    "k9_topa_grid": (8, "rnn", False, False), "k9_block": (0, "rnn", True, False),
+    "k9_topa_block": (8, "rnn", True, False), "k7_wide": (0, "dense", False, True),
+    "k9_wide": (8, "rnn", True, True)}
+CARRY_CUTS = (1, 7, 12, 20)
+
+
+def _carry_name(A: int, lm, block: bool, wide: bool) -> str:
+    base = "prefix_beam_rnn" if lm == "rnn" else "prefix_beam"
+    name = base + ("_topa" if A else "") + "_carry"
+    return name + ("_wide" if wide else "_block" if lm == "rnn" and block else "")
+
+
+def _carry_case(device, lm, K: int = 8, L: int = 24):
+    """Planted logits (4 rows of 40, 27, 0 and 13 frames), the fusion
+    keywords and the initial LMCarry."""
+    logits, lens, table = _beam_case(device, 31, B=4, T=40, gain=8.0)
+    kw = {} if lm is None else dict(lm_alpha=0.5, lm_beta=1.0)
+    carry = None
+    if lm == "dense":
+        kw["lm_table"] = table
+    elif lm == "rnn":
+        kw["rnn_lm"] = _rnn_lm(device, 2)
+        carry = prefix_beam.rnn_lm_carry_init(kw["rnn_lm"], 4, K, 29)
+    return logits, lens, kw, carry
+
+
+def _carry_chunks(logp, lens, state, carry, kw, cuts=CARRY_CUTS):
+    """The carried search over ``cuts`` of the frames: (state, carry, best)."""
+    t0, best = 0, None
+    for n in cuts:
+        part = torch.clamp(lens - t0, 0, n).to(torch.int32)
+        state, carry, best = prefix_beam.prefix_beam_continue_best(
+            state, logp[:, t0:t0 + n].contiguous(), part, lm_carry=carry, **kw)
+        t0 += n
+    return state, carry, best
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(CARRY_FORMS))
+def test_carried_search_over_chunks_equals_the_kernel_offline(cuda, monkeypatch, form):
+    """Chunks of 1, 7, 12 and 20 frames through a carried form give the bits
+    of the same form in one launch over all 40 frames on every beam (each
+    BeamState and LMCarry field, dead beams included), and the best beam's
+    tokens, length and score of the offline kernel on that route; one launch
+    a chunk, counted under the form's name.  L 24 lets beams fill."""
+    A, lm, block, wide = CARRY_FORMS[form]
+    if block:
+        monkeypatch.setattr(beam_cuda, "rnn_grid_route", lambda *args, **kwargs: None)
+    if wide:
+        monkeypatch.setattr(beam_cuda, "fits", lambda *args, **kwargs: False)
+    K, L = 8, 24
+    logits, lens, kw, carry0 = _carry_case(cuda, lm, K, L)
+    kw["ext_top_a"] = A
+    logp = torch.log_softmax(logits, dim=-1)
+    init = prefix_beam.prefix_beam_init(4, K, L, cuda)
+    whole = prefix_beam.prefix_beam_continue_best(init, logp, lens, lm_carry=carry0, **kw)
+    build.reset_launches()
+    got = _carry_chunks(logp, lens, init, carry0, kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        _carry_name(A, lm, block, wide): len(CARRY_CUTS)}
+    for name, a, b in zip(prefix_beam.BeamState._fields, got[0], whole[0]):
+        assert torch.equal(a, b), name
+    if lm == "rnn":
+        for name, a, b in zip(prefix_beam.LMCarry._fields, got[1], whole[1]):
+            assert torch.equal(a, b), name
+    offline = prefix_beam.prefix_beam_search(logits, lens, beam_size=K, max_len=L, sos_id=29,
+                                             **kw)
+    for a, b, c in zip(got[2], whole[2], offline):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(got[0].length.max()) >= L and got[2][1][2] == 0   # beams fill; the empty row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [0, 8])
+@pytest.mark.parametrize("lm", [None, "dense", "rnn"])
+def test_carried_search_matches_the_plain_carried_search(cuda, A, lm):
+    """After each chunk, the carried kernel's live beams (in the same
+    places as the plain search's: live candidates rank alike in both lane
+    layouts) against ``continue_plain`` on the card: K7 and K8 bit for bit,
+    K9 with its int fields, and its tokens below each beam's length, exact
+    and its scores and LM state within RNN_RTOL / RNN_ATOL (max_len above
+    the frames, as K9's tests keep it: full beams only stay and tie to the
+    last ulps).  Dead fillers may differ (K7's lanes include the blank's)."""
+    K, L = 8, 48 if lm == "rnn" else 24
+    logits, lens, kw, carry = _carry_case(cuda, lm, K, L)
+    logp = torch.log_softmax(logits, dim=-1)
+    state = plain = prefix_beam.prefix_beam_init(4, K, L, cuda)
+    plain_carry, t0 = carry, 0
+    for n in CARRY_CUTS:
+        part = torch.clamp(lens - t0, 0, n).to(torch.int32)
+        chunk = logp[:, t0:t0 + n].contiguous()
+        state, carry, _ = prefix_beam.prefix_beam_continue_best(state, chunk, part,
+                                                                lm_carry=carry, ext_top_a=A, **kw)
+        top = prefix_beam.top_a(chunk, A) if A else (None, None)
+        plain, plain_carry = prefix_beam.continue_plain(
+            plain, chunk, part, kw.get("lm_table"), kw.get("lm_alpha", 0.0),
+            kw.get("lm_beta", 0.0), *top, rnn_lm=kw.get("rnn_lm"), lm_carry=plain_carry)
+        t0 += n
+        live = prefix_beam._lse(plain.pb, plain.pnb) > prefix_beam.NEG_INF / 2
+        assert torch.equal(prefix_beam._lse(state.pb, state.pnb) > prefix_beam.NEG_INF / 2, live)
+        below = (torch.arange(L, device=cuda) < plain.length[..., None]) & live[..., None]
+        assert torch.equal(torch.where(below, state.tokens, 0), torch.where(below, plain.tokens, 0))
+        for name in ("length", "hash", "ctx", "last"):
+            assert torch.equal(getattr(state, name)[live], getattr(plain, name)[live]), name
+        for name in ("pb", "pnb", "lm_s"):
+            got, want = getattr(state, name)[live], getattr(plain, name)[live]
+            if lm == "rnn":
+                torch.testing.assert_close(got, want, rtol=RNN_RTOL, atol=RNN_ATOL)
+            else:
+                assert torch.equal(got, want), name
+        if lm == "rnn":
+            for a, b in zip(carry, plain_carry):
+                torch.testing.assert_close(a[:, live] if a.dim() == 4 else a[live],
+                                           b[:, live] if b.dim() == 4 else b[live],
+                                           rtol=RNN_RTOL, atol=RNN_ATOL)
+
+
+@pytest.mark.cuda
+def test_carried_search_hands_on_a_row_with_no_frames_unchanged(cuda):
+    """A chunk in which no row has a valid frame (K9's grid then runs no
+    step) and a chunk of no frames hand every field and LM state on as
+    they were."""
+    K, L = 8, 24
+    logits, lens, kw, carry = _carry_case(cuda, "rnn", K, L)
+    logp = torch.log_softmax(logits, dim=-1)
+    state, carry, _ = _carry_chunks(logp, lens, prefix_beam.prefix_beam_init(4, K, L, cuda),
+                                    carry, kw, (9,))
+    no_frames = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for chunk, n_valid in ((logp[:, :5], no_frames), (logp[:, :0], lens)):
+        for lm_kw in ({}, kw):
+            c = carry if lm_kw else None
+            new, new_carry, _ = prefix_beam.prefix_beam_continue_best(
+                state, chunk.contiguous(), n_valid, lm_carry=c, **lm_kw)
+            assert all(torch.equal(a, b) for a, b in zip(new, state))
+            if lm_kw:
+                assert all(torch.equal(a, b) for a, b in zip(new_carry, carry))
+
+
+@pytest.mark.cuda
+def test_carried_search_refuses_what_it_does_not_take(cuda):
+    K, L = 8, 24
+    logits, lens, kw, carry = _carry_case(cuda, "rnn", K, L)
+    logp = torch.log_softmax(logits, dim=-1)
+    state = prefix_beam.prefix_beam_init(4, K, L, cuda)
+    with pytest.raises(ValueError, match="state.pb"):
+        beam_cuda.prefix_beam_carry(state._replace(pb=state.pb.double()), logp, lens)
+    with pytest.raises(ValueError, match="state.tokens"):
+        beam_cuda.prefix_beam_carry(state._replace(tokens=state.tokens[:2]), logp, lens)
+    with pytest.raises(ValueError, match="lm_carry.h"):
+        beam_cuda.prefix_beam_rnn_carry(state, carry._replace(h=carry.h[:1]), logp, lens,
+                                        kw["rnn_lm"], 0.5, 1.0)

@@ -143,7 +143,22 @@ result line):
      beams and best equal to the same kernel's over the blocks' logits bit
      for bit, its latency a block and RTF at B 1 and 8, one profiled run;
      and the ported ``bench_streaming`` script briefly;
-  15. check that no path launched the per-utterance oracle or took a wide
+  15. slice 22, BPE and the hashed n-gram LM: the port's ``train_bpe`` vocab
+     (V 135) and a KN 4-gram over its pieces (set-up); the hashed K7 and K8
+     against the plain hashed search on the card, tokens, lengths and scores
+     bit for bit, at config 2's BPE shape (16, 400, 135) and at the bench
+     script's BPE scale (its synthetic 3-gram at V 1024: K7 in scratch, all
+     chars and ``lm_top_k`` 128, K8 over the top 128), each timed with its
+     bound (the distinct bucket rows the data needs); ``decode.main`` of
+     config 2 with ``data.vocab=bpe:`` over all pieces and at
+     ``ext_top_a=8``: exactly one hashed K7 (K8) a batch, no ``_wide`` form,
+     no plain search; the decode across 2 ranks (K10's window form, held to
+     the plain merge on every pick); the hashed carried forms against the
+     plain carried search, and the beam recognizer with the hashed LM bit
+     for bit against the kernel over its blocks' logits; the tiny BPE model
+     of the JAX package's end-to-end test trained and hashed-beam-decoded
+     (WER <= greedy + 0.3); one profiled BPE decode batch;
+  16. check that no path launched the per-utterance oracle or took a wide
      route; print the kernels line, the card line, and ``{"ok": true, ...}``
      last.
 Whether it passes or fails, the script ends every process it started (the
@@ -172,7 +187,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_asr_tpu_torch import align, decode, train, train_lm, train_ngram
+from pytorch_asr_tpu_torch import align, decode, train, train_bpe, train_lm, train_ngram
 from pytorch_asr_tpu_torch.configs import get_config
 from pytorch_asr_tpu_torch.configs.base import (
     BiLSTMEncoderConfig,
@@ -185,10 +200,12 @@ from pytorch_asr_tpu_torch.configs.base import (
     OptimConfig,
     TrainConfig,
 )
-from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_tokenizer
-from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus
+from pytorch_asr_tpu_torch.data import BucketedDataset, bpe, build_dataset, get_tokenizer
+from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus, synthetic_texts
 from pytorch_asr_tpu_torch.decoding import (
-    attention_beam, ctc_prefix_scorer, driver, prefix_beam, prefix_beam_sharded, streaming)
+    attention_beam, ctc_prefix_scorer, driver, lm_hashed, prefix_beam, prefix_beam_sharded,
+    streaming)
+from pytorch_asr_tpu_torch.decoding import lm as lm_mod
 from pytorch_asr_tpu_torch.decoding import align as align_mod
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.evaluate import build_model, eval_step, model_outputs
@@ -222,7 +239,7 @@ STFT_TOL = 2e-3
 STFT_EXACT_TOL = 2e-5
 LSTM_TOL = 1e-2              # bf16 output: one bf16 step below 1 (2^-8) + fp32 order
 SLICE_TOL = 1e-3             # float32 slice, card vs CPU: FFT, conv and dot orders
-DECODE_BATCHES = 4
+DECODE_BATCHES = 2           # cut from 4 to hold the script's clock
 LAYERS = 3
 LSTM_LENGTHS = [T_LSTM, 371, 352, 330, 310, 290, 260, 250]
 # K3, relative to each tensor's largest entry.  float32 residuals and
@@ -286,9 +303,9 @@ TCN_TRAIN_UTTS = 64          # 4 full batches of 16 an epoch, and 4 eval batches
 # and joint_ctc_attention_960h (H 640 x 5, the same decoder, batch 32, joint
 # beam 16 at CTC weight 0.3, waveform augmentation); both decode up to 256
 # steps.  Config 4 serves 4 batches on its 14-bucket decode ladder, config 5
-# 2 full batches of 32.
+# 1 full batch of 32 (cut from 2 to hold the script's clock).
 CFG4, CFG4_B, CFG5, CFG5_B = "las_attention", 16, "joint_ctc_attention_960h", 32
-LAS_DECODE_BATCHES, JOINT_DECODE_BATCHES = 4, 2
+LAS_DECODE_BATCHES, JOINT_DECODE_BATCHES = 4, 1
 # Card vs CPU at float32: full width, one batch of LAS_UTTS utterances of at
 # most LAS_MAX_SEC s, the cut that keeps the CPU side's searches short.
 LAS_UTTS, LAS_MAX_SEC = 4, "4"
@@ -311,9 +328,10 @@ SEARCH_CALLS = ((asr_model.ASRModel, "decoder_step"), (ctc_prefix_scorer, "score
 # order; its main path, train.main with PAIRED_FWD set: a few full steps.
 PAIRED_LOSS_TOL, PAIRED_GRAD_TOL = 1e-4, 2e-3
 PAIRED_STEPS, PAIRED_UTTS = 4, 32
-# Config 2 across ranks: 2 decode batches a run (each rank decodes its rows
-# of both); K10 is checked at frames 0 and 1 (most beams dead) and 150.
-SHARD_BATCHES, MERGE_FRAMES = 2, (0, 1, 150)
+# Config 2 across ranks: 1 decode batch a run (each rank decodes its rows of
+# it; cut from 2 to hold the script's clock); K10 is checked at
+# frames 0 and 1 (most beams dead) and 150.
+SHARD_BATCHES, MERGE_FRAMES = 1, (0, 1, 150)
 RANK_TIMEOUT = 300.0         # a spawned decode: ~8 s to the card, then its work
 # A SIMT GEMM's kernel by its exact name (``lstm_seq.cu``'s projection
 # GEMM, or the TCN forward's before it moved onto ``tc_gemm_kernel``), in
@@ -1538,14 +1556,15 @@ def study_beam_phase() -> list[dict]:
 def bench_scripts_phase() -> dict:
     """K13's and K12's main paths: the ported benchmark scripts in this
     process at their default widths (B 16, T 1000, K 16, V 32) with one
-    timed call an arm, ``bench_prefix_beam fused=1 hashed=0`` and
-    ``bench_beam_compile stepwise=1 batches=16``, each with the counters set
-    to 0 just before and read just after: K13 once a call, K12 T a call.
+    timed call an arm, ``bench_prefix_beam fused=1`` (its hashed-LM arm too:
+    the hashed K7 once a call) and ``bench_beam_compile stepwise=1
+    batches=16``, each with the counters set to 0 just before and read just
+    after: K13 once a call, K12 T a call.
     ``study_beam_phase`` holds both kernels to the plain search on the
     scripts' own logits."""
     out = {}
     for name, main, argv, kernel, per_frame in (
-            ("bench_prefix_beam", bench_prefix_beam.main, ["fused=1", "iters=1", "hashed=0"],
+            ("bench_prefix_beam", bench_prefix_beam.main, ["fused=1", "iters=1"],
              "prefix_beam_fused", False),
             ("bench_beam_compile", bench_beam_compile.main,
              ["stepwise=1", "batches=16", "iters=1"], "prefix_beam_stepwise", True)):
@@ -1558,6 +1577,8 @@ def bench_scripts_phase() -> dict:
         want = res["calls_per_arm"] * (res["T"] if per_frame else 1)
         check(launches.get(kernel) == want,
               f"{name}: {kernel} launched {launches.get(kernel)} times, not {want}")
+        check(name != "bench_prefix_beam" or launches.get("prefix_beam_hashed") == want,
+              f"{name}: the hashed arm launched {launches.get('prefix_beam_hashed')} times")
         check(all(math.isfinite(a["ms"]) and a["ms"] > 0 for a in res["arms"].values()),
               f"{name}: bad timings {res['arms']}")
         out[name] = {**res, "argv": argv, "wall_s": wall, "launches": launches}
@@ -1997,7 +2018,7 @@ def beam_decode_phase(lm_path: str, top_a: int) -> dict:
     """Config 2's serving path through ``decode.main`` at full width with the
     LM at ``lm_path`` (the 4-gram ARPA or the RNN LM's ``.npz``) and its own
     decode ladder (14 buckets over 64 utterances of 10-16 s, so batches may
-    be partly filled), 4 batches: exactly 1 K1, 8 K2 and 1 beam kernel a
+    be partly filled), DECODE_BATCHES batches: exactly 1 K1, 8 K2 and 1 beam kernel a
     batch (K7, K8 with ``decode.ext_top_a``; K9 over all chars or the top-A
     with the RNN LM), no other kernel, and no call of the plain search on
     the card."""
@@ -2029,13 +2050,15 @@ def beam_decode_phase(lm_path: str, top_a: int) -> dict:
             "launches": launches}
 
 
-def beam_profile_phase(lm_path: str) -> dict:
+def beam_profile_phase(lm_path: str, *extra: str) -> dict:
     """Device time by kernel over one config-2 decode batch (16 utterances of
-    10-16 s, bf16, the LM at ``lm_path``): the shares of K2 and of the beam
-    kernel (K7 with the 4-gram, K9 with the RNN LM)."""
+    10-16 s, bf16, the LM at ``lm_path``, the ``extra`` overrides): the
+    shares of K2 and of the beam kernel (K7 with the 4-gram, K9 with the RNN
+    LM, the hashed K7 with ``data.vocab=bpe:`` and a piece n-gram)."""
     cfg = get_config(CFG2, **{"data.synthetic_min_sec": "10", "data.synthetic_max_sec": "16",
                               "data.synthetic_num_utts": str(BEAM_B), "data.auto_buckets": "1",
-                              "decode.lm_path": lm_path})
+                              "decode.lm_path": lm_path,
+                              **dict(a.split("=", 1) for a in extra)})
     batch = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
     model = build_model(cfg, CARD)
     decode_fn = driver.make_decode_fn(cfg, model, driver.load_lm(cfg, CARD))
@@ -3139,7 +3162,8 @@ def merge_phase(arpa: str) -> dict:
             "shape": f"stays ({B}, {BEAM_K}) x 7 fields, lanes ({B}, {BEAM_K * nb}) x 6 fields, "
                      f"K {BEAM_K}, from 2 and 4 shards, frames {list(MERGE_FRAMES)}",
             "max_abs_err": 0.0, "tol": "every field bit-equal",
-            "ms": time_ms(merge), "device_ms": device_ms_per_call(merge, "merge_topk_kernel"),
+            "ms": time_ms(merge), "device_ms": device_ms_per_call(merge, "merge_topk_kernel",
+                                                                one_launch=True),
             "split_us": merge_split(stay, ext, BEAM_K),
             "plain_ms": time_ms(lambda: prefix_beam._merge_topk(stay, ext, BEAM_K)),
             "library_ms": None, "library": "none: no PyTorch call computes this merge",
@@ -3147,13 +3171,18 @@ def merge_phase(arpa: str) -> dict:
             "cases": cases}
 
 
-def merge_bound(B: int, Ks: int, nb: int, K: int) -> tuple[float, str]:
+def merge_bound(B: int, Ks: int, nb: int, K: int, cols: int = 0) -> tuple[float, str]:
     """``bound`` of K10 over B rows of Ks stays and Ks nb lanes.  Bytes: the
-    7 stay and 6 lane fields read once, the 9 outputs written.  Operations a
-    row: ~3 a candidate (its score and key), 3 a (beam, beam) absorb test,
-    and a top-K over N candidates at log2(K) compares each."""
+    7 stay and 6 lane fields read once, the 9 outputs written; with ``cols``
+    (the window form) the ctx field is no column of every stay, lane and
+    output but each pick's ``cols`` window ids, read and written once, as
+    the kernel copies only a pick's window.  Operations a row: ~3 a
+    candidate (its score and key), 3 a (beam, beam) absorb test, and a
+    top-K over N candidates at log2(K) compares each."""
     N = Ks + Ks * nb
     nbytes = 4 * (7 * B * Ks + 6 * B * Ks * nb + 9 * B * K)
+    if cols:
+        nbytes += 4 * B * (2 * K * cols - (Ks + Ks * nb + K))
     ops = B * (3 * N + 3 * Ks ** 2 + N * math.log2(max(K, 2)))
     return bound(nbytes, ops / PEAK_FP32_S)
 
@@ -3247,23 +3276,36 @@ def profiled(fn, calls: int):
     return prof
 
 
-def device_ms_per_call(fn, kernel: str, calls: int = 20, attempts: int = 4) -> float:
+def device_ms_per_call(fn, kernel: str, calls: int = 20, attempts: int = 4,
+                       one_launch: bool = False) -> float:
     """The device time of the kernels named ``kernel`` per call of ``fn``,
     from the profiler over ``calls`` calls after one warm-up.  A profile
     that comes back with no device time for it (seen on the H100 in a
     process's first profile, and twice in a row for K10 in one run) is
     taken again, up to ``attempts`` profiles, each failure naming the
-    kernels the profile did record; if none records it, the run fails."""
+    kernels the profile did record; if none records it, the run fails.
+    With ``one_launch`` (``fn`` launches ``kernel`` once) it is the mean of
+    the launches the profile kept: late in this script's process a profile
+    has kept 5-13 of 20 launches of a kernel of milliseconds, and their sum
+    over ``calls`` then reads low."""
     for attempt in range(attempts):
         rows = device_rows(profiled(fn, calls), width=None)
         got = sum(r["device_ms"] for r in rows if kernel in r["name"])
+        kept = sum(r["calls"] for r in rows if kernel in r["name"])
         if got > 0:
             break
         print(f"no device time recorded for {kernel} in profile {attempt + 1}; recorded: "
               f"{[r['name'][:120] for r in rows[:5]]}", file=sys.stderr)
         time.sleep(1.0)
     check(got > 0, f"no device time recorded for {kernel}")
-    return got / calls
+    if not one_launch:
+        if kept % calls:
+            print(f"the profile kept {kept} launches of {kernel} over {calls} calls",
+                  file=sys.stderr)
+        return got / calls
+    if kept != calls:
+        print(f"the profile kept {kept} of {calls} launches of {kernel}", file=sys.stderr)
+    return got / kept
 
 
 @contextlib.contextmanager
@@ -4304,7 +4346,8 @@ def stream_beam_parity(run: dict, whole: dict, full: tuple, fusion: dict, cfg) -
     kw = {k: v for k, v in fusion.items() if k != "sos_id"}
     carry0 = (prefix_beam.rnn_lm_carry_init(kw["rnn_lm"], B, K, fusion["sos_id"])
               if "rnn_lm" in kw else None)
-    one = prefix_beam.prefix_beam_continue_best(prefix_beam.prefix_beam_init(B, K, L, CARD),
+    width = kw["hash_lm"].order - 1 if kw.get("hash_lm") is not None else 0
+    one = prefix_beam.prefix_beam_continue_best(prefix_beam.prefix_beam_init(B, K, L, CARD, width),
                                                 logp, lens, lm_carry=carry0, **kw)
     state, carry = run["state"]
     for name, a, b in zip(prefix_beam.BeamState._fields, state, one[0]):
@@ -4532,14 +4575,16 @@ def carried_kernels_phase(arpa: str, rnn_lm_path: str) -> list[dict]:
                "max_abs_err": err,
                "tol": ({"ints": "equal", "scores_rtol": RNN_RTOL, "scores_atol": RNN_ATOL}
                        if rnn is not None else {"live beams": "bit-equal"}),
-               "ms": device_ms_per_call(call, kernel), "call_ms": time_ms(call),
+               "ms": device_ms_per_call(call, kernel, one_launch=True),
+               "call_ms": time_ms(call),
                "plain_ms": time_ms(plain_call, 3, 1, 1),
                "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
                "bound_ms": b_ms, "bound_by": b_by}
         if rnn is not None:   # the grid's per-block prologue and epilogue: a block of no frames
             idle = torch.zeros_like(nv)
             row["no_frame_ms"] = device_ms_per_call(lambda: beam_cuda.prefix_beam_rnn_carry(
-                st, cy, blk, idle, rnn, fusion["lm_alpha"], fusion["lm_beta"], tv, ti), kernel)
+                st, cy, blk, idle, rnn, fusion["lm_alpha"], fusion["lm_beta"], tv, ti), kernel,
+                one_launch=True)
         if rnn is None and A == 0:   # the in-scratch form at the same block
             shared = call()
             fits = beam_cuda.fits
@@ -4554,7 +4599,7 @@ def carried_kernels_phase(arpa: str, rnn_lm_path: str) -> list[dict]:
                       and all(torch.equal(a, b) for a, b in zip(wide[1], shared[1])),
                       "prefix_beam_carry_wide: bits differ from the shared form's")
                 row["wide_form"] = {"name": "prefix_beam_carry_wide", "bit_equal": True,
-                                    "ms": device_ms_per_call(call, kernel)}
+                                    "ms": device_ms_per_call(call, kernel, one_launch=True)}
             finally:
                 beam_cuda.fits = fits
         if rnn is not None and A == 0:   # the block form at the same block
@@ -4571,7 +4616,8 @@ def carried_kernels_phase(arpa: str, rnn_lm_path: str) -> list[dict]:
                   "prefix_beam_rnn_carry_block: tokens differ from the grid's")
             row["block_form"] = {"name": "prefix_beam_rnn_carry_block", "tokens_equal": True,
                                  "max_abs_err": float((block[2][2] - grid[2][2]).abs().max()),
-                                 "ms": device_ms_per_call(block_call, "prefix_beam_kernel")}
+                                 "ms": device_ms_per_call(block_call, "prefix_beam_kernel",
+                                                          one_launch=True)}
         rows.append(row)
     return rows
 
@@ -4601,6 +4647,482 @@ def slice21_phases(arpa: str, rnn_lm_path: str) -> tuple[list[dict], dict]:
     print(f"stream_beam busy {stream['profile']['busy']:.3f}")
     print(f"slice21: {time.perf_counter() - t0:.1f} s")
     return rows, {"stream_beam": launches}
+
+
+# ---------------------------------------------- slice 22: BPE and the hashed LM
+
+BPE_BATCHES = 2              # each BPE decode arm (cut as the slice's clock asks)
+HASH_T, HASH_V, HASH_A = 200, 1024, 128    # the wide case: the bench script's BPE scale
+HASH_BLOCK, HASH_CARRY_T = 4, 48
+
+
+def build_bpe_lm() -> tuple[str, str]:
+    """Config 2's BPE path set-up, at run time into the build directory: the
+    vocab by the port's ``train_bpe`` on ``synthetic_texts(512)`` (it stops
+    at 78 merges, V 135), and a KN 4-gram over its pieces
+    (``train_char_ngram_kn(texts, 4, tokenizer=tok)``, ``write_arpa``), as
+    the JAX package's BPE end-to-end test builds its LM.  -> (vocab, arpa)."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    vocab, arpa = build.BUILD_DIR / "bpe_vocab.json", build.BUILD_DIR / "bpe4.arpa"
+    train_bpe.main([str(vocab)])
+    tok = bpe.BPETokenizer.load(str(vocab))
+    check(tok.vocab_size == 135, f"train_bpe: V {tok.vocab_size}, not 135")
+    lm_mod.write_arpa(lm_mod.train_char_ngram_kn(synthetic_texts(512), 4, tokenizer=tok),
+                      str(arpa), tok)
+    return str(vocab), str(arpa)
+
+
+def bpe_cfg(vocab: str, arpa: str, *extra: str):
+    return get_config(CFG2, **dict(a.split("=", 1) for a in (
+        f"data.vocab=bpe:{vocab}", f"decode.lm_path={arpa}", *extra)))
+
+
+def planted_pieces(tok, B: int, T: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Log-probs (B, T, V) on the card: normal logits with row b's synthetic
+    transcript planted a piece every other frame (+6) and blanks between
+    (+6), so no near-tie decides; ragged lengths, the last row empty."""
+    texts = synthetic_texts(512)
+    g = np.random.default_rng(seed)
+    logits = g.standard_normal((B, T, tok.vocab_size)).astype(np.float32)
+    for b in range(B):
+        ids = np.concatenate([tok.encode(texts[(5 * b + i) % 512]) for i in range(12)])
+        for t in range(T):
+            logits[b, t, ids[(t // 2) % len(ids)] if t % 2 == 0 else 0] += 6.0
+    lens = [T - (7 * b) % (T // 3) for b in range(B - 1)] + [0]
+    return (torch.log_softmax(torch.from_numpy(logits), -1).to(CARD).contiguous(),
+            torch.tensor(lens, dtype=torch.int32, device=CARD))
+
+
+def planted_random(V: int, B: int, T: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Log-probs (B, T, V) on the card with a random char path planted at
+    +8 (V 1024: the bench script's scale, whose synthetic LM has no
+    transcripts), ragged lengths."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(B, T, V, generator=g) * 2
+    path = torch.randint(1, V, (B, T), generator=g)
+    logits.scatter_add_(2, path[..., None], torch.full(path.shape + (1,), 8.0))
+    lens = torch.tensor([T - (5 * b) % (T // 4) for b in range(B)], dtype=torch.int32)
+    return torch.log_softmax(logits, -1).to(CARD).contiguous(), lens.to(CARD)
+
+
+def hashed_rows_read(hash_lm, state, logp, lens, lm_alpha: float, lm_beta: float,
+                     A: int = 0, k: int = 0) -> tuple[int, int]:
+    """The bucket rows the hashed search's data needs, from the plain search
+    run a frame at a time on the card from ``state`` (its windows): at each
+    valid frame, for each live
+    beam and each context level its window makes valid, the backoff row of
+    a context of 2+ ids and the n-gram row of each candidate the kernel
+    looks up (chars 1..V-1; with ``lm_top_k`` = k the frame's top k; K8 the
+    frame's top A but the blank).  -> (distinct (table, bucket) rows over the
+    launch, the per-frame distinct rows summed over the frames)."""
+    B, T, V = logp.shape
+    K, W = state.pb.shape[1], hash_lm.order - 1
+    seen, per_frame = [], 0
+    for t in range(int(lens.max())):
+        f = logp[:, t:t + 1].contiguous()
+        v = (lens > t).to(torch.int32)
+        tv, ti = prefix_beam.top_a(f, A) if A else (None, None)
+        ex = prefix_beam.top_a(f, k)[1] if k else None
+        live = (prefix_beam._lse(state.pb, state.pnb) > prefix_beam.NEG_INF / 2) & (v > 0)[:, None]
+        if A:
+            cands = ti[:, 0][:, None, :].expand(B, K, A)
+        elif k:
+            cands = ex[:, 0][:, None, :].expand(B, K, k)
+        else:
+            cands = torch.arange(1, V, device=CARD).expand(B, K, V - 1)
+        keys = []
+        for n in range(2, W + 2):
+            valid, _, h1, h2 = lm_hashed._context_level(hash_lm, state.ctx, n)
+            use = live & valid
+            if n >= 3:
+                tab = W + n - 3
+                keys.append(tab * 2 ** 40 + (h1 & (hash_lm.backoffs[n - 3].data.shape[0] - 1))[use])
+            ch1, _ = lm_hashed._fold(h1[..., None], h2[..., None], cands)
+            mask = hash_lm.probs[n - 2].data.shape[0] - 1
+            keys.append((n - 2) * 2 ** 40 + (ch1 & mask)[use[..., None] & (cands != 0)])
+        frame = torch.unique(torch.cat(keys))
+        per_frame += int(frame.numel())
+        seen.append(frame)
+        state, _ = prefix_beam.continue_plain(state, f, v, None, lm_alpha, lm_beta, tv, ti,
+                                              hash_lm=hash_lm, exact_idx=ex)
+    return int(torch.unique(torch.cat(seen)).numel()), per_frame
+
+
+def hashed_bound(hash_lm, logp, lens, K, L, alpha, beta, A=0, k=0) -> tuple[float, str, dict]:
+    """``search_bound`` with the LM's bytes counted as the distinct bucket
+    rows the data needs over the launch (128 bytes each) plus its unigram and
+    backoff rows (8 V bytes), and beside the search's own operations ~6 a
+    level's lookup for each lane the kernel looks up (all C, or with
+    ``lm_top_k`` the frame's top k) and 1 a level (the all-miss row's add)
+    for each other lane."""
+    B, T, V = logp.shape
+    W = hash_lm.order - 1
+    rows, per_frame = hashed_rows_read(hash_lm, prefix_beam._init_state(
+        B, K, L, CARD, W), logp, lens, alpha, beta, A, k)
+    frames, C = int(lens.sum()), A or V
+    exact = k or C
+    b_ms, b_by = search_bound(frames, K, C, V, A, B, L, 128 * rows + 8 * V,
+                              frames * K * W * (6 * exact + (C - exact)))
+    return b_ms, b_by, {"distinct_rows": rows, "per_frame_rows": per_frame}
+
+
+def hashed_case_row(name: str, counted: str, line: int, hash_lm, logp, lens, K, L, alpha, beta,
+                    A=0, k=0, shape="") -> dict:
+    """One hashed form at one shape: the entry point (``prefix_beam_search``)
+    and the wrapper against the plain hashed search on the card, tokens,
+    lengths and scores bit for bit; the wrapper timed (CUDA events and the
+    profiler's device time) beside the plain search and the bound."""
+    tv, ti = prefix_beam.top_a(logp, A) if A else (None, None)
+    ex = prefix_beam.top_a(logp, k)[1] if k else None
+    args = (logp, lens, K, L, None, alpha, beta, tv, ti)
+    build.reset_launches()
+    got = beam_cuda.prefix_beam(*args, hash_lm=hash_lm, exact_idx=ex)
+    torch.cuda.synchronize()
+    check({n: c for n, c in build.LAUNCHES.items() if c} == {counted: 1},
+          f"{name}: launches {dict(build.LAUNCHES)}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = prefix_beam.beam_scan_plain(*args, hash_lm=hash_lm, exact_idx=ex)
+    end.record()
+    end.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{name}: tokens, lengths or scores differ from the plain hashed search's")
+    check(int((got[1] > 0).sum()) >= logp.shape[0] - 1, f"{name}: empty hypotheses {got[1]}")
+    b_ms, b_by, rows = hashed_bound(hash_lm, logp, lens, K, L, alpha, beta, A, k)
+    call = lambda: beam_cuda.prefix_beam(*args, hash_lm=hash_lm, exact_idx=ex)  # noqa: E731
+    return {"name": name, "counted_as": counted, "route": "cuda",
+            "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+            "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
+            "shape": shape or f"logp {tuple(logp.shape)} f32, lengths {lens.tolist()}, K {K}, "
+                              f"L {L}, C {A or logp.shape[-1]}",
+            "max_abs_err": 0.0, "tol": {"tokens, lengths, scores": "bit-equal"},
+            "ms": time_ms(call, 5, 3, 1),
+            "device_ms": device_ms_per_call(call, "prefix_beam_kernel", one_launch=True),
+            "plain_ms": start.elapsed_time(end),
+            "library_ms": None, "library": "none: no PyTorch call computes a prefix beam search",
+            "bound_ms": b_ms, "bound_by": b_by, "lm_rows": rows,
+            "mean_len": float(got[1].float().mean())}
+
+
+def hashed_kernels_phase(vocab: str, arpa: str) -> tuple[list[dict], dict]:
+    """The hashed K7 and K8 against the plain hashed search on the card:
+    at config 2's BPE path shapes (B 16, T 400, V 135, K 16, L 256; all
+    pieces, and the top 8), and at the BPE scale of the bench script (V
+    1024, its synthetic hashed 3-gram; T 200): K7 over all chars and with
+    lm_top_k 128 (its block past shared memory: ``_wide``), K8 over the top
+    128 (shared).  The V-1024 cases go through ``prefix_beam_search``, the
+    entry point, counted as the path ``hashed_v1024``.  -> (rows, paths)."""
+    cfg = bpe_cfg(vocab, arpa)
+    tok, dec = get_tokenizer(cfg.data.vocab), cfg.decode
+    hash_lm = driver.load_lm(cfg, CARD)
+    check(isinstance(hash_lm, lm_hashed.HashedNgramLM), "lm_backend=auto did not pick hashed")
+    logp, lens = planted_pieces(tok, BEAM_B, 400, 31)
+    rows = [hashed_case_row("prefix_beam_hashed", "prefix_beam_hashed", 756, hash_lm, logp, lens,
+                            BEAM_K, BEAM_L, dec.lm_alpha, dec.lm_beta),
+            hashed_case_row("prefix_beam_topa_hashed", "prefix_beam_topa_hashed", 1566, hash_lm,
+                            logp, lens, BEAM_K, BEAM_L, dec.lm_alpha, dec.lm_beta, A=BEAM_A)]
+    check(beam_cuda.fits(BEAM_K, 135, 135, W=3) and not beam_cuda.fits(BEAM_K, HASH_V, HASH_V, W=2),
+          "hashed: the shared form must take V 135 and not V 1024")
+    wide_lm = bench_prefix_beam.synthetic_hashed_lm(np.random.default_rng(0), HASH_V, CARD)
+    wlogp, wlens = planted_random(HASH_V, BEAM_B, HASH_T, 37)
+    for name, counted, line, A, k in (
+            ("prefix_beam_hashed_wide", "prefix_beam_hashed_wide", 756, 0, 0),
+            ("prefix_beam_hashed_wide_lm_top_k", "prefix_beam_hashed_wide", 756, 0, HASH_A),
+            ("prefix_beam_topa_hashed_v1024", "prefix_beam_topa_hashed", 1566, HASH_A, 0)):
+        rows.append(hashed_case_row(name, counted, line, wide_lm, wlogp, wlens, BEAM_K, BEAM_L,
+                                    0.5, 1.0, A=A, k=k))
+    build.reset_launches()
+    with plain_calls_of((prefix_beam, "beam_scan_plain")) as plain:
+        for kw in ({}, {"lm_top_k": HASH_A}, {"ext_top_a": HASH_A}):
+            prefix_beam.prefix_beam_search(wlogp, wlens, beam_size=BEAM_K, max_len=BEAM_L,
+                                           hash_lm=wide_lm, lm_alpha=0.5, lm_beta=1.0, **kw)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    check({n: c for n, c in launches.items() if c} == {"prefix_beam_hashed_wide": 2,
+                                                      "prefix_beam_topa_hashed": 1}
+          and not plain, f"hashed_v1024: launches {launches}, plain calls {plain}")
+    return rows, {"hashed_v1024": launches}
+
+
+def bpe_decode_phase(vocab: str, arpa: str, top_a: int, dump: str) -> dict:
+    """Config 2's BPE path through ``decode.main`` at full width: ``data.vocab
+    =bpe:`` (V 135), the piece 4-gram (``lm_backend=auto`` picks the hashed
+    tables: 135^4 floats pass the dense budget), 64 utterances of 10-16 s on
+    its decode ladder, BPE_BATCHES batches: exactly 1 K1, 8 K2 and 1 hashed
+    K7 (K8 with ``decode.ext_top_a``) a batch, no ``_wide`` form and no call
+    of the plain search."""
+    with tempfile.TemporaryDirectory() as ckpt, plain_calls_of(
+            (prefix_beam, "beam_scan_plain"), (prefix_beam, "continue_plain")) as plain_calls:
+        argv = [CFG2, f"data.vocab=bpe:{vocab}", f"decode.lm_path={arpa}",
+                "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                "data.synthetic_num_utts=64", f"max_batches={BPE_BATCHES}",
+                f"train.checkpoint_dir={ckpt}", f"dump_path={dump}"]
+        if top_a:
+            argv.append(f"decode.ext_top_a={top_a}")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = decode.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    beam = "prefix_beam_topa_hashed" if top_a else "prefix_beam_hashed"
+    want = {"stft_log_mel": BPE_BATCHES, "lstm_seq": BPE_BATCHES * CFG2_LAYERS * 2,
+            beam: BPE_BATCHES}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"bpe decode launches {launches} != {want}")
+    check(not plain_calls, f"the plain search ran on the BPE serving path: {plain_calls}")
+    check(result["num_utts"] > 0 and result["decode_rtf"] > 0, f"bpe decode: {result}")
+    return {**result, "wall_s": wall, "batches": BPE_BATCHES, "ext_top_a": top_a,
+            "launches": launches}
+
+
+def bpe_learn_phase() -> dict:
+    """The JAX package's BPE end-to-end test on the card: 16 utterances of 1-2
+    words, a vocab of 40 merges, an order-3 LM over its pieces, the tiny
+    BiLSTM (conv 4, 4, H 48 x 1) 5 + 115 steps; its loss must fall, then
+    ``decode_eval`` with the hashed LM (``lm_backend=hashed``, one hashed K7
+    a batch) must reach WER <= greedy + 0.3."""
+    corpus = synthetic_corpus(16, 16000, seed=0, min_words=1, max_words=2)
+    texts = [t for _, t in corpus]
+    tok = bpe.train_bpe(texts, num_merges=40)
+    vocab = build.BUILD_DIR / "bpe_e2e_vocab.json"
+    arpa = build.BUILD_DIR / "bpe_e2e.arpa"
+    tok.save(str(vocab))
+    lm_mod.write_arpa(lm_mod.train_char_ngram(texts, order=3, tokenizer=tok), str(arpa), tok)
+    cfg = dataclasses.replace(
+        get_config("ctc_bilstm_dev1h"), frontend=FrontendConfig(specaugment=False),
+        data=DataConfig(vocab=f"bpe:{vocab}", batch_size=4, bucket_audio_lens=(40000,),
+                        bucket_label_lens=(24,)),
+        model=ModelConfig(encoder=BiLSTMEncoderConfig(conv_channels=(4, 4), hidden_dim=48,
+                                                      num_layers=1, dropout=0.0),
+                          compute_dtype="float32"),
+        train=TrainConfig(optim=OptimConfig(peak_lr=3e-3, warmup_steps=20, total_steps=300),
+                          log_every=1),
+        decode=DecodeConfig(method="prefix_beam", beam_size=4, lm_path=str(arpa),
+                            lm_backend="hashed", lm_alpha=0.2, lm_beta=0.3, max_decode_len=32))
+    data = BucketedDataset(corpus, batch_size=4, bucket_audio_lens=cfg.data.bucket_audio_lens,
+                           bucket_label_lens=cfg.data.bucket_label_lens, tokenizer=tok)
+    t0 = time.perf_counter()
+    with Trainer(cfg, dataset=data, enable_checkpoints=False, device=CARD) as trainer:
+        check(trainer.state.model.ctc_head.weight.shape[0] == tok.vocab_size > 31,
+              "bpe learn: the model's head is not the BPE vocab's")
+        first = trainer.train(num_steps=5)
+        rest = trainer.train(num_steps=115)
+        greedy = trainer.evaluate()
+        build.reset_launches()
+        beam = trainer.decode_eval()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(rest["ctc_loss"] < first["ctc_loss"], f"bpe learn: loss {first} -> {rest}")
+    check(beam["method"] == "prefix_beam" and beam["num_utts"] == 16
+          and math.isfinite(beam["wer"]) and beam["wer"] <= greedy["wer"] + 0.3
+          and launches.get("prefix_beam_hashed", 0) > 0,
+          f"bpe learn: hashed beam {beam} ({launches}) vs greedy {greedy}")
+    return {"first_ctc_loss": first["ctc_loss"], "last_ctc_loss": rest["ctc_loss"],
+            "greedy_wer": greedy["wer"], "beam_wer": beam["wer"], "V": tok.vocab_size,
+            "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
+def bpe_sharded_phase(vocab: str, arpa: str, one_dump: str) -> dict:
+    """The BPE decode across 2 ranks on the one card (gloo; model axis 2,
+    ``decode.shard_beams``), the hashed LM's windows through K10's window
+    form: each rank and batch 1 K1, 4 K2 and one K10 a frame, no plain
+    merge or search; the hypotheses the one-rank hashed decode's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [CFG2, f"data.vocab=bpe:{vocab}", f"decode.lm_path={arpa}",
+                "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                "data.synthetic_num_utts=64", f"max_batches={BPE_BATCHES}",
+                f"train.checkpoint_dir={tmp}/none", "mesh.model_axis=2",
+                "decode.shard_beams=true", f"dump_path={tmp}/sh"]
+        ranks = launch.spawn(rank_decode, 2, argv, timeout=RANK_TIMEOUT)
+        for r in ranks:
+            want = {"stft_log_mel": BPE_BATCHES, "lstm_seq": CFG2_LAYERS * BPE_BATCHES,
+                    "merge_topk": sum(r["frames"])}
+            check(r["launches"] == want, f"bpe sharded rank {r['rank']}: {r['launches']}")
+            check(not r["plain"], f"bpe sharded: a plain merge or search ran: {r['plain']}")
+        pairs = read_dump(f"{tmp}/sh.p0")
+    check(pairs == read_dump(one_dump), "bpe sharded: hypotheses differ from one rank's")
+    r0 = ranks[0]
+    return {"world": 2, **{k: r0["result"][k] for k in ("wer", "cer", "num_utts", "decode_rtf",
+                                                         "dist_backend")},
+            "launches_rank0": r0["launches"], "frames": r0["frames"],
+            "search_ms_per_frame": 1e3 * r0["search_s"] / sum(r0["frames"]),
+            "exchange_share_of_batches": (r0["encoder_exchange_s"] + r0["search_exchange_s"])
+            / (r0["encoder_s"] + r0["search_s"])}
+
+
+def merge_window_row(vocab: str, arpa: str) -> dict:
+    """K10's window form at the sharded BPE shape (16 rows, Ks 16, 134
+    lanes, windows of 3), on the candidates of 40 frames of the plain hashed
+    search over planted pieces: every pick and field (the windows' columns
+    too) equal to the plain merge's; timed (device time a launch) on the
+    last frame."""
+    cfg = bpe_cfg(vocab, arpa)
+    tok, dec = get_tokenizer(cfg.data.vocab), cfg.decode
+    hash_lm = driver.load_lm(cfg, CARD)
+    logp, lens = planted_pieces(tok, BEAM_B, 40, 41)
+    V = logp.shape[-1]
+    state = prefix_beam._init_state(BEAM_B, BEAM_K, BEAM_L, CARD, hash_lm.order - 1)
+    for t in range(logp.shape[1]):
+        rows = prefix_beam.hashed_rows(hash_lm, state.ctx)
+        stay, ext = prefix_beam._build_candidates(state, logp[:, t], blank=0, vocab=V,
+                                                  lm_table=None, lm_rows=rows,
+                                                  lm_alpha=dec.lm_alpha, lm_beta=dec.lm_beta,
+                                                  K=BEAM_K, L=BEAM_L)
+        stay = {n: v.contiguous() for n, v in stay.items()}
+        ext = {n: v.contiguous() for n, v in ext.items()}
+        score, got = beam_cuda.merge_topk(stay, ext, BEAM_K)
+        want_score, want = prefix_beam._merge_topk(stay, ext, BEAM_K)
+        check(torch.equal(score, want_score) and all(
+            torch.equal(got[n], want[n].to(got[n].dtype)) for n in got),
+            f"merge window: frame {t} differs from the plain merge")
+        state = prefix_beam._finish_step(state, want, t < lens, BEAM_L)
+    nb, W = V - 1, hash_lm.order - 1
+    call = lambda: beam_cuda.merge_topk(stay, ext, BEAM_K)  # noqa: E731
+    b_ms, b_by = merge_bound(BEAM_B, BEAM_K, nb, BEAM_K, cols=W)
+    return {"name": "merge_topk_window", "counted_as": "merge_topk", "route": "cuda",
+            "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+            "replaces": "pytorch_asr_tpu/ops/beam_pallas.py:1026",
+            "shape": f"{BEAM_B} rows, Ks {BEAM_K}, {nb} lanes, ctx windows of {W}",
+            "max_abs_err": 0.0, "tol": {"every pick and field": "bit-equal"},
+            "ms": time_ms(call),
+            "device_ms": device_ms_per_call(call, "merge_topk_kernel", one_launch=True),
+            "plain_ms": time_ms(lambda: prefix_beam._merge_topk(stay, ext, BEAM_K), 3, 1, 1),
+            "library_ms": None, "library": "none: no PyTorch call does this merge",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def hashed_carried_rows(vocab: str, arpa: str) -> list[dict]:
+    """The hashed carried forms at a stream block (logp (8, 4, 135), K 16, L
+    256, windows of 3): over HASH_CARRY_T // HASH_BLOCK blocks of planted
+    pieces against the plain carried search after every block, the live
+    beams' fields (windows included) bit for bit; timed on a mid-stream
+    block beside the plain loop, the bound from the rows the block needs."""
+    cfg = bpe_cfg(vocab, arpa)
+    tok, dec = get_tokenizer(cfg.data.vocab), cfg.decode
+    hash_lm = driver.load_lm(cfg, CARD)
+    logp, lens = planted_pieces(tok, len(CARRY_LENS), HASH_CARRY_T, 43)
+    K, L, W = dec.beam_size, dec.max_decode_len, hash_lm.order - 1
+    out = []
+    for A, line in ((0, 756), (BEAM_A, 1566)):
+        name = ("prefix_beam_topa" if A else "prefix_beam") + "_hashed_carry"
+        state = plain = prefix_beam.prefix_beam_init(len(CARRY_LENS), K, L, CARD, ctx_width=W)
+        mid = None
+        for t0 in range(0, HASH_CARRY_T, HASH_BLOCK):
+            blk = logp[:, t0:t0 + HASH_BLOCK].contiguous()
+            nv = torch.clamp(lens - t0, 0, HASH_BLOCK).to(torch.int32)
+            if t0 == HASH_CARRY_T // 2:
+                mid = (state, blk, nv)
+            tv, ti = prefix_beam.top_a(blk, A) if A else (None, None)
+            state, _ = beam_cuda.prefix_beam_carry(state, blk, nv, None, dec.lm_alpha,
+                                                   dec.lm_beta, tv, ti, hash_lm=hash_lm)
+            plain, _ = prefix_beam.continue_plain(plain, blk, nv, None, dec.lm_alpha,
+                                                  dec.lm_beta, tv, ti, hash_lm=hash_lm)
+            live = prefix_beam._lse(plain.pb, plain.pnb) > prefix_beam.NEG_INF / 2
+            for f in ("length", "pb", "pnb", "lm_s", "hash", "ctx", "last"):
+                check(torch.equal(getattr(state, f)[live], getattr(plain, f)[live]),
+                      f"{name} block {t0 // HASH_BLOCK}: {f} differs from the plain search")
+        st, blk, nv = mid
+        tv, ti = prefix_beam.top_a(blk, A) if A else (None, None)
+        call = lambda: beam_cuda.prefix_beam_carry(  # noqa: E731
+            st, blk, nv, None, dec.lm_alpha, dec.lm_beta, tv, ti, hash_lm=hash_lm)
+        rows, _ = hashed_rows_read(hash_lm, st, blk, nv, dec.lm_alpha, dec.lm_beta, A)
+        C, frames = A or tok.vocab_size, int(nv.sum())
+        b_ms, b_by = carry_bound(K, C, A, len(CARRY_LENS), L, frames,
+                                 128 * rows + 8 * tok.vocab_size + 2 * 4 * len(CARRY_LENS) * K * W,
+                                 frames * K * W * 6 * C)
+        out.append({"name": name, "route": "cuda",
+                    "source": "pytorch_asr_tpu_torch/csrc/prefix_beam.cu",
+                    "replaces": f"pytorch_asr_tpu/ops/beam_pallas.py:{line}",
+                    "shape": f"logp ({len(CARRY_LENS)}, {HASH_BLOCK}, {tok.vocab_size}) f32 a "
+                             f"block, lengths {lens.tolist()}, K {K}, L {L}, C {A or 135}, "
+                             f"windows of {W}",
+                    "max_abs_err": 0.0, "tol": {"live beams": "bit-equal"},
+                    "ms": device_ms_per_call(call, "prefix_beam_kernel", one_launch=True),
+                    "call_ms": time_ms(call),
+                    "plain_ms": time_ms(lambda: prefix_beam.continue_plain(
+                        st, blk, nv, None, dec.lm_alpha, dec.lm_beta, tv, ti,
+                        hash_lm=hash_lm), 3, 1, 1),
+                    "library_ms": None,
+                    "library": "none: no PyTorch call computes a prefix beam search",
+                    "bound_ms": b_ms, "bound_by": b_by, "lm_rows": rows})
+    return out
+
+
+def stream_hashed_phase(vocab: str, arpa: str) -> tuple[dict, dict]:
+    """The beam recognizer with the hashed LM at full width: config 2 made
+    causal (``CAUSAL``) with the BPE vocab, seeded weights, B 8 streams of
+    ``stream_audio``, blocks of 16, all pieces and the top 8: each block 1
+    K1, 4 ``lstm_seq_stream`` and one hashed carried search, no plain
+    version; each run held to the kernel over its blocks' logits bit for bit
+    (``stream_beam_parity``).  -> (results, launches)."""
+    cfg = get_config(CFG2, **dict(a.split("=", 1) for a in (*CAUSAL, f"data.vocab=bpe:{vocab}",
+                                                            f"decode.lm_path={arpa}")))
+    audio = stream_audio(STREAM_B, cfg.frontend)
+    model = build_model(cfg, CARD)
+    with torch.inference_mode():
+        whole = model(torch.from_numpy(audio).to(CARD),
+                      torch.full((STREAM_B,), audio.shape[1], device=CARD))
+    hash_lm = driver.load_lm(cfg, CARD)
+    res, path = {}, {}
+    for A in (0, BEAM_A):
+        fusion = {"hash_lm": hash_lm, "lm_alpha": cfg.decode.lm_alpha,
+                  "lm_beta": cfg.decode.lm_beta, "ext_top_a": A}
+        full = prefix_beam.prefix_beam_search(
+            whole["ctc_logits"], whole["enc_len"], beam_size=cfg.decode.beam_size,
+            max_len=cfg.decode.max_decode_len, **fusion)
+        run = run_stream(model, cfg, audio, STREAM_BLOCKS[0], mode="beam", **fusion)
+        n = len(run["block_s"])
+        name = ("prefix_beam_topa" if A else "prefix_beam") + "_hashed_carry"
+        want = {"stft_log_mel": n, "lstm_seq_stream": CFG2_LAYERS * n, name: n}
+        check({k: v for k, v in run["launches"].items() if v} == want,
+              f"stream hashed A {A}: launches {run['launches']} != {want}")
+        check(not run["plain_calls"], f"a plain version ran on the card: {run['plain_calls']}")
+        times = np.array(run["block_s"]) * 1e3
+        res[f"top{A}" if A else "all"] = {
+            "blocks": n, "p50_ms": float(np.percentile(times, 50)),
+            "p99_ms": float(np.percentile(times, 99)), "rtf": float(times.sum() / 1e3 / STREAM_SEC),
+            **stream_beam_parity(run, whole, full, fusion, cfg)}
+        for k, v in run["launches"].items():
+            path[k] = path.get(k, 0) + v
+    return res, path
+
+
+def slice22_phases(arpa_char: str) -> tuple[list[dict], dict]:
+    """Slice 22's paths: the BPE vocab and piece 4-gram (set-up), the hashed
+    kernels' rows, config 2's BPE decode (all pieces and the top 8), its
+    profile, the tiny BPE model learning and decoding with the hashed LM,
+    the decode across 2 ranks (K10's window form), the hashed carried
+    forms and the beam recognizer with the hashed LM.  -> (rows, {path:
+    launches})."""
+    t0 = time.perf_counter()
+    vocab, arpa = build_bpe_lm()
+    print(f"bpe lm: {time.perf_counter() - t0:.1f} s (set-up)")
+    # Every profiled phase runs before the ranks' spawn (bpe_sharded_phase).
+    rows, paths = hashed_kernels_phase(vocab, arpa)
+    rows.append(merge_window_row(vocab, arpa))
+    rows += hashed_carried_rows(vocab, arpa)
+    print("bpe_profile:", json.dumps(beam_profile_phase(arpa, f"data.vocab=bpe:{vocab}")))
+    with tempfile.TemporaryDirectory() as tmp:
+        dec = {"bpe_decode": bpe_decode_phase(vocab, arpa, 0, f"{tmp}/one"),
+               "bpe_decode_topa": bpe_decode_phase(vocab, arpa, BEAM_A, f"{tmp}/topa")}
+        for path, r in dec.items():
+            print(f"{path}:", json.dumps(r))
+            print(f"{path}: decode_rtf {r['decode_rtf']:.5f} wer {r['wer']:.4f} "
+                  f"padding_efficiency_decode {r['padding_efficiency_decode']:.4f}")
+            paths[path] = r["launches"]
+        stream, paths["stream_beam_hashed"] = stream_hashed_phase(vocab, arpa)
+        print("stream_beam_hashed:", json.dumps(stream))
+        print("bpe_learn:", json.dumps(bpe_learn_phase()))
+        sharded = bpe_sharded_phase(vocab, arpa, f"{tmp}/one")
+    print("bpe_sharded:", json.dumps(sharded))
+    paths["bpe_sharded_model2"] = sharded["launches_rank0"]
+    for k in rows:
+        print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} (tol {k['tol']}) "
+              f"ms {k['ms']:.4f} plain {k['plain_ms']:.4f} library none "
+              f"bound {k['bound_ms']:.5f} ({k['bound_by']})"
+              + (f" rows {k['lm_rows']}" if "lm_rows" in k else ""))
+    print(f"slice22: {time.perf_counter() - t0:.1f} s")
+    return rows, paths
 
 
 def main() -> int:
@@ -4640,6 +5162,7 @@ def main() -> int:
         print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} "
               f"(tol {k['tol']}) ms {k['ms']:.4f} plain {k['plain_ms']:.4f} "
               f"library {lib} bound {k['bound_ms']:.4f} ({k['bound_by']})")
+    print(f"at {time.perf_counter() - t_start:.1f} s: kernel phases done")
     print("slice:", json.dumps(slice_phase()))
     print("train_step:", json.dumps(train_step_phase()))
     dec = decode_phase()
@@ -4650,6 +5173,7 @@ def main() -> int:
           f"{trn['record']['audio_seconds_per_sec_per_chip']:.2f} step {trn['step_s']:.4f} s "
           f"ctc_loss {trn['record']['ctc_loss']:.4f}")
     print("learn:", json.dumps(learn_phase(arpa, rnn_lm)))
+    print(f"at {time.perf_counter() - t_start:.1f} s: config 1 paths and learn done")
     beam_dec = {"beam_decode": beam_decode_phase(arpa, 0),
                 "beam_decode_topa": beam_decode_phase(arpa, BEAM_A),
                 "rnn_decode": beam_decode_phase(rnn_lm, 0),
@@ -4668,6 +5192,7 @@ def main() -> int:
         print(f"{path}:", json.dumps(res))
         print(f"{path}: decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "
               f"padding_efficiency_decode {res['padding_efficiency_decode']:.4f}")
+    print(f"at {time.perf_counter() - t_start:.1f} s: config 2 decodes done")
     print("tcn_slice:", json.dumps(slice_phase(CFG3)))
     print("tcn_train_step:", json.dumps(train_step_phase(CFG3, "encoder.stem.")))
     tcn_dec = tcn_decode_phase()
@@ -4679,14 +5204,19 @@ def main() -> int:
     print(f"tcn_train: audio_seconds_per_sec_per_chip "
           f"{tcn_trn['record']['audio_seconds_per_sec_per_chip']:.2f} "
           f"step {tcn_trn['step_s']:.4f} s ctc_loss {tcn_trn['record']['ctc_loss']:.4f}")
+    print(f"at {time.perf_counter() - t_start:.1f} s: config 3 paths done")
     slice20_rows, slice20_paths = slice20_phases()
     kernels += slice20_rows
     slice21_rows, slice21_paths = slice21_phases(arpa, rnn_lm)
     kernels += slice21_rows
+    slice22_rows, slice22_paths = slice22_phases(arpa)
+    kernels += slice22_rows
     t0 = time.perf_counter()
     las = las_phases()
     print(f"las: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     print("rnn_past_smem:", json.dumps(rnn_past_smem_phase(rnn_lm)))
+    print(f"rnn_past_smem: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     wide, wide_rows, wide_paths = wide_phase()
     print("wide:", json.dumps(wide))
@@ -4705,8 +5235,10 @@ def main() -> int:
               f"decode_rtf {res['decode_rtf']:.5f} wer {res['wer']:.4f} "
               f"exchange_share {res['exchange_share_of_batches']:.3f}")
     print(f"sharded_decode: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     trn_paired = train_paired_phase()
     print("train_paired:", json.dumps(trn_paired))
+    print(f"train_paired: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     scripts = bench_scripts_phase()
     print("bench_scripts:", json.dumps(scripts))
@@ -4730,7 +5262,7 @@ def main() -> int:
              **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")},
              **{p: las[p]["launches"] for p in ("las_decode", "joint_decode", "las_train",
                                                 "joint_train")},
-             **wide_paths, **slice20_paths, **slice21_paths}
+             **wide_paths, **slice20_paths, **slice21_paths, **slice22_paths}
     wide_paths["wide_stream"] = slice20_paths["wide_stream"]
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
@@ -4751,7 +5283,14 @@ def main() -> int:
                 "lstm_seq_stream": "stream_greedy", "lstm_seq_stream_wide": "wide_stream",
                 "prefix_beam_carry": "stream_beam", "prefix_beam_topa_carry": "stream_beam",
                 "prefix_beam_rnn_carry": "stream_beam",
-                "prefix_beam_rnn_topa_carry": "stream_beam"}
+                "prefix_beam_rnn_topa_carry": "stream_beam",
+                "prefix_beam_hashed": "bpe_decode", "prefix_beam_topa_hashed": "bpe_decode_topa",
+                "prefix_beam_hashed_wide": "hashed_v1024",
+                "prefix_beam_hashed_wide_lm_top_k": "hashed_v1024",
+                "prefix_beam_topa_hashed_v1024": "hashed_v1024",
+                "merge_topk_window": "bpe_sharded_model2",
+                "prefix_beam_hashed_carry": "stream_beam_hashed",
+                "prefix_beam_topa_hashed_carry": "stream_beam_hashed"}
     # The per-utterance oracles of the grid kernels are no path's kernels.
     oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0)
                    + counts.get("bilstm_seq_bwd_per_utterance", 0) for p, counts in paths.items()}
@@ -4775,6 +5314,7 @@ def main() -> int:
         if k["name"] in las["kernels"]:
             k["las_cases"] = las["kernels"][k["name"]]
             k["max_abs_err"] = max([k["max_abs_err"]] + [c["max_abs_err"] for c in k["las_cases"]])
+    print(f"at {time.perf_counter() - t_start:.1f} s: paths checked; profiles next")
     print("profile:", json.dumps(profile_phase()))
     print("train_profile:", json.dumps(train_profile_phase()))
     print("beam_profile:", json.dumps(beam_profile_phase(arpa)))

@@ -180,6 +180,27 @@
 // prefix_beam_rnn_wide, ..._rnn_topa_wide; K10's merge_topk_wide, below).
 // No model configuration of the repo reaches it.
 //
+// The hashed n-gram LM (the kHash forms of K7 and K8; decoding/lm_hashed.py;
+// JAX fuses it only in its scan, decoding/prefix_beam.py:375-401, so no TPU
+// kernel is its counterpart).  Each beam carries a window of its last
+// W = order - 1 ids (0 = no history) instead of a context id.  A frame first
+// computes, a thread a (beam, level n = 2..order), the level's keys (two
+// FNV-1a folds of the window's last n - 1 ids), whether they are all
+// nonzero, and the context's backoff (uni_bo for one id, else one bucket
+// row of its backoff table); then each lane folds its char into every
+// level's keys and reads one 128-byte bucket row a level through L2,
+// bottom-up: s = uni[c], then s = hit ? P_n : bo_n + s.  The keys are
+// compared as int32 bits; a hit's value is 0 + P_n, as the plain version's
+// masked sum gives it.  K7 with lm_top_k (exact != null) looks up only the
+// frame's top chars (stamped with t in the slot map) and gives every other
+// char the all-miss row (every level a backoff).  The window rolls where a
+// beam appends.  The tables never enter shared memory: the working set
+// grows by 24 K W bytes past the search's (hashed_smem_bytes), and the
+// wrapper's scratch form takes it past a block (beam_cuda.fits with W).
+// C entry prefix_beam_hashed; counted prefix_beam_hashed,
+// prefix_beam_topa_hashed, their _carry and _wide forms.  K10's kWindow form
+// (merge_topk with cols > 0) copies each pick's window of cols ids.
+//
 // A chunk of a stream (the kCarry forms of the block kernel and of K9's
 // grid; JAX streams the search as decoding/prefix_beam.py:685
 // prefix_beam_continue, a lax.scan of the offline step): the beams start as
@@ -419,6 +440,18 @@ __host__ __device__ inline size_t scratch_block_bytes(int K, int C, int V, bool 
   return (work + 15) / 16 * 16;
 }
 
+// A hashed block's working set (the kHash forms of K7 and K8): the
+// search's to a 16-byte boundary, then its HashWs of windows W = order - 1
+// wide; its shared memory, and to 16 bytes its slice of the kInScratch
+// scratch.  ops/beam_cuda.py::smem_bytes and scratch_bytes compute the same.
+__host__ __device__ inline size_t hashed_smem_bytes(int K, int C, int V, int W) {
+  return (search_smem_bytes(K, C, V) + 15) / 16 * 16 + 24 * (size_t)K * W;
+}
+
+__host__ __device__ inline size_t hashed_block_bytes(int K, int C, int V, int W) {
+  return (hashed_smem_bytes(K, C, V, W) + 15) / 16 * 16;
+}
+
 // The search's working set of one utterance, laid out from a 16-byte
 // aligned base as search_smem_bytes counts it.
 struct SearchWs {
@@ -472,6 +505,81 @@ struct SearchIn {
   float alpha, beta;
 };
 
+// The hashed n-gram LM (the kHash forms of K7 and K8, in RnnLm's place):
+// decoding/lm_hashed.py's tables in device memory.  A bucket row is 32
+// words, [k1 x 8 | k2 x 8 | val x 8 | pad x 8], the int32 keys in float
+// words; `tables` holds 2 (2N - 3) int64: the row arrays' addresses of the
+// probs of orders 2..N, then of the backoffs of context lengths 2..N-1, then
+// each array's bucket mask (buckets - 1) in that order
+// (ops/beam_cuda.py::hash_table).  exact: K7 with lm_top_k, each frame's
+// top n_exact chars (B, T, n_exact), whose rows are exact while the other
+// chars take the all-miss row; null: every row exact.
+struct HashLm {
+  const float* uni;            // (V) log P(c), -20 where absent
+  const float* uni_bo;         // (V) backoff of length-1 contexts
+  const long long* tables;     // (2 (2N - 3))
+  const int* exact;            // (B, T, n_exact) or null
+  int order, n_exact;
+};
+
+// The hashed forms' part of the working set, from the 16-byte boundary past
+// the search's: every beam's window of its last W = N - 1 ids (oldest
+// first, 0 = no history; double-buffered), and each frame's context levels
+// n = 2..N of each beam, (K, W): its two keys, its backoff (0 where the
+// level is skipped or the context is absent) and whether the level is valid
+// (the window's last n - 1 ids all nonzero).
+struct HashWs {
+  int* win;                    // (2, K, W)
+  uint32_t *h1, *h2;           // (K, W)
+  float* bo;                   // (K, W)
+  int* valid;                  // (K, W)
+};
+
+__device__ __forceinline__ HashWs hash_ws(void* base, int K, int C, int V, int W) {
+  HashWs h;
+  h.win = reinterpret_cast<int*>(static_cast<char*>(base) +
+                                 (search_smem_bytes(K, C, V) + 15) / 16 * 16);
+  h.h1 = reinterpret_cast<uint32_t*>(h.win + 2 * K * W);
+  h.h2 = h.h1 + K * W;
+  h.bo = reinterpret_cast<float*>(h.h2 + K * W);
+  h.valid = reinterpret_cast<int*>(h.bo + K * W);
+  return h;
+}
+
+// FNV-1a's two 32-bit streams (lm_hashed.py's basis and prime pairs).
+constexpr uint32_t kBasis1 = 0x811C9DC5u, kPrime1 = 0x01000193u;
+constexpr uint32_t kBasis2 = 0x9747B28Cu, kPrime2 = 0x85EBCA6Bu;
+
+__device__ __forceinline__ void fold(uint32_t& h1, uint32_t& h2, int x) {
+  h1 = (h1 ^ (uint32_t)x) * kPrime1;
+  h2 = (h2 ^ (uint32_t)x) * kPrime2;
+}
+
+// Table i's bucket of key (h1, h2): one 128-byte row through L2; the keys
+// are compared as int32 bits.  Returns whether a way holds the key and, in
+// *val, 0 + its value (the plain version's masked sum over the 8 ways, which
+// turns a -0 into +0), 0 where none does.
+__device__ __forceinline__ bool hash_find(const HashLm& hl, int i, uint32_t h1, uint32_t h2,
+                                          float* val) {
+  const int nt = 2 * hl.order - 3;
+  const int* row = reinterpret_cast<const int*>(__ldg(hl.tables + i)) +
+                   (size_t)(h1 & (uint32_t)__ldg(hl.tables + nt + i)) * 32;
+  const int4 a = __ldg(reinterpret_cast<const int4*>(row));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(row) + 1);
+  const int k1[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  bool found = false;
+  float v = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (k1[j] == (int)h1 && __ldg(row + 8 + j) == (int)h2) {
+      found = true;
+      v = __fadd_rn(v, __int_as_float(__ldg(row + 16 + j)));
+    }
+  }
+  *val = v;
+  return found;
+}
+
 // A carried search's state in device memory (the kCarry forms: a chunk of a
 // stream, started from the state the last chunk handed on), passed to the
 // kernel by value.  Its 22 pointers, in the order of the host array the C
@@ -500,6 +608,11 @@ static_assert(sizeof(BeamCarry) == 22 * sizeof(void*), "BeamCarry: 22 pointers")
 template <bool kCarry>
 using TraceOr = std::conditional_t<kCarry, BeamCarry, long long*>;
 
+// The block kernel's LM parameter: the hashed tables for kHash, else K9's
+// RNN LM (unread by K7 and K8 without the hashed source).
+template <bool kHash>
+using LmOf = std::conditional_t<kHash, HashLm, RnnLm>;
+
 // A C entry's carry (a host array of 22 pointers) as the struct.
 inline BeamCarry beam_carry(const void* const* carry) {
   BeamCarry cy;
@@ -521,7 +634,9 @@ __device__ __forceinline__ void search_init(const SearchWs& w, int K, int tid, i
 }
 
 // The carried form's start: utterance b's beams as the state holds them,
-// into buffer 0 (dead beams keep their hashes).
+// into buffer 0 (dead beams keep their hashes).  kCtx false (the hashed
+// forms, which read their windows themselves): no context id.
+template <bool kCtx = true>
 __device__ __forceinline__ void carry_in(const SearchWs& w, const BeamCarry& cy, int b, int K,
                                          int tid, int nt) {
   for (int r = tid; r < K; r += nt) {
@@ -532,7 +647,7 @@ __device__ __forceinline__ void carry_in(const SearchWs& w, const BeamCarry& cy,
     w.hsh[r] = (uint32_t)cy.hsh[at];
     w.last[r] = cy.last[at];
     w.len[r] = cy.len[at];
-    w.ctx[r] = cy.ctx[at];
+    w.ctx[r] = kCtx ? cy.ctx[at] : 0;
   }
 }
 
@@ -596,11 +711,14 @@ __device__ __forceinline__ void fetch_row(const SearchWs& w, const SearchIn& s, 
 // tree or ranks) and picks (warp 0's picks and the next row's wait).
 // On entry the working set holds frame t's row and, for K8, a cleared char
 // -> slot map; on return, frame t + 1's.
-template <bool kTopA, bool kRnn, bool kInScratch>
+// kHash: the LM is the hashed tables `hl`, the windows and levels in `hw`.
+template <bool kTopA, bool kRnn, bool kInScratch, bool kHash = false>
 __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& s, int b, int t,
                                              int n_t, int cur, const float* lm_rows,
                                              const int* lm_slot, int* par, int* app,
-                                             long long* tr, int tid, int nt) {
+                                             long long* tr, int tid, int nt,
+                                             const HashLm* hl = nullptr,
+                                             const HashWs* hw = nullptr) {
   const int K = s.K, C = s.C, V = s.V, KC = K * C, N = K + KC;
   const float *pb_c = w.pb + cur * K, *pnb_c = w.pnb + cur * K, *lms_c = w.lms + cur * K;
   const uint32_t* hsh_c = w.hsh + cur * K;
@@ -609,6 +727,39 @@ __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& 
   if (tr) {
     tr[0] = (long long)global_ns();
     tr[1] = clock64();
+  }
+  const int W = kHash ? hl->order - 1 : 0;
+  if constexpr (kHash) {
+    // Each beam's context levels, a thread a (beam, level): level n = l + 2
+    // reads the window's last m = n - 1 ids; the backoff of a context of
+    // one id is uni_bo's, of more a lookup in backoff table m - 2.  With
+    // lm_top_k, the frame's top chars are stamped with t in the slot map.
+    const int* win_c = hw->win + cur * K * W;
+    for (int i = tid; i < K * W; i += nt) {
+      const int k = i / W, m = i - k * W + 1;
+      const int* suf = win_c + k * W + (W - m);
+      uint32_t h1 = kBasis1, h2 = kBasis2;
+      bool valid = true;
+      for (int j = 0; j < m; ++j) {
+        valid = valid && suf[j] != 0;
+        fold(h1, h2, suf[j]);
+      }
+      float bo;
+      bool found = true;
+      if (m == 1) {
+        bo = __ldg(hl->uni_bo + min(max(suf[0], 0), V - 1));
+      } else {
+        found = hash_find(*hl, (W) + m - 2, h1, h2, &bo);
+      }
+      hw->h1[i] = h1;
+      hw->h2[i] = h2;
+      hw->bo[i] = valid && found ? bo : 0.0f;
+      hw->valid[i] = valid;
+    }
+    if (!kTopA && hl->exact != nullptr) {
+      for (int a = tid; a < hl->n_exact; a += nt) w.slot[hl->exact[row * hl->n_exact + a]] = t;
+    }
+    __syncthreads();
   }
   if (tr) tr[2] = clock64();
 
@@ -634,12 +785,33 @@ __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& 
     float e = (c == last_c[k] ? pb_c[k] : total) + lpc;
     if (len_c[k] >= s.L || c == 0) e = NEG_INF;  // beam full, or the blank
     w.epnb[lane] = e;
-    // The beam's LM row: K9's log-probs, else the table's context row.
-    const float* lm_row =
-        kRnn ? lm_rows + (lm_slot != nullptr ? lm_slot[k] : k) * V
-             : (s.table != nullptr ? s.table + (size_t)ctx_c[k] * V : nullptr);
     float l = lms_c[k];
-    if (lm_row != nullptr) l = __fadd_rn(l, __fadd_rn(__fmul_rn(s.alpha, lm_row[c]), s.beta));
+    if constexpr (kHash) {
+      // The hashed row's entry for c, bottom-up: the unigram, then at each
+      // level the n-gram's log-prob where the level is valid and the table
+      // holds it, else the context's backoff plus the level below (every
+      // level a backoff for a char outside lm_top_k's set).
+      const bool exact = kTopA || hl->exact == nullptr || w.slot[c] == t;
+      float sc = __ldg(hl->uni + min(max(c, 0), V - 1));
+      for (int j = 0; j < W; ++j) {
+        const int i = k * W + j;
+        float v;
+        bool hit = false;
+        if (exact && hw->valid[i]) {
+          uint32_t h1 = hw->h1[i], h2 = hw->h2[i];
+          fold(h1, h2, c);
+          hit = hash_find(*hl, j, h1, h2, &v);
+        }
+        sc = hit ? v : __fadd_rn(hw->bo[i], sc);
+      }
+      l = __fadd_rn(l, __fadd_rn(__fmul_rn(s.alpha, sc), s.beta));
+    } else {
+      // The beam's LM row: K9's log-probs, else the table's context row.
+      const float* lm_row =
+          kRnn ? lm_rows + (lm_slot != nullptr ? lm_slot[k] : k) * V
+               : (s.table != nullptr ? s.table + (size_t)ctx_c[k] * V : nullptr);
+      if (lm_row != nullptr) l = __fadd_rn(l, __fadd_rn(__fmul_rn(s.alpha, lm_row[c]), s.beta));
+    }
     w.elm[lane] = l;  // no FMA on the fusion line
     w.absorbed[lane] = 0;
   }
@@ -748,6 +920,16 @@ __device__ __forceinline__ void search_frame(const SearchWs& w, const SearchIn& 
                       : ctx_c[k];
       w.last[nx] = c;
       w.len[nx] = len_c[k] + 1;
+    }
+    if constexpr (kHash) {  // the parent's window, shifted by c where it appends
+      const int* from = hw->win + (cur * K + k) * W;
+      int* to = hw->win + nx * W;
+      if (append < 0) {
+        for (int i = 0; i < W; ++i) to[i] = from[i];
+      } else {
+        for (int i = 0; i + 1 < W; ++i) to[i] = from[i + 1];
+        to[W - 1] = append;
+      }
     }
     if (key_score(pick) <= NEG_INF / 2) {  // a dead filler
       w.pb[nx] = NEG_INF;
@@ -866,7 +1048,10 @@ __device__ __forceinline__ void finish_search(const SearchWs& w, const SearchIn&
 // free after the last frame) with the chunk's appends written over it from
 // the ancestor's length on, below L, as the plain search writes each at its
 // parent's length; then the best beam (the first of equal scores, as
-// finish_search picks it) and its new row.  All threads call it.
+// finish_search picks it) and its new row.  All threads call it.  kCtx
+// false (the hashed forms, whose ctx is a window the caller writes): no
+// context id.
+template <bool kCtx = true>
 __device__ __forceinline__ void carry_out(const SearchWs& w, const SearchIn& s,
                                           const BeamCarry& cy, int b, int n_t, int cur,
                                           int* tokens, int* out_len, float* out_score, int tid,
@@ -885,7 +1070,7 @@ __device__ __forceinline__ void carry_out(const SearchWs& w, const SearchIn& s,
     cy.hsh_o[at] = (int)w.hsh[cur * K + r];
     cy.last_o[at] = w.last[cur * K + r];
     cy.len_o[at] = w.len[cur * K + r];
-    cy.ctx_o[at] = w.ctx[cur * K + r];
+    if constexpr (kCtx) cy.ctx_o[at] = w.ctx[cur * K + r];
   }
   __syncthreads();
   const size_t row0 = (size_t)b * K * L;
@@ -1112,22 +1297,35 @@ int search_threads(int K, int C) {
 // where the others take the trace: every beam starts as the carry's state
 // holds it (K9: its own LM state), and the state after the chunk, every
 // beam's tokens included, goes back there.
-template <bool kTopA, bool kRnn, int kPlace, bool kCarry = false>
+// kHash (K7, K8): the LM is the hashed tables, `lm` a HashLm; each beam's
+// context is its window of the last order - 1 ids, in the HashWs past the
+// search's working set, and for kCarry the state's ctx is (B, K, order - 1).
+template <bool kTopA, bool kRnn, int kPlace, bool kCarry = false, bool kHash = false>
 __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     SearchIn s, const int* __restrict__ lens, int* __restrict__ tokens,
-    int* __restrict__ out_len, float* __restrict__ out_score, RnnLm lm, float* scratch,
+    int* __restrict__ out_len, float* __restrict__ out_score, LmOf<kHash> lm, float* scratch,
     TraceOr<kCarry> trace) {
   const int K = s.K, C = s.C, V = s.V;
   extern __shared__ __align__(16) unsigned long long smem[];
   // The working set's base: shared memory, or (kInScratch) this block's
   // slice of the scratch.
   unsigned long long* base = smem;
-  if constexpr (kPlace == kInScratch) {
+  if constexpr (kPlace == kInScratch && kHash) {
+    base = reinterpret_cast<unsigned long long*>(
+        reinterpret_cast<char*>(scratch) +
+        (size_t)blockIdx.x * hashed_block_bytes(K, C, V, lm.order - 1));
+  } else if constexpr (kPlace == kInScratch) {
     char* slice = reinterpret_cast<char*>(scratch) +
                   (size_t)blockIdx.x * scratch_block_bytes(K, C, V, kRnn, lm.nl, lm.E, lm.H);
     base = reinterpret_cast<unsigned long long*>(slice);
   }
   const SearchWs w = search_ws(base, K, C, V);
+  HashWs hw = {};
+  int W = 0;
+  if constexpr (kHash) {
+    W = lm.order - 1;
+    hw = hash_ws(base, K, C, V, W);
+  }
   LmSmem rnn = {};                                        // K9's LM state
   if constexpr (kRnn) {
     // The state follows xin in the working set, or (kLmStateInScratch: it
@@ -1154,9 +1352,23 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int n_t = min(max(lens[b], 0), s.T);
+  if constexpr (kHash) {
+    // The windows (the carry's (B, K, W) ctx, or zeros: no history), and
+    // K7's slot map cleared for lm_top_k's frame stamps.
+    for (int i = tid; i < K * W; i += nt) {
+      if constexpr (kCarry) {
+        hw.win[i] = trace.ctx[(size_t)b * K * W + i];
+      } else {
+        hw.win[i] = 0;
+      }
+    }
+    if constexpr (!kTopA) {
+      for (int v = tid; v < V; v += nt) w.slot[v] = -1;
+    }
+  }
   if constexpr (kCarry) {
     const BeamCarry& cy = trace;
-    carry_in(w, cy, b, K, tid, nt);
+    carry_in<!kHash>(w, cy, b, K, tid, nt);
     if constexpr (kRnn) {  // beam k's LM state, (nl, B, K, H) in the carry
       const int KH = K * lm.H;
       for (int idx = tid; idx < lm.nl * KH; idx += nt) {
@@ -1186,9 +1398,15 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
     long long* tr = nullptr;
     if constexpr (!kCarry)
       tr = trace != nullptr && b == 0 && tid == 0 ? trace + 7 * (size_t)t : nullptr;
-    search_frame<kTopA, kRnn, kPlace == kInScratch>(
-        w, s, b, t, n_t, cur, kRnn ? rnn.lmp + (size_t)cur * K * V : nullptr, nullptr, rnn.par,
-        rnn.app, tr, tid, nt);
+    if constexpr (kHash) {
+      search_frame<kTopA, false, kPlace == kInScratch, true>(w, s, b, t, n_t, cur, nullptr,
+                                                             nullptr, nullptr, nullptr, tr, tid,
+                                                             nt, &lm, &hw);
+    } else {
+      search_frame<kTopA, kRnn, kPlace == kInScratch>(
+          w, s, b, t, n_t, cur, kRnn ? rnn.lmp + (size_t)cur * K * V : nullptr, nullptr,
+          rnn.par, rnn.app, tr, tid, nt);
+    }
     if constexpr (kRnn) {
       advance_lm(lm, rnn, cur, K, V, tid, nt);
       __syncthreads();
@@ -1197,7 +1415,12 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
   }
   if constexpr (kCarry) {
     const BeamCarry& cy = trace;
-    carry_out(w, s, cy, b, n_t, cur, tokens, out_len, out_score, tid, nt);
+    carry_out<!kHash>(w, s, cy, b, n_t, cur, tokens, out_len, out_score, tid, nt);
+    if constexpr (kHash) {  // each beam's window out of buffer cur, over carry_out's ctx
+      __syncthreads();
+      for (int i = tid; i < K * W; i += nt)
+        cy.ctx_o[(size_t)b * K * W + i] = hw.win[cur * K * W + i];
+    }
     if constexpr (kRnn) {  // each beam's LM state out of buffer cur
       const int KH = K * lm.H;
       const float *h_c = rnn.h + (size_t)cur * lm.nl * KH, *c_c = rnn.c + (size_t)cur * lm.nl * KH;
@@ -1217,11 +1440,11 @@ __global__ void __launch_bounds__(1024) prefix_beam_kernel(
 
 // Launches one block per utterance with the dynamic shared memory set.
 // trace: the trace, or for kCarry the BeamCarry.
-template <bool kTopA, bool kRnn, int kPlace = kShared, bool kCarry = false>
+template <bool kTopA, bool kRnn, int kPlace = kShared, bool kCarry = false, bool kHash = false>
 int launch(int B, int threads, size_t smem, void* stream, const SearchIn& s, const int* lens,
-           int* tokens, int* out_len, float* out_score, const RnnLm& lm, float* scratch,
+           int* tokens, int* out_len, float* out_score, const LmOf<kHash>& lm, float* scratch,
            TraceOr<kCarry> trace) {
-  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace, kCarry>;
+  auto kernel = prefix_beam_kernel<kTopA, kRnn, kPlace, kCarry, kHash>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1762,8 +1985,18 @@ struct MergeIn {
 
 struct MergeOut {
   float *score, *pb, *pnb, *lm;                          // (B, K)
-  int *hash, *last, *parent, *append, *ctx;              // (B, K)
+  int *hash, *last, *parent, *append, *ctx;              // (B, K), ctx (B, K, cols) windowed
 };
+
+// The window form's input (kWindow: the hashed LM's contexts): the same
+// fields with ctx (B, Ks, cols) for the stays and (B, Ks * nb, cols) for the
+// lanes; each pick copies its candidate's cols columns.
+struct MergeWin : MergeIn {
+  int cols;
+};
+
+template <bool kWindow>
+using MergeInOf = std::conditional_t<kWindow, MergeWin, MergeIn>;
 
 // One block's working set: keys 8 N, 512 bytes of room past them (the
 // merge tree's zeros), 12 Ks of stays (pb, pnb, hash), 5 Ks*nb of lanes
@@ -1778,9 +2011,9 @@ __host__ __device__ inline size_t merge_slice_bytes(int Ks, int nb) {
   return (merge_smem_bytes(Ks, nb) + 15) / 16 * 16;
 }
 
-template <bool kInScratch>
-__global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut out, int Ks,
-                                                          int nb, int K, char* scratch,
+template <bool kInScratch, bool kWindow = false>
+__global__ void __launch_bounds__(1024) merge_topk_kernel(MergeInOf<kWindow> in, MergeOut out,
+                                                          int Ks, int nb, int K, char* scratch,
                                                           long long* trace) {
   const int KC = Ks * nb, N = Ks + KC;
   extern __shared__ __align__(16) unsigned long long smem[];
@@ -1893,7 +2126,12 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
       out.last[o] = in.s_last[so + j];
       out.parent[o] = in.s_parent[so + j];
       out.append[o] = -1;
-      out.ctx[o] = in.s_ctx[so + j];
+      if constexpr (kWindow) {
+        for (int i = 0; i < in.cols; ++i)
+          out.ctx[o * in.cols + i] = in.s_ctx[(so + j) * in.cols + i];
+      } else {
+        out.ctx[o] = in.s_ctx[so + j];
+      }
     } else {
       const size_t l = eo + (j - Ks);
       pb = NEG_INF;
@@ -1903,7 +2141,11 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
       out.last[o] = in.e_append[l];
       out.parent[o] = in.e_parent[l];
       out.append[o] = in.e_append[l];
-      out.ctx[o] = in.e_ctx[l];
+      if constexpr (kWindow) {
+        for (int i = 0; i < in.cols; ++i) out.ctx[o * in.cols + i] = in.e_ctx[l * in.cols + i];
+      } else {
+        out.ctx[o] = in.e_ctx[l];
+      }
     }
     const bool dead = score <= NEG_INF / 2;  // a dead filler carries no mass
     out.score[o] = score;
@@ -1968,6 +2210,28 @@ __global__ void __launch_bounds__(1024) merge_topk_kernel(MergeIn in, MergeOut o
   }
 }
 
+// K10's launch: a block a row, in shared memory, or with `slices` (B
+// merge_slice_bytes) its working set in a device scratch.
+template <bool kWindow>
+int launch_merge(const MergeInOf<kWindow>& in, const MergeOut& out, int B, int Ks, int nb, int K,
+                 char* slices, long long* trace, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int threads = search_threads(Ks, nb);
+  if (slices != nullptr) {
+    merge_topk_kernel<true, kWindow><<<B, threads, 0, st>>>(in, out, Ks, nb, K, slices, trace);
+    return cudaGetLastError();
+  }
+  const size_t smem = merge_smem_bytes(Ks, nb);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_topk_kernel<false, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  merge_topk_kernel<false, kWindow><<<B, threads, smem, st>>>(in, out, Ks, nb, K, nullptr, trace);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // top_val/top_idx null: K7 over all V chars (C = V); else K8 over C = A.
@@ -2006,6 +2270,45 @@ extern "C" int prefix_beam(const float* logp, const float* top_val, const int* t
                   : (apart ? launch<false, false, kInScratch> : launch<false, false>);
   return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, none, scratch,
              trace);
+}
+
+// K7 and K8 with the hashed n-gram LM (their kHash forms): as prefix_beam,
+// the LM given as HashLm's fields (uni and uni_bo (V), tables: 2 (2 order -
+// 3) int64 of row addresses and bucket masks; exact and n_exact: K7's
+// lm_top_k chars (B, T, n_exact), or null).  scratch: null keeps each
+// block's working set in shared memory (the wrapper checks its size), else
+// a device scratch of B * hashed_block_bytes(K, C, V, order - 1) bytes.
+// carry: as prefix_beam's, the state's ctx (B, K, order - 1) windows.
+extern "C" int prefix_beam_hashed(const float* logp, const float* top_val, const int* top_idx,
+                                  const int* lens, const float* uni, const float* uni_bo,
+                                  const long long* tables, int order, const int* exact,
+                                  int n_exact, int* parents, int* appends, int* tokens,
+                                  int* out_len, float* out_score, int B, int T, int V, int K,
+                                  int C, int L, float alpha, float beta, float* scratch,
+                                  long long* trace, const void* const* carry, void* stream) {
+  if (B == 0) return 0;
+  const bool apart = scratch != nullptr, topa = top_idx != nullptr;
+  if (order < 2 || (carry != nullptr && trace != nullptr) || (exact != nullptr && topa) ||
+      (exact != nullptr) != (n_exact > 0))
+    return cudaErrorInvalidValue;
+  const size_t smem = apart ? 0 : hashed_smem_bytes(K, C, V, order - 1);
+  const int threads = search_threads(K, C);
+  const SearchIn s = search_in(logp, top_val, top_idx, nullptr, parents, appends, T, V, K, C, L,
+                               1, alpha, beta);
+  const HashLm hl = {uni, uni_bo, tables, exact, order, n_exact};
+  if (carry != nullptr) {
+    auto run = topa ? (apart ? launch<true, false, kInScratch, true, true>
+                             : launch<true, false, kShared, true, true>)
+                    : (apart ? launch<false, false, kInScratch, true, true>
+                             : launch<false, false, kShared, true, true>);
+    return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, hl, scratch,
+               beam_carry(carry));
+  }
+  auto run = topa ? (apart ? launch<true, false, kInScratch, false, true>
+                           : launch<true, false, kShared, false, true>)
+                  : (apart ? launch<false, false, kInScratch, false, true>
+                           : launch<false, false, kShared, false, true>);
+  return run(B, threads, smem, stream, s, lens, tokens, out_len, out_score, hl, scratch, trace);
 }
 
 // K9's block form: the search fused with the char LSTM LM, a block an
@@ -2115,7 +2418,9 @@ extern "C" int prefix_beam_rnn_grid(const float* logp, const float* top_val,
 
 // K10: the per-frame merge and top-K of the beam-sharded search.  Inputs
 // (B, Ks) stays and (B, Ks * nb) lanes, outputs (B, K), all contiguous on
-// one device.  scratch: null keeps each block's working set in shared
+// one device; cols > 0: the window form, ctx (B, Ks, cols), (B, Ks * nb,
+// cols) and out (B, K, cols) (the hashed LM's windows), else ctx as the
+// other fields.  scratch: null keeps each block's working set in shared
 // memory (the wrapper checks its size and Ks <= 1024); else a device
 // scratch of B merge_slice_bytes(Ks, nb) bytes, 16-byte aligned, holds it
 // (kInScratch).  trace: null, or (7) int64 for block 0's clocks.  The
@@ -2126,25 +2431,18 @@ extern "C" int merge_topk(const float* s_pb, const float* s_pnb, const float* s_
                           const int* e_hash, const int* e_parent, const int* e_append,
                           const int* e_ctx, float* score, float* pb, float* pnb, float* lm,
                           int* hash, int* last, int* parent, int* append, int* ctx,
-                          void* scratch, long long* trace, int B, int Ks, int nb, int K,
+                          void* scratch, long long* trace, int B, int Ks, int nb, int K, int cols,
                           void* stream) {
   if (B == 0) return 0;
   const MergeIn in = {s_pb, s_pnb, s_lm, s_hash, s_last, s_parent, s_ctx,
                       e_pnb, e_lm, e_hash, e_parent, e_append, e_ctx};
   const MergeOut out = {score, pb, pnb, lm, hash, last, parent, append, ctx};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int threads = search_threads(Ks, nb);
   char* slices = static_cast<char*>(scratch);
-  if (slices != nullptr) {
-    merge_topk_kernel<true><<<B, threads, 0, st>>>(in, out, Ks, nb, K, slices, trace);
-    return cudaGetLastError();
+  if (cols > 0) {
+    MergeWin win;
+    static_cast<MergeIn&>(win) = in;
+    win.cols = cols;
+    return launch_merge<true>(win, out, B, Ks, nb, K, slices, trace, stream);
   }
-  const size_t smem = merge_smem_bytes(Ks, nb);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_topk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  merge_topk_kernel<false><<<B, threads, smem, st>>>(in, out, Ks, nb, K, nullptr, trace);
-  return cudaGetLastError();
+  return launch_merge<false>(in, out, B, Ks, nb, K, slices, trace, stream);
 }

@@ -10,18 +10,31 @@ Vocabulary layout (CTC-compatible):
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 _CHARS = " abcdefghijklmnopqrstuvwxyz'"
 
 
-def get_tokenizer(vocab: str = "char") -> "CharTokenizer":
-    """Tokenizer for ``DataConfig.vocab``.  The port reads only ``"char"``;
-    BPE vocabularies wait for the slice that ports ``data/bpe.py``."""
+@functools.lru_cache(maxsize=16)
+def get_tokenizer(vocab: str = "char"):
+    """Tokenizer for ``DataConfig.vocab``, cached by the string as the JAX
+    package caches it:
+
+    ``"char"``        -> the char vocabulary below
+    ``"bpe:<path>"``  -> the subword tokenizer of the JSON vocab at <path>
+                         (``python -m pytorch_asr_tpu_torch.train_bpe``;
+                         ``data/bpe.py``)
+    """
     if vocab == "char":
         return CharTokenizer()
-    raise NotImplementedError(f"vocab {vocab!r}: BPE is not ported yet; the port "
-                              "reads only 'char'")
+    if vocab.startswith("bpe:"):
+        from pytorch_asr_tpu_torch.data.bpe import BPETokenizer
+
+        return BPETokenizer.load(vocab[len("bpe:"):])
+    raise ValueError(
+        f"unsupported vocab {vocab!r}: expected 'char' or 'bpe:<vocab.json>'")
 
 
 class CharTokenizer:
@@ -42,3 +55,14 @@ class CharTokenizer:
 
     def decode(self, ids) -> str:
         return "".join(self._id_to_char.get(int(i), "") for i in ids)
+
+    def decode_ctc(self, ids) -> str:
+        """Collapse repeats then strip blanks (greedy CTC rule)."""
+        out = []
+        prev = -1
+        for i in ids:
+            i = int(i)
+            if i != prev and i != self.blank_id:
+                out.append(i)
+            prev = i
+        return self.decode(out)

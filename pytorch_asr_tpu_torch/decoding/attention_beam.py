@@ -24,7 +24,9 @@ Parity traps with the JAX search:
   ``lax.top_k`` puts the lower flat index first on ties (at step 0 every
   beam but beam 0 ties at the sentinel); ``torch.topk`` promises no order;
 * the dense LM context advances only on emission, ``(ctx V + c) % n_ctx``,
-  with no ``lm_beta``; the RNN LM is primed with sos on B*K rows and steps
+  with no ``lm_beta``; so does the hashed LM's window (``lm_hashed.
+  roll_context_window``), its rows ``hashed_lm_logp_rows`` of each beam's
+  window; the RNN LM is primed with sos on B*K rows and steps
   only where a beam emitted;
 * the beam reorders are index gathers: JAX contracts one-hot matrices there
   (an XLA workaround), which gives the same values;
@@ -36,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from pytorch_asr_tpu_torch.decoding import ctc_prefix_scorer as cps
+from pytorch_asr_tpu_torch.decoding.lm_hashed import hashed_lm_logp_rows, roll_context_window
 from pytorch_asr_tpu_torch.models.las_decoder import DecoderState
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, LMState, lm_step_logp
 
@@ -65,9 +68,11 @@ def final_beams(model, enc: torch.Tensor, enc_len: torch.Tensor, sos_id: int, eo
                 ctc_logits: torch.Tensor | None = None, ctc_weight: float = 0.0,
                 lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
                 rnn_lm: CharRNNLM | None = None, coverage_beta: float = 0.0,
-                coverage_tau: float = 0.5):
+                coverage_tau: float = 0.5, hash_lm=None):
     """The search: every beam of every row at the end, (tokens (B, K,
-    max_len) int32, lengths (B, K) int32, ranking scores (B, K) f32).
+    max_len) int32, lengths (B, K) int32, ranking scores (B, K) f32).  The
+    LM (weight ``lm_alpha``) is the dense table ``lm_table``, the hashed
+    tables ``hash_lm`` (``decoding.lm_hashed.HashedNgramLM``) or ``rnn_lm``.
 
     Coverage (Chorowski & Jaitly 2016) adds ``coverage_beta`` times the count
     of valid frames whose attention, summed over the emitting steps, exceeds
@@ -94,6 +99,8 @@ def final_beams(model, enc: torch.Tensor, enc_len: torch.Tensor, sos_id: int, eo
     if lm_table is not None:
         lm_ctx = torch.zeros((B, K), dtype=torch.long, device=dev)
         n_ctx = lm_table.shape[0]
+    elif hash_lm is not None:     # a window of the last order - 1 ids a beam
+        lm_ctx = torch.zeros((B, K, hash_lm.order - 1), dtype=torch.int32, device=dev)
     if rnn_lm is not None:
         lm_logp, lm_st = lm_step_logp(rnn_lm, torch.full((B * K,), sos_id, device=dev),
                                       rnn_lm.init_state(B * K))
@@ -114,6 +121,8 @@ def final_beams(model, enc: torch.Tensor, enc_len: torch.Tensor, sos_id: int, eo
             cand = cand + ctc_weight * delta
         if lm_table is not None:
             cand = cand + lm_alpha * lm_table[lm_ctx]
+        elif hash_lm is not None:
+            cand = cand + lm_alpha * hashed_lm_logp_rows(hash_lm, lm_ctx)
         if rnn_lm is not None:
             cand = cand + lm_alpha * lm_logp
         cand[:, :, 0] = NEG_INF
@@ -150,6 +159,9 @@ def final_beams(model, enc: torch.Tensor, enc_len: torch.Tensor, sos_id: int, eo
         if lm_table is not None:
             g_ctx = _gather(lm_ctx, parent)
             lm_ctx = torch.where(emit, torch.remainder(g_ctx * V + char, n_ctx), g_ctx)
+        elif hash_lm is not None:
+            g_ctx = _gather(lm_ctx, parent)
+            lm_ctx = torch.where(emit[..., None], roll_context_window(g_ctx, char), g_ctx)
         if rnn_lm is not None:
             gh, gc = lm_st.h.index_select(1, rows), lm_st.c.index_select(1, rows)
             glogp = _gather(lm_logp, parent)

@@ -29,6 +29,7 @@ from pytorch_asr_tpu_torch.data.bucket_opt import optimize_buckets, padding_effi
 from pytorch_asr_tpu_torch.decoding.attention_beam import attention_beam_search
 from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
 from pytorch_asr_tpu_torch.decoding.lm import read_arpa, tensorize
+from pytorch_asr_tpu_torch.decoding.lm_hashed import HashedNgramLM, build_hashed_lm
 from pytorch_asr_tpu_torch.decoding.prefix_beam import prefix_beam_search
 from pytorch_asr_tpu_torch.decoding.prefix_beam_sharded import prefix_beam_search_sharded
 from pytorch_asr_tpu_torch.evaluate import eval_step, model_outputs
@@ -42,12 +43,15 @@ DENSE_LM_FLOATS = 64_000_000   # lm_backend "auto": dense while V**order fits
 
 
 def load_lm(cfg: ExperimentConfig, device: str | torch.device,
-            tokenizer=None) -> torch.Tensor | CharRNNLM | None:
+            tokenizer=None) -> torch.Tensor | HashedNgramLM | CharRNNLM | None:
     """The fusion LM named by ``cfg.decode.lm_path`` on ``device``, or None
     without a path: an ``.npz`` is a char RNN LM saved by either package's
-    ``train_lm``; an ARPA file is read and tensorized to a dense
-    (V^(n-1), V) float32 table.  The hashed backend is not ported yet and
-    raises."""
+    ``train_lm``; an ARPA file (over chars, or over a BPE vocab's pieces) is
+    read and, per ``cfg.decode.lm_backend``, tensorized to a dense
+    (V^(n-1), V) float32 table (``dense``, or ``auto`` while V^order <=
+    DENSE_LM_FLOATS) or compiled to the hashed tables of
+    ``decoding/lm_hashed.py`` (``hashed``, and ``auto`` past that), as the
+    JAX driver does."""
     path = cfg.decode.lm_path
     if not path:
         return None
@@ -56,17 +60,16 @@ def load_lm(cfg: ExperimentConfig, device: str | torch.device,
         return load_rnn_lm(path, tok, device)
     lm = read_arpa(path, tok)
     backend = cfg.decode.lm_backend
-    if not (backend == "dense" or (backend == "auto"
-                                   and tok.vocab_size ** lm.order <= DENSE_LM_FLOATS)):
-        raise NotImplementedError(f"decode.lm_backend={backend!r} (hashed n-gram tables, "
-                                  "decoding/lm_hashed.py) is not ported yet: it waits for "
-                                  "the LM-extras slice")
-    return torch.from_numpy(tensorize(lm, tok)).to(device)
+    if backend == "dense" or (backend == "auto"
+                              and tok.vocab_size ** lm.order <= DENSE_LM_FLOATS):
+        return torch.from_numpy(tensorize(lm, tok)).to(device)
+    return build_hashed_lm(lm, tok.vocab_size, device)
 
 
 def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None, mesh: Mesh | None = None):
     """(host batch) -> (ids (B, L), lengths (B,)) on the model's device.
-    ``lm`` is what ``load_lm`` returns: a dense table, the RNN LM, or None.
+    ``lm`` is what ``load_lm`` returns: a dense table, the hashed tables,
+    the RNN LM, or None.
     With ``decode.shard_beams`` and a ``mesh`` whose model axis is above 1
     the search shards its beams over the model ranks; it then runs over all
     chars and ignores ``ext_top_a`` and ``lm_top_k``, as the JAX driver
@@ -78,14 +81,15 @@ def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None, mesh: Mesh |
         return lambda batch: eval_step(model, batch)
     dec = cfg.decode
     rnn_lm = lm if isinstance(lm, CharRNNLM) else None
-    lm_table = lm if rnn_lm is None else None
+    hash_lm = lm if isinstance(lm, HashedNgramLM) else None
+    lm_table = lm if rnn_lm is None and hash_lm is None else None
     has_lm = lm is not None
     tok = get_tokenizer(cfg.data.vocab)
     if method == "prefix_beam":
         kw = dict(beam_size=dec.beam_size, lm_table=lm_table,
                   lm_alpha=dec.lm_alpha if has_lm else 0.0,
                   lm_beta=dec.lm_beta if has_lm else 0.0, max_len=dec.max_decode_len,
-                  rnn_lm=rnn_lm, sos_id=tok.sos_id)
+                  rnn_lm=rnn_lm, sos_id=tok.sos_id, hash_lm=hash_lm)
         if dec.shard_beams and mesh is not None and mesh.model > 1:
             def decode_fn(batch):
                 out = model_outputs(model, batch)
@@ -114,7 +118,7 @@ def make_decode_fn(cfg: ExperimentConfig, model: ASRModel, lm=None, mesh: Mesh |
                 length_norm=dec.length_norm,
                 ctc_logits=out["ctc_logits"] if ctc_weight > 0 else None,
                 ctc_weight=ctc_weight, lm_table=lm_table,
-                lm_alpha=dec.lm_alpha if has_lm else 0.0, rnn_lm=rnn_lm,
+                lm_alpha=dec.lm_alpha if has_lm else 0.0, rnn_lm=rnn_lm, hash_lm=hash_lm,
                 coverage_beta=dec.coverage_beta, coverage_tau=dec.coverage_tau)
             return toks, lens
 

@@ -190,15 +190,20 @@ def perplexity(lm: BackoffLM, texts: list[str],
 
 def read_arpa(path: str, tokenizer: CharTokenizer | None = None) -> BackoffLM:
     """Minimal ARPA reader for char-token LMs (tokens are single characters,
-    '<space>' for space; <s> and </s> map to sos and eos, <blank> to the
-    CTC blank, <unk> is skipped)."""
+    '<space>' for space) and for a BPE tokenizer's LMs (tokens are whole
+    pieces, id = index + 1); <s> and </s> map to sos and eos, <blank> to the
+    CTC blank, <unk> and unknown symbols are skipped.  The file is read as
+    UTF-8 whatever the locale (pieces carry the marker "▁")."""
     tok = tokenizer or CharTokenizer()
     specials = {"<s>": tok.sos_id, "</s>": tok.eos_id, "<blank>": tok.blank_id,
                 "<unk>": None, "<UNK>": None}
+    piece_map = getattr(tok, "_piece_to_id", None)
 
     def to_id(sym: str) -> int | None:
         if sym in specials:
             return specials[sym]
+        if piece_map is not None:
+            return piece_map.get(sym)
         ids = tok.encode(" " if sym == "<space>" else sym)
         return int(ids[0]) if len(ids) == 1 else None
 
@@ -206,7 +211,7 @@ def read_arpa(path: str, tokenizer: CharTokenizer | None = None) -> BackoffLM:
     backoffs: dict[tuple, float] = {}
     order = 1
     cur_n = 0
-    with open(path) as fh:
+    with open(path, encoding="utf-8") as fh:
         for line in fh:
             line = line.strip()
             if not line or line.startswith("\\data\\") or line.startswith("ngram"):
@@ -239,20 +244,24 @@ def read_arpa(path: str, tokenizer: CharTokenizer | None = None) -> BackoffLM:
 
 def write_arpa(lm: BackoffLM, path: str,
                tokenizer: CharTokenizer | None = None) -> None:
-    """Serialize a BackoffLM to ARPA (char symbols; ' ' written as <space>)."""
+    """Serialize a BackoffLM to ARPA as UTF-8 (char symbols, ' ' written as
+    <space>; a BPE tokenizer's ids as their pieces)."""
     tok = tokenizer or CharTokenizer()
     specials = {tok.sos_id: "<s>", tok.eos_id: "</s>", tok.blank_id: "<blank>"}
+    pieces = getattr(tok, "pieces", None)
 
     def sym(i: int) -> str:
         if i in specials:
             return specials[i]
+        if pieces is not None and 1 <= i <= len(pieces):
+            return pieces[i - 1]
         ch = tok.decode([i])
         return "<space>" if ch == " " else ch
 
     by_order: dict[int, list] = {}
     for ng, lp in lm.logprobs.items():
         by_order.setdefault(len(ng), []).append((ng, lp))
-    with open(path, "w") as fh:
+    with open(path, "w", encoding="utf-8") as fh:
         fh.write("\\data\\\n")
         for n in sorted(by_order):
             fh.write(f"ngram {n}={len(by_order[n])}\n")

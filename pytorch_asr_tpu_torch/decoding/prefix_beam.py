@@ -1,27 +1,34 @@
-"""CTC prefix beam search with shallow fusion of a dense n-gram table or a
-char RNN LM: the port's counterpart of ``pytorch_asr_tpu.decoding.prefix_beam``.
+"""CTC prefix beam search with shallow fusion of a dense n-gram table, a
+hashed n-gram LM or a char RNN LM: the port's counterpart of
+``pytorch_asr_tpu.decoding.prefix_beam``.
 
 ``prefix_beam_search`` is the entry point.  It log-softmaxes the logits (and,
-for ``ext_top_a``, takes each frame's top-A chars) and hands them to
-``ops/beam_cuda.py``, whose kernels (``csrc/prefix_beam.cu``: K7/K8, and K9
-with the RNN LM) run the whole search on the card: K9 on a co-resident grid
-where ``beam_cuda.rnn_grid_route`` finds its shapes fit, else a block an
-utterance; a block's working set in shared memory where it fits
-(``beam_cuda.fits``) and in a device scratch past it.  On CPU tensors the
+for ``ext_top_a``, takes each frame's top-A chars; for ``lm_top_k`` over a
+hashed LM, each frame's top-k) and hands them to ``ops/beam_cuda.py``, whose
+kernels (``csrc/prefix_beam.cu``: K7/K8 with no LM, a dense table or the
+hashed tables, and K9 with the RNN LM) run the whole search on the card: K9 on
+a co-resident grid where ``beam_cuda.rnn_grid_route`` finds its shapes fit,
+else a block an utterance; a block's working set in shared memory where it
+fits (``beam_cuda.fits``) and in a device scratch past it.  On CPU tensors the
 wrappers run ``beam_scan_plain`` below instead.
 ``prefix_beam_search_plain`` is that plain search from the logits, on either
 device; the tests and ``chip_smoke.py`` hold the kernels against it.
 
-The plain search is a PyTorch port of the JAX package's ``lax.scan`` for the
-fusion sources ported so far (none, a dense table, or the RNN LM): every
-frame forms K stay candidates and K x C extension candidates (C = V - 1
-non-blank chars, or the frame's top-A chars), absorbs an extension whose
-prefix equals a live stay (rolling-hash match), keeps the K best by fused
-score, and rebuilds the token buffers.  With the RNN LM each beam carries
-the LM's state (``LMCarry``): its log-prob row scores the extensions, and
-after the merge the state follows the parent and steps once where the beam
-appended.  Parity traps, each of which decides token equality with the JAX
-package and with the kernels:
+The plain search is a PyTorch port of the JAX package's ``lax.scan`` with
+every fusion source (none, a dense table, the hashed tables of
+``decoding/lm_hashed.py`` or the RNN LM): every frame forms K stay candidates
+and K x C extension candidates (C = V - 1 non-blank chars, or the frame's
+top-A chars), absorbs an extension whose prefix equals a live stay
+(rolling-hash match), keeps the K best by fused score, and rebuilds the token
+buffers.  With the RNN LM each beam carries the LM's state (``LMCarry``): its
+log-prob row scores the extensions, and after the merge the state follows the
+parent and steps once where the beam appended.  With the hashed LM each beam's
+context is a window of its last order - 1 ids (``BeamState.ctx`` (B, K, order
+- 1), 0 = no history), rolled where the beam appends; its rows are
+``lm_hashed.hashed_lm_logp_rows`` of the window, exact over all chars, over
+the frame's top-A, or with ``lm_top_k`` exact over the frame's top k chars and
+``hashed_lm_allmiss_rows`` elsewhere.  Parity traps, each of which decides
+token equality with the JAX package and with the kernels:
 
 * hashes are int32 and wrap mod 2^32: computed in int64, masked to 32 bits
   and reinterpreted (``_wrap32``), so the cmat test ``1 <= h_k' - M h_k <= nb``
@@ -44,6 +51,11 @@ from typing import NamedTuple
 
 import torch
 
+from pytorch_asr_tpu_torch.decoding.lm_hashed import (
+    HashedNgramLM,
+    hashed_lm_allmiss_rows,
+    hashed_lm_logp_rows,
+)
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, LMState, lm_step_logp
 
 NEG_INF = -1.0e30
@@ -57,7 +69,8 @@ class BeamState(NamedTuple):
     pnb: torch.Tensor      # (B, K) f32 log P(prefix, ends non-blank)
     lm_s: torch.Tensor     # (B, K) f32 accumulated fusion score
     hash: torch.Tensor     # (B, K) int32 rolling prefix hash
-    ctx: torch.Tensor      # (B, K) int32 LM context id
+    ctx: torch.Tensor      # (B, K) int32 dense-table context id, or the hashed
+                           # LM's window (B, K, order - 1) int32
     last: torch.Tensor     # (B, K) int32 last char (-1 for empty)
 
 
@@ -71,7 +84,9 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
 
 
-def _init_state(B: int, K: int, L: int, device) -> BeamState:
+def _init_state(B: int, K: int, L: int, device, ctx_width: int = 0) -> BeamState:
+    """Beam 0 the empty prefix, the rest dead; ``ctx_width`` > 0: the hashed
+    LM's context windows of that width (0 = no history)."""
     k = torch.arange(K, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return BeamState(
@@ -81,7 +96,7 @@ def _init_state(B: int, K: int, L: int, device) -> BeamState:
         pnb=torch.full((B, K), NEG_INF, device=device),
         lm_s=torch.zeros((B, K), device=device),
         hash=(-(k + 1)).to(torch.int32).expand(B, K).contiguous(),
-        ctx=torch.zeros((B, K), **i32),
+        ctx=torch.zeros((B, K, ctx_width) if ctx_width else (B, K), **i32),
         last=torch.full((B, K), -1, **i32),
     )
 
@@ -105,8 +120,13 @@ def _stay_candidates(state: BeamState, logp_t: torch.Tensor, blank: int, K: int,
 
 
 def _ext_ctx(state: BeamState, chars_bc: torch.Tensor, vocab: int, lm_table):
-    """Per-extension LM context: the dense roll ``(ctx * V + c) mod n_ctx``
+    """Per-extension LM context: the hashed LM's window shifted by c ((B, K,
+    N, C) from (B, K, C)), the dense roll ``(ctx * V + c) mod n_ctx``
     (floored, in wrapped int32) with a table, else carried unchanged."""
+    if state.ctx.dim() == 3:
+        B, K, N = chars_bc.shape
+        base = state.ctx[:, :, None, 1:].expand(B, K, N, state.ctx.shape[-1] - 1)
+        return torch.cat([base, chars_bc[..., None].to(torch.int32)], dim=-1)
     if lm_table is None:
         return state.ctx[..., None].expand(chars_bc.shape)
     raw = _wrap32(state.ctx.long()[..., None] * vocab + chars_bc.long())
@@ -150,9 +170,10 @@ def _build_candidates(state: BeamState, logp_t, *, blank, vocab, lm_table, lm_ro
 
 
 def _build_candidates_topa(state: BeamState, logp_t, top_val_t, top_idx_t, *, blank,
-                           vocab, lm_table, lm_rows, lm_alpha, lm_beta, K, L):
+                           vocab, lm_table, lm_rows, lm_alpha, lm_beta, K, L, hash_lm=None):
     """Extension candidates restricted to the frame's top-A chars (B, K, A);
-    merge with ``_merge_topk(..., sparse=True)``."""
+    merge with ``_merge_topk(..., sparse=True)``.  With ``hash_lm`` each
+    candidate's row entry is the hashed LM's exact score of its char."""
     B, A = top_idx_t.shape
     total, stay = _stay_candidates(state, logp_t, blank, K)
     chars = top_idx_t[:, None, :].expand(B, K, A)
@@ -161,7 +182,10 @@ def _build_candidates_topa(state: BeamState, logp_t, top_val_t, top_idx_t, *, bl
     ext_pnb = base + top_val_t[:, None, :]
     ext_pnb = torch.where((state.length >= L)[..., None], NEG_INF, ext_pnb)
     ext_pnb = torch.where(chars == blank, NEG_INF, ext_pnb)
-    rows = torch.gather(lm_rows, 2, chars.long()) if lm_rows is not None else None
+    if hash_lm is not None:
+        rows = hashed_lm_logp_rows(hash_lm, state.ctx, cands=chars)
+    else:
+        rows = torch.gather(lm_rows, 2, chars.long()) if lm_rows is not None else None
     return stay, _ext_fields(state, chars, ext_pnb, rows, vocab, lm_table, lm_alpha, lm_beta,
                              K)
 
@@ -214,6 +238,9 @@ def _merge_topk(stay: dict, ext: dict, K: int, sparse: bool = False):
     top_score, top_idx = score[:, :K], order[:, :K]
 
     def take(s, e):
+        if s.dim() == 3:      # the hashed LM's windows, (B, Ks, C) and (B, Kc, nb, C)
+            cat = torch.cat([s, e.reshape(B, -1, s.shape[-1])], dim=1)
+            return torch.gather(cat, 1, top_idx[..., None].expand(B, K, s.shape[-1]))
         return torch.gather(flat(s, e), 1, top_idx)
 
     dead = top_score <= NEG_INF / 2
@@ -307,17 +334,34 @@ def _advance_lm(rnn_lm: CharRNNLM, carry: LMCarry, parent, append, active) -> LM
     return _freeze_lm(_step_lm(rnn_lm, carry, parent, append), carry, active)
 
 
+def hashed_rows(hash_lm, ctx: torch.Tensor, exact_t: torch.Tensor | None = None):
+    """The hashed LM's rows (B, K, V) of the windows ``ctx`` (B, K, C): exact
+    over every char, or with ``exact_t`` (B, k) a frame's top-k chars
+    (``lm_top_k``) exact over those and the all-miss rows elsewhere."""
+    if exact_t is None:
+        return hashed_lm_logp_rows(hash_lm, ctx)
+    B, K = ctx.shape[:2]
+    cands = exact_t[:, None, :].expand(B, K, exact_t.shape[-1]).long()
+    return torch.scatter(hashed_lm_allmiss_rows(hash_lm, ctx), 2, cands,
+                         hashed_lm_logp_rows(hash_lm, ctx, cands=cands))
+
+
 def _step(state: BeamState, logp_t, active, top_val_t=None, top_idx_t=None, *, blank,
-          vocab, lm_table, lm_alpha, lm_beta, K, L, rnn_lm=None, carry=None):
-    """One frame: (new BeamState, new LMCarry or None)."""
+          vocab, lm_table, lm_alpha, lm_beta, K, L, rnn_lm=None, carry=None, hash_lm=None,
+          exact_t=None):
+    """One frame: (new BeamState, new LMCarry or None).  ``exact_t`` (B, k):
+    the frame's top-k chars of ``lm_top_k`` (full search with a hashed LM)."""
     if lm_table is not None:
         lm_rows = lm_table[state.ctx.long()]
+    elif hash_lm is not None and top_idx_t is None:
+        lm_rows = hashed_rows(hash_lm, state.ctx, exact_t)
     else:
         lm_rows = carry.logp if carry is not None else None
     kw = dict(blank=blank, vocab=vocab, lm_table=lm_table, lm_rows=lm_rows,
               lm_alpha=lm_alpha, lm_beta=lm_beta, K=K, L=L)
     if top_idx_t is not None:
-        stay, ext = _build_candidates_topa(state, logp_t, top_val_t, top_idx_t, **kw)
+        stay, ext = _build_candidates_topa(state, logp_t, top_val_t, top_idx_t,
+                                           hash_lm=hash_lm, **kw)
         _, f = _merge_topk(stay, ext, K, sparse=True)
     else:
         stay, ext = _build_candidates(state, logp_t, **kw)
@@ -396,19 +440,24 @@ def beam_scan_plain(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int,
                     max_len: int, lm_table: torch.Tensor | None = None,
                     lm_alpha: float = 0.0, lm_beta: float = 0.0,
                     top_val: torch.Tensor | None = None, top_idx: torch.Tensor | None = None,
-                    blank: int = 0, rnn_lm: CharRNNLM | None = None, lm_state=None):
+                    blank: int = 0, rnn_lm: CharRNNLM | None = None, lm_state=None,
+                    hash_lm: HashedNgramLM | None = None,
+                    exact_idx: torch.Tensor | None = None):
     """The plain search over log-probs ``logp`` (B, T, V) float32, frame by
     frame: the function the kernels compute.  ``top_val``/``top_idx``
     (B, T, A) restrict the extensions to each frame's top-A chars.  The
-    fusion source is the dense table ``lm_table`` (n_ctx, V), or ``rnn_lm``
-    started from ``lm_state`` = ``primed_lm_state(rnn_lm, sos_id)`` in every
-    beam.  Returns (tokens (B, L) int32, lengths (B,) int32, scores (B,) f32)
-    of the best beam of each row."""
+    fusion source is the dense table ``lm_table`` (n_ctx, V), the hashed LM
+    ``hash_lm`` (with ``exact_idx`` (B, T, k) each frame's top-k chars of
+    ``lm_top_k``), or ``rnn_lm`` started from ``lm_state`` =
+    ``primed_lm_state(rnn_lm, sos_id)`` in every beam.  Returns (tokens (B,
+    L) int32, lengths (B,) int32, scores (B,) f32) of the best beam of each
+    row."""
     B, _, V = logp.shape
     carry = _carry(*lm_state, B, beam_size) if rnn_lm is not None else None
-    state, _ = continue_plain(_init_state(B, beam_size, max_len, logp.device), logp, logit_len,
-                              lm_table, lm_alpha, lm_beta, top_val, top_idx, blank, rnn_lm,
-                              carry)
+    width = hash_lm.order - 1 if hash_lm is not None else 0
+    state, _ = continue_plain(_init_state(B, beam_size, max_len, logp.device, width), logp,
+                              logit_len, lm_table, lm_alpha, lm_beta, top_val, top_idx, blank,
+                              rnn_lm, carry, hash_lm, exact_idx)
     return beam_best(state)
 
 
@@ -417,19 +466,24 @@ def continue_plain(state: BeamState, logp: torch.Tensor, n_valid: torch.Tensor,
                    lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
                    lm_beta: float = 0.0, top_val: torch.Tensor | None = None,
                    top_idx: torch.Tensor | None = None, blank: int = 0,
-                   rnn_lm: CharRNNLM | None = None, lm_carry: LMCarry | None = None):
+                   rnn_lm: CharRNNLM | None = None, lm_carry: LMCarry | None = None,
+                   hash_lm: HashedNgramLM | None = None,
+                   exact_idx: torch.Tensor | None = None):
     """The plain search from ``state`` (and, with ``rnn_lm``, each beam's LM
     state ``lm_carry``) over the frames of ``logp`` (B, T, V), row b's first
     ``n_valid[b]``: (BeamState, LMCarry or None) after them.  A chunk of a
     stream (the JAX package's ``prefix_beam_continue`` scan) and the
     function the kernels' carried forms compute; from ``_init_state`` the
-    offline search."""
+    offline search.  With ``hash_lm`` the state's ctx is its (B, K, order -
+    1) window."""
     _, T, V = logp.shape
     kw = dict(blank=blank, vocab=V, lm_table=lm_table, lm_alpha=lm_alpha, lm_beta=lm_beta,
-              K=state.pb.shape[1], L=state.tokens.shape[2], rnn_lm=rnn_lm)
+              K=state.pb.shape[1], L=state.tokens.shape[2], rnn_lm=rnn_lm, hash_lm=hash_lm)
     for t in range(T):
         top = (top_val[:, t], top_idx[:, t]) if top_idx is not None else (None, None)
-        state, lm_carry = _step(state, logp[:, t], t < n_valid, *top, carry=lm_carry, **kw)
+        exact = exact_idx[:, t] if exact_idx is not None else None
+        state, lm_carry = _step(state, logp[:, t], t < n_valid, *top, carry=lm_carry,
+                                exact_t=exact, **kw)
     return state, lm_carry
 
 
@@ -445,12 +499,11 @@ def beam_best(state: BeamState):
 
 
 def _check_sources(blank, hash_lm, lm_table, rnn_lm):
-    if hash_lm is not None:
-        raise NotImplementedError("hashed n-gram fusion (decoding/lm_hashed.py, and the "
-                                  "lm_top_k pruning over it) is not ported yet: it waits "
-                                  "for the LM-extras slice")
-    if lm_table is not None and rnn_lm is not None:
-        raise ValueError("give one fusion source: lm_table or rnn_lm, not both")
+    if sum(x is not None for x in (lm_table, hash_lm, rnn_lm)) > 1:
+        raise ValueError("give one fusion source: lm_table, hash_lm or rnn_lm, not two")
+    if hash_lm is not None and not isinstance(hash_lm, HashedNgramLM):
+        raise TypeError("hash_lm must be a decoding.lm_hashed.HashedNgramLM (build_hashed_lm), "
+                        f"got {type(hash_lm).__name__}")
     if blank != 0:
         raise ValueError("the search extends with chars 1..V-1 and treats id 0 as "
                          f"blank, as the JAX package's does; got blank={blank}")
@@ -458,21 +511,36 @@ def _check_sources(blank, hash_lm, lm_table, rnn_lm):
 
 def _prepare(logits, ext_top_a):
     logp = torch.log_softmax(logits.float(), dim=-1).contiguous()
+    return logp, _tops(logp, ext_top_a)
+
+
+def _tops(logp: torch.Tensor, ext_top_a: int):
     A = ext_top_a if 0 < ext_top_a < logp.shape[-1] else 0
-    return logp, (top_a(logp, A) if A else (None, None))
+    return top_a(logp, A) if A else (None, None)
+
+
+def _exact_idx(logp: torch.Tensor, hash_lm, lm_top_k: int, top_idx) -> torch.Tensor | None:
+    """Each frame's top ``lm_top_k`` chars (B, T, k) where they prune a
+    hashed LM's lookups: a hashed LM, the search over all chars, and
+    0 < lm_top_k < V; else None (``lm_top_k`` then changes nothing)."""
+    if hash_lm is None or top_idx is not None or not 0 < lm_top_k < logp.shape[-1]:
+        return None
+    return top_a(logp, lm_top_k)[1]
 
 
 def prefix_beam_search(logits: torch.Tensor, logit_len: torch.Tensor, beam_size: int = 16,
                        blank: int = 0, lm_table: torch.Tensor | None = None,
                        lm_alpha: float = 0.0, lm_beta: float = 0.0, max_len: int = 256,
-                       ext_top_a: int = 0, hash_lm=None, rnn_lm: CharRNNLM | None = None,
-                       sos_id: int = 29, lm_top_k: int = 0):
+                       ext_top_a: int = 0, hash_lm: HashedNgramLM | None = None,
+                       rnn_lm: CharRNNLM | None = None, sos_id: int = 29, lm_top_k: int = 0):
     """(tokens (B, L), lengths (B,), scores (B,)) of the best beam of each row.
 
     On CUDA tensors a kernel runs the search, over all chars or, when
     ``0 < ext_top_a < V``, over each frame's top-A chars (``ext_top_a >= V``
-    is the unrestricted search): K7/K8 without an LM or with the dense
-    n-gram table ``lm_table`` (n_ctx, V) float32; K9 with the char RNN LM
+    is the unrestricted search): K7/K8 without an LM, with the dense
+    n-gram table ``lm_table`` (n_ctx, V) float32, or with the hashed n-gram
+    LM ``hash_lm`` (``decoding.lm_hashed.HashedNgramLM`` on the card; its
+    rows read in the kernel, counted under ``<name>_hashed``); K9 with the char RNN LM
     ``rnn_lm``, primed with ``sos_id`` once outside the kernel and advanced
     inside it, on a co-resident grid where ``ops.beam_cuda.rnn_grid_route``
     finds the shapes fit, else a block an utterance, counted under
@@ -482,8 +550,10 @@ def prefix_beam_search(logits: torch.Tensor, logit_len: torch.Tensor, beam_size:
     the same kernel runs with its working set in a device scratch, counted
     under ``<name>_wide``, as the wrappers choose from the shapes.  On CPU
     tensors the plain search runs.  ``lm_top_k`` prunes
-    only a hashed LM's lookups, as in the JAX package, so with a dense table,
-    the RNN LM or no LM it changes nothing.
+    only a hashed LM's lookups over all chars, as in the JAX package: the
+    frame's top k chars get the exact rows, the rest the all-miss rows
+    (unigram plus stacked context backoffs); with ``ext_top_a``, a dense
+    table, the RNN LM or no LM it changes nothing.
     """
     _check_sources(blank, hash_lm, lm_table, rnn_lm)
     from pytorch_asr_tpu_torch.ops import beam_cuda
@@ -495,28 +565,33 @@ def prefix_beam_search(logits: torch.Tensor, logit_len: torch.Tensor, beam_size:
                                          *primed_lm_state(rnn_lm, sos_id), lm_alpha, lm_beta,
                                          top_val, top_idx)
     return beam_cuda.prefix_beam(logp, lens, beam_size, max_len, lm_table, lm_alpha, lm_beta,
-                                 top_val, top_idx)
+                                 top_val, top_idx, hash_lm=hash_lm,
+                                 exact_idx=_exact_idx(logp, hash_lm, lm_top_k, top_idx))
 
 
 def prefix_beam_search_plain(logits: torch.Tensor, logit_len: torch.Tensor,
                              beam_size: int = 16, blank: int = 0,
                              lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
                              lm_beta: float = 0.0, max_len: int = 256, ext_top_a: int = 0,
-                             rnn_lm: CharRNNLM | None = None, sos_id: int = 29):
+                             rnn_lm: CharRNNLM | None = None, sos_id: int = 29,
+                             hash_lm: HashedNgramLM | None = None, lm_top_k: int = 0):
     """``prefix_beam_search`` through the plain search on any device."""
-    _check_sources(blank, None, lm_table, rnn_lm)
+    _check_sources(blank, hash_lm, lm_table, rnn_lm)
     logp, (top_val, top_idx) = _prepare(logits, ext_top_a)
     lm_state = primed_lm_state(rnn_lm, sos_id) if rnn_lm is not None else None
     return beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha, lm_beta,
-                           top_val, top_idx, rnn_lm=rnn_lm, lm_state=lm_state)
+                           top_val, top_idx, rnn_lm=rnn_lm, lm_state=lm_state, hash_lm=hash_lm,
+                           exact_idx=_exact_idx(logp, hash_lm, lm_top_k, top_idx))
 
 
 # ------------------------------------------------------------- streaming API
-def prefix_beam_init(B: int, beam_size: int, max_len: int, device="cpu") -> BeamState:
+def prefix_beam_init(B: int, beam_size: int, max_len: int, device="cpu",
+                     ctx_width: int = 0) -> BeamState:
     """Fresh beams for ``prefix_beam_continue``: beam 0 the empty prefix, the
-    rest dead (the JAX package's ``prefix_beam_init`` without a hashed LM's
-    context window, which is not ported)."""
-    return _init_state(B, beam_size, max_len, device)
+    rest dead (the JAX package's ``prefix_beam_init``).  ``ctx_width``: the
+    hashed LM's window width (its order - 1) when streaming with one, else
+    0."""
+    return _init_state(B, beam_size, max_len, device, ctx_width)
 
 
 def prefix_beam_continue_best(state: BeamState, logp: torch.Tensor, n_valid: torch.Tensor, *,
@@ -529,22 +604,30 @@ def prefix_beam_continue_best(state: BeamState, logp: torch.Tensor, n_valid: tor
     ``beam_best`` of the new state).  On CUDA tensors one launch of a
     kernel's carried form computes all of it (``ops/beam_cuda.py::
     prefix_beam_carry``, ``prefix_beam_rnn_carry``: K7, K8 over each
-    frame's top-A chars where ``0 < ext_top_a < V``, K9 with ``rnn_lm``); on
-    CPU tensors ``continue_plain`` and ``beam_best`` run."""
+    frame's top-A chars where ``0 < ext_top_a < V``, either with the hashed
+    LM ``hash_lm`` (the state's ctx its windows, ``prefix_beam_init(...,
+    ctx_width=order - 1)``), K9 with ``rnn_lm``); on CPU tensors
+    ``continue_plain`` and ``beam_best`` run."""
     _check_sources(blank, hash_lm, lm_table, rnn_lm)
     if (rnn_lm is None) != (lm_carry is None):
         raise ValueError("give rnn_lm and its lm_carry (rnn_lm_carry_init) together")
+    width = hash_lm.order - 1 if hash_lm is not None else 0
+    if (state.ctx.shape[2:] if state.ctx.dim() == 3 else (0,)) != (width,):
+        raise ValueError(f"state.ctx {tuple(state.ctx.shape)}: a hashed LM of order n needs "
+                         "(B, K, n - 1) windows (prefix_beam_init(..., ctx_width=n - 1)), "
+                         "any other source (B, K)")
     from pytorch_asr_tpu_torch.ops import beam_cuda
 
     logp = logp.float().contiguous()
-    A = ext_top_a if 0 < ext_top_a < logp.shape[-1] else 0
-    top_val, top_idx = top_a(logp, A) if A else (None, None)
+    top_val, top_idx = _tops(logp, ext_top_a)
     n_valid = n_valid.to(torch.int32).contiguous()
     if rnn_lm is not None:
         return beam_cuda.prefix_beam_rnn_carry(state, lm_carry, logp, n_valid, rnn_lm, lm_alpha,
                                                lm_beta, top_val, top_idx)
     state, best = beam_cuda.prefix_beam_carry(state, logp, n_valid, lm_table, lm_alpha, lm_beta,
-                                              top_val, top_idx)
+                                              top_val, top_idx, hash_lm=hash_lm,
+                                              exact_idx=_exact_idx(logp, hash_lm, lm_top_k,
+                                                                   top_idx))
     return state, None, best
 
 
@@ -557,12 +640,12 @@ def prefix_beam_continue(state: BeamState, logp: torch.Tensor, n_valid: torch.Te
     row b's first ``n_valid[b]`` (later frames are frozen): (new BeamState,
     new LMCarry or None).  Fed an utterance chunk by chunk it gives the
     bits of the offline search over the concatenation, with every fusion
-    source ported: the dense table's context rides ``state.ctx``, the RNN
+    source: the dense table's context rides ``state.ctx``, the RNN
     LM's (h, c) the ``lm_carry`` (start it with ``rnn_lm_carry_init`` and
     thread it through every chunk).  ``rnn_lm`` is the ``CharRNNLM`` module,
-    which holds its weights.  ``lm_top_k`` prunes only a hashed LM's
-    lookups, so it changes nothing here; ``hash_lm`` raises
-    ``NotImplementedError``."""
+    which holds its weights.  The hashed LM's windows ride ``state.ctx``
+    (start it with ``prefix_beam_init(..., ctx_width=order - 1)``);
+    ``lm_top_k`` prunes only its lookups over all chars."""
     state, carry, _ = prefix_beam_continue_best(
         state, logp, n_valid, blank=blank, lm_table=lm_table, lm_alpha=lm_alpha, lm_beta=lm_beta,
         hash_lm=hash_lm, rnn_lm=rnn_lm, lm_carry=lm_carry, lm_top_k=lm_top_k,

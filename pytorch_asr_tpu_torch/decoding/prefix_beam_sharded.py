@@ -5,8 +5,9 @@ Layout (``parallel/mesh.py``): utterances shard over 'data' (each rank is
 handed its rows); each utterance's K beams shard over 'model', K / P beams a
 rank.  Every frame each model rank builds the candidates of its own beams
 (their dense-table rows, or their RNN-LM carry rows, are its share of the
-work), one all-gather over the model group assembles the stays (B, K) and
-extensions (B, K, V-1) of all shards, and the merge and top-K run
+work; with the hashed LM, its rows of their windows), one all-gather over
+the model group assembles the stays (B, K) and extensions (B, K, V-1) of
+all shards, and the merge and top-K run
 replicated on every rank (K10, ``ops/beam_cuda.py::merge_topk``, on the
 card).  Token buffers are replicated and rebuilt alike everywhere, so no
 rank ever fetches another's parent state.  With the RNN LM each rank steps
@@ -23,13 +24,16 @@ Parity traps:
 * the JAX driver passes neither ``ext_top_a`` nor ``lm_top_k`` to this
   search, so it runs over all chars whatever they say, as JAX's does;
 * each frame's fields travel as one int32 buffer (floats as their bits),
-  one all-gather a frame: under gloo every collective is a host round trip.
+  one all-gather a frame: under gloo every collective is a host round trip;
+  the hashed LM's windows ride it as order - 1 columns a candidate, and K10
+  (its window form) copies a pick's columns.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pytorch_asr_tpu_torch.decoding.lm_hashed import hashed_lm_logp_rows
 from pytorch_asr_tpu_torch.decoding.prefix_beam import (
     BeamState,
     _build_candidates,
@@ -46,8 +50,8 @@ from pytorch_asr_tpu_torch.decoding.prefix_beam import (
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM
 from pytorch_asr_tpu_torch.parallel.mesh import Mesh, model_all_gather, use_mesh
 
-_STAY_F32, _STAY_I32 = ("pb", "pnb", "lm"), ("hash", "ctx", "last", "parent", "append")
-_EXT_F32, _EXT_I32 = ("pnb", "lm"), ("hash", "ctx", "append", "parent")
+_STAY_F32, _STAY_I32 = ("pb", "pnb", "lm"), ("hash", "last", "parent", "append")
+_EXT_F32, _EXT_I32 = ("pnb", "lm"), ("hash", "append", "parent")
 
 
 def _local_slice(state: BeamState, p: int, kl: int) -> BeamState:
@@ -61,18 +65,26 @@ def _local_slice(state: BeamState, p: int, kl: int) -> BeamState:
 
 def _exchange(stay: dict, ext: dict, mesh: Mesh) -> tuple[dict, dict]:
     """All model ranks' candidates, shard-major, through one all-gather of
-    one int32 buffer (B, kl, 8 + 6 (V-1)) a frame."""
+    one int32 buffer (B, kl, 7 + w + (5 + w) (V-1)) a frame, w the context's
+    columns (1, or the hashed LM's window width)."""
     B, kl, nb = ext["pnb"].shape
+    window = stay["ctx"].dim() == 3
+    w = stay["ctx"].shape[-1] if window else 1
     bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+    ns, ne = len(_STAY_F32 + _STAY_I32), len(_EXT_F32 + _EXT_I32)
     packed = torch.cat(
         [torch.stack([bits(stay[k]) for k in _STAY_F32 + _STAY_I32], dim=-1),
-         torch.stack([bits(ext[k]) for k in _EXT_F32 + _EXT_I32], dim=-1).reshape(B, kl, -1)],
+         stay["ctx"].reshape(B, kl, w),
+         torch.cat([torch.stack([bits(ext[k]) for k in _EXT_F32 + _EXT_I32], dim=-1),
+                    ext["ctx"].reshape(B, kl, nb, w)], dim=-1).reshape(B, kl, -1)],
         dim=-1)
-    full = model_all_gather(packed, 1, mesh)                     # (B, K, 8 + 6 nb)
+    full = model_all_gather(packed, 1, mesh)              # (B, K, ns + w + (ne + w) nb)
     K = full.shape[1]
-    s, e = full[..., :8], full[..., 8:].reshape(B, K, nb, 6)
+    s, e = full[..., :ns + w], full[..., ns + w:].reshape(B, K, nb, ne + w)
     out_s = {k: s[..., i].contiguous() for i, k in enumerate(_STAY_F32 + _STAY_I32)}
     out_e = {k: e[..., i].contiguous() for i, k in enumerate(_EXT_F32 + _EXT_I32)}
+    out_s["ctx"] = s[..., ns:].contiguous() if window else s[..., ns].contiguous()
+    out_e["ctx"] = e[..., ne:].contiguous() if window else e[..., ne].contiguous()
     for d, names in ((out_s, _STAY_F32), (out_e, _EXT_F32)):
         for k in names:
             d[k] = d[k].view(torch.float32)
@@ -103,7 +115,9 @@ def prefix_beam_search_sharded(logits: torch.Tensor, logit_len: torch.Tensor, me
     """(tokens (B, L), lengths (B,), scores (B,)) of the best beam of each of
     this rank's rows, with the beams sharded over ``mesh``'s model ranks
     (every one of which calls it on the same rows).  The fusion source is
-    none, the dense table ``lm_table`` or the char RNN LM ``rnn_lm``.  One
+    none, the dense table ``lm_table``, the hashed tables ``hash_lm`` (each
+    rank reads the rows of its own beams' windows) or the char RNN LM
+    ``rnn_lm``.  One
     model rank: ``prefix_beam_search``.  ``beam_size`` must be a multiple
     of the model axis."""
     P = mesh.model
@@ -121,13 +135,15 @@ def prefix_beam_search_sharded(logits: torch.Tensor, logit_len: torch.Tensor, me
     K, L, kl, p = beam_size, max_len, beam_size // P, mesh.model_index
     B, T, V = logits.shape
     logp = torch.log_softmax(logits.float(), dim=-1)
-    state = _init_state(B, K, L, logits.device)
+    state = _init_state(B, K, L, logits.device, hash_lm.order - 1 if hash_lm is not None else 0)
     carry = rnn_lm_carry_init(rnn_lm, B, K, sos_id) if rnn_lm is not None else None
     own = slice(p * kl, (p + 1) * kl)
     for t in range(T):
         local = _local_slice(state, p, kl)
         if lm_table is not None:
             lm_rows = lm_table[local.ctx.long()]
+        elif hash_lm is not None:
+            lm_rows = hashed_lm_logp_rows(hash_lm, local.ctx)
         else:
             lm_rows = carry.logp[:, own] if carry is not None else None
         stay_l, ext_l = _build_candidates(

@@ -1,6 +1,6 @@
 """Streaming (online) recognition with a carried state (counterpart of
 ``pytorch_asr_tpu.decoding.streaming``): greedy mode, and beam mode with no
-LM, a dense n-gram table or the char RNN LM.
+LM, a dense n-gram table, the hashed n-gram LM or the char RNN LM.
 
 It runs the same weights as the offline model, provided the model was built
 streaming-capable: ``model.encoder.bidirectional=false`` and
@@ -15,8 +15,8 @@ and carries, on the device, in a ``StreamState``:
   * greedy mode: the last valid frame's argmax (blank included), so the
     greedy collapse runs across blocks; beam mode: the prefix beam search's
     ``BeamState`` (every beam's tokens, (p_blank, p_nonblank), LM score,
-    hash, dense-LM context and last char) and, with the RNN LM, each beam's
-    ``LMCarry``.
+    hash, dense-LM context or the hashed LM's window of its last order - 1
+    ids, and last char) and, with the RNN LM, each beam's ``LMCarry``.
 
 A step is K1 (``ops/stft_cuda.py``: a block's log-mel is the offline
 frontend's over the same samples), the frame mask, the conv stack with its
@@ -25,11 +25,12 @@ from the carried (h, c), handing its state on), the CTC head, then the
 cross-block greedy collapse, or in beam mode the log-softmax, each frame's
 top-A chars where ``ext_top_a`` asks for them, and one launch of a search
 kernel's carried form (``decoding/prefix_beam.py::
-prefix_beam_continue_best``: K7, K8 or K9 from the carried beams over the
-block's valid frames, handing the beams on and giving the best one's
-tokens).  On the CPU the wrappers take their plain versions.  Raw samples
-wait in a numpy buffer on the host; a block makes one host-to-device copy of
-its samples and one device-to-host copy of its token ids, as in JAX.
+prefix_beam_continue_best``: K7, K8 (either with the hashed tables read in the
+kernel) or K9 from the carried beams over the block's valid frames, handing
+the beams on and giving the best one's tokens). On the CPU the wrappers take
+their plain versions.  Raw samples wait in a numpy buffer on the host; a block
+makes one host-to-device copy of its samples and one device-to-host copy of
+its token ids, as in JAX.
 
 Parity contract: feeding an utterance chunk by chunk gives the tokens of the
 offline model and ``greedy_ctc`` over the whole waveform, or in beam mode
@@ -39,9 +40,6 @@ blocks start; the convs may (cuDNN can pick another algorithm for a block
 than for the utterance), and so may the head's GEMM (a block's rows summed
 in another order than the utterance's).  Beam mode emits each block's full
 best prefix, which may revise earlier output.
-
-The hashed n-gram LM (``hash_lm``, with its context window in the state) is
-not ported: it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,11 +56,6 @@ from pytorch_asr_tpu_torch.models.asr_model import ASRModel
 from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len_causal
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM
 from pytorch_asr_tpu_torch.ops import stft_cuda
-
-HASH_LM_NOT_PORTED = ("hashed n-gram fusion in streaming beam mode (decoding/lm_hashed.py and "
-                      "its context window in the beam state) waits for ROADMAP.md queue 1, "
-                      "item 8")
-
 
 @dataclasses.dataclass
 class StreamState:
@@ -99,15 +92,14 @@ def init_stream_state(cfg: ExperimentConfig, batch_size: int,
     """Zeros: the causal left padding and the zero initial LSTM state of the
     offline model.  ``beam``: the search's initial beams
     (``cfg.decode.beam_size`` beams of ``cfg.decode.max_decode_len``
-    tokens) and, with ``rnn_lm``, every beam's LM state primed with
-    ``sos_id``."""
+    tokens; with ``hash_lm``, windows of its order - 1 ids, all 0) and, with
+    ``rnn_lm``, every beam's LM state primed with ``sos_id``."""
     enc = _check_streamable(cfg)
-    if hash_lm is not None:
-        raise NotImplementedError(HASH_LM_NOT_PORTED)
     beam_state = lm_carry = None
     if beam:
-        beam_state = prefix_beam.prefix_beam_init(batch_size, cfg.decode.beam_size,
-                                                  cfg.decode.max_decode_len, device)
+        beam_state = prefix_beam.prefix_beam_init(
+            batch_size, cfg.decode.beam_size, cfg.decode.max_decode_len, device,
+            ctx_width=hash_lm.order - 1 if hash_lm is not None else 0)
         if rnn_lm is not None:
             if sos_id is None:
                 raise ValueError("rnn_lm streaming fusion needs sos_id")
@@ -223,12 +215,13 @@ class StreamingRecognizer:
     multiple of the conv's time subsampling (default 16 frames = 160 ms).
     Greedy mode returns each stream's new ids.  ``mode="beam"`` runs the
     prefix beam search at ``cfg.decode``'s beam and max length across blocks,
-    fused with the dense n-gram table ``lm_table`` (n_ctx, V) or the char
-    RNN LM ``rnn_lm`` (a ``CharRNNLM`` on the model's device, primed with
-    ``sos_id``), over all chars or each frame's top ``ext_top_a``; each block
-    returns every stream's full best prefix so far, which may revise earlier
-    output (``finish`` returns it again once finished).  ``lm_top_k``
-    prunes only a hashed LM's lookups; ``hash_lm`` is not ported.
+    fused with the dense n-gram table ``lm_table`` (n_ctx, V), the hashed
+    n-gram LM ``hash_lm`` (a ``decoding.lm_hashed.HashedNgramLM`` on the
+    model's device; ``lm_top_k`` prunes its lookups over all chars) or the
+    char RNN LM ``rnn_lm`` (a ``CharRNNLM`` on the model's device, primed
+    with ``sos_id``), over all chars or each frame's top ``ext_top_a``; each
+    block returns every stream's full best prefix so far, which may revise
+    earlier output (``finish`` returns it again once finished).
     """
 
     def __init__(self, model: ASRModel, cfg: ExperimentConfig, batch_size: int,
@@ -241,8 +234,7 @@ class StreamingRecognizer:
         if mode != "beam" and (lm_table is not None or hash_lm is not None
                                or rnn_lm is not None):
             raise ValueError("LM fusion requires mode='beam'")
-        if hash_lm is not None:
-            raise NotImplementedError(HASH_LM_NOT_PORTED)
+        prefix_beam._check_sources(0, hash_lm, lm_table, rnn_lm)
         enc = _check_streamable(cfg)
         total_stride = enc.conv_stride[0] ** len(enc.conv_channels)
         if block_frames % total_stride:
@@ -252,7 +244,8 @@ class StreamingRecognizer:
         self.cfg = cfg
         self.mode = mode
         self.sos_id = sos_id
-        self.fusion = dict(lm_table=lm_table, rnn_lm=rnn_lm, lm_alpha=float(lm_alpha),
+        self.fusion = dict(lm_table=lm_table, hash_lm=hash_lm, rnn_lm=rnn_lm,
+                           lm_alpha=float(lm_alpha),
                            lm_beta=float(lm_beta), lm_top_k=int(lm_top_k),
                            ext_top_a=int(ext_top_a))
         self.device = model.ctc_head.weight.device
@@ -266,7 +259,7 @@ class StreamingRecognizer:
     def reset(self) -> None:
         self.state = init_stream_state(self.cfg, self.batch_size, device=self.device,
                                        beam=self.mode == "beam", rnn_lm=self.fusion["rnn_lm"],
-                                       sos_id=self.sos_id)
+                                       sos_id=self.sos_id, hash_lm=self.fusion["hash_lm"])
         self._buf = np.zeros((self.batch_size, 0), np.float32)
         self._finished = False
         self._best: list[list[int]] = [[] for _ in range(self.batch_size)]

@@ -95,3 +95,36 @@ def lm_step_logp(model: CharRNNLM, y_prev: torch.Tensor,
     """log P(. | prefix) (B, V) float32 and the new state, for fusion loops."""
     logits, new_state = model.step(y_prev, state)
     return torch.log_softmax(logits.float(), dim=-1), new_state
+
+
+class HostRNNLM:
+    """A ``.score(prefix, c)`` adapter with ``BackoffLM``'s interface over a
+    ``CharRNNLM``, for the host oracle (``decoding/prefix_beam_ref.py``):
+    the LM primed with ``sos_id``, then stepped along the prefix; each
+    prefix's log-probs and state are cached."""
+
+    def __init__(self, model: CharRNNLM, sos_id: int) -> None:
+        self.model, self.sos_id = model, sos_id
+        self._cache: dict[tuple, tuple] = {}
+
+    @torch.no_grad()
+    def _logp_state(self, prefix: tuple):
+        # A walk from the longest cached ancestor (recursion would pass the
+        # stack's depth on utterance-length prefixes).
+        n = len(prefix)
+        while n > 0 and prefix[:n] not in self._cache:
+            n -= 1
+        dev = self.model.embed.device
+        if n == 0 and () not in self._cache:
+            logp, state = lm_step_logp(self.model, torch.full((1,), self.sos_id, device=dev),
+                                       self.model.init_state(1))
+            self._cache[()] = (logp[0].cpu().numpy(), state)
+        for i in range(n, len(prefix)):
+            _, state = self._cache[prefix[:i]]
+            logp, state = lm_step_logp(self.model, torch.full((1,), prefix[i], device=dev), state)
+            self._cache[prefix[:i + 1]] = (logp[0].cpu().numpy(), state)
+        return self._cache[prefix]
+
+    def score(self, ctx, c: int) -> float:
+        logp, _ = self._logp_state(tuple(int(x) for x in ctx))
+        return float(logp[c])

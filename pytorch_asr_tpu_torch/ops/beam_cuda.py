@@ -3,7 +3,9 @@
 Counterparts of ``pytorch_asr_tpu/ops/beam_pallas.py``'s
 ``prefix_beam_fused_lanes`` (K7, all chars) and
 ``prefix_beam_fused_lanes_topa`` (K8, each frame's top-A chars), both with an
-optional dense n-gram table (``prefix_beam``), and of
+optional dense n-gram table or the hashed n-gram LM of
+``decoding/lm_hashed.py``, its tables read in the kernel (``prefix_beam``;
+counted ``prefix_beam_hashed``, ``prefix_beam_topa_hashed``), and of
 ``prefix_beam_fused_lanes_topa_rnn`` (K9, either search fused with the char
 LSTM LM, advanced inside the kernel: ``prefix_beam_rnn``), and of
 ``merge_topk_fused`` (K10, one frame's merge and top-K for the beam-sharded
@@ -32,6 +34,7 @@ Every form is chosen from the shapes before the launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -41,11 +44,13 @@ from pytorch_asr_tpu_torch.ops import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"prefix_beam": [_P] * 10 + [_I] * 7 + [_F, _F, _P, _P, _P, _P],
+               "prefix_beam_hashed": [_P] * 7 + [_I, _P, _I] + [_P] * 5 + [_I] * 6
+               + [_F, _F, _P, _P, _P, _P],
                "prefix_beam_rnn": [_P] * 6 + [_I] * 3 + [_P] * 5 + [_I] * 6
                + [_F, _F, _P, _I, _P, _P],
                "prefix_beam_rnn_grid": [_P] * 6 + [_I] * 3 + [_P] * 5 + [_I] * 6
                + [_F, _F] + [_P] * 4 + [_I] * 6 + [_P, _P],
-               "merge_topk": [_P] * 24 + [_I] * 4 + [_P]}
+               "merge_topk": [_P] * 24 + [_I] * 5 + [_P]}
 _STUDY_SIGNATURES = {"prefix_beam_fused": [_P] * 5 + [_I] * 5 + [_P] * 3,
                      "prefix_beam_stepwise": [_P] * 12 + [_I] * 5 + [_P] * 3}
 MAX_SMEM = 232448    # the dynamic shared memory a Hopper block may use
@@ -55,9 +60,14 @@ _INT_MAX = 2 ** 31 - 1
 SHARED, LM_STATE_IN_SCRATCH, IN_SCRATCH = 0, 1, 2
 
 
-def smem_bytes(K: int, C: int, V: int) -> int:
-    """Shared memory of one K7/K8 block, as ``csrc/prefix_beam.cu`` lays it out."""
-    return 72 * K + 17 * K * C + 8 * V + 8 * C + 512
+def smem_bytes(K: int, C: int, V: int, W: int = 0) -> int:
+    """Shared memory of one K7/K8 block, as ``csrc/prefix_beam.cu`` lays it
+    out; with the hashed LM (windows ``W`` = order - 1 > 0, its
+    ``hashed_smem_bytes``) from the next 16-byte boundary each beam's two
+    windows and its W context levels' keys, backoff and validity.  The
+    tables stay in device memory."""
+    base = 72 * K + 17 * K * C + 8 * V + 8 * C + 512
+    return _up(base, 16) + 24 * K * W if W else base
 
 
 def lm_state_floats(K: int, V: int, nl: int, H: int) -> int:
@@ -77,7 +87,7 @@ def rnn_smem_bytes(K: int, C: int, V: int, nl: int, E: int, H: int,
     return (smem_bytes(K, C, V) + 15) // 16 * 16 + lm
 
 
-def fits(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> bool:
+def fits(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None, W: int = 0) -> bool:
     """Whether one K7/K8 block (``lm`` None) or one K9 block (``lm`` = the
     char LM's (layers, E, H), its state in a device scratch where need be)
     takes beam K over C candidate lanes of a vocabulary V in shared memory:
@@ -85,22 +95,24 @@ def fits(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> bool
     pure function of the shapes, as the JAX package's lane-kernel gate is
     (``lanes <= 2048``); where it is False, ``prefix_beam`` and
     ``prefix_beam_rnn`` launch the kernel with the working set in a device
-    scratch (``scratch_bytes``).  (A beam below 1 "fits": the wrappers
-    refuse it.)"""
+    scratch (``scratch_bytes``).  ``W``: the hashed LM's window width.  (A
+    beam below 1 "fits": the wrappers refuse it.)"""
     if K > MAX_BEAM:
         return False
     if lm is None:
-        return smem_bytes(K, C, V) <= MAX_SMEM
+        return smem_bytes(K, C, V, W) <= MAX_SMEM
     nl, E, H = lm
     return rnn_smem_bytes(K, C, V, nl, E, H, state_in_smem=False) <= MAX_SMEM
 
 
-def scratch_bytes(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None) -> int:
+def scratch_bytes(K: int, C: int, V: int, lm: tuple[int, int, int] | None = None,
+                  W: int = 0) -> int:
     """One block's slice of the device scratch where the working set does
-    not fit (``csrc/prefix_beam.cu::scratch_block_bytes``): the block's
-    working set as shared memory lays it out (K9's with its LM state), to a
-    16-byte boundary."""
-    work = smem_bytes(K, C, V) if lm is None else rnn_smem_bytes(K, C, V, *lm)
+    not fit (``csrc/prefix_beam.cu::scratch_block_bytes``, and
+    ``hashed_block_bytes`` for the hashed LM's ``W``): the block's working
+    set as shared memory lays it out (K9's with its LM state), to a 16-byte
+    boundary."""
+    work = smem_bytes(K, C, V, W) if lm is None else rnn_smem_bytes(K, C, V, *lm)
     return (work + 15) // 16 * 16
 
 
@@ -241,6 +253,91 @@ def _check(logp, logit_len, lm_table, top_val, top_idx, K: int, L: int,
     return C
 
 
+def hash_table(hash_lm, dev) -> torch.Tensor:
+    """``csrc/prefix_beam.cu::HashLm::tables`` of ``hash_lm``: the bucket-row
+    arrays' device addresses (probs of orders 2..N, then backoffs of context
+    lengths 2..N-1), then each array's bucket mask, as int64 on ``dev``.
+    Made once for each distinct table and kept (``_device_table``): a
+    search's launches reuse it with no copy."""
+    tabs = [t.data for t in (*hash_lm.probs, *hash_lm.backoffs)]
+    return _device_table(tuple(t.data_ptr() for t in tabs) + tuple(t.shape[0] - 1 for t in tabs),
+                         dev)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_table(vals: tuple, dev) -> torch.Tensor:
+    """``vals`` as an int64 tensor on ``dev``.  Keyed by the values
+    themselves, so an entry is right for any LM whose arrays lie at those
+    addresses with those masks."""
+    return torch.tensor(vals, dtype=torch.int64, device=dev)
+
+
+def _hash_check(hash_lm, V: int, dev) -> None:
+    """A hashed LM for the kernel: order >= 2, (V,) unigram and backoff
+    rows and (buckets, 32) tables of a power of two buckets, all float32,
+    contiguous on ``dev``."""
+    if hash_lm.order < 2:
+        raise ValueError(f"prefix_beam: a hashed LM of order {hash_lm.order}; the kernel takes "
+                         "order >= 2 (a unigram LM is a dense table of one row)")
+    tensors = {"uni": (hash_lm.uni, (V,)), "uni_backoff": (hash_lm.uni_backoff, (V,))}
+    for i, t in enumerate((*hash_lm.probs, *hash_lm.backoffs)):
+        n = t.data.shape[0]
+        if n < 1 or n & (n - 1):
+            raise ValueError(f"prefix_beam: hash table {i} has {n} buckets, not a power of two")
+        tensors[f"table{i}"] = (t.data, (n, 32))
+    for name, (t, shape) in tensors.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"prefix_beam: hash_lm.{name} must be contiguous {shape} float32 on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _hashed_launch(logp, logit_len, K: int, L: int, hash_lm, lm_alpha: float, lm_beta: float,
+                   top_val, top_idx, exact_idx, trace=None, state=None):
+    """K7/K8's hashed form: from the initial beams, or from ``state`` (the
+    kCarry form, its ctx (B, K, order - 1) windows), over ``logp``.
+    Returns (tokens, lengths, scores) of each row's best beam and the
+    BeamState after (None without ``state``)."""
+    B, T, V = logp.shape
+    C = _check(logp, logit_len, None, top_val, top_idx, K, L)
+    dev = logp.device
+    _hash_check(hash_lm, V, dev)
+    W = hash_lm.order - 1
+    n_exact = 0
+    if exact_idx is not None:
+        if top_idx is not None:
+            raise ValueError("prefix_beam: exact_idx (lm_top_k) prunes the search over all chars "
+                             "only, not K8's")
+        n_exact = exact_idx.shape[-1]
+        if (tuple(exact_idx.shape) != (B, T, n_exact) or exact_idx.dtype != torch.int32
+                or exact_idx.device != dev or not exact_idx.is_contiguous() or n_exact < 1):
+            raise ValueError(f"prefix_beam: exact_idx must be contiguous ({B}, {T}, k >= 1) int32 "
+                             f"on {dev}")
+    _trace_check("prefix_beam", trace, T, 7, dev)
+    table = new = None
+    if state is not None:
+        if trace is not None:
+            raise ValueError("prefix_beam: a carried search takes no trace")
+        _state_check(state, B, K, L, dev, W)
+        new = _empty_state(B, K, L, dev, W)
+        table = carry_table([*state, *new])
+    scratch = None if fits(K, C, V, W=W) else _scratch(B, scratch_bytes(K, C, V, W=W), dev)
+    parents, appends, tokens, lengths, scores = _outputs_of(B, T, K, L, dev)
+    tables = hash_table(hash_lm, dev)
+    lib = build.load("prefix_beam", _SIGNATURES)
+    name = ("prefix_beam_topa" if top_idx is not None else "prefix_beam") + "_hashed" + (
+        "_carry" if state is not None else "") + ("_wide" if scratch is not None else "")
+    build.check(lib.prefix_beam_hashed(
+        logp.data_ptr(), _ptr(top_val), _ptr(top_idx), logit_len.data_ptr(),
+        hash_lm.uni.data_ptr(), hash_lm.uni_backoff.data_ptr(), tables.data_ptr(),
+        hash_lm.order, _ptr(exact_idx), n_exact, parents.data_ptr(), appends.data_ptr(),
+        tokens.data_ptr(), lengths.data_ptr(), scores.data_ptr(), B, T, V, K, C, L, lm_alpha,
+        lm_beta, _ptr(scratch), _ptr(trace), table,
+        torch.cuda.current_stream(dev).cuda_stream), name)
+    build.LAUNCHES[name] += 1
+    return tokens, lengths, scores, new
+
+
 # csrc/prefix_beam.cu::RnnLm's table of the layers' 3 nl pointers, kind-major:
 # wx of every layer, then wh of every layer, then b (RnnLm::wx, wh, b).
 LAYER_KINDS = ("wx", "wh", "b")
@@ -295,7 +392,8 @@ def _ptr(t):
 def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max_len: int,
                 lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
                 lm_beta: float = 0.0, top_val: torch.Tensor | None = None,
-                top_idx: torch.Tensor | None = None, trace: torch.Tensor | None = None):
+                top_idx: torch.Tensor | None = None, trace: torch.Tensor | None = None,
+                hash_lm=None, exact_idx: torch.Tensor | None = None):
     """Prefix beam search over log-probs ``logp`` (B, T, V) float32 with
     lengths ``logit_len`` (B,) int32 and, optionally, a dense LM table
     (n_ctx, V) float32 fused as ``lm_alpha * row + lm_beta`` a char.  With
@@ -306,10 +404,19 @@ def prefix_beam(logp: torch.Tensor, logit_len: torch.Tensor, beam_size: int, max
     it lies in a device scratch this wrapper allocates, counted under
     ``<name>_wide``.  ``trace``, a (T, 7) int64 tensor on the card,
     receives block 0's clocks of each frame
-    (``csrc/prefix_beam.cu::search_frame``)."""
+    (``csrc/prefix_beam.cu::search_frame``).  With ``hash_lm`` (a
+    ``decoding.lm_hashed.HashedNgramLM`` on logp's device, in
+    ``lm_table``'s place) the kernel's hashed form reads its tables, counted
+    as ``prefix_beam_hashed`` (``prefix_beam_topa_hashed``); ``exact_idx``
+    (B, T, k) int32, K7 only: each frame's top k chars of ``lm_top_k``,
+    whose rows are exact while the rest take the all-miss rows."""
     if logp.device.type == "cpu":
         return plain.beam_scan_plain(logp, logit_len, beam_size, max_len, lm_table, lm_alpha,
-                                     lm_beta, top_val, top_idx)
+                                     lm_beta, top_val, top_idx, hash_lm=hash_lm,
+                                     exact_idx=exact_idx)
+    if hash_lm is not None:
+        return _hashed_launch(logp, logit_len, beam_size, max_len, hash_lm, lm_alpha, lm_beta,
+                              top_val, top_idx, exact_idx, trace)[:3]
     B, T, V = logp.shape
     K, L = beam_size, max_len
     C = _check(logp, logit_len, lm_table, top_val, top_idx, K, L)
@@ -452,11 +559,12 @@ def carry_table(tensors: list):
     return (_P * CARRY_POINTERS)(*(t.data_ptr() for t in tensors))
 
 
-def _state_check(state, B: int, K: int, L: int, dev) -> None:
-    """A carried BeamState must be B rows of K beams of L tokens, each field
-    contiguous on ``dev`` in its dtype."""
+def _state_check(state, B: int, K: int, L: int, dev, W: int = 0) -> None:
+    """A carried BeamState must be B rows of K beams of L tokens (and, for
+    a hashed LM, (B, K, W) context windows), each field contiguous on
+    ``dev`` in its dtype."""
     for name, t in state._asdict().items():
-        shape = (B, K, L) if name == "tokens" else (B, K)
+        shape = (B, K, L) if name == "tokens" else (B, K, W) if name == "ctx" and W else (B, K)
         dtype = torch.float32 if name in ("pb", "pnb", "lm_s") else torch.int32
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev or not t.is_contiguous():
             raise ValueError(f"prefix_beam: state.{name} must be contiguous {shape} {dtype} on "
@@ -472,11 +580,11 @@ def _lm_carry_check(carry, nl: int, B: int, K: int, H: int, V: int, dev) -> None
                              f"float32 on {dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _empty_state(B: int, K: int, L: int, dev):
+def _empty_state(B: int, K: int, L: int, dev, W: int = 0):
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     return plain.BeamState(tokens=torch.empty((B, K, L), **i32),
-                           **{f: torch.empty((B, K), **(f32 if f in ("pb", "pnb", "lm_s")
-                                                        else i32))
+                           **{f: torch.empty((B, K, W) if f == "ctx" and W else (B, K),
+                                             **(f32 if f in ("pb", "pnb", "lm_s") else i32))
                               for f in plain.BeamState._fields[1:]})
 
 
@@ -488,7 +596,8 @@ def _empty_lm_carry(nl: int, B: int, K: int, H: int, V: int, dev):
 def prefix_beam_carry(state, logp: torch.Tensor, n_valid: torch.Tensor,
                       lm_table: torch.Tensor | None = None, lm_alpha: float = 0.0,
                       lm_beta: float = 0.0, top_val: torch.Tensor | None = None,
-                      top_idx: torch.Tensor | None = None):
+                      top_idx: torch.Tensor | None = None, hash_lm=None,
+                      exact_idx: torch.Tensor | None = None):
     """One chunk of a stream's search: ``prefix_beam`` (K7, or K8 with
     ``top_val``/``top_idx``) from the beams of ``state``, a
     ``decoding.prefix_beam.BeamState`` of B rows of K beams of L tokens,
@@ -498,11 +607,19 @@ def prefix_beam_carry(state, logp: torch.Tensor, n_valid: torch.Tensor,
     beam's (tokens (B, L) int32, lengths (B,) int32, scores (B,) float32)),
     those of ``decoding.prefix_beam.continue_plain`` and ``beam_best``, which
     it runs on CPU tensors.  Counted as ``prefix_beam_carry``
-    (``prefix_beam_topa_carry``), or ``..._carry_wide`` past ``fits``."""
+    (``prefix_beam_topa_carry``), or ``..._carry_wide`` past ``fits``.  With
+    ``hash_lm`` (``exact_idx`` as ``prefix_beam`` takes it) the state's ctx
+    is its (B, K, order - 1) windows and the hashed form runs, counted as
+    ``prefix_beam_hashed_carry`` (``prefix_beam_topa_hashed_carry``)."""
     if logp.device.type == "cpu":
         new, _ = plain.continue_plain(state, logp, n_valid, lm_table, lm_alpha, lm_beta,
-                                      top_val, top_idx)
+                                      top_val, top_idx, hash_lm=hash_lm, exact_idx=exact_idx)
         return new, plain.beam_best(new)
+    if hash_lm is not None:
+        tokens, lengths, scores, new = _hashed_launch(
+            logp, n_valid, state.tokens.shape[1], state.tokens.shape[2], hash_lm, lm_alpha,
+            lm_beta, top_val, top_idx, exact_idx, state=state)
+        return new, (tokens, lengths, scores)
     B, T, V = logp.shape
     K, L = state.tokens.shape[1:]
     C = _check(logp, n_valid, lm_table, top_val, top_idx, K, L)
@@ -587,6 +704,9 @@ def merge_topk(stay: dict, ext: dict, K: int, trace: torch.Tensor | None = None)
     char c (``_build_candidates``' layout), whose last char is ``append``.
     Returns (score (B, K), fields: pb, pnb, lm, hash, last, parent, append,
     ctx (B, K)), the contract of ``decoding/prefix_beam.py::_merge_topk``.
+    With the hashed LM's windows, stay ctx (B, Ks, C) and ext ctx (B, Ks,
+    V-1, C), the kernel's window form copies each pick's C columns into a
+    (B, K, C) ctx.
     Where a block's working set does not fit its shared memory
     (``merge_fits``) it lies in a device scratch this wrapper allocates,
     counted as ``merge_topk_wide``.  ``trace``, a (7,) int64 tensor on the
@@ -596,13 +716,13 @@ def merge_topk(stay: dict, ext: dict, K: int, trace: torch.Tensor | None = None)
         return plain._merge_topk(stay, ext, K)
     B, Ks = stay["pb"].shape
     nb = ext["pnb"].shape[2]
-    if stay["ctx"].dim() != 2:
-        raise ValueError("merge_topk: a ctx window (the hashed LM's) is not taken: ctx must "
-                         "be (B, Ks)")
+    cols = stay["ctx"].shape[2] if stay["ctx"].dim() == 3 else 0
     ins = []
     for part, name, dtype in _MERGE_IN:
         t = (stay if part == "stay" else ext)[name]
         shape = (B, Ks) if part == "stay" else (B, Ks, nb)
+        if name == "ctx" and cols:
+            shape += (cols,)
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"merge_topk: {part}[{name!r}] must be {shape} {dtype}, "
                              f"got {tuple(t.shape)} {t.dtype}")
@@ -619,12 +739,13 @@ def merge_topk(stay: dict, ext: dict, K: int, trace: torch.Tensor | None = None)
     scratch = None if merge_fits(Ks, nb) else _scratch(B, merge_slice_bytes(Ks, nb), dev)
     name = "merge_topk" + ("_wide" if scratch is not None else "")
     score = torch.empty((B, K), dtype=torch.float32, device=dev)
-    out = {f: torch.empty((B, K), dtype=dtype, device=dev) for f, dtype in _MERGE_OUT}
+    out = {f: torch.empty((B, K, cols) if f == "ctx" and cols else (B, K), dtype=dtype,
+                          device=dev) for f, dtype in _MERGE_OUT}
     lib = build.load("prefix_beam", _SIGNATURES)
     build.check(lib.merge_topk(
         *(t.data_ptr() for t in ins), score.data_ptr(), *(t.data_ptr() for t in out.values()),
-        _ptr(scratch), _ptr(trace), B, Ks, nb, K, torch.cuda.current_stream(dev).cuda_stream),
-        name)
+        _ptr(scratch), _ptr(trace), B, Ks, nb, K, cols,
+        torch.cuda.current_stream(dev).cuda_stream), name)
     build.LAUNCHES[name] += 1
     return score, out
 

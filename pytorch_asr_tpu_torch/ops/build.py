@@ -8,17 +8,19 @@ headers ``csrc/*.cuh`` and the flags, so an edited source or header is
 rebuilt and never mixed up with an old build.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the CUDA
-kernel (a CPU tensor takes the plain version and is not counted).  A route
-chosen from the shapes for CUDA tensors counts under its own name: the
-LSTM's wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide``,
-``lstm_seq_stream_wide`` and the rest, the per-utterance kernel), the
-beam kernels past a block's shared memory (``prefix_beam_wide`` and the
-rest, and the study kernels' ``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``, and K10's
+kernel (a CPU tensor takes the plain version and is not counted). A route
+chosen from the shapes for CUDA tensors counts under its own name: the LSTM's
+wide route (``lstm_seq_wide``, ``lstm_seq_bwd_wide``, ``lstm_seq_stream_wide``
+and the rest, the per-utterance kernel), the beam kernels past a block's
+shared memory (``prefix_beam_wide`` and the rest, and the study kernels'
+``prefix_beam_fused_wide`` and ``prefix_beam_stepwise_wide``, and K10's
 ``merge_topk_wide``: their working set in a device scratch), K9 past its
-co-resident grid (``prefix_beam_rnn_block`` and its ``_topa`` form, a block
-an utterance), the searches' carried forms, a chunk of a stream
-(``prefix_beam_carry``, ``prefix_beam_rnn_carry`` and the rest, with the
-same suffixes), K4 past its registers (``ctc_alpha_wide``, ``ctc_beta_wide``,
+co-resident grid (``prefix_beam_rnn_block`` and its ``_topa`` form, a block an
+utterance), the searches' carried forms, a chunk of a stream
+(``prefix_beam_carry``, ``prefix_beam_rnn_carry`` and the rest, with the same
+suffixes), K7 and K8 with the hashed n-gram LM (``prefix_beam_hashed``,
+``prefix_beam_topa_hashed``, their ``_carry`` and ``_wide`` forms), K4 past
+its registers (``ctc_alpha_wide``, ``ctc_beta_wide``,
 ``ctc_alpha_paired_wide``: the lattice rows in device memory) and K1 at an
 ``n_fft`` with no FFT plan (``stft_log_mel_dft``, its DFT form).
 """
@@ -64,7 +66,12 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "prefix_beam_rnn_topa_carry": 0, "prefix_beam_rnn_carry_block": 0,
                             "prefix_beam_rnn_topa_carry_block": 0,
                             "prefix_beam_rnn_carry_wide": 0,
-                            "prefix_beam_rnn_topa_carry_wide": 0}
+                            "prefix_beam_rnn_topa_carry_wide": 0, "prefix_beam_hashed": 0,
+                            "prefix_beam_topa_hashed": 0, "prefix_beam_hashed_wide": 0,
+                            "prefix_beam_topa_hashed_wide": 0, "prefix_beam_hashed_carry": 0,
+                            "prefix_beam_topa_hashed_carry": 0,
+                            "prefix_beam_hashed_carry_wide": 0,
+                            "prefix_beam_topa_hashed_carry_wide": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 SMS = 132    # the H100 SXM's SMs: the grid routes' default card

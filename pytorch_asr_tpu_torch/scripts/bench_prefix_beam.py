@@ -11,9 +11,13 @@ synchronised around each call, and prints its milliseconds a call,
 microseconds a frame and the real-time factor at 100 frames a second:
   * ``plain scan``: the port's plain search (the JAX script's "xla scan");
   * with ``lm=1``: the plain search with a dense table of log-probs
-    (n_ctx = min(V^2, 4096)) and with a char RNN LM (E 64, H 256, 1 layer,
-    random weights); the hashed n-gram arms need ``decoding/lm_hashed.py``,
-    which is not ported, so ``lm=1`` needs ``hashed=0``;
+    (n_ctx = min(V^2, 4096)); with ``hashed=1`` the search (K7/K8's hashed
+    form on the card) with the JAX script's synthetic hashed 3-gram (8 V
+    bigrams, 32 V trigrams, 8 V bigram backoffs, a dense bigram level where
+    V^2 fits), over all chars (``hashed LM``) and, with V >= 256, with
+    ``lm_top_k`` = A (``hashed A=``) and over each frame's top A chars
+    (``hashed ext_top_a=``, and the same without an LM); then the plain
+    search with a char RNN LM (E 64, H 256, 1 layer, random weights);
   * ``fused=1``: the search with each beam's tokens in the kernel (K13);
   * ``lanes=1`` with K V <= 2048: K7 without and with the table and, with
     ``lm=1``, K9 over all chars; with V >= 256, K8 over the top A =
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from pytorch_asr_tpu_torch.decoding import prefix_beam as pb
+from pytorch_asr_tpu_torch.decoding.lm_hashed import HashedNgramLM, _build_table
 from pytorch_asr_tpu_torch.models.lm_rnn import CharRNNLM, RNNLMConfig
 from pytorch_asr_tpu_torch.ops import beam_cuda
 from pytorch_asr_tpu_torch.scripts import _timing
@@ -48,13 +53,30 @@ def _table(rng, n_ctx: int, V: int, device) -> torch.Tensor:
                             ).to(device)
 
 
+def synthetic_hashed_lm(rng, V: int, device) -> HashedNgramLM:
+    """The JAX script's synthetic hashed 3-gram, drawn from ``rng`` in its
+    order: 8 V bigrams, a dense bigram level (NaN where absent), a unigram
+    row from a flat Dirichlet, 32 V trigrams and 8 V bigram backoffs, values
+    standard normal."""
+    def synth_entries(n_entries, order):
+        grams = rng.integers(1, V, size=(n_entries, order))
+        return {tuple(map(int, g)): float(rng.standard_normal()) for g in grams}
+
+    bigrams = synth_entries(8 * V, 2)
+    bi = np.full((V, V), np.nan, np.float32)
+    for (w, c), lp in bigrams.items():
+        bi[w, c] = lp
+    uni = torch.from_numpy(np.log(rng.dirichlet(np.ones(V))).astype(np.float32))
+    probs = (_build_table(bigrams, device), _build_table(synth_entries(32 * V, 3), device))
+    return HashedNgramLM(uni=uni.to(device), uni_backoff=torch.zeros(V, device=device),
+                         probs=probs, backoffs=(_build_table(synth_entries(8 * V, 2), device),),
+                         bi_dense=torch.from_numpy(bi).to(device))
+
+
 def main(argv: list[str] | None = None) -> dict:
     kv, device = _timing.parse(sys.argv[1:] if argv is None else argv, DEFAULTS)
     B, T, K, V, iters = (int(kv[k]) for k in ("B", "T", "K", "V", "iters"))
     lm, fused, lanes = kv["lm"] == "1", kv["fused"] == "1", kv["lanes"] == "1"
-    if lm and kv["hashed"] == "1":
-        raise NotImplementedError("the hashed n-gram arms need decoding/lm_hashed.py, which is "
-                                  "not ported yet: pass hashed=0 (or lm=0)")
     print(f"device: {_timing.device_name(device)} B={B} T={T} K={K} V={V}")
     rng, logits, lens = _timing.random_logits(B, T, V, device)
     audio_s = B * T / 100.0
@@ -72,6 +94,19 @@ def main(argv: list[str] | None = None) -> dict:
         table = _table(rng, min(V * V, 4096), V, device)
         measure("dense LM  ", lambda: pb.prefix_beam_search_plain(
             logits, lens, beam_size=K, lm_table=table, lm_alpha=0.5, lm_beta=1.0))
+        hl = synthetic_hashed_lm(rng, V, device)
+        if kv["hashed"] == "1":
+            measure("hashed LM ", lambda: pb.prefix_beam_search(
+                logits, lens, beam_size=K, hash_lm=hl, lm_alpha=0.5, lm_beta=1.0))
+        if V >= 256 and kv["hashed"] == "1":
+            A = int(kv["lm_top_k"])
+            measure(f"hashed A={A}", lambda: pb.prefix_beam_search(
+                logits, lens, beam_size=K, hash_lm=hl, lm_alpha=0.5, lm_beta=1.0, lm_top_k=A))
+            measure(f"hashed ext_top_a={A}", lambda: pb.prefix_beam_search(
+                logits, lens, beam_size=K, hash_lm=hl, lm_alpha=0.5, lm_beta=1.0,
+                ext_top_a=A))
+            measure(f"no-LM ext_top_a={A}", lambda: pb.prefix_beam_search(
+                logits, lens, beam_size=K, ext_top_a=A))
         rnn = CharRNNLM(RNNLMConfig(embed_dim=64, hidden_dim=256, num_layers=1), V,
                         seed=0).to(device)
         measure("rnn LM    ", lambda: pb.prefix_beam_search_plain(

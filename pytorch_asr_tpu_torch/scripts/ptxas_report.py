@@ -4,15 +4,15 @@ whose report differs between two sources (card machine only: needs ``nvcc``):
     python -m pytorch_asr_tpu_torch.scripts.ptxas_report <a.cu> [<b.cu>]
 
 Each source is compiled as ``ops/build.py`` compiles it (its flags, which
-include ``-Xptxas -v``; the source's own directory on the include path) into
-a temporary directory.  For each kernel, by its demangled name (``c++filt``
-or the toolkit's ``cu++filt``), the report is ptxas's "Used ..." line
-(registers, barriers, shared and constant memory) and its stack and spill
-line.  With two sources it also matches b's kernels to a's: by name, or, for
-a kernel that gained a trailing template flag of false, by its name without
-that flag and with each parameter of ``std::conditional_t<false, X, Y>``
-named Y; and prints those whose report differs, those only in b (new) and
-those only in a (gone).  Prints one JSON record.
+include ``-Xptxas -v``; the source's own directory on the include path) into a
+temporary directory.  For each kernel, by its demangled name (``c++filt`` or
+the toolkit's ``cu++filt``), the report is ptxas's "Used ..." line (registers,
+barriers, shared and constant memory) and its stack and spill line.  With two
+sources it also matches b's kernels to a's: by name, or, for a kernel that
+gained a trailing template flag of false, by its name without that flag and
+with parameters of ``std::conditional_t<false, X, Y>`` named Y (all of them,
+or those the new flag chose); and prints those whose report differs, those
+only in b (new) and those only in a (gone). Prints one JSON record.
 """
 
 from __future__ import annotations
@@ -59,18 +59,30 @@ def report(source: str) -> dict[str, str]:
     return {d: " | ".join(entries[n]) for n, d in zip(names, _demangle(names))}
 
 
-def _old_name(name: str) -> str:
-    """A kernel's name without a trailing template flag of false, and with
-    the parameter types that flag chose (``std::conditional<false, X,
-    Y>::type``) written as Y."""
+_COND = re.compile(r"std::conditional<false, [^<>]*?, ([^<>]*?)>::type")
+
+
+def _old_names(name: str) -> list[str]:
+    """A kernel's name without a trailing template flag of false, with the
+    parameter types that flag may have chosen (``std::conditional<false, X,
+    Y>::type``) written as Y: all of them first, then each subset (a type an
+    earlier flag chose stays as the old name has it)."""
     name = re.sub(r", false>\(", ">(", name, count=1)
-    return re.sub(r"std::conditional<false, [^<>]*?, ([^<>]*?)>::type", r"\1", name)
+    spans = [m.span() for m in _COND.finditer(name)]
+    out = []
+    for keep in range(2 ** len(spans)):
+        new, end = "", 0
+        for i, (lo, hi) in enumerate(spans):
+            new += name[end:lo] + (name[lo:hi] if keep >> i & 1 else _COND.sub(r"\1", name[lo:hi]))
+            end = hi
+        out.append(new + name[end:])
+    return out
 
 
 def compare(a: dict[str, str], b: dict[str, str]) -> dict:
     matched, differs, new = {}, {}, []
     for name, rep in b.items():
-        old = name if name in a else _old_name(name) if _old_name(name) in a else None
+        old = name if name in a else next((o for o in _old_names(name) if o in a), None)
         if old is None:
             new.append(name)
             continue

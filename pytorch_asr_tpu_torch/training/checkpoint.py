@@ -26,9 +26,17 @@ _CKPT = re.compile(r"ckpt_(\d+)\.pt")
 
 
 def _meta(cfg: ExperimentConfig) -> dict[str, Any]:
-    return {"config_name": cfg.name, "config": dataclasses.asdict(cfg),
-            "vocab": "char_v1" if cfg.data.vocab == "char" else cfg.data.vocab,
-            "format_version": 1}
+    meta: dict[str, Any] = {"config_name": cfg.name, "config": dataclasses.asdict(cfg),
+                            "vocab": "char_v1" if cfg.data.vocab == "char" else cfg.data.vocab,
+                            "format_version": 1}
+    if cfg.data.vocab.startswith("bpe:"):
+        # The subword inventory rides in the meta, so the checkpoint stays
+        # whole if the vocab JSON moves.
+        from pytorch_asr_tpu_torch.data.tokenizer import get_tokenizer
+
+        tok = get_tokenizer(cfg.data.vocab)
+        meta["bpe"] = {"pieces": tok.pieces, "merges": [list(m) for m in tok.merges]}
+    return meta
 
 
 class CheckpointManager:

@@ -137,8 +137,12 @@ def test_bench_prefix_beam_runs_its_arms_on_the_cpu(capsys, argv, arms):
 
 
 def test_bench_prefix_beam_refuses_the_unported_hashed_arms():
-    with pytest.raises(NotImplementedError, match="lm_hashed"):
-        bench_prefix_beam.main(TINY + ["hashed=1"])
+    """The hashed arms are ported: ``hashed=1`` runs the hashed LM's arm
+    (and past V 256 its ``lm_top_k`` and ``ext_top_a`` arms); unknown keys
+    are refused."""
+    out = bench_prefix_beam.main(TINY + ["hashed=1", "lanes=0"])
+    assert list(out["arms"]) == ["plain scan", "dense LM", "hashed LM", "rnn LM",
+                                 "cand+merge+topk scan"]
     with pytest.raises(ValueError, match="unknown keys"):
         bench_prefix_beam.main(TINY + ["hashed=0", "use_fused=1"])
 

@@ -38,8 +38,8 @@ def test_tokenizer_matches_jax():
     np.testing.assert_array_equal(ours.encode(text), ref.encode(text))
     assert ours.decode(ours.encode(text)) == ref.decode(ref.encode(text))
     assert ours.vocab_size == ref.vocab_size == 31
-    with pytest.raises(NotImplementedError, match="char"):
-        get_tokenizer("bpe:vocab.json")
+    with pytest.raises(ValueError, match="bpe:<vocab.json>"):
+        get_tokenizer("wordpiece")
 
 
 @pytest.mark.parametrize("auto_buckets", [0, 6])

@@ -131,8 +131,11 @@ def test_decode_without_lm(arpa):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("decode.lm_backend", "hashed", NotImplementedError)])
+    ("data.librispeech_root", "/data", NotImplementedError)])
 def test_later_slices_raise(arpa, key, value, err):
+    """The LibriSpeech reader waits for its slice (ROADMAP.md queue 1, item
+    11); ``decode.lm_backend=hashed`` is ported
+    (tests/test_torch_prefix_beam_hashed.py)."""
     cfg = get_config("ctc_bilstm_beam_lm", **_overrides(arpa, **{key: value}))
     with pytest.raises(err):
         driver.decode_dataset(cfg, evaluate.build_model(cfg, "cpu"), max_batches=1)

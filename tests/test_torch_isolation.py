@@ -26,7 +26,8 @@ SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "parallel.mesh", "parallel.launch", "decoding.prefix_beam_sharded",
     "scripts.bench_prefix_beam", "scripts.bench_beam_compile", "scripts.bench_study_turns",
     "scripts.bench_kernel_turns", "decoding.streaming", "decoding.align", "align",
-    "scripts.ptxas_report")]
+    "scripts.ptxas_report", "data.bpe", "decoding.lm_hashed", "decoding.prefix_beam_ref",
+    "train_bpe")]
 
 _PROBE = """
 import importlib, json, pkgutil, sys

@@ -1992,3 +1992,123 @@ def test_carried_search_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="lm_carry.h"):
         beam_cuda.prefix_beam_rnn_carry(state, carry._replace(h=carry.h[:1]), logp, lens,
                                         kw["rnn_lm"], 0.5, 1.0)
+
+
+# ------------------------------------------------ the hashed n-gram LM (K7, K8, K10)
+
+HASHED_FORMS = {"K7": (0, 0), "K7_lm_top_k": (0, 24), "K8": (16, 0)}
+
+
+def _hashed_case(device, B: int = 4, T: int = 60, seed: int = 3):
+    """The synthetic BPE vocab's piece 4-gram as hashed tables on ``device``
+    and planted log-probs (B, T, 135): each row's transcript a piece every
+    other frame, blanks between; ragged lengths with an empty row."""
+    from pytorch_asr_tpu_torch.data.bpe import train_bpe
+    from pytorch_asr_tpu_torch.data.synthetic import synthetic_texts
+    from pytorch_asr_tpu_torch.decoding import lm as lm_mod
+    from pytorch_asr_tpu_torch.decoding.lm_hashed import build_hashed_lm
+
+    texts = synthetic_texts(512)
+    tok = train_bpe(texts, 256)
+    hash_lm = build_hashed_lm(lm_mod.train_char_ngram_kn(texts, 4, tokenizer=tok),
+                              tok.vocab_size, device)
+    g = np.random.default_rng(seed)
+    logits = g.standard_normal((B, T, tok.vocab_size)).astype(np.float32)
+    for b in range(B):
+        ids = tok.encode(texts[7 * b] + " " + texts[7 * b + 1])
+        for t in range(T):
+            logits[b, t, ids[t // 2] if t % 2 == 0 and t // 2 < len(ids) else 0] += 6.0
+    logp = torch.log_softmax(torch.from_numpy(logits), -1).to(device).contiguous()
+    lens = torch.tensor([T, T - 10, T // 2, 0][:B], dtype=torch.int32, device=device)
+    return hash_lm, logp, lens
+
+
+def _hashed_tops(logp, A: int, k: int):
+    tv, ti = prefix_beam.top_a(logp, A) if A else (None, None)
+    return tv, ti, (prefix_beam.top_a(logp, k)[1] if k else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("form", sorted(HASHED_FORMS))
+def test_hashed_search_matches_the_plain_search(cuda, monkeypatch, form, wide):
+    """K7 (over all pieces, and with lm_top_k's exact set) and K8 with the
+    hashed tables, in shared memory and (``fits`` forced off) in scratch:
+    the plain hashed search's tokens, lengths and scores bit for bit, one
+    launch each under its name."""
+    hash_lm, logp, lens = _hashed_case(cuda)
+    A, k = HASHED_FORMS[form]
+    tv, ti, ex = _hashed_tops(logp, A, k)
+    if wide:
+        monkeypatch.setattr(beam_cuda, "fits", lambda *a, **kw: False)
+    build.reset_launches()
+    got = beam_cuda.prefix_beam(logp, lens, 16, 40, None, 0.8, 1.0, tv, ti, hash_lm=hash_lm,
+                                exact_idx=ex)
+    torch.cuda.synchronize()
+    name = ("prefix_beam_topa" if A else "prefix_beam") + "_hashed" + ("_wide" if wide else "")
+    assert {n: c for n, c in build.LAUNCHES.items() if c} == {name: 1}
+    want = prefix_beam.beam_scan_plain(logp, lens, 16, 40, None, 0.8, 1.0, tv, ti,
+                                       hash_lm=hash_lm, exact_idx=ex)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[1][0]) > 5 and int(got[1][3]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(HASHED_FORMS))
+def test_hashed_carried_search_matches_the_plain_carried_search(cuda, form):
+    """The hashed carried form over three chunks from zero windows: after
+    each chunk the live beams' fields (windows included) are the plain
+    carried search's bit for bit, and the best beam the offline kernel's."""
+    hash_lm, logp, lens = _hashed_case(cuda)
+    A, k = HASHED_FORMS[form]
+    state = plain = prefix_beam.prefix_beam_init(4, 16, 40, cuda, ctx_width=3)
+    build.reset_launches()
+    for t0 in range(0, logp.shape[1], 20):
+        blk = logp[:, t0:t0 + 20].contiguous()
+        nv = torch.clamp(lens - t0, 0, 20).to(torch.int32)
+        tv, ti, ex = _hashed_tops(blk, A, k)
+        state, best = beam_cuda.prefix_beam_carry(state, blk, nv, None, 0.8, 1.0, tv, ti,
+                                                  hash_lm=hash_lm, exact_idx=ex)
+        plain, _ = prefix_beam.continue_plain(plain, blk, nv, None, 0.8, 1.0, tv, ti,
+                                              hash_lm=hash_lm, exact_idx=ex)
+        live = prefix_beam._lse(plain.pb, plain.pnb) > prefix_beam.NEG_INF / 2
+        for f in ("length", "pb", "pnb", "lm_s", "hash", "ctx", "last"):
+            assert torch.equal(getattr(state, f)[live], getattr(plain, f)[live]), f
+    name = ("prefix_beam_topa" if A else "prefix_beam") + "_hashed_carry"
+    assert {n: c for n, c in build.LAUNCHES.items() if c} == {name: 3}
+    tv, ti, ex = _hashed_tops(logp, A, k)
+    offline = beam_cuda.prefix_beam(logp, lens, 16, 40, None, 0.8, 1.0, tv, ti, hash_lm=hash_lm,
+                                    exact_idx=ex)
+    for a, b in zip(best, offline):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_merge_window_form_matches_the_plain_merge(cuda, monkeypatch, wide):
+    """K10 with (B, Ks, 3) and (B, Ks, V-1, 3) windows over twelve frames of
+    the hashed search: every pick, dead fillers included, and every field
+    (the windows' columns too) equal the plain merge's."""
+    hash_lm, logp, lens = _hashed_case(cuda)
+    if wide:
+        monkeypatch.setattr(beam_cuda, "merge_fits", lambda *a: False)
+    B, K, L, V = logp.shape[0], 16, 40, logp.shape[-1]
+    state = prefix_beam._init_state(B, K, L, cuda, 3)
+    build.reset_launches()
+    for t in range(12):
+        rows = prefix_beam.hashed_rows(hash_lm, state.ctx)
+        stay, ext = prefix_beam._build_candidates(state, logp[:, t], blank=0, vocab=V,
+                                                  lm_table=None, lm_rows=rows, lm_alpha=0.8,
+                                                  lm_beta=1.0, K=K, L=L)
+        stay = {n: v.contiguous() for n, v in stay.items()}
+        ext = {n: v.contiguous() for n, v in ext.items()}
+        score, got = beam_cuda.merge_topk(stay, ext, K)
+        want_score, want = prefix_beam._merge_topk(stay, ext, K)
+        assert torch.equal(score, want_score)
+        for n in got:
+            assert torch.equal(got[n], want[n].to(got[n].dtype)), n
+        assert got["ctx"].shape == (B, K, 3)
+        state = prefix_beam._finish_step(state, want, t < lens, L)
+    assert {n: c for n, c in build.LAUNCHES.items() if c} == {
+        "merge_topk_wide" if wide else "merge_topk": 12}

@@ -17,12 +17,12 @@ import torch
 import jax.numpy as jnp
 
 from pytorch_asr_tpu.decoding.prefix_beam import prefix_beam_search as jax_search
-from pytorch_asr_tpu.decoding.prefix_beam_ref import prefix_beam_search_ref
 from pytorch_asr_tpu.ops import runtime as jax_runtime
 from pytorch_asr_tpu.ops.beam_pallas import (prefix_beam_fused_lanes,
                                              prefix_beam_fused_lanes_topa)
 from pytorch_asr_tpu_torch.decoding import prefix_beam as pb
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
+from pytorch_asr_tpu_torch.decoding.prefix_beam_ref import prefix_beam_search_ref
 from pytorch_asr_tpu_torch.ops import beam_cuda, build
 
 # float32 log-space sums: XLA's and torch's exp/log1p round apart (a few
@@ -117,8 +117,9 @@ def test_plain_matches_jax_lane_kernels(interpret, A, ctx_pow):
 
 @pytest.mark.parametrize("seed", [2, 3])
 def test_plain_matches_host_oracle(seed):
-    """Tokens against the JAX package's slow-Python oracle (no sentinels, no
-    hashes: prefixes are tuples), one row at a time."""
+    """Tokens against the slow-Python oracle (the port's copy of the JAX
+    package's; no sentinels, no hashes: prefixes are tuples), one row at a
+    time."""
     logits, lens, _ = _case(seed)
     toks, n, _ = _port(logits, lens, None, beam_size=8, max_len=T + 1)
     logp = torch.log_softmax(torch.from_numpy(logits), -1).double().numpy()
@@ -231,13 +232,14 @@ def test_cpu_tensors_take_the_plain_search_without_launches():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    ({"hash_lm": object()}, NotImplementedError),
-    ({"rnn_lm": object(), "hash_lm": object(), "lm_top_k": 4}, NotImplementedError),
-    ({"hash_lm": object(), "lm_top_k": 4}, NotImplementedError), ({"blank": 3}, ValueError)])
+    ({"hash_lm": object()}, TypeError),
+    ({"rnn_lm": object(), "hash_lm": object(), "lm_top_k": 4}, ValueError),
+    ({"hash_lm": object(), "lm_top_k": 4}, TypeError), ({"blank": 3}, ValueError)])
 def test_sources_of_later_slices_raise(kwargs, err):
-    """The hashed backend, and ``lm_top_k`` over it, wait for a later slice,
-    with or without the RNN LM (``lm_top_k`` alone changes nothing:
-    tests/test_torch_prefix_beam_sharded.py)."""
+    """The hashed backend is ported (tests/test_torch_prefix_beam_hashed.py):
+    what is not a ``HashedNgramLM`` is refused, with or without ``lm_top_k``,
+    and so is a second fusion source beside it (``lm_top_k`` alone changes
+    nothing: tests/test_torch_prefix_beam_sharded.py)."""
     logits, lens, _ = _case(0)
     with pytest.raises(err):
         pb.prefix_beam_search(torch.from_numpy(logits), torch.from_numpy(lens), **kwargs)

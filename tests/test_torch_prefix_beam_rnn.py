@@ -213,8 +213,8 @@ def test_carry_init_primes_every_beam_with_sos():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    ({"lm_top_k": 4, "hash_lm": object()}, NotImplementedError),
-    ({"hash_lm": object()}, NotImplementedError),
+    ({"lm_top_k": 4, "hash_lm": object()}, ValueError),
+    ({"hash_lm": object()}, ValueError),
     ({"lm_table": torch.zeros(V, V)}, ValueError)])
 def test_what_the_rnn_lm_does_not_combine_with_raises(kwargs, err):
     model, _, _ = _lm(1)

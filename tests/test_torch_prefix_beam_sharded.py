@@ -215,10 +215,10 @@ def test_model_axis_1_delegates():
 
 
 @pytest.mark.parametrize("model,kwargs,err", [
-    (3, {}, ValueError), (2, {"hash_lm": object()}, NotImplementedError)])
+    (3, {}, ValueError), (2, {"hash_lm": object()}, TypeError)])
 def test_what_the_sharded_search_does_not_take_raises(model, kwargs, err):
-    """A beam that the model axis does not divide (8 over 3), and the hashed
-    LM, raise before any collective."""
+    """A beam that the model axis does not divide (8 over 3), and a hashed
+    LM that is not a ``HashedNgramLM``, raise before any collective."""
     logits, lens, _, _, _ = _inputs()
     mesh = pmesh.Mesh(data=1, model=model, data_index=0, model_index=0)
     with pytest.raises(err):

@@ -291,7 +291,7 @@ def test_streaming_beam_refusals(lms, models):
         StreamingRecognizer(model, cfg, 1, rnn_lm=lms[0], sos_id=SOS)
     with pytest.raises(ValueError, match="sos_id"):
         StreamingRecognizer(model, cfg, 1, mode="beam", rnn_lm=lms[0])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="HashedNgramLM"):
         StreamingRecognizer(model, cfg, 1, mode="beam", hash_lm=object())
     with pytest.raises(ValueError, match="one fusion source"):
         pb.prefix_beam_continue(pb.prefix_beam_init(1, K, 8), torch.zeros(1, 2, VOCAB),
@@ -340,6 +340,15 @@ def test_ptxas_report_matches_a_kernel_that_gained_a_carry_flag():
     out = ptxas_report.compare(a, b)
     assert out["matched"] == 1 and not out["differs"] and not out["gone"]
     assert out["new"] == [next(n for n in b if "<true, true>" in n)]
+    # A second flag, whose parameter type is another conditional: the
+    # earlier flag's conditional stays as the old name has it.
+    cond = "std::conditional<false, (anonymous namespace)::BeamCarry, long long*>::type"
+    a = {f"void k<true, false>(S, (anonymous namespace)::RnnLm, {cond})": "Used 64 registers"}
+    b = {f"void k<true, false, false>(S, std::conditional<false, (anonymous namespace)::HashLm, "
+         f"(anonymous namespace)::RnnLm>::type, {cond})": "Used 63 registers"}
+    out = ptxas_report.compare(a, b)
+    assert out["matched"] == 1 and not out["gone"] and not out["new"]
+    assert list(out["differs"].values()) == [{"a": "Used 64 registers", "b": "Used 63 registers"}]
 
 
 def test_bench_streaming_script_runs_on_the_cpu():

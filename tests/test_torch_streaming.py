@@ -271,12 +271,12 @@ def test_refusals(models):
     with pytest.raises(ValueError, match="multiple"):
         StreamingRecognizer(model, cfg, 1, block_frames=6)
     # Beam mode is ported (tests/test_torch_stream_beam.py); as in JAX, LM
-    # options in greedy mode are refused, a bare weight is not, and the
-    # hashed LM waits for its slice.
+    # options in greedy mode are refused, a bare weight is not, and beam
+    # mode takes only a ``HashedNgramLM`` as the hashed LM.
     with pytest.raises(ValueError, match="beam"):
         StreamingRecognizer(model, cfg, 1, lm_table=torch.zeros(2, VOCAB))
     assert StreamingRecognizer(model, cfg, 1, lm_alpha=0.5).mode == "greedy"
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="HashedNgramLM"):
         StreamingRecognizer(model, cfg, 1, mode="beam", hash_lm=object())
 
 

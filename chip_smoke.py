@@ -158,7 +158,24 @@ result line):
      for bit against the kernel over its blocks' logits; the tiny BPE model
      of the JAX package's end-to-end test trained and hashed-beam-decoded
      (WER <= greedy + 0.3); one profiled BPE decode batch;
-  16. check that no path launched the per-utterance oracle or took a wide
+  16. slice 23, the file-backed data path: a LibriSpeech-layout FLAC tree
+     (64 utterances of 10-16 s over train-clean-100/360 and train-other-500,
+     16 in dev-clean; two LPC files, a 24-bit and a stereo one; transcripts
+     upper case) written by the port's ``write_flac`` on a process pool;
+     every file's native decode (``native.py``) bit for bit the numpy
+     decoder's float32 of the encoded PCM, and the numpy decoder itself on
+     one file of each kind, each route's host time per audio second;
+     ``train.main`` of config 1 on ``train-960`` (20 steps, eval on
+     dev-clean every 10, the TensorBoard mirror held to the JSONL records
+     where tensorboard imports, else its refusal), every file on the native
+     route, with exact counts, its audio s/s beside the synthetic run's and
+     the stream's wait a step; the resume to step 30 from the step-20
+     checkpoint (its first batch the 21st of a fresh stream, by digest);
+     config 5's 4 steps on its own splits and header ladder; ``decode.main``
+     and ``align.main`` reading dev-clean; ``train.remat_encoder`` at
+     configs 1 and 3, on and off bit for bit (cuDNN deterministic), K3's
+     (K6's) training forward launched twice as often, peak memory of each;
+  17. check that no path launched the per-utterance oracle or took a wide
      route; print the kernels line, the card line, and ``{"ok": true, ...}``
      last.
 Whether it passes or fails, the script ends every process it started (the
@@ -171,8 +188,10 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import json
 import math
+import multiprocessing
 import os
 import re
 import signal
@@ -180,14 +199,17 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from multiprocessing import resource_tracker
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_asr_tpu_torch import align, decode, train, train_bpe, train_lm, train_ngram
+from pytorch_asr_tpu_torch import (align, decode, native, train, train_bpe, train_lm,
+                                   train_ngram)
 from pytorch_asr_tpu_torch.configs import get_config
 from pytorch_asr_tpu_torch.configs.base import (
     BiLSTMEncoderConfig,
@@ -200,7 +222,11 @@ from pytorch_asr_tpu_torch.configs.base import (
     OptimConfig,
     TrainConfig,
 )
-from pytorch_asr_tpu_torch.data import BucketedDataset, bpe, build_dataset, get_tokenizer
+from pytorch_asr_tpu_torch.data import (BucketedDataset, bpe, build_dataset,
+                                        build_eval_dataset, get_tokenizer)
+from pytorch_asr_tpu_torch.data import flac as flac_mod
+from pytorch_asr_tpu_torch.data import librispeech, synthetic
+from pytorch_asr_tpu_torch.data import stream as stream_mod
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus, synthetic_texts
 from pytorch_asr_tpu_torch.decoding import (
     attention_beam, ctc_prefix_scorer, driver, lm_hashed, prefix_beam, prefix_beam_sharded,
@@ -222,6 +248,8 @@ from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
 from pytorch_asr_tpu_torch.scripts import (_timing, bench_beam_compile, bench_kernel_turns,
                                            bench_prefix_beam, bench_streaming)
 from pytorch_asr_tpu_torch.training import state as train_state
+from pytorch_asr_tpu_torch.training.checkpoint import CheckpointManager
+from pytorch_asr_tpu_torch.training.metrics import MetricsLogger
 from pytorch_asr_tpu_torch.training.trainer import Trainer
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
@@ -5125,6 +5153,430 @@ def slice22_phases(arpa_char: str) -> tuple[list[dict], dict]:
     return rows, paths
 
 
+# ---------------------------------------------------------------- slice 23
+SLICE23_SPLITS = {"train-clean-100": 22, "train-clean-360": 21, "train-other-500": 21,
+                  "dev-clean": 16}          # 64 training utterances of 10-16 s, 16 to evaluate
+FLAC_STEPS, FLAC_EVAL_EVERY, FLAC_RESUME_TO = 20, 10, 30
+JOINT_FLAC_STEPS = 4
+SR = 16000
+ENCODE_PROCS = 8                             # processes writing the tree (write_flac is Python)
+TRAIN_PLAIN = [(stft_cuda, "stft_log_mel_plain"), (lstm_cuda, "lstm_seq_plain"),
+               (lstm_cuda, "lstm_seq_train_plain"), (lstm_cuda, "lstm_seq_bwd_plain"),
+               (ctc, "alphas_plain"), (ctc, "posteriors_plain")]
+
+
+def flac_options(split: str, i: int) -> dict:
+    """``write_flac`` keywords of file i: fixed order 2, except in
+    train-clean-100 two LPC files (orders 2 and 3), a 24-bit and a stereo one."""
+    if split != "train-clean-100" or i > 3:
+        return {}
+    return [{"subframe": "lpc", "order": 2, "lpc_coefs": [64, -32], "lpc_shift": 5},
+            {"subframe": "lpc", "order": 3, "lpc_coefs": [96, -96, 32], "lpc_shift": 5},
+            {"bps": 24}, {"stereo_mode": "mid_side"}][i]
+
+
+def numpy_decode(path: str) -> dict:
+    """One file through the numpy decoder (in a pool process): its samples
+    and host seconds."""
+    t0 = time.perf_counter()
+    audio, sr = flac_mod.read_flac(path)
+    return {"audio": audio, "sr": sr, "seconds": time.perf_counter() - t0}
+
+
+def flac_tree_phase(root: str) -> dict:
+    """The fixture: a LibriSpeech-layout FLAC tree written by the port's
+    ``write_flac`` on a process pool (every split at once).  Every file's
+    native decode equals, bit for bit, the numpy decoder's float32 of the
+    PCM that was encoded (``flac.pcm_to_float``: ``read_flac``'s own
+    scaling; FLAC is lossless); the numpy decoder itself runs on one file of
+    each kind (the LPC, 24-bit and stereo files and one fixed-order file a
+    split), every native decode of those equal to it.  Host seconds per
+    audio second: native one file at a time and in its batch form on the
+    stream's pool width, numpy in the pool."""
+    t0 = time.perf_counter()
+    check(native.available(), f"native decoder: {native.build_error()}")
+    build_s = time.perf_counter() - t0
+    corpora, want = {}, {}
+    for k, (split, n) in enumerate(SLICE23_SPLITS.items()):
+        corpus = synthetic_corpus(n, SR, seed=230 + k, min_sec=10, max_sec=16)
+        if split == "train-clean-100":
+            a, text = corpus[3]
+            corpus[3] = (np.stack([a, 0.5 * a], axis=1), text)           # stereo
+        corpora[split] = corpus
+        for i, (audio, _text) in enumerate(corpus):
+            bps = flac_options(split, i).get("bps", 16)
+            path = os.path.join(root, split, "1", "1", f"1-1-{i:04d}.flac")
+            want[path] = flac_mod.pcm_to_float(synthetic.flac_pcm(audio, bps), bps)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(ENCODE_PROCS, mp_context=ctx) as pool:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(corpora)) as writers:
+            list(writers.map(lambda item: synthetic.materialize_flac_tree(
+                item[1], root, item[0], SR, flac_kw=lambda i, s=item[0]: flac_options(s, i),
+                pool=pool), corpora.items()))
+        encode_s = time.perf_counter() - t0
+        kinds = [os.path.join(root, split, "1", "1", f"1-1-{i:04d}.flac")
+                 for split, idx in (("train-clean-100", range(5)), ("train-clean-360", [0]),
+                                    ("train-other-500", [0]), ("dev-clean", [0]))
+                 for i in idx]
+        t0 = time.perf_counter()
+        by_numpy = dict(zip(kinds, pool.map(numpy_decode, kinds)))
+        numpy_wall = time.perf_counter() - t0
+    paths = [u.audio_path for s in SLICE23_SPLITS for u in librispeech.scan_manifest(root, s)]
+    check(sorted(paths) == sorted(want), f"tree holds {len(paths)} files")
+    t0 = time.perf_counter()
+    got = {p: native.read_flac(p) for p in paths}
+    native_serial = time.perf_counter() - t0
+    bad = [p for p in paths if got[p][1] != SR or got[p][0].dtype != np.float32
+           or not np.array_equal(got[p][0], want[p])]
+    bad += [p for p, r in by_numpy.items() if not np.array_equal(got[p][0], r["audio"])]
+    check(not bad, f"native FLAC decode differs from numpy's: {bad}")
+    audio_s = sum(len(w) for w in want.values()) / SR
+    width = stream_mod.decode_pool_width(0)
+    t0 = time.perf_counter()
+    _audio, lens, _rates = native.read_flac_batch(paths, max_seconds=20.0, n_threads=width)
+    native_batch = time.perf_counter() - t0
+    check([int(n) for n in lens] == [len(want[p]) for p in paths], "batch decode lengths")
+    with open(os.path.join(root, "train-clean-100", "1", "1", "1-1.trans.txt")) as fh:
+        first = fh.readline()
+    check(first.split(" ", 1)[1].strip().isupper(), f"transcripts upper case: {first!r}")
+    numpy_audio_s = sum(len(r["audio"]) for r in by_numpy.values()) / SR
+    return {"files": len(paths), "audio_s": audio_s, "encode_s": encode_s,
+            "encode_procs": ENCODE_PROCS, "build_s": build_s,
+            "numpy_files": len(kinds), "numpy_pool_wall_s": numpy_wall,
+            "python_s_per_audio_s": sum(r["seconds"] for r in by_numpy.values()) / numpy_audio_s,
+            "native_s_per_audio_s": native_serial / audio_s,
+            "native_batch_s_per_audio_s": native_batch / audio_s,
+            "decode_pool_width": width, "cpu_count": os.cpu_count()}
+
+
+def batch_digest(batch: dict) -> str:
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def corpus_reads():
+    """Record the audio path of every ``LazyCorpus`` access (any thread)."""
+    reads, lock = [], threading.Lock()
+    real = librispeech.LazyCorpus.__getitem__
+
+    def recording(self, idx):
+        with lock:
+            reads.append(self.utts[int(idx)].audio_path)
+        return real(self, idx)
+
+    librispeech.LazyCorpus.__getitem__ = recording
+    try:
+        yield reads
+    finally:
+        librispeech.LazyCorpus.__getitem__ = real
+
+
+@contextlib.contextmanager
+def first_batches():
+    """Record the digest of the first batch each ``BatchStream`` delivers."""
+    firsts = []
+    real = stream_mod.BatchStream.__next__
+
+    def recording(self):
+        batch = real(self)
+        if not getattr(self, "_smoke_seen", False):
+            self._smoke_seen = True
+            firsts.append(batch_digest(batch))
+        return batch
+
+    stream_mod.BatchStream.__next__ = recording
+    try:
+        yield firsts
+    finally:
+        stream_mod.BatchStream.__next__ = real
+
+
+def counted_run(fn, argv: list[str]) -> dict:
+    """``fn(argv)`` with the kernel and decode counters set to 0 just before
+    and read just after, every corpus read recorded, no plain version called."""
+    with corpus_reads() as reads, plain_calls_of(*TRAIN_PLAIN) as plain_calls:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        native.reset_decodes()
+        t0 = time.perf_counter()
+        result = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        decodes = dict(native.DECODES)
+    check(not plain_calls, f"{argv[0]}: a plain version ran: {plain_calls}")
+    check(decodes["audio_decode_python"] == 0 and decodes["audio_decode_native"] == len(reads) > 0,
+          f"{argv[0]}: decodes by route {decodes}, corpus reads {len(reads)}")
+    return {"result": result, "wall_s": wall, "launches": launches, "decodes": decodes,
+            "reads": list(reads)}
+
+
+def split_reads(reads: list[str], split: str) -> list[str]:
+    return [p for p in reads if f"{os.sep}{split}{os.sep}" in p]
+
+
+def tb_events(log_dir: str) -> set:
+    """(tag, step, float32 value) of every simple-value scalar under ``log_dir``."""
+    from tensorboard.backend.event_processing import event_accumulator
+
+    acc = event_accumulator.EventAccumulator(log_dir, size_guidance={"scalars": 0})
+    acc.Reload()
+    return {(tag, e.step, float(np.float32(e.value)))
+            for tag in acc.Tags()["scalars"] for e in acc.Scalars(tag)}
+
+
+def tb_want(records: list[dict]) -> set:
+    """The JAX logger's mirror of JSONL records: numbers only, never
+    ``step``; a record with no step one past the largest so far."""
+    out, nxt = set(), 0
+    for rec in records:
+        fields = {k: v for k, v in rec.items() if k not in ("event", "ts")}
+        step = int(fields.get("step", nxt))
+        nxt = max(nxt, step) + 1
+        out |= {(f"{rec['event']}/{k}", step, float(np.float32(float(v))))
+                for k, v in fields.items() if isinstance(v, (int, float)) and k != "step"}
+    return out
+
+
+def flac_train_phase(root: str, tmp: str, synthetic_record: dict) -> dict:
+    """Config 1 trained from the tree: ``train.main`` at full width in bf16 on
+    train-960, eval on dev-clean every 10 steps, 20 steps, with the
+    TensorBoard mirror where tensorboard imports; then resumed to step 30
+    from the step-20 checkpoint (the restored stream's first batch is the
+    21st of a fresh stream)."""
+    dev = librispeech.scan_manifest(root, "dev-clean")
+    dev_audio_s = sum(librispeech.audio_info(u.audio_path)[0] for u in dev) / SR
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        from tensorboard.backend.event_processing import event_accumulator  # noqa: F401
+        tb_dir = os.path.join(tmp, "tb")
+    except ImportError as e:
+        tb_dir, tb_error = None, str(e)
+    ckpt, metrics = os.path.join(tmp, "ckpt"), os.path.join(tmp, "metrics.jsonl")
+    argv = ["ctc_bilstm_dev1h", f"data.librispeech_root={root}", "data.split=train-960",
+            "data.eval_split=dev-clean", "data.auto_buckets=1", f"steps={FLAC_STEPS}",
+            f"train.eval_every={FLAC_EVAL_EVERY}", f"train.log_every={FLAC_EVAL_EVERY}",
+            f"train.checkpoint_dir={ckpt}", f"metrics_path={metrics}"]
+    run = counted_run(train.main, argv + ([f"tb_dir={tb_dir}"] if tb_dir else []))
+    last, ev = run["result"]["train"], run["result"]["eval"]
+    evals = FLAC_STEPS // FLAC_EVAL_EVERY
+    eval_batches = evals * math.ceil(len(dev) / B)
+    want = {"stft_log_mel": FLAC_STEPS + eval_batches, "lstm_seq": 2 * LAYERS * eval_batches,
+            "lstm_seq_train_fwd": 2 * LAYERS * FLAC_STEPS, "lstm_seq_bwd": 2 * LAYERS * FLAC_STEPS,
+            "ctc_alpha": FLAC_STEPS, "ctc_beta": FLAC_STEPS}
+    check(run["launches"] == want, f"flac train launches {run['launches']} != {want}")
+    check(last.get("step") == FLAC_STEPS and math.isfinite(last["ctc_loss"]),
+          f"flac train: bad record {last}")
+    dev_reads = split_reads(run["reads"], "dev-clean")
+    per_eval_s = sum(librispeech.audio_info(p)[0] for p in dev_reads) / SR / evals
+    check(ev.get("num_utts") == len(dev) and sorted(dev_reads)
+          == sorted(u.audio_path for u in dev for _ in range(evals))
+          and abs(per_eval_s - dev_audio_s) < 1e-9,
+          f"flac eval: {ev}, {len(dev_reads)} dev-clean reads, {per_eval_s} s")
+    train_reads = len(run["reads"]) - len(dev_reads)
+    check(train_reads >= FLAC_STEPS * B, f"flac train decoded {train_reads} training files")
+    with open(metrics) as fh:
+        records = [json.loads(line) for line in fh]
+    out = {"record": last, "eval": ev, "wall_s": run["wall_s"], "launches": run["launches"],
+           "decodes": run["decodes"], "train_files_decoded": train_reads,
+           "dev_clean_utts": len(dev), "dev_clean_audio_s": dev_audio_s,
+           "eval_audio_s_each": per_eval_s,
+           "stream_wait_s_per_step": last["stream_wait_s"] / FLAC_EVAL_EVERY,
+           "synthetic_audio_seconds_per_sec_per_chip":
+               synthetic_record["audio_seconds_per_sec_per_chip"]}
+    if tb_dir:
+        got, want_tb = tb_events(tb_dir), tb_want(records)
+        check(got == want_tb and len(got) > 0,
+              f"tensorboard events differ from the JSONL records: {got ^ want_tb}")
+        out["tensorboard"] = {"imports": True, "scalars": len(got)}
+    else:
+        try:
+            MetricsLogger(tensorboard_dir=os.path.join(tmp, "tb_refused"))
+            check(False, "tb_dir was not refused without tensorboard")
+        except ImportError as e:
+            check("'tensorboard' package" in str(e), f"tb_dir refusal: {e}")
+            out["tensorboard"] = {"imports": False, "import_error": tb_error,
+                                  "refusal": str(e)}
+    # Resume: the checkpoint's stream position against a fresh stream.
+    cfg = train.parse_args(argv)[0]
+    state = CheckpointManager(cfg, ckpt).restore_iterator_state()
+    ds = build_dataset(cfg.data, SR)
+    fresh = stream_mod.BatchStream(ds, cfg.data.shuffle_seed, cfg.data.sortagrad)
+    want_digest = [batch_digest(next(fresh)) for _ in range(FLAC_STEPS + 1)][-1]
+    restored = stream_mod.BatchStream(ds, cfg.data.shuffle_seed, cfg.data.sortagrad, state)
+    check(batch_digest(next(restored)) == want_digest,
+          f"restored stream at {state}: its next batch is not a fresh stream's 21st")
+    with first_batches() as firsts:
+        resumed = counted_run(train.main, [*argv, f"steps={FLAC_RESUME_TO}"])
+    check(firsts[:1] == [want_digest], f"the resumed run's first batch {firsts} != {want_digest}")
+    steps = FLAC_RESUME_TO - FLAC_STEPS
+    rwant = {"stft_log_mel": steps + eval_batches // evals,
+             "lstm_seq": 2 * LAYERS * eval_batches // evals,
+             "lstm_seq_train_fwd": 2 * LAYERS * steps, "lstm_seq_bwd": 2 * LAYERS * steps,
+             "ctc_alpha": steps, "ctc_beta": steps}
+    check(resumed["launches"] == rwant, f"resumed launches {resumed['launches']} != {rwant}")
+    check(resumed["result"]["train"].get("step") == FLAC_RESUME_TO, f"resume: {resumed['result']}")
+    out["resume"] = {"iterator_state": state, "first_batch_digest": want_digest,
+                     "record": resumed["result"]["train"], "launches": resumed["launches"],
+                     "decodes": resumed["decodes"]}
+    return out
+
+
+def flac_joint_phase(root: str, tmp: str) -> dict:
+    """Config 5 on the tree: its own splits (train-960, eval on dev-clean),
+    its 6-bucket ladder from the headers, 4 steps of ``train.main``."""
+    argv = ["joint_ctc_attention_960h", f"data.librispeech_root={root}",
+            f"steps={JOINT_FLAC_STEPS}", f"train.log_every={JOINT_FLAC_STEPS}",
+            f"train.checkpoint_dir={os.path.join(tmp, 'joint')}"]
+    cfg = train.parse_args(argv)[0]
+    check(cfg.data.split == "train-960" and cfg.data.eval_split == "dev-clean"
+          and cfg.data.auto_buckets == 6, f"config 5 data: {cfg.data}")
+    native.reset_decodes()
+    ladder = build_dataset(cfg.data, SR).buckets
+    eval_batches = len(build_eval_dataset(cfg.data, SR).epoch_plan(0))
+    check(sum(native.DECODES.values()) == 0, "the ladder from headers decoded audio")
+    run = counted_run(train.main, argv)
+    layers = cfg.model.encoder.num_layers
+    want = {"stft_log_mel": JOINT_FLAC_STEPS + eval_batches, "lstm_seq": 2 * layers * eval_batches,
+            "lstm_seq_train_fwd": 2 * layers * JOINT_FLAC_STEPS,
+            "lstm_seq_bwd": 2 * layers * JOINT_FLAC_STEPS,
+            "ctc_alpha": JOINT_FLAC_STEPS, "ctc_beta": JOINT_FLAC_STEPS}
+    check(run["launches"] == want, f"config 5 flac launches {run['launches']} != {want}")
+    last, ev = run["result"]["train"], run["result"]["eval"]
+    check(last.get("step") == JOINT_FLAC_STEPS and math.isfinite(last["ce_loss"])
+          and math.isfinite(last["ctc_loss"]), f"config 5 flac: bad record {last}")
+    check(ev.get("num_utts") == SLICE23_SPLITS["dev-clean"], f"config 5 flac eval: {ev}")
+    return {"record": last, "eval": ev, "wall_s": run["wall_s"], "launches": run["launches"],
+            "decodes": run["decodes"], "eval_batches": eval_batches,
+            "ladder": [[b.audio_len, b.label_len] for b in ladder]}
+
+
+def flac_serve_phase(root: str, tmp: str) -> dict:
+    """``decode.main`` and ``align.main`` of config 1 with the tree and
+    ``data.eval_split=dev-clean``, from the trained checkpoint: both read
+    dev-clean's utterances, each once, natively."""
+    dev = sorted(u.audio_path for u in librispeech.scan_manifest(root, "dev-clean"))
+    argv = ["ctc_bilstm_dev1h", f"data.librispeech_root={root}", "data.eval_split=dev-clean",
+            f"train.checkpoint_dir={os.path.join(tmp, 'ckpt')}"]
+    batches = len(build_eval_dataset(train.parse_args(argv)[0].data, SR).epoch_plan(0))
+    out = {}
+    for name, fn, extra in (("decode", decode.main, []),
+                            ("align", align.main, [f"dump_path={os.path.join(tmp, 'segs.tsv')}"])):
+        run = counted_run(fn, argv + extra)
+        res = run["result"]
+        want = {"stft_log_mel": batches, "lstm_seq": 2 * LAYERS * batches}
+        check(run["launches"] == want, f"flac {name} launches {run['launches']} != {want}")
+        check(sorted(run["reads"]) == dev, f"flac {name} read {len(run['reads'])} files")
+        check(res.get("num_utts", res.get("utts")) == len(dev), f"flac {name}: {res}")
+        out[name] = {"result": res, "wall_s": run["wall_s"], "launches": run["launches"],
+                     "decodes": run["decodes"], "batches": batches}
+    check(out["decode"]["result"].get("step") == FLAC_RESUME_TO,
+          f"flac decode restored {out['decode']['result']}")
+    return out
+
+
+def remat_phase(config: str, counted: str, per_step: int) -> dict:
+    """One float32 train step at full width, dropout 0.1, one batch of 8
+    utterances of 14-16 s, with ``train.remat_encoder`` off and on, cuDNN
+    deterministic in both arms: the same loss, gradients, parameters after
+    the update and generator state, bit for bit; ``counted`` (the encoder
+    unit's training forward) launched ``per_step`` times off and twice that
+    on; the peak memory of each arm."""
+    over = {"model.compute_dtype": "float32", "model.encoder.dropout": "0.1",
+            "data.synthetic_num_utts": str(B), "data.batch_size": str(B),
+            "data.auto_buckets": "1", "data.synthetic_min_sec": "14",
+            "data.synthetic_max_sec": "16"}
+    cfg0 = get_config(config, **over)
+    batch = next(build_dataset(cfg0.data, SR).epoch_batches(seed=0))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    arms = {}
+    try:
+        for remat in (False, True):
+            cfg = get_config(config, **{**over, "train.remat_encoder": str(remat).lower()})
+            model = train_state.build_model(cfg, CARD)
+            st = train_state.init_train_state(cfg, model)
+            dev_batch = train_state.batch_to_device(batch, CARD)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            build.reset_launches()
+            aux = train_state.train_step(cfg, st, dev_batch)
+            torch.cuda.synchronize()
+            arms[remat] = {"loss": aux["loss"].cpu(), "peak": torch.cuda.max_memory_allocated(),
+                           "base": base, "launches": {k: v for k, v in build.LAUNCHES.items() if v},
+                           "grads": {k: p.grad.cpu() for k, p in model.named_parameters()
+                                     if p.grad is not None},
+                           "params": {k: v.cpu() for k, v in model.state_dict().items()},
+                           "generator": st.generator.get_state()}
+            del model, st, dev_batch, aux
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    off, on = arms[False], arms[True]
+    check(off["launches"].get(counted) == per_step and on["launches"].get(counted) == 2 * per_step,
+          f"{config} remat: {counted} off {off['launches']} on {on['launches']}")
+    check(torch.equal(off["loss"], on["loss"]) and math.isfinite(float(off["loss"])),
+          f"{config} remat loss {float(on['loss'])} vs {float(off['loss'])}")
+    differ = [k for k, g in off["grads"].items() if not torch.equal(on["grads"].get(k), g)]
+    differ += [k for k, v in off["params"].items() if not torch.equal(on["params"][k], v)]
+    check(off["grads"].keys() == on["grads"].keys() and not differ,
+          f"{config} remat: gradients or parameters differ: {differ}")
+    check(torch.equal(off["generator"], on["generator"]), f"{config} remat: generator state")
+    return {"loss": float(off["loss"]), "bit_equal": True, "cudnn_deterministic": True,
+            f"{counted}_off": off["launches"][counted], f"{counted}_on": on["launches"][counted],
+            "launches_off": off["launches"], "launches_on": on["launches"],
+            "max_memory_allocated_off": off["peak"], "max_memory_allocated_on": on["peak"],
+            "step_memory_off": off["peak"] - off["base"], "step_memory_on": on["peak"] - on["base"],
+            "audio_len": batch["audio_len"].tolist()}
+
+
+def slice23_phases(synthetic_record: dict) -> dict:
+    """Slice 23's paths: the FLAC tree and both decoders, config 1 trained
+    from it (with the eval on dev-clean, the TensorBoard mirror and the
+    resume), config 5's 4 steps, the decode and align CLIs on dev-clean, and
+    remat at configs 1 and 3.  -> {path: launches}."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "LibriSpeech")
+        tree = flac_tree_phase(root)
+        print("flac_tree:", json.dumps(tree))
+        print(f"flac_tree: {tree['files']} files, {tree['audio_s']:.1f} audio s, written in "
+              f"{tree['encode_s']:.1f} s on {ENCODE_PROCS} processes; host s per audio s: "
+              f"native {tree['native_s_per_audio_s']:.6f} (batch form on {tree['decode_pool_width']}"
+              f" threads {tree['native_batch_s_per_audio_s']:.6f}), numpy "
+              f"{tree['python_s_per_audio_s']:.4f} ({tree['numpy_files']} files in the pool); "
+              f"decode pool width {tree['decode_pool_width']}")
+        trn = flac_train_phase(root, tmp, synthetic_record)
+        print("flac_train:", json.dumps(trn))
+        print(f"flac_train: audio_seconds_per_sec_per_chip "
+              f"{trn['record']['audio_seconds_per_sec_per_chip']:.2f} (in-memory synthetic "
+              f"{trn['synthetic_audio_seconds_per_sec_per_chip']:.2f} in this run), stream wait "
+              f"{trn['stream_wait_s_per_step'] * 1e3:.3f} ms a step, decodes {trn['decodes']}, "
+              f"tensorboard {trn['tensorboard']}")
+        joint = flac_joint_phase(root, tmp)
+        print("flac_joint_train:", json.dumps(joint))
+        serve = flac_serve_phase(root, tmp)
+        print("flac_serve:", json.dumps(serve))
+    remat = {"bilstm": remat_phase("ctc_bilstm_dev1h", "lstm_seq_train_fwd", 2 * LAYERS),
+             "tcn": remat_phase(CFG3, "tcn_block_train_fwd", TCN_BLOCKS)}
+    print("remat:", json.dumps(remat))
+    for name, r in remat.items():
+        print(f"remat {name}: bit_equal {r['bit_equal']}, max_memory_allocated "
+              f"{r['max_memory_allocated_off'] / 2**20:.1f} MiB off, "
+              f"{r['max_memory_allocated_on'] / 2**20:.1f} MiB on")
+    print(f"slice23: {time.perf_counter() - t0:.1f} s")
+    return {"flac_train": trn["launches"], "flac_resume": trn["resume"]["launches"],
+            "flac_joint_train": joint["launches"], "flac_decode": serve["decode"]["launches"],
+            "flac_align": serve["align"]["launches"], "remat_bilstm": remat["bilstm"]["launches_on"],
+            "remat_tcn": remat["tcn"]["launches_on"]}
+
+
 def main() -> int:
     card = card_line()
     print(f"card: {card}")
@@ -5211,6 +5663,7 @@ def main() -> int:
     kernels += slice21_rows
     slice22_rows, slice22_paths = slice22_phases(arpa)
     kernels += slice22_rows
+    slice23_paths = slice23_phases(trn["record"])
     t0 = time.perf_counter()
     las = las_phases()
     print(f"las: {time.perf_counter() - t0:.1f} s")
@@ -5262,7 +5715,8 @@ def main() -> int:
              **{p: scripts[p]["launches"] for p in ("bench_prefix_beam", "bench_beam_compile")},
              **{p: las[p]["launches"] for p in ("las_decode", "joint_decode", "las_train",
                                                 "joint_train")},
-             **wide_paths, **slice20_paths, **slice21_paths, **slice22_paths}
+             **wide_paths, **slice20_paths, **slice21_paths, **slice22_paths,
+             **slice23_paths}
     wide_paths["wide_stream"] = slice20_paths["wide_stream"]
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",

@@ -13,9 +13,10 @@ the encoder's subsampling (the BiLSTM's time strides, the TCN's
 ``subsample``).  ``k=v`` overrides read as in ``python -m
 pytorch_asr_tpu_torch.train``; the weights are the newest checkpoint in
 ``train.checkpoint_dir`` (its EMA copy when kept), else drawn from
-``train.seed``.  The utterances are the trainer's dataset: the port reads no
-separate eval split yet (ROADMAP.md queue 1, item 11), where the JAX CLI
-reads ``data.eval_split``.  ``max_batches`` stops after that many batches.
+``train.seed``.  The utterances are the trainer's eval dataset, as the JAX
+CLI's: ``data.eval_split`` of a LibriSpeech tree (``data.librispeech_root``)
+when it is set and differs from ``data.split``, else the training data.
+``max_batches`` stops after that many batches.
 Runs on the GPU unless ``device=cpu``: the encoder and head go through K1 and
 K2 (K5 for the TCN), the Viterbi pass through torch.  Returns {"segments",
 "utts", "frame_sec"}.
@@ -43,7 +44,7 @@ def main(argv: list[str] | None = None) -> dict:
     from pytorch_asr_tpu_torch.training.trainer import Trainer
 
     trainer = Trainer(cfg, **runtime)
-    model, tok = eval_params(trainer.state), trainer.dataset.tokenizer
+    model, tok = eval_params(trainer.state), trainer.eval_dataset.tokenizer
 
     # seconds per encoder frame = hop * (input frames / encoder frames)
     hop_sec = cfg.frontend.hop_length / cfg.frontend.sample_rate
@@ -60,7 +61,7 @@ def main(argv: list[str] | None = None) -> dict:
     utt = 0
     try:
         with torch.inference_mode():
-            for i, host_batch in enumerate(trainer.dataset.epoch_batches(seed=0)):
+            for i, host_batch in enumerate(trainer.eval_dataset.epoch_batches(seed=0)):
                 if max_batches is not None and i >= max_batches:
                     break
                 out = model_outputs(model, host_batch)

@@ -56,11 +56,18 @@ def _emit(examples: list[tuple[np.ndarray, np.ndarray]], bucket: Bucket,
 
 
 class BucketedDataset:
-    """Tokenizes, buckets and batches an in-memory corpus of (audio, transcript) pairs.
+    """Tokenizes, buckets and batches a corpus of (audio, transcript) pairs.
 
     ``epoch_batches(seed)`` reshuffles per epoch; iteration order interleaves
     buckets deterministically given the seed, and every utterance appears
     exactly once per epoch (final partial batches are zero-padded rows).
+
+    RAM stays bounded for lazy corpora (``data/librispeech.py::LazyCorpus``):
+    construction reads header lengths and transcripts only, and audio decodes
+    one batch at a time during iteration (``epoch_plan`` orders the batches
+    without decoding; ``emit`` decodes one of them).  An utterance longer
+    than the largest bucket is dropped (counted in ``num_dropped``), or with
+    ``drop_too_long=False`` raises.
     """
 
     def __init__(
@@ -70,7 +77,10 @@ class BucketedDataset:
         bucket_audio_lens: Sequence[int],
         bucket_label_lens: Sequence[int],
         tokenizer: CharTokenizer | None = None,
+        drop_too_long: bool = True,
     ) -> None:
+        from pytorch_asr_tpu_torch.data import corpus_audio_lengths, corpus_transcripts
+
         self.tokenizer = tokenizer or CharTokenizer()
         self.batch_size = batch_size
         self.buckets = make_buckets(bucket_audio_lens, bucket_label_lens)
@@ -80,13 +90,19 @@ class BucketedDataset:
             [] for _ in self.buckets
         ]
         self.num_dropped = 0
-        for i, (audio, text) in enumerate(corpus):
+        audio_lens = corpus_audio_lengths(corpus)
+        texts = corpus_transcripts(corpus)
+        for i, (alen, text) in enumerate(zip(audio_lens, texts)):
             toks = self.tokenizer.encode(text)
-            bi = assign_bucket(self.buckets, len(audio), len(toks))
+            bi = assign_bucket(self.buckets, int(alen), len(toks))
             if bi is None:
-                self.num_dropped += 1
-                continue
-            self.per_bucket[bi].append((i, len(audio), toks))
+                if drop_too_long:
+                    self.num_dropped += 1
+                    continue
+                raise ValueError(
+                    f"utterance of {alen} samples / {len(toks)} labels "
+                    f"exceeds the largest bucket {self.buckets[-1]}")
+            self.per_bucket[bi].append((i, int(alen), toks))
         self.num_examples = sum(len(b) for b in self.per_bucket)
         if self.num_examples == 0 and len(corpus) > 0:
             raise ValueError(
@@ -95,11 +111,13 @@ class BucketedDataset:
                 f"(audio samples x label chars); raise bucket_audio_lens / "
                 f"bucket_label_lens")
 
-    def epoch_batches(self, seed: int = 0,
-                      sort_by_length: bool = False) -> Iterator[dict[str, np.ndarray]]:
-        """One epoch of batches.  ``sort_by_length`` yields the SortaGrad
-        ordering (ascending audio length, no shuffle: Deep Speech 2's
-        first-epoch curriculum)."""
+    def epoch_plan(self, seed: int = 0, sort_by_length: bool = False
+                   ) -> list[tuple[int, list[tuple[int, int, np.ndarray]]]]:
+        """One epoch's batches as (bucket, [(corpus index, samples, tokens)]),
+        in order, with no audio decoded.  ``sort_by_length`` gives the
+        SortaGrad ordering (ascending audio length, no shuffle: Deep Speech
+        2's first-epoch curriculum).  Every epoch has the same number of
+        batches."""
         rng = np.random.default_rng(seed)
         pending: list[tuple[int, list[tuple[int, int, np.ndarray]]]] = []
         for bi, examples in enumerate(self.per_bucket):
@@ -115,10 +133,24 @@ class BucketedDataset:
             pending.sort(key=lambda bc: max(alen for _, alen, _ in bc[1]))
         else:
             rng.shuffle(pending)  # interleave buckets
-        for bi, chunk in pending:
-            examples = [(np.asarray(self._corpus[i][0], np.float32), toks)
-                        for i, _alen, toks in chunk]
-            yield _emit(examples, self.buckets[bi], self.batch_size)
+        return pending
+
+    def emit(self, bi: int, chunk: list[tuple[int, int, np.ndarray]],
+             decode_map=map) -> dict[str, np.ndarray]:
+        """The batch of one ``epoch_plan`` entry; its audio is read (decoded,
+        for a lazy corpus) through ``decode_map(fn, indices)``, e.g. a thread
+        pool's ``map``."""
+        audios = decode_map(lambda i: np.asarray(self._corpus[i][0], np.float32),
+                            [i for i, _alen, _toks in chunk])
+        examples = [(a, toks) for a, (_i, _alen, toks) in zip(audios, chunk)]
+        return _emit(examples, self.buckets[bi], self.batch_size)
+
+    def epoch_batches(self, seed: int = 0,
+                      sort_by_length: bool = False) -> Iterator[dict[str, np.ndarray]]:
+        """One epoch of batches (``epoch_plan``'s order), decoded one batch
+        at a time."""
+        for bi, chunk in self.epoch_plan(seed, sort_by_length):
+            yield self.emit(bi, chunk)
 
     def repeat_batches(self, seed: int = 0, sortagrad: bool = False
                        ) -> Iterator[dict[str, np.ndarray]]:

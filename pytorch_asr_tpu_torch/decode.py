@@ -17,7 +17,10 @@ shallow fusion when ``decode.lm_path=<file.arpa>``, e.g. one written by
 pytorch_asr_tpu_torch.train_lm`` or the JAX package's CLI.
 ``dump_path`` writes ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` for
 ``python -m pytorch_asr_tpu_torch.eval_wer`` (beam methods).  Prints the
-result dict, with the run's ``world_size`` and ``dist_backend``.
+result dict, with the run's ``world_size`` and ``dist_backend``.  The
+utterances are those the JAX CLI decodes: ``data.eval_split`` of a
+LibriSpeech tree (``data.librispeech_root``) when it is set and differs from
+``data.split``, else ``data.split`` (or the synthetic corpus).
 
 Over several ranks, one process each, started by torchrun:
 

@@ -20,7 +20,7 @@ import torch
 from pytorch_asr_tpu_torch.configs.base import ExperimentConfig
 from pytorch_asr_tpu_torch.data import (
     BucketedDataset,
-    build_dataset,
+    build_eval_dataset,
     corpus_audio_lengths,
     corpus_transcripts,
     get_tokenizer,
@@ -145,7 +145,8 @@ def decode_ladder(cfg: ExperimentConfig, dataset: BucketedDataset):
 def decode_dataset(cfg: ExperimentConfig, model: ASRModel,
                    dataset: BucketedDataset | None = None, max_batches: int | None = None,
                    dump_path: str | None = None, step: int | None = None) -> dict:
-    """Decode ``dataset`` (by default the synthetic corpus of ``cfg.data``)
+    """Decode ``dataset`` (by default the eval split of ``cfg.data``:
+    ``data.eval_data_config``)
     with ``cfg.decode.method`` on the decode ladder; returns method, wer,
     cer, num_utts, decode_rtf, ``step`` when given, and
     padding_efficiency_decode when the ladder is on.  ``dump_path`` writes
@@ -153,7 +154,7 @@ def decode_dataset(cfg: ExperimentConfig, model: ASRModel,
     over several ranks each model-index-0 rank writes its own rows to
     ``<prefix>.p<rank>.{ref,hyp}.tsv``."""
     device = model.ctc_head.weight.device
-    dataset = dataset or build_dataset(cfg.data, cfg.frontend.sample_rate)
+    dataset = dataset or build_eval_dataset(cfg.data, cfg.frontend.sample_rate)
     eval_ds, pad_eff = decode_ladder(cfg, dataset)
     mesh = make_mesh(cfg.mesh, batch_size=eval_ds.batch_size)
     decode_fn = make_decode_fn(cfg, model, load_lm(cfg, device, dataset.tokenizer), mesh)

@@ -11,7 +11,7 @@ from typing import Mapping
 import torch
 
 from pytorch_asr_tpu_torch.configs.base import ExperimentConfig
-from pytorch_asr_tpu_torch.data import BucketedDataset, build_dataset, get_tokenizer
+from pytorch_asr_tpu_torch.data import BucketedDataset, build_eval_dataset, get_tokenizer
 from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
@@ -51,8 +51,8 @@ def eval_step(model: ASRModel, batch: dict) -> tuple[torch.Tensor, torch.Tensor]
 def evaluate(cfg: ExperimentConfig, model: ASRModel, max_batches: int | None = None,
              dataset: BucketedDataset | None = None) -> dict:
     """Greedy-decode WER/CER and decode RTF over ``dataset`` (by default the
-    synthetic corpus of ``cfg.data``)."""
-    dataset = dataset or build_dataset(cfg.data, cfg.frontend.sample_rate)
+    eval split of ``cfg.data``: ``data.eval_data_config``)."""
+    dataset = dataset or build_eval_dataset(cfg.data, cfg.frontend.sample_rate)
     mesh = make_mesh(cfg.mesh, batch_size=dataset.batch_size)
     refs: list[str] = []
     hyps: list[str] = []

@@ -6,6 +6,9 @@ The encoder is the conv + BiLSTM stack (configs 1, 2, 4 and 5) or the TCN
 the LAS attention decoder (``models/las_decoder.py``, configs 4 and 5)
 reads the encoder output.  Waveform augmentation (config 5), SpecAugment
 and dropout run in train mode, drawn from an explicit ``torch.Generator``.
+With ``remat_encoder`` the encoder runs under activation checkpointing when
+gradients are on (``remat``); augmentation, the frontend and SpecAugment
+stay outside it, as in the JAX package.
 The compute dtype is applied by explicit casts where the JAX modules cast
 (flax ``dtype=``): the convs, the LSTM inputs, the TCN blocks' inputs and
 outputs and the CTC head run in it, while the frontend, CMVN, the LSTM
@@ -42,6 +45,39 @@ def encoder_output_dim(model_cfg: ModelConfig) -> int:
     raise ValueError(f"unknown encoder kind {enc.kind!r}")
 
 
+def remat(encoder: nn.Module, feats: torch.Tensor, feat_len: torch.Tensor, train: bool,
+          generator: torch.Generator | None):
+    """``encoder(feats, feat_len, train, generator)`` under activation
+    checkpointing (``train.remat_encoder``, flax ``nn.remat`` of the encoder
+    in the JAX package): its activations are dropped after the forward and
+    computed again in the backward.
+
+    ``torch.utils.checkpoint`` replays only the global RNG states, while the
+    encoder's dropout draws from ``generator``.  So the recompute starts from
+    the generator's state at the forward, as ``nn.remat`` replays the same
+    keys, and puts back the state the generator had before it: the masks,
+    the gradients and the generator after the step equal those without
+    remat.  The recompute may stop early (checkpoint's early stop), hence the
+    ``finally``."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(x, lengths):
+        calls[0] += 1
+        if calls[0] == 1 or generator is None:
+            return encoder(x, lengths, train, generator)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return encoder(x, lengths, train, generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, feats, feat_len, use_reentrant=False, preserve_rng_state=False)
+
+
 class ASRModel(nn.Module):
     """``forward(audio, audio_len, targets=None, train=False, generator=None,
     ss_prob=0.0)`` returns a dict: ctc_logits (B, T', V) float32, enc (B, T',
@@ -50,11 +86,12 @@ class ASRModel(nn.Module):
     inputs ``targets`` (B, U) are given."""
 
     def __init__(self, frontend_cfg: FrontendConfig, model_cfg: ModelConfig,
-                 vocab_size: int, seed: int = 0):
+                 vocab_size: int, seed: int = 0, remat_encoder: bool = False):
         super().__init__()
         enc = model_cfg.encoder
         enc_dim = encoder_output_dim(model_cfg)
         self.frontend_cfg = frontend_cfg
+        self.remat_encoder = remat_encoder
         self.compute_dtype = DTYPES[model_cfg.compute_dtype]
         if enc.kind == "bilstm":
             self.encoder = BiLSTMEncoder(enc, frontend_cfg.n_mels, self.compute_dtype)
@@ -148,6 +185,8 @@ class ASRModel(nn.Module):
                 num_time_masks=fc.sa_time_masks, time_mask_fraction=fc.sa_time_fraction,
                 time_warp=fc.sa_time_warp)
             feats = spec_augment(feats, feat_len, sa_cfg, generator)
+        if self.remat_encoder and torch.is_grad_enabled():
+            return remat(self.encoder, feats, feat_len, train, generator)
         return self.encoder(feats, feat_len, train, generator)
 
     def forward(self, audio: torch.Tensor, audio_len: torch.Tensor,

@@ -1,14 +1,24 @@
 """Training CLI of the port:
 
     python -m pytorch_asr_tpu_torch.train <config> [k=v ...] [device=cpu] [steps=N]
-        [metrics_path=<file.jsonl>]
+        [metrics_path=<file.jsonl>] [tb_dir=<dir>]
 
 ``k=v`` overrides read as in ``python -m pytorch_asr_tpu.train``.  Runs on the
 GPU unless ``device=cpu``.  Trains in chunks of ``train.eval_every`` steps up
 to ``steps`` (default ``train.optim.total_steps``), with a greedy eval on 8
 batches after each chunk, and resumes from the newest checkpoint in
-``train.checkpoint_dir``.  ``tb_dir`` and ``init_from_torch`` are not ported
-yet and raise.
+``train.checkpoint_dir``.  With ``data.librispeech_root=<tree>`` it trains on
+``data.split`` of a LibriSpeech-layout tree (pseudo-splits such as
+``train-960`` resolve to their members) and evaluates on ``data.eval_split``,
+e.g.
+
+    python -m pytorch_asr_tpu_torch.train ctc_bilstm_dev1h \
+        data.librispeech_root=/data/LibriSpeech data.split=train-960 \
+        data.eval_split=dev-clean
+
+``tb_dir`` mirrors the metrics to TensorBoard (needs the ``tensorboard``
+package); ``train.remat_encoder=true`` recomputes the encoder's activations
+in the backward.  ``init_from_torch`` is not ported yet and raises.
 """
 
 from __future__ import annotations

@@ -10,9 +10,10 @@ Keys:
   merges=N          number of BPE merges to learn (default 256; the final
                     vocab is chars + marker-chars + merges + blank/sos/eos)
   text=FILE         training text, one sentence per line
-  num_synthetic=N   synthetic sentences when text= is not given (512)
-  librispeech_root=DIR  the JAX CLI's LibriSpeech transcripts: not ported
-                    (ROADMAP.md queue 1, item 11), so it raises
+  librispeech_root=DIR  read transcripts from a LibriSpeech tree instead
+  split=NAME        LibriSpeech split (default train-clean-100; pseudo-splits
+                    such as train-960 resolve as in ``data/librispeech.py``)
+  num_synthetic=N   synthetic sentences when neither source is given (512)
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ def main(argv: list[str] | None = None) -> None:
         with open(kv["text"], encoding="utf-8") as fh:
             texts = [ln.strip() for ln in fh if ln.strip()]
     elif "librispeech_root" in kv:
-        raise NotImplementedError("librispeech_root=: the LibriSpeech reader is not ported "
-                                  "yet (ROADMAP.md queue 1, item 11); pass text=FILE")
+        from pytorch_asr_tpu_torch.data.librispeech import scan_manifest
+
+        utts = scan_manifest(kv["librispeech_root"], kv.get("split", "train-clean-100"))
+        texts = [u.transcript for u in utts]
     else:
         from pytorch_asr_tpu_torch.data.synthetic import synthetic_texts
 

@@ -12,14 +12,29 @@ from typing import IO, Any
 
 
 class MetricsLogger:
-    """JSONL event log to stdout and, given ``path``, to a file.  The
-    TensorBoard mirror of the JAX package needs ``tensorflow`` and is not
-    ported: ``tensorboard_dir`` raises."""
+    """JSONL event log to stdout (``stdout``) and, given ``path``, to a file;
+    with ``tensorboard_dir`` every number of a record is mirrored to
+    TensorBoard as the scalar ``<event>/<key>`` (never ``step``), at the
+    record's ``step``, or, for a record with none, one past the largest step
+    written so far: the JAX package's tags and steps.  The mirror writes
+    through ``torch.utils.tensorboard``, which needs the ``tensorboard``
+    package; where it does not import, ``tensorboard_dir`` raises here."""
 
-    def __init__(self, path: str | None = None, tensorboard_dir: str | None = None) -> None:
-        if tensorboard_dir:
-            raise NotImplementedError("the TensorBoard mirror (tb_dir) is not ported yet")
+    def __init__(self, path: str | None = None, stdout: bool = True,
+                 tensorboard_dir: str | None = None) -> None:
         self._fh: IO[str] | None = None
+        self.stdout = stdout
+        self._tb = None
+        self._tb_step = 0
+        if tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                raise ImportError(
+                    "tb_dir= mirrors metrics to TensorBoard, which needs the 'tensorboard' "
+                    f"package; it does not import here ({e}). Drop tb_dir= or install "
+                    "tensorboard") from e
+            self._tb = SummaryWriter(log_dir=tensorboard_dir)
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._fh = open(path, "a")
@@ -29,12 +44,22 @@ class MetricsLogger:
         if self._fh:
             self._fh.write(line + "\n")
             self._fh.flush()
-        print(line, flush=True)
+        if self.stdout:
+            print(line, flush=True)
+        if self._tb is not None:
+            step = int(fields.get("step", self._tb_step))
+            self._tb_step = max(self._tb_step, step) + 1
+            for k, v in fields.items():
+                if isinstance(v, (int, float)) and k != "step":
+                    self._tb.add_scalar(f"{event}/{k}", float(v), global_step=step)
 
     def close(self) -> None:
         if self._fh:
             self._fh.close()
             self._fh = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 class Throughput:

@@ -157,10 +157,8 @@ class TrainState:
 
 
 def build_model(cfg: ExperimentConfig, device: torch.device) -> ASRModel:
-    if cfg.train.remat_encoder:
-        raise NotImplementedError("train.remat_encoder is not ported yet")
     model = ASRModel(cfg.frontend, cfg.model, get_tokenizer(cfg.data.vocab).vocab_size,
-                     seed=cfg.train.seed)
+                     seed=cfg.train.seed, remat_encoder=cfg.train.remat_encoder)
     return model.to(device)
 
 

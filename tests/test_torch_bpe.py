@@ -92,8 +92,10 @@ def test_train_bpe_cli_writes_the_jax_cli_file(tmp_path, capsys):
         assert (tmp_path / "ours.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
         out = capsys.readouterr().out.splitlines()
         assert out[0].split(":", 1)[1] == out[1].split(":", 1)[1]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_bpe.main([str(tmp_path / "x.json"), "librispeech_root=/data"])
+    # librispeech_root= reads a tree's transcripts; a missing tree raises as JAX's.
+    for main in (train_bpe.main, jax_train_bpe_main):
+        with pytest.raises(FileNotFoundError, match="train-clean-100"):
+            main([str(tmp_path / "x.json"), f"librispeech_root={tmp_path / 'none'}"])
     with pytest.raises(SystemExit):
         train_bpe.main([])
 

@@ -12,7 +12,7 @@ from pytorch_asr_tpu import configs as jax_configs
 from pytorch_asr_tpu.data import build_dataset as jax_build_dataset
 from pytorch_asr_tpu.data.tokenizer import CharTokenizer as JaxCharTokenizer
 from pytorch_asr_tpu_torch import configs
-from pytorch_asr_tpu_torch.data import build_dataset
+from pytorch_asr_tpu_torch.data import build_dataset, synthetic_corpus
 from pytorch_asr_tpu_torch.data.tokenizer import CharTokenizer, get_tokenizer
 
 
@@ -57,7 +57,21 @@ def test_synthetic_batches_match_jax(auto_buckets):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_librispeech_root_is_refused():
-    cfg = configs.get_config("ctc_bilstm_dev1h", **{"data.librispeech_root": "/data"}).data
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        build_dataset(cfg, 16000)
+def test_librispeech_root_is_refused(tmp_path):
+    """``data.librispeech_root`` is read, no longer refused: ``build_dataset``
+    over a small WAV tree gives JAX's batches."""
+    from pytorch_asr_tpu.data.synthetic import materialize_wav_tree
+
+    materialize_wav_tree(synthetic_corpus(6, 16000, seed=3, max_sec=1.0), str(tmp_path))
+    overrides = {"data.librispeech_root": str(tmp_path), "data.split": "dev-clean",
+                 "data.batch_size": "4", "data.auto_buckets": "2"}
+    cfg = configs.get_config("ctc_bilstm_dev1h", **overrides).data
+    jcfg = jax_configs.get_config("ctc_bilstm_dev1h", **overrides).data
+    ours = list(build_dataset(cfg, 16000).epoch_batches(seed=0))
+    ref = list(jax_build_dataset(jcfg, 16000).epoch_batches(seed=0))
+    assert len(ours) == len(ref) == 2
+    for a, b in zip(ours, ref):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with pytest.raises(FileNotFoundError):
+        build_dataset(dataclasses.replace(cfg, librispeech_root=str(tmp_path / "none")), 16000)

@@ -131,10 +131,11 @@ def test_decode_without_lm(arpa):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("data.librispeech_root", "/data", NotImplementedError)])
+    ("data.librispeech_root", "/nonexistent", FileNotFoundError)])
 def test_later_slices_raise(arpa, key, value, err):
-    """The LibriSpeech reader waits for its slice (ROADMAP.md queue 1, item
-    11); ``decode.lm_backend=hashed`` is ported
+    """The LibriSpeech reader is ported: a root with no such split raises
+    ``FileNotFoundError``, as the JAX package's reader does
+    (tests/test_torch_librispeech.py); ``decode.lm_backend=hashed`` is ported
     (tests/test_torch_prefix_beam_hashed.py)."""
     cfg = get_config("ctc_bilstm_beam_lm", **_overrides(arpa, **{key: value}))
     with pytest.raises(err):

@@ -272,5 +272,7 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     assert result["eval"]["num_utts"] == 6 and result["eval"]["step"] == 2
     events = [line for line in (tmp_path / "m.jsonl").read_text().splitlines()]
     assert len(events) == 3                                   # train 1, train 2, eval
-    with pytest.raises(NotImplementedError, match="tb_dir"):
-        train.main(argv + [f"tb_dir={tmp_path}"])
+    # tb_dir mirrors the records to TensorBoard event files.
+    train.main(argv + ["steps=1", f"train.checkpoint_dir={tmp_path / 'tb_run'}",
+                       f"tb_dir={tmp_path / 'tb'}"])
+    assert any("tfevents" in f.name for f in (tmp_path / "tb").iterdir())

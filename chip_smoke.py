@@ -243,7 +243,7 @@ from pytorch_asr_tpu_torch.ops import (
     beam_cuda, build, ctc, ctc_cuda, lstm_cuda, stft_cuda, tcn_cuda)
 from pytorch_asr_tpu_torch.ops.ce import make_decoder_io
 from pytorch_asr_tpu_torch.parallel import distributed, launch
-from pytorch_asr_tpu_torch.parallel.mesh import make_mesh
+from pytorch_asr_tpu_torch.parallel.mesh import make_mesh, shard_batch_global, use_mesh
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
 from pytorch_asr_tpu_torch.scripts import (_timing, bench_beam_compile, bench_kernel_turns,
                                            bench_prefix_beam, bench_streaming)
@@ -5577,6 +5577,388 @@ def slice23_phases(synthetic_record: dict) -> dict:
             "remat_tcn": remat["tcn"]["launches_on"]}
 
 
+# Slice 24: training across ranks.  K6 at a model rank's split width (the
+# GLU half-width Cm of config 3's block split over m = 2 and 4 model ranks),
+# and the square K6's bits against its parent's: the digests of K5 and the
+# K6 pair at tcn_phase's T' 400, d 1 inputs (seed 11), taken with the
+# source before the split width existed.
+S24_CMS = (192, 96)
+S24_DILATIONS = (1, 16)
+SQUARE_K6_DIGESTS = {"k5": "b124b74bf0ecfc5a", "k5_bf16": "83ab91fae9377eee",
+                     "y": "4f7a908044fd43a0", "xn": "4cef2af77ec100ba",
+                     "dxn": "f27c1a3b9ac517b3", "dwc": "15c7e0d855df9fdb",
+                     "dbc": "3664d71228f2cbaa", "dwp": "6fe27de78c437a56",
+                     "dbp": "29c32263fd09fb73"}
+# The train-step arms: path -> (config, world, data axis, model axis, global batch).
+S24_ARMS = {"s24_data2": ("ctc_bilstm_dev1h", 2, 2, 1, B),
+            "s24_model2": ("ctc_bilstm_dev1h", 2, 1, 2, B),
+            "s24_tcn_model2": (CFG3, 2, 1, 2, TCN_B),
+            "s24_data2_model2": (CFG3, 4, 2, 2, TCN_B)}
+S24_PLAIN = TRAIN_PLAIN + [(tcn_cuda, "tcn_block_train_fwd_plain"),
+                           (tcn_cuda, "tcn_block_bwd_plain")]
+S24_MAIN_STEPS = (10, 12)    # train.main across 2 ranks: 10 steps, then resumed to 12
+# A rank's reduced gradients (and grad_norm) against the one-rank step's,
+# relative to each tensor's largest entry: a data rank's kernels and cuBLAS
+# products run at B / D rows, and a model rank's K6 at width C / m, other
+# shapes whose sums go in other orders; the recurrences carry those
+# differences over 400 steps (the worst, layer 1's forward wih, read 3.1e-4
+# at data 2 on an H100 80GB HBM3 at 700 W, against 1e-5-5e-5 elsewhere), and the conv front
+# end's gradient sums them over every frame with cancellation (config 3's
+# stem read 5.9e-3 at model 2, above STEP_CONV_GRAD_TOL's 5e-3 for card vs
+# CPU).
+S24_GRAD_TOL = 1e-3
+S24_CONV_GRAD_TOL = 1e-2
+
+
+def split_weights(p: list[torch.Tensor], k: int, m: int) -> list[torch.Tensor]:
+    """Model rank k's block weights of m, as ``TCNBlock._split`` takes them."""
+    C = p[0].shape[0]
+    cm = C // m
+    lin, gate = slice(k * cm, (k + 1) * cm), slice(C + k * cm, C + (k + 1) * cm)
+    return [p[0], p[1], torch.cat([p[2][:, :, lin], p[2][:, :, gate]], 2).contiguous(),
+            torch.cat([p[3][lin], p[3][gate]]).contiguous(), p[4][lin].contiguous(), p[5] / m]
+
+
+def k6_split_phase() -> list[dict]:
+    """K6 at Cm 192 and 96 (model rank 0 of 2 and of 4) on x (16, 400, 384),
+    K 5, d 1 and 16, forward and backward against their plain versions at
+    K6's tolerance, timed beside the plain versions and the 3-call
+    composite at the same width; and the square K5 and K6 pair bit-equal to
+    their parent's (``SQUARE_K6_DIGESTS``)."""
+    g = torch.Generator().manual_seed(11)
+    p = tcn_weights(g)
+    B_, C, K, T = TCN_B, TCN_C, TCN_K, TCN_T
+    lengths = torch.linspace(T, 0.625 * T, B_).int()
+    x = torch.randn(B_, T, C, generator=g)
+    x = torch.where(torch.arange(T)[None, :, None] < lengths[:, None, None], x, 0.0).cuda()
+    dy = torch.randn(B_, T, C, generator=g).cuda()
+    y, xn = tcn_cuda.tcn_block_train_fwd(x, *p, 1)
+    got = {"k5": tcn_cuda.tcn_block(x, *p, 1), "k5_bf16": tcn_cuda.tcn_block(x.bfloat16(), *p, 1),
+           "y": y, "xn": xn, **dict(zip(("dxn", "dwc", "dbc", "dwp", "dbp"),
+                                        tcn_cuda.tcn_block_bwd(xn, dy, p[2], p[3], p[4], 1)))}
+    digests = {k: bench_kernel_turns._digest(v) for k, v in got.items()}
+    check(digests == SQUARE_K6_DIGESTS, f"square K5/K6 bits moved: {digests}")
+    rows = {"tcn_block_train_fwd_split": {"max_abs_err": 0.0, "max_rel_err": 0.0, "cases": []},
+            "tcn_block_bwd_split": {"max_abs_err": 0.0, "max_rel_err": 0.0, "cases": []}}
+    outs = {"tcn_block_train_fwd_split": ("y", "xn"),
+            "tcn_block_bwd_split": ("dxn", "dwc", "dbc", "dwp", "dbp")}
+    BT = B_ * T
+    for cm in S24_CMS:
+        m = C // cm
+        pl = split_weights(p, 0, m)
+        for d in S24_DILATIONS:
+            y, xn = tcn_cuda.tcn_block_train_fwd(x, *pl, d)
+            grads = tcn_cuda.tcn_block_bwd(xn, dy, pl[2], pl[3], pl[4], d)
+            want_y, want_xn = tcn_cuda.tcn_block_train_fwd_plain(x, *pl, d)
+            want = {"y": want_y, "xn": want_xn, **dict(zip(outs["tcn_block_bwd_split"],
+                    tcn_cuda.tcn_block_bwd_plain(want_xn, dy, pl[2], pl[3], pl[4], d)))}
+            have = {"y": y, "xn": xn, **dict(zip(outs["tcn_block_bwd_split"], grads))}
+            for name, keys in outs.items():
+                case = {"Cm": cm, "dilation": d}
+                for o in keys:
+                    check(have[o].shape == want[o].shape and bool(torch.isfinite(have[o]).all()),
+                          f"{name} {o} Cm {cm}: bad output")
+                    err, rel = errors(have[o], want[o])
+                    check(rel <= TCN_TOL, f"{name} {o} Cm {cm} d {d}: {rel} > {TCN_TOL}")
+                    r = rows[name]
+                    r["max_abs_err"], r["max_rel_err"] = (max(r["max_abs_err"], err),
+                                                          max(r["max_rel_err"], rel))
+                    case[o] = rel
+                rows[name]["cases"].append(case)
+        body, _, (wc_l, wp_l) = tcn_composite(pl, 1)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xn, wc_l, pl[3], wp_l, pl[5])]
+        lib_out = body(*leaves)
+        lib_err, _ = errors(body(xn, wc_l, pl[3], wp_l, pl[5]),
+                            tcn_cuda.tcn_block_train_fwd_plain(x, *pl, 1)[0])
+        check(lib_err <= 1e-3, f"split composite computes another function: {lib_err}")
+        P = 4 * (2 * C + K * C * 2 * cm + 2 * cm + cm * C + C)
+        ops = {"tcn_block_train_fwd_split": 2 * BT * C * (K * 2 * cm + cm),
+               "tcn_block_bwd_split": 2 * BT * C * cm * (6 * K + 2)}
+        nbytes = {"tcn_block_train_fwd_split": 4 * BT * C * 3 + P,
+                  "tcn_block_bwd_split": 4 * BT * C * 3 + 2 * P}
+        timed = {"tcn_block_train_fwd_split": (
+                     lambda: tcn_cuda.tcn_block_train_fwd(x, *pl, 1),
+                     lambda: tcn_cuda.tcn_block_train_fwd_plain(x, *pl, 1),
+                     lambda: body(F.layer_norm(x, (C,), pl[0], pl[1], eps=tcn_cuda.EPS))),
+                 "tcn_block_bwd_split": (
+                     lambda: tcn_cuda.tcn_block_bwd(xn, dy, pl[2], pl[3], pl[4], 1),
+                     lambda: tcn_cuda.tcn_block_bwd_plain(xn, dy, pl[2], pl[3], pl[4], 1),
+                     lambda: torch.autograd.grad(lib_out, leaves, dy, retain_graph=True))}
+        for name, (kern, plain, lib) in timed.items():
+            b_ms, b_by = bound(nbytes[name], 3 * ops[name] / PEAK_TF32_S)
+            rows[name][cm] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, 5, 4, 1),
+                              "library_ms": time_ms(lib, 5, 4, 1), "bound_ms": b_ms,
+                              "bound_by": b_by,
+                              "bound_fp32_ms": bound(nbytes[name], ops[name] / PEAK_FP32_S)[0]}
+    lines = {"tcn_block_train_fwd_split": 302, "tcn_block_bwd_split": 321}
+    out = []
+    for name, r in rows.items():
+        head = r[S24_CMS[0]]
+        out.append({
+            "name": name, "route": "cuda", "source": "pytorch_asr_tpu_torch/csrc/tcn_block.cu",
+            "replaces": f"pytorch_asr_tpu/ops/dilated_conv_pallas.py:{lines[name]}",
+            "shape": f"x ({TCN_B}, {T}, {C}) f32, Cm {S24_CMS[0]} (also {S24_CMS[1]}): w_conv "
+                     f"({K}, {C}, {2 * S24_CMS[0]}), w_point ({S24_CMS[0]}, {C}), "
+                     f"d {list(S24_DILATIONS)}",
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "tol": {"max_rel_err": TCN_TOL}, **head,
+            "library": "3-call composite F.conv1d -> F.glu -> F.linear at the split width "
+                       "(fp32; the backward through autograd.grad)",
+            "bound_note": "bound_ms: 3xTF32 on tensor cores (3 x ops / 495 TFLOP/s); "
+                          "bound_fp32_ms: ops / 67 TFLOP/s",
+            "by_cm": {cm: r[cm] for cm in S24_CMS}, "cases": r["cases"],
+            "square_digests": digests})
+    return out
+
+
+def s24_cfg(config: str, batch: int, data: int = 1, model: int = 1):
+    """A train-step arm's config: float32, dropout 0, SpecAugment off,
+    ``batch`` utterances of 10-16 s in one bucket, on a data x model mesh."""
+    return get_config(config, **{
+        "model.compute_dtype": "float32", "model.encoder.dropout": "0.0",
+        "frontend.specaugment": "false", "data.synthetic_num_utts": str(batch),
+        "data.batch_size": str(batch), "data.synthetic_min_sec": "10",
+        "data.synthetic_max_sec": "16", "data.auto_buckets": "1",
+        "train.optim.peak_lr": "1e-3", "train.optim.warmup_steps": "1",
+        "mesh.data_axis": str(data), "mesh.model_axis": str(model)})
+
+
+def s24_batch(config: str, batch: int) -> dict:
+    """The global batch, with a pad row in the last data rank's half."""
+    cfg = s24_cfg(config, batch)
+    b = next(build_dataset(cfg.data, cfg.frontend.sample_rate).epoch_batches(seed=0))
+    b["audio_len"][batch - 2] = b["token_len"][batch - 2] = 0
+    b["audio"][batch - 2] = 0.0
+    b["tokens"][batch - 2] = 0
+    return b
+
+
+def s24_step(cfg, batch: dict, mesh) -> dict:
+    """One train step of this rank's rows on the card with float32 LSTM
+    residuals, its launches and plain calls, the gradients the optimizer saw."""
+    model = set_residual_dtype(train_state.build_model(cfg, resolve_device("cuda")),
+                               torch.float32)
+    st = train_state.init_train_state(cfg, model, mesh)
+    seen, reduce = {}, train_state.reduce_gradients
+
+    def spy(state, grads, aux):
+        seen["grads"] = reduce(state, grads, aux)
+        return seen["grads"]
+
+    rows = shard_batch_global(mesh, batch) if mesh is not None else batch
+    train_state.reduce_gradients = spy
+    try:
+        with plain_calls_of(*S24_PLAIN) as plain, use_mesh(mesh):
+            torch.cuda.synchronize()
+            build.reset_launches()
+            aux = train_state.train_step(cfg, st, train_state.batch_to_device(rows, CARD))
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        train_state.reduce_gradients = reduce
+    names = [n for n, _ in model.named_parameters()]
+    grads = seen.get("grads") or [p.grad for p in model.parameters()]
+    return {"loss": float(aux["loss"]), "grad_norm": float(aux["grad_norm"]), "lr": aux["lr"],
+            "grads": {n: g.detach().cpu() for n, g in zip(names, grads)},
+            "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "launches": launches, "plain": list(plain), "exchange_s": st.exchange_s}
+
+
+def s24_rank_steps(inputs: dict) -> dict:
+    """One rank of the train-step arms of a world, one after another (one
+    spawn a world): {path: ``s24_rank_step``}."""
+    distributed.initialize("cuda")
+    return {path: s24_rank_step(path, batch, ref_path)
+            for path, (batch, ref_path) in inputs.items()}
+
+
+def s24_rank_step(path: str, batch: dict, ref_path: str) -> dict:
+    """One rank of a train-step arm: its step, held to the one-rank step on
+    the global batch (``ref_path``) as ``train_step_phase`` holds the card
+    to the CPU; its parameters' digest."""
+    config, _, data, model, b = S24_ARMS[path]
+    cfg = s24_cfg(config, b, data, model)
+    mesh = make_mesh(cfg.mesh, batch_size=cfg.data.batch_size)
+    got = s24_step(cfg, batch, mesh)
+    ref = torch.load(ref_path, weights_only=True)
+    front = "encoder.conv." if config != CFG3 else "encoder.stem."
+    grad_rel = {k: errors(g, ref["grads"][k])[1] for k, g in got["grads"].items()}
+    tol = lambda k: S24_CONV_GRAD_TOL if k.startswith(front) else S24_GRAD_TOL  # noqa: E731
+    worst = max(grad_rel.items(), key=lambda kv: kv[1] / tol(kv[0]))
+    return {"rank": distributed.topology()["rank"], "place": [mesh.data_index, mesh.model_index],
+            "loss": got["loss"], "grad_norm": got["grad_norm"], "launches": got["launches"],
+            "plain": got["plain"], "exchange_s": got["exchange_s"],
+            "loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm_rel": abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+            "grad_ok": all(v <= tol(k) for k, v in grad_rel.items()),
+            "worst_grad": list(worst),
+            "param_max_abs_err": max(errors(v, ref["params"][k])[0]
+                                     for k, v in got["params"].items()),
+            # AdamW's first move is about lr * sign(g) a coordinate, so a
+            # gradient at float32 noise may move the two runs lr apart each
+            # way; the 0.5% covers the moves' rounding and the decay term.
+            "param_tol": 2.01 * got["lr"],
+            "params_digest": bench_kernel_turns._digest(*got["params"].values())}
+
+
+def s24_want(config: str, model: int) -> dict:
+    """A rank's exact launches in one train step of an arm."""
+    if config == CFG3:
+        blocks = ("tcn_block_train_fwd_split", "tcn_block_bwd_split") if model > 1 else (
+            "tcn_block_train_fwd", "tcn_block_bwd")
+        return {"stft_log_mel": 1, blocks[0]: TCN_BLOCKS, blocks[1]: TCN_BLOCKS,
+                "ctc_alpha": 1, "ctc_beta": 1}
+    dirs = 1 if model == 2 else 2
+    return {"stft_log_mel": 1, "lstm_seq_train_fwd": dirs * LAYERS,
+            "lstm_seq_bwd": dirs * LAYERS, "ctc_alpha": 1, "ctc_beta": 1}
+
+
+def train_ranks_phase() -> dict:
+    """The arms' ranks spawned on the card over gloo (one spawn a world, its
+    arms in turn), one float32 train step on the global batch each, against
+    the one-rank step in this process: loss, grad_norm, the reduced
+    gradients and the parameters after one AdamW step; every rank's exact
+    launches, no plain version; every rank's parameters bit-equal."""
+    out, refs, runs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for config, _, _, _, b in S24_ARMS.values():
+            if (config, b) not in refs:
+                batch = s24_batch(config, b)
+                one = s24_step(s24_cfg(config, b), batch, None)
+                check(one["launches"] == s24_want(config, 1) and not one["plain"],
+                      f"{config} one-rank step: launches {one['launches']}, plain {one['plain']}")
+                ref_path = os.path.join(tmp, f"{config}.pt")
+                torch.save({k: one[k] for k in ("loss", "grad_norm", "grads", "params")}, ref_path)
+                refs[(config, b)] = (batch, ref_path, one)
+        for world in sorted({arm[1] for arm in S24_ARMS.values()}):
+            inputs = {path: refs[(arm[0], arm[4])][:2] for path, arm in S24_ARMS.items()
+                      if arm[1] == world}
+            t0 = time.perf_counter()
+            ranks = launch.spawn(s24_rank_steps, world, inputs, timeout=RANK_TIMEOUT)
+            runs[world] = (ranks, time.perf_counter() - t0)
+        for path, (config, world, data, model, b) in S24_ARMS.items():
+            one = refs[(config, b)][2]
+            ranks, wall = [r[path] for r in runs[world][0]], runs[world][1]
+            want = s24_want(config, model)
+            print(f"{path} ranks:", json.dumps([{k: r[k] for k in (
+                "place", "loss_rel", "grad_norm_rel", "worst_grad", "param_max_abs_err",
+                "exchange_s", "params_digest")} for r in ranks]), flush=True)
+            for r in ranks:
+                check(r["launches"] == want, f"{path} rank {r['rank']}: {r['launches']} != {want}")
+                check(not r["plain"], f"{path} rank {r['rank']}: plain calls {r['plain']}")
+                check(r["loss_rel"] <= STEP_LOSS_RTOL and r["grad_norm_rel"] <= S24_GRAD_TOL
+                      and r["grad_ok"] and r["param_max_abs_err"] <= r["param_tol"],
+                      f"{path} rank {r['rank']} against one rank: {r}")
+            digests = {r["params_digest"] for r in ranks}
+            check(len(digests) == 1, f"{path}: ranks' parameters differ: {digests}")
+            out[path] = {"config": config, "world": world, "mesh": [data, model],
+                         "global_batch": b, "spawn_wall_s": wall, "one_rank_loss": one["loss"],
+                         "one_rank_grad_norm": one["grad_norm"],
+                         "ranks": ranks, "launches_rank0": ranks[0]["launches"]}
+    return out
+
+
+def s24_rank_main(argv: list[str]) -> dict:
+    """One rank of ``train.main`` across ranks, counted."""
+    with plain_calls_of(*S24_PLAIN) as plain:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    return {"rank": distributed.topology()["rank"], "result": result, "wall_s": wall,
+            "launches": launches, "plain": list(plain)}
+
+
+def train_main_ranks_phase() -> dict:
+    """``train.main`` at config 1's defaults (bf16, dropout and SpecAugment
+    on) across 2 data ranks on the card: 10 steps and an eval of 8 batches,
+    then a resume to 12 and another eval; the mesh record and metrics from
+    rank 0 alone, the per-chip throughput, the gradient exchange's share of
+    the steps (host clock, synchronised), each data rank's stream position."""
+    first, total = S24_MAIN_STEPS
+    with tempfile.TemporaryDirectory() as ckpt:
+        metrics = os.path.join(ckpt, "m.jsonl")
+        argv = ["ctc_bilstm_dev1h", "data.synthetic_min_sec=10", "data.synthetic_max_sec=16",
+                f"data.synthetic_num_utts={TRAIN_UTTS}", "data.auto_buckets=1",
+                "mesh.data_axis=2", f"train.eval_every={first}", "train.log_every=2",
+                f"train.checkpoint_dir={ckpt}", f"metrics_path={metrics}"]
+        runs = {}
+        for tag, steps in (("train", first), ("resume", total)):
+            ranks = launch.spawn(s24_rank_main, 2, argv + [f"steps={steps}"],
+                                 timeout=RANK_TIMEOUT)
+            runs[tag] = ranks
+        with open(metrics) as fh:
+            records = [json.loads(line) for line in fh]
+        positions = {}
+        for step in (first, total):
+            with open(os.path.join(ckpt, f"iterator_{step}.json")) as fh:
+                positions[step] = json.load(fh)
+    per_rank = EVAL_BATCHES
+    for tag, steps in (("train", first), ("resume", total - first)):
+        want = {"stft_log_mel": steps + per_rank, "lstm_seq": 2 * LAYERS * per_rank,
+                "lstm_seq_train_fwd": 2 * LAYERS * steps, "lstm_seq_bwd": 2 * LAYERS * steps,
+                "ctc_alpha": steps, "ctc_beta": steps}
+        for r in runs[tag]:
+            check(r["launches"] == want, f"train.main ranks {tag} rank {r['rank']}: "
+                                         f"{r['launches']} != {want}")
+            check(not r["plain"], f"train.main ranks {tag}: plain calls {r['plain']}")
+        recs = [r["result"]["train"] for r in runs[tag]]
+        check(recs[0]["loss"] == recs[1]["loss"] and recs[0]["grad_norm"] == recs[1]["grad_norm"]
+              and math.isfinite(recs[0]["loss"]), f"train.main ranks {tag}: records {recs}")
+    meshes = [r for r in records if r["event"] == "mesh"]
+    trains = [r["step"] for r in records if r["event"] == "train"]
+    check(len(meshes) == 2 and meshes[0]["layout"] == {"data": 2, "model": 1}
+          and trains == [1, *range(2, total + 1, 2)], f"train.main ranks: records {records}")
+    check(positions[first]["data_axis"] == 2 and len(positions[total]["positions"]) == 2,
+          f"train.main ranks: positions {positions}")
+    last = runs["train"][0]["result"]["train"]
+    return {"record": last, "resume_record": runs["resume"][0]["result"]["train"],
+            "eval": runs["train"][0]["result"]["eval"], "mesh_record": meshes[0],
+            "launches": runs["train"][0]["launches"],
+            "exchange_share": [r["result"]["train"]["exchange_s"] / r["result"]["train"]["wall_s"]
+                               for r in runs["train"]],
+            "step_s": [r["result"]["train"]["wall_s"] / first for r in runs["train"]],
+            "positions": positions, "train_records": trains,
+            "wall_s": [r["wall_s"] for r in runs["train"] + runs["resume"]]}
+
+
+def slice24_phases() -> tuple[list[dict], dict]:
+    """Slice 24's paths: K6 at the split width, the train-step arms across
+    ranks, and ``train.main`` across 2 ranks with its resume.
+    -> (kernel rows, {path: rank 0's launches})."""
+    t0 = time.perf_counter()
+    rows = k6_split_phase()
+    for k in rows:
+        print(f"check {k['name']}: max_abs_err {k['max_abs_err']:.3g} (tol {k['tol']}) "
+              f"ms {k['ms']:.4f} plain {k['plain_ms']:.4f} library {k['library_ms']:.4f} "
+              f"bound {k['bound_ms']:.4f} ({k['bound_by']}); Cm 96: "
+              f"{json.dumps(k['by_cm'][S24_CMS[1]])}")
+    print(f"k6_split: {time.perf_counter() - t0:.1f} s; square K5/K6 bits as the parent's")
+    t1 = time.perf_counter()
+    arms = train_ranks_phase()
+    for path, a in arms.items():
+        print(f"{path}:", json.dumps(a))
+        print(f"{path}: {a['world']} ranks, mesh {a['mesh']}, launches {a['launches_rank0']}, "
+              f"loss {a['ranks'][0]['loss']:.6f} (one rank {a['one_rank_loss']:.6f}), "
+              f"worst grad {a['ranks'][0]['worst_grad']}, params bit-equal across ranks")
+    print(f"train_ranks: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    main_ranks = train_main_ranks_phase()
+    print("train_main_ranks:", json.dumps(main_ranks))
+    print(f"train_main_ranks: audio_seconds_per_sec_per_chip "
+          f"{main_ranks['record']['audio_seconds_per_sec_per_chip']:.2f} (2 ranks sharing "
+          f"one card: no speed figure), exchange share of the steps "
+          f"{main_ranks['exchange_share']}, positions {json.dumps(main_ranks['positions'])}")
+    print(f"train_main_ranks: {time.perf_counter() - t1:.1f} s")
+    print(f"slice24: {time.perf_counter() - t0:.1f} s")
+    paths = {p: a["launches_rank0"] for p, a in arms.items()}
+    paths["s24_train_main"] = main_ranks["launches"]
+    return rows, paths
+
+
 def main() -> int:
     card = card_line()
     print(f"card: {card}")
@@ -5664,6 +6046,8 @@ def main() -> int:
     slice22_rows, slice22_paths = slice22_phases(arpa)
     kernels += slice22_rows
     slice23_paths = slice23_phases(trn["record"])
+    slice24_rows, slice24_paths = slice24_phases()
+    kernels += slice24_rows
     t0 = time.perf_counter()
     las = las_phases()
     print(f"las: {time.perf_counter() - t0:.1f} s")
@@ -5716,7 +6100,7 @@ def main() -> int:
              **{p: las[p]["launches"] for p in ("las_decode", "joint_decode", "las_train",
                                                 "joint_train")},
              **wide_paths, **slice20_paths, **slice21_paths, **slice22_paths,
-             **slice23_paths}
+             **slice23_paths, **slice24_paths}
     wide_paths["wide_stream"] = slice20_paths["wide_stream"]
     own_path = {"prefix_beam": "beam_decode", "prefix_beam_topa": "beam_decode_topa",
                 "prefix_beam_rnn": "rnn_decode", "prefix_beam_rnn_topa": "rnn_decode_topa",
@@ -5744,7 +6128,9 @@ def main() -> int:
                 "prefix_beam_topa_hashed_v1024": "hashed_v1024",
                 "merge_topk_window": "bpe_sharded_model2",
                 "prefix_beam_hashed_carry": "stream_beam_hashed",
-                "prefix_beam_topa_hashed_carry": "stream_beam_hashed"}
+                "prefix_beam_topa_hashed_carry": "stream_beam_hashed",
+                "tcn_block_train_fwd_split": "s24_tcn_model2",
+                "tcn_block_bwd_split": "s24_tcn_model2"}
     # The per-utterance oracles of the grid kernels are no path's kernels.
     oracle_runs = {p: counts.get("bilstm_seq_per_utterance", 0)
                    + counts.get("bilstm_seq_bwd_per_utterance", 0) for p, counts in paths.items()}

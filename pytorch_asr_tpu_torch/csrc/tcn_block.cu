@@ -9,11 +9,17 @@
 // Python side: ops/tcn_cuda.py.
 //
 // Computes, for x (B, T, C) in fp32 or bf16, ln_scale, ln_bias (C), w_conv
-// (K, C, 2C), b_conv (2C), w_point (C, C), b_point (C), all parameters fp32:
+// (K, C, 2Cm), b_conv (2Cm), w_point (Cm, C), b_point (C), all parameters fp32:
 //   xn  = LayerNorm(x) * ln_scale + ln_bias              (eps 1e-6, two-pass)
 //   acc = sum_k xn[t + (k - K/2) d] @ w_conv[k] + b_conv  (taps outside [0, T) read 0)
-//   glu = acc[:, :C] * sigmoid(acc[:, C:])
+//   glu = acc[:, :Cm] * sigmoid(acc[:, Cm:])
 //   y   = glu @ w_point + b_point
+// The GLU half-width Cm is C in the block as the model holds it, and C / m
+// on a model rank of a tensor-parallel block (models/encoder_tcn.py): the
+// rank's Cm lin columns paired with their gate columns, and the matching Cm
+// rows of w_point, as the JAX package's TCNBlock._tp_pallas slices them and
+// its kernel reads the widths from the weights (_train_vjp_bwd :328-329).
+// The inference block (K5) is square: Cm = C.
 // K5 writes x + y in x's type, the sum taken in fp32; the K6 forward writes y
 // and keeps xn, both fp32.  The JAX package holds its kernel to a
 // Precision.HIGHEST reference at 2e-4, so no product here runs in plain TF32
@@ -33,8 +39,8 @@
 //      B 16, T' 400, C 384: it stays in L2 for the next launch).
 //   2. tc_gemm_kernel<GLU>: the dilated conv as an implicit GEMM, rows (b, t)
 //      by 32 output-channel pairs a tile: lin columns together with their
-//      gate columns C + p, so the GLU runs in the epilogue, which writes
-//      glu (B*T, C) fp32 and nothing else; the reduction walks the K*C
+//      gate columns Cm + p, so the GLU runs in the epilogue, which writes
+//      glu (B*T, Cm) fp32 and nothing else; the reduction walks the K*C
 //      (tap, channel) pairs, reading xn rows at t + (k - K/2) d.  The GLU is
 //      not linear, so the reduction is never split.
 //   3. tc_gemm_kernel<POINT>: glu @ w_point, one slice, with a + b_point
@@ -149,12 +155,12 @@ constexpr int SM_COUNT = 132;     // H100 SXM: split-K aims at ~2 blocks an SM
 
 // The products of the block.  Output rows i, columns n, reduction index k
 // (A is M x Kred, B is Kred x N):
-//   CONV   (B*T) x C pairs,  k = (tap, c):   A = xn shifted by the tap, B = w_conv
+//   CONV   (B*T) x Cm pairs, k = (tap, c):   A = xn shifted by the tap, B = w_conv
 //   GLU    as CONV, with the forward's epilogue (glu only)
-//   POINT  (B*T) x C,        k = c:          A = glu,   B = w_point
-//   DGLU   (B*T) x C,        k = c:          A = dy,    B = w_point^T
-//   DWP    C x C,            k = (b, t):     A = glu^T, B = dy
-//   DWC    (K*C) x 2C,       k = (b, t):     A = xs^T (xn shifted), B = dacc
+//   POINT  (B*T) x C,        k = j < Cm:     A = glu,   B = w_point
+//   DGLU   (B*T) x Cm,       k = c:          A = dy,    B = w_point^T
+//   DWP    Cm x C,           k = (b, t):     A = glu^T, B = dy
+//   DWC    (K*C) x 2Cm,      k = (b, t):     A = xs^T (xn shifted), B = dacc
 //   DXN    (B*T) x C,        k = (tap, j):   A = dacc shifted back, B = w_conv[tap]^T
 // All run on tc_gemm_kernel: the forward GLU and POINT, the backward CONV,
 // DGLU, DWP, DWC and DXN.
@@ -164,18 +170,19 @@ struct Args {
   int T, C, K, dil;
   int M, N, Kred, k_per_split;
   const float* xn;     // (B, T, C)
-  const float* wc;     // (K, C, 2C)
-  const float* bc;     // (2C)
-  const float* wp;     // (C, C)
+  const float* wc;     // (K, C, 2Cm)
+  const float* bc;     // (2Cm)
+  const float* wp;     // (Cm, C)
   const float* bp;     // (C)
-  const float* glu;    // (B*T, C)
+  const float* glu;    // (B*T, Cm)
   const float* dy;     // (B*T, C)
-  const float* dglu;   // (B*T, C): dy @ w_point^T (the backward's CONV epilogue)
-  const float* dacc;   // (B*T, 2C)
+  const float* dglu;   // (B*T, Cm): dy @ w_point^T (the backward's CONV epilogue)
+  const float* dacc;   // (B*T, 2Cm)
   const void* x_res;   // POINT with residual: x, in InT
   float* out;          // fp32 output (or the split-K slices, each M x N)
   float* out2;         // the backward's CONV: dacc
   void* out_typed;     // POINT with residual: x + y in InT
+  int Cm;              // the GLU half-width: C in the square block, read only by SPLIT forms
 };
 
 // Unit stride of A along k (else along the rows), of B along n (else along k):
@@ -276,10 +283,12 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsi
 // and steps what does (the (tap, channel) of its k, a reduction row's
 // time) a tile at a time, in order.  A conv tile's (CONV, GLU) local column
 // c is, for w = c / 32 and r = c % 32, pair p = TBN / 2 blockIdx.x + 16 w +
-// r % 16, the lin column p where r < 16, else the gate column C + p: each
+// r % 16, the lin column p where r < 16, else the gate column Cm + p: each
 // warp holds both halves of its 16 pairs, so the GLU runs in the epilogue.
 // POINT with RES adds x (InT) in its epilogue and writes x + y in InT.
-template <int MODE, int V, typename InT = float, bool RES = false>
+// SPLIT: the training pair on a model rank's slice, Cm = a.Cm; otherwise
+// the square block, Cm = C, compiled as it was before the split existed.
+template <int MODE, int V, typename InT = float, bool RES = false, bool SPLIT = false>
 __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
   extern __shared__ __align__(16) float tsm[];
   constexpr bool AK = a_k_contig<MODE>(), BNC = b_n_contig<MODE>(), CV = is_conv<MODE>();
@@ -291,7 +300,8 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
   const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
   const int kbeg = blockIdx.z * a.k_per_split, kend = min(a.Kred, kbeg + a.k_per_split);
   const int tiles = (kend - kbeg + TBK - 1) / TBK;
-  const int half = a.K / 2, C = a.C, C2 = 2 * a.C;
+  // C2: the width of w_conv, b_conv and dacc rows, 2Cm.
+  const int half = a.K / 2, C = a.C, Cm = SPLIT ? a.Cm : a.C, C2 = 2 * Cm;
   const int a_pos = tid % A_PER * V, a_line = tid / A_PER;  // + (256 / A_PER) q
   const int b_pos = tid % B_PER * V, b_line = tid / B_PER;  // + (256 / B_PER) q
 
@@ -340,8 +350,8 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
           const int ts = a_t[q] + shift;
           ok = ok && ts >= 0 && ts < a.T;
           if (ok) src += (size_t)(i + shift) * (CV ? C : C2) + kcol;
-        } else if (ok) {  // DGLU, POINT
-          src += (size_t)i * C + k;
+        } else if (ok) {  // DGLU (dy), POINT (glu)
+          src += (size_t)i * (MODE == POINT ? Cm : C) + k;
         }
         cp_async<V>(As + r * TSK + a_pos, src, ok);
       }
@@ -356,8 +366,8 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
           const int ts = a_t[q] + w_shift;
           ok = ok && ts >= 0 && ts < a.T;
           if (ok) src += (size_t)(k + w_shift) * C + w_col;
-        } else if (ok) {  // DWP
-          src += (size_t)k * C + i;
+        } else if (ok) {  // DWP: glu
+          src += (size_t)k * Cm + i;
         }
         cp_async<V>(As + kk * TSM + a_pos, src, ok);
       }
@@ -367,7 +377,7 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
       if constexpr (CV) {
         const int w = b_pos / 32, r = b_pos % 32;
         const int p = blockIdx.x * (TBN / 2) + 16 * w + r % 16;
-        n = p < C ? (r < 16 ? p : C + p) : -1;
+        n = p < Cm ? (r < 16 ? p : Cm + p) : -1;
       } else {
         n = n0 + b_pos < a.N ? n0 + b_pos : -1;
       }
@@ -476,14 +486,14 @@ __global__ void __launch_bounds__(256, BLOCKS_SM) tc_gemm_kernel(Args a) {
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni) {  // lin in fragments 0, 1, its gate in 2, 3
           const int p = blockIdx.x * (TBN / 2) + wn * 16 + ni * 8 + 2 * tg + (e & 1);
-          if (p >= C) continue;
+          if (p >= Cm) continue;
           const float lin = acc[mi][ni][e] + a.bc[p];
-          const float sg = sigmoid(acc[mi][ni + 2][e] + a.bc[C + p]);
-          a.out[m * C + p] = lin * sg;
+          const float sg = sigmoid(acc[mi][ni + 2][e] + a.bc[Cm + p]);
+          a.out[m * Cm + p] = lin * sg;
           if constexpr (MODE == CONV) {  // the backward's: dacc from dglu
-            const float dg = a.dglu[m * C + p];
+            const float dg = a.dglu[m * Cm + p];
             a.out2[m * C2 + p] = dg * sg;
-            a.out2[m * C2 + C + p] = dg * lin * sg * (1.f - sg);
+            a.out2[m * C2 + Cm + p] = dg * lin * sg * (1.f - sg);
           }
         }
       } else if constexpr (MODE == POINT) {
@@ -565,18 +575,19 @@ Split split_k(int rows, int cols, int kred) {
   return {cdiv(kred, kps), kps};
 }
 
-Args geometry(int T, int C, int K, int dil) {
+Args geometry(int T, int C, int Cm, int K, int dil) {
   Args a = {};
   a.T = T;
   a.C = C;
+  a.Cm = Cm;
   a.K = K;
   a.dil = dil;
   return a;
 }
 
-template <int MODE, int V, typename InT, bool RES>
+template <int MODE, int V, typename InT, bool RES, bool SPLIT>
 cudaError_t tc_launch(const Args& a, dim3 grid, cudaStream_t st) {
-  auto kernel = tc_gemm_kernel<MODE, V, InT, RES>;
+  auto kernel = tc_gemm_kernel<MODE, V, InT, RES, SPLIT>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
   if (err != cudaSuccess) return err;
@@ -584,9 +595,11 @@ cudaError_t tc_launch(const Args& a, dim3 grid, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// A product on tc_gemm_kernel, in `split` slices (CONV, GLU: N is C, the
+// A product on tc_gemm_kernel, in `split` slices (CONV, GLU: N is Cm, the
 // pairs, and one slice; POINT one slice).  16-byte copies where every row
-// of every operand starts and steps on a 16-byte boundary (C a multiple of 4).
+// of every operand starts and steps on a 16-byte boundary (C and Cm
+// multiples of 4).  Partial tiles (Cm 96 against TBN 64 in DGLU, DWP's
+// rows) are bounded by the loaders' and the epilogue's checks.
 template <int MODE, typename InT = float, bool RES = false>
 cudaError_t tc_gemm(Args a, int M, int N, int Kred, Split split, cudaStream_t st) {
   a.M = M;
@@ -595,8 +608,14 @@ cudaError_t tc_gemm(Args a, int M, int N, int Kred, Split split, cudaStream_t st
   a.k_per_split = split.k_per_split;
   const dim3 grid(is_conv<MODE>() ? cdiv(N, TBN / 2) : cdiv(N, TBN), cdiv(M, TBM),
                   split.slices);
-  return a.C % 4 == 0 ? tc_launch<MODE, 4, InT, RES>(a, grid, st)
-                      : tc_launch<MODE, 1, InT, RES>(a, grid, st);
+  const bool vec = a.C % 4 == 0 && a.Cm % 4 == 0;
+  if (a.Cm == a.C)
+    return vec ? tc_launch<MODE, 4, InT, RES, false>(a, grid, st)
+               : tc_launch<MODE, 1, InT, RES, false>(a, grid, st);
+  if constexpr (RES) return cudaErrorInvalidValue;  // K5 is square
+  else
+    return vec ? tc_launch<MODE, 4, InT, RES, true>(a, grid, st)
+               : tc_launch<MODE, 1, InT, RES, true>(a, grid, st);
 }
 
 constexpr Split WHOLE = {1, 1 << 30};  // one slice: the whole reduction
@@ -616,29 +635,30 @@ cudaError_t column_sum(const float* a, float* part, float* out, int M, int N, cu
 }
 
 // The backward's fp32 scratch, carved in this order: dglu, glu, dacc, then
-// the split-K slices of each product that has more than one.
+// the split-K slices of each product that has more than one, then the
+// column sums' slices (of dacc's 2Cm columns and dy's C).
 struct BwdLayout {
   size_t dglu, glu, dacc, dglu_part, dwp_part, dwc_part, dxn_part, col_part, total;
   Split sdglu, sdwp, sdwc, sdxn;
 };
 
-BwdLayout bwd_layout(int B, int T, int C, int K) {
-  const size_t M = (size_t)B * T, C2 = 2 * (size_t)C;
+BwdLayout bwd_layout(int B, int T, int C, int Cm, int K) {
+  const size_t M = (size_t)B * T, C2 = 2 * (size_t)Cm;
   BwdLayout l;
-  l.sdglu = split_k((int)M, C, C);
-  l.sdwp = split_k(C, C, (int)M);
-  l.sdwc = split_k(K * C, 2 * C, (int)M);
-  l.sdxn = split_k((int)M, C, K * 2 * C);
+  l.sdglu = split_k((int)M, Cm, C);
+  l.sdwp = split_k(Cm, C, (int)M);
+  l.sdwc = split_k(K * C, 2 * Cm, (int)M);
+  l.sdxn = split_k((int)M, C, K * 2 * Cm);
   auto part = [](const Split& sp, size_t n) { return sp.slices > 1 ? sp.slices * n : 0; };
   l.dglu = 0;
-  l.glu = l.dglu + M * C;
-  l.dacc = l.glu + M * C;
+  l.glu = l.dglu + M * Cm;
+  l.dacc = l.glu + M * Cm;
   l.dglu_part = l.dacc + M * C2;
-  l.dwp_part = l.dglu_part + part(l.sdglu, M * C);
-  l.dwc_part = l.dwp_part + part(l.sdwp, (size_t)C * C);
+  l.dwp_part = l.dglu_part + part(l.sdglu, M * Cm);
+  l.dwc_part = l.dwp_part + part(l.sdwp, (size_t)Cm * C);
   l.dxn_part = l.dwc_part + part(l.sdwc, (size_t)K * C * C2);
   l.col_part = l.dxn_part + part(l.sdxn, M * C);
-  l.total = l.col_part + (size_t)cdiv((long)M, COLSUM_ROWS) * C2;
+  l.total = l.col_part + (size_t)cdiv((long)M, COLSUM_ROWS) * std::max(C2, (size_t)C);
   return l;
 }
 
@@ -655,14 +675,15 @@ cudaError_t tc_product(Args a, int M, int N, int Kred, Split split, float* part,
 
 }  // namespace
 
-// K5 (residual = 1) and the K6 forward (residual = 0).  x (B, T, C) in bf16
-// when in_bf16, else fp32; xn and glu (B, T, C) fp32: xn is the K6 forward's
-// second output, glu scratch.  out: x + y in x's type (K5), or y fp32 (K6).
-// Returns the first failing launch's cudaError_t, or 0.
+// K5 (residual = 1, Cm = C) and the K6 forward (residual = 0).  x (B, T, C)
+// in bf16 when in_bf16, else fp32; xn (B, T, C) and glu (B, T, Cm) fp32: xn
+// is the K6 forward's second output, glu scratch.  out: x + y in x's type
+// (K5), or y fp32 (K6).  Returns the first failing launch's cudaError_t, or 0.
 extern "C" int tcn_block_fwd(const void* x, const float* ln_scale, const float* ln_bias,
                              const float* wc, const float* bc, const float* wp, const float* bp,
-                             float* xn, float* glu, void* out, int B, int T, int C, int K, int dil,
-                             float eps, int in_bf16, int residual, void* stream) {
+                             float* xn, float* glu, void* out, int B, int T, int C, int Cm,
+                             int K, int dil, float eps, int in_bf16, int residual,
+                             void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const int M = B * T;
@@ -676,82 +697,83 @@ extern "C" int tcn_block_fwd(const void* x, const float* ln_scale, const float* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  Args a = geometry(T, C, K, dil);
+  Args a = geometry(T, C, Cm, K, dil);
   a.xn = xn;
   a.wc = wc;
   a.bc = bc;
   a.out = glu;
-  if ((err = tc_gemm<GLU>(a, M, C, K * C, WHOLE, st)) != cudaSuccess) return err;
+  if ((err = tc_gemm<GLU>(a, M, Cm, K * C, WHOLE, st)) != cudaSuccess) return err;
 
-  Args p = geometry(T, C, K, dil);
+  Args p = geometry(T, C, Cm, K, dil);
   p.glu = glu;
   p.wp = wp;
   p.bp = bp;
   if (!residual) {
     p.out = static_cast<float*>(out);
-    return tc_gemm<POINT>(p, M, C, C, WHOLE, st);
+    return tc_gemm<POINT>(p, M, C, Cm, WHOLE, st);
   }
   p.x_res = x;
   p.out_typed = out;
-  return in_bf16 ? tc_gemm<POINT, bf16, true>(p, M, C, C, WHOLE, st)
-                 : tc_gemm<POINT, float, true>(p, M, C, C, WHOLE, st);
+  return in_bf16 ? tc_gemm<POINT, bf16, true>(p, M, C, Cm, WHOLE, st)
+                 : tc_gemm<POINT, float, true>(p, M, C, Cm, WHOLE, st);
 }
 
 // Floats of fp32 scratch that tcn_block_bwd needs at these shapes.
-extern "C" int tcn_block_bwd_workspace(int B, int T, int C, int K) {
-  return (int)bwd_layout(B, T, C, K).total;
+extern "C" int tcn_block_bwd_workspace(int B, int T, int C, int Cm, int K) {
+  return (int)bwd_layout(B, T, C, Cm, K).total;
 }
 
 // K6 backward.  xn, dy (B, T, C) fp32; ws: tcn_block_bwd_workspace floats;
-// outputs fp32: dxn (B, T, C), dwc (K, C, 2C), dbc (2C), dwp (C, C), dbp (C).
+// outputs fp32: dxn (B, T, C), dwc (K, C, 2Cm), dbc (2Cm), dwp (Cm, C), dbp (C).
 extern "C" int tcn_block_bwd(const float* xn, const float* dy, const float* wc, const float* bc,
                              const float* wp, float* ws, float* dxn, float* dwc, float* dbc,
-                             float* dwp, float* dbp, int B, int T, int C, int K, int dil,
+                             float* dwp, float* dbp, int B, int T, int C, int Cm, int K, int dil,
                              void* stream) {
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const int M = B * T;
-  const BwdLayout l = bwd_layout(B, T, C, K);
+  const BwdLayout l = bwd_layout(B, T, C, Cm, K);
   float* dglu = ws + l.dglu;
   float* glu = ws + l.glu;
   float* dacc = ws + l.dacc;
 
-  Args g = geometry(T, C, K, dil);
+  Args g = geometry(T, C, Cm, K, dil);
   g.dy = dy;
   g.wp = wp;
-  cudaError_t err = tc_product<DGLU>(g, M, C, C, l.sdglu, ws + l.dglu_part, dglu, st);
+  cudaError_t err = tc_product<DGLU>(g, M, Cm, C, l.sdglu, ws + l.dglu_part, dglu, st);
   if (err != cudaSuccess) return err;
 
   // The GLU tensors again, from xn: glu, and dacc from dglu in the epilogue.
-  Args a = geometry(T, C, K, dil);
+  Args a = geometry(T, C, Cm, K, dil);
   a.xn = xn;
   a.wc = wc;
   a.bc = bc;
   a.dglu = dglu;
   a.out = glu;
   a.out2 = dacc;
-  if ((err = tc_gemm<CONV>(a, M, C, K * C, WHOLE, st)) != cudaSuccess) return err;
+  if ((err = tc_gemm<CONV>(a, M, Cm, K * C, WHOLE, st)) != cudaSuccess) return err;
 
-  Args w = geometry(T, C, K, dil);
+  Args w = geometry(T, C, Cm, K, dil);
   w.glu = glu;
   w.dy = dy;
-  if ((err = tc_product<DWP>(w, C, C, M, l.sdwp, ws + l.dwp_part, dwp, st)) != cudaSuccess)
+  if ((err = tc_product<DWP>(w, Cm, C, M, l.sdwp, ws + l.dwp_part, dwp, st)) !=
+      cudaSuccess)
     return err;
 
-  Args c = geometry(T, C, K, dil);
+  Args c = geometry(T, C, Cm, K, dil);
   c.xn = xn;
   c.dacc = dacc;
-  if ((err = tc_product<DWC>(c, K * C, 2 * C, M, l.sdwc, ws + l.dwc_part, dwc, st)) !=
+  if ((err = tc_product<DWC>(c, K * C, 2 * Cm, M, l.sdwc, ws + l.dwc_part, dwc, st)) !=
       cudaSuccess)
     return err;
 
-  Args d = geometry(T, C, K, dil);
+  Args d = geometry(T, C, Cm, K, dil);
   d.dacc = dacc;
   d.wc = wc;
-  if ((err = tc_product<DXN>(d, M, C, K * 2 * C, l.sdxn, ws + l.dxn_part, dxn, st)) !=
+  if ((err = tc_product<DXN>(d, M, C, K * 2 * Cm, l.sdxn, ws + l.dxn_part, dxn, st)) !=
       cudaSuccess)
     return err;
 
-  if ((err = column_sum(dacc, ws + l.col_part, dbc, M, 2 * C, st)) != cudaSuccess) return err;
+  if ((err = column_sum(dacc, ws + l.col_part, dbc, M, 2 * Cm, st)) != cudaSuccess) return err;
   return column_sum(dy, ws + l.col_part, dbp, M, C, st);
 }

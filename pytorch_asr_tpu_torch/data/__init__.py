@@ -3,7 +3,8 @@ batching and the prefetching training stream.
 
 ``build_dataset`` reads ``data.librispeech_root`` lazily (manifest and
 headers at start-up, one file decoded an access) or renders the synthetic
-corpus when no root is set; ``eval_data_config`` names the split the
+corpus when no root is set; across data ranks each reads its shard,
+records ``[d::D]`` before bucketing as grain shards; ``eval_data_config`` names the split the
 trainer and the decode, evaluate and align CLIs evaluate on, by the JAX
 package's rule.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from pytorch_asr_tpu_torch.configs.base import DataConfig
-from pytorch_asr_tpu_torch.data.batching import Bucket, BucketedDataset
+from pytorch_asr_tpu_torch.data.batching import Bucket, BucketedDataset, corpus_shard
 from pytorch_asr_tpu_torch.data.librispeech import load_corpus, scan_manifest
 from pytorch_asr_tpu_torch.data.synthetic import synthetic_corpus, synthetic_texts
 from pytorch_asr_tpu_torch.data.tokenizer import CharTokenizer, get_tokenizer
@@ -78,13 +79,23 @@ def resolve_buckets(cfg: DataConfig, corpus, tokenizer):
     return optimize_buckets(audio_lens, label_lens, cfg.auto_buckets)
 
 
-def build_dataset(cfg: DataConfig, sample_rate: int,
-                  max_utts: int | None = None) -> BucketedDataset:
-    """The bucketed dataset named by ``cfg`` (synthetic when no data root)."""
+def build_dataset(cfg: DataConfig, sample_rate: int, max_utts: int | None = None,
+                  num_shards: int = 1, shard_index: int = 0) -> BucketedDataset:
+    """The bucketed dataset named by ``cfg`` (synthetic when no data root).
+
+    With ``num_shards`` > 1 it holds records ``[shard_index::num_shards]``
+    of the corpus, in batches of ``data.batch_size / num_shards``: a data
+    rank's share of the global batch.  The bucket ladders are the whole
+    corpus's, as the JAX package resolves them before grain shards the
+    records, so every shard pads to the same shapes."""
     corpus = load_corpus_for(cfg, sample_rate, max_utts)
     tok = get_tokenizer(cfg.vocab)
     audio_b, label_b = resolve_buckets(cfg, corpus, tok)
-    return BucketedDataset(corpus, batch_size=cfg.batch_size,
+    if cfg.batch_size % num_shards:
+        raise ValueError(f"data.batch_size {cfg.batch_size} does not divide over "
+                         f"{num_shards} data shards")
+    return BucketedDataset(corpus_shard(corpus, shard_index, num_shards),
+                           batch_size=cfg.batch_size // num_shards,
                            bucket_audio_lens=audio_b, bucket_label_lens=label_b,
                            tokenizer=tok)
 

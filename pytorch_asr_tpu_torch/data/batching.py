@@ -55,6 +55,43 @@ def _emit(examples: list[tuple[np.ndarray, np.ndarray]], bucket: Bucket,
     return {"audio": audio, "audio_len": audio_len, "tokens": tokens, "token_len": token_len}
 
 
+class CorpusShard:
+    """Records ``[index::count]`` of a corpus, as grain's
+    ``ds[shard_index::num_shards]`` takes a host's shard: a view that reads
+    the corpus only as it is read."""
+
+    def __init__(self, corpus, index: int, count: int) -> None:
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
+        self._corpus = corpus
+        self.indices = range(index, len(corpus), count)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self._corpus[self.indices[i]]
+
+
+class LazyCorpusShard(CorpusShard):
+    """A ``CorpusShard`` of a lazy corpus (``data/librispeech.py::LazyCorpus``):
+    header lengths and transcripts without decoding, as the corpus gives them."""
+
+    def audio_lengths(self) -> np.ndarray:
+        return np.asarray(self._corpus.audio_lengths())[np.asarray(self.indices, np.int64)]
+
+    def transcript(self, i: int) -> str:
+        return self._corpus.transcript(self.indices[i])
+
+
+def corpus_shard(corpus, index: int, count: int):
+    """Records ``[index::count]`` of ``corpus``; the corpus itself for one shard."""
+    if count == 1:
+        return corpus
+    lazy = hasattr(corpus, "audio_lengths") and hasattr(corpus, "transcript")
+    return (LazyCorpusShard if lazy else CorpusShard)(corpus, index, count)
+
+
 class BucketedDataset:
     """Tokenizes, buckets and batches a corpus of (audio, transcript) pairs.
 

@@ -144,7 +144,8 @@ def decode_ladder(cfg: ExperimentConfig, dataset: BucketedDataset):
 
 def decode_dataset(cfg: ExperimentConfig, model: ASRModel,
                    dataset: BucketedDataset | None = None, max_batches: int | None = None,
-                   dump_path: str | None = None, step: int | None = None) -> dict:
+                   dump_path: str | None = None, step: int | None = None,
+                   mesh: Mesh | None = None) -> dict:
     """Decode ``dataset`` (by default the eval split of ``cfg.data``:
     ``data.eval_data_config``)
     with ``cfg.decode.method`` on the decode ladder; returns method, wer,
@@ -152,11 +153,12 @@ def decode_dataset(cfg: ExperimentConfig, model: ASRModel,
     padding_efficiency_decode when the ladder is on.  ``dump_path`` writes
     ``<prefix>.ref.tsv`` and ``<prefix>.hyp.tsv`` (``id<TAB>text`` lines);
     over several ranks each model-index-0 rank writes its own rows to
-    ``<prefix>.p<rank>.{ref,hyp}.tsv``."""
+    ``<prefix>.p<rank>.{ref,hyp}.tsv``.  ``mesh``: the ranks' mesh (by
+    default one made from ``cfg.mesh``)."""
     device = model.ctc_head.weight.device
     dataset = dataset or build_eval_dataset(cfg.data, cfg.frontend.sample_rate)
     eval_ds, pad_eff = decode_ladder(cfg, dataset)
-    mesh = make_mesh(cfg.mesh, batch_size=eval_ds.batch_size)
+    mesh = mesh or make_mesh(cfg.mesh, batch_size=eval_ds.batch_size)
     decode_fn = make_decode_fn(cfg, model, load_lm(cfg, device, dataset.tokenizer), mesh)
     refs: list[str] = []
     hyps: list[str] = []

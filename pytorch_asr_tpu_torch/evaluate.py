@@ -15,7 +15,7 @@ from pytorch_asr_tpu_torch.data import BucketedDataset, build_eval_dataset, get_
 from pytorch_asr_tpu_torch.decoding.eval_metrics import local_hyps_refs, reduce_decode_metrics
 from pytorch_asr_tpu_torch.decoding.greedy import greedy_ctc
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
-from pytorch_asr_tpu_torch.parallel.mesh import make_mesh, shard_batch_global, use_mesh
+from pytorch_asr_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch_global, use_mesh
 from pytorch_asr_tpu_torch.runtime import resolve_device, set_fp32_math
 from pytorch_asr_tpu_torch.weights import load_npz
 
@@ -49,11 +49,12 @@ def eval_step(model: ASRModel, batch: dict) -> tuple[torch.Tensor, torch.Tensor]
 
 
 def evaluate(cfg: ExperimentConfig, model: ASRModel, max_batches: int | None = None,
-             dataset: BucketedDataset | None = None) -> dict:
+             dataset: BucketedDataset | None = None, mesh: Mesh | None = None) -> dict:
     """Greedy-decode WER/CER and decode RTF over ``dataset`` (by default the
-    eval split of ``cfg.data``: ``data.eval_data_config``)."""
+    eval split of ``cfg.data``: ``data.eval_data_config``), on ``mesh`` (by
+    default one made from ``cfg.mesh``)."""
     dataset = dataset or build_eval_dataset(cfg.data, cfg.frontend.sample_rate)
-    mesh = make_mesh(cfg.mesh, batch_size=dataset.batch_size)
+    mesh = mesh or make_mesh(cfg.mesh, batch_size=dataset.batch_size)
     refs: list[str] = []
     hyps: list[str] = []
     audio_sec = 0.0

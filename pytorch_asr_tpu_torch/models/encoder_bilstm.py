@@ -11,8 +11,9 @@ an output frame depends only on input frames at or before it
 (``decoding/streaming.py``).  Under a mesh whose model axis is 2
 (``parallel/mesh.py``) the encoder splits each bidirectional layer's
 directions over the two model ranks, as the JAX package's
-``_bilstm_tp_directions`` does for serving; a unidirectional stack runs whole
-on every rank, as JAX's ``tp_dirs`` requires ``bidirectional``.
+``_bilstm_tp_directions`` does, in serving and in training; a unidirectional
+stack runs whole on every rank, as JAX's ``tp_dirs`` requires
+``bidirectional``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch import nn
 
 from pytorch_asr_tpu_torch.configs.base import BiLSTMEncoderConfig
 from pytorch_asr_tpu_torch.ops import lstm_cuda
-from pytorch_asr_tpu_torch.parallel.mesh import active_mesh, model_all_gather
+from pytorch_asr_tpu_torch.parallel.mesh import active_mesh, copy_to_model, model_all_gather
 
 
 def conv_out_len(length: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -165,16 +166,17 @@ class BiLSTMEncoder(nn.Module):
         x, lengths = self.conv(feats, feat_len)
         mesh = active_mesh()
         split = self.cfg.bidirectional and mesh is not None and mesh.model == 2
-        if split and (train or torch.is_grad_enabled()):
-            raise NotImplementedError("the BiLSTM direction split serves only: its backward "
-                                      "waits for the training slice")
         for layer in self.layers:
             if split:
                 # Model rank 0 runs the forward direction and rank 1 the
                 # reverse; the gather over the hidden dim is [fwd, bwd].  The
-                # weights stay whole on both ranks.
+                # weights stay whole on both ranks.  Backward: each rank's
+                # slice of the gathered gradient reaches its own direction,
+                # and dx sums over the two ranks (JAX's shard_map transpose
+                # psums it); the other direction's weights get no gradient
+                # on this rank.
                 own = layer["fwd"] if mesh.model_index == 0 else layer["bwd"]
-                x = model_all_gather(own(x, lengths), -1, mesh)
+                x = model_all_gather(own(copy_to_model(x, mesh), lengths), -1, mesh)
             elif not self.cfg.bidirectional:
                 x = layer["fwd"](x, lengths)
             else:

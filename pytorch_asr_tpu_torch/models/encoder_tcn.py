@@ -5,8 +5,9 @@ dilated 1-D convs (LayerNorm -> dilated conv -> GLU -> pointwise -> dropout
 -> + x) and a final LayerNorm.  The blocks run through ``ops.tcn_cuda``: the
 inference kernel (K5) in eval, the training pair (K6) in training.
 Parameters keep the JAX names and layouts, so ``weights.load_jax_params``
-loads a JAX tree as it is.  The tensor-parallel block (``_tp_pallas``)
-waits for the multi-GPU slice.
+loads a JAX tree as it is.  Under a mesh whose model axis m > 1 divides the
+channels, each block splits its GLU over the model ranks, as the JAX
+package's ``TCNBlock._tp_pallas`` does (``TCNBlock._split``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 from pytorch_asr_tpu_torch.configs.base import TCNEncoderConfig
 from pytorch_asr_tpu_torch.models.encoder_bilstm import conv_out_len, dropout
 from pytorch_asr_tpu_torch.ops import tcn_cuda
+from pytorch_asr_tpu_torch.parallel.mesh import active_mesh, copy_to_model, reduce_from_model
 
 FINAL_LN_EPS = 1e-6   # flax nn.LayerNorm's default (torch's is 1e-5)
 
@@ -62,7 +64,7 @@ class TCNBlock(nn.Module):
     def __init__(self, channels: int, kernel_size: int, dilation: int, dropout_rate: float):
         super().__init__()
         C, K = channels, kernel_size
-        self.dilation, self.dropout = dilation, dropout_rate
+        self.channels, self.dilation, self.dropout = C, dilation, dropout_rate
         self.ln_scale = nn.Parameter(torch.empty(C))
         self.ln_bias = nn.Parameter(torch.empty(C))
         self.w_conv = nn.Parameter(torch.empty(K, C, 2 * C))
@@ -70,8 +72,34 @@ class TCNBlock(nn.Module):
         self.w_point = nn.Parameter(torch.empty(C, C))
         self.b_point = nn.Parameter(torch.empty(C))
 
+    def _split(self, x: torch.Tensor, lengths: torch.Tensor, train: bool,
+               generator: torch.Generator | None, mesh) -> torch.Tensor:
+        """Model rank k of m runs the block body through K6 at width cm = C / m
+        on its GLU pairs: w_conv's lin columns [k cm, (k+1) cm) with their
+        gate columns C + the same, the matching w_point rows, and b_point / m
+        (summed back whole); the bodies sum over the model ranks, then
+        dropout, ``x + y`` and the mask, in training and in eval, as JAX's
+        ``_tp_pallas`` (whose eval reuses the body-only kernel too: K5
+        would add x on every rank).  x's gradient sums over the ranks; each
+        rank's weight gradients are its part."""
+        C, m, k = self.channels, mesh.model, mesh.model_index
+        cm = C // m
+        lin, gate = slice(k * cm, (k + 1) * cm), slice(C + k * cm, C + (k + 1) * cm)
+        w = [self.ln_scale.contiguous(), self.ln_bias.contiguous(),
+             torch.cat([self.w_conv[:, :, lin], self.w_conv[:, :, gate]], dim=2),
+             torch.cat([self.b_conv[lin], self.b_conv[gate]]),
+             self.w_point[lin].contiguous(), self.b_point / m]
+        y = tcn_cuda.tcn_block_train(copy_to_model(x, mesh).contiguous(), *w, self.dilation)
+        y = reduce_from_model(y, mesh)
+        if train and self.dropout > 0:
+            y = dropout(y, self.dropout, generator)
+        return _mask_time(x + y.to(x.dtype), lengths)
+
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        mesh = active_mesh()
+        if mesh is not None and mesh.model > 1 and self.channels % mesh.model == 0:
+            return self._split(x, lengths, train, generator, mesh)
         w = [t.contiguous() for t in (self.ln_scale, self.ln_bias, self.w_conv, self.b_conv,
                                       self.w_point, self.b_point)]
         # Frames past a row's length are 0 here, but the block's LayerNorm

@@ -21,8 +21,10 @@ utterance), the searches' carried forms, a chunk of a stream
 suffixes), K7 and K8 with the hashed n-gram LM (``prefix_beam_hashed``,
 ``prefix_beam_topa_hashed``, their ``_carry`` and ``_wide`` forms), K4 past
 its registers (``ctc_alpha_wide``, ``ctc_beta_wide``,
-``ctc_alpha_paired_wide``: the lattice rows in device memory) and K1 at an
-``n_fft`` with no FFT plan (``stft_log_mel_dft``, its DFT form).
+``ctc_alpha_paired_wide``: the lattice rows in device memory), K1 at an
+``n_fft`` with no FFT plan (``stft_log_mel_dft``, its DFT form) and K6 at a
+model rank's split width (``tcn_block_train_fwd_split``,
+``tcn_block_bwd_split``).
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ LAUNCHES: dict[str, int] = {"stft_log_mel": 0, "lstm_seq": 0, "lstm_seq_train_fw
                             "lstm_seq_bwd": 0, "ctc_alpha": 0, "ctc_beta": 0,
                             "prefix_beam": 0, "prefix_beam_topa": 0, "prefix_beam_rnn": 0,
                             "prefix_beam_rnn_topa": 0, "merge_topk": 0, "tcn_block": 0,
-                            "tcn_block_train_fwd": 0, "tcn_block_bwd": 0, "bilstm_seq": 0,
+                            "tcn_block_train_fwd": 0, "tcn_block_bwd": 0,
+                            "tcn_block_train_fwd_split": 0, "tcn_block_bwd_split": 0, "bilstm_seq": 0,
                             "bilstm_seq_train_fwd": 0, "bilstm_seq_bwd": 0,
                             "bilstm_seq_per_utterance": 0, "bilstm_seq_bwd_per_utterance": 0,
                             "lstm_seq_wide": 0, "lstm_seq_train_wide": 0,

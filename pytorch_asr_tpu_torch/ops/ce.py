@@ -8,18 +8,21 @@ import torch
 
 
 def smoothed_ce_loss(logits: torch.Tensor, targets: torch.Tensor, target_len: torch.Tensor,
-                     label_smoothing: float = 0.0) -> torch.Tensor:
+                     label_smoothing: float = 0.0,
+                     count: torch.Tensor | None = None) -> torch.Tensor:
     """Mean label-smoothed CE over every valid position of the batch (not a
     mean per row): ``(1 - eps) nll + eps (-mean_V logp)``, the mean over all
     V, blank included.  logits (B, U, V), targets (B, U) eos-terminated,
-    target_len (B,) counting the eos slot.  Returns a 0-d float32 tensor."""
+    target_len (B,) counting the eos slot.  ``count`` divides instead of
+    the batch's valid positions: a data rank's share of a global batch's
+    mean.  Returns a 0-d float32 tensor."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, 2, targets.long()[..., None])[..., 0]          # (B, U)
     if label_smoothing > 0.0:
         nll = (1.0 - label_smoothing) * nll + label_smoothing * -logp.mean(dim=-1)
     mask = torch.arange(logits.shape[1], device=logits.device)[None, :] < target_len[:, None]
     total = torch.sum(nll * mask)
-    return total / torch.clamp(mask.sum().float(), min=1.0)
+    return total / torch.clamp(mask.sum().float() if count is None else count, min=1.0)
 
 
 def make_decoder_io(tokens: torch.Tensor, token_len: torch.Tensor, sos_id: int, eos_id: int):

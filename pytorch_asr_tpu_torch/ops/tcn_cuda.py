@@ -10,9 +10,13 @@ CPU tensors and launches its kernel for CUDA tensors; there is no other
 switch and no fallback.
 
 Layouts are the JAX package's: x (B, T, C); ln_scale, ln_bias (C,); w_conv
-(K, C, 2C), the K taps of a non-causal conv of dilation d, tap k reading
-frame t + (k - K//2) d; b_conv (2C,), the lin half then the gate half;
-w_point (C, C); b_point (C,).  Parameters are float32.
+(K, C, 2Cm), the K taps of a non-causal conv of dilation d, tap k reading
+frame t + (k - K//2) d; b_conv (2Cm,), the lin half then the gate half;
+w_point (Cm, C); b_point (C,).  Parameters are float32.  The GLU half-width
+Cm is C in the model's block; a model rank of the tensor-parallel block
+(``models/encoder_tcn.py``) runs the training pair on its slice, Cm = C / m,
+read off the weights as the JAX kernel reads it.  Its launches count under
+``tcn_block_train_fwd_split`` and ``tcn_block_bwd_split``.  K5 is square.
 
 Parity trap: frames outside [0, T) of the padded batch read 0 in the conv,
 but frames past an utterance's length inside [0, T) are whatever the model
@@ -33,9 +37,9 @@ from pytorch_asr_tpu_torch.ops import build
 EPS = 1e-6    # the block LayerNorm's epsilon (torch's default is 1e-5)
 HALO = 32     # the JAX kernel's halo: it takes dilation * (K // 2) <= 32
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"tcn_block_fwd": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
-               "tcn_block_bwd_workspace": [_I] * 4,
-               "tcn_block_bwd": [_P] * 11 + [_I] * 5 + [_P]}
+_SIGNATURES = {"tcn_block_fwd": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
+               "tcn_block_bwd_workspace": [_I] * 5,
+               "tcn_block_bwd": [_P] * 11 + [_I] * 6 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -62,14 +66,15 @@ def _taps(xn: torch.Tensor, K: int, dilation: int) -> list[torch.Tensor]:
 
 
 def _pre(xs: list[torch.Tensor], w_conv, b_conv) -> torch.Tensor:
-    """The conv's (B, T, 2C) output, summed tap by tap, plus the bias."""
+    """The conv's (B, T, 2Cm) output, summed tap by tap, plus the bias."""
     return sum(x_k @ w_k for x_k, w_k in zip(xs, w_conv)) + b_conv
 
 
 def tcn_block_train_fwd_plain(x, ln_scale, ln_bias, w_conv, b_conv, w_point, b_point,
                               dilation: int):
     """-> (y, xn), both (B, T, C) float32: the block body without its
-    residual, y = P(GLU(conv(LN(x)))), and LN(x) (``_tcn_fwd_train_kernel``)."""
+    residual, y = P(GLU(conv(LN(x)))), and LN(x) (``_tcn_fwd_train_kernel``),
+    at any GLU half-width Cm (``w_point.shape[0]``)."""
     xn = layer_norm(x, ln_scale, ln_bias)
     lin, gate = _pre(_taps(xn, w_conv.shape[0], dilation), w_conv, b_conv).chunk(2, dim=-1)
     return (lin * torch.sigmoid(gate)) @ w_point + b_point, xn
@@ -111,15 +116,22 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda_args(name: str, x, params: dict) -> None:
+def _counted(name: str, C: int, Cm: int) -> str:
+    """The launch count's name: a split width counts apart from the square block."""
+    return name if Cm == C else f"{name}_split"
+
+
+def _check_cuda_args(name: str, x, params: dict, square: bool = False) -> int:
+    """Check the shapes, types and places of a launch's tensors; returns Cm."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (B, T, C), got {tuple(x.shape)}")
     C = x.shape[2]
     K = params["w_conv"].shape[0] if params["w_conv"].dim() == 3 else 0
-    shapes = {"ln_scale": (C,), "ln_bias": (C,), "w_conv": (K, C, 2 * C), "b_conv": (2 * C,),
-              "w_point": (C, C), "b_point": (C,), "xn": x.shape, "dy": x.shape}
+    Cm = C if square else params["w_point"].shape[0]     # w_point is (Cm, C)
+    shapes = {"ln_scale": (C,), "ln_bias": (C,), "w_conv": (K, C, 2 * Cm), "b_conv": (2 * Cm,),
+              "w_point": (Cm, C), "b_point": (C,), "xn": x.shape, "dy": x.shape}
     for key, t in params.items():
         if tuple(t.shape) != tuple(shapes[key]) or t.dtype != torch.float32:
             raise ValueError(f"{name}: {key} must be {tuple(shapes[key])} float32, "
@@ -127,13 +139,16 @@ def _check_cuda_args(name: str, x, params: dict) -> None:
     for t in (x, *params.values()):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: all inputs must be contiguous on one CUDA device")
+    return Cm
 
 
 def _fwd(name: str, x, ln_scale, ln_bias, w_conv, b_conv, w_point, b_point, dilation,
          residual: bool):
-    """Launch ``tcn_block_fwd``: K5 with the residual, else the K6 forward."""
-    _check_cuda_args(name, x, {"ln_scale": ln_scale, "ln_bias": ln_bias, "w_conv": w_conv,
-                               "b_conv": b_conv, "w_point": w_point, "b_point": b_point})
+    """Launch ``tcn_block_fwd``: K5 with the residual (square), else the K6
+    forward at the weights' Cm."""
+    Cm = _check_cuda_args(name, x, {"ln_scale": ln_scale, "ln_bias": ln_bias,
+                                    "w_conv": w_conv, "b_conv": b_conv, "w_point": w_point,
+                                    "b_point": b_point}, square=residual)
     if x.dtype not in _DTYPES:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
     B, T, C = x.shape
@@ -141,15 +156,15 @@ def _fwd(name: str, x, ln_scale, ln_bias, w_conv, b_conv, w_point, b_point, dila
     out = torch.empty_like(x) if residual else torch.empty_like(xn)
     if B * T == 0:
         return out, xn
-    glu = torch.empty_like(xn)
+    glu = torch.empty((B, T, Cm), dtype=torch.float32, device=x.device)
     lib = build.load("tcn_block", _SIGNATURES)
     err = lib.tcn_block_fwd(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_conv.data_ptr(),
         b_conv.data_ptr(), w_point.data_ptr(), b_point.data_ptr(), xn.data_ptr(),
-        glu.data_ptr(), out.data_ptr(), B, T, C, w_conv.shape[0], dilation, EPS,
+        glu.data_ptr(), out.data_ptr(), B, T, C, Cm, w_conv.shape[0], dilation, EPS,
         int(x.dtype == torch.bfloat16), int(residual), _stream(x))
     build.check(err, name)
-    build.LAUNCHES[name] += 1
+    build.LAUNCHES[_counted(name, C, Cm)] += 1
     return out, xn
 
 
@@ -183,8 +198,8 @@ def tcn_block_bwd(xn, dy, w_conv, b_conv, w_point, dilation: int):
     if xn.device.type == "cpu":
         return tcn_block_bwd_plain(xn, dy, w_conv, b_conv, w_point, dilation)
     dy = dy.float().contiguous()
-    _check_cuda_args("tcn_block_bwd", xn, {"xn": xn, "dy": dy, "w_conv": w_conv,
-                                           "b_conv": b_conv, "w_point": w_point})
+    Cm = _check_cuda_args("tcn_block_bwd", xn, {"xn": xn, "dy": dy, "w_conv": w_conv,
+                                                "b_conv": b_conv, "w_point": w_point})
     B, T, C = xn.shape
     K = w_conv.shape[0]
     dxn = torch.empty_like(xn)
@@ -193,14 +208,14 @@ def tcn_block_bwd(xn, dy, w_conv, b_conv, w_point, dilation: int):
     if B * T == 0:
         return dxn, *(g.zero_() for g in grads), dbp.zero_()
     lib = build.load("tcn_block", _SIGNATURES)
-    ws = torch.empty(lib.tcn_block_bwd_workspace(B, T, C, K), dtype=torch.float32,
+    ws = torch.empty(lib.tcn_block_bwd_workspace(B, T, C, Cm, K), dtype=torch.float32,
                      device=xn.device)
     err = lib.tcn_block_bwd(
         xn.data_ptr(), dy.data_ptr(), w_conv.data_ptr(), b_conv.data_ptr(), w_point.data_ptr(),
         ws.data_ptr(), dxn.data_ptr(), *(g.data_ptr() for g in grads), dbp.data_ptr(),
-        B, T, C, K, dilation, _stream(xn))
+        B, T, C, Cm, K, dilation, _stream(xn))
     build.check(err, "tcn_block_bwd")
-    build.LAUNCHES["tcn_block_bwd"] += 1
+    build.LAUNCHES[_counted("tcn_block_bwd", C, Cm)] += 1
     return dxn, *grads, dbp
 
 

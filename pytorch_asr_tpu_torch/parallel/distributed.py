@@ -6,7 +6,9 @@ which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT``.  Without them the run is one process
 and no process group is made.  Each rank reads the same eval batches and
 keeps its own rows (``parallel.mesh.shard_batch_global``); the corpus
-metrics are a count-sum over the ranks (``sum_across_processes``).
+metrics are a count-sum over the ranks (``sum_across_processes``).  In
+training each data row of the mesh reads its own shard of the corpus
+(``data_shard``).
 """
 
 from __future__ import annotations
@@ -49,10 +51,16 @@ def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def host_shard() -> tuple[int, int]:
-    """(num_shards, shard_index) for per-rank data sharding."""
-    t = topology()
-    return t["world_size"], t["rank"]
+def data_shard(mesh=None) -> tuple[int, int]:
+    """(num_shards, shard_index) of the training corpus this rank reads: one
+    shard a data row of ``mesh`` (a ``parallel.mesh.Mesh``), so the model
+    ranks of a row read the same records and data index d of D reads shard
+    d.  JAX's ``host_shard`` shards by process, each host feeding all its
+    devices; here a process is a rank, and a rank's data index takes the
+    host's place.  No mesh, or one data row: (1, 0)."""
+    if mesh is None or mesh.data == 1:
+        return 1, 0
+    return mesh.data, mesh.data_index
 
 
 def collective_device() -> torch.device:
@@ -63,15 +71,16 @@ def collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def sum_across_processes(values) -> np.ndarray:
-    """Element-wise sum of a small numeric vector over all ranks (every rank
-    calls it the same number of times).  Counts go as int64 and reduce
-    exactly, so a multi-rank WER equals the one-process WER; anything else
-    goes as float64.  One process: the values as they are."""
+def sum_across_processes(values, group=None) -> np.ndarray:
+    """Element-wise sum of a small numeric vector over all ranks, or those of
+    ``group`` (every rank calls it the same number of times).  Counts go as
+    int64 and reduce exactly, so a multi-rank WER equals the one-process
+    WER; anything else goes as float64.  One process: the values as they
+    are."""
     arr = np.atleast_1d(np.asarray(values))
     arr = arr.astype(np.int64 if np.issubdtype(arr.dtype, np.integer) else np.float64)
     if not dist.is_initialized():
         return arr
     t = torch.from_numpy(arr).to(collective_device())
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t.cpu().numpy()

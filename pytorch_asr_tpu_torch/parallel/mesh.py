@@ -8,6 +8,16 @@ hold the same rows.  The model ranks of a row share one process group, over
 which the beam-sharded search exchanges its candidates and the BiLSTM's
 direction split its outputs (``model_all_gather``).  Ranks past
 data x model hold no rows.
+
+Training across ranks differentiates through the model group's exchanges:
+``copy_to_model`` (identity forward, a sum over the model ranks backward),
+``reduce_from_model`` (a sum forward, identity backward) and
+``model_all_gather`` (its backward keeps this rank's slice), the
+counterparts of the transposes JAX's ``shard_map`` gives its collectives.
+``all_reduce_flat`` sums a list of tensors over a group in one collective.
+Under gloo each exchange goes through host memory (``collective_device``),
+and a 2-byte float is summed as float32 and rounded back, as adding two of
+them in torch rounds.
 """
 
 from __future__ import annotations
@@ -113,14 +123,7 @@ def shard_batch_global(mesh: Mesh, batch: dict) -> dict:
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
-def model_all_gather(x: torch.Tensor, dim: int, mesh: Mesh | None = None) -> torch.Tensor:
-    """The model ranks' ``x`` concatenated along ``dim`` in model-index
-    order, on ``x``'s device (every model rank of the row calls it alike).
-    Under gloo a CUDA tensor goes through host memory, and a 2-byte type as
-    its bytes: both exact.  One model rank: ``x``."""
-    mesh = mesh or active_mesh()
-    if mesh is None or mesh.model == 1:
-        return x
+def _gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
     dim = dim % x.dim()
     send = x.contiguous().to(collective_device())
     as_bytes = send.dtype in _BYTE_VIEW
@@ -132,3 +135,103 @@ def model_all_gather(x: torch.Tensor, dim: int, mesh: Mesh | None = None) -> tor
     if as_bytes:
         out = out.view(x.dtype)
     return out.to(x.device)
+
+
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, a new tensor on ``x``'s device."""
+    widen = x.dtype in (torch.bfloat16, torch.float16)
+    buf = x.detach().to(collective_device(), torch.float32 if widen else x.dtype, copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.device, x.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh, ctx.size = dim % x.dim(), mesh, x.shape[dim]
+        return _gather(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.mesh.model_index * ctx.size, ctx.size), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_sum(grad, ctx.mesh.model_group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce_sum(x, mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _split(mesh: Mesh | None) -> Mesh | None:
+    mesh = mesh or active_mesh()
+    return None if mesh is None or mesh.model == 1 else mesh
+
+
+def model_all_gather(x: torch.Tensor, dim: int, mesh: Mesh | None = None) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated along ``dim`` in model-index
+    order, on ``x``'s device (every model rank of the row calls it alike).
+    Under gloo a CUDA tensor goes through host memory, and a 2-byte type as
+    its bytes: both exact.  Differentiable: the gradient of this rank's
+    ``x`` is its own slice of the output's.  One model rank: ``x``."""
+    mesh = _split(mesh)
+    if mesh is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, dim, mesh)
+    return _gather(x, dim, mesh)
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """``x``, whose gradient is summed over the model ranks: the input of a
+    computation that each model rank runs on its own part of the weights.
+    One model rank: ``x``."""
+    mesh = _split(mesh)
+    if mesh is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """The sum of the model ranks' ``x``; its gradient passes to each rank's
+    ``x`` as it is.  One model rank: ``x``."""
+    mesh = _split(mesh)
+    if mesh is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, mesh)
+    return _all_reduce_sum(x, mesh.model_group)
+
+
+def all_reduce_flat(tensors: list[torch.Tensor], *groups) -> list[torch.Tensor]:
+    """Each tensor summed over the ranks of each group in turn, through one
+    collective a group on one flat float32 buffer, staged once (to the host
+    under gloo); new tensors in the inputs' shapes, types and device.  Every
+    rank of a group gets the same bits."""
+    if not tensors:
+        return []
+    device = tensors[0].device
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    flat = flat.to(collective_device())
+    for group in groups:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = flat.to(device)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at: at + t.numel()].view(t.shape).to(t.dtype))
+        at += t.numel()
+    return out

@@ -19,6 +19,18 @@ e.g.
 ``tb_dir`` mirrors the metrics to TensorBoard (needs the ``tensorboard``
 package); ``train.remat_encoder=true`` recomputes the encoder's activations
 in the backward.  ``init_from_torch`` is not ported yet and raises.
+
+Across ranks, one job:
+
+    torchrun --nproc_per_node=N -m pytorch_asr_tpu_torch.train <config> \
+        [mesh.data_axis=D] [mesh.model_axis=M]
+
+(from Python, ``parallel.launch.spawn(train.main, N, argv)``).  Each data
+row of the mesh trains on its shard of the corpus, ``data.batch_size`` is
+the global batch, and the step is JAX's on it; the model axis splits a
+bidirectional BiLSTM's directions (M = 2) or the TCN's blocks (M dividing
+the channels), and any other model axis raises ``NotImplementedError``
+before the first step.  Rank 0 logs, writes the checkpoints and prints.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import IO, Any
+from typing import IO, Any, Callable
 
 
 class MetricsLogger:
@@ -63,13 +63,20 @@ class MetricsLogger:
 
 
 class Throughput:
-    """Audio seconds per second per chip, and steps per second, since ``reset``,
-    for the one device the port trains on.
+    """Audio seconds per second per chip, and steps per second, since ``reset``.
 
-    Host clock: the caller reads it after a device sync (the trainer reads
-    it where it fetches the logged values), so queued work is counted."""
+    ``num_chips`` divides the audio, as JAX's (the mesh's devices: data x
+    model across ranks); ``total`` (when given) turns this rank's audio
+    seconds into the run's, e.g. a sum over the data group, which counts
+    each data row's batches once: every rank of a run calls ``value`` at the
+    same steps.  Host clock: the caller reads it after a device sync (the
+    trainer reads it where it fetches the logged values), so queued work is
+    counted."""
 
-    def __init__(self) -> None:
+    def __init__(self, num_chips: int = 1,
+                 total: Callable[[float], float] | None = None) -> None:
+        self.num_chips = max(num_chips, 1)
+        self.total = total
         self.reset()
 
     def reset(self) -> None:
@@ -83,7 +90,8 @@ class Throughput:
 
     def value(self) -> dict[str, float]:
         dt = max(time.perf_counter() - self._t0, 1e-9)
+        audio = self._audio_sec if self.total is None else self.total(self._audio_sec)
         return {
-            "audio_seconds_per_sec_per_chip": self._audio_sec / dt,
+            "audio_seconds_per_sec_per_chip": audio / dt / self.num_chips,
             "steps_per_sec": self._steps / dt,
         }

@@ -5,13 +5,30 @@ One step runs frontend -> encoder (-> LAS decoder) -> the CTC, CE or joint
 loss -> gradients -> a global-norm clip -> the optimizer -> the EMA blend.
 The optimizer follows optax, not torch's defaults, where the two differ
 (``Optimizer``).
+
+Across ranks (a train state with a ``parallel.mesh.Mesh``) each rank's batch
+is its data row's share of the global batch, and the step is JAX's on that
+global batch: the loss divides by the global batch's valid rows and CE
+tokens (summed over the data group), so each data rank's loss is its share
+of the global loss; after the backward one flat collective over the model
+group sums the gradients the model ranks computed in part (the mode's split
+parameters, ``parallel/sharding.py::model_split``) and takes model rank 0's
+of the rest, which every model rank computed whole (cuDNN's convolution
+backward may choose an algorithm that is not deterministic, so two model
+ranks can hold other bits for the same gradient: rank 0's make them equal
+without a second summation order); then one over the data group sums every
+gradient (never over the world, which would count a data row once a model
+rank).  The clip, ``grad_norm``, the optimizer and the logged losses see
+the reduced values, every micro-batch under accumulation.  Every rank
+then holds the same parameters, bit for bit.
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -22,6 +39,8 @@ from pytorch_asr_tpu_torch.data.tokenizer import get_tokenizer
 from pytorch_asr_tpu_torch.models.asr_model import ASRModel
 from pytorch_asr_tpu_torch.ops import ctc_cuda
 from pytorch_asr_tpu_torch.ops.ce import make_decoder_io, smoothed_ce_loss
+from pytorch_asr_tpu_torch.parallel import sharding
+from pytorch_asr_tpu_torch.parallel.mesh import Mesh, all_reduce_flat
 
 
 def lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
@@ -147,13 +166,18 @@ def make_optimizer(cfg: OptimConfig, params: list[torch.Tensor]) -> Optimizer:
 @dataclass
 class TrainState:
     """Model, optimizer, EMA copy (or None), micro-batch step and the
-    generator that draws dropout and SpecAugment."""
+    generator that draws dropout and SpecAugment; across ranks the mesh,
+    the parameters its mode splits over the model ranks, and the seconds
+    spent in the gradient exchange (``exchange_s``, synchronised)."""
 
     model: ASRModel
     optimizer: Optimizer
     generator: torch.Generator
     step: int = 0
     ema: ASRModel | None = None
+    mesh: Mesh | None = None
+    split: frozenset = field(default_factory=frozenset)
+    exchange_s: float = 0.0
 
 
 def build_model(cfg: ExperimentConfig, device: torch.device) -> ASRModel:
@@ -162,14 +186,30 @@ def build_model(cfg: ExperimentConfig, device: torch.device) -> ASRModel:
     return model.to(device)
 
 
-def init_train_state(cfg: ExperimentConfig, model: ASRModel) -> TrainState:
+def data_seed(seed: int, data_index: int) -> int:
+    """The seed of data index d's generator: ``seed`` for d = 0 (a one-rank
+    run draws as before), another stream for each other data row; the model
+    ranks of a row share it, so they draw the same masks."""
+    return seed + (data_index << 32)
+
+
+def init_train_state(cfg: ExperimentConfig, model: ASRModel,
+                     mesh: Mesh | None = None) -> TrainState:
+    """The train state of ``model``; across ranks on ``mesh``, whose mode
+    (``sharding.tp_mode``) raises before any step where the port has none."""
     device = next(model.parameters()).device
     ema = None
     if cfg.train.ema_decay > 0.0:
         ema = copy.deepcopy(model).requires_grad_(False)
+    split = frozenset()
+    if mesh is not None:
+        split = frozenset(sharding.model_split((n for n, _ in model.named_parameters()),
+                                               sharding.tp_mode(cfg, mesh)))
+    d = mesh.data_index if mesh is not None and mesh.has_rows else 0
     return TrainState(
         model=model, optimizer=make_optimizer(cfg.train.optim, list(model.parameters())),
-        generator=torch.Generator(device=device).manual_seed(cfg.train.seed), ema=ema)
+        generator=torch.Generator(device=device).manual_seed(data_seed(cfg.train.seed, d)),
+        ema=ema, mesh=mesh, split=split)
 
 
 def eval_params(state: TrainState) -> ASRModel:
@@ -183,9 +223,23 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def loss_counts(cfg: ExperimentConfig, batch: dict, mesh: Mesh | None = None) -> dict:
+    """The loss normalizers of the global batch: its valid rows
+    (``audio_len`` > 0) and, with a decoder, its CE positions (each valid
+    row's labels and eos), as 0-d float32 tensors, summed over ``mesh``'s
+    data group (one collective) when it has more than one data row."""
+    valid = batch["audio_len"] > 0
+    counts = {"n_valid": valid.float().sum()}
+    if cfg.model.decoder is not None:
+        counts["ce_tokens"] = torch.where(valid, batch["token_len"] + 1, 0).float().sum()
+    if mesh is not None and mesh.data > 1:
+        counts = dict(zip(counts, all_reduce_flat(list(counts.values()), mesh.data_group)))
+    return counts
+
+
 def compute_losses(cfg: ExperimentConfig, model: ASRModel, batch: dict,
                    generator: torch.Generator | None = None, train: bool = False,
-                   step: int | None = None):
+                   step: int | None = None, counts: dict | None = None):
     """Forward + CTC / CE / joint loss -> (scalar loss, aux dict), as
     ``lambda * ctc + (1 - lambda) * ce`` with lambda = ``model.ctc_weight``:
     the CTC term only where lambda > 0, the CE term only where a decoder is
@@ -196,7 +250,9 @@ def compute_losses(cfg: ExperimentConfig, model: ASRModel, batch: dict,
     audio_len = token_len = 0).  CE: label-smoothed over the decoder's
     teacher-forced logits (``ops/ce.py``), pad rows given dec_len 0.  In
     train mode with scheduled sampling its probability ramps over
-    ``ss_ramp_steps`` optimizer steps: ``step`` counts micro-batches."""
+    ``ss_ramp_steps`` optimizer steps: ``step`` counts micro-batches.
+    ``counts`` (``loss_counts``) gives the global batch's normalizers when
+    ``batch`` is a data rank's share of it; by default the batch's own."""
     tok = get_tokenizer(cfg.data.vocab)
     tokens, token_len = batch["tokens"], batch["token_len"]
     dec = cfg.model.decoder
@@ -214,8 +270,9 @@ def compute_losses(cfg: ExperimentConfig, model: ASRModel, batch: dict,
     lam = cfg.model.ctc_weight
     valid = batch["audio_len"] > 0
     loss = torch.zeros((), device=out["enc"].device)
+    counts = counts or loss_counts(cfg, batch)
     if lam > 0.0:
-        n_valid = torch.clamp(valid.float().sum(), min=1.0)
+        n_valid = torch.clamp(counts["n_valid"], min=1.0)
         per_utt = ctc_cuda.ctc_loss(out["ctc_logits"], out["enc_len"], tokens, token_len)
         denom = torch.clamp(token_len.float(), min=1.0)
         ctc = torch.sum(per_utt / denom * valid.float()) / n_valid
@@ -224,28 +281,61 @@ def compute_losses(cfg: ExperimentConfig, model: ASRModel, batch: dict,
     if dec is not None and lam < 1.0:
         # Pad rows would score their eos slot against garbage encoder rows.
         dec_len_m = torch.where(valid, dec_len, 0)
-        ce = smoothed_ce_loss(out["dec_logits"], dec_out, dec_len_m, dec.label_smoothing)
+        ce = smoothed_ce_loss(out["dec_logits"], dec_out, dec_len_m, dec.label_smoothing,
+                              count=counts["ce_tokens"])
         aux["ce_loss"] = ce
         loss = loss + (1.0 - lam) * ce
     aux["loss"] = loss
     return loss, aux
 
 
+def reduce_gradients(state: TrainState, grads: list[torch.Tensor], aux: dict
+                     ) -> list[torch.Tensor]:
+    """The step's gradients and logged losses across ranks (module
+    docstring): one flat collective over the model group, then one over the
+    data group.  The losses in ``aux`` become the global batch's."""
+    mesh = state.mesh
+    groups = [g for n, g in ((mesh.model, mesh.model_group), (mesh.data, mesh.data_group))
+              if n > 1]
+    if not groups:
+        return grads
+    names = [n for n, _ in state.model.named_parameters()]
+    keys = [k for k in ("loss", "ctc_loss", "ce_loss") if k in aux]
+    whole = mesh.model_index == 0
+    send = [g if whole or n in state.split else torch.zeros_like(g)
+            for n, g in zip(names, grads)]
+    send += [aux[k].detach().reshape(1) if whole else aux[k].new_zeros(1) for k in keys]
+    cuda = grads[0].is_cuda
+    if cuda:
+        torch.cuda.synchronize(grads[0].device)
+    t0 = time.perf_counter()
+    out = all_reduce_flat(send, *groups)
+    if cuda:
+        torch.cuda.synchronize(grads[0].device)
+    state.exchange_s += time.perf_counter() - t0
+    for k, v in zip(keys, out[len(grads):]):
+        aux[k] = v.reshape(())
+    return out[:len(grads)]
+
+
 def train_step(cfg: ExperimentConfig, state: TrainState, batch: dict) -> dict:
     """One micro-batch: gradients, the optimizer (an update every
     ``accum_steps``), and the EMA blend on real updates.  ``batch`` holds
-    tensors on the model's device.  Returns the aux dict of 0-d tensors plus
+    tensors on the model's device: across ranks, this data row's share of
+    the global batch.  Returns the aux dict of 0-d tensors plus
     ``grad_norm`` (before the clip) and ``lr`` (the one applied)."""
-    model = state.model
+    model, mesh = state.model, state.mesh
     for p in model.parameters():
         p.grad = None
     loss, aux = compute_losses(cfg, model, batch, state.generator, train=True,
-                               step=state.step)
+                               step=state.step, counts=loss_counts(cfg, batch, mesh))
     loss.backward()
     params = list(model.parameters())
     # A parameter off the loss's graph (the CTC head at ctc_weight 0) gets a
     # zero gradient, as under jax.grad, so AdamW still decays it.
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    if mesh is not None:
+        grads = reduce_gradients(state, grads, aux)
     aux["grad_norm"] = global_norm(grads)
     accum = max(cfg.train.optim.accum_steps, 1)
     aux["lr"] = lr_schedule(cfg.train.optim)(state.step // accum)

@@ -80,6 +80,30 @@ def load_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             for k, v in state.items()}
 
 
+_PORT_NAMES = (
+    (re.compile(r"encoder\.conv\.convs\.(\d+)\.(weight|bias)"),
+     lambda i, w: f"encoder/ConvSubsampler_0/Conv_{i}/{'kernel' if w == 'weight' else 'bias'}"),
+    (re.compile(r"encoder\.layers\.(\d+)\.(fwd|bwd)\.(wih|whh|bias)"),
+     lambda k, d, w: f"encoder/lstm{k}_{d}/{w}"),
+    (re.compile(r"encoder\.stem\.(weight|bias)"),
+     lambda w: f"encoder/Conv_0/{'kernel' if w == 'weight' else 'bias'}"),
+    (re.compile(r"encoder\.blocks\.(\d+)\.(\w+)"), lambda i, w: f"encoder/block{i}/{w}"),
+    (re.compile(r"encoder\.final_ln\.(weight|bias)"),
+     lambda w: f"encoder/LayerNorm_0/{'scale' if w == 'weight' else 'bias'}"),
+    (re.compile(r"las\.(\w+)"), lambda w: f"las/{w}"),
+    (re.compile(r"ctc_head\.(weight|bias)"),
+     lambda w: f"ctc_head/{'kernel' if w == 'weight' else 'bias'}"))
+
+
+def jax_path(name: str) -> str:
+    """The JAX tree path of the port parameter ``name``: the inverse of
+    ``load_jax_params``'s naming."""
+    for rx, path in _PORT_NAMES:
+        if m := rx.fullmatch(name):
+            return path(*m.groups())
+    raise KeyError(f"no JAX path for the parameter {name!r}")
+
+
 _RNN_LM = re.compile(r"embed|w_out|b_out|lstm\d+_(wx|wh|b)")
 
 

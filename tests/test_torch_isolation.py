@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # The modules of the slices (greedy serving, training, beam serving,
 # config 3, RNN-LM fusion, the beam decode across ranks, the benchmark
 # scripts of the last four kernels, streaming and alignment, BPE, the
-# LibriSpeech reader and its host decoders, the training stream), each of which
+# LibriSpeech reader and its host decoders, the training stream, the
+# tensor-parallel rules of training across ranks), each of which
 # the probe must import without JAX.
 SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "decode", "evaluate", "ops.stft_cuda", "ops.lstm_cuda", "ops.ctc", "ops.ctc_cuda",
@@ -28,7 +29,8 @@ SLICE_MODULES = [f"pytorch_asr_tpu_torch.{m}" for m in (
     "scripts.bench_prefix_beam", "scripts.bench_beam_compile", "scripts.bench_study_turns",
     "scripts.bench_kernel_turns", "decoding.streaming", "decoding.align", "align",
     "scripts.ptxas_report", "data.bpe", "decoding.lm_hashed", "decoding.prefix_beam_ref",
-    "train_bpe", "native", "data.flac", "data.librispeech", "data.stream")]
+    "train_bpe", "native", "data.flac", "data.librispeech", "data.stream",
+    "parallel.sharding")]
 
 _PROBE = """
 import importlib, json, pkgutil, sys

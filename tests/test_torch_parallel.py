@@ -4,7 +4,8 @@ and what reads them, in gloo ranks started by ``launch.spawn``.
 One process: the topology, the count-sum, the mesh's placement and row
 blocks.  Two ranks (one job): the count-sum and the model group's gather,
 the BiLSTM's direction split (bit-equal to the whole encoder, float32 and
-bf16), greedy eval over two data ranks (each utterance counted once), and
+bf16, its outputs and its gradients), greedy eval over two data ranks (each
+utterance counted once), and
 ``decode.main ... decode.shard_beams=true mesh.model_axis=2``, whose WER and
 hypotheses equal the one-rank decode, as the JAX package's
 ``tests/test_prefix_beam_sharded.py`` holds its own driver.  The ranks run
@@ -59,16 +60,30 @@ def _rank_job(dump: str, ckpt: str) -> dict:
     for dt in (torch.float32, torch.int32, torch.bfloat16):
         got = pmesh.model_all_gather(torch.full((2, 3), rank + 1.5).to(dt), 1, mesh)
         out["gathered"][str(dt)] = (str(got.dtype), got.float().numpy())
-    out["split"] = {}
+    out["split"], out["split_grads"] = {}, {}
     for dtype in DTYPES:
         cfg, audio, lens = _model_inputs(dtype)
         model = build_model(cfg, "cpu")
         with torch.inference_mode(), pmesh.use_mesh(mesh):
             out["split"][dtype] = {k: v.float().numpy() for k, v in model(audio, lens).items()}
+        with pmesh.use_mesh(mesh):
+            out["split_grads"][dtype] = _grads(model, audio, lens)
     ckpt_arg = f"train.checkpoint_dir={ckpt}"
     out["greedy"] = decode.main(GREEDY + [ckpt_arg])
     out["beam"] = decode.main(BEAM + [ckpt_arg, "decode.shard_beams=true", "mesh.model_axis=2",
                                       f"dump_path={dump}"])
+    return out
+
+
+def _grads(model, audio, lens) -> dict:
+    """The gradients of a fixed weighting of the CTC logits: every parameter
+    that received one, and the audio's."""
+    audio = audio.clone().requires_grad_(True)
+    logits = model(audio, lens)["ctc_logits"].float()
+    weight = torch.linspace(-1.0, 1.0, logits.numel()).reshape(logits.shape)
+    (logits * weight).sum().backward()
+    out = {n: p.grad.numpy() for n, p in model.named_parameters() if p.grad is not None}
+    out["audio"] = audio.grad.numpy()
     return out
 
 
@@ -86,7 +101,7 @@ def two_ranks(tmp_path_factory, ckpt):
 def test_one_process_has_no_group():
     assert distributed.initialize("cpu") == {"rank": 0, "world_size": 1, "local_rank": 0,
                                              "dist_backend": None}
-    assert distributed.is_primary() and distributed.host_shard() == (1, 0)
+    assert distributed.is_primary() and distributed.data_shard() == (1, 0)
     counts = distributed.sum_across_processes([3, 4])
     assert counts.dtype == np.int64 and counts.tolist() == [3, 4]
     assert distributed.sum_across_processes([0.5]).dtype == np.float64
@@ -156,11 +171,21 @@ def test_direction_split_is_bit_equal(two_ranks, dtype):
             assert np.array_equal(out["split"][dtype][k], v.float().numpy()), k
 
 
-def test_split_refuses_a_backward():
-    cfg, audio, lens = _model_inputs("float32")
-    model = build_model(cfg, "cpu")
-    with pmesh.use_mesh(pmesh.Mesh(1, 2, 0, 0)), pytest.raises(NotImplementedError):
-        model(audio, lens)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_direction_split_gradients_equal_the_whole_encoders(two_ranks, dtype):
+    """Under autograd each model rank's own direction gets the whole
+    encoder's gradients bit for bit, the other direction none; the conv
+    front end, the head and the audio (dx summed over the two ranks) get
+    the whole encoder's on both ranks."""
+    runs, _ = two_ranks
+    cfg, audio, lens = _model_inputs(dtype)
+    want = _grads(build_model(cfg, "cpu"), audio, lens)
+    for rank, out in enumerate(runs):
+        got = out["split_grads"][dtype]
+        other = ".bwd." if rank == 0 else ".fwd."
+        assert set(got) == {k for k in want if other not in k}, rank
+        for k, v in got.items():
+            assert np.array_equal(v, want[k]), (rank, k)
 
 
 def test_greedy_eval_over_data_ranks_counts_each_utterance_once(two_ranks, ckpt):
